@@ -1,0 +1,139 @@
+"""PyTorch port: the rules around it. It imports nothing of JAX or of the
+JAX package; its entry points need CUDA unless asked for the CPU; kernel
+wrappers take their plain versions only for CPU tensors and never swallow
+an error; every option outside the slice raises NotImplementedError."""
+
+import ast
+import dataclasses
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from variational_mmt_torch import kernels
+from variational_mmt_torch.config import DecodeConfig, ModelConfig
+from variational_mmt_torch.data.vocab import SPECIALS, Vocab
+from variational_mmt_torch.decode.translator import Translator, make_translate_fn
+from variational_mmt_torch.models.model import build_model
+from variational_mmt_torch.ops import decode_step as ds
+from variational_mmt_torch.ops import gru_scan
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "variational_mmt_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "variational_mmt_tpu")
+TINY = dict(model_type="vmmt_c", src_vocab_size=24, tgt_vocab_size=24, emb_dim=16,
+            hidden_dim=16, latent_dim=4, img_feat_dim=6, compute_dtype="float32",
+            use_pallas=True)
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_nothing_of_jax(path):
+    bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_port_package_found():
+    names = {p.name for p in PORT_FILES}
+    assert {"chip_smoke.py", "translator.py", "gru_scan.py", "decode_step.py"} <= names
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
+    cfg = ModelConfig(**TINY)
+    vocab = Vocab(SPECIALS + ["a", "b"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_model(cfg)
+    model = build_model(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Translator(model, vocab, vocab)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Translator(model, vocab, vocab, device="cuda")
+    assert Translator(model, vocab, vocab, device="cpu").device.type == "cpu"
+
+
+def test_wrappers_have_no_try_that_could_fall_back():
+    for mod in (gru_scan, ds, kernels):
+        tree = ast.parse(pathlib.Path(mod.__file__).read_text())
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], mod.__name__
+
+
+def test_wrappers_on_a_non_cpu_tensor_launch_or_raise(monkeypatch):
+    """Off the CPU a wrapper goes to its kernel; an error there reaches the
+    caller (meta tensors stand in for CUDA ones: shapes, no data)."""
+    class NoKernel(RuntimeError):
+        pass
+
+    def library(name):
+        raise NoKernel(name)
+
+    monkeypatch.setattr(kernels, "library", library)
+    meta = lambda *s: torch.empty(*s, device="meta")  # noqa: E731
+    N, S, H = 4, 3, 8
+    chain = (meta(N, 3 * H), meta(N, H), meta(N, H), meta(N, H), meta(H, 3 * H),
+             meta(H, 3 * H), meta(3 * H), meta(H, 3 * H), meta(3 * H), meta(H, 3 * H),
+             meta(3 * H))
+    with pytest.raises(NoKernel):
+        gru_scan.gru_layer_scan(meta(N, 5, 3 * H), meta(N, 5), meta(N, H), meta(H, 3 * H),
+                                meta(3 * H))
+    with pytest.raises(NoKernel):
+        ds.gru_chain(*chain)
+    with pytest.raises(NoKernel):
+        ds.decode_step(*chain, meta(N, S, H), meta(N, S, H), meta(H, H), meta(N, S))
+    with pytest.raises(TypeError):  # mixed dtypes are refused, not converted
+        ds.gru_chain(chain[0].to(torch.bfloat16), *chain[1:])
+
+
+@pytest.mark.parametrize("over", [
+    dict(model_type="vmmt_f"), dict(model_type="nmt"), dict(rnn_type="lstm"),
+    dict(attn_type="dot"), dict(attn_type="mlp"), dict(z_cond="init+input"),
+    dict(img_feat_type="conv", img_pool="attn"), dict(share_embeddings=True),
+    dict(input_feed=False),
+], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
+def test_unsupported_model_options_raise(over):
+    with pytest.raises(NotImplementedError):
+        build_model(ModelConfig(**{**TINY, **over}), device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    dict(sampling_temp=1.0, beam_size=1), dict(latent_from="sample"),
+    dict(coverage_beta=0.2), dict(block_ngram_repeat=2), dict(replace_unk=True),
+    dict(dump_beam=True), dict(infer_dtype="bfloat16"), dict(infer_dtype="int8"),
+], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
+def test_unsupported_decode_options_raise(over):
+    model = build_model(ModelConfig(**TINY), device="cpu")
+    with pytest.raises(NotImplementedError):
+        make_translate_fn(model, dataclasses.replace(DecodeConfig(), **over))
+
+
+def test_ensembles_mesh_and_packing_raise():
+    model = build_model(ModelConfig(**TINY), device="cpu")
+    vocab = Vocab(SPECIALS + ["a", "b"])
+    with pytest.raises(NotImplementedError):
+        Translator([model, model], vocab, vocab, device="cpu")
+    with pytest.raises(NotImplementedError):
+        Translator(model, vocab, vocab, mesh=object(), device="cpu")
+    x = torch.zeros(2, 3, 12)
+    with pytest.raises(NotImplementedError):
+        gru_scan.gru_layer_scan(x, torch.ones(2, 3), torch.zeros(2, 4), torch.zeros(4, 12),
+                                torch.zeros(12), reset=torch.zeros(2, 3))
+
+
+def test_conv_features_are_mean_pooled():
+    cfg = ModelConfig(**{**TINY, "img_feat_type": "conv"})
+    model = build_model(cfg, device="cpu")
+    img = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 3, 6)).astype(np.float32))
+    assert torch.equal(model._img_in(img), img.mean(dim=1))

@@ -1,0 +1,79 @@
+"""PyTorch port: each CUDA kernel against its plain version on the card, at
+small ragged shapes (hidden sizes and row counts that do not fill a tile,
+more source positions than a warp). Marked ``cuda``; skipped without a
+card. On a machine with a card and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: float32 1e-4 absolute (summation order only); bfloat16 2e-2
+absolute (outputs in [-1, 1], rounded to bf16)."""
+
+import math
+
+import pytest
+import torch
+
+from variational_mmt_torch.ops import decode_step as ds
+from variational_mmt_torch.ops import gru_scan
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+def close(got, want, dt):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert float((g.float() - w.float()).abs().max()) <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_scan_kernel(cuda, dt, reverse):
+    B, T, H = 9, 7, 40
+    r = lambda *s: torch.randn(*s, generator=cuda, device="cuda")  # noqa: E731
+    lengths = torch.tensor([7, 1, 3, 7, 5, 2, 6, 4, 7], device="cuda")
+    mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
+    args = (r(B, T, 3 * H).to(dt), mask, 0.1 * r(B, H), (r(H, 3 * H) / math.sqrt(H)).to(dt),
+            0.1 * r(3 * H))
+    close(gru_scan.gru_layer_scan(*args, reverse), gru_scan.gru_layer_scan_ref(*args, reverse), dt)
+
+
+def step_args(g, dt, N=37, S=40, H=72):
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    w = lambda *s: (r(*s) / math.sqrt(H)).to(dt)  # noqa: E731
+    chain = (r(N, 3 * H).to(dt), torch.tanh(r(N, H)).to(dt), torch.tanh(r(N, H)).to(dt),
+             torch.tanh(r(N, H)).to(dt), w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H),
+             w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H))
+    lengths = torch.randint(1, S + 1, (N,), generator=g, device="cuda")
+    mask_bias = (torch.arange(S, device="cuda")[None] >= lengths[:, None]).float() * -1e9
+    return chain, ((0.5 * r(N, S, H)).to(dt), (0.5 * r(N, S, H)).to(dt), w(H, H), mask_bias)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_decode_step_kernel(cuda, dt):
+    chain, attn = step_args(cuda, dt)
+    close(ds.decode_step(*chain, *attn), ds.decode_step_ref(*chain, *attn), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_gru_chain_kernel(cuda, dt):
+    chain, _ = step_args(cuda, dt)
+    close(ds.gru_chain(*chain), ds.gru_chain_ref(*chain), dt)
+
+
+def test_kernel_counts_launches(cuda):
+    chain, attn = step_args(cuda, torch.float32, N=4, S=3, H=8)
+    before = (ds.decode_step.launches, ds.gru_chain.launches)
+    ds.decode_step(*chain, *attn)
+    ds.gru_chain(*chain)
+    assert (ds.decode_step.launches, ds.gru_chain.launches) == (before[0] + 1, before[1] + 1)

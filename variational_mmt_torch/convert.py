@@ -1,0 +1,67 @@
+"""Parameters across frameworks.
+
+``params_from_jax`` turns a JAX parameter tree (nested dicts of arrays, as
+``variational_mmt_tpu.models.model.init_params`` or a checkpoint's params
+give it) into the port's ``state_dict``; ``params_to_jax`` is its inverse.
+The port keeps the JAX layouts (Dense kernels ``(in, out)``, ``[r|z|n]``
+gate blocks, ``hh_kernel (H, 3H)``), so the conversion only renames: the
+tree path ``decoder/step/attn/linear_in/kernel`` is the parameter
+``decoder.step.attn.linear_in.kernel``. Every leaf must map to a
+parameter of the same shape and every parameter must have a leaf.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from variational_mmt_torch.config import ModelConfig
+from variational_mmt_torch.models.model import param_shapes
+
+
+def flatten(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    """Nested dicts -> {dotted path: leaf}."""
+    flat: Dict[str, object] = {}
+    for k, v in tree.items():
+        path = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            flat.update(flatten(v, path + "."))
+        else:
+            flat[path] = v
+    return flat
+
+
+def unflatten(flat: Mapping[str, object]) -> dict:
+    """{dotted path: leaf} -> nested dicts."""
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        *parents, leaf = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """JAX parameter tree -> the port's state_dict (f32 CPU tensors)."""
+    flat = flatten(tree)
+    want = param_shapes(cfg)
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise KeyError(f"parameter trees differ: missing {missing}, unexpected {extra}")
+    out = {}
+    for name, shape in want.items():
+        arr = np.array(flat[name], dtype=np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape} != {shape}")
+        out[name] = torch.from_numpy(arr)
+    return out
+
+
+def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """The port's state_dict -> a JAX-layout tree of numpy f32 arrays."""
+    return unflatten({k: v.detach().float().cpu().numpy() for k, v in state_dict.items()})

@@ -1,0 +1,41 @@
+"""Vocabulary with the reference's special-token contract.
+
+Mirrors ``variational_mmt_tpu/data/vocab.py``: ids 0..3 are
+<blank>/<unk>/<s>/</s>, so padding is id 0.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, List, Sequence
+
+from variational_mmt_torch.data.bpe import remove_bpe
+
+PAD, UNK, BOS, EOS = 0, 1, 2, 3
+PAD_TOK, UNK_TOK, BOS_TOK, EOS_TOK = "<blank>", "<unk>", "<s>", "</s>"
+SPECIALS = [PAD_TOK, UNK_TOK, BOS_TOK, EOS_TOK]
+
+
+class Vocab:
+    def __init__(self, itos: List[str]):
+        if list(itos[:4]) != SPECIALS:
+            raise ValueError("specials must occupy ids 0..3")
+        self.itos = list(itos)
+        self.stoi: Dict[str, int] = {s: i for i, s in enumerate(self.itos)}
+
+    def __len__(self) -> int:
+        return len(self.itos)
+
+    def encode(self, tokens: Sequence[str]) -> List[int]:
+        return [self.stoi.get(t, UNK) for t in tokens]
+
+    def ids_to_text(self, ids: Sequence[int], debpe: bool = True) -> str:
+        """Hypothesis ids -> text: vocab decode (specials kept), then
+        BPE-joiner removal."""
+        toks = [self.itos[i] if 0 <= i < len(self.itos) else UNK_TOK for i in map(int, ids)]
+        return " ".join(remove_bpe(toks) if debpe else toks)
+
+    @classmethod
+    def load(cls, path: str) -> "Vocab":
+        with open(path, encoding="utf-8") as f:
+            return cls(json.load(f))

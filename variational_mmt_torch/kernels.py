@@ -1,0 +1,129 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+At first use each source is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library under ``build/vmmt_torch_kernels/`` at the repo root.
+The file name carries a hash of the source and the flags, so a library is
+rebuilt only when its source changes; all missing libraries are compiled
+in parallel, one ``nvcc`` per source. The libraries have a plain C
+interface and are loaded with ``ctypes``: every pointer and the stream go
+as ``c_void_p``, sizes and flags as ``c_int``, and each entry point returns
+``cudaGetLastError()``, which :func:`check` turns into an exception.
+
+Nothing here runs at import time: the CPU tests import every module of the
+port, and this machine may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "vmmt_torch_kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# library name -> {C entry point: argtypes}
+SIGNATURES: Dict[str, Dict[str, list]] = {
+    "gru_scan": {
+        # dtype, x_proj, mask, h0, wh, bh, outs, final, B, T, H, reverse, stream
+        "vmmt_gru_scan": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+    },
+    "decode_step": {
+        # dtype, emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1,
+        # bh1, h0n, h1n, N, H, stream
+        "vmmt_gru_chain": [_I] + [_P] * 13 + [_I] * 2 + [_P],
+        # dtype, the 11 chain inputs, keys, mem_v, wc_q, mask_bias, h0n,
+        # h1n, attn, probs, qw scratch, N, S, H, stream
+        "vmmt_decode_step": [_I] + [_P] * 20 + [_I] * 3 + [_P],
+    },
+}
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
+        return os.path.join(CUDA_HOME, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return BUILD_DIR / f"lib{name}-{digest}.so"
+
+
+def build() -> Dict[str, str]:
+    """Compile every library that is missing, in parallel. Returns
+    {name: nvcc's output (ptxas register and shared-memory report)}; an
+    empty string for a library that was already built."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in SIGNATURES:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True), tmp, out)
+    logs = {name: "" for name in SIGNATURES}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        logs[name], _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}.cu:\n{logs[name]}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return logs
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built first if needed), with argtypes
+    and restype declared for every entry point."""
+    path = _lib_path(name)
+    if not path.exists():
+        build()
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.vmmt_error_string.argtypes = [ctypes.c_int]
+    lib.vmmt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        msg = lib.vmmt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(what: str, device: torch.device, **tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on ``device`` (a CUDA device)."""
+    for name, t in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")

@@ -1,0 +1,120 @@
+"""Input-feeding GRU decoder with global attention, for decoding. Mirrors
+``variational_mmt_tpu/models/decoder.py``: ``DecoderStep`` (:43-110) and,
+from ``GRUDecoder``, ``ih_emb``, ``init_carry`` (:135),
+``project_memory`` (:333) and ``one_step`` (:357-411). The teacher-forced
+sequence path comes with the training slice.
+
+Carry = (per-layer hidden states, input-feed vector = the previous
+attentional hidden).
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+from torch import nn
+
+from variational_mmt_torch.models.attention import GlobalAttention
+from variational_mmt_torch.models.gru import gru_gates
+from variational_mmt_torch.models.layers import Dense
+from variational_mmt_torch.ops.decode_step import decode_step, gru_chain
+
+DecoderCarry = Tuple[Tuple[torch.Tensor, ...], torch.Tensor]
+
+
+class DecoderStep(nn.Module):
+    """One decoder timestep over the whole batch, from the embedding part of
+    the layer-0 input projection (``emb_proj`` (B, 3H)). Holds the recurrent
+    weights as raw (H, 3H) parameters, as the JAX module does."""
+
+    def __init__(self, hidden: int, layers: int = 2, attn_type: str = "general",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden = hidden
+        self.layers = layers
+        self.dtype = dtype
+        for l in range(layers):
+            setattr(self, f"hh_kernel{l}", nn.Parameter(torch.empty(hidden, 3 * hidden)))
+            setattr(self, f"hh_bias{l}", nn.Parameter(torch.empty(3 * hidden)))
+        self.ih_feed = Dense(hidden, 3 * hidden, use_bias=False, dtype=dtype)
+        for l in range(layers - 1):
+            self.add_module(f"ih_mid{l}", Dense(hidden, 3 * hidden, dtype=dtype))
+        self.attn = GlobalAttention(hidden, attn_type, dtype)
+
+    def hh(self, l: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Layer l's recurrent kernel and bias, cast to the compute dtype."""
+        return (getattr(self, f"hh_kernel{l}").to(self.dtype),
+                getattr(self, f"hh_bias{l}").to(self.dtype))
+
+    def forward(self, carry: DecoderCarry, emb_proj: torch.Tensor, memory: torch.Tensor,
+                src_mask: torch.Tensor, keys: torch.Tensor = None):
+        hs, feed = carry
+        x_proj = emb_proj + self.ih_feed(feed)
+        new_hs: List[torch.Tensor] = []
+        for l in range(self.layers):
+            wh, bh = self.hh(l)
+            s_new = gru_gates(x_proj, hs[l] @ wh + bh, hs[l])
+            new_hs.append(s_new)
+            if l + 1 < self.layers:
+                x_proj = getattr(self, f"ih_mid{l}")(s_new)
+        attn_h, align = self.attn(new_hs[-1], memory, src_mask, keys=keys)
+        return (tuple(new_hs), attn_h), (attn_h, align)
+
+
+class GRUDecoder(nn.Module):
+    def __init__(self, emb_dim: int, hidden: int, layers: int = 2,
+                 attn_type: str = "general", dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden = hidden
+        self.layers = layers
+        self.dtype = dtype
+        self.ih_emb = Dense(emb_dim, 3 * hidden, dtype=dtype)
+        self.step = DecoderStep(hidden, layers, attn_type, dtype)
+
+    def init_carry(self, init_hs: List[torch.Tensor]) -> DecoderCarry:
+        return (tuple(init_hs), torch.zeros_like(init_hs[-1]))
+
+    def project_memory(self, memory: torch.Tensor, with_values: bool = False):
+        """Pre-projected attention keys for repeated ``one_step`` calls;
+        ``with_values`` also hoists the context half of linear_out
+        (``mem_v = memory @ Wc_ctx``) and returns ``(keys, mem_v)``, the
+        layout the fused decode-step kernel reads."""
+        keys = self.step.attn.project_memory(memory)
+        if not with_values:
+            return keys
+        if self.layers != 2:
+            raise ValueError("project_memory(with_values=True) (fused decode step) "
+                             f"requires a 2-layer decoder, got {self.layers}")
+        p_out = self.step.attn.linear_out.kernel
+        mem_v = memory @ p_out[: self.hidden].to(memory.dtype)
+        return keys, mem_v
+
+    def one_step(self, carry: DecoderCarry, tok_emb: torch.Tensor, memory: torch.Tensor,
+                 src_mask: torch.Tensor, extra_input_proj: torch.Tensor = None, keys=None):
+        """Single decode step. ``keys`` selects the path as in JAX: a tensor
+        takes the plain step; a ``(keys, mem_v)`` 2-tuple the fused
+        decode-step kernel; a ``(keys,)`` 1-tuple the GRU-chain kernel with
+        attention in plain PyTorch."""
+        emb_proj = self.ih_emb(tok_emb)
+        if extra_input_proj is not None:
+            emb_proj = emb_proj + extra_input_proj
+        if not isinstance(keys, tuple):
+            new_carry, (attn_h, align) = self.step(carry, emb_proj, memory, src_mask, keys)
+            return new_carry, (attn_h, align)
+        step, dt = self.step, self.dtype
+        hs, feed = carry
+        wh0, bh0 = step.hh(0)
+        wh1, bh1 = step.hh(1)
+        wargs = (step.ih_feed.kernel.to(dt), wh0, bh0, step.ih_mid0.kernel.to(dt),
+                 step.ih_mid0.bias.to(dt), wh1, bh1)
+        if len(keys) == 1:
+            h0n, h1n = gru_chain(emb_proj, hs[0], hs[1], feed, *wargs)
+            attn_h, probs = step.attn(h1n, memory, src_mask, keys=keys[0])
+        else:
+            k, mem_v = keys
+            wc_q = step.attn.linear_out.kernel.to(dt)[self.hidden:]
+            mask_bias = (1.0 - src_mask.float()) * -1e9
+            h0n, h1n, attn_h, probs = decode_step(emb_proj, hs[0], hs[1], feed, *wargs,
+                                                  k, mem_v, wc_q, mask_bias)
+        return ((h0n, h1n), attn_h), (attn_h, probs)

@@ -1,0 +1,113 @@
+"""GRU recurrences. Mirrors ``variational_mmt_tpu/models/gru.py`` (GRU
+cells only; LSTM is not ported yet).
+
+The input projection of every timestep is hoisted out of the recurrence as
+one GEMM; only ``h @ Wh`` recurs. Masked steps pass the carry through, so
+the reverse direction is right over right-padded batches. Gates follow the
+cuDNN convention: ``r, z`` sigmoid, ``n = tanh(x_n + r * (h @ Whn + bhn))``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from variational_mmt_torch.models.layers import Dense
+
+
+def gru_gates(x_proj: torch.Tensor, h_proj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """New hidden state from precomputed projections, [r | z | n] layout.
+    x_proj, h_proj (..., 3H); h (..., H)."""
+    xr, xz, xn = x_proj.chunk(3, dim=-1)
+    hr, hz, hn = h_proj.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h
+
+
+def cell_layer_scan(x_proj: torch.Tensor, carry0: torch.Tensor, wh: torch.Tensor,
+                    bh: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                    reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scan one GRU layer over x_proj (B,T,3H) in plain PyTorch: the
+    ``use_pallas=False`` path. Returns (outs (B,T,H), final (B,H))."""
+    T = x_proj.shape[1]
+    h = carry0
+    outs: List[Optional[torch.Tensor]] = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        h_new = gru_gates(x_proj[:, t], h @ wh + bh, h)
+        if mask is not None:
+            h_new = torch.where(mask[:, t, None] > 0, h_new, h)
+        h = h_new
+        outs[t] = h
+    return torch.stack(outs, dim=1), h
+
+
+class UniGRU(nn.Module):
+    """One direction, one layer. Returns (outputs (B,T,H), final (B,H)).
+    With ``use_pallas`` the recurrence runs in the GRU-scan kernel
+    (ops/gru_scan.py), as the JAX package runs its Pallas kernel."""
+
+    def __init__(self, in_dim: int, hidden: int, reverse: bool = False,
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+        super().__init__()
+        self.hidden = hidden
+        self.reverse = reverse
+        self.dtype = dtype
+        self.use_pallas = use_pallas
+        self.ih = Dense(in_dim, 3 * hidden, dtype=dtype)
+        self.hh_kernel = nn.Parameter(torch.empty(hidden, 3 * hidden))
+        self.hh_bias = nn.Parameter(torch.empty(3 * hidden))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        x_proj = self.ih(x)
+        h0 = torch.zeros((x.shape[0], self.hidden), dtype=self.dtype, device=x.device)
+        if self.use_pallas:
+            from variational_mmt_torch.ops.gru_scan import gru_layer_scan
+
+            # as the JAX Pallas path: Wh in the compute dtype, bh in f32,
+            # f32 results cast to the compute dtype
+            outs, final = gru_layer_scan(x_proj, mask, h0, self.hh_kernel.to(self.dtype),
+                                         self.hh_bias, self.reverse)
+            return outs.to(self.dtype), final.to(self.dtype)
+        return cell_layer_scan(x_proj, h0, self.hh_kernel.to(self.dtype),
+                               self.hh_bias.to(self.dtype), mask=mask.to(self.dtype),
+                               reverse=self.reverse)
+
+
+class BiGRUEncoder(nn.Module):
+    """Bidirectional multi-layer GRU encoder. ``hidden`` is the total size:
+    each direction gets hidden // 2. Inference only (no dropout)."""
+
+    def __init__(self, in_dim: int, hidden: int, layers: int = 2,
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+        super().__init__()
+        if hidden % 2:
+            raise ValueError(f"BiGRUEncoder hidden must be even, got {hidden}")
+        self.layers = layers
+        half = hidden // 2
+        for layer in range(layers):
+            d = in_dim if layer == 0 else hidden
+            self.add_module(f"fwd{layer}", UniGRU(d, half, False, dtype, use_pallas))
+            self.add_module(f"bwd{layer}", UniGRU(d, half, True, dtype, use_pallas))
+
+    def forward(self, emb: torch.Tensor, mask: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """emb (B,T,E), mask (B,T) -> (memory (B,T,H), finals per layer
+        (B,H) laid out [fwd_final | bwd_final])."""
+        x = emb
+        finals: List[torch.Tensor] = []
+        for layer in range(self.layers):
+            fwd_out, fwd_fin = getattr(self, f"fwd{layer}")(x, mask)
+            bwd_out, bwd_fin = getattr(self, f"bwd{layer}")(x, mask)
+            x = torch.cat([fwd_out, bwd_out], dim=-1)
+            finals.append(torch.cat([fwd_fin, bwd_fin], dim=-1))
+        return x, finals
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(B,T,H), (B,T) -> (B,H) mean over real positions."""
+    m = mask[..., None].to(x.dtype)
+    return (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)

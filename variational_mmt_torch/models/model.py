@@ -1,0 +1,163 @@
+"""The VMMT model, decode-side. Mirrors ``variational_mmt_tpu/models/model.py``.
+
+The port covers the slice's configuration: ``vmmt_c`` (conditional prior
+p(z|x,v)) with a GRU encoder and a 2-layer input-feed GRU decoder with
+general attention, z conditioning the decoder through the bridge. Every
+other option raises ``NotImplementedError`` naming it. All parameters of a
+JAX vmmt_c tree exist here under the same dotted paths (``tgt_encoder``,
+``infnet`` and ``img_pred`` included, though their forward passes belong to
+training), so a tree round-trips whole through ``convert.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from variational_mmt_torch.config import ModelConfig
+from variational_mmt_torch.data.vocab import PAD
+from variational_mmt_torch.device import resolve_device
+from variational_mmt_torch.models.decoder import GRUDecoder
+from variational_mmt_torch.models.gru import BiGRUEncoder, masked_mean
+from variational_mmt_torch.models.latent import (ConditionalPrior, ImagePredictor,
+                                                 InferenceNetwork)
+from variational_mmt_torch.models.layers import Dense, Embed
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def check_supported(c: ModelConfig) -> None:
+    """Raise NotImplementedError for every option outside the slice."""
+    c.validate()
+    unsupported = [
+        ("model_type", c.model_type != "vmmt_c"),
+        ("rnn_type=lstm", c.rnn_type != "gru"),
+        (f"attn_type={c.attn_type}", c.attn_type != "general"),
+        ("z_cond=init+input", c.z_cond != "init"),
+        ("img_feat_type=conv with img_pool=attn",
+         c.img_feat_type == "conv" and c.img_pool == "attn"),
+        ("share_embeddings", c.share_embeddings),
+        ("input_feed=False", not c.input_feed),
+        (f"compute_dtype={c.compute_dtype}", c.compute_dtype not in DTYPES),
+    ]
+    bad = [name for name, on in unsupported if on]
+    if bad:
+        what = f"model_type={c.model_type}" if bad[0] == "model_type" else bad[0]
+        raise NotImplementedError(f"not ported yet: {what} (the port supports vmmt_c "
+                                  "with GRU cells, general attention, input feed)")
+
+
+class VMMTModel(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        check_supported(cfg)
+        c = self.cfg = cfg
+        dt = self.dt = DTYPES[c.compute_dtype]
+        H, E = c.hidden_dim, c.emb_dim
+        self.tgt_embed = Embed(c.tgt_vocab_size, E, dt)
+        self.src_embed = Embed(c.src_vocab_size, E, dt)
+        self.encoder = BiGRUEncoder(E, H, c.enc_layers, dt, c.use_pallas)
+        self.decoder = GRUDecoder(E, H, c.dec_layers, c.attn_type, dt)
+        if c.share_decoder_embeddings:
+            self.gen_bias = nn.Parameter(torch.empty(c.tgt_vocab_size))
+        else:
+            self.generator = Dense(H, c.tgt_vocab_size, dtype=dt)
+        use_img = c.img_feat_dim > 0
+        for l in range(c.dec_layers):
+            self.add_module(f"bridge{l}", Dense(H + c.latent_dim, H, dtype=dt))
+        self.tgt_encoder = BiGRUEncoder(E, H, 1, dt, c.use_pallas)
+        self.infnet = InferenceNetwork(H, c.img_feat_dim, c.latent_dim, H, c.min_sigma,
+                                       use_img, dt)
+        self.prior = ConditionalPrior(H, c.img_feat_dim, c.latent_dim, H, c.min_sigma,
+                                      use_img, dt)
+        if c.use_img_predict:
+            self.img_pred = ImagePredictor(c.latent_dim, c.img_feat_dim, H, dt)
+
+    def encode(self, src: torch.Tensor):
+        """src (B,S) -> (memory (B,S,H), finals [L x (B,H)], src_mask (B,S),
+        src_summary (B,H))."""
+        src_mask = (src != PAD).float()
+        memory, finals = self.encoder(self.src_embed(src), src_mask)
+        return memory, finals, src_mask, masked_mean(memory, src_mask)
+
+    def _img_in(self, img: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if img is not None and img.dim() == 3:  # conv features (B, R, D), mean-pooled
+            img = img.mean(dim=1)
+        return img
+
+    def prior_params(self, src_summary: torch.Tensor, img: Optional[torch.Tensor]):
+        """(mu_p, sigma_p) of the conditional prior p(z|x,v), in f32."""
+        return self.prior(src_summary, self._img_in(img))
+
+    def prior_latent(self, src_summary: torch.Tensor, img: Optional[torch.Tensor]):
+        """Decode-time latent-mean substitution: z = E_p[z]."""
+        return self.prior_params(src_summary, img)[0]
+
+    def init_decoder_state(self, finals: List[torch.Tensor], z: Optional[torch.Tensor]):
+        """Bridge: encoder finals (+ z) -> per-layer decoder init states."""
+        init_hs = []
+        for l in range(self.cfg.dec_layers):
+            f = finals[min(l, len(finals) - 1)]
+            if z is not None:
+                f = torch.cat([f, z.to(f.dtype)], dim=-1)
+            init_hs.append(torch.tanh(getattr(self, f"bridge{l}")(f)))
+        return init_hs
+
+    def _gen(self, h: torch.Tensor) -> torch.Tensor:
+        """Generator logits in f32 (tied or free kernel): the GEMM in the
+        compute dtype, then a cast."""
+        if self.cfg.share_decoder_embeddings:
+            w = self.tgt_embed.embedding.to(self.dt)
+            return (h @ w.t()).float() + self.gen_bias
+        return self.generator(h).float()
+
+    def z_extra_proj(self, z: Optional[torch.Tensor]):
+        return None  # z_cond=init: z enters through the bridge only
+
+    def decode_step(self, carry, tok: torch.Tensor, memory, src_mask, z, keys=None):
+        """One inference step: tok (N,) -> (carry, logits (N,V) f32, align)."""
+        carry, (attn_h, align) = self.decoder.one_step(
+            carry, self.tgt_embed(tok), memory, src_mask,
+            extra_input_proj=self.z_extra_proj(z), keys=keys)
+        return carry, self._gen(attn_h), align
+
+    def project_memory(self, memory: torch.Tensor, with_values: bool = False):
+        return self.decoder.project_memory(memory, with_values)
+
+    def init_decode_carry(self, init_hs):
+        return self.decoder.init_carry(init_hs)
+
+
+def build_model(cfg: ModelConfig, device=None) -> VMMTModel:
+    """The model on ``device`` (default cuda; raises without CUDA unless
+    ``device='cpu'``), parameters uninitialized: load them with
+    ``load_state_dict(convert.params_from_jax(tree, cfg))``."""
+    dev = resolve_device(device)
+    return VMMTModel(cfg).to(dev)
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """{dotted parameter path: shape} of the model, allocated nowhere."""
+    with torch.device("meta"):
+        return {k: tuple(v.shape) for k, v in VMMTModel(cfg).state_dict().items()}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0) -> dict:
+    """Random parameters as a JAX-layout tree of numpy f32 arrays, from a
+    numpy seed: Dense and recurrent kernels lecun-normal (std
+    1/sqrt(fan_in)), embeddings normal with std 1/sqrt(E), biases zero, as
+    the flax initializers draw them (not the same numbers)."""
+    from variational_mmt_torch.convert import unflatten
+
+    rng = np.random.default_rng(seed)
+    flat = {}
+    for name, shape in sorted(param_shapes(cfg).items()):
+        if len(shape) == 1:
+            flat[name] = np.zeros(shape, np.float32)
+            continue
+        fan = shape[1] if name.endswith("embedding") else shape[0]
+        flat[name] = (rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32)
+    return unflatten(flat)
