@@ -6,13 +6,35 @@ in PERF.md).
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the port's CUDA kernels from csrc/ (set-up time).
-3. Kernel phases: holds each kernel (GRU scan, decode step, GRU chain)
-   against its plain PyTorch version at the flagship shapes, in float32
-   (tolerance 1e-4 absolute: summation order only) and in bfloat16
-   (tolerance 2e-2 absolute on outputs in [-1, 1]: bf16 rounding of the
-   outputs and of products the kernel keeps in f32), and times kernel,
-   plain version and, for the scan, cuDNN's nn.GRU as a yardstick.
-4. Slice phase: vmmt_c at full width (the port's configs/vmmt_c_multi30k.json,
+3. Kernel phases, serving: holds each serving kernel (GRU scan, decode
+   step, GRU chain) against its plain PyTorch version at the flagship
+   shapes, in float32 (tolerance 1e-4 absolute: summation order only) and
+   in bfloat16 (tolerance 2e-2 absolute on outputs in [-1, 1]: bf16
+   rounding of the outputs and of products the kernel keeps in f32), and
+   times kernel, plain version and, for the scan, cuDNN's nn.GRU as a
+   yardstick.
+   Kernel phases, training: the GRU-scan backward (B=64, T=24, H=250, both
+   directions, padded rows) and the decoder sequence forward and backward
+   (B=64, T=25, S=24, H=500, dropout mask at p=0.3), every output and
+   gradient held to max|kernel - plain| / max|plain| per tensor, 1e-4 in
+   float32 (summation order) and 2e-2 in bfloat16 (rounding): gradients
+   are not bounded in [-1, 1], so the tolerance is relative to each
+   tensor's largest entry. The decoder's weights have the init scale (std
+   1/sqrt(H)) and its attention memory (keys, mem_v) std 0.1 for this
+   check. With memory of std 0.5 the scores are large, the softmax peaked,
+   and the 25-step recurrence through the fed-back attention amplifies
+   bf16 rounding until two correct bf16 evaluations differ by a few 1e-2
+   elementwise at the late steps. There the phase holds the bf16 kernel
+   against the bf16 plain version at 2e-2 over the first 4 steps each pass
+   processes (forward t < 4, backward t >= T-4), before the drift grows,
+   and over the whole sequence requires the kernel's distance from the f32
+   math of the same inputs to be at most 1.5 times the plain version's
+   (readings of 1.0 and 1.3 times, forward and backward, set that limit).
+   Times at bf16:
+   kernel, plain version and, for the scan backward, cuDNN's nn.GRU
+   backward (which also computes the input-projection gradients that the
+   port leaves to cuBLAS).
+4. Serving phase: vmmt_c at full width (the port's configs/vmmt_c_multi30k.json,
    vocab 10000/10000, bf16, use_pallas) with random weights from numpy seed 0
    through convert.py; Translator(device="cuda") answers three request
    batches of 256 sentences (beam 4, max_length 60) with pallas_step=1 and
@@ -21,8 +43,23 @@ in PERF.md).
    pallas_step 0, 1 and 2, in turns (1 2 0 0 2 1); in float32, 32 sentences
    through the kernel path and the all-plain path must agree on at least
    31 top-1 hypotheses.
-5. Prints one JSON line of per-kernel numbers, then the last line
-   {"ok": true, "device": {...}}.
+5. Training phase: the same model and weights (bf16, use_pallas, fused_ce,
+   pallas_decoder) in Trainer(device="cuda"): 30 optimizer steps over 4
+   fixed batches of 64 sentence pairs (lengths uniform in 8-24, 2048-d
+   |N(0,1)| image features, numpy seed 1). Every loss must be finite, the
+   mean loss of the last 4 steps below that of the first 4, and the launch
+   counts of the GRU scan, its backward and the decoder sequence kernels
+   must rise. Step time and target tokens/s for pallas_decoder True and
+   False, four runs of 20 steps each, in turns (1 0 0 1 1 0 0 1), with each
+   route's spread (max - min) / mean over its runs, and the peak device
+   memory.
+6. f32 training check: one batch, deterministic, no sampling; the kernel
+   path (use_pallas, pallas_decoder, fused_ce) against the all-plain path
+   (use_pallas=False, pallas_decoder=False, fused_ce=False): losses within
+   1e-4 relative, every parameter gradient within 1e-3 of its plain
+   tensor's largest entry, before and after 3 optimizer steps.
+7. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+   counterparts), then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
 port's package is not beside this script, or when any phase fails.
@@ -49,6 +86,12 @@ H100_BYTES_PER_S = 3.35e12
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 SCAN_SHAPE = dict(B=256, T=24, H=250)
 STEP_SHAPE = dict(N=1024, S=24, H=500)
+TRAIN_SCAN_SHAPE = dict(B=64, T=24, H=250)
+DEC_SHAPE = dict(B=64, T=25, S=24, H=500)
+DEC_MEM_STD, DEC_MEM_STD_PEAKED = 0.1, 0.5  # std of keys and mem_v (module docstring)
+PEAKED_STEPS, PEAKED_DRIFT_RATIO = 4, 1.5  # checks at memory std 0.5 (module docstring)
+TRAIN_BATCH, TRAIN_BATCHES, TRAIN_STEPS, TIMED_STEPS = 64, 4, 30, 20
+TIMED_ORDER = (True, False, False, True, True, False, False, True)  # pallas_decoder, in turns
 
 
 def fail(msg: str) -> None:
@@ -82,12 +125,156 @@ def max_err(got, want) -> float:
     return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
 
 
-def check_close(name: str, dtype: str, err: float) -> None:
+def check_close(name: str, dtype: str, err: float, what: str = "max_abs_err") -> None:
     ok = math.isfinite(err) and err <= TOL[dtype]
-    print(f"  {name} {dtype}: max_abs_err {err:.3e} (tolerance {TOL[dtype]:.0e}) "
+    print(f"  {name} {dtype}: {what} {err:.3e} (tolerance {TOL[dtype]:.0e}) "
           f"{'ok' if ok else 'MISMATCH'}")
     if not ok:
         fail(f"{name} kernel disagrees with its plain version in {dtype}")
+
+
+def rel_err(got, want) -> float:
+    """max over tensors of max|got - want| / max|want|."""
+    return max(float((g.float() - w.float()).abs().max()) / max(float(w.float().abs().max()),
+                                                                1e-30)
+               for g, w in zip(got, want))
+
+
+def scan_bwd_phase(gru_scan):
+    """GRU-scan backward at B=64, T=24, H=250, both directions."""
+    B, T, H = TRAIN_SCAN_SHAPE["B"], TRAIN_SCAN_SHAPE["T"], TRAIN_SCAN_SHAPE["H"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lengths = torch.randint(8, T + 1, (B,), generator=g, device="cuda")
+    mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).float()
+    rec = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        x = torch.randn(B, T, 3 * H, generator=g, device="cuda").to(dt)
+        h0 = torch.zeros(B, H, device="cuda")
+        wh = (torch.randn(H, 3 * H, generator=g, device="cuda") / math.sqrt(H)).to(dt)
+        bh = 0.1 * torch.randn(3 * H, generator=g, device="cuda")
+        gout = torch.randn(B, T, H, generator=g, device="cuda")
+        errs, abs_errs = [], []
+        for reverse in (False, True):
+            outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, reverse)
+            got = gru_scan.gru_layer_scan_bwd(x, mask, h0, wh, bh, outs, gout, reverse)
+            want = gru_scan.gru_layer_scan_bwd_ref(x, mask, h0, wh, bh, outs, gout, reverse)
+            torch.cuda.synchronize()
+            errs.append(rel_err(got, want))
+            abs_errs.append(max_err(got, want))
+        check_close("gru_scan_bwd", dt_name, max(errs), "max_rel_err")
+        rec[f"err_{dt_name}"], rec[f"abs_err_{dt_name}"] = max(errs), max(abs_errs)
+    args = (x, mask, h0, wh, bh, outs, gout, True)
+    rec["ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd(*args))
+    rec["plain_ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*args), iters=5)
+    gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
+    gru.flatten_parameters()
+    xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
+    xin.requires_grad_(True)
+    y, _ = gru(xin)
+    gy = torch.randn(y.shape, generator=g, device="cuda").to(torch.bfloat16)
+    rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        y, [xin, *gru.parameters()], gy, retain_graph=True))
+    b = 2  # bf16 bytes
+    n_bytes = (B * T * 3 * H * b + B * T * 4 + B * H * 4 + H * 3 * H * b + 3 * H * 4
+               + 2 * B * T * H * 4  # outs, g
+               + B * T * 3 * H * 4 + B * H * 4 + H * 3 * H * 4 + 3 * H * 4)  # dx, dh0, dWh, dbh
+    # gate recompute, dh_proj @ Wh^T, h_prev^T dh_proj: three (B*T, H) x (H, 3H) products
+    rec["bound_ms"], rec["bound_by"] = bound(n_bytes, 3 * 2.0 * B * T * H * 3 * H, "bfloat16")
+    return rec
+
+
+def decoder_inputs(g, dt, B, T, S, H, mem_std):
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    w = lambda *s: (r(*s) / math.sqrt(H)).to(dt)  # noqa: E731
+    dmid = ((torch.rand(B, T, H, generator=g, device="cuda") > 0.3).float() / 0.7).to(dt)
+    lengths = torch.randint(8, S + 1, (B,), generator=g, device="cuda")
+    mask_bias = (torch.arange(S, device="cuda")[None, :] >= lengths[:, None]).float() * -1e9
+    return (r(B, T, 3 * H).to(dt), dmid, torch.tanh(r(B, H)), torch.tanh(r(B, H)),
+            w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H),
+            w(H, 3 * H), 0.1 * r(3 * H), (mem_std * r(B, S, H)).to(dt),
+            (mem_std * r(B, S, H)).to(dt), w(H, H), mask_bias)
+
+
+def decoder_phase(dec):
+    """Decoder sequence forward and backward at B=64, T=25, S=24, H=500."""
+    B, T, S, H = (DEC_SHAPE[k] for k in ("B", "T", "S", "H"))
+    g = torch.Generator(device="cuda").manual_seed(4)
+    kernel = (dec.decoder_fwd, dec.decoder_bwd)
+    plain = (dec.decoder_fwd_ref, dec.decoder_bwd_ref)
+
+    def draw(dt, mem_std):
+        """Inputs, the forward streams the backward reads, and cotangents."""
+        args = decoder_inputs(g, dt, B, T, S, H, mem_std)
+        d = (torch.randn(B, T, H, generator=g, device="cuda"),
+             torch.randn(B, T, S, generator=g, device="cuda"))
+        return args, dec.decoder_fwd_ref(*args), d
+
+    def both(fns, args, streams, d):
+        out = fns[0](*args), fns[1](*args[:14], *streams, *d)
+        torch.cuda.synchronize()
+        return out
+
+    fwd, bwd = {}, {}
+    for dt_name in ("float32", "bfloat16"):
+        args, streams, d = draw(getattr(torch, dt_name), DEC_MEM_STD)
+        (got, got_b), (want, want_b) = both(kernel, args, streams, d), both(plain, args, streams, d)
+        for rec, gw in ((fwd, (got, want)), (bwd, (got_b, want_b))):
+            rec[f"err_{dt_name}"] = rel_err(*gw)
+            rec[f"abs_err_{dt_name}"] = max_err(*gw)
+        check_close("decoder_fwd", dt_name, fwd[f"err_{dt_name}"], "max_rel_err")
+        check_close("decoder_bwd", dt_name, bwd[f"err_{dt_name}"], "max_rel_err")
+    bargs = (*args[:14], *streams, *d)  # bf16, for the times below
+
+    # peaked attention: kernel against plain over the first steps each pass
+    # processes, and each bf16 version against the f32 math of its inputs
+    a16, s16, d = draw(torch.bfloat16, DEC_MEM_STD_PEAKED)
+    k, p = both(kernel, a16, s16, d), both(plain, a16, s16, d)
+    x = both(plain, tuple(a.float() for a in a16), tuple(t.float() for t in s16), d)
+    first = (range(PEAKED_STEPS), range(T - PEAKED_STEPS, T))  # forward, backward
+    for i, (name, rec) in enumerate((("decoder_fwd", fwd), ("decoder_bwd", bwd))):
+        dk, dp = rel_err(k[i], x[i]), rel_err(p[i], x[i])
+        ks, ps = [a for a in k[i] if a.dim() == 3], [a for a in p[i] if a.dim() == 3]
+        per_step = [rel_err([a[:, t] for a in ks], [a[:, t] for a in ps]) for t in range(T)]
+        early = max(per_step[t] for t in first[i])
+        rec["peaked"] = {"kernel_vs_f32": dk, "plain_vs_f32": dp, "first_steps": early,
+                         "per_step": per_step}
+        ok_early = math.isfinite(early) and early <= TOL["bfloat16"]
+        ok_drift = math.isfinite(dk) and dk <= PEAKED_DRIFT_RATIO * dp
+        print(f"  {name} bfloat16, memory std {DEC_MEM_STD_PEAKED}: max_rel_err over the first "
+              f"{PEAKED_STEPS} steps {early:.3e} (tolerance {TOL['bfloat16']:.0e}) "
+              f"{'ok' if ok_early else 'MISMATCH'}; by step t "
+              + " ".join(f"{e:.1e}" for e in per_step))
+        print(f"  {name} bfloat16, memory std {DEC_MEM_STD_PEAKED}: distance from the f32 math "
+              f"{dk:.3e} (kernel) vs {dp:.3e} (plain), ratio {dk / dp:.2f} (limit "
+              f"{PEAKED_DRIFT_RATIO}) {'ok' if ok_drift else 'MISMATCH'}")
+        if not ok_early:
+            fail(f"{name} kernel disagrees with its plain version over the first steps at "
+                 f"memory std {DEC_MEM_STD_PEAKED}")
+        if not ok_drift:
+            fail(f"{name} kernel is further from the f32 math than {PEAKED_DRIFT_RATIO} times "
+                 f"the plain version")
+    fwd["ms"] = cuda_ms(lambda: dec.decoder_fwd(*args))
+    fwd["plain_ms"] = cuda_ms(lambda: dec.decoder_fwd_ref(*args), iters=5)
+    bwd["ms"] = cuda_ms(lambda: dec.decoder_bwd(*bargs))
+    bwd["plain_ms"] = cuda_ms(lambda: dec.decoder_bwd_ref(*bargs), iters=5)
+    fwd["library_ms"] = bwd["library_ms"] = None
+    b = 2  # bf16 bytes
+    ins = (B * T * 3 * H * b + B * T * H * b + 2 * B * H * 4 + 4 * H * 3 * H * b + 3 * 3 * H * 4
+           + 2 * B * S * H * b + H * H * b)
+    streams = 3 * B * T * H * b + B * T * S * b  # attn_hs, h0s, h1s, probs
+    # the first step has no feed, so its feed product is skipped
+    fwd_flops = T * (4 * 2.0 * B * H * 3 * H + 2.0 * B * H * H + 4.0 * B * S * H) \
+        - 2.0 * B * H * 3 * H
+    fwd["bound_ms"], fwd["bound_by"] = bound(ins + B * S * 4 + streams, fwd_flops, "bfloat16")
+    bwd_bytes = (ins + streams + B * T * H * 4 + B * T * S * 4  # + d_attn, d_probs
+                 + 4 * B * T * 3 * H * 4 + B * T * H * 4 + B * T * S * 4 + 2 * B * H * 4)
+    # two gate recomputes (two products each), four products with W^T of
+    # (B, 3H) x (3H, H), dq, and the two attention contractions
+    bwd_flops = T * (8 * 2.0 * B * H * 3 * H + 2.0 * B * H * H + 4.0 * B * S * H) \
+        - 2.0 * B * H * 3 * H
+    bwd["bound_ms"], bwd["bound_by"] = bound(bwd_bytes, bwd_flops, "bfloat16")
+    return fwd, bwd
 
 
 def scan_phase(gru_scan):
@@ -180,35 +367,35 @@ def well_formed(out, n_sent: int, vocab_size: int, max_length: int) -> None:
             fail(f"malformed hypothesis {ids[:10]}...")
 
 
-def slice_phase(card: str):
-    from variational_mmt_torch.config import Config, DecodeConfig
-    from variational_mmt_torch.convert import params_from_jax
+def load_flagship():
+    """The port's vmmt_c config and its random weights (numpy seed 0)."""
+    from variational_mmt_torch.tools import flagship
+
+    t0 = time.time()
+    cfg, state = flagship.load()
+    m = cfg.model
+    print(f"flagship: vmmt_c emb {m.emb_dim} hidden {m.hidden_dim} layers "
+          f"{m.enc_layers}+{m.dec_layers} latent {m.latent_dim} img {m.img_feat_dim} "
+          f"vocab {m.src_vocab_size}/{m.tgt_vocab_size} {m.compute_dtype} "
+          f"use_pallas={m.use_pallas} fused_ce={m.fused_ce}; weights from numpy seed 0 "
+          f"in {time.time() - t0:.1f} s")
+    return cfg, state
+
+
+def slice_phase(card: str, cfg, state):
+    from variational_mmt_torch.config import DecodeConfig
     from variational_mmt_torch.data.vocab import SPECIALS, Vocab
     from variational_mmt_torch.decode.translator import Translator
-    from variational_mmt_torch.models.model import build_model, init_params
+    from variational_mmt_torch.models.model import build_model
     from variational_mmt_torch.ops import decode_step as ds, gru_scan
+    from variational_mmt_torch.tools import flagship
 
-    with open(os.path.join(HERE, "variational_mmt_torch", "configs", "vmmt_c_multi30k.json")) as f:
-        cfg = Config.from_json(f.read()).model
     V = cfg.tgt_vocab_size
-    print(f"slice: vmmt_c emb {cfg.emb_dim} hidden {cfg.hidden_dim} layers "
-          f"{cfg.enc_layers}+{cfg.dec_layers} latent {cfg.latent_dim} img {cfg.img_feat_dim} "
-          f"vocab {cfg.src_vocab_size}/{V} {cfg.compute_dtype} use_pallas={cfg.use_pallas}")
-    t0 = time.time()
-    tree = init_params(cfg, seed=0)
-    state = params_from_jax(tree, cfg)
     model = build_model(cfg, device="cuda")
     model.load_state_dict(state)
     vocab = Vocab(SPECIALS + [f"w{i}" for i in range(V - len(SPECIALS))])
-    print(f"slice: weights from numpy seed 0 in {time.time() - t0:.1f} s")
 
-    rng = np.random.default_rng(1)
-
-    def request(n):
-        src = [rng.integers(4, cfg.src_vocab_size, rng.integers(8, 25)).tolist() for _ in range(n)]
-        img = np.abs(rng.standard_normal((n, cfg.img_feat_dim))).astype(np.float32)
-        return src, img
-
+    request = flagship.requests(cfg)
     requests = [request(256) for _ in range(3)]
     translators = {m: Translator(model, vocab, vocab,
                                  DecodeConfig(beam_size=4, max_length=60, batch_size=256,
@@ -269,6 +456,115 @@ def slice_phase(card: str):
     return launches, rate
 
 
+def train_batches(cfg):
+    """The training cell's 4 fixed batches of 64 sentence pairs (numpy seed 1)."""
+    from variational_mmt_torch.tools import flagship
+
+    return flagship.train_batches(cfg.model, TRAIN_BATCHES, TRAIN_BATCH)
+
+
+def trainer_for(cfg, state, batches, **model_over):
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.train.trainer import Trainer
+
+    c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **model_over))
+    model = build_model(c.model, device="cuda")
+    model.load_state_dict(state)
+    return Trainer(c, model, batches, device="cuda")
+
+
+def train_phase(card: str, cfg, state):
+    """Trainer steps at full width; returns (launches, step numbers)."""
+    from variational_mmt_torch.ops import decoder as dec, gru_scan
+
+    batches = train_batches(cfg)
+    print(f"train: {len(batches)} batches of {TRAIN_BATCH} pairs, "
+          f"{sum(b.n_tokens for b in batches)} target tokens, lengths 8-24, seed 1")
+    counters = (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd, dec.decoder_fwd,
+                dec.decoder_bwd)
+    trainers = {p: trainer_for(cfg, state, batches, pallas_decoder=p) for p in (True, False)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    hist = trainers[True].train(TRAIN_STEPS)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train: launches on the training path ({TRAIN_STEPS} steps) {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched on the training path")
+    losses = [h["loss"] for h in hist]
+    print("train: losses " + " ".join(f"{v:.3f}" for v in losses))
+    if not all(math.isfinite(v) for v in losses):
+        fail("a training loss is not finite")
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    print(f"train: mean loss of the first 4 steps {first:.4f}, of the last 4 {last:.4f}")
+    if not last < first:
+        fail("the loss did not fall over the training steps")
+    print(f"train: peak device memory {peak / 2**20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated, pallas_decoder=True, {card})")
+
+    trainers[False].train(2)  # warm-up of the plain decoder route
+    runs = {True: [], False: []}
+    for p in TIMED_ORDER:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = trainers[p].train(TIMED_STEPS)
+        wall = time.perf_counter() - t0
+        runs[p].append((wall / TIMED_STEPS * 1e3, sum(h["n_tokens"] for h in done) / wall))
+    steps = {}
+    for p in (True, False):
+        ms_runs = [r[0] for r in runs[p]]
+        ms = float(np.mean(ms_runs))
+        tok = float(np.mean([r[1] for r in runs[p]]))
+        spread = (max(ms_runs) - min(ms_runs)) / ms
+        steps[f"pallas_decoder={int(p)}"] = {"step_ms": ms, "tgt_tok_per_s": tok,
+                                             "spread": spread, "runs_ms": ms_runs}
+        print(f"train: pallas_decoder={int(p)}: {ms:.2f} ms/step, {tok:.1f} target tok/s, "
+              f"spread {spread:.1%} (runs {', '.join(f'{a:.2f}' for a in ms_runs)} ms; "
+              f"batch {TRAIN_BATCH}, {TIMED_STEPS} steps per run, {card})")
+    steps["peak_mem_mib"] = peak / 2**20
+    return launches, steps
+
+
+def train_check_f32(cfg, state):
+    """Kernel path against the all-plain path in f32: loss and gradients
+    before and after 3 optimizer steps."""
+    from variational_mmt_torch.train.trainer import batch_tensors, loss_and_grads, make_train_step
+
+    batch = batch_tensors(train_batches(cfg)[0], torch.device("cuda"))
+    paths = {}
+    for name, over in (("kernel", dict(use_pallas=True, pallas_decoder=True, fused_ce=True)),
+                       ("plain", dict(use_pallas=False, pallas_decoder=False, fused_ce=False))):
+        paths[name] = trainer_for(cfg, state, [], compute_dtype="float32", **over)
+    worst = {}
+    for rnd in ("before", "after 3 steps"):
+        if rnd != "before":
+            for tr in paths.values():
+                step = make_train_step(tr.cfg, deterministic=True, sample=False)
+                for _ in range(3):
+                    tr.state, _ = step(tr.state, batch, None)
+        res = {}
+        for name, tr in paths.items():
+            loss, _, grads = loss_and_grads(tr.cfg, tr.model, batch, tr.state.step, None,
+                                            deterministic=True, sample=False)
+            res[name] = (float(loss.detach()), [g.detach().clone() for g in grads])
+        (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+        dloss = abs(lk - lp) / abs(lp)
+        names = [n for n, _ in paths["plain"].model.named_parameters()]
+        gerr = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                for n, a, b in zip(names, gk, gp)}
+        wn = max(gerr, key=gerr.get)
+        print(f"train f32 check ({rnd}): loss kernel {lk:.6f} plain {lp:.6f} rel diff "
+              f"{dloss:.2e} (tolerance 1e-4); worst gradient {wn} {gerr[wn]:.2e} of its max "
+              f"(tolerance 1e-3)")
+        if not (dloss <= 1e-4 and gerr[wn] <= 1e-3):
+            fail(f"f32 kernel path and plain path disagree ({rnd})")
+        worst[rnd] = {"loss_rel": dloss, "grad_rel": gerr[wn]}
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -276,7 +572,7 @@ def main() -> int:
         fail("variational_mmt_torch/ is not beside chip_smoke.py: run it from a checkout")
     sys.path.insert(0, HERE)
     from variational_mmt_torch import kernels
-    from variational_mmt_torch.ops import decode_step as ds, gru_scan
+    from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -296,25 +592,46 @@ def main() -> int:
 
     scan = scan_phase(gru_scan)
     step, chain = step_phase(ds)
-    launches, rate = slice_phase(card)
+    scan_bwd = scan_bwd_phase(gru_scan)
+    dec_fwd, dec_bwd = decoder_phase(dec)
+    cfg, state = load_flagship()
+    serve_launches, rate = slice_phase(card, cfg.model, state)
+    train_launches, steps = train_phase(card, cfg, state)
+    check = train_check_f32(cfg, state)
 
     entries = []
     for name, rec, src, replaces in (
         ("gru_layer_scan", scan, "variational_mmt_torch/csrc/gru_scan.cu",
          "variational_mmt_tpu/ops/pallas/gru.py:165"),
+        ("gru_layer_scan_bwd", scan_bwd, "variational_mmt_torch/csrc/gru_scan.cu",
+         "variational_mmt_tpu/ops/pallas/gru.py:297"),
         ("decode_step", step, "variational_mmt_torch/csrc/decode_step.cu",
          "variational_mmt_tpu/ops/pallas/decode_step.py:176"),
         ("gru_chain", chain, "variational_mmt_torch/csrc/decode_step.cu",
          "variational_mmt_tpu/ops/pallas/decode_step.py:118"),
+        ("decoder_fwd", dec_fwd, "variational_mmt_torch/csrc/decoder.cu",
+         "variational_mmt_tpu/ops/pallas/decoder.py:153"),
+        ("decoder_bwd", dec_bwd, "variational_mmt_torch/csrc/decoder.cu",
+         "variational_mmt_tpu/ops/pallas/decoder.py:304"),
     ):
-        entries.append({
+        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0)}
+        entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": rec["err_bfloat16"],
-            "max_abs_err_f32": rec["err_float32"], "dtype": "bfloat16",
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
-            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-        })
-    print(json.dumps({"kernels": entries, "sent_per_s": rate, "card": card}))
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": rec.get("abs_err_bfloat16", rec["err_bfloat16"]),
+            "dtype": "bfloat16", "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": rec["library_ms"],
+        }
+        if "peaked" in rec:  # the decoder's checks at attention memory std 0.5
+            entry["peaked"] = {k: v for k, v in rec["peaked"].items() if k != "per_step"}
+        if "abs_err_bfloat16" in rec:  # gradients: the relative error is the check
+            entry.update(max_rel_err=rec["err_bfloat16"], max_rel_err_f32=rec["err_float32"])
+        else:
+            entry.update(max_abs_err_f32=rec["err_float32"])
+        entries.append(entry)
+    print(json.dumps({"kernels": entries, "sent_per_s": rate, "train": steps,
+                      "train_f32_check": check, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -17,7 +17,7 @@ from variational_mmt_torch.data.vocab import SPECIALS, Vocab
 from variational_mmt_torch.decode.translator import Translator, make_translate_fn
 from variational_mmt_torch.models.model import build_model
 from variational_mmt_torch.ops import decode_step as ds
-from variational_mmt_torch.ops import gru_scan
+from variational_mmt_torch.ops import decoder, gru_scan
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "variational_mmt_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -44,7 +44,8 @@ def test_port_imports_nothing_of_jax(path):
 
 def test_port_package_found():
     names = {p.name for p in PORT_FILES}
-    assert {"chip_smoke.py", "translator.py", "gru_scan.py", "decode_step.py"} <= names
+    assert {"chip_smoke.py", "translator.py", "gru_scan.py", "decode_step.py", "decoder.py",
+            "trainer.py"} <= names
 
 
 @pytest.fixture
@@ -66,7 +67,7 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
 
 
 def test_wrappers_have_no_try_that_could_fall_back():
-    for mod in (gru_scan, ds, kernels):
+    for mod in (gru_scan, ds, decoder, kernels):
         tree = ast.parse(pathlib.Path(mod.__file__).read_text())
         assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], mod.__name__
 
@@ -95,6 +96,19 @@ def test_wrappers_on_a_non_cpu_tensor_launch_or_raise(monkeypatch):
         ds.decode_step(*chain, meta(N, S, H), meta(N, S, H), meta(H, H), meta(N, S))
     with pytest.raises(TypeError):  # mixed dtypes are refused, not converted
         ds.gru_chain(chain[0].to(torch.bfloat16), *chain[1:])
+    T = 5
+    scan = (meta(N, T, 3 * H), meta(N, T), meta(N, H), meta(H, 3 * H), meta(3 * H))
+    with pytest.raises(NoKernel):
+        gru_scan.gru_layer_scan_bwd(*scan, meta(N, T, H), meta(N, T, H))
+    seq = (meta(N, T, 3 * H), meta(N, T, H), meta(N, H), meta(N, H)) + chain[4:] + (
+        meta(N, S, H), meta(N, S, H), meta(H, H))
+    with pytest.raises(NoKernel):
+        decoder.decoder_fwd(*seq, meta(N, S))
+    with pytest.raises(NoKernel):
+        decoder.decoder_bwd(*seq, meta(N, T, H), meta(N, T, H), meta(N, T, H), meta(N, T, S),
+                            meta(N, T, H), meta(N, T, S))
+    with pytest.raises(TypeError):
+        decoder.decoder_fwd(seq[0].to(torch.bfloat16), *seq[1:], meta(N, S))
 
 
 @pytest.mark.parametrize("over", [

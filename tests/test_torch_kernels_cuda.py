@@ -5,8 +5,10 @@ card. On a machine with a card and no JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Tolerances: float32 1e-4 absolute (summation order only); bfloat16 2e-2
-absolute (outputs in [-1, 1], rounded to bf16)."""
+Tolerances: forward outputs in [-1, 1], float32 1e-4 absolute (summation
+order only), bfloat16 2e-2 absolute (rounding to bf16). Gradients are not
+bounded, so the backward kernels are held to max|kernel - plain| /
+max|plain| per tensor: 1e-4 in float32, 2e-2 in bfloat16."""
 
 import math
 
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 from variational_mmt_torch.ops import decode_step as ds
-from variational_mmt_torch.ops import gru_scan
+from variational_mmt_torch.ops import decoder, gru_scan
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -48,6 +50,57 @@ def test_gru_scan_kernel(cuda, dt, reverse):
     close(gru_scan.gru_layer_scan(*args, reverse), gru_scan.gru_layer_scan_ref(*args, reverse), dt)
 
 
+def close_rel(got, want, dt):
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        scale = max(float(w.float().abs().max()), 1e-30)
+        assert float((g.float() - w.float()).abs().max()) / scale <= TOL[dt]
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_gru_scan_bwd_kernel(cuda, dt, reverse):
+    B, T, H = 9, 7, 40
+    r = lambda *s: torch.randn(*s, generator=cuda, device="cuda")  # noqa: E731
+    lengths = torch.tensor([7, 1, 3, 7, 5, 2, 6, 4, 7], device="cuda")
+    mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
+    args = (r(B, T, 3 * H).to(dt), mask, 0.1 * r(B, H), (r(H, 3 * H) / math.sqrt(H)).to(dt),
+            0.1 * r(3 * H))
+    outs, _ = gru_scan.gru_layer_scan_ref(*args, reverse)
+    g = r(B, T, H)
+    close_rel(gru_scan.gru_layer_scan_bwd(*args, outs, g, reverse),
+              gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, reverse), dt)
+
+
+def decoder_args(g, dt, B=9, T=6, S=40, H=72):
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    w = lambda *s: (r(*s) / math.sqrt(H)).to(dt)  # noqa: E731
+    dmid = ((torch.rand(B, T, H, generator=g, device="cuda") > 0.3).float() / 0.7).to(dt)
+    lengths = torch.randint(1, S + 1, (B,), generator=g, device="cuda")
+    mask_bias = (torch.arange(S, device="cuda")[None] >= lengths[:, None]).float() * -1e9
+    return (r(B, T, 3 * H).to(dt), dmid, torch.tanh(r(B, H)), torch.tanh(r(B, H)),
+            w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H),
+            w(H, 3 * H), 0.1 * r(3 * H), (0.5 * r(B, S, H)).to(dt), (0.5 * r(B, S, H)).to(dt),
+            w(H, H), mask_bias)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_decoder_fwd_kernel(cuda, dt):
+    args = decoder_args(cuda, dt)
+    close(decoder.decoder_fwd(*args), decoder.decoder_fwd_ref(*args), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_decoder_bwd_kernel(cuda, dt):
+    args = decoder_args(cuda, dt)
+    streams = decoder.decoder_fwd_ref(*args)
+    d_attn = torch.randn(streams[0].shape, generator=cuda, device="cuda")
+    d_probs = torch.randn(streams[3].shape, generator=cuda, device="cuda")
+    close_rel(decoder.decoder_bwd(*args[:14], *streams, d_attn, d_probs),
+              decoder.decoder_bwd_ref(*args[:14], *streams, d_attn, d_probs), dt)
+
+
 def step_args(g, dt, N=37, S=40, H=72):
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
     w = lambda *s: (r(*s) / math.sqrt(H)).to(dt)  # noqa: E731
@@ -77,3 +130,10 @@ def test_kernel_counts_launches(cuda):
     ds.decode_step(*chain, *attn)
     ds.gru_chain(*chain)
     assert (ds.decode_step.launches, ds.gru_chain.launches) == (before[0] + 1, before[1] + 1)
+    args = decoder_args(cuda, torch.float32, B=3, T=2, S=3, H=8)
+    counters = (decoder.decoder_fwd, decoder.decoder_bwd)
+    before = [f.launches for f in counters]
+    streams = decoder.decoder_fwd(*args)
+    decoder.decoder_bwd(*args[:14], *streams, torch.ones_like(streams[0]).float(),
+                        torch.ones_like(streams[3]).float())
+    assert [f.launches for f in counters] == [n + 1 for n in before]

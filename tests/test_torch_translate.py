@@ -56,7 +56,7 @@ def test_prior_latent_matches_jax():
     assert torch.equal(t_z, t_mu)
 
 
-@pytest.mark.parametrize("pallas_step,beam_size", [(0, 4), (1, 4), (1, 2)])
+@pytest.mark.parametrize("pallas_step,beam_size", [(0, 4), (1, 4), (1, 2), (2, 4)])
 def test_translator_matches_jax(pallas_step, beam_size):
     jmodel, tree, model, img = setup()
     kw = dict(beam_size=beam_size, n_best=beam_size, max_length=10, batch_size=4,

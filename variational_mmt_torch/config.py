@@ -1,10 +1,20 @@
 """Model and decode configuration of the PyTorch port.
 
-Mirrors ``variational_mmt_tpu/config.py``: ``ModelConfig`` (:30-109) and
-``DecodeConfig`` (:213-268) keep the JAX field names and defaults, so a JSON
-config or a checkpoint's config reads the same in both packages. ``Config``
-holds only these two sections; the ``train`` and ``data`` sections of a JSON
-file are ignored here (training is not ported yet).
+Mirrors ``variational_mmt_tpu/config.py``: ``ModelConfig`` (:30-109),
+``TrainConfig`` (:110-186) and ``DecodeConfig`` (:213-268) keep the JAX
+field names and defaults, so a JSON config or a checkpoint's config reads
+the same in both packages. The ``data`` section of a JSON file is ignored
+here.
+
+``TrainConfig`` holds the train-section fields that the port's trainer
+reads (optimizer, clipping, KL annealing, label smoothing, seed, steps)
+and those it does not implement yet, which
+:meth:`TrainConfig.check_supported` refuses with ``NotImplementedError``
+when set to a value that changes behaviour. ``steps_per_call`` is a TPU
+dispatch knob (optimizer steps per jit call) and is ignored: each
+``Trainer`` step is one optimizer step. The JAX fields of the loop and the
+mesh (batch size, epochs, report, validation and checkpoint intervals,
+data sharding) are not read here, so ``Config.from_json`` drops them.
 """
 
 from __future__ import annotations
@@ -45,8 +55,10 @@ class ModelConfig:
     share_embeddings: bool = False
 
     compute_dtype: str = "bfloat16"
-    use_pallas: bool = False  # hand-written GRU-scan kernel for the encoder
-    pallas_decoder: bool = False
+    use_pallas: bool = False  # hand-written GRU-scan kernels (forward, backward)
+    pallas_decoder: bool = False  # with use_pallas: the decoder sequence kernels
+    # for the teacher-forced decoder. Default as in JAX; whether the H100
+    # wants it on is open (PERF.md, section 7)
     scan_unroll: int = 1
     fused_ce: bool = False
     fused_decoder: bool = False
@@ -71,6 +83,55 @@ class ModelConfig:
             raise ValueError(
                 "share_embeddings requires a shared vocab: src "
                 f"{self.src_vocab_size} != tgt {self.tgt_vocab_size}")
+
+
+@dataclass
+class TrainConfig:
+    """The optimization fields of the JAX ``TrainConfig`` that the port's
+    trainer reads, and those it refuses (same names and defaults)."""
+
+    seed: int = 1234
+    max_steps: int = 20000
+    optimizer: str = "adam"  # adam | sgd (adadelta | adagrad not ported)
+    learning_rate: float = 4e-4
+    param_init: float = 0.0
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    max_grad_norm: float = 5.0
+    lr_decay: float = 0.5
+    start_decay_at: int = 0
+    label_smoothing: float = 0.0
+    kl_anneal: str = "linear"  # linear | sigmoid | none
+    kl_anneal_steps: int = 10000
+    kl_anneal_start: int = 0
+    kl_free_bits: float = 0.0
+    # refused by check_supported when set
+    fix_word_vecs_enc: bool = False
+    fix_word_vecs_dec: bool = False
+    skip_nonfinite: bool = False
+    ema_decay: float = 0.0
+    pack: bool = False
+    grad_accum: int = 1
+    num_model_shards: int = 1
+    steps_per_call: int = 1  # TPU dispatch knob; ignored by the port
+
+    def check_supported(self) -> None:
+        """Raise NotImplementedError for every set option the port's
+        trainer does not implement yet."""
+        unsupported = [
+            ("pack (sequence packing)", self.pack),
+            ("grad_accum > 1", self.grad_accum > 1),
+            ("ema_decay > 0", self.ema_decay > 0),
+            ("fix_word_vecs_enc", self.fix_word_vecs_enc),
+            ("fix_word_vecs_dec", self.fix_word_vecs_dec),
+            ("skip_nonfinite", self.skip_nonfinite),
+            ("param_init > 0", self.param_init > 0),
+            (f"optimizer={self.optimizer}", self.optimizer not in ("adam", "sgd")),
+            ("num_model_shards > 1", self.num_model_shards > 1),
+        ]
+        bad = [name for name, on in unsupported if on]
+        if bad:
+            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
 
 
 @dataclass
@@ -107,11 +168,13 @@ class DecodeConfig:
 @dataclass
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Config":
         return cls(model=_from_dict(ModelConfig, d.get("model", {})),
+                   train=_from_dict(TrainConfig, d.get("train", {})),
                    decode=_from_dict(DecodeConfig, d.get("decode", {})))
 
     @classmethod

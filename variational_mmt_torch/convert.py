@@ -2,7 +2,8 @@
 
 ``params_from_jax`` turns a JAX parameter tree (nested dicts of arrays, as
 ``variational_mmt_tpu.models.model.init_params`` or a checkpoint's params
-give it) into the port's ``state_dict``; ``params_to_jax`` is its inverse.
+give it) into the port's ``state_dict``; ``params_to_jax`` is its inverse
+and ``grads_to_jax`` lays the parameters' gradients out the same way.
 The port keeps the JAX layouts (Dense kernels ``(in, out)``, ``[r|z|n]``
 gate blocks, ``hh_kernel (H, 3H)``), so the conversion only renames: the
 tree path ``decoder/step/attn/linear_in/kernel`` is the parameter
@@ -16,6 +17,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 from variational_mmt_torch.config import ModelConfig
 from variational_mmt_torch.models.model import param_shapes
@@ -65,3 +67,12 @@ def params_from_jax(tree: Mapping, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 def params_to_jax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """The port's state_dict -> a JAX-layout tree of numpy f32 arrays."""
     return unflatten({k: v.detach().float().cpu().numpy() for k, v in state_dict.items()})
+
+
+def grads_to_jax(model: nn.Module) -> dict:
+    """Every parameter's ``.grad`` as a JAX-layout tree of numpy f32 arrays
+    (zeros where no gradient flowed), comparable leaf by leaf with
+    ``jax.grad`` of the JAX model."""
+    return unflatten({k: (torch.zeros_like(p) if p.grad is None else p.grad)
+                      .detach().float().cpu().numpy()
+                      for k, p in model.named_parameters()})

@@ -1,10 +1,10 @@
 """Ragged id datasets and length-bucketed, fixed-shape batching.
 
-Mirrors the part of ``variational_mmt_tpu/data/dataset.py`` (:28-315) that
-the ``Translator`` needs: ``Batch``, ``BinarizedDataset`` (in memory, source
-side), ``buckets_with_catchall`` and ``BucketIterator`` on the pure-Python
-batch path, in corpus order (the JAX package's C++ batcher, target side
-and shuffling belong to training and are not carried over).
+Mirrors ``variational_mmt_tpu/data/dataset.py`` (:28-315) on its
+pure-Python batch path: ``Batch`` (with the target side), the in-memory
+``BinarizedDataset``, ``buckets_with_catchall`` and ``BucketIterator`` with
+seeded per-epoch shuffling. The JAX package's C++ batcher and the on-disk
+layout are not carried over.
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
-from variational_mmt_torch.data.vocab import PAD
+from variational_mmt_torch.data.vocab import BOS, EOS, PAD
 
 
 @dataclasses.dataclass
@@ -26,17 +26,28 @@ class Batch:
     indices: np.ndarray  # (B,) int32 original example index
     example_mask: np.ndarray  # (B,) float32, 1 = real example
     img: Optional[np.ndarray] = None  # (B, D) or (B, R, D) float32
+    tgt_in: Optional[np.ndarray] = None  # (B, Lt) int32, BOS + y, PAD-padded
+    tgt_out: Optional[np.ndarray] = None  # (B, Lt) int32, y + EOS, PAD-padded
 
     @property
     def batch_size(self) -> int:
         return self.src.shape[0]
 
+    @property
+    def n_tokens(self) -> int:
+        """Target tokens (y + EOS) of the real rows."""
+        return int(((self.tgt_out != PAD) * self.example_mask[:, None].astype(bool)).sum())
+
 
 class BinarizedDataset:
-    """Ragged source id sequences, one int32 array per example."""
+    """Ragged id sequences, one int32 array per example; ``tgt`` (ids
+    without BOS/EOS, added at batch time) is None for source-only data."""
 
-    def __init__(self, src: List[np.ndarray]):
+    def __init__(self, src: List[np.ndarray], tgt: Optional[List[np.ndarray]] = None):
+        if tgt is not None and len(tgt) != len(src):
+            raise ValueError(f"{len(src)} sources but {len(tgt)} targets")
         self.src = src
+        self.tgt = tgt
 
     def __len__(self) -> int:
         return len(self.src)
@@ -53,45 +64,72 @@ def buckets_with_catchall(buckets: Sequence[int], need: int) -> List[int]:
 
 
 class BucketIterator:
-    """Length-bucketed batches with static shapes, in corpus order.
+    """Length-bucketed batches with static shapes.
 
-    Bucket of an example = smallest b in ``buckets`` with len(src) <= b;
-    longer examples go to the last bucket, truncated. Within a bucket,
-    batches are contiguous runs of ``batch_size`` examples."""
+    Bucket of an example = smallest b in ``buckets`` with
+    max(len(src), len(tgt) + 1) <= b (+1 for the BOS/EOS shift); longer
+    examples go to the last bucket, truncated. Within a bucket, batches are
+    contiguous runs of ``batch_size`` examples. With ``shuffle`` each epoch
+    permutes the examples of every bucket and the order of the batches
+    from ``numpy.random.default_rng(seed + epoch)``, as the JAX iterator
+    does; without it the order is the corpus order."""
 
     def __init__(self, ds: BinarizedDataset, batch_size: int, buckets: Sequence[int],
-                 img_feats: Optional[np.ndarray] = None):
+                 img_feats: Optional[np.ndarray] = None, shuffle: bool = False,
+                 seed: int = 0):
         self.ds = ds
         self.batch_size = batch_size
         self.buckets = sorted(buckets)
         self.img_feats = img_feats
+        self.shuffle = shuffle
+        self.seed = seed
 
     def _bucketize(self) -> List[List[int]]:
         per_bucket: List[List[int]] = [[] for _ in self.buckets]
         for i in range(len(self.ds)):
-            need = max(len(self.ds.src[i]), 1)
+            lt = len(self.ds.tgt[i]) + 1 if self.ds.tgt is not None else 0
+            need = max(len(self.ds.src[i]), lt, 1)
             b = next((j for j, cap in enumerate(self.buckets) if need <= cap),
                      len(self.buckets) - 1)
             per_bucket[b].append(i)
         return per_bucket
 
-    def epoch(self) -> Iterator[Batch]:
+    def epoch(self, epoch: int = 0) -> Iterator[Batch]:
+        rng = np.random.default_rng(self.seed + epoch)
+        chunks = []  # (bucket id, example indices)
         for b, idxs in enumerate(self._bucketize()):
+            idxs = np.asarray(idxs, np.int64)
+            if self.shuffle:
+                idxs = idxs[rng.permutation(len(idxs))]
             for s in range(0, len(idxs), self.batch_size):
-                yield self._make_batch(self.buckets[b], idxs[s : s + self.batch_size])
+                chunks.append((b, idxs[s : s + self.batch_size]))
+        order = rng.permutation(len(chunks)) if self.shuffle else np.arange(len(chunks))
+        for ci in order:
+            b, chunk = chunks[ci]
+            yield self._make_batch(self.buckets[b], chunk)
 
     def _make_batch(self, bucket_len: int, idxs: Sequence[int]) -> Batch:
         B, L = self.batch_size, bucket_len
         src = np.full((B, L), PAD, np.int32)
+        has_tgt = self.ds.tgt is not None
+        tgt_in = np.full((B, L), PAD, np.int32) if has_tgt else None
+        tgt_out = np.full((B, L), PAD, np.int32) if has_tgt else None
         indices = np.zeros((B,), np.int32)
         mask = np.zeros((B,), np.float32)
         for row, i in enumerate(idxs):
             s = self.ds.src[i][:L]
             src[row, : len(s)] = s
+            if has_tgt:
+                t = self.ds.tgt[i][: L - 1]
+                tgt_in[row, 0] = BOS
+                tgt_in[row, 1 : 1 + len(t)] = t
+                tgt_out[row, : len(t)] = t
+                tgt_out[row, len(t)] = EOS
             indices[row] = i
             mask[row] = 1.0
         img = None
         if self.img_feats is not None:
             img = np.asarray(self.img_feats[indices], np.float32)
             img *= mask.reshape((B,) + (1,) * (img.ndim - 1))
-        return Batch(src=src, indices=indices, example_mask=mask, img=img)
+        return Batch(src=src, indices=indices, example_mask=mask, img=img, tgt_in=tgt_in,
+                     tgt_out=tgt_out)

@@ -2,8 +2,9 @@
 
 At first use each source is compiled by ``nvcc`` for ``sm_90a`` into its
 own shared library under ``build/vmmt_torch_kernels/`` at the repo root.
-The file name carries a hash of the source and the flags, so a library is
-rebuilt only when its source changes; all missing libraries are compiled
+The file name carries a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a library is rebuilt only when one of
+them changes; all missing libraries are compiled
 in parallel, one ``nvcc`` per source. The libraries have a plain C
 interface and are loaded with ``ctypes``: every pointer and the stream go
 as ``c_void_p``, sizes and flags as ``c_int``, and each entry point returns
@@ -37,6 +38,19 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "gru_scan": {
         # dtype, x_proj, mask, h0, wh, bh, outs, final, B, T, H, reverse, stream
         "vmmt_gru_scan": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+        # dtype, x_proj, mask, h0, wh, bh, outs, g, dx, dhp, dh0, dwh, dbh,
+        # wht scratch, B, T, H, reverse, stream
+        "vmmt_gru_scan_bwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
+    },
+    "decoder": {
+        # dtype, emb_proj, dmid, h00, h01, wfeed, wh0, bh0, wmid, bmid, wh1,
+        # bh1, keys, mem_v, wc_q, mask_bias, attn_hs, h0s, h1s, probs,
+        # scratch, B, T, S, H, stream
+        "vmmt_decoder_fwd": [_I] + [_P] * 20 + [_I] * 4 + [_P],
+        # dtype, the 14 forward inputs but mask_bias, attn_hs, h0s, h1s,
+        # probs, d_attn, d_probs, dx0, dhp0, dx1, dhp1, pre, dscores, dh00,
+        # dh01, weight-transpose scratch, f32 scratch, B, T, S, H, stream
+        "vmmt_decoder_bwd": [_I] + [_P] * 30 + [_I] * 4 + [_P],
     },
     "decode_step": {
         # dtype, emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1,
@@ -64,6 +78,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))  # shared headers
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -1,8 +1,12 @@
-"""Input-feeding GRU decoder with global attention, for decoding. Mirrors
+"""Input-feeding GRU decoder with global attention. Mirrors
 ``variational_mmt_tpu/models/decoder.py``: ``DecoderStep`` (:43-110) and,
-from ``GRUDecoder``, ``ih_emb``, ``init_carry`` (:135),
-``project_memory`` (:333) and ``one_step`` (:357-411). The teacher-forced
-sequence path comes with the training slice.
+from ``GRUDecoder``, ``ih_emb``, ``init_carry`` (:135), the teacher-forced
+sequence (``__call__``, :141-249, input-feed path), ``project_memory``
+(:333) and ``one_step`` (:357-411).
+
+Dropout between the layers is one mask ``dmid`` (B,T,H) drawn up front from
+the caller's generator, as the JAX package's fused paths draw it
+(:208-215), and it serves both routes of the teacher-forced sequence.
 
 Carry = (per-layer hidden states, input-feed vector = the previous
 attentional hidden).
@@ -10,15 +14,16 @@ attentional hidden).
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from variational_mmt_torch.models.attention import GlobalAttention
-from variational_mmt_torch.models.gru import gru_gates
+from variational_mmt_torch.models.gru import dropout, dropout_mask, gru_gates
 from variational_mmt_torch.models.layers import Dense
 from variational_mmt_torch.ops.decode_step import decode_step, gru_chain
+from variational_mmt_torch.ops.decoder import fused_decoder_pallas
 
 DecoderCarry = Tuple[Tuple[torch.Tensor, ...], torch.Tensor]
 
@@ -48,7 +53,10 @@ class DecoderStep(nn.Module):
                 getattr(self, f"hh_bias{l}").to(self.dtype))
 
     def forward(self, carry: DecoderCarry, emb_proj: torch.Tensor, memory: torch.Tensor,
-                src_mask: torch.Tensor, keys: torch.Tensor = None):
+                src_mask: torch.Tensor, keys: torch.Tensor = None,
+                dmid: Optional[torch.Tensor] = None):
+        """``dmid`` (B,H): dropout scales applied to each layer's output
+        before the next layer's input projection (None: no dropout)."""
         hs, feed = carry
         x_proj = emb_proj + self.ih_feed(feed)
         new_hs: List[torch.Tensor] = []
@@ -57,23 +65,78 @@ class DecoderStep(nn.Module):
             s_new = gru_gates(x_proj, hs[l] @ wh + bh, hs[l])
             new_hs.append(s_new)
             if l + 1 < self.layers:
-                x_proj = getattr(self, f"ih_mid{l}")(s_new)
+                x_proj = getattr(self, f"ih_mid{l}")(s_new if dmid is None else s_new * dmid)
         attn_h, align = self.attn(new_hs[-1], memory, src_mask, keys=keys)
         return (tuple(new_hs), attn_h), (attn_h, align)
 
 
 class GRUDecoder(nn.Module):
+    """``use_pallas and pallas_decoder`` runs the teacher-forced sequence
+    through the decoder sequence kernels (ops/decoder.py); otherwise a
+    Python loop over ``DecoderStep`` that autograd differentiates.
+    ``fused`` (the JAX custom-VJP scan) is not ported."""
+
     def __init__(self, emb_dim: int, hidden: int, layers: int = 2,
-                 attn_type: str = "general", dtype: torch.dtype = torch.float32):
+                 attn_type: str = "general", dtype: torch.dtype = torch.float32,
+                 dropout: float = 0.0, use_pallas: bool = False,
+                 pallas_decoder: bool = False, fused: bool = False):
         super().__init__()
         self.hidden = hidden
         self.layers = layers
         self.dtype = dtype
+        self.dropout = dropout
+        self.use_pallas = use_pallas
+        self.pallas_decoder = pallas_decoder
+        self.fused = fused
         self.ih_emb = Dense(emb_dim, 3 * hidden, dtype=dtype)
         self.step = DecoderStep(hidden, layers, attn_type, dtype)
 
     def init_carry(self, init_hs: List[torch.Tensor]) -> DecoderCarry:
         return (tuple(init_hs), torch.zeros_like(init_hs[-1]))
+
+    def forward(self, emb: torch.Tensor, memory: torch.Tensor, src_mask: torch.Tensor,
+                init_hs: List[torch.Tensor], generator: Optional[torch.Generator] = None,
+                extra_input_proj: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced sequence: emb (B,T,E) target-input embeddings,
+        memory (B,S,H), src_mask (B,S), per-layer init states (B,H).
+        Dropout draws from ``generator`` (None: deterministic). Returns
+        (attentional hiddens (B,T,H), alignments (B,T,S))."""
+        if self.fused:
+            raise NotImplementedError("fused_decoder (the custom-VJP decoder scan) is not "
+                                      "ported yet; use pallas_decoder or the plain loop")
+        B, T, _ = emb.shape
+        H, dt = self.hidden, self.dtype
+        emb_proj = self.ih_emb(emb)
+        if extra_input_proj is not None:
+            emb_proj = emb_proj + extra_input_proj[:, None, :]
+        keys = self.step.attn.project_memory(memory)
+        drop = generator is not None and self.dropout > 0.0
+        dmid = dropout_mask((B, T, H), self.dropout, generator, dt, emb.device) if drop else None
+        if self.use_pallas and self.pallas_decoder:
+            step = self.step
+            p_out = step.attn.linear_out.kernel.to(dt)
+            mem_v = memory @ p_out[:H]
+            mask_bias = (1.0 - src_mask.float()) * -1e9
+            wh0, bh0 = step.hh(0)
+            wh1, bh1 = step.hh(1)
+            if dmid is None:
+                dmid = torch.ones((B, T, H), dtype=dt, device=emb.device)
+            attn_hs, aligns = fused_decoder_pallas(
+                emb_proj, dmid, init_hs[0], init_hs[1], step.ih_feed.kernel.to(dt), wh0, bh0,
+                step.ih_mid0.kernel.to(dt), step.ih_mid0.bias.to(dt), wh1, bh1, keys, mem_v,
+                p_out[H:], mask_bias)
+            attn_hs = attn_hs.to(dt)
+        else:
+            carry = self.init_carry(init_hs)
+            outs, aligns = [], []
+            for t in range(T):
+                carry, (attn_h, align) = self.step(carry, emb_proj[:, t], memory, src_mask,
+                                                   keys, None if dmid is None else dmid[:, t])
+                outs.append(attn_h)
+                aligns.append(align)
+            attn_hs, aligns = torch.stack(outs, dim=1), torch.stack(aligns, dim=1)
+        return dropout(attn_hs, self.dropout, generator), aligns
 
     def project_memory(self, memory: torch.Tensor, with_values: bool = False):
         """Pre-projected attention keys for repeated ``one_step`` calls;

@@ -28,6 +28,45 @@ def gru_gates(x_proj: torch.Tensor, h_proj: torch.Tensor, h: torch.Tensor) -> to
     return (1.0 - z) * n + z * h
 
 
+def gru_bwd_core(dh_new: torch.Tensor, x_proj: torch.Tensor, h_proj: torch.Tensor,
+                 h_prev: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Hand-derived local VJP of :func:`gru_gates` (one cell application).
+    Returns (dx_proj [dr|dz|dn_pre], dh_proj [dr|dz|dhn], dh_prev without
+    the ``Wh^T`` product, which the caller owns)."""
+    xr, xz, xn = x_proj.chunk(3, dim=-1)
+    hr, hz, hn = h_proj.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    dz = dh_new * (h_prev - n)
+    dn = dh_new * (1.0 - z)
+    dh_prev = dh_new * z
+    dn_pre = dn * (1.0 - n * n)
+    dr = dn_pre * hn
+    dhn = dn_pre * r
+    dz_pre = dz * z * (1.0 - z)
+    dr_pre = dr * r * (1.0 - r)
+    return (torch.cat([dr_pre, dz_pre, dn_pre], dim=-1),
+            torch.cat([dr_pre, dz_pre, dhn], dim=-1), dh_prev)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout as ``flax.linen.Dropout`` computes it (kept values
+    scaled by 1/keep in x's dtype), the mask drawn from ``generator``.
+    Identity when ``generator`` is None (deterministic) or rate is 0."""
+    if generator is None or rate == 0.0:
+        return x
+    return x * dropout_mask(x.shape, rate, generator, x.dtype, x.device)
+
+
+def dropout_mask(shape, rate: float, generator: torch.Generator, dtype: torch.dtype,
+                 device: torch.device) -> torch.Tensor:
+    """Bernoulli(1 - rate) / (1 - rate) in ``dtype``."""
+    keep = 1.0 - rate
+    u = torch.rand(shape, generator=generator, device=device)
+    return (u < keep).to(dtype) / keep
+
+
 def cell_layer_scan(x_proj: torch.Tensor, carry0: torch.Tensor, wh: torch.Tensor,
                     bh: torch.Tensor, mask: Optional[torch.Tensor] = None,
                     reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,12 +104,12 @@ class UniGRU(nn.Module):
         x_proj = self.ih(x)
         h0 = torch.zeros((x.shape[0], self.hidden), dtype=self.dtype, device=x.device)
         if self.use_pallas:
-            from variational_mmt_torch.ops.gru_scan import gru_layer_scan
+            from variational_mmt_torch.ops.gru_scan import gru_layer_scan_ad
 
             # as the JAX Pallas path: Wh in the compute dtype, bh in f32,
             # f32 results cast to the compute dtype
-            outs, final = gru_layer_scan(x_proj, mask, h0, self.hh_kernel.to(self.dtype),
-                                         self.hh_bias, self.reverse)
+            outs, final = gru_layer_scan_ad(x_proj, mask, h0, self.hh_kernel.to(self.dtype),
+                                            self.hh_bias, self.reverse)
             return outs.to(self.dtype), final.to(self.dtype)
         return cell_layer_scan(x_proj, h0, self.hh_kernel.to(self.dtype),
                                self.hh_bias.to(self.dtype), mask=mask.to(self.dtype),
@@ -79,27 +118,34 @@ class UniGRU(nn.Module):
 
 class BiGRUEncoder(nn.Module):
     """Bidirectional multi-layer GRU encoder. ``hidden`` is the total size:
-    each direction gets hidden // 2. Inference only (no dropout)."""
+    each direction gets hidden // 2. Dropout (rate ``dropout``) applies to
+    the input of every layer after the first, drawn from the generator
+    passed to ``forward`` (none: deterministic)."""
 
     def __init__(self, in_dim: int, hidden: int, layers: int = 2,
-                 dtype: torch.dtype = torch.float32, use_pallas: bool = False):
+                 dtype: torch.dtype = torch.float32, use_pallas: bool = False,
+                 dropout: float = 0.0):
         super().__init__()
         if hidden % 2:
             raise ValueError(f"BiGRUEncoder hidden must be even, got {hidden}")
         self.layers = layers
+        self.dropout = dropout
         half = hidden // 2
         for layer in range(layers):
             d = in_dim if layer == 0 else hidden
             self.add_module(f"fwd{layer}", UniGRU(d, half, False, dtype, use_pallas))
             self.add_module(f"bwd{layer}", UniGRU(d, half, True, dtype, use_pallas))
 
-    def forward(self, emb: torch.Tensor, mask: torch.Tensor
+    def forward(self, emb: torch.Tensor, mask: torch.Tensor,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """emb (B,T,E), mask (B,T) -> (memory (B,T,H), finals per layer
         (B,H) laid out [fwd_final | bwd_final])."""
         x = emb
         finals: List[torch.Tensor] = []
         for layer in range(self.layers):
+            if layer > 0:
+                x = dropout(x, self.dropout, generator)
             fwd_out, fwd_fin = getattr(self, f"fwd{layer}")(x, mask)
             bwd_out, bwd_fin = getattr(self, f"bwd{layer}")(x, mask)
             x = torch.cat([fwd_out, bwd_out], dim=-1)

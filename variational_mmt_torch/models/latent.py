@@ -1,16 +1,17 @@
-"""Latent-variable networks. Mirrors ``variational_mmt_tpu/models/latent.py``
-(:25-117): ``GaussianHead``, ``InferenceNetwork``, ``ConditionalPrior`` and
-``ImagePredictor``.
+"""Latent-variable networks and distribution math. Mirrors
+``variational_mmt_tpu/models/latent.py``: ``GaussianHead``,
+``InferenceNetwork``, ``ConditionalPrior``, ``ImagePredictor`` (:25-117)
+and the f32 functions ``reparameterize``, ``gaussian_kl_per_dim``,
+``gaussian_kl``, ``gaussian_log_prob`` and ``kl_free_bits`` (:119-153).
 
-Only the prior's forward is on the decode path; the inference network and
-the image predictor hold their parameters so a JAX tree round-trips whole.
 mu and sigma are computed in f32 (sigma = softplus + min_sigma) under any
 compute dtype.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -88,3 +89,43 @@ class ImagePredictor(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         h = torch.tanh(self.mlp0(z))
         return self.out(h.float())
+
+
+def reparameterize(mu: torch.Tensor, sigma: torch.Tensor,
+                   generator: Optional[torch.Generator] = None,
+                   eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """z = mu + sigma * eps, eps ~ N(0, I) drawn from ``generator`` unless
+    given (JAX's threefry stream cannot be reproduced, so parity tests
+    inject it)."""
+    if eps is None:
+        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype, device=mu.device)
+    return mu + sigma * eps
+
+
+def gaussian_kl_per_dim(mu_q, sigma_q, mu_p=None, sigma_p=None) -> torch.Tensor:
+    """Analytic KL(q || p) per latent dimension -> (..., D); p defaults to
+    N(0, I)."""
+    if mu_p is None:
+        return 0.5 * (sigma_q ** 2 + mu_q ** 2 - 1.0 - 2.0 * torch.log(sigma_q))
+    return (torch.log(sigma_p / sigma_q)
+            + (sigma_q ** 2 + (mu_q - mu_p) ** 2) / (2.0 * sigma_p ** 2) - 0.5)
+
+
+def gaussian_kl(mu_q, sigma_q, mu_p=None, sigma_p=None) -> torch.Tensor:
+    """KL(q || p) summed over the latent dimension -> (B,)."""
+    return gaussian_kl_per_dim(mu_q, sigma_q, mu_p, sigma_p).sum(dim=-1)
+
+
+def gaussian_log_prob(x: torch.Tensor, mu: torch.Tensor,
+                      sigma: Union[torch.Tensor, float]) -> torch.Tensor:
+    """log N(x; mu, diag sigma^2) summed over the last dimension."""
+    sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
+    log2pi = math.log(2.0 * math.pi)
+    return (-0.5 * (((x - mu) / sigma) ** 2 + log2pi) - torch.log(sigma)).sum(dim=-1)
+
+
+def kl_free_bits(kl_sum: torch.Tensor, free_bits: float, latent_dim: int) -> torch.Tensor:
+    """A total free-bits floor: max(KL, free_bits * latent_dim)."""
+    if free_bits <= 0:
+        return kl_sum
+    return torch.clamp(kl_sum, min=free_bits * latent_dim)

@@ -1,12 +1,17 @@
-"""The VMMT model, decode-side. Mirrors ``variational_mmt_tpu/models/model.py``.
+"""The VMMT model: decode-side methods and the training forward. Mirrors
+``variational_mmt_tpu/models/model.py``.
 
-The port covers the slice's configuration: ``vmmt_c`` (conditional prior
-p(z|x,v)) with a GRU encoder and a 2-layer input-feed GRU decoder with
+The port covers the main path's configuration: ``vmmt_c`` (conditional
+prior p(z|x,v)) with a GRU encoder and a 2-layer input-feed GRU decoder with
 general attention, z conditioning the decoder through the bridge. Every
 other option raises ``NotImplementedError`` naming it. All parameters of a
-JAX vmmt_c tree exist here under the same dotted paths (``tgt_encoder``,
-``infnet`` and ``img_pred`` included, though their forward passes belong to
-training), so a tree round-trips whole through ``convert.py``.
+JAX vmmt_c tree exist here under the same dotted paths, so a tree
+round-trips whole through ``convert.py``.
+
+Randomness (dropout, word dropout, the reparameterization noise) comes from
+an explicit ``torch.Generator`` passed to ``forward``; JAX's named rng
+streams cannot be reproduced, so parity tests run deterministic, with
+``sample=False``.
 """
 
 from __future__ import annotations
@@ -18,12 +23,12 @@ import torch
 from torch import nn
 
 from variational_mmt_torch.config import ModelConfig
-from variational_mmt_torch.data.vocab import PAD
+from variational_mmt_torch.data.vocab import PAD, UNK
 from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.models.decoder import GRUDecoder
 from variational_mmt_torch.models.gru import BiGRUEncoder, masked_mean
 from variational_mmt_torch.models.latent import (ConditionalPrior, ImagePredictor,
-                                                 InferenceNetwork)
+                                                 InferenceNetwork, reparameterize)
 from variational_mmt_torch.models.layers import Dense, Embed
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -59,8 +64,9 @@ class VMMTModel(nn.Module):
         H, E = c.hidden_dim, c.emb_dim
         self.tgt_embed = Embed(c.tgt_vocab_size, E, dt)
         self.src_embed = Embed(c.src_vocab_size, E, dt)
-        self.encoder = BiGRUEncoder(E, H, c.enc_layers, dt, c.use_pallas)
-        self.decoder = GRUDecoder(E, H, c.dec_layers, c.attn_type, dt)
+        self.encoder = BiGRUEncoder(E, H, c.enc_layers, dt, c.use_pallas, c.dropout)
+        self.decoder = GRUDecoder(E, H, c.dec_layers, c.attn_type, dt, c.dropout,
+                                  c.use_pallas, c.pallas_decoder, c.fused_decoder)
         if c.share_decoder_embeddings:
             self.gen_bias = nn.Parameter(torch.empty(c.tgt_vocab_size))
         else:
@@ -68,7 +74,7 @@ class VMMTModel(nn.Module):
         use_img = c.img_feat_dim > 0
         for l in range(c.dec_layers):
             self.add_module(f"bridge{l}", Dense(H + c.latent_dim, H, dtype=dt))
-        self.tgt_encoder = BiGRUEncoder(E, H, 1, dt, c.use_pallas)
+        self.tgt_encoder = BiGRUEncoder(E, H, 1, dt, c.use_pallas, c.dropout)
         self.infnet = InferenceNetwork(H, c.img_feat_dim, c.latent_dim, H, c.min_sigma,
                                        use_img, dt)
         self.prior = ConditionalPrior(H, c.img_feat_dim, c.latent_dim, H, c.min_sigma,
@@ -76,12 +82,20 @@ class VMMTModel(nn.Module):
         if c.use_img_predict:
             self.img_pred = ImagePredictor(c.latent_dim, c.img_feat_dim, H, dt)
 
-    def encode(self, src: torch.Tensor):
+    def encode(self, src: torch.Tensor, generator: Optional[torch.Generator] = None):
         """src (B,S) -> (memory (B,S,H), finals [L x (B,H)], src_mask (B,S),
-        src_summary (B,H))."""
+        src_summary (B,H)). Dropout between layers draws from ``generator``
+        (None: deterministic)."""
         src_mask = (src != PAD).float()
-        memory, finals = self.encoder(self.src_embed(src), src_mask)
+        memory, finals = self.encoder(self.src_embed(src), src_mask, generator)
         return memory, finals, src_mask, masked_mean(memory, src_mask)
+
+    def posterior(self, src_summary: torch.Tensor, tgt: torch.Tensor,
+                  img: Optional[torch.Tensor], generator: Optional[torch.Generator] = None):
+        """q(z|x,y,v) parameters (f32). tgt: gold target ids (B,T), PAD-masked."""
+        tgt_mask = (tgt != PAD).float()
+        tgt_enc, _ = self.tgt_encoder(self.tgt_embed(tgt), tgt_mask, generator)
+        return self.infnet(src_summary, masked_mean(tgt_enc, tgt_mask), self._img_in(img))
 
     def _img_in(self, img: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
         if img is not None and img.dim() == 3:  # conv features (B, R, D), mean-pooled
@@ -129,6 +143,63 @@ class VMMTModel(nn.Module):
 
     def init_decode_carry(self, init_hs):
         return self.decoder.init_carry(init_hs)
+
+    def decode_train(self, tgt_in: torch.Tensor, memory, src_mask, init_hs, z,
+                     generator: Optional[torch.Generator] = None,
+                     return_pre_gen: bool = False):
+        """Teacher-forced decode: (logits (B,T,V) f32 or, with
+        ``return_pre_gen`` (fused CE), the decoder outputs (B,T,H); aligns)."""
+        outs, aligns = self.decoder(self.tgt_embed(tgt_in), memory, src_mask, init_hs,
+                                    generator, extra_input_proj=self.z_extra_proj(z))
+        return (outs if return_pre_gen else self._gen(outs)), aligns
+
+    def generator_params(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(kernel (H,V), bias (V,)) of the generator, for the fused CE."""
+        if self.cfg.share_decoder_embeddings:
+            return self.tgt_embed.embedding.t(), self.gen_bias
+        return self.generator.kernel, self.generator.bias
+
+    def forward(self, src: torch.Tensor, tgt_in: torch.Tensor,
+                img: Optional[torch.Tensor] = None, deterministic: bool = True,
+                sample: bool = True, tgt_out: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Training forward (model.py:231-302): logits (or, with
+        ``fused_ce``, the pre-generator ``dec_out``), aligns, the latent
+        parameters and the image prediction; the ELBO is assembled in
+        train/loss.py. ``generator`` feeds dropout and word dropout (unless
+        ``deterministic``) and the noise of ``sample``. ``tgt_out`` is the
+        gold target q conditions on; without it tgt_in shifted left stands
+        in."""
+        c = self.cfg
+        if (not deterministic or sample) and generator is None:
+            raise ValueError("forward: dropout and sampling need a torch.Generator")
+        drop_gen = None if deterministic else generator
+        memory, finals, src_mask, src_summary = self.encode(src, drop_gen)
+        out: Dict[str, torch.Tensor] = {}
+        v_in = self._img_in(img)
+        gold = tgt_out if tgt_out is not None else torch.cat(
+            [tgt_in[:, 1:], torch.zeros_like(tgt_in[:, :1])], dim=1)
+        mu_q, sigma_q = self.posterior(src_summary, gold, v_in, drop_gen)
+        mu_p, sigma_p = self.prior_params(src_summary, v_in)
+        z = reparameterize(mu_q, sigma_q, generator) if sample else mu_q
+        out.update(mu_q=mu_q, sigma_q=sigma_q, mu_p=mu_p, sigma_p=sigma_p, z=z)
+        if c.use_img_predict:
+            out["img_pred"] = self.img_pred(z)
+            if v_in is not None:
+                # the image objective's target is a constant (stop_gradient)
+                out["img_target"] = v_in.detach()
+        if not deterministic and c.word_dropout > 0.0:
+            keep = torch.rand(tgt_in.shape, generator=generator, device=tgt_in.device) \
+                < 1.0 - c.word_dropout
+            drop = ~keep & (tgt_in != PAD)
+            drop[:, 0] = False  # never BOS
+            tgt_in = torch.where(drop, torch.full_like(tgt_in, UNK), tgt_in)
+        init_hs = self.init_decoder_state(finals, z)
+        dec, aligns = self.decode_train(tgt_in, memory, src_mask, init_hs, z, drop_gen,
+                                        return_pre_gen=c.fused_ce)
+        out["dec_out" if c.fused_ce else "logits"] = dec
+        out["aligns"] = aligns
+        return out
 
 
 def build_model(cfg: ModelConfig, device=None) -> VMMTModel:

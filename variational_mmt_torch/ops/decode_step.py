@@ -32,7 +32,7 @@ from variational_mmt_torch.models.gru import gru_gates
 f32 = torch.float32
 
 
-def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def rounded_dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a`` rounded to w's dtype, product accumulated in f32 (the Pallas
     ``jnp.dot(a.astype(cdt), w, preferred_element_type=f32)``)."""
     return a.to(w.dtype).float() @ w.float()
@@ -41,10 +41,10 @@ def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def _chain_f32(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1):
     """GRU0 -> GRU1 with f32 state; returns (h0n, h1n) in f32."""
     h0f, h1f = h0.float(), h1.float()
-    x0 = emb_proj.float() + _dot(feed.float(), Wfeed)
-    h0n = gru_gates(x0, _dot(h0f, Wh0) + bh0.float(), h0f)
-    x1 = _dot(h0n, Wmid) + bmid.float()
-    h1n = gru_gates(x1, _dot(h1f, Wh1) + bh1.float(), h1f)
+    x0 = emb_proj.float() + rounded_dot(feed.float(), Wfeed)
+    h0n = gru_gates(x0, rounded_dot(h0f, Wh0) + bh0.float(), h0f)
+    x1 = rounded_dot(h0n, Wmid) + bmid.float()
+    h1n = gru_gates(x1, rounded_dot(h1f, Wh1) + bh1.float(), h1f)
     return h0n, h1n
 
 
@@ -68,7 +68,7 @@ def decode_step_ref(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh
     e = torch.exp(scores)
     probs = e / e.sum(dim=-1, keepdim=True)
     ctx = (probs[:, :, None].to(cdt) * mem_v).sum(1, dtype=f32)
-    attn = torch.tanh(ctx + _dot(h1n_f, Wc_q))
+    attn = torch.tanh(ctx + rounded_dot(h1n_f, Wc_q))
     return h0n, h1n, attn.to(feed.dtype), probs.to(keys.dtype)
 
 

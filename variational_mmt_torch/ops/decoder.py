@@ -1,0 +1,271 @@
+"""Fused input-feed decoder over a whole teacher-forced sequence, forward
+and backward: the CUDA kernels' wrappers, their plain versions and the
+differentiable ``fused_decoder_pallas``.
+
+Mirrors ``variational_mmt_tpu/ops/pallas/decoder.py`` (``decoder_fwd_pallas``,
+``decoder_bwd_pallas`` and the custom VJP ``fused_decoder_pallas``, same
+argument order, batch-major streams).
+
+Source note. Replaces the Pallas kernels ``_dec_fwd_kernel``
+(decoder.py:61, ``pallas_call`` at :153) and ``_dec_bwd_kernel`` (:194,
+``pallas_call`` at :304) with ``csrc/decoder.cu``. On the TPU each grid
+step ran a whole decoder step with the five weight blocks resident in VMEM.
+On the H100 a step needs every column of h0' before GRU1, all of h1' before
+attention and all of the new feed before the next step, which a
+block-parallel grid cannot meet without a grid-wide sync; so one call
+queues the T steps as short runs of kernels on the stream, with no host
+synchronisation: forward 4 per step (GRU0 cell, GRU1 cell with the dropout
+mask, ``h1' @ Wc_q``, attention), backward 5 weight transposes and then 8
+per step (attention backward, 5 products, 2 cell backwards). At the
+flagship's B=64, T=25, S=24, H=500 each kernel does tens of MFLOP, so the
+chain of dependent launches bounds it, far above its bytes and FLOPs bound.
+The state (h0, h1, feed and, backward, dh0, dh1, dfeed) stays f32 across
+time; only the saved streams are rounded to the compute dtype. The weight
+gradients are products over the (T*B)-long streams outside the kernels, as
+``_pal_bwd`` computes them outside Pallas (decoder.py:398-416). The TPU row
+chunking (``_fwd_rows``, ``_bwd_rows``, a VMEM budget) is not carried over.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from variational_mmt_torch import kernels
+from variational_mmt_torch.models.gru import gru_bwd_core, gru_gates
+from variational_mmt_torch.ops.decode_step import rounded_dot
+
+f32 = torch.float32
+
+
+def decoder_fwd_ref(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
+                    keys, mem_v, Wc_q, mask_bias):
+    """Plain version of the forward kernel: the step of
+    ``models/fused_decoder.py:_fwd_scan`` under the Pallas kernel's
+    precision contract (f32 state across time; product operands rounded to
+    the weights' dtype with f32 accumulation; each attention product rounded
+    before its f32 sum). Returns (attn_hs, h0s, h1s (B,T,H), probs (B,T,S))
+    in keys.dtype."""
+    cdt = keys.dtype
+    B, T, _ = emb_proj.shape
+    h0, h1 = h00.float(), h01.float()
+    feed = torch.zeros_like(h0)
+    outs = [[], [], [], []]
+    for t in range(T):
+        x0 = emb_proj[:, t].float() + rounded_dot(feed, Wfeed)
+        h0 = gru_gates(x0, rounded_dot(h0, Wh0) + bh0.float(), h0)
+        x1 = rounded_dot(dmid[:, t].float() * h0, Wmid) + bmid.float()
+        h1 = gru_gates(x1, rounded_dot(h1, Wh1) + bh1.float(), h1)
+        scores = (h1[:, None, :].to(cdt) * keys).sum(-1, dtype=f32) + mask_bias.float()
+        scores = scores - scores.amax(dim=-1, keepdim=True)
+        e = torch.exp(scores)
+        probs = e / e.sum(dim=-1, keepdim=True)
+        ctx = (probs[:, :, None].to(cdt) * mem_v).sum(1, dtype=f32)
+        feed = torch.tanh(ctx + rounded_dot(h1, Wc_q))
+        for acc, v in zip(outs, (feed, h0, h1, probs)):
+            acc.append(v.to(cdt))
+    return tuple(torch.stack(acc, dim=1) for acc in outs)
+
+
+def rounded_dot_t(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w^T`` with ``a`` rounded to w's dtype, f32 accumulation."""
+    return a.to(w.dtype).float() @ w.float().t()
+
+
+def decoder_bwd_ref(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
+                    keys, mem_v, Wc_q, attn_hs, h0s, h1s, probs, d_attn, d_probs):
+    """Plain version of the backward kernel: the reverse scan of
+    ``models/fused_decoder.py:_fused_bwd`` with the Pallas kernel's
+    precision contract (f32 carries; operands rounded to the weights' dtype
+    before each product). Returns (dx0, dhp0, dx1, dhp1 (B,T,3H), pre
+    (B,T,H), dscores (B,T,S), dh00, dh01 (B,H)), all f32."""
+    cdt = Wfeed.dtype
+    B, T, H = attn_hs.shape
+    dh0 = torch.zeros((B, H), dtype=f32, device=emb_proj.device)
+    dh1, dfeed = torch.zeros_like(dh0), torch.zeros_like(dh0)
+    outs = [[None] * T for _ in range(6)]
+    for t in range(T - 1, -1, -1):
+        attn = attn_hs[:, t].float()
+        pre = (1.0 - attn * attn) * (d_attn[:, t].float() + dfeed)
+        dq = rounded_dot_t(pre, Wc_q)
+        dprobs = (pre[:, None, :].to(cdt) * mem_v).sum(-1, dtype=f32) + d_probs[:, t].float()
+        prf = probs[:, t].float()
+        dscores = prf * (dprobs - (dprobs * prf).sum(-1, keepdim=True))
+        dh1n = dq + (dscores[:, :, None].to(cdt) * keys).sum(1, dtype=f32) + dh1
+        dm = dmid[:, t].float()
+        x1 = rounded_dot(dm * h0s[:, t].float(), Wmid) + bmid.float()
+        h1prev = h01.float() if t == 0 else h1s[:, t - 1].float()
+        dx1, dhp1, dh1p = gru_bwd_core(dh1n, x1, rounded_dot(h1prev, Wh1) + bh1.float(), h1prev)
+        dh1 = dh1p + rounded_dot_t(dhp1, Wh1)
+        dh0n = dm * rounded_dot_t(dx1, Wmid) + dh0
+        fprev = torch.zeros_like(attn) if t == 0 else attn_hs[:, t - 1].float()
+        x0 = emb_proj[:, t].float() + rounded_dot(fprev, Wfeed)
+        h0prev = h00.float() if t == 0 else h0s[:, t - 1].float()
+        dx0, dhp0, dh0p = gru_bwd_core(dh0n, x0, rounded_dot(h0prev, Wh0) + bh0.float(), h0prev)
+        dh0 = dh0p + rounded_dot_t(dhp0, Wh0)
+        dfeed = rounded_dot_t(dx0, Wfeed)
+        for acc, v in zip(outs, (dx0, dhp0, dx1, dhp1, pre, dscores)):
+            acc[t] = v
+    return tuple(torch.stack(acc, dim=1) for acc in outs) + (dh0, dh1)
+
+
+_NAMES = ("emb_proj", "dmid", "h00", "h01", "Wfeed", "Wh0", "bh0", "Wmid", "bmid", "Wh1",
+          "bh1", "keys", "mem_v", "Wc_q")
+_F32 = ("h00", "h01", "bh0", "bmid", "bh1")  # passed to the kernels as f32
+
+
+def _kernel_args(what, args):
+    """Validate the 14 inputs shared by both kernels; returns them
+    contiguous (state and biases as f32) and (B, T, S, H, dtype)."""
+    named = dict(zip(_NAMES, args))
+    B, T, H3 = named["emb_proj"].shape
+    H = H3 // 3
+    S = named["keys"].shape[1]
+    dt = named["Wfeed"].dtype
+    if dt not in kernels.DTYPE_CODE:
+        raise TypeError(f"{what} kernel: weights must be float32 or bfloat16, got {dt}")
+    shapes = dict(emb_proj=(B, T, H3), dmid=(B, T, H), h00=(B, H), h01=(B, H), Wfeed=(H, H3),
+                  Wh0=(H, H3), bh0=(H3,), Wmid=(H, H3), bmid=(H3,), Wh1=(H, H3), bh1=(H3,),
+                  keys=(B, S, H), mem_v=(B, S, H), Wc_q=(H, H))
+    out = []
+    for name in _NAMES:
+        t = named[name]
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{what} kernel: {name} {tuple(t.shape)} != {shapes[name]}")
+        if name in _F32:
+            t = t.to(f32)
+        elif t.dtype != dt:
+            raise TypeError(f"{what} kernel: {name} is {t.dtype}; every tensor but the "
+                            f"states and biases must be {dt}")
+        out.append(t.contiguous())
+    kernels.require_cuda(what, out[0].device, **dict(zip(_NAMES[1:], out[1:])))
+    return out, (B, T, S, H, dt)
+
+
+def decoder_fwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
+                keys, mem_v, Wc_q, mask_bias):
+    """Forward over the sequence: emb_proj (B,T,3H) with the biases folded
+    in, dmid (B,T,H) dropout scales, h00, h01 (B,H), four (H,3H) weights and
+    their biases, keys and mem_v (B,S,H), Wc_q (H,H), mask_bias (B,S) (0
+    real, -1e9 pad). Returns (attn_hs, h0s, h1s (B,T,H), probs (B,T,S)) in
+    the compute dtype. CPU tensors take the plain version; CUDA tensors
+    launch the kernels."""
+    args = (emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1, keys, mem_v, Wc_q)
+    if emb_proj.device.type == "cpu":
+        return decoder_fwd_ref(*args, mask_bias)
+    ins, (B, T, S, H, dt) = _kernel_args("decoder_fwd", args)
+    if tuple(mask_bias.shape) != (B, S):
+        raise ValueError(f"decoder_fwd kernel: mask_bias {tuple(mask_bias.shape)} != {(B, S)}")
+    mb = mask_bias.to(f32).contiguous()
+    kernels.require_cuda("decoder_fwd", ins[0].device, mask_bias=mb)
+    dev = ins[0].device
+    outs = [torch.empty((B, T, H), dtype=dt, device=dev) for _ in range(3)]
+    outs.append(torch.empty((B, T, S), dtype=dt, device=dev))
+    scratch = torch.empty((6, B, H), dtype=f32, device=dev)
+    lib = kernels.library("decoder")
+    err = lib.vmmt_decoder_fwd(kernels.DTYPE_CODE[dt], *(a.data_ptr() for a in ins + [mb]),
+                               *(o.data_ptr() for o in outs), scratch.data_ptr(), B, T, S, H,
+                               kernels.stream_of(ins[0]))
+    kernels.check(lib, err, "decoder_fwd")
+    decoder_fwd.launches += 1
+    return tuple(outs)
+
+
+def decoder_bwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
+                keys, mem_v, Wc_q, attn_hs, h0s, h1s, probs, d_attn, d_probs):
+    """Reverse-time backward over the sequence: the forward's inputs (but
+    mask_bias), its four streams and the cotangents d_attn (B,T,H) and
+    d_probs (B,T,S). Returns (dx0, dhp0, dx1, dhp1, pre, dscores, dh00,
+    dh01) in f32. CPU tensors take the plain version; CUDA tensors launch
+    the kernels."""
+    args = (emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1, keys, mem_v, Wc_q)
+    if emb_proj.device.type == "cpu":
+        return decoder_bwd_ref(*args, attn_hs, h0s, h1s, probs, d_attn, d_probs)
+    ins, (B, T, S, H, dt) = _kernel_args("decoder_bwd", args)
+    streams = dict(attn_hs=(attn_hs, (B, T, H), dt), h0s=(h0s, (B, T, H), dt),
+                   h1s=(h1s, (B, T, H), dt), probs=(probs, (B, T, S), dt),
+                   d_attn=(d_attn, (B, T, H), f32), d_probs=(d_probs, (B, T, S), f32))
+    extra = []
+    for name, (t, shape, want) in streams.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"decoder_bwd kernel: {name} {tuple(t.shape)} != {shape}")
+        if want == dt and t.dtype != dt:
+            raise TypeError(f"decoder_bwd kernel: {name} is {t.dtype}, expected {dt}")
+        extra.append(t.to(want).contiguous())
+    kernels.require_cuda("decoder_bwd", ins[0].device, **dict(zip(streams, extra)))
+    dev = ins[0].device
+    outs = [torch.empty((B, T, 3 * H), dtype=f32, device=dev) for _ in range(4)]
+    outs += [torch.empty((B, T, H), dtype=f32, device=dev),
+             torch.empty((B, T, S), dtype=f32, device=dev),
+             torch.empty((B, H), dtype=f32, device=dev),
+             torch.empty((B, H), dtype=f32, device=dev)]
+    wt = torch.empty((4 * 3 * H * H + H * H,), dtype=dt, device=dev)
+    scratch = torch.empty((6, B, H), dtype=f32, device=dev)
+    lib = kernels.library("decoder")
+    err = lib.vmmt_decoder_bwd(kernels.DTYPE_CODE[dt], *(a.data_ptr() for a in ins + extra),
+                               *(o.data_ptr() for o in outs), wt.data_ptr(), scratch.data_ptr(),
+                               B, T, S, H, kernels.stream_of(ins[0]))
+    kernels.check(lib, err, "decoder_bwd")
+    decoder_bwd.launches += 1
+    return tuple(outs)
+
+
+decoder_fwd.launches = 0
+decoder_bwd.launches = 0
+
+
+def _mm_bt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum over (b, t) of a[b,t,:]^T b[b,t,:] -> (Ha, Hb), in f32."""
+    return a.float().reshape(-1, a.shape[-1]).t() @ b.float().reshape(-1, b.shape[-1])
+
+
+def _weight_grads(res, d):
+    """``_pal_bwd`` (decoder.py:398-423): the weight gradients as products
+    over the streams, every operand cast to f32 (the JAX einsums promote
+    bf16 x f32 to f32), each gradient cast to its input's dtype."""
+    (emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
+     keys, mem_v, Wc_q, attn_hs, h0s, h1s, probs) = res
+    dx0, dhp0, dx1, dhp1, pre, dscores, dh00, dh01 = d
+    B, T, H = attn_hs.shape
+    # histories: the inputs of step t
+    zeros_h = torch.zeros((B, 1, H), dtype=f32, device=attn_hs.device)
+    feed_hist = torch.cat([zeros_h, attn_hs[:, :-1].float()], dim=1)
+    h0_hist = torch.cat([h00.float()[:, None], h0s[:, :-1].float()], dim=1)
+    h1_hist = torch.cat([h01.float()[:, None], h1s[:, :-1].float()], dim=1)
+    mid_hist = dmid.float() * h0s.float()
+    dkeys = dscores.transpose(1, 2) @ h1s.float()     # bts,bth->bsh
+    dmem_v = probs.float().transpose(1, 2) @ pre      # bts,bth->bsh
+    return (dx0.to(emb_proj.dtype), None, dh00.to(h00.dtype), dh01.to(h01.dtype),
+            _mm_bt(feed_hist, dx0).to(Wfeed.dtype), _mm_bt(h0_hist, dhp0).to(Wh0.dtype),
+            dhp0.sum((0, 1)).to(bh0.dtype), _mm_bt(mid_hist, dx1).to(Wmid.dtype),
+            dx1.sum((0, 1)).to(bmid.dtype), _mm_bt(h1_hist, dhp1).to(Wh1.dtype),
+            dhp1.sum((0, 1)).to(bh1.dtype), dkeys.to(keys.dtype), dmem_v.to(mem_v.dtype),
+            _mm_bt(h1s, pre).to(Wc_q.dtype), None)
+
+
+class _FusedDecoder(torch.autograd.Function):
+    """Forward: :func:`decoder_fwd`; backward: :func:`decoder_bwd` plus the
+    weight-gradient products (the custom VJP ``_pal_fwd`` / ``_pal_bwd``).
+    dmid and mask_bias get no gradient (JAX returns zeros for them)."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        attn_hs, h0s, h1s, probs = decoder_fwd(*args)
+        ctx.save_for_backward(*args[:14], attn_hs, h0s, h1s, probs)
+        return attn_hs, probs
+
+    @staticmethod
+    def backward(ctx, d_attn, d_probs):
+        res = ctx.saved_tensors
+        d = decoder_bwd(*res, d_attn.float(), d_probs.float())
+        return _weight_grads(res, d)
+
+
+def fused_decoder_pallas(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
+                         keys, mem_v, Wc_q, mask_bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable decoder sequence (both passes are kernels on CUDA
+    tensors). Returns (attn_hs (B,T,H), probs (B,T,S)) in the compute
+    dtype; gradients reach every input but dmid and mask_bias."""
+    return _FusedDecoder.apply(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1,
+                               bh1, keys, mem_v, Wc_q, mask_bias)

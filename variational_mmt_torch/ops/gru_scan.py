@@ -1,9 +1,10 @@
-"""Fused GRU layer scan: the CUDA kernel's wrapper and its plain version.
+"""Fused GRU layer scan, forward and backward: the CUDA kernels' wrappers,
+their plain versions and the differentiable ``gru_layer_scan_ad``.
 
 Mirrors ``variational_mmt_tpu/ops/pallas/gru.py`` (``gru_layer_scan``,
-forward only; the backward kernel comes with the training slice).
+``_gru_scan_bwd_impl`` and the custom VJP ``gru_layer_scan_ad``).
 
-Source note. Replaces the Pallas kernel ``_gru_fwd_kernel``
+Source note, forward. Replaces the Pallas kernel ``_gru_fwd_kernel``
 (ops/pallas/gru.py:54, ``pallas_call`` at :165) with
 ``csrc/gru_scan.cu``. On the H100 the scan is bound by the latency of T
 dependent steps: its bytes (about 15 MB at B=256, T=24, H=250 in bf16) and
@@ -13,6 +14,20 @@ rows of the state in shared memory for the whole sequence and loops over
 time inside the block; Wh (375 KB in bf16) does not fit one SM's shared
 memory, so every step streams it from L2. The TPU's row chunking
 (``_max_rows``, a VMEM budget) is not carried over: the grid covers B.
+
+Source note, backward. Replaces ``_gru_bwd_kernel`` (ops/pallas/gru.py:186,
+``pallas_call`` at :297) with ``vmmt_gru_scan_bwd`` in the same
+``csrc/gru_scan.cu``. It is as serial as the forward (T dependent steps,
+each with two (rows, H) x (H, 3H) products: the gate recompute and
+``dh_proj @ Wh^T``), so latency bounds it too. Its design mirrors the
+forward's: one block per 4 batch rows loops over time in reverse with dh
+in shared memory and Wh (and a transposed copy, so that both products read
+coalesced) from L2. The TPU kernel summed dWh and dbh in VMEM across its
+sequential grid; H100 blocks cannot share an accumulator without atomics,
+so the scan writes the f32 ``dh_proj`` stream and a second kernel reduces
+``h_prev^T dh_proj`` over K = B*T through shared-memory tiles, with both
+operands rounded to Wh's dtype as the Pallas body rounds them, and a third
+sums ``dh_proj`` over K into dbh.
 """
 
 from __future__ import annotations
@@ -22,7 +37,7 @@ from typing import Optional, Tuple
 import torch
 
 from variational_mmt_torch import kernels
-from variational_mmt_torch.models.gru import gru_gates
+from variational_mmt_torch.models.gru import gru_bwd_core, gru_gates
 
 
 def gru_layer_scan_ref(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
@@ -87,4 +102,125 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     return outs, final
 
 
+def _prev_states(h0: torch.Tensor, outs: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """(B,T,H) f32: the state each step started from, in forward time
+    order: h0 at the first step processed, else the previous step's output."""
+    h0 = h0.float()[:, None]
+    if reverse:
+        return torch.cat([outs[:, 1:], h0], dim=1)
+    return torch.cat([h0, outs[:, :-1]], dim=1)
+
+
+def gru_layer_scan_bwd_ref(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
+                           Wh: torch.Tensor, bh: torch.Tensor, outs: torch.Tensor,
+                           g: torch.Tensor, reverse: bool = False):
+    """Plain PyTorch version of the backward kernel, step by step as the
+    Pallas body (``_gru_bwd_kernel``) computes it: gates recomputed from the
+    previous state, masked steps passing dh through, ``dh_proj`` rounded to
+    Wh's dtype for ``dh_proj @ Wh^T`` and for dWh. ``g`` (B,T,H) is the
+    cotangent of ``outs`` with the final state's already folded in. Returns
+    (dx_proj (B,T,3H), dh0 (B,H), dWh (H,3H), dbh (3H,)), all f32."""
+    B, T, H3 = x_proj.shape
+    cdt = Wh.dtype
+    w = Wh.float()
+    b = bh.float()
+    m = mask.float()
+    prev = _prev_states(h0, outs, reverse)
+    dh = torch.zeros((B, H3 // 3), dtype=torch.float32, device=x_proj.device)
+    dx = torch.empty((B, T, H3), dtype=torch.float32, device=x_proj.device)
+    dWh = torch.zeros((H3 // 3, H3), dtype=torch.float32, device=x_proj.device)
+    dbh = torch.zeros((H3,), dtype=torch.float32, device=x_proj.device)
+    for t in (range(T) if reverse else range(T - 1, -1, -1)):
+        h_prev = prev[:, t]
+        h_proj = h_prev.to(cdt).float() @ w + b
+        m_t = m[:, t, None]
+        dh_total = g[:, t].float() + dh
+        dx_t, dhp, dh_part = gru_bwd_core(m_t * dh_total, x_proj[:, t].float(), h_proj, h_prev)
+        dhp_c = dhp.to(cdt).float()
+        dh = (1.0 - m_t) * dh_total + dh_part + dhp_c @ w.t()
+        dx[:, t] = dx_t
+        dWh += h_prev.to(cdt).float().t() @ dhp_c
+        dbh += dhp.sum(0)
+    return dx, dh, dWh, dbh
+
+
+def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
+                       Wh: torch.Tensor, bh: torch.Tensor, outs: torch.Tensor,
+                       g: torch.Tensor, reverse: bool = False):
+    """Backward of :func:`gru_layer_scan` (same inputs, plus its f32
+    ``outs`` and their cotangent ``g``). Returns (dx_proj, dh0, dWh, dbh) in
+    f32. CPU tensors take the plain version; CUDA tensors launch the
+    kernels."""
+    if x_proj.device.type == "cpu":
+        return gru_layer_scan_bwd_ref(x_proj, mask, h0, Wh, bh, outs, g, reverse)
+    B, T, H3 = x_proj.shape
+    H = H3 // 3
+    dt = Wh.dtype
+    if dt not in kernels.DTYPE_CODE or x_proj.dtype != dt:
+        raise TypeError(f"gru_layer_scan_bwd kernel: x_proj {x_proj.dtype} and Wh {dt} "
+                        "must both be float32 or both bfloat16")
+    if tuple(Wh.shape) != (H, H3) or tuple(mask.shape) != (B, T) or tuple(h0.shape) != (B, H) \
+            or tuple(bh.shape) != (H3,) or tuple(outs.shape) != (B, T, H) \
+            or tuple(g.shape) != (B, T, H):
+        raise ValueError("gru_layer_scan_bwd kernel: shapes do not match x_proj (B,T,3H)")
+    if not 1 <= H <= 1024:
+        raise NotImplementedError(f"gru_layer_scan_bwd kernel: hidden {H} > 1024")
+    f32 = torch.float32
+    x = x_proj.contiguous()
+    args = [x, mask.to(f32).contiguous(), h0.to(f32).contiguous(), Wh.contiguous(),
+            bh.to(f32).contiguous(), outs.to(f32).contiguous(), g.to(f32).contiguous()]
+    kernels.require_cuda("gru_layer_scan_bwd", x.device,
+                         **dict(zip(("mask", "h0", "Wh", "bh", "outs", "g"), args[1:])))
+    dx = torch.empty((B, T, H3), dtype=f32, device=x.device)
+    dhp = torch.empty((B, T, H3), dtype=f32, device=x.device)
+    dh0 = torch.empty((B, H), dtype=f32, device=x.device)
+    dWh = torch.empty((H, H3), dtype=f32, device=x.device)
+    dbh = torch.empty((H3,), dtype=f32, device=x.device)
+    wht = torch.empty((H3, H), dtype=dt, device=x.device)
+    lib = kernels.library("gru_scan")
+    err = lib.vmmt_gru_scan_bwd(kernels.DTYPE_CODE[dt], *(a.data_ptr() for a in args),
+                                dx.data_ptr(), dhp.data_ptr(), dh0.data_ptr(), dWh.data_ptr(),
+                                dbh.data_ptr(), wht.data_ptr(), B, T, H, int(reverse),
+                                kernels.stream_of(x))
+    kernels.check(lib, err, "gru_layer_scan_bwd")
+    gru_layer_scan_bwd.launches += 1
+    return dx, dh0, dWh, dbh
+
+
 gru_layer_scan.launches = 0
+gru_layer_scan_bwd.launches = 0
+
+
+class _GruLayerScanAD(torch.autograd.Function):
+    """Forward: :func:`gru_layer_scan`; backward: :func:`gru_layer_scan_bwd`
+    (the custom VJP ``_gru_ad_fwd`` / ``_gru_ad_bwd``, gru.py:346-384)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, mask, h0, Wh, bh, reverse):
+        outs, final = gru_layer_scan(x_proj, mask, h0, Wh, bh, reverse)
+        ctx.save_for_backward(x_proj, mask, h0, Wh, bh, outs)
+        ctx.reverse = reverse
+        return outs, final
+
+    @staticmethod
+    def backward(ctx, g_outs, g_fin):
+        x_proj, mask, h0, Wh, bh, outs = ctx.saved_tensors
+        # fold the final state's cotangent into the last step processed:
+        # exact, because every step writes out[t] = carry, so out[last] == final
+        g = g_outs.float().clone()
+        g[:, 0 if ctx.reverse else -1] += g_fin.float()
+        dx, dh0, dWh, dbh = gru_layer_scan_bwd(x_proj, mask, h0, Wh, bh, outs, g, ctx.reverse)
+        return (dx.to(x_proj.dtype), None, dh0.to(h0.dtype), dWh.to(Wh.dtype),
+                dbh.to(bh.dtype), None)
+
+
+def gru_layer_scan_ad(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
+                      Wh: torch.Tensor, bh: torch.Tensor, reverse: bool = False,
+                      reset: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable :func:`gru_layer_scan` (both passes are kernels on
+    CUDA tensors). Gradients come back in the inputs' dtypes; ``mask`` has
+    none."""
+    if reset is not None:
+        raise NotImplementedError(
+            "gru_layer_scan_ad: reset (sequence packing) is not ported yet")
+    return _GruLayerScanAD.apply(x_proj, mask, h0, Wh, bh, reverse)

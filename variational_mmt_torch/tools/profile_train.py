@@ -1,0 +1,115 @@
+"""Where the time of a training step goes on the card.
+
+    python -m variational_mmt_torch.tools.profile_train [--out DIR] [--steps N]
+
+Builds the training cell of ``chip_smoke.py`` (``tools/flagship.py``:
+vmmt_c at full width with random weights from numpy seed 0, bf16,
+use_pallas, fused_ce; 4 fixed batches of 64 sentence pairs from numpy
+seed 1), then for ``pallas_decoder`` 1 and 0 warms up with 3 Trainer steps
+and takes N more (default 3) under ``torch.profiler``.
+Prints, per setting, the host wall time per step, the device's busy time
+and idle share, and the device time by layer (GRU-scan kernels, decoder
+sequence kernels, cuBLAS GEMMs, softmax, reductions, the rest) and by
+kernel; the per-kernel tables also go to DIR (default build/profile).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import subprocess
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from variational_mmt_torch.models.model import build_model
+from variational_mmt_torch.tools import flagship
+from variational_mmt_torch.train.trainer import Trainer
+
+OWN = "(anonymous namespace)::"  # the port's kernels live in anonymous namespaces
+LAYERS = (  # (layer, names of the port's kernels or substrings of library ones)
+    ("GRU-scan kernels (rows 1, 2)", ("gru_scan_kernel", "gru_scan_bwd_kernel", "dwh_kernel",
+                                      "bias_grad_kernel")),
+    ("decoder sequence kernels (rows 5, 6)", ("cell_fwd_kernel", "cell_bwd_kernel",
+                                              "attn_fwd_kernel", "attn_bwd_kernel",
+                                              "gemm_kernel", "transpose_kernel")),
+    ("cuBLAS GEMM", ("gemm", "sm90", "cutlass", "xmma", "gemv")),
+    ("softmax", ("softmax",)),
+    ("reductions", ("reduce",)),
+)
+
+
+def layer_of(name: str) -> str:
+    own = name.split(OWN, 1)[1].split("<", 1)[0] if OWN in name else None
+    low = name.lower()
+    for layer, keys in LAYERS:
+        if own is not None and own in keys:
+            return layer
+        if own is None and any(k in low for k in keys):
+            return layer
+    return "elementwise, gather, copy"
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", default=os.path.join("build", "profile"))
+    ap.add_argument("--steps", type=int, default=3)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_train: needs a CUDA card")
+    os.makedirs(args.out, exist_ok=True)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip()
+    print(card)
+    cfg, state = flagship.load()
+    m = cfg.model
+    batches = flagship.train_batches(m)
+
+    for pallas_decoder in (True, False):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(m, pallas_decoder=pallas_decoder))
+        model = build_model(c.model, device="cuda")
+        model.load_state_dict(state)
+        trainer = Trainer(c, model, batches, device="cuda")
+        trainer.train(3)  # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train(args.steps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        by_kernel = defaultdict(lambda: [0.0, 0])
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                rec = by_kernel[e.name]
+                rec[0] += e.time_range.elapsed_us()
+                rec[1] += 1
+        busy = sum(t for t, _ in by_kernel.values())
+        by_layer = defaultdict(float)
+        for name, (t, _) in by_kernel.items():
+            by_layer[layer_of(name)] += t
+        n = args.steps
+        print(f"\npallas_decoder={int(pallas_decoder)}: {n} steps of batch 64, wall "
+              f"{wall_us / 1e3 / n:.2f} ms/step, device busy {busy / 1e3 / n:.2f} ms/step, "
+              f"idle share {1 - busy / wall_us:.3f} ({card})")
+        for layer, t in sorted(by_layer.items(), key=lambda kv: -kv[1]):
+            print(f"  {layer:38s} {t / 1e3 / n:9.3f} ms/step  {t / busy:6.1%} of device time")
+        lines = [f"{t / 1e3 / n:10.4f} ms/step {n_k // n:7d}x/step  {name}"
+                 for name, (t, n_k) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])]
+        with open(os.path.join(args.out, f"kernels_train_pallas_decoder{int(pallas_decoder)}.txt"),
+                  "w") as f:
+            f.write(f"{card}\npallas_decoder={int(pallas_decoder)} wall "
+                    f"{wall_us / 1e3 / n:.3f} ms/step\n")
+            f.write("\n".join(lines) + "\n")
+        print("  top kernels:")
+        for line in lines[:10]:
+            print("   ", line[:150])
+        del trainer, model
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

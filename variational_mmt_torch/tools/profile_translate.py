@@ -2,11 +2,11 @@
 
     python -m variational_mmt_torch.tools.profile_translate [--out DIR]
 
-Builds vmmt_c at full width from the port's configs/vmmt_c_multi30k.json
-(random weights from numpy seed 0, bf16, use_pallas), warms up, then for
-each decode step (``pallas_step`` 0, 1, 2) translates one request of 256
-sentences (random lengths 8-24, beam 4, max_length 60) under
-``torch.profiler``. Prints, per mode, the host wall time, the device's busy
+Builds the serving cell of ``chip_smoke.py`` (``tools/flagship.py``:
+vmmt_c at full width with random weights from numpy seed 0, bf16,
+use_pallas), warms up, then for each decode step (``pallas_step`` 0, 1, 2)
+translates the cell's first request of 256 sentences (lengths 8-24, beam
+4, max_length 60) under ``torch.profiler``. Prints, per mode, the host wall time, the device's busy
 time and idle share, and the device time by layer (encoder scan, decode
 step kernels, cuBLAS GEMMs, softmax, top-k, the rest) and by kernel; the
 per-kernel tables also go to DIR (default build/profile).
@@ -20,22 +20,19 @@ import subprocess
 import time
 from collections import defaultdict
 
-import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from variational_mmt_torch.config import Config, DecodeConfig
-from variational_mmt_torch.convert import params_from_jax
+from variational_mmt_torch.config import DecodeConfig
 from variational_mmt_torch.data.vocab import SPECIALS, Vocab
 from variational_mmt_torch.decode.translator import Translator
-from variational_mmt_torch.models.model import build_model, init_params
+from variational_mmt_torch.models.model import build_model
+from variational_mmt_torch.tools import flagship
 
-CONFIG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "configs", "vmmt_c_multi30k.json")
 LAYERS = (  # (layer, substrings of kernel names), first match wins
     ("encoder GRU scan kernel", ("gru_scan_kernel",)),
-    ("decode step kernels", ("gru_cell_kernel", "gemm_kernel", "attn_kernel")),
+    ("decode step kernels", ("cell_fwd_kernel", "gemm_kernel", "attn_fwd_kernel")),
     ("top-k / sort", ("topk", "radix", "sort", "select")),
     ("softmax", ("softmax",)),
     ("cuBLAS GEMM", ("gemm", "sm90", "cutlass", "xmma", "gemv")),
@@ -60,14 +57,12 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
-    with open(CONFIG) as f:
-        cfg = Config.from_json(f.read()).model
+    full, state = flagship.load()
+    cfg = full.model
     model = build_model(cfg, device="cuda")
-    model.load_state_dict(params_from_jax(init_params(cfg, seed=0), cfg))
+    model.load_state_dict(state)
     vocab = Vocab(SPECIALS + [f"w{i}" for i in range(cfg.tgt_vocab_size - len(SPECIALS))])
-    rng = np.random.default_rng(1)
-    src = [rng.integers(4, cfg.src_vocab_size, rng.integers(8, 25)).tolist() for _ in range(256)]
-    img = np.abs(rng.standard_normal((256, cfg.img_feat_dim))).astype(np.float32)
+    src, img = flagship.requests(cfg)(256)
 
     for mode in (0, 1, 2):
         tr = Translator(model, vocab, vocab, DecodeConfig(beam_size=4, max_length=60,
