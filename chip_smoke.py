@@ -30,7 +30,13 @@ in PERF.md).
    and over the whole sequence requires the kernel's distance from the f32
    math of the same inputs to be at most 1.5 times the plain version's
    (readings of 1.0 and 1.3 times, forward and backward, set that limit).
-   Times at bf16:
+   Both backward kernels are also held at the same tolerances on a ragged
+   batch (B=61, which fills no row group or tile; for the scan with one row
+   all padding) and on T=1, in both directions for the scan, and must give
+   bit-identical outputs in two launches on the same inputs (a missing
+   cluster or grid barrier can hide inside a tolerance); each prints the
+   launch plan it chose (cluster size, rows per cluster or CTA, CTAs,
+   shared memory per CTA, co-resident clusters or CTAs). Times at bf16:
    kernel, plain version and, for the scan backward, cuDNN's nn.GRU
    backward (which also computes the input-projection gradients that the
    port leaves to cuBLAS).
@@ -50,9 +56,10 @@ in PERF.md).
    mean loss of the last 4 steps below that of the first 4, and the launch
    counts of the GRU scan, its backward and the decoder sequence kernels
    must rise. Step time and target tokens/s for pallas_decoder True and
-   False, four runs of 20 steps each, in turns (1 0 0 1 1 0 0 1), with each
-   route's spread (max - min) / mean over its runs, and the peak device
-   memory.
+   False, four runs of 48 steps each (12 passes over the batches), in
+   turns (1 0 0 1 1 0 0 1), each after one untimed pass of its route, with
+   each route's spread (max - min) / mean over its runs, and the peak
+   device memory.
 6. f32 training check: one batch, deterministic, no sampling; the kernel
    path (use_pallas, pallas_decoder, fused_ce) against the all-plain path
    (use_pallas=False, pallas_decoder=False, fused_ce=False): losses within
@@ -90,7 +97,7 @@ TRAIN_SCAN_SHAPE = dict(B=64, T=24, H=250)
 DEC_SHAPE = dict(B=64, T=25, S=24, H=500)
 DEC_MEM_STD, DEC_MEM_STD_PEAKED = 0.1, 0.5  # std of keys and mem_v (module docstring)
 PEAKED_STEPS, PEAKED_DRIFT_RATIO = 4, 1.5  # checks at memory std 0.5 (module docstring)
-TRAIN_BATCH, TRAIN_BATCHES, TRAIN_STEPS, TIMED_STEPS = 64, 4, 30, 20
+TRAIN_BATCH, TRAIN_BATCHES, TRAIN_STEPS, TIMED_STEPS = 64, 4, 30, 48  # timed: whole passes
 TIMED_ORDER = (True, False, False, True, True, False, False, True)  # pallas_decoder, in turns
 
 
@@ -140,31 +147,71 @@ def rel_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
+def deterministic(name: str, fn) -> None:
+    """Two launches on the same inputs must agree bit for bit: a missing
+    cluster or grid barrier can hide inside a tolerance, not here."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"  {name} bfloat16: two launches bit-identical: {'ok' if same else 'MISMATCH'}")
+    if not same:
+        fail(f"{name} kernel gives different outputs for the same inputs")
+
+
+def print_plan(name: str, plan: dict) -> None:
+    print(f"  {name} launch plan: " + ", ".join(f"{k} {v}" for k, v in plan.items()))
+
+
+def scan_bwd_inputs(g, dt, B, T, H, min_len):
+    """Inputs of the scan backward, lengths uniform in min_len..T; with
+    min_len 0 row 2 is all padding."""
+    lengths = torch.randint(max(min_len, 1), T + 1, (B,), generator=g, device="cuda")
+    if min_len == 0:
+        lengths[2] = 0
+    mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).float()
+    return (torch.randn(B, T, 3 * H, generator=g, device="cuda").to(dt), mask,
+            torch.zeros(B, H, device="cuda"),
+            (torch.randn(H, 3 * H, generator=g, device="cuda") / math.sqrt(H)).to(dt),
+            0.1 * torch.randn(3 * H, generator=g, device="cuda"),
+            torch.randn(B, T, H, generator=g, device="cuda"))
+
+
+def scan_bwd_errs(gru_scan, args):
+    """(max rel err, max abs err) of the kernel against the plain version,
+    both directions."""
+    *ins, gout = args
+    errs, abs_errs = [], []
+    for reverse in (False, True):
+        outs, _ = gru_scan.gru_layer_scan_ref(*ins, reverse)
+        got = gru_scan.gru_layer_scan_bwd(*ins, outs, gout, reverse)
+        want = gru_scan.gru_layer_scan_bwd_ref(*ins, outs, gout, reverse)
+        torch.cuda.synchronize()
+        errs.append(rel_err(got, want))
+        abs_errs.append(max_err(got, want))
+    return max(errs), max(abs_errs), outs
+
+
 def scan_bwd_phase(gru_scan):
-    """GRU-scan backward at B=64, T=24, H=250, both directions."""
+    """GRU-scan backward at B=64, T=24, H=250, both directions; then a
+    ragged batch (B=61, row 2 all padding) and T=1, and determinism."""
     B, T, H = TRAIN_SCAN_SHAPE["B"], TRAIN_SCAN_SHAPE["T"], TRAIN_SCAN_SHAPE["H"]
     g = torch.Generator(device="cuda").manual_seed(3)
-    lengths = torch.randint(8, T + 1, (B,), generator=g, device="cuda")
-    mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).float()
     rec = {}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
-        x = torch.randn(B, T, 3 * H, generator=g, device="cuda").to(dt)
-        h0 = torch.zeros(B, H, device="cuda")
-        wh = (torch.randn(H, 3 * H, generator=g, device="cuda") / math.sqrt(H)).to(dt)
-        bh = 0.1 * torch.randn(3 * H, generator=g, device="cuda")
-        gout = torch.randn(B, T, H, generator=g, device="cuda")
-        errs, abs_errs = [], []
-        for reverse in (False, True):
-            outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, reverse)
-            got = gru_scan.gru_layer_scan_bwd(x, mask, h0, wh, bh, outs, gout, reverse)
-            want = gru_scan.gru_layer_scan_bwd_ref(x, mask, h0, wh, bh, outs, gout, reverse)
-            torch.cuda.synchronize()
-            errs.append(rel_err(got, want))
-            abs_errs.append(max_err(got, want))
-        check_close("gru_scan_bwd", dt_name, max(errs), "max_rel_err")
-        rec[f"err_{dt_name}"], rec[f"abs_err_{dt_name}"] = max(errs), max(abs_errs)
+        args = scan_bwd_inputs(g, dt, B, T, H, 8)
+        err, abs_err, outs = scan_bwd_errs(gru_scan, args)
+        check_close("gru_scan_bwd", dt_name, err, "max_rel_err")
+        rec[f"err_{dt_name}"], rec[f"abs_err_{dt_name}"] = err, abs_err
+        edge = max(scan_bwd_errs(gru_scan, scan_bwd_inputs(g, dt, b, t, H, 0))[0]
+                   for b, t in ((61, T), (B, 1)))
+        check_close("gru_scan_bwd B=61 and T=1, a row all padding", dt_name, edge, "max_rel_err")
+        rec[f"edge_err_{dt_name}"] = edge
+    x, mask, h0, wh, bh, gout = args
     args = (x, mask, h0, wh, bh, outs, gout, True)
+    deterministic("gru_scan_bwd", lambda: gru_scan.gru_layer_scan_bwd(*args))
+    rec["plan"] = gru_scan.gru_layer_scan_bwd.plan
+    print_plan("gru_scan_bwd", rec["plan"])
     rec["ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd(*args))
     rec["plain_ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*args), iters=5)
     gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
@@ -197,13 +244,14 @@ def decoder_inputs(g, dt, B, T, S, H, mem_std):
 
 
 def decoder_phase(dec):
-    """Decoder sequence forward and backward at B=64, T=25, S=24, H=500."""
+    """Decoder sequence forward and backward at B=64, T=25, S=24, H=500;
+    then the backward at B=61 and at T=1, and its determinism."""
     B, T, S, H = (DEC_SHAPE[k] for k in ("B", "T", "S", "H"))
     g = torch.Generator(device="cuda").manual_seed(4)
     kernel = (dec.decoder_fwd, dec.decoder_bwd)
     plain = (dec.decoder_fwd_ref, dec.decoder_bwd_ref)
 
-    def draw(dt, mem_std):
+    def draw(dt, mem_std, B=B, T=T):
         """Inputs, the forward streams the backward reads, and cotangents."""
         args = decoder_inputs(g, dt, B, T, S, H, mem_std)
         d = (torch.randn(B, T, H, generator=g, device="cuda"),
@@ -224,7 +272,17 @@ def decoder_phase(dec):
             rec[f"abs_err_{dt_name}"] = max_err(*gw)
         check_close("decoder_fwd", dt_name, fwd[f"err_{dt_name}"], "max_rel_err")
         check_close("decoder_bwd", dt_name, bwd[f"err_{dt_name}"], "max_rel_err")
+        edge = []
+        for b, t in ((61, T), (B, 1)):
+            a, st, dd = draw(getattr(torch, dt_name), DEC_MEM_STD, b, t)
+            edge.append(rel_err(dec.decoder_bwd(*a[:14], *st, *dd),
+                                dec.decoder_bwd_ref(*a[:14], *st, *dd)))
+        check_close("decoder_bwd B=61 and T=1", dt_name, max(edge), "max_rel_err")
+        bwd[f"edge_err_{dt_name}"] = max(edge)
     bargs = (*args[:14], *streams, *d)  # bf16, for the times below
+    deterministic("decoder_bwd", lambda: dec.decoder_bwd(*bargs))
+    bwd["plan"] = dec.decoder_bwd.plan
+    print_plan("decoder_bwd", bwd["plan"])
 
     # peaked attention: kernel against plain over the first steps each pass
     # processes, and each bf16 version against the f32 math of its inputs
@@ -505,9 +563,9 @@ def train_phase(card: str, cfg, state):
     print(f"train: peak device memory {peak / 2**20:.1f} MiB "
           f"(torch.cuda.max_memory_allocated, pallas_decoder=True, {card})")
 
-    trainers[False].train(2)  # warm-up of the plain decoder route
     runs = {True: [], False: []}
     for p in TIMED_ORDER:
+        trainers[p].train(TRAIN_BATCHES)  # untimed: no run starts cold after the other route
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = trainers[p].train(TIMED_STEPS)
@@ -625,6 +683,9 @@ def main() -> int:
         }
         if "peaked" in rec:  # the decoder's checks at attention memory std 0.5
             entry["peaked"] = {k: v for k, v in rec["peaked"].items() if k != "per_step"}
+        for key in ("plan", "edge_err_float32", "edge_err_bfloat16"):  # rows 2 and 6
+            if key in rec:
+                entry[key] = rec[key]
         if "abs_err_bfloat16" in rec:  # gradients: the relative error is the check
             entry.update(max_rel_err=rec["err_bfloat16"], max_rel_err_f32=rec["err_float32"])
         else:

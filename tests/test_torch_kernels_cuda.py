@@ -73,6 +73,30 @@ def test_gru_scan_bwd_kernel(cuda, dt, reverse):
               gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, reverse), dt)
 
 
+def scan_bwd_args(g, dt, B, T, H):
+    """Inputs of the scan backward with ragged lengths, row 2 all padding."""
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+    lengths[min(2, B - 1)] = 0
+    mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
+    return (r(B, T, 3 * H).to(dt), mask, 0.1 * r(B, H), (r(H, 3 * H) / math.sqrt(H)).to(dt),
+            0.1 * r(3 * H))
+
+
+# B=61 fills no group of 4 rows or tile of 16; T=1 is a single step; H=250
+# is the encoder's width (8 CTAs a cluster)
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,T,H", [(61, 7, 40), (9, 1, 40), (6, 5, 250)],
+                         ids=["ragged", "T1", "H250"])
+def test_gru_scan_bwd_kernel_shapes(cuda, dt, reverse, B, T, H):
+    args = scan_bwd_args(cuda, dt, B, T, H)
+    outs, _ = gru_scan.gru_layer_scan_ref(*args, reverse)
+    g = torch.randn(B, T, H, generator=cuda, device="cuda")
+    close_rel(gru_scan.gru_layer_scan_bwd(*args, outs, g, reverse),
+              gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, reverse), dt)
+
+
 def decoder_args(g, dt, B=9, T=6, S=40, H=72):
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
     w = lambda *s: (r(*s) / math.sqrt(H)).to(dt)  # noqa: E731
@@ -99,6 +123,42 @@ def test_decoder_bwd_kernel(cuda, dt):
     d_probs = torch.randn(streams[3].shape, generator=cuda, device="cuda")
     close_rel(decoder.decoder_bwd(*args[:14], *streams, d_attn, d_probs),
               decoder.decoder_bwd_ref(*args[:14], *streams, d_attn, d_probs), dt)
+
+
+# B=140: more rows than an H100 has SMs, so the attention phase gives some
+# CTAs two rows
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B,T", [(61, 6), (9, 1), (140, 3)], ids=["ragged", "T1", "B140"])
+def test_decoder_bwd_kernel_shapes(cuda, dt, B, T):
+    args = decoder_args(cuda, dt, B=B, T=T)
+    streams = decoder.decoder_fwd_ref(*args)
+    d_attn = torch.randn(streams[0].shape, generator=cuda, device="cuda")
+    d_probs = torch.randn(streams[3].shape, generator=cuda, device="cuda")
+    close_rel(decoder.decoder_bwd(*args[:14], *streams, d_attn, d_probs),
+              decoder.decoder_bwd_ref(*args[:14], *streams, d_attn, d_probs), dt)
+    plan = decoder.decoder_bwd.plan
+    assert plan["grid"] == max(plan["unit_tiles"] * plan["row_tiles"], min(B, plan["sms"]))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_backward_kernels_are_deterministic(cuda, dt):
+    """Two launches on the same inputs agree bit for bit: a missing cluster
+    or grid barrier shows here even where it stays inside a tolerance."""
+    args = scan_bwd_args(cuda, dt, 61, 7, 250)
+    outs, _ = gru_scan.gru_layer_scan_ref(*args, True)
+    g = torch.randn(outs.shape, generator=cuda, device="cuda")
+    first = gru_scan.gru_layer_scan_bwd(*args, outs, g, True)
+    second = gru_scan.gru_layer_scan_bwd(*args, outs, g, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    args = decoder_args(cuda, dt, B=61, T=6)
+    streams = decoder.decoder_fwd_ref(*args)
+    d = (torch.randn(streams[0].shape, generator=cuda, device="cuda"),
+         torch.randn(streams[3].shape, generator=cuda, device="cuda"))
+    first = decoder.decoder_bwd(*args[:14], *streams, *d)
+    second = decoder.decoder_bwd(*args[:14], *streams, *d)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def step_args(g, dt, N=37, S=40, H=72):

@@ -1,0 +1,170 @@
+"""PyTorch port: the launch plans of the two training backward kernels
+(``scan_bwd_plan`` and ``decoder_bwd_plan``), pure Python, on the CPU.
+The widths the repo's configs use (H=250 a direction for the scan, H=500
+for the decoder) are accepted in both dtypes; shapes the designs cannot
+hold raise NotImplementedError, and so do the wrappers on a non-CPU tensor
+before anything is launched (meta tensors stand in for CUDA ones)."""
+
+import pytest
+import torch
+
+from variational_mmt_torch import kernels
+from variational_mmt_torch.ops import decoder, gru_scan
+
+DTYPES = [torch.float32, torch.bfloat16]
+H100_SMS = 132  # SMs of an H100 SXM; an H100 PCIe has 114
+SMEM_PER_SM = 233_472  # shared memory of an H100 SM (228 KB), 1 KB of it reserved per CTA
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B,T", [(64, 24), (61, 24), (64, 1), (1, 5)])
+def test_scan_plan_accepts_the_encoder_width(dt, B, T):
+    H = 250
+    plan = gru_scan.scan_bwd_plan(B, T, H, dt)
+    assert plan["cluster"] <= gru_scan.SCAN_BWD_MAX_CLUSTER
+    assert plan["units"] <= gru_scan.SCAN_BWD_UNITS
+    assert plan["cluster"] * plan["units"] >= H > (plan["cluster"] - 1) * plan["units"]
+    assert plan["clusters"] * plan["rows"] >= B > (plan["clusters"] - 1) * plan["rows"]
+    assert plan["ctas"] == plan["clusters"] * plan["cluster"]
+    assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
+    assert 1 <= plan["dwh_splits"] <= 8
+
+
+def test_scan_plan_at_the_training_shape():
+    """B=64, T=24: 16 clusters of 8 CTAs of 32 units."""
+    for dt in DTYPES:
+        plan = gru_scan.scan_bwd_plan(64, 24, 250, dt)
+        assert (plan["cluster"], plan["units"], plan["clusters"], plan["ctas"]) == (8, 32, 16, 128)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [0, 257, 1024])
+def test_scan_plan_refuses_what_a_cluster_cannot_hold(dt, H):
+    with pytest.raises(NotImplementedError):
+        gru_scan.scan_bwd_plan(64, 24, H, dt)
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B,S", [(64, 24), (61, 24), (1, 24), (64, 80), (256, 24)])
+def test_decoder_plan_accepts_the_decoder_width(dt, B, S, sms):
+    H = 500
+    plan = decoder.decoder_bwd_plan(B, S, H, dt, sms)
+    assert plan["units"] == decoder.DEC_BWD_UNITS[dt]
+    assert plan["unit_tiles"] * plan["units"] >= H
+    assert plan["rows"] % 16 == 0 and plan["row_tiles"] * plan["rows"] >= B
+    assert plan["grid"] >= plan["unit_tiles"] * plan["row_tiles"]
+    assert plan["grid"] <= max(sms, plan["unit_tiles"])
+    assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
+
+
+def test_decoder_plan_at_the_training_shape():
+    """B=64, S=24 on an H100 SXM: bf16 CTAs of 8 units and 32 rows (126
+    CTAs), f32 CTAs of 4 units and 64 rows (125); two CTAs fit an SM, so
+    the grid is co-resident on any card of 63 SMs or more."""
+    bf16 = decoder.decoder_bwd_plan(64, 24, 500, torch.bfloat16, H100_SMS)
+    f32 = decoder.decoder_bwd_plan(64, 24, 500, torch.float32, H100_SMS)
+    assert (bf16["units"], bf16["rows"], bf16["grid"]) == (8, 32, 126)
+    assert (f32["units"], f32["rows"], f32["grid"]) == (4, 64, 125)
+    for plan in (bf16, f32):
+        assert 2 * (plan["smem"] + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B,S,H", [(64, 24, 2000), (4096, 24, 500), (0, 24, 500)])
+def test_decoder_plan_refuses_what_shared_memory_cannot_hold(dt, B, S, H):
+    with pytest.raises(NotImplementedError):
+        decoder.decoder_bwd_plan(B, S, H, dt, H100_SMS)
+
+
+def meta(*shape, dtype=torch.float32):
+    return torch.empty(*shape, device="meta", dtype=dtype)
+
+
+def scan_args(B, T, H):
+    return (meta(B, T, 3 * H), meta(B, T), meta(B, H), meta(H, 3 * H), meta(3 * H),
+            meta(B, T, H), meta(B, T, H))
+
+
+def decoder_args(B, T, S, H, dt=torch.float32):
+    c = lambda *shape: meta(*shape, dtype=dt)  # noqa: E731
+    w = c(H, 3 * H)
+    return (c(B, T, 3 * H), c(B, T, H), meta(B, H), meta(B, H), w, w, meta(3 * H), w,
+            meta(3 * H), w, meta(3 * H), c(B, S, H), c(B, S, H), c(H, H),
+            c(B, T, H), c(B, T, H), c(B, T, H), c(B, T, S), meta(B, T, H), meta(B, T, S))
+
+
+class Launched(RuntimeError):
+    pass
+
+
+@pytest.fixture
+def no_launch(monkeypatch):
+    """A library whose every entry point fails the test if it is called."""
+    class Lib:
+        def __getattr__(self, name):
+            raise Launched(name)
+
+    monkeypatch.setattr(kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(kernels, "sm_count", lambda device: H100_SMS)
+    return monkeypatch
+
+
+def test_wrappers_refuse_a_shape_before_launching(no_launch):
+    with pytest.raises(NotImplementedError):
+        gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 300))
+    with pytest.raises(NotImplementedError):
+        decoder.decoder_bwd(*decoder_args(4, 5, 3, 2000))
+
+
+def test_wrappers_refuse_what_the_card_cannot_hold_at_once(no_launch):
+    """No cluster fits, or the cooperative grid is not co-resident: the
+    wrapper raises; it never runs anything else in the kernels' place."""
+    plan = gru_scan.scan_bwd_plan(4, 5, 8, torch.float32)
+    no_launch.setattr(kernels, "occupancy", lambda *a: (0, plan["smem"]))
+    with pytest.raises(NotImplementedError, match="does not fit"):
+        gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 8))
+    plan = decoder.decoder_bwd_plan(4, 3, 8, torch.float32, H100_SMS)
+    no_launch.setattr(kernels, "occupancy", lambda *a: (plan["grid"] - 1, plan["smem"]))
+    with pytest.raises(NotImplementedError, match="at once"):
+        decoder.decoder_bwd(*decoder_args(4, 5, 3, 8))
+
+
+def test_wrappers_check_the_plan_against_the_kernels_count(no_launch):
+    no_launch.setattr(kernels, "occupancy", lambda *a: (1000, 1))
+    with pytest.raises(RuntimeError, match="shared"):
+        gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 8))
+    with pytest.raises(RuntimeError, match="shared"):
+        decoder.decoder_bwd(*decoder_args(4, 5, 3, 8))
+
+
+@pytest.mark.parametrize("dt,per_sm", [(torch.bfloat16, 1), (torch.float32, 2)], ids=str)
+def test_decoder_grid_follows_the_cards_sm_count(monkeypatch, dt, per_sm):
+    """On a card of 114 SMs (an H100 PCIe) that holds ``per_sm`` CTAs an SM
+    the flagship's backward launches with a co-resident grid: the plan
+    spreads its tiles over the SMs the card has."""
+    grids = []
+
+    class Lib:
+        def vmmt_decoder_bwd(self, *args):
+            grids.append(args[-2])  # ..., units, rows, grid, stream
+            return 0
+
+    monkeypatch.setattr(kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(kernels, "sm_count", lambda device: 114)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    smem = decoder.decoder_bwd_plan(64, 24, 500, dt, 114)["smem"]
+    monkeypatch.setattr(kernels, "occupancy", lambda *a: (114 * per_sm, smem))
+    decoder.decoder_bwd(*decoder_args(64, 25, 24, 500, dt))
+    assert len(grids) == 1 and grids[0] <= 114 * per_sm
+    assert decoder.decoder_bwd.plan["grid"] == grids[0]
+
+
+def test_decoder_refuses_a_grid_the_card_cannot_hold(no_launch):
+    """f32 needs a CTA for each of its 125 unit tiles: one CTA an SM on 114
+    SMs is too few, and the wrapper says so before launching."""
+    no_launch.setattr(kernels, "sm_count", lambda device: 114)
+    smem = decoder.decoder_bwd_plan(64, 24, 500, torch.float32, 114)["smem"]
+    no_launch.setattr(kernels, "occupancy", lambda *a: (114, smem))
+    with pytest.raises(NotImplementedError, match="at once"):
+        decoder.decoder_bwd(*decoder_args(64, 25, 24, 500))

@@ -1,13 +1,12 @@
 // Device helpers and kernels shared by the port's CUDA sources.
 //
-// gru_scan.cu uses the conversions and transpose_kernel. decode_step.cu (one
-// beam step, N = batch x beam rows) and decoder.cu (the teacher-forced
-// sequence, one step at a time) share the forward step itself:
+// gru_scan.cu uses the conversions. decode_step.cu (one beam step, N =
+// batch x beam rows) and decoder.cu's forward (the teacher-forced sequence,
+// one step at a time) share the forward step itself:
 //   cell_fwd_kernel: a GRU cell over N rows, both products tiled through
 //       shared memory, with the input product's operand optionally scaled
 //       by a dropout mask (the decoder's dmid);
-//   gemm_kernel:     h1' @ Wc_q (and, in decoder.cu's backward, the
-//       products with the transposed weights);
+//   gemm_kernel:     h1' @ Wc_q;
 //   attn_fwd_kernel: scores, masked softmax, context and tanh, one block
 //       per row.
 // They are templated on the compute dtype T of the weights and streams, on
@@ -73,22 +72,6 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
-}
-
-// out (C,R) = in (R,C)^T, 32x32 tiles through shared memory; block (32, 8).
-template <typename T>
-__global__ void transpose_kernel(const T* __restrict__ in, T* __restrict__ out, int R, int C) {
-  __shared__ T tile[32][33];
-  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int r = r0 + i, c = c0 + threadIdx.x;
-    if (r < R && c < C) tile[i][threadIdx.x] = in[(size_t)r * C + c];
-  }
-  __syncthreads();
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int c = c0 + i, r = r0 + threadIdx.x;
-    if (r < R && c < C) out[(size_t)c * R + r] = tile[threadIdx.x][i];
-  }
 }
 
 // Tiles of the cells and products: a block of (kTU, kTY) threads covers

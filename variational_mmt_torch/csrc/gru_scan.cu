@@ -22,24 +22,42 @@
 // cluster's shared memory is the next step.
 //
 // The backward replaces _gru_bwd_kernel (_gru_scan_bwd_impl, pallas_call at
-// :297) and runs in three kernels from one entry point:
-//   (a) transpose_kernel: Wh (H,3H) -> Wh^T (3H,H) into a scratch buffer, so
-//       that the per-step product dh_proj @ Wh^T reads it coalesced;
-//   (b) gru_scan_bwd_kernel: the same block layout as the forward, looping
-//       over time in reverse. Each step recomputes the gates from h_prev (the
-//       previous step's output, or h0 at the first step processed), takes
-//       dh from shared memory, passes it through masked steps, and emits
-//       dx_proj and dh_proj (both f32) for the step; dh_prev gets
-//       dh_proj @ Wh^T with dh_proj rounded to T (f32 accumulation);
-//   (c) dwh_kernel: dWh = sum over (row, t) of h_prev^T dh_proj, a
-//       shared-memory tiled product over K = B*T with both operands rounded
-//       to T as the Pallas body rounds them, and dbh = the column sums of
-//       dh_proj in f32 (bias_grad_kernel).
-// The TPU kernel accumulated dWh and dbh in VMEM scratch across its grid;
-// blocks here cannot share one accumulator without atomics, so (c) reduces
-// the dh_proj stream that (b) writes, deterministically.
+// :297). Its serial part is T dependent steps of two (rows, H) x (H, 3H)
+// products: the gate recompute round(h_prev) @ Wh and dh_proj @ Wh^T. At
+// training's B=64, T=24, H=250 its bytes and FLOPs bound it at a few
+// microseconds; what bounds it on this card is the latency of the serial
+// chain; one block of 4 rows each would use 16 of 132 SMs at B=64 and
+// re-read Wh from L2 every step. This design takes off the chain what does
+// not belong there and keeps Wh next to the cores, in three launches:
+//   (a) the gate recompute does not depend on the backward recurrence
+//       (h_prev is the saved forward output), so one tiled product computes
+//       hp = round(h_prev) @ Wh + bh for all B*T (row, t) at once before the
+//       scan (tile_gemm.cuh; tensor cores in bf16);
+//   (b) the reverse scan runs on thread-block clusters: one cluster of C
+//       CTAs per kScanRows batch rows (C = 8 at H=250: 128 CTAs at B=64),
+//       CTA c owning hidden units [c*units, (c+1)*units). Each CTA loads its
+//       rows of Wh (units x 3H, 48 KB in bf16) into shared memory once. Per
+//       step it does the gate backward of its units from hp, pushes its
+//       rounded slice of dh_proj into every peer's shared memory
+//       (distributed shared memory, double-buffered), waits at one cluster
+//       barrier and forms dh[units] = dh_part + dh_proj @ Wh[units, :]^T
+//       from shared memory: in bf16 on the tensor cores (the units are the
+//       16 rows of an mma tile, the batch rows its columns, four warps
+//       splitting K for each tile), in f32 by FMAs. The next step's inputs
+//       are loaded while the current one computes;
+//   (c) dWh = sum over (row, t) of round(h_prev)^T round(dh_proj) is one
+//       tiled product over K = B*T (tensor cores in bf16), K split over 8
+//       blocks a tile (48 tiles would leave most SMs idle) whose partials
+//       the last block adds in a fixed order; extra blocks of the same
+//       launch sum dbh, the unrounded column sums of dh_proj. Deterministic.
+// The scan writes dx_proj and only the third gate block of dh_proj (its
+// first two equal dx_proj's), which (c) reads.
 
-#include "common.cuh"
+#include <cooperative_groups.h>
+
+#include "tile_gemm.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -142,221 +160,317 @@ void launch(const void* x_proj, const void* mask, const void* h0, const void* wh
       static_cast<float*>(final_h), B, T_len, H, reverse);
 }
 
-// Backward scan. g (B,T,H) f32 is the cotangent of outs, with the final
-// state's cotangent already folded into the last step processed. Writes
-// dx (B,T,3H) f32 = [dr_pre | dz_pre | dn_pre], dhp (B,T,3H) f32 =
-// [dr_pre | dz_pre | dhn] and dh0 (B,H) f32.
+constexpr int kScanRows = 4;       // batch rows per cluster
+constexpr int kScanUnits = 32;     // most hidden units one CTA owns
+constexpr int kScanThreads = 256;  // covers kScanRows x kScanUnits gate items
+constexpr int kScanWarps = kScanThreads / 32;
+constexpr int kUnitsPerWarp = kScanUnits / kScanWarps;
+constexpr int kScanParts = kScanWarps / 2;  // bf16: warps splitting K for one 16-unit tile
+
+// Dynamic shared memory of the scan, one CTA: its rows of Wh (wrows, ld)
+// and two dh_proj buffers (kScanRows, ld) in the compute dtype, then dh and
+// dh_part (kScanRows, units) and, in bf16, the partial products of the
+// warps (kScanParts, kScanUnits, kScanRows) in f32. In bf16 the rows are
+// mma operands: 32 rows (two 16-unit tiles) of conflict-free stride, zero
+// past the CTA's units and 3H.
 template <typename T>
-__global__ void __launch_bounds__(1024)
-gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask,
-                    const float* __restrict__ h0, const T* __restrict__ wh,
-                    const T* __restrict__ wht, const float* __restrict__ bh,
-                    const float* __restrict__ outs, const float* __restrict__ g,
-                    float* __restrict__ dx, float* __restrict__ dhp, float* __restrict__ dh0,
-                    int B, int T_len, int H, int reverse) {
-  extern __shared__ float smem[];
-  const int H3 = 3 * H;
-  float* dh = smem;              // (kRows, H) carried dL/dh, f32
-  float* hp = dh + kRows * H;    // (kRows, H) h_prev, f32
-  float* hc = hp + kRows * H;    // (kRows, H) h_prev rounded to T
-  float* dp = hc + kRows * H;    // (kRows, 3H) dh_proj rounded to T
-  const int row0 = blockIdx.x * kRows;
-  const int j = threadIdx.x;
-  const bool unit = j < H;
+struct ScanLayout {
+  int wrows, ld;
+  size_t w, dp, total;
+  __host__ __device__ ScanLayout(int H, int units) {
+    wrows = is_bf16<T>() ? kScanUnits : units;
+    ld = is_bf16<T>() ? slice_ld<T>(3 * H) : 3 * H;
+    w = align16((size_t)wrows * ld * sizeof(T));
+    dp = align16((size_t)2 * kScanRows * ld * sizeof(T));
+    total = w + dp + (size_t)2 * kScanRows * units * sizeof(float) +
+            (is_bf16<T>() ? (size_t)kScanParts * kScanUnits * kScanRows * sizeof(float) : 0);
+  }
+};
 
-  for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) dh[i] = 0.f;
-  const float bhr = unit ? bh[j] : 0.f;
-  const float bhz = unit ? bh[H + j] : 0.f;
-  const float bhn = unit ? bh[2 * H + j] : 0.f;
+// hp (B*T, 3H) f32 = round(h_prev) @ Wh + bh
+template <typename T>
+struct ScanHoist {
+  int M, N, K;
+  const float* __restrict__ h0;
+  const float* __restrict__ outs;
+  const T* __restrict__ wh;
+  const float* __restrict__ bh;
+  float* __restrict__ hp;
+  int T_len, H, reverse;
+  static constexpr bool kAFastK = true, kBFastK = false;
+  __device__ void load_a(int m, int k, float (&v)[16]) const {
+    prev_seg<float>(h0, outs, m / T_len, m % T_len, T_len, H, k, m < M ? min(16, K - k) : 0,
+                    reverse, v);
+  }
+  __device__ void load_b(int k, int n, float (&v)[16]) const {
+    seg_load(wh + (size_t)k * N + n, k < K ? min(16, N - n) : 0, v);
+  }
+  __device__ void out(int m, int n, float v) const { hp[(size_t)m * N + n] = v + bh[n]; }
+  int extra_blocks() const { return 0; }
+  __device__ void extra(int) const {}
+};
 
-  for (int step = 0; step < T_len; ++step) {
-    // this step undoes forward time t; the forward processed t_first first
-    const int t = reverse ? step : T_len - 1 - step;
-    const bool first = reverse ? (t == T_len - 1) : (t == 0);
-    const int tp = reverse ? t + 1 : t - 1;
-    for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-      const int r = i / H, k = i % H, row = row0 + r;
-      float v = 0.f;
-      if (row < B) v = first ? h0[(size_t)row * H + k] : outs[((size_t)row * T_len + tp) * H + k];
-      hp[i] = v;
-      hc[i] = round_as<T>(v);
+// dWh (H, 3H) = sum over (row, t) of round(h_prev)^T round(dh_proj), with
+// dh_proj = [dx[:, :2H] | dhn]; the extra blocks write dbh (3H), 32 columns
+// a block.
+template <typename T>
+struct ScanDWh {
+  int M, N, K;
+  const float* __restrict__ h0;
+  const float* __restrict__ outs;
+  const float* __restrict__ dx;
+  const float* __restrict__ dhn;
+  float* __restrict__ dwh;
+  float* __restrict__ dbh;
+  int T_len, H, reverse;
+  static constexpr bool kAFastK = false, kBFastK = false;
+  __device__ float dhp(int k, int n) const {
+    return n < 2 * H ? dx[(size_t)k * N + n] : dhn[(size_t)k * H + n - 2 * H];
+  }
+  __device__ void load_a(int m, int k, float (&v)[16]) const {
+    prev_seg<float>(h0, outs, k / T_len, k % T_len, T_len, H, m, k < K ? min(16, M - m) : 0,
+                    reverse, v);
+  }
+  __device__ void load_b(int k, int n, float (&v)[16]) const {
+    const int len = k < K ? min(16, N - n) : 0;
+    if (n + len <= 2 * H) {
+      seg_load(dx + (size_t)k * N + n, len, v);
+    } else if (n >= 2 * H) {
+      seg_load(dhn + (size_t)k * H + n - 2 * H, len, v);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) v[i] = i < len ? dhp(k, n + i) : 0.f;
     }
+  }
+  __device__ void out(int m, int n, float v) const { dwh[(size_t)m * N + n] = v; }
+  int extra_blocks() const { return (N + 31) / 32; }
+  __device__ void extra(int blk) const {
+    __shared__ float part[kGemmThreads / 32][32];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int n = blk * 32 + lane;
+    float s = 0.f;
+    if (n < N) {
+#pragma unroll 8
+      for (int k = warp; k < K; k += kGemmThreads / 32) s += dhp(k, n);
+    }
+    part[warp][lane] = s;
     __syncthreads();
+    if (warp == 0 && n < N) {
+      float v = 0.f;
+      for (int w = 0; w < kGemmThreads / 32; ++w) v += part[w][lane];
+      dbh[n] = v;
+    }
+  }
+};
 
-    float acc[kRows][3];
+// The inputs of one (row, unit) at one step, loaded a step ahead.
+struct ScanIn {
+  float hp[3], x[3], g, m, h_prev;
+};
+
+// Reverse scan over one cluster's kScanRows rows; see the note at the top.
+// g (B,T,H) is the cotangent of outs with the final state's folded in.
+// Writes dx (B,T,3H) = [dr_pre | dz_pre | dn_pre], dhn (B,T,H) (the third
+// block of dh_proj) and dh0 (B,H), all f32.
+template <typename T>
+__global__ void __launch_bounds__(kScanThreads)
+gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask,
+                    const float* __restrict__ h0, const float* __restrict__ outs,
+                    const float* __restrict__ g, const float* __restrict__ hp,
+                    const T* __restrict__ wh, float* __restrict__ dx, float* __restrict__ dhn,
+                    float* __restrict__ dh0, int B, int T_len, int H, int units, int reverse) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int H3 = 3 * H, tid = threadIdx.x;
+  const int row0 = (blockIdx.x / C) * kScanRows;
+  const int j0 = rank * units, nu = max(0, min(units, H - j0));
+  const ScanLayout<T> L(H, units);
+  const int ld = L.ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // (wrows, ld): Wh[j0 + u, :]
+  T* dp_s = reinterpret_cast<T*>(smem_raw + L.w);
+  float* dh_s = reinterpret_cast<float*>(smem_raw + L.w + L.dp);
+  float* part_s = dh_s + kScanRows * units;   // dh_part of the step
+  float* red_s = part_s + kScanRows * units;  // bf16: (kScanParts, kScanUnits, kScanRows)
+  for (int i = tid; i < L.wrows * ld; i += kScanThreads) {
+    const int uu = i / ld, c = i % ld;
+    w_s[i] = uu < nu && c < H3 ? wh[(size_t)(j0 + uu) * H3 + c] : from_f<T>(0.f);
+  }
+  for (int i = tid; i < 2 * kScanRows * ld; i += kScanThreads) dp_s[i] = from_f<T>(0.f);
+  for (int i = tid; i < kScanRows * units; i += kScanThreads) dh_s[i] = part_s[i] = 0.f;
+
+  // this thread's gate item: (row0 + r, j0 + u), tid = r * units + u
+  const int r = tid / units, u = tid % units, row = row0 + r, j = j0 + u;
+  const bool item = tid < kScanRows * units && j < H;
+  const bool live = item && row < B;
+  auto load = [&](int step, ScanIn& in) {
+    const int t = reverse ? step : T_len - 1 - step;
+    const size_t n = (size_t)row * T_len + t;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.f;
-    if (unit) {
-      const T* w = wh + j;
+    for (int q = 0; q < 3; ++q) {
+      in.hp[q] = hp[n * H3 + q * H + j];
+      in.x[q] = to_f(x_proj[n * H3 + q * H + j]);
+    }
+    in.g = g[n * H + j];
+    in.m = mask[n];
+    in.h_prev = prev_state<float>(h0, outs, row, t, T_len, H, j, reverse);
+  };
+  ScanIn cur{}, nxt{};
+  if (live) load(0, cur);
+  cluster.sync();  // every peer runs, and Wh is in shared memory, before the first push
+
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int step = 0; step < T_len; ++step) {
+    const int t = reverse ? step : T_len - 1 - step;
+    if (live && step + 1 < T_len) load(step + 1, nxt);
+    T* dp = dp_s + (step & 1) * kScanRows * ld;
+    if (item) {
+      float v[3] = {0.f, 0.f, 0.f};
+      if (live) {
+        const size_t n = (size_t)row * T_len + t;
+        const float hn = cur.hp[2];
+        const float rg = sigmoid_f(cur.x[0] + cur.hp[0]);
+        const float zg = sigmoid_f(cur.x[1] + cur.hp[1]);
+        const float ng = tanhf(cur.x[2] + rg * hn);
+        const float dh_total = cur.g + dh_s[tid];
+        const float dhat = cur.m * dh_total;
+        const float dz = dhat * (cur.h_prev - ng);
+        const float dn = dhat * (1.f - zg);
+        const float dn_pre = dn * (1.f - ng * ng);
+        const float dr = dn_pre * hn;
+        const float dhn_ = dn_pre * rg;
+        const float dz_pre = dz * zg * (1.f - zg);
+        const float dr_pre = dr * rg * (1.f - rg);
+        part_s[tid] = (1.f - cur.m) * dh_total + dhat * zg;
+        float* dxr = dx + n * H3;
+        dxr[j] = dr_pre;
+        dxr[H + j] = dz_pre;
+        dxr[2 * H + j] = dn_pre;
+        dhn[n * H + j] = dhn_;
+        v[0] = dr_pre;
+        v[1] = dz_pre;
+        v[2] = dhn_;
+      }
+      // rows past B push zeros, so the product below reads defined values
+      for (int p = 0; p < C; ++p) {
+        T* peer = cluster.map_shared_rank(dp, p);
+#pragma unroll
+        for (int q = 0; q < 3; ++q) peer[r * ld + q * H + j] = from_f<T>(v[q]);
+      }
+    }
+    cluster.sync();  // every slice of dh_proj has arrived
+
+    // dh[r, u] = dh_part[r, u] + sum_c dp[r, c] Wh[j0 + u, c]
+    if constexpr (is_bf16<T>()) {
+      // mma: units are the 16 rows of a tile (two tiles), batch rows the 8
+      // columns (kScanRows real); each pair of warps splits K in four
+      const int gq = lane >> 2, tq = lane & 3, tile = warp & 1, part = warp >> 1;
+      const int ks = pad16(H3) / 16;
+      float c4[4] = {0.f, 0.f, 0.f, 0.f};
+      const T* wa = w_s + (size_t)(tile * 16 + gq) * ld + 2 * tq;
+      const T* db = dp + (size_t)gq * ld + 2 * tq;
 #pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float wr = to_f(w[(size_t)k * H3]);
-        const float wz = to_f(w[(size_t)k * H3 + H]);
-        const float wn = to_f(w[(size_t)k * H3 + 2 * H]);
+      for (int s = part * ks / kScanParts; s < (part + 1) * ks / kScanParts; ++s) {
+        const int k = s * 16;
+        const uint32_t a[4] = {pair_at(wa + k), pair_at(wa + 8 * ld + k), pair_at(wa + k + 8),
+                               pair_at(wa + 8 * ld + k + 8)};
+        const uint32_t b0 = gq < kScanRows ? pair_at(db + k) : 0u;
+        const uint32_t b1 = gq < kScanRows ? pair_at(db + k + 8) : 0u;
+        mma_bf16(c4, a, b0, b1);
+      }
+      if (tq < kScanRows / 2) {
+        float* red = red_s + (size_t)part * kScanUnits * kScanRows;
+        const int u_lo = tile * 16 + gq, u_hi = u_lo + 8;
+        red[u_lo * kScanRows + 2 * tq] = c4[0];
+        red[u_lo * kScanRows + 2 * tq + 1] = c4[1];
+        red[u_hi * kScanRows + 2 * tq] = c4[2];
+        red[u_hi * kScanRows + 2 * tq + 1] = c4[3];
+      }
+      __syncthreads();
+      if (tid < kScanRows * units) {
+        const int rr = tid / units, uu = tid % units;
+        float s = part_s[tid];
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float hv = hc[r * H + k];
-          acc[r][0] = fmaf(hv, wr, acc[r][0]);
-          acc[r][1] = fmaf(hv, wz, acc[r][1]);
-          acc[r][2] = fmaf(hv, wn, acc[r][2]);
+        for (int p = 0; p < kScanParts; ++p) s += red_s[(p * kScanUnits + uu) * kScanRows + rr];
+        dh_s[tid] = s;
+      }
+    } else {
+      float acc[kUnitsPerWarp][kScanRows] = {};
+      for (int c = lane; c < H3; c += 32) {
+        float d[kScanRows];
+#pragma unroll
+        for (int rr = 0; rr < kScanRows; ++rr) d[rr] = to_f(dp[rr * ld + c]);
+#pragma unroll
+        for (int q = 0; q < kUnitsPerWarp; ++q) {
+          const int uu = warp + q * kScanWarps;
+          if (uu < nu) {
+            const float w = to_f(w_s[uu * ld + c]);
+#pragma unroll
+            for (int rr = 0; rr < kScanRows; ++rr) acc[q][rr] = fmaf(d[rr], w, acc[q][rr]);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kUnitsPerWarp; ++q) {
+        const int uu = warp + q * kScanWarps;
+#pragma unroll
+        for (int rr = 0; rr < kScanRows; ++rr) {
+          const float s = warp_sum(acc[q][rr]);
+          if (lane == 0 && uu < nu) dh_s[rr * units + uu] = part_s[rr * units + uu] + s;
         }
       }
     }
-    float dh_part[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      dh_part[r] = 0.f;
-      if (!unit || row >= B) {
-        if (unit) dp[r * H3 + j] = dp[r * H3 + H + j] = dp[r * H3 + 2 * H + j] = 0.f;
-        continue;
-      }
-      const size_t n = (size_t)row * T_len + t;
-      const T* xp = x_proj + n * H3;
-      const float h_prev = hp[r * H + j];
-      const float hn = acc[r][2] + bhn;
-      const float rg = sigmoid_f(to_f(xp[j]) + (acc[r][0] + bhr));
-      const float zg = sigmoid_f(to_f(xp[H + j]) + (acc[r][1] + bhz));
-      const float ng = tanhf(to_f(xp[2 * H + j]) + rg * hn);
-      const float m = mask[n];
-      const float dh_total = g[n * H + j] + dh[r * H + j];
-      const float dhat = m * dh_total;
-      const float dz = dhat * (h_prev - ng);
-      const float dn = dhat * (1.f - zg);
-      const float dn_pre = dn * (1.f - ng * ng);
-      const float dr = dn_pre * hn;
-      const float dhn = dn_pre * rg;
-      const float dz_pre = dz * zg * (1.f - zg);
-      const float dr_pre = dr * rg * (1.f - rg);
-      dh_part[r] = (1.f - m) * dh_total + dhat * zg;
-      float* dxr = dx + n * H3;
-      float* dpr = dhp + n * H3;
-      dxr[j] = dr_pre;
-      dxr[H + j] = dz_pre;
-      dxr[2 * H + j] = dn_pre;
-      dpr[j] = dr_pre;
-      dpr[H + j] = dz_pre;
-      dpr[2 * H + j] = dhn;
-      dp[r * H3 + j] = round_as<T>(dr_pre);
-      dp[r * H3 + H + j] = round_as<T>(dz_pre);
-      dp[r * H3 + 2 * H + j] = round_as<T>(dhn);
-    }
-    __syncthreads();  // dp complete for every row of the block
-
-    if (unit) {
-      float acc2[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc2[r] = 0.f;
-      const T* w = wht + j;
-#pragma unroll 4
-      for (int c = 0; c < H3; ++c) {
-        const float wv = to_f(w[(size_t)c * H]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) acc2[r] = fmaf(dp[r * H3 + c], wv, acc2[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) dh[r * H + j] = dh_part[r] + acc2[r];
-    }
-    // the next step's load is followed by a barrier before dp is rewritten
+    __syncthreads();  // dh complete; dh_part may be rewritten
+    cur = nxt;
   }
-  __syncthreads();
-  if (unit) {
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      if (row < B) dh0[(size_t)row * H + j] = dh[r * H + j];
-    }
-  }
-}
-
-constexpr int kTile = 32;    // dWh output tile (H rows x 3H columns)
-constexpr int kTileY = 8;    // thread rows; each thread owns kTile / kTileY outputs
-constexpr int kTileKC = 32;  // reduction chunk over K = B*T
-
-// dWh (H,3H) f32 = sum over n = (row, t) of round(h_prev[n,:])^T round(dhp[n,:]),
-// h_prev[n] = h0[row] at the first step processed, else outs at the previous
-// step of forward processing order.
-template <typename T>
-__global__ void __launch_bounds__(kTile * kTileY)
-dwh_kernel(const float* __restrict__ h0, const float* __restrict__ outs,
-           const float* __restrict__ dhp, float* __restrict__ dwh, int B, int T_len, int H,
-           int reverse) {
-  __shared__ float a_s[kTileKC][kTile];  // h_prev chunk: (n, k)
-  __shared__ float b_s[kTileKC][kTile];  // dh_proj chunk: (n, c)
-  const int ux = threadIdx.x, ty = threadIdx.y, tid = ty * kTile + ux;
-  const int c0 = blockIdx.x * kTile, k0 = blockIdx.y * kTile;
-  const int H3 = 3 * H, K = B * T_len;
-  constexpr int kPer = kTile / kTileY;
-  float acc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-  for (int n0 = 0; n0 < K; n0 += kTileKC) {
-    for (int i = tid; i < kTileKC * kTile; i += kTile * kTileY) {
-      const int nn = i / kTile, kk = i % kTile, n = n0 + nn;
-      float av = 0.f, bv = 0.f;
-      if (n < K) {
-        const int row = n / T_len, t = n % T_len;
-        const bool first = reverse ? (t == T_len - 1) : (t == 0);
-        const int tp = reverse ? t + 1 : t - 1;
-        if (k0 + kk < H)
-          av = first ? h0[(size_t)row * H + k0 + kk]
-                     : outs[((size_t)row * T_len + tp) * H + k0 + kk];
-        if (c0 + kk < H3) bv = dhp[(size_t)n * H3 + c0 + kk];
-      }
-      a_s[nn][kk] = round_as<T>(av);
-      b_s[nn][kk] = round_as<T>(bv);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int nn = 0; nn < kTileKC; ++nn) {
-      const float bv = b_s[nn][ux];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[i] = fmaf(a_s[nn][ty * kPer + i], bv, acc[i]);
-    }
-    __syncthreads();
-  }
-  const int c = c0 + ux;
-  if (c >= H3) return;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int k = k0 + ty * kPer + i;
-    if (k < H) dwh[(size_t)k * H3 + c] = acc[i];
-  }
-}
-
-// dbh (M) f32 = column sums of dhp (K, M), unrounded.
-__global__ void bias_grad_kernel(const float* __restrict__ dhp, float* __restrict__ dbh, int K,
-                                 int M) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= M) return;
-  float s = 0.f;
-  for (int n = 0; n < K; ++n) s += dhp[(size_t)n * M + c];
-  dbh[c] = s;
+  if (live) dh0[(size_t)row * H + j] = dh_s[tid];
 }
 
 template <typename T>
-void launch_bwd(const void* x_proj, const void* mask, const void* h0, const void* wh,
-                const void* bh, const void* outs, const void* g, void* dx, void* dhp, void* dh0,
-                void* dwh, void* dbh, void* wht, int B, int T_len, int H, int reverse,
-                cudaStream_t stream) {
+cudaLaunchConfig_t scan_bwd_config(int B, int H, int cluster, int units,
+                                   cudaLaunchAttribute* attr, cudaStream_t stream) {
+  const size_t smem = ScanLayout<T>(H, units).total;
+  cudaFuncSetAttribute(gru_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((B + kScanRows - 1) / kScanRows) * cluster);
+  cfg.blockDim = dim3(kScanThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T>
+int launch_bwd(const void* x_proj, const void* mask, const void* h0, const void* wh,
+               const void* bh, const void* outs, const void* g, void* dx, void* dh0, void* dwh,
+               void* dbh, void* hp, void* dhn, void* partial, void* counters, int B, int T_len,
+               int H, int reverse, int cluster, int units, int splits, cudaStream_t stream) {
   const int H3 = 3 * H;
-  transpose_kernel<T><<<dim3((H3 + 31) / 32, (H + 31) / 32), dim3(32, 8), 0, stream>>>(
-      static_cast<const T*>(wh), static_cast<T*>(wht), H, H3);
-  const int threads = ((H + 31) / 32) * 32;
-  const int smem = 6 * kRows * H * (int)sizeof(float);
-  allow_smem(gru_scan_bwd_kernel<T>, smem);
-  gru_scan_bwd_kernel<T><<<(B + kRows - 1) / kRows, threads, smem, stream>>>(
-      static_cast<const T*>(x_proj), static_cast<const float*>(mask),
-      static_cast<const float*>(h0), static_cast<const T*>(wh), static_cast<const T*>(wht),
-      static_cast<const float*>(bh), static_cast<const float*>(outs),
-      static_cast<const float*>(g), static_cast<float*>(dx), static_cast<float*>(dhp),
-      static_cast<float*>(dh0), B, T_len, H, reverse);
-  const dim3 dwh_grid((H3 + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  dwh_kernel<T><<<dwh_grid, dim3(kTile, kTileY), 0, stream>>>(
-      static_cast<const float*>(h0), static_cast<const float*>(outs),
-      static_cast<const float*>(dhp), static_cast<float*>(dwh), B, T_len, H, reverse);
-  bias_grad_kernel<<<(H3 + 255) / 256, 256, 0, stream>>>(static_cast<const float*>(dhp),
-                                                          static_cast<float*>(dbh), B * T_len,
-                                                          H3);
+  const float* h0f = static_cast<const float*>(h0);
+  const float* outsf = static_cast<const float*>(outs);
+  OpArray<ScanHoist<T>, 1> hoist{{{B * T_len, H3, H, h0f, outsf, static_cast<const T*>(wh),
+                                   static_cast<const float*>(bh), static_cast<float*>(hp),
+                                   T_len, H, reverse}}};
+  tile_gemm<T>(hoist, stream);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = scan_bwd_config<T>(B, H, cluster, units, attr, stream);
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, gru_scan_bwd_kernel<T>, static_cast<const T*>(x_proj),
+      static_cast<const float*>(mask), h0f, outsf, static_cast<const float*>(g),
+      static_cast<const float*>(hp), static_cast<const T*>(wh), static_cast<float*>(dx),
+      static_cast<float*>(dhn), static_cast<float*>(dh0), B, T_len, H, units, reverse);
+  if (err != cudaSuccess) return (int)err;
+  OpArray<ScanDWh<T>, 1> dw{{{H, H3, B * T_len, h0f, outsf, static_cast<const float*>(dx),
+                              static_cast<const float*>(dhn), static_cast<float*>(dwh),
+                              static_cast<float*>(dbh), T_len, H, reverse}}};
+  tile_gemm<T>(dw, stream, splits, static_cast<float*>(partial), static_cast<int*>(counters));
+  return 0;
 }
 
 }  // namespace
@@ -376,22 +490,46 @@ extern "C" int vmmt_gru_scan(int dtype, const void* x_proj, const void* mask,
   return (int)cudaGetLastError();
 }
 
-// Backward of vmmt_gru_scan. x_proj, wh and the scratch wht (3H*H
-// elements) in the compute dtype; mask, h0, bh, outs, g and every output
-// f32: dx, dhp (B,T,3H), dh0 (B,H), dwh (H,3H), dbh (3H).
+// Backward of vmmt_gru_scan on thread-block clusters of `cluster` CTAs,
+// each owning `units` hidden units (cluster * units >= H, units <= 32) of
+// kScanRows = 4 batch rows. x_proj and wh in the compute dtype; mask, h0,
+// bh, outs, g and every output f32: dx (B,T,3H), dh0 (B,H), dwh (H,3H), dbh
+// (3H). Scratch, f32: hp (B,T,3H), dhn (B,T,H); dWh splits its K = B*T
+// over `splits` blocks a 64 x 64 tile, with partial (splits * 4096 floats a
+// tile) and counters (an int a tile, zero before the call).
 extern "C" int vmmt_gru_scan_bwd(int dtype, const void* x_proj, const void* mask,
                                  const void* h0, const void* wh, const void* bh,
-                                 const void* outs, const void* g, void* dx, void* dhp,
-                                 void* dh0, void* dwh, void* dbh, void* wht, int B, int T_len,
-                                 int H, int reverse, void* stream) {
+                                 const void* outs, const void* g, void* dx, void* dh0, void* dwh,
+                                 void* dbh, void* hp, void* dhn, void* partial, void* counters,
+                                 int B, int T_len, int H, int reverse, int cluster, int units,
+                                 int splits, void* stream) {
   if (B == 0 || T_len == 0) return 0;
+  if (units < 1 || units > kScanUnits || cluster < 1 || cluster > 8 || cluster * units < H ||
+      splits < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    launch_bwd<__nv_bfloat16>(x_proj, mask, h0, wh, bh, outs, g, dx, dhp, dh0, dwh, dbh, wht, B,
-                              T_len, H, reverse, s);
-  } else {
-    launch_bwd<float>(x_proj, mask, h0, wh, bh, outs, g, dx, dhp, dh0, dwh, dbh, wht, B, T_len,
-                      H, reverse, s);
-  }
-  return (int)cudaGetLastError();
+  const int err =
+      dtype == 1
+          ? launch_bwd<__nv_bfloat16>(x_proj, mask, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp,
+                                      dhn, partial, counters, B, T_len, H, reverse, cluster,
+                                      units, splits, s)
+          : launch_bwd<float>(x_proj, mask, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp, dhn,
+                              partial, counters, B, T_len, H, reverse, cluster, units, splits,
+                              s);
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// How many clusters of the backward scan's launch plan the card holds at
+// once (cudaOccupancyMaxActiveClusters), and the dynamic shared memory of
+// one CTA.
+extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int units,
+                                           int* max_clusters, int* smem_bytes) {
+  auto query = [&](auto zero) {
+    using T = decltype(zero);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = scan_bwd_config<T>(kScanRows, H, cluster, units, attr, 0);
+    *smem_bytes = (int)cfg.dynamicSmemBytes;
+    return cudaOccupancyMaxActiveClusters(max_clusters, gru_scan_bwd_kernel<T>, &cfg);
+  };
+  return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
 }

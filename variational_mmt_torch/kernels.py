@@ -23,7 +23,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -38,9 +38,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "gru_scan": {
         # dtype, x_proj, mask, h0, wh, bh, outs, final, B, T, H, reverse, stream
         "vmmt_gru_scan": [_I] + [_P] * 7 + [_I] * 4 + [_P],
-        # dtype, x_proj, mask, h0, wh, bh, outs, g, dx, dhp, dh0, dwh, dbh,
-        # wht scratch, B, T, H, reverse, stream
-        "vmmt_gru_scan_bwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
+        # dtype, x_proj, mask, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp and
+        # dhn scratch, dWh partials and counters, B, T, H, reverse, cluster,
+        # units, dWh splits, stream
+        "vmmt_gru_scan_bwd": [_I] + [_P] * 15 + [_I] * 7 + [_P],
+        # dtype, H, cluster, units, out: max active clusters, smem bytes
+        "vmmt_gru_scan_bwd_occupancy": [_I] * 4 + [_P] * 2,
     },
     "decoder": {
         # dtype, emb_proj, dmid, h00, h01, wfeed, wh0, bh0, wmid, bmid, wh1,
@@ -49,8 +52,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "vmmt_decoder_fwd": [_I] + [_P] * 20 + [_I] * 4 + [_P],
         # dtype, the 14 forward inputs but mask_bias, attn_hs, h0s, h1s,
         # probs, d_attn, d_probs, dx0, dhp0, dx1, dhp1, pre, dscores, dh00,
-        # dh01, weight-transpose scratch, f32 scratch, B, T, S, H, stream
-        "vmmt_decoder_bwd": [_I] + [_P] * 30 + [_I] * 4 + [_P],
+        # dh01, gates, f32 and compute-dtype scratch, B, T, S, H, units,
+        # rows, grid, stream
+        "vmmt_decoder_bwd": [_I] + [_P] * 31 + [_I] * 7 + [_P],
+        # dtype, rows, S, H, units, out: max co-resident CTAs, smem bytes
+        "vmmt_decoder_bwd_occupancy": [_I] * 5 + [_P] * 2,
     },
     "decode_step": {
         # dtype, emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1,
@@ -63,6 +69,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 }
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_PER_BLOCK = 232_448  # dynamic shared memory one block may use on an H100 (227 KB)
+
+
+def align16(n: int) -> int:
+    return (n + 15) & ~15
 
 
 def _nvcc() -> str:
@@ -131,6 +142,25 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.vmmt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+@functools.cache
+def occupancy(device: int, name: str, fn: str, *args: int) -> Tuple[int, int]:
+    """(how many CTAs or clusters the card holds at once, shared memory of
+    one CTA in bytes): the C occupancy query ``fn`` of library ``name``, run
+    on the current device (``device``, its index, keys the cache), with its
+    int arguments ``args`` and two int outputs."""
+    lib = library(name)
+    count, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = getattr(lib, fn)(*args, ctypes.addressof(count), ctypes.addressof(smem))
+    check(lib, err, fn)
+    return count.value, smem.value
+
+
+@functools.cache
+def sm_count(device: int) -> int:
+    """The number of SMs of CUDA device ``device`` (its index)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> int:

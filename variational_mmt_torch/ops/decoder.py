@@ -11,14 +11,30 @@ Source note. Replaces the Pallas kernels ``_dec_fwd_kernel``
 ``pallas_call`` at :304) with ``csrc/decoder.cu``. On the TPU each grid
 step ran a whole decoder step with the five weight blocks resident in VMEM.
 On the H100 a step needs every column of h0' before GRU1, all of h1' before
-attention and all of the new feed before the next step, which a
-block-parallel grid cannot meet without a grid-wide sync; so one call
-queues the T steps as short runs of kernels on the stream, with no host
-synchronisation: forward 4 per step (GRU0 cell, GRU1 cell with the dropout
-mask, ``h1' @ Wc_q``, attention), backward 5 weight transposes and then 8
-per step (attention backward, 5 products, 2 cell backwards). At the
-flagship's B=64, T=25, S=24, H=500 each kernel does tens of MFLOP, so the
-chain of dependent launches bounds it, far above its bytes and FLOPs bound.
+attention and all of the new feed before the next step. At the flagship's
+B=64, T=25, S=24, H=500 a step's work is a few MFLOP and its bytes and
+FLOPs bound each pass at about 10-20 us; the serial chain bounds it.
+
+Forward: one call queues the T steps as short runs of kernels on the
+stream with no host synchronisation, 4 a step (GRU0 cell, GRU1 cell with
+the dropout mask, ``h1' @ Wc_q``, attention), so 100 dependent launches
+bound it.
+
+Backward, two launches (a chain of small kernels would take 8 a step and 5
+weight transposes, 205 at T=25). The cells' four gate products read only
+saved forward streams, so one tiled product (tensor cores in bf16)
+computes them for every (row, t) first. Then one persistent cooperative
+kernel walks time in reverse in four phases a step separated by grid
+barriers (attention backward; GRU1's cell backward; GRU0's; the products
+into dh0 and dfeed). Each CTA owns a few hidden units of a tile of batch
+rows and keeps the units' rows of the five weights in shared memory for
+the whole call, in place of per-call transposes and L2 re-reads of the
+weights; the products (mma.sync in bf16) read the other CTAs' rounded
+results from L2, which bounds the phases. :func:`decoder_bwd_plan` sizes
+the grid to the card's SMs and the shared memory (two CTAs fit an SM at
+the flagship's width) and refuses what the design cannot hold; the
+wrapper checks with the card that the grid is co-resident.
+
 The state (h0, h1, feed and, backward, dh0, dh1, dfeed) stays f32 across
 time; only the saved streams are rounded to the compute dtype. The weight
 gradients are products over the (T*B)-long streams outside the kernels, as
@@ -172,13 +188,65 @@ def decoder_fwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     return tuple(outs)
 
 
+DEC_BWD_UNITS = {torch.bfloat16: 8, torch.float32: 4}  # hidden units per CTA
+DEC_BWD_WARPS = 8  # warps of a CTA (kDecWarps of csrc/decoder.cu)
+
+
+def _pad32(k: int) -> int:
+    return (k + 31) & ~31
+
+
+def decoder_bwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """Launch plan of the backward's persistent kernel on a card of ``sms``
+    SMs: ``grid`` CTAs, of which ``unit_tiles * row_tiles`` each own
+    ``units`` hidden units of ``rows`` batch rows (row tiles halve what each
+    CTA reads of the other CTAs' results, as long as the tiles stay within
+    a CTA an SM; the grid also has a CTA for each batch row up to one an
+    SM, for the attention phase), and ``smem`` bytes of dynamic shared
+    memory per CTA: the units' rows of Wc_q, Wh1, Wmid, Wh0 and Wfeed (rows
+    padded to 32, bf16 ones to an odd multiple of 64 bytes for
+    conflict-free 16-byte reads), the product buffer, two (rows, units)
+    carries and the attention row. Mirrors ``DecLayout`` of
+    csrc/decoder.cu. Raises NotImplementedError for what the design cannot
+    hold."""
+    if dtype not in DEC_BWD_UNITS:
+        raise TypeError(f"decoder_bwd kernel: dtype {dtype}")
+    if B < 1 or H < 1:
+        raise NotImplementedError(f"decoder_bwd kernel: B={B}, H={H}")
+    units = DEC_BWD_UNITS[dtype]
+    bf16 = dtype == torch.bfloat16
+    tsize = torch.finfo(dtype).bits // 8
+    unit_tiles = -(-H // units)
+    row_tiles = max(1, min(-(-B // 16), sms // unit_tiles))
+    rows = kernels.align16(-(-B // row_tiles))
+    row_tiles = -(-B // rows)
+
+    def frag_ld(k):  # as in csrc/decoder.cu
+        k = _pad32(k)
+        return k + (96 - k % 64) % 64 if bf16 else k
+
+    wrows = 8 if bf16 else units
+    prod_rows = max(DEC_BWD_WARPS * 16, rows) if bf16 else rows
+    smem = (kernels.align16(wrows * frag_ld(H) * tsize)
+            + 4 * kernels.align16(wrows * frag_ld(3 * H) * tsize)
+            + prod_rows * 8 * 4 + 2 * kernels.align16(rows * units * 4)
+            + kernels.align16((H + 2 * S) * 4))
+    if smem > kernels.SMEM_PER_BLOCK:
+        raise NotImplementedError(f"decoder_bwd kernel: {smem} bytes of shared memory per CTA "
+                                  f"exceed {kernels.SMEM_PER_BLOCK} (B={B}, S={S}, H={H})")
+    grid = max(unit_tiles * row_tiles, min(B, sms))
+    return dict(units=units, rows=rows, unit_tiles=unit_tiles, row_tiles=row_tiles, grid=grid,
+                smem=smem)
+
+
 def decoder_bwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
                 keys, mem_v, Wc_q, attn_hs, h0s, h1s, probs, d_attn, d_probs):
     """Reverse-time backward over the sequence: the forward's inputs (but
     mask_bias), its four streams and the cotangents d_attn (B,T,H) and
     d_probs (B,T,S). Returns (dx0, dhp0, dx1, dhp1, pre, dscores, dh00,
     dh01) in f32. CPU tensors take the plain version; CUDA tensors launch
-    the kernels."""
+    the kernels (the plan of the last launch, with the card's SMs and its
+    count of co-resident CTAs, is kept in ``decoder_bwd.plan``)."""
     args = (emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1, keys, mem_v, Wc_q)
     if emb_proj.device.type == "cpu":
         return decoder_bwd_ref(*args, attn_hs, h0s, h1s, probs, d_attn, d_probs)
@@ -194,18 +262,35 @@ def decoder_bwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
             raise TypeError(f"decoder_bwd kernel: {name} is {t.dtype}, expected {dt}")
         extra.append(t.to(want).contiguous())
     kernels.require_cuda("decoder_bwd", ins[0].device, **dict(zip(streams, extra)))
+    lib = kernels.library("decoder")
     dev = ins[0].device
+    sms = kernels.sm_count(dev.index)
+    plan = decoder_bwd_plan(B, S, H, dt, sms)
     outs = [torch.empty((B, T, 3 * H), dtype=f32, device=dev) for _ in range(4)]
     outs += [torch.empty((B, T, H), dtype=f32, device=dev),
              torch.empty((B, T, S), dtype=f32, device=dev),
              torch.empty((B, H), dtype=f32, device=dev),
              torch.empty((B, H), dtype=f32, device=dev)]
-    wt = torch.empty((4 * 3 * H * H + H * H,), dtype=dt, device=dev)
-    scratch = torch.empty((6, B, H), dtype=f32, device=dev)
-    lib = kernels.library("decoder")
-    err = lib.vmmt_decoder_bwd(kernels.DTYPE_CODE[dt], *(a.data_ptr() for a in ins + extra),
-                               *(o.data_ptr() for o in outs), wt.data_ptr(), scratch.data_ptr(),
-                               B, T, S, H, kernels.stream_of(ins[0]))
+    gates = torch.empty((4, B, T, 3 * H), dtype=f32, device=dev)  # hoisted gate products
+    fscratch = torch.empty((2, B, H), dtype=f32, device=dev)  # dfeed, attention part of dh1'
+    # pre and the four local gradients of a step, rounded, rows padded to 32
+    tscratch = torch.empty((B * (_pad32(H) + 4 * _pad32(3 * H)),), dtype=dt, device=dev)
+    code = kernels.DTYPE_CODE[dt]
+    co_resident, smem = kernels.occupancy(dev.index, "decoder", "vmmt_decoder_bwd_occupancy",
+                                          code, plan["rows"], S, H, plan["units"])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"decoder_bwd kernel: plan of {plan['smem']} bytes of shared memory, "
+                           f"the kernel takes {smem}")
+    if plan["grid"] > co_resident:
+        raise NotImplementedError(f"decoder_bwd kernel: {plan['grid']} CTAs with {smem} bytes "
+                                  f"of shared memory each exceed the {co_resident} the card "
+                                  "holds at once")
+    decoder_bwd.plan = dict(plan, sms=sms, max_co_resident=co_resident)
+    err = lib.vmmt_decoder_bwd(code, *(a.data_ptr() for a in ins + extra),
+                               *(o.data_ptr() for o in outs), gates.data_ptr(),
+                               fscratch.data_ptr(), tscratch.data_ptr(), B, T, S, H,
+                               plan["units"], plan["rows"], plan["grid"],
+                               kernels.stream_of(ins[0]))
     kernels.check(lib, err, "decoder_bwd")
     decoder_bwd.launches += 1
     return tuple(outs)
@@ -213,6 +298,7 @@ def decoder_bwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
 
 decoder_fwd.launches = 0
 decoder_bwd.launches = 0
+decoder_bwd.plan = None
 
 
 def _mm_bt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

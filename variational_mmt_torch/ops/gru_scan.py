@@ -17,17 +17,25 @@ memory, so every step streams it from L2. The TPU's row chunking
 
 Source note, backward. Replaces ``_gru_bwd_kernel`` (ops/pallas/gru.py:186,
 ``pallas_call`` at :297) with ``vmmt_gru_scan_bwd`` in the same
-``csrc/gru_scan.cu``. It is as serial as the forward (T dependent steps,
-each with two (rows, H) x (H, 3H) products: the gate recompute and
-``dh_proj @ Wh^T``), so latency bounds it too. Its design mirrors the
-forward's: one block per 4 batch rows loops over time in reverse with dh
-in shared memory and Wh (and a transposed copy, so that both products read
-coalesced) from L2. The TPU kernel summed dWh and dbh in VMEM across its
-sequential grid; H100 blocks cannot share an accumulator without atomics,
-so the scan writes the f32 ``dh_proj`` stream and a second kernel reduces
-``h_prev^T dh_proj`` over K = B*T through shared-memory tiles, with both
-operands rounded to Wh's dtype as the Pallas body rounds them, and a third
-sums ``dh_proj`` over K into dbh.
+``csrc/gru_scan.cu``. Its serial part is T dependent steps, each with two
+(rows, H) x (H, 3H) products, so the latency of the chain bounds it on the
+H100, far above its bytes and FLOPs; a block per 4 rows would use 16 SMs
+at B=64 and re-read Wh (375 KB in bf16) from L2 every step. The design
+takes off the chain what does not belong there: the gate recompute
+``round(h_prev) @ Wh`` reads only saved forward outputs, so one tiled
+product (tensor cores in bf16) computes it for all (row, t) first. The
+reverse scan then runs on thread-block clusters: C CTAs per 4 batch rows
+(C = 8 at H=250: 128 CTAs at B=64), each holding its 32 rows of Wh in shared
+memory for the whole sequence and exchanging its slice of ``dh_proj``
+through distributed shared memory with one cluster barrier a step; its
+share of ``dh_proj @ Wh^T`` runs on the tensor cores in bf16. The TPU
+kernel summed dWh and dbh in VMEM across its sequential grid; here one
+more tiled product reduces ``h_prev^T dh_proj`` over K = B*T (both
+operands rounded to Wh's dtype, as the Pallas body rounds them; K split
+over several blocks a tile, added in a fixed order) and sums dbh in the
+same launch, deterministically. :func:`scan_bwd_plan` sizes the
+clusters and shared memory and refuses what the design cannot hold; the
+wrapper checks with the card that a cluster fits.
 """
 
 from __future__ import annotations
@@ -144,13 +152,62 @@ def gru_layer_scan_bwd_ref(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.T
     return dx, dh, dWh, dbh
 
 
+SCAN_BWD_ROWS = 4  # batch rows per cluster (kScanRows of csrc/gru_scan.cu)
+SCAN_BWD_UNITS = 32  # most hidden units one CTA owns (kScanUnits)
+SCAN_BWD_MAX_CLUSTER = 8  # the largest portable cluster
+SCAN_BWD_WARPS = 8  # warps of a CTA (kScanWarps)
+
+
+def _mma_ld(k: int) -> int:
+    """Row stride, in bf16 elements, of an mma operand of k columns held in
+    shared memory (``slice_ld`` of csrc/tile_gemm.cuh): k padded to 16, then
+    to 4 words more than a multiple of 32 so that fragment reads miss no
+    bank."""
+    k = kernels.align16(k)
+    return k + (72 - k % 64) % 64
+
+
+def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
+    """Launch plan of the backward for B rows, T steps and H units: clusters
+    of ``cluster`` CTAs, each owning ``units`` hidden units of ``rows`` batch
+    rows, with ``smem`` bytes of dynamic shared memory per CTA (mirrors
+    ``ScanLayout`` of csrc/gru_scan.cu: its rows of Wh and two ``dh_proj``
+    buffers in the compute dtype, bf16 rows at the mma stride; dh, dh_part
+    and, in bf16, the warps' partial products in f32); and the dWh product's
+    64 x 64 tiles, each split over ``dwh_splits`` blocks along K = B*T.
+    Raises NotImplementedError for what the design cannot hold."""
+    if dtype not in kernels.DTYPE_CODE:
+        raise TypeError(f"gru_layer_scan_bwd kernel: dtype {dtype}")
+    if not 1 <= H <= SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS:
+        raise NotImplementedError(
+            f"gru_layer_scan_bwd kernel: hidden {H} needs more than {SCAN_BWD_MAX_CLUSTER} "
+            f"CTAs of {SCAN_BWD_UNITS} units in a cluster")
+    cluster = -(-H // SCAN_BWD_UNITS)
+    units = -(-H // cluster)
+    bf16 = dtype == torch.bfloat16
+    tsize = torch.finfo(dtype).bits // 8
+    wrows, ld = (SCAN_BWD_UNITS, _mma_ld(3 * H)) if bf16 else (units, 3 * H)
+    smem = (kernels.align16(wrows * ld * tsize) + kernels.align16(2 * SCAN_BWD_ROWS * ld * tsize)
+            + 2 * SCAN_BWD_ROWS * units * 4
+            + (SCAN_BWD_WARPS // 2 * SCAN_BWD_UNITS * SCAN_BWD_ROWS * 4 if bf16 else 0))
+    if smem > kernels.SMEM_PER_BLOCK:
+        raise NotImplementedError(f"gru_layer_scan_bwd kernel: {smem} bytes of shared memory "
+                                  f"per CTA exceed {kernels.SMEM_PER_BLOCK}")
+    clusters = -(-B // SCAN_BWD_ROWS)
+    dwh_tiles = -(-H // 64) * -(-3 * H // 64)
+    dwh_splits = max(1, min(8, -(-B * T // 32) // 4))
+    return dict(cluster=cluster, rows=SCAN_BWD_ROWS, units=units, clusters=clusters,
+                ctas=clusters * cluster, smem=smem, dwh_tiles=dwh_tiles, dwh_splits=dwh_splits)
+
+
 def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
                        Wh: torch.Tensor, bh: torch.Tensor, outs: torch.Tensor,
                        g: torch.Tensor, reverse: bool = False):
     """Backward of :func:`gru_layer_scan` (same inputs, plus its f32
     ``outs`` and their cotangent ``g``). Returns (dx_proj, dh0, dWh, dbh) in
     f32. CPU tensors take the plain version; CUDA tensors launch the
-    kernels."""
+    kernels (the plan of the last launch, with the card's count of
+    co-resident clusters, is kept in ``gru_layer_scan_bwd.plan``)."""
     if x_proj.device.type == "cpu":
         return gru_layer_scan_bwd_ref(x_proj, mask, h0, Wh, bh, outs, g, reverse)
     B, T, H3 = x_proj.shape
@@ -163,8 +220,7 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
             or tuple(bh.shape) != (H3,) or tuple(outs.shape) != (B, T, H) \
             or tuple(g.shape) != (B, T, H):
         raise ValueError("gru_layer_scan_bwd kernel: shapes do not match x_proj (B,T,3H)")
-    if not 1 <= H <= 1024:
-        raise NotImplementedError(f"gru_layer_scan_bwd kernel: hidden {H} > 1024")
+    plan = scan_bwd_plan(B, T, H, dt)
     f32 = torch.float32
     x = x_proj.contiguous()
     args = [x, mask.to(f32).contiguous(), h0.to(f32).contiguous(), Wh.contiguous(),
@@ -172,15 +228,33 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     kernels.require_cuda("gru_layer_scan_bwd", x.device,
                          **dict(zip(("mask", "h0", "Wh", "bh", "outs", "g"), args[1:])))
     dx = torch.empty((B, T, H3), dtype=f32, device=x.device)
-    dhp = torch.empty((B, T, H3), dtype=f32, device=x.device)
     dh0 = torch.empty((B, H), dtype=f32, device=x.device)
     dWh = torch.empty((H, H3), dtype=f32, device=x.device)
     dbh = torch.empty((H3,), dtype=f32, device=x.device)
-    wht = torch.empty((H3, H), dtype=dt, device=x.device)
+    hp = torch.empty((B, T, H3), dtype=f32, device=x.device)  # hoisted gate product
+    dhn = torch.empty((B, T, H), dtype=f32, device=x.device)  # third block of dh_proj
+    splits, tiles = plan["dwh_splits"], plan["dwh_tiles"]
+    partial = torch.empty((tiles * splits * 64 * 64 if splits > 1 else 1,), dtype=f32,
+                          device=x.device)
+    counters = torch.zeros((tiles,), dtype=torch.int32, device=x.device)
     lib = kernels.library("gru_scan")
-    err = lib.vmmt_gru_scan_bwd(kernels.DTYPE_CODE[dt], *(a.data_ptr() for a in args),
-                                dx.data_ptr(), dhp.data_ptr(), dh0.data_ptr(), dWh.data_ptr(),
-                                dbh.data_ptr(), wht.data_ptr(), B, T, H, int(reverse),
+    code = kernels.DTYPE_CODE[dt]
+    co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
+                                          "vmmt_gru_scan_bwd_occupancy", code, H,
+                                          plan["cluster"], plan["units"])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"gru_layer_scan_bwd kernel: plan of {plan['smem']} bytes of shared "
+                           f"memory, the kernel takes {smem}")
+    if co_resident < 1:
+        raise NotImplementedError(f"gru_layer_scan_bwd kernel: a cluster of {plan['cluster']} "
+                                  f"CTAs with {smem} bytes of shared memory each does not fit "
+                                  "the card")
+    gru_layer_scan_bwd.plan = dict(plan, max_active_clusters=co_resident,
+                                   one_wave=co_resident >= plan["clusters"])
+    err = lib.vmmt_gru_scan_bwd(code, *(a.data_ptr() for a in args), dx.data_ptr(),
+                                dh0.data_ptr(), dWh.data_ptr(), dbh.data_ptr(), hp.data_ptr(),
+                                dhn.data_ptr(), partial.data_ptr(), counters.data_ptr(), B, T, H,
+                                int(reverse), plan["cluster"], plan["units"], splits,
                                 kernels.stream_of(x))
     kernels.check(lib, err, "gru_layer_scan_bwd")
     gru_layer_scan_bwd.launches += 1
@@ -189,6 +263,7 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
 
 gru_layer_scan.launches = 0
 gru_layer_scan_bwd.launches = 0
+gru_layer_scan_bwd.plan = None
 
 
 class _GruLayerScanAD(torch.autograd.Function):

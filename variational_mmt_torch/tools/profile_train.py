@@ -32,11 +32,11 @@ from variational_mmt_torch.train.trainer import Trainer
 
 OWN = "(anonymous namespace)::"  # the port's kernels live in anonymous namespaces
 LAYERS = (  # (layer, names of the port's kernels or substrings of library ones)
-    ("GRU-scan kernels (rows 1, 2)", ("gru_scan_kernel", "gru_scan_bwd_kernel", "dwh_kernel",
-                                      "bias_grad_kernel")),
-    ("decoder sequence kernels (rows 5, 6)", ("cell_fwd_kernel", "cell_bwd_kernel",
-                                              "attn_fwd_kernel", "attn_bwd_kernel",
-                                              "gemm_kernel", "transpose_kernel")),
+    ("GRU-scan kernels (rows 1, 2)", ("gru_scan_kernel", "gru_scan_bwd_kernel", "ScanHoist",
+                                      "ScanDWh")),
+    ("decoder sequence kernels (rows 5, 6)", ("cell_fwd_kernel", "attn_fwd_kernel",
+                                              "gemm_kernel", "DecHoist",
+                                              "decoder_bwd_kernel")),
     ("cuBLAS GEMM", ("gemm", "sm90", "cutlass", "xmma", "gemv")),
     ("softmax", ("softmax",)),
     ("reductions", ("reduce",)),
@@ -45,6 +45,8 @@ LAYERS = (  # (layer, names of the port's kernels or substrings of library ones)
 
 def layer_of(name: str) -> str:
     own = name.split(OWN, 1)[1].split("<", 1)[0] if OWN in name else None
+    if own == "tile_gemm_kernel":  # named by its operation, the second template argument
+        own = name.split(OWN)[2].split("<", 1)[0]
     low = name.lower()
     for layer, keys in LAYERS:
         if own is not None and own in keys:
