@@ -10,9 +10,14 @@ in PERF.md).
    step, GRU chain) against its plain PyTorch version at the flagship
    shapes, in float32 (tolerance 1e-4 absolute: summation order only) and
    in bfloat16 (tolerance 2e-2 absolute on outputs in [-1, 1]: bf16
-   rounding of the outputs and of products the kernel keeps in f32), and
-   times kernel, plain version and, for the scan, cuDNN's nn.GRU as a
-   yardstick.
+   rounding of the outputs and of products the kernel keeps in f32); then
+   the scan on a ragged batch (B=61, one row all padding) and on T=1 in
+   both directions, the decode step and chain at N=1000 and N=3 with one
+   row whose source is all padding, and each for bit-identical outputs in
+   two launches. Times at bf16: kernel, plain version and, for the scan,
+   cuDNN's nn.GRU forward (which also does the input projection), at the
+   scan's serving shape (B=256) and training shape (B=64, T=24). Each
+   prints its launch plan.
    Kernel phases, training: the GRU-scan backward (B=64, T=24, H=250, both
    directions, padded rows) and the decoder sequence forward and backward
    (B=64, T=25, S=24, H=500, dropout mask at p=0.3), every output and
@@ -66,7 +71,9 @@ in PERF.md).
    1e-4 relative, every parameter gradient within 1e-3 of its plain
    tensor's largest entry, before and after 3 optimizer steps.
 7. Prints one JSON line of per-kernel numbers (all six TPU kernels'
-   counterparts), then the last line {"ok": true, "device": {...}}.
+   counterparts; the scan forward's top-level times are at the serving
+   shape, ``by_shape`` holds both), then the last line
+   {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
 port's package is not beside this script, or when any phase fails.
@@ -335,29 +342,20 @@ def decoder_phase(dec):
     return fwd, bwd
 
 
-def scan_phase(gru_scan):
-    """GRU scan at B=256, T=24, H=250, both directions."""
-    B, T, H = SCAN_SHAPE["B"], SCAN_SHAPE["T"], SCAN_SHAPE["H"]
-    g = torch.Generator(device="cuda").manual_seed(1)
-    lengths = torch.randint(8, T + 1, (B,), generator=g, device="cuda")
-    mask = (torch.arange(T, device="cuda")[None, :] < lengths[:, None]).float()
-    rec = {}
-    for dt_name in ("float32", "bfloat16"):
-        dt = getattr(torch, dt_name)
-        x = torch.randn(B, T, 3 * H, generator=g, device="cuda").to(dt)
-        h0 = 0.1 * torch.randn(B, H, generator=g, device="cuda")
-        wh = (torch.randn(H, 3 * H, generator=g, device="cuda") / math.sqrt(H)).to(dt)
-        bh = 0.1 * torch.randn(3 * H, generator=g, device="cuda")
-        errs = []
-        for reverse in (False, True):
-            got = gru_scan.gru_layer_scan(x, mask, h0, wh, bh, reverse)
-            want = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, reverse)
-            torch.cuda.synchronize()
-            errs.append(max_err(got, want))
-        check_close("gru_scan", dt_name, max(errs))
-        rec[f"err_{dt_name}"] = max(errs)
-    # times at the main path's dtype (bf16)
-    rec["ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True))
+def scan_inputs(g, dt, B, T, H, min_len):
+    """Inputs of the scan forward, lengths uniform in min_len..T; with
+    min_len 0 row 2 is all padding."""
+    return scan_bwd_inputs(g, dt, B, T, H, min_len)[:5]
+
+
+def scan_timing(gru_scan, g, B, T, H):
+    """Kernel, plain version and cuDNN's nn.GRU forward (which also does the
+    input projection that the port leaves to cuBLAS) at one shape in bf16,
+    the bound and the launch plan."""
+    x, mask, h0, wh, bh = scan_inputs(g, torch.bfloat16, B, T, H, 8)
+    h0 = 0.1 * torch.randn(B, H, generator=g, device="cuda")
+    rec = {"ms": cuda_ms(lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True))}
+    rec["plan"] = gru_scan.gru_layer_scan.plan
     rec["plain_ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True),
                               iters=5)
     gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
@@ -367,6 +365,40 @@ def scan_phase(gru_scan):
     n_bytes = B * T * 3 * H * 2 + B * T * 4 + B * H * 4 + H * 3 * H * 2 + 3 * H * 4 \
         + B * T * H * 4 + B * H * 4
     rec["bound_ms"], rec["bound_by"] = bound(n_bytes, 2.0 * B * T * H * 3 * H, "bfloat16")
+    print_plan(f"gru_scan B={B} T={T}", rec["plan"])
+    print(f"  gru_scan B={B} T={T} bfloat16: kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms, nn.GRU forward {rec['library_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms")
+    return rec
+
+
+def scan_phase(gru_scan):
+    """GRU scan at B=256, T=24, H=250, both directions; then a ragged batch
+    (B=61, row 2 all padding) and T=1, determinism, and the times at the
+    serving shape (B=256) and the training shape (B=64)."""
+    B, T, H = SCAN_SHAPE["B"], SCAN_SHAPE["T"], SCAN_SHAPE["H"]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    rec = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        errs, edge = [], []
+        for b, t, min_len, out in ((B, T, 8, errs), (61, T, 0, edge), (B, 1, 0, edge)):
+            x, mask, h0, wh, bh = scan_inputs(g, dt, b, t, H, min_len)
+            h0 = 0.1 * torch.randn(b, H, generator=g, device="cuda")
+            for reverse in (False, True):
+                got = gru_scan.gru_layer_scan(x, mask, h0, wh, bh, reverse)
+                want = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, reverse)
+                torch.cuda.synchronize()
+                out.append(max_err(got, want))
+        check_close("gru_scan", dt_name, max(errs))
+        check_close("gru_scan B=61 and T=1, a row all padding", dt_name, max(edge))
+        rec[f"err_{dt_name}"], rec[f"edge_err_{dt_name}"] = max(errs), max(edge)
+    args = scan_inputs(g, torch.bfloat16, 61, T, H, 0)
+    deterministic("gru_scan", lambda: gru_scan.gru_layer_scan(*args, True))
+    shapes = {"serve": scan_timing(gru_scan, g, B, T, H),
+              "train": scan_timing(gru_scan, g, TRAIN_SCAN_SHAPE["B"], TRAIN_SCAN_SHAPE["T"], H)}
+    rec.update(shapes["serve"])  # the kernels line's top-level numbers: the serving shape
+    rec["by_shape"] = shapes
     return rec
 
 
@@ -383,26 +415,41 @@ def step_inputs(g, dt, N, S, H):
 
 
 def step_phase(ds):
-    """Decode step and GRU chain at N=1024, S=24, H=500."""
+    """Decode step and GRU chain at N=1024, S=24, H=500; then N=1000 and
+    N=3 with a row whose source is all padding, and determinism."""
     N, S, H = STEP_SHAPE["N"], STEP_SHAPE["S"], STEP_SHAPE["H"]
     g = torch.Generator(device="cuda").manual_seed(2)
     step_rec, chain_rec = {}, {}
     for dt_name in ("float32", "bfloat16"):
         dt = getattr(torch, dt_name)
+        edge_s, edge_c = [], []
+        for n in (1000, 3):
+            chain, attn = step_inputs(g, dt, n, S, H)
+            attn[3][min(2, n - 1)] = -1e9  # a row whose source is all padding
+            edge_s.append(max_err(ds.decode_step(*chain, *attn), ds.decode_step_ref(*chain, *attn)))
+            edge_c.append(max_err(ds.gru_chain(*chain), ds.gru_chain_ref(*chain)))
         chain, attn = step_inputs(g, dt, N, S, H)
         got = ds.decode_step(*chain, *attn)
         want = ds.decode_step_ref(*chain, *attn)
         got_c = ds.gru_chain(*chain)
         want_c = ds.gru_chain_ref(*chain)
         torch.cuda.synchronize()
-        step_rec[f"err_{dt_name}"] = max_err(got, want)
-        chain_rec[f"err_{dt_name}"] = max_err(got_c, want_c)
+        for rec, err, edge in ((step_rec, max_err(got, want), edge_s),
+                               (chain_rec, max_err(got_c, want_c), edge_c)):
+            rec[f"err_{dt_name}"], rec[f"edge_err_{dt_name}"] = err, max(edge)
         check_close("decode_step", dt_name, step_rec[f"err_{dt_name}"])
         check_close("gru_chain", dt_name, chain_rec[f"err_{dt_name}"])
+        check_close("decode_step N=1000 and N=3, a source all padding", dt_name, max(edge_s))
+        check_close("gru_chain N=1000 and N=3", dt_name, max(edge_c))
+    deterministic("decode_step", lambda: ds.decode_step(*chain, *attn))
+    deterministic("gru_chain", lambda: ds.gru_chain(*chain))
     step_rec["ms"] = cuda_ms(lambda: ds.decode_step(*chain, *attn))
+    step_rec["plan"] = ds.decode_step.plan
     step_rec["plain_ms"] = cuda_ms(lambda: ds.decode_step_ref(*chain, *attn))
     chain_rec["ms"] = cuda_ms(lambda: ds.gru_chain(*chain))
+    chain_rec["plan"] = ds.gru_chain.plan
     chain_rec["plain_ms"] = cuda_ms(lambda: ds.gru_chain_ref(*chain))
+    print_plan("decode_step cells", step_rec["plan"])
     b = 2  # bf16 bytes
     chain_bytes = N * 3 * H * b + 3 * N * H * b + 4 * H * 3 * H * b + 3 * 3 * H * 4 + 2 * N * H * b
     chain_flops = 2.0 * N * H * 3 * H * 4
@@ -683,7 +730,7 @@ def main() -> int:
         }
         if "peaked" in rec:  # the decoder's checks at attention memory std 0.5
             entry["peaked"] = {k: v for k, v in rec["peaked"].items() if k != "per_step"}
-        for key in ("plan", "edge_err_float32", "edge_err_bfloat16"):  # rows 2 and 6
+        for key in ("plan", "edge_err_float32", "edge_err_bfloat16", "by_shape"):
             if key in rec:
                 entry[key] = rec[key]
         if "abs_err_bfloat16" in rec:  # gradients: the relative error is the check

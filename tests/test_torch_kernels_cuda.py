@@ -38,16 +38,40 @@ def close(got, want, dt):
         assert float((g.float() - w.float()).abs().max()) <= TOL[dt]
 
 
+def scan_args(g, dt, B, T, H):
+    """Inputs of the scan with ragged lengths, row 2 all padding."""
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
+    lengths[min(2, B - 1)] = 0
+    mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
+    return (r(B, T, 3 * H).to(dt), mask, 0.1 * r(B, H), (r(H, 3 * H) / math.sqrt(H)).to(dt),
+            0.1 * r(3 * H))
+
+
+# B=61 fills no group of 4 rows (one row all padding); T=1 is a single
+# step; B=140 takes clusters of 8 rows, more than one wave of 4-row
+# clusters; H=250 is the encoder's width (8 CTAs a cluster)
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("reverse", [False, True])
-def test_gru_scan_kernel(cuda, dt, reverse):
-    B, T, H = 9, 7, 40
-    r = lambda *s: torch.randn(*s, generator=cuda, device="cuda")  # noqa: E731
-    lengths = torch.tensor([7, 1, 3, 7, 5, 2, 6, 4, 7], device="cuda")
-    mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
-    args = (r(B, T, 3 * H).to(dt), mask, 0.1 * r(B, H), (r(H, 3 * H) / math.sqrt(H)).to(dt),
-            0.1 * r(3 * H))
+@pytest.mark.parametrize("B,T,H", [(9, 7, 40), (61, 7, 250), (9, 1, 40), (140, 5, 250),
+                                   (5, 24, 96)],
+                         ids=["small", "ragged", "T1", "B140", "H96"])
+def test_gru_scan_kernel(cuda, dt, reverse, B, T, H):
+    args = scan_args(cuda, dt, B, T, H)
     close(gru_scan.gru_layer_scan(*args, reverse), gru_scan.gru_layer_scan_ref(*args, reverse), dt)
+    plan = gru_scan.gru_layer_scan.plan
+    assert plan == dict(gru_scan.scan_fwd_plan(B, T, H, dt),
+                        max_active_clusters=plan["max_active_clusters"],
+                        one_wave=plan["max_active_clusters"] >= plan["clusters"])
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_gru_scan_kernel_is_deterministic(cuda, dt):
+    args = scan_args(cuda, dt, 61, 7, 250)
+    first = gru_scan.gru_layer_scan(*args, True)
+    second = gru_scan.gru_layer_scan(*args, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def close_rel(got, want, dt):
@@ -73,16 +97,6 @@ def test_gru_scan_bwd_kernel(cuda, dt, reverse):
               gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, reverse), dt)
 
 
-def scan_bwd_args(g, dt, B, T, H):
-    """Inputs of the scan backward with ragged lengths, row 2 all padding."""
-    r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
-    lengths = torch.randint(1, T + 1, (B,), generator=g, device="cuda")
-    lengths[min(2, B - 1)] = 0
-    mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
-    return (r(B, T, 3 * H).to(dt), mask, 0.1 * r(B, H), (r(H, 3 * H) / math.sqrt(H)).to(dt),
-            0.1 * r(3 * H))
-
-
 # B=61 fills no group of 4 rows or tile of 16; T=1 is a single step; H=250
 # is the encoder's width (8 CTAs a cluster)
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -90,7 +104,7 @@ def scan_bwd_args(g, dt, B, T, H):
 @pytest.mark.parametrize("B,T,H", [(61, 7, 40), (9, 1, 40), (6, 5, 250)],
                          ids=["ragged", "T1", "H250"])
 def test_gru_scan_bwd_kernel_shapes(cuda, dt, reverse, B, T, H):
-    args = scan_bwd_args(cuda, dt, B, T, H)
+    args = scan_args(cuda, dt, B, T, H)
     outs, _ = gru_scan.gru_layer_scan_ref(*args, reverse)
     g = torch.randn(B, T, H, generator=cuda, device="cuda")
     close_rel(gru_scan.gru_layer_scan_bwd(*args, outs, g, reverse),
@@ -144,7 +158,7 @@ def test_decoder_bwd_kernel_shapes(cuda, dt, B, T):
 def test_backward_kernels_are_deterministic(cuda, dt):
     """Two launches on the same inputs agree bit for bit: a missing cluster
     or grid barrier shows here even where it stays inside a tolerance."""
-    args = scan_bwd_args(cuda, dt, 61, 7, 250)
+    args = scan_args(cuda, dt, 61, 7, 250)
     outs, _ = gru_scan.gru_layer_scan_ref(*args, True)
     g = torch.randn(outs.shape, generator=cuda, device="cuda")
     first = gru_scan.gru_layer_scan_bwd(*args, outs, g, True)
@@ -162,26 +176,64 @@ def test_backward_kernels_are_deterministic(cuda, dt):
 
 
 def step_args(g, dt, N=37, S=40, H=72):
+    """Inputs of the decode step; the source of row min(2, N-1) is all
+    padding."""
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
     w = lambda *s: (r(*s) / math.sqrt(H)).to(dt)  # noqa: E731
     chain = (r(N, 3 * H).to(dt), torch.tanh(r(N, H)).to(dt), torch.tanh(r(N, H)).to(dt),
              torch.tanh(r(N, H)).to(dt), w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H),
              w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H))
     lengths = torch.randint(1, S + 1, (N,), generator=g, device="cuda")
+    lengths[min(2, N - 1)] = 0
     mask_bias = (torch.arange(S, device="cuda")[None] >= lengths[:, None]).float() * -1e9
     return chain, ((0.5 * r(N, S, H)).to(dt), (0.5 * r(N, S, H)).to(dt), w(H, H), mask_bias)
 
 
+# N=1000 fills no 64-row tile; N=3 is less than one; H=72 and H=40 fill
+# no 32-unit tile and no 32-value chunk of K; H=500 is the decoder's width
+STEP_SHAPES = [(37, 40, 72), (1000, 24, 500), (3, 5, 500), (37, 40, 40)]
+STEP_IDS = ["small", "N1000", "N3", "H40"]
+
+
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-def test_decode_step_kernel(cuda, dt):
-    chain, attn = step_args(cuda, dt)
+@pytest.mark.parametrize("N,S,H", STEP_SHAPES, ids=STEP_IDS)
+def test_decode_step_kernel(cuda, dt, N, S, H):
+    chain, attn = step_args(cuda, dt, N, S, H)
     close(ds.decode_step(*chain, *attn), ds.decode_step_ref(*chain, *attn), dt)
+    assert ds.decode_step.plan["grid"] == ds.step_cell_plan(N, H, dt)["grid"]
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-def test_gru_chain_kernel(cuda, dt):
-    chain, _ = step_args(cuda, dt)
+@pytest.mark.parametrize("N,S,H", STEP_SHAPES, ids=STEP_IDS)
+def test_gru_chain_kernel(cuda, dt, N, S, H):
+    chain, _ = step_args(cuda, dt, N, S, H)
     close(ds.gru_chain(*chain), ds.gru_chain_ref(*chain), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_step_kernels_are_deterministic(cuda, dt):
+    chain, attn = step_args(cuda, dt, 1000, 24, 500)
+    for fn, args in ((ds.decode_step, chain + attn), (ds.gru_chain, chain)):
+        first, second = fn(*args), fn(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_step_kernels_take_unaligned_views(cuda):
+    """Inputs that start off a 16-byte boundary (views one element into
+    their storage) give the same result as aligned copies."""
+    chain, attn = step_args(cuda, torch.bfloat16, 37, 40, 40)
+
+    def shifted(t):
+        flat = t.flatten()
+        v = torch.cat([flat[:1], flat])[1:].view(t.shape)
+        assert v.data_ptr() % 16 != 0 and torch.equal(v, t)
+        return v
+
+    want = ds.decode_step(*chain, *attn)
+    got = ds.decode_step(*map(shifted, chain), *map(shifted, attn))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_kernel_counts_launches(cuda):

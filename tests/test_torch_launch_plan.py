@@ -1,14 +1,16 @@
-"""PyTorch port: the launch plans of the two training backward kernels
-(``scan_bwd_plan`` and ``decoder_bwd_plan``), pure Python, on the CPU.
-The widths the repo's configs use (H=250 a direction for the scan, H=500
-for the decoder) are accepted in both dtypes; shapes the designs cannot
-hold raise NotImplementedError, and so do the wrappers on a non-CPU tensor
+"""PyTorch port: the launch plans of the cluster and persistent kernels
+(``scan_fwd_plan``, ``scan_bwd_plan``, ``step_cell_plan`` and
+``decoder_bwd_plan``), pure Python, on the CPU. The widths the repo's
+configs use (H=250 a direction for the scan, H=500 for the decoder and the
+decode step) are accepted in both dtypes; shapes the designs cannot hold
+raise NotImplementedError, and so do the wrappers on a non-CPU tensor
 before anything is launched (meta tensors stand in for CUDA ones)."""
 
 import pytest
 import torch
 
 from variational_mmt_torch import kernels
+from variational_mmt_torch.ops import decode_step as ds
 from variational_mmt_torch.ops import decoder, gru_scan
 
 DTYPES = [torch.float32, torch.bfloat16]
@@ -28,6 +30,85 @@ def test_scan_plan_accepts_the_encoder_width(dt, B, T):
     assert plan["ctas"] == plan["clusters"] * plan["cluster"]
     assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
     assert 1 <= plan["dwh_splits"] <= 8
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("T", [24, 1])
+@pytest.mark.parametrize("B", [256, 64, 61, 1])
+def test_scan_fwd_plan_accepts_the_encoder_width(dt, B, T):
+    H = 250
+    plan = gru_scan.scan_fwd_plan(B, T, H, dt)
+    assert (plan["cluster"], plan["units"]) == (8, 32)
+    assert plan["rows"] in (4, 8)
+    assert plan["clusters"] * plan["rows"] >= B > (plan["clusters"] - 1) * plan["rows"]
+    assert plan["ctas"] == plan["clusters"] * plan["cluster"]
+    assert plan["threads"] == 3 * 32 * gru_scan.SCAN_FWD_PARTS
+    assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
+
+
+def test_scan_fwd_plan_at_the_main_path_shapes():
+    """Training's B=64: 16 clusters of 4 rows, 128 CTAs, one an SM; serving's
+    B=256: 32 clusters of 8 rows (the mma's columns), 256 CTAs, which fit
+    one wave only where two bf16 CTAs share an SM."""
+    for dt in DTYPES:
+        train = gru_scan.scan_fwd_plan(64, 24, 250, dt)
+        serve = gru_scan.scan_fwd_plan(256, 24, 250, dt)
+        assert (train["rows"], train["clusters"], train["ctas"]) == (4, 16, 128)
+        assert (serve["rows"], serve["clusters"], serve["ctas"]) == (8, 32, 256)
+    bf16 = gru_scan.scan_fwd_plan(256, 24, 250, torch.bfloat16)
+    assert 2 * (bf16["smem"] + 1024) <= SMEM_PER_SM
+
+
+def test_scan_fwd_plan_mirrors_the_kernels_layout():
+    """bf16: 96 columns of Wh and two 8-slot state buffers at the mma stride
+    (264 halves at H=250), the f32 partial products; f32: the same unpadded."""
+    parts = 4 * 96 * 8 * 4
+    assert gru_scan.scan_fwd_plan(64, 24, 250, torch.bfloat16)["smem"] == \
+        96 * 264 * 2 + 2 * 8 * 264 * 2 + parts
+    assert gru_scan.scan_fwd_plan(64, 24, 250, torch.float32)["smem"] == \
+        96 * 250 * 4 + 2 * 8 * 250 * 4 + parts
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [0, 257, 1024])
+def test_scan_fwd_plan_refuses_what_a_cluster_cannot_hold(dt, H):
+    with pytest.raises(NotImplementedError):
+        gru_scan.scan_fwd_plan(64, 24, H, dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("N", [1024, 1000, 4, 1])
+def test_step_cell_plan_accepts_the_decoder_width(dt, N):
+    H = 500
+    plan = ds.step_cell_plan(N, H, dt)
+    units, rows = plan["grid"]
+    assert (units - 1) * plan["units"] < H <= units * plan["units"]
+    assert (rows - 1) * plan["rows"] < N <= rows * plan["rows"]
+    assert plan["ctas"] == units * rows
+    assert plan["k_chunks"] * 32 >= H
+    assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
+
+
+def test_step_cell_plan_at_the_serving_shape():
+    """N=1024 rows (256 sentences x beam 4), H=500: 16 x 16 tiles of 64 rows
+    x 32 units, 256 CTAs; two bf16 CTAs fit an SM by shared memory, so the
+    grid is one wave on 128 SMs or more."""
+    for dt in DTYPES:
+        plan = ds.step_cell_plan(1024, 500, dt)
+        assert (plan["rows"], plan["grid"], plan["ctas"]) == (64, (16, 16), 256)
+    epilogue = lambda size: 64 * (96 + 32) * size + 2 * 96 * 4  # noqa: E731
+    bf16 = ds.step_cell_plan(1024, 500, torch.bfloat16)
+    assert bf16["smem"] == 2 * (2 * 64 * 40 + 2 * 32 * 104) * 2 + epilogue(2)
+    assert ds.step_cell_plan(1024, 500, torch.float32)["smem"] == \
+        2 * (2 * 64 * 36 + 2 * 32 * 100) * 4 + epilogue(4)
+    assert 2 * (bf16["smem"] + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [0, 250, 501])
+def test_step_cell_plan_refuses_what_the_copies_cannot_hold(dt, H):
+    with pytest.raises(NotImplementedError):
+        ds.step_cell_plan(1024, H, dt)
 
 
 def test_scan_plan_at_the_training_shape():
@@ -110,9 +191,25 @@ def no_launch(monkeypatch):
     return monkeypatch
 
 
+def step_args(N, S, H, dt=torch.float32):
+    c = lambda *shape: meta(*shape, dtype=dt)  # noqa: E731
+    w = c(H, 3 * H)
+    return (c(N, 3 * H), c(N, H), c(N, H), c(N, H), w, w, meta(3 * H), w, meta(3 * H), w,
+            meta(3 * H))
+
+
 def test_wrappers_refuse_a_shape_before_launching(no_launch):
     with pytest.raises(NotImplementedError):
+        gru_scan.gru_layer_scan(*scan_args(4, 5, 300)[:5])
+    with pytest.raises(NotImplementedError):
         gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 300))
+    for dt in DTYPES:
+        chain = step_args(4, 3, 250, dt)
+        with pytest.raises(NotImplementedError):
+            ds.gru_chain(*chain)
+        with pytest.raises(NotImplementedError):
+            ds.decode_step(*chain, meta(4, 3, 250, dtype=dt), meta(4, 3, 250, dtype=dt),
+                           meta(250, 250, dtype=dt), meta(4, 3))
     with pytest.raises(NotImplementedError):
         decoder.decoder_bwd(*decoder_args(4, 5, 3, 2000))
 
@@ -124,6 +221,14 @@ def test_wrappers_refuse_what_the_card_cannot_hold_at_once(no_launch):
     no_launch.setattr(kernels, "occupancy", lambda *a: (0, plan["smem"]))
     with pytest.raises(NotImplementedError, match="does not fit"):
         gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 8))
+    plan = gru_scan.scan_fwd_plan(4, 5, 8, torch.float32)
+    no_launch.setattr(kernels, "occupancy", lambda *a: (0, plan["smem"]))
+    with pytest.raises(NotImplementedError, match="does not fit"):
+        gru_scan.gru_layer_scan(*scan_args(4, 5, 8)[:5])
+    plan = ds.step_cell_plan(4, 8, torch.float32)
+    no_launch.setattr(kernels, "occupancy", lambda *a: (0, plan["smem"]))
+    with pytest.raises(NotImplementedError, match="does not fit"):
+        ds.gru_chain(*step_args(4, 3, 8))
     plan = decoder.decoder_bwd_plan(4, 3, 8, torch.float32, H100_SMS)
     no_launch.setattr(kernels, "occupancy", lambda *a: (plan["grid"] - 1, plan["smem"]))
     with pytest.raises(NotImplementedError, match="at once"):
@@ -134,6 +239,10 @@ def test_wrappers_check_the_plan_against_the_kernels_count(no_launch):
     no_launch.setattr(kernels, "occupancy", lambda *a: (1000, 1))
     with pytest.raises(RuntimeError, match="shared"):
         gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 8))
+    with pytest.raises(RuntimeError, match="shared"):
+        gru_scan.gru_layer_scan(*scan_args(4, 5, 8)[:5])
+    with pytest.raises(RuntimeError, match="shared"):
+        ds.decode_step(*step_args(4, 3, 8), meta(4, 3, 8), meta(4, 3, 8), meta(8, 8), meta(4, 3))
     with pytest.raises(RuntimeError, match="shared"):
         decoder.decoder_bwd(*decoder_args(4, 5, 3, 8))
 
@@ -168,3 +277,26 @@ def test_decoder_refuses_a_grid_the_card_cannot_hold(no_launch):
     no_launch.setattr(kernels, "occupancy", lambda *a: (114, smem))
     with pytest.raises(NotImplementedError, match="at once"):
         decoder.decoder_bwd(*decoder_args(64, 25, 24, 500))
+
+
+@pytest.mark.parametrize("B,rows", [(64, 4), (256, 8)])
+def test_scan_wrapper_launches_with_the_plan(monkeypatch, B, rows):
+    """The forward wrapper passes the plan's cluster, units and rows to the
+    kernel and keeps the plan, with whether the grid is one wave."""
+    calls = []
+
+    class Lib:
+        def vmmt_gru_scan(self, *args):
+            calls.append(args[-4:-1])  # ..., cluster, units, rows, stream
+            return 0
+
+    monkeypatch.setattr(kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    smem = gru_scan.scan_fwd_plan(B, 24, 250, torch.bfloat16)["smem"]
+    monkeypatch.setattr(kernels, "occupancy", lambda *a: (40, smem))
+    x = meta(B, 24, 750, dtype=torch.bfloat16)
+    gru_scan.gru_layer_scan(x, meta(B, 24), meta(B, 250), meta(250, 750, dtype=torch.bfloat16),
+                            meta(750))
+    assert calls == [(8, 32, rows)]
+    plan = gru_scan.gru_layer_scan.plan
+    assert plan["rows"] == rows and plan["one_wave"] == (40 >= plan["clusters"])

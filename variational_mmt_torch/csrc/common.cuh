@@ -1,8 +1,9 @@
 // Device helpers and kernels shared by the port's CUDA sources.
 //
-// gru_scan.cu uses the conversions. decode_step.cu (one beam step, N =
-// batch x beam rows) and decoder.cu's forward (the teacher-forced sequence,
-// one step at a time) share the forward step itself:
+// gru_scan.cu and decode_step.cu use the conversions and the warp
+// reductions (the decode step's cells and attention are its own
+// tensor-core and vector-load kernels). decoder.cu's forward (the
+// teacher-forced sequence, one step at a time) runs its step from:
 //   cell_fwd_kernel: a GRU cell over N rows, both products tiled through
 //       shared memory, with the input product's operand optionally scaled
 //       by a dropout mask (the decoder's dmid);
@@ -10,10 +11,8 @@
 //   attn_fwd_kernel: scores, masked softmax, context and tanh, one block
 //       per row.
 // They are templated on the compute dtype T of the weights and streams, on
-// the dtype TS of the carried state (T for a decode step, whose state goes
-// through T between calls; f32 for the sequence, which keeps it in f32
-// across time) and on the rows per thread (a larger tile for the decode
-// step's N = 1024 rows than for the sequence's B = 64).
+// the dtype TS of the carried state (f32 for the sequence, which keeps it
+// in f32 across time; a T state is read as is) and on the rows per thread.
 //
 // Numerics, as in the Pallas bodies: every product takes its operands
 // rounded to T and accumulates in f32; each elementwise product of the

@@ -1,6 +1,6 @@
 // One GRU layer over a whole sequence: the forward scan and its backward.
 //
-// Replaces the Pallas kernel _gru_fwd_kernel of
+// The forward replaces the Pallas kernel _gru_fwd_kernel of
 // variational_mmt_tpu/ops/pallas/gru.py (gru_layer_scan, pallas_call at
 // :165). Same contract: x_proj (B,T,3H) precomputed input projections in
 // the compute dtype T (float or bfloat16), mask (B,T) f32, h0 (B,H) f32,
@@ -12,23 +12,36 @@
 // processed).
 //
 // On the TPU the time axis was a sequential grid with the state in VMEM
-// scratch. Here a loop over t runs inside the block: one block owns
-// kRows batch rows and keeps their state in shared memory for the whole
-// sequence; thread j owns hidden unit j for all kRows rows. Each step reads
-// all of Wh (375 KB in bf16 at H=250, more than one SM's shared memory)
-// from global memory, where it stays in L2 across steps and blocks.
-// The recurrence is serial, so the kernel is bound by the latency of T
-// dependent steps, far above the bytes/FLOPs bound; splitting Wh across a
-// cluster's shared memory is the next step.
+// scratch. Here the loop over t runs inside the kernel. Its bytes and
+// FLOPs bound it at a few microseconds; what bounds it on this card is the
+// latency of T dependent steps, each a (rows, H) x (H, 3H) product whose
+// h_prev is the kernel's own output, so the product cannot be hoisted as
+// the backward's gate recompute is. The design keeps Wh next to the cores
+// and the step short: one thread-block cluster of C CTAs per `rows` batch
+// rows (C = 8 at H=250; rows 4 or 8, a launch-plan choice), CTA c owning
+// hidden units [c*units, (c+1)*units), units <= 32. Once per call each CTA
+// loads the columns of Wh for its units' three gates into shared memory
+// (96 columns x H, 48 KB in bf16). Per step it
+//   1. forms its units' round(h) @ Wh[:, r|z|n columns] from shared memory:
+//      in bf16 on the tensor cores (mma.sync m16n8k16, the 96 gate-unit
+//      columns as six 16-row tiles, the 8 batch-row slots as the tile's
+//      columns, K split four ways over 12 warps), in f32 by FMAs (never
+//      TF32);
+//   2. applies the gates in f32 from x_proj and mask prefetched a step
+//      ahead into registers, and writes outs;
+//   3. pushes its units' h', rounded to T, into every peer's
+//      double-buffered shared copy of the state (distributed shared memory);
+//   4. waits at one cluster barrier.
+// The backward scan below shares the cluster layout, the DSMEM push and
+// the mma fragments.
 //
 // The backward replaces _gru_bwd_kernel (_gru_scan_bwd_impl, pallas_call at
 // :297). Its serial part is T dependent steps of two (rows, H) x (H, 3H)
 // products: the gate recompute round(h_prev) @ Wh and dh_proj @ Wh^T. At
 // training's B=64, T=24, H=250 its bytes and FLOPs bound it at a few
 // microseconds; what bounds it on this card is the latency of the serial
-// chain; one block of 4 rows each would use 16 of 132 SMs at B=64 and
-// re-read Wh from L2 every step. This design takes off the chain what does
-// not belong there and keeps Wh next to the cores, in three launches:
+// chain. This design takes off the chain what does not belong there and
+// keeps Wh next to the cores, in three launches:
 //   (a) the gate recompute does not depend on the backward recurrence
 //       (h_prev is the saved forward output), so one tiled product computes
 //       hp = round(h_prev) @ Wh + bh for all B*T (row, t) at once before the
@@ -61,111 +74,212 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRows = 4;  // batch rows per block
-
-template <typename T>
-__global__ void __launch_bounds__(1024)
-gru_scan_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask,
-                const float* __restrict__ h0, const T* __restrict__ wh,
-                const float* __restrict__ bh, float* __restrict__ outs,
-                float* __restrict__ final_h, int B, int T_len, int H, int reverse) {
-  extern __shared__ float smem[];
-  float* h = smem;              // (kRows, H) carry, f32
-  float* hc = smem + kRows * H;  // (kRows, H) carry rounded to T
-  const int row0 = blockIdx.x * kRows;
-  const int j = threadIdx.x;  // hidden unit
-  const int H3 = 3 * H;
-
-  for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-    const int r = i / H, row = row0 + r;
-    const float v = row < B ? h0[(size_t)row * H + i % H] : 0.f;
-    h[i] = v;
-    hc[i] = round_as<T>(v);
-  }
-  __syncthreads();
-
-  const bool unit = j < H;
-  const float bhr = unit ? bh[j] : 0.f;
-  const float bhz = unit ? bh[H + j] : 0.f;
-  const float bhn = unit ? bh[2 * H + j] : 0.f;
-
-  for (int step = 0; step < T_len; ++step) {
-    const int t = reverse ? T_len - 1 - step : step;
-    float acc[kRows][3];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = acc[r][2] = 0.f;
-    if (unit) {
-      const T* w = wh + j;
-#pragma unroll 4
-      for (int k = 0; k < H; ++k) {
-        const float wr = to_f(w[(size_t)k * H3]);
-        const float wz = to_f(w[(size_t)k * H3 + H]);
-        const float wn = to_f(w[(size_t)k * H3 + 2 * H]);
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float hv = hc[r * H + k];
-          acc[r][0] = fmaf(hv, wr, acc[r][0]);
-          acc[r][1] = fmaf(hv, wz, acc[r][1]);
-          acc[r][2] = fmaf(hv, wn, acc[r][2]);
-        }
-      }
-    }
-    float h_new[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      h_new[r] = 0.f;
-      if (!unit || row >= B) continue;
-      const T* xp = x_proj + ((size_t)row * T_len + t) * H3;
-      const float h_prev = h[r * H + j];
-      const float rg = sigmoid_f(to_f(xp[j]) + (acc[r][0] + bhr));
-      const float zg = sigmoid_f(to_f(xp[H + j]) + (acc[r][1] + bhz));
-      const float ng = tanhf(to_f(xp[2 * H + j]) + rg * (acc[r][2] + bhn));
-      const float cand = (1.f - zg) * ng + zg * h_prev;
-      h_new[r] = mask[(size_t)row * T_len + t] > 0.f ? cand : h_prev;
-      outs[((size_t)row * T_len + t) * H + j] = h_new[r];
-    }
-    __syncthreads();  // every thread has finished reading hc for this step
-    if (unit) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (row0 + r < B) {
-          h[r * H + j] = h_new[r];
-          hc[r * H + j] = round_as<T>(h_new[r]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-  if (unit) {
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      if (row < B) final_h[(size_t)row * H + j] = h[r * H + j];
-    }
-  }
-}
-
-template <typename T>
-void launch(const void* x_proj, const void* mask, const void* h0, const void* wh,
-            const void* bh, void* outs, void* final_h, int B, int T_len, int H,
-            int reverse, cudaStream_t stream) {
-  const int threads = ((H + 31) / 32) * 32;
-  const int smem = 2 * kRows * H * (int)sizeof(float);
-  allow_smem(gru_scan_kernel<T>, smem);
-  const int blocks = (B + kRows - 1) / kRows;
-  gru_scan_kernel<T><<<blocks, threads, smem, stream>>>(
-      static_cast<const T*>(x_proj), static_cast<const float*>(mask),
-      static_cast<const float*>(h0), static_cast<const T*>(wh),
-      static_cast<const float*>(bh), static_cast<float*>(outs),
-      static_cast<float*>(final_h), B, T_len, H, reverse);
-}
-
 constexpr int kScanRows = 4;       // batch rows per cluster
 constexpr int kScanUnits = 32;     // most hidden units one CTA owns
 constexpr int kScanThreads = 256;  // covers kScanRows x kScanUnits gate items
 constexpr int kScanWarps = kScanThreads / 32;
 constexpr int kUnitsPerWarp = kScanUnits / kScanWarps;
 constexpr int kScanParts = kScanWarps / 2;  // bf16: warps splitting K for one 16-unit tile
+
+// ---------------------------------------------------------------------------
+// Forward scan on clusters; see the note at the top.
+
+constexpr int kFwdSlots = 8;                 // batch-row slots of the state (mma columns)
+constexpr int kFwdCols = 3 * kScanUnits;     // gate-unit columns of Wh a CTA holds
+constexpr int kFwdTiles = kFwdCols / 16;     // bf16: 16-row mma tiles of them
+constexpr int kFwdParts = 4;                 // K split of the step's product
+constexpr int kFwdThreads = kFwdCols * kFwdParts;  // f32: one (column, part) a thread
+constexpr int kFwdWarps = kFwdThreads / 32;
+static_assert(kFwdSlots * kScanUnits <= kFwdThreads, "a gate item per thread");
+
+// Dynamic shared memory of the forward, one CTA: its columns of Wh and two
+// state buffers in the compute dtype, then the K-split partial products
+// (kFwdParts, kFwdCols, kFwdSlots) in f32. Column c = gate * 32 + unit.
+// bf16: Wh as (kFwdCols, ld) and the state as (kFwdSlots, ld), K along
+// rows at the mma stride, zero past H; f32: Wh as (H, kFwdCols) and the
+// state as (H, kFwdSlots), so that a warp reads 32 columns or one row's 8
+// slots at once.
+template <typename T>
+struct FwdLayout {
+  int ld;
+  size_t w, hb, buf, total;
+  __host__ __device__ FwdLayout(int H) {
+    ld = is_bf16<T>() ? slice_ld<T>(H) : H;
+    buf = (size_t)kFwdSlots * ld;  // elements of one state buffer
+    w = align16((size_t)kFwdCols * ld * sizeof(T));
+    hb = align16(2 * buf * sizeof(T));
+    total = w + hb + (size_t)kFwdParts * kFwdCols * kFwdSlots * sizeof(float);
+  }
+  // offset of (slot r, unit k) in a state buffer
+  __host__ __device__ int at(int r, int k) const {
+    return is_bf16<T>() ? r * ld + k : k * kFwdSlots + r;
+  }
+};
+
+// The inputs of one (row, unit) at one step, loaded a step ahead.
+struct FwdIn {
+  float x[3], m;
+};
+
+// Forward scan over one cluster's `rows` (<= kFwdSlots) batch rows.
+template <typename T>
+__global__ void __launch_bounds__(kFwdThreads)
+gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask,
+                    const float* __restrict__ h0, const T* __restrict__ wh,
+                    const float* __restrict__ bh, float* __restrict__ outs,
+                    float* __restrict__ final_h, int B, int T_len, int H, int units, int rows,
+                    int reverse) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int H3 = 3 * H, tid = threadIdx.x;
+  const int row0 = (blockIdx.x / C) * rows;
+  const int j0 = rank * units, nu = max(0, min(units, H - j0));
+  const FwdLayout<T> L(H);
+  const int ld = L.ld;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* w_s = reinterpret_cast<T*>(smem_raw);
+  T* h_s = reinterpret_cast<T*>(smem_raw + L.w);  // two state buffers
+  float* red_s = reinterpret_cast<float*>(smem_raw + L.w + L.hb);
+
+  // Wh[k, g*H + j0 + u] for the CTA's columns c = g*32 + u, zero past its
+  // units and past H; read with u fastest (coalesced)
+  for (int i = tid; i < ld * kFwdCols; i += kFwdThreads) {
+    const int k = i / kFwdCols, c = i % kFwdCols, g = c / kScanUnits, u = c % kScanUnits;
+    const T v = u < nu && k < H ? wh[(size_t)k * H3 + g * H + j0 + u] : from_f<T>(0.f);
+    w_s[is_bf16<T>() ? c * ld + k : k * kFwdCols + c] = v;
+  }
+  // buffer 0 holds round(h0) of the cluster's rows, the rest is zero
+  for (int i = tid; i < 2 * (int)L.buf; i += kFwdThreads) {
+    const int b = i / (int)L.buf, e = i % (int)L.buf;
+    const int r = is_bf16<T>() ? e / ld : e % kFwdSlots;
+    const int k = is_bf16<T>() ? e % ld : e / kFwdSlots;
+    const int row = row0 + r;
+    const bool in = b == 0 && r < rows && row < B && k < H;
+    h_s[i] = from_f<T>(in ? h0[(size_t)row * H + k] : 0.f);
+  }
+
+  // this thread's gate item: (row0 + r, j0 + u), tid = r * 32 + u
+  const int r = tid / kScanUnits, u = tid % kScanUnits, row = row0 + r, j = j0 + u;
+  const bool item = r < rows && u < nu;
+  const bool live = item && row < B;
+  float h_prev = live ? h0[(size_t)row * H + j] : 0.f;
+  const float bhr = item ? bh[j] : 0.f;
+  const float bhz = item ? bh[H + j] : 0.f;
+  const float bhn = item ? bh[2 * H + j] : 0.f;
+  auto load = [&](int step, FwdIn& in) {
+    const int t = reverse ? T_len - 1 - step : step;
+    const size_t n = (size_t)row * T_len + t;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) in.x[q] = to_f(x_proj[n * H3 + q * H + j]);
+    in.m = mask[n];
+  };
+  FwdIn cur{}, nxt{};
+  if (live) load(0, cur);
+  cluster.sync();  // every peer runs, and its buffers are set, before the first push
+
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int step = 0; step < T_len; ++step) {
+    const int t = reverse ? T_len - 1 - step : step;
+    if (live && step + 1 < T_len) load(step + 1, nxt);
+    const T* hb = h_s + (step & 1) * L.buf;
+
+    // red[part][c][slot] = sum over the part's k of hb[slot, k] Wh[k, c]
+    if constexpr (is_bf16<T>()) {
+      const int gq = lane >> 2, tq = lane & 3;
+      const int ks = pad16(H) / 16;
+      const T* db = hb + (size_t)gq * ld + 2 * tq;
+      for (int job = warp; job < kFwdTiles * kFwdParts; job += kFwdWarps) {
+        const int tile = job % kFwdTiles, part = job / kFwdTiles;
+        const T* wa = w_s + (size_t)(tile * 16 + gq) * ld + 2 * tq;
+        float c4[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+        for (int s = part * ks / kFwdParts; s < (part + 1) * ks / kFwdParts; ++s) {
+          const int k = s * 16;
+          const uint32_t a[4] = {pair_at(wa + k), pair_at(wa + 8 * ld + k), pair_at(wa + k + 8),
+                                 pair_at(wa + 8 * ld + k + 8)};
+          mma_bf16(c4, a, pair_at(db + k), pair_at(db + k + 8));
+        }
+        float* red = red_s + ((size_t)part * kFwdCols + tile * 16 + gq) * kFwdSlots + 2 * tq;
+        red[0] = c4[0];
+        red[1] = c4[1];
+        red[8 * kFwdSlots] = c4[2];
+        red[8 * kFwdSlots + 1] = c4[3];
+      }
+    } else {
+      const int c = tid % kFwdCols, part = tid / kFwdCols;
+      float acc[kFwdSlots] = {};
+      for (int k = part * H / kFwdParts; k < (part + 1) * H / kFwdParts; ++k) {
+        const float w = to_f(w_s[k * kFwdCols + c]);
+        const float4 lo = reinterpret_cast<const float4*>(hb + k * kFwdSlots)[0];
+        const float4 hi = reinterpret_cast<const float4*>(hb + k * kFwdSlots)[1];
+        const float hv[kFwdSlots] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+        for (int s = 0; s < kFwdSlots; ++s) acc[s] = fmaf(hv[s], w, acc[s]);
+      }
+      float* red = red_s + ((size_t)part * kFwdCols + c) * kFwdSlots;
+#pragma unroll
+      for (int s = 0; s < kFwdSlots; ++s) red[s] = acc[s];
+    }
+    __syncthreads();  // every partial product is in red_s
+
+    if (live) {
+      float acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+      for (int p = 0; p < kFwdParts; ++p)
+#pragma unroll
+        for (int g = 0; g < 3; ++g)
+          acc[g] += red_s[((size_t)p * kFwdCols + g * kScanUnits + u) * kFwdSlots + r];
+      const float rg = sigmoid_f(cur.x[0] + (acc[0] + bhr));
+      const float zg = sigmoid_f(cur.x[1] + (acc[1] + bhz));
+      const float ng = tanhf(cur.x[2] + rg * (acc[2] + bhn));
+      const float cand = (1.f - zg) * ng + zg * h_prev;
+      h_prev = cur.m > 0.f ? cand : h_prev;
+      outs[((size_t)row * T_len + t) * H + j] = h_prev;
+      if (step + 1 < T_len) {
+        // rows past B are never pushed: their slots stay zero
+        T* nb = h_s + ((step + 1) & 1) * L.buf + L.at(r, j);
+        const T v = from_f<T>(h_prev);
+        for (int p = 0; p < C; ++p) *cluster.map_shared_rank(nb, p) = v;
+      }
+    }
+    cluster.sync();  // every slice of h' has arrived; red_s may be rewritten
+    cur = nxt;
+  }
+  if (live) final_h[(size_t)row * H + j] = h_prev;
+}
+
+template <typename T>
+cudaLaunchConfig_t scan_fwd_config(int B, int H, int cluster, int rows, cudaLaunchAttribute* attr,
+                                   cudaStream_t stream) {
+  const size_t smem = FwdLayout<T>(H).total;
+  cudaFuncSetAttribute(gru_scan_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)smem);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((B + rows - 1) / rows) * cluster);
+  cfg.blockDim = dim3(kFwdThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <typename T>
+int launch_fwd(const void* x_proj, const void* mask, const void* h0, const void* wh,
+               const void* bh, void* outs, void* final_h, int B, int T_len, int H, int reverse,
+               int cluster, int units, int rows, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = scan_fwd_config<T>(B, H, cluster, rows, attr, stream);
+  return (int)cudaLaunchKernelEx(
+      &cfg, gru_scan_fwd_kernel<T>, static_cast<const T*>(x_proj),
+      static_cast<const float*>(mask), static_cast<const float*>(h0),
+      static_cast<const T*>(wh), static_cast<const float*>(bh), static_cast<float*>(outs),
+      static_cast<float*>(final_h), B, T_len, H, units, rows, reverse);
+}
 
 // Dynamic shared memory of the scan, one CTA: its rows of Wh (wrows, ld)
 // and two dh_proj buffers (kScanRows, ld) in the compute dtype, then dh and
@@ -475,19 +589,39 @@ int launch_bwd(const void* x_proj, const void* mask, const void* h0, const void*
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x_proj and Wh). Requires 1 <= H <= 1024.
+// dtype: 0 = float32, 1 = bfloat16 (x_proj and Wh). Forward scan on
+// thread-block clusters of `cluster` CTAs, each owning `units` hidden units
+// (cluster * units >= H, units <= 32) of `rows` (<= 8) batch rows.
 extern "C" int vmmt_gru_scan(int dtype, const void* x_proj, const void* mask,
                              const void* h0, const void* wh, const void* bh,
                              void* outs, void* final_h, int B, int T_len, int H,
-                             int reverse, void* stream) {
-  if (B == 0) return 0;
+                             int reverse, int cluster, int units, int rows, void* stream) {
+  if (B == 0 || T_len == 0) return 0;
+  if (units < 1 || units > kScanUnits || cluster < 1 || cluster > 8 || cluster * units < H ||
+      rows < 1 || rows > kFwdSlots)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    launch<__nv_bfloat16>(x_proj, mask, h0, wh, bh, outs, final_h, B, T_len, H, reverse, s);
-  } else {
-    launch<float>(x_proj, mask, h0, wh, bh, outs, final_h, B, T_len, H, reverse, s);
-  }
-  return (int)cudaGetLastError();
+  const int err =
+      dtype == 1 ? launch_fwd<__nv_bfloat16>(x_proj, mask, h0, wh, bh, outs, final_h, B, T_len,
+                                             H, reverse, cluster, units, rows, s)
+                 : launch_fwd<float>(x_proj, mask, h0, wh, bh, outs, final_h, B, T_len, H,
+                                     reverse, cluster, units, rows, s);
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// How many clusters of the forward scan's launch plan the card holds at
+// once (cudaOccupancyMaxActiveClusters), and the dynamic shared memory of
+// one CTA.
+extern "C" int vmmt_gru_scan_occupancy(int dtype, int H, int cluster, int rows,
+                                       int* max_clusters, int* smem_bytes) {
+  auto query = [&](auto zero) {
+    using T = decltype(zero);
+    cudaLaunchAttribute attr[1];
+    const cudaLaunchConfig_t cfg = scan_fwd_config<T>(rows, H, cluster, rows, attr, 0);
+    *smem_bytes = (int)cfg.dynamicSmemBytes;
+    return cudaOccupancyMaxActiveClusters(max_clusters, gru_scan_fwd_kernel<T>, &cfg);
+  };
+  return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
 }
 
 // Backward of vmmt_gru_scan on thread-block clusters of `cluster` CTAs,

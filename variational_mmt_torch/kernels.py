@@ -36,8 +36,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # library name -> {C entry point: argtypes}
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "gru_scan": {
-        # dtype, x_proj, mask, h0, wh, bh, outs, final, B, T, H, reverse, stream
-        "vmmt_gru_scan": [_I] + [_P] * 7 + [_I] * 4 + [_P],
+        # dtype, x_proj, mask, h0, wh, bh, outs, final, B, T, H, reverse,
+        # cluster, units, rows, stream
+        "vmmt_gru_scan": [_I] + [_P] * 7 + [_I] * 7 + [_P],
+        # dtype, H, cluster, rows, out: max active clusters, smem bytes
+        "vmmt_gru_scan_occupancy": [_I] * 4 + [_P] * 2,
         # dtype, x_proj, mask, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp and
         # dhn scratch, dWh partials and counters, B, T, H, reverse, cluster,
         # units, dWh splits, stream
@@ -65,6 +68,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # dtype, the 11 chain inputs, keys, mem_v, wc_q, mask_bias, h0n,
         # h1n, attn, probs, qw scratch, N, S, H, stream
         "vmmt_decode_step": [_I] + [_P] * 20 + [_I] * 3 + [_P],
+        # dtype, out: CTAs of the GRU cell kernel an SM holds, smem bytes
+        "vmmt_step_cell_occupancy": [_I] + [_P] * 2,
     },
 }
 

@@ -7,17 +7,22 @@ Mirrors ``variational_mmt_tpu/ops/pallas/decode_step.py``
 Source note. Replaces the Pallas kernels ``_step_kernel``
 (decode_step.py:49, ``pallas_call`` at :176) and ``_chain_kernel``
 (:85, ``pallas_call`` at :118) with ``csrc/decode_step.cu``. On the H100 a
-step at N=1024 rows, S=24, H=500 in bf16 moves about 56 MB, mostly keys
-and mem_v, and does 6.9 GFLOP: bytes bound it at about 17 us if the
-products ran on the tensor cores. The chain needs every column of h0'
-before GRU1 and all of h1' before attention, which a block-parallel grid
-cannot give without a grid-wide sync, so one call launches a short
-sequence of kernels on the stream: the GRU0 cell and the GRU1 cell (tiles
-of rows x hidden units, products tiled through shared memory), then
-``h1' @ Wc_q`` and one attention block per row. The simple design does
-its products on the CUDA cores in f32, which bounds it by FMA throughput;
-the TPU's row chunking (``_rows_per_chunk``, a VMEM budget) is not
-carried over.
+step at N=1024 rows, S=24, H=500 in bf16 moves about 65 MB, mostly keys
+and mem_v, and does 7.2 GFLOP: bytes bound it at about 19 us. The chain
+needs every column of h0' before GRU1 and all of h1' before attention,
+which a block-parallel grid cannot give without a grid-wide sync, so one
+call launches a short sequence of kernels on the stream: the GRU0 cell and
+the GRU1 cell (one tensor-core kernel: a CTA owns 64 rows x 32 hidden
+units and forms both of the cell's products for the three gate column
+blocks of its units, operands staged by cp.async and double-buffered along
+K, gates in the epilogue; FMAs, never TF32, in f32),
+then ``h1' @ Wc_q`` (the same kernel with one product) and one attention
+block per row reading keys as 16-byte vectors. What is left bounding it is
+the cells' L2 traffic and one pass over keys and mem_v. The chain (row 4)
+is the first two of those launches. :func:`step_cell_plan` gives the
+cells' tile grid and shared memory and refuses what the design cannot hold
+(H not a multiple of 4); the TPU's row chunking (``_rows_per_chunk``, a
+VMEM budget) is not carried over.
 """
 
 from __future__ import annotations
@@ -72,35 +77,93 @@ def decode_step_ref(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh
     return h0n, h1n, attn.to(feed.dtype), probs.to(keys.dtype)
 
 
-def _chain_args(what, emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1):
-    """Validate the chain inputs for the kernel; returns them contiguous,
-    biases as f32."""
+CELL_ROWS = 64  # rows of a cell CTA's tile (kCellRows of csrc/decode_step.cu)
+CELL_UNITS = 32  # hidden units of a cell CTA's tile (kCellUnits)
+CELL_BK = 32  # reduction chunk (kCellBK)
+CELL_VEC = 4  # values per cp.async copy (kCellVec): H must be a multiple
+CELL_THREADS = 256
+
+
+def step_cell_plan(N: int, H: int, dtype: torch.dtype) -> dict:
+    """Launch plan of the GRU cell kernel that the decode step and the chain
+    launch twice (and the step once more for ``h1' @ Wc_q``), for N rows
+    and H units: a grid of ``grid`` (unit tiles, row tiles) CTAs of 64
+    rows x 32 units, with ``smem`` bytes of dynamic shared memory per CTA
+    (mirrors ``CellSmem`` of csrc/decode_step.cu: two stages of K chunks of
+    the two row operands (64, 32) and the two weights' (32, 96) column
+    blocks, rows padded to 40 and 104 halves in bf16, 36 and 100 floats in
+    f32; then the epilogue's tile of xbase (64, 96) and h (64, 32) and two
+    bias rows of 96 floats). Raises NotImplementedError for what the design
+    cannot hold: H not a multiple of 4 (the copies are 4 values wide)."""
+    if dtype not in kernels.DTYPE_CODE:
+        raise TypeError(f"decode_step kernel: dtype {dtype}")
+    if H < 1 or H % CELL_VEC:
+        raise NotImplementedError(f"decode_step kernel: hidden {H} is not a positive multiple "
+                                  f"of {CELL_VEC}")
+    bf16 = dtype == torch.bfloat16
+    rows = CELL_ROWS
+    lda, ldw = (CELL_BK + 8, 3 * CELL_UNITS + 8) if bf16 else (CELL_BK + 4, 3 * CELL_UNITS + 4)
+    stages, tsize, cols = 2, (2 if bf16 else 4), 3 * CELL_UNITS
+    smem = (stages * (2 * rows * lda + 2 * CELL_BK * ldw) * tsize
+            + rows * (cols + CELL_UNITS) * tsize + 2 * cols * 4)
+    grid = (-(-H // CELL_UNITS), -(-N // rows))
+    return dict(rows=rows, units=CELL_UNITS, grid=grid, ctas=grid[0] * grid[1],
+                threads=CELL_THREADS, stages=stages, smem=smem, k_chunks=-(-H // CELL_BK))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels' vector
+    copies need it); a view that starts elsewhere is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _checked_plan(N: int, H: int, dt: torch.dtype, device: int) -> dict:
+    """The cells' plan, checked against the kernel's own shared-memory
+    count, with the card's count of co-resident CTAs."""
+    plan = step_cell_plan(N, H, dt)
+    per_sm, smem = kernels.occupancy(device, "decode_step", "vmmt_step_cell_occupancy",
+                                     kernels.DTYPE_CODE[dt])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"decode_step kernel: plan of {plan['smem']} bytes of shared "
+                           f"memory, the kernel takes {smem}")
+    if per_sm < 1:
+        raise NotImplementedError(f"decode_step kernel: a CTA with {smem} bytes of shared "
+                                  "memory does not fit an SM")
+    return dict(plan, ctas_per_sm=per_sm,
+                one_wave=per_sm * kernels.sm_count(device) >= plan["ctas"])
+
+
+_CHAIN_NAMES = ("emb_proj", "h0", "h1", "feed", "Wfeed", "Wh0", "bh0", "Wmid", "bmid", "Wh1",
+                "bh1")
+
+
+def _chain_args(what, *chain):
+    """Validate the chain inputs (emb_proj, h0, h1, feed, Wfeed, Wh0, bh0,
+    Wmid, bmid, Wh1, bh1) for the kernel; returns them contiguous and
+    16-byte aligned, biases as f32, with N, H and the compute dtype."""
+    emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1 = chain
     N, H3 = emb_proj.shape
     H = H3 // 3
     dt = Wfeed.dtype
     if dt not in kernels.DTYPE_CODE:
         raise TypeError(f"{what} kernel: weights must be float32 or bfloat16, got {dt}")
-    same = dict(emb_proj=emb_proj, h0=h0, h1=h1, feed=feed, Wfeed=Wfeed, Wh0=Wh0,
-                Wmid=Wmid, Wh1=Wh1)
-    for name, t in same.items():
-        if t.dtype != dt:
-            raise TypeError(f"{what} kernel: {name} is {t.dtype}; every tensor but "
-                            f"the biases must be {dt}")
-    for name, t in dict(h0=h0, h1=h1, feed=feed).items():
-        if tuple(t.shape) != (N, H):
-            raise ValueError(f"{what} kernel: {name} {tuple(t.shape)} != {(N, H)}")
-    for name, t in dict(Wfeed=Wfeed, Wh0=Wh0, Wmid=Wmid, Wh1=Wh1).items():
-        if tuple(t.shape) != (H, H3):
-            raise ValueError(f"{what} kernel: {name} {tuple(t.shape)} != {(H, H3)}")
-    for name, t in dict(bh0=bh0, bmid=bmid, bh1=bh1).items():
-        if tuple(t.shape) != (H3,):
-            raise ValueError(f"{what} kernel: {name} {tuple(t.shape)} != {(H3,)}")
-    args = [t.contiguous() for t in (emb_proj, h0, h1, feed, Wfeed, Wh0)]
-    args += [bh0.to(f32).contiguous(), Wmid.contiguous(), bmid.to(f32).contiguous(),
-             Wh1.contiguous(), bh1.to(f32).contiguous()]
-    names = ("emb_proj", "h0", "h1", "feed", "Wfeed", "Wh0", "bh0", "Wmid", "bmid",
-             "Wh1", "bh1")
-    kernels.require_cuda(what, emb_proj.device, **dict(zip(names, args)))
+    for i in (0, 1, 2, 3, 5, 7, 9):
+        if chain[i].dtype != dt:
+            raise TypeError(f"{what} kernel: {_CHAIN_NAMES[i]} is {chain[i].dtype}; every "
+                            f"tensor but the biases must be {dt}")
+    w, b = (H, H3), (H3,)
+    for name, t, want in zip(_CHAIN_NAMES, chain,
+                             ((N, H3), (N, H), (N, H), (N, H), w, w, b, w, b, w, b)):
+        if t.shape != want:
+            raise ValueError(f"{what} kernel: {name} {tuple(t.shape)} != {want}")
+    step_cell_plan(N, H, dt)  # refuses a shape before anything is touched
+    dev = emb_proj.device
+    for name, t in zip(_CHAIN_NAMES[1:], chain[1:]):
+        if t.device != dev:
+            raise ValueError(f"{what}: {name} is on {t.device}, expected {dev}")
+    args = [_aligned(t) if i not in (6, 8, 10) else t.to(f32).contiguous()
+            for i, t in enumerate(chain)]
     return args, N, H, dt
 
 
@@ -108,14 +171,16 @@ def gru_chain(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused 2-layer input-feed GRU chain for one decode step (attention
     outside). Returns (h0n, h1n). CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel (the cells' plan of the last launch is kept in
+    ``gru_chain.plan``)."""
     if emb_proj.device.type == "cpu":
         return gru_chain_ref(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1)
     args, N, H, dt = _chain_args("gru_chain", emb_proj, h0, h1, feed, Wfeed, Wh0, bh0,
                                  Wmid, bmid, Wh1, bh1)
+    lib = kernels.library("decode_step")
+    gru_chain.plan = _checked_plan(N, H, dt, emb_proj.device.index)
     h0n = torch.empty_like(args[1])
     h1n = torch.empty_like(args[2])
-    lib = kernels.library("decode_step")
     err = lib.vmmt_gru_chain(kernels.DTYPE_CODE[dt], *(a.data_ptr() for a in args),
                              h0n.data_ptr(), h1n.data_ptr(), N, H,
                              kernels.stream_of(h0n))
@@ -129,7 +194,8 @@ def decode_step(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     """One fused decode step over N rows: emb_proj (N,3H); h0, h1, feed
     (N,H); four (H,3H) weights; keys, mem_v (N,S,H); Wc_q (H,H); mask_bias
     (N,S) (0 real, -1e9 pad). Returns (h0n, h1n, attn, probs). CPU tensors
-    take the plain version; CUDA tensors launch the kernels."""
+    take the plain version; CUDA tensors launch the kernels (the cells' plan
+    of the last launch is kept in ``decode_step.plan``)."""
     if emb_proj.device.type == "cpu":
         return decode_step_ref(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1,
                                bh1, keys, mem_v, Wc_q, mask_bias)
@@ -143,16 +209,16 @@ def decode_step(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
             or tuple(Wc_q.shape) != (H, H) or tuple(mask_bias.shape) != (N, S):
         raise ValueError("decode_step kernel: keys/mem_v (N,S,H), Wc_q (H,H) and "
                          "mask_bias (N,S) do not match")
-    extra = [keys.contiguous(), mem_v.contiguous(), Wc_q.contiguous(),
-             mask_bias.to(f32).contiguous()]
-    kernels.require_cuda("decode_step", emb_proj.device, keys=extra[0], mem_v=extra[1],
-                         Wc_q=extra[2], mask_bias=extra[3])
+    kernels.require_cuda("decode_step", emb_proj.device, keys=keys, mem_v=mem_v, Wc_q=Wc_q,
+                         mask_bias=mask_bias)
+    lib = kernels.library("decode_step")
+    decode_step.plan = _checked_plan(N, H, dt, emb_proj.device.index)
+    extra = [_aligned(keys), _aligned(mem_v), _aligned(Wc_q), mask_bias.to(f32).contiguous()]
     h0n = torch.empty_like(args[1])
     h1n = torch.empty_like(args[2])
     attn = torch.empty_like(args[3])
     probs = torch.empty((N, S), dtype=dt, device=h0n.device)
     qw = torch.empty((N, H), dtype=f32, device=h0n.device)
-    lib = kernels.library("decode_step")
     err = lib.vmmt_decode_step(kernels.DTYPE_CODE[dt], *(a.data_ptr() for a in args + extra),
                                h0n.data_ptr(), h1n.data_ptr(), attn.data_ptr(),
                                probs.data_ptr(), qw.data_ptr(), N, S, H,
@@ -164,3 +230,5 @@ def decode_step(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
 
 gru_chain.launches = 0
 decode_step.launches = 0
+gru_chain.plan = None
+decode_step.plan = None

@@ -5,15 +5,24 @@ Mirrors ``variational_mmt_tpu/ops/pallas/gru.py`` (``gru_layer_scan``,
 ``_gru_scan_bwd_impl`` and the custom VJP ``gru_layer_scan_ad``).
 
 Source note, forward. Replaces the Pallas kernel ``_gru_fwd_kernel``
-(ops/pallas/gru.py:54, ``pallas_call`` at :165) with
-``csrc/gru_scan.cu``. On the H100 the scan is bound by the latency of T
-dependent steps: its bytes (about 15 MB at B=256, T=24, H=250 in bf16) and
-FLOPs (2.3 GFLOP) bound it at a few microseconds, while each step must
-wait for the whole previous state. The simple design keeps each block's
-rows of the state in shared memory for the whole sequence and loops over
-time inside the block; Wh (375 KB in bf16) does not fit one SM's shared
-memory, so every step streams it from L2. The TPU's row chunking
-(``_max_rows``, a VMEM budget) is not carried over: the grid covers B.
+(ops/pallas/gru.py:54, ``pallas_call`` at :165) with ``vmmt_gru_scan`` in
+``csrc/gru_scan.cu``. Its bytes (about 15 MB at B=256, T=24, H=250 in bf16)
+and FLOPs (2.3 GFLOP) bound it at a few microseconds; what bounds it on the
+H100 is the latency of T dependent steps, each waiting for the whole
+previous state, and its product cannot be hoisted (h_prev is its own
+output). The design runs the scan on thread-block clusters: C CTAs per
+``rows`` batch rows (C = 8 at H=250), each holding its 32 units' columns
+of Wh for the three gates in shared memory for the whole sequence (48 KB
+in bf16), forming its share of ``round(h) @ Wh`` from shared memory (bf16
+on the tensor cores, f32 by FMAs), applying the gates from inputs
+prefetched a step ahead, and pushing its rounded slice of h' into every
+peer's double-buffered copy of the state through distributed shared
+memory, with one cluster barrier a step. :func:`scan_fwd_plan` sizes the
+clusters (4 rows while the grid stays within one CTA an SM, else 8, the
+mma's columns) and shared memory and refuses what a cluster cannot hold;
+the wrapper checks with the card that a cluster fits. The TPU's row
+chunking (``_max_rows``, a VMEM budget) is not carried over: the grid
+covers B.
 
 Source note, backward. Replaces ``_gru_bwd_kernel`` (ops/pallas/gru.py:186,
 ``pallas_call`` at :297) with ``vmmt_gru_scan_bwd`` in the same
@@ -76,7 +85,9 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     one dtype (float32 or bfloat16); mask (B,T), h0 (B,H) and bh (3H,) are
     taken as f32. Returns (outs (B,T,H) f32, final (B,H) f32).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel (the
+    plan of the last launch, with the card's count of co-resident clusters,
+    is kept in ``gru_layer_scan.plan``)."""
     if reset is not None:
         raise NotImplementedError(
             "gru_layer_scan: reset (sequence packing) is not ported yet")
@@ -91,8 +102,7 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     if tuple(Wh.shape) != (H, H3) or tuple(mask.shape) != (B, T) or tuple(h0.shape) != (B, H) \
             or tuple(bh.shape) != (H3,):
         raise ValueError("gru_layer_scan kernel: shapes do not match x_proj (B,T,3H)")
-    if not 1 <= H <= 1024:
-        raise NotImplementedError(f"gru_layer_scan kernel: hidden {H} > 1024")
+    plan = scan_fwd_plan(B, T, H, dt)
     x = x_proj.contiguous()
     m = mask.to(torch.float32).contiguous()
     h = h0.to(torch.float32).contiguous()
@@ -102,12 +112,30 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     outs = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
     final = torch.empty((B, H), dtype=torch.float32, device=x.device)
     lib = kernels.library("gru_scan")
-    err = lib.vmmt_gru_scan(kernels.DTYPE_CODE[dt], x.data_ptr(), m.data_ptr(), h.data_ptr(),
-                            w.data_ptr(), b.data_ptr(), outs.data_ptr(), final.data_ptr(),
-                            B, T, H, int(reverse), kernels.stream_of(x))
+    code = kernels.DTYPE_CODE[dt]
+    co_resident, smem = kernels.occupancy(x.device.index, "gru_scan", "vmmt_gru_scan_occupancy",
+                                          code, H, plan["cluster"], plan["rows"])
+    _check_cluster("gru_layer_scan", plan, co_resident, smem)
+    gru_layer_scan.plan = dict(plan, max_active_clusters=co_resident,
+                               one_wave=co_resident >= plan["clusters"])
+    err = lib.vmmt_gru_scan(code, x.data_ptr(), m.data_ptr(), h.data_ptr(), w.data_ptr(),
+                            b.data_ptr(), outs.data_ptr(), final.data_ptr(), B, T, H,
+                            int(reverse), plan["cluster"], plan["units"], plan["rows"],
+                            kernels.stream_of(x))
     kernels.check(lib, err, "gru_layer_scan")
     gru_layer_scan.launches += 1
     return outs, final
+
+
+def _check_cluster(what: str, plan: dict, co_resident: int, smem: int) -> None:
+    """Raise unless the kernel's own shared-memory count is the plan's and
+    the card holds at least one of its clusters."""
+    if smem != plan["smem"]:
+        raise RuntimeError(f"{what} kernel: plan of {plan['smem']} bytes of shared memory, "
+                           f"the kernel takes {smem}")
+    if co_resident < 1:
+        raise NotImplementedError(f"{what} kernel: a cluster of {plan['cluster']} CTAs with "
+                                  f"{smem} bytes of shared memory each does not fit the card")
 
 
 def _prev_states(h0: torch.Tensor, outs: torch.Tensor, reverse: bool) -> torch.Tensor:
@@ -156,6 +184,10 @@ SCAN_BWD_ROWS = 4  # batch rows per cluster (kScanRows of csrc/gru_scan.cu)
 SCAN_BWD_UNITS = 32  # most hidden units one CTA owns (kScanUnits)
 SCAN_BWD_MAX_CLUSTER = 8  # the largest portable cluster
 SCAN_BWD_WARPS = 8  # warps of a CTA (kScanWarps)
+SCAN_FWD_SLOTS = 8  # batch-row slots of the forward's state buffers (kFwdSlots)
+SCAN_FWD_PARTS = 4  # K split of the forward's step product (kFwdParts)
+SCAN_FWD_SMALL_ROWS = 4  # rows per cluster while the grid stays within one CTA an SM
+H100_SMS = 132  # SMs of an H100 SXM
 
 
 def _mma_ld(k: int) -> int:
@@ -165,6 +197,46 @@ def _mma_ld(k: int) -> int:
     bank."""
     k = kernels.align16(k)
     return k + (72 - k % 64) % 64
+
+
+def _cluster_units(what: str, H: int) -> Tuple[int, int]:
+    """(CTAs of a cluster, hidden units of a CTA) for H units, or
+    NotImplementedError when one cluster cannot hold them."""
+    if not 1 <= H <= SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS:
+        raise NotImplementedError(
+            f"{what} kernel: hidden {H} needs more than {SCAN_BWD_MAX_CLUSTER} "
+            f"CTAs of {SCAN_BWD_UNITS} units in a cluster")
+    cluster = -(-H // SCAN_BWD_UNITS)
+    return cluster, -(-H // cluster)
+
+
+def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
+    """Launch plan of the forward for B rows, T steps and H units: clusters
+    of ``cluster`` CTAs, each owning ``units`` hidden units of ``rows``
+    batch rows, with ``smem`` bytes of dynamic shared memory per CTA
+    (mirrors ``FwdLayout`` of csrc/gru_scan.cu: the CTA's 96 gate-unit
+    columns of Wh and two state buffers of 8 row slots in the compute dtype,
+    bf16 rows at the mma stride; the K-split partial products in f32).
+    ``rows`` is 4 while the grid fits one CTA an SM of an H100, else 8 (the
+    mma's columns). Raises NotImplementedError for what the design cannot
+    hold."""
+    if dtype not in kernels.DTYPE_CODE:
+        raise TypeError(f"gru_layer_scan kernel: dtype {dtype}")
+    cluster, units = _cluster_units("gru_layer_scan", H)
+    rows = SCAN_FWD_SMALL_ROWS
+    if -(-B // rows) * cluster > H100_SMS:
+        rows = SCAN_FWD_SLOTS
+    tsize = torch.finfo(dtype).bits // 8
+    ld = _mma_ld(H) if dtype == torch.bfloat16 else H
+    cols = 3 * SCAN_BWD_UNITS
+    smem = (kernels.align16(cols * ld * tsize) + kernels.align16(2 * SCAN_FWD_SLOTS * ld * tsize)
+            + SCAN_FWD_PARTS * cols * SCAN_FWD_SLOTS * 4)
+    if smem > kernels.SMEM_PER_BLOCK:
+        raise NotImplementedError(f"gru_layer_scan kernel: {smem} bytes of shared memory "
+                                  f"per CTA exceed {kernels.SMEM_PER_BLOCK}")
+    clusters = -(-B // rows)
+    return dict(cluster=cluster, rows=rows, units=units, clusters=clusters,
+                ctas=clusters * cluster, threads=cols * SCAN_FWD_PARTS, smem=smem)
 
 
 def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
@@ -178,12 +250,7 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
     Raises NotImplementedError for what the design cannot hold."""
     if dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"gru_layer_scan_bwd kernel: dtype {dtype}")
-    if not 1 <= H <= SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS:
-        raise NotImplementedError(
-            f"gru_layer_scan_bwd kernel: hidden {H} needs more than {SCAN_BWD_MAX_CLUSTER} "
-            f"CTAs of {SCAN_BWD_UNITS} units in a cluster")
-    cluster = -(-H // SCAN_BWD_UNITS)
-    units = -(-H // cluster)
+    cluster, units = _cluster_units("gru_layer_scan_bwd", H)
     bf16 = dtype == torch.bfloat16
     tsize = torch.finfo(dtype).bits // 8
     wrows, ld = (SCAN_BWD_UNITS, _mma_ld(3 * H)) if bf16 else (units, 3 * H)
@@ -242,13 +309,7 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
                                           "vmmt_gru_scan_bwd_occupancy", code, H,
                                           plan["cluster"], plan["units"])
-    if smem != plan["smem"]:
-        raise RuntimeError(f"gru_layer_scan_bwd kernel: plan of {plan['smem']} bytes of shared "
-                           f"memory, the kernel takes {smem}")
-    if co_resident < 1:
-        raise NotImplementedError(f"gru_layer_scan_bwd kernel: a cluster of {plan['cluster']} "
-                                  f"CTAs with {smem} bytes of shared memory each does not fit "
-                                  "the card")
+    _check_cluster("gru_layer_scan_bwd", plan, co_resident, smem)
     gru_layer_scan_bwd.plan = dict(plan, max_active_clusters=co_resident,
                                    one_wave=co_resident >= plan["clusters"])
     err = lib.vmmt_gru_scan_bwd(code, *(a.data_ptr() for a in args), dx.data_ptr(),
@@ -262,6 +323,7 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
 
 
 gru_layer_scan.launches = 0
+gru_layer_scan.plan = None
 gru_layer_scan_bwd.launches = 0
 gru_layer_scan_bwd.plan = None
 

@@ -32,8 +32,8 @@ from variational_mmt_torch.train.trainer import Trainer
 
 OWN = "(anonymous namespace)::"  # the port's kernels live in anonymous namespaces
 LAYERS = (  # (layer, names of the port's kernels or substrings of library ones)
-    ("GRU-scan kernels (rows 1, 2)", ("gru_scan_kernel", "gru_scan_bwd_kernel", "ScanHoist",
-                                      "ScanDWh")),
+    ("GRU-scan kernels (rows 1, 2)", ("gru_scan_fwd_kernel", "gru_scan_bwd_kernel",
+                                      "ScanHoist", "ScanDWh")),
     ("decoder sequence kernels (rows 5, 6)", ("cell_fwd_kernel", "attn_fwd_kernel",
                                               "gemm_kernel", "DecHoist",
                                               "decoder_bwd_kernel")),

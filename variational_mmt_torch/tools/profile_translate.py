@@ -31,8 +31,8 @@ from variational_mmt_torch.models.model import build_model
 from variational_mmt_torch.tools import flagship
 
 LAYERS = (  # (layer, substrings of kernel names), first match wins
-    ("encoder GRU scan kernel", ("gru_scan_kernel",)),
-    ("decode step kernels", ("cell_fwd_kernel", "gemm_kernel", "attn_fwd_kernel")),
+    ("encoder GRU scan kernel", ("gru_scan_fwd_kernel",)),
+    ("decode step kernels", ("cell_mma_kernel", "stepqw", "step_attn_kernel")),
     ("top-k / sort", ("topk", "radix", "sort", "select")),
     ("softmax", ("softmax",)),
     ("cuBLAS GEMM", ("gemm", "sm90", "cutlass", "xmma", "gemv")),
