@@ -35,13 +35,14 @@ in PERF.md).
    and over the whole sequence requires the kernel's distance from the f32
    math of the same inputs to be at most 1.5 times the plain version's
    (readings of 1.0 and 1.3 times, forward and backward, set that limit).
-   Both backward kernels are also held at the same tolerances on a ragged
-   batch (B=61, which fills no row group or tile; for the scan with one row
-   all padding) and on T=1, in both directions for the scan, and must give
-   bit-identical outputs in two launches on the same inputs (a missing
-   cluster or grid barrier can hide inside a tolerance); each prints the
-   launch plan it chose (cluster size, rows per cluster or CTA, CTAs,
-   shared memory per CTA, co-resident clusters or CTAs). Times at bf16:
+   Both backward kernels and the decoder forward are also held at the same
+   tolerances on a ragged batch (B=61, which fills no row group or tile; for
+   the scan with one row all padding, for the decoder forward with one
+   source of a single real position) and on T=1, in both directions for the
+   scan, and must give bit-identical outputs in two launches on the same
+   inputs (a missing cluster or grid barrier can hide inside a tolerance);
+   each prints the launch plan it chose (cluster size, rows per cluster or
+   CTA, CTAs, shared memory per CTA, co-resident clusters or CTAs). Times at bf16:
    kernel, plain version and, for the scan backward, cuDNN's nn.GRU
    backward (which also computes the input-projection gradients that the
    port leaves to cuBLAS).
@@ -252,7 +253,8 @@ def decoder_inputs(g, dt, B, T, S, H, mem_std):
 
 def decoder_phase(dec):
     """Decoder sequence forward and backward at B=64, T=25, S=24, H=500;
-    then the backward at B=61 and at T=1, and its determinism."""
+    then both at B=61 and at T=1 (the forward with a source of one real
+    position), and their determinism."""
     B, T, S, H = (DEC_SHAPE[k] for k in ("B", "T", "S", "H"))
     g = torch.Generator(device="cuda").manual_seed(4)
     kernel = (dec.decoder_fwd, dec.decoder_bwd)
@@ -279,16 +281,24 @@ def decoder_phase(dec):
             rec[f"abs_err_{dt_name}"] = max_err(*gw)
         check_close("decoder_fwd", dt_name, fwd[f"err_{dt_name}"], "max_rel_err")
         check_close("decoder_bwd", dt_name, bwd[f"err_{dt_name}"], "max_rel_err")
-        edge = []
+        edge, edge_f = [], []
         for b, t in ((61, T), (B, 1)):
             a, st, dd = draw(getattr(torch, dt_name), DEC_MEM_STD, b, t)
             edge.append(rel_err(dec.decoder_bwd(*a[:14], *st, *dd),
                                 dec.decoder_bwd_ref(*a[:14], *st, *dd)))
+            mask_bias = a[14].clone()
+            mask_bias[2, 1:] = -1e9  # a source of one real position
+            edge_f.append(rel_err(dec.decoder_fwd(*a[:14], mask_bias),
+                                  dec.decoder_fwd_ref(*a[:14], mask_bias)))
+        check_close("decoder_fwd B=61 and T=1, a source of one position", dt_name, max(edge_f),
+                    "max_rel_err")
         check_close("decoder_bwd B=61 and T=1", dt_name, max(edge), "max_rel_err")
-        bwd[f"edge_err_{dt_name}"] = max(edge)
+        fwd[f"edge_err_{dt_name}"], bwd[f"edge_err_{dt_name}"] = max(edge_f), max(edge)
     bargs = (*args[:14], *streams, *d)  # bf16, for the times below
+    deterministic("decoder_fwd", lambda: dec.decoder_fwd(*args))
     deterministic("decoder_bwd", lambda: dec.decoder_bwd(*bargs))
-    bwd["plan"] = dec.decoder_bwd.plan
+    fwd["plan"], bwd["plan"] = dec.decoder_fwd.plan, dec.decoder_bwd.plan
+    print_plan("decoder_fwd", fwd["plan"])
     print_plan("decoder_bwd", bwd["plan"])
 
     # peaked attention: kernel against plain over the first steps each pass

@@ -129,6 +129,68 @@ def test_decoder_fwd_kernel(cuda, dt):
     close(decoder.decoder_fwd(*args), decoder.decoder_fwd_ref(*args), dt)
 
 
+# B=61 fills no row tile of 16; S=13 is not a multiple of 8 (nor of the
+# 4 values a lane loads); T=1 is a single step; B=140 gives some CTAs two
+# attention rows; row 2's source has one real position
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B,T,S", [(61, 6, 13), (9, 1, 40), (140, 3, 40)],
+                         ids=["ragged", "T1", "B140"])
+def test_decoder_fwd_kernel_shapes(cuda, dt, B, T, S):
+    args = decoder_args(cuda, dt, B=B, T=T, S=S)
+    args[14][2, 1:] = -1e9
+    close(decoder.decoder_fwd(*args), decoder.decoder_fwd_ref(*args), dt)
+    plan = decoder.decoder_fwd.plan
+    assert plan["grid"] == max(plan["unit_tiles"] * plan["row_tiles"], min(B, plan["sms"]))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_decoder_fwd_kernel_is_deterministic(cuda, dt):
+    args = decoder_args(cuda, dt, B=61, T=6)
+    first, second = decoder.decoder_fwd(*args), decoder.decoder_fwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_decoder_fwd_takes_unaligned_views(cuda):
+    """Keys and mem_v that start off a 16-byte boundary (views one element
+    into their storage) give the same result as aligned copies."""
+    args = list(decoder_args(cuda, torch.bfloat16, B=9, T=4))
+
+    def shifted(t):
+        flat = t.flatten()
+        v = torch.cat([flat[:1], flat])[1:].view(t.shape)
+        assert v.data_ptr() % 16 != 0 and torch.equal(v, t)
+        return v
+
+    want = decoder.decoder_fwd(*args)
+    args[11], args[12] = shifted(args[11]), shifted(args[12])
+    got = decoder.decoder_fwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_decoder_probes_stamp_every_phase(cuda):
+    """Both persistent kernels fill their probe with non-decreasing
+    %globaltimer stamps, and a probed launch computes what an unprobed one
+    does."""
+    T = 4
+    args = decoder_args(cuda, torch.bfloat16, B=9, T=T)
+    streams = decoder.decoder_fwd(*args)
+    d = (torch.randn(streams[0].shape, generator=cuda, device="cuda"),
+         torch.randn(streams[3].shape, generator=cuda, device="cuda"))
+    grads = decoder.decoder_bwd(*args[:14], *streams, *d)
+    probes = [torch.zeros(decoder.probe_len(T), dtype=torch.int64, device="cuda")
+              for _ in range(2)]
+    assert all(torch.equal(a, b)
+               for a, b in zip(decoder.decoder_fwd(*args, probe=probes[0]), streams))
+    assert all(torch.equal(a, b)
+               for a, b in zip(decoder.decoder_bwd(*args[:14], *streams, *d, probe=probes[1]),
+                               grads))
+    for probe in probes:
+        stamps = probe.tolist()
+        assert stamps[0] > 0 and all(b >= a for a, b in zip(stamps, stamps[1:]))
+
+
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 def test_decoder_bwd_kernel(cuda, dt):
     args = decoder_args(cuda, dt)

@@ -1,6 +1,6 @@
 """PyTorch port: the launch plans of the cluster and persistent kernels
-(``scan_fwd_plan``, ``scan_bwd_plan``, ``step_cell_plan`` and
-``decoder_bwd_plan``), pure Python, on the CPU. The widths the repo's
+(``scan_fwd_plan``, ``scan_bwd_plan``, ``step_cell_plan``,
+``decoder_fwd_plan`` and ``decoder_bwd_plan``), pure Python, on the CPU. The widths the repo's
 configs use (H=250 a direction for the scan, H=500 for the decoder and the
 decode step) are accepted in both dtypes; shapes the designs cannot hold
 raise NotImplementedError, and so do the wrappers on a non-CPU tensor
@@ -131,7 +131,7 @@ def test_scan_plan_refuses_what_a_cluster_cannot_hold(dt, H):
 def test_decoder_plan_accepts_the_decoder_width(dt, B, S, sms):
     H = 500
     plan = decoder.decoder_bwd_plan(B, S, H, dt, sms)
-    assert plan["units"] == decoder.DEC_BWD_UNITS[dt]
+    assert plan["units"] == decoder.DEC_UNITS[dt]
     assert plan["unit_tiles"] * plan["units"] >= H
     assert plan["rows"] % 16 == 0 and plan["row_tiles"] * plan["rows"] >= B
     assert plan["grid"] >= plan["unit_tiles"] * plan["row_tiles"]
@@ -156,6 +156,60 @@ def test_decoder_plan_at_the_training_shape():
 def test_decoder_plan_refuses_what_shared_memory_cannot_hold(dt, B, S, H):
     with pytest.raises(NotImplementedError):
         decoder.decoder_bwd_plan(B, S, H, dt, H100_SMS)
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("S", [24, 40])
+@pytest.mark.parametrize("B", [1, 61, 64, 256])
+def test_decoder_fwd_plan_accepts_the_decoder_width(dt, B, S, sms):
+    H = 500
+    plan = decoder.decoder_fwd_plan(B, S, H, dt, sms)
+    assert plan["units"] == decoder.DEC_UNITS[dt]
+    assert (plan["unit_tiles"] - 1) * plan["units"] < H <= plan["unit_tiles"] * plan["units"]
+    assert plan["rows"] % 16 == 0
+    assert (plan["row_tiles"] - 1) * plan["rows"] < B <= plan["row_tiles"] * plan["rows"]
+    assert plan["grid"] == max(plan["unit_tiles"] * plan["row_tiles"], min(B, sms))
+    assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
+
+
+def test_decoder_fwd_plan_at_the_training_shape():
+    """B=64, S=24 on an H100 SXM: bf16 CTAs of 8 units and 32 rows (126
+    CTAs), f32 CTAs of 4 units and 64 rows (125). A CTA takes more than half
+    an SM's shared memory, so the grid runs one CTA an SM: co-resident on
+    any card of 126 SMs or more (an H100 PCIe's 114 SMs take bf16 CTAs of 64
+    rows, 64 of them)."""
+    bf16 = decoder.decoder_fwd_plan(64, 24, 500, torch.bfloat16, H100_SMS)
+    f32 = decoder.decoder_fwd_plan(64, 24, 500, torch.float32, H100_SMS)
+    assert (bf16["units"], bf16["rows"], bf16["grid"]) == (8, 32, 126)
+    assert (f32["units"], f32["rows"], f32["grid"]) == (4, 64, 125)
+    for plan in (bf16, f32):
+        assert SMEM_PER_SM < 2 * (plan["smem"] + 1024) and plan["smem"] + 1024 <= SMEM_PER_SM
+    pcie = decoder.decoder_fwd_plan(64, 24, 500, torch.bfloat16, 114)
+    assert (pcie["rows"], pcie["grid"]) == (64, 64)
+
+
+def test_decoder_fwd_plan_mirrors_the_kernels_layout():
+    """bf16 at B=64: four (24, 544) weight slices and one (8, 544) (K=500
+    padded to 544), the product buffer of 128 rows x 4 n-tiles of 8 floats,
+    three (32, 8) f32 carries, two (32, 8, 3) hidden products, the attention
+    row of 3H + S floats; f32 at B=64: (12, 512) and (4, 512) slices, 64
+    product rows, (64, 4) carries."""
+    assert decoder.decoder_fwd_plan(64, 24, 500, torch.bfloat16, H100_SMS)["smem"] == \
+        4 * 24 * 544 * 2 + 8 * 544 * 2 + 128 * 32 * 4 + 3 * 32 * 8 * 4 + 2 * 32 * 8 * 12 \
+        + (1500 + 24) * 4
+    assert decoder.decoder_fwd_plan(64, 24, 500, torch.float32, H100_SMS)["smem"] == \
+        4 * 12 * 512 * 4 + 4 * 512 * 4 + 64 * 32 * 4 + 3 * 64 * 4 * 4 + 2 * 64 * 4 * 12 \
+        + (1500 + 24) * 4
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B,S,H", [(64, 24, 2000), (4096, 24, 500), (0, 24, 500),
+                                   (64, 24, 502)])
+def test_decoder_fwd_plan_refuses_what_shared_memory_cannot_hold(dt, B, S, H):
+    """Also H=502: the attention reads keys and mem_v in quads."""
+    with pytest.raises(NotImplementedError):
+        decoder.decoder_fwd_plan(B, S, H, dt, H100_SMS)
 
 
 def meta(*shape, dtype=torch.float32):
@@ -300,3 +354,69 @@ def test_scan_wrapper_launches_with_the_plan(monkeypatch, B, rows):
     assert calls == [(8, 32, rows)]
     plan = gru_scan.gru_layer_scan.plan
     assert plan["rows"] == rows and plan["one_wave"] == (40 >= plan["clusters"])
+
+
+def fwd_args(B, T, S, H, dt=torch.float32):
+    return decoder_args(B, T, S, H, dt)[:14] + (meta(B, S),)
+
+
+def test_decoder_fwd_refuses_a_shape_before_launching(no_launch):
+    for dt in DTYPES:
+        with pytest.raises(NotImplementedError):
+            decoder.decoder_fwd(*fwd_args(4, 5, 3, 2000, dt))
+
+
+def test_decoder_fwd_refuses_what_the_card_cannot_hold_at_once(no_launch):
+    """The forward's cooperative grid is not co-resident: the wrapper raises
+    before launching; it never runs anything else in the kernel's place."""
+    plan = decoder.decoder_fwd_plan(4, 3, 8, torch.float32, H100_SMS)
+    no_launch.setattr(kernels, "occupancy", lambda *a: (plan["grid"] - 1, plan["smem"]))
+    with pytest.raises(NotImplementedError, match="at once"):
+        decoder.decoder_fwd(*fwd_args(4, 5, 3, 8))
+    no_launch.setattr(kernels, "sm_count", lambda device: 114)
+    smem = decoder.decoder_fwd_plan(64, 24, 500, torch.float32, 114)["smem"]
+    no_launch.setattr(kernels, "occupancy", lambda *a: (114, smem))
+    with pytest.raises(NotImplementedError, match="at once"):
+        decoder.decoder_fwd(*fwd_args(64, 25, 24, 500))
+
+
+def test_decoder_fwd_checks_the_plan_against_the_kernels_count(no_launch):
+    no_launch.setattr(kernels, "occupancy", lambda *a: (1000, 1))
+    with pytest.raises(RuntimeError, match="shared"):
+        decoder.decoder_fwd(*fwd_args(4, 5, 3, 8))
+
+
+@pytest.mark.parametrize("dt,sms,grid", [(torch.bfloat16, H100_SMS, 126),
+                                         (torch.bfloat16, 114, 64),
+                                         (torch.float32, H100_SMS, 125)], ids=str)
+def test_decoder_fwd_launches_once_with_the_plan(monkeypatch, dt, sms, grid):
+    """One launch a call, with the plan's units, rows and grid (the card's
+    SM count decides the rows), and the plan kept in decoder_fwd.plan."""
+    calls = []
+
+    class Lib:
+        def vmmt_decoder_fwd(self, *args):
+            calls.append(args[-4:-1])  # ..., units, rows, grid, stream
+            return 0
+
+    monkeypatch.setattr(kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(kernels, "sm_count", lambda device: sms)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    plan = decoder.decoder_fwd_plan(64, 24, 500, dt, sms)
+    monkeypatch.setattr(kernels, "occupancy", lambda *a: (sms, plan["smem"]))
+    before = decoder.decoder_fwd.launches
+    decoder.decoder_fwd(*fwd_args(64, 25, 24, 500, dt))
+    assert calls == [(plan["units"], plan["rows"], grid)]
+    assert decoder.decoder_fwd.launches == before + 1
+    assert decoder.decoder_fwd.plan == dict(plan, sms=sms, max_co_resident=sms)
+
+
+def test_decoder_probe_must_hold_every_stamp(no_launch):
+    plan = decoder.decoder_fwd_plan(4, 3, 8, torch.float32, H100_SMS)
+    no_launch.setattr(kernels, "occupancy", lambda *a: (1000, plan["smem"]))
+    assert decoder.probe_len(5) == 2 + 2 * decoder.DEC_PHASES * 5
+    for bad in (meta(decoder.probe_len(5) - 1, dtype=torch.int64), meta(decoder.probe_len(5))):
+        with pytest.raises(ValueError, match="probe"):
+            decoder.decoder_fwd(*fwd_args(4, 5, 3, 8), probe=bad)
+        with pytest.raises(ValueError, match="probe"):
+            decoder.decoder_bwd(*decoder_args(4, 5, 3, 8), probe=bad)

@@ -65,7 +65,18 @@ def perturbed_jax_params(cfg, seed=0):
 
 @pytest.mark.parametrize("route", ["kernels", "plain"])
 def test_training_loss_and_every_gradient_match_jax(route):
-    over = KERNEL_ROUTE if route == "kernels" else {}
+    check_loss_and_every_gradient(KERNEL_ROUTE if route == "kernels" else {})
+
+
+@pytest.mark.parametrize("dec_layers", [1, 3])
+def test_kernel_route_takes_the_plain_loop_for_other_decoder_depths(dec_layers):
+    """The decoder sequence kernels compute a 2-layer decoder only: at any
+    other depth the kernel route runs the plain loop, as JAX's ``eligible``
+    test sends it to its plain scan, and loss and gradients still match."""
+    check_loss_and_every_gradient(dict(KERNEL_ROUTE, dec_layers=dec_layers))
+
+
+def check_loss_and_every_gradient(over):
     jcfg = JaxModelConfig(**TINY, **over)
     tree = perturbed_jax_params(jcfg)
     src, tgt, img = corpus()

@@ -24,38 +24,63 @@
 //
 // On the TPU one grid step held the whole step with the weights resident in
 // VMEM. On the H100 the step has grid-wide dependencies (GRU1 needs every
-// column of h0', attention all of h1', the next step all of feed).
+// column of h0', attention all of h1', the next step all of feed). So each
+// pass walks time inside one persistent cooperative kernel, four phases a
+// step separated by grid barriers. Each CTA owns a few hidden units (8 in
+// bf16: one mma.sync n-tile; 4 in f32, FMAs on the CUDA cores, never TF32)
+// of a tile of batch rows, so a GRU cell needs only its own CTA's products,
+// and keeps its units' slices of the five weights in shared memory for the
+// whole call: no weight is re-read from memory after the prologue. The
+// products take the other CTAs' results as T-rounded copies with rows
+// padded to 32 (zero past H) from L2, read with ld.global.cg past the L1,
+// which is not coherent across SMs. In the attention phases a CTA takes a
+// batch row (rows b, b + gridDim.x, ...), keys and mem_v from L2.
 //
-// Forward: one entry point queues T steps of small kernels on the stream
-// with no host synchronisation, 4 kernels a step (GRU0 cell, GRU1 cell,
-// h1' @ Wc_q, attention): the decode step's (common.cuh), with the dropout
-// mask on GRU1's input and an f32 state. At B=64, T=25, H=500 each kernel
-// does tens of MFLOP, so the chain of 100 dependent launches bounds it.
+// What bounds both passes on this card is that serial chain. At B=64, T=25,
+// S=24, H=500 a call's bytes and FLOPs bound it at 10-20 us; the chain of
+// 4 T grid barriers, each after a product whose operand comes from L2 or
+// after the attention, takes the time. The designs put on the chain only
+// what depends on the step's own results and run the rest beside it.
 //
-// Backward: two launches. What bounds it on this card is the serial chain
-// of T steps, each a few (64, 1500) x (1500, 500) products and the
-// attention backward; its bytes and FLOPs bound it at about 20 us.
+// Forward, phases of step t (the products of phase 1 of step 0 that need
+// only the initial state run after the prologue's barrier):
+//   1. x0 = emb_proj[t] + round(feed) @ Wfeed (no product at t = 0: feed
+//      starts at zero) and GRU0 with the hp0 of phase 4: h0' stays f32 in
+//      the owner's shared memory and goes to h0s[t] and the exchange copy
+//      rounded; the Wmid operand round(dmid[t] * h0'), rounded from the f32
+//      h0' (not from h0s), goes to an exchange copy of its own;
+//   2. x1 = round(dmid * h0') @ Wmid + bmid and GRU1 with the hp1 of phase 3;
+//   3. the attention of the CTA's rows: scores, masked softmax (mask_bias
+//      -1e9), probs[t] and the context into an f32 exchange;
+//   4. attn = tanh(ctx + qw) for the owned cells, to attn_hs[t] and to the
+//      exchange copy that is step t + 1's feed operand.
+// Only the context leaves phase 3 and only attn phase 4, so their barriers
+// are split: a CTA arrives as soon as those are written and, while the
+// barrier completes, runs the products that only it reads: in phase 3 one
+// pass over round(h1') with the slices [Wh1 | Wc_q] (hp1 of step t + 1
+// and qw), in phase 4 hp0 of step t + 1 = round(h0') @ Wh0 + bh0 (h0'
+// alternates between two exchange buffers, so step t + 1 does not
+// overwrite it). The split barrier is a counter in global memory (atomic
+// arrival after a fence, acquire loads while waiting); the prologue's is
+// the cooperative groups grid barrier.
+// Every sum runs in a fixed order (no atomics): repeats are bit-identical.
+//
+// Backward, two launches:
 //   (a) The four gate products of the cells (round(dmid*h0s) @ Wmid,
 //       round(h1_prev) @ Wh1, round(feed_prev) @ Wfeed, round(h0_prev) @
 //       Wh0) read only saved forward streams, so one launch of the tiled
 //       product (tile_gemm.cuh; tensor cores in bf16) computes them for
 //       every (row, t) before the loop, biases and emb_proj folded in.
-//   (b) One persistent cooperative kernel walks t = T-1 .. 0 in four
-//       phases separated by grid barriers: attention backward (a CTA per
-//       row, keys and mem_v read from L2); dh1' = dk + round(pre) @ Wc_q^T
-//       and GRU1's cell backward; dh1 = dh1'z1 + round(dhp1) @ Wh1^T, dh0'
-//       = dmid * (round(dx1) @ Wmid^T) + dh0 and GRU0's cell backward; dh0
-//       = dh0'z0 + round(dhp0) @ Wh0^T and dfeed = round(dx0) @ Wfeed^T.
-//       The grid spreads over the card's SMs; two CTAs fit an SM at H=500
-//       (113 KB of shared memory each in bf16). Each CTA owns 8 hidden
-//       units in bf16 (4 in f32) with their three gate columns, so a cell
-//       backward needs only the products of its own CTA, and keeps the rows
-//       of the five weights it reads (104 KB at H=500 in either dtype) in
-//       shared memory for the whole call: no weight is transposed or
-//       re-read from memory. The products take the other CTAs' results as
-//       T-rounded copies from L2 (mma.sync m16n8k16 in bf16, one n-tile of
-//       8 units; FMAs in f32). In-kernel exchanges are read with
-//       ld.global.cg, past the L1.
+//   (b) The persistent kernel walks t = T-1 .. 0: attention backward (a CTA
+//       per row); dh1' = dk + round(pre) @ Wc_q^T and GRU1's cell backward;
+//       dh1 = dh1'z1 + round(dhp1) @ Wh1^T, dh0' = dmid * (round(dx1) @
+//       Wmid^T) + dh0 and GRU0's cell backward; dh0 = dh0'z0 + round(dhp0)
+//       @ Wh0^T and dfeed = round(dx0) @ Wfeed^T. Two CTAs fit an SM at
+//       H=500 (113 KB of shared memory each in bf16).
+//
+// Both kernels take an optional probe buffer: thread 0 of CTA 0 writes
+// %globaltimer there at its start, after the prologue and as it arrives at
+// and leaves each grid barrier (tools/phase_times.py reads it).
 
 #include <cooperative_groups.h>
 
@@ -65,67 +90,65 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kRPT = 2;          // rows per thread
-constexpr int kTR = kTY * kRPT;  // rows per block
-
-// Launch shapes for N rows and H hidden units: the cells and the products
-// with M = H output columns share one (units x rows) tile grid.
-template <typename T>
-struct Launch {
-  int N, H;
-  cudaStream_t stream;
-  dim3 grid, block;
-  Launch(int N_, int H_, cudaStream_t s)
-      : N(N_), H(H_), stream(s), grid((H_ + kTU - 1) / kTU, (N_ + kTR - 1) / kTR),
-        block(kTU, kTY) {}
-  void gemm(const float* a, int lda, const T* w, const T* mul, int ldm, const float* add,
-            float* out, int K) const {
-    gemm_kernel<T, float, kRPT><<<grid, block, 0, stream>>>(a, lda, w, mul, ldm, add, out, N, K,
-                                                            H);
-  }
-};
-
-template <typename T>
-void decoder_fwd(const T* emb_proj, const T* dmid, const float* h00, const float* h01,
-                 const T* wfeed, const T* wh0, const float* bh0, const T* wmid,
-                 const float* bmid, const T* wh1, const float* bh1, const T* keys,
-                 const T* mem_v, const T* wcq, const float* mask_bias, T* attn_hs, T* h0s,
-                 T* h1s, T* probs, float* scratch, int B, int T_len, int S, int H,
-                 cudaStream_t stream) {
-  const Launch<T> L(B, H, stream);
-  const size_t BH = (size_t)B * H;
-  float* feed = scratch + 4 * BH;
-  float* qw = scratch + 5 * BH;
-  const int smem = (H + S) * (int)sizeof(float);
-  allow_smem(attn_fwd_kernel<T, float>, smem);
-  const float* h0c = h00;
-  const float* h1c = h01;
-  for (int t = 0; t < T_len; ++t) {
-    float* h0n = scratch + (t % 2) * BH;
-    float* h1n = scratch + (2 + t % 2) * BH;
-    cell_fwd_kernel<T, float, kRPT><<<L.grid, L.block, 0, stream>>>(
-        emb_proj + (size_t)t * 3 * H, T_len * 3 * H, nullptr, t == 0 ? nullptr : feed, nullptr,
-        0, wfeed, h0c, wh0, bh0, h0n, h0s + (size_t)t * H, T_len * H, B, H);
-    cell_fwd_kernel<T, float, kRPT><<<L.grid, L.block, 0, stream>>>(
-        nullptr, 0, bmid, h0n, dmid + (size_t)t * H, T_len * H, wmid, h1c, wh1, bh1, h1n,
-        h1s + (size_t)t * H, T_len * H, B, H);
-    L.gemm(h1n, H, wcq, nullptr, 0, nullptr, qw, H);
-    attn_fwd_kernel<T, float><<<B, kAttnThreads, smem, stream>>>(
-        h1n, keys, mem_v, qw, mask_bias, feed, attn_hs + (size_t)t * H, T_len * H,
-        probs + (size_t)t * S, T_len * S, S, H);
-    h0c = h0n;
-    h1c = h1n;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Backward: the hoisted gate products, then one persistent cooperative
-// kernel over time.
-
 constexpr int kDecThreads = 256;
 constexpr int kDecWarps = kDecThreads / 32;
 constexpr int kDecUnitsMma = 8;  // units of a CTA in bf16: one mma n-tile
 constexpr int kDecUnitsFma = 4;  // most units of a CTA in f32
+constexpr int kDecPhases = 4;    // grid-barrier phases of a step, both passes
+
+// %globaltimer (ns) into probe[slot] from thread 0 of CTA 0, when probing
+__device__ __forceinline__ void stamp(unsigned long long* probe, int slot) {
+  if (probe != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    probe[slot] = ns;
+  }
+}
+
+// End of phase `phase` of the `step`-th step processed: a grid barrier
+// unless it is the call's last. When probing, CTA 0 stamps as its threads
+// arrive (probe[2 + 2 * (step * kDecPhases + phase)]) and as it leaves (the
+// next slot); probe[0] is the kernel's start and probe[1] the end of its
+// prologue.
+__device__ __forceinline__ void phase_end(cg::grid_group& grid, unsigned long long* probe,
+                                          int step, int phase, bool barrier) {
+  const int slot = 2 + 2 * (step * kDecPhases + phase);
+  if (probe != nullptr) {
+    __syncthreads();
+    stamp(probe, slot);
+  }
+  if (barrier) grid.sync();
+  stamp(probe, slot + 1);
+}
+
+// A grid barrier split into arrive and wait, on a counter in global
+// memory that CTA 0 zeroes before a grid.sync: barrier i (counted from 0)
+// is passed when the counter reaches (i + 1) * gridDim.x. Between its
+// arrive and its wait a CTA may do work whose inputs no CTA overwrites
+// before the next barrier and whose results stay its own. When probing, CTA
+// 0 stamps as it arrives and as it leaves, in the slots of phase_end.
+__device__ __forceinline__ void grid_arrive(unsigned int* count, unsigned long long* probe,
+                                            int step, int phase) {
+  __syncthreads();
+  stamp(probe, 2 + 2 * (step * kDecPhases + phase));
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(count, 1u);
+  }
+}
+
+__device__ __forceinline__ void grid_wait(const unsigned int* count, unsigned long long* probe,
+                                          int step, int phase) {
+  if (threadIdx.x == 0) {
+    const unsigned int target = (step * kDecPhases + phase + 1) * gridDim.x;
+    unsigned int seen;
+    do {
+      asm volatile("ld.acquire.gpu.u32 %0, [%1];" : "=r"(seen) : "l"(count) : "memory");
+    } while (seen < target);
+  }
+  __syncthreads();
+  stamp(probe, 3 + 2 * (step * kDecPhases + phase));
+}
 
 // One of the four gate products of a step, for every (row, t) at once:
 // out (B*T, 3H) f32 = [add +] round(A) @ w [+ bias], A the previous state
@@ -179,7 +202,534 @@ __host__ __device__ int frag_ld(int K) {
   return is_bf16<T>() ? k + (96 - k % 64) % 64 : k;
 }
 
-// Shared-memory plan of the persistent kernel for CTAs of `units` hidden
+// Rows of one n-tile of a weight slice: the mma's 8 columns in bf16, the
+// FMA path's units in f32.
+template <typename T>
+__host__ __device__ constexpr int tile_rows() {
+  return is_bf16<T>() ? kDecUnitsMma : kDecUnitsFma;
+}
+
+// prod[m * 8 NT + n * 8 + u] = sum_k act[r0 + m, k] w_s[n * tile_rows + u,
+// k] for m < nr, u < nu and the NT n-tiles n of a weight slice: act in T
+// rows lda apart (columns K..lda zero, lda a multiple of 32), w_s in shared
+// memory, rows ldw apart. bf16: mma.sync over 16-row tiles, the K range
+// split across warps when there are fewer tiles than warps, partial sums
+// added in a fixed order; each operand fragment serves the NT n-tiles.
+// Each lane loads 16 bytes of a row per 32 columns, whole sectors: within a
+// 32-column block, lane tq's columns 8tq .. 8tq+7 serve as the mma
+// fragment's k = 2tq, 2tq+1, 2tq+8, 2tq+9 of two k-steps, in A and B alike,
+// which permutes the sum over k and changes nothing else. f32: FMAs, a warp
+// per row, lanes along K.
+constexpr int kDecBatch = 12;  // 32-column blocks whose fragments a warp loads at once
+
+template <typename T, int NT = 1>
+__device__ void block_product(const T* act, int lda, int K, const T* w_s, int ldw, int nu,
+                              int r0, int nr, float* prod) {
+  constexpr int PS = kDecUnitsMma * NT;  // row stride of prod
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __syncthreads();  // prod is free
+  if constexpr (is_bf16<T>()) {
+    const int gq = lane >> 2, tq = lane & 3;
+    const int mt = (nr + 15) / 16, kp = mt < kDecWarps ? kDecWarps / mt : 1;
+    const int blocks = lda / 32;
+    for (int task = warp; task < mt * kp; task += kDecWarps) {
+      const int tile = task % mt, part = task / mt;
+      const int m0 = tile * 16 + gq, m1 = m0 + 8;
+      const bool ok0 = m0 < nr, ok1 = m1 < nr;
+      const uint4* row0 = reinterpret_cast<const uint4*>(act + (size_t)(r0 + m0) * lda) + tq;
+      const uint4* row1 = reinterpret_cast<const uint4*>(act + (size_t)(r0 + m1) * lda) + tq;
+      const uint4* wb = reinterpret_cast<const uint4*>(w_s + (size_t)gq * ldw) + tq;
+      // uint4s from one n-tile's rows to the next's
+      const size_t wtile = (size_t)kDecUnitsMma * ldw * sizeof(T) / sizeof(uint4);
+      float c[NT][4] = {};
+      const int q1 = (part + 1) * blocks / kp;
+      for (int q = part * blocks / kp; q < q1; q += kDecBatch) {
+        uint4 x0[kDecBatch], x1[kDecBatch];
+#pragma unroll
+        for (int i = 0; i < kDecBatch; ++i) {
+          const bool in = q + i < q1;
+          x0[i] = in && ok0 ? __ldcg(row0 + (q + i) * 4) : make_uint4(0u, 0u, 0u, 0u);
+          x1[i] = in && ok1 ? __ldcg(row1 + (q + i) * 4) : make_uint4(0u, 0u, 0u, 0u);
+        }
+#pragma unroll
+        for (int i = 0; i < kDecBatch; ++i) {
+          if (q + i < q1) {
+            const uint32_t lo[4] = {x0[i].x, x1[i].x, x0[i].y, x1[i].y};
+            const uint32_t hi[4] = {x0[i].z, x1[i].z, x0[i].w, x1[i].w};
+#pragma unroll
+            for (int n = 0; n < NT; ++n) {
+              const uint4 w = wb[n * wtile + (q + i) * 4];
+              mma_bf16(c[n], lo, w.x, w.y);
+              mma_bf16(c[n], hi, w.z, w.w);
+            }
+          }
+        }
+      }
+      float* out = prod + (size_t)part * mt * 16 * PS;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        out[m0 * PS + n * 8 + 2 * tq] = c[n][0];
+        out[m0 * PS + n * 8 + 2 * tq + 1] = c[n][1];
+        out[m1 * PS + n * 8 + 2 * tq] = c[n][2];
+        out[m1 * PS + n * 8 + 2 * tq + 1] = c[n][3];
+      }
+    }
+    __syncthreads();
+    if (kp > 1) {
+      const int stride = mt * 16 * PS;
+      for (int i = tid; i < stride; i += kDecThreads) {
+        float v = prod[i];
+        for (int part = 1; part < kp; ++part) v += prod[part * stride + i];
+        prod[i] = v;
+      }
+      __syncthreads();
+    }
+  } else {
+    for (int m = warp; m < nr; m += kDecWarps) {
+      float acc[NT][kDecUnitsFma] = {};
+      const float* a = reinterpret_cast<const float*>(act) + (size_t)(r0 + m) * lda;
+#pragma unroll 4
+      for (int k = lane; k < K; k += 32) {
+        const float av = __ldcg(a + k);
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int u = 0; u < kDecUnitsFma; ++u)
+            if (u < nu)
+              acc[n][u] = fmaf(av, to_f(w_s[(n * kDecUnitsFma + u) * ldw + k]), acc[n][u]);
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int u = 0; u < kDecUnitsFma; ++u) {
+          const float v = warp_sum(acc[n][u]);
+          if (lane == 0) prod[m * PS + n * 8 + u] = v;
+        }
+    }
+    __syncthreads();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward: one persistent cooperative kernel over the sequence.
+
+// Shared-memory plan of the forward kernel for CTAs of `units` hidden units
+// and `rows` batch rows (a multiple of 16): the units' gate columns of
+// Wfeed, Wh0, Wmid and Wh1 (three n-tiles each, gate-major) and their
+// columns of Wc_q (one n-tile, right after Wh1's, so that one pass over
+// round(h1') computes both), transposed into (column, K) rows; the product
+// buffer (4 n-tiles; in bf16 room for the K-split partial sums); the f32
+// carries h0, h1 and qw (rows, units); the hidden products hp0, hp1 (rows,
+// units, 3 gates); the attention row (query, two context halves, scores).
+template <typename T>
+struct DecFwdLayout {
+  int ldw;
+  size_t w3, w1, prod, carry, gates, attn, total;
+  __host__ __device__ DecFwdLayout(int rows, int S, int H, int units) {
+    ldw = frag_ld<T>(H);
+    w3 = align16((size_t)3 * tile_rows<T>() * ldw * sizeof(T));
+    w1 = align16((size_t)tile_rows<T>() * ldw * sizeof(T));
+    const int prod_rows = is_bf16<T>() ? max(kDecWarps * 16, rows) : rows;
+    prod = (size_t)prod_rows * 4 * kDecUnitsMma * sizeof(float);
+    carry = align16((size_t)rows * units * sizeof(float));
+    gates = align16((size_t)rows * units * 3 * sizeof(float));
+    attn = align16((size_t)(3 * H + S) * sizeof(float));
+    total = 4 * w3 + w1 + prod + 3 * carry + 2 * gates + attn;
+  }
+};
+
+template <typename T>
+struct DecFwd {
+  const T *emb_proj, *dmid, *wfeed, *wh0, *wmid, *wh1, *wcq, *keys, *mem_v;
+  const float *h00, *h01, *bh0, *bmid, *bh1, *mask_bias;
+  T *attn_hs, *h0s, *h1s, *probs;
+  // written and read inside the kernel across CTAs: read with __ldcg, from
+  // L2, since an SM's L1 may hold a stale copy. (B, ldx) in T, zero past H:
+  T* h0x;   // 2 x (B, ldx): round(h0') of step t in buffer t % 2
+  T* h1x;   // round(h1'), also the attention's query
+  T* midx;  // round(dmid * h0'), the Wmid operand
+  T* ax;    // round(attn), the next step's feed operand
+  float* ctx;  // (B,H) the attention context
+  unsigned int* count;  // the split barrier's counter
+  unsigned long long* probe;  // null, or 2 + 2 * kDecPhases * T_len stamps
+  int B, T_len, S, H, units, unit_tiles, rows, ldx;
+};
+
+__device__ __forceinline__ float gru_cell(const float (&x)[3], const float* hp, float h) {
+  const float r = sigmoid_f(x[0] + hp[0]);
+  const float z = sigmoid_f(x[1] + hp[1]);
+  const float n = tanhf(x[2] + r * hp[2]);
+  return (1.f - z) * n + z * h;
+}
+
+// Four values of T as one load: 8 bytes in bf16, 16 in f32
+template <typename T>
+using Quad = typename std::conditional<is_bf16<T>(), uint2, float4>::type;
+
+__device__ __forceinline__ void unpack(const uint2& q, float (&v)[4]) {
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = lo.x;
+  v[1] = lo.y;
+  v[2] = hi.x;
+  v[3] = hi.y;
+}
+
+__device__ __forceinline__ void unpack(const float4& q, float (&v)[4]) {
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+constexpr int kScorePos = 3;   // source positions a warp scores at once
+constexpr int kScoreQuads = 4;  // quads of a key row a lane loads at once
+constexpr int kCtxPos = 12;     // positions whose mem_v quads a thread loads at once
+
+// The attention of batch row n at step t: the query round(h1') from the
+// exchange, scores against keys (a warp a source position), masked softmax
+// (one warp), probs[t], and the context (a thread 4 columns over half of
+// the positions, the halves added in a fixed order) into ctx. Keys and
+// mem_v are read as quads (H is a multiple of 4 and both are 16-byte
+// aligned: the wrapper's plan and copies see to it), and a thread starts a
+// batch of quad loads before it uses any, so their L2 latencies overlap.
+// q_s (H), part_s (2H), p_s (S) in shared memory.
+template <typename T>
+__device__ void attention_row(const DecFwd<T>& p, int n, int t, float* q_s, float* part_s,
+                              float* p_s) {
+  const int S = p.S, H = p.H, nq = H / 4, tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* keys = p.keys + (size_t)n * S * H;
+  const T* mem_v = p.mem_v + (size_t)n * S * H;
+  for (int k = tid; k < H; k += kDecThreads) q_s[k] = to_f(__ldcg(p.h1x + (size_t)n * p.ldx + k));
+  __syncthreads();
+  for (int s = warp; s < S; s += kDecWarps * kScorePos) {
+    float acc[kScorePos] = {};
+    for (int c0 = lane; c0 < nq; c0 += 32 * kScoreQuads) {
+      Quad<T> raw[kScorePos][kScoreQuads];
+#pragma unroll
+      for (int a = 0; a < kScorePos; ++a) {
+        const int sa = s + a * kDecWarps;
+        const Quad<T>* row = reinterpret_cast<const Quad<T>*>(keys + (size_t)sa * H);
+#pragma unroll
+        for (int i = 0; i < kScoreQuads; ++i) {
+          const int c = c0 + 32 * i;
+          raw[a][i] = sa < S && c < nq ? row[c] : Quad<T>{};
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kScorePos; ++a) {
+#pragma unroll
+        for (int i = 0; i < kScoreQuads; ++i) {
+          const int c = c0 + 32 * i;
+          if (c < nq) {
+            float v[4];
+            unpack(raw[a][i], v);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[a] += round_as<T>(q_s[4 * c + e] * v[e]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < kScorePos; ++a) {
+      const int sa = s + a * kDecWarps;
+      const float v = warp_sum(acc[a]);
+      if (lane == 0 && sa < S) p_s[sa] = v + p.mask_bias[(size_t)n * S + sa];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    float mx = -INFINITY;
+    for (int s = lane; s < S; s += 32) mx = fmaxf(mx, p_s[s]);
+    mx = warp_max(mx);
+    float sum = 0.f;
+    for (int s = lane; s < S; s += 32) {
+      const float e = expf(p_s[s] - mx);
+      p_s[s] = e;
+      sum += e;
+    }
+    sum = warp_sum(sum);
+    T* pr = p.probs + ((size_t)n * p.T_len + t) * S;
+    for (int s = lane; s < S; s += 32) {
+      const float v = p_s[s] / sum;
+      pr[s] = from_f<T>(v);
+      p_s[s] = round_as<T>(v);
+    }
+  }
+  __syncthreads();
+  constexpr int kHalf = kDecThreads / 2;
+  const int half = tid / kHalf, s_mid = (S + 1) / 2;
+  const int s0 = half ? s_mid : 0, s1 = half ? S : s_mid;
+  for (int c = tid % kHalf; c < nq; c += kHalf) {
+    float acc[4] = {};
+    for (int sb = s0; sb < s1; sb += kCtxPos) {
+      Quad<T> raw[kCtxPos];
+#pragma unroll
+      for (int b = 0; b < kCtxPos; ++b)
+        raw[b] = sb + b < s1 ? reinterpret_cast<const Quad<T>*>(mem_v + (size_t)(sb + b) * H)[c]
+                             : Quad<T>{};
+#pragma unroll
+      for (int b = 0; b < kCtxPos; ++b) {
+        if (sb + b < s1) {
+          float v[4];
+          unpack(raw[b], v);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[e] += round_as<T>(p_s[sb + b] * v[e]);
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part_s[half * H + 4 * c + e] = acc[e];
+  }
+  __syncthreads();
+  for (int j = tid; j < H; j += kDecThreads) p.ctx[(size_t)n * H + j] = part_s[j] + part_s[H + j];
+  __syncthreads();  // q_s, part_s and p_s are free for the next row
+}
+
+// CTA b < unit_tiles * (B / rows rounded up) owns hidden units [(b %
+// unit_tiles) * units, +units) of batch rows [(b / unit_tiles) * rows,
+// +rows); the four phases of a step are those of the note at the top.
+template <typename T>
+__global__ void __launch_bounds__(kDecThreads) decoder_fwd_kernel(DecFwd<T> p) {
+  stamp(p.probe, 0);
+  cg::grid_group grid = cg::this_grid();
+  const int B = p.B, T_len = p.T_len, S = p.S, H = p.H, H3 = 3 * H, units = p.units;
+  const int ldx = p.ldx, tid = threadIdx.x;
+  const int row_tiles = (B + p.rows - 1) / p.rows;
+  const bool owner = (int)blockIdx.x < p.unit_tiles * row_tiles;
+  const int u0 = (blockIdx.x % p.unit_tiles) * units;
+  const int nu = owner ? max(0, min(units, H - u0)) : 0;
+  const int r0 = owner ? (blockIdx.x / p.unit_tiles) * p.rows : 0;
+  const int nr = owner ? min(p.rows, B - r0) : 0;
+  const int items = nr * nu;  // (row, unit) cells of this CTA
+  constexpr int tr = tile_rows<T>(), PS3 = 3 * kDecUnitsMma, PS4 = 4 * kDecUnitsMma;
+  const DecFwdLayout<T> L(p.rows, S, H, units);
+  const int ldw = L.ldw;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sp = smem_raw;
+  T* w_s[5];  // Wfeed, Wh0, Wmid, Wh1 (3 n-tiles each), Wc_q (1)
+  for (int i = 0; i < 4; ++i, sp += L.w3) w_s[i] = reinterpret_cast<T*>(sp);
+  w_s[4] = reinterpret_cast<T*>(sp);
+  sp += L.w1;
+  float* prod = reinterpret_cast<float*>(sp);
+  sp += L.prod;
+  float* h0c = reinterpret_cast<float*>(sp);  // (rows, units) f32 states
+  sp += L.carry;
+  float* h1c = reinterpret_cast<float*>(sp);
+  sp += L.carry;
+  float* qw_s = reinterpret_cast<float*>(sp);  // (rows, units) h1' @ Wc_q
+  sp += L.carry;
+  float* hp0_s = reinterpret_cast<float*>(sp);  // (rows, units, 3) hidden products + bias
+  sp += L.gates;
+  float* hp1_s = reinterpret_cast<float*>(sp);
+  sp += L.gates;
+  float* q_s = reinterpret_cast<float*>(sp);  // (H) attention query
+  float* part_s = q_s + H;                     // (2H) context halves
+  float* p_s = part_s + 2 * H;                 // (S) scores, then probs
+
+  // weight columns into shared memory, transposed: row g * tr + u of a
+  // slice is column g * H + u0 + u of W (H,3H), zero past nu rows and H
+  // columns; a thread reads a unit, so neighbouring threads read
+  // neighbouring columns
+  const T* w3[4] = {p.wfeed, p.wh0, p.wmid, p.wh1};
+#pragma unroll  // static indices into w3 and w_s: no local-memory arrays
+  for (int w = 0; w < 4; ++w) {
+    for (int i = tid; i < ldw * 3 * tr; i += kDecThreads) {
+      const int u = i % tr, g = (i / tr) % 3, k = i / (3 * tr);
+      w_s[w][(g * tr + u) * ldw + k] =
+          u < nu && k < H ? w3[w][(size_t)k * H3 + g * H + u0 + u] : from_f<T>(0.f);
+    }
+  }
+  for (int i = tid; i < ldw * tr; i += kDecThreads) {
+    const int u = i % tr, k = i / tr;
+    w_s[4][u * ldw + k] = u < nu && k < H ? p.wcq[(size_t)k * H + u0 + u] : from_f<T>(0.f);
+  }
+  for (int i = tid; i < items; i += kDecThreads) {
+    const int c = (i / nu) * units + i % nu;
+    const size_t off = (size_t)(r0 + i / nu) * H + u0 + i % nu;
+    h0c[c] = p.h00[off];
+    h1c[c] = p.h01[off];
+  }
+  // exchanges: the rounded initial states (h0 in the buffer that step 0
+  // does not write); zero padding columns; the barrier's counter
+  const size_t gtid = (size_t)blockIdx.x * kDecThreads + tid;
+  const size_t gstride = (size_t)gridDim.x * kDecThreads;
+  const size_t xn = (size_t)B * ldx;
+  T* h0x_init = p.h0x + xn;
+  for (size_t i = gtid; i < xn; i += gstride) {
+    const int k = (int)(i % ldx);
+    const size_t off = (i / ldx) * H + k;
+    h0x_init[i] = from_f<T>(k < H ? p.h00[off] : 0.f);
+    p.h1x[i] = from_f<T>(k < H ? p.h01[off] : 0.f);
+    p.h0x[i] = p.midx[i] = p.ax[i] = from_f<T>(0.f);
+  }
+  if (gtid == 0) *p.count = 0u;
+  grid.sync();
+  stamp(p.probe, 1);
+
+  // hp = product + bias for the owned cells, from n-tiles 0..2 of prod
+  // (rows PS apart)
+  auto keep_gates = [&](float* hp_s, const float* bias, int ps) {
+    for (int i = tid; i < items; i += kDecThreads) {
+      const int mm = i / nu, u = i % nu;
+#pragma unroll
+      for (int g = 0; g < 3; ++g)
+        hp_s[(mm * units + u) * 3 + g] = prod[mm * ps + g * 8 + u] + bias[g * H + u0 + u];
+    }
+  };
+  if (items > 0) {  // step 0's hidden products, from the initial states
+    block_product<T, 3>(h0x_init, ldx, H, w_s[1], ldw, nu, r0, nr, prod);
+    keep_gates(hp0_s, p.bh0, PS3);
+    block_product<T, 3>(p.h1x, ldx, H, w_s[3], ldw, nu, r0, nr, prod);
+    keep_gates(hp1_s, p.bh1, PS3);
+  }
+
+  struct In0 {
+    float x[3], dm;
+  };
+  for (int t = 0; t < T_len; ++t) {
+    T* h0x = p.h0x + (t % 2) * xn;
+    // phase 1: x0 = emb_proj[t] + round(feed) @ Wfeed, GRU0
+    if (items > 0) {
+      auto load0 = [&](int i, In0& in) {
+        const size_t mt = (size_t)(r0 + i / nu) * T_len + t;
+        const int j = u0 + i % nu;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) in.x[g] = to_f(p.emb_proj[mt * H3 + g * H + j]);
+        in.dm = to_f(p.dmid[mt * H + j]);
+      };
+      In0 first;
+      if (tid < items) load0(tid, first);
+      if (t > 0) block_product<T, 3>(p.ax, ldx, H, w_s[0], ldw, nu, r0, nr, prod);
+      for (int i = tid; i < items; i += kDecThreads) {
+        In0 in = first;
+        if (i != tid) load0(i, in);
+        const int mm = i / nu, u = i % nu, m = r0 + mm, j = u0 + u, c = mm * units + u;
+        float x[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) x[g] = t > 0 ? in.x[g] + prod[mm * PS3 + g * 8 + u] : in.x[g];
+        const float h = gru_cell(x, hp0_s + c * 3, h0c[c]);
+        h0c[c] = h;
+        p.h0s[((size_t)m * T_len + t) * H + j] = from_f<T>(h);
+        h0x[(size_t)m * ldx + j] = from_f<T>(h);
+        p.midx[(size_t)m * ldx + j] = from_f<T>(in.dm * h);
+      }
+    }
+    grid_arrive(p.count, p.probe, t, 0);
+    grid_wait(p.count, p.probe, t, 0);
+
+    // phase 2: x1 = round(dmid * h0') @ Wmid + bmid, GRU1
+    if (items > 0) {
+      block_product<T, 3>(p.midx, ldx, H, w_s[2], ldw, nu, r0, nr, prod);
+      for (int i = tid; i < items; i += kDecThreads) {
+        const int mm = i / nu, u = i % nu, m = r0 + mm, j = u0 + u, c = mm * units + u;
+        float x[3];
+#pragma unroll
+        for (int g = 0; g < 3; ++g) x[g] = prod[mm * PS3 + g * 8 + u] + p.bmid[g * H + j];
+        const float h = gru_cell(x, hp1_s + c * 3, h1c[c]);
+        h1c[c] = h;
+        p.h1s[((size_t)m * T_len + t) * H + j] = from_f<T>(h);
+        p.h1x[(size_t)m * ldx + j] = from_f<T>(h);
+      }
+    }
+    grid_arrive(p.count, p.probe, t, 1);
+    grid_wait(p.count, p.probe, t, 1);
+
+    // phase 3: the attention of this CTA's rows; then, as the barrier
+    // completes, round(h1') @ [Wh1 | Wc_q] (hp1 of step t + 1 and qw, both
+    // the CTA's own; h1x is next written two barriers on)
+    for (int n = blockIdx.x; n < B; n += gridDim.x) attention_row(p, n, t, q_s, part_s, p_s);
+    grid_arrive(p.count, p.probe, t, 2);
+    if (items > 0) {
+      block_product<T, 4>(p.h1x, ldx, H, w_s[3], ldw, nu, r0, nr, prod);
+      keep_gates(hp1_s, p.bh1, PS4);
+      for (int i = tid; i < items; i += kDecThreads) {
+        const int mm = i / nu, u = i % nu;
+        qw_s[mm * units + u] = prod[mm * PS4 + 3 * 8 + u];
+      }
+    }
+    grid_wait(p.count, p.probe, t, 2);
+
+    // phase 4: attn = tanh(ctx + qw), the next feed; then, as the barrier
+    // completes, hp0 of step t + 1 (from this step's h0x buffer, which step
+    // t + 1 does not write)
+    for (int i = tid; i < items; i += kDecThreads) {
+      const int mm = i / nu, u = i % nu, m = r0 + mm, j = u0 + u;
+      const float v = tanhf(__ldcg(p.ctx + (size_t)m * H + j) + qw_s[mm * units + u]);
+      p.attn_hs[((size_t)m * T_len + t) * H + j] = from_f<T>(v);
+      p.ax[(size_t)m * ldx + j] = from_f<T>(v);
+    }
+    if (t + 1 < T_len) {
+      grid_arrive(p.count, p.probe, t, 3);
+      if (items > 0) {
+        block_product<T, 3>(h0x, ldx, H, w_s[1], ldw, nu, r0, nr, prod);
+        keep_gates(hp0_s, p.bh0, PS3);
+      }
+      grid_wait(p.count, p.probe, t, 3);
+    } else {
+      phase_end(grid, p.probe, t, 3, false);
+    }
+  }
+}
+
+template <typename T>
+int decoder_fwd(const T* emb_proj, const T* dmid, const float* h00, const float* h01,
+                const T* wfeed, const T* wh0, const float* bh0, const T* wmid, const float* bmid,
+                const T* wh1, const float* bh1, const T* keys, const T* mem_v, const T* wcq,
+                const float* mask_bias, T* attn_hs, T* h0s, T* h1s, T* probs, T* tscratch,
+                float* fscratch, unsigned long long* probe, int B, int T_len, int S, int H,
+                int units, int rows, int grid, cudaStream_t stream) {
+  const size_t smem = DecFwdLayout<T>(rows, S, H, units).total;
+  const cudaError_t err = cudaFuncSetAttribute(
+      decoder_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  DecFwd<T> p;
+  p.emb_proj = emb_proj;
+  p.dmid = dmid;
+  p.wfeed = wfeed;
+  p.wh0 = wh0;
+  p.wmid = wmid;
+  p.wh1 = wh1;
+  p.wcq = wcq;
+  p.keys = keys;
+  p.mem_v = mem_v;
+  p.h00 = h00;
+  p.h01 = h01;
+  p.bh0 = bh0;
+  p.bmid = bmid;
+  p.bh1 = bh1;
+  p.mask_bias = mask_bias;
+  p.attn_hs = attn_hs;
+  p.h0s = h0s;
+  p.h1s = h1s;
+  p.probs = probs;
+  p.ldx = pad32(H);
+  const size_t xn = (size_t)B * p.ldx;
+  p.h0x = tscratch;
+  p.h1x = tscratch + 2 * xn;
+  p.midx = tscratch + 3 * xn;
+  p.ax = tscratch + 4 * xn;
+  p.ctx = fscratch;
+  p.count = reinterpret_cast<unsigned int*>(fscratch + (size_t)B * H);
+  p.probe = probe;
+  p.B = B;
+  p.T_len = T_len;
+  p.S = S;
+  p.H = H;
+  p.units = units;
+  p.unit_tiles = (H + units - 1) / units;
+  p.rows = rows;
+  void* args[] = {&p};
+  // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that is not co-resident
+  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<void*>(decoder_fwd_kernel<T>),
+                                          dim3(grid), dim3(kDecThreads), args, smem, stream);
+}
+
+// ---------------------------------------------------------------------------
+// Backward: the hoisted gate products, then one persistent cooperative
+// kernel over time.
+
+// Shared-memory plan of the backward kernel for CTAs of `units` hidden
 // units and `rows` batch rows (a multiple of 16).
 template <typename T>
 struct DecLayout {
@@ -211,93 +761,9 @@ struct DecBwd {
   float* dk;     // (B,H) the attention part of dL/dh1' plus dh1
   T* pre_c;      // (B,ld_pre) pre rounded to T
   T* act_c;      // 4 x (B,ld_act): dhp1, dx1, dhp0, dx0 rounded to T
+  unsigned long long* probe;  // null, or 2 + 2 * kDecPhases * T_len stamps
   int B, T_len, S, H, units, unit_tiles, rows, ld_pre, ld_act;
 };
-
-// prod[m * 8 + u] = sum_k act[r0 + m, k] w_s[u, k] for m < nr, u < nu: act
-// in T rows lda apart (columns K..lda zero, lda a multiple of 32), w_s
-// (wrows, ldw) in shared memory. bf16: mma.sync over 16-row tiles, the K
-// range split across warps when there are fewer tiles than warps, partial
-// sums added in a fixed order. Each lane loads 16 bytes of a row per 32
-// columns, whole sectors: within a 32-column block, lane tq's columns 8tq ..
-// 8tq+7 serve as the mma fragment's k = 2tq, 2tq+1, 2tq+8, 2tq+9 of two
-// k-steps, in A and B alike, which permutes the sum over k and changes
-// nothing else. f32: FMAs, a warp per row, lanes along K.
-constexpr int kDecBatch = 12;  // 32-column blocks whose fragments a warp loads at once
-
-template <typename T>
-__device__ void block_product(const T* act, int lda, int K, const T* w_s, int ldw, int nu,
-                              int r0, int nr, float* prod) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  __syncthreads();  // prod is free
-  if constexpr (is_bf16<T>()) {
-    const int gq = lane >> 2, tq = lane & 3;
-    const int mt = (nr + 15) / 16, kp = mt < kDecWarps ? kDecWarps / mt : 1;
-    const int blocks = lda / 32;
-    for (int task = warp; task < mt * kp; task += kDecWarps) {
-      const int tile = task % mt, part = task / mt;
-      const int m0 = tile * 16 + gq, m1 = m0 + 8;
-      const bool ok0 = m0 < nr, ok1 = m1 < nr;
-      const uint4* row0 = reinterpret_cast<const uint4*>(act + (size_t)(r0 + m0) * lda) + tq;
-      const uint4* row1 = reinterpret_cast<const uint4*>(act + (size_t)(r0 + m1) * lda) + tq;
-      const uint4* wb = reinterpret_cast<const uint4*>(w_s + (size_t)gq * ldw) + tq;
-      float c[4] = {0.f, 0.f, 0.f, 0.f};
-      const int q1 = (part + 1) * blocks / kp;
-      for (int q = part * blocks / kp; q < q1; q += kDecBatch) {
-        uint4 x0[kDecBatch], x1[kDecBatch];
-#pragma unroll
-        for (int i = 0; i < kDecBatch; ++i) {
-          const bool in = q + i < q1;
-          x0[i] = in && ok0 ? __ldcg(row0 + (q + i) * 4) : make_uint4(0u, 0u, 0u, 0u);
-          x1[i] = in && ok1 ? __ldcg(row1 + (q + i) * 4) : make_uint4(0u, 0u, 0u, 0u);
-        }
-#pragma unroll
-        for (int i = 0; i < kDecBatch; ++i) {
-          if (q + i < q1) {
-            const uint4 w = wb[(q + i) * 4];
-            const uint32_t lo[4] = {x0[i].x, x1[i].x, x0[i].y, x1[i].y};
-            const uint32_t hi[4] = {x0[i].z, x1[i].z, x0[i].w, x1[i].w};
-            mma_bf16(c, lo, w.x, w.y);
-            mma_bf16(c, hi, w.z, w.w);
-          }
-        }
-      }
-      float* out = prod + (size_t)part * mt * 16 * kDecUnitsMma;
-      out[m0 * kDecUnitsMma + 2 * tq] = c[0];
-      out[m0 * kDecUnitsMma + 2 * tq + 1] = c[1];
-      out[m1 * kDecUnitsMma + 2 * tq] = c[2];
-      out[m1 * kDecUnitsMma + 2 * tq + 1] = c[3];
-    }
-    __syncthreads();
-    if (kp > 1) {
-      const int stride = mt * 16 * kDecUnitsMma;
-      for (int i = tid; i < stride; i += kDecThreads) {
-        float v = prod[i];
-        for (int part = 1; part < kp; ++part) v += prod[part * stride + i];
-        prod[i] = v;
-      }
-      __syncthreads();
-    }
-  } else {
-    for (int m = warp; m < nr; m += kDecWarps) {
-      float acc[kDecUnitsFma] = {};
-      const float* a = reinterpret_cast<const float*>(act) + (size_t)(r0 + m) * lda;
-#pragma unroll 4
-      for (int k = lane; k < K; k += 32) {
-        const float av = __ldcg(a + k);
-#pragma unroll
-        for (int u = 0; u < kDecUnitsFma; ++u)
-          if (u < nu) acc[u] = fmaf(av, to_f(w_s[u * ldw + k]), acc[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < kDecUnitsFma; ++u) {
-        const float v = warp_sum(acc[u]);
-        if (lane == 0) prod[m * kDecUnitsMma + u] = v;
-      }
-    }
-    __syncthreads();
-  }
-}
 
 // The inputs of one (row, unit) cell backward, loaded before the product
 // that the cell waits for: the hoisted x and hp, the previous state, and
@@ -351,6 +817,7 @@ __device__ __forceinline__ float cell_bwd(const CellIn& in, float dh, size_t n3,
 // note at the top).
 template <typename T>
 __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
+  stamp(p.probe, 0);
   cg::grid_group grid = cg::this_grid();
   const int B = p.B, T_len = p.T_len, S = p.S, H = p.H, H3 = 3 * H, units = p.units;
   const int tid = threadIdx.x;
@@ -399,6 +866,7 @@ __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
   for (size_t i = gtid; i < (size_t)4 * B * p.ld_act; i += gstride)
     if ((int)(i % p.ld_act) >= H3) p.act_c[i] = from_f<T>(0.f);
   grid.sync();
+  stamp(p.probe, 1);
 
   const size_t act_n = (size_t)B * p.ld_act;
   T* dhp1_c = p.act_c;
@@ -408,6 +876,7 @@ __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
   const int lane = tid & 31, warp = tid >> 5;
 
   for (int t = T_len - 1; t >= 0; --t) {
+    const int step = T_len - 1 - t;
     // phase 1: attention backward, a CTA per row
     for (int n = blockIdx.x; n < B; n += gridDim.x) {
       const size_t nt = (size_t)n * T_len + t;
@@ -449,7 +918,7 @@ __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
       }
       __syncthreads();
     }
-    grid.sync();
+    phase_end(grid, p.probe, step, 0, true);
 
     // phase 2: dh1' = dk + round(pre) @ Wc_q^T, then GRU1's cell backward
     if (items > 0) {
@@ -473,7 +942,7 @@ __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
                         dx1_c + (size_t)m * p.ld_act, dhp1_c + (size_t)m * p.ld_act);
       }
     }
-    grid.sync();
+    phase_end(grid, p.probe, step, 1, true);
 
     // phase 3: dh1 = dh1'z1 + round(dhp1) @ Wh1^T; dh0' = dmid * (round(dx1)
     // @ Wmid^T) + dh0, then GRU0's cell backward
@@ -506,7 +975,7 @@ __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
                         dx0_c + (size_t)m * p.ld_act, dhp0_c + (size_t)m * p.ld_act);
       }
     }
-    grid.sync();
+    phase_end(grid, p.probe, step, 2, true);
 
     // phase 4: dh0 = dh0'z0 + round(dhp0) @ Wh0^T; dfeed = round(dx0) @ Wfeed^T
     if (items > 0) {
@@ -522,25 +991,22 @@ __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
         p.dfeed[(size_t)(r0 + mm) * H + u0 + u] = prod[mm * kDecUnitsMma + u];
       }
     }
-    if (t > 0) grid.sync();
+    phase_end(grid, p.probe, step, 3, t > 0);
   }
 }
 
-// The card's co-resident CTAs of the persistent kernel and its dynamic
-// shared memory, for CTAs of `units` units and `rows` batch rows.
-template <typename T>
-cudaError_t decoder_bwd_occupancy(int rows, int S, int H, int units, int* max_blocks,
-                                  int* smem_bytes) {
-  const DecLayout<T> L(rows, S, H, units);
-  *smem_bytes = (int)L.total;
-  cudaError_t err = cudaFuncSetAttribute(
-      decoder_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+// How many CTAs of `kernel` with `smem` bytes of dynamic shared memory the
+// card holds at once.
+template <typename Kernel>
+cudaError_t co_resident(Kernel* kernel, size_t smem, int* max_blocks, int* smem_bytes) {
+  *smem_bytes = (int)smem;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decoder_bwd_kernel<T>, kDecThreads,
-                                                      L.total);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kDecThreads, smem);
   *max_blocks = per_sm * sms;
   return err;
 }
@@ -551,8 +1017,8 @@ int decoder_bwd(const T* emb_proj, const T* dmid, const float* h00, const float*
                 const T* wh1, const float* bh1, const T* keys, const T* mem_v, const T* wcq,
                 const T* attn_hs, const T* h0s, const T* h1s, const T* probs,
                 const float* d_attn, const float* d_probs, float* const* o, float* gates,
-                float* fscratch, T* tscratch, int B, int T_len, int S, int H, int units, int rows,
-                int grid, cudaStream_t stream) {
+                float* fscratch, T* tscratch, unsigned long long* probe, int B, int T_len, int S,
+                int H, int units, int rows, int grid, cudaStream_t stream) {
   const int H3 = 3 * H, M = B * T_len;
   const size_t G = (size_t)M * H3;
   float* x0 = gates;
@@ -606,6 +1072,7 @@ int decoder_bwd(const T* emb_proj, const T* dmid, const float* h00, const float*
   p.ld_act = pad32(H3);
   p.pre_c = tscratch;
   p.act_c = tscratch + (size_t)B * p.ld_pre;
+  p.probe = probe;
   p.B = B;
   p.T_len = T_len;
   p.S = S;
@@ -621,54 +1088,77 @@ int decoder_bwd(const T* emb_proj, const T* dmid, const float* h00, const float*
 
 }  // namespace
 
-// Forward over the sequence. dtype: 0 = float32, 1 = bfloat16 for every
-// tensor but h00, h01, the biases and mask_bias (f32). emb_proj (B,T,3H),
-// dmid (B,T,H), keys and mem_v (B,S,H), mask_bias (B,S); writes attn_hs,
-// h0s, h1s (B,T,H) and probs (B,T,S). scratch: 6*B*H floats.
+// Checks the CTA tiling that a launch plan gives (units at most 8 in bf16,
+// 4 in f32; rows a multiple of 16; a CTA for every tile).
+static bool valid_tiling(int dtype, int B, int H, int units, int rows, int grid) {
+  const int max_units = dtype == 1 ? kDecUnitsMma : kDecUnitsFma;
+  return units >= 1 && units <= max_units && rows >= 16 && rows % 16 == 0 &&
+         grid >= ((H + units - 1) / units) * ((B + rows - 1) / rows);
+}
+
+// Forward over the sequence in one persistent cooperative launch on `grid`
+// CTAs (co-resident, else an error), of which the first ceil(H / units) *
+// ceil(B / rows) each own `units` hidden units (at most 8 in bf16, 4 in
+// f32) of `rows` batch rows (a multiple of 16). dtype: 0 = float32, 1 =
+// bfloat16 for every tensor but h00, h01, the biases and mask_bias (f32).
+// H a multiple of 4. emb_proj (B,T,3H), dmid (B,T,H), keys and mem_v
+// (B,S,H) 16-byte aligned, mask_bias (B,S);
+// writes attn_hs, h0s, h1s (B,T,H) and probs (B,T,S). Scratch: tscratch
+// 5*B*pad32(H) elements of the compute dtype (pad32 rounds up to a multiple
+// of 32), fscratch B*H + 1 floats. probe: null, or 2 + 8*T 64-bit stamps.
 extern "C" int vmmt_decoder_fwd(int dtype, const void* emb_proj, const void* dmid,
                                 const void* h00, const void* h01, const void* wfeed,
                                 const void* wh0, const void* bh0, const void* wmid,
                                 const void* bmid, const void* wh1, const void* bh1,
                                 const void* keys, const void* mem_v, const void* wcq,
                                 const void* mask_bias, void* attn_hs, void* h0s, void* h1s,
-                                void* probs, void* scratch, int B, int T_len, int S, int H,
+                                void* probs, void* tscratch, void* fscratch, void* probe, int B,
+                                int T_len, int S, int H, int units, int rows, int grid,
                                 void* stream) {
   if (B == 0 || T_len == 0) return 0;
+  if (!valid_tiling(dtype, B, H, units, rows, grid) || H % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(keys) % 16 != 0 || reinterpret_cast<uintptr_t>(mem_v) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f[] = {static_cast<const float*>(h00), static_cast<const float*>(h01),
                       static_cast<const float*>(bh0), static_cast<const float*>(bmid),
                       static_cast<const float*>(bh1), static_cast<const float*>(mask_bias)};
-  if (dtype == 1) {
-    using T = __nv_bfloat16;
-    decoder_fwd<T>(static_cast<const T*>(emb_proj), static_cast<const T*>(dmid), f[0], f[1],
-                   static_cast<const T*>(wfeed), static_cast<const T*>(wh0), f[2],
-                   static_cast<const T*>(wmid), f[3], static_cast<const T*>(wh1), f[4],
-                   static_cast<const T*>(keys), static_cast<const T*>(mem_v),
-                   static_cast<const T*>(wcq), f[5], static_cast<T*>(attn_hs),
-                   static_cast<T*>(h0s), static_cast<T*>(h1s), static_cast<T*>(probs),
-                   static_cast<float*>(scratch), B, T_len, S, H, s);
-  } else {
-    using T = float;
-    decoder_fwd<T>(static_cast<const T*>(emb_proj), static_cast<const T*>(dmid), f[0], f[1],
-                   static_cast<const T*>(wfeed), static_cast<const T*>(wh0), f[2],
-                   static_cast<const T*>(wmid), f[3], static_cast<const T*>(wh1), f[4],
-                   static_cast<const T*>(keys), static_cast<const T*>(mem_v),
-                   static_cast<const T*>(wcq), f[5], static_cast<T*>(attn_hs),
-                   static_cast<T*>(h0s), static_cast<T*>(h1s), static_cast<T*>(probs),
-                   static_cast<float*>(scratch), B, T_len, S, H, s);
-  }
-  return (int)cudaGetLastError();
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    return decoder_fwd<T>(
+        static_cast<const T*>(emb_proj), static_cast<const T*>(dmid), f[0], f[1],
+        static_cast<const T*>(wfeed), static_cast<const T*>(wh0), f[2], static_cast<const T*>(wmid),
+        f[3], static_cast<const T*>(wh1), f[4], static_cast<const T*>(keys),
+        static_cast<const T*>(mem_v), static_cast<const T*>(wcq), f[5], static_cast<T*>(attn_hs),
+        static_cast<T*>(h0s), static_cast<T*>(h1s), static_cast<T*>(probs),
+        static_cast<T*>(tscratch), static_cast<float*>(fscratch),
+        static_cast<unsigned long long*>(probe), B, T_len, S, H, units, rows, grid, s);
+  };
+  const int err = dtype == 1 ? run(__nv_bfloat16{}) : run(float{});
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// How many CTAs of the forward's persistent kernel the card holds at once,
+// and the dynamic shared memory of one CTA, for CTAs of `units` units and
+// `rows` batch rows.
+extern "C" int vmmt_decoder_fwd_occupancy(int dtype, int rows, int S, int H, int units,
+                                          int* max_blocks, int* smem_bytes) {
+  using B16 = __nv_bfloat16;
+  return (int)(dtype == 1 ? co_resident(decoder_fwd_kernel<B16>,
+                                        DecFwdLayout<B16>(rows, S, H, units).total, max_blocks,
+                                        smem_bytes)
+                          : co_resident(decoder_fwd_kernel<float>,
+                                        DecFwdLayout<float>(rows, S, H, units).total, max_blocks,
+                                        smem_bytes));
 }
 
 // Backward over the sequence in two launches: the hoisted gate products and
-// the persistent cooperative kernel on `grid` CTAs (co-resident, else an
-// error), of which the first ceil(H / units) * ceil(B / rows) each own
-// `units` hidden units (at most 8 in bf16, 4 in f32) of `rows` batch rows
-// (a multiple of 16). Inputs as the forward's plus its four streams and d_attn (B,T,H), d_probs (B,T,S) in f32; writes dx0, dhp0,
-// dx1, dhp1 (B,T,3H), pre (B,T,H), dscores (B,T,S), dh00, dh01 (B,H), all
-// f32. Scratch: gates 4*B*T*3H floats, fscratch 2*B*H floats, tscratch
-// B*pad32(H) + 4*B*pad32(3H) elements of the compute dtype (pad32 rounds up
-// to a multiple of 32).
+// the persistent cooperative kernel, tiled as the forward's. Inputs as the
+// forward's plus its four streams and d_attn (B,T,H), d_probs (B,T,S) in
+// f32; writes dx0, dhp0, dx1, dhp1 (B,T,3H), pre (B,T,H), dscores (B,T,S),
+// dh00, dh01 (B,H), all f32. Scratch: gates 4*B*T*3H floats, fscratch
+// 2*B*H floats, tscratch B*pad32(H) + 4*B*pad32(3H) elements of the compute
+// dtype. probe: null, or 2 + 8*T 64-bit stamps.
 extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmid,
                                 const void* h00, const void* h01, const void* wfeed,
                                 const void* wh0, const void* bh0, const void* wmid,
@@ -678,13 +1168,10 @@ extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmi
                                 const void* probs, const void* d_attn, const void* d_probs,
                                 void* dx0, void* dhp0, void* dx1, void* dhp1, void* pre,
                                 void* dscores, void* dh00, void* dh01, void* gates,
-                                void* fscratch, void* tscratch, int B, int T_len, int S, int H,
-                                int units, int rows, int grid, void* stream) {
+                                void* fscratch, void* tscratch, void* probe, int B, int T_len,
+                                int S, int H, int units, int rows, int grid, void* stream) {
   if (B == 0 || T_len == 0) return 0;
-  const int max_units = dtype == 1 ? kDecUnitsMma : kDecUnitsFma;
-  if (units < 1 || units > max_units || rows < 16 || rows % 16 != 0 ||
-      grid < ((H + units - 1) / units) * ((B + rows - 1) / rows))
-    return (int)cudaErrorInvalidValue;
+  if (!valid_tiling(dtype, B, H, units, rows, grid)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f[] = {static_cast<const float*>(h00), static_cast<const float*>(h01),
                       static_cast<const float*>(bh0), static_cast<const float*>(bmid),
@@ -703,7 +1190,8 @@ extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmi
         static_cast<const T*>(mem_v), static_cast<const T*>(wcq), static_cast<const T*>(attn_hs),
         static_cast<const T*>(h0s), static_cast<const T*>(h1s), static_cast<const T*>(probs), f[5],
         f[6], o, static_cast<float*>(gates), static_cast<float*>(fscratch),
-        static_cast<T*>(tscratch), B, T_len, S, H, units, rows, grid, s);
+        static_cast<T*>(tscratch), static_cast<unsigned long long*>(probe), B, T_len, S, H,
+        units, rows, grid, s);
   };
   const int err = dtype == 1 ? run(__nv_bfloat16{}) : run(float{});
   return err != 0 ? err : (int)cudaGetLastError();
@@ -714,8 +1202,11 @@ extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmi
 // `rows` batch rows.
 extern "C" int vmmt_decoder_bwd_occupancy(int dtype, int rows, int S, int H, int units,
                                           int* max_blocks, int* smem_bytes) {
-  return (int)(dtype == 1
-                   ? decoder_bwd_occupancy<__nv_bfloat16>(rows, S, H, units, max_blocks,
-                                                          smem_bytes)
-                   : decoder_bwd_occupancy<float>(rows, S, H, units, max_blocks, smem_bytes));
+  using B16 = __nv_bfloat16;
+  return (int)(dtype == 1 ? co_resident(decoder_bwd_kernel<B16>,
+                                        DecLayout<B16>(rows, S, H, units).total, max_blocks,
+                                        smem_bytes)
+                          : co_resident(decoder_bwd_kernel<float>,
+                                        DecLayout<float>(rows, S, H, units).total, max_blocks,
+                                        smem_bytes));
 }

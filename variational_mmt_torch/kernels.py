@@ -51,13 +51,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "decoder": {
         # dtype, emb_proj, dmid, h00, h01, wfeed, wh0, bh0, wmid, bmid, wh1,
         # bh1, keys, mem_v, wc_q, mask_bias, attn_hs, h0s, h1s, probs,
-        # scratch, B, T, S, H, stream
-        "vmmt_decoder_fwd": [_I] + [_P] * 20 + [_I] * 4 + [_P],
+        # compute-dtype and f32 scratch, probe, B, T, S, H, units, rows,
+        # grid, stream
+        "vmmt_decoder_fwd": [_I] + [_P] * 22 + [_I] * 7 + [_P],
+        # dtype, rows, S, H, units, out: max co-resident CTAs, smem bytes
+        "vmmt_decoder_fwd_occupancy": [_I] * 5 + [_P] * 2,
         # dtype, the 14 forward inputs but mask_bias, attn_hs, h0s, h1s,
         # probs, d_attn, d_probs, dx0, dhp0, dx1, dhp1, pre, dscores, dh00,
-        # dh01, gates, f32 and compute-dtype scratch, B, T, S, H, units,
-        # rows, grid, stream
-        "vmmt_decoder_bwd": [_I] + [_P] * 31 + [_I] * 7 + [_P],
+        # dh01, gates, f32 and compute-dtype scratch, probe, B, T, S, H,
+        # units, rows, grid, stream
+        "vmmt_decoder_bwd": [_I] + [_P] * 32 + [_I] * 7 + [_P],
         # dtype, rows, S, H, units, out: max co-resident CTAs, smem bytes
         "vmmt_decoder_bwd_occupancy": [_I] * 5 + [_P] * 2,
     },
@@ -166,6 +169,13 @@ def occupancy(device: int, name: str, fn: str, *args: int) -> Tuple[int, int]:
 def sm_count(device: int) -> int:
     """The number of SMs of CUDA device ``device`` (its index)."""
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (the kernels' vector
+    loads need it); a view that starts elsewhere is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -72,9 +72,10 @@ class DecoderStep(nn.Module):
 
 class GRUDecoder(nn.Module):
     """``use_pallas and pallas_decoder`` runs the teacher-forced sequence
-    through the decoder sequence kernels (ops/decoder.py); otherwise a
-    Python loop over ``DecoderStep`` that autograd differentiates.
-    ``fused`` (the JAX custom-VJP scan) is not ported."""
+    through the decoder sequence kernels (ops/decoder.py) when the decoder
+    is one they compute (2 layers, general attention: JAX's ``eligible``,
+    :192-198); otherwise a Python loop over ``DecoderStep`` that autograd
+    differentiates. ``fused`` (the JAX custom-VJP scan) is not ported."""
 
     def __init__(self, emb_dim: int, hidden: int, layers: int = 2,
                  attn_type: str = "general", dtype: torch.dtype = torch.float32,
@@ -83,6 +84,7 @@ class GRUDecoder(nn.Module):
         super().__init__()
         self.hidden = hidden
         self.layers = layers
+        self.attn_type = attn_type
         self.dtype = dtype
         self.dropout = dropout
         self.use_pallas = use_pallas
@@ -113,7 +115,8 @@ class GRUDecoder(nn.Module):
         keys = self.step.attn.project_memory(memory)
         drop = generator is not None and self.dropout > 0.0
         dmid = dropout_mask((B, T, H), self.dropout, generator, dt, emb.device) if drop else None
-        if self.use_pallas and self.pallas_decoder:
+        eligible = self.layers == 2 and self.attn_type == "general"  # GRU cells: this class
+        if self.use_pallas and self.pallas_decoder and eligible:
             step = self.step
             p_out = step.attn.linear_out.kernel.to(dt)
             mem_v = memory @ p_out[:H]

@@ -111,13 +111,6 @@ def step_cell_plan(N: int, H: int, dtype: torch.dtype) -> dict:
                 threads=CELL_THREADS, stages=stages, smem=smem, k_chunks=-(-H // CELL_BK))
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address (the kernels' vector
-    copies need it); a view that starts elsewhere is copied."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _checked_plan(N: int, H: int, dt: torch.dtype, device: int) -> dict:
     """The cells' plan, checked against the kernel's own shared-memory
     count, with the card's count of co-resident CTAs."""
@@ -162,7 +155,7 @@ def _chain_args(what, *chain):
     for name, t in zip(_CHAIN_NAMES[1:], chain[1:]):
         if t.device != dev:
             raise ValueError(f"{what}: {name} is on {t.device}, expected {dev}")
-    args = [_aligned(t) if i not in (6, 8, 10) else t.to(f32).contiguous()
+    args = [kernels.aligned(t) if i not in (6, 8, 10) else t.to(f32).contiguous()
             for i, t in enumerate(chain)]
     return args, N, H, dt
 
@@ -213,7 +206,8 @@ def decode_step(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
                          mask_bias=mask_bias)
     lib = kernels.library("decode_step")
     decode_step.plan = _checked_plan(N, H, dt, emb_proj.device.index)
-    extra = [_aligned(keys), _aligned(mem_v), _aligned(Wc_q), mask_bias.to(f32).contiguous()]
+    extra = [kernels.aligned(keys), kernels.aligned(mem_v), kernels.aligned(Wc_q),
+             mask_bias.to(f32).contiguous()]
     h0n = torch.empty_like(args[1])
     h1n = torch.empty_like(args[2])
     attn = torch.empty_like(args[3])

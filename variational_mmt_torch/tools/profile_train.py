@@ -34,8 +34,7 @@ OWN = "(anonymous namespace)::"  # the port's kernels live in anonymous namespac
 LAYERS = (  # (layer, names of the port's kernels or substrings of library ones)
     ("GRU-scan kernels (rows 1, 2)", ("gru_scan_fwd_kernel", "gru_scan_bwd_kernel",
                                       "ScanHoist", "ScanDWh")),
-    ("decoder sequence kernels (rows 5, 6)", ("cell_fwd_kernel", "attn_fwd_kernel",
-                                              "gemm_kernel", "DecHoist",
+    ("decoder sequence kernels (rows 5, 6)", ("decoder_fwd_kernel", "DecHoist",
                                               "decoder_bwd_kernel")),
     ("cuBLAS GEMM", ("gemm", "sm90", "cutlass", "xmma", "gemv")),
     ("softmax", ("softmax",)),
