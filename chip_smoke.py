@@ -46,6 +46,14 @@ in PERF.md).
    kernel, plain version and, for the scan backward, cuDNN's nn.GRU
    backward (which also computes the input-projection gradients that the
    port leaves to cuBLAS).
+   Kernel phases, the reset stream (sequence packing): both GRU-scan
+   kernels with a reset stream at the packed path's shape (B=64, T=64,
+   H=250; resets at every row's t=0, at 2-3 more segment starts a row and on
+   the first padded step of every padded row), f32 and bf16, both
+   directions, then B=61 (a row all padding) and T=1, held to the
+   reset-free checks' tolerances, and bit-identical in two launches; bf16
+   times of each beside its reset-free launch on the same inputs, in turns,
+   with the plain version's and the bound.
 4. Serving phase: vmmt_c at full width (the port's configs/vmmt_c_multi30k.json,
    vocab 10000/10000, bf16, use_pallas) with random weights from numpy seed 0
    through convert.py; Translator(device="cuda") answers three request
@@ -71,9 +79,24 @@ in PERF.md).
    (use_pallas=False, pallas_decoder=False, fused_ce=False): losses within
    1e-4 relative, every parameter gradient within 1e-3 of its plain
    tensor's largest entry, before and after 3 optimizer steps.
-7. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+7. Packed training phase: the same model and weights in Trainer with
+   train.pack over 4 fixed packed batches (64 rows of 64 tokens, up to 4
+   sentences a row, pairs drawn as in phase 5, numpy seed 1; sentences,
+   real target tokens and fill printed), 20 steps: every loss finite, the
+   mean of the last 4 below that of the first 4, and each GRU-scan kernel
+   launched 6 times a step, every launch with a reset stream (the decoder
+   takes its plain loop, as in JAX); peak device memory; three timed runs
+   of 12 steps, ms/step and real target tokens/s beside phase 5's unpacked
+   routes. Then f32, deterministic, no sampling: the sentences of the
+   first 8 packed rows unpacked through ``forward`` (kernel route) and
+   packed through ``forward_packed`` (reset kernels): loss within 2e-5
+   relative, every gradient within 2e-4 relative and 2e-5 x max(1, its
+   largest entry) absolute (tests/test_pack.py's tolerances).
+8. Prints one JSON line of per-kernel numbers (all six TPU kernels'
    counterparts; the scan forward's top-level times are at the serving
-   shape, ``by_shape`` holds both), then the last line
+   shape, ``by_shape`` holds both; the two scans' ``reset`` records hold the
+   reset stream's checks and times, ``launches_by_path`` the serving,
+   training and packed-training counts), then the last line
    {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
@@ -107,6 +130,11 @@ DEC_MEM_STD, DEC_MEM_STD_PEAKED = 0.1, 0.5  # std of keys and mem_v (module docs
 PEAKED_STEPS, PEAKED_DRIFT_RATIO = 4, 1.5  # checks at memory std 0.5 (module docstring)
 TRAIN_BATCH, TRAIN_BATCHES, TRAIN_STEPS, TIMED_STEPS = 64, 4, 30, 48  # timed: whole passes
 TIMED_ORDER = (True, False, False, True, True, False, False, True)  # pallas_decoder, in turns
+PACK_SCAN_SHAPE = dict(B=64, T=64, H=250)  # the packed training path's encoder scans
+PACK_ROW, PACK_K = 64, 4  # packed row length, most segments a row
+PACKED_STEPS, PACKED_RUNS, PACKED_TIMED_STEPS = 20, 3, 12
+PACKED_CHECK_ROWS = 8  # rows of the first packed batch in the f32 packed = unpacked check
+PACKED_TOL = dict(loss=2e-5, rtol=2e-4, atol=2e-5)  # tests/test_pack.py:169-181
 
 
 def fail(msg: str) -> None:
@@ -182,6 +210,123 @@ def scan_bwd_inputs(g, dt, B, T, H, min_len):
             (torch.randn(H, 3 * H, generator=g, device="cuda") / math.sqrt(H)).to(dt),
             0.1 * torch.randn(3 * H, generator=g, device="cuda"),
             torch.randn(B, T, H, generator=g, device="cuda"))
+
+
+def reset_stream(rng, mask):
+    """(B,T) f32 resets where packing puts segment starts: every row's t=0
+    and 2-3 more starts among its real positions (pads are at the row's
+    end), and a reset on the first padded step of every padded row."""
+    B, T = mask.shape
+    lengths = mask.sum(1).long().tolist()
+    reset = np.zeros((B, T), np.float32)
+    reset[:, 0] = 1.0
+    for b, n in enumerate(lengths):
+        if n > 1:
+            reset[b, 1 + rng.permutation(n - 1)[:min(n - 1, int(rng.integers(2, 4)))]] = 1.0
+        if n < T:
+            reset[b, n] = 1.0  # on a masked step
+    return torch.from_numpy(reset).to("cuda")
+
+
+def reset_inputs(g, rng, dt, B, T, H, min_len):
+    """Scan inputs (x, mask, h0, wh, bh), a cotangent of outs, and a reset
+    stream; h0 not zero, so that a reset that is missed shows."""
+    x, mask, _, wh, bh, gout = scan_bwd_inputs(g, dt, B, T, H, min_len)
+    h0 = 0.1 * torch.randn(B, H, generator=g, device="cuda")
+    return (x, mask, h0, wh, bh), gout, reset_stream(rng, mask)
+
+
+def reset_errs(gru_scan, ins, gout, reset):
+    """Forward (max abs err) and backward (max rel err, max abs err) of the
+    reset kernels against their plain versions, both directions."""
+    fwd, bwd, bwd_abs = [], [], []
+    for reverse in (False, True):
+        got = gru_scan.gru_layer_scan(*ins, reverse, reset)
+        want = gru_scan.gru_layer_scan_ref(*ins, reverse, reset)
+        got_b = gru_scan.gru_layer_scan_bwd(*ins, want[0], gout, reverse, reset)
+        want_b = gru_scan.gru_layer_scan_bwd_ref(*ins, want[0], gout, reverse, reset)
+        torch.cuda.synchronize()
+        fwd.append(max_err(got, want))
+        bwd.append(rel_err(got_b, want_b))
+        bwd_abs.append(max_err(got_b, want_b))
+    return max(fwd), max(bwd), max(bwd_abs)
+
+
+def in_turns(name: str, fns: dict, iters: int = 20) -> dict:
+    """Event times of each variant, two runs each in turns (a b b a), and
+    their means."""
+    order = list(fns) + list(fns)[::-1]
+    runs = {k: [] for k in fns}
+    for k in order:
+        runs[k].append(cuda_ms(fns[k], iters=iters))
+    out = {f"{k}_ms": float(np.mean(v)) for k, v in runs.items()}
+    out["runs_ms"] = runs
+    print(f"  {name}: " + ", ".join(f"{k} {np.mean(v):.4f} ms (runs "
+                                    + " ".join(f"{r:.4f}" for r in v) + ")"
+                                    for k, v in runs.items()))
+    return out
+
+
+def scan_reset_checks(gru_scan):
+    """The reset stream of both GRU-scan kernels (sequence packing) against
+    their plain versions at the packed path's shape (B=64, T=64, H=250), f32
+    and bf16, both directions; at B=61 (a row all padding) and T=1;
+    bit-identical repeats; times beside the reset-free launch on the same
+    inputs and the bounds. Returns (forward record, backward record)."""
+    B, T, H = (PACK_SCAN_SHAPE[k] for k in ("B", "T", "H"))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(5)
+    fwd, bwd = {}, {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        ins, gout, reset = reset_inputs(g, rng, dt, B, T, H, 8)
+        fwd[f"err_{dt_name}"], bwd[f"err_{dt_name}"], bwd[f"abs_err_{dt_name}"] = \
+            reset_errs(gru_scan, ins, gout, reset)
+        check_close(f"gru_scan with reset B={B} T={T}", dt_name, fwd[f"err_{dt_name}"])
+        check_close(f"gru_scan_bwd with reset B={B} T={T}", dt_name, bwd[f"err_{dt_name}"],
+                    "max_rel_err")
+        edges = [reset_errs(gru_scan, *reset_inputs(g, rng, dt, b, t, H, 0))
+                 for b, t in ((61, T), (B, 1))]
+        fwd[f"edge_err_{dt_name}"] = max(e[0] for e in edges)
+        bwd[f"edge_err_{dt_name}"] = max(e[1] for e in edges)
+        check_close("gru_scan with reset B=61 and T=1, a row all padding", dt_name,
+                    fwd[f"edge_err_{dt_name}"])
+        check_close("gru_scan_bwd with reset B=61 and T=1, a row all padding", dt_name,
+                    bwd[f"edge_err_{dt_name}"], "max_rel_err")
+    outs, _ = gru_scan.gru_layer_scan_ref(*ins, True, reset)
+    deterministic("gru_scan with reset", lambda: gru_scan.gru_layer_scan(*ins, True, reset))
+    deterministic("gru_scan_bwd with reset",
+                  lambda: gru_scan.gru_layer_scan_bwd(*ins, outs, gout, True, reset))
+    n_starts = int(reset.sum())
+    print(f"  reset stream B={B} T={T}: {n_starts} resets, "
+          f"{int((reset * (1 - ins[1])).sum())} of them on masked steps")
+    # bf16 times, reset against reset-free on the same inputs, in turns
+    fwd.update(in_turns(f"gru_scan B={B} T={T} bfloat16", {
+        "no_reset": lambda: gru_scan.gru_layer_scan(*ins, True),
+        "reset": lambda: gru_scan.gru_layer_scan(*ins, True, reset)}))
+    bwd.update(in_turns(f"gru_scan_bwd B={B} T={T} bfloat16", {
+        "no_reset": lambda: gru_scan.gru_layer_scan_bwd(*ins, outs, gout, True),
+        "reset": lambda: gru_scan.gru_layer_scan_bwd(*ins, outs, gout, True, reset)}))
+    fwd["ms"], bwd["ms"] = fwd.pop("reset_ms"), bwd.pop("reset_ms")
+    fwd["plain_ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_ref(*ins, True, reset), iters=5)
+    bwd["plain_ms"] = cuda_ms(
+        lambda: gru_scan.gru_layer_scan_bwd_ref(*ins, outs, gout, True, reset), iters=5)
+    b = 2  # bf16 bytes
+    ins_bytes = B * T * 3 * H * b + 2 * B * T * 4 + B * H * 4 + H * 3 * H * b + 3 * H * 4
+    fwd["bound_ms"], fwd["bound_by"] = bound(ins_bytes + B * T * H * 4 + B * H * 4,
+                                             2.0 * B * T * H * 3 * H, "bfloat16")
+    bwd_bytes = (ins_bytes + 2 * B * T * H * 4  # outs, g
+                 + B * T * 3 * H * 4 + B * H * 4 + H * 3 * H * 4 + 3 * H * 4)  # dx, dh0, dWh, dbh
+    bwd["bound_ms"], bwd["bound_by"] = bound(bwd_bytes, 3 * 2.0 * B * T * H * 3 * H, "bfloat16")
+    bwd["plan"] = gru_scan.gru_layer_scan_bwd.plan
+    fwd["plan"] = gru_scan.gru_layer_scan.plan
+    print_plan(f"gru_scan with reset B={B} T={T}", fwd["plan"])
+    for name, rec in (("gru_scan", fwd), ("gru_scan_bwd", bwd)):
+        print(f"  {name} with reset B={B} T={T} bfloat16: kernel {rec['ms']:.4f} ms "
+              f"(reset-free {rec['no_reset_ms']:.4f}, {rec['ms'] / rec['no_reset_ms'] - 1:+.1%}), "
+              f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})")
+    return fwd, bwd
 
 
 def scan_bwd_errs(gru_scan, args):
@@ -409,6 +554,9 @@ def scan_phase(gru_scan):
               "train": scan_timing(gru_scan, g, TRAIN_SCAN_SHAPE["B"], TRAIN_SCAN_SHAPE["T"], H)}
     rec.update(shapes["serve"])  # the kernels line's top-level numbers: the serving shape
     rec["by_shape"] = shapes
+    # the reset stream of both scans (sequence packing); the backward's
+    # record joins the scan-backward phase's
+    rec["reset"], rec["bwd_reset"] = scan_reset_checks(gru_scan)
     return rec
 
 
@@ -643,6 +791,125 @@ def train_phase(card: str, cfg, state):
     return launches, steps
 
 
+def packed_train_phase(card: str, cfg, state, unpacked: dict):
+    """Trainer steps with train.pack on the packed cell's batches at full
+    width; every step must launch both GRU-scan kernels 6 times, each with
+    a reset stream. Returns (launches, reset launches, step numbers)."""
+    from variational_mmt_torch.ops import decoder as dec, gru_scan
+    from variational_mmt_torch.tools import flagship
+
+    batches = flagship.packed_batches(cfg.model, TRAIN_BATCHES, TRAIN_BATCH, PACK_ROW, PACK_K)
+    for i, b in enumerate(batches):
+        print(f"train_packed: batch {i}: {b.n_sentences} sentences, {b.n_tokens} real target "
+              f"tokens, fill {b.n_tokens / (TRAIN_BATCH * PACK_ROW):.4f} "
+              f"({TRAIN_BATCH} rows of {PACK_ROW}, K={PACK_K}, lengths 8-24, seed 1)")
+    c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, pack=True,
+                                                           pack_segments=PACK_K))
+    trainer = trainer_for(c, state, batches)
+    scans = (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd)
+    counters = scans + (dec.decoder_fwd, dec.decoder_bwd)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    for fn in scans:
+        fn.reset_launches = 0
+    hist = trainer.train(PACKED_STEPS)
+    launches = {fn.__name__: fn.launches for fn in counters}
+    resets = {fn.__name__: fn.reset_launches for fn in scans}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train_packed: launches ({PACKED_STEPS} steps) {launches}, with a reset stream "
+          f"{resets} (the decoder takes the plain loop, as in JAX)")
+    for name, n in resets.items():
+        if n != 6 * PACKED_STEPS or launches[name] != n:
+            fail(f"{name}: {n} launches with a reset stream of {launches[name]}, expected "
+                 f"6 a step, all with reset")
+    losses = [h["loss"] for h in hist]
+    print("train_packed: losses " + " ".join(f"{v:.3f}" for v in losses))
+    if not all(math.isfinite(v) for v in losses):
+        fail("a packed training loss is not finite")
+    first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+    print(f"train_packed: mean loss of the first 4 steps {first:.4f}, of the last 4 {last:.4f}")
+    if not last < first:
+        fail("the packed loss did not fall over the training steps")
+    print(f"train_packed: peak device memory {peak / 2**20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated, {card})")
+    runs = []
+    for _ in range(PACKED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = trainer.train(PACKED_TIMED_STEPS)
+        wall = time.perf_counter() - t0
+        runs.append((wall / PACKED_TIMED_STEPS * 1e3, sum(h["n_tokens"] for h in done) / wall))
+    ms_runs = [r[0] for r in runs]
+    rec = {"step_ms": float(np.mean(ms_runs)),
+           "tgt_tok_per_s": float(np.mean([r[1] for r in runs])), "runs_ms": ms_runs, "peak_mem_mib": peak / 2**20,
+           "sentences_per_batch": [b.n_sentences for b in batches],
+           "tokens_per_batch": [b.n_tokens for b in batches],
+           "fill": [b.n_tokens / (TRAIN_BATCH * PACK_ROW) for b in batches]}
+    print(f"train_packed: {rec['step_ms']:.2f} ms/step, {rec['tgt_tok_per_s']:.1f} real target "
+          f"tok/s (runs {', '.join(f'{a:.2f}' for a in ms_runs)} ms; {PACKED_RUNS} runs of "
+          f"{PACKED_TIMED_STEPS} steps, {card})")
+    for route, u in unpacked.items():
+        if isinstance(u, dict):
+            print(f"train_packed: beside the unpacked route {route} of this call: "
+                  f"{u['step_ms']:.2f} ms/step, {u['tgt_tok_per_s']:.1f} target tok/s")
+    return launches, resets, rec
+
+
+def packed_check_f32(cfg, state):
+    """The sentences of the first PACKED_CHECK_ROWS packed rows, unpacked
+    through ``forward`` (kernel route) and packed through ``forward_packed``
+    (reset kernels), f32, deterministic, no sampling: the loss within 2e-5
+    relative, every gradient within 2e-4 relative and 2e-5 times max(1,
+    |largest entry|) absolute."""
+    from variational_mmt_torch.data.dataset import BinarizedDataset, BucketIterator
+    from variational_mmt_torch.ops import gru_scan
+    from variational_mmt_torch.tools import flagship
+    from variational_mmt_torch.train.trainer import batch_tensors, loss_and_grads
+
+    pb = flagship.packed_batches(cfg.model, 1, TRAIN_BATCH, PACK_ROW, PACK_K)[0]
+    pb = dataclasses.replace(pb, **{f.name: getattr(pb, f.name)[:PACKED_CHECK_ROWS]
+                                    for f in dataclasses.fields(pb)})
+    src, tgt, img = [], [], []
+    for r, k in zip(*np.nonzero(pb.seg_mask)):
+        src.append(pb.src[r][pb.src_seg[r] == k])
+        tgt.append(pb.tgt_out[r][pb.tgt_seg[r] == k][:-1])  # without EOS
+        img.append(pb.img[r, k])
+    unpacked = next(BucketIterator(BinarizedDataset(src, tgt), len(src), [25],
+                                   img_feats=np.stack(img)).epoch())
+    dev = torch.device("cuda")
+    res = {}
+    gru_scan.gru_layer_scan.reset_launches = gru_scan.gru_layer_scan_bwd.reset_launches = 0
+    for name, batch, pack in (("packed", pb, True), ("unpacked", unpacked, False)):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, pack=pack))
+        tr = trainer_for(c, state, [], compute_dtype="float32", use_pallas=True,
+                         pallas_decoder=True, fused_ce=True)
+        loss, _, grads = loss_and_grads(tr.cfg, tr.model, batch_tensors(batch, dev), 0, None,
+                                        deterministic=True, sample=False)
+        res[name] = (float(loss.detach()), [g.detach().clone() for g in grads],
+                     [n for n, _ in tr.model.named_parameters()])
+    if min(gru_scan.gru_layer_scan.reset_launches, gru_scan.gru_layer_scan_bwd.reset_launches) < 6:
+        fail("the packed f32 check did not run the reset kernels")
+    (lp, gp, names), (lu, gu, _) = res["packed"], res["unpacked"]
+    dloss = abs(lp - lu) / abs(lu)
+    worst, worst_name = 0.0, ""
+    for n, a, b in zip(names, gp, gu):
+        atol = PACKED_TOL["atol"] * max(1.0, float(b.abs().max()))
+        ratio = float(((a - b).abs() / (atol + PACKED_TOL["rtol"] * b.abs())).max())
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    print(f"train_packed f32 check: {len(src)} sentences of {PACKED_CHECK_ROWS} packed rows; "
+          f"loss packed {lp:.6f} unpacked {lu:.6f} rel diff {dloss:.2e} (tolerance "
+          f"{PACKED_TOL['loss']:.0e}); worst gradient {worst_name} at {worst:.3f} of its "
+          f"tolerance (rtol {PACKED_TOL['rtol']:.0e}, atol {PACKED_TOL['atol']:.0e} x "
+          f"max(1, |max|))")
+    if not (dloss <= PACKED_TOL["loss"] and worst <= 1.0):
+        fail("f32 packed and unpacked training disagree")
+    return {"sentences": len(src), "loss_rel": dloss, "grad_worst_of_tol": worst,
+            "grad_worst": worst_name}
+
+
 def train_check_f32(cfg, state):
     """Kernel path against the all-plain path in f32: loss and gradients
     before and after 3 optimizer steps."""
@@ -708,11 +975,14 @@ def main() -> int:
     scan = scan_phase(gru_scan)
     step, chain = step_phase(ds)
     scan_bwd = scan_bwd_phase(gru_scan)
+    scan_bwd["reset"] = scan.pop("bwd_reset")
     dec_fwd, dec_bwd = decoder_phase(dec)
     cfg, state = load_flagship()
     serve_launches, rate = slice_phase(card, cfg.model, state)
     train_launches, steps = train_phase(card, cfg, state)
     check = train_check_f32(cfg, state)
+    packed_launches, packed_resets, packed = packed_train_phase(card, cfg, state, steps)
+    packed["f32_check"] = packed_check_f32(cfg, state)
 
     entries = []
     for name, rec, src, replaces in (
@@ -729,7 +999,8 @@ def main() -> int:
         ("decoder_bwd", dec_bwd, "variational_mmt_torch/csrc/decoder.cu",
          "variational_mmt_tpu/ops/pallas/decoder.py:304"),
     ):
-        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0)}
+        by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
+                   "train_packed": packed_launches.get(name, 0)}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -740,16 +1011,18 @@ def main() -> int:
         }
         if "peaked" in rec:  # the decoder's checks at attention memory std 0.5
             entry["peaked"] = {k: v for k, v in rec["peaked"].items() if k != "per_step"}
-        for key in ("plan", "edge_err_float32", "edge_err_bfloat16", "by_shape"):
+        for key in ("plan", "edge_err_float32", "edge_err_bfloat16", "by_shape", "reset"):
             if key in rec:
                 entry[key] = rec[key]
+        if name in packed_resets:
+            entry["reset_launches"] = packed_resets[name]
         if "abs_err_bfloat16" in rec:  # gradients: the relative error is the check
             entry.update(max_rel_err=rec["err_bfloat16"], max_rel_err_f32=rec["err_float32"])
         else:
             entry.update(max_abs_err_f32=rec["err_float32"])
         entries.append(entry)
     print(json.dumps({"kernels": entries, "sent_per_s": rate, "train": steps,
-                      "train_f32_check": check, "card": card}))
+                      "train_f32_check": check, "train_packed": packed, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -93,6 +93,3 @@ def test_gru_layer_scan_ad_grads_take_the_inputs_dtypes():
     (outs.sum() + fin.sum()).backward()
     assert (x.grad.dtype, wh.grad.dtype, h0.grad.dtype, bh.grad.dtype) == (
         torch.bfloat16, torch.bfloat16, torch.float32, torch.float32)
-    with pytest.raises(NotImplementedError):
-        gru_layer_scan_ad(x, torch.from_numpy(args[1]), h0, wh, bh,
-                          reset=torch.zeros(5, 4))

@@ -140,10 +140,6 @@ def test_ensembles_mesh_and_packing_raise():
         Translator([model, model], vocab, vocab, device="cpu")
     with pytest.raises(NotImplementedError):
         Translator(model, vocab, vocab, mesh=object(), device="cpu")
-    x = torch.zeros(2, 3, 12)
-    with pytest.raises(NotImplementedError):
-        gru_scan.gru_layer_scan(x, torch.ones(2, 3), torch.zeros(2, 4), torch.zeros(4, 12),
-                                torch.zeros(12), reset=torch.zeros(2, 3))
 
 
 def test_conv_features_are_mean_pooled():

@@ -15,6 +15,7 @@ import math
 import pytest
 import torch
 
+from variational_mmt_torch import kernels
 from variational_mmt_torch.ops import decode_step as ds
 from variational_mmt_torch.ops import decoder, gru_scan
 
@@ -60,7 +61,7 @@ def test_gru_scan_kernel(cuda, dt, reverse, B, T, H):
     args = scan_args(cuda, dt, B, T, H)
     close(gru_scan.gru_layer_scan(*args, reverse), gru_scan.gru_layer_scan_ref(*args, reverse), dt)
     plan = gru_scan.gru_layer_scan.plan
-    assert plan == dict(gru_scan.scan_fwd_plan(B, T, H, dt),
+    assert plan == dict(gru_scan.scan_fwd_plan(B, T, H, dt, kernels.sm_count(0)),
                         max_active_clusters=plan["max_active_clusters"],
                         one_wave=plan["max_active_clusters"] >= plan["clusters"])
 
@@ -109,6 +110,52 @@ def test_gru_scan_bwd_kernel_shapes(cuda, dt, reverse, B, T, H):
     g = torch.randn(B, T, H, generator=cuda, device="cuda")
     close_rel(gru_scan.gru_layer_scan_bwd(*args, outs, g, reverse),
               gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, reverse), dt)
+
+
+def reset_stream(g, mask):
+    """Resets at every row's t=0, at a random step of each row and on a
+    masked step of the last row (sequence packing's segment starts)."""
+    B, T = mask.shape
+    reset = torch.zeros(B, T, device="cuda")
+    reset[:, 0] = 1.0
+    reset[torch.arange(B, device="cuda"),
+          torch.randint(0, T, (B,), generator=g, device="cuda")] = 1.0
+    reset[-1, -1] = 1.0
+    mask[-1, -1] = 0.0
+    return reset
+
+
+# the reset stream of both kernels (sequence packing) against the plain
+# versions, at the shapes of the reset-free tests above
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("B,T,H", [(9, 7, 40), (61, 7, 250), (9, 1, 40), (140, 5, 250)],
+                         ids=["small", "ragged", "T1", "B140"])
+def test_gru_scan_kernels_with_reset(cuda, dt, reverse, B, T, H):
+    args = scan_args(cuda, dt, B, T, H)
+    reset = reset_stream(cuda, args[1])
+    fwd = gru_scan.gru_layer_scan.reset_launches, gru_scan.gru_layer_scan_bwd.reset_launches
+    close(gru_scan.gru_layer_scan(*args, reverse, reset),
+          gru_scan.gru_layer_scan_ref(*args, reverse, reset), dt)
+    outs, _ = gru_scan.gru_layer_scan_ref(*args, reverse, reset)
+    g = torch.randn(B, T, H, generator=cuda, device="cuda")
+    close_rel(gru_scan.gru_layer_scan_bwd(*args, outs, g, reverse, reset),
+              gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, reverse, reset), dt)
+    assert (gru_scan.gru_layer_scan.reset_launches,
+            gru_scan.gru_layer_scan_bwd.reset_launches) == (fwd[0] + 1, fwd[1] + 1)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_gru_scan_kernels_with_reset_are_deterministic(cuda, dt):
+    args = scan_args(cuda, dt, 61, 7, 250)
+    reset = reset_stream(cuda, args[1])
+    first = gru_scan.gru_layer_scan(*args, True, reset)
+    second = gru_scan.gru_layer_scan(*args, True, reset)
+    g = torch.randn(61, 7, 250, generator=cuda, device="cuda")
+    first_b = gru_scan.gru_layer_scan_bwd(*args, first[0], g, True, reset)
+    second_b = gru_scan.gru_layer_scan_bwd(*args, first[0], g, True, reset)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first + first_b, second + second_b))
 
 
 def decoder_args(g, dt, B=9, T=6, S=40, H=72):

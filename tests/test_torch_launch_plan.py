@@ -37,7 +37,7 @@ def test_scan_plan_accepts_the_encoder_width(dt, B, T):
 @pytest.mark.parametrize("B", [256, 64, 61, 1])
 def test_scan_fwd_plan_accepts_the_encoder_width(dt, B, T):
     H = 250
-    plan = gru_scan.scan_fwd_plan(B, T, H, dt)
+    plan = gru_scan.scan_fwd_plan(B, T, H, dt, H100_SMS)
     assert (plan["cluster"], plan["units"]) == (8, 32)
     assert plan["rows"] in (4, 8)
     assert plan["clusters"] * plan["rows"] >= B > (plan["clusters"] - 1) * plan["rows"]
@@ -51,11 +51,11 @@ def test_scan_fwd_plan_at_the_main_path_shapes():
     B=256: 32 clusters of 8 rows (the mma's columns), 256 CTAs, which fit
     one wave only where two bf16 CTAs share an SM."""
     for dt in DTYPES:
-        train = gru_scan.scan_fwd_plan(64, 24, 250, dt)
-        serve = gru_scan.scan_fwd_plan(256, 24, 250, dt)
+        train = gru_scan.scan_fwd_plan(64, 24, 250, dt, H100_SMS)
+        serve = gru_scan.scan_fwd_plan(256, 24, 250, dt, H100_SMS)
         assert (train["rows"], train["clusters"], train["ctas"]) == (4, 16, 128)
         assert (serve["rows"], serve["clusters"], serve["ctas"]) == (8, 32, 256)
-    bf16 = gru_scan.scan_fwd_plan(256, 24, 250, torch.bfloat16)
+    bf16 = gru_scan.scan_fwd_plan(256, 24, 250, torch.bfloat16, H100_SMS)
     assert 2 * (bf16["smem"] + 1024) <= SMEM_PER_SM
 
 
@@ -63,9 +63,9 @@ def test_scan_fwd_plan_mirrors_the_kernels_layout():
     """bf16: 96 columns of Wh and two 8-slot state buffers at the mma stride
     (264 halves at H=250), the f32 partial products; f32: the same unpadded."""
     parts = 4 * 96 * 8 * 4
-    assert gru_scan.scan_fwd_plan(64, 24, 250, torch.bfloat16)["smem"] == \
+    assert gru_scan.scan_fwd_plan(64, 24, 250, torch.bfloat16, H100_SMS)["smem"] == \
         96 * 264 * 2 + 2 * 8 * 264 * 2 + parts
-    assert gru_scan.scan_fwd_plan(64, 24, 250, torch.float32)["smem"] == \
+    assert gru_scan.scan_fwd_plan(64, 24, 250, torch.float32, H100_SMS)["smem"] == \
         96 * 250 * 4 + 2 * 8 * 250 * 4 + parts
 
 
@@ -73,7 +73,7 @@ def test_scan_fwd_plan_mirrors_the_kernels_layout():
 @pytest.mark.parametrize("H", [0, 257, 1024])
 def test_scan_fwd_plan_refuses_what_a_cluster_cannot_hold(dt, H):
     with pytest.raises(NotImplementedError):
-        gru_scan.scan_fwd_plan(64, 24, H, dt)
+        gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -275,7 +275,7 @@ def test_wrappers_refuse_what_the_card_cannot_hold_at_once(no_launch):
     no_launch.setattr(kernels, "occupancy", lambda *a: (0, plan["smem"]))
     with pytest.raises(NotImplementedError, match="does not fit"):
         gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 8))
-    plan = gru_scan.scan_fwd_plan(4, 5, 8, torch.float32)
+    plan = gru_scan.scan_fwd_plan(4, 5, 8, torch.float32, H100_SMS)
     no_launch.setattr(kernels, "occupancy", lambda *a: (0, plan["smem"]))
     with pytest.raises(NotImplementedError, match="does not fit"):
         gru_scan.gru_layer_scan(*scan_args(4, 5, 8)[:5])
@@ -346,7 +346,8 @@ def test_scan_wrapper_launches_with_the_plan(monkeypatch, B, rows):
 
     monkeypatch.setattr(kernels, "library", lambda name: Lib())
     monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
-    smem = gru_scan.scan_fwd_plan(B, 24, 250, torch.bfloat16)["smem"]
+    monkeypatch.setattr(kernels, "sm_count", lambda device: H100_SMS)
+    smem = gru_scan.scan_fwd_plan(B, 24, 250, torch.bfloat16, H100_SMS)["smem"]
     monkeypatch.setattr(kernels, "occupancy", lambda *a: (40, smem))
     x = meta(B, 24, 750, dtype=torch.bfloat16)
     gru_scan.gru_layer_scan(x, meta(B, 24), meta(B, 250), meta(250, 750, dtype=torch.bfloat16),
@@ -354,6 +355,63 @@ def test_scan_wrapper_launches_with_the_plan(monkeypatch, B, rows):
     assert calls == [(8, 32, rows)]
     plan = gru_scan.gru_layer_scan.plan
     assert plan["rows"] == rows and plan["one_wave"] == (40 >= plan["clusters"])
+
+
+@pytest.mark.parametrize("sms,rows", [(H100_SMS, 4), (114, 8)])
+def test_scan_fwd_plan_follows_the_cards_sm_count(monkeypatch, sms, rows):
+    """At B=64, H=250, 16 clusters of 4 rows (128 CTAs) fit one CTA an SM of
+    a 132-SM card; a 114-SM card takes 8 rows a cluster (64 CTAs). The
+    wrapper asks the card it launches on."""
+    assert gru_scan.scan_fwd_plan(64, 24, 250, torch.bfloat16, sms)["rows"] == rows
+    calls = []
+
+    class Lib:
+        def vmmt_gru_scan(self, *args):
+            calls.append(args[-2])  # rows
+            return 0
+
+    monkeypatch.setattr(kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "sm_count", lambda device: sms)
+    smem = gru_scan.scan_fwd_plan(64, 24, 250, torch.bfloat16, sms)["smem"]
+    monkeypatch.setattr(kernels, "occupancy", lambda *a: (40, smem))
+    gru_scan.gru_layer_scan(meta(64, 24, 750, dtype=torch.bfloat16), meta(64, 24), meta(64, 250),
+                            meta(250, 750, dtype=torch.bfloat16), meta(750))
+    assert calls == [rows]
+
+
+def test_scan_wrappers_pass_the_reset_stream(no_launch):
+    """The reset stream goes to both kernels as the pointer after the mask,
+    null without one; launches with it are counted apart."""
+    calls = []
+
+    class Lib:
+        def vmmt_gru_scan(self, *args):
+            calls.append(args[3])
+            return 0
+
+        def vmmt_gru_scan_bwd(self, *args):
+            calls.append(args[3])
+            return 0
+
+    no_launch.setattr(kernels, "library", lambda name: Lib())
+    no_launch.setattr(kernels, "stream_of", lambda t: 0)
+    smem = {"vmmt_gru_scan_occupancy": gru_scan.scan_fwd_plan(4, 5, 8, torch.float32,
+                                                              H100_SMS)["smem"],
+            "vmmt_gru_scan_bwd_occupancy": gru_scan.scan_bwd_plan(4, 5, 8, torch.float32)["smem"]}
+    no_launch.setattr(kernels, "occupancy", lambda dev, lib, fn, *a: (8, smem[fn]))
+    args = scan_args(4, 5, 8)
+    fns = (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd)
+    before = [(f.launches, f.reset_launches) for f in fns]
+    gru_scan.gru_layer_scan(*args[:5])
+    gru_scan.gru_layer_scan(*args[:5], reset=meta(4, 5))
+    gru_scan.gru_layer_scan_bwd(*args)
+    gru_scan.gru_layer_scan_bwd(*args, reset=meta(4, 5))
+    assert calls[0] is None and calls[1] is not None
+    assert calls[2] is None and calls[3] is not None
+    assert [(f.launches, f.reset_launches) for f in fns] == [(n + 2, r + 1) for n, r in before]
+    with pytest.raises(ValueError):
+        gru_scan.gru_layer_scan(*args[:5], reset=meta(4, 6))
 
 
 def fwd_args(B, T, S, H, dt=torch.float32):

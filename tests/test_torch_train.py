@@ -256,7 +256,7 @@ def test_trainer_needs_cuda_unless_the_cpu_is_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    dict(pack=True), dict(grad_accum=2), dict(ema_decay=0.999), dict(fix_word_vecs_enc=True),
+    dict(grad_accum=2), dict(ema_decay=0.999), dict(fix_word_vecs_enc=True),
     dict(fix_word_vecs_dec=True), dict(skip_nonfinite=True), dict(optimizer="adadelta"),
     dict(optimizer="adagrad"), dict(param_init=0.1), dict(num_model_shards=2),
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))

@@ -7,7 +7,8 @@ the same in both packages. The ``data`` section of a JSON file is ignored
 here.
 
 ``TrainConfig`` holds the train-section fields that the port's trainer
-reads (optimizer, clipping, KL annealing, label smoothing, seed, steps)
+reads (optimizer, clipping, KL annealing, label smoothing, seed, steps,
+sequence packing)
 and those it does not implement yet, which
 :meth:`TrainConfig.check_supported` refuses with ``NotImplementedError``
 when set to a value that changes behaviour. ``steps_per_call`` is a TPU
@@ -105,12 +106,13 @@ class TrainConfig:
     kl_anneal_steps: int = 10000
     kl_anneal_start: int = 0
     kl_free_bits: float = 0.0
+    pack: bool = False  # sequence packing: PackedBatch streams (data/packing.py)
+    pack_segments: int = 4  # most sentences a packed row holds
     # refused by check_supported when set
     fix_word_vecs_enc: bool = False
     fix_word_vecs_dec: bool = False
     skip_nonfinite: bool = False
     ema_decay: float = 0.0
-    pack: bool = False
     grad_accum: int = 1
     num_model_shards: int = 1
     steps_per_call: int = 1  # TPU dispatch knob; ignored by the port
@@ -119,7 +121,6 @@ class TrainConfig:
         """Raise NotImplementedError for every set option the port's
         trainer does not implement yet."""
         unsupported = [
-            ("pack (sequence packing)", self.pack),
             ("grad_accum > 1", self.grad_accum > 1),
             ("ema_decay > 0", self.ema_decay > 0),
             ("fix_word_vecs_enc", self.fix_word_vecs_enc),

@@ -9,7 +9,11 @@
 // h rounded to T and accumulates in f32. A masked step passes the carry
 // through, so the reverse direction is right over right padding. Writes
 // outs (B,T,H) f32 and final (B,H) f32 (the state after the last step
-// processed).
+// processed). An optional reset (B,T) f32 stream (sequence packing, the
+// Pallas has_reset branch, gru.py:68-71) multiplies the carry by 1 - reset
+// before the cell of each step. Both scan kernels are instantiated with and
+// without it (kReset); a null pointer launches the instantiation without,
+// which is the code of the reset-free design.
 //
 // On the TPU the time axis was a sequential grid with the state in VMEM
 // scratch. Here the loop over t runs inside the kernel. Its bytes and
@@ -27,10 +31,13 @@
 //      columns as six 16-row tiles, the 8 batch-row slots as the tile's
 //      columns, K split four ways over 12 warps), in f32 by FMAs (never
 //      TF32);
-//   2. applies the gates in f32 from x_proj and mask prefetched a step
-//      ahead into registers, and writes outs;
-//   3. pushes its units' h', rounded to T, into every peer's
-//      double-buffered shared copy of the state (distributed shared memory);
+//   2. applies the gates in f32 from x_proj, mask and reset prefetched a
+//      step ahead into registers (the thread's own carry first scaled by
+//      this step's 1 - reset), and writes outs;
+//   3. pushes its units' round(h' * (1 - reset of the next step)) into
+//      every peer's double-buffered shared copy of the state (distributed
+//      shared memory), so the product of the next step reads the zeroed
+//      carry at a segment start (buffer 0 is filled from h0 the same way);
 //   4. waits at one cluster barrier.
 // The backward scan below shares the cluster layout, the DSMEM push and
 // the mma fragments.
@@ -65,6 +72,11 @@
 //       launch sum dbh, the unrounded column sums of dh_proj. Deterministic.
 // The scan writes dx_proj and only the third gate block of dh_proj (its
 // first two equal dx_proj's), which (c) reads.
+// With a reset stream (the Pallas has_reset branch, gru.py:205-210 and
+// :244-245) every h_prev is the zeroed state h_prev * (1 - reset): in (a),
+// in the scan's gate backward and in (c). The carry's cotangent does not
+// cross a segment start: the scan multiplies each step's dh_prev by that
+// step's 1 - reset where the next step (or dh0) reads it.
 
 #include <cooperative_groups.h>
 
@@ -116,19 +128,21 @@ struct FwdLayout {
   }
 };
 
-// The inputs of one (row, unit) at one step, loaded a step ahead.
+// The inputs of one (row, unit) at one step, loaded a step ahead; keep =
+// 1 - reset.
 struct FwdIn {
-  float x[3], m;
+  float x[3], m, keep;
 };
 
-// Forward scan over one cluster's `rows` (<= kFwdSlots) batch rows.
-template <typename T>
+// Forward scan over one cluster's `rows` (<= kFwdSlots) batch rows; with
+// kReset, reset is read, else it is ignored.
+template <typename T, bool kReset>
 __global__ void __launch_bounds__(kFwdThreads)
 gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask,
-                    const float* __restrict__ h0, const T* __restrict__ wh,
-                    const float* __restrict__ bh, float* __restrict__ outs,
-                    float* __restrict__ final_h, int B, int T_len, int H, int units, int rows,
-                    int reverse) {
+                    const float* __restrict__ reset, const float* __restrict__ h0,
+                    const T* __restrict__ wh, const float* __restrict__ bh,
+                    float* __restrict__ outs, float* __restrict__ final_h, int B, int T_len, int H,
+                    int units, int rows, int reverse) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int H3 = 3 * H, tid = threadIdx.x;
@@ -148,14 +162,20 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
     const T v = u < nu && k < H ? wh[(size_t)k * H3 + g * H + j0 + u] : from_f<T>(0.f);
     w_s[is_bf16<T>() ? c * ld + k : k * kFwdCols + c] = v;
   }
-  // buffer 0 holds round(h0) of the cluster's rows, the rest is zero
+  // 1 - reset at (row, t)
+  auto keep_at = [&](int row, int t) { return 1.f - reset[(size_t)row * T_len + t]; };
+  // buffer 0 holds round(h0) of the cluster's rows (times the keep of the
+  // first step processed), the rest is zero
+  const int t_first = reverse ? T_len - 1 : 0;
   for (int i = tid; i < 2 * (int)L.buf; i += kFwdThreads) {
     const int b = i / (int)L.buf, e = i % (int)L.buf;
     const int r = is_bf16<T>() ? e / ld : e % kFwdSlots;
     const int k = is_bf16<T>() ? e % ld : e / kFwdSlots;
     const int row = row0 + r;
     const bool in = b == 0 && r < rows && row < B && k < H;
-    h_s[i] = from_f<T>(in ? h0[(size_t)row * H + k] : 0.f);
+    float v = in ? h0[(size_t)row * H + k] : 0.f;
+    if constexpr (kReset) v = in ? v * keep_at(row, t_first) : 0.f;
+    h_s[i] = from_f<T>(v);
   }
 
   // this thread's gate item: (row0 + r, j0 + u), tid = r * 32 + u
@@ -172,6 +192,7 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
 #pragma unroll
     for (int q = 0; q < 3; ++q) in.x[q] = to_f(x_proj[n * H3 + q * H + j]);
     in.m = mask[n];
+    if constexpr (kReset) in.keep = keep_at(row, t);
   };
   FwdIn cur{}, nxt{};
   if (live) load(0, cur);
@@ -223,6 +244,7 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
     __syncthreads();  // every partial product is in red_s
 
     if (live) {
+      if constexpr (kReset) h_prev *= cur.keep;  // as the product read it: zero at a start
       float acc[3] = {0.f, 0.f, 0.f};
 #pragma unroll
       for (int p = 0; p < kFwdParts; ++p)
@@ -238,7 +260,7 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
       if (step + 1 < T_len) {
         // rows past B are never pushed: their slots stay zero
         T* nb = h_s + ((step + 1) & 1) * L.buf + L.at(r, j);
-        const T v = from_f<T>(h_prev);
+        const T v = from_f<T>(kReset ? h_prev * nxt.keep : h_prev);
         for (int p = 0; p < C; ++p) *cluster.map_shared_rank(nb, p) = v;
       }
     }
@@ -248,12 +270,12 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
   if (live) final_h[(size_t)row * H + j] = h_prev;
 }
 
-template <typename T>
-cudaLaunchConfig_t scan_fwd_config(int B, int H, int cluster, int rows, cudaLaunchAttribute* attr,
-                                   cudaStream_t stream) {
+// (the two instantiations of a scan kernel have one function type)
+template <typename T, typename Kernel>
+cudaLaunchConfig_t scan_fwd_config(Kernel kernel, int B, int H, int cluster, int rows,
+                                   cudaLaunchAttribute* attr, cudaStream_t stream) {
   const size_t smem = FwdLayout<T>(H).total;
-  cudaFuncSetAttribute(gru_scan_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((B + rows - 1) / rows) * cluster);
   cfg.blockDim = dim3(kFwdThreads);
@@ -269,16 +291,18 @@ cudaLaunchConfig_t scan_fwd_config(int B, int H, int cluster, int rows, cudaLaun
 }
 
 template <typename T>
-int launch_fwd(const void* x_proj, const void* mask, const void* h0, const void* wh,
-               const void* bh, void* outs, void* final_h, int B, int T_len, int H, int reverse,
-               int cluster, int units, int rows, cudaStream_t stream) {
+int launch_fwd(const void* x_proj, const void* mask, const void* reset, const void* h0,
+               const void* wh, const void* bh, void* outs, void* final_h, int B, int T_len,
+               int H, int reverse, int cluster, int units, int rows, cudaStream_t stream) {
+  const auto kernel =
+      reset != nullptr ? gru_scan_fwd_kernel<T, true> : gru_scan_fwd_kernel<T, false>;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = scan_fwd_config<T>(B, H, cluster, rows, attr, stream);
+  const cudaLaunchConfig_t cfg = scan_fwd_config<T>(kernel, B, H, cluster, rows, attr, stream);
   return (int)cudaLaunchKernelEx(
-      &cfg, gru_scan_fwd_kernel<T>, static_cast<const T*>(x_proj),
-      static_cast<const float*>(mask), static_cast<const float*>(h0),
-      static_cast<const T*>(wh), static_cast<const float*>(bh), static_cast<float*>(outs),
-      static_cast<float*>(final_h), B, T_len, H, units, rows, reverse);
+      &cfg, kernel, static_cast<const T*>(x_proj),
+      static_cast<const float*>(mask), static_cast<const float*>(reset),
+      static_cast<const float*>(h0), static_cast<const T*>(wh), static_cast<const float*>(bh),
+      static_cast<float*>(outs), static_cast<float*>(final_h), B, T_len, H, units, rows, reverse);
 }
 
 // Dynamic shared memory of the scan, one CTA: its rows of Wh (wrows, ld)
@@ -301,12 +325,23 @@ struct ScanLayout {
   }
 };
 
-// hp (B*T, 3H) f32 = round(h_prev) @ Wh + bh
+// Multiplies v by 1 - reset[i], the keep of flat (row, t) index i (nothing
+// without a reset stream).
+__device__ __forceinline__ void apply_keep(const float* __restrict__ reset, int i,
+                                           float (&v)[16]) {
+  if (reset == nullptr) return;
+  const float keep = 1.f - reset[i];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) v[e] *= keep;
+}
+
+// hp (B*T, 3H) f32 = round(h_prev) @ Wh + bh, h_prev zeroed at resets
 template <typename T>
 struct ScanHoist {
   int M, N, K;
   const float* __restrict__ h0;
   const float* __restrict__ outs;
+  const float* __restrict__ reset;
   const T* __restrict__ wh;
   const float* __restrict__ bh;
   float* __restrict__ hp;
@@ -315,6 +350,7 @@ struct ScanHoist {
   __device__ void load_a(int m, int k, float (&v)[16]) const {
     prev_seg<float>(h0, outs, m / T_len, m % T_len, T_len, H, k, m < M ? min(16, K - k) : 0,
                     reverse, v);
+    if (m < M) apply_keep(reset, m, v);
   }
   __device__ void load_b(int k, int n, float (&v)[16]) const {
     seg_load(wh + (size_t)k * N + n, k < K ? min(16, N - n) : 0, v);
@@ -325,13 +361,14 @@ struct ScanHoist {
 };
 
 // dWh (H, 3H) = sum over (row, t) of round(h_prev)^T round(dh_proj), with
-// dh_proj = [dx[:, :2H] | dhn]; the extra blocks write dbh (3H), 32 columns
-// a block.
+// dh_proj = [dx[:, :2H] | dhn] and h_prev zeroed at resets; the extra blocks
+// write dbh (3H), 32 columns a block.
 template <typename T>
 struct ScanDWh {
   int M, N, K;
   const float* __restrict__ h0;
   const float* __restrict__ outs;
+  const float* __restrict__ reset;
   const float* __restrict__ dx;
   const float* __restrict__ dhn;
   float* __restrict__ dwh;
@@ -344,6 +381,7 @@ struct ScanDWh {
   __device__ void load_a(int m, int k, float (&v)[16]) const {
     prev_seg<float>(h0, outs, k / T_len, k % T_len, T_len, H, m, k < K ? min(16, M - m) : 0,
                     reverse, v);
+    if (k < K) apply_keep(reset, k, v);
   }
   __device__ void load_b(int k, int n, float (&v)[16]) const {
     const int len = k < K ? min(16, N - n) : 0;
@@ -377,22 +415,24 @@ struct ScanDWh {
   }
 };
 
-// The inputs of one (row, unit) at one step, loaded a step ahead.
+// The inputs of one (row, unit) at one step, loaded a step ahead; keep =
+// 1 - reset, h_prev already multiplied by it.
 struct ScanIn {
-  float hp[3], x[3], g, m, h_prev;
+  float hp[3], x[3], g, m, h_prev, keep;
 };
 
 // Reverse scan over one cluster's kScanRows rows; see the note at the top.
 // g (B,T,H) is the cotangent of outs with the final state's folded in.
 // Writes dx (B,T,3H) = [dr_pre | dz_pre | dn_pre], dhn (B,T,H) (the third
 // block of dh_proj) and dh0 (B,H), all f32.
-template <typename T>
+template <typename T, bool kReset>
 __global__ void __launch_bounds__(kScanThreads)
 gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask,
-                    const float* __restrict__ h0, const float* __restrict__ outs,
-                    const float* __restrict__ g, const float* __restrict__ hp,
-                    const T* __restrict__ wh, float* __restrict__ dx, float* __restrict__ dhn,
-                    float* __restrict__ dh0, int B, int T_len, int H, int units, int reverse) {
+                    const float* __restrict__ reset, const float* __restrict__ h0,
+                    const float* __restrict__ outs, const float* __restrict__ g,
+                    const float* __restrict__ hp, const T* __restrict__ wh, float* __restrict__ dx,
+                    float* __restrict__ dhn, float* __restrict__ dh0, int B, int T_len, int H,
+                    int units, int reverse) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int H3 = 3 * H, tid = threadIdx.x;
@@ -428,9 +468,16 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
     in.g = g[n * H + j];
     in.m = mask[n];
     in.h_prev = prev_state<float>(h0, outs, row, t, T_len, H, j, reverse);
+    if constexpr (kReset) {
+      in.keep = 1.f - reset[n];
+      in.h_prev *= in.keep;
+    }
   };
   ScanIn cur{}, nxt{};
   if (live) load(0, cur);
+  // dh_s holds the dh_prev of the step processed before, not yet multiplied
+  // by that step's keep: its reader applies it
+  float keep_prev = 1.f;
   cluster.sync();  // every peer runs, and Wh is in shared memory, before the first push
 
   const int lane = tid & 31, warp = tid >> 5;
@@ -446,7 +493,7 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
         const float rg = sigmoid_f(cur.x[0] + cur.hp[0]);
         const float zg = sigmoid_f(cur.x[1] + cur.hp[1]);
         const float ng = tanhf(cur.x[2] + rg * hn);
-        const float dh_total = cur.g + dh_s[tid];
+        const float dh_total = cur.g + (kReset ? dh_s[tid] * keep_prev : dh_s[tid]);
         const float dhat = cur.m * dh_total;
         const float dz = dhat * (cur.h_prev - ng);
         const float dn = dhat * (1.f - zg);
@@ -535,17 +582,17 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
       }
     }
     __syncthreads();  // dh complete; dh_part may be rewritten
+    if constexpr (kReset) keep_prev = cur.keep;
     cur = nxt;
   }
-  if (live) dh0[(size_t)row * H + j] = dh_s[tid];
+  if (live) dh0[(size_t)row * H + j] = kReset ? dh_s[tid] * keep_prev : dh_s[tid];
 }
 
-template <typename T>
-cudaLaunchConfig_t scan_bwd_config(int B, int H, int cluster, int units,
+template <typename T, typename Kernel>
+cudaLaunchConfig_t scan_bwd_config(Kernel kernel, int B, int H, int cluster, int units,
                                    cudaLaunchAttribute* attr, cudaStream_t stream) {
   const size_t smem = ScanLayout<T>(H, units).total;
-  cudaFuncSetAttribute(gru_scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((B + kScanRows - 1) / kScanRows) * cluster);
   cfg.blockDim = dim3(kScanThreads);
@@ -561,28 +608,33 @@ cudaLaunchConfig_t scan_bwd_config(int B, int H, int cluster, int units,
 }
 
 template <typename T>
-int launch_bwd(const void* x_proj, const void* mask, const void* h0, const void* wh,
-               const void* bh, const void* outs, const void* g, void* dx, void* dh0, void* dwh,
-               void* dbh, void* hp, void* dhn, void* partial, void* counters, int B, int T_len,
-               int H, int reverse, int cluster, int units, int splits, cudaStream_t stream) {
+int launch_bwd(const void* x_proj, const void* mask, const void* reset, const void* h0,
+               const void* wh, const void* bh, const void* outs, const void* g, void* dx,
+               void* dh0, void* dwh, void* dbh, void* hp, void* dhn, void* partial,
+               void* counters, int B, int T_len, int H, int reverse, int cluster, int units,
+               int splits, cudaStream_t stream) {
   const int H3 = 3 * H;
   const float* h0f = static_cast<const float*>(h0);
   const float* outsf = static_cast<const float*>(outs);
-  OpArray<ScanHoist<T>, 1> hoist{{{B * T_len, H3, H, h0f, outsf, static_cast<const T*>(wh),
-                                   static_cast<const float*>(bh), static_cast<float*>(hp),
-                                   T_len, H, reverse}}};
+  const float* resetf = static_cast<const float*>(reset);
+  OpArray<ScanHoist<T>, 1> hoist{{{B * T_len, H3, H, h0f, outsf, resetf,
+                                   static_cast<const T*>(wh), static_cast<const float*>(bh),
+                                   static_cast<float*>(hp), T_len, H, reverse}}};
   tile_gemm<T>(hoist, stream);
+  const auto kernel =
+      reset != nullptr ? gru_scan_bwd_kernel<T, true> : gru_scan_bwd_kernel<T, false>;
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = scan_bwd_config<T>(B, H, cluster, units, attr, stream);
+  const cudaLaunchConfig_t cfg = scan_bwd_config<T>(kernel, B, H, cluster, units, attr, stream);
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, gru_scan_bwd_kernel<T>, static_cast<const T*>(x_proj),
-      static_cast<const float*>(mask), h0f, outsf, static_cast<const float*>(g),
+      &cfg, kernel, static_cast<const T*>(x_proj),
+      static_cast<const float*>(mask), resetf, h0f, outsf, static_cast<const float*>(g),
       static_cast<const float*>(hp), static_cast<const T*>(wh), static_cast<float*>(dx),
       static_cast<float*>(dhn), static_cast<float*>(dh0), B, T_len, H, units, reverse);
   if (err != cudaSuccess) return (int)err;
-  OpArray<ScanDWh<T>, 1> dw{{{H, H3, B * T_len, h0f, outsf, static_cast<const float*>(dx),
-                              static_cast<const float*>(dhn), static_cast<float*>(dwh),
-                              static_cast<float*>(dbh), T_len, H, reverse}}};
+  OpArray<ScanDWh<T>, 1> dw{{{H, H3, B * T_len, h0f, outsf, resetf,
+                              static_cast<const float*>(dx), static_cast<const float*>(dhn),
+                              static_cast<float*>(dwh), static_cast<float*>(dbh), T_len, H,
+                              reverse}}};
   tile_gemm<T>(dw, stream, splits, static_cast<float*>(partial), static_cast<int*>(counters));
   return 0;
 }
@@ -591,9 +643,10 @@ int launch_bwd(const void* x_proj, const void* mask, const void* h0, const void*
 
 // dtype: 0 = float32, 1 = bfloat16 (x_proj and Wh). Forward scan on
 // thread-block clusters of `cluster` CTAs, each owning `units` hidden units
-// (cluster * units >= H, units <= 32) of `rows` (<= 8) batch rows.
+// (cluster * units >= H, units <= 32) of `rows` (<= 8) batch rows. reset
+// (B,T) f32 or null.
 extern "C" int vmmt_gru_scan(int dtype, const void* x_proj, const void* mask,
-                             const void* h0, const void* wh, const void* bh,
+                             const void* reset, const void* h0, const void* wh, const void* bh,
                              void* outs, void* final_h, int B, int T_len, int H,
                              int reverse, int cluster, int units, int rows, void* stream) {
   if (B == 0 || T_len == 0) return 0;
@@ -602,9 +655,9 @@ extern "C" int vmmt_gru_scan(int dtype, const void* x_proj, const void* mask,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err =
-      dtype == 1 ? launch_fwd<__nv_bfloat16>(x_proj, mask, h0, wh, bh, outs, final_h, B, T_len,
-                                             H, reverse, cluster, units, rows, s)
-                 : launch_fwd<float>(x_proj, mask, h0, wh, bh, outs, final_h, B, T_len, H,
+      dtype == 1 ? launch_fwd<__nv_bfloat16>(x_proj, mask, reset, h0, wh, bh, outs, final_h, B,
+                                             T_len, H, reverse, cluster, units, rows, s)
+                 : launch_fwd<float>(x_proj, mask, reset, h0, wh, bh, outs, final_h, B, T_len, H,
                                      reverse, cluster, units, rows, s);
   return err != 0 ? err : (int)cudaGetLastError();
 }
@@ -617,22 +670,23 @@ extern "C" int vmmt_gru_scan_occupancy(int dtype, int H, int cluster, int rows,
   auto query = [&](auto zero) {
     using T = decltype(zero);
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = scan_fwd_config<T>(rows, H, cluster, rows, attr, 0);
+    const auto kernel = gru_scan_fwd_kernel<T, false>;
+    const cudaLaunchConfig_t cfg = scan_fwd_config<T>(kernel, rows, H, cluster, rows, attr, 0);
     *smem_bytes = (int)cfg.dynamicSmemBytes;
-    return cudaOccupancyMaxActiveClusters(max_clusters, gru_scan_fwd_kernel<T>, &cfg);
+    return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
   };
   return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
 }
 
 // Backward of vmmt_gru_scan on thread-block clusters of `cluster` CTAs,
 // each owning `units` hidden units (cluster * units >= H, units <= 32) of
-// kScanRows = 4 batch rows. x_proj and wh in the compute dtype; mask, h0,
-// bh, outs, g and every output f32: dx (B,T,3H), dh0 (B,H), dwh (H,3H), dbh
+// kScanRows = 4 batch rows. x_proj and wh in the compute dtype; mask,
+// reset (null: none), h0, bh, outs, g and every output f32: dx (B,T,3H), dh0 (B,H), dwh (H,3H), dbh
 // (3H). Scratch, f32: hp (B,T,3H), dhn (B,T,H); dWh splits its K = B*T
 // over `splits` blocks a 64 x 64 tile, with partial (splits * 4096 floats a
 // tile) and counters (an int a tile, zero before the call).
 extern "C" int vmmt_gru_scan_bwd(int dtype, const void* x_proj, const void* mask,
-                                 const void* h0, const void* wh, const void* bh,
+                                 const void* reset, const void* h0, const void* wh, const void* bh,
                                  const void* outs, const void* g, void* dx, void* dh0, void* dwh,
                                  void* dbh, void* hp, void* dhn, void* partial, void* counters,
                                  int B, int T_len, int H, int reverse, int cluster, int units,
@@ -644,12 +698,12 @@ extern "C" int vmmt_gru_scan_bwd(int dtype, const void* x_proj, const void* mask
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err =
       dtype == 1
-          ? launch_bwd<__nv_bfloat16>(x_proj, mask, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp,
-                                      dhn, partial, counters, B, T_len, H, reverse, cluster,
+          ? launch_bwd<__nv_bfloat16>(x_proj, mask, reset, h0, wh, bh, outs, g, dx, dh0, dwh, dbh,
+                                      hp, dhn, partial, counters, B, T_len, H, reverse, cluster,
                                       units, splits, s)
-          : launch_bwd<float>(x_proj, mask, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp, dhn,
-                              partial, counters, B, T_len, H, reverse, cluster, units, splits,
-                              s);
+          : launch_bwd<float>(x_proj, mask, reset, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp,
+                              dhn, partial, counters, B, T_len, H, reverse, cluster, units,
+                              splits, s);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -661,9 +715,11 @@ extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int un
   auto query = [&](auto zero) {
     using T = decltype(zero);
     cudaLaunchAttribute attr[1];
-    const cudaLaunchConfig_t cfg = scan_bwd_config<T>(kScanRows, H, cluster, units, attr, 0);
+    const auto kernel = gru_scan_bwd_kernel<T, false>;
+    const cudaLaunchConfig_t cfg =
+        scan_bwd_config<T>(kernel, kScanRows, H, cluster, units, attr, 0);
     *smem_bytes = (int)cfg.dynamicSmemBytes;
-    return cudaOccupancyMaxActiveClusters(max_clusters, gru_scan_bwd_kernel<T>, &cfg);
+    return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
   };
   return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
 }

@@ -36,15 +36,15 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # library name -> {C entry point: argtypes}
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "gru_scan": {
-        # dtype, x_proj, mask, h0, wh, bh, outs, final, B, T, H, reverse,
-        # cluster, units, rows, stream
-        "vmmt_gru_scan": [_I] + [_P] * 7 + [_I] * 7 + [_P],
+        # dtype, x_proj, mask, reset (null: none), h0, wh, bh, outs, final,
+        # B, T, H, reverse, cluster, units, rows, stream
+        "vmmt_gru_scan": [_I] + [_P] * 8 + [_I] * 7 + [_P],
         # dtype, H, cluster, rows, out: max active clusters, smem bytes
         "vmmt_gru_scan_occupancy": [_I] * 4 + [_P] * 2,
-        # dtype, x_proj, mask, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp and
-        # dhn scratch, dWh partials and counters, B, T, H, reverse, cluster,
-        # units, dWh splits, stream
-        "vmmt_gru_scan_bwd": [_I] + [_P] * 15 + [_I] * 7 + [_P],
+        # dtype, x_proj, mask, reset (null: none), h0, wh, bh, outs, g, dx,
+        # dh0, dwh, dbh, hp and dhn scratch, dWh partials and counters, B, T,
+        # H, reverse, cluster, units, dWh splits, stream
+        "vmmt_gru_scan_bwd": [_I] + [_P] * 16 + [_I] * 7 + [_P],
         # dtype, H, cluster, units, out: max active clusters, smem bytes
         "vmmt_gru_scan_bwd_occupancy": [_I] * 4 + [_P] * 2,
     },

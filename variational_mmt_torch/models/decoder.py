@@ -1,8 +1,9 @@
 """Input-feeding GRU decoder with global attention. Mirrors
 ``variational_mmt_tpu/models/decoder.py``: ``DecoderStep`` (:43-110) and,
 from ``GRUDecoder``, ``ih_emb``, ``init_carry`` (:135), the teacher-forced
-sequence (``__call__``, :141-249, input-feed path), ``project_memory``
-(:333) and ``one_step`` (:357-411).
+sequence (``__call__``, :141-249, input-feed path), its sequence-packed form
+(``packed_seq``, :251-331, input-feed path), ``project_memory`` (:333) and
+``one_step`` (:357-411).
 
 Dropout between the layers is one mask ``dmid`` (B,T,H) drawn up front from
 the caller's generator, as the JAX package's fused paths draw it
@@ -140,6 +141,57 @@ class GRUDecoder(nn.Module):
                 aligns.append(align)
             attn_hs, aligns = torch.stack(outs, dim=1), torch.stack(aligns, dim=1)
         return dropout(attn_hs, self.dropout, generator), aligns
+
+    def packed_seq(self, emb: torch.Tensor, memory: torch.Tensor, src_seg: torch.Tensor,
+                   tgt_seg: torch.Tensor, init_hs_seg: List[torch.Tensor],
+                   generator: Optional[torch.Generator] = None,
+                   extra_input_proj_seg: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Teacher-forced sequence over a sequence-packed batch: emb (B,T,E)
+        packed target inputs, memory (B,S,H) packed source memory, segment
+        ids src_seg (B,S) and tgt_seg (B,T) (-1 at pads), per-layer
+        per-segment init states (B,K,H), the optional per-segment input
+        projection of z (B,K,3H). Each segment decodes as if alone: at its
+        first position the layer states become its own bridge init and the
+        input feed zero, and it attends only to its own source positions.
+        Always the plain loop, as in JAX (neither the sequence kernels nor
+        ``fused`` know resets). Dropout draws from ``generator`` as
+        :meth:`forward` does. Returns (attentional hiddens (B,T,H),
+        alignments (B,T,S))."""
+        B, T, _ = emb.shape
+        H, dt = self.hidden, self.dtype
+        emb_proj = self.ih_emb(emb)
+        seg_idx = tgt_seg.clamp(min=0).long()[..., None]  # (B,T,1)
+
+        def per_position(per_seg: torch.Tensor) -> torch.Tensor:
+            """(B,K,D) -> (B,T,D): each position's segment row."""
+            return torch.gather(per_seg, 1, seg_idx.expand(-1, -1, per_seg.shape[-1]))
+
+        if extra_input_proj_seg is not None:
+            emb_proj = emb_proj + per_position(extra_input_proj_seg.to(emb_proj.dtype))
+        init_sel = [per_position(h.to(dt)) for h in init_hs_seg]
+        edge = torch.full_like(tgt_seg[:, :1], -2)
+        starts = (tgt_seg >= 0) & (tgt_seg != torch.cat([edge, tgt_seg[:, :-1]], dim=1))
+        # per-step attention mask (B,T,S): a position sees its own segment's source
+        amask = ((tgt_seg[:, :, None] == src_seg[:, None, :])
+                 & (src_seg >= 0)[:, None, :]).float()
+        keys = self.step.attn.project_memory(memory)
+        drop = generator is not None and self.dropout > 0.0
+        dmid = dropout_mask((B, T, H), self.dropout, generator, dt, emb.device) if drop else None
+        hs = tuple(torch.zeros_like(i[:, 0]) for i in init_sel)
+        feed = torch.zeros((B, H), dtype=dt, device=emb.device)
+        outs, aligns = [], []
+        for t in range(T):
+            r = starts[:, t, None]
+            hs = tuple(torch.where(r, i[:, t], h) for i, h in zip(init_sel, hs))
+            feed = torch.where(r, torch.zeros_like(feed), feed)
+            (hs, feed), (attn_h, align) = self.step(
+                (hs, feed), emb_proj[:, t], memory, amask[:, t], keys,
+                None if dmid is None else dmid[:, t])
+            outs.append(attn_h)
+            aligns.append(align)
+        return (dropout(torch.stack(outs, dim=1), self.dropout, generator),
+                torch.stack(aligns, dim=1))
 
     def project_memory(self, memory: torch.Tensor, with_values: bool = False):
         """Pre-projected attention keys for repeated ``one_step`` calls;

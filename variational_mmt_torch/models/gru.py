@@ -5,6 +5,9 @@ The input projection of every timestep is hoisted out of the recurrence as
 one GEMM; only ``h @ Wh`` recurs. Masked steps pass the carry through, so
 the reverse direction is right over right-padded batches. Gates follow the
 cuDNN convention: ``r, z`` sigmoid, ``n = tanh(x_n + r * (h @ Whn + bhn))``.
+
+Sequence packing (several sentences a row) resets the carry to zero at
+each segment's first token in both directions (:114-170, :241-298).
 """
 
 from __future__ import annotations
@@ -69,13 +72,19 @@ def dropout_mask(shape, rate: float, generator: torch.Generator, dtype: torch.dt
 
 def cell_layer_scan(x_proj: torch.Tensor, carry0: torch.Tensor, wh: torch.Tensor,
                     bh: torch.Tensor, mask: Optional[torch.Tensor] = None,
-                    reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                    reverse: bool = False, reset: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scan one GRU layer over x_proj (B,T,3H) in plain PyTorch: the
-    ``use_pallas=False`` path. Returns (outs (B,T,H), final (B,H))."""
+    ``use_pallas=False`` path. ``reset`` (B,T): where > 0 the carry becomes
+    zero before the cell consumes position t (a packed segment's start; the
+    ``init_seq`` form of JAX is not ported). Returns (outs (B,T,H), final
+    (B,H))."""
     T = x_proj.shape[1]
     h = carry0
     outs: List[Optional[torch.Tensor]] = [None] * T
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        if reset is not None:
+            h = torch.where(reset[:, t, None] > 0, torch.zeros_like(h), h)
         h_new = gru_gates(x_proj[:, t], h @ wh + bh, h)
         if mask is not None:
             h_new = torch.where(mask[:, t, None] > 0, h_new, h)
@@ -100,7 +109,9 @@ class UniGRU(nn.Module):
         self.hh_kernel = nn.Parameter(torch.empty(hidden, 3 * hidden))
         self.hh_bias = nn.Parameter(torch.empty(3 * hidden))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor,
+                reset: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``reset`` (B,T) f32: 1 at a packed segment's start (None: none)."""
         x_proj = self.ih(x)
         h0 = torch.zeros((x.shape[0], self.hidden), dtype=self.dtype, device=x.device)
         if self.use_pallas:
@@ -109,11 +120,11 @@ class UniGRU(nn.Module):
             # as the JAX Pallas path: Wh in the compute dtype, bh in f32,
             # f32 results cast to the compute dtype
             outs, final = gru_layer_scan_ad(x_proj, mask, h0, self.hh_kernel.to(self.dtype),
-                                            self.hh_bias, self.reverse)
+                                            self.hh_bias, self.reverse, reset)
             return outs.to(self.dtype), final.to(self.dtype)
         return cell_layer_scan(x_proj, h0, self.hh_kernel.to(self.dtype),
                                self.hh_bias.to(self.dtype), mask=mask.to(self.dtype),
-                               reverse=self.reverse)
+                               reverse=self.reverse, reset=reset)
 
 
 class BiGRUEncoder(nn.Module):
@@ -137,23 +148,58 @@ class BiGRUEncoder(nn.Module):
             self.add_module(f"bwd{layer}", UniGRU(d, half, True, dtype, use_pallas))
 
     def forward(self, emb: torch.Tensor, mask: torch.Tensor,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None,
+                seg: Optional[torch.Tensor] = None,
+                seg_bounds: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """emb (B,T,E), mask (B,T) -> (memory (B,T,H), finals per layer
-        (B,H) laid out [fwd_final | bwd_final])."""
+        (B,H) laid out [fwd_final | bwd_final]).
+
+        Sequence packing: ``seg`` (B,T) segment ids, -1 at pads, resets the
+        carry at each segment's first token (forward) and last token
+        (backward), so each segment is encoded as if alone in its row. With
+        ``seg_bounds = (first, last)`` ((B,K) positions) the finals are per
+        segment, (B,K,H): the forward output at the segment's last token
+        beside the backward output at its first."""
+        reset_f = reset_b = None
+        if seg is not None:
+            valid = seg >= 0
+            edge = torch.full_like(seg[:, :1], -2)
+            prev = torch.cat([edge, seg[:, :-1]], dim=1)
+            nxt = torch.cat([seg[:, 1:], edge], dim=1)
+            reset_f = (valid & (seg != prev)).float()
+            reset_b = (valid & (seg != nxt)).float()
         x = emb
         finals: List[torch.Tensor] = []
         for layer in range(self.layers):
             if layer > 0:
                 x = dropout(x, self.dropout, generator)
-            fwd_out, fwd_fin = getattr(self, f"fwd{layer}")(x, mask)
-            bwd_out, bwd_fin = getattr(self, f"bwd{layer}")(x, mask)
+            fwd_out, fwd_fin = getattr(self, f"fwd{layer}")(x, mask, reset_f)
+            bwd_out, bwd_fin = getattr(self, f"bwd{layer}")(x, mask, reset_b)
             x = torch.cat([fwd_out, bwd_out], dim=-1)
+            if seg_bounds is not None:
+                first, last = seg_bounds
+                fwd_fin, bwd_fin = _gather_rows(fwd_out, last), _gather_rows(bwd_out, first)
             finals.append(torch.cat([fwd_fin, bwd_fin], dim=-1))
         return x, finals
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B,T,H) at positions idx (B,K) -> (B,K,H)."""
+    return torch.gather(x, 1, idx.long()[..., None].expand(-1, -1, x.shape[-1]))
 
 
 def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """(B,T,H), (B,T) -> (B,H) mean over real positions."""
     m = mask[..., None].to(x.dtype)
     return (x * m).sum(dim=1) / torch.clamp(m.sum(dim=1), min=1.0)
+
+
+def segment_mean(x: torch.Tensor, seg: torch.Tensor, n_segments: int) -> torch.Tensor:
+    """(B,T,H), seg (B,T) ids in [-1, K) -> (B,K,H): the mean over each
+    packed segment's positions (the packed form of :func:`masked_mean`), as
+    one product with the one-hot segment matrix."""
+    ids = torch.arange(n_segments, device=seg.device)
+    onehot = (seg[:, None, :] == ids[None, :, None]).to(x.dtype)  # (B,K,T)
+    counts = onehot.sum(dim=-1, keepdim=True)
+    return (onehot @ x) / torch.clamp(counts, min=1.0)

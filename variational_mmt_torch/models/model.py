@@ -26,7 +26,7 @@ from variational_mmt_torch.config import ModelConfig
 from variational_mmt_torch.data.vocab import PAD, UNK
 from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.models.decoder import GRUDecoder
-from variational_mmt_torch.models.gru import BiGRUEncoder, masked_mean
+from variational_mmt_torch.models.gru import BiGRUEncoder, masked_mean, segment_mean
 from variational_mmt_torch.models.latent import (ConditionalPrior, ImagePredictor,
                                                  InferenceNetwork, reparameterize)
 from variational_mmt_torch.models.layers import Dense, Embed
@@ -198,6 +198,63 @@ class VMMTModel(nn.Module):
         dec, aligns = self.decode_train(tgt_in, memory, src_mask, init_hs, z, drop_gen,
                                         return_pre_gen=c.fused_ce)
         out["dec_out" if c.fused_ce else "logits"] = dec
+        out["aligns"] = aligns
+        return out
+
+    def forward_packed(self, src: torch.Tensor, tgt_in: torch.Tensor, src_seg: torch.Tensor,
+                       tgt_seg: torch.Tensor, seg_first: torch.Tensor, seg_last: torch.Tensor,
+                       img: Optional[torch.Tensor] = None, deterministic: bool = True,
+                       sample: bool = True, tgt_out: Optional[torch.Tensor] = None,
+                       generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        """Training forward over a sequence-packed batch (model.py:308-397):
+        rows (B,L) holding up to K sentences each, segment ids src_seg and
+        tgt_seg (B,L) (-1 at pads), each segment's first and last source
+        position seg_first, seg_last (B,K), image features (B,K,D). The
+        per-sentence outputs (latent parameters, z, image prediction) come
+        out flattened (B*K, ...), so that the ELBO treats each segment as an
+        unpacked row; the token-level ones keep (B,L,...). Per segment the
+        math is the unpacked forward's. ``tgt_out`` (the gold target q
+        conditions on) is required; ``generator`` as in :meth:`forward`."""
+        c = self.cfg
+        if (not deterministic or sample) and generator is None:
+            raise ValueError("forward_packed: dropout and sampling need a torch.Generator")
+        if tgt_out is None:
+            raise ValueError("forward_packed requires tgt_out (the gold target the posterior "
+                             "conditions on)")
+        drop_gen = None if deterministic else generator
+        B, K = seg_first.shape
+        memory, finals = self.encoder(self.src_embed(src), (src_seg >= 0).float(), drop_gen,
+                                      seg=src_seg, seg_bounds=(seg_first, seg_last))
+        src_summary = segment_mean(memory, src_seg, K).reshape(B * K, -1)
+        out: Dict[str, torch.Tensor] = {}
+        v_in = None if img is None else self._img_in(img.reshape((B * K,) + img.shape[2:]))
+        # q over the packed gold target: a segment-reset encoder, a summary a segment
+        tgt_enc, _ = self.tgt_encoder(self.tgt_embed(tgt_out), (tgt_seg >= 0).float(), drop_gen,
+                                      seg=tgt_seg)
+        tgt_summary = segment_mean(tgt_enc, tgt_seg, K).reshape(B * K, -1)
+        mu_q, sigma_q = self.infnet(src_summary, tgt_summary, v_in)
+        mu_p, sigma_p = self.prior_params(src_summary, v_in)
+        z = reparameterize(mu_q, sigma_q, generator) if sample else mu_q
+        out.update(mu_q=mu_q, sigma_q=sigma_q, mu_p=mu_p, sigma_p=sigma_p, z=z)
+        if c.use_img_predict:
+            out["img_pred"] = self.img_pred(z)
+            if v_in is not None:
+                out["img_target"] = v_in.detach()
+        if not deterministic and c.word_dropout > 0.0:
+            keep = torch.rand(tgt_in.shape, generator=generator, device=tgt_in.device) \
+                < 1.0 - c.word_dropout
+            # never PAD, never a segment's BOS (a packed row has one a segment)
+            edge = torch.full_like(tgt_seg[:, :1], -2)
+            start = (tgt_seg >= 0) & (tgt_seg != torch.cat([edge, tgt_seg[:, :-1]], dim=1))
+            drop = ~keep & (tgt_in != PAD) & ~start
+            tgt_in = torch.where(drop, torch.full_like(tgt_in, UNK), tgt_in)
+        init_seg = [h.reshape(B, K, -1) for h in
+                    self.init_decoder_state([f.reshape(B * K, -1) for f in finals], z)]
+        zp = self.z_extra_proj(z)
+        dec, aligns = self.decoder.packed_seq(self.tgt_embed(tgt_in), memory, src_seg, tgt_seg,
+                                              init_seg, drop_gen,
+                                              None if zp is None else zp.reshape(B, K, -1))
+        out["dec_out" if c.fused_ce else "logits"] = dec if c.fused_ce else self._gen(dec)
         out["aligns"] = aligns
         return out
 

@@ -24,6 +24,16 @@ the wrapper checks with the card that a cluster fits. The TPU's row
 chunking (``_max_rows``, a VMEM budget) is not carried over: the grid
 covers B.
 
+Source note, reset stream (sequence packing). Both Pallas kernels take an
+optional ``reset`` (B,T) stream (the ``has_reset`` branches, gru.py:68-71,
+:205-210 and :244-245): before the cell of a step with reset 1 the carry is
+multiplied by ``1 - reset``; the backward recomputes the gates from that
+zeroed state and stops the carry's cotangent at the boundary. Both CUDA
+kernels take it as a nullable pointer (null: today's path), prefetched
+with the mask, one float per (row, step). ``reset`` is a constant: it gets
+no cotangent. Launches that carry a reset stream are also counted in
+``reset_launches``.
+
 Source note, backward. Replaces ``_gru_bwd_kernel`` (ops/pallas/gru.py:186,
 ``pallas_call`` at :297) with ``vmmt_gru_scan_bwd`` in the same
 ``csrc/gru_scan.cu``. Its serial part is T dependent steps, each with two
@@ -57,20 +67,29 @@ from variational_mmt_torch import kernels
 from variational_mmt_torch.models.gru import gru_bwd_core, gru_gates
 
 
+def _keep(reset: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """(B,T,1) f32 ``1 - reset``, or None without a reset stream."""
+    return None if reset is None else (1.0 - reset.float())[..., None]
+
+
 def gru_layer_scan_ref(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
-                       Wh: torch.Tensor, bh: torch.Tensor,
-                       reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+                       Wh: torch.Tensor, bh: torch.Tensor, reverse: bool = False,
+                       reset: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the kernel, step by step as the Pallas body
     computes it: f32 state, ``h`` rounded to Wh's dtype for the product with
-    f32 accumulation, f32 bias and gate math. Returns (outs (B,T,H) f32,
-    final (B,H) f32)."""
+    f32 accumulation, f32 bias and gate math; with ``reset`` (B,T), the
+    carry multiplied by ``1 - reset`` before each step's cell. Returns (outs
+    (B,T,H) f32, final (B,H) f32)."""
     B, T, H3 = x_proj.shape
     h = h0.float()
     w = Wh.float()
     b = bh.float()
     m = mask.float()
+    keep = _keep(reset)
     outs = torch.empty((B, T, H3 // 3), dtype=torch.float32, device=x_proj.device)
     for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        if keep is not None:
+            h = h * keep[:, t]
         h_proj = h.to(Wh.dtype).float() @ w + b
         h_new = gru_gates(x_proj[:, t].float(), h_proj, h)
         h = torch.where(m[:, t, None] > 0, h_new, h)
@@ -82,17 +101,15 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
                    Wh: torch.Tensor, bh: torch.Tensor, reverse: bool = False,
                    reset: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One GRU layer over the sequence. x_proj (B,T,3H) and Wh (H,3H) in
-    one dtype (float32 or bfloat16); mask (B,T), h0 (B,H) and bh (3H,) are
-    taken as f32. Returns (outs (B,T,H) f32, final (B,H) f32).
+    one dtype (float32 or bfloat16); mask (B,T), reset (B,T) or None, h0
+    (B,H) and bh (3H,) are taken as f32. Returns (outs (B,T,H) f32, final
+    (B,H) f32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (the
     plan of the last launch, with the card's count of co-resident clusters,
     is kept in ``gru_layer_scan.plan``)."""
-    if reset is not None:
-        raise NotImplementedError(
-            "gru_layer_scan: reset (sequence packing) is not ported yet")
     if x_proj.device.type == "cpu":
-        return gru_layer_scan_ref(x_proj, mask, h0, Wh, bh, reverse)
+        return gru_layer_scan_ref(x_proj, mask, h0, Wh, bh, reverse, reset)
     B, T, H3 = x_proj.shape
     H = H3 // 3
     dt = Wh.dtype
@@ -100,31 +117,43 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
         raise TypeError(f"gru_layer_scan kernel: x_proj {x_proj.dtype} and Wh {dt} "
                         "must both be float32 or both bfloat16")
     if tuple(Wh.shape) != (H, H3) or tuple(mask.shape) != (B, T) or tuple(h0.shape) != (B, H) \
-            or tuple(bh.shape) != (H3,):
+            or tuple(bh.shape) != (H3,) or (reset is not None and tuple(reset.shape) != (B, T)):
         raise ValueError("gru_layer_scan kernel: shapes do not match x_proj (B,T,3H)")
-    plan = scan_fwd_plan(B, T, H, dt)
     x = x_proj.contiguous()
     m = mask.to(torch.float32).contiguous()
+    r = _reset_arg(reset)
     h = h0.to(torch.float32).contiguous()
     w = Wh.contiguous()
     b = bh.to(torch.float32).contiguous()
-    kernels.require_cuda("gru_layer_scan", x.device, mask=m, h0=h, Wh=w, bh=b)
+    kernels.require_cuda("gru_layer_scan", x.device, mask=m, h0=h, Wh=w, bh=b,
+                         **({} if r is None else {"reset": r}))
     outs = torch.empty((B, T, H), dtype=torch.float32, device=x.device)
     final = torch.empty((B, H), dtype=torch.float32, device=x.device)
     lib = kernels.library("gru_scan")
+    plan = scan_fwd_plan(B, T, H, dt, kernels.sm_count(x.device.index))
     code = kernels.DTYPE_CODE[dt]
     co_resident, smem = kernels.occupancy(x.device.index, "gru_scan", "vmmt_gru_scan_occupancy",
                                           code, H, plan["cluster"], plan["rows"])
     _check_cluster("gru_layer_scan", plan, co_resident, smem)
     gru_layer_scan.plan = dict(plan, max_active_clusters=co_resident,
                                one_wave=co_resident >= plan["clusters"])
-    err = lib.vmmt_gru_scan(code, x.data_ptr(), m.data_ptr(), h.data_ptr(), w.data_ptr(),
-                            b.data_ptr(), outs.data_ptr(), final.data_ptr(), B, T, H,
-                            int(reverse), plan["cluster"], plan["units"], plan["rows"],
+    err = lib.vmmt_gru_scan(code, x.data_ptr(), m.data_ptr(), _ptr(r), h.data_ptr(),
+                            w.data_ptr(), b.data_ptr(), outs.data_ptr(), final.data_ptr(), B, T,
+                            H, int(reverse), plan["cluster"], plan["units"], plan["rows"],
                             kernels.stream_of(x))
     kernels.check(lib, err, "gru_layer_scan")
     gru_layer_scan.launches += 1
+    gru_layer_scan.reset_launches += r is not None
     return outs, final
+
+
+def _reset_arg(reset: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    return None if reset is None else reset.to(torch.float32).contiguous()
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's address for a nullable pointer argument (None: null)."""
+    return None if t is None else t.data_ptr()
 
 
 def _check_cluster(what: str, plan: dict, co_resident: int, smem: int) -> None:
@@ -149,31 +178,37 @@ def _prev_states(h0: torch.Tensor, outs: torch.Tensor, reverse: bool) -> torch.T
 
 def gru_layer_scan_bwd_ref(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
                            Wh: torch.Tensor, bh: torch.Tensor, outs: torch.Tensor,
-                           g: torch.Tensor, reverse: bool = False):
+                           g: torch.Tensor, reverse: bool = False,
+                           reset: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the backward kernel, step by step as the
     Pallas body (``_gru_bwd_kernel``) computes it: gates recomputed from the
     previous state, masked steps passing dh through, ``dh_proj`` rounded to
-    Wh's dtype for ``dh_proj @ Wh^T`` and for dWh. ``g`` (B,T,H) is the
-    cotangent of ``outs`` with the final state's already folded in. Returns
-    (dx_proj (B,T,3H), dh0 (B,H), dWh (H,3H), dbh (3H,)), all f32."""
+    Wh's dtype for ``dh_proj @ Wh^T`` and for dWh; with ``reset``, the
+    previous state multiplied by ``keep = 1 - reset`` and each step's dh_prev
+    too. ``g`` (B,T,H) is the cotangent of ``outs`` with the final state's
+    already folded in. Returns (dx_proj (B,T,3H), dh0 (B,H), dWh (H,3H), dbh
+    (3H,)), all f32."""
     B, T, H3 = x_proj.shape
     cdt = Wh.dtype
     w = Wh.float()
     b = bh.float()
     m = mask.float()
+    keep = _keep(reset)
     prev = _prev_states(h0, outs, reverse)
     dh = torch.zeros((B, H3 // 3), dtype=torch.float32, device=x_proj.device)
     dx = torch.empty((B, T, H3), dtype=torch.float32, device=x_proj.device)
     dWh = torch.zeros((H3 // 3, H3), dtype=torch.float32, device=x_proj.device)
     dbh = torch.zeros((H3,), dtype=torch.float32, device=x_proj.device)
     for t in (range(T) if reverse else range(T - 1, -1, -1)):
-        h_prev = prev[:, t]
+        h_prev = prev[:, t] if keep is None else prev[:, t] * keep[:, t]
         h_proj = h_prev.to(cdt).float() @ w + b
         m_t = m[:, t, None]
         dh_total = g[:, t].float() + dh
         dx_t, dhp, dh_part = gru_bwd_core(m_t * dh_total, x_proj[:, t].float(), h_proj, h_prev)
         dhp_c = dhp.to(cdt).float()
         dh = (1.0 - m_t) * dh_total + dh_part + dhp_c @ w.t()
+        if keep is not None:
+            dh = dh * keep[:, t]
         dx[:, t] = dx_t
         dWh += h_prev.to(cdt).float().t() @ dhp_c
         dbh += dhp.sum(0)
@@ -187,7 +222,6 @@ SCAN_BWD_WARPS = 8  # warps of a CTA (kScanWarps)
 SCAN_FWD_SLOTS = 8  # batch-row slots of the forward's state buffers (kFwdSlots)
 SCAN_FWD_PARTS = 4  # K split of the forward's step product (kFwdParts)
 SCAN_FWD_SMALL_ROWS = 4  # rows per cluster while the grid stays within one CTA an SM
-H100_SMS = 132  # SMs of an H100 SXM
 
 
 def _mma_ld(k: int) -> int:
@@ -210,21 +244,22 @@ def _cluster_units(what: str, H: int) -> Tuple[int, int]:
     return cluster, -(-H // cluster)
 
 
-def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
-    """Launch plan of the forward for B rows, T steps and H units: clusters
-    of ``cluster`` CTAs, each owning ``units`` hidden units of ``rows``
-    batch rows, with ``smem`` bytes of dynamic shared memory per CTA
-    (mirrors ``FwdLayout`` of csrc/gru_scan.cu: the CTA's 96 gate-unit
-    columns of Wh and two state buffers of 8 row slots in the compute dtype,
-    bf16 rows at the mma stride; the K-split partial products in f32).
-    ``rows`` is 4 while the grid fits one CTA an SM of an H100, else 8 (the
-    mma's columns). Raises NotImplementedError for what the design cannot
-    hold."""
+def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """Launch plan of the forward for B rows, T steps and H units on a card
+    of ``sms`` SMs: clusters of ``cluster`` CTAs, each owning ``units``
+    hidden units of ``rows`` batch rows, with ``smem`` bytes of dynamic
+    shared memory per CTA (mirrors ``FwdLayout`` of csrc/gru_scan.cu: the
+    CTA's 96 gate-unit columns of Wh and two state buffers of 8 row slots
+    in the compute dtype, bf16 rows at the mma stride; the K-split partial
+    products in f32).
+    ``rows`` is 4 while the grid fits one CTA an SM of the card, else 8
+    (the mma's columns). Raises NotImplementedError for what the design
+    cannot hold."""
     if dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"gru_layer_scan kernel: dtype {dtype}")
     cluster, units = _cluster_units("gru_layer_scan", H)
     rows = SCAN_FWD_SMALL_ROWS
-    if -(-B // rows) * cluster > H100_SMS:
+    if -(-B // rows) * cluster > sms:
         rows = SCAN_FWD_SLOTS
     tsize = torch.finfo(dtype).bits // 8
     ld = _mma_ld(H) if dtype == torch.bfloat16 else H
@@ -269,14 +304,15 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
 
 def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
                        Wh: torch.Tensor, bh: torch.Tensor, outs: torch.Tensor,
-                       g: torch.Tensor, reverse: bool = False):
+                       g: torch.Tensor, reverse: bool = False,
+                       reset: Optional[torch.Tensor] = None):
     """Backward of :func:`gru_layer_scan` (same inputs, plus its f32
     ``outs`` and their cotangent ``g``). Returns (dx_proj, dh0, dWh, dbh) in
     f32. CPU tensors take the plain version; CUDA tensors launch the
     kernels (the plan of the last launch, with the card's count of
     co-resident clusters, is kept in ``gru_layer_scan_bwd.plan``)."""
     if x_proj.device.type == "cpu":
-        return gru_layer_scan_bwd_ref(x_proj, mask, h0, Wh, bh, outs, g, reverse)
+        return gru_layer_scan_bwd_ref(x_proj, mask, h0, Wh, bh, outs, g, reverse, reset)
     B, T, H3 = x_proj.shape
     H = H3 // 3
     dt = Wh.dtype
@@ -285,15 +321,19 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
                         "must both be float32 or both bfloat16")
     if tuple(Wh.shape) != (H, H3) or tuple(mask.shape) != (B, T) or tuple(h0.shape) != (B, H) \
             or tuple(bh.shape) != (H3,) or tuple(outs.shape) != (B, T, H) \
-            or tuple(g.shape) != (B, T, H):
+            or tuple(g.shape) != (B, T, H) \
+            or (reset is not None and tuple(reset.shape) != (B, T)):
         raise ValueError("gru_layer_scan_bwd kernel: shapes do not match x_proj (B,T,3H)")
     plan = scan_bwd_plan(B, T, H, dt)
     f32 = torch.float32
     x = x_proj.contiguous()
     args = [x, mask.to(f32).contiguous(), h0.to(f32).contiguous(), Wh.contiguous(),
             bh.to(f32).contiguous(), outs.to(f32).contiguous(), g.to(f32).contiguous()]
+    r = _reset_arg(reset)
     kernels.require_cuda("gru_layer_scan_bwd", x.device,
-                         **dict(zip(("mask", "h0", "Wh", "bh", "outs", "g"), args[1:])))
+                         **dict(zip(("mask", "h0", "Wh", "bh", "outs", "g"), args[1:])),
+                         **({} if r is None else {"reset": r}))
+    args.insert(2, r)
     dx = torch.empty((B, T, H3), dtype=f32, device=x.device)
     dh0 = torch.empty((B, H), dtype=f32, device=x.device)
     dWh = torch.empty((H, H3), dtype=f32, device=x.device)
@@ -312,19 +352,22 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     _check_cluster("gru_layer_scan_bwd", plan, co_resident, smem)
     gru_layer_scan_bwd.plan = dict(plan, max_active_clusters=co_resident,
                                    one_wave=co_resident >= plan["clusters"])
-    err = lib.vmmt_gru_scan_bwd(code, *(a.data_ptr() for a in args), dx.data_ptr(),
+    err = lib.vmmt_gru_scan_bwd(code, *map(_ptr, args), dx.data_ptr(),
                                 dh0.data_ptr(), dWh.data_ptr(), dbh.data_ptr(), hp.data_ptr(),
                                 dhn.data_ptr(), partial.data_ptr(), counters.data_ptr(), B, T, H,
                                 int(reverse), plan["cluster"], plan["units"], splits,
                                 kernels.stream_of(x))
     kernels.check(lib, err, "gru_layer_scan_bwd")
     gru_layer_scan_bwd.launches += 1
+    gru_layer_scan_bwd.reset_launches += r is not None
     return dx, dh0, dWh, dbh
 
 
 gru_layer_scan.launches = 0
+gru_layer_scan.reset_launches = 0  # the launches that carried a reset stream
 gru_layer_scan.plan = None
 gru_layer_scan_bwd.launches = 0
+gru_layer_scan_bwd.reset_launches = 0
 gru_layer_scan_bwd.plan = None
 
 
@@ -333,31 +376,30 @@ class _GruLayerScanAD(torch.autograd.Function):
     (the custom VJP ``_gru_ad_fwd`` / ``_gru_ad_bwd``, gru.py:346-384)."""
 
     @staticmethod
-    def forward(ctx, x_proj, mask, h0, Wh, bh, reverse):
-        outs, final = gru_layer_scan(x_proj, mask, h0, Wh, bh, reverse)
-        ctx.save_for_backward(x_proj, mask, h0, Wh, bh, outs)
+    def forward(ctx, x_proj, mask, h0, Wh, bh, reverse, reset):
+        outs, final = gru_layer_scan(x_proj, mask, h0, Wh, bh, reverse, reset)
+        ctx.save_for_backward(x_proj, mask, h0, Wh, bh, outs, reset)
         ctx.reverse = reverse
         return outs, final
 
     @staticmethod
     def backward(ctx, g_outs, g_fin):
-        x_proj, mask, h0, Wh, bh, outs = ctx.saved_tensors
+        x_proj, mask, h0, Wh, bh, outs, reset = ctx.saved_tensors
         # fold the final state's cotangent into the last step processed:
         # exact, because every step writes out[t] = carry, so out[last] == final
         g = g_outs.float().clone()
         g[:, 0 if ctx.reverse else -1] += g_fin.float()
-        dx, dh0, dWh, dbh = gru_layer_scan_bwd(x_proj, mask, h0, Wh, bh, outs, g, ctx.reverse)
+        dx, dh0, dWh, dbh = gru_layer_scan_bwd(x_proj, mask, h0, Wh, bh, outs, g, ctx.reverse,
+                                               reset)
+        # reset, like mask, is a constant: no cotangent (Pallas gru.py:383)
         return (dx.to(x_proj.dtype), None, dh0.to(h0.dtype), dWh.to(Wh.dtype),
-                dbh.to(bh.dtype), None)
+                dbh.to(bh.dtype), None, None)
 
 
 def gru_layer_scan_ad(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
                       Wh: torch.Tensor, bh: torch.Tensor, reverse: bool = False,
                       reset: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Differentiable :func:`gru_layer_scan` (both passes are kernels on
-    CUDA tensors). Gradients come back in the inputs' dtypes; ``mask`` has
-    none."""
-    if reset is not None:
-        raise NotImplementedError(
-            "gru_layer_scan_ad: reset (sequence packing) is not ported yet")
-    return _GruLayerScanAD.apply(x_proj, mask, h0, Wh, bh, reverse)
+    CUDA tensors). Gradients come back in the inputs' dtypes; ``mask`` and
+    ``reset`` have none."""
+    return _GruLayerScanAD.apply(x_proj, mask, h0, Wh, bh, reverse, reset)

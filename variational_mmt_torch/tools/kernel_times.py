@@ -1,13 +1,15 @@
-"""Times of the serving kernels (rows 1, 3 and 4 of PERF.md's table) at
-the main paths' shapes, for comparing two trees of the port on one card.
+"""Times of the GRU-scan kernels and the serving kernels (rows 1-4 of
+PERF.md's table) at the main paths' shapes, for comparing two trees of the
+port on one card.
 
     PYTHONPATH=<tree> python <this file>
 
 imports ``variational_mmt_torch`` from ``<tree>`` (so one copy of this
 script times an older tree too: it calls only the wrappers' public
 signatures) and prints one JSON line: for the GRU-scan forward at B=256
-(serving) and B=64 (training), T=24, H=250, and the decode step and GRU
-chain at N=1024, S=24, H=500, all bf16, the time of one call by CUDA
+(serving) and B=64 (training), T=24, H=250, its backward at B=64 (both
+without a reset stream), and the decode step and GRU chain at N=1024,
+S=24, H=500, all bf16, the time of one call by CUDA
 events over 50 calls after 5 (``ms``: what ``chip_smoke.py`` reports, the
 host's launch work included when it is the slower side) and the device
 time of one call under ``torch.profiler`` (``device_ms``: the kernels'
@@ -70,6 +72,10 @@ def main() -> None:
         args = (r(B, 24, 3 * H).to(bf), mask, 0.1 * r(B, H),
                 (r(H, 3 * H) / math.sqrt(H)).to(bf), 0.1 * r(3 * H))
         calls[f"gru_layer_scan B={B}"] = lambda a=args: gru_scan.gru_layer_scan(*a, True)
+    outs, _ = gru_scan.gru_layer_scan_ref(*args, True)
+    g_outs = r(64, 24, H)
+    calls["gru_layer_scan_bwd B=64"] = lambda: gru_scan.gru_layer_scan_bwd(*args, outs, g_outs,
+                                                                            True)
     N, S, H = 1024, 24, 500
     w = lambda *s: (r(*s) / math.sqrt(H)).to(bf)  # noqa: E731
     chain = (r(N, 3 * H).to(bf), torch.tanh(r(N, H)).to(bf), torch.tanh(r(N, H)).to(bf),

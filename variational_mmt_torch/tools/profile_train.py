@@ -2,11 +2,13 @@
 
     python -m variational_mmt_torch.tools.profile_train [--out DIR] [--steps N]
 
-Builds the training cell of ``chip_smoke.py`` (``tools/flagship.py``:
+Builds the training cells of ``chip_smoke.py`` (``tools/flagship.py``:
 vmmt_c at full width with random weights from numpy seed 0, bf16,
 use_pallas, fused_ce; 4 fixed batches of 64 sentence pairs from numpy
-seed 1), then for ``pallas_decoder`` 1 and 0 warms up with 3 Trainer steps
-and takes N more (default 3) under ``torch.profiler``.
+seed 1, and 4 packed batches of 64 rows of 64 tokens), then for
+``pallas_decoder`` 1 and 0 and for the packed cell (``train.pack``) warms
+up with 3 Trainer steps and takes N more (default 3) under
+``torch.profiler``.
 Prints, per setting, the host wall time per step, the device's busy time
 and idle share, and the device time by layer (GRU-scan kernels, decoder
 sequence kernels, cuBLAS GEMMs, softmax, reductions, the rest) and by
@@ -68,10 +70,13 @@ def main() -> None:
     print(card)
     cfg, state = flagship.load()
     m = cfg.model
-    batches = flagship.train_batches(m)
+    packed = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, pack=True))
+    cells = [(f"pallas_decoder={int(p)}",
+              dataclasses.replace(cfg, model=dataclasses.replace(m, pallas_decoder=p)),
+              flagship.train_batches(m)) for p in (True, False)]
+    cells.append(("packed", packed, flagship.packed_batches(m)))
 
-    for pallas_decoder in (True, False):
-        c = dataclasses.replace(cfg, model=dataclasses.replace(m, pallas_decoder=pallas_decoder))
+    for cell, c, batches in cells:
         model = build_model(c.model, device="cuda")
         model.load_state_dict(state)
         trainer = Trainer(c, model, batches, device="cuda")
@@ -93,17 +98,16 @@ def main() -> None:
         for name, (t, _) in by_kernel.items():
             by_layer[layer_of(name)] += t
         n = args.steps
-        print(f"\npallas_decoder={int(pallas_decoder)}: {n} steps of batch 64, wall "
+        print(f"\n{cell}: {n} steps of batch 64, wall "
               f"{wall_us / 1e3 / n:.2f} ms/step, device busy {busy / 1e3 / n:.2f} ms/step, "
               f"idle share {1 - busy / wall_us:.3f} ({card})")
         for layer, t in sorted(by_layer.items(), key=lambda kv: -kv[1]):
             print(f"  {layer:38s} {t / 1e3 / n:9.3f} ms/step  {t / busy:6.1%} of device time")
         lines = [f"{t / 1e3 / n:10.4f} ms/step {n_k // n:7d}x/step  {name}"
                  for name, (t, n_k) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])]
-        with open(os.path.join(args.out, f"kernels_train_pallas_decoder{int(pallas_decoder)}.txt"),
+        with open(os.path.join(args.out, f"kernels_train_{cell.replace('=', '')}.txt"),
                   "w") as f:
-            f.write(f"{card}\npallas_decoder={int(pallas_decoder)} wall "
-                    f"{wall_us / 1e3 / n:.3f} ms/step\n")
+            f.write(f"{card}\n{cell} wall {wall_us / 1e3 / n:.3f} ms/step\n")
             f.write("\n".join(lines) + "\n")
         print("  top kernels:")
         for line in lines[:10]:

@@ -1,5 +1,5 @@
 """Multi-task ELBO assembly. Mirrors ``variational_mmt_tpu/train/loss.py``
-(:30-189), unpacked batches only:
+(:30-189), unpacked and sequence-packed batches:
 
     L = E_q[log p(y|x,z)] - beta * KL(q || p) + gamma * log p(v|z)
 
@@ -68,24 +68,43 @@ def image_loss(v: torch.Tensor, v_pred: torch.Tensor, kind: str) -> torch.Tensor
 def compute_loss(out: Dict[str, torch.Tensor], tgt_out: torch.Tensor,
                  example_mask: torch.Tensor, img: Optional[torch.Tensor], mcfg: ModelConfig,
                  tcfg: TrainConfig, step: int,
-                 generator_params: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 generator_params: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                 tgt_seg: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Scalar training loss (mean per-sentence -ELBO) and metric sums.
     ``generator_params`` (kernel (H,V), bias (V,)) is required when the
-    model ran with ``fused_ce`` (``out`` holds ``dec_out``)."""
-    token_mask = (tgt_out != PAD).float() * example_mask[:, None]
+    model ran with ``fused_ce`` (``out`` holds ``dec_out``).
+
+    ``tgt_seg`` (B,T): a sequence-packed batch (``forward_packed``). A
+    sentence is then a packed segment: the CE is summed per segment, and
+    ``example_mask``, ``img`` and the per-sentence outputs arrive flattened
+    (B*K, ...), normalized as an unpacked batch of B*K rows."""
+    B, T = tgt_out.shape
+    if tgt_seg is not None:
+        K = example_mask.shape[0] // B
+        token_mask = ((tgt_out != PAD) & (tgt_seg >= 0)).float()
+        # (B,K,T) one-hot of the segments: per-token sums -> per-segment sums
+        onehot = (tgt_seg[:, None, :] == torch.arange(K, device=tgt_seg.device)[None, :, None])
+
+        def per_sent(nll_bt: torch.Tensor) -> torch.Tensor:
+            return (onehot.to(nll_bt.dtype) @ nll_bt[..., None]).reshape(-1)
+    else:
+        token_mask = (tgt_out != PAD).float() * example_mask[:, None]
+
+        def per_sent(nll_bt: torch.Tensor) -> torch.Tensor:
+            return nll_bt.sum(dim=-1)
     if "dec_out" in out:
-        B, T, H = out["dec_out"].shape
+        H = out["dec_out"].shape[-1]
         cdt = out["dec_out"].dtype
         kernel, bias = generator_params
         nll, nll_raw, n_correct = fused_generator_ce(
             out["dec_out"].reshape(B * T, H), kernel.to(cdt), bias, tgt_out.reshape(-1),
             token_mask.reshape(-1), tcfg.label_smoothing)
-        ce_per_sent = nll.reshape(B, T).sum(dim=-1)
-        nll_per_sent = nll_raw.reshape(B, T).sum(dim=-1)
+        nll, nll_raw = nll.reshape(B, T), nll_raw.reshape(B, T)
     else:
-        ce_per_sent, nll_per_sent, n_correct = token_ce(
-            out["logits"], tgt_out, token_mask, tcfg.label_smoothing)
+        nll, nll_raw, n_correct = token_ce(out["logits"], tgt_out, token_mask,
+                                           tcfg.label_smoothing, per_token=True)
+    ce_per_sent, nll_per_sent = per_sent(nll), per_sent(nll_raw)
     n_sents = torch.clamp(example_mask.sum(), min=1.0)
     loss = ce_per_sent.sum() / n_sents
     zero = torch.zeros((), dtype=torch.float32, device=loss.device)

@@ -2,7 +2,9 @@
 optimizer step is forward (encoder, q, prior, z, decoder, generator), ELBO,
 backward, global-norm clipping and the Adam update with the lr as a
 separate scalar (:114-264), without gradient accumulation, EMA or the
-non-finite skip (they raise, TrainConfig.check_supported). JAX's
+non-finite skip (they raise, TrainConfig.check_supported). With
+``train.pack`` the batches are sequence-packed (data/packing.py) and the
+step runs ``VMMTModel.forward_packed`` (:121-144). JAX's
 ``jit``/``lax.scan`` dispatch, the mesh and the prefetcher have no
 counterpart: the step runs eagerly on one device, the kernels of
 ``use_pallas`` / ``pallas_decoder`` doing the recurrences. Randomness comes
@@ -13,13 +15,14 @@ Validation, checkpoints and the CLI are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from variational_mmt_torch.config import Config
 from variational_mmt_torch.data.dataset import Batch
+from variational_mmt_torch.data.packing import PackedBatch
 from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.models.model import VMMTModel
 from variational_mmt_torch.train.loss import compute_loss
@@ -40,15 +43,24 @@ def create_train_state(cfg: Config, model: VMMTModel) -> TrainState:
                       lr=cfg.train.learning_rate)
 
 
-def batch_tensors(batch: Batch, device: torch.device) -> Dict[str, torch.Tensor]:
-    """A host batch as tensors on ``device`` (ids int64, masks and image
-    features f32)."""
+PACKED_IDS = ("src", "tgt_in", "tgt_out", "src_seg", "tgt_seg", "seg_first", "seg_last")
+
+
+def batch_tensors(batch: Union[Batch, PackedBatch],
+                  device: torch.device) -> Dict[str, torch.Tensor]:
+    """A host batch as tensors on ``device`` (ids and positions int64, masks
+    and image features f32). A PackedBatch gives src, tgt_in, tgt_out,
+    src_seg, tgt_seg, seg_first, seg_last, seg_mask and img (B,K,D)."""
     if batch.tgt_in is None or batch.tgt_out is None:
         raise ValueError("a training batch needs tgt_in and tgt_out")
-    out = {"src": torch.from_numpy(np.asarray(batch.src)).long(),
-           "tgt_in": torch.from_numpy(np.asarray(batch.tgt_in)).long(),
-           "tgt_out": torch.from_numpy(np.asarray(batch.tgt_out)).long(),
-           "example_mask": torch.from_numpy(np.asarray(batch.example_mask, np.float32))}
+    if isinstance(batch, PackedBatch):
+        out = {k: torch.from_numpy(np.asarray(getattr(batch, k))).long() for k in PACKED_IDS}
+        out["seg_mask"] = torch.from_numpy(np.asarray(batch.seg_mask, np.float32))
+    else:
+        out = {"src": torch.from_numpy(np.asarray(batch.src)).long(),
+               "tgt_in": torch.from_numpy(np.asarray(batch.tgt_in)).long(),
+               "tgt_out": torch.from_numpy(np.asarray(batch.tgt_out)).long(),
+               "example_mask": torch.from_numpy(np.asarray(batch.example_mask, np.float32))}
     if batch.img is not None:
         out["img"] = torch.from_numpy(np.asarray(batch.img, np.float32))
     return {k: v.to(device, non_blocking=True) for k, v in out.items()}
@@ -59,14 +71,31 @@ def loss_and_grads(cfg: Config, model: VMMTModel, batch: Dict[str, torch.Tensor]
                    sample: bool = True
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], List[torch.Tensor]]:
     """Forward, loss and backward of one batch: (loss, metrics, one f32
-    gradient per ``model.parameters()`` entry, zeros where none flowed)."""
+    gradient per ``model.parameters()`` entry, zeros where none flowed).
+    With ``train.pack`` the batch is a packed one and every per-sentence
+    tensor flows flattened (B*K, ...), one row a segment."""
+    packed = "seg_mask" in batch
+    if packed != cfg.train.pack:
+        raise ValueError(f"train.pack={cfg.train.pack} but the batch is "
+                         f"{'' if packed else 'not '}packed")
     model.zero_grad(set_to_none=True)
     img = batch.get("img")
-    out = model(batch["src"], batch["tgt_in"], img, deterministic=deterministic, sample=sample,
-                tgt_out=batch["tgt_out"], generator=generator)
     gen = model.generator_params() if cfg.model.fused_ce else None
-    loss, metrics = compute_loss(out, batch["tgt_out"], batch["example_mask"], img, cfg.model,
-                                 cfg.train, step, generator_params=gen)
+    if packed:
+        out = model.forward_packed(
+            batch["src"], batch["tgt_in"], batch["src_seg"], batch["tgt_seg"],
+            batch["seg_first"], batch["seg_last"], img, deterministic=deterministic,
+            sample=sample, tgt_out=batch["tgt_out"], generator=generator)
+        n = batch["seg_mask"].numel()
+        loss, metrics = compute_loss(
+            out, batch["tgt_out"], batch["seg_mask"].reshape(-1),
+            None if img is None else img.reshape((n,) + img.shape[2:]), cfg.model, cfg.train,
+            step, generator_params=gen, tgt_seg=batch["tgt_seg"])
+    else:
+        out = model(batch["src"], batch["tgt_in"], img, deterministic=deterministic,
+                    sample=sample, tgt_out=batch["tgt_out"], generator=generator)
+        loss, metrics = compute_loss(out, batch["tgt_out"], batch["example_mask"], img,
+                                     cfg.model, cfg.train, step, generator_params=gen)
     loss.backward()
     grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in model.parameters()]
     return loss, metrics, grads
@@ -100,8 +129,9 @@ def make_train_step(cfg: Config, deterministic: bool = False, sample: bool = Tru
 
 class Trainer:
     """``train(max_steps)`` takes optimizer steps over ``train_iter`` (an
-    iterable of Batch, re-iterated when exhausted; a BucketIterator runs
-    epoch after epoch) on ``device``: cuda unless ``device='cpu'``, raising
+    iterable of Batch, or of PackedBatch with ``train.pack``, re-iterated
+    when exhausted; a BucketIterator or PackedBucketIterator runs epoch
+    after epoch) on ``device``: cuda unless ``device='cpu'``, raising
     without CUDA."""
 
     def __init__(self, cfg: Config, model: VMMTModel, train_iter: Iterable,
@@ -118,7 +148,7 @@ class Trainer:
         self._epoch = 0
         self._it = None
 
-    def _next_batch(self) -> Batch:
+    def _next_batch(self) -> Union[Batch, PackedBatch]:
         while True:
             if self._it is None:
                 epoch = getattr(self.train_iter, "epoch", None)
