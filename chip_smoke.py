@@ -92,12 +92,30 @@ in PERF.md).
    packed through ``forward_packed`` (reset kernels): loss within 2e-5
    relative, every gradient within 2e-4 relative and 2e-5 x max(1, its
    largest entry) absolute (tests/test_pack.py's tolerances).
-8. Prints one JSON line of per-kernel numbers (all six TPU kernels'
-   counterparts; the scan forward's top-level times are at the serving
-   shape, ``by_shape`` holds both; the two scans' ``reset`` records hold the
-   reset stream's checks and times, ``launches_by_path`` the serving,
-   training and packed-training counts), then the last line
-   {"ok": true, "device": {...}}.
+8. Kernels at the quality gate's shapes (hidden 256): phase 3's checks
+   and times (without the reset stream) again, the GRU scan and its
+   backward at B=64, T=32, H=128, the decoder sequence forward and
+   backward at B=64, T=33, S=32, H=256, the decode step and GRU chain at
+   N=256, S=32, H=256.
+9. Families phase: nmt, vmmt_f and vmmt_c at the gate's width and depth
+   (tools/quality_gate.py ``build_cfg``: vocab 200, emb and hidden 256,
+   latent 64, img 512, 2+2 layers, z_cond=init+input, bf16, use_pallas,
+   pallas_decoder, fused_ce) with random weights from numpy seed 0 and 4
+   batches of 64 pairs of the gate's ambiguous corpus (data seed 0): 20
+   Trainer steps (finite losses, the mean of the last 4 below the first 4,
+   the scans and the decoder sequence kernels launched) and 20 timed ones;
+   phase 6's f32 check on the first batch; beam-4 decoding of 64 sentences
+   (max_length 40) at pallas_step 1 and 2, well formed, with the scan and
+   the decode step or GRU chain launched, sent/s; then, with the trained
+   weights in f32, the kernel path and the all-plain path must agree on at
+   least 31 of 32 top-1 hypotheses.
+10. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+    counterparts; the scan forward's top-level times are at the serving
+    shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
+    the reset stream's checks and times, ``gate_shape`` each kernel's
+    numbers at the gate's shape, ``launches_by_path`` the serving,
+    training, packed-training and families counts), then the last line
+    {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
 port's package is not beside this script, or when any phase fails.
@@ -135,6 +153,11 @@ PACK_ROW, PACK_K = 64, 4  # packed row length, most segments a row
 PACKED_STEPS, PACKED_RUNS, PACKED_TIMED_STEPS = 20, 3, 12
 PACKED_CHECK_ROWS = 8  # rows of the first packed batch in the f32 packed = unpacked check
 PACKED_TOL = dict(loss=2e-5, rtol=2e-4, atol=2e-5)  # tests/test_pack.py:169-181
+GATE_SCAN_SHAPE = dict(B=64, T=32, H=128)  # the quality gate's encoder scans (hidden 256)
+GATE_DEC_SHAPE = dict(B=64, T=33, S=32, H=256)  # its decoder, one step past bucket 32
+GATE_STEP_SHAPE = dict(N=256, S=32, H=256)  # its beam-4 decoding of 64 sentences
+FAMILIES = ("nmt", "vmmt_f", "vmmt_c")
+FAMILY_STEPS, FAMILY_SENTENCES, FAMILY_CHECK = 20, 64, 32
 
 
 def fail(msg: str) -> None:
@@ -162,6 +185,53 @@ def bound(n_bytes: float, flops: float, dtype: str):
     peak = H100_BF16_FLOPS if dtype == "bfloat16" else H100_F32_FLOPS
     t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / peak
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+def scan_fwd_bound(B: int, T: int, H: int):
+    """Bound of the GRU-scan forward in bf16: x_proj, mask, h0, Wh, bh in;
+    outs and final (f32) out; one (B*T, H) x (H, 3H) product."""
+    n_bytes = B * T * 3 * H * 2 + B * T * 4 + B * H * 4 + H * 3 * H * 2 + 3 * H * 4 \
+        + B * T * H * 4 + B * H * 4
+    return bound(n_bytes, 2.0 * B * T * H * 3 * H, "bfloat16")
+
+
+def scan_bwd_bound(B: int, T: int, H: int):
+    """Bound of the GRU-scan backward in bf16."""
+    b = 2  # bf16 bytes
+    n_bytes = (B * T * 3 * H * b + B * T * 4 + B * H * 4 + H * 3 * H * b + 3 * H * 4
+               + 2 * B * T * H * 4  # outs, g
+               + B * T * 3 * H * 4 + B * H * 4 + H * 3 * H * 4 + 3 * H * 4)  # dx, dh0, dWh, dbh
+    # gate recompute, dh_proj @ Wh^T, h_prev^T dh_proj: three (B*T, H) x (H, 3H) products
+    return bound(n_bytes, 3 * 2.0 * B * T * H * 3 * H, "bfloat16")
+
+
+def decoder_bounds(B: int, T: int, S: int, H: int):
+    """Bounds of the decoder sequence forward and backward in bf16."""
+    b = 2  # bf16 bytes
+    ins = (B * T * 3 * H * b + B * T * H * b + 2 * B * H * 4 + 4 * H * 3 * H * b + 3 * 3 * H * 4
+           + 2 * B * S * H * b + H * H * b)
+    streams = 3 * B * T * H * b + B * T * S * b  # attn_hs, h0s, h1s, probs
+    # the first step has no feed, so its feed product is skipped
+    fwd_flops = T * (4 * 2.0 * B * H * 3 * H + 2.0 * B * H * H + 4.0 * B * S * H) \
+        - 2.0 * B * H * 3 * H
+    bwd_bytes = (ins + streams + B * T * H * 4 + B * T * S * 4  # + d_attn, d_probs
+                 + 4 * B * T * 3 * H * 4 + B * T * H * 4 + B * T * S * 4 + 2 * B * H * 4)
+    # two gate recomputes (two products each), four products with W^T of
+    # (B, 3H) x (3H, H), dq, and the two attention contractions
+    bwd_flops = T * (8 * 2.0 * B * H * 3 * H + 2.0 * B * H * H + 4.0 * B * S * H) \
+        - 2.0 * B * H * 3 * H
+    return (bound(ins + B * S * 4 + streams, fwd_flops, "bfloat16"),
+            bound(bwd_bytes, bwd_flops, "bfloat16"))
+
+
+def step_bounds(N: int, S: int, H: int):
+    """Bounds of the decode step and of the GRU chain in bf16."""
+    b = 2  # bf16 bytes
+    chain_bytes = N * 3 * H * b + 3 * N * H * b + 4 * H * 3 * H * b + 3 * 3 * H * 4 + 2 * N * H * b
+    chain_flops = 2.0 * N * H * 3 * H * 4
+    step_bytes = chain_bytes + H * H * b + 2 * N * S * H * b + N * S * 4 + N * H * b + N * S * b
+    step_flops = chain_flops + 2.0 * N * H * H + 4.0 * N * S * H
+    return bound(step_bytes, step_flops, "bfloat16"), bound(chain_bytes, chain_flops, "bfloat16")
 
 
 def max_err(got, want) -> float:
@@ -344,43 +414,49 @@ def scan_bwd_errs(gru_scan, args):
     return max(errs), max(abs_errs), outs
 
 
-def scan_bwd_phase(gru_scan):
-    """GRU-scan backward at B=64, T=24, H=250, both directions; then a
-    ragged batch (B=61, row 2 all padding) and T=1, and determinism."""
-    B, T, H = TRAIN_SCAN_SHAPE["B"], TRAIN_SCAN_SHAPE["T"], TRAIN_SCAN_SHAPE["H"]
-    g = torch.Generator(device="cuda").manual_seed(3)
-    rec = {}
-    for dt_name in ("float32", "bfloat16"):
-        dt = getattr(torch, dt_name)
-        args = scan_bwd_inputs(g, dt, B, T, H, 8)
-        err, abs_err, outs = scan_bwd_errs(gru_scan, args)
-        check_close("gru_scan_bwd", dt_name, err, "max_rel_err")
-        rec[f"err_{dt_name}"], rec[f"abs_err_{dt_name}"] = err, abs_err
-        edge = max(scan_bwd_errs(gru_scan, scan_bwd_inputs(g, dt, b, t, H, 0))[0]
-                   for b, t in ((61, T), (B, 1)))
-        check_close("gru_scan_bwd B=61 and T=1, a row all padding", dt_name, edge, "max_rel_err")
-        rec[f"edge_err_{dt_name}"] = edge
-    x, mask, h0, wh, bh, gout = args
-    args = (x, mask, h0, wh, bh, outs, gout, True)
-    deterministic("gru_scan_bwd", lambda: gru_scan.gru_layer_scan_bwd(*args))
-    rec["plan"] = gru_scan.gru_layer_scan_bwd.plan
-    print_plan("gru_scan_bwd", rec["plan"])
-    rec["ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd(*args))
-    rec["plain_ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*args), iters=5)
+def cudnn_bwd_ms(g, B: int, T: int, H: int) -> float:
+    """cuDNN's nn.GRU backward in bf16 (which also computes the
+    input-projection gradients that the port leaves to cuBLAS)."""
     gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
     gru.flatten_parameters()
     xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
     xin.requires_grad_(True)
     y, _ = gru(xin)
     gy = torch.randn(y.shape, generator=g, device="cuda").to(torch.bfloat16)
-    rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
-        y, [xin, *gru.parameters()], gy, retain_graph=True))
-    b = 2  # bf16 bytes
-    n_bytes = (B * T * 3 * H * b + B * T * 4 + B * H * 4 + H * 3 * H * b + 3 * H * 4
-               + 2 * B * T * H * 4  # outs, g
-               + B * T * 3 * H * 4 + B * H * 4 + H * 3 * H * 4 + 3 * H * 4)  # dx, dh0, dWh, dbh
-    # gate recompute, dh_proj @ Wh^T, h_prev^T dh_proj: three (B*T, H) x (H, 3H) products
-    rec["bound_ms"], rec["bound_by"] = bound(n_bytes, 3 * 2.0 * B * T * H * 3 * H, "bfloat16")
+    return cuda_ms(lambda: torch.autograd.grad(y, [xin, *gru.parameters()], gy,
+                                               retain_graph=True))
+
+
+def scan_bwd_phase(gru_scan, shape):
+    """GRU-scan backward at ``shape`` (B, T, H), both directions; then a
+    ragged batch (B=61, row 2 all padding) and T=1, and determinism."""
+    B, T, H = shape["B"], shape["T"], shape["H"]
+    at = f"B={B} T={T} H={H}"
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rec = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        args = scan_bwd_inputs(g, dt, B, T, H, 8)
+        err, abs_err, outs = scan_bwd_errs(gru_scan, args)
+        check_close(f"gru_scan_bwd {at}", dt_name, err, "max_rel_err")
+        rec[f"err_{dt_name}"], rec[f"abs_err_{dt_name}"] = err, abs_err
+        edge = max(scan_bwd_errs(gru_scan, scan_bwd_inputs(g, dt, b, t, H, 0))[0]
+                   for b, t in ((61, T), (B, 1)))
+        check_close(f"gru_scan_bwd H={H}, B=61 and T=1, a row all padding", dt_name, edge,
+                    "max_rel_err")
+        rec[f"edge_err_{dt_name}"] = edge
+    x, mask, h0, wh, bh, gout = args
+    args = (x, mask, h0, wh, bh, outs, gout, True)
+    deterministic(f"gru_scan_bwd {at}", lambda: gru_scan.gru_layer_scan_bwd(*args))
+    rec["plan"] = gru_scan.gru_layer_scan_bwd.plan
+    print_plan(f"gru_scan_bwd {at}", rec["plan"])
+    rec["ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd(*args))
+    rec["plain_ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*args), iters=5)
+    rec["library_ms"] = cudnn_bwd_ms(g, B, T, H)
+    rec["bound_ms"], rec["bound_by"] = scan_bwd_bound(B, T, H)
+    print(f"  gru_scan_bwd {at} bfloat16: kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms, nn.GRU backward {rec['library_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms")
     return rec
 
 
@@ -396,11 +472,12 @@ def decoder_inputs(g, dt, B, T, S, H, mem_std):
             (mem_std * r(B, S, H)).to(dt), w(H, H), mask_bias)
 
 
-def decoder_phase(dec):
-    """Decoder sequence forward and backward at B=64, T=25, S=24, H=500;
+def decoder_phase(dec, shape):
+    """Decoder sequence forward and backward at ``shape`` (B, T, S, H);
     then both at B=61 and at T=1 (the forward with a source of one real
-    position), and their determinism."""
-    B, T, S, H = (DEC_SHAPE[k] for k in ("B", "T", "S", "H"))
+    position), their determinism, and the peaked-attention checks."""
+    B, T, S, H = (shape[k] for k in ("B", "T", "S", "H"))
+    at = f"B={B} T={T} S={S} H={H}"
     g = torch.Generator(device="cuda").manual_seed(4)
     kernel = (dec.decoder_fwd, dec.decoder_bwd)
     plain = (dec.decoder_fwd_ref, dec.decoder_bwd_ref)
@@ -424,8 +501,8 @@ def decoder_phase(dec):
         for rec, gw in ((fwd, (got, want)), (bwd, (got_b, want_b))):
             rec[f"err_{dt_name}"] = rel_err(*gw)
             rec[f"abs_err_{dt_name}"] = max_err(*gw)
-        check_close("decoder_fwd", dt_name, fwd[f"err_{dt_name}"], "max_rel_err")
-        check_close("decoder_bwd", dt_name, bwd[f"err_{dt_name}"], "max_rel_err")
+        check_close(f"decoder_fwd {at}", dt_name, fwd[f"err_{dt_name}"], "max_rel_err")
+        check_close(f"decoder_bwd {at}", dt_name, bwd[f"err_{dt_name}"], "max_rel_err")
         edge, edge_f = [], []
         for b, t in ((61, T), (B, 1)):
             a, st, dd = draw(getattr(torch, dt_name), DEC_MEM_STD, b, t)
@@ -435,16 +512,16 @@ def decoder_phase(dec):
             mask_bias[2, 1:] = -1e9  # a source of one real position
             edge_f.append(rel_err(dec.decoder_fwd(*a[:14], mask_bias),
                                   dec.decoder_fwd_ref(*a[:14], mask_bias)))
-        check_close("decoder_fwd B=61 and T=1, a source of one position", dt_name, max(edge_f),
-                    "max_rel_err")
-        check_close("decoder_bwd B=61 and T=1", dt_name, max(edge), "max_rel_err")
+        check_close(f"decoder_fwd H={H}, B=61 and T=1, a source of one position", dt_name,
+                    max(edge_f), "max_rel_err")
+        check_close(f"decoder_bwd H={H}, B=61 and T=1", dt_name, max(edge), "max_rel_err")
         fwd[f"edge_err_{dt_name}"], bwd[f"edge_err_{dt_name}"] = max(edge_f), max(edge)
     bargs = (*args[:14], *streams, *d)  # bf16, for the times below
-    deterministic("decoder_fwd", lambda: dec.decoder_fwd(*args))
-    deterministic("decoder_bwd", lambda: dec.decoder_bwd(*bargs))
+    deterministic(f"decoder_fwd {at}", lambda: dec.decoder_fwd(*args))
+    deterministic(f"decoder_bwd {at}", lambda: dec.decoder_bwd(*bargs))
     fwd["plan"], bwd["plan"] = dec.decoder_fwd.plan, dec.decoder_bwd.plan
-    print_plan("decoder_fwd", fwd["plan"])
-    print_plan("decoder_bwd", bwd["plan"])
+    print_plan(f"decoder_fwd {at}", fwd["plan"])
+    print_plan(f"decoder_bwd {at}", bwd["plan"])
 
     # peaked attention: kernel against plain over the first steps each pass
     # processes, and each bf16 version against the f32 math of its inputs
@@ -461,11 +538,11 @@ def decoder_phase(dec):
                          "per_step": per_step}
         ok_early = math.isfinite(early) and early <= TOL["bfloat16"]
         ok_drift = math.isfinite(dk) and dk <= PEAKED_DRIFT_RATIO * dp
-        print(f"  {name} bfloat16, memory std {DEC_MEM_STD_PEAKED}: max_rel_err over the first "
+        print(f"  {name} {at} bfloat16, memory std {DEC_MEM_STD_PEAKED}: max_rel_err over the first "
               f"{PEAKED_STEPS} steps {early:.3e} (tolerance {TOL['bfloat16']:.0e}) "
               f"{'ok' if ok_early else 'MISMATCH'}; by step t "
               + " ".join(f"{e:.1e}" for e in per_step))
-        print(f"  {name} bfloat16, memory std {DEC_MEM_STD_PEAKED}: distance from the f32 math "
+        print(f"  {name} {at} bfloat16, memory std {DEC_MEM_STD_PEAKED}: distance from the f32 math "
               f"{dk:.3e} (kernel) vs {dp:.3e} (plain), ratio {dk / dp:.2f} (limit "
               f"{PEAKED_DRIFT_RATIO}) {'ok' if ok_drift else 'MISMATCH'}")
         if not ok_early:
@@ -479,21 +556,11 @@ def decoder_phase(dec):
     bwd["ms"] = cuda_ms(lambda: dec.decoder_bwd(*bargs))
     bwd["plain_ms"] = cuda_ms(lambda: dec.decoder_bwd_ref(*bargs), iters=5)
     fwd["library_ms"] = bwd["library_ms"] = None
-    b = 2  # bf16 bytes
-    ins = (B * T * 3 * H * b + B * T * H * b + 2 * B * H * 4 + 4 * H * 3 * H * b + 3 * 3 * H * 4
-           + 2 * B * S * H * b + H * H * b)
-    streams = 3 * B * T * H * b + B * T * S * b  # attn_hs, h0s, h1s, probs
-    # the first step has no feed, so its feed product is skipped
-    fwd_flops = T * (4 * 2.0 * B * H * 3 * H + 2.0 * B * H * H + 4.0 * B * S * H) \
-        - 2.0 * B * H * 3 * H
-    fwd["bound_ms"], fwd["bound_by"] = bound(ins + B * S * 4 + streams, fwd_flops, "bfloat16")
-    bwd_bytes = (ins + streams + B * T * H * 4 + B * T * S * 4  # + d_attn, d_probs
-                 + 4 * B * T * 3 * H * 4 + B * T * H * 4 + B * T * S * 4 + 2 * B * H * 4)
-    # two gate recomputes (two products each), four products with W^T of
-    # (B, 3H) x (3H, H), dq, and the two attention contractions
-    bwd_flops = T * (8 * 2.0 * B * H * 3 * H + 2.0 * B * H * H + 4.0 * B * S * H) \
-        - 2.0 * B * H * 3 * H
-    bwd["bound_ms"], bwd["bound_by"] = bound(bwd_bytes, bwd_flops, "bfloat16")
+    (fwd["bound_ms"], fwd["bound_by"]), (bwd["bound_ms"], bwd["bound_by"]) = \
+        decoder_bounds(B, T, S, H)
+    for name, rec in (("decoder_fwd", fwd), ("decoder_bwd", bwd)):
+        print(f"  {name} {at} bfloat16: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} "
+              f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return fwd, bwd
 
 
@@ -517,9 +584,7 @@ def scan_timing(gru_scan, g, B, T, H):
     xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
     with torch.no_grad():
         rec["library_ms"] = cuda_ms(lambda: gru(xin))
-    n_bytes = B * T * 3 * H * 2 + B * T * 4 + B * H * 4 + H * 3 * H * 2 + 3 * H * 4 \
-        + B * T * H * 4 + B * H * 4
-    rec["bound_ms"], rec["bound_by"] = bound(n_bytes, 2.0 * B * T * H * 3 * H, "bfloat16")
+    rec["bound_ms"], rec["bound_by"] = scan_fwd_bound(B, T, H)
     print_plan(f"gru_scan B={B} T={T}", rec["plan"])
     print(f"  gru_scan B={B} T={T} bfloat16: kernel {rec['ms']:.4f} ms, plain "
           f"{rec['plain_ms']:.3f} ms, nn.GRU forward {rec['library_ms']:.4f} ms, bound "
@@ -527,11 +592,13 @@ def scan_timing(gru_scan, g, B, T, H):
     return rec
 
 
-def scan_phase(gru_scan):
-    """GRU scan at B=256, T=24, H=250, both directions; then a ragged batch
-    (B=61, row 2 all padding) and T=1, determinism, and the times at the
-    serving shape (B=256) and the training shape (B=64)."""
-    B, T, H = SCAN_SHAPE["B"], SCAN_SHAPE["T"], SCAN_SHAPE["H"]
+def scan_phase(gru_scan, shape, timed):
+    """GRU scan at ``shape`` (B, T, H), both directions; then a ragged batch
+    (B=61, row 2 all padding) and T=1, determinism, and the times at each
+    shape of ``timed`` ({label: shape}, H that of ``shape``); the record's
+    top-level times are the first label's."""
+    B, T, H = shape["B"], shape["T"], shape["H"]
+    at = f"B={B} T={T} H={H}"
     g = torch.Generator(device="cuda").manual_seed(1)
     rec = {}
     for dt_name in ("float32", "bfloat16"):
@@ -545,18 +612,14 @@ def scan_phase(gru_scan):
                 want = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, reverse)
                 torch.cuda.synchronize()
                 out.append(max_err(got, want))
-        check_close("gru_scan", dt_name, max(errs))
-        check_close("gru_scan B=61 and T=1, a row all padding", dt_name, max(edge))
+        check_close(f"gru_scan {at}", dt_name, max(errs))
+        check_close(f"gru_scan H={H}, B=61 and T=1, a row all padding", dt_name, max(edge))
         rec[f"err_{dt_name}"], rec[f"edge_err_{dt_name}"] = max(errs), max(edge)
     args = scan_inputs(g, torch.bfloat16, 61, T, H, 0)
-    deterministic("gru_scan", lambda: gru_scan.gru_layer_scan(*args, True))
-    shapes = {"serve": scan_timing(gru_scan, g, B, T, H),
-              "train": scan_timing(gru_scan, g, TRAIN_SCAN_SHAPE["B"], TRAIN_SCAN_SHAPE["T"], H)}
-    rec.update(shapes["serve"])  # the kernels line's top-level numbers: the serving shape
+    deterministic(f"gru_scan {at}", lambda: gru_scan.gru_layer_scan(*args, True))
+    shapes = {k: scan_timing(gru_scan, g, s["B"], s["T"], H) for k, s in timed.items()}
+    rec.update(shapes[next(iter(timed))])
     rec["by_shape"] = shapes
-    # the reset stream of both scans (sequence packing); the backward's
-    # record joins the scan-backward phase's
-    rec["reset"], rec["bwd_reset"] = scan_reset_checks(gru_scan)
     return rec
 
 
@@ -572,10 +635,11 @@ def step_inputs(g, dt, N, S, H):
     return chain, attn
 
 
-def step_phase(ds):
-    """Decode step and GRU chain at N=1024, S=24, H=500; then N=1000 and
+def step_phase(ds, shape):
+    """Decode step and GRU chain at ``shape`` (N, S, H); then N=1000 and
     N=3 with a row whose source is all padding, and determinism."""
-    N, S, H = STEP_SHAPE["N"], STEP_SHAPE["S"], STEP_SHAPE["H"]
+    N, S, H = shape["N"], shape["S"], shape["H"]
+    at = f"N={N} S={S} H={H}"
     g = torch.Generator(device="cuda").manual_seed(2)
     step_rec, chain_rec = {}, {}
     for dt_name in ("float32", "bfloat16"):
@@ -595,27 +659,26 @@ def step_phase(ds):
         for rec, err, edge in ((step_rec, max_err(got, want), edge_s),
                                (chain_rec, max_err(got_c, want_c), edge_c)):
             rec[f"err_{dt_name}"], rec[f"edge_err_{dt_name}"] = err, max(edge)
-        check_close("decode_step", dt_name, step_rec[f"err_{dt_name}"])
-        check_close("gru_chain", dt_name, chain_rec[f"err_{dt_name}"])
-        check_close("decode_step N=1000 and N=3, a source all padding", dt_name, max(edge_s))
-        check_close("gru_chain N=1000 and N=3", dt_name, max(edge_c))
-    deterministic("decode_step", lambda: ds.decode_step(*chain, *attn))
-    deterministic("gru_chain", lambda: ds.gru_chain(*chain))
+        check_close(f"decode_step {at}", dt_name, step_rec[f"err_{dt_name}"])
+        check_close(f"gru_chain {at}", dt_name, chain_rec[f"err_{dt_name}"])
+        check_close(f"decode_step H={H}, N=1000 and N=3, a source all padding", dt_name,
+                    max(edge_s))
+        check_close(f"gru_chain H={H}, N=1000 and N=3", dt_name, max(edge_c))
+    deterministic(f"decode_step {at}", lambda: ds.decode_step(*chain, *attn))
+    deterministic(f"gru_chain {at}", lambda: ds.gru_chain(*chain))
     step_rec["ms"] = cuda_ms(lambda: ds.decode_step(*chain, *attn))
     step_rec["plan"] = ds.decode_step.plan
     step_rec["plain_ms"] = cuda_ms(lambda: ds.decode_step_ref(*chain, *attn))
     chain_rec["ms"] = cuda_ms(lambda: ds.gru_chain(*chain))
     chain_rec["plan"] = ds.gru_chain.plan
     chain_rec["plain_ms"] = cuda_ms(lambda: ds.gru_chain_ref(*chain))
-    print_plan("decode_step cells", step_rec["plan"])
-    b = 2  # bf16 bytes
-    chain_bytes = N * 3 * H * b + 3 * N * H * b + 4 * H * 3 * H * b + 3 * 3 * H * 4 + 2 * N * H * b
-    chain_flops = 2.0 * N * H * 3 * H * 4
-    step_bytes = chain_bytes + H * H * b + 2 * N * S * H * b + N * S * 4 + N * H * b + N * S * b
-    step_flops = chain_flops + 2.0 * N * H * H + 4.0 * N * S * H
-    chain_rec["bound_ms"], chain_rec["bound_by"] = bound(chain_bytes, chain_flops, "bfloat16")
-    step_rec["bound_ms"], step_rec["bound_by"] = bound(step_bytes, step_flops, "bfloat16")
+    print_plan(f"decode_step cells {at}", step_rec["plan"])
+    (step_rec["bound_ms"], step_rec["bound_by"]), (chain_rec["bound_ms"], chain_rec["bound_by"]) \
+        = step_bounds(N, S, H)
     step_rec["library_ms"] = chain_rec["library_ms"] = None
+    for name, rec in (("decode_step", step_rec), ("gru_chain", chain_rec)):
+        print(f"  {name} {at} bfloat16: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} "
+              f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
     return step_rec, chain_rec
 
 
@@ -910,12 +973,14 @@ def packed_check_f32(cfg, state):
             "grad_worst": worst_name}
 
 
-def train_check_f32(cfg, state):
+def train_check_f32(cfg, state, batch=None, label: str = "train"):
     """Kernel path against the all-plain path in f32: loss and gradients
-    before and after 3 optimizer steps."""
+    before and after 3 optimizer steps, on ``batch`` (default: the
+    training cell's first batch)."""
     from variational_mmt_torch.train.trainer import batch_tensors, loss_and_grads, make_train_step
 
-    batch = batch_tensors(train_batches(cfg)[0], torch.device("cuda"))
+    batch = batch_tensors(train_batches(cfg)[0] if batch is None else batch,
+                          torch.device("cuda"))
     paths = {}
     for name, over in (("kernel", dict(use_pallas=True, pallas_decoder=True, fused_ce=True)),
                        ("plain", dict(use_pallas=False, pallas_decoder=False, fused_ce=False))):
@@ -938,13 +1003,146 @@ def train_check_f32(cfg, state):
         gerr = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                 for n, a, b in zip(names, gk, gp)}
         wn = max(gerr, key=gerr.get)
-        print(f"train f32 check ({rnd}): loss kernel {lk:.6f} plain {lp:.6f} rel diff "
+        print(f"{label} f32 check ({rnd}): loss kernel {lk:.6f} plain {lp:.6f} rel diff "
               f"{dloss:.2e} (tolerance 1e-4); worst gradient {wn} {gerr[wn]:.2e} of its max "
               f"(tolerance 1e-3)")
         if not (dloss <= 1e-4 and gerr[wn] <= 1e-3):
             fail(f"f32 kernel path and plain path disagree ({rnd})")
         worst[rnd] = {"loss_rel": dloss, "grad_rel": gerr[wn]}
     return worst
+
+
+def families_phase(card: str):
+    """The model families at the quality gate's width and depth (vocab 200,
+    emb and hidden 256, latent 64, img 512, 2+2 layers, z_cond=init+input,
+    bf16 kernel route, ``quality_gate.build_cfg``), random weights from
+    numpy seed 0, the gate's ambiguous corpus (data seed 0): for nmt,
+    vmmt_f and vmmt_c, 20 Trainer steps (the loss must fall, rows 1, 2, 5
+    and 6 must run) and 20 timed ones; the f32 kernel route against the
+    all-plain route on one batch (train_check_f32's limits); beam-4
+    decoding of 64 sentences at pallas_step 1 and 2 (well formed; rows 1
+    and 3, then rows 1 and 4 must run; sent/s); with the trained weights in
+    f32, the kernel path and the all-plain path agree on at least 31 of 32
+    top-1 hypotheses. Returns ({kernel name: launches}, {family: record})."""
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.convert import params_from_jax
+    from variational_mmt_torch.data.dataset import BinarizedDataset, BucketIterator
+    from variational_mmt_torch.data.synthetic import make_ambiguous_corpus
+    from variational_mmt_torch.decode.translator import Translator
+    from variational_mmt_torch.models.model import build_model, init_params
+    from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
+    from variational_mmt_torch.tools import quality_gate
+    from variational_mmt_torch.train.trainer import Trainer
+
+    args = quality_gate.parse_args([])
+    n_pairs = TRAIN_BATCH * TRAIN_BATCHES
+    src, tgt, feats, sv, tv, _, _ = make_ambiguous_corpus(
+        n_pairs + FAMILY_SENTENCES, vocab_size=args.vocab_size, img_dim=args.img_dim,
+        seed=args.data_seed)
+    train_ds = BinarizedDataset([np.asarray(sv.encode(s), np.int32) for s in src[:n_pairs]],
+                                [np.asarray(tv.encode(t), np.int32) for t in tgt[:n_pairs]])
+    dec_src = [sv.encode(s) for s in src[n_pairs:]]
+    dec_img = feats[n_pairs:]
+    counters = {fn.__name__: fn for fn in (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd,
+                                           ds.decode_step, ds.gru_chain, dec.decoder_fwd,
+                                           dec.decoder_bwd)}
+
+    def run(fn):
+        """Launches of each kernel while ``fn`` runs, and its result."""
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return {k: c.launches for k, c in counters.items()}, out
+
+    def need(where: str, launches: dict, names) -> None:
+        print(f"families: {where}: launches {launches}")
+        for name in names:
+            if launches[name] <= 0:
+                fail(f"kernel {name} was not launched ({where})")
+
+    total = {k: 0 for k in counters}
+    recs = {}
+    V = args.vocab_size
+    for fam in FAMILIES:
+        cfg = quality_gate.build_cfg(fam, 11, args)
+        m = cfg.model
+        text_only = fam == "nmt"
+        img = None if text_only else dec_img
+        # 4 batches, 5 passes: the first and the last 4 steps see the same batches
+        batches = list(BucketIterator(train_ds, TRAIN_BATCH, quality_gate.BUCKETS,
+                                      img_feats=None if text_only else feats[:n_pairs])
+                       .epoch())[:TRAIN_BATCHES]
+        print(f"families: {fam}: emb {m.emb_dim} hidden {m.hidden_dim} layers "
+              f"{m.enc_layers}+{m.dec_layers} latent {m.latent_dim} img {m.img_feat_dim} vocab "
+              f"{m.src_vocab_size} z_cond {m.z_cond} {m.compute_dtype}; {len(batches)} batches "
+              f"of {TRAIN_BATCH} pairs, lengths {[b.src.shape[1] for b in batches]}, weights "
+              f"numpy seed 0")
+        state = params_from_jax(init_params(m, seed=0), m)
+        model = build_model(m, device="cuda")
+        model.load_state_dict(state)
+        trainer = Trainer(cfg, model, batches, device="cuda")
+        launches, hist = run(lambda: trainer.train(FAMILY_STEPS))
+        need(f"{fam} training, {FAMILY_STEPS} steps", launches,
+             ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd"))
+        rec = {"train_launches": launches}
+        total = {k: total[k] + launches[k] for k in total}
+        losses = [h["loss"] for h in hist]
+        first, last = float(np.mean(losses[:4])), float(np.mean(losses[-4:]))
+        print(f"families: {fam}: losses " + " ".join(f"{v:.3f}" for v in losses))
+        print(f"families: {fam}: mean loss of the first 4 steps {first:.4f}, of the last 4 "
+              f"{last:.4f}")
+        if not (all(math.isfinite(v) for v in losses) and last < first):
+            fail(f"{fam}: the training loss is not finite or did not fall")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(FAMILY_STEPS)
+        torch.cuda.synchronize()
+        rec.update(loss_first=first, loss_last=last,
+                   step_ms=(time.perf_counter() - t0) / FAMILY_STEPS * 1e3)
+        print(f"families: {fam}: {rec['step_ms']:.2f} ms/step ({FAMILY_STEPS} steps after the "
+              f"checked ones, batch {TRAIN_BATCH}, {card})")
+        rec["f32_check"] = train_check_f32(cfg, state, batch=batches[0], label=f"families {fam}")
+        rec["sent_per_s"] = {}
+        for mode, row in ((1, "decode_step"), (2, "gru_chain")):
+            tr = Translator(trainer.model, sv, tv,
+                            DecodeConfig(beam_size=4, max_length=40,
+                                         batch_size=FAMILY_SENTENCES, pallas_step=mode),
+                            buckets=quality_gate.BUCKETS, device="cuda")
+            tr.translate_ids(dec_src[:8], None if img is None else img[:8])  # warm-up
+            t0 = time.perf_counter()
+            launches, out = run(lambda: tr.translate_ids(dec_src, img))
+            rate = len(dec_src) / (time.perf_counter() - t0)
+            need(f"{fam} beam-4 decoding, pallas_step {mode}", launches, ("gru_layer_scan", row))
+            well_formed(out, len(dec_src), V, 40)
+            total = {k: total[k] + launches[k] for k in total}
+            rec["sent_per_s"][mode] = rate
+            print(f"families: {fam}: beam-4 sent/s pallas_step={mode}: {rate:.1f} "
+                  f"({len(dec_src)} sentences, max_length 40, {card})")
+        # f32, the trained weights: kernel path against the all-plain path
+        trained = trainer.model.state_dict()
+        outs = []
+        for over, mode in ((dict(compute_dtype="float32"), 1),
+                           (dict(compute_dtype="float32", use_pallas=False, pallas_decoder=False,
+                                 fused_ce=False), 0)):
+            m32 = build_model(dataclasses.replace(m, **over), device="cuda")
+            m32.load_state_dict(trained)
+            tr = Translator(m32, sv, tv, DecodeConfig(beam_size=4, max_length=40,
+                                                      batch_size=FAMILY_CHECK, pallas_step=mode),
+                            buckets=quality_gate.BUCKETS, device="cuda")
+            outs.append(tr.translate_ids(dec_src[:FAMILY_CHECK],
+                                         None if img is None else img[:FAMILY_CHECK]))
+        same = sum(a[0][1] == b[0][1] for a, b in zip(*outs))
+        rec["f32_top1_same"] = same
+        print(f"families: {fam}: f32 kernel path vs all-plain path, trained weights: "
+              f"{same}/{FAMILY_CHECK} identical top-1 hypotheses")
+        if same < FAMILY_CHECK - 1:
+            fail(f"{fam}: kernel path and plain path disagree on more than 1 of "
+                 f"{FAMILY_CHECK} sentences")
+        recs[fam] = rec
+    print(f"families: launches of each kernel over the three families {total}")
+    return total, recs
 
 
 def main() -> int:
@@ -972,17 +1170,25 @@ def main() -> int:
                 print(f"  nvcc {name}: {line.strip()}")
     print(f"build: {time.time() - t0:.1f} s")
 
-    scan = scan_phase(gru_scan)
-    step, chain = step_phase(ds)
-    scan_bwd = scan_bwd_phase(gru_scan)
-    scan_bwd["reset"] = scan.pop("bwd_reset")
-    dec_fwd, dec_bwd = decoder_phase(dec)
+    scan = scan_phase(gru_scan, SCAN_SHAPE, {"serve": SCAN_SHAPE, "train": TRAIN_SCAN_SHAPE})
+    step, chain = step_phase(ds, STEP_SHAPE)
+    scan_bwd = scan_bwd_phase(gru_scan, TRAIN_SCAN_SHAPE)
+    # the reset stream of both scans (sequence packing)
+    scan["reset"], scan_bwd["reset"] = scan_reset_checks(gru_scan)
+    dec_fwd, dec_bwd = decoder_phase(dec, DEC_SHAPE)
     cfg, state = load_flagship()
     serve_launches, rate = slice_phase(card, cfg.model, state)
     train_launches, steps = train_phase(card, cfg, state)
     check = train_check_f32(cfg, state)
     packed_launches, packed_resets, packed = packed_train_phase(card, cfg, state, steps)
     packed["f32_check"] = packed_check_f32(cfg, state)
+    # every kernel again, with every check, at the quality gate's shapes
+    gate_shape = {"gru_layer_scan": scan_phase(gru_scan, GATE_SCAN_SHAPE,
+                                               {"gate": GATE_SCAN_SHAPE}),
+                  "gru_layer_scan_bwd": scan_bwd_phase(gru_scan, GATE_SCAN_SHAPE)}
+    gate_shape["decode_step"], gate_shape["gru_chain"] = step_phase(ds, GATE_STEP_SHAPE)
+    gate_shape["decoder_fwd"], gate_shape["decoder_bwd"] = decoder_phase(dec, GATE_DEC_SHAPE)
+    family_launches, families = families_phase(card)
 
     entries = []
     for name, rec, src, replaces in (
@@ -1000,7 +1206,8 @@ def main() -> int:
          "variational_mmt_tpu/ops/pallas/decoder.py:304"),
     ):
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
-                   "train_packed": packed_launches.get(name, 0)}
+                   "train_packed": packed_launches.get(name, 0),
+                   "families": family_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1016,13 +1223,22 @@ def main() -> int:
                 entry[key] = rec[key]
         if name in packed_resets:
             entry["reset_launches"] = packed_resets[name]
+        g = gate_shape[name]
+        entry["gate_shape"] = {k: g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                 "library_ms", "plan", "err_float32",
+                                                 "err_bfloat16", "edge_err_float32",
+                                                 "edge_err_bfloat16")}
+        if "peaked" in g:
+            entry["gate_shape"]["peaked"] = {k: v for k, v in g["peaked"].items()
+                                             if k != "per_step"}
         if "abs_err_bfloat16" in rec:  # gradients: the relative error is the check
             entry.update(max_rel_err=rec["err_bfloat16"], max_rel_err_f32=rec["err_float32"])
         else:
             entry.update(max_abs_err_f32=rec["err_float32"])
         entries.append(entry)
     print(json.dumps({"kernels": entries, "sent_per_s": rate, "train": steps,
-                      "train_f32_check": check, "train_packed": packed, "card": card}))
+                      "train_f32_check": check, "train_packed": packed, "families": families,
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -112,14 +112,23 @@ def test_wrappers_on_a_non_cpu_tensor_launch_or_raise(monkeypatch):
 
 
 @pytest.mark.parametrize("over", [
-    dict(model_type="vmmt_f"), dict(model_type="nmt"), dict(rnn_type="lstm"),
-    dict(attn_type="dot"), dict(attn_type="mlp"), dict(z_cond="init+input"),
+    dict(rnn_type="lstm"), dict(attn_type="dot"), dict(attn_type="mlp"),
     dict(img_feat_type="conv", img_pool="attn"), dict(share_embeddings=True),
     dict(input_feed=False),
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
 def test_unsupported_model_options_raise(over):
     with pytest.raises(NotImplementedError):
         build_model(ModelConfig(**{**TINY, **over}), device="cpu")
+
+
+@pytest.mark.parametrize("over", [
+    dict(model_type="vmmt_f"), dict(model_type="nmt"), dict(z_cond="init+input"),
+], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
+def test_ported_model_families_and_z_cond_build(over):
+    """Once refused above; the families and init+input are ported now."""
+    model = build_model(ModelConfig(**{**TINY, **over}), device="cpu")
+    assert model.is_latent == (model.cfg.model_type != "nmt")
+    assert hasattr(model, "z_input_proj") == (over.get("z_cond") == "init+input")
 
 
 @pytest.mark.parametrize("over", [

@@ -51,12 +51,13 @@ def scan_args(g, dt, B, T, H):
 
 # B=61 fills no group of 4 rows (one row all padding); T=1 is a single
 # step; B=140 takes clusters of 8 rows, more than one wave of 4-row
-# clusters; H=250 is the encoder's width (8 CTAs a cluster)
+# clusters; H=250 is the encoder's width (8 CTAs a cluster); B=64, T=32,
+# H=128 is the quality gate's encoder (hidden 256, 4 CTAs a cluster)
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("B,T,H", [(9, 7, 40), (61, 7, 250), (9, 1, 40), (140, 5, 250),
-                                   (5, 24, 96)],
-                         ids=["small", "ragged", "T1", "B140", "H96"])
+                                   (5, 24, 96), (64, 32, 128)],
+                         ids=["small", "ragged", "T1", "B140", "H96", "gate"])
 def test_gru_scan_kernel(cuda, dt, reverse, B, T, H):
     args = scan_args(cuda, dt, B, T, H)
     close(gru_scan.gru_layer_scan(*args, reverse), gru_scan.gru_layer_scan_ref(*args, reverse), dt)
@@ -99,11 +100,11 @@ def test_gru_scan_bwd_kernel(cuda, dt, reverse):
 
 
 # B=61 fills no group of 4 rows or tile of 16; T=1 is a single step; H=250
-# is the encoder's width (8 CTAs a cluster)
+# is the encoder's width (8 CTAs a cluster); the quality gate's encoder
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("reverse", [False, True])
-@pytest.mark.parametrize("B,T,H", [(61, 7, 40), (9, 1, 40), (6, 5, 250)],
-                         ids=["ragged", "T1", "H250"])
+@pytest.mark.parametrize("B,T,H", [(61, 7, 40), (9, 1, 40), (6, 5, 250), (64, 32, 128)],
+                         ids=["ragged", "T1", "H250", "gate"])
 def test_gru_scan_bwd_kernel_shapes(cuda, dt, reverse, B, T, H):
     args = scan_args(cuda, dt, B, T, H)
     outs, _ = gru_scan.gru_layer_scan_ref(*args, reverse)
@@ -158,7 +159,7 @@ def test_gru_scan_kernels_with_reset_are_deterministic(cuda, dt):
     assert all(torch.equal(a, b) for a, b in zip(first + first_b, second + second_b))
 
 
-def decoder_args(g, dt, B=9, T=6, S=40, H=72):
+def decoder_args(g, dt, B=9, T=6, S=40, H=72, mem_std=0.5):
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
     w = lambda *s: (r(*s) / math.sqrt(H)).to(dt)  # noqa: E731
     dmid = ((torch.rand(B, T, H, generator=g, device="cuda") > 0.3).float() / 0.7).to(dt)
@@ -166,8 +167,8 @@ def decoder_args(g, dt, B=9, T=6, S=40, H=72):
     mask_bias = (torch.arange(S, device="cuda")[None] >= lengths[:, None]).float() * -1e9
     return (r(B, T, 3 * H).to(dt), dmid, torch.tanh(r(B, H)), torch.tanh(r(B, H)),
             w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H),
-            w(H, 3 * H), 0.1 * r(3 * H), (0.5 * r(B, S, H)).to(dt), (0.5 * r(B, S, H)).to(dt),
-            w(H, H), mask_bias)
+            w(H, 3 * H), 0.1 * r(3 * H), (mem_std * r(B, S, H)).to(dt),
+            (mem_std * r(B, S, H)).to(dt), w(H, H), mask_bias)
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -188,6 +189,20 @@ def test_decoder_fwd_kernel_shapes(cuda, dt, B, T, S):
     close(decoder.decoder_fwd(*args), decoder.decoder_fwd_ref(*args), dt)
     plan = decoder.decoder_fwd.plan
     assert plan["grid"] == max(plan["unit_tiles"] * plan["row_tiles"], min(B, plan["sms"]))
+
+
+# the quality gate's decoder: hidden 256, targets of 33 (bucket 32 + 1),
+# sources of 32; attention memory std 0.1, as chip_smoke.py holds 2e-2 over
+# a long sequence (bf16 evaluations of a peaked softmax drift apart)
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_decoder_kernels_at_the_gate_shape(cuda, dt):
+    args = decoder_args(cuda, dt, B=64, T=33, S=32, H=256, mem_std=0.1)
+    close(decoder.decoder_fwd(*args), decoder.decoder_fwd_ref(*args), dt)
+    streams = decoder.decoder_fwd_ref(*args)
+    d_attn = torch.randn(streams[0].shape, generator=cuda, device="cuda")
+    d_probs = torch.randn(streams[3].shape, generator=cuda, device="cuda")
+    close_rel(decoder.decoder_bwd(*args[:14], *streams, d_attn, d_probs),
+              decoder.decoder_bwd_ref(*args[:14], *streams, d_attn, d_probs), dt)
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -299,9 +314,10 @@ def step_args(g, dt, N=37, S=40, H=72):
 
 
 # N=1000 fills no 64-row tile; N=3 is less than one; H=72 and H=40 fill
-# no 32-unit tile and no 32-value chunk of K; H=500 is the decoder's width
-STEP_SHAPES = [(37, 40, 72), (1000, 24, 500), (3, 5, 500), (37, 40, 40)]
-STEP_IDS = ["small", "N1000", "N3", "H40"]
+# no 32-unit tile and no 32-value chunk of K; H=500 is the decoder's width;
+# N=256, S=32, H=256 is the quality gate's beam-4 batch of 64
+STEP_SHAPES = [(37, 40, 72), (1000, 24, 500), (3, 5, 500), (37, 40, 40), (256, 32, 256)]
+STEP_IDS = ["small", "N1000", "N3", "H40", "gate"]
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)

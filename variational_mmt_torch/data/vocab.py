@@ -29,6 +29,19 @@ class Vocab:
     def encode(self, tokens: Sequence[str]) -> List[int]:
         return [self.stoi.get(t, UNK) for t in tokens]
 
+    def decode(self, ids: Sequence[int], strip_special: bool = True) -> List[str]:
+        """Ids -> tokens; ``strip_special`` stops at EOS and drops PAD and
+        BOS."""
+        out = []
+        for i in map(int, ids):
+            if strip_special:
+                if i == EOS:
+                    break
+                if i in (PAD, BOS):
+                    continue
+            out.append(self.itos[i] if 0 <= i < len(self.itos) else UNK_TOK)
+        return out
+
     def ids_to_text(self, ids: Sequence[int], debpe: bool = True) -> str:
         """Hypothesis ids -> text: vocab decode (specials kept), then
         BPE-joiner removal."""

@@ -3,11 +3,13 @@
 substitution) and ``Translator`` (``translate_ids``, ``translate_tokens``,
 ``nbest_to_text``).
 
-Encode, take z = the mean of the conditional prior p(z|x,v), bridge into
-the decoder's initial state, then beam search. ``DecodeConfig.pallas_step``
-picks the decode step: 0 plain PyTorch, 1 the fused decode-step kernel,
-2 the GRU-chain kernel with attention in PyTorch. Host code maps text to
-ids, buckets the corpus and regroups the n-best lists in corpus order.
+Encode, take z = the prior mean (of p(z|x,v) for vmmt_c, zero for
+vmmt_f; nmt has no z), bridge into the decoder's initial state, then beam
+search. ``DecodeConfig.pallas_step`` picks the decode step: 0 plain
+PyTorch, 1 the fused decode-step kernel, 2 the GRU-chain kernel with
+attention in PyTorch, for decoders that ``fused_step_eligible`` accepts
+(the plain step otherwise). Host code maps text to ids, buckets the corpus
+and regroups the n-best lists in corpus order.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from variational_mmt_torch.data.dataset import (BinarizedDataset, BucketIterator
                                                 buckets_with_catchall)
 from variational_mmt_torch.data.vocab import EOS, PAD, Vocab
 from variational_mmt_torch.device import resolve_device
+from variational_mmt_torch.models.decoder import fused_step_eligible
 from variational_mmt_torch.models.model import VMMTModel
 from variational_mmt_torch.ops.beam import beam_search, greedy_search, tree_map
 
@@ -51,13 +54,14 @@ def make_translate_fn(model: VMMTModel, dcfg: DecodeConfig) -> Callable:
     K = dcfg.beam_size
     c = model.cfg
     mode = int(dcfg.pallas_step)
-    fused_step = mode > 0 and c.dec_layers == 2
+    fused_step = mode > 0 and fused_step_eligible(c)
 
     @torch.inference_mode()
     def fn(src: torch.Tensor, img: Optional[torch.Tensor]):
         B = src.shape[0]
         memory, finals, src_mask, summary = model.encode(src)
-        z = model.prior_latent(summary, img)
+        # nmt has no z; vmmt_f's prior mean is zero and ignores the image
+        z = model.prior_latent(summary, img) if model.is_latent else None
         carry0 = model.init_decode_carry(model.init_decoder_state(finals, z))
         keys = model.project_memory(memory, fused_step and mode == 1)
         if fused_step and mode == 2:
@@ -73,7 +77,8 @@ def make_translate_fn(model: VMMTModel, dcfg: DecodeConfig) -> Callable:
 
         # tile the read-only context across beams once per batch
         rep = lambda x: x.repeat_interleave(K, dim=0)  # noqa: E731
-        mask_t, mem_t, z_t = rep(src_mask), rep(memory), rep(z)
+        mask_t, mem_t = rep(src_mask), rep(memory)
+        z_t = None if z is None else rep(z)
         keys_t = tree_map(rep, keys)
 
         def step(carry, toks):

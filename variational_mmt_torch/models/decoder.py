@@ -71,6 +71,15 @@ class DecoderStep(nn.Module):
         return (tuple(new_hs), attn_h), (attn_h, align)
 
 
+def fused_step_eligible(cfg) -> bool:
+    """Whether the decode-step kernels (``pallas_step`` 1 and 2) compute
+    this decoder: 2 layers, general attention, GRU cells, input feed
+    (``variational_mmt_tpu/decode/translator.py:184-188``) of the
+    ModelConfig ``cfg``."""
+    return (cfg.dec_layers == 2 and cfg.attn_type == "general" and cfg.rnn_type == "gru"
+            and cfg.input_feed)
+
+
 class GRUDecoder(nn.Module):
     """``use_pallas and pallas_decoder`` runs the teacher-forced sequence
     through the decoder sequence kernels (ops/decoder.py) when the decoder
@@ -197,13 +206,11 @@ class GRUDecoder(nn.Module):
         """Pre-projected attention keys for repeated ``one_step`` calls;
         ``with_values`` also hoists the context half of linear_out
         (``mem_v = memory @ Wc_ctx``) and returns ``(keys, mem_v)``, the
-        layout the fused decode-step kernel reads."""
+        layout the fused decode-step kernel reads (``VMMTModel.project_memory``
+        asks ``fused_step_eligible`` first)."""
         keys = self.step.attn.project_memory(memory)
         if not with_values:
             return keys
-        if self.layers != 2:
-            raise ValueError("project_memory(with_values=True) (fused decode step) "
-                             f"requires a 2-layer decoder, got {self.layers}")
         p_out = self.step.attn.linear_out.kernel
         mem_v = memory @ p_out[: self.hidden].to(memory.dtype)
         return keys, mem_v

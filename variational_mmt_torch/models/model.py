@@ -1,11 +1,20 @@
 """The VMMT model: decode-side methods and the training forward. Mirrors
 ``variational_mmt_tpu/models/model.py``.
 
-The port covers the main path's configuration: ``vmmt_c`` (conditional
-prior p(z|x,v)) with a GRU encoder and a 2-layer input-feed GRU decoder with
-general attention, z conditioning the decoder through the bridge. Every
-other option raises ``NotImplementedError`` naming it. All parameters of a
-JAX vmmt_c tree exist here under the same dotted paths, so a tree
+The port covers the three model types with GRU cells, general attention
+and input feed:
+
+- ``nmt``: text only; no latent modules, the bridge reads the encoder
+  finals alone;
+- ``vmmt_f``: latent z with the fixed prior N(0, I) and the inference
+  network q(z|x,y,v);
+- ``vmmt_c``: the conditional prior p(z|x,v) as well.
+
+z conditions the decoder through the bridge and, with
+``z_cond='init+input'``, also through ``z_input_proj``, added to every
+step's input projection. Every other option raises
+``NotImplementedError`` naming it. The parameters of a JAX tree of any of
+these configurations exist here under the same dotted paths, so a tree
 round-trips whole through ``convert.py``.
 
 Randomness (dropout, word dropout, the reparameterization noise) comes from
@@ -25,7 +34,7 @@ from torch import nn
 from variational_mmt_torch.config import ModelConfig
 from variational_mmt_torch.data.vocab import PAD, UNK
 from variational_mmt_torch.device import resolve_device
-from variational_mmt_torch.models.decoder import GRUDecoder
+from variational_mmt_torch.models.decoder import GRUDecoder, fused_step_eligible
 from variational_mmt_torch.models.gru import BiGRUEncoder, masked_mean, segment_mean
 from variational_mmt_torch.models.latent import (ConditionalPrior, ImagePredictor,
                                                  InferenceNetwork, reparameterize)
@@ -38,10 +47,8 @@ def check_supported(c: ModelConfig) -> None:
     """Raise NotImplementedError for every option outside the slice."""
     c.validate()
     unsupported = [
-        ("model_type", c.model_type != "vmmt_c"),
         ("rnn_type=lstm", c.rnn_type != "gru"),
         (f"attn_type={c.attn_type}", c.attn_type != "general"),
-        ("z_cond=init+input", c.z_cond != "init"),
         ("img_feat_type=conv with img_pool=attn",
          c.img_feat_type == "conv" and c.img_pool == "attn"),
         ("share_embeddings", c.share_embeddings),
@@ -50,9 +57,8 @@ def check_supported(c: ModelConfig) -> None:
     ]
     bad = [name for name, on in unsupported if on]
     if bad:
-        what = f"model_type={c.model_type}" if bad[0] == "model_type" else bad[0]
-        raise NotImplementedError(f"not ported yet: {what} (the port supports vmmt_c "
-                                  "with GRU cells, general attention, input feed)")
+        raise NotImplementedError(f"not ported yet: {bad[0]} (the port supports GRU cells, "
+                                  "general attention, input feed)")
 
 
 class VMMTModel(nn.Module):
@@ -71,16 +77,26 @@ class VMMTModel(nn.Module):
             self.gen_bias = nn.Parameter(torch.empty(c.tgt_vocab_size))
         else:
             self.generator = Dense(H, c.tgt_vocab_size, dtype=dt)
-        use_img = c.img_feat_dim > 0
+        # the bridge reads [final; z] for latent models, the final alone for nmt
+        z_dim = c.latent_dim if self.is_latent else 0
         for l in range(c.dec_layers):
-            self.add_module(f"bridge{l}", Dense(H + c.latent_dim, H, dtype=dt))
-        self.tgt_encoder = BiGRUEncoder(E, H, 1, dt, c.use_pallas, c.dropout)
-        self.infnet = InferenceNetwork(H, c.img_feat_dim, c.latent_dim, H, c.min_sigma,
-                                       use_img, dt)
-        self.prior = ConditionalPrior(H, c.img_feat_dim, c.latent_dim, H, c.min_sigma,
-                                      use_img, dt)
-        if c.use_img_predict:
-            self.img_pred = ImagePredictor(c.latent_dim, c.img_feat_dim, H, dt)
+            self.add_module(f"bridge{l}", Dense(H + z_dim, H, dtype=dt))
+        if self.is_latent:
+            use_img = c.img_feat_dim > 0
+            self.tgt_encoder = BiGRUEncoder(E, H, 1, dt, c.use_pallas, c.dropout)
+            self.infnet = InferenceNetwork(H, c.img_feat_dim, c.latent_dim, H, c.min_sigma,
+                                           use_img, dt)
+            if c.model_type == "vmmt_c":
+                self.prior = ConditionalPrior(H, c.img_feat_dim, c.latent_dim, H,
+                                              c.min_sigma, use_img, dt)
+            if c.use_img_predict:
+                self.img_pred = ImagePredictor(c.latent_dim, c.img_feat_dim, H, dt)
+            if c.z_cond == "init+input":
+                self.z_input_proj = Dense(c.latent_dim, 3 * H, use_bias=False, dtype=dt)
+
+    @property
+    def is_latent(self) -> bool:
+        return self.cfg.model_type in ("vmmt_f", "vmmt_c")
 
     def encode(self, src: torch.Tensor, generator: Optional[torch.Generator] = None):
         """src (B,S) -> (memory (B,S,H), finals [L x (B,H)], src_mask (B,S),
@@ -103,8 +119,13 @@ class VMMTModel(nn.Module):
         return img
 
     def prior_params(self, src_summary: torch.Tensor, img: Optional[torch.Tensor]):
-        """(mu_p, sigma_p) of the conditional prior p(z|x,v), in f32."""
-        return self.prior(src_summary, self._img_in(img))
+        """(mu_p, sigma_p) in f32: the conditional prior p(z|x,v) for
+        vmmt_c, N(0, I) for vmmt_f."""
+        if self.cfg.model_type == "vmmt_c":
+            return self.prior(src_summary, self._img_in(img))
+        shape = (src_summary.shape[0], self.cfg.latent_dim)
+        return (torch.zeros(shape, dtype=torch.float32, device=src_summary.device),
+                torch.ones(shape, dtype=torch.float32, device=src_summary.device))
 
     def prior_latent(self, src_summary: torch.Tensor, img: Optional[torch.Tensor]):
         """Decode-time latent-mean substitution: z = E_p[z]."""
@@ -128,8 +149,12 @@ class VMMTModel(nn.Module):
             return (h @ w.t()).float() + self.gen_bias
         return self.generator(h).float()
 
-    def z_extra_proj(self, z: Optional[torch.Tensor]):
-        return None  # z_cond=init: z enters through the bridge only
+    def z_extra_proj(self, z: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """z's share of every step's input projection (``init+input``),
+        else None."""
+        if z is not None and self.cfg.z_cond == "init+input":
+            return self.z_input_proj(z.to(self.dt))
+        return None
 
     def decode_step(self, carry, tok: torch.Tensor, memory, src_mask, z, keys=None):
         """One inference step: tok (N,) -> (carry, logits (N,V) f32, align)."""
@@ -139,6 +164,15 @@ class VMMTModel(nn.Module):
         return carry, self._gen(attn_h), align
 
     def project_memory(self, memory: torch.Tensor, with_values: bool = False):
+        """The decoder's attention keys; ``with_values`` also ``mem_v``, for
+        the fused decode step, which computes only the decoders that
+        ``fused_step_eligible`` accepts."""
+        c = self.cfg
+        if with_values and not fused_step_eligible(c):
+            raise ValueError(
+                "project_memory(with_values=True) (fused decode step) requires 2-layer GRU + "
+                f"general attention + input_feed; got layers={c.dec_layers} "
+                f"attn={c.attn_type} cell={c.rnn_type} input_feed={c.input_feed}")
         return self.decoder.project_memory(memory, with_values)
 
     def init_decode_carry(self, init_hs):
@@ -159,35 +193,45 @@ class VMMTModel(nn.Module):
             return self.tgt_embed.embedding.t(), self.gen_bias
         return self.generator.kernel, self.generator.bias
 
+    def _latent(self, out: Dict[str, torch.Tensor], src_summary: torch.Tensor,
+                mu_q: torch.Tensor, sigma_q: torch.Tensor, v_in: Optional[torch.Tensor],
+                sample: bool, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The prior, z (a sample of q or its mean) and the image
+        prediction, recorded in ``out``; returns z."""
+        mu_p, sigma_p = self.prior_params(src_summary, v_in)
+        z = reparameterize(mu_q, sigma_q, generator) if sample else mu_q
+        out.update(mu_q=mu_q, sigma_q=sigma_q, mu_p=mu_p, sigma_p=sigma_p, z=z)
+        if self.cfg.use_img_predict:
+            out["img_pred"] = self.img_pred(z)
+            if v_in is not None:
+                # the image objective's target is a constant (stop_gradient)
+                out["img_target"] = v_in.detach()
+        return z
+
     def forward(self, src: torch.Tensor, tgt_in: torch.Tensor,
                 img: Optional[torch.Tensor] = None, deterministic: bool = True,
                 sample: bool = True, tgt_out: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
         """Training forward (model.py:231-302): logits (or, with
-        ``fused_ce``, the pre-generator ``dec_out``), aligns, the latent
-        parameters and the image prediction; the ELBO is assembled in
-        train/loss.py. ``generator`` feeds dropout and word dropout (unless
-        ``deterministic``) and the noise of ``sample``. ``tgt_out`` is the
-        gold target q conditions on; without it tgt_in shifted left stands
-        in."""
+        ``fused_ce``, the pre-generator ``dec_out``), aligns and, for latent
+        models, the latent parameters and the image prediction (nmt emits
+        neither); the ELBO is assembled in train/loss.py. ``generator``
+        feeds dropout and word dropout (unless ``deterministic``) and the
+        noise of ``sample``. ``tgt_out`` is the gold target q conditions on;
+        without it tgt_in shifted left stands in."""
         c = self.cfg
         if (not deterministic or sample) and generator is None:
             raise ValueError("forward: dropout and sampling need a torch.Generator")
         drop_gen = None if deterministic else generator
         memory, finals, src_mask, src_summary = self.encode(src, drop_gen)
         out: Dict[str, torch.Tensor] = {}
-        v_in = self._img_in(img)
-        gold = tgt_out if tgt_out is not None else torch.cat(
-            [tgt_in[:, 1:], torch.zeros_like(tgt_in[:, :1])], dim=1)
-        mu_q, sigma_q = self.posterior(src_summary, gold, v_in, drop_gen)
-        mu_p, sigma_p = self.prior_params(src_summary, v_in)
-        z = reparameterize(mu_q, sigma_q, generator) if sample else mu_q
-        out.update(mu_q=mu_q, sigma_q=sigma_q, mu_p=mu_p, sigma_p=sigma_p, z=z)
-        if c.use_img_predict:
-            out["img_pred"] = self.img_pred(z)
-            if v_in is not None:
-                # the image objective's target is a constant (stop_gradient)
-                out["img_target"] = v_in.detach()
+        z = None
+        if self.is_latent:
+            v_in = self._img_in(img)
+            gold = tgt_out if tgt_out is not None else torch.cat(
+                [tgt_in[:, 1:], torch.zeros_like(tgt_in[:, :1])], dim=1)
+            mu_q, sigma_q = self.posterior(src_summary, gold, v_in, drop_gen)
+            z = self._latent(out, src_summary, mu_q, sigma_q, v_in, sample, generator)
         if not deterministic and c.word_dropout > 0.0:
             keep = torch.rand(tgt_in.shape, generator=generator, device=tgt_in.device) \
                 < 1.0 - c.word_dropout
@@ -214,32 +258,29 @@ class VMMTModel(nn.Module):
         out flattened (B*K, ...), so that the ELBO treats each segment as an
         unpacked row; the token-level ones keep (B,L,...). Per segment the
         math is the unpacked forward's. ``tgt_out`` (the gold target q
-        conditions on) is required; ``generator`` as in :meth:`forward`."""
+        conditions on) is required for latent models; ``generator`` as in
+        :meth:`forward`."""
         c = self.cfg
         if (not deterministic or sample) and generator is None:
             raise ValueError("forward_packed: dropout and sampling need a torch.Generator")
-        if tgt_out is None:
-            raise ValueError("forward_packed requires tgt_out (the gold target the posterior "
-                             "conditions on)")
         drop_gen = None if deterministic else generator
         B, K = seg_first.shape
         memory, finals = self.encoder(self.src_embed(src), (src_seg >= 0).float(), drop_gen,
                                       seg=src_seg, seg_bounds=(seg_first, seg_last))
         src_summary = segment_mean(memory, src_seg, K).reshape(B * K, -1)
         out: Dict[str, torch.Tensor] = {}
-        v_in = None if img is None else self._img_in(img.reshape((B * K,) + img.shape[2:]))
-        # q over the packed gold target: a segment-reset encoder, a summary a segment
-        tgt_enc, _ = self.tgt_encoder(self.tgt_embed(tgt_out), (tgt_seg >= 0).float(), drop_gen,
-                                      seg=tgt_seg)
-        tgt_summary = segment_mean(tgt_enc, tgt_seg, K).reshape(B * K, -1)
-        mu_q, sigma_q = self.infnet(src_summary, tgt_summary, v_in)
-        mu_p, sigma_p = self.prior_params(src_summary, v_in)
-        z = reparameterize(mu_q, sigma_q, generator) if sample else mu_q
-        out.update(mu_q=mu_q, sigma_q=sigma_q, mu_p=mu_p, sigma_p=sigma_p, z=z)
-        if c.use_img_predict:
-            out["img_pred"] = self.img_pred(z)
-            if v_in is not None:
-                out["img_target"] = v_in.detach()
+        z = None
+        if self.is_latent:
+            if tgt_out is None:
+                raise ValueError("forward_packed requires tgt_out (the gold target the "
+                                 "posterior conditions on)")
+            v_in = None if img is None else self._img_in(img.reshape((B * K,) + img.shape[2:]))
+            # q over the packed gold target: a segment-reset encoder, a summary a segment
+            tgt_enc, _ = self.tgt_encoder(self.tgt_embed(tgt_out), (tgt_seg >= 0).float(),
+                                          drop_gen, seg=tgt_seg)
+            tgt_summary = segment_mean(tgt_enc, tgt_seg, K).reshape(B * K, -1)
+            mu_q, sigma_q = self.infnet(src_summary, tgt_summary, v_in)
+            z = self._latent(out, src_summary, mu_q, sigma_q, v_in, sample, generator)
         if not deterministic and c.word_dropout > 0.0:
             keep = torch.rand(tgt_in.shape, generator=generator, device=tgt_in.device) \
                 < 1.0 - c.word_dropout
@@ -275,9 +316,10 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 
 def init_params(cfg: ModelConfig, seed: int = 0) -> dict:
     """Random parameters as a JAX-layout tree of numpy f32 arrays, from a
-    numpy seed: Dense and recurrent kernels lecun-normal (std
-    1/sqrt(fan_in)), embeddings normal with std 1/sqrt(E), biases zero, as
-    the flax initializers draw them (not the same numbers)."""
+    numpy seed, drawn from the distributions of the flax initializers (not
+    the same numbers): Dense and recurrent kernels lecun-normal, a standard
+    normal truncated to [-2, 2] and scaled to variance 1/fan_in;
+    embeddings normal with std 1/sqrt(E); biases zero."""
     from variational_mmt_torch.convert import unflatten
 
     rng = np.random.default_rng(seed)
@@ -285,7 +327,24 @@ def init_params(cfg: ModelConfig, seed: int = 0) -> dict:
     for name, shape in sorted(param_shapes(cfg).items()):
         if len(shape) == 1:
             flat[name] = np.zeros(shape, np.float32)
-            continue
-        fan = shape[1] if name.endswith("embedding") else shape[0]
-        flat[name] = (rng.standard_normal(shape) / np.sqrt(fan)).astype(np.float32)
+        elif name.endswith("embedding"):
+            flat[name] = (rng.standard_normal(shape) / np.sqrt(shape[1])).astype(np.float32)
+        else:
+            flat[name] = (truncated_normal(rng, shape) / np.sqrt(shape[0])
+                          / TRUNC_STD).astype(np.float32)
     return unflatten(flat)
+
+
+# std of a standard normal truncated to [-2, 2]: the divisor that gives
+# flax's truncated lecun-normal its variance 1/fan_in
+TRUNC_STD = 0.87962566103423978
+
+
+def truncated_normal(rng: np.random.Generator, shape: Tuple[int, ...]) -> np.ndarray:
+    """Standard normal draws truncated to [-2, 2] (redrawn until inside)."""
+    x = rng.standard_normal(shape)
+    out = np.abs(x) > 2.0
+    while out.any():
+        x[out] = rng.standard_normal(int(out.sum()))
+        out = np.abs(x) > 2.0
+    return x
