@@ -109,12 +109,36 @@ in PERF.md).
    the decode step or GRU chain launched, sent/s; then, with the trained
    weights in f32, the kernel path and the all-plain path must agree on at
    least 31 of 32 top-1 hypotheses.
-10. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+10. Entry-point phase: the port's CLIs at the flagship's widths. A
+    preprocessed corpus written with the port's writers into a temporary
+    directory (the synthetic corpus of data/synthetic.py, vocab 10000,
+    2048/256/256 pairs, its image vectors through one fixed projection to
+    2048-d; ``write_cli_corpus``) and a ``-config`` file, the port's
+    configs/vmmt_c_multi30k.json with pallas_decoder on (emb and hidden
+    500, 2+2 layers, latent 128, bf16, use_pallas, fused_ce). ``cli.train``
+    runs 60 steps of batch 64 with validation, reports and checkpoints every
+    20 steps, keeping 2: every loss finite, 3 validations, checkpoints 40
+    and 60 kept. The step-40 checkpoint, loaded, must equal the live state
+    at step 40 bit for bit (params, Adam state, step, lr, generator state),
+    and one step from it must equal one from the live state on the same
+    batch: bit for bit when two steps from the live state agree bit for bit
+    (the route is deterministic), else no farther from the first than the
+    second is. ``-train_from`` that checkpoint up to step 60 (the data
+    restarting at epoch 0), finite losses. ``cli.translate`` from the last
+    checkpoint, beam 4, at pallas_step 1 and 2, with ``-report_bleu`` on the
+    256 test pairs: well formed, rows 1 and 3 (then 1 and 4) launched,
+    sent/s. Then save -> load -> translate at pallas_step 1 must give the
+    same n-best ids. Prints the CLI's ms/step over its loop (validations and
+    checkpoints included) beside phase 5's Trainer ms/step, sent/s and the
+    checkpoint's size. Rows 1, 2, 3, 5 and 6 must run on the train and
+    translate runs, row 4 on the pallas_step 2 run; comparison steps are not
+    counted.
+11. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
     numbers at the gate's shape, ``launches_by_path`` the serving,
-    training, packed-training and families counts), then the last line
+    training, packed-training, families and CLI counts), then the last line
     {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
@@ -158,6 +182,10 @@ GATE_DEC_SHAPE = dict(B=64, T=33, S=32, H=256)  # its decoder, one step past buc
 GATE_STEP_SHAPE = dict(N=256, S=32, H=256)  # its beam-4 decoding of 64 sentences
 FAMILIES = ("nmt", "vmmt_f", "vmmt_c")
 FAMILY_STEPS, FAMILY_SENTENCES, FAMILY_CHECK = 20, 64, 32
+CLI_STEPS, CLI_EVERY, CLI_KEEP, CLI_RESUME_AT = 60, 20, 2, 40  # the entry-point phase
+CLI_TRAIN, CLI_VALID, CLI_TEST, CLI_VOCAB, CLI_IMG = 2048, 256, 256, 10000, 64
+CLI_KERNELS = ("gru_layer_scan", "gru_layer_scan_bwd", "decode_step", "gru_chain",
+               "decoder_fwd", "decoder_bwd")
 
 
 def fail(msg: str) -> None:
@@ -1145,6 +1173,255 @@ def families_phase(card: str):
     return total, recs
 
 
+
+def write_cli_corpus(root: str):
+    """The entry-point phase's preprocessed corpus, written with the port's
+    writers only: the synthetic corpus (data/synthetic.py, vocab 10000,
+    seed 5) split 2048/256/256 into ``<root>/corpus.{train,valid}.npz``,
+    ``corpus.vocab.{src,tgt}.json``, ``{train,valid,test}.feats.npy`` (its
+    64-d image vectors through one fixed projection from numpy seed 6 to
+    2048-d) and ``test.src`` / ``test.tgt`` text; and ``config.json``, the
+    port's configs/vmmt_c_multi30k.json with pallas_decoder on."""
+    from variational_mmt_torch.data.dataset import BinarizedDataset
+    from variational_mmt_torch.data.synthetic import make_corpus
+
+    n = CLI_TRAIN + CLI_VALID + CLI_TEST
+    src, tgt, img, sv, tv = make_corpus(n, vocab_size=CLI_VOCAB, img_dim=CLI_IMG, seed=5)
+    proj = np.random.default_rng(6).standard_normal((CLI_IMG, 2048)).astype(np.float32)
+    feats = (img @ proj / np.sqrt(CLI_IMG)).astype(np.float32)
+    cuts = {"train": (0, CLI_TRAIN), "valid": (CLI_TRAIN, CLI_TRAIN + CLI_VALID),
+            "test": (CLI_TRAIN + CLI_VALID, n)}
+    prefix = os.path.join(root, "corpus")
+    for split, (a, b) in cuts.items():
+        np.save(os.path.join(root, f"{split}.feats.npy"), feats[a:b])
+        if split != "test":
+            BinarizedDataset([np.asarray(sv.encode(s), np.int32) for s in src[a:b]],
+                             [np.asarray(tv.encode(t), np.int32) for t in tgt[a:b]]
+                             ).save(f"{prefix}.{split}.npz")
+    a, b = cuts["test"]
+    for name, lines in (("test.src", src[a:b]), ("test.tgt", tgt[a:b])):
+        with open(os.path.join(root, name), "w", encoding="utf-8") as f:
+            f.writelines(" ".join(line) + "\n" for line in lines)
+    sv.save(prefix + ".vocab.src.json")
+    tv.save(prefix + ".vocab.tgt.json")
+    with open(os.path.join(HERE, "variational_mmt_torch", "configs", "vmmt_c_multi30k.json")) as f:
+        cfg = json.load(f)
+    cfg["model"]["pallas_decoder"] = True
+    with open(os.path.join(root, "config.json"), "w") as f:
+        json.dump(cfg, f)
+    return prefix
+
+
+def snapshot(state) -> dict:
+    """A copy of a live TrainState's numbers (params, optimizer state,
+    generator state, step, lr)."""
+    return {"params": [p.detach().clone() for p in state.model.parameters()],
+            "opt": {k: ([t.clone() for t in v] if isinstance(v, list) else v.clone())
+                    for k, v in state.opt_state.items()},
+            "gen": state.generator.get_state().clone(), "step": state.step, "lr": state.lr}
+
+
+def same_state(snap: dict, state) -> list:
+    """The parts of ``state`` that differ from ``snap`` in any bit."""
+    bad = [n for (n, p), q in zip(state.model.named_parameters(), snap["params"])
+           if not torch.equal(p, q)]
+    for k, v in snap["opt"].items():
+        got = state.opt_state[k]
+        if not (all(torch.equal(a, b) for a, b in zip(got, v)) if isinstance(v, list)
+                else torch.equal(got, v)):
+            bad.append(f"opt_state.{k}")
+    if not torch.equal(state.generator.get_state(), snap["gen"]):
+        bad.append("generator")
+    if state.step != snap["step"] or state.lr != snap["lr"]:
+        bad.append(f"step/lr {state.step}/{state.lr} != {snap['step']}/{snap['lr']}")
+    return bad
+
+
+def cli_phase(card: str, trainer_ms: float):
+    """The entry points at full width (module docstring, phase 10): the
+    train CLI for 60 steps with validation and checkpoints, the step-40
+    checkpoint against the live state, a resume from it, then the translate
+    CLI, and save -> load -> translate. Returns ({kernel: launches on the
+    CLI runs}, record)."""
+    import tempfile
+
+    from variational_mmt_torch.cli import train as cli_train, translate as cli_translate
+    from variational_mmt_torch.data.dataset import BinarizedDataset, BucketIterator
+    from variational_mmt_torch.data.features import load_features
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
+    from variational_mmt_torch.train import checkpoint as ck
+    from variational_mmt_torch.train.trainer import TrainState, batch_tensors, make_train_step
+
+    counters = {fn.__name__: fn for fn in (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd,
+                                           ds.decode_step, ds.gru_chain, dec.decoder_fwd,
+                                           dec.decoder_bwd)}
+    total = dict.fromkeys(counters, 0)
+
+    def counted(fn):
+        """``fn()`` with the kernels' counts set to 0 before and added to
+        the CLI path's after."""
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: c.launches for k, c in counters.items()}
+        for k in total:
+            total[k] += got[k]
+        return got, out
+
+    rec = {}
+    with tempfile.TemporaryDirectory(prefix="vmmt_cli_") as root:
+        t0 = time.time()
+        prefix = write_cli_corpus(root)
+        run, resumed = os.path.join(root, "run"), os.path.join(root, "resumed")
+        print(f"cli: corpus of {CLI_TRAIN}/{CLI_VALID}/{CLI_TEST} pairs (synthetic, vocab "
+              f"{CLI_VOCAB}, 2048-d features) written in {time.time() - t0:.1f} s")
+        feats = ("-train_img_feats", os.path.join(root, "train.feats.npy"),
+                 "-valid_img_feats", os.path.join(root, "valid.feats.npy"))
+        argv = ["-data", prefix, "-config", os.path.join(root, "config.json"), *feats,
+                "-batch_size", str(TRAIN_BATCH), "-report_every", str(CLI_EVERY),
+                "-valid_every", str(CLI_EVERY), "-checkpoint_every", str(CLI_EVERY),
+                "-keep_checkpoints", str(CLI_KEEP), "-max_steps", str(CLI_STEPS)]
+        snaps = {}
+
+        def keep(state, path):
+            if state.step == CLI_RESUME_AT:
+                snaps["live"] = snapshot(state)
+
+        launches, trainer = counted(lambda: cli_train.main(
+            argv + ["-save_model", run], on_checkpoint=keep))
+        print(f"cli: train launches ({CLI_STEPS} steps) {launches}")
+        for k in ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd"):
+            if launches[k] <= 0:
+                fail(f"kernel {k} was not launched by the train CLI")
+        m = trainer.cfg.model
+        print(f"cli: model {m.model_type} emb {m.emb_dim} hidden {m.hidden_dim} layers "
+              f"{m.enc_layers}+{m.dec_layers} latent {m.latent_dim} img {m.img_feat_dim} vocab "
+              f"{m.src_vocab_size}/{m.tgt_vocab_size} {m.compute_dtype} use_pallas="
+              f"{m.use_pallas} pallas_decoder={m.pallas_decoder} fused_ce={m.fused_ce}")
+        losses = [h["loss"] for h in trainer.last_run["metrics"]]
+        if len(losses) != CLI_STEPS or not all(math.isfinite(v) for v in losses):
+            fail(f"train CLI: {len(losses)} steps, or a loss that is not finite")
+        kept = ck.list_checkpoints(run)
+        print(f"cli: checkpoints kept {kept}; validations {[h['step'] for h in trainer.history]}")
+        if kept != [CLI_RESUME_AT, CLI_STEPS] or len(trainer.history) != CLI_STEPS // CLI_EVERY:
+            fail("train CLI: wrong checkpoints kept or validations run")
+        run_rec = trainer.last_run
+        side_s = run_rec["validation_seconds"] + run_rec["checkpoint_seconds"]
+        run_ms = run_rec["seconds"] / run_rec["steps"] * 1e3
+        steps_ms = (run_rec["seconds"] - side_s) / run_rec["steps"] * 1e3
+        rec.update(train_ms_per_step=run_ms, train_ms_per_step_steps_only=steps_ms,
+                   validation_s=run_rec["validation_seconds"],
+                   checkpoint_s=run_rec["checkpoint_seconds"])
+        print(f"cli: train CLI {run_ms:.2f} ms/step over its {CLI_STEPS}-step loop, "
+              f"{steps_ms:.2f} without its 3 validations of {CLI_VALID} pairs "
+              f"({run_rec['validation_seconds']:.2f} s) and 3 checkpoints "
+              f"({run_rec['checkpoint_seconds']:.2f} s); batch {TRAIN_BATCH}; the Trainer phase of "
+              f"this call {trainer_ms:.2f} ms/step ({card})")
+
+        # the step-40 checkpoint against the live state at step 40
+        path40 = os.path.join(run, f"step_{CLI_RESUME_AT:08d}")
+        loaded, cfg, model, sv, tv = ck.load_checkpoint(path40, device="cuda")
+        bad = same_state(snaps["live"], loaded)
+        print(f"cli: step-{CLI_RESUME_AT} checkpoint vs the live state: "
+              f"{'bit-identical' if not bad else bad}")
+        if bad:
+            fail(f"the loaded checkpoint differs from the live state: {bad}")
+        ds_train = BinarizedDataset.load(prefix + ".train.npz")
+        batch = next(BucketIterator(ds_train, TRAIN_BATCH, cfg.data.buckets,
+                                    img_feats=load_features(feats[1])).epoch(0))
+        batch = batch_tensors(batch, torch.device("cuda"))
+        step = make_train_step(cfg)
+
+        def one_step(state):
+            state, metrics = step(state, batch, state.generator)
+            return (float(metrics["loss"].detach()),
+                    [p.detach().clone() for p in state.model.parameters()])
+
+        def live_copy():
+            mod = build_model(cfg.model, device="cuda")
+            with torch.no_grad():
+                for p, q in zip(mod.parameters(), snaps["live"]["params"]):
+                    p.copy_(q)
+            gen = torch.Generator(device="cuda")
+            gen.set_state(snaps["live"]["gen"])
+            opt = {k: ([t.clone() for t in v] if isinstance(v, list) else v.clone())
+                   for k, v in snaps["live"]["opt"].items()}
+            return TrainState(model=mod, opt_state=opt, step=CLI_RESUME_AT,
+                              lr=snaps["live"]["lr"], generator=gen)
+
+        (la, pa), (lb, pb), (lc, pc) = one_step(live_copy()), one_step(live_copy()), \
+            one_step(loaded)
+        spread = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+        dist = max(float((a - c).abs().max()) for a, c in zip(pa, pc))
+        print(f"cli: one step from the live state {la!r}, again {lb!r}, from the loaded state "
+              f"{lc!r}; params: live vs live max |diff| {spread:.3e}, live vs loaded {dist:.3e}")
+        # bit-identical where the route is deterministic; else no farther
+        # from the live step than a second live step is
+        if not (dist <= spread and abs(lc - la) <= abs(lb - la)):
+            fail("one step from the loaded checkpoint differs from one from the live state")
+        rec["resume_check"] = {"loss_live": la, "loss_loaded": lc, "live_spread": spread,
+                               "loaded_dist": dist}
+        del loaded, model, snaps["live"]
+
+        # resume the step-40 checkpoint to step 60 (the data restart at epoch 0)
+        launches, tr2 = counted(lambda: cli_train.main(
+            argv + ["-save_model", resumed, "-train_from", path40]))
+        losses2 = [h["loss"] for h in tr2.last_run["metrics"]]
+        print(f"cli: resumed from step {CLI_RESUME_AT}: {len(losses2)} steps to "
+              f"{tr2.final_state.step}, losses {' '.join(f'{v:.3f}' for v in losses2[:3])} ... "
+              f"{losses2[-1]:.3f}; launches {launches}")
+        if (tr2.final_state.step != CLI_STEPS or len(losses2) != CLI_STEPS - CLI_RESUME_AT
+                or not all(math.isfinite(v) for v in losses2)):
+            fail("the resumed run did not reach its step count with finite losses")
+
+        # the translate CLI from the last checkpoint, beam 4
+        size = os.path.getsize(os.path.join(run, f"step_{CLI_STEPS:08d}", "state.msgpack"))
+        rec["checkpoint_bytes"] = size
+        print(f"cli: checkpoint state.msgpack {size} bytes ({size / 2**20:.1f} MiB; params, "
+              "Adam moments, step, lr, rng, generator)")
+        tr_argv = ["-src", os.path.join(root, "test.src"), "-tgt", os.path.join(root, "test.tgt"),
+                   "-img_feats", os.path.join(root, "test.feats.npy"), "-pretokenized",
+                   "-beam_size", "4", "-batch_size", str(CLI_TEST), "-max_length", "60",
+                   "-report_bleu", "-output", os.path.join(root, "pred.txt")]
+        rec["sent_per_s"] = {}
+        outs = {}
+        for mode, model_dir in ((1, run), (2, run)):
+            launches, out = counted(lambda: cli_translate.main(
+                tr_argv + ["-model", model_dir, "-pallas_step", str(mode)]))
+            row = "decode_step" if mode == 1 else "gru_chain"
+            print(f"cli: translate pallas_step={mode}: {out['sent_per_s']:.1f} sent/s "
+                  f"({CLI_TEST} sentences, beam 4, max_length 60, {card}), BLEU "
+                  f"{out['bleu']:.2f}; launches {launches}")
+            if launches["gru_layer_scan"] <= 0 or launches[row] <= 0:
+                fail(f"the translate CLI did not launch the scan and {row}")
+            well_formed(out["nbest"], CLI_TEST, CLI_VOCAB, 60)
+            rec["sent_per_s"][mode] = out["sent_per_s"]
+            outs[mode] = out
+
+        # save -> load -> translate: identical n-best ids
+        state, cfg, model, sv, tv = ck.load_checkpoint(ck.latest_checkpoint(run), device="cuda")
+        t0 = time.perf_counter()
+        copy = ck.save_checkpoint(os.path.join(root, "copy"), state, cfg, sv, tv)
+        rec["save_s"] = time.perf_counter() - t0
+        del state, model
+        launches, again = counted(lambda: cli_translate.main(
+            tr_argv + ["-model", copy, "-pallas_step", "1"]))
+        same = sum([i for _, i in a] == [i for _, i in b]
+                   for a, b in zip(outs[1]["nbest"], again["nbest"]))
+        print(f"cli: save ({rec['save_s']:.2f} s) -> load -> translate: {same}/{CLI_TEST} "
+              f"identical n-best id lists")
+        if same != CLI_TEST:
+            fail("a saved and reloaded checkpoint translates differently")
+    print(f"cli: launches of each kernel on the CLI runs {total}")
+    for k in CLI_KERNELS:
+        if total[k] <= 0:
+            fail(f"kernel {k} was not launched on the CLI path")
+    return total, rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -1189,6 +1466,7 @@ def main() -> int:
     gate_shape["decode_step"], gate_shape["gru_chain"] = step_phase(ds, GATE_STEP_SHAPE)
     gate_shape["decoder_fwd"], gate_shape["decoder_bwd"] = decoder_phase(dec, GATE_DEC_SHAPE)
     family_launches, families = families_phase(card)
+    cli_launches, cli = cli_phase(card, steps["pallas_decoder=1"]["step_ms"])
 
     entries = []
     for name, rec, src, replaces in (
@@ -1207,7 +1485,7 @@ def main() -> int:
     ):
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "train_packed": packed_launches.get(name, 0),
-                   "families": family_launches[name]}
+                   "families": family_launches[name], "cli": cli_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1238,7 +1516,7 @@ def main() -> int:
         entries.append(entry)
     print(json.dumps({"kernels": entries, "sent_per_s": rate, "train": steps,
                       "train_f32_check": check, "train_packed": packed, "families": families,
-                      "card": card}))
+                      "cli": cli, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,5 +1,7 @@
 """PyTorch port: the rules around it. It imports nothing of JAX or of the
-JAX package; its entry points need CUDA unless asked for the CPU; kernel
+JAX package (and neither msgpack nor flax, which the card's machine lacks:
+checkpoints go through train/msgpack_io.py); its entry points need CUDA
+unless asked for the CPU; kernel
 wrappers take their plain versions only for CPU tensors and never swallow
 an error; every option outside the slice raises NotImplementedError."""
 
@@ -21,7 +23,7 @@ from variational_mmt_torch.ops import decoder, gru_scan
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "variational_mmt_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "variational_mmt_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "variational_mmt_tpu")
 TINY = dict(model_type="vmmt_c", src_vocab_size=24, tgt_vocab_size=24, emb_dim=16,
             hidden_dim=16, latent_dim=4, img_feat_dim=6, compute_dtype="float32",
             use_pallas=True)
@@ -45,7 +47,10 @@ def test_port_imports_nothing_of_jax(path):
 def test_port_package_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "translator.py", "gru_scan.py", "decode_step.py", "decoder.py",
-            "trainer.py"} <= names
+            "trainer.py", "checkpoint.py", "msgpack_io.py", "loading.py", "logging.py",
+            "tensorboard.py"} <= names
+    scanned = {p.parent.name for p in PORT_FILES}
+    assert {"cli", "utils", "train", "data", "decode"} <= scanned
 
 
 @pytest.fixture
@@ -113,8 +118,7 @@ def test_wrappers_on_a_non_cpu_tensor_launch_or_raise(monkeypatch):
 
 @pytest.mark.parametrize("over", [
     dict(rnn_type="lstm"), dict(attn_type="dot"), dict(attn_type="mlp"),
-    dict(img_feat_type="conv", img_pool="attn"), dict(share_embeddings=True),
-    dict(input_feed=False),
+    dict(img_feat_type="conv", img_pool="attn"), dict(input_feed=False),
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
 def test_unsupported_model_options_raise(over):
     with pytest.raises(NotImplementedError):
@@ -123,12 +127,15 @@ def test_unsupported_model_options_raise(over):
 
 @pytest.mark.parametrize("over", [
     dict(model_type="vmmt_f"), dict(model_type="nmt"), dict(z_cond="init+input"),
+    dict(share_embeddings=True),
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
 def test_ported_model_families_and_z_cond_build(over):
-    """Once refused above; the families and init+input are ported now."""
+    """Once refused above; the families, init+input and one shared
+    embedding table are ported now."""
     model = build_model(ModelConfig(**{**TINY, **over}), device="cpu")
     assert model.is_latent == (model.cfg.model_type != "nmt")
     assert hasattr(model, "z_input_proj") == (over.get("z_cond") == "init+input")
+    assert hasattr(model, "src_embed") != bool(over.get("share_embeddings"))
 
 
 @pytest.mark.parametrize("over", [

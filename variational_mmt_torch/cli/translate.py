@@ -1,0 +1,244 @@
+"""``translate`` CLI of the port: ``python -m variational_mmt_torch.cli.translate``.
+
+Mirrors ``variational_mmt_tpu/cli/translate.py`` on a single checkpoint of
+either package (a run root resolves to its latest step): tokenize (or
+``-pretokenized``), BPE with ``-bpe_codes``, beam search with latent-mean
+substitution, n-best text to ``-output``; with ``-tgt`` the BLEU line, and
+with ``-verbose`` each sentence's force-decoded score (PRED SCORE, and the
+GOLD scores with ``-tgt``). ``-pallas_step`` 1 or 2 takes the decode-step
+or GRU-chain kernel on the card; the CPU takes the plain step. It runs on
+CUDA unless given ``-device cpu`` and exits with an error without CUDA.
+
+Refused, each naming its ROADMAP.md item, as the port's translator does not
+do them yet: ``-iw_eval``, ``-latent_diag``, ``-mbr_samples``, ``-dump_attn``
+and ``-report_meteor`` (queue 1, item 5.3); sampling and ``-latent_from
+sample`` (5.2); ``-dump_beam``, ``-coverage_beta``, ``-block_ngram_repeat``,
+``-replace_unk`` and ``-phrase_table`` (item 4); ``-tensor_parallel`` (5.8);
+``-infer_dtype bfloat16`` or ``int8`` and a comma-separated ``-model`` (5.4).
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Dict
+
+from variational_mmt_torch.cli.loading import consumes_decode_feats, load_model_spec
+from variational_mmt_torch.cli.train import cli_device
+from variational_mmt_torch.config import DecodeConfig
+from variational_mmt_torch.data.bpe import BPE
+from variational_mmt_torch.data.features import load_features
+from variational_mmt_torch.data.tokenizer import tokenize
+from variational_mmt_torch.decode.translator import Translator
+from variational_mmt_torch.evals.bleu import corpus_bleu
+
+DEFAULT_BUCKETS = [16, 24, 32, 48, 64]
+
+
+def add_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("-model", required=True,
+                   help="checkpoint dir (or specific step dir); "
+                        "comma-separate several for an ensemble decode")
+    p.add_argument("-use_ema", action="store_true",
+                   help="decode with the EMA (Polyak-averaged) weights "
+                        "instead of the raw params (requires a checkpoint "
+                        "trained with -ema_decay > 0)")
+    p.add_argument("-infer_dtype", default="float32",
+                   choices=["float32", "bfloat16", "int8"],
+                   help="decode-time weight precision: bfloat16 halves HBM "
+                        "weight traffic on the bandwidth-bound decode step; "
+                        "int8 (weight-only, per-channel) quarters the "
+                        "persistent weight footprint for serving density")
+    p.add_argument("-pallas_step", type=int, default=0, choices=[0, 1, 2],
+                   help="1: the fused decode-step kernel; 2: the GRU-chain kernel "
+                        "with attention outside, on the card for flagship-structure "
+                        "models (2-layer GRU, general attention, input_feed); the "
+                        "plain step on the CPU")
+    p.add_argument("-ensemble_mode", default="prob", choices=["prob", "logprob"],
+                   help="how ensemble members' next-token distributions are "
+                        "combined: mean probability (prob) or mean log-prob "
+                        "(logprob, geometric)")
+    p.add_argument("-src", required=True, help="source text file")
+    p.add_argument("-tgt", default="", help="reference target (for BLEU / IW eval)")
+    p.add_argument("-img_feats", default="", help="HDF5/NPY features aligned to src lines")
+    p.add_argument("-output", default="pred.txt")
+    p.add_argument("-tensor_parallel", type=int, default=1,
+                   help=">1: decode on a 2-D (data, model) mesh with vocab-"
+                        "parallel embeddings+generator (matches train "
+                        "-tensor_parallel)")
+    p.add_argument("-bpe_codes", default="", help="BPE codes from preprocess (applied to src)")
+    p.add_argument("-pretokenized", action="store_true")
+    p.add_argument("-no_lower", action="store_true")
+    p.add_argument("-beam_size", type=int, default=4)
+    p.add_argument("-n_best", type=int, default=1)
+    p.add_argument("-max_length", type=int, default=100)
+    p.add_argument("-min_length", type=int, default=0)
+    p.add_argument("-alpha", type=float, default=0.6, help="GNMT length penalty exponent")
+    p.add_argument("-block_ngram_repeat", type=int, default=0,
+                   help="g > 0: no hypothesis may contain a repeated g-gram "
+                        "(masked before top-k, on device)")
+    p.add_argument("-ignore_when_blocking", default="",
+                   help="space-separated tokens exempt from ngram blocking "
+                        "(g-grams containing them may repeat)")
+    p.add_argument("-coverage_beta", type=float, default=0.0,
+                   help="GNMT coverage penalty weight (0 = off)")
+    p.add_argument("-batch_size", type=int, default=32)
+    p.add_argument("-replace_unk", action="store_true",
+                   help="replace <unk> outputs with the max-attention source token")
+    p.add_argument("-phrase_table", default="",
+                   help="src<TAB>tgt map consulted by -replace_unk before "
+                        "copying the source token verbatim")
+    p.add_argument("-verbose", action="store_true",
+                   help="per-sentence SENT/PRED/PRED SCORE (+ GOLD with -tgt) report")
+    p.add_argument("-dump_beam", default="",
+                   help="JSON path: raw beam search tree per sentence "
+                        "(per-step parent/token/score for every beam slot)")
+    p.add_argument("-dump_attn", default="",
+                   help=".npz path: attention matrices of each 1-best hypothesis "
+                        "(force-decoded; exact for the deterministic beam)")
+    p.add_argument("-iw_eval", type=int, default=0, help="K>0: report K-sample IW-ELBO (needs -tgt)")
+    p.add_argument("-latent_diag", action="store_true",
+                   help="report posterior-collapse diagnostics over the corpus "
+                        "(active units + per-dim KL; latent models, needs -tgt)")
+    p.add_argument("-report_bleu", action="store_true")
+    p.add_argument("-report_meteor", action="store_true")
+    p.add_argument("-meteor_preset", default="original", choices=["original", "1.5-en"])
+    p.add_argument("-meteor_synonyms", default="", help="synonym table file (meteor hook)")
+    p.add_argument("-meteor_paraphrases", default="", help="paraphrase table file (meteor hook)")
+    p.add_argument("-seed", type=int, default=1234)
+    p.add_argument("-sampling_temp", type=float, default=0.0,
+                   help="> 0: ancestral sampling instead of search "
+                        "(requires -beam_size 1; 1.0 = untempered)")
+    p.add_argument("-sampling_topk", type=int, default=0,
+                   help="sample from the k highest-probability tokens only")
+    p.add_argument("-sampling_topp", type=float, default=0.0,
+                   help="nucleus sampling: smallest token set with "
+                        "cumulative probability >= p")
+    p.add_argument("-mbr_samples", type=int, default=0,
+                   help="N > 0: minimum-Bayes-risk decode — draw N samples "
+                        "per sentence (requires -sampling_temp > 0) and "
+                        "output the consensus hypothesis (max expected "
+                        "sentence-BLEU against the other samples)")
+    p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (the default; an error without CUDA) or cpu")
+    p.add_argument("-latent_from", default="mean", choices=["mean", "sample"],
+                   help="decode-time z: prior mean (reference behavior) or "
+                        "a per-sentence sample z ~ p(z|x,v) seeded by -seed "
+                        "(different seeds give alternative translations)")
+
+
+def refused(opt) -> list:
+    """(flag, ROADMAP.md item) of every option set that the port refuses."""
+    table = [
+        ("-iw_eval", opt.iw_eval > 0, "queue 1, item 5.3"),
+        ("-latent_diag", opt.latent_diag, "queue 1, item 5.3"),
+        ("-mbr_samples", opt.mbr_samples > 0, "queue 1, item 5.3"),
+        ("-dump_attn", bool(opt.dump_attn), "queue 1, item 5.3"),
+        ("-report_meteor", opt.report_meteor, "queue 1, item 5.3"),
+        ("-sampling_temp / -sampling_topk / -sampling_topp",
+         opt.sampling_temp > 0 or opt.sampling_topk > 0 or opt.sampling_topp > 0,
+         "queue 1, item 5.2"),
+        ("-latent_from sample", opt.latent_from != "mean", "queue 1, item 5.2"),
+        ("-dump_beam", bool(opt.dump_beam), "queue 1, item 4"),
+        ("-coverage_beta", opt.coverage_beta != 0.0, "queue 1, item 4"),
+        ("-block_ngram_repeat / -ignore_when_blocking",
+         opt.block_ngram_repeat > 0 or bool(opt.ignore_when_blocking), "queue 1, item 4"),
+        ("-replace_unk / -phrase_table", opt.replace_unk or bool(opt.phrase_table),
+         "queue 1, item 4"),
+        ("-tensor_parallel", opt.tensor_parallel > 1, "queue 1, item 5.8"),
+        (f"-infer_dtype {opt.infer_dtype}", opt.infer_dtype != "float32", "queue 1, item 5.4"),
+        ("a comma-separated -model (an ensemble)", "," in opt.model, "queue 1, item 5.4"),
+    ]
+    return [(flag, item) for flag, on, item in table if on]
+
+
+def main(argv=None) -> Dict[str, object]:
+    """Translate as the flags say; returns {"nbest": [[(score, ids), ...]
+    a sentence], "sent_per_s": ..., "bleu": ... or None}."""
+    p = argparse.ArgumentParser("vmmt-torch translate")
+    add_args(p)
+    opt = p.parse_args(argv)
+    bad = refused(opt)
+    if bad:
+        raise SystemExit("not ported yet: " + "; ".join(
+            f"{flag} (ROADMAP.md {item})" for flag, item in bad))
+    device = cli_device(opt.device)
+    lm = load_model_spec(opt.model, use_ema=opt.use_ema, device=device)
+    model, cfg, sv, tv = lm.model, lm.cfg, lm.src_vocab, lm.tgt_vocab
+
+    lower = not opt.no_lower
+    with open(opt.src, encoding="utf-8") as f:
+        raw = [line.rstrip("\n") for line in f]
+    if opt.pretokenized:
+        src_tok = [(line.lower() if lower else line).split() for line in raw]
+    else:
+        src_tok = [tokenize(line, lower=lower) for line in raw]
+    bpe = BPE.load(opt.bpe_codes) if opt.bpe_codes else None
+    if bpe is not None:
+        src_tok = [bpe.segment(t) for t in src_tok]
+    feats = load_features(opt.img_feats) if opt.img_feats else None
+    if feats is not None and len(feats) != len(src_tok):
+        raise SystemExit(f"feature rows ({len(feats)}) must align to the {len(src_tok)} "
+                         "source lines")
+    if feats is None and consumes_decode_feats(cfg.model):
+        raise SystemExit(
+            "this checkpoint's conditional prior was trained on image features "
+            f"(img_feat_dim={cfg.model.img_feat_dim}): pass -img_feats aligned to the source "
+            "file (vmmt_f decodes without features; vmmt_c cannot)")
+
+    dcfg = DecodeConfig(beam_size=opt.beam_size, n_best=opt.n_best, max_length=opt.max_length,
+                        min_length=opt.min_length, alpha=opt.alpha, batch_size=opt.batch_size,
+                        pallas_step=opt.pallas_step if device.type == "cuda" else 0)
+    buckets = cfg.data.buckets or DEFAULT_BUCKETS
+    translator = Translator(model, sv, tv, dcfg, buckets=buckets, device=device)
+    src_ids = [sv.encode(t) for t in src_tok]  # encoded before the clock starts
+    t0 = time.time()
+    nbest = translator.translate_ids(src_ids, feats)
+    results = [translator.nbest_to_text(n) for n in nbest]
+    dt = time.time() - t0
+    rate = len(results) / max(dt, 1e-9)
+    print(f"translated {len(results)} sentences in {dt:.1f}s ({rate:.1f} sent/s, "
+          f"beam {opt.beam_size})")
+    with open(opt.output, "w", encoding="utf-8") as f:
+        for sent in results:
+            for entry in sent[:opt.n_best]:
+                f.write(entry[1] + "\n")
+    print(f"wrote {opt.output}")
+
+    if opt.verbose:
+        from variational_mmt_torch.decode.score import score_corpus
+
+        pred_lp, pred_nt = score_corpus(model, src_ids, [n[0][1] for n in nbest], feats,
+                                        buckets=buckets, batch_size=opt.batch_size)
+        for i, sent in enumerate(results):
+            print(f"\nSENT {i + 1}: {' '.join(src_tok[i])}")
+            for k, entry in enumerate(sent[:opt.n_best]):
+                print(f"PRED {i + 1}.{k + 1}: {entry[1]}")
+                print(f"PRED SCORE: {pred_lp[i]:.4f}" if k == 0 else
+                      f"BEAM SCORE: {entry[0]:.4f}")
+    bleu = None
+    if opt.tgt:
+        with open(opt.tgt, encoding="utf-8") as f:
+            if opt.pretokenized:
+                refs = [(line.lower() if lower else line).rstrip("\n").split() for line in f]
+            else:
+                refs = [tokenize(line, lower=lower) for line in f]
+        # BLEU always prints with -tgt; -report_bleu is accepted and adds nothing
+        res = corpus_bleu([sent[0][1].split() for sent in results], [[r] for r in refs])
+        bleu = res["bleu"]
+        print(f"BLEU = {bleu:.2f} (BP={res['bp']:.3f}, ratio={res['ratio']:.3f})")
+        if opt.verbose:
+            from variational_mmt_torch.decode.score import report_score, score_corpus
+
+            gold_ids = [tv.encode(bpe.segment(t) if bpe else t) for t in refs]
+            gold_lp, gold_nt = score_corpus(model, src_ids, gold_ids, feats, buckets=buckets,
+                                            batch_size=opt.batch_size)
+            print(report_score("PRED", pred_lp, pred_nt))
+            print(report_score("GOLD", gold_lp, gold_nt))
+            for i, r in enumerate(refs):
+                print(f"GOLD {i + 1}: {' '.join(r)}  (score {gold_lp[i]:.4f})")
+    return {"nbest": nbest, "sent_per_s": rate, "bleu": bleu}
+
+
+if __name__ == "__main__":
+    main()

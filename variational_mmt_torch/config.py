@@ -1,21 +1,18 @@
-"""Model and decode configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
 Mirrors ``variational_mmt_tpu/config.py``: ``ModelConfig`` (:30-109),
-``TrainConfig`` (:110-186) and ``DecodeConfig`` (:213-268) keep the JAX
-field names and defaults, so a JSON config or a checkpoint's config reads
-the same in both packages. The ``data`` section of a JSON file is ignored
-here.
+``TrainConfig`` (:110-186), ``DataConfig`` (:189-210), ``DecodeConfig``
+(:213-268), ``Config.to_dict`` / ``to_json`` / ``from_json`` and
+``update_config`` keep the JAX field names, defaults and JSON form, so a
+JSON config or a checkpoint's ``config.json`` reads and writes the same in
+both packages.
 
-``TrainConfig`` holds the train-section fields that the port's trainer
-reads (optimizer, clipping, KL annealing, label smoothing, seed, steps,
-sequence packing)
-and those it does not implement yet, which
-:meth:`TrainConfig.check_supported` refuses with ``NotImplementedError``
-when set to a value that changes behaviour. ``steps_per_call`` is a TPU
-dispatch knob (optimizer steps per jit call) and is ignored: each
-``Trainer`` step is one optimizer step. The JAX fields of the loop and the
-mesh (batch size, epochs, report, validation and checkpoint intervals,
-data sharding) are not read here, so ``Config.from_json`` drops them.
+Every ``TrainConfig`` field is read by the port's trainer and CLI except
+the mesh's: :meth:`TrainConfig.check_supported` refuses
+``num_model_shards > 1`` and ``num_data_shards > 1`` with
+``NotImplementedError`` (ROADMAP.md queue 1, item 5.8).
+``steps_per_call`` is a TPU dispatch knob (optimizer steps per jit call)
+and is accepted and ignored: each ``Trainer`` step is one optimizer step.
 """
 
 from __future__ import annotations
@@ -23,7 +20,7 @@ from __future__ import annotations
 import dataclasses
 import json
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 
 @dataclass
@@ -88,51 +85,79 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """The optimization fields of the JAX ``TrainConfig`` that the port's
-    trainer reads, and those it refuses (same names and defaults)."""
+    """Optimization and loop hyperparameters (same fields and defaults as
+    JAX)."""
 
     seed: int = 1234
+    batch_size: int = 64  # sentences a batch
     max_steps: int = 20000
-    optimizer: str = "adam"  # adam | sgd (adadelta | adagrad not ported)
+    epochs: int = 0  # > 0: max_steps = epochs x batches an epoch (the CLI)
+    optimizer: str = "adam"  # adam | sgd | adadelta | adagrad
     learning_rate: float = 4e-4
-    param_init: float = 0.0
+    param_init: float = 0.0  # > 0: every tensor uniform(-r, r) at the start
     adam_beta1: float = 0.9
     adam_beta2: float = 0.999
     max_grad_norm: float = 5.0
-    lr_decay: float = 0.5
+    lr_decay: float = 0.5  # on a validation plateau
     start_decay_at: int = 0
     label_smoothing: float = 0.0
     kl_anneal: str = "linear"  # linear | sigmoid | none
     kl_anneal_steps: int = 10000
     kl_anneal_start: int = 0
     kl_free_bits: float = 0.0
+    fix_word_vecs_enc: bool = False  # freeze the source embedding table
+    fix_word_vecs_dec: bool = False  # freeze the target embedding table
+    skip_nonfinite: bool = False  # keep params and optimizer state on a step
+    # whose global gradient norm is not finite
+    ema_decay: float = 0.0  # > 0: an f32-blended EMA of the params
+    ema_ramp: bool = True  # decay min(d, (1+n)/(10+n)) over update count n
     pack: bool = False  # sequence packing: PackedBatch streams (data/packing.py)
     pack_segments: int = 4  # most sentences a packed row holds
-    # refused by check_supported when set
-    fix_word_vecs_enc: bool = False
-    fix_word_vecs_dec: bool = False
-    skip_nonfinite: bool = False
-    ema_decay: float = 0.0
-    grad_accum: int = 1
-    num_model_shards: int = 1
+    grad_accum: int = 1  # micro-batches a step, gradients averaged
     steps_per_call: int = 1  # TPU dispatch knob; ignored by the port
+    report_every: int = 50
+    valid_every: int = 500
+    checkpoint_every: int = 1000
+    keep_checkpoints: int = 3
+    data_axis: str = "data"
+    num_data_shards: int = 0  # refused above 1 (one card)
+    num_model_shards: int = 1  # refused above 1
 
     def check_supported(self) -> None:
         """Raise NotImplementedError for every set option the port's
         trainer does not implement yet."""
         unsupported = [
-            ("grad_accum > 1", self.grad_accum > 1),
-            ("ema_decay > 0", self.ema_decay > 0),
-            ("fix_word_vecs_enc", self.fix_word_vecs_enc),
-            ("fix_word_vecs_dec", self.fix_word_vecs_dec),
-            ("skip_nonfinite", self.skip_nonfinite),
-            ("param_init > 0", self.param_init > 0),
-            (f"optimizer={self.optimizer}", self.optimizer not in ("adam", "sgd")),
             ("num_model_shards > 1", self.num_model_shards > 1),
+            ("num_data_shards > 1", self.num_data_shards > 1),
         ]
         bad = [name for name, on in unsupported if on]
         if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)}")
+            raise NotImplementedError(f"not ported yet: {', '.join(bad)} "
+                                      "(ROADMAP.md queue 1, item 5.8)")
+
+
+@dataclass
+class DataConfig:
+    """Paths and batching (same fields and defaults as JAX); the port reads
+    ``save_data`` and ``buckets``."""
+
+    train_src: str = ""
+    train_tgt: str = ""
+    valid_src: str = ""
+    valid_tgt: str = ""
+    train_img_feats: str = ""
+    valid_img_feats: str = ""
+    save_data: str = ""  # binarized dataset prefix
+    src_vocab_size: int = 10000
+    tgt_vocab_size: int = 10000
+    src_words_min_frequency: int = 1
+    tgt_words_min_frequency: int = 1
+    src_seq_len: int = 64
+    tgt_seq_len: int = 64
+    bpe_merges: int = 10000
+    lower: bool = True
+    share_vocab: bool = False
+    buckets: List[int] = field(default_factory=lambda: [16, 24, 32, 48, 64])
 
 
 @dataclass
@@ -170,12 +195,20 @@ class DecodeConfig:
 class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     decode: DecodeConfig = field(default_factory=DecodeConfig)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), indent=2, sort_keys=True)
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "Config":
         return cls(model=_from_dict(ModelConfig, d.get("model", {})),
                    train=_from_dict(TrainConfig, d.get("train", {})),
+                   data=_from_dict(DataConfig, d.get("data", {})),
                    decode=_from_dict(DecodeConfig, d.get("decode", {})))
 
     @classmethod
@@ -186,3 +219,23 @@ class Config:
 def _from_dict(klass, d: Dict[str, Any]):
     names = {f.name for f in dataclasses.fields(klass)}
     return klass(**{k: v for k, v in d.items() if k in names})
+
+
+def update_config(cfg, dotted: Dict[str, Any]):
+    """Apply ``{'model.latent_dim': 64, ...}`` overrides (JAX config.py:
+    293-308): a string sets a bool by its spelling, other values take the
+    current field's type."""
+    for key, value in dotted.items():
+        *parents, name = key.split(".")
+        obj = cfg
+        for p in parents:
+            obj = getattr(obj, p)
+        if not hasattr(obj, name):
+            raise KeyError(f"unknown config key: {key}")
+        current = getattr(obj, name)
+        if isinstance(current, bool) and isinstance(value, str):
+            value = value.strip().lower() in ("1", "true", "yes", "on")
+        elif current is not None and not isinstance(current, (list, dict)):
+            value = value if isinstance(value, type(current)) else type(current)(value)
+        setattr(obj, name, value)
+    return cfg

@@ -1,15 +1,19 @@
 """Ragged id datasets and length-bucketed, fixed-shape batching.
 
 Mirrors ``variational_mmt_tpu/data/dataset.py`` (:28-315) on its
-pure-Python batch path: ``Batch`` (with the target side), the in-memory
-``BinarizedDataset``, ``buckets_with_catchall`` and ``BucketIterator`` with
-seeded per-epoch shuffling. The JAX package's C++ batcher and the on-disk
-layout are not carried over.
+pure-Python batch path: ``Batch`` (with the target side),
+``BinarizedDataset`` and its ``.npz`` files (one file, or the sharded
+``<base>.NN.npz`` form that preprocess ``-shard_size`` writes; the same
+arrays as JAX's, so either package reads the other's), ``binarize``,
+``buckets_with_catchall`` and ``BucketIterator`` with seeded per-epoch
+shuffling. The JAX package's C++ batcher is not carried over.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import os
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -52,6 +56,75 @@ class BinarizedDataset:
     def __len__(self) -> int:
         return len(self.src)
 
+    def save(self, path: str) -> None:
+        """One ``.npz``: src_data/src_off (and tgt_data/tgt_off), the
+        sequences flat in int32 with int64 offsets (JAX dataset.py:83-89)."""
+        arrs = dict(zip(("src_data", "src_off"), _flat(self.src)))
+        if self.tgt is not None:
+            arrs["tgt_data"], arrs["tgt_off"] = _flat(self.tgt)
+        np.savez_compressed(path, **arrs)
+
+    @classmethod
+    def load(cls, path: str) -> "BinarizedDataset":
+        """``path``, or when it does not exist its shards
+        ``<base>.00.npz, <base>.01.npz, ...`` concatenated in index order,
+        so that example index == corpus line across shards. Both at once
+        is refused: one of them is stale."""
+        shards = cls.shard_paths(path)
+        if os.path.exists(path) and shards:
+            raise ValueError(
+                f"both {path} and shards ({shards[0]} ...) exist; remove the stale layout")
+        paths = [path] if os.path.exists(path) else shards
+        if not paths:
+            raise FileNotFoundError(f"no dataset at {path} (or shards {path[:-4]}.NN.npz)")
+        src: List[np.ndarray] = []
+        tgt: Optional[List[np.ndarray]] = None
+        for i, p in enumerate(paths):
+            z = np.load(p)
+            src.extend(_unflat(z["src_data"], z["src_off"]))
+            has_tgt = "tgt_data" in z
+            if i == 0:
+                tgt = [] if has_tgt else None
+            elif has_tgt != (tgt is not None):
+                raise ValueError(f"shard {p} disagrees about having targets")
+            if has_tgt:
+                tgt.extend(_unflat(z["tgt_data"], z["tgt_off"]))
+        return cls(src, tgt)
+
+    @staticmethod
+    def shard_paths(path: str) -> List[str]:
+        """Shard files of a ``<base>.npz`` path in numeric index order
+        ('.100.npz' after '.99.npz'); [] if none."""
+        base = path[:-4] if path.endswith(".npz") else path
+        found = [p for p in glob.glob(base + ".*.npz") if p[len(base) + 1:-4].isdigit()]
+        return sorted(found, key=lambda p: int(p[len(base) + 1:-4]))
+
+    @classmethod
+    def exists(cls, path: str) -> bool:
+        return os.path.exists(path) or bool(cls.shard_paths(path))
+
+
+def _flat(seqs: List[np.ndarray]):
+    data = np.concatenate(seqs) if seqs else np.zeros(0, np.int32)
+    off = np.cumsum([0] + [len(a) for a in seqs]).astype(np.int64)
+    return np.ascontiguousarray(data, np.int32), off
+
+
+def _unflat(data: np.ndarray, off: np.ndarray) -> List[np.ndarray]:
+    data = np.ascontiguousarray(data, np.int32)
+    return [data[off[i]:off[i + 1]] for i in range(len(off) - 1)]
+
+
+def binarize(src_ids: Sequence[Sequence[int]], tgt_ids: Optional[Sequence[Sequence[int]]] = None,
+             max_src_len: int = 0, max_tgt_len: int = 0) -> BinarizedDataset:
+    """Truncate and store id sequences (without BOS/EOS, which batching
+    adds)."""
+    src = [np.asarray(s[:max_src_len] if max_src_len else s, np.int32) for s in src_ids]
+    tgt = None
+    if tgt_ids is not None:
+        tgt = [np.asarray(t[:max_tgt_len] if max_tgt_len else t, np.int32) for t in tgt_ids]
+    return BinarizedDataset(src, tgt)
+
 
 def buckets_with_catchall(buckets: Sequence[int], need: int) -> List[int]:
     """Sorted ``buckets`` plus a catch-all bucket when ``need`` (the longest
@@ -93,6 +166,10 @@ class BucketIterator:
                      len(self.buckets) - 1)
             per_bucket[b].append(i)
         return per_bucket
+
+    def __len__(self) -> int:
+        """Batches an epoch: each bucket pads its own last partial batch."""
+        return sum(-(-len(idxs) // self.batch_size) for idxs in self._bucketize())
 
     def epoch(self, epoch: int = 0) -> Iterator[Batch]:
         rng = np.random.default_rng(self.seed + epoch)

@@ -2,7 +2,8 @@
 
 Mirrors ``variational_mmt_tpu/data/packing.py`` (:28-231) on its pure-Python
 path: ``PackedBatch`` and ``PackedBucketIterator`` (greedy first fit,
-seeded per-epoch shuffling, ``epoch`` / ``__iter__`` / ``__len__``). Every
+seeded per-epoch shuffling, ``epoch`` / ``__iter__`` / ``__len__``, and
+``epoch_batches``, an epoch's exact batch count). Every
 packed segment is encoded, latent-modelled, decoded and normalized as if it
 were alone in a row (``VMMTModel.forward_packed``, ``compute_loss(tgt_seg=)``),
 so packing changes what a step carries, not the math. The JAX package's C++
@@ -100,7 +101,8 @@ class PackedBucketIterator:
                    for s, t in zip(self.ds.src, self.ds.tgt))
         return max(1, -(-need // (L * self.batch_size)))
 
-    def epoch(self, epoch: int = 0) -> Iterator[PackedBatch]:
+    def _row_groups(self, epoch: int) -> Iterator[List[_Row]]:
+        """The rows of each batch of ``epoch``, in order."""
         rng = np.random.default_rng(self.seed + epoch)
         order = rng.permutation(len(self.ds)) if self.shuffle else np.arange(len(self.ds))
         L, K = self.row_len, self.K
@@ -117,11 +119,20 @@ class PackedBucketIterator:
                 row.segs.append(int(i))
                 continue
             if len(rows) == self.batch_size:
-                yield self._assemble(rows)
+                yield rows
                 rows = []
             rows.append(_Row(ls, lt, int(i)))
         if rows:
+            yield rows
+
+    def epoch(self, epoch: int = 0) -> Iterator[PackedBatch]:
+        for rows in self._row_groups(epoch):
             yield self._assemble(rows)
+
+    def epoch_batches(self, epoch: int = 0) -> int:
+        """The exact number of batches of ``epoch`` (packing without
+        assembling)."""
+        return sum(1 for _ in self._row_groups(epoch))
 
     def __iter__(self) -> Iterator[PackedBatch]:
         e = 0

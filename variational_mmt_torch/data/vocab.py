@@ -26,8 +26,9 @@ class Vocab:
     def __len__(self) -> int:
         return len(self.itos)
 
-    def encode(self, tokens: Sequence[str]) -> List[int]:
-        return [self.stoi.get(t, UNK) for t in tokens]
+    def encode(self, tokens: Sequence[str], bos: bool = False, eos: bool = False) -> List[int]:
+        ids = [self.stoi.get(t, UNK) for t in tokens]
+        return ([BOS] if bos else []) + ids + ([EOS] if eos else [])
 
     def decode(self, ids: Sequence[int], strip_special: bool = True) -> List[str]:
         """Ids -> tokens; ``strip_special`` stops at EOS and drops PAD and
@@ -47,6 +48,11 @@ class Vocab:
         BPE-joiner removal."""
         toks = [self.itos[i] if 0 <= i < len(self.itos) else UNK_TOK for i in map(int, ids)]
         return " ".join(remove_bpe(toks) if debpe else toks)
+
+    def save(self, path: str) -> None:
+        """The itos list as JSON (JAX vocab.py:102-104)."""
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(self.itos, f, ensure_ascii=False)
 
     @classmethod
     def load(cls, path: str) -> "Vocab":

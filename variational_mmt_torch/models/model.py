@@ -10,6 +10,7 @@ and input feed:
   network q(z|x,y,v);
 - ``vmmt_c``: the conditional prior p(z|x,v) as well.
 
+With ``share_embeddings`` one table, ``tgt_embed``, serves both sides.
 z conditions the decoder through the bridge and, with
 ``z_cond='init+input'``, also through ``z_input_proj``, added to every
 step's input projection. Every other option raises
@@ -51,7 +52,6 @@ def check_supported(c: ModelConfig) -> None:
         (f"attn_type={c.attn_type}", c.attn_type != "general"),
         ("img_feat_type=conv with img_pool=attn",
          c.img_feat_type == "conv" and c.img_pool == "attn"),
-        ("share_embeddings", c.share_embeddings),
         ("input_feed=False", not c.input_feed),
         (f"compute_dtype={c.compute_dtype}", c.compute_dtype not in DTYPES),
     ]
@@ -69,7 +69,8 @@ class VMMTModel(nn.Module):
         dt = self.dt = DTYPES[c.compute_dtype]
         H, E = c.hidden_dim, c.emb_dim
         self.tgt_embed = Embed(c.tgt_vocab_size, E, dt)
-        self.src_embed = Embed(c.src_vocab_size, E, dt)
+        if not c.share_embeddings:  # shared: source ids look up tgt_embed
+            self.src_embed = Embed(c.src_vocab_size, E, dt)
         self.encoder = BiGRUEncoder(E, H, c.enc_layers, dt, c.use_pallas, c.dropout)
         self.decoder = GRUDecoder(E, H, c.dec_layers, c.attn_type, dt, c.dropout,
                                   c.use_pallas, c.pallas_decoder, c.fused_decoder)
@@ -98,12 +99,15 @@ class VMMTModel(nn.Module):
     def is_latent(self) -> bool:
         return self.cfg.model_type in ("vmmt_f", "vmmt_c")
 
+    def embed_src(self, src: torch.Tensor) -> torch.Tensor:
+        return (self.tgt_embed if self.cfg.share_embeddings else self.src_embed)(src)
+
     def encode(self, src: torch.Tensor, generator: Optional[torch.Generator] = None):
         """src (B,S) -> (memory (B,S,H), finals [L x (B,H)], src_mask (B,S),
         src_summary (B,H)). Dropout between layers draws from ``generator``
         (None: deterministic)."""
         src_mask = (src != PAD).float()
-        memory, finals = self.encoder(self.src_embed(src), src_mask, generator)
+        memory, finals = self.encoder(self.embed_src(src), src_mask, generator)
         return memory, finals, src_mask, masked_mean(memory, src_mask)
 
     def posterior(self, src_summary: torch.Tensor, tgt: torch.Tensor,
@@ -265,7 +269,7 @@ class VMMTModel(nn.Module):
             raise ValueError("forward_packed: dropout and sampling need a torch.Generator")
         drop_gen = None if deterministic else generator
         B, K = seg_first.shape
-        memory, finals = self.encoder(self.src_embed(src), (src_seg >= 0).float(), drop_gen,
+        memory, finals = self.encoder(self.embed_src(src), (src_seg >= 0).float(), drop_gen,
                                       seg=src_seg, seg_bounds=(seg_first, seg_last))
         src_summary = segment_mean(memory, src_seg, K).reshape(B * K, -1)
         out: Dict[str, torch.Tensor] = {}

@@ -1,21 +1,43 @@
-"""Training loop. Mirrors ``variational_mmt_tpu/train/trainer.py``: one
-optimizer step is forward (encoder, q, prior, z, decoder, generator), ELBO,
-backward, global-norm clipping and the Adam update with the lr as a
-separate scalar (:114-264), without gradient accumulation, EMA or the
-non-finite skip (they raise, TrainConfig.check_supported). With
-``train.pack`` the batches are sequence-packed (data/packing.py) and the
-step runs ``VMMTModel.forward_packed`` (:121-144). JAX's
-``jit``/``lax.scan`` dispatch, the mesh and the prefetcher have no
+"""Training loop. Mirrors ``variational_mmt_tpu/train/trainer.py``.
+
+One optimizer step (``make_train_step``, JAX :98-264) is forward (encoder,
+q, prior, z, decoder, generator), ELBO, backward, global-norm clipping and
+the optimizer's update with the lr as a separate scalar, and around it:
+
+- ``grad_accum``: micro-batches in sequence, gradients averaged, metric
+  sums added, ``beta`` and ``loss`` averaged;
+- ``fix_word_vecs_enc`` / ``fix_word_vecs_dec``: the frozen tables'
+  gradients and final updates are zero (one shared table with
+  ``share_embeddings``: freezing either side freezes it);
+- ``skip_nonfinite``: params and optimizer state stay when the global
+  gradient norm is not finite, and ``skipped_sum`` counts it, decided on
+  the device;
+- ``ema_decay``: an EMA of the params blended in f32, decay
+  ``min(d, (1+n)/(10+n))`` over the step count n with ``ema_ramp``, and
+  unchanged on a skipped step.
+
+With ``train.pack`` the batches are sequence-packed (data/packing.py) and
+the step runs ``VMMTModel.forward_packed`` (:121-144). ``Trainer`` is the
+loop (:388-691): ``train_from`` with the report, validation (plateau decay,
+``bleu_fn``) and checkpoint triggers, which fire when the step count
+crosses a multiple of their interval; ``validate`` (deterministic, z = the
+posterior mean); image features held on the device and gathered by
+``batch.indices``. Metrics stay on the device until a report, a validation,
+a checkpoint or the end of a run reads them, in one transfer.
+
+JAX's ``jit``/``lax.scan`` dispatch, the mesh and the prefetcher have no
 counterpart: the step runs eagerly on one device, the kernels of
 ``use_pallas`` / ``pallas_decoder`` doing the recurrences. Randomness comes
-from one ``torch.Generator`` on the device, seeded from ``train.seed``.
-Validation, checkpoints and the CLI are not ported yet.
+from one ``torch.Generator`` on the device (``TrainState.generator``),
+seeded from ``train.seed``; ``param_init`` draws from a second one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
+import math
+import time
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -26,7 +48,15 @@ from variational_mmt_torch.data.packing import PackedBatch
 from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.models.model import VMMTModel
 from variational_mmt_torch.train.loss import compute_loss
-from variational_mmt_torch.train.optim import Optimizer, global_norm
+from variational_mmt_torch.train.optim import Optimizer, PlateauScheduler, global_norm
+from variational_mmt_torch.utils.logging import Statistics
+
+# param_init's generator seed is train.seed plus this: far from the
+# training stream's seed (JAX folds a sentinel far outside the step range)
+PARAM_INIT_STREAM = 2**31 - 13
+METRIC_KEYS = ("loss", "ce_sum", "n_tokens", "n_correct", "n_sents", "kl_sum",
+               "img_loss_sum", "beta", "grad_norm", "skipped_sum")
+VALID_KEYS = ("ce_sum", "n_tokens", "n_correct", "n_sents", "kl_sum", "img_loss_sum")
 
 
 @dataclasses.dataclass
@@ -34,36 +64,65 @@ class TrainState:
     model: VMMTModel  # holds the parameters
     opt_state: Dict[str, object]
     step: int
-    lr: float
+    lr: float  # a float32 value
+    ema: Optional[List[torch.Tensor]] = None  # one tensor a parameter (ema_decay > 0)
+    generator: Optional[torch.Generator] = None  # dropout, word dropout, z noise
+
+
+def f32(x: float) -> float:
+    """``x`` rounded to float32, as JAX keeps the lr."""
+    return float(np.float32(x))
 
 
 def create_train_state(cfg: Config, model: VMMTModel) -> TrainState:
-    opt = Optimizer(cfg.train)
-    return TrainState(model=model, opt_state=opt.init(list(model.parameters())), step=0,
-                      lr=cfg.train.learning_rate)
+    """The state of a run that starts at ``model``'s parameters: with
+    ``param_init > 0`` every tensor is redrawn uniform(-r, r) first."""
+    params = list(model.parameters())
+    device = params[0].device
+    if cfg.train.param_init > 0:
+        r = cfg.train.param_init
+        g = torch.Generator(device=device).manual_seed(cfg.train.seed + PARAM_INIT_STREAM)
+        with torch.no_grad():
+            for p in params:
+                p.uniform_(-r, r, generator=g)
+    return TrainState(
+        model=model, opt_state=Optimizer(cfg.train).init(params), step=0,
+        lr=f32(cfg.train.learning_rate),
+        ema=[p.detach().clone() for p in params] if cfg.train.ema_decay > 0 else None,
+        generator=torch.Generator(device=device).manual_seed(cfg.train.seed))
 
 
 PACKED_IDS = ("src", "tgt_in", "tgt_out", "src_seg", "tgt_seg", "seg_first", "seg_last")
 
 
-def batch_tensors(batch: Union[Batch, PackedBatch],
-                  device: torch.device) -> Dict[str, torch.Tensor]:
+def batch_tensors(batch: Union[Batch, PackedBatch], device: torch.device,
+                  table: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """A host batch as tensors on ``device`` (ids and positions int64, masks
     and image features f32). A PackedBatch gives src, tgt_in, tgt_out,
-    src_seg, tgt_seg, seg_first, seg_last, seg_mask and img (B,K,D)."""
+    src_seg, tgt_seg, seg_first, seg_last, seg_mask and img (B,K,D). With
+    ``table`` (image features on the device), img is its rows at
+    ``batch.indices``, zero on padding rows or segments."""
     if batch.tgt_in is None or batch.tgt_out is None:
         raise ValueError("a training batch needs tgt_in and tgt_out")
     if isinstance(batch, PackedBatch):
         out = {k: torch.from_numpy(np.asarray(getattr(batch, k))).long() for k in PACKED_IDS}
-        out["seg_mask"] = torch.from_numpy(np.asarray(batch.seg_mask, np.float32))
+        mask_key = "seg_mask"
     else:
         out = {"src": torch.from_numpy(np.asarray(batch.src)).long(),
                "tgt_in": torch.from_numpy(np.asarray(batch.tgt_in)).long(),
-               "tgt_out": torch.from_numpy(np.asarray(batch.tgt_out)).long(),
-               "example_mask": torch.from_numpy(np.asarray(batch.example_mask, np.float32))}
-    if batch.img is not None:
+               "tgt_out": torch.from_numpy(np.asarray(batch.tgt_out)).long()}
+        mask_key = "example_mask"
+    out[mask_key] = torch.from_numpy(np.asarray(getattr(batch, mask_key), np.float32))
+    if table is not None:
+        out["indices"] = torch.from_numpy(np.asarray(batch.indices)).long()
+    elif batch.img is not None:
         out["img"] = torch.from_numpy(np.asarray(batch.img, np.float32))
-    return {k: v.to(device, non_blocking=True) for k, v in out.items()}
+    out = {k: v.to(device, non_blocking=True) for k, v in out.items()}
+    if table is not None:
+        mask = out[mask_key]
+        out["img"] = table[out.pop("indices")] * mask.reshape(
+            mask.shape + (1,) * (table.dim() - 1))
+    return out
 
 
 def loss_and_grads(cfg: Config, model: VMMTModel, batch: Dict[str, torch.Tensor], step: int,
@@ -101,50 +160,158 @@ def loss_and_grads(cfg: Config, model: VMMTModel, batch: Dict[str, torch.Tensor]
     return loss, metrics, grads
 
 
+def frozen_tables(cfg: Config, names: Sequence[str]) -> List[int]:
+    """Indices in ``names`` of the embedding tables that
+    ``fix_word_vecs_enc`` / ``fix_word_vecs_dec`` freeze (JAX :196-203)."""
+    t = cfg.train
+    if cfg.model.share_embeddings:
+        frozen = ["tgt_embed.embedding"] if (t.fix_word_vecs_enc or t.fix_word_vecs_dec) else []
+    else:
+        frozen = (["src_embed.embedding"] if t.fix_word_vecs_enc else []) + (
+            ["tgt_embed.embedding"] if t.fix_word_vecs_dec else [])
+    return [i for i, n in enumerate(names) if n in frozen]
+
+
+def _where_tree(ok: torch.Tensor, new: Dict[str, object], old: Dict[str, object]):
+    return {k: ([torch.where(ok, a, b) for a, b in zip(v, old[k])] if isinstance(v, list)
+                else torch.where(ok, v, old[k])) for k, v in new.items()}
+
+
 def make_train_step(cfg: Config, deterministic: bool = False, sample: bool = True
                     ) -> Callable[[TrainState, Dict[str, torch.Tensor], Optional[torch.Generator]],
                                   Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """One optimizer step: (state, batch tensors, generator) -> (state,
-    metrics). ``deterministic`` / ``sample`` as in ``VMMTModel.forward``
-    (training uses the defaults; checks use deterministic=True,
-    sample=False)."""
-    opt = Optimizer(cfg.train)
+    metrics on the device). ``deterministic`` / ``sample`` as in
+    ``VMMTModel.forward`` (training uses the defaults; checks use
+    deterministic=True, sample=False)."""
+    tc = cfg.train
+    opt = Optimizer(tc)
+    accum = max(1, tc.grad_accum)
+
+    def grads_of(state, batch, generator):
+        run = lambda b: loss_and_grads(cfg, state.model, b, state.step, generator,  # noqa: E731
+                                       deterministic, sample)[1:]
+        if accum == 1:
+            return run(batch)
+        B = batch["src"].shape[0]
+        if B % accum:
+            raise ValueError(f"batch of {B} rows is not divisible by grad_accum ({accum})")
+        m = B // accum
+        grads, parts = None, []
+        for i in range(accum):
+            metrics, g = run({k: v[i * m:(i + 1) * m] for k, v in batch.items()})
+            grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+            parts.append(metrics)
+        metrics = dict(parts[0])
+        for part in parts[1:]:
+            metrics = {k: v + part[k] for k, v in metrics.items()}
+        for k in ("beta", "loss"):
+            metrics[k] = metrics[k] / accum
+        return metrics, [g / accum for g in grads]
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator]):
-        params = list(state.model.parameters())
-        _, metrics, grads = loss_and_grads(cfg, state.model, batch, state.step, generator,
-                                           deterministic, sample)
+        named = list(state.model.named_parameters())
+        params = [p for _, p in named]
+        frozen = frozen_tables(cfg, [n for n, _ in named])
+        metrics, grads = grads_of(state, batch, generator)
+        for i in frozen:
+            grads[i] = torch.zeros_like(grads[i])
         gnorm = global_norm(grads)
-        updates, state.opt_state = opt.update(grads, state.opt_state, gnorm)
+        updates, new_opt = opt.update(grads, state.opt_state, gnorm)
+        for i in frozen:
+            updates[i] = torch.zeros_like(updates[i])
+        ok = torch.isfinite(gnorm) if tc.skip_nonfinite else None
         with torch.no_grad():
             for p, u in zip(params, updates):
-                p.sub_(state.lr * u.to(p.dtype))
+                new = p - state.lr * u.to(p.dtype)
+                p.copy_(new if ok is None else torch.where(ok, new, p))
+            state.opt_state = new_opt if ok is None else _where_tree(ok, new_opt,
+                                                                      state.opt_state)
+            if tc.ema_decay > 0:
+                d = np.float32(tc.ema_decay)
+                if tc.ema_ramp:
+                    n = np.float32(state.step + 1)
+                    d = min(d, (np.float32(1.0) + n) / (np.float32(10.0) + n))
+                if ok is None:
+                    d_eff, one_minus = float(d), float(np.float32(1.0) - d)
+                else:
+                    d_eff = torch.where(ok, torch.tensor(d, device=gnorm.device),
+                                        torch.ones((), device=gnorm.device))
+                    one_minus = 1.0 - d_eff
+                state.ema = [(d_eff * e.float() + one_minus * p.float()).to(e.dtype)
+                             for e, p in zip(state.ema, params)]
         state.step += 1
+        metrics["skipped_sum"] = ((~ok).float() if ok is not None
+                                  else torch.zeros((), device=gnorm.device))
         metrics["grad_norm"] = gnorm
         return state, metrics
 
     return train_step
 
 
+@torch.no_grad()
+def eval_metrics(cfg: Config, model: VMMTModel, batch: Dict[str, torch.Tensor],
+                 step: int) -> Dict[str, torch.Tensor]:
+    """Validation forward of one unpacked batch (JAX :343-366):
+    deterministic, z = the posterior mean; the loss's metric sums."""
+    img = batch.get("img")
+    out = model(batch["src"], batch["tgt_in"], img, deterministic=True, sample=False,
+                tgt_out=batch["tgt_out"])
+    gen = model.generator_params() if cfg.model.fused_ce else None
+    return compute_loss(out, batch["tgt_out"], batch["example_mask"], img, cfg.model,
+                        cfg.train, step, generator_params=gen)[1]
+
+
+def crossed(prev: int, cur: int, interval: int) -> bool:
+    """True once whenever the step count crosses a multiple of
+    ``interval`` (any resumed offset)."""
+    return interval > 0 and cur // interval > prev // interval
+
+
 class Trainer:
-    """``train(max_steps)`` takes optimizer steps over ``train_iter`` (an
-    iterable of Batch, or of PackedBatch with ``train.pack``, re-iterated
-    when exhausted; a BucketIterator or PackedBucketIterator runs epoch
-    after epoch) on ``device``: cuda unless ``device='cpu'``, raising
-    without CUDA."""
+    """The training loop on ``device`` (cuda unless ``device='cpu'``,
+    raising without CUDA).
+
+    ``train_iter`` is an iterable of Batch, or of PackedBatch with
+    ``train.pack``; a BucketIterator or PackedBucketIterator runs epoch
+    after epoch, anything else is re-iterated when exhausted.
+    ``valid_iter`` (unpacked batches), ``checkpoint_fn(state, step, {})``,
+    ``metrics_logger`` (utils/metrics_log.py) and ``bleu_fn(state) -> BLEU``
+    are optional, as in JAX. ``train_feats`` / ``valid_feats``: the image
+    features of the two corpora, held on the device; the iterators then
+    carry none and each batch gathers its rows by ``batch.indices``."""
 
     def __init__(self, cfg: Config, model: VMMTModel, train_iter: Iterable,
-                 device=None):
+                 valid_iter: Optional[Iterable] = None, device=None,
+                 checkpoint_fn: Optional[Callable[[TrainState, int, Dict], None]] = None,
+                 metrics_logger=None, bleu_fn: Optional[Callable[[TrainState], float]] = None,
+                 train_feats: Optional[np.ndarray] = None,
+                 valid_feats: Optional[np.ndarray] = None):
         cfg.train.check_supported()
+        accum = max(1, cfg.train.grad_accum)
+        if cfg.train.batch_size % accum:
+            raise ValueError(f"batch_size ({cfg.train.batch_size}) must be divisible by "
+                             f"grad_accum ({accum})")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.train_iter = train_iter
+        self.valid_iter = valid_iter
+        self.checkpoint_fn = checkpoint_fn
+        self.metrics_logger = metrics_logger
+        self.bleu_fn = bleu_fn
+        table = lambda f: None if f is None else torch.as_tensor(  # noqa: E731
+            np.asarray(f, np.float32)).to(self.device)
+        self._train_table, self._valid_table = table(train_feats), table(valid_feats)
         self.state = create_train_state(cfg, self.model)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.train.seed)
         self.train_step = make_train_step(cfg)
-        self.history: List[Dict[str, float]] = []
+        self.scheduler = PlateauScheduler(cfg.train)
+        self.history: List[Dict[str, float]] = []  # one record a validation
+        self.final_state: Optional[TrainState] = None
+        # the last run's steps, metrics and seconds: in all, and in validation
+        # and checkpoints
+        self.last_run: Dict[str, object] = {}
         self._epoch = 0
         self._it = None
 
@@ -160,13 +327,128 @@ class Trainer:
             self._it = None
 
     def train(self, max_steps: Optional[int] = None) -> List[Dict[str, float]]:
-        """Take ``max_steps`` steps (default ``train.max_steps``); returns
-        their metrics as floats (one host sync per step)."""
+        """Take ``max_steps`` more steps (default ``train.max_steps``) from
+        the current state, the data going on where it stopped; returns each
+        step's metrics as floats, read from the device once, at the end
+        (and at any report, validation or checkpoint on the way)."""
         n = self.cfg.train.max_steps if max_steps is None else max_steps
-        done = []
-        for _ in range(n):
-            batch = batch_tensors(self._next_batch(), self.device)
-            self.state, metrics = self.train_step(self.state, batch, self.generator)
-            done.append({k: float(v.detach()) for k, v in metrics.items()})
-        self.history.extend(done)
-        return done
+        return self._run(self.state.step + n)[1]
+
+    def train_from(self, state: Optional[TrainState] = None,
+                   max_steps: Optional[int] = None) -> Statistics:
+        """Run until the step count reaches ``max_steps`` (default
+        ``train.max_steps``) from ``state`` (default: this trainer's; a
+        loaded one for ``-train_from``, whose model must be this
+        trainer's), the data starting again at epoch 0 (JAX :546-661).
+        The EMA follows this run's config: seeded from the params, or
+        dropped."""
+        state = self.state if state is None else state
+        if state.model is not self.model:
+            raise ValueError("train_from: the state's model is not this trainer's")
+        if self.cfg.train.ema_decay > 0 and state.ema is None:
+            state.ema = [p.detach().clone() for p in self.model.parameters()]
+        elif self.cfg.train.ema_decay <= 0:
+            state.ema = None
+        if state.generator is None:
+            state.generator = torch.Generator(device=self.device).manual_seed(
+                self.cfg.train.seed)
+        self.state = state
+        self._epoch, self._it = 0, None
+        return self._run(max_steps or self.cfg.train.max_steps)[0]
+
+    def _run(self, max_steps: int) -> Tuple[Statistics, List[Dict[str, float]]]:
+        cfg = self.cfg.train
+        stats = Statistics()
+        pending: List[Dict[str, torch.Tensor]] = []
+        done: List[Dict[str, float]] = []
+        skipped = 0
+        last: Dict[str, float] = {}
+
+        def flush():
+            # one transfer for every step since the last read
+            nonlocal skipped, last
+            if not pending:
+                return
+            rows = torch.stack([torch.stack([m[k].detach().float() for k in METRIC_KEYS])
+                                for m in pending]).cpu().tolist()
+            pending.clear()
+            for row in rows:
+                m = dict(zip(METRIC_KEYS, row))
+                skipped += int(m["skipped_sum"])
+                stats.update(loss=m["ce_sum"], n_words=int(m["n_tokens"]),
+                             n_correct=int(m["n_correct"]), n_sents=int(m["n_sents"]),
+                             kl=m["kl_sum"], img_loss=m["img_loss_sum"])
+                done.append(m)
+            last = done[-1]
+
+        step = first = self.state.step
+        t0 = time.perf_counter()
+        side = {"validation": 0.0, "checkpoint": 0.0}
+        while step < max_steps:
+            batch = batch_tensors(self._next_batch(), self.device, self._train_table)
+            self.state, metrics = self.train_step(self.state, batch, self.state.generator)
+            prev, step = step, self.state.step
+            pending.append(metrics)
+            if len(pending) >= 512:  # bound device memory between reads
+                flush()
+            if crossed(prev, step, cfg.report_every):
+                flush()
+                stats.output(step, max_steps, beta=last["beta"], lr=self.state.lr)
+                if skipped:
+                    print(f"  ({skipped} non-finite update(s) skipped so far)")
+                if self.metrics_logger is not None:
+                    self.metrics_logger.log(
+                        step, {**stats.scalars(), "beta": last["beta"], "lr": self.state.lr,
+                               "grad_norm": last["grad_norm"], "skipped_updates": skipped},
+                        prefix="train")
+            if self.valid_iter is not None and crossed(prev, step, cfg.valid_every):
+                flush()
+                t1 = time.perf_counter()
+                self._validation(step)
+                side["validation"] += time.perf_counter() - t1
+            if self.checkpoint_fn is not None and crossed(prev, step, cfg.checkpoint_every):
+                flush()
+                t1 = time.perf_counter()
+                self.checkpoint_fn(self.state, step, {})
+                side["checkpoint"] += time.perf_counter() - t1
+        flush()
+        self.final_state = self.state
+        self.last_run = {"steps": step - first, "metrics": done,
+                         "seconds": time.perf_counter() - t0,
+                         "validation_seconds": side["validation"],
+                         "checkpoint_seconds": side["checkpoint"]}
+        return stats, done
+
+    def _validation(self, step: int) -> None:
+        val = self.validate(self.state)
+        if self.bleu_fn is not None:
+            val["bleu"] = self.bleu_fn(self.state)
+            print(f"validation greedy BLEU: {val['bleu']:.2f}")
+        new_lr = f32(self.scheduler.update(val["ppl"], step, self.state.lr))
+        if new_lr != self.state.lr:
+            print(f"validation ppl {val['ppl']:.3f} plateau -> lr {new_lr:.2e}")
+            self.state.lr = new_lr
+        self.history.append({"step": step, **val})
+        if self.metrics_logger is not None:
+            self.metrics_logger.log(step, val, prefix="valid")
+
+    def validate(self, state: Optional[TrainState] = None) -> Dict[str, float]:
+        """ppl, xent, accuracy, kl, img_loss and elbo over ``valid_iter``'s
+        epoch 0 (JAX :663-691, without ``iw_elbo``)."""
+        state = self.state if state is None else state
+        rows = []
+        for batch in self.valid_iter.epoch(0):
+            m = eval_metrics(self.cfg, state.model,
+                             batch_tensors(batch, self.device, self._valid_table), state.step)
+            rows.append(torch.stack([m[k].float() for k in VALID_KEYS]))
+        # one transfer; batch sums added on the host, in float64, as JAX does
+        agg = dict.fromkeys(VALID_KEYS, 0.0)
+        for row in (torch.stack(rows).cpu().tolist() if rows else []):
+            for k, v in zip(VALID_KEYS, row):
+                agg[k] += v
+        xent = agg["ce_sum"] / max(1.0, agg["n_tokens"])
+        n_sents = max(1.0, agg["n_sents"])
+        return {"ppl": math.exp(min(xent, 100.0)), "xent": xent,
+                "accuracy": 100.0 * agg["n_correct"] / max(1.0, agg["n_tokens"]),
+                "kl": agg["kl_sum"] / n_sents, "img_loss": agg["img_loss_sum"] / n_sents,
+                "elbo": -(agg["ce_sum"] + agg["kl_sum"]) / n_sents}
