@@ -133,12 +133,54 @@ in PERF.md).
     checkpoint's size. Rows 1, 2, 3, 5 and 6 must run on the train and
     translate runs, row 4 on the pallas_step 2 run; comparison steps are not
     counted.
-11. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+11. Online-serving phase, from phase 10's last checkpoint and test set
+    (256 sentences with their 2048-d features). ``python -m
+    variational_mmt_torch.cli.serve -model <ckpt> -port 0 -batch_size 32``
+    runs twice as subprocesses, with ``-pipeline_depth`` 1 and 2 (the port
+    is read from its ``serving on http://HOST:PORT`` line); each timed run
+    sends, over loopback HTTP (the msgpack wire, float32 image bytes), the
+    256 sentences as single-sentence requests from 32 closed-loop client
+    threads, then 8 requests of 32 sentences at once, to depth 1, 2, 2, 1 in
+    turns; every answer must equal the offline Translator's for the serve
+    CLI's DecodeConfig (beam 4, max_length 100, batch 32). Printed per run:
+    sent/s, p50 and p99 request latency, mean batch fill and the service's
+    busy_s share of the run. Then one run through ``-procs 2`` (dispatcher
+    processes, the id-level wire). Then the counted runs of the main path:
+    the service the serve CLI builds (its loader and defaults, warmup)
+    behind an in-process ``ServingServer`` at ``-pipeline_depth`` 1 and at
+    AUTO (2 on a multi-core host), the same traffic and checks sent from a
+    client process of their own; per depth one run with the launch counts
+    set to 0 just before it and read just after (``serve_online`` is the
+    AUTO run's; the CLI serves at pallas_step 0, so row 1 must run there
+    and rows 3 and 4 do not), with this process's CPU time and the device
+    thread's as shares of the served time, then one run under
+    ``torch.profiler`` for the device's busy share. In process, f32:
+    ``TranslationService`` with ``coverage_beta 0.2``, with
+    ``block_ngram_repeat 2`` and an exclusion token, and with
+    ``replace_unk``, at pallas_step 1 and 2 each against 0, at least 31 of
+    32 top-1 entries equal (ids; with ``replace_unk`` also the attention
+    positions, on a copy of the model whose generator scores ``<unk>`` as
+    the exclusion word plus 1, and at least one answer must hold
+    ``<unk>``); rows 1, 3 and 4 must be launched by these checks
+    (``serve_options``). In bf16 at pallas_step 1: sampling (temperature
+    1.0, top-k 10) keyed by ``sample_ids`` gives identical answers for 32
+    requests sent at once and one by one; the decode streams give identical
+    uniforms on the card and the CPU; ``latent_from sample`` repeats for a
+    seed and differs from the mean's decode. Last, rows 3 and 4 against
+    their plain versions (f32 1e-4, bf16 2e-2) at N = 128 (batch 32 x beam
+    4) and N = 32 (sampling) for S at each warmed bucket (16, 24, 32, 48,
+    64), H = 500, with kernel ms in f32 and bf16, bf16 plain ms and the
+    bound; and row 1 timed at the served encoder's shape (B = 32, T = 16
+    and 24, H = 250). Every server
+    process group is stopped (SIGINT, then SIGKILL).
+12. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
-    numbers at the gate's shape, ``launches_by_path`` the serving,
-    training, packed-training, families and CLI counts), then the last line
+    numbers at the gate's shape, ``serve_shapes`` rows 1, 3 and 4 at the
+    service's, ``launches_by_path`` the serving, training, packed-training,
+    families, CLI, online-serving and option-check counts), then the last
+    line
     {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
@@ -153,6 +195,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -186,6 +229,13 @@ CLI_STEPS, CLI_EVERY, CLI_KEEP, CLI_RESUME_AT = 60, 20, 2, 40  # the entry-point
 CLI_TRAIN, CLI_VALID, CLI_TEST, CLI_VOCAB, CLI_IMG = 2048, 256, 256, 10000, 64
 CLI_KERNELS = ("gru_layer_scan", "gru_layer_scan_bwd", "decode_step", "gru_chain",
                "decoder_fwd", "decoder_bwd")
+SERVE_CLIENTS, SERVE_BATCH, SERVE_BIG = 32, 32, 8  # closed-loop clients, -batch_size, big requests
+SERVE_DEPTHS = (1, 2, 2, 1)  # -pipeline_depth of the timed runs, in turns
+SERVE_BUCKETS = (16, 24, 32, 48, 64)  # the serve CLI's warmed buckets
+SERVE_STEP_NS = (128, 32)  # rows of the decode step: batch 32 x beam 4, and sampling
+SERVE_CHECK = 32  # sentences of the in-process option checks
+SERVE_SCAN_TS = (16, 24)  # buckets of the served encoder scan timed at B = 32
+SERVE_KERNELS = ("gru_layer_scan", "decode_step", "gru_chain")
 
 
 def fail(msg: str) -> None:
@@ -1237,14 +1287,13 @@ def same_state(snap: dict, state) -> list:
     return bad
 
 
-def cli_phase(card: str, trainer_ms: float):
-    """The entry points at full width (module docstring, phase 10): the
-    train CLI for 60 steps with validation and checkpoints, the step-40
-    checkpoint against the live state, a resume from it, then the translate
-    CLI, and save -> load -> translate. Returns ({kernel: launches on the
-    CLI runs}, record)."""
-    import tempfile
-
+def cli_phase(card: str, trainer_ms: float, root: str):
+    """The entry points at full width (module docstring, phase 10), in the
+    directory ``root``: the train CLI for 60 steps with validation and
+    checkpoints, the step-40 checkpoint against the live state, a resume
+    from it, then the translate CLI, and save -> load -> translate. Returns
+    ({kernel: launches on the CLI runs}, record); the run's checkpoints stay
+    in ``root/run`` for phase 11."""
     from variational_mmt_torch.cli import train as cli_train, translate as cli_translate
     from variational_mmt_torch.data.dataset import BinarizedDataset, BucketIterator
     from variational_mmt_torch.data.features import load_features
@@ -1272,154 +1321,622 @@ def cli_phase(card: str, trainer_ms: float):
         return got, out
 
     rec = {}
-    with tempfile.TemporaryDirectory(prefix="vmmt_cli_") as root:
-        t0 = time.time()
-        prefix = write_cli_corpus(root)
-        run, resumed = os.path.join(root, "run"), os.path.join(root, "resumed")
-        print(f"cli: corpus of {CLI_TRAIN}/{CLI_VALID}/{CLI_TEST} pairs (synthetic, vocab "
-              f"{CLI_VOCAB}, 2048-d features) written in {time.time() - t0:.1f} s")
-        feats = ("-train_img_feats", os.path.join(root, "train.feats.npy"),
-                 "-valid_img_feats", os.path.join(root, "valid.feats.npy"))
-        argv = ["-data", prefix, "-config", os.path.join(root, "config.json"), *feats,
-                "-batch_size", str(TRAIN_BATCH), "-report_every", str(CLI_EVERY),
-                "-valid_every", str(CLI_EVERY), "-checkpoint_every", str(CLI_EVERY),
-                "-keep_checkpoints", str(CLI_KEEP), "-max_steps", str(CLI_STEPS)]
-        snaps = {}
+    t0 = time.time()
+    prefix = write_cli_corpus(root)
+    run, resumed = os.path.join(root, "run"), os.path.join(root, "resumed")
+    print(f"cli: corpus of {CLI_TRAIN}/{CLI_VALID}/{CLI_TEST} pairs (synthetic, vocab "
+          f"{CLI_VOCAB}, 2048-d features) written in {time.time() - t0:.1f} s")
+    feats = ("-train_img_feats", os.path.join(root, "train.feats.npy"),
+             "-valid_img_feats", os.path.join(root, "valid.feats.npy"))
+    argv = ["-data", prefix, "-config", os.path.join(root, "config.json"), *feats,
+            "-batch_size", str(TRAIN_BATCH), "-report_every", str(CLI_EVERY),
+            "-valid_every", str(CLI_EVERY), "-checkpoint_every", str(CLI_EVERY),
+            "-keep_checkpoints", str(CLI_KEEP), "-max_steps", str(CLI_STEPS)]
+    snaps = {}
 
-        def keep(state, path):
-            if state.step == CLI_RESUME_AT:
-                snaps["live"] = snapshot(state)
+    def keep(state, path):
+        if state.step == CLI_RESUME_AT:
+            snaps["live"] = snapshot(state)
 
-        launches, trainer = counted(lambda: cli_train.main(
-            argv + ["-save_model", run], on_checkpoint=keep))
-        print(f"cli: train launches ({CLI_STEPS} steps) {launches}")
-        for k in ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd"):
-            if launches[k] <= 0:
-                fail(f"kernel {k} was not launched by the train CLI")
-        m = trainer.cfg.model
-        print(f"cli: model {m.model_type} emb {m.emb_dim} hidden {m.hidden_dim} layers "
-              f"{m.enc_layers}+{m.dec_layers} latent {m.latent_dim} img {m.img_feat_dim} vocab "
-              f"{m.src_vocab_size}/{m.tgt_vocab_size} {m.compute_dtype} use_pallas="
-              f"{m.use_pallas} pallas_decoder={m.pallas_decoder} fused_ce={m.fused_ce}")
-        losses = [h["loss"] for h in trainer.last_run["metrics"]]
-        if len(losses) != CLI_STEPS or not all(math.isfinite(v) for v in losses):
-            fail(f"train CLI: {len(losses)} steps, or a loss that is not finite")
-        kept = ck.list_checkpoints(run)
-        print(f"cli: checkpoints kept {kept}; validations {[h['step'] for h in trainer.history]}")
-        if kept != [CLI_RESUME_AT, CLI_STEPS] or len(trainer.history) != CLI_STEPS // CLI_EVERY:
-            fail("train CLI: wrong checkpoints kept or validations run")
-        run_rec = trainer.last_run
-        side_s = run_rec["validation_seconds"] + run_rec["checkpoint_seconds"]
-        run_ms = run_rec["seconds"] / run_rec["steps"] * 1e3
-        steps_ms = (run_rec["seconds"] - side_s) / run_rec["steps"] * 1e3
-        rec.update(train_ms_per_step=run_ms, train_ms_per_step_steps_only=steps_ms,
-                   validation_s=run_rec["validation_seconds"],
-                   checkpoint_s=run_rec["checkpoint_seconds"])
-        print(f"cli: train CLI {run_ms:.2f} ms/step over its {CLI_STEPS}-step loop, "
-              f"{steps_ms:.2f} without its 3 validations of {CLI_VALID} pairs "
-              f"({run_rec['validation_seconds']:.2f} s) and 3 checkpoints "
-              f"({run_rec['checkpoint_seconds']:.2f} s); batch {TRAIN_BATCH}; the Trainer phase of "
-              f"this call {trainer_ms:.2f} ms/step ({card})")
+    launches, trainer = counted(lambda: cli_train.main(
+        argv + ["-save_model", run], on_checkpoint=keep))
+    print(f"cli: train launches ({CLI_STEPS} steps) {launches}")
+    for k in ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched by the train CLI")
+    m = trainer.cfg.model
+    print(f"cli: model {m.model_type} emb {m.emb_dim} hidden {m.hidden_dim} layers "
+          f"{m.enc_layers}+{m.dec_layers} latent {m.latent_dim} img {m.img_feat_dim} vocab "
+          f"{m.src_vocab_size}/{m.tgt_vocab_size} {m.compute_dtype} use_pallas="
+          f"{m.use_pallas} pallas_decoder={m.pallas_decoder} fused_ce={m.fused_ce}")
+    losses = [h["loss"] for h in trainer.last_run["metrics"]]
+    if len(losses) != CLI_STEPS or not all(math.isfinite(v) for v in losses):
+        fail(f"train CLI: {len(losses)} steps, or a loss that is not finite")
+    kept = ck.list_checkpoints(run)
+    print(f"cli: checkpoints kept {kept}; validations {[h['step'] for h in trainer.history]}")
+    if kept != [CLI_RESUME_AT, CLI_STEPS] or len(trainer.history) != CLI_STEPS // CLI_EVERY:
+        fail("train CLI: wrong checkpoints kept or validations run")
+    run_rec = trainer.last_run
+    side_s = run_rec["validation_seconds"] + run_rec["checkpoint_seconds"]
+    run_ms = run_rec["seconds"] / run_rec["steps"] * 1e3
+    steps_ms = (run_rec["seconds"] - side_s) / run_rec["steps"] * 1e3
+    rec.update(train_ms_per_step=run_ms, train_ms_per_step_steps_only=steps_ms,
+               validation_s=run_rec["validation_seconds"],
+               checkpoint_s=run_rec["checkpoint_seconds"])
+    print(f"cli: train CLI {run_ms:.2f} ms/step over its {CLI_STEPS}-step loop, "
+          f"{steps_ms:.2f} without its 3 validations of {CLI_VALID} pairs "
+          f"({run_rec['validation_seconds']:.2f} s) and 3 checkpoints "
+          f"({run_rec['checkpoint_seconds']:.2f} s); batch {TRAIN_BATCH}; the Trainer phase of "
+          f"this call {trainer_ms:.2f} ms/step ({card})")
 
-        # the step-40 checkpoint against the live state at step 40
-        path40 = os.path.join(run, f"step_{CLI_RESUME_AT:08d}")
-        loaded, cfg, model, sv, tv = ck.load_checkpoint(path40, device="cuda")
-        bad = same_state(snaps["live"], loaded)
-        print(f"cli: step-{CLI_RESUME_AT} checkpoint vs the live state: "
-              f"{'bit-identical' if not bad else bad}")
-        if bad:
-            fail(f"the loaded checkpoint differs from the live state: {bad}")
-        ds_train = BinarizedDataset.load(prefix + ".train.npz")
-        batch = next(BucketIterator(ds_train, TRAIN_BATCH, cfg.data.buckets,
-                                    img_feats=load_features(feats[1])).epoch(0))
-        batch = batch_tensors(batch, torch.device("cuda"))
-        step = make_train_step(cfg)
+    # the step-40 checkpoint against the live state at step 40
+    path40 = os.path.join(run, f"step_{CLI_RESUME_AT:08d}")
+    loaded, cfg, model, sv, tv = ck.load_checkpoint(path40, device="cuda")
+    bad = same_state(snaps["live"], loaded)
+    print(f"cli: step-{CLI_RESUME_AT} checkpoint vs the live state: "
+          f"{'bit-identical' if not bad else bad}")
+    if bad:
+        fail(f"the loaded checkpoint differs from the live state: {bad}")
+    ds_train = BinarizedDataset.load(prefix + ".train.npz")
+    batch = next(BucketIterator(ds_train, TRAIN_BATCH, cfg.data.buckets,
+                                img_feats=load_features(feats[1])).epoch(0))
+    batch = batch_tensors(batch, torch.device("cuda"))
+    step = make_train_step(cfg)
 
-        def one_step(state):
-            state, metrics = step(state, batch, state.generator)
-            return (float(metrics["loss"].detach()),
-                    [p.detach().clone() for p in state.model.parameters()])
+    def one_step(state):
+        state, metrics = step(state, batch, state.generator)
+        return (float(metrics["loss"].detach()),
+                [p.detach().clone() for p in state.model.parameters()])
 
-        def live_copy():
-            mod = build_model(cfg.model, device="cuda")
-            with torch.no_grad():
-                for p, q in zip(mod.parameters(), snaps["live"]["params"]):
-                    p.copy_(q)
-            gen = torch.Generator(device="cuda")
-            gen.set_state(snaps["live"]["gen"])
-            opt = {k: ([t.clone() for t in v] if isinstance(v, list) else v.clone())
-                   for k, v in snaps["live"]["opt"].items()}
-            return TrainState(model=mod, opt_state=opt, step=CLI_RESUME_AT,
-                              lr=snaps["live"]["lr"], generator=gen)
+    def live_copy():
+        mod = build_model(cfg.model, device="cuda")
+        with torch.no_grad():
+            for p, q in zip(mod.parameters(), snaps["live"]["params"]):
+                p.copy_(q)
+        gen = torch.Generator(device="cuda")
+        gen.set_state(snaps["live"]["gen"])
+        opt = {k: ([t.clone() for t in v] if isinstance(v, list) else v.clone())
+               for k, v in snaps["live"]["opt"].items()}
+        return TrainState(model=mod, opt_state=opt, step=CLI_RESUME_AT,
+                          lr=snaps["live"]["lr"], generator=gen)
 
-        (la, pa), (lb, pb), (lc, pc) = one_step(live_copy()), one_step(live_copy()), \
-            one_step(loaded)
-        spread = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
-        dist = max(float((a - c).abs().max()) for a, c in zip(pa, pc))
-        print(f"cli: one step from the live state {la!r}, again {lb!r}, from the loaded state "
-              f"{lc!r}; params: live vs live max |diff| {spread:.3e}, live vs loaded {dist:.3e}")
-        # bit-identical where the route is deterministic; else no farther
-        # from the live step than a second live step is
-        if not (dist <= spread and abs(lc - la) <= abs(lb - la)):
-            fail("one step from the loaded checkpoint differs from one from the live state")
-        rec["resume_check"] = {"loss_live": la, "loss_loaded": lc, "live_spread": spread,
-                               "loaded_dist": dist}
-        del loaded, model, snaps["live"]
+    (la, pa), (lb, pb), (lc, pc) = one_step(live_copy()), one_step(live_copy()), \
+        one_step(loaded)
+    spread = max(float((a - b).abs().max()) for a, b in zip(pa, pb))
+    dist = max(float((a - c).abs().max()) for a, c in zip(pa, pc))
+    print(f"cli: one step from the live state {la!r}, again {lb!r}, from the loaded state "
+          f"{lc!r}; params: live vs live max |diff| {spread:.3e}, live vs loaded {dist:.3e}")
+    # bit-identical where the route is deterministic; else no farther
+    # from the live step than a second live step is
+    if not (dist <= spread and abs(lc - la) <= abs(lb - la)):
+        fail("one step from the loaded checkpoint differs from one from the live state")
+    rec["resume_check"] = {"loss_live": la, "loss_loaded": lc, "live_spread": spread,
+                           "loaded_dist": dist}
+    del loaded, model, snaps["live"]
 
-        # resume the step-40 checkpoint to step 60 (the data restart at epoch 0)
-        launches, tr2 = counted(lambda: cli_train.main(
-            argv + ["-save_model", resumed, "-train_from", path40]))
-        losses2 = [h["loss"] for h in tr2.last_run["metrics"]]
-        print(f"cli: resumed from step {CLI_RESUME_AT}: {len(losses2)} steps to "
-              f"{tr2.final_state.step}, losses {' '.join(f'{v:.3f}' for v in losses2[:3])} ... "
-              f"{losses2[-1]:.3f}; launches {launches}")
-        if (tr2.final_state.step != CLI_STEPS or len(losses2) != CLI_STEPS - CLI_RESUME_AT
-                or not all(math.isfinite(v) for v in losses2)):
-            fail("the resumed run did not reach its step count with finite losses")
+    # resume the step-40 checkpoint to step 60 (the data restart at epoch 0)
+    launches, tr2 = counted(lambda: cli_train.main(
+        argv + ["-save_model", resumed, "-train_from", path40]))
+    losses2 = [h["loss"] for h in tr2.last_run["metrics"]]
+    print(f"cli: resumed from step {CLI_RESUME_AT}: {len(losses2)} steps to "
+          f"{tr2.final_state.step}, losses {' '.join(f'{v:.3f}' for v in losses2[:3])} ... "
+          f"{losses2[-1]:.3f}; launches {launches}")
+    if (tr2.final_state.step != CLI_STEPS or len(losses2) != CLI_STEPS - CLI_RESUME_AT
+            or not all(math.isfinite(v) for v in losses2)):
+        fail("the resumed run did not reach its step count with finite losses")
 
-        # the translate CLI from the last checkpoint, beam 4
-        size = os.path.getsize(os.path.join(run, f"step_{CLI_STEPS:08d}", "state.msgpack"))
-        rec["checkpoint_bytes"] = size
-        print(f"cli: checkpoint state.msgpack {size} bytes ({size / 2**20:.1f} MiB; params, "
-              "Adam moments, step, lr, rng, generator)")
-        tr_argv = ["-src", os.path.join(root, "test.src"), "-tgt", os.path.join(root, "test.tgt"),
-                   "-img_feats", os.path.join(root, "test.feats.npy"), "-pretokenized",
-                   "-beam_size", "4", "-batch_size", str(CLI_TEST), "-max_length", "60",
-                   "-report_bleu", "-output", os.path.join(root, "pred.txt")]
-        rec["sent_per_s"] = {}
-        outs = {}
-        for mode, model_dir in ((1, run), (2, run)):
-            launches, out = counted(lambda: cli_translate.main(
-                tr_argv + ["-model", model_dir, "-pallas_step", str(mode)]))
-            row = "decode_step" if mode == 1 else "gru_chain"
-            print(f"cli: translate pallas_step={mode}: {out['sent_per_s']:.1f} sent/s "
-                  f"({CLI_TEST} sentences, beam 4, max_length 60, {card}), BLEU "
-                  f"{out['bleu']:.2f}; launches {launches}")
-            if launches["gru_layer_scan"] <= 0 or launches[row] <= 0:
-                fail(f"the translate CLI did not launch the scan and {row}")
-            well_formed(out["nbest"], CLI_TEST, CLI_VOCAB, 60)
-            rec["sent_per_s"][mode] = out["sent_per_s"]
-            outs[mode] = out
+    # the translate CLI from the last checkpoint, beam 4
+    size = os.path.getsize(os.path.join(run, f"step_{CLI_STEPS:08d}", "state.msgpack"))
+    rec["checkpoint_bytes"] = size
+    print(f"cli: checkpoint state.msgpack {size} bytes ({size / 2**20:.1f} MiB; params, "
+          "Adam moments, step, lr, rng, generator)")
+    tr_argv = ["-src", os.path.join(root, "test.src"), "-tgt", os.path.join(root, "test.tgt"),
+               "-img_feats", os.path.join(root, "test.feats.npy"), "-pretokenized",
+               "-beam_size", "4", "-batch_size", str(CLI_TEST), "-max_length", "60",
+               "-report_bleu", "-output", os.path.join(root, "pred.txt")]
+    rec["sent_per_s"] = {}
+    outs = {}
+    for mode, model_dir in ((1, run), (2, run)):
+        launches, out = counted(lambda: cli_translate.main(
+            tr_argv + ["-model", model_dir, "-pallas_step", str(mode)]))
+        row = "decode_step" if mode == 1 else "gru_chain"
+        print(f"cli: translate pallas_step={mode}: {out['sent_per_s']:.1f} sent/s "
+              f"({CLI_TEST} sentences, beam 4, max_length 60, {card}), BLEU "
+              f"{out['bleu']:.2f}; launches {launches}")
+        if launches["gru_layer_scan"] <= 0 or launches[row] <= 0:
+            fail(f"the translate CLI did not launch the scan and {row}")
+        well_formed(out["nbest"], CLI_TEST, CLI_VOCAB, 60)
+        rec["sent_per_s"][mode] = out["sent_per_s"]
+        outs[mode] = out
 
-        # save -> load -> translate: identical n-best ids
-        state, cfg, model, sv, tv = ck.load_checkpoint(ck.latest_checkpoint(run), device="cuda")
-        t0 = time.perf_counter()
-        copy = ck.save_checkpoint(os.path.join(root, "copy"), state, cfg, sv, tv)
-        rec["save_s"] = time.perf_counter() - t0
-        del state, model
-        launches, again = counted(lambda: cli_translate.main(
-            tr_argv + ["-model", copy, "-pallas_step", "1"]))
-        same = sum([i for _, i in a] == [i for _, i in b]
-                   for a, b in zip(outs[1]["nbest"], again["nbest"]))
-        print(f"cli: save ({rec['save_s']:.2f} s) -> load -> translate: {same}/{CLI_TEST} "
-              f"identical n-best id lists")
-        if same != CLI_TEST:
-            fail("a saved and reloaded checkpoint translates differently")
+    # save -> load -> translate: identical n-best ids
+    state, cfg, model, sv, tv = ck.load_checkpoint(ck.latest_checkpoint(run), device="cuda")
+    t0 = time.perf_counter()
+    copy = ck.save_checkpoint(os.path.join(root, "copy"), state, cfg, sv, tv)
+    rec["save_s"] = time.perf_counter() - t0
+    del state, model
+    launches, again = counted(lambda: cli_translate.main(
+        tr_argv + ["-model", copy, "-pallas_step", "1"]))
+    same = sum([i for _, i in a] == [i for _, i in b]
+               for a, b in zip(outs[1]["nbest"], again["nbest"]))
+    print(f"cli: save ({rec['save_s']:.2f} s) -> load -> translate: {same}/{CLI_TEST} "
+          f"identical n-best id lists")
+    if same != CLI_TEST:
+        fail("a saved and reloaded checkpoint translates differently")
     print(f"cli: launches of each kernel on the CLI runs {total}")
     for k in CLI_KERNELS:
         if total[k] <= 0:
             fail(f"kernel {k} was not launched on the CLI path")
     return total, rec
+
+
+class Server:
+    """``python -m variational_mmt_torch.cli.serve`` on a checkpoint, in a
+    process group of its own; ``port`` is read from its ``serving on
+    http://HOST:PORT`` line, ``log`` holds its output."""
+
+    def __init__(self, ckpt: str, *flags: str):
+        import re
+        import threading
+
+        cmd = [sys.executable, "-m", "variational_mmt_torch.cli.serve", "-model", ckpt,
+               "-port", "0", "-batch_size", str(SERVE_BATCH), *flags]
+        env = dict(os.environ, PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        self.flags = " ".join(flags)
+        self.proc = subprocess.Popen(cmd, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True,
+                                     start_new_session=True)
+        self.log, self.port = [], None
+        up = threading.Event()
+
+        def drain():  # keeps the pipe empty for the server's whole life
+            for line in self.proc.stdout:
+                self.log.append(line.rstrip())
+                m = re.search(r"serving on http://[^:]+:(\d+)", line)
+                if m:
+                    self.port = int(m.group(1))
+                    up.set()
+            up.set()
+
+        threading.Thread(target=drain, daemon=True).start()
+        self._up = up
+
+    def wait(self, timeout: float = 300.0) -> "Server":
+        self._up.wait(timeout)
+        if self.port is None:
+            self.stop()
+            fail(f"the serve CLI ({self.flags}) did not start: " + " | ".join(self.log[-20:]))
+        return self
+
+    def stop(self) -> None:
+        """SIGINT to the server's group (it stops its dispatchers), then
+        SIGKILL whatever is left; prints the tail of its output."""
+        import signal
+
+        for sig, wait in ((signal.SIGINT, 30), (signal.SIGKILL, 10)):
+            try:
+                os.killpg(self.proc.pid, sig)
+            except ProcessLookupError:
+                break
+            try:
+                self.proc.wait(timeout=wait)
+                break
+            except subprocess.TimeoutExpired:
+                continue
+        try:  # the group may outlive its leader
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        print(f"serve: server ({self.flags}) output, last lines: " + " | ".join(self.log[-6:]))
+
+
+def http_json(port: int, path: str, payload=None, timeout: float = 120.0):
+    import http.client
+
+    from variational_mmt_torch.utils.msgpack_codec import packb, unpackb
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        if payload is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, body=packb(payload),
+                         headers={"Content-Type": "application/x-msgpack"})
+        resp = conn.getresponse()
+        body = resp.read()
+        if resp.status != 200:
+            fail(f"HTTP {resp.status} from {path}: {body[:200]!r}")
+        return unpackb(body) if payload is not None else json.loads(body)
+    finally:
+        conn.close()
+
+
+def serve_traffic(port: int, texts, feats, want):
+    """One timed run: ``len(texts)`` single-sentence requests from
+    SERVE_CLIENTS closed-loop client threads, then SERVE_BIG requests of
+    SERVE_BATCH sentences at once, over loopback HTTP (msgpack, float32
+    image bytes). Every answer must equal ``want`` (the offline
+    Translator's top-1 text). Returns the run's numbers."""
+    import threading
+
+    def req(idx):
+        imgs = np.ascontiguousarray(feats[idx], dtype="<f4")
+        return {"texts": [texts[i] for i in idx], "timeout": 120,
+                "imgs": {"shape": list(imgs.shape), "data": imgs.tobytes()}}
+
+    def check(idx, out):
+        got = [nbest[0]["text"] for nbest in out["results"]]
+        bad = [i for i, g in zip(idx, got) if g != want[i]]
+        if bad:
+            fail(f"served answers differ from the offline Translator for sentences {bad[:8]}")
+
+    before = http_json(port, "/stats")
+    lat, nxt, lock = [], iter(range(len(texts))), threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                i = next(nxt, None)
+            if i is None:
+                return
+            t = time.perf_counter()
+            out = http_json(port, "/translate", req([i]))
+            lat.append(time.perf_counter() - t)
+            check([i], out)
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client) for _ in range(SERVE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads) or len(lat) != len(texts):
+        fail("the closed-loop clients did not finish")
+    mid = http_json(port, "/stats")
+    big = [list(range(k * SERVE_BATCH, (k + 1) * SERVE_BATCH)) for k in range(SERVE_BIG)]
+    big_lat = []
+
+    def big_client(idx):
+        t = time.perf_counter()
+        out = http_json(port, "/translate", req(idx))
+        big_lat.append(time.perf_counter() - t)
+        check(idx, out)
+
+    t1 = time.perf_counter()
+    threads = [threading.Thread(target=big_client, args=(idx,)) for idx in big]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    big_wall = time.perf_counter() - t1
+    if any(t.is_alive() for t in threads) or len(big_lat) != SERVE_BIG:
+        fail("the 32-sentence requests did not finish")
+    d = {k: mid[k] - before[k] for k in ("requests", "batches", "busy_s")}
+    lat_ms = np.asarray(lat) * 1e3
+    return {"sent_per_s": len(texts) / wall, "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "mean_batch_fill": d["requests"] / max(d["batches"], 1),
+            "busy_share": d["busy_s"] / wall, "wall_s": wall, "big_wall_s": big_wall,
+            "big_sent_per_s": SERVE_BIG * SERVE_BATCH / big_wall,
+            "big_p50_ms": float(np.percentile(np.asarray(big_lat) * 1e3, 50))}
+
+
+def client_traffic(port: int, root: str) -> dict:
+    """serve_traffic from a client process of its own, on phase 10's test
+    set in ``root`` and the offline answers in ``root/want.json``."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); import chip_smoke; "
+            "chip_smoke.client_main(int(sys.argv[2]), sys.argv[3])")
+    try:
+        out = subprocess.run([sys.executable, "-c", code, HERE, str(port), root],
+                             capture_output=True, text=True, timeout=600)
+    except subprocess.TimeoutExpired:
+        fail("the client process did not finish in 600 s")
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("TRAFFIC ")]
+    if out.returncode != 0 or not lines:
+        fail(f"the client process failed (exit {out.returncode}): {out.stderr[-2000:]}")
+    return json.loads(lines[-1][len("TRAFFIC "):])
+
+
+def client_main(port: int, root: str) -> None:
+    """The client process of :func:`client_traffic`."""
+    with open(os.path.join(root, "test.src"), encoding="utf-8") as f:
+        texts = [line.rstrip("\n") for line in f]
+    with open(os.path.join(root, "want.json"), encoding="utf-8") as f:
+        want = json.load(f)
+    feats = np.load(os.path.join(root, "test.feats.npy"))
+    print("TRAFFIC " + json.dumps(serve_traffic(port, texts, feats, want)), flush=True)
+
+
+def serve_step_checks(gru_scan, ds) -> dict:
+    """Rows 3 and 4 against their plain versions at the service's shapes:
+    N = 128 (batch 32 x beam 4) and 32 (sampling), S at each warmed bucket,
+    H = 500; f32 and bf16 errors, kernel ms in both (the option checks run
+    f32), bf16 plain ms, bounds. Row 1 timed at the served encoder's shape,
+    B = 32 at T = 16 and 24 (its checks are phase 3's)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    H = STEP_SHAPE["H"]
+    recs = {"decode_step": {}, "gru_chain": {}, "gru_layer_scan": {}}
+    for N in SERVE_STEP_NS:
+        for S in SERVE_BUCKETS:
+            at = f"N={N} S={S}"
+            step_b, chain_b = step_bounds(N, S, H)
+            got, ms32 = {}, {}
+            for dt_name in ("float32", "bfloat16"):
+                chain, attn = step_inputs(g, getattr(torch, dt_name), N, S, H)
+                got[dt_name] = (max_err(ds.decode_step(*chain, *attn),
+                                        ds.decode_step_ref(*chain, *attn)),
+                                max_err(ds.gru_chain(*chain), ds.gru_chain_ref(*chain)))
+                check_close(f"decode_step {at}", dt_name, got[dt_name][0])
+                check_close(f"gru_chain {at}", dt_name, got[dt_name][1])
+                if dt_name == "float32":
+                    ms32 = {"decode_step": cuda_ms(lambda: ds.decode_step(*chain, *attn)),
+                            "gru_chain": cuda_ms(lambda: ds.gru_chain(*chain))}
+            for k, (name, fn, ref, (b_ms, b_by)) in enumerate((
+                    ("decode_step", lambda: ds.decode_step(*chain, *attn),
+                     lambda: ds.decode_step_ref(*chain, *attn), step_b),
+                    ("gru_chain", lambda: ds.gru_chain(*chain), lambda: ds.gru_chain_ref(*chain),
+                     chain_b))):
+                rec = {"err_float32": got["float32"][k], "err_bfloat16": got["bfloat16"][k],
+                       "ms": cuda_ms(fn), "ms_float32": ms32[name], "plain_ms": cuda_ms(ref),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                recs[name][at] = rec
+                print(f"  {name} {at} H={H} bfloat16: kernel {rec['ms']:.4f} ms (float32 "
+                      f"{rec['ms_float32']:.4f}), plain {rec['plain_ms']:.3f} ms, bound "
+                      f"{b_ms:.4f} ms ({b_by})")
+    for T in SERVE_SCAN_TS:
+        recs["gru_layer_scan"][f"B={SERVE_BATCH} T={T}"] = scan_timing(
+            gru_scan, g, SERVE_BATCH, T, SCAN_SHAPE["H"])
+    return recs
+
+
+def serve_phase(card: str, root: str):
+    """Online serving (module docstring, phase 11) from phase 10's
+    checkpoint in ``root``. Returns ({kernel: launches on the in-process
+    service runs}, record)."""
+    import dataclasses as dc
+
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.data.tokenizer import tokenize
+    from variational_mmt_torch.decode import streams
+    from variational_mmt_torch.decode.translator import Translator
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.ops import decode_step as ds, gru_scan
+    from variational_mmt_torch.cli.loading import load_model_spec
+    from variational_mmt_torch.data.vocab import UNK
+    from variational_mmt_torch.serve import ServeConfig, ServingServer, TranslationService
+    from variational_mmt_torch.train import checkpoint as ck
+
+    ckpt = ck.latest_checkpoint(os.path.join(root, "run"))
+    with open(os.path.join(root, "test.src"), encoding="utf-8") as f:
+        texts = [line.rstrip("\n") for line in f]
+    feats = np.load(os.path.join(root, "test.feats.npy"))
+    if len(texts) < SERVE_BIG * SERVE_BATCH:
+        fail(f"phase 11 needs {SERVE_BIG * SERVE_BATCH} test sentences, has {len(texts)}")
+    t0 = time.time()
+    servers = {d: Server(ckpt, "-pipeline_depth", str(d)) for d in (1, 2)}
+    for srv in servers.values():
+        srv.wait()
+    rec = {"server_start_s": time.time() - t0}
+    try:
+        # the offline Translator for the serve CLI's DecodeConfig (beam 4,
+        # max_length 100, batch 32, pallas_step 0) on the same sentences
+        state, cfg, model, sv, tv = ck.load_checkpoint(ckpt, device="cuda")
+        dcfg = DecodeConfig(beam_size=4, max_length=100, batch_size=SERVE_BATCH)
+        tr = Translator(model, sv, tv, dcfg, buckets=cfg.data.buckets or SERVE_BUCKETS,
+                        device="cuda")
+        toks = [tokenize(t) for t in texts]
+        offline = tr.translate_tokens(toks, feats)
+        want = [nbest[0][1] for nbest in offline]
+        tr.close()
+        runs = {1: [], 2: []}
+        for d in SERVE_DEPTHS:
+            r = serve_traffic(servers[d].port, texts, feats, want)
+            runs[d].append(r)
+            print(f"serve: -pipeline_depth {d}: {r['sent_per_s']:.1f} sent/s, p50 "
+                  f"{r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms, mean batch fill "
+                  f"{r['mean_batch_fill']:.2f}, busy share {r['busy_share']:.3f} "
+                  f"({len(texts)} single-sentence requests, {SERVE_CLIENTS} closed-loop "
+                  f"clients); {SERVE_BIG} x {SERVE_BATCH}-sentence requests "
+                  f"{r['big_sent_per_s']:.1f} sent/s; answers = offline ({card})")
+        rec["depth"] = runs
+    finally:
+        for srv in servers.values():
+            srv.stop()
+    srv = Server(ckpt, "-procs", "2").wait()
+    port = srv.port
+    try:
+        health = http_json(port, "/healthz")
+        if not health.get("ids_wire"):
+            fail("the -procs 2 server's dispatchers do not take the id-level wire")
+        r = serve_traffic(port, texts, feats, want)
+        rec["procs2"] = r
+        print(f"serve: -procs 2: {r['sent_per_s']:.1f} sent/s, p50 {r['p50_ms']:.2f} ms, p99 "
+              f"{r['p99_ms']:.2f} ms, mean batch fill {r['mean_batch_fill']:.2f}, busy share "
+              f"{r['busy_share']:.3f}; answers = offline ({card})")
+    finally:
+        srv.stop()
+
+    # the main path, counted: the service the serve CLI builds (its loader,
+    # its defaults), behind ServingServer in this process, at depth 1 and
+    # at AUTO (the CLI's default, 2 here); the clients run in a process of
+    # their own, as they do against the CLI. Per depth: one run with every
+    # count set to 0 just before it and read just after, and the CPU time
+    # of this process and of the device thread over it; then one run under
+    # torch.profiler for the device's busy time
+    counters = {fn.__name__: fn for fn in (gru_scan.gru_layer_scan, ds.decode_step,
+                                           ds.gru_chain)}
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: c.launches for k, c in counters.items()}
+
+    with open(os.path.join(root, "want.json"), "w", encoding="utf-8") as f:
+        json.dump(want, f)
+    lm = load_model_spec(ckpt, device="cuda")
+    rec["in_process"] = {}
+    for depth in (1, 0):
+        svc = TranslationService(lm.model, lm.src_vocab, lm.tgt_vocab, dcfg,
+                                 buckets=lm.cfg.data.buckets or SERVE_BUCKETS,
+                                 scfg=ServeConfig(pipeline_depth=depth), device="cuda")
+        http = ServingServer(svc, "127.0.0.1", 0, info={"model_type": lm.cfg.model.model_type})
+        http.start()
+        device_thread = svc.translator._device_thread()
+        try:
+            counts()
+            for c in counters.values():
+                c.launches = 0
+            dev_cpu, cpu = device_thread.submit(time.thread_time).result(60), time.process_time()
+            r = client_traffic(http.port, root)
+            dev_cpu = device_thread.submit(time.thread_time).result(60) - dev_cpu
+            cpu = time.process_time() - cpu
+            r["launches"] = counts()
+            served_s = r["wall_s"] + r["big_wall_s"]
+            r.update(process_cpu_share=cpu / served_s, device_thread_cpu_share=dev_cpu / served_s)
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                     torch.profiler.ProfilerActivity.CUDA]) as prof:
+                p = client_traffic(http.port, root)
+                torch.cuda.synchronize()
+            busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                          if e.device_type == torch.autograd.DeviceType.CUDA)
+            # None: the profiler saw no device time (not measured)
+            r["profiled"] = {"sent_per_s": p["sent_per_s"], "p50_ms": p["p50_ms"],
+                             "device_busy_ms": busy_us / 1e3 if busy_us else None,
+                             "device_busy_share": busy_us / 1e6 / (p["wall_s"] + p["big_wall_s"])
+                             if busy_us else None}
+        finally:
+            http.stop()
+            svc.stop()
+        rec["in_process"][svc.pipeline_depth] = r
+        q = r["profiled"]
+        print(f"serve: in process (ServingServer, clients in a process of their own), "
+              f"-pipeline_depth {svc.pipeline_depth}{' (AUTO)' if depth == 0 else ''}: "
+              f"{r['sent_per_s']:.1f} sent/s, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms, "
+              f"mean batch fill {r['mean_batch_fill']:.2f}, busy share {r['busy_share']:.3f}, "
+              f"CPU of this process {r['process_cpu_share']:.3f} and of the device thread "
+              f"{r['device_thread_cpu_share']:.3f} of the served time; answers = offline; "
+              f"launches {r['launches']}; profiled run {q['sent_per_s']:.1f} sent/s, device busy "
+              f"{q['device_busy_ms']} ms, {q['device_busy_share']} of the served time ({card})")
+    rec["launches"] = rec["in_process"][svc.pipeline_depth]["launches"]
+    if rec["launches"]["gru_layer_scan"] <= 0:
+        fail("kernel gru_layer_scan was not launched on the served path")
+    del lm, svc, http
+
+    # in process: the decode options on the kernel steps against the plain
+    # step, f32 (31 of 32 top-1 entries equal, as phase 4)
+    for c in counters.values():
+        c.launches = 0
+    m32 = build_model(dc.replace(cfg.model, compute_dtype="float32"), device="cuda")
+    m32.load_state_dict(model.state_dict())
+    idx = list(range(SERVE_CHECK))
+    ids = [sv.encode(toks[i]) for i in idx]
+    common = {}  # the exclusion token: the commonest word of the offline answers
+    for nbest in offline[:SERVE_CHECK]:
+        for w in nbest[0][1].split():
+            common[w] = common.get(w, 0) + 1
+    excl = max(common, key=common.get)
+    # replace_unk: a copy whose generator scores <unk> as the exclusion
+    # word plus 1, so that answers hold <unk> and its attention positions
+    # (row 3's probs on pallas_step 1) are compared
+    m_unk = build_model(dc.replace(cfg.model, compute_dtype="float32"), device="cuda")
+    m_unk.load_state_dict(model.state_dict())
+    w = tv.stoi[excl]
+    with torch.no_grad():
+        kern, bias = m_unk.generator_params()
+        kern[:, UNK] = kern[:, w]
+        bias[UNK] = bias[w] + 1.0
+    options = {"coverage_beta 0.2": (m32, dict(coverage_beta=0.2)),
+               f"block_ngram_repeat 2, ignore_when_blocking {excl}":
+                   (m32, dict(block_ngram_repeat=2, ignore_when_blocking=excl)),
+               "replace_unk": (m_unk, dict(replace_unk=True))}
+    rec["options"] = {}
+
+    def served(mdl, **kw):
+        svc = TranslationService(mdl, sv, tv, DecodeConfig(**{
+            "beam_size": 4, "max_length": 100, "batch_size": SERVE_BATCH, **kw}),
+            buckets=cfg.data.buckets or SERVE_BUCKETS,
+            scfg=ServeConfig(max_wait_ms=5.0, warmup=False), device="cuda")
+        try:
+            return [f.result(timeout=300) for f in svc.submit_ids_batch(ids, feats[idx])]
+        finally:
+            svc.stop()
+
+    for name, (mdl, kw) in options.items():
+        outs = {mode: served(mdl, pallas_step=mode, **kw) for mode in (0, 1, 2)}
+        # the top-1 entry past its score: ids, and with replace_unk the
+        # attention positions too
+        same = {mode: sum(a[0][1:] == b[0][1:] for a, b in zip(outs[mode], outs[0]))
+                for mode in (1, 2)}
+        rec["options"][name] = same
+        what = "ids and attention positions" if kw.get("replace_unk") else "ids"
+        print(f"serve: f32 {name}: pallas_step 1 vs 0 {same[1]}/{SERVE_CHECK}, 2 vs 0 "
+              f"{same[2]}/{SERVE_CHECK} identical top-1 {what}")
+        if min(same.values()) < SERVE_CHECK - 1:
+            fail(f"{name}: the kernel steps and the plain step disagree on more than 1 of "
+                 f"{SERVE_CHECK} sentences")
+        if kw.get("replace_unk"):
+            unk = {mode: sum(UNK in o[0][1] for o in outs[mode]) for mode in (0, 1, 2)}
+            rec["options"][name]["answers_with_unk"] = unk
+            print(f"serve: replace_unk: answers holding <unk> at pallas_step 0/1/2 "
+                  f"{unk[0]}/{unk[1]}/{unk[2]} of {SERVE_CHECK}")
+            if min(unk.values()) == 0:
+                fail("replace_unk: no answer holds <unk>, so no attention position was compared")
+    rec["option_launches"] = counts()
+    print(f"serve: launches of the in-process option checks {rec['option_launches']}")
+    for k in SERVE_KERNELS:
+        if rec["option_launches"][k] <= 0:
+            fail(f"kernel {k} was not launched by the in-process option checks")
+
+    # sampling keyed by sample_ids: the same answers grouped two ways (bf16,
+    # pallas_step 1)
+    sdcfg = DecodeConfig(beam_size=1, max_length=100, batch_size=SERVE_BATCH, sampling_temp=1.0,
+                         sampling_topk=10, pallas_step=1, decode_seed=7)
+    svc = TranslationService(model, sv, tv, sdcfg, buckets=cfg.data.buckets or SERVE_BUCKETS,
+                             scfg=ServeConfig(max_wait_ms=5.0, warmup=False), device="cuda")
+    try:
+        sids = [1000 + i for i in idx]
+        together = [f.result(timeout=300) for f in svc.submit_ids_batch(ids, feats[idx],
+                                                                         sample_ids=sids)]
+        alone = [svc.submit_ids_batch([i], feats[[k]], sample_ids=[s])[0].result(timeout=300)
+                 for k, (i, s) in enumerate(zip(ids, sids))]
+    finally:
+        svc.stop()
+    same = sum(a == b for a, b in zip(together, alone))
+    print(f"serve: sampling (temp 1.0, topk 10, sample_ids): {same}/{SERVE_CHECK} answers "
+          f"identical grouped at once and one by one")
+    if same != SERVE_CHECK:
+        fail("sampled answers depend on how the batcher grouped the requests")
+    ids_gpu = torch.arange(64, device="cuda") * 7919
+    a = streams.DecodeStreams(7, ids_gpu)
+    b = streams.DecodeStreams(7, ids_gpu.cpu())
+    gum = float((a.token_gumbel(5, len(tv)).cpu() - b.token_gumbel(5, len(tv))).abs().max())
+    eps = float((a.latent_eps(0, 128).cpu() - b.latent_eps(0, 128)).abs().max())
+    uni = torch.equal(streams.uniforms(a.keys, 4096).cpu(), streams.uniforms(b.keys, 4096))
+    print(f"serve: decode streams card vs CPU: uniforms identical {uni}, Gumbel max |diff| "
+          f"{gum:.3e}, eps max |diff| {eps:.3e}")
+    if not uni or gum > 1e-5 or eps > 1e-5:
+        fail("the decode streams differ between the card and the CPU")
+    rec["sampling"] = {"grouping_identical": same, "streams_gumbel_diff": gum,
+                       "streams_eps_diff": eps}
+
+    # latent_from sample: deterministic for a seed, different from the mean
+    outs = []
+    for lf in ("sample", "sample", "mean"):
+        t = Translator(model, sv, tv, DecodeConfig(beam_size=4, max_length=100,
+                                                   batch_size=SERVE_BATCH, latent_from=lf,
+                                                   pallas_step=1, decode_seed=7),
+                       buckets=cfg.data.buckets or SERVE_BUCKETS, device="cuda")
+        outs.append(t.translate_ids(ids, feats[idx]))
+        t.close()
+    repeat = outs[0] == outs[1]
+    moved = sum(a[0][0] != b[0][0] for a, b in zip(outs[0], outs[2]))
+    print(f"serve: latent_from sample: repeat identical {repeat}, {moved}/{SERVE_CHECK} scores "
+          f"differ from the mean's")
+    if not repeat or moved == 0:
+        fail("latent_from sample is not deterministic for its seed, or equals the mean")
+    rec["latent_sample"] = {"repeat_identical": repeat, "differ_from_mean": moved}
+    rec["step_shapes"] = serve_step_checks(gru_scan, ds)
+    return {"serve_online": rec["launches"], "serve_options": rec["option_launches"]}, rec
 
 
 def main() -> int:
@@ -1466,7 +1983,9 @@ def main() -> int:
     gate_shape["decode_step"], gate_shape["gru_chain"] = step_phase(ds, GATE_STEP_SHAPE)
     gate_shape["decoder_fwd"], gate_shape["decoder_bwd"] = decoder_phase(dec, GATE_DEC_SHAPE)
     family_launches, families = families_phase(card)
-    cli_launches, cli = cli_phase(card, steps["pallas_decoder=1"]["step_ms"])
+    with tempfile.TemporaryDirectory(prefix="vmmt_cli_") as root:
+        cli_launches, cli = cli_phase(card, steps["pallas_decoder=1"]["step_ms"], root)
+        online_launches, served = serve_phase(card, root)
 
     entries = []
     for name, rec, src, replaces in (
@@ -1485,7 +2004,8 @@ def main() -> int:
     ):
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "train_packed": packed_launches.get(name, 0),
-                   "families": family_launches[name], "cli": cli_launches[name]}
+                   "families": family_launches[name], "cli": cli_launches[name],
+                   **{path: n.get(name, 0) for path, n in online_launches.items()}}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1506,6 +2026,8 @@ def main() -> int:
                                                  "library_ms", "plan", "err_float32",
                                                  "err_bfloat16", "edge_err_float32",
                                                  "edge_err_bfloat16")}
+        if name in served["step_shapes"]:  # rows 1, 3 and 4 at the service's shapes
+            entry["serve_shapes"] = served["step_shapes"][name]
         if "peaked" in g:
             entry["gate_shape"]["peaked"] = {k: v for k, v in g["peaked"].items()
                                              if k != "per_step"}
@@ -1516,7 +2038,8 @@ def main() -> int:
         entries.append(entry)
     print(json.dumps({"kernels": entries, "sent_per_s": rate, "train": steps,
                       "train_f32_check": check, "train_packed": packed, "families": families,
-                      "cli": cli, "card": card}))
+                      "cli": cli, "serve_online": {k: v for k, v in served.items()
+                                                   if k != "step_shapes"}, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

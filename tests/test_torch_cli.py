@@ -357,10 +357,7 @@ def test_load_features_reads_npy_npz_and_conv_maps(tmp_path):
 TRANSLATE_REFUSED = [
     (["-iw_eval", "2"], "5.3"), (["-latent_diag"], "5.3"), (["-mbr_samples", "4"], "5.3"),
     (["-dump_attn", "a.npz"], "5.3"), (["-report_meteor"], "5.3"),
-    (["-sampling_temp", "0.7", "-beam_size", "1"], "5.2"), (["-latent_from", "sample"], "5.2"),
-    (["-dump_beam", "b.json"], "item 4"), (["-coverage_beta", "0.2"], "item 4"),
-    (["-block_ngram_repeat", "2"], "item 4"), (["-replace_unk"], "item 4"),
-    (["-phrase_table", "p.txt"], "item 4"), (["-tensor_parallel", "2"], "5.8"),
+    (["-tensor_parallel", "2"], "5.8"),
     (["-infer_dtype", "bfloat16"], "5.4"), (["-model", "a,b"], "5.4"),
 ]
 
@@ -371,6 +368,64 @@ def test_translate_refuses_what_is_not_ported_naming_its_roadmap_item(flags, ite
     argv = ["-model", "nowhere", "-src", "nowhere.txt", "-device", "cpu", *flags]
     with pytest.raises(SystemExit, match=f"not ported yet: .*ROADMAP.md .*{item}"):
         cli_translate.main(argv)
+
+
+@pytest.fixture(scope="module")
+def trained(corpus, tmp_path_factory):
+    ckpt = str(tmp_path_factory.mktemp("run") / "ckpts")
+    cli_train.main(vmmt_c(str(corpus), ckpt, "-max_steps", "3", "-checkpoint_every", "3"))
+    return ckpt
+
+
+DECODE_OPTIONS = [
+    ["-coverage_beta", "0.2"], ["-block_ngram_repeat", "2", "-ignore_when_blocking", "@@ ."],
+    ["-replace_unk"], ["-replace_unk", "-phrase_table", "PT"], ["-dump_beam", "BEAM"],
+]
+
+
+@pytest.mark.parametrize("flags", DECODE_OPTIONS, ids=" ".join)
+def test_translate_decode_options_equal_jax_translate(corpus, trained, flags, tmp_path):
+    """Once refused (queue 1, item 4): the port's CLI writes what JAX's
+    writes with the same flags (f32, n-best ids identical), and the same
+    search trees with -dump_beam (scores within 1e-4)."""
+    d = str(corpus)
+    with open(f"{tmp_path}/pt.txt", "w") as f:
+        f.write("zz\tfrom the table\nmulti word\tskipped\n")
+    outs = {}
+    for name, main, extra in (("port", cli_translate.main, ["-device", "cpu"]),
+                              ("jax", jax_translate.main, [])):
+        args = [{"PT": f"{tmp_path}/pt.txt", "BEAM": f"{tmp_path}/{name}.json"}.get(a, a)
+                for a in flags]
+        main(translate_args(d, trained, f"{tmp_path}/{name}.txt", *args, *extra))
+        with open(f"{tmp_path}/{name}.txt") as f:
+            outs[name] = f.read()
+    assert outs["port"] == outs["jax"] and len(outs["port"].splitlines()) == 20
+    if "BEAM" in flags:
+        with open(f"{tmp_path}/port.json") as f, open(f"{tmp_path}/jax.json") as g:
+            mine, theirs = json.load(f), json.load(g)
+        assert sorted(mine) == sorted(theirs) and len(mine) == 10
+        for i, w in theirs.items():
+            assert [mine[i][k] for k in ("parents", "tokens", "order")] == \
+                [w[k] for k in ("parents", "tokens", "order")]
+            np.testing.assert_allclose(mine[i]["scores"], w["scores"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("flags", [["-sampling_temp", "0.7", "-sampling_topk", "5"],
+                                   ["-latent_from", "sample"]], ids=" ".join)
+def test_translate_sampling_flags_decode_reproducibly(corpus, trained, flags, tmp_path):
+    """Once refused (queue 1, item 5.2): the draws come from -seed, so two
+    runs write the same file and another seed another one (parity with
+    JAX's draws: tests/test_torch_sampling.py)."""
+    d = str(corpus)
+    outs = []
+    for seed, name in ((5, "a"), (5, "b"), (6, "c")):
+        out = cli_translate.main(translate_args(
+            d, trained, f"{tmp_path}/{name}.txt", "-beam_size", "1", "-n_best", "1",
+            "-seed", str(seed), "-device", "cpu", *flags))
+        assert len(out["nbest"]) == 10
+        with open(f"{tmp_path}/{name}.txt") as f:
+            outs.append(f.read())
+    assert outs[0] == outs[1] and outs[0] != outs[2]
 
 
 TRAIN_REFUSED = [

@@ -1,7 +1,8 @@
 """PyTorch port: the rules around it. It imports nothing of JAX or of the
 JAX package (and neither msgpack nor flax, which the card's machine lacks:
-checkpoints go through train/msgpack_io.py); its entry points need CUDA
-unless asked for the CPU; kernel
+checkpoints and the serving wire go through the port's codec); what a
+serving dispatcher process imports loads no torch; its entry points need
+CUDA unless asked for the CPU; kernel
 wrappers take their plain versions only for CPU tensors and never swallow
 an error; every option outside the slice raises NotImplementedError."""
 
@@ -48,9 +49,10 @@ def test_port_package_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "translator.py", "gru_scan.py", "decode_step.py", "decoder.py",
             "trainer.py", "checkpoint.py", "msgpack_io.py", "loading.py", "logging.py",
-            "tensorboard.py"} <= names
+            "tensorboard.py", "streams.py", "beam.py", "service.py", "frontend.py", "rpc.py",
+            "http_server.py", "errors.py", "serve.py", "msgpack_codec.py"} <= names
     scanned = {p.parent.name for p in PORT_FILES}
-    assert {"cli", "utils", "train", "data", "decode"} <= scanned
+    assert {"cli", "utils", "train", "data", "decode", "serve"} <= scanned
 
 
 @pytest.fixture
@@ -139,14 +141,51 @@ def test_ported_model_families_and_z_cond_build(over):
 
 
 @pytest.mark.parametrize("over", [
-    dict(sampling_temp=1.0, beam_size=1), dict(latent_from="sample"),
-    dict(coverage_beta=0.2), dict(block_ngram_repeat=2), dict(replace_unk=True),
-    dict(dump_beam=True), dict(infer_dtype="bfloat16"), dict(infer_dtype="int8"),
+    dict(infer_dtype="bfloat16"), dict(infer_dtype="int8"),
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
 def test_unsupported_decode_options_raise(over):
     model = build_model(ModelConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 5.4"):
         make_translate_fn(model, dataclasses.replace(DecodeConfig(), **over))
+
+
+@pytest.mark.parametrize("over", [
+    dict(sampling_temp=1.0, beam_size=1), dict(latent_from="sample"),
+    dict(coverage_beta=0.2), dict(block_ngram_repeat=2), dict(replace_unk=True),
+    dict(dump_beam=True),
+], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
+def test_ported_decode_options_build(over):
+    """Once refused above; sampling, latent_from=sample and the beam's
+    options are ported now (their parity with JAX: tests/test_torch_
+    beam_options.py and tests/test_torch_sampling.py)."""
+    model = build_model(ModelConfig(**TINY), device="cpu")
+    vocab = Vocab(SPECIALS + ["a", "b"])
+    dcfg = dataclasses.replace(DecodeConfig(max_length=4), **over)
+    make_translate_fn(model, dcfg)
+    tr = Translator(model, vocab, vocab, dcfg, device="cpu")
+    img = np.zeros((1, TINY["img_feat_dim"]), np.float32)
+    assert len(tr.translate_ids([[4, 5]], img)) == 1
+    tr.close()
+
+
+# what a dispatcher process imports: the frontend, the RPC and its codec,
+# the tokenizer, BPE and the vocab (tests/test_torch_serve.py runs it)
+TORCH_FREE = ["serve/__init__.py", "serve/errors.py", "serve/frontend.py", "serve/rpc.py",
+              "utils/__init__.py", "utils/msgpack_codec.py", "data/__init__.py",
+              "data/tokenizer.py", "data/bpe.py", "data/vocab.py", "__init__.py"]
+
+
+@pytest.mark.parametrize("rel", TORCH_FREE)
+def test_wire_modules_import_neither_torch_nor_msgpack(rel):
+    """No import of torch or msgpack, and of the port only modules that are
+    torch-free themselves."""
+    path = ROOT / "variational_mmt_torch" / rel
+    ours = {"variational_mmt_torch." + r[:-3].replace("/", ".").replace(".__init__", "")
+            for r in TORCH_FREE if r != "__init__.py"} | {"variational_mmt_torch"}
+    for m in imported_modules(path):
+        assert m.split(".")[0] not in ("torch", "msgpack", "jax"), (rel, m)
+        if m.startswith("variational_mmt_torch"):
+            assert m in ours, (rel, m)
 
 
 def test_ensembles_mesh_and_packing_raise():

@@ -9,19 +9,24 @@ GOLD scores with ``-tgt``). ``-pallas_step`` 1 or 2 takes the decode-step
 or GRU-chain kernel on the card; the CPU takes the plain step. It runs on
 CUDA unless given ``-device cpu`` and exits with an error without CUDA.
 
+The decode options are JAX's: ``-coverage_beta``, ``-block_ngram_repeat``
+with ``-ignore_when_blocking``, ``-replace_unk`` with ``-phrase_table``,
+``-dump_beam`` (the raw search tree of each sentence as JSON), sampling
+(``-sampling_temp``, ``-sampling_topk``, ``-sampling_topp``) and
+``-latent_from sample``, both drawing from ``-seed``.
+
 Refused, each naming its ROADMAP.md item, as the port's translator does not
 do them yet: ``-iw_eval``, ``-latent_diag``, ``-mbr_samples``, ``-dump_attn``
-and ``-report_meteor`` (queue 1, item 5.3); sampling and ``-latent_from
-sample`` (5.2); ``-dump_beam``, ``-coverage_beta``, ``-block_ngram_repeat``,
-``-replace_unk`` and ``-phrase_table`` (item 4); ``-tensor_parallel`` (5.8);
+and ``-report_meteor`` (queue 1, item 5.3); ``-tensor_parallel`` (5.8);
 ``-infer_dtype bfloat16`` or ``int8`` and a comma-separated ``-model`` (5.4).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 from variational_mmt_torch.cli.loading import consumes_decode_feats, load_model_spec
 from variational_mmt_torch.cli.train import cli_device
@@ -135,21 +140,30 @@ def refused(opt) -> list:
         ("-mbr_samples", opt.mbr_samples > 0, "queue 1, item 5.3"),
         ("-dump_attn", bool(opt.dump_attn), "queue 1, item 5.3"),
         ("-report_meteor", opt.report_meteor, "queue 1, item 5.3"),
-        ("-sampling_temp / -sampling_topk / -sampling_topp",
-         opt.sampling_temp > 0 or opt.sampling_topk > 0 or opt.sampling_topp > 0,
-         "queue 1, item 5.2"),
-        ("-latent_from sample", opt.latent_from != "mean", "queue 1, item 5.2"),
-        ("-dump_beam", bool(opt.dump_beam), "queue 1, item 4"),
-        ("-coverage_beta", opt.coverage_beta != 0.0, "queue 1, item 4"),
-        ("-block_ngram_repeat / -ignore_when_blocking",
-         opt.block_ngram_repeat > 0 or bool(opt.ignore_when_blocking), "queue 1, item 4"),
-        ("-replace_unk / -phrase_table", opt.replace_unk or bool(opt.phrase_table),
-         "queue 1, item 4"),
         ("-tensor_parallel", opt.tensor_parallel > 1, "queue 1, item 5.8"),
         (f"-infer_dtype {opt.infer_dtype}", opt.infer_dtype != "float32", "queue 1, item 5.4"),
         ("a comma-separated -model (an ensemble)", "," in opt.model, "queue 1, item 5.4"),
     ]
     return [(flag, item) for flag, on, item in table if on]
+
+
+def load_phrase_table(path: str) -> Tuple[Dict[str, str], int]:
+    """A ``src<TAB>tgt`` file (the first space when a line has no TAB; the
+    target may hold spaces) -> ({src: tgt}, multi-word sources skipped)."""
+    table, skipped = {}, 0
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            src_w, sep, tgt_w = line.rstrip("\n").partition("\t")
+            if not sep:
+                src_w, sep, tgt_w = src_w.partition(" ")
+            src_w, tgt_w = src_w.strip(), tgt_w.strip()
+            if not src_w or not tgt_w:
+                continue
+            if " " in src_w:  # a multi-word source cannot match one token
+                skipped += 1
+                continue
+            table[src_w] = tgt_w
+    return table, skipped
 
 
 def main(argv=None) -> Dict[str, object]:
@@ -188,25 +202,48 @@ def main(argv=None) -> Dict[str, object]:
 
     dcfg = DecodeConfig(beam_size=opt.beam_size, n_best=opt.n_best, max_length=opt.max_length,
                         min_length=opt.min_length, alpha=opt.alpha, batch_size=opt.batch_size,
-                        pallas_step=opt.pallas_step if device.type == "cuda" else 0)
+                        replace_unk=opt.replace_unk, coverage_beta=opt.coverage_beta,
+                        dump_beam=bool(opt.dump_beam),
+                        pallas_step=opt.pallas_step if device.type == "cuda" else 0,
+                        sampling_temp=opt.sampling_temp, sampling_topk=opt.sampling_topk,
+                        sampling_topp=opt.sampling_topp, latent_from=opt.latent_from,
+                        decode_seed=opt.seed, block_ngram_repeat=opt.block_ngram_repeat,
+                        ignore_when_blocking=opt.ignore_when_blocking)
     buckets = cfg.data.buckets or DEFAULT_BUCKETS
     translator = Translator(model, sv, tv, dcfg, buckets=buckets, device=device)
+    if opt.phrase_table:
+        if not opt.replace_unk:
+            raise SystemExit("-phrase_table is only consulted by -replace_unk; "
+                             "pass both (the table maps the copied source token)")
+        translator.phrase_table, skipped = load_phrase_table(opt.phrase_table)
+        print(f"loaded {len(translator.phrase_table)} phrase-table entries"
+              + (f" ({skipped} multi-word sources skipped)" if skipped else ""))
     src_ids = [sv.encode(t) for t in src_tok]  # encoded before the clock starts
     t0 = time.time()
     nbest = translator.translate_ids(src_ids, feats)
-    results = [translator.nbest_to_text(n) for n in nbest]
+    results = [translator.nbest_to_text(n, src_tok[i]) for i, n in enumerate(nbest)]
     dt = time.time() - t0
     rate = len(results) / max(dt, 1e-9)
-    print(f"translated {len(results)} sentences in {dt:.1f}s ({rate:.1f} sent/s, "
-          f"beam {opt.beam_size})")
+    mode = "sampling" if opt.sampling_temp > 0 else f"beam {opt.beam_size}"
+    print(f"translated {len(results)} sentences in {dt:.1f}s ({rate:.1f} sent/s, {mode})")
     with open(opt.output, "w", encoding="utf-8") as f:
         for sent in results:
             for entry in sent[:opt.n_best]:
                 f.write(entry[1] + "\n")
     print(f"wrote {opt.output}")
+    if opt.dump_beam:
+        with open(opt.dump_beam, "w", encoding="utf-8") as f:
+            json.dump({str(i): translator.beam_traces[i]
+                       for i in sorted(translator.beam_traces)}, f)
+        print(f"wrote beam search trees for {len(translator.beam_traces)} "
+              f"sentences -> {opt.dump_beam}")
 
     if opt.verbose:
         from variational_mmt_torch.decode.score import score_corpus
+
+        if opt.latent_from == "sample":
+            print("note: force-decode scores use z = prior mean, not the sampled z the "
+                  "decode drew (-latent_from sample)")
 
         pred_lp, pred_nt = score_corpus(model, src_ids, [n[0][1] for n in nbest], feats,
                                         buckets=buckets, batch_size=opt.batch_size)
