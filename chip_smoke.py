@@ -173,14 +173,45 @@ in PERF.md).
     bound; and row 1 timed at the served encoder's shape (B = 32, T = 16
     and 24, H = 250). Every server
     process group is stopped (SIGINT, then SIGKILL).
-12. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+12. Evaluation phase, from phase 10's last checkpoint and its 256 test
+    pairs. ``cli.translate -iw_eval 10 -latent_diag -dump_attn <file>
+    -report_meteor -tgt ...`` (beam 4, batch 64, the checkpoint's bf16
+    kernel route), counted with the launch counts set to 0 just before and
+    read just after (``eval``): prints the IW bounds, the IW pass's
+    sentences/s, METEOR, BLEU and the active units; rows 1 and 5 must run.
+    The same IW pass alone in process: row 1 launched and row 5 exactly 10
+    times a batch; then under ``torch.profiler`` for the device's busy
+    share of it. In f32, the kernel route (use_pallas, pallas_decoder)
+    against the plain route on the same eps: each sentence's joint and
+    text bounds within 1e-3 of max(1, |bound|), the corpus bounds within
+    1e-4 relative, and the force-decoded attention of the 1-best
+    hypotheses within 1e-4 absolute (the dumped file holds one matrix of
+    that shape a sentence). Then MBR in f32 (8 samples at temperature 1.0,
+    32 sentences) at pallas_step 0, 1 and 2: at least 31 of 32 picks of
+    steps 1 and 2 equal step 0's.
+13. Widths phase: rows 1 and 2 at H = 512 (16-CTA clusters; B = 64, T = 24
+    in f32 and bf16, B = 256 in bf16) and H = 300 (B = 64, both dtypes),
+    each against its plain version (forward 1e-4 / 2e-2 absolute, backward
+    the same relative), the plans printed, bf16 times beside cuDNN's
+    nn.GRU and the bound; rows 3-6 at H = 250 (padded to 252 by the
+    wrappers): phase 3's step checks at N = 128 and 32 (S = 24) and its
+    decoder checks at B = 64, T = 25, S = 24. Then the entry points at
+    these widths from phase 10's corpus: 10 steps of ``cli.train
+    -rnn_size 1024`` with the flagship config's ``pallas_decoder`` off
+    (encoder halves of 512 units on 16-CTA clusters of rows 1 and 2; the
+    decoder kernels are off, as JAX ships them) and 10 steps of ``-rnn_size
+    250`` with it on (rows 1, 2, 5 and 6 at 252), then ``cli.translate`` of
+    that model at pallas_step 1 and 2 (rows 3 and 4 at 252); all counted
+    as ``widths``.
+14. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
     numbers at the gate's shape, ``serve_shapes`` rows 1, 3 and 4 at the
-    service's, ``launches_by_path`` the serving, training, packed-training,
-    families, CLI, online-serving and option-check counts), then the last
-    line
+    service's, ``widths`` each kernel's numbers at the widths phase's
+    shapes, ``launches_by_path`` the serving, training, packed-training,
+    families, CLI, online-serving, option-check, eval and widths counts),
+    then the last line
     {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
@@ -236,6 +267,13 @@ SERVE_STEP_NS = (128, 32)  # rows of the decode step: batch 32 x beam 4, and sam
 SERVE_CHECK = 32  # sentences of the in-process option checks
 SERVE_SCAN_TS = (16, 24)  # buckets of the served encoder scan timed at B = 32
 SERVE_KERNELS = ("gru_layer_scan", "decode_step", "gru_chain")
+EVAL_K, EVAL_BATCH, EVAL_SEED = 10, 64, 3  # the IW samples, the eval CLI's batch, its -seed
+EVAL_TOL = dict(sent=1e-3, corpus=1e-4, attn=1e-4)  # f32 kernel route vs plain route
+EVAL_MBR_SAMPLES, EVAL_MBR_CHECK = 8, 32  # MBR's samples and sentences, pallas_step 0, 1, 2
+WIDTH_SCANS = ((64, 24, 512, ("float32", "bfloat16")), (256, 24, 512, ("bfloat16",)),
+               (64, 24, 300, ("float32", "bfloat16")))  # B, T, H and the checked dtypes
+WIDTH_STEP_NS, WIDTH_DEC = (128, 32), dict(B=64, T=25, S=24, H=250)  # rows 3-6 at H = 250
+WIDTH_CLI_STEPS = 10  # train CLI steps at -rnn_size 1024 (scans) and 250 (decoder kernels)
 
 
 def fail(msg: str) -> None:
@@ -1298,24 +1336,14 @@ def cli_phase(card: str, trainer_ms: float, root: str):
     from variational_mmt_torch.data.dataset import BinarizedDataset, BucketIterator
     from variational_mmt_torch.data.features import load_features
     from variational_mmt_torch.models.model import build_model
-    from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
     from variational_mmt_torch.train import checkpoint as ck
     from variational_mmt_torch.train.trainer import TrainState, batch_tensors, make_train_step
 
-    counters = {fn.__name__: fn for fn in (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd,
-                                           ds.decode_step, ds.gru_chain, dec.decoder_fwd,
-                                           dec.decoder_bwd)}
-    total = dict.fromkeys(counters, 0)
+    total = dict.fromkeys(kernel_counters(), 0)
 
     def counted(fn):
-        """``fn()`` with the kernels' counts set to 0 before and added to
-        the CLI path's after."""
-        torch.cuda.synchronize()
-        for c in counters.values():
-            c.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        got = {k: c.launches for k, c in counters.items()}
+        """``counted_run(fn)``, its counts also added to the CLI path's."""
+        got, out = counted_run(fn)
         for k in total:
             total[k] += got[k]
         return got, out
@@ -1939,6 +1967,325 @@ def serve_phase(card: str, root: str):
     return {"serve_online": rec["launches"], "serve_options": rec["option_launches"]}, rec
 
 
+def kernel_counters():
+    """{name: wrapper} of the six kernels' launch counters."""
+    from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
+
+    return {fn.__name__: fn for fn in (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd,
+                                       ds.decode_step, ds.gru_chain, dec.decoder_fwd,
+                                       dec.decoder_bwd)}
+
+
+def counted_run(fn):
+    """({kernel: launches}, fn()): the counts set to 0 just before ``fn``
+    and read just after."""
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in counters.items()}, out
+
+
+def eval_phase(card: str, root: str):
+    """The evaluation path (module docstring, phase 12) on phase 10's
+    checkpoint and test pairs in ``root``. Returns ({kernel: launches on
+    the eval CLI run}, record)."""
+    from variational_mmt_torch.cli import translate as cli_translate
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.data.dataset import BucketIterator, binarize, buckets_with_catchall
+    from variational_mmt_torch.decode.iw_eval import make_iw_elbo_fn
+    from variational_mmt_torch.decode.mbr import mbr_translate_ids
+    from variational_mmt_torch.decode.score import score_corpus
+    from variational_mmt_torch.decode.translator import Translator
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.train import checkpoint as ck
+    from variational_mmt_torch.train.trainer import batch_tensors
+
+    ckpt = ck.latest_checkpoint(os.path.join(root, "run"))
+    attn_path = os.path.join(root, "attn.npz")
+    argv = ["-model", ckpt, "-src", os.path.join(root, "test.src"),
+            "-tgt", os.path.join(root, "test.tgt"), "-img_feats",
+            os.path.join(root, "test.feats.npy"), "-pretokenized", "-beam_size", "4",
+            "-batch_size", str(EVAL_BATCH), "-max_length", "60", "-output",
+            os.path.join(root, "pred_eval.txt"), "-iw_eval", str(EVAL_K), "-latent_diag",
+            "-dump_attn", attn_path, "-report_meteor", "-seed", str(EVAL_SEED)]
+    launches, out = counted_run(lambda: cli_translate.main(argv))
+    iw = out["iw"]
+    rec = {"iw": iw, "iw_sent_per_s": iw["n_sents"] / out["iw_s"], "meteor": out["meteor"],
+           "bleu": out["bleu"], "latent_diag": out["latent_diag"], "launches": launches}
+    print(f"eval: translate CLI -iw_eval {EVAL_K} -latent_diag -dump_attn -report_meteor "
+          f"(bf16, use_pallas, pallas_decoder): IW-ELBO joint {iw['iw_elbo_per_sent']:.4f} / "
+          f"text {iw['iw_text_per_sent']:.4f} per sentence, IW-ppl {iw['iw_ppl']:.4f}, "
+          f"{iw['n_sents']:.0f} sentences; IW pass {out['iw_s']:.3f} s, "
+          f"{rec['iw_sent_per_s']:.1f} sent/s; METEOR {out['meteor']:.2f}, BLEU "
+          f"{out['bleu']:.2f}; AU {out['latent_diag']['au']}/{out['latent_diag']['latent_dim']};"
+          f" launches {launches} ({card})")
+    for k in ("gru_layer_scan", "decoder_fwd"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the eval CLI run")
+
+    # the IW pass alone (bf16, kernel route): rows 1 and 5 must run, K
+    # launches of row 5 a batch; then under torch.profiler for the busy share
+    state, cfg, model, sv, tv = ck.load_checkpoint(ckpt, device="cuda")
+    with open(os.path.join(root, "test.src"), encoding="utf-8") as f:
+        src_ids = [sv.encode(line.lower().split()) for line in f]
+    with open(os.path.join(root, "test.tgt"), encoding="utf-8") as f:
+        gold_ids = [tv.encode(line.lower().split()) for line in f]
+    feats = np.load(os.path.join(root, "test.feats.npy"))
+    buckets = cfg.data.buckets or SERVE_BUCKETS  # the translate CLI's default
+    # the CLI's IW batches: a catch-all bucket keeps every pair whole
+    it = BucketIterator(binarize(src_ids, gold_ids), EVAL_BATCH, buckets_with_catchall(
+        buckets, max([len(s) for s in src_ids] + [len(t) + 1 for t in gold_ids])),
+        img_feats=feats)
+    batches = [batch_tensors(b, torch.device("cuda")) for b in it.epoch(0)]
+    fn = make_iw_elbo_fn(model, EVAL_K)
+
+    def iw_pass(m_fn, eps_list=None, gen=None):
+        return [m_fn(b, gen, None if eps_list is None else eps_list[i])
+                for i, b in enumerate(batches)]
+
+    gen = torch.Generator(device="cuda").manual_seed(EVAL_SEED)
+    iw_launches, _ = counted_run(lambda: iw_pass(fn, gen=gen))
+    print(f"eval: the IW pass alone, {len(batches)} batches: launches {iw_launches}")
+    if iw_launches["gru_layer_scan"] <= 0 or \
+            iw_launches["decoder_fwd"] != EVAL_K * len(batches):
+        fail("the IW pass did not launch row 1, or row 5 once a sample and batch")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        iw_pass(fn, gen=gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    # None: the profiler saw no device time (not measured)
+    rec["iw_profiled"] = {"wall_s": wall, "device_busy_ms": busy_us / 1e3 if busy_us else None,
+                          "device_busy_share": busy_us / 1e6 / wall if busy_us else None}
+    print(f"eval: IW pass under torch.profiler: {wall:.3f} s, device busy "
+          f"{rec['iw_profiled']['device_busy_ms']} ms, "
+          f"{rec['iw_profiled']['device_busy_share']} of it ({card})")
+
+    # f32: the kernel route against the plain route on the same eps
+    def f32_model(**over):
+        m = build_model(dataclasses.replace(cfg.model, compute_dtype="float32", **over),
+                        device="cuda")
+        m.load_state_dict(model.state_dict())
+        return m
+
+    kern = f32_model()
+    plain = f32_model(use_pallas=False, pallas_decoder=False, fused_ce=False)
+    g = torch.Generator(device="cuda").manual_seed(EVAL_SEED + 1)
+    eps = [torch.randn((EVAL_K, b["src"].shape[0], cfg.model.latent_dim), generator=g,
+                       device="cuda") for b in batches]
+    got = iw_pass(make_iw_elbo_fn(kern, EVAL_K), eps)
+    want = iw_pass(make_iw_elbo_fn(plain, EVAL_K), eps)
+    sent_err = max(float(((a["iw_per_sent"] - b["iw_per_sent"]).abs()
+                          / b["iw_per_sent"].abs().clamp(min=1.0)).max())
+                   for a, b in zip(got, want))
+    corpus_err = max(abs(sum(float(a[k]) for a in got) - sum(float(b[k]) for b in want))
+                     / abs(sum(float(b[k]) for b in want))
+                     for k in ("iw_elbo_sum", "iw_text_sum"))
+    pred_ids = [n[0][1] for n in out["nbest"]]
+    _, _, att_k = score_corpus(kern, src_ids, pred_ids, feats, buckets=buckets,
+                               batch_size=EVAL_BATCH, return_attn=True)
+    _, _, att_p = score_corpus(plain, src_ids, pred_ids, feats, buckets=buckets,
+                               batch_size=EVAL_BATCH, return_attn=True)
+    dumped = np.load(attn_path)
+    attn_err = max(float(np.abs(a - b).max()) for a, b in zip(att_k, att_p))
+    shapes_ok = all(dumped[f"attn_{i}"].shape == a.shape for i, a in enumerate(att_k))
+    rec["f32_check"] = {"per_sentence_rel_err": sent_err, "corpus_rel_err": corpus_err,
+                        "attn_abs_err": attn_err}
+    ok = (sent_err <= EVAL_TOL["sent"] and corpus_err <= EVAL_TOL["corpus"]
+          and attn_err <= EVAL_TOL["attn"] and shapes_ok and len(dumped.files) == len(src_ids))
+    print(f"eval: f32 IW kernel route vs plain route, same eps: per-sentence bounds max rel err "
+          f"{sent_err:.3e} (tolerance {EVAL_TOL['sent']:.0e}), corpus {corpus_err:.3e} "
+          f"({EVAL_TOL['corpus']:.0e}); force-decoded attention max abs err {attn_err:.3e} "
+          f"({EVAL_TOL['attn']:.0e}); dumped {len(dumped.files)} matrices of the right shapes: "
+          f"{shapes_ok} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail("the f32 IW bounds or attention of the kernel route disagree with the plain route")
+
+    # MBR in f32 at pallas_step 0, 1 and 2: the picks agree
+    picks, rates = {}, {}
+    for mode in (0, 1, 2):
+        dcfg = DecodeConfig(beam_size=1, sampling_temp=1.0, max_length=60,
+                            batch_size=EVAL_MBR_CHECK, pallas_step=mode, decode_seed=EVAL_SEED)
+        tr = Translator(kern, sv, tv, dcfg, buckets=buckets, device="cuda")
+        t0 = time.perf_counter()
+        res = mbr_translate_ids(tr, src_ids[:EVAL_MBR_CHECK], feats[:EVAL_MBR_CHECK],
+                                n_samples=EVAL_MBR_SAMPLES)
+        rates[mode] = EVAL_MBR_CHECK / (time.perf_counter() - t0)
+        tr.close()
+        picks[mode] = [n[0][1] for n in res]
+        well_formed(res, EVAL_MBR_CHECK, len(tv), 60)
+    same = {m: sum(a == b for a, b in zip(picks[m], picks[0])) for m in (1, 2)}
+    rec["mbr"] = {"same_as_step0": same, "sent_per_s": rates}
+    print(f"eval: MBR {EVAL_MBR_SAMPLES} samples, f32, {EVAL_MBR_CHECK} sentences: picks equal "
+          f"to pallas_step 0's {same[1]}/{EVAL_MBR_CHECK} (step 1), {same[2]}/{EVAL_MBR_CHECK} "
+          f"(step 2); sent/s {', '.join(f'{m}: {r:.1f}' for m, r in rates.items())}")
+    if min(same.values()) < EVAL_MBR_CHECK - 1:
+        fail("MBR picks of the decode-step kernels disagree with the plain step's")
+    del kern, plain, model, state
+    return launches, rec
+
+
+def widths_phase(card: str, root: str):
+    """The kernels' widths (module docstring, phase 13). Returns ({kernel:
+    launches on the two CLI trains and the translates}, record)."""
+    from variational_mmt_torch.cli import train as cli_train, translate as cli_translate
+    from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
+    from variational_mmt_torch.train import checkpoint as ck
+
+    rec = {"scan": {}}
+    g = torch.Generator(device="cuda").manual_seed(8)
+    for B, T, H, dtypes in WIDTH_SCANS:
+        at = f"B={B} T={T} H={H}"
+        r = {}
+        for dt_name in dtypes:
+            args = scan_bwd_inputs(g, getattr(torch, dt_name), B, T, H, 8)
+            x, mask, h0, wh, bh, gout = args
+            fwd_err = 0.0
+            for reverse in (False, True):
+                got = gru_scan.gru_layer_scan(x, mask, h0, wh, bh, reverse)
+                want = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, reverse)
+                fwd_err = max(fwd_err, max_err(got, want))
+            check_close(f"gru_scan {at}", dt_name, fwd_err)
+            bwd_err, _, _ = scan_bwd_errs(gru_scan, args)
+            check_close(f"gru_scan_bwd {at}", dt_name, bwd_err, "max_rel_err")
+            r[f"err_{dt_name}"], r[f"bwd_err_{dt_name}"] = fwd_err, bwd_err
+            r[f"plan_{dt_name}"] = gru_scan.gru_layer_scan.plan
+            r[f"bwd_plan_{dt_name}"] = gru_scan.gru_layer_scan_bwd.plan
+            print_plan(f"gru_scan {at} {dt_name}", r[f"plan_{dt_name}"])
+            print_plan(f"gru_scan_bwd {at} {dt_name}", r[f"bwd_plan_{dt_name}"])
+        if "bfloat16" in dtypes:  # times in bf16, beside cuDNN and the bound
+            r["fwd"] = scan_timing(gru_scan, g, B, T, H)
+            x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.bfloat16, B, T, H, 8)
+            outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
+            bargs = (x, mask, h0, wh, bh, outs, gout, True)
+            b = {"ms": cuda_ms(lambda: gru_scan.gru_layer_scan_bwd(*bargs)),
+                 "plain_ms": cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*bargs), iters=5),
+                 "library_ms": cudnn_bwd_ms(g, B, T, H)}
+            b["bound_ms"], b["bound_by"] = scan_bwd_bound(B, T, H)
+            r["bwd"] = b
+            print(f"  gru_scan_bwd {at} bfloat16: kernel {b['ms']:.4f} ms, plain "
+                  f"{b['plain_ms']:.3f} ms, nn.GRU backward {b['library_ms']:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({card})")
+        rec["scan"][at] = r
+    # rows 3-6 at a width that is not a multiple of 4 (padded to 252)
+    rec["step"] = {N: step_phase(ds, dict(N=N, S=WIDTH_DEC["S"], H=WIDTH_DEC["H"]))
+                   for N in WIDTH_STEP_NS}
+    # the step's calls as a request makes them: weights, keys and mem_v
+    # padded once (``GRUDecoder.step_weights``, ``project_memory``), the
+    # states padded by the wrapper at each call
+    S, H = WIDTH_DEC["S"], WIDTH_DEC["H"]
+    Hp = ds.padded_width(H)
+    for N in WIDTH_STEP_NS:
+        chain, attn = step_inputs(g, torch.bfloat16, N, S, H)
+        w = ds.pad_step_weights(*chain[4:], attn[2])
+        keys, mem_v = (ds.pad_units(t, H, Hp) for t in attn[:2])
+        def step_w():
+            return ds.decode_step(*chain[:4], *w[:7], keys, mem_v, w[7], attn[3])
+
+        err = max_err(step_w(), ds.decode_step_ref(*chain, *attn))
+        check_close(f"decode_step N={N} S={S} H={H}, weights padded once", "bfloat16", err)
+        rec["step"][N][0]["ms_weights_padded"] = cuda_ms(step_w)
+        rec["step"][N][1]["ms_weights_padded"] = cuda_ms(lambda: ds.gru_chain(*chain[:4],
+                                                                               *w[:7]))
+        print(f"  decode_step / gru_chain N={N} S={S} H={H} bfloat16, weights padded once: "
+              f"{rec['step'][N][0]['ms_weights_padded']:.4f} / "
+              f"{rec['step'][N][1]['ms_weights_padded']:.4f} ms (every input padded at each "
+              f"call: {rec['step'][N][0]['ms']:.4f} / {rec['step'][N][1]['ms']:.4f} ms)")
+    rec["decoder"] = decoder_phase(dec, WIDTH_DEC)
+
+    # the entry points at these widths, from phase 10's corpus
+    with open(os.path.join(root, "config.json")) as f:
+        config = json.load(f)
+    config["model"]["pallas_decoder"] = False
+    nodec = os.path.join(root, "config_nodec.json")
+    with open(nodec, "w") as f:
+        json.dump(config, f)
+    base = ["-data", os.path.join(root, "corpus"), "-train_img_feats",
+            os.path.join(root, "train.feats.npy"), "-valid_img_feats",
+            os.path.join(root, "valid.feats.npy"), "-batch_size", str(TRAIN_BATCH),
+            "-max_steps", str(WIDTH_CLI_STEPS), "-report_every", str(WIDTH_CLI_STEPS),
+            "-valid_every", str(10 * WIDTH_CLI_STEPS), "-checkpoint_every",
+            str(WIDTH_CLI_STEPS)]
+    total = dict.fromkeys(kernel_counters(), 0)
+    rec["cli"] = {}
+    for size, config_path, rows in ((1024, nodec, ("gru_layer_scan", "gru_layer_scan_bwd")),
+                                    (250, os.path.join(root, "config.json"),
+                                     ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd",
+                                      "decoder_bwd"))):
+        run = os.path.join(root, f"run{size}")
+        t0 = time.perf_counter()
+        launches, trainer = counted_run(lambda: cli_train.main(
+            base + ["-config", config_path, "-rnn_size", str(size), "-save_model", run]))
+        secs = time.perf_counter() - t0
+        losses = [h["loss"] for h in trainer.last_run["metrics"]]
+        scan_plan = gru_scan.gru_layer_scan.plan
+        print(f"widths: train CLI -rnn_size {size} (pallas_decoder "
+              f"{trainer.cfg.model.pallas_decoder}): {len(losses)} steps in {secs:.1f} s, losses "
+              f"{' '.join(f'{v:.3f}' for v in losses)}; launches {launches}; the scan's "
+              f"cluster {scan_plan['cluster']} CTAs of {scan_plan['units']} units")
+        if len(losses) != WIDTH_CLI_STEPS or not all(math.isfinite(v) for v in losses):
+            fail(f"train CLI at -rnn_size {size}: a step count or a loss that is not right")
+        for k in rows:
+            if launches[k] <= 0:
+                fail(f"kernel {k} was not launched by the train CLI at -rnn_size {size}")
+        if size == 1024 and scan_plan["cluster"] != 16:
+            fail("the encoder halves of 512 units did not run on 16-CTA clusters")
+        if size == 250 and dec.decoder_bwd.plan["padded"] != 252:
+            fail("the decoder kernels did not run at the padded width 252")
+        rec["cli"][size] = {"losses": losses, "seconds": secs, "launches": launches}
+        for k in total:
+            total[k] += launches[k]
+    ckpt = ck.latest_checkpoint(os.path.join(root, "run250"))
+    for mode, row in ((1, "decode_step"), (2, "gru_chain")):
+        launches, out = counted_run(lambda: cli_translate.main(
+            ["-model", ckpt, "-src", os.path.join(root, "test.src"), "-img_feats",
+             os.path.join(root, "test.feats.npy"), "-pretokenized", "-beam_size", "4",
+             "-batch_size", str(CLI_TEST), "-max_length", "60", "-pallas_step", str(mode),
+             "-output", os.path.join(root, f"pred250_{mode}.txt")]))
+        plan = (ds.decode_step if mode == 1 else ds.gru_chain).plan
+        print(f"widths: translate CLI at hidden 250, pallas_step={mode}: "
+              f"{out['sent_per_s']:.1f} sent/s, launches {launches}; cells at padded width "
+              f"{plan['padded']}")
+        well_formed(out["nbest"], CLI_TEST, CLI_VOCAB, 60)
+        if launches[row] <= 0 or plan["padded"] != 252:
+            fail(f"the translate CLI at hidden 250 did not launch {row} at width 252")
+        rec["cli"][f"translate_{mode}"] = {"sent_per_s": out["sent_per_s"],
+                                           "launches": launches}
+        for k in total:
+            total[k] += launches[k]
+    return total, rec
+
+
+def width_record(name: str, widths: dict) -> dict:
+    """One kernel's numbers at the widths phase's shapes: rows 1 and 2 by
+    shape (errors, plans, bf16 times, cuDNN, bounds), rows 3-6 at H=250."""
+    keys = ("ms", "ms_weights_padded", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "plan", "err_float32", "err_bfloat16", "edge_err_float32", "edge_err_bfloat16")
+    if name in ("gru_layer_scan", "gru_layer_scan_bwd"):
+        bwd = name.endswith("bwd")
+        out = {}
+        for at, r in widths["scan"].items():
+            out[at] = {k: v for k, v in r.items()
+                       if k.startswith("bwd_") == bwd and k not in ("fwd", "bwd")}
+            if ("bwd" if bwd else "fwd") in r:
+                out[at].update(r["bwd" if bwd else "fwd"])
+        return out
+    if name in ("decode_step", "gru_chain"):
+        i = 0 if name == "decode_step" else 1
+        return {f"N={n} S={WIDTH_DEC['S']} H={WIDTH_DEC['H']}": {k: r[i][k] for k in keys
+                                                                if k in r[i]}
+                for n, r in widths["step"].items()}
+    r = widths["decoder"][0 if name == "decoder_fwd" else 1]
+    return {" ".join(f"{k}={v}" for k, v in WIDTH_DEC.items()): {k: r[k] for k in keys
+                                                                 if k in r}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -1986,6 +2333,13 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="vmmt_cli_") as root:
         cli_launches, cli = cli_phase(card, steps["pallas_decoder=1"]["step_ms"], root)
         online_launches, served = serve_phase(card, root)
+        t0 = time.time()
+        eval_launches, evals = eval_phase(card, root)
+        evals["phase_s"] = time.time() - t0
+        t0 = time.time()
+        width_launches, widths = widths_phase(card, root)
+        widths["phase_s"] = time.time() - t0
+        print(f"eval phase {evals['phase_s']:.1f} s, widths phase {widths['phase_s']:.1f} s")
 
     entries = []
     for name, rec, src, replaces in (
@@ -2005,7 +2359,8 @@ def main() -> int:
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "train_packed": packed_launches.get(name, 0),
                    "families": family_launches[name], "cli": cli_launches[name],
-                   **{path: n.get(name, 0) for path, n in online_launches.items()}}
+                   **{path: n.get(name, 0) for path, n in online_launches.items()},
+                   "eval": eval_launches[name], "widths": width_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2028,6 +2383,7 @@ def main() -> int:
                                                  "edge_err_bfloat16")}
         if name in served["step_shapes"]:  # rows 1, 3 and 4 at the service's shapes
             entry["serve_shapes"] = served["step_shapes"][name]
+        entry["widths"] = width_record(name, widths)
         if "peaked" in g:
             entry["gate_shape"]["peaked"] = {k: v for k, v in g["peaked"].items()
                                              if k != "per_step"}
@@ -2039,7 +2395,8 @@ def main() -> int:
     print(json.dumps({"kernels": entries, "sent_per_s": rate, "train": steps,
                       "train_f32_check": check, "train_packed": packed, "families": families,
                       "cli": cli, "serve_online": {k: v for k, v in served.items()
-                                                   if k != "step_shapes"}, "card": card}))
+                                                   if k != "step_shapes"},
+                      "eval": evals, "widths_cli": widths["cli"], "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

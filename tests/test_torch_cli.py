@@ -355,8 +355,6 @@ def test_load_features_reads_npy_npz_and_conv_maps(tmp_path):
 
 
 TRANSLATE_REFUSED = [
-    (["-iw_eval", "2"], "5.3"), (["-latent_diag"], "5.3"), (["-mbr_samples", "4"], "5.3"),
-    (["-dump_attn", "a.npz"], "5.3"), (["-report_meteor"], "5.3"),
     (["-tensor_parallel", "2"], "5.8"),
     (["-infer_dtype", "bfloat16"], "5.4"), (["-model", "a,b"], "5.4"),
 ]
@@ -429,7 +427,7 @@ def test_translate_sampling_flags_decode_reproducibly(corpus, trained, flags, tm
 
 
 TRAIN_REFUSED = [
-    (["-num_shards", "2"], "5.8"), (["-tensor_parallel", "2"], "5.8"), (["-valid_iw", "4"], "5.3"),
+    (["-num_shards", "2"], "5.8"), (["-tensor_parallel", "2"], "5.8"),
     (["-rnn_type", "lstm"], "5.5"), (["-global_attention", "dot"], "5.5"),
     (["-input_feed", "0"], "5.5"), (["-img_feat_type", "conv", "-img_pool", "attn"], "5.5"),
 ]

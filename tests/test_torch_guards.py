@@ -50,9 +50,10 @@ def test_port_package_found():
     assert {"chip_smoke.py", "translator.py", "gru_scan.py", "decode_step.py", "decoder.py",
             "trainer.py", "checkpoint.py", "msgpack_io.py", "loading.py", "logging.py",
             "tensorboard.py", "streams.py", "beam.py", "service.py", "frontend.py", "rpc.py",
-            "http_server.py", "errors.py", "serve.py", "msgpack_codec.py"} <= names
+            "http_server.py", "errors.py", "serve.py", "msgpack_codec.py", "iw_eval.py",
+            "diagnostics.py", "mbr.py", "meteor.py", "porter.py", "bleu.py"} <= names
     scanned = {p.parent.name for p in PORT_FILES}
-    assert {"cli", "utils", "train", "data", "decode", "serve"} <= scanned
+    assert {"cli", "utils", "train", "data", "decode", "serve", "evals"} <= scanned
 
 
 @pytest.fixture

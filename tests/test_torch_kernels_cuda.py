@@ -374,3 +374,46 @@ def test_kernel_counts_launches(cuda):
     decoder.decoder_bwd(*args[:14], *streams, torch.ones_like(streams[0]).float(),
                         torch.ones_like(streams[3]).float())
     assert [f.launches for f in counters] == [n + 1 for n in before]
+
+
+# widths: rows 1 and 2 up to H=512 (clusters of up to 16 CTAs; f32 at 512
+# with 4 row slots forward and 2 rows backward), rows 3-6 at widths that are
+# not a multiple of 4 (zero-padded by the wrappers)
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B,T,H", [(64, 24, 512), (256, 6, 512), (61, 7, 300), (9, 5, 257)],
+                         ids=["H512", "H512B256", "H300", "H257"])
+def test_gru_scan_kernels_at_wide_widths(cuda, dt, B, T, H):
+    args = scan_args(cuda, dt, B, T, H)
+    close(gru_scan.gru_layer_scan(*args, True), gru_scan.gru_layer_scan_ref(*args, True), dt)
+    assert gru_scan.gru_layer_scan.plan["cluster"] == -(-H // 32)
+    outs, _ = gru_scan.gru_layer_scan_ref(*args, False)
+    g = torch.randn(B, T, H, generator=cuda, device="cuda")
+    close_rel(gru_scan.gru_layer_scan_bwd(*args, outs, g, False),
+              gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, False), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("N,S,H", [(128, 24, 250), (32, 24, 250), (37, 5, 6)],
+                         ids=["N128", "N32", "H6"])
+def test_step_kernels_at_a_width_not_a_multiple_of_4(cuda, dt, N, S, H):
+    chain, attn = step_args(cuda, dt, N, S, H)
+    close(ds.decode_step(*chain, *attn), ds.decode_step_ref(*chain, *attn), dt)
+    close(ds.gru_chain(*chain), ds.gru_chain_ref(*chain), dt)
+    assert ds.decode_step.plan["padded"] == ds.padded_width(H)
+    w = ds.pad_step_weights(*chain[4:], attn[2])  # padded once, as a request does
+    keys, mem_v = (ds.pad_units(t, H, ds.padded_width(H)) for t in attn[:2])
+    close(ds.decode_step(*chain[:4], *w[:7], keys, mem_v, w[7], attn[3]),
+          ds.decode_step_ref(*chain, *attn), dt)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B,T,S,H", [(64, 25, 24, 250), (9, 6, 13, 6)], ids=["H250", "H6"])
+def test_decoder_kernels_at_a_width_not_a_multiple_of_4(cuda, dt, B, T, S, H):
+    args = decoder_args(cuda, dt, B=B, T=T, S=S, H=H, mem_std=0.1)
+    streams = decoder.decoder_fwd_ref(*args)
+    close(decoder.decoder_fwd(*args), streams, dt)
+    d_attn = torch.randn(streams[0].shape, generator=cuda, device="cuda")
+    d_probs = torch.randn(streams[3].shape, generator=cuda, device="cuda")
+    close_rel(decoder.decoder_bwd(*args[:14], *streams, d_attn, d_probs),
+              decoder.decoder_bwd_ref(*args[:14], *streams, d_attn, d_probs), dt)
+    assert decoder.decoder_bwd.plan["padded"] == ds.padded_width(H)

@@ -2,14 +2,20 @@
 (``scan_fwd_plan``, ``scan_bwd_plan``, ``step_cell_plan``,
 ``decoder_fwd_plan`` and ``decoder_bwd_plan``), pure Python, on the CPU. The widths the repo's
 configs use (H=250 a direction for the scan, H=500 for the decoder and the
-decode step) are accepted in both dtypes; shapes the designs cannot hold
-raise NotImplementedError, and so do the wrappers on a non-CPU tensor
-before anything is launched (meta tensors stand in for CUDA ones)."""
+decode step) are accepted in both dtypes, and so are the scans' widths up
+to 512 (clusters of up to 16 CTAs) and any decoder width (padded to a
+multiple of 4); shapes the designs cannot hold raise NotImplementedError,
+and so do the wrappers on a non-CPU tensor before anything is launched
+(meta tensors stand in for CUDA ones). ``UniGRU`` sends a layer wider
+than the scans hold to the plain scan."""
+
+import logging
 
 import pytest
 import torch
 
 from variational_mmt_torch import kernels
+from variational_mmt_torch.models import gru as gru_mod
 from variational_mmt_torch.ops import decode_step as ds
 from variational_mmt_torch.ops import decoder, gru_scan
 
@@ -70,7 +76,7 @@ def test_scan_fwd_plan_mirrors_the_kernels_layout():
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-@pytest.mark.parametrize("H", [0, 257, 1024])
+@pytest.mark.parametrize("H", [0, 513, 1024])
 def test_scan_fwd_plan_refuses_what_a_cluster_cannot_hold(dt, H):
     with pytest.raises(NotImplementedError):
         gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)
@@ -107,8 +113,15 @@ def test_step_cell_plan_at_the_serving_shape():
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("H", [0, 250, 501])
 def test_step_cell_plan_refuses_what_the_copies_cannot_hold(dt, H):
-    with pytest.raises(NotImplementedError):
-        ds.step_cell_plan(1024, H, dt)
+    """The copies are 4 values wide: H=0 is refused, and any other width is
+    planned at its padding to a multiple of 4, which the copies hold."""
+    if H == 0:
+        with pytest.raises(NotImplementedError):
+            ds.step_cell_plan(1024, H, dt)
+        return
+    plan = ds.step_cell_plan(1024, H, dt)
+    assert plan["padded"] % ds.CELL_VEC == 0 and 0 <= plan["padded"] - H < ds.CELL_VEC
+    assert plan == ds.step_cell_plan(1024, plan["padded"], dt)
 
 
 def test_scan_plan_at_the_training_shape():
@@ -119,7 +132,7 @@ def test_scan_plan_at_the_training_shape():
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-@pytest.mark.parametrize("H", [0, 257, 1024])
+@pytest.mark.parametrize("H", [0, 513, 1024])
 def test_scan_plan_refuses_what_a_cluster_cannot_hold(dt, H):
     with pytest.raises(NotImplementedError):
         gru_scan.scan_bwd_plan(64, 24, H, dt)
@@ -205,9 +218,10 @@ def test_decoder_fwd_plan_mirrors_the_kernels_layout():
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("B,S,H", [(64, 24, 2000), (4096, 24, 500), (0, 24, 500),
-                                   (64, 24, 502)])
+                                   (64, 24, 1002)])
 def test_decoder_fwd_plan_refuses_what_shared_memory_cannot_hold(dt, B, S, H):
-    """Also H=502: the attention reads keys and mem_v in quads."""
+    """Also H=1002, padded to 1004: its weight slices exceed a CTA's
+    shared memory in both dtypes."""
     with pytest.raises(NotImplementedError):
         decoder.decoder_fwd_plan(B, S, H, dt, H100_SMS)
 
@@ -254,16 +268,16 @@ def step_args(N, S, H, dt=torch.float32):
 
 def test_wrappers_refuse_a_shape_before_launching(no_launch):
     with pytest.raises(NotImplementedError):
-        gru_scan.gru_layer_scan(*scan_args(4, 5, 300)[:5])
+        gru_scan.gru_layer_scan(*scan_args(4, 5, 600)[:5])
     with pytest.raises(NotImplementedError):
-        gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 300))
+        gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 600))
     for dt in DTYPES:
-        chain = step_args(4, 3, 250, dt)
+        chain = step_args(4, 3, 0, dt)
         with pytest.raises(NotImplementedError):
             ds.gru_chain(*chain)
         with pytest.raises(NotImplementedError):
-            ds.decode_step(*chain, meta(4, 3, 250, dtype=dt), meta(4, 3, 250, dtype=dt),
-                           meta(250, 250, dtype=dt), meta(4, 3))
+            ds.decode_step(*chain, meta(4, 3, 0, dtype=dt), meta(4, 3, 0, dtype=dt),
+                           meta(0, 0, dtype=dt), meta(4, 3))
     with pytest.raises(NotImplementedError):
         decoder.decoder_bwd(*decoder_args(4, 5, 3, 2000))
 
@@ -478,3 +492,134 @@ def test_decoder_probe_must_hold_every_stamp(no_launch):
             decoder.decoder_fwd(*fwd_args(4, 5, 3, 8), probe=bad)
         with pytest.raises(ValueError, match="probe"):
             decoder.decoder_bwd(*decoder_args(4, 5, 3, 8), probe=bad)
+
+
+# --- widths: the scans up to 512 units, the decoder kernels at any width ---
+
+SCAN_WIDTHS = [257, 300, 384, 448, 512]
+
+
+@pytest.mark.parametrize("B", [1, 61, 64, 256])
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("H", SCAN_WIDTHS)
+def test_scan_plans_hold_the_wide_widths(H, dt, B):
+    """Both scans plan every width up to 512 in bf16 and f32: clusters of
+    ceil(H / 32) CTAs (up to 16, non-portable), shared memory within a CTA's
+    (f32 at 512 with 4 row slots forward and 2 rows backward)."""
+    fwd = gru_scan.scan_fwd_plan(B, 24, H, dt, H100_SMS)
+    bwd = gru_scan.scan_bwd_plan(B, 24, H, dt)
+    for plan in (fwd, bwd):
+        assert plan["cluster"] == -(-H // 32) <= gru_scan.SCAN_BWD_MAX_CLUSTER == 16
+        assert plan["cluster"] * plan["units"] >= H > (plan["cluster"] - 1) * plan["units"]
+        assert plan["clusters"] * plan["rows"] >= B > (plan["clusters"] - 1) * plan["rows"]
+        assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
+    assert gru_scan.scan_kernel_holds(H, dt)
+    if dt == torch.float32 and H > 448:
+        assert fwd["rows"] == 4 and bwd["rows"] == 2
+
+
+def test_scan_plans_mirror_the_kernels_layout_at_512():
+    """H=512: bf16 forward 96 columns of Wh and two 8-slot buffers at the
+    mma stride 520 plus the partial products; f32 forward with 4 slots;
+    bf16 backward 32 rows of Wh at stride 1544 and 4 rows of dh_proj, f32
+    backward 32 rows of 1536 floats and 2 rows."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert gru_scan.scan_fwd_plan(64, 24, 512, bf16, H100_SMS)["smem"] == \
+        96 * 520 * 2 + 2 * 8 * 520 * 2 + 4 * 96 * 8 * 4 == 128768
+    assert gru_scan.scan_fwd_plan(64, 24, 512, f32, H100_SMS)["smem"] == \
+        96 * 512 * 4 + 2 * 4 * 512 * 4 + 4 * 96 * 4 * 4 == 219136
+    assert gru_scan.scan_bwd_plan(64, 24, 512, bf16)["smem"] == \
+        32 * 1544 * 2 + 2 * 4 * 1544 * 2 + 2 * 4 * 32 * 4 + 4 * 32 * 4 * 4 == 126592
+    assert gru_scan.scan_bwd_plan(64, 24, 512, f32)["smem"] == \
+        32 * 1536 * 4 + 2 * 2 * 1536 * 4 + 2 * 2 * 32 * 4 == 221696
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("H,holds", [(1, True), (512, True), (513, False), (1024, False),
+                                     (0, False)])
+def test_scan_kernel_holds_ends_at_512(dt, H, holds):
+    assert gru_scan.scan_kernel_holds(H, dt) is holds
+
+
+@pytest.mark.parametrize("H,kernel", [(512, True), (513, False)])
+def test_unigru_routes_a_wide_layer_to_the_plain_scan(monkeypatch, caplog, H, kernel):
+    """``use_pallas`` sends a layer to the scan kernels only where they hold
+    its width; a wider one takes ``cell_layer_scan`` and is logged once."""
+    import variational_mmt_torch.ops.gru_scan as ops_scan
+
+    calls = []
+    monkeypatch.setattr(ops_scan, "gru_layer_scan_ad",
+                        lambda *a, **k: calls.append("kernel") or (a[0][..., :H], a[2]))
+    monkeypatch.setattr(gru_mod, "cell_layer_scan",
+                        lambda x, h0, *a, **k: calls.append("plain") or (x[..., :H], h0))
+    monkeypatch.setattr(gru_mod, "_wide_logged", set())
+    layer = gru_mod.UniGRU(3, H, use_pallas=True)
+    torch.nn.init.zeros_(layer.hh_kernel)
+    torch.nn.init.zeros_(layer.hh_bias)
+    x, mask = torch.zeros(2, 4, 3), torch.ones(2, 4)
+    with caplog.at_level(logging.WARNING, logger=gru_mod.__name__):
+        layer(x, mask)
+        layer(x, mask)
+    assert calls == (["kernel", "kernel"] if kernel else ["plain", "plain"])
+    logged = [r for r in caplog.records if "plain scan" in r.getMessage()]
+    assert len(logged) == (0 if kernel else 1)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("H,Hp", [(250, 252), (6, 8), (2, 4)])
+def test_decoder_kernel_plans_pad_the_width(dt, H, Hp):
+    """Rows 3-6 plan a width that is not a multiple of 4 at its padding."""
+    cell = ds.step_cell_plan(128, H, dt)
+    fwd = decoder.decoder_fwd_plan(64, 24, H, dt, H100_SMS)
+    bwd = decoder.decoder_bwd_plan(64, 24, H, dt, H100_SMS)
+    assert cell["padded"] == fwd["padded"] == bwd["padded"] == ds.padded_width(H) == Hp
+    assert cell == ds.step_cell_plan(128, Hp, dt)
+    assert fwd == decoder.decoder_fwd_plan(64, 24, Hp, dt, H100_SMS)
+    assert bwd == decoder.decoder_bwd_plan(64, 24, Hp, dt, H100_SMS)
+    assert fwd["unit_tiles"] * fwd["units"] >= Hp
+
+
+@pytest.mark.parametrize("H", [250, 6])
+def test_decoder_wrappers_launch_at_the_padded_width(monkeypatch, H):
+    """The step, chain and both decoder kernels get H padded to a multiple
+    of 4 and hand back outputs of width H."""
+    Hp = ds.padded_width(H)
+    seen = []
+
+    class Lib:
+        def vmmt_gru_chain(self, *args):
+            seen.append(("chain", args[-2]))
+            return 0
+
+        def vmmt_decode_step(self, *args):
+            seen.append(("step", args[-2]))
+            return 0
+
+        def vmmt_decoder_fwd(self, *args):
+            seen.append(("fwd", args[-5]))
+            return 0
+
+        def vmmt_decoder_bwd(self, *args):
+            seen.append(("bwd", args[-5]))
+            return 0
+
+    monkeypatch.setattr(kernels, "library", lambda name: Lib())
+    monkeypatch.setattr(kernels, "sm_count", lambda device: H100_SMS)
+    monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "aligned", lambda t: t.contiguous())
+    smem = {"vmmt_step_cell_occupancy": ds.step_cell_plan(4, Hp, torch.float32)["smem"],
+            "vmmt_decoder_fwd_occupancy":
+                decoder.decoder_fwd_plan(4, 3, Hp, torch.float32, H100_SMS)["smem"],
+            "vmmt_decoder_bwd_occupancy":
+                decoder.decoder_bwd_plan(4, 3, Hp, torch.float32, H100_SMS)["smem"]}
+    monkeypatch.setattr(kernels, "occupancy", lambda dev, lib, fn, *a: (1000, smem[fn]))
+    chain = step_args(4, 3, H)
+    h0n, h1n = ds.gru_chain(*chain)
+    outs = ds.decode_step(*chain, meta(4, 3, H), meta(4, 3, H), meta(H, H), meta(4, 3))
+    fwd = decoder.decoder_fwd(*fwd_args(4, 5, 3, H))
+    bwd = decoder.decoder_bwd(*decoder_args(4, 5, 3, H))
+    assert seen == [("chain", Hp), ("step", Hp), ("fwd", Hp), ("bwd", Hp)]
+    assert [tuple(t.shape) for t in (h0n, h1n) + outs] == [(4, H)] * 5 + [(4, 3)]
+    assert [tuple(t.shape) for t in fwd] == [(4, 5, H)] * 3 + [(4, 5, 3)]
+    assert [tuple(t.shape) for t in bwd] == [(4, 5, 3 * H)] * 4 + [(4, 5, H), (4, 5, 3),
+                                                                   (4, H), (4, H)]

@@ -10,11 +10,12 @@ package's preprocess CLI or the port's writers make them) and image
 features, builds the model with random weights from ``-seed``, and trains
 with validation, plateau decay and checkpoints in the JAX package's layout;
 ``-train_from`` resumes from a checkpoint of either package (a run root
-resolves to its latest step). It runs on CUDA unless given ``-device cpu``
-and exits with an error without CUDA.
+resolves to its latest step). ``-valid_iw K`` adds the K-sample IW-ELBO
+bound to each validation of a latent model. It runs on CUDA unless given
+``-device cpu`` and exits with an error without CUDA.
 
 Refused, each naming its ROADMAP.md item: ``-num_shards`` and
-``-tensor_parallel`` above 1 (queue 1, item 5.8), ``-valid_iw`` (5.3),
+``-tensor_parallel`` above 1 (queue 1, item 5.8),
 ``fused_decoder`` (item 2), and the model options the port does not have
 (LSTM cells, dot or mlp attention, ``-input_feed 0``, attention pooling of
 conv features: 5.5).
@@ -153,7 +154,7 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-valid_bleu", type=int, default=0,
                    help="1: also report greedy BLEU on the validation set at each validation")
     p.add_argument("-valid_iw", type=int, default=0,
-                   help="refused above 0 (ROADMAP.md queue 1, item 5.3)")
+                   help="K>0: also report the K-sample IW-ELBO bound at each validation")
     p.add_argument("-device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (the default; an error without CUDA) or cpu")
 
@@ -338,7 +339,6 @@ def refused(cfg: Config, opt) -> list:
     table = [
         ("-num_shards > 1", opt.num_shards > 1, "queue 1, item 5.8"),
         ("-tensor_parallel > 1", cfg.train.num_model_shards > 1, "queue 1, item 5.8"),
-        ("-valid_iw", opt.valid_iw > 0, "queue 1, item 5.3"),
         ("fused_decoder", m.fused_decoder, "queue 1, item 2"),
         ("-rnn_type lstm", m.rnn_type != "gru", "queue 1, item 5.5"),
         (f"-global_attention {m.attn_type}", m.attn_type != "general", "queue 1, item 5.5"),
@@ -461,7 +461,7 @@ def main(argv=None, on_checkpoint: Optional[Callable[[TrainState, str], None]] =
                                  cfg.train.batch_size, device)
     trainer = Trainer(cfg, model, train_iter, valid_iter, device=device, checkpoint_fn=ckpt_fn,
                       metrics_logger=logger, bleu_fn=bleu_fn, train_feats=train_feats,
-                      valid_feats=valid_feats)
+                      valid_feats=valid_feats, valid_iw=opt.valid_iw)
     with trace(opt.profile_dir, cuda=device.type == "cuda"):
         if opt.train_from:
             path = opt.train_from

@@ -12,13 +12,19 @@ CUDA unless given ``-device cpu`` and exits with an error without CUDA.
 The decode options are JAX's: ``-coverage_beta``, ``-block_ngram_repeat``
 with ``-ignore_when_blocking``, ``-replace_unk`` with ``-phrase_table``,
 ``-dump_beam`` (the raw search tree of each sentence as JSON), sampling
-(``-sampling_temp``, ``-sampling_topk``, ``-sampling_topp``) and
-``-latent_from sample``, both drawing from ``-seed``.
+(``-sampling_temp``, ``-sampling_topk``, ``-sampling_topp``),
+``-latent_from sample`` and ``-mbr_samples N`` (the consensus of N
+sampled decodes), drawing from ``-seed``.
+
+The evaluations are JAX's too: ``-dump_attn`` (the force-decoded attention
+of each 1-best hypothesis, an .npz); with ``-tgt``, ``-report_meteor``
+(``-meteor_preset``, ``-meteor_synonyms``, ``-meteor_paraphrases``) and,
+for latent models, ``-iw_eval K`` (the K-sample IW-ELBO, drawing from
+``-seed``) and ``-latent_diag`` (active units and the KL spectrum).
 
 Refused, each naming its ROADMAP.md item, as the port's translator does not
-do them yet: ``-iw_eval``, ``-latent_diag``, ``-mbr_samples``, ``-dump_attn``
-and ``-report_meteor`` (queue 1, item 5.3); ``-tensor_parallel`` (5.8);
-``-infer_dtype bfloat16`` or ``int8`` and a comma-separated ``-model`` (5.4).
+do them yet: ``-tensor_parallel`` (queue 1, item 5.8); ``-infer_dtype
+bfloat16`` or ``int8`` and a comma-separated ``-model`` (5.4).
 """
 
 from __future__ import annotations
@@ -28,14 +34,20 @@ import json
 import time
 from typing import Dict, Tuple
 
+import numpy as np
+import torch
+
 from variational_mmt_torch.cli.loading import consumes_decode_feats, load_model_spec
 from variational_mmt_torch.cli.train import cli_device
 from variational_mmt_torch.config import DecodeConfig
 from variational_mmt_torch.data.bpe import BPE
+from variational_mmt_torch.data.dataset import BucketIterator, binarize, buckets_with_catchall
 from variational_mmt_torch.data.features import load_features
 from variational_mmt_torch.data.tokenizer import tokenize
 from variational_mmt_torch.decode.translator import Translator
 from variational_mmt_torch.evals.bleu import corpus_bleu
+from variational_mmt_torch.evals.meteor import meteor_score
+from variational_mmt_torch.train.trainer import batch_tensors
 
 DEFAULT_BUCKETS = [16, 24, 32, 48, 64]
 
@@ -135,11 +147,6 @@ def add_args(p: argparse.ArgumentParser) -> None:
 def refused(opt) -> list:
     """(flag, ROADMAP.md item) of every option set that the port refuses."""
     table = [
-        ("-iw_eval", opt.iw_eval > 0, "queue 1, item 5.3"),
-        ("-latent_diag", opt.latent_diag, "queue 1, item 5.3"),
-        ("-mbr_samples", opt.mbr_samples > 0, "queue 1, item 5.3"),
-        ("-dump_attn", bool(opt.dump_attn), "queue 1, item 5.3"),
-        ("-report_meteor", opt.report_meteor, "queue 1, item 5.3"),
         ("-tensor_parallel", opt.tensor_parallel > 1, "queue 1, item 5.8"),
         (f"-infer_dtype {opt.infer_dtype}", opt.infer_dtype != "float32", "queue 1, item 5.4"),
         ("a comma-separated -model (an ensemble)", "," in opt.model, "queue 1, item 5.4"),
@@ -168,7 +175,9 @@ def load_phrase_table(path: str) -> Tuple[Dict[str, str], int]:
 
 def main(argv=None) -> Dict[str, object]:
     """Translate as the flags say; returns {"nbest": [[(score, ids), ...]
-    a sentence], "sent_per_s": ..., "bleu": ... or None}."""
+    a sentence], "sent_per_s": ..., "bleu": ... or None} and, where they
+    ran, "meteor", "iw" (with "iw_s", the IW pass's seconds) and
+    "latent_diag"."""
     p = argparse.ArgumentParser("vmmt-torch translate")
     add_args(p)
     opt = p.parse_args(argv)
@@ -200,6 +209,10 @@ def main(argv=None) -> Dict[str, object]:
             f"(img_feat_dim={cfg.model.img_feat_dim}): pass -img_feats aligned to the source "
             "file (vmmt_f decodes without features; vmmt_c cannot)")
 
+    if opt.mbr_samples > 0 and opt.sampling_temp <= 0.0:
+        raise SystemExit(
+            "-mbr_samples draws from the model: also pass -sampling_temp > 0 "
+            "(e.g. 0.7; add -sampling_topk/-sampling_topp to truncate)")
     dcfg = DecodeConfig(beam_size=opt.beam_size, n_best=opt.n_best, max_length=opt.max_length,
                         min_length=opt.min_length, alpha=opt.alpha, batch_size=opt.batch_size,
                         replace_unk=opt.replace_unk, coverage_beta=opt.coverage_beta,
@@ -220,11 +233,17 @@ def main(argv=None) -> Dict[str, object]:
               + (f" ({skipped} multi-word sources skipped)" if skipped else ""))
     src_ids = [sv.encode(t) for t in src_tok]  # encoded before the clock starts
     t0 = time.time()
-    nbest = translator.translate_ids(src_ids, feats)
+    if opt.mbr_samples > 0:
+        from variational_mmt_torch.decode.mbr import mbr_translate_ids
+
+        nbest = mbr_translate_ids(translator, src_ids, feats, n_samples=opt.mbr_samples)
+    else:
+        nbest = translator.translate_ids(src_ids, feats)
     results = [translator.nbest_to_text(n, src_tok[i]) for i, n in enumerate(nbest)]
     dt = time.time() - t0
     rate = len(results) / max(dt, 1e-9)
-    mode = "sampling" if opt.sampling_temp > 0 else f"beam {opt.beam_size}"
+    mode = (f"mbr {opt.mbr_samples} samples" if opt.mbr_samples > 0 else
+            "sampling" if opt.sampling_temp > 0 else f"beam {opt.beam_size}")
     print(f"translated {len(results)} sentences in {dt:.1f}s ({rate:.1f} sent/s, {mode})")
     with open(opt.output, "w", encoding="utf-8") as f:
         for sent in results:
@@ -237,44 +256,109 @@ def main(argv=None) -> Dict[str, object]:
                        for i in sorted(translator.beam_traces)}, f)
         print(f"wrote beam search trees for {len(translator.beam_traces)} "
               f"sentences -> {opt.dump_beam}")
+    report: Dict[str, object] = {"nbest": nbest, "sent_per_s": rate, "bleu": None}
 
-    if opt.verbose:
+    if opt.verbose or opt.dump_attn:
+        # force-decode each 1-best hypothesis: its true log p(y|x, z = the
+        # prior mean) and, for -dump_attn, the attention the deterministic
+        # beam saw
         from variational_mmt_torch.decode.score import score_corpus
 
         if opt.latent_from == "sample":
-            print("note: force-decode scores use z = prior mean, not the sampled z the "
-                  "decode drew (-latent_from sample)")
-
-        pred_lp, pred_nt = score_corpus(model, src_ids, [n[0][1] for n in nbest], feats,
-                                        buckets=buckets, batch_size=opt.batch_size)
+            print("note: force-decode scores/attention use z = prior mean, "
+                  "not the sampled z the decode drew (-latent_from sample)")
+        pred_lp, pred_nt, attns = score_corpus(model, src_ids, [n[0][1] for n in nbest], feats,
+                                               buckets=buckets, batch_size=opt.batch_size,
+                                               return_attn=True)
+        if opt.dump_attn:
+            np.savez(opt.dump_attn, **{f"attn_{i}": a for i, a in enumerate(attns)})
+            print(f"wrote attention matrices for {len(attns)} sentences -> {opt.dump_attn}")
+    if opt.verbose:
         for i, sent in enumerate(results):
             print(f"\nSENT {i + 1}: {' '.join(src_tok[i])}")
             for k, entry in enumerate(sent[:opt.n_best]):
                 print(f"PRED {i + 1}.{k + 1}: {entry[1]}")
                 print(f"PRED SCORE: {pred_lp[i]:.4f}" if k == 0 else
                       f"BEAM SCORE: {entry[0]:.4f}")
-    bleu = None
+
+    if opt.iw_eval > 0 and not opt.tgt:
+        print("note: -iw_eval skipped — the IW-ELBO needs gold targets (-tgt)")
+    if opt.latent_diag and not opt.tgt:
+        print("note: -latent_diag skipped — the posterior q(z|x,y,v) needs "
+              "gold targets (-tgt)")
     if opt.tgt:
         with open(opt.tgt, encoding="utf-8") as f:
             if opt.pretokenized:
                 refs = [(line.lower() if lower else line).rstrip("\n").split() for line in f]
             else:
                 refs = [tokenize(line, lower=lower) for line in f]
+        hyps = [sent[0][1].split() for sent in results]
+        gold_ids = [tv.encode(bpe.segment(t) if bpe else t) for t in refs]
         # BLEU always prints with -tgt; -report_bleu is accepted and adds nothing
-        res = corpus_bleu([sent[0][1].split() for sent in results], [[r] for r in refs])
-        bleu = res["bleu"]
-        print(f"BLEU = {bleu:.2f} (BP={res['bp']:.3f}, ratio={res['ratio']:.3f})")
+        res = corpus_bleu(hyps, [[r] for r in refs])
+        report["bleu"] = res["bleu"]
+        print(f"BLEU = {res['bleu']:.2f} (BP={res['bp']:.3f}, ratio={res['ratio']:.3f})")
         if opt.verbose:
             from variational_mmt_torch.decode.score import report_score, score_corpus
 
-            gold_ids = [tv.encode(bpe.segment(t) if bpe else t) for t in refs]
             gold_lp, gold_nt = score_corpus(model, src_ids, gold_ids, feats, buckets=buckets,
                                             batch_size=opt.batch_size)
             print(report_score("PRED", pred_lp, pred_nt))
             print(report_score("GOLD", gold_lp, gold_nt))
             for i, r in enumerate(refs):
                 print(f"GOLD {i + 1}: {' '.join(r)}  (score {gold_lp[i]:.4f})")
-    return {"nbest": nbest, "sent_per_s": rate, "bleu": bleu}
+        if opt.report_meteor:
+            from variational_mmt_torch.evals.meteor import load_table
+
+            met = meteor_score(
+                hyps, [[r] for r in refs], preset=opt.meteor_preset,
+                synonyms=load_table(opt.meteor_synonyms) if opt.meteor_synonyms else None,
+                paraphrases=load_table(opt.meteor_paraphrases) if opt.meteor_paraphrases else None)
+            report["meteor"] = met["meteor"]
+            print(f"METEOR({opt.meteor_preset}) = {met['meteor']:.2f}")
+        for flag, on in (("-iw_eval", opt.iw_eval > 0), ("-latent_diag", opt.latent_diag)):
+            if on and not model.is_latent:
+                print(f"note: {flag} skipped — defined for latent models "
+                      f"only (checkpoint is {cfg.model.model_type})")
+        if (opt.iw_eval > 0 or opt.latent_diag) and model.is_latent:
+            report.update(latent_evals(opt, model, src_ids, gold_ids, feats, buckets, device))
+    return report
+
+
+def latent_evals(opt, model, src_ids, gold_ids, feats, buckets, device) -> Dict[str, object]:
+    """``-iw_eval`` and ``-latent_diag`` over the (source, gold target)
+    pairs; prints JAX's lines and returns {"iw": ..., "iw_s": seconds of the
+    IW pass, "latent_diag": ...} for what ran."""
+    from variational_mmt_torch.decode.diagnostics import latent_stats_corpus
+    from variational_mmt_torch.decode.iw_eval import iw_elbo_corpus
+
+    # a catch-all bucket: over-long pairs are scored whole, not truncated
+    iw_buckets = buckets_with_catchall(
+        buckets, max([1] + [len(s) for s in src_ids] + [len(t) + 1 for t in gold_ids]))
+    it = BucketIterator(binarize(src_ids, gold_ids), opt.batch_size, iw_buckets,
+                        img_feats=feats)
+
+    def batches():
+        for b in it.epoch(0):
+            yield batch_tensors(b, device)
+
+    out: Dict[str, object] = {}
+    if opt.iw_eval > 0:
+        sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+        sync()
+        t0 = time.time()
+        iw = iw_elbo_corpus(model, batches(), opt.iw_eval, seed=opt.seed)
+        sync()
+        out.update(iw=iw, iw_s=time.time() - t0)
+        print(f"IW-ELBO (K={opt.iw_eval}): joint {iw['iw_elbo_per_sent']:.2f} / "
+              f"text {iw['iw_text_per_sent']:.2f} per sent; IW-ppl {iw['iw_ppl']:.2f}")
+    if opt.latent_diag:
+        d = latent_stats_corpus(model, batches())
+        out["latent_diag"] = d
+        print(f"LATENT DIAG: active units {d['au']}/{d['latent_dim']} "
+              f"(delta {d['au_delta']}); KL/sent {d['kl_per_sent']:.3f} "
+              f"over {d['kl_active_dims']} active dims; top KL_d {d['kl_top8']}")
+    return out
 
 
 if __name__ == "__main__":

@@ -22,8 +22,12 @@
 // h_prev is the kernel's own output, so the product cannot be hoisted as
 // the backward's gate recompute is. The design keeps Wh next to the cores
 // and the step short: one thread-block cluster of C CTAs per `rows` batch
-// rows (C = 8 at H=250; rows 4 or 8, a launch-plan choice), CTA c owning
-// hidden units [c*units, (c+1)*units), units <= 32. Once per call each CTA
+// rows (C = 8 at H=250, 16 at H=512: clusters above 8 CTAs are
+// non-portable and allowed on each kernel before its launch; rows 4 or 8, a
+// launch-plan choice), CTA c owning hidden units [c*units, (c+1)*units),
+// units <= 32. In f32 above 448 units a cluster of 4 rows keeps 4 row
+// slots of the state in place of 8, which brings H = 512 within a CTA's
+// shared memory. Once per call each CTA
 // loads the columns of Wh for its units' three gates into shared memory
 // (96 columns x H, 48 KB in bf16). Per step it
 //   1. forms its units' round(h) @ Wh[:, r|z|n columns] from shared memory:
@@ -54,7 +58,8 @@
 //       hp = round(h_prev) @ Wh + bh for all B*T (row, t) at once before the
 //       scan (tile_gemm.cuh; tensor cores in bf16);
 //   (b) the reverse scan runs on thread-block clusters: one cluster of C
-//       CTAs per kScanRows batch rows (C = 8 at H=250: 128 CTAs at B=64),
+//       CTAs per kScanRows batch rows (C = 8 at H=250: 128 CTAs at B=64;
+//       2 rows in f32 where 4 rows of dh_proj buffers do not fit, H > 448),
 //       CTA c owning hidden units [c*units, (c+1)*units). Each CTA loads its
 //       rows of Wh (units x 3H, 48 KB in bf16) into shared memory once. Per
 //       step it does the gate backward of its units from hp, pushes its
@@ -86,8 +91,9 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kScanRows = 4;       // batch rows per cluster
+constexpr int kScanRows = 4;       // batch rows per cluster (2 in f32 where 4 do not fit)
 constexpr int kScanUnits = 32;     // most hidden units one CTA owns
+constexpr int kMaxCluster = 16;    // the largest (non-portable) cluster of the H100
 constexpr int kScanThreads = 256;  // covers kScanRows x kScanUnits gate items
 constexpr int kScanWarps = kScanThreads / 32;
 constexpr int kUnitsPerWarp = kScanUnits / kScanWarps;
@@ -97,6 +103,8 @@ constexpr int kScanParts = kScanWarps / 2;  // bf16: warps splitting K for one 1
 // Forward scan on clusters; see the note at the top.
 
 constexpr int kFwdSlots = 8;                 // batch-row slots of the state (mma columns)
+constexpr int kFwdFewSlots = 4;              // f32 where 8 slots do not fit (H > 448)
+constexpr size_t kSmemPerBlock = 232448;     // dynamic shared memory a CTA may take
 constexpr int kFwdCols = 3 * kScanUnits;     // gate-unit columns of Wh a CTA holds
 constexpr int kFwdTiles = kFwdCols / 16;     // bf16: 16-row mma tiles of them
 constexpr int kFwdParts = 4;                 // K split of the step's product
@@ -106,27 +114,38 @@ static_assert(kFwdSlots * kScanUnits <= kFwdThreads, "a gate item per thread");
 
 // Dynamic shared memory of the forward, one CTA: its columns of Wh and two
 // state buffers in the compute dtype, then the K-split partial products
-// (kFwdParts, kFwdCols, kFwdSlots) in f32. Column c = gate * 32 + unit.
-// bf16: Wh as (kFwdCols, ld) and the state as (kFwdSlots, ld), K along
+// (kFwdParts, kFwdCols, slots) in f32. Column c = gate * 32 + unit.
+// bf16: Wh as (kFwdCols, ld) and the state as (slots, ld), K along
 // rows at the mma stride, zero past H; f32: Wh as (H, kFwdCols) and the
-// state as (H, kFwdSlots), so that a warp reads 32 columns or one row's 8
+// state as (H, slots), so that a warp reads 32 columns or one row's
 // slots at once.
 template <typename T>
 struct FwdLayout {
-  int ld;
+  int ld, slots;
   size_t w, hb, buf, total;
-  __host__ __device__ FwdLayout(int H) {
+  __host__ __device__ FwdLayout(int H, int slots_) : slots(slots_) {
     ld = is_bf16<T>() ? slice_ld<T>(H) : H;
-    buf = (size_t)kFwdSlots * ld;  // elements of one state buffer
+    buf = (size_t)slots * ld;  // elements of one state buffer
     w = align16((size_t)kFwdCols * ld * sizeof(T));
     hb = align16(2 * buf * sizeof(T));
-    total = w + hb + (size_t)kFwdParts * kFwdCols * kFwdSlots * sizeof(float);
+    total = w + hb + (size_t)kFwdParts * kFwdCols * slots * sizeof(float);
   }
   // offset of (slot r, unit k) in a state buffer
   __host__ __device__ int at(int r, int k) const {
-    return is_bf16<T>() ? r * ld + k : k * kFwdSlots + r;
+    return is_bf16<T>() ? r * ld + k : k * slots + r;
   }
 };
+
+// Batch-row slots of the forward's state buffers for clusters of `rows`
+// rows: 8 (the mma's columns in bf16); in f32 4 where clusters of at most 4
+// rows would not fit a CTA's shared memory with 8 (which brings f32 at H =
+// 512 within it).
+template <typename T>
+int fwd_slots(int H, int rows) {
+  return !is_bf16<T>() && rows <= kFwdFewSlots && FwdLayout<T>(H, kFwdSlots).total > kSmemPerBlock
+             ? kFwdFewSlots
+             : kFwdSlots;
+}
 
 // The inputs of one (row, unit) at one step, loaded a step ahead; keep =
 // 1 - reset.
@@ -134,9 +153,9 @@ struct FwdIn {
   float x[3], m, keep;
 };
 
-// Forward scan over one cluster's `rows` (<= kFwdSlots) batch rows; with
+// Forward scan over one cluster's `rows` (<= kSlots) batch rows; with
 // kReset, reset is read, else it is ignored.
-template <typename T, bool kReset>
+template <typename T, bool kReset, int kSlots>
 __global__ void __launch_bounds__(kFwdThreads)
 gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask,
                     const float* __restrict__ reset, const float* __restrict__ h0,
@@ -148,7 +167,7 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
   const int H3 = 3 * H, tid = threadIdx.x;
   const int row0 = (blockIdx.x / C) * rows;
   const int j0 = rank * units, nu = max(0, min(units, H - j0));
-  const FwdLayout<T> L(H);
+  const FwdLayout<T> L(H, kSlots);
   const int ld = L.ld;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* w_s = reinterpret_cast<T*>(smem_raw);
@@ -169,8 +188,8 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
   const int t_first = reverse ? T_len - 1 : 0;
   for (int i = tid; i < 2 * (int)L.buf; i += kFwdThreads) {
     const int b = i / (int)L.buf, e = i % (int)L.buf;
-    const int r = is_bf16<T>() ? e / ld : e % kFwdSlots;
-    const int k = is_bf16<T>() ? e % ld : e / kFwdSlots;
+    const int r = is_bf16<T>() ? e / ld : e % kSlots;
+    const int k = is_bf16<T>() ? e % ld : e / kSlots;
     const int row = row0 + r;
     const bool in = b == 0 && r < rows && row < B && k < H;
     float v = in ? h0[(size_t)row * H + k] : 0.f;
@@ -220,26 +239,32 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
                                  pair_at(wa + 8 * ld + k + 8)};
           mma_bf16(c4, a, pair_at(db + k), pair_at(db + k + 8));
         }
-        float* red = red_s + ((size_t)part * kFwdCols + tile * 16 + gq) * kFwdSlots + 2 * tq;
+        float* red = red_s + ((size_t)part * kFwdCols + tile * 16 + gq) * kSlots + 2 * tq;
         red[0] = c4[0];
         red[1] = c4[1];
-        red[8 * kFwdSlots] = c4[2];
-        red[8 * kFwdSlots + 1] = c4[3];
+        red[8 * kSlots] = c4[2];
+        red[8 * kSlots + 1] = c4[3];
       }
     } else {
       const int c = tid % kFwdCols, part = tid / kFwdCols;
-      float acc[kFwdSlots] = {};
+      float acc[kSlots] = {};
       for (int k = part * H / kFwdParts; k < (part + 1) * H / kFwdParts; ++k) {
         const float w = to_f(w_s[k * kFwdCols + c]);
-        const float4 lo = reinterpret_cast<const float4*>(hb + k * kFwdSlots)[0];
-        const float4 hi = reinterpret_cast<const float4*>(hb + k * kFwdSlots)[1];
-        const float hv[kFwdSlots] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+        float hv[kSlots];
 #pragma unroll
-        for (int s = 0; s < kFwdSlots; ++s) acc[s] = fmaf(hv[s], w, acc[s]);
+        for (int q = 0; q < kSlots / 4; ++q) {
+          const float4 v4 = reinterpret_cast<const float4*>(hb + k * kSlots)[q];
+          hv[4 * q] = v4.x;
+          hv[4 * q + 1] = v4.y;
+          hv[4 * q + 2] = v4.z;
+          hv[4 * q + 3] = v4.w;
+        }
+#pragma unroll
+        for (int s = 0; s < kSlots; ++s) acc[s] = fmaf(hv[s], w, acc[s]);
       }
-      float* red = red_s + ((size_t)part * kFwdCols + c) * kFwdSlots;
+      float* red = red_s + ((size_t)part * kFwdCols + c) * kSlots;
 #pragma unroll
-      for (int s = 0; s < kFwdSlots; ++s) red[s] = acc[s];
+      for (int s = 0; s < kSlots; ++s) red[s] = acc[s];
     }
     __syncthreads();  // every partial product is in red_s
 
@@ -250,7 +275,7 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
       for (int p = 0; p < kFwdParts; ++p)
 #pragma unroll
         for (int g = 0; g < 3; ++g)
-          acc[g] += red_s[((size_t)p * kFwdCols + g * kScanUnits + u) * kFwdSlots + r];
+          acc[g] += red_s[((size_t)p * kFwdCols + g * kScanUnits + u) * kSlots + r];
       const float rg = sigmoid_f(cur.x[0] + (acc[0] + bhr));
       const float zg = sigmoid_f(cur.x[1] + (acc[1] + bhz));
       const float ng = tanhf(cur.x[2] + rg * (acc[2] + bhn));
@@ -270,12 +295,33 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
   if (live) final_h[(size_t)row * H + j] = h_prev;
 }
 
-// (the two instantiations of a scan kernel have one function type)
+// Clusters above 8 CTAs are non-portable: the kernel must allow them
+// before a launch or an occupancy query.
+template <typename Kernel>
+void allow_cluster(Kernel kernel, int cluster, size_t smem) {
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (cluster > 8)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+}
+
+// The forward's kernel for a reset stream (or none) and clusters of `rows`
+// rows (the instantiations have one function type).
+template <typename T>
+auto fwd_kernel(bool reset, int H, int rows) {
+  if constexpr (!is_bf16<T>()) {
+    if (fwd_slots<T>(H, rows) == kFwdFewSlots)
+      return reset ? gru_scan_fwd_kernel<T, true, kFwdFewSlots>
+                   : gru_scan_fwd_kernel<T, false, kFwdFewSlots>;
+  }
+  return reset ? gru_scan_fwd_kernel<T, true, kFwdSlots>
+               : gru_scan_fwd_kernel<T, false, kFwdSlots>;
+}
+
 template <typename T, typename Kernel>
 cudaLaunchConfig_t scan_fwd_config(Kernel kernel, int B, int H, int cluster, int rows,
                                    cudaLaunchAttribute* attr, cudaStream_t stream) {
-  const size_t smem = FwdLayout<T>(H).total;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = FwdLayout<T>(H, fwd_slots<T>(H, rows)).total;
+  allow_cluster(kernel, cluster, smem);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((B + rows - 1) / rows) * cluster);
   cfg.blockDim = dim3(kFwdThreads);
@@ -294,8 +340,7 @@ template <typename T>
 int launch_fwd(const void* x_proj, const void* mask, const void* reset, const void* h0,
                const void* wh, const void* bh, void* outs, void* final_h, int B, int T_len,
                int H, int reverse, int cluster, int units, int rows, cudaStream_t stream) {
-  const auto kernel =
-      reset != nullptr ? gru_scan_fwd_kernel<T, true> : gru_scan_fwd_kernel<T, false>;
+  const auto kernel = fwd_kernel<T>(reset != nullptr, H, rows);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = scan_fwd_config<T>(kernel, B, H, cluster, rows, attr, stream);
   return (int)cudaLaunchKernelEx(
@@ -305,23 +350,23 @@ int launch_fwd(const void* x_proj, const void* mask, const void* reset, const vo
       static_cast<float*>(outs), static_cast<float*>(final_h), B, T_len, H, units, rows, reverse);
 }
 
-// Dynamic shared memory of the scan, one CTA: its rows of Wh (wrows, ld)
-// and two dh_proj buffers (kScanRows, ld) in the compute dtype, then dh and
-// dh_part (kScanRows, units) and, in bf16, the partial products of the
-// warps (kScanParts, kScanUnits, kScanRows) in f32. In bf16 the rows are
-// mma operands: 32 rows (two 16-unit tiles) of conflict-free stride, zero
-// past the CTA's units and 3H.
+// Dynamic shared memory of the scan, one CTA of a cluster of `rows` batch
+// rows: its rows of Wh (wrows, ld) and two dh_proj buffers (rows, ld) in
+// the compute dtype, then dh and dh_part (rows, units) and, in bf16, the
+// partial products of the warps (kScanParts, kScanUnits, rows) in f32. In
+// bf16 the rows are mma operands: 32 rows (two 16-unit tiles) of
+// conflict-free stride, zero past the CTA's units and 3H.
 template <typename T>
 struct ScanLayout {
   int wrows, ld;
   size_t w, dp, total;
-  __host__ __device__ ScanLayout(int H, int units) {
+  __host__ __device__ ScanLayout(int H, int units, int rows) {
     wrows = is_bf16<T>() ? kScanUnits : units;
     ld = is_bf16<T>() ? slice_ld<T>(3 * H) : 3 * H;
     w = align16((size_t)wrows * ld * sizeof(T));
-    dp = align16((size_t)2 * kScanRows * ld * sizeof(T));
-    total = w + dp + (size_t)2 * kScanRows * units * sizeof(float) +
-            (is_bf16<T>() ? (size_t)kScanParts * kScanUnits * kScanRows * sizeof(float) : 0);
+    dp = align16((size_t)2 * rows * ld * sizeof(T));
+    total = w + dp + (size_t)2 * rows * units * sizeof(float) +
+            (is_bf16<T>() ? (size_t)kScanParts * kScanUnits * rows * sizeof(float) : 0);
   }
 };
 
@@ -421,11 +466,11 @@ struct ScanIn {
   float hp[3], x[3], g, m, h_prev, keep;
 };
 
-// Reverse scan over one cluster's kScanRows rows; see the note at the top.
+// Reverse scan over one cluster's kRows rows; see the note at the top.
 // g (B,T,H) is the cotangent of outs with the final state's folded in.
 // Writes dx (B,T,3H) = [dr_pre | dz_pre | dn_pre], dhn (B,T,H) (the third
 // block of dh_proj) and dh0 (B,H), all f32.
-template <typename T, bool kReset>
+template <typename T, bool kReset, int kRows>
 __global__ void __launch_bounds__(kScanThreads)
 gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask,
                     const float* __restrict__ reset, const float* __restrict__ h0,
@@ -436,26 +481,26 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int H3 = 3 * H, tid = threadIdx.x;
-  const int row0 = (blockIdx.x / C) * kScanRows;
+  const int row0 = (blockIdx.x / C) * kRows;
   const int j0 = rank * units, nu = max(0, min(units, H - j0));
-  const ScanLayout<T> L(H, units);
+  const ScanLayout<T> L(H, units, kRows);
   const int ld = L.ld;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* w_s = reinterpret_cast<T*>(smem_raw);  // (wrows, ld): Wh[j0 + u, :]
   T* dp_s = reinterpret_cast<T*>(smem_raw + L.w);
   float* dh_s = reinterpret_cast<float*>(smem_raw + L.w + L.dp);
-  float* part_s = dh_s + kScanRows * units;   // dh_part of the step
-  float* red_s = part_s + kScanRows * units;  // bf16: (kScanParts, kScanUnits, kScanRows)
+  float* part_s = dh_s + kRows * units;   // dh_part of the step
+  float* red_s = part_s + kRows * units;  // bf16: (kScanParts, kScanUnits, kRows)
   for (int i = tid; i < L.wrows * ld; i += kScanThreads) {
     const int uu = i / ld, c = i % ld;
     w_s[i] = uu < nu && c < H3 ? wh[(size_t)(j0 + uu) * H3 + c] : from_f<T>(0.f);
   }
-  for (int i = tid; i < 2 * kScanRows * ld; i += kScanThreads) dp_s[i] = from_f<T>(0.f);
-  for (int i = tid; i < kScanRows * units; i += kScanThreads) dh_s[i] = part_s[i] = 0.f;
+  for (int i = tid; i < 2 * kRows * ld; i += kScanThreads) dp_s[i] = from_f<T>(0.f);
+  for (int i = tid; i < kRows * units; i += kScanThreads) dh_s[i] = part_s[i] = 0.f;
 
   // this thread's gate item: (row0 + r, j0 + u), tid = r * units + u
   const int r = tid / units, u = tid % units, row = row0 + r, j = j0 + u;
-  const bool item = tid < kScanRows * units && j < H;
+  const bool item = tid < kRows * units && j < H;
   const bool live = item && row < B;
   auto load = [&](int step, ScanIn& in) {
     const int t = reverse ? step : T_len - 1 - step;
@@ -484,7 +529,7 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
   for (int step = 0; step < T_len; ++step) {
     const int t = reverse ? step : T_len - 1 - step;
     if (live && step + 1 < T_len) load(step + 1, nxt);
-    T* dp = dp_s + (step & 1) * kScanRows * ld;
+    T* dp = dp_s + (step & 1) * kRows * ld;
     if (item) {
       float v[3] = {0.f, 0.f, 0.f};
       if (live) {
@@ -524,7 +569,7 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
     // dh[r, u] = dh_part[r, u] + sum_c dp[r, c] Wh[j0 + u, c]
     if constexpr (is_bf16<T>()) {
       // mma: units are the 16 rows of a tile (two tiles), batch rows the 8
-      // columns (kScanRows real); each pair of warps splits K in four
+      // columns (kRows real); each pair of warps splits K in four
       const int gq = lane >> 2, tq = lane & 3, tile = warp & 1, part = warp >> 1;
       const int ks = pad16(H3) / 16;
       float c4[4] = {0.f, 0.f, 0.f, 0.f};
@@ -535,39 +580,39 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
         const int k = s * 16;
         const uint32_t a[4] = {pair_at(wa + k), pair_at(wa + 8 * ld + k), pair_at(wa + k + 8),
                                pair_at(wa + 8 * ld + k + 8)};
-        const uint32_t b0 = gq < kScanRows ? pair_at(db + k) : 0u;
-        const uint32_t b1 = gq < kScanRows ? pair_at(db + k + 8) : 0u;
+        const uint32_t b0 = gq < kRows ? pair_at(db + k) : 0u;
+        const uint32_t b1 = gq < kRows ? pair_at(db + k + 8) : 0u;
         mma_bf16(c4, a, b0, b1);
       }
-      if (tq < kScanRows / 2) {
-        float* red = red_s + (size_t)part * kScanUnits * kScanRows;
+      if (tq < kRows / 2) {
+        float* red = red_s + (size_t)part * kScanUnits * kRows;
         const int u_lo = tile * 16 + gq, u_hi = u_lo + 8;
-        red[u_lo * kScanRows + 2 * tq] = c4[0];
-        red[u_lo * kScanRows + 2 * tq + 1] = c4[1];
-        red[u_hi * kScanRows + 2 * tq] = c4[2];
-        red[u_hi * kScanRows + 2 * tq + 1] = c4[3];
+        red[u_lo * kRows + 2 * tq] = c4[0];
+        red[u_lo * kRows + 2 * tq + 1] = c4[1];
+        red[u_hi * kRows + 2 * tq] = c4[2];
+        red[u_hi * kRows + 2 * tq + 1] = c4[3];
       }
       __syncthreads();
-      if (tid < kScanRows * units) {
+      if (tid < kRows * units) {
         const int rr = tid / units, uu = tid % units;
         float s = part_s[tid];
 #pragma unroll
-        for (int p = 0; p < kScanParts; ++p) s += red_s[(p * kScanUnits + uu) * kScanRows + rr];
+        for (int p = 0; p < kScanParts; ++p) s += red_s[(p * kScanUnits + uu) * kRows + rr];
         dh_s[tid] = s;
       }
     } else {
-      float acc[kUnitsPerWarp][kScanRows] = {};
+      float acc[kUnitsPerWarp][kRows] = {};
       for (int c = lane; c < H3; c += 32) {
-        float d[kScanRows];
+        float d[kRows];
 #pragma unroll
-        for (int rr = 0; rr < kScanRows; ++rr) d[rr] = to_f(dp[rr * ld + c]);
+        for (int rr = 0; rr < kRows; ++rr) d[rr] = to_f(dp[rr * ld + c]);
 #pragma unroll
         for (int q = 0; q < kUnitsPerWarp; ++q) {
           const int uu = warp + q * kScanWarps;
           if (uu < nu) {
             const float w = to_f(w_s[uu * ld + c]);
 #pragma unroll
-            for (int rr = 0; rr < kScanRows; ++rr) acc[q][rr] = fmaf(d[rr], w, acc[q][rr]);
+            for (int rr = 0; rr < kRows; ++rr) acc[q][rr] = fmaf(d[rr], w, acc[q][rr]);
           }
         }
       }
@@ -575,7 +620,7 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
       for (int q = 0; q < kUnitsPerWarp; ++q) {
         const int uu = warp + q * kScanWarps;
 #pragma unroll
-        for (int rr = 0; rr < kScanRows; ++rr) {
+        for (int rr = 0; rr < kRows; ++rr) {
           const float s = warp_sum(acc[q][rr]);
           if (lane == 0 && uu < nu) dh_s[rr * units + uu] = part_s[rr * units + uu] + s;
         }
@@ -588,13 +633,25 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
   if (live) dh0[(size_t)row * H + j] = kReset ? dh_s[tid] * keep_prev : dh_s[tid];
 }
 
+// The backward scan's kernel for a reset stream (or none) and clusters of
+// `rows` rows: 4, or 2 in f32 (the instantiations have one function type).
+template <typename T>
+auto bwd_kernel(bool reset, int rows) {
+  if constexpr (!is_bf16<T>()) {
+    if (rows == 2)
+      return reset ? gru_scan_bwd_kernel<T, true, 2> : gru_scan_bwd_kernel<T, false, 2>;
+  }
+  return reset ? gru_scan_bwd_kernel<T, true, kScanRows>
+               : gru_scan_bwd_kernel<T, false, kScanRows>;
+}
+
 template <typename T, typename Kernel>
-cudaLaunchConfig_t scan_bwd_config(Kernel kernel, int B, int H, int cluster, int units,
+cudaLaunchConfig_t scan_bwd_config(Kernel kernel, int B, int H, int cluster, int units, int rows,
                                    cudaLaunchAttribute* attr, cudaStream_t stream) {
-  const size_t smem = ScanLayout<T>(H, units).total;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = ScanLayout<T>(H, units, rows).total;
+  allow_cluster(kernel, cluster, smem);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((B + kScanRows - 1) / kScanRows) * cluster);
+  cfg.gridDim = dim3(((B + rows - 1) / rows) * cluster);
   cfg.blockDim = dim3(kScanThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -612,7 +669,7 @@ int launch_bwd(const void* x_proj, const void* mask, const void* reset, const vo
                const void* wh, const void* bh, const void* outs, const void* g, void* dx,
                void* dh0, void* dwh, void* dbh, void* hp, void* dhn, void* partial,
                void* counters, int B, int T_len, int H, int reverse, int cluster, int units,
-               int splits, cudaStream_t stream) {
+               int rows, int splits, cudaStream_t stream) {
   const int H3 = 3 * H;
   const float* h0f = static_cast<const float*>(h0);
   const float* outsf = static_cast<const float*>(outs);
@@ -621,10 +678,10 @@ int launch_bwd(const void* x_proj, const void* mask, const void* reset, const vo
                                    static_cast<const T*>(wh), static_cast<const float*>(bh),
                                    static_cast<float*>(hp), T_len, H, reverse}}};
   tile_gemm<T>(hoist, stream);
-  const auto kernel =
-      reset != nullptr ? gru_scan_bwd_kernel<T, true> : gru_scan_bwd_kernel<T, false>;
+  const auto kernel = bwd_kernel<T>(reset != nullptr, rows);
   cudaLaunchAttribute attr[1];
-  const cudaLaunchConfig_t cfg = scan_bwd_config<T>(kernel, B, H, cluster, units, attr, stream);
+  const cudaLaunchConfig_t cfg =
+      scan_bwd_config<T>(kernel, B, H, cluster, units, rows, attr, stream);
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const T*>(x_proj),
       static_cast<const float*>(mask), resetf, h0f, outsf, static_cast<const float*>(g),
@@ -643,15 +700,15 @@ int launch_bwd(const void* x_proj, const void* mask, const void* reset, const vo
 
 // dtype: 0 = float32, 1 = bfloat16 (x_proj and Wh). Forward scan on
 // thread-block clusters of `cluster` CTAs, each owning `units` hidden units
-// (cluster * units >= H, units <= 32) of `rows` (<= 8) batch rows. reset
-// (B,T) f32 or null.
+// (cluster * units >= H, units <= 32, cluster <= 16) of `rows` (<= 8)
+// batch rows. reset (B,T) f32 or null.
 extern "C" int vmmt_gru_scan(int dtype, const void* x_proj, const void* mask,
                              const void* reset, const void* h0, const void* wh, const void* bh,
                              void* outs, void* final_h, int B, int T_len, int H,
                              int reverse, int cluster, int units, int rows, void* stream) {
   if (B == 0 || T_len == 0) return 0;
-  if (units < 1 || units > kScanUnits || cluster < 1 || cluster > 8 || cluster * units < H ||
-      rows < 1 || rows > kFwdSlots)
+  if (units < 1 || units > kScanUnits || cluster < 1 || cluster > kMaxCluster ||
+      cluster * units < H || rows < 1 || rows > kFwdSlots)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err =
@@ -663,14 +720,16 @@ extern "C" int vmmt_gru_scan(int dtype, const void* x_proj, const void* mask,
 }
 
 // How many clusters of the forward scan's launch plan the card holds at
-// once (cudaOccupancyMaxActiveClusters), and the dynamic shared memory of
-// one CTA.
+// once (cudaOccupancyMaxActiveClusters; 0 when the card cannot hold one of
+// that size), and the dynamic shared memory of one CTA.
 extern "C" int vmmt_gru_scan_occupancy(int dtype, int H, int cluster, int rows,
                                        int* max_clusters, int* smem_bytes) {
+  if (cluster < 1 || cluster > kMaxCluster || rows < 1 || rows > kFwdSlots)
+    return (int)cudaErrorInvalidValue;
   auto query = [&](auto zero) {
     using T = decltype(zero);
     cudaLaunchAttribute attr[1];
-    const auto kernel = gru_scan_fwd_kernel<T, false>;
+    const auto kernel = fwd_kernel<T>(false, H, rows);
     const cudaLaunchConfig_t cfg = scan_fwd_config<T>(kernel, rows, H, cluster, rows, attr, 0);
     *smem_bytes = (int)cfg.dynamicSmemBytes;
     return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
@@ -679,8 +738,8 @@ extern "C" int vmmt_gru_scan_occupancy(int dtype, int H, int cluster, int rows,
 }
 
 // Backward of vmmt_gru_scan on thread-block clusters of `cluster` CTAs,
-// each owning `units` hidden units (cluster * units >= H, units <= 32) of
-// kScanRows = 4 batch rows. x_proj and wh in the compute dtype; mask,
+// each owning `units` hidden units (cluster * units >= H, units <= 32,
+// cluster <= 16) of `rows` batch rows: 4, or 2 in f32. x_proj and wh in the compute dtype; mask,
 // reset (null: none), h0, bh, outs, g and every output f32: dx (B,T,3H), dh0 (B,H), dwh (H,3H), dbh
 // (3H). Scratch, f32: hp (B,T,3H), dhn (B,T,H); dWh splits its K = B*T
 // over `splits` blocks a 64 x 64 tile, with partial (splits * 4096 floats a
@@ -690,34 +749,36 @@ extern "C" int vmmt_gru_scan_bwd(int dtype, const void* x_proj, const void* mask
                                  const void* outs, const void* g, void* dx, void* dh0, void* dwh,
                                  void* dbh, void* hp, void* dhn, void* partial, void* counters,
                                  int B, int T_len, int H, int reverse, int cluster, int units,
-                                 int splits, void* stream) {
+                                 int rows, int splits, void* stream) {
   if (B == 0 || T_len == 0) return 0;
-  if (units < 1 || units > kScanUnits || cluster < 1 || cluster > 8 || cluster * units < H ||
-      splits < 1)
+  if (units < 1 || units > kScanUnits || cluster < 1 || cluster > kMaxCluster ||
+      cluster * units < H || splits < 1 || !(rows == kScanRows || (rows == 2 && dtype == 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err =
       dtype == 1
           ? launch_bwd<__nv_bfloat16>(x_proj, mask, reset, h0, wh, bh, outs, g, dx, dh0, dwh, dbh,
                                       hp, dhn, partial, counters, B, T_len, H, reverse, cluster,
-                                      units, splits, s)
+                                      units, rows, splits, s)
           : launch_bwd<float>(x_proj, mask, reset, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp,
                               dhn, partial, counters, B, T_len, H, reverse, cluster, units,
-                              splits, s);
+                              rows, splits, s);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
 // How many clusters of the backward scan's launch plan the card holds at
-// once (cudaOccupancyMaxActiveClusters), and the dynamic shared memory of
-// one CTA.
-extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int units,
+// once (cudaOccupancyMaxActiveClusters; 0 when the card cannot hold one of
+// that size), and the dynamic shared memory of one CTA.
+extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int units, int rows,
                                            int* max_clusters, int* smem_bytes) {
+  if (cluster < 1 || cluster > kMaxCluster || !(rows == kScanRows || (rows == 2 && dtype == 0)))
+    return (int)cudaErrorInvalidValue;
   auto query = [&](auto zero) {
     using T = decltype(zero);
     cudaLaunchAttribute attr[1];
-    const auto kernel = gru_scan_bwd_kernel<T, false>;
+    const auto kernel = bwd_kernel<T>(false, rows);
     const cudaLaunchConfig_t cfg =
-        scan_bwd_config<T>(kernel, kScanRows, H, cluster, units, attr, 0);
+        scan_bwd_config<T>(kernel, rows, H, cluster, units, rows, attr, 0);
     *smem_bytes = (int)cfg.dynamicSmemBytes;
     return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
   };

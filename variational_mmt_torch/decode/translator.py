@@ -87,13 +87,16 @@ def make_translate_fn(model: VMMTModel, dcfg: DecodeConfig,
         keys = model.project_memory(memory, fused_step and mode == 1)
         if fused_step and mode == 2:
             keys = (keys,)
+        # the kernels' weights, cast (and on the card padded) once a request
+        weights = model.decoder.step_weights() if fused_step else None
 
         # the greedy fast path honors no min_length, attention, trace or
         # blocking; sampling shares its step and handles min_length itself
         if sampling or (K == 1 and not track_attn and not dcfg.dump_beam
                         and dcfg.min_length == 0 and dcfg.block_ngram_repeat == 0):
             def step1(carry, toks):
-                carry, logits, _ = model.decode_step(carry, toks, memory, src_mask, z, keys)
+                carry, logits, _ = model.decode_step(carry, toks, memory, src_mask, z, keys,
+                                                     weights)
                 return carry, torch.log_softmax(logits, dim=-1)
 
             if sampling:
@@ -112,7 +115,8 @@ def make_translate_fn(model: VMMTModel, dcfg: DecodeConfig,
         keys_t = tree_map(rep, keys)
 
         def step(carry, toks):
-            carry, logits, align = model.decode_step(carry, toks, mem_t, mask_t, z_t, keys_t)
+            carry, logits, align = model.decode_step(carry, toks, mem_t, mask_t, z_t, keys_t,
+                                                     weights)
             logp = torch.log_softmax(logits, dim=-1)
             if track_attn:  # full probs: argmax for replace_unk, coverage
                 return carry, logp, align.float()

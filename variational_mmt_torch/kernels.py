@@ -39,14 +39,15 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # dtype, x_proj, mask, reset (null: none), h0, wh, bh, outs, final,
         # B, T, H, reverse, cluster, units, rows, stream
         "vmmt_gru_scan": [_I] + [_P] * 8 + [_I] * 7 + [_P],
-        # dtype, H, cluster, rows, out: max active clusters, smem bytes
+        # dtype, H, cluster, rows, out: max active clusters (0: the card
+        # cannot hold a cluster of that size), smem bytes
         "vmmt_gru_scan_occupancy": [_I] * 4 + [_P] * 2,
         # dtype, x_proj, mask, reset (null: none), h0, wh, bh, outs, g, dx,
         # dh0, dwh, dbh, hp and dhn scratch, dWh partials and counters, B, T,
-        # H, reverse, cluster, units, dWh splits, stream
-        "vmmt_gru_scan_bwd": [_I] + [_P] * 16 + [_I] * 7 + [_P],
-        # dtype, H, cluster, units, out: max active clusters, smem bytes
-        "vmmt_gru_scan_bwd_occupancy": [_I] * 4 + [_P] * 2,
+        # H, reverse, cluster, units, rows, dWh splits, stream
+        "vmmt_gru_scan_bwd": [_I] + [_P] * 16 + [_I] * 8 + [_P],
+        # dtype, H, cluster, units, rows, out: max active clusters, smem bytes
+        "vmmt_gru_scan_bwd_occupancy": [_I] * 5 + [_P] * 2,
     },
     "decoder": {
         # dtype, emb_proj, dmid, h00, h01, wfeed, wh0, bh0, wmid, bmid, wh1,

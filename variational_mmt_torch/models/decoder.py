@@ -23,7 +23,8 @@ from torch import nn
 from variational_mmt_torch.models.attention import GlobalAttention
 from variational_mmt_torch.models.gru import dropout, dropout_mask, gru_gates
 from variational_mmt_torch.models.layers import Dense
-from variational_mmt_torch.ops.decode_step import decode_step, gru_chain
+from variational_mmt_torch.ops.decode_step import (decode_step, gru_chain, pad_step_weights,
+                                                   pad_units, padded_width)
 from variational_mmt_torch.ops.decoder import fused_decoder_pallas
 
 DecoderCarry = Tuple[Tuple[torch.Tensor, ...], torch.Tensor]
@@ -207,38 +208,54 @@ class GRUDecoder(nn.Module):
         ``with_values`` also hoists the context half of linear_out
         (``mem_v = memory @ Wc_ctx``) and returns ``(keys, mem_v)``, the
         layout the fused decode-step kernel reads (``VMMTModel.project_memory``
-        asks ``fused_step_eligible`` first)."""
+        asks ``fused_step_eligible`` first); on the card both at the
+        kernel's width, zero-padded once here for every step."""
         keys = self.step.attn.project_memory(memory)
         if not with_values:
             return keys
         p_out = self.step.attn.linear_out.kernel
         mem_v = memory @ p_out[: self.hidden].to(memory.dtype)
-        return keys, mem_v
+        H, Hp = self.hidden, self._kernel_width(memory.device)
+        return pad_units(keys, H, Hp), pad_units(mem_v, H, Hp)
+
+    def _kernel_width(self, device: torch.device) -> int:
+        """The width the decode-step kernels compute on ``device``: H padded
+        to a multiple of 4 on the card, H on the CPU (the plain versions)."""
+        return self.hidden if device.type == "cpu" else padded_width(self.hidden)
+
+    def step_weights(self) -> tuple:
+        """The fused step's weights (Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
+        Wc_q) in the compute dtype and, on the card, at the kernel's width:
+        prepared once a request and passed to every ``one_step``."""
+        step, dt = self.step, self.dtype
+        wh0, bh0 = step.hh(0)
+        wh1, bh1 = step.hh(1)
+        w = (step.ih_feed.kernel.to(dt), wh0, bh0, step.ih_mid0.kernel.to(dt),
+             step.ih_mid0.bias.to(dt), wh1, bh1,
+             step.attn.linear_out.kernel.to(dt)[self.hidden:])
+        return w if self._kernel_width(w[0].device) == self.hidden else pad_step_weights(*w)
 
     def one_step(self, carry: DecoderCarry, tok_emb: torch.Tensor, memory: torch.Tensor,
-                 src_mask: torch.Tensor, extra_input_proj: torch.Tensor = None, keys=None):
+                 src_mask: torch.Tensor, extra_input_proj: torch.Tensor = None, keys=None,
+                 weights: Optional[tuple] = None):
         """Single decode step. ``keys`` selects the path as in JAX: a tensor
         takes the plain step; a ``(keys, mem_v)`` 2-tuple the fused
         decode-step kernel; a ``(keys,)`` 1-tuple the GRU-chain kernel with
-        attention in plain PyTorch."""
+        attention in plain PyTorch. ``weights``: the kernels' weights from
+        :meth:`step_weights`, prepared once a request (None: here)."""
         emb_proj = self.ih_emb(tok_emb)
         if extra_input_proj is not None:
             emb_proj = emb_proj + extra_input_proj
         if not isinstance(keys, tuple):
             new_carry, (attn_h, align) = self.step(carry, emb_proj, memory, src_mask, keys)
             return new_carry, (attn_h, align)
-        step, dt = self.step, self.dtype
         hs, feed = carry
-        wh0, bh0 = step.hh(0)
-        wh1, bh1 = step.hh(1)
-        wargs = (step.ih_feed.kernel.to(dt), wh0, bh0, step.ih_mid0.kernel.to(dt),
-                 step.ih_mid0.bias.to(dt), wh1, bh1)
+        *wargs, wc_q = self.step_weights() if weights is None else weights
         if len(keys) == 1:
             h0n, h1n = gru_chain(emb_proj, hs[0], hs[1], feed, *wargs)
-            attn_h, probs = step.attn(h1n, memory, src_mask, keys=keys[0])
+            attn_h, probs = self.step.attn(h1n, memory, src_mask, keys=keys[0])
         else:
             k, mem_v = keys
-            wc_q = step.attn.linear_out.kernel.to(dt)[self.hidden:]
             mask_bias = (1.0 - src_mask.float()) * -1e9
             h0n, h1n, attn_h, probs = decode_step(emb_proj, hs[0], hs[1], feed, *wargs,
                                                   k, mem_v, wc_q, mask_bias)

@@ -12,12 +12,16 @@ each segment's first token in both directions (:114-170, :241-298).
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from variational_mmt_torch.models.layers import Dense
+
+log = logging.getLogger(__name__)
+_wide_logged = set()  # (hidden, dtype) of the layers already logged as too wide
 
 
 def gru_gates(x_proj: torch.Tensor, h_proj: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -95,8 +99,10 @@ def cell_layer_scan(x_proj: torch.Tensor, carry0: torch.Tensor, wh: torch.Tensor
 
 class UniGRU(nn.Module):
     """One direction, one layer. Returns (outputs (B,T,H), final (B,H)).
-    With ``use_pallas`` the recurrence runs in the GRU-scan kernel
-    (ops/gru_scan.py), as the JAX package runs its Pallas kernel."""
+    With ``use_pallas`` the recurrence runs in the GRU-scan kernels
+    (ops/gru_scan.py), as the JAX package runs its Pallas kernel, where
+    they hold the width (``scan_kernel_holds``: H <= 512); a wider layer
+    takes the plain scan, logged once."""
 
     def __init__(self, in_dim: int, hidden: int, reverse: bool = False,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False):
@@ -114,7 +120,7 @@ class UniGRU(nn.Module):
         """``reset`` (B,T) f32: 1 at a packed segment's start (None: none)."""
         x_proj = self.ih(x)
         h0 = torch.zeros((x.shape[0], self.hidden), dtype=self.dtype, device=x.device)
-        if self.use_pallas:
+        if self.use_pallas and _scan_route(self.hidden, self.dtype):
             from variational_mmt_torch.ops.gru_scan import gru_layer_scan_ad
 
             # as the JAX Pallas path: Wh in the compute dtype, bh in f32,
@@ -125,6 +131,20 @@ class UniGRU(nn.Module):
         return cell_layer_scan(x_proj, h0, self.hh_kernel.to(self.dtype),
                                self.hh_bias.to(self.dtype), mask=mask.to(self.dtype),
                                reverse=self.reverse, reset=reset)
+
+
+def _scan_route(hidden: int, dtype: torch.dtype) -> bool:
+    """Whether a ``use_pallas`` layer of ``hidden`` units takes the scan
+    kernels; logs the first layer of each width that does not."""
+    from variational_mmt_torch.ops.gru_scan import SCAN_MAX_HIDDEN, scan_kernel_holds
+
+    if scan_kernel_holds(hidden, dtype):
+        return True
+    if (hidden, dtype) not in _wide_logged:
+        _wide_logged.add((hidden, dtype))
+        log.warning("GRU layer of %d units (%s): wider than the scan kernels hold (%d); "
+                    "it takes the plain scan", hidden, dtype, SCAN_MAX_HIDDEN)
+    return False
 
 
 class BiGRUEncoder(nn.Module):

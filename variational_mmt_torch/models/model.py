@@ -160,11 +160,14 @@ class VMMTModel(nn.Module):
             return self.z_input_proj(z.to(self.dt))
         return None
 
-    def decode_step(self, carry, tok: torch.Tensor, memory, src_mask, z, keys=None):
-        """One inference step: tok (N,) -> (carry, logits (N,V) f32, align)."""
+    def decode_step(self, carry, tok: torch.Tensor, memory, src_mask, z, keys=None,
+                    weights=None):
+        """One inference step: tok (N,) -> (carry, logits (N,V) f32, align).
+        ``weights``: the decode-step kernels' weights, prepared once a
+        request (``GRUDecoder.step_weights``)."""
         carry, (attn_h, align) = self.decoder.one_step(
             carry, self.tgt_embed(tok), memory, src_mask,
-            extra_input_proj=self.z_extra_proj(z), keys=keys)
+            extra_input_proj=self.z_extra_proj(z), keys=keys, weights=weights)
         return carry, self._gen(attn_h), align
 
     def project_memory(self, memory: torch.Tensor, with_values: bool = False):
@@ -181,6 +184,11 @@ class VMMTModel(nn.Module):
 
     def init_decode_carry(self, init_hs):
         return self.decoder.init_carry(init_hs)
+
+    def predict_img(self, z: torch.Tensor) -> torch.Tensor:
+        """The image prediction of z (the ``img_pred`` head, JAX's
+        ``predict_img``, models/model.py:225)."""
+        return self.img_pred(z)
 
     def decode_train(self, tgt_in: torch.Tensor, memory, src_mask, init_hs, z,
                      generator: Optional[torch.Generator] = None,

@@ -20,9 +20,18 @@ then ``h1' @ Wc_q`` (the same kernel with one product) and one attention
 block per row reading keys as 16-byte vectors. What is left bounding it is
 the cells' L2 traffic and one pass over keys and mem_v. The chain (row 4)
 is the first two of those launches. :func:`step_cell_plan` gives the
-cells' tile grid and shared memory and refuses what the design cannot hold
-(H not a multiple of 4); the TPU's row chunking (``_rows_per_chunk``, a
-VMEM budget) is not carried over.
+cells' tile grid and shared memory; the TPU's row chunking
+(``_rows_per_chunk``, a VMEM budget) is not carried over.
+
+Widths. The kernels copy 4 values at a time, so they compute a width H
+that is a multiple of 4; the wrappers take any H and zero-pad it up to
+:func:`padded_width` (the weights' hidden rows and gate columns, the
+biases, the states, keys and mem_v), then slice the outputs back. This is
+exact: a padded unit starts at 0, and with zero weights and biases its
+gates are r = z = 1/2 and n = tanh(0) = 0, so h' = z * h = 0 at every
+step; zero key and value columns leave every score and context as they
+were. Weights, keys and mem_v that come padded already (``GRUDecoder``
+pads them once a request, :func:`pad_step_weights`) are taken as they are.
 """
 
 from __future__ import annotations
@@ -80,26 +89,79 @@ def decode_step_ref(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh
 CELL_ROWS = 64  # rows of a cell CTA's tile (kCellRows of csrc/decode_step.cu)
 CELL_UNITS = 32  # hidden units of a cell CTA's tile (kCellUnits)
 CELL_BK = 32  # reduction chunk (kCellBK)
-CELL_VEC = 4  # values per cp.async copy (kCellVec): H must be a multiple
+CELL_VEC = 4  # values per cp.async copy (kCellVec): the kernels' H is a multiple
 CELL_THREADS = 256
+
+
+def padded_width(H: int) -> int:
+    """H rounded up to a multiple of 4, the width the step, chain and
+    decoder sequence kernels compute (their copies are 4 values wide)."""
+    return -(-H // CELL_VEC) * CELL_VEC
+
+
+def pad_units(t: torch.Tensor, H: int, Hp: int, dim: int = -1, gates: int = 1) -> torch.Tensor:
+    """``t`` with its ``dim`` (``gates`` blocks of H, [r|z|n] for 3)
+    zero-padded to ``gates`` blocks of Hp, each block padded at its end."""
+    if Hp == H:
+        return t
+    dim %= t.dim()
+    blocks = t.unflatten(dim, (gates, H))
+    zeros = blocks.new_zeros(blocks.shape[:dim + 1] + (Hp - H,) + blocks.shape[dim + 2:])
+    return torch.cat([blocks, zeros], dim=dim + 1).flatten(dim, dim + 1)
+
+
+def unpad_units(t: torch.Tensor, H: int, Hp: int, dim: int = -1, gates: int = 1) -> torch.Tensor:
+    """The inverse of :func:`pad_units`: each block of Hp cut back to H."""
+    if Hp == H:
+        return t
+    dim %= t.dim()
+    return t.unflatten(dim, (gates, Hp)).narrow(dim + 1, 0, H).flatten(dim, dim + 1)
+
+
+def pad_step_weights(Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1, Wc_q=None) -> tuple:
+    """The decoder's (H,3H) weights, (3H,) biases and (H,H) ``Wc_q``
+    zero-padded to :func:`padded_width` (hidden rows, gate columns); the
+    same tensors where H is a multiple of 4."""
+    H = Wfeed.shape[0]
+    Hp = padded_width(H)
+    w = lambda t: pad_units(pad_units(t, H, Hp, 0), H, Hp, -1, 3)  # noqa: E731
+    b = lambda t: pad_units(t, H, Hp, -1, 3)  # noqa: E731
+    out = (w(Wfeed), w(Wh0), b(bh0), w(Wmid), b(bmid), w(Wh1), b(bh1))
+    if Wc_q is not None:
+        out += (pad_units(pad_units(Wc_q, H, Hp, 0), H, Hp, -1),)
+    return out
+
+
+def _pad_chain(chain) -> tuple:
+    """The chain inputs (emb_proj, h0, h1, feed and the seven weights) at
+    the kernels' width; the weights as given where they come padded."""
+    emb_proj, h0, h1, feed, *w = chain
+    H = h0.shape[-1]
+    Hp = padded_width(H)
+    if Hp == H:
+        return tuple(chain)
+    if w[0].shape[0] != Hp:
+        w = pad_step_weights(*w)
+    return (pad_units(emb_proj, H, Hp, -1, 3), pad_units(h0, H, Hp), pad_units(h1, H, Hp),
+            pad_units(feed, H, Hp), *w)
 
 
 def step_cell_plan(N: int, H: int, dtype: torch.dtype) -> dict:
     """Launch plan of the GRU cell kernel that the decode step and the chain
     launch twice (and the step once more for ``h1' @ Wc_q``), for N rows
-    and H units: a grid of ``grid`` (unit tiles, row tiles) CTAs of 64
-    rows x 32 units, with ``smem`` bytes of dynamic shared memory per CTA
+    and H units, planned at the padded width ``padded`` (the wrappers pad H
+    to a multiple of 4): a grid of ``grid`` (unit tiles, row tiles) CTAs of
+    64 rows x 32 units, with ``smem`` bytes of dynamic shared memory per CTA
     (mirrors ``CellSmem`` of csrc/decode_step.cu: two stages of K chunks of
     the two row operands (64, 32) and the two weights' (32, 96) column
     blocks, rows padded to 40 and 104 halves in bf16, 36 and 100 floats in
     f32; then the epilogue's tile of xbase (64, 96) and h (64, 32) and two
-    bias rows of 96 floats). Raises NotImplementedError for what the design
-    cannot hold: H not a multiple of 4 (the copies are 4 values wide)."""
+    bias rows of 96 floats). Raises NotImplementedError for H < 1."""
     if dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"decode_step kernel: dtype {dtype}")
-    if H < 1 or H % CELL_VEC:
-        raise NotImplementedError(f"decode_step kernel: hidden {H} is not a positive multiple "
-                                  f"of {CELL_VEC}")
+    if H < 1:
+        raise NotImplementedError(f"decode_step kernel: hidden {H}")
+    H = padded_width(H)
     bf16 = dtype == torch.bfloat16
     rows = CELL_ROWS
     lda, ldw = (CELL_BK + 8, 3 * CELL_UNITS + 8) if bf16 else (CELL_BK + 4, 3 * CELL_UNITS + 4)
@@ -107,7 +169,7 @@ def step_cell_plan(N: int, H: int, dtype: torch.dtype) -> dict:
     smem = (stages * (2 * rows * lda + 2 * CELL_BK * ldw) * tsize
             + rows * (cols + CELL_UNITS) * tsize + 2 * cols * 4)
     grid = (-(-H // CELL_UNITS), -(-N // rows))
-    return dict(rows=rows, units=CELL_UNITS, grid=grid, ctas=grid[0] * grid[1],
+    return dict(rows=rows, units=CELL_UNITS, padded=H, grid=grid, ctas=grid[0] * grid[1],
                 threads=CELL_THREADS, stages=stages, smem=smem, k_chunks=-(-H // CELL_BK))
 
 
@@ -164,12 +226,14 @@ def gru_chain(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused 2-layer input-feed GRU chain for one decode step (attention
     outside). Returns (h0n, h1n). CPU tensors take the plain version; CUDA
-    tensors launch the kernel (the cells' plan of the last launch is kept in
-    ``gru_chain.plan``)."""
+    tensors launch the kernel at the padded width (the weights may come
+    padded, :func:`pad_step_weights`; the cells' plan of the last launch is
+    kept in ``gru_chain.plan``)."""
     if emb_proj.device.type == "cpu":
         return gru_chain_ref(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1)
-    args, N, H, dt = _chain_args("gru_chain", emb_proj, h0, h1, feed, Wfeed, Wh0, bh0,
-                                 Wmid, bmid, Wh1, bh1)
+    H0 = h0.shape[-1]
+    args, N, H, dt = _chain_args("gru_chain", *_pad_chain(
+        (emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1)))
     lib = kernels.library("decode_step")
     gru_chain.plan = _checked_plan(N, H, dt, emb_proj.device.index)
     h0n = torch.empty_like(args[1])
@@ -179,7 +243,7 @@ def gru_chain(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1
                              kernels.stream_of(h0n))
     kernels.check(lib, err, "gru_chain")
     gru_chain.launches += 1
-    return h0n, h1n
+    return unpad_units(h0n, H0, H), unpad_units(h1n, H0, H)
 
 
 def decode_step(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
@@ -187,13 +251,20 @@ def decode_step(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     """One fused decode step over N rows: emb_proj (N,3H); h0, h1, feed
     (N,H); four (H,3H) weights; keys, mem_v (N,S,H); Wc_q (H,H); mask_bias
     (N,S) (0 real, -1e9 pad). Returns (h0n, h1n, attn, probs). CPU tensors
-    take the plain version; CUDA tensors launch the kernels (the cells' plan
-    of the last launch is kept in ``decode_step.plan``)."""
+    take the plain version; CUDA tensors launch the kernels at the padded
+    width (weights, keys and mem_v may come padded; the cells' plan of the
+    last launch is kept in ``decode_step.plan``)."""
     if emb_proj.device.type == "cpu":
         return decode_step_ref(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1,
                                bh1, keys, mem_v, Wc_q, mask_bias)
-    args, N, H, dt = _chain_args("decode_step", emb_proj, h0, h1, feed, Wfeed, Wh0, bh0,
-                                 Wmid, bmid, Wh1, bh1)
+    H0 = h0.shape[-1]
+    Hp = padded_width(H0)
+    args, N, H, dt = _chain_args("decode_step", *_pad_chain(
+        (emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1)))
+    if keys.shape[-1] != Hp:
+        keys, mem_v = pad_units(keys, H0, Hp), pad_units(mem_v, H0, Hp)
+    if Wc_q.shape[0] != Hp:
+        Wc_q = pad_units(pad_units(Wc_q, H0, Hp, 0), H0, Hp)
     S = keys.shape[1]
     for name, t in dict(keys=keys, mem_v=mem_v, Wc_q=Wc_q).items():
         if t.dtype != dt:
@@ -219,7 +290,8 @@ def decode_step(emb_proj, h0, h1, feed, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
                                kernels.stream_of(h0n))
     kernels.check(lib, err, "decode_step")
     decode_step.launches += 1
-    return h0n, h1n, attn, probs
+    return (unpad_units(h0n, H0, H), unpad_units(h1n, H0, H), unpad_units(attn, H0, H),
+            probs)
 
 
 gru_chain.launches = 0

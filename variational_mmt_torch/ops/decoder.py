@@ -50,6 +50,13 @@ time; only the saved streams are rounded to the compute dtype. The weight
 gradients are products over the (T*B)-long streams outside the kernels, as
 ``_pal_bwd`` computes them outside Pallas (decoder.py:398-416). The TPU row
 chunking (``_fwd_rows``, ``_bwd_rows``, a VMEM budget) is not carried over.
+
+Widths. The attention reads keys and mem_v 4 values at a time, so the
+kernels compute a width that is a multiple of 4; both wrappers take any H
+and zero-pad it up to ``padded_width`` (weights, biases, states, dmid,
+keys, mem_v and, backward, the saved streams and d_attn), then slice the
+outputs back: exact, as ops/decode_step.py sets out (a padded unit stays 0
+and so does its cotangent).
 """
 
 from __future__ import annotations
@@ -60,7 +67,8 @@ import torch
 
 from variational_mmt_torch import kernels
 from variational_mmt_torch.models.gru import gru_bwd_core, gru_gates
-from variational_mmt_torch.ops.decode_step import rounded_dot
+from variational_mmt_torch.ops.decode_step import (pad_step_weights, pad_units, padded_width,
+                                                   rounded_dot, unpad_units)
 
 f32 = torch.float32
 
@@ -141,6 +149,21 @@ _NAMES = ("emb_proj", "dmid", "h00", "h01", "Wfeed", "Wh0", "bh0", "Wmid", "bmid
 _F32 = ("h00", "h01", "bh0", "bmid", "bh1")  # passed to the kernels as f32
 
 
+def _pad_args(args) -> Tuple[tuple, int, int]:
+    """The 14 inputs shared by both kernels at the kernels' width: (args,
+    H, padded H)."""
+    (emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
+     keys, mem_v, Wc_q) = args
+    H = h00.shape[-1]
+    Hp = padded_width(H)
+    if Hp == H:
+        return tuple(args), H, Hp
+    w = pad_step_weights(Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1, Wc_q)
+    return ((pad_units(emb_proj, H, Hp, -1, 3), pad_units(dmid, H, Hp), pad_units(h00, H, Hp),
+             pad_units(h01, H, Hp), *w[:7], pad_units(keys, H, Hp), pad_units(mem_v, H, Hp),
+             w[7]), H, Hp)
+
+
 def _kernel_args(what, args):
     """Validate the 14 inputs shared by both kernels; returns them
     contiguous (state and biases as f32) and (B, T, S, H, dtype)."""
@@ -176,12 +199,14 @@ def decoder_fwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     their biases, keys and mem_v (B,S,H), Wc_q (H,H), mask_bias (B,S) (0
     real, -1e9 pad). Returns (attn_hs, h0s, h1s (B,T,H), probs (B,T,S)) in
     the compute dtype. CPU tensors take the plain version; CUDA tensors
-    launch the kernel (the plan of the last launch, with the card's SMs and
-    its count of co-resident CTAs, is kept in ``decoder_fwd.plan``).
-    ``probe``: an optional int64 tensor for the phase stamps."""
+    launch the kernel at the padded width (the plan of the last launch,
+    with the card's SMs and its count of co-resident CTAs, is kept in
+    ``decoder_fwd.plan``). ``probe``: an optional int64 tensor for the
+    phase stamps."""
     args = (emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1, keys, mem_v, Wc_q)
     if emb_proj.device.type == "cpu":
         return decoder_fwd_ref(*args, mask_bias)
+    args, H0, _ = _pad_args(args)
     ins, (B, T, S, H, dt) = _kernel_args("decoder_fwd", args)
     if tuple(mask_bias.shape) != (B, S):
         raise ValueError(f"decoder_fwd kernel: mask_bias {tuple(mask_bias.shape)} != {(B, S)}")
@@ -209,7 +234,7 @@ def decoder_fwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
                                plan["rows"], plan["grid"], kernels.stream_of(ins[0]))
     kernels.check(lib, err, "decoder_fwd")
     decoder_fwd.launches += 1
-    return tuple(outs)
+    return tuple(unpad_units(o, H0, H) for o in outs[:3]) + (outs[3],)
 
 
 DEC_UNITS = {torch.bfloat16: 8, torch.float32: 4}  # hidden units per CTA, both passes
@@ -271,12 +296,10 @@ def decoder_fwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> di
     partial sums of 16 rows in bf16); the f32 carries h0, h1, qw (rows,
     units); the hidden products hp0, hp1 (rows, units, 3); the attention
     row (3H + S floats). Mirrors ``DecFwdLayout`` of csrc/decoder.cu. At the
-    flagship's width a bf16 CTA takes about 141 KB, one an SM. Raises
-    NotImplementedError for what the design cannot hold, and for H not a
-    multiple of 4."""
-    if H % 4:
-        raise NotImplementedError(f"decoder_fwd kernel: H={H} is not a multiple of 4 (the "
-                                  "attention reads keys and mem_v 4 values at a time)")
+    flagship's width a bf16 CTA takes about 141 KB, one an SM. Planned at
+    the padded width ``padded`` (the wrapper pads H to a multiple of 4).
+    Raises NotImplementedError for what the design cannot hold."""
+    H = padded_width(H)
     plan = _tiling("decoder_fwd", B, H, dtype, sms)
     bf16 = dtype == torch.bfloat16
     tsize = torch.finfo(dtype).bits // 8
@@ -287,7 +310,7 @@ def decoder_fwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> di
     a16 = kernels.align16
     smem = (4 * a16(3 * tile * ldw * tsize) + a16(tile * ldw * tsize) + prod_rows * 4 * 8 * 4
             + 3 * a16(rows * units * 4) + 2 * a16(rows * units * 3 * 4) + a16((3 * H + S) * 4))
-    return dict(plan, smem=_checked_smem("decoder_fwd", smem, B, S, H))
+    return dict(plan, padded=H, smem=_checked_smem("decoder_fwd", smem, B, S, H))
 
 
 def decoder_bwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> dict:
@@ -297,8 +320,9 @@ def decoder_bwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> di
     padded to 32, bf16 ones to an odd multiple of 64 bytes for
     conflict-free 16-byte reads), the product buffer, two (rows, units)
     carries and the attention row. Mirrors ``DecLayout`` of
-    csrc/decoder.cu. Raises NotImplementedError for what the design cannot
-    hold."""
+    csrc/decoder.cu. Planned at the padded width ``padded``, as the
+    forward. Raises NotImplementedError for what the design cannot hold."""
+    H = padded_width(H)
     plan = _tiling("decoder_bwd", B, H, dtype, sms)
     bf16 = dtype == torch.bfloat16
     tsize = torch.finfo(dtype).bits // 8
@@ -309,7 +333,7 @@ def decoder_bwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> di
             + 4 * kernels.align16(wrows * _frag_ld(3 * H, bf16) * tsize)
             + prod_rows * 8 * 4 + 2 * kernels.align16(rows * units * 4)
             + kernels.align16((H + 2 * S) * 4))
-    return dict(plan, smem=_checked_smem("decoder_bwd", smem, B, S, H))
+    return dict(plan, padded=H, smem=_checked_smem("decoder_bwd", smem, B, S, H))
 
 
 def _co_resident_plan(what: str, fn: str, plan: dict, code: int, S: int, H: int,
@@ -345,12 +369,15 @@ def decoder_bwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     mask_bias), its four streams and the cotangents d_attn (B,T,H) and
     d_probs (B,T,S). Returns (dx0, dhp0, dx1, dhp1, pre, dscores, dh00,
     dh01) in f32. CPU tensors take the plain version; CUDA tensors launch
-    the kernels (the plan of the last launch, with the card's SMs and its
-    count of co-resident CTAs, is kept in ``decoder_bwd.plan``). ``probe``:
-    an optional int64 tensor for the phase stamps."""
+    the kernels at the padded width (the plan of the last launch, with the
+    card's SMs and its count of co-resident CTAs, is kept in
+    ``decoder_bwd.plan``). ``probe``: an optional int64 tensor for the
+    phase stamps."""
     args = (emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1, keys, mem_v, Wc_q)
     if emb_proj.device.type == "cpu":
         return decoder_bwd_ref(*args, attn_hs, h0s, h1s, probs, d_attn, d_probs)
+    args, H0, Hp = _pad_args(args)
+    attn_hs, h0s, h1s, d_attn = (pad_units(t, H0, Hp) for t in (attn_hs, h0s, h1s, d_attn))
     ins, (B, T, S, H, dt) = _kernel_args("decoder_bwd", args)
     streams = dict(attn_hs=(attn_hs, (B, T, H), dt), h0s=(h0s, (B, T, H), dt),
                    h1s=(h1s, (B, T, H), dt), probs=(probs, (B, T, S), dt),
@@ -387,7 +414,9 @@ def decoder_bwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
                                kernels.stream_of(ins[0]))
     kernels.check(lib, err, "decoder_bwd")
     decoder_bwd.launches += 1
-    return tuple(outs)
+    return (tuple(unpad_units(o, H0, H, -1, 3) for o in outs[:4])
+            + (unpad_units(outs[4], H0, H), outs[5])
+            + tuple(unpad_units(o, H0, H) for o in outs[6:]))
 
 
 decoder_fwd.launches = 0

@@ -11,7 +11,8 @@ and FLOPs (2.3 GFLOP) bound it at a few microseconds; what bounds it on the
 H100 is the latency of T dependent steps, each waiting for the whole
 previous state, and its product cannot be hoisted (h_prev is its own
 output). The design runs the scan on thread-block clusters: C CTAs per
-``rows`` batch rows (C = 8 at H=250), each holding its 32 units' columns
+``rows`` batch rows (C = 8 at H=250; up to 16, the H100's largest
+cluster, at H=512), each holding its 32 units' columns
 of Wh for the three gates in shared memory for the whole sequence (48 KB
 in bf16), forming its share of ``round(h) @ Wh`` from shared memory (bf16
 on the tensor cores, f32 by FMAs), applying the gates from inputs
@@ -44,7 +45,8 @@ takes off the chain what does not belong there: the gate recompute
 ``round(h_prev) @ Wh`` reads only saved forward outputs, so one tiled
 product (tensor cores in bf16) computes it for all (row, t) first. The
 reverse scan then runs on thread-block clusters: C CTAs per 4 batch rows
-(C = 8 at H=250: 128 CTAs at B=64), each holding its 32 rows of Wh in shared
+(C = 8 at H=250: 128 CTAs at B=64; 2 rows in f32 above 448 units), each
+holding its 32 rows of Wh in shared
 memory for the whole sequence and exchanging its slice of ``dh_proj``
 through distributed shared memory with one cluster barrier a step; its
 share of ``dh_proj @ Wh^T`` runs on the tensor cores in bf16. The TPU
@@ -55,6 +57,10 @@ over several blocks a tile, added in a fixed order) and sums dbh in the
 same launch, deterministically. :func:`scan_bwd_plan` sizes the
 clusters and shared memory and refuses what the design cannot hold; the
 wrapper checks with the card that a cluster fits.
+
+Widths. Both kernels take H <= 512 in bf16 and f32
+(:func:`scan_kernel_holds`); ``UniGRU`` asks it before the call and sends a
+wider layer to the plain scan.
 """
 
 from __future__ import annotations
@@ -216,12 +222,15 @@ def gru_layer_scan_bwd_ref(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.T
 
 
 SCAN_BWD_ROWS = 4  # batch rows per cluster (kScanRows of csrc/gru_scan.cu)
+SCAN_BWD_F32_WIDE_ROWS = 2  # f32 where 4 rows of dh_proj buffers do not fit
 SCAN_BWD_UNITS = 32  # most hidden units one CTA owns (kScanUnits)
-SCAN_BWD_MAX_CLUSTER = 8  # the largest portable cluster
+SCAN_BWD_MAX_CLUSTER = 16  # the H100's largest (non-portable) cluster (kMaxCluster)
 SCAN_BWD_WARPS = 8  # warps of a CTA (kScanWarps)
 SCAN_FWD_SLOTS = 8  # batch-row slots of the forward's state buffers (kFwdSlots)
+SCAN_FWD_FEW_SLOTS = 4  # f32 where 8 slots do not fit (kFwdFewSlots)
 SCAN_FWD_PARTS = 4  # K split of the forward's step product (kFwdParts)
 SCAN_FWD_SMALL_ROWS = 4  # rows per cluster while the grid stays within one CTA an SM
+SCAN_MAX_HIDDEN = SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS  # 512: the widest a cluster holds
 
 
 def _mma_ld(k: int) -> int:
@@ -236,7 +245,7 @@ def _mma_ld(k: int) -> int:
 def _cluster_units(what: str, H: int) -> Tuple[int, int]:
     """(CTAs of a cluster, hidden units of a CTA) for H units, or
     NotImplementedError when one cluster cannot hold them."""
-    if not 1 <= H <= SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS:
+    if not 1 <= H <= SCAN_MAX_HIDDEN:
         raise NotImplementedError(
             f"{what} kernel: hidden {H} needs more than {SCAN_BWD_MAX_CLUSTER} "
             f"CTAs of {SCAN_BWD_UNITS} units in a cluster")
@@ -244,61 +253,107 @@ def _cluster_units(what: str, H: int) -> Tuple[int, int]:
     return cluster, -(-H // cluster)
 
 
+def _fwd_smem(H: int, dtype: torch.dtype, rows: int) -> int:
+    """Shared memory of a forward CTA (``FwdLayout`` and ``fwd_slots``):
+    the CTA's 96 gate-unit columns of Wh and two state buffers of 8 row
+    slots in the compute dtype, bf16 rows at the mma stride; the K-split
+    partial products in f32. In f32 4 slots where clusters of at most 4 rows
+    would not fit with 8 (H > 448)."""
+    bf16 = dtype == torch.bfloat16
+    tsize = torch.finfo(dtype).bits // 8
+    ld = _mma_ld(H) if bf16 else H
+    cols = 3 * SCAN_BWD_UNITS
+
+    def smem(slots: int) -> int:
+        return (kernels.align16(cols * ld * tsize) + kernels.align16(2 * slots * ld * tsize)
+                + SCAN_FWD_PARTS * cols * slots * 4)
+
+    if not bf16 and rows <= SCAN_FWD_FEW_SLOTS and smem(SCAN_FWD_SLOTS) > kernels.SMEM_PER_BLOCK:
+        return smem(SCAN_FWD_FEW_SLOTS)
+    return smem(SCAN_FWD_SLOTS)
+
+
+def _bwd_smem(H: int, dtype: torch.dtype, units: int, rows: int) -> int:
+    """Shared memory of a backward scan CTA (``ScanLayout``): its rows of Wh
+    and two ``dh_proj`` buffers of ``rows`` rows in the compute dtype, bf16
+    rows at the mma stride; dh, dh_part and, in bf16, the warps' partial
+    products in f32."""
+    bf16 = dtype == torch.bfloat16
+    tsize = torch.finfo(dtype).bits // 8
+    wrows, ld = (SCAN_BWD_UNITS, _mma_ld(3 * H)) if bf16 else (units, 3 * H)
+    return (kernels.align16(wrows * ld * tsize) + kernels.align16(2 * rows * ld * tsize)
+            + 2 * rows * units * 4
+            + (SCAN_BWD_WARPS // 2 * SCAN_BWD_UNITS * rows * 4 if bf16 else 0))
+
+
+def _bwd_rows(H: int, dtype: torch.dtype, units: int) -> int:
+    """Batch rows of a backward cluster: 4, or 2 in f32 where 4 do not fit."""
+    if dtype == torch.float32 and _bwd_smem(H, dtype, units, SCAN_BWD_ROWS) \
+            > kernels.SMEM_PER_BLOCK:
+        return SCAN_BWD_F32_WIDE_ROWS
+    return SCAN_BWD_ROWS
+
+
+def scan_kernel_holds(H: int, dtype: torch.dtype) -> bool:
+    """Whether both scan kernels (forward and backward) compute a layer of
+    H units in ``dtype`` at every batch size: H <= 512 (16 CTAs of 32
+    units, the largest cluster), and both CTAs' shared memory within the
+    card's. ``UniGRU`` asks this before it sends a layer to the kernels;
+    above 512 units the Wh slice of 3 x 32 columns no longer fits one
+    cluster, and the layer takes the plain scan."""
+    if dtype not in kernels.DTYPE_CODE or not 1 <= H <= SCAN_MAX_HIDDEN:
+        return False
+    cluster, units = _cluster_units("gru_layer_scan", H)
+    return (_fwd_smem(H, dtype, SCAN_FWD_FEW_SLOTS) <= kernels.SMEM_PER_BLOCK
+            and _bwd_smem(H, dtype, units, _bwd_rows(H, dtype, units))
+            <= kernels.SMEM_PER_BLOCK)
+
+
 def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     """Launch plan of the forward for B rows, T steps and H units on a card
-    of ``sms`` SMs: clusters of ``cluster`` CTAs, each owning ``units``
-    hidden units of ``rows`` batch rows, with ``smem`` bytes of dynamic
-    shared memory per CTA (mirrors ``FwdLayout`` of csrc/gru_scan.cu: the
-    CTA's 96 gate-unit columns of Wh and two state buffers of 8 row slots
-    in the compute dtype, bf16 rows at the mma stride; the K-split partial
-    products in f32).
+    of ``sms`` SMs: clusters of ``cluster`` CTAs (up to 16), each owning
+    ``units`` hidden units of ``rows`` batch rows, with ``smem`` bytes of
+    dynamic shared memory per CTA (:func:`_fwd_smem`, mirrors ``FwdLayout``
+    of csrc/gru_scan.cu).
     ``rows`` is 4 while the grid fits one CTA an SM of the card, else 8
-    (the mma's columns). Raises NotImplementedError for what the design
-    cannot hold."""
+    (the mma's columns); in f32 also 4 where 8 row slots do not fit (H >
+    448). Raises NotImplementedError for what the design cannot hold."""
     if dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"gru_layer_scan kernel: dtype {dtype}")
     cluster, units = _cluster_units("gru_layer_scan", H)
     rows = SCAN_FWD_SMALL_ROWS
-    if -(-B // rows) * cluster > sms:
+    if -(-B // rows) * cluster > sms and _fwd_smem(H, dtype, SCAN_FWD_SLOTS) \
+            <= kernels.SMEM_PER_BLOCK:
         rows = SCAN_FWD_SLOTS
-    tsize = torch.finfo(dtype).bits // 8
-    ld = _mma_ld(H) if dtype == torch.bfloat16 else H
-    cols = 3 * SCAN_BWD_UNITS
-    smem = (kernels.align16(cols * ld * tsize) + kernels.align16(2 * SCAN_FWD_SLOTS * ld * tsize)
-            + SCAN_FWD_PARTS * cols * SCAN_FWD_SLOTS * 4)
+    smem = _fwd_smem(H, dtype, rows)
     if smem > kernels.SMEM_PER_BLOCK:
         raise NotImplementedError(f"gru_layer_scan kernel: {smem} bytes of shared memory "
                                   f"per CTA exceed {kernels.SMEM_PER_BLOCK}")
     clusters = -(-B // rows)
     return dict(cluster=cluster, rows=rows, units=units, clusters=clusters,
-                ctas=clusters * cluster, threads=cols * SCAN_FWD_PARTS, smem=smem)
+                ctas=clusters * cluster, threads=3 * SCAN_BWD_UNITS * SCAN_FWD_PARTS, smem=smem)
 
 
 def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
     """Launch plan of the backward for B rows, T steps and H units: clusters
-    of ``cluster`` CTAs, each owning ``units`` hidden units of ``rows`` batch
-    rows, with ``smem`` bytes of dynamic shared memory per CTA (mirrors
-    ``ScanLayout`` of csrc/gru_scan.cu: its rows of Wh and two ``dh_proj``
-    buffers in the compute dtype, bf16 rows at the mma stride; dh, dh_part
-    and, in bf16, the warps' partial products in f32); and the dWh product's
-    64 x 64 tiles, each split over ``dwh_splits`` blocks along K = B*T.
-    Raises NotImplementedError for what the design cannot hold."""
+    of ``cluster`` CTAs (up to 16), each owning ``units`` hidden units of
+    ``rows`` batch rows (4, or 2 in f32 above 448 units), with ``smem`` bytes
+    of dynamic shared memory per CTA (:func:`_bwd_smem`, mirrors
+    ``ScanLayout`` of csrc/gru_scan.cu); and the dWh product's 64 x 64
+    tiles, each split over ``dwh_splits`` blocks along K = B*T. Raises
+    NotImplementedError for what the design cannot hold."""
     if dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"gru_layer_scan_bwd kernel: dtype {dtype}")
     cluster, units = _cluster_units("gru_layer_scan_bwd", H)
-    bf16 = dtype == torch.bfloat16
-    tsize = torch.finfo(dtype).bits // 8
-    wrows, ld = (SCAN_BWD_UNITS, _mma_ld(3 * H)) if bf16 else (units, 3 * H)
-    smem = (kernels.align16(wrows * ld * tsize) + kernels.align16(2 * SCAN_BWD_ROWS * ld * tsize)
-            + 2 * SCAN_BWD_ROWS * units * 4
-            + (SCAN_BWD_WARPS // 2 * SCAN_BWD_UNITS * SCAN_BWD_ROWS * 4 if bf16 else 0))
+    rows = _bwd_rows(H, dtype, units)
+    smem = _bwd_smem(H, dtype, units, rows)
     if smem > kernels.SMEM_PER_BLOCK:
         raise NotImplementedError(f"gru_layer_scan_bwd kernel: {smem} bytes of shared memory "
                                   f"per CTA exceed {kernels.SMEM_PER_BLOCK}")
-    clusters = -(-B // SCAN_BWD_ROWS)
+    clusters = -(-B // rows)
     dwh_tiles = -(-H // 64) * -(-3 * H // 64)
     dwh_splits = max(1, min(8, -(-B * T // 32) // 4))
-    return dict(cluster=cluster, rows=SCAN_BWD_ROWS, units=units, clusters=clusters,
+    return dict(cluster=cluster, rows=rows, units=units, clusters=clusters,
                 ctas=clusters * cluster, smem=smem, dwh_tiles=dwh_tiles, dwh_splits=dwh_splits)
 
 
@@ -348,15 +403,15 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     code = kernels.DTYPE_CODE[dt]
     co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
                                           "vmmt_gru_scan_bwd_occupancy", code, H,
-                                          plan["cluster"], plan["units"])
+                                          plan["cluster"], plan["units"], plan["rows"])
     _check_cluster("gru_layer_scan_bwd", plan, co_resident, smem)
     gru_layer_scan_bwd.plan = dict(plan, max_active_clusters=co_resident,
                                    one_wave=co_resident >= plan["clusters"])
     err = lib.vmmt_gru_scan_bwd(code, *map(_ptr, args), dx.data_ptr(),
                                 dh0.data_ptr(), dWh.data_ptr(), dbh.data_ptr(), hp.data_ptr(),
                                 dhn.data_ptr(), partial.data_ptr(), counters.data_ptr(), B, T, H,
-                                int(reverse), plan["cluster"], plan["units"], splits,
-                                kernels.stream_of(x))
+                                int(reverse), plan["cluster"], plan["units"], plan["rows"],
+                                splits, kernels.stream_of(x))
     kernels.check(lib, err, "gru_layer_scan_bwd")
     gru_layer_scan_bwd.launches += 1
     gru_layer_scan_bwd.reset_launches += r is not None

@@ -16,6 +16,10 @@ them (applied after clean training, as in the JAX runner):
   z_zero      decoding takes z = 0 instead of the prior mean
   alpha0      the beam's length penalty is off
 
+With ``-ema_decay d`` the run also keeps an EMA of the weights
+(``-ema_ramp``) and decodes the test split with them too, reporting
+``test_bleu_ema`` beside ``test_bleu`` (JAX's :193-204).
+
 The device is cuda unless ``-device cpu``. The route follows from it:
 on cuda ``kernels``, the port's production route (bf16, ``use_pallas``,
 ``pallas_decoder``, ``fused_ce`` and decode ``pallas_step`` 1); on the
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import subprocess
 import time
@@ -81,6 +86,7 @@ def build_cfg(model_type: str, seed: int, args) -> Config:
             seed=seed, max_steps=args.steps, learning_rate=4e-4,
             kl_anneal="none" if args.defect == "kl_off" else "linear",
             kl_anneal_steps=max(1, args.steps // 2), kl_free_bits=args.kl_free_bits,
+            ema_decay=args.ema_decay, ema_ramp=bool(args.ema_ramp),
             pack=bool(args.pack), pack_segments=args.pack_segments))
 
 
@@ -184,6 +190,15 @@ def run_one(model_type: str, seed: int, data, args, device: torch.device, card: 
                                          None if text_only else va_feats)
         vbleu = corpus_bleu([tv.decode(nb[0][1]) for nb in out_v],
                             [[r] for r in va_tgt])["bleu"]
+        bleu_ema = None
+        if args.ema_decay > 0:
+            # same harness, EMA weights: the raw-vs-Polyak decode comparison
+            ema_tr = Translator(ema_model(trainer), sv, tv, dcfg, buckets=BUCKETS,
+                                device=device)
+            out_e = ema_tr.translate_ids([sv.encode(s) for s in te_src],
+                                         None if text_only else te_feats)
+            bleu_ema = corpus_bleu([tv.decode(nb[0][1]) for nb in out_e],
+                                   [[r] for r in te_tgt])["bleu"]
     res = {"model": model_type, "seed": seed, "defect": args.defect, "img_pool": args.img_pool,
            "img_regions": args.img_regions, "test_bleu": round(bleu, 2),
            "valid_bleu": round(vbleu, 2), "steps": args.steps, "train_s": round(train_s, 1),
@@ -191,7 +206,19 @@ def run_one(model_type: str, seed: int, data, args, device: torch.device, card: 
            "card": card, "launches": {k: fn.launches for k, fn in COUNTERS.items()}}
     if cfg.train.pack:
         res["pack"] = 1
+    if bleu_ema is not None:
+        res.update(ema_decay=args.ema_decay, ema_ramp=bool(args.ema_ramp),
+                   test_bleu_ema=round(bleu_ema, 2))
     return res
+
+
+def ema_model(trainer: Trainer) -> torch.nn.Module:
+    """A copy of the trainer's model holding its EMA weights."""
+    model = copy.deepcopy(trainer.model)
+    with torch.no_grad():
+        for p, e in zip(model.parameters(), trainer.state.ema):
+            p.copy_(e)
+    return model
 
 
 def card_name(device: torch.device) -> str:
@@ -225,8 +252,11 @@ def parse_args(argv=None):
     p.add_argument("-img_pool", default="mean", choices=["mean", "attn"])
     p.add_argument("-batch_size", type=int, default=64)
     p.add_argument("-kl_free_bits", type=float, default=0.0)
+    p.add_argument("-ema_ramp", type=int, default=1,
+                   help="0: fixed decay (no num_updates warm-in)")
     p.add_argument("-ema_decay", type=float, default=0.0,
-                   help="refused: EMA weights are not ported yet")
+                   help=">0: also decode with the EMA (Polyak) weights and "
+                        "report test_bleu_ema next to the raw test_bleu")
     p.add_argument("-corpus", default="ambiguous", choices=["ambiguous", "plain"],
                    help="plain: the deterministic task (synthetic.make_corpus)")
     p.add_argument("-tgt_noise", type=float, default=0.0,
@@ -247,8 +277,6 @@ def parse_args(argv=None):
         args.route = "kernels" if args.device == "cuda" else "plain"
     elif args.device == "cpu" and args.route != "plain":
         p.error(f"-route {args.route} needs -device cuda (the CPU runs the plain route)")
-    if args.ema_decay > 0:
-        p.error("-ema_decay > 0: EMA weights are not ported yet")
     if args.img_pool == "attn" and args.img_regions > 0:
         p.error("-img_pool attn with -img_regions > 0: region attention pooling is not "
                 "ported yet")

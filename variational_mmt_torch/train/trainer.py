@@ -280,14 +280,16 @@ class Trainer:
     ``metrics_logger`` (utils/metrics_log.py) and ``bleu_fn(state) -> BLEU``
     are optional, as in JAX. ``train_feats`` / ``valid_feats``: the image
     features of the two corpora, held on the device; the iterators then
-    carry none and each batch gathers its rows by ``batch.indices``."""
+    carry none and each batch gathers its rows by ``batch.indices``.
+    ``valid_iw`` K > 0: validation also reports the K-sample IW-ELBO bound
+    ``iw_elbo`` (latent models; decode/iw_eval.py)."""
 
     def __init__(self, cfg: Config, model: VMMTModel, train_iter: Iterable,
                  valid_iter: Optional[Iterable] = None, device=None,
                  checkpoint_fn: Optional[Callable[[TrainState, int, Dict], None]] = None,
                  metrics_logger=None, bleu_fn: Optional[Callable[[TrainState], float]] = None,
                  train_feats: Optional[np.ndarray] = None,
-                 valid_feats: Optional[np.ndarray] = None):
+                 valid_feats: Optional[np.ndarray] = None, valid_iw: int = 0):
         cfg.train.check_supported()
         accum = max(1, cfg.train.grad_accum)
         if cfg.train.batch_size % accum:
@@ -307,6 +309,12 @@ class Trainer:
         self.state = create_train_state(cfg, self.model)
         self.train_step = make_train_step(cfg)
         self.scheduler = PlateauScheduler(cfg.train)
+        self.valid_iw = valid_iw
+        self._iw_fn = None
+        if valid_iw > 0 and model.is_latent:
+            from variational_mmt_torch.decode.iw_eval import make_iw_elbo_fn
+
+            self._iw_fn = make_iw_elbo_fn(self.model, valid_iw)
         self.history: List[Dict[str, float]] = []  # one record a validation
         self.final_state: Optional[TrainState] = None
         # the last run's steps, metrics and seconds: in all, and in validation
@@ -434,21 +442,32 @@ class Trainer:
 
     def validate(self, state: Optional[TrainState] = None) -> Dict[str, float]:
         """ppl, xent, accuracy, kl, img_loss and elbo over ``valid_iter``'s
-        epoch 0 (JAX :663-691, without ``iw_elbo``)."""
+        epoch 0 and, with ``valid_iw``, ``iw_elbo`` (JAX :663-691; the IW
+        draws come from a generator seeded with ``train.seed``, the same at
+        every validation, as JAX folds the batch index into its base key)."""
         state = self.state if state is None else state
+        keys = VALID_KEYS + (("iw_elbo_sum",) if self._iw_fn is not None else ())
+        gen = None
+        if self._iw_fn is not None:
+            gen = torch.Generator(device=self.device).manual_seed(self.cfg.train.seed)
         rows = []
         for batch in self.valid_iter.epoch(0):
-            m = eval_metrics(self.cfg, state.model,
-                             batch_tensors(batch, self.device, self._valid_table), state.step)
-            rows.append(torch.stack([m[k].float() for k in VALID_KEYS]))
+            bt = batch_tensors(batch, self.device, self._valid_table)
+            m = eval_metrics(self.cfg, state.model, bt, state.step)
+            if self._iw_fn is not None:
+                m["iw_elbo_sum"] = self._iw_fn(bt, gen)["iw_elbo_sum"]
+            rows.append(torch.stack([m[k].float() for k in keys]))
         # one transfer; batch sums added on the host, in float64, as JAX does
-        agg = dict.fromkeys(VALID_KEYS, 0.0)
+        agg = dict.fromkeys(keys, 0.0)
         for row in (torch.stack(rows).cpu().tolist() if rows else []):
-            for k, v in zip(VALID_KEYS, row):
+            for k, v in zip(keys, row):
                 agg[k] += v
         xent = agg["ce_sum"] / max(1.0, agg["n_tokens"])
         n_sents = max(1.0, agg["n_sents"])
-        return {"ppl": math.exp(min(xent, 100.0)), "xent": xent,
-                "accuracy": 100.0 * agg["n_correct"] / max(1.0, agg["n_tokens"]),
-                "kl": agg["kl_sum"] / n_sents, "img_loss": agg["img_loss_sum"] / n_sents,
-                "elbo": -(agg["ce_sum"] + agg["kl_sum"]) / n_sents}
+        out = {"ppl": math.exp(min(xent, 100.0)), "xent": xent,
+               "accuracy": 100.0 * agg["n_correct"] / max(1.0, agg["n_tokens"]),
+               "kl": agg["kl_sum"] / n_sents, "img_loss": agg["img_loss_sum"] / n_sents,
+               "elbo": -(agg["ce_sum"] + agg["kl_sum"]) / n_sents}
+        if self._iw_fn is not None:
+            out["iw_elbo"] = agg["iw_elbo_sum"] / n_sents
+        return out
