@@ -16,8 +16,13 @@ in PERF.md).
    row whose source is all padding, and each for bit-identical outputs in
    two launches. Times at bf16: kernel, plain version and, for the scan,
    cuDNN's nn.GRU forward (which also does the input projection), at the
-   scan's serving shape (B=256) and training shape (B=64, T=24). Each
-   prints its launch plan.
+   scan's serving shape (B=256) and training shape (B=64, T=24); for the
+   GRU chain, cuDNN's 2-layer nn.GRU over one step on [emb; feed] (which
+   also does layer 0's input projection) and the chain's own time, both
+   on the device's clock (torch.profiler's kernel times); cuDNN's times in
+   the ``kernels`` line are on the device's clock, with the eager reading
+   (CUDA events around back-to-back calls, host-bound at these sizes)
+   beside them. Each prints its launch plan.
    Kernel phases, training: the GRU-scan backward (B=64, T=24, H=250, both
    directions, padded rows) and the decoder sequence forward and backward
    (B=64, T=25, S=24, H=500, dropout mask at p=0.3), every output and
@@ -203,15 +208,51 @@ in PERF.md).
     250`` with it on (rows 1, 2, 5 and 6 at 252), then ``cli.translate`` of
     that model at pallas_step 1 and 2 (rows 3 and 4 at 252); all counted
     as ``widths``.
-14. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+14. Ensemble phase, from phase 10's checkpoint and corpus: two more
+    full-width vmmt_c members with random weights (numpy seeds 1 and 2,
+    through convert.py) saved by the port's checkpoint writer with phase
+    10's vocabs; decoding is beam 4, max_length 60, over phase 10's 256
+    test sentences and one request of 256 at the flagship's shapes (numpy
+    seed 4). Checks, in f32 compute: the same checkpoint three times at
+    pallas_step 0, in both ensemble modes, gives the single model's top-1
+    on at least 255 of the 256 test sentences; the 3-member ensemble at
+    pallas_step 1 and 2 agrees with pallas_step 0 on at least 31 of 32.
+    The int8 codes, scales and dequantized bf16 weights the card computes
+    equal the CPU's bit for bit. Each member's bytes at rest, the
+    ``memory_allocated`` delta of building its int8 Translator from a
+    host model (after ``empty_cache``, before any request), must equal
+    the count from its shapes (1 byte a weight of two or more dimensions,
+    4 a scale, 4 an element of a 1-D leaf) up to the caching allocator's
+    rounding (511 bytes a block, and below 1 MiB of unsplit segment for a
+    block above 1 MiB), the requested-bytes delta exactly, and the three
+    members' sum likewise; f32 and bf16 bytes at rest are printed beside
+    them. Counted as ``ensemble``: sent/s of the single model and of the
+    3-member ensemble at infer_dtype float32, bfloat16 and int8, each at
+    pallas_step 0, 1 and 2 (rows 1, 3 and 4 must run), as decoded and with
+    every hypothesis held to 60 steps (min_length 60), two timed runs each
+    in turns after one untimed, with the int8 vs bf16 top-1 agreement; at
+    bf16 and int8 the top-1 at pallas_step 1 and 2 must equal pallas_step
+    0's on at least 31 in 32 of the 512 sentences (the step kernels on
+    bf16-stored and int8-rebuilt weights against the plain step). Not
+    counted: ms a batch of 32 of the f32 single model through the
+    Translator (which lends its weights with ``functional_call``) and
+    through the translate function on the model itself, three runs each
+    in turns. Counted again: ``cli.translate -model a,b,c`` at
+    ``-infer_dtype int8`` and ``bfloat16``. Then ``cli.serve -model a,b,c
+    -infer_dtype int8`` answers 32 single-sentence requests sent at once,
+    each equal to the offline int8 ensemble Translator's. Last, the port's
+    preprocess CLI from phase 10's 2048 training pairs written as text
+    (BPE, ``-shard_size 512``: 4 shards), timed, and 5 steps of the train
+    CLI on its corpus (counted as ``preprocess``).
+15. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
     numbers at the gate's shape, ``serve_shapes`` rows 1, 3 and 4 at the
     service's, ``widths`` each kernel's numbers at the widths phase's
     shapes, ``launches_by_path`` the serving, training, packed-training,
-    families, CLI, online-serving, option-check, eval and widths counts),
-    then the last line
+    families, CLI, online-serving, option-check, eval, widths, ensemble
+    and preprocess counts), then the last line
     {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
@@ -221,6 +262,7 @@ port's package is not beside this script, or when any phase fails.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -228,6 +270,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -274,6 +318,11 @@ WIDTH_SCANS = ((64, 24, 512, ("float32", "bfloat16")), (256, 24, 512, ("bfloat16
                (64, 24, 300, ("float32", "bfloat16")))  # B, T, H and the checked dtypes
 WIDTH_STEP_NS, WIDTH_DEC = (128, 32), dict(B=64, T=25, S=24, H=250)  # rows 3-6 at H = 250
 WIDTH_CLI_STEPS = 10  # train CLI steps at -rnn_size 1024 (scans) and 250 (decoder kernels)
+ENS_SEEDS, ENS_SEED = (1, 2), 4  # numpy seeds: the random members; the flagship request
+ENS_DTYPES = ("float32", "bfloat16", "int8")  # -infer_dtype of the timed decodes
+ENS_SENT, ENS_MAXLEN = 256, 60  # sentences an input (test set; flagship request), max_length
+ENS_CHECK, ENS_SERVE = 32, 32  # f32 kernel-vs-plain sentences; requests to the serve CLI
+ENS_SHARD, ENS_PP_STEPS = 512, 5  # preprocess -shard_size; train CLI steps on its corpus
 
 
 def fail(msg: str) -> None:
@@ -293,6 +342,23 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> Optional[float]:
+    """Mean device time of one call: the time of the CUDA kernels that
+    ``torch.profiler`` records over ``iters`` calls, without the host's
+    cost of launching them (None: the profiler recorded none)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us else None
 
 
 def bound(n_bytes: float, flops: float, dtype: str):
@@ -530,17 +596,19 @@ def scan_bwd_errs(gru_scan, args):
     return max(errs), max(abs_errs), outs
 
 
-def cudnn_bwd_ms(g, B: int, T: int, H: int) -> float:
+def cudnn_bwd_ms(g, B: int, T: int, H: int) -> Tuple[Optional[float], float]:
     """cuDNN's nn.GRU backward in bf16 (which also computes the
-    input-projection gradients that the port leaves to cuBLAS)."""
+    input-projection gradients that the port leaves to cuBLAS): (ms on the
+    device's clock, eager ms by CUDA events)."""
     gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
     gru.flatten_parameters()
     xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
     xin.requires_grad_(True)
     y, _ = gru(xin)
     gy = torch.randn(y.shape, generator=g, device="cuda").to(torch.bfloat16)
-    return cuda_ms(lambda: torch.autograd.grad(y, [xin, *gru.parameters()], gy,
-                                               retain_graph=True))
+    call = lambda: torch.autograd.grad(y, [xin, *gru.parameters()], gy,  # noqa: E731
+                                       retain_graph=True)
+    return device_ms(call), cuda_ms(call)
 
 
 def scan_bwd_phase(gru_scan, shape):
@@ -568,10 +636,11 @@ def scan_bwd_phase(gru_scan, shape):
     print_plan(f"gru_scan_bwd {at}", rec["plan"])
     rec["ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd(*args))
     rec["plain_ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*args), iters=5)
-    rec["library_ms"] = cudnn_bwd_ms(g, B, T, H)
+    rec["library_ms"], rec["library_eager_ms"] = cudnn_bwd_ms(g, B, T, H)
     rec["bound_ms"], rec["bound_by"] = scan_bwd_bound(B, T, H)
     print(f"  gru_scan_bwd {at} bfloat16: kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.3f} ms, nn.GRU backward {rec['library_ms']:.4f} ms, bound "
+          f"{rec['plain_ms']:.3f} ms, nn.GRU backward {fmt_ms(rec['library_ms'])} on the "
+          f"device's clock (eager, host-bound: {rec['library_eager_ms']:.4f} ms), bound "
           f"{rec['bound_ms']:.4f} ms")
     return rec
 
@@ -699,11 +768,13 @@ def scan_timing(gru_scan, g, B, T, H):
     gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
     xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
     with torch.no_grad():
-        rec["library_ms"] = cuda_ms(lambda: gru(xin))
+        rec["library_ms"] = device_ms(lambda: gru(xin))
+        rec["library_eager_ms"] = cuda_ms(lambda: gru(xin))
     rec["bound_ms"], rec["bound_by"] = scan_fwd_bound(B, T, H)
     print_plan(f"gru_scan B={B} T={T}", rec["plan"])
     print(f"  gru_scan B={B} T={T} bfloat16: kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.3f} ms, nn.GRU forward {rec['library_ms']:.4f} ms, bound "
+          f"{rec['plain_ms']:.3f} ms, nn.GRU forward {fmt_ms(rec['library_ms'])} on the "
+          f"device's clock (eager, host-bound: {rec['library_eager_ms']:.4f} ms), bound "
           f"{rec['bound_ms']:.4f} ms")
     return rec
 
@@ -791,11 +862,37 @@ def step_phase(ds, shape):
     print_plan(f"decode_step cells {at}", step_rec["plan"])
     (step_rec["bound_ms"], step_rec["bound_by"]), (chain_rec["bound_ms"], chain_rec["bound_by"]) \
         = step_bounds(N, S, H)
-    step_rec["library_ms"] = chain_rec["library_ms"] = None
+    step_rec["library_ms"] = None  # no one PyTorch call: cells and attention
+    # row 4 beside cuDNN on the device's clock: eager back-to-back calls of
+    # nn.GRU time the host's cost of its call, not the card's work
+    chain_rec["device_ms"] = device_ms(lambda: ds.gru_chain(*chain))
+    chain_rec["library_ms"], chain_rec["library_eager_ms"] = gru_chain_library_ms(N, H)
     for name, rec in (("decode_step", step_rec), ("gru_chain", chain_rec)):
+        lib = "" if name == "decode_step" else (
+            f", on the device's clock (torch.profiler) kernel {fmt_ms(rec['device_ms'])}, cuDNN "
+            f"2-layer nn.GRU one step {fmt_ms(rec['library_ms'])} (eager, host-bound: "
+            f"{rec['library_eager_ms']:.4f} ms)")
         print(f"  {name} {at} bfloat16: kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} "
-              f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+              f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}){lib}")
     return step_rec, chain_rec
+
+
+def fmt_ms(ms: Optional[float]) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def gru_chain_library_ms(N: int, H: int) -> Tuple[Optional[float], float]:
+    """bf16 ms of cuDNN's 2-layer ``nn.GRU`` over one step of N rows on
+    [emb; feed] (emb width H, as at both shapes): the GRU chain's function,
+    plus layer 0's input projection, which the chain takes precomputed.
+    Returns (device time, eager time by CUDA events)."""
+    gru = torch.nn.GRU(2 * H, H, num_layers=2, batch_first=True, device="cuda",
+                       dtype=torch.bfloat16)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(N, 1, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
+    h = torch.tanh(torch.randn(2, N, H, generator=g, device="cuda")).to(torch.bfloat16)
+    with torch.no_grad():
+        return device_ms(lambda: gru(x, h)), cuda_ms(lambda: gru(x, h))
 
 
 def well_formed(out, n_sent: int, vocab_size: int, max_length: int) -> None:
@@ -1804,10 +1901,10 @@ def serve_phase(card: str, root: str):
     lm = load_model_spec(ckpt, device="cuda")
     rec["in_process"] = {}
     for depth in (1, 0):
-        svc = TranslationService(lm.model, lm.src_vocab, lm.tgt_vocab, dcfg,
-                                 buckets=lm.cfg.data.buckets or SERVE_BUCKETS,
+        svc = TranslationService(lm.models[0], lm.src_vocab, lm.tgt_vocab, dcfg,
+                                 buckets=lm.cfgs[0].data.buckets or SERVE_BUCKETS,
                                  scfg=ServeConfig(pipeline_depth=depth), device="cuda")
-        http = ServingServer(svc, "127.0.0.1", 0, info={"model_type": lm.cfg.model.model_type})
+        http = ServingServer(svc, "127.0.0.1", 0, info={"model_type": lm.cfgs[0].model.model_type})
         http.start()
         device_thread = svc.translator._device_thread()
         try:
@@ -2165,12 +2262,13 @@ def widths_phase(card: str, root: str):
             outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
             bargs = (x, mask, h0, wh, bh, outs, gout, True)
             b = {"ms": cuda_ms(lambda: gru_scan.gru_layer_scan_bwd(*bargs)),
-                 "plain_ms": cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*bargs), iters=5),
-                 "library_ms": cudnn_bwd_ms(g, B, T, H)}
+                 "plain_ms": cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*bargs), iters=5)}
+            b["library_ms"], b["library_eager_ms"] = cudnn_bwd_ms(g, B, T, H)
             b["bound_ms"], b["bound_by"] = scan_bwd_bound(B, T, H)
             r["bwd"] = b
             print(f"  gru_scan_bwd {at} bfloat16: kernel {b['ms']:.4f} ms, plain "
-                  f"{b['plain_ms']:.3f} ms, nn.GRU backward {b['library_ms']:.4f} ms, bound "
+                  f"{b['plain_ms']:.3f} ms, nn.GRU backward {fmt_ms(b['library_ms'])} on the "
+                  f"device's clock (eager, host-bound: {b['library_eager_ms']:.4f} ms), bound "
                   f"{b['bound_ms']:.4f} ms ({card})")
         rec["scan"][at] = r
     # rows 3-6 at a width that is not a multiple of 4 (padded to 252)
@@ -2262,6 +2360,369 @@ def widths_phase(card: str, root: str):
     return total, rec
 
 
+def int8_rest_bytes(shapes) -> int:
+    """Bytes an int8 member holds between requests, from its parameter
+    shapes: 1 a weight of two or more dimensions, 4 a scale (one a
+    last-axis column), 4 an element of a 1-D leaf."""
+    return sum(math.prod(s) + 4 * s[-1] if len(s) >= 2 else 4 * math.prod(s)
+               for s in shapes.values())
+
+
+def allocator_slack(shapes) -> int:
+    """The most by which ``torch.cuda.memory_allocated`` may exceed the
+    bytes of these int8 tensors: each block is rounded up to 512 bytes, and
+    a block of more than 1 MiB may keep an unsplit remainder of its segment
+    below 1 MiB (the caching allocator's large pool splits only a larger
+    one)."""
+    sizes = [n for s in shapes.values()
+             for n in ((math.prod(s), 4 * s[-1]) if len(s) >= 2 else (4 * math.prod(s),))]
+    return sum(511 if n <= 2 ** 20 else 2 ** 20 for n in sizes)
+
+
+def resident(build):
+    """(the object ``build()`` returns, device bytes it added as
+    ``memory_allocated`` and as the requested bytes), read after
+    ``empty_cache``."""
+    def now():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        stats = torch.cuda.memory_stats()
+        return torch.cuda.memory_allocated(), stats.get("requested_bytes.all.current")
+
+    a0, r0 = now()
+    out = build()
+    a1, r1 = now()
+    return out, a1 - a0, (None if r0 is None else r1 - r0)
+
+
+def ensemble_phase(card: str, root: str):
+    """Checkpoint ensembles, the inference dtypes and the port's preprocess
+    (module docstring, phase 14) from phase 10's checkpoint and corpus in
+    ``root``. Returns ({path: {kernel: launches}}, record)."""
+    from variational_mmt_torch.cli import preprocess as cli_preprocess
+    from variational_mmt_torch.cli import train as cli_train, translate as cli_translate
+    from variational_mmt_torch.cli.loading import load_model_spec
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.convert import params_from_jax
+    from variational_mmt_torch.data.synthetic import make_corpus
+    from variational_mmt_torch.data.tokenizer import tokenize
+    from variational_mmt_torch.decode.translator import (Translator, dequantize_params,
+                                                         quantize_params_int8)
+    from variational_mmt_torch.models.model import build_model, init_params, param_shapes
+    from variational_mmt_torch.tools import flagship
+    from variational_mmt_torch.train import checkpoint as ck
+    from variational_mmt_torch.train.trainer import create_train_state
+
+    rec, t_phase = {}, time.time()
+    ckpt = ck.latest_checkpoint(os.path.join(root, "run"))
+    lm = load_model_spec(ckpt, device="cpu")
+    cfg, sv, tv = lm.cfgs[0], lm.src_vocab, lm.tgt_vocab
+    host, paths = [lm.models[0]], [ckpt]
+    for seed in ENS_SEEDS:  # random full-width members, saved with phase 10's vocabs
+        m = build_model(cfg.model, device="cpu")
+        m.load_state_dict(params_from_jax(init_params(cfg.model, seed=seed), cfg.model))
+        paths.append(ck.save_checkpoint(os.path.join(root, f"member{seed}"),
+                                        create_train_state(cfg, m), cfg, sv, tv))
+        host.append(m)
+    V, shapes = cfg.model.tgt_vocab_size, param_shapes(cfg.model)
+    with open(os.path.join(root, "test.src"), encoding="utf-8") as f:
+        test_tok = [line.split() for line in f]
+    feats = np.load(os.path.join(root, "test.feats.npy"))
+    inputs = [([sv.encode(t) for t in test_tok], feats),
+              flagship.requests(cfg.model, seed=ENS_SEED)(ENS_SENT)]
+    n_in = sum(len(s) for s, _ in inputs)
+
+    def dcfg(**kw):
+        return DecodeConfig(**{"beam_size": 4, "max_length": ENS_MAXLEN,
+                               "batch_size": ENS_SENT, **kw})
+
+    def top1(out):
+        return [nbest[0][1] for nbest in out]
+
+    def on_card(mcfg, members):
+        out = []
+        for m in members:
+            c = build_model(mcfg, device="cuda")
+            c.load_state_dict(m.state_dict())
+            out.append(c.eval())
+        return out
+
+    # f32 checks, not counted: a self-ensemble is the single model; the
+    # step kernels against the plain step on the 3-member ensemble
+    cfg32 = dataclasses.replace(cfg.model, compute_dtype="float32")
+    m32 = on_card(cfg32, host)
+    src, img = inputs[0]
+    single = top1(Translator(m32[0], sv, tv, dcfg(), device="cuda").translate_ids(src, img))
+    rec["self_ensemble_same"] = {}
+    for mode in ("prob", "logprob"):
+        trio = Translator([m32[0]] * 3, sv, tv, dcfg(ensemble_mode=mode), device="cuda")
+        same = sum(a == b for a, b in zip(single, top1(trio.translate_ids(src, img))))
+        rec["self_ensemble_same"][mode] = same
+        print(f"ensemble: f32 self-ensemble x3 ({mode}) vs the single model: "
+              f"{same}/{len(src)} identical top-1")
+        if same < len(src) - 1:
+            fail(f"a self-ensemble ({mode}) decodes differently from its model")
+    src32, img32 = src[:ENS_CHECK], img[:ENS_CHECK]
+    outs = {s: top1(Translator(m32, sv, tv, dcfg(batch_size=ENS_CHECK, pallas_step=s),
+                               device="cuda").translate_ids(src32, img32)) for s in (0, 1, 2)}
+    rec["kernel_vs_plain_same"] = {}
+    for s in (1, 2):
+        same = sum(a == b for a, b in zip(outs[s], outs[0]))
+        rec["kernel_vs_plain_same"][s] = same
+        print(f"ensemble: f32 3-member ensemble, pallas_step {s} vs 0: {same}/{ENS_CHECK} "
+              "identical top-1")
+        if same < ENS_CHECK - 1:
+            fail(f"the ensemble at pallas_step {s} disagrees with the plain step")
+    del m32
+
+    # int8 codes on the card against the CPU's, bit for bit
+    state = host[0].state_dict()
+    q_cpu = quantize_params_int8(state)
+    q_gpu = quantize_params_int8({k: v.cuda() for k, v in state.items()})
+    d_cpu, d_gpu = dequantize_params(q_cpu), dequantize_params(q_gpu)
+    bad = []
+    for k, v in q_cpu.items():
+        if isinstance(v, dict):
+            same = (torch.equal(v["int8"], q_gpu[k]["int8"].cpu())
+                    and torch.equal(v["scale"].view(torch.int32),
+                                    q_gpu[k]["scale"].cpu().view(torch.int32))
+                    and torch.equal(d_cpu[k].view(torch.int16), d_gpu[k].cpu().view(torch.int16)))
+            if not same:
+                bad.append(k)
+    n_q = sum(isinstance(v, dict) for v in q_cpu.values())
+    print(f"ensemble: int8 codes, scales and dequantized bf16 of {n_q} weights: card = CPU bit "
+          f"for bit {'yes' if not bad else bad}")
+    if bad:
+        fail(f"the card's int8 codes differ from the CPU's: {bad[:4]}")
+    del q_gpu, d_gpu
+
+    # bytes at rest: each member alone, then the three together
+    want, slack = int8_rest_bytes(shapes), allocator_slack(shapes)
+    rest = {}
+    for dt in ENS_DTYPES:
+        per = []
+        for m in host:
+            # the model stays in host memory: only the translator's copy is on the card
+            tr, alloc, req = resident(lambda: Translator(m, sv, tv, dcfg(infer_dtype=dt),
+                                                         device="cuda"))
+            per.append({"allocated": alloc, "requested": req, "held": tr.weight_bytes()})
+            del tr
+        rest[dt] = per
+        print(f"ensemble: bytes at rest a member, {dt}: "
+              f"{', '.join(str(p['allocated']) for p in per)} allocated "
+              f"({', '.join(str(p['requested']) for p in per)} requested)")
+    for p in rest["int8"]:
+        if p["held"] != want or (p["requested"] is not None and p["requested"] != want) \
+                or not 0 <= p["allocated"] - want <= slack:
+            fail(f"an int8 member holds {p} bytes at rest; its shapes say {want} (allocator "
+                 f"rounding up to {slack})")
+    _, alloc3, req3 = resident(lambda: Translator(host, sv, tv, dcfg(infer_dtype="int8"),
+                                                  device="cuda"))
+    print(f"ensemble: int8 at rest, {want} bytes a member from the shapes (the allocator "
+          f"may add up to {slack}); 3 members {alloc3} allocated, {req3} requested; f32 "
+          f"{rest['float32'][0]['allocated']}, bf16 {rest['bfloat16'][0]['allocated']} a member")
+    if req3 is not None and req3 != 3 * want or not 0 <= alloc3 - 3 * want <= 3 * slack:
+        fail("the 3-member int8 ensemble holds more than its codes, scales and 1-D leaves")
+    rec["rest_bytes"] = dict(rest, int8_from_shapes=want, allocator_slack=slack,
+                             int8_ensemble_allocated=alloc3, int8_ensemble_requested=req3)
+
+    # the main path, counted: sent/s of one model and of three, each dtype and step
+    members = on_card(cfg.model, host)
+    rate, tops = {}, {}
+
+    configs = list(itertools.product(("single", "ensemble"), (False, True), ENS_DTYPES,
+                                     (0, 1, 2)))
+
+    def timed():
+        """Every configuration (members, held to all ``max_length`` steps by
+        ``min_length`` or not: phase 10's model ends its hypotheses early,
+        dtype, step): one untimed pass over the inputs, then timed passes
+        in turns, all configurations forward and then backward."""
+        trs = {c: Translator(members if c[0] == "ensemble" else members[0], sv, tv,
+                             dcfg(infer_dtype=c[2], pallas_step=c[3],
+                                  min_length=ENS_MAXLEN if c[1] else 0), device="cuda")
+               for c in configs}
+        runs = {c: [] for c in configs}
+        for i, c in enumerate(configs + configs + configs[::-1]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = [trs[c].translate_ids(s_, i_) for s_, i_ in inputs]
+            torch.cuda.synchronize()
+            if i >= len(configs):  # the first pass warms up
+                runs[c].append(n_in / (time.perf_counter() - t))
+            for o, (s_, _) in zip(out, inputs):
+                well_formed(o, len(s_), V, ENS_MAXLEN)
+            if not c[1] and c[2] != "float32":  # bf16 and int8 top-1 at each step
+                tops[c[0], c[2], c[3]] = [x for o in out for x in top1(o)]
+        for c, tr in trs.items():
+            tr.close()
+            rate[f"{c[0]}{' full' if c[1] else ''} {c[2]} pallas_step={c[3]}"] = runs[c]
+
+    launches, _ = counted_run(timed)
+    for name in ("single", "ensemble", "single full", "ensemble full"):
+        print(f"ensemble: beam-4 sent/s, {name} ({3 if 'ensemble' in name else 1} member(s); "
+              f"{n_in} sentences, max_length {ENS_MAXLEN}"
+              f"{', min_length too' if 'full' in name else ''}, {card}; two runs in "
+              "turns): " + "; ".join(f"{dt} " + " / ".join(
+                  ", ".join(f"{r:.1f}" for r in rate[f"{name} {dt} pallas_step={s}"])
+                  for s in (0, 1, 2)) for dt in ENS_DTYPES) + " (pallas_step 0 / 1 / 2)")
+    agree = {name: sum(a == b for a, b in zip(tops[name, "int8", 0],
+                                              tops[name, "bfloat16", 0]))
+             for name in ("single", "ensemble")}
+    mean_len = {name: float(np.mean([len(x) for x in tops[name, "bfloat16", 0]]))
+                for name in ("single", "ensemble")}
+    # the kernels on bf16-stored and int8-rebuilt weights against the plain
+    # step on the same weights: 31 of 32 top-1 equal, as the f32 checks
+    kernel_same = {f"{name} {dt} pallas_step={s}": sum(
+        a == b for a, b in zip(tops[name, dt, s], tops[name, dt, 0]))
+        for name in ("single", "ensemble") for dt in ("bfloat16", "int8") for s in (1, 2)}
+    print(f"ensemble: top-1 at pallas_step 1 and 2 vs 0 on the same weights ({n_in} "
+          "sentences): " + "; ".join(f"{k} {v}" for k, v in kernel_same.items()))
+    low = [k for k, v in kernel_same.items() if 32 * v < 31 * n_in]
+    if low:
+        fail(f"the step kernels disagree with the plain step on more than 1 in 32 sentences "
+             f"at bf16/int8 weights: {low}")
+    print(f"ensemble: int8 vs bf16 top-1 agreement at pallas_step 0: single "
+          f"{agree['single']}/{n_in}, ensemble {agree['ensemble']}/{n_in}; mean top-1 "
+          f"length (bfloat16) single {mean_len['single']:.2f}, ensemble "
+          f"{mean_len['ensemble']:.2f} tokens")
+    rec.update(sent_per_s=rate, int8_bf16_top1_same=agree, mean_top1_len=mean_len,
+               kernel_vs_plain_same_cast=kernel_same)
+    rec["lending_ms_a_batch"] = lending_cost(members[0], sv, tv, dcfg(batch_size=SERVE_BATCH),
+                                             inputs[0])
+    del members
+
+    # the CLIs over the three checkpoints
+    spec = ",".join(paths)
+    tr_argv = ["-model", spec, "-src", os.path.join(root, "test.src"), "-tgt",
+               os.path.join(root, "test.tgt"), "-img_feats", os.path.join(root, "test.feats.npy"),
+               "-pretokenized", "-beam_size", "4", "-batch_size", str(ENS_SENT), "-max_length",
+               str(ENS_MAXLEN), "-report_bleu", "-output", os.path.join(root, "ens_pred.txt")]
+    rec["cli_translate"] = {}
+    for dt in ("int8", "bfloat16"):
+        got, out = counted_run(lambda: cli_translate.main(tr_argv + ["-infer_dtype", dt]))
+        for k in launches:
+            launches[k] += got[k]
+        well_formed(out["nbest"], len(test_tok), V, ENS_MAXLEN)
+        if got["gru_layer_scan"] <= 0:
+            fail(f"the translate CLI's ensemble at {dt} launched no scan")
+        rec["cli_translate"][dt] = out["sent_per_s"]
+        print(f"ensemble: cli.translate -model a,b,c -infer_dtype {dt}: "
+              f"{out['sent_per_s']:.1f} sent/s, BLEU {out['bleu']:.2f}; launches {got}")
+    for k in ("gru_layer_scan", "decode_step", "gru_chain"):
+        if launches[k] <= 0:
+            fail(f"kernel {k} was not launched on the ensemble path")
+    with open(os.path.join(root, "test.src"), encoding="utf-8") as f:
+        texts = [line.rstrip("\n") for line in f][:ENS_SERVE]
+    dcfg_srv = DecodeConfig(beam_size=4, max_length=ENS_MAXLEN, batch_size=SERVE_BATCH,
+                            infer_dtype="int8")
+    tr = Translator(host, sv, tv, dcfg_srv, buckets=cfg.data.buckets or SERVE_BUCKETS,
+                    device="cuda")
+    want_txt = [nb[0][1] for nb in tr.translate_tokens([tokenize(t) for t in texts],
+                                                       feats[:ENS_SERVE])]
+    tr.close()
+    srv = Server(spec, "-infer_dtype", "int8", "-max_length", str(ENS_MAXLEN),
+                 "-no_warmup").wait()
+    try:
+        info = http_json(srv.port, "/healthz")
+        got = [None] * ENS_SERVE
+
+        def ask(i):
+            imgs = np.ascontiguousarray(feats[i:i + 1], dtype="<f4")
+            got[i] = http_json(srv.port, "/translate", {
+                "texts": [texts[i]], "imgs": {"shape": list(imgs.shape),
+                                              "data": imgs.tobytes()}})["results"][0][0]["text"]
+
+        import threading
+
+        t = time.perf_counter()
+        threads = [threading.Thread(target=ask, args=(i,)) for i in range(ENS_SERVE)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        served_s = time.perf_counter() - t
+    finally:
+        srv.stop()
+    same = sum(a == b for a, b in zip(got, want_txt))
+    print(f"ensemble: cli.serve -model a,b,c -infer_dtype int8: {ENS_SERVE} requests in "
+          f"{served_s:.2f} s, {same}/{ENS_SERVE} answers = the offline Translator's; info "
+          f"ensemble {info.get('ensemble')} model_types {info.get('model_types')}")
+    if same != ENS_SERVE or info.get("ensemble") != 3:
+        fail("the serve CLI's ensemble answers differ from the offline Translator's")
+    rec["serve"] = {"requests": ENS_SERVE, "seconds": served_s, "same": same}
+
+    # the port's preprocess from raw text, then 5 steps of the train CLI on it
+    n = CLI_TRAIN + CLI_VALID + CLI_TEST
+    src_l, tgt_l, _, _, _ = make_corpus(n, vocab_size=CLI_VOCAB, img_dim=CLI_IMG, seed=5)
+    raw = os.path.join(root, "raw")
+    os.makedirs(raw, exist_ok=True)
+    for name, lines in (("train.src", src_l[:CLI_TRAIN]), ("train.tgt", tgt_l[:CLI_TRAIN]),
+                        ("valid.src", src_l[CLI_TRAIN:CLI_TRAIN + CLI_VALID]),
+                        ("valid.tgt", tgt_l[CLI_TRAIN:CLI_TRAIN + CLI_VALID])):
+        with open(os.path.join(raw, name), "w", encoding="utf-8") as f:
+            f.writelines(" ".join(line) + "\n" for line in lines)
+    prefix = os.path.join(raw, "data")
+    t = time.perf_counter()
+    cli_preprocess.main(["-train_src", os.path.join(raw, "train.src"), "-train_tgt",
+                         os.path.join(raw, "train.tgt"), "-valid_src",
+                         os.path.join(raw, "valid.src"), "-valid_tgt",
+                         os.path.join(raw, "valid.tgt"), "-save_data", prefix,
+                         "-shard_size", str(ENS_SHARD)])
+    pp_s = time.perf_counter() - t
+    shards = len([p for p in os.listdir(raw) if p.startswith("data.train.")])
+    pp_launches, trainer = counted_run(lambda: cli_train.main([
+        "-data", prefix, "-config", os.path.join(root, "config.json"), "-train_img_feats",
+        os.path.join(root, "train.feats.npy"), "-valid_img_feats",
+        os.path.join(root, "valid.feats.npy"), "-batch_size", str(TRAIN_BATCH),
+        "-max_steps", str(ENS_PP_STEPS), "-valid_every", str(ENS_PP_STEPS),
+        "-checkpoint_every", str(ENS_PP_STEPS), "-save_model", os.path.join(raw, "run")]))
+    losses = [h["loss"] for h in trainer.last_run["metrics"]]
+    print(f"ensemble: preprocess from raw text ({CLI_TRAIN}/{CLI_VALID} pairs, BPE, "
+          f"-shard_size {ENS_SHARD}: {shards} shards) {pp_s:.2f} s; cli.train on it "
+          f"{len(losses)} steps, losses {' '.join(f'{v:.3f}' for v in losses)}; "
+          f"launches {pp_launches}")
+    if shards != CLI_TRAIN // ENS_SHARD or len(losses) != ENS_PP_STEPS \
+            or not all(math.isfinite(v) for v in losses) or pp_launches["gru_layer_scan"] <= 0:
+        fail("the port's preprocess -> train chain did not run")
+    rec.update(preprocess_s=pp_s, preprocess_train_losses=losses, phase_s=time.time() - t_phase)
+    print(f"ensemble phase {rec['phase_s']:.1f} s")
+    return {"ensemble": launches, "preprocess": pp_launches}, rec
+
+
+def lending_cost(model, sv, tv, dcfg, inputs, runs: int = 3) -> dict:
+    """ms a batch of the f32 serving path (pallas_step 0), through the
+    Translator, which lends its weights to the model's parameterless copy
+    with ``functional_call`` every batch, and through the translate
+    function called on the model itself; ``runs`` runs each, in turns."""
+    from variational_mmt_torch.decode.translator import Translator, make_translate_fn
+
+    src, img = inputs
+    lent = Translator(model, sv, tv, dcfg, device="cuda")
+    own = Translator(model, sv, tv, dcfg, device="cuda")
+    fn = make_translate_fn([model], dcfg)
+    own._call = lambda s_, i_, streams: fn(s_, i_, streams)
+    out = {"lent": [], "own": []}
+    n_batches = -(-len(src) // dcfg.batch_size)
+    trs = {"lent": lent, "own": own}
+    order = ["lent", "own"] + (["lent", "own", "own", "lent"] * runs)[:2 * runs]
+    for i, name in enumerate(order):
+        tr = trs[name]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.translate_ids(src, img)
+        torch.cuda.synchronize()
+        if i >= 2:  # one untimed pass each
+            out[name].append((time.perf_counter() - t) * 1e3 / n_batches)
+    for tr in trs.values():
+        tr.close()
+    print(f"ensemble: f32 single model, batches of {dcfg.batch_size}, pallas_step 0: "
+          f"{', '.join(f'{v:.3f}' for v in out['lent'])} ms a batch through the Translator "
+          f"(functional_call) vs {', '.join(f'{v:.3f}' for v in out['own'])} ms through the "
+          "translate function on the model itself (in turns)")
+    return out
+
+
 def width_record(name: str, widths: dict) -> dict:
     """One kernel's numbers at the widths phase's shapes: rows 1 and 2 by
     shape (errors, plans, bf16 times, cuDNN, bounds), rows 3-6 at H=250."""
@@ -2340,6 +2801,7 @@ def main() -> int:
         width_launches, widths = widths_phase(card, root)
         widths["phase_s"] = time.time() - t0
         print(f"eval phase {evals['phase_s']:.1f} s, widths phase {widths['phase_s']:.1f} s")
+        ens_launches, ens = ensemble_phase(card, root)
 
     entries = []
     for name, rec, src, replaces in (
@@ -2360,7 +2822,8 @@ def main() -> int:
                    "train_packed": packed_launches.get(name, 0),
                    "families": family_launches[name], "cli": cli_launches[name],
                    **{path: n.get(name, 0) for path, n in online_launches.items()},
-                   "eval": eval_launches[name], "widths": width_launches[name]}
+                   "eval": eval_launches[name], "widths": width_launches[name],
+                   **{path: n[name] for path, n in ens_launches.items()}}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2371,7 +2834,8 @@ def main() -> int:
         }
         if "peaked" in rec:  # the decoder's checks at attention memory std 0.5
             entry["peaked"] = {k: v for k, v in rec["peaked"].items() if k != "per_step"}
-        for key in ("plan", "edge_err_float32", "edge_err_bfloat16", "by_shape", "reset"):
+        for key in ("plan", "edge_err_float32", "edge_err_bfloat16", "by_shape", "reset",
+                    "library_eager_ms", "device_ms"):
             if key in rec:
                 entry[key] = rec[key]
         if name in packed_resets:
@@ -2396,7 +2860,8 @@ def main() -> int:
                       "train_f32_check": check, "train_packed": packed, "families": families,
                       "cli": cli, "serve_online": {k: v for k, v in served.items()
                                                    if k != "step_shapes"},
-                      "eval": evals, "widths_cli": widths["cli"], "card": card}))
+                      "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

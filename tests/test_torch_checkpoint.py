@@ -372,13 +372,17 @@ def test_retention_listing_and_use_ema(tmp_path):
     assert jax_ck.list_checkpoints(str(tmp_path)) == [4, 5]
     raw = load_model_spec(str(tmp_path), device="cpu")
     ema = load_model_spec(str(tmp_path), use_ema=True, device="cpu")
-    assert raw.step == ema.step == 5
-    for p, q, e in zip(raw.model.parameters(), ema.model.parameters(), trainer.state.ema):
+    assert raw.steps == ema.steps == [5]
+    for p, q, e in zip(raw.models[0].parameters(), ema.models[0].parameters(),
+                       trainer.state.ema):
         assert torch.equal(q, e) and not torch.equal(p, q)
     _, _, img = corpus(n=len(SRC), seed=7)
     jstate, _, jmodel, _, _ = jax_ck.load_checkpoint(ck.latest_checkpoint(str(tmp_path)))
-    assert_same_nbest(port_nbest(ema.model, img), jax_nbest(jmodel, jstate.ema_params, img))
-    with pytest.raises(SystemExit, match="ensembles"):
-        load_model_spec(f"{tmp_path},{tmp_path}", device="cpu")
+    assert_same_nbest(port_nbest(ema.models[0], img), jax_nbest(jmodel, jstate.ema_params, img))
+    # a comma-separated -model is an ensemble (once refused, ROADMAP item 5.4)
+    both = load_model_spec(f"{tmp_path},{tmp_path}", use_ema=True, device="cpu")
+    assert both.ensemble and both.steps == [5, 5] and len(both.translator_args()) == 2
+    for m in both.models:
+        assert all(torch.equal(p, e) for p, e in zip(m.parameters(), trainer.state.ema))
     with pytest.raises(SystemExit, match="no checkpoint"):
         load_model_spec(str(tmp_path / "nowhere"), device="cpu")

@@ -1,9 +1,12 @@
-"""PyTorch port: the train and translate CLIs on the CPU (``-device cpu``).
+"""PyTorch port: the preprocess, train and translate CLIs on the CPU
+(``-device cpu``).
 
 The chain: JAX's preprocess CLI -> the port's train CLI (validation,
 checkpoints, resume, ``-epochs``, ``-pack``) -> the port's translate CLI,
 whose output file must equal JAX's translate CLI's on the same checkpoint
-(f32: n-best ids identical, so the text is too). Then the ``-config``
+(f32: n-best ids identical, so the text is too); and the port's own chain,
+its preprocess CLI from raw text -> its train CLI -> its translate CLI,
+with no JAX CLI in it. Then the ``-config``
 merge and the optimizers' lr defaults as JAX's tests/test_cli.py pins them
 (:191, :274, :317, :444), the port's tokenizer and BPE against JAX's, the
 refused flags and the device rule."""
@@ -23,6 +26,7 @@ from variational_mmt_tpu.data.bpe import BPE as JaxBPE
 from variational_mmt_tpu.data.dataset import BinarizedDataset as JaxBinarizedDataset
 from variational_mmt_tpu.data.tokenizer import tokenize as jax_tokenize
 from variational_mmt_tpu.train import checkpoint as jax_ck
+from variational_mmt_torch.cli import preprocess as cli_preprocess
 from variational_mmt_torch.cli import train as cli_train
 from variational_mmt_torch.cli import translate as cli_translate
 from variational_mmt_torch.config import Config
@@ -102,6 +106,32 @@ def test_cli_chain_output_equals_jax_translate(corpus, tmp_path, capsys):
                                        [float(x.split()[-1]) for x in b], atol=1e-4)
         else:
             assert a == b
+
+
+def test_cli_chain_of_the_port_alone(corpus, tmp_path, capsys):
+    """Raw text -> the port's preprocess (BPE, shards) -> the port's train
+    CLI reading the shards -> the port's translate CLI with the codes."""
+    d = str(corpus)
+    prefix = f"{tmp_path}/own"
+    cli_preprocess.main(["-train_src", f"{d}/train.src", "-train_tgt", f"{d}/train.tgt",
+                         "-valid_src", f"{d}/valid.src", "-valid_tgt", f"{d}/valid.tgt",
+                         "-save_data", prefix, "-bpe_merges", "30", "-shard_size", "25"])
+    assert "suggested -buckets" in capsys.readouterr().out
+    assert BinarizedDataset.shard_paths(prefix + ".train.npz") == [
+        f"{prefix}.train.{i:02d}.npz" for i in range(3)]
+    ckpt = f"{tmp_path}/ckpts"
+    trainer = cli_train.main(["-data", prefix, "-save_model", ckpt, "-model_type", "vmmt_c",
+                              "-train_img_feats", f"{d}/train.feats.npy", "-valid_img_feats",
+                              f"{d}/valid.feats.npy", "-img_feat_dim", "16", "-batch_size",
+                              "16", "-max_steps", "4", "-checkpoint_every", "4",
+                              "-valid_every", "2", *SMALL])
+    assert trainer.final_state.step == 4 and len(trainer.history) == 2
+    args = translate_args(d, ckpt, f"{tmp_path}/pred.txt", "-device", "cpu")
+    args[args.index("-bpe_codes") + 1] = prefix + ".bpe.codes"
+    out = cli_translate.main(args)
+    with open(f"{tmp_path}/pred.txt") as f:
+        assert len(f.read().splitlines()) == 20
+    assert len(out["nbest"]) == 10 and out["bleu"] is not None
 
 
 def test_cli_resume_continues_a_run(corpus, tmp_path):
@@ -356,7 +386,6 @@ def test_load_features_reads_npy_npz_and_conv_maps(tmp_path):
 
 TRANSLATE_REFUSED = [
     (["-tensor_parallel", "2"], "5.8"),
-    (["-infer_dtype", "bfloat16"], "5.4"), (["-model", "a,b"], "5.4"),
 ]
 
 
@@ -373,6 +402,40 @@ def trained(corpus, tmp_path_factory):
     ckpt = str(tmp_path_factory.mktemp("run") / "ckpts")
     cli_train.main(vmmt_c(str(corpus), ckpt, "-max_steps", "3", "-checkpoint_every", "3"))
     return ckpt
+
+
+@pytest.fixture(scope="module")
+def trained_nmt(corpus, tmp_path_factory):
+    ckpt = str(tmp_path_factory.mktemp("run_nmt") / "ckpts")
+    cli_train.main(["-data", f"{corpus}/demo", "-save_model", ckpt, "-model_type", "nmt",
+                    "-batch_size", "16", "-seed", "5", "-max_steps", "3",
+                    "-checkpoint_every", "3", *SMALL])
+    return ckpt
+
+
+ONCE_REFUSED = {  # the translate CLI's options once refused (ROADMAP item 5.4)
+    "-infer_dtype bfloat16": (["-infer_dtype", "bfloat16"], False),
+    "-model a,b": (["-ensemble_mode", "prob"], True),
+}
+
+
+@pytest.mark.parametrize("case", ONCE_REFUSED)
+def test_translate_takes_the_options_once_refused(case, corpus, trained, trained_nmt,
+                                                  tmp_path, capsys):
+    """Once refused naming item 5.4: ``-infer_dtype bfloat16`` and a
+    comma-separated ``-model`` (vmmt_c + nmt) now translate, and write what
+    JAX's translate CLI writes on the same checkpoints."""
+    flags, ensemble = ONCE_REFUSED[case]
+    d = str(corpus)
+    model = f"{trained},{trained_nmt}" if ensemble else trained
+    cli_translate.main(translate_args(d, model, f"{tmp_path}/pred.txt", "-device", "cpu",
+                                      *flags))
+    out = capsys.readouterr().out
+    assert ("ensemble of 2 checkpoints (prob)" in out) == ensemble
+    jax_translate.main(translate_args(d, model, f"{tmp_path}/jax_pred.txt", *flags))
+    with open(f"{tmp_path}/pred.txt") as f, open(f"{tmp_path}/jax_pred.txt") as g:
+        mine, theirs = f.read(), g.read()
+    assert mine == theirs and len(mine.splitlines()) == 20
 
 
 DECODE_OPTIONS = [

@@ -144,10 +144,17 @@ def test_ported_model_families_and_z_cond_build(over):
 @pytest.mark.parametrize("over", [
     dict(infer_dtype="bfloat16"), dict(infer_dtype="int8"),
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
-def test_unsupported_decode_options_raise(over):
+def test_ported_infer_dtypes_build(over):
+    """Once refused naming item 5.4; the translator now holds its weights
+    at the dtype (parity with JAX: tests/test_torch_infer_dtype.py)."""
     model = build_model(ModelConfig(**TINY), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        make_translate_fn(model, dataclasses.replace(DecodeConfig(), **over))
+    dcfg = dataclasses.replace(DecodeConfig(), **over)
+    make_translate_fn(model, dcfg)
+    vocab = Vocab(SPECIALS + [f"w{i}" for i in range(20)])
+    tr = Translator(model, vocab, vocab, dcfg, buckets=[8], device="cpu")
+    held = {v.dtype if torch.is_tensor(v) else v["int8"].dtype
+            for k, v in tr.weights[0].items() if model.state_dict()[k].dim() >= 2}
+    assert held == {torch.bfloat16 if over["infer_dtype"] == "bfloat16" else torch.int8}
 
 
 @pytest.mark.parametrize("over", [
@@ -190,11 +197,12 @@ def test_wire_modules_import_neither_torch_nor_msgpack(rel):
 
 
 def test_ensembles_mesh_and_packing_raise():
+    """A mesh raises, naming its ROADMAP item; an ensemble, once refused
+    too (item 5.4), builds (tests/test_torch_ensemble.py holds it to JAX)."""
     model = build_model(ModelConfig(**TINY), device="cpu")
     vocab = Vocab(SPECIALS + ["a", "b"])
-    with pytest.raises(NotImplementedError):
-        Translator([model, model], vocab, vocab, device="cpu")
-    with pytest.raises(NotImplementedError):
+    assert len(Translator([model, model], vocab, vocab, device="cpu").models) == 2
+    with pytest.raises(NotImplementedError, match="item 5.8"):
         Translator(model, vocab, vocab, mesh=object(), device="cpu")
 
 

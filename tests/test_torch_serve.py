@@ -1,6 +1,7 @@
 """PyTorch port: online serving (``variational_mmt_torch/serve/``,
 ``cli/serve.py``) on the CPU. The counterpart of each test of
-tests/test_serve.py except those about tensor parallelism and ensembles,
+tests/test_serve.py except those about tensor parallelism and ensembles
+(ensembles: tests/test_torch_ensemble.py),
 and besides: the service's answers equal the port's offline Translator
 and JAX's TranslationService on the same parameters (f32: ids identical,
 scores within 1e-4), the JSON and msgpack wires (the port's codec) agree,
@@ -308,13 +309,70 @@ def test_serve_cli_args_parse():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-model", "a,b"], "5.4"), (["-infer_dtype", "bfloat16"], "5.4"),
-    (["-infer_dtype", "int8"], "5.4"), (["-tensor_parallel", "2"], "5.8"),
+    (["-tensor_parallel", "2"], "5.8"),
 ], ids=lambda x: " ".join(x) if isinstance(x, list) else x)
 def test_serve_cli_refuses_what_is_not_ported_naming_its_roadmap_item(flags, item):
     argv = ["-model", "nowhere", "-device", "cpu", *flags]
     with pytest.raises(SystemExit, match=f"not ported yet: .*ROADMAP.md .*{item}"):
         cli_serve.main(argv)
+
+
+@pytest.mark.parametrize("flags", [["-model", "ENSEMBLE"], ["-infer_dtype", "bfloat16"],
+                                   ["-infer_dtype", "int8"]],
+                         ids=lambda x: " ".join(x))
+def test_serve_cli_takes_the_options_once_refused(flags, tmp_path, monkeypatch):
+    """Once refused naming item 5.4: the serve CLI over a comma-separated
+    ``-model`` (vmmt_c + nmt checkpoints) and at ``-infer_dtype`` bfloat16
+    and int8 answers HTTP requests as the offline Translator does with the
+    same options, and its info record names the members."""
+    from variational_mmt_torch.config import Config
+    from variational_mmt_torch.serve import http_server
+    from variational_mmt_torch.train import checkpoint as ck
+    from variational_mmt_torch.train.trainer import create_train_state
+
+    vocab = Vocab(SPECIALS + WORDS)
+    runs, models = [], []
+    for model_type in ("vmmt_c", "nmt"):
+        cfg = Config(model=ModelConfig(model_type=model_type, **MODEL))
+        model = port_model(jax_tree(model_type)[1], model_type)
+        runs.append(ck.save_checkpoint(str(tmp_path / model_type),
+                                       create_train_state(cfg, model), cfg, vocab, vocab))
+        models.append(model)
+    ensemble = flags[1] == "ENSEMBLE"
+    model_flag = ",".join(runs) if ensemble else runs[0]
+    texts = ["w1 w2 w3", "w4 w5", "w6 w7 w8 w9"]
+    imgs = np.random.default_rng(0).standard_normal((3, 8)).astype(np.float32)
+    seen = {}
+
+    def answer(server):
+        """In place of serve_forever: one health check and one request."""
+        server.start()
+        url = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(url + "/healthz", timeout=WAIT) as r:
+            seen["info"] = json.loads(r.read())
+        body = json.dumps({"texts": texts, "imgs": imgs.tolist()}).encode()
+        req = urllib.request.Request(url + "/translate", data=body,
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=WAIT) as r:
+            seen["out"] = json.loads(r.read())
+
+    monkeypatch.setattr(http_server.ServingServer, "serve_forever", answer)
+    extra = [] if ensemble else flags
+    cli_serve.main(["-model", model_flag, "-port", "0", "-device", "cpu", "-no_warmup",
+                    "-batch_size", "4", "-max_length", "12", *extra])
+    dcfg = DecodeConfig(beam_size=4, max_length=12, batch_size=4,
+                        infer_dtype="float32" if ensemble else flags[1])
+    want = Translator(models if ensemble else models[0], vocab, vocab, dcfg,
+                      buckets=[16, 24, 32, 48, 64], device="cpu"
+                      ).translate_tokens([t.split() for t in texts], imgs)
+    got = seen["out"]["results"]
+    assert [[(e["score"], e["text"]) for e in g] for g in got] == [
+        [(float(sc), t) for sc, t in w] for w in want]
+    info = seen["info"]
+    assert info["ensemble"] == (2 if ensemble else 0)
+    assert info["model_type"] == ("vmmt_c,nmt" if ensemble else "vmmt_c")
+    if ensemble:
+        assert info["model_types"] == ["vmmt_c", "nmt"] and info["steps"] == [0, 0]
 
 
 def test_serve_cli_needs_cuda_unless_cpu_is_asked(monkeypatch):

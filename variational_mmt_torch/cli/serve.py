@@ -1,6 +1,7 @@
-"""``serve`` CLI of the port: an online translation server over a trained
-checkpoint of either package. Mirrors ``variational_mmt_tpu/cli/serve.py``:
-loads the checkpoint, runs every (bucket x batch) decode shape once, then
+"""``serve`` CLI of the port: an online translation server over trained
+checkpoints of either package. Mirrors ``variational_mmt_tpu/cli/serve.py``:
+loads the checkpoint (several comma-separated: an ensemble, combined by
+``-ensemble_mode``), runs every (bucket x batch) decode shape once, then
 answers HTTP requests, batching them dynamically into the offline path's
 device shapes. It runs on CUDA unless given ``-device cpu`` and exits with
 an error without CUDA.
@@ -9,10 +10,11 @@ an error without CUDA.
     curl -s localhost:8080/translate -d '{"texts": ["a man rides a horse ."]}'
 
 It prints ``serving on http://HOST:PORT`` once it accepts requests (with
-``-port 0`` the system picks the port). Refused, each naming its ROADMAP.md
-item: a comma-separated ``-model`` (an ensemble) and ``-infer_dtype
-bfloat16`` or ``int8`` (queue 1, item 5.4), ``-tensor_parallel`` above 1
-(5.8).
+``-port 0`` the system picks the port). ``-infer_dtype bfloat16`` or
+``int8`` serves with bfloat16 weights, or with int8 codes and per-column
+scales (the checkpoints are then read into host memory, and the card holds
+only the cast weights between requests). ``-tensor_parallel`` above 1 is
+refused, naming its ROADMAP.md item (queue 1, item 5.8).
 
 Dispatcher processes (``-procs``) are spawned and import this module
 again, so it imports nothing heavy at its top level.
@@ -39,7 +41,8 @@ def add_args(p: argparse.ArgumentParser) -> None:
                         "mean probability (prob) or mean log-prob (logprob)")
     p.add_argument("-infer_dtype", default="float32",
                    choices=["float32", "bfloat16", "int8"],
-                   help="decode-time weight precision (only float32 is ported)")
+                   help="decode-time weight precision: bfloat16 weights, or int8 codes "
+                        "with per-column scales (a quarter of f32's resident bytes)")
     p.add_argument("-host", default="127.0.0.1")
     p.add_argument("-port", type=int, default=8080)
     p.add_argument("-beam_size", type=int, default=4)
@@ -95,11 +98,7 @@ def add_args(p: argparse.ArgumentParser) -> None:
 
 def refused(opt) -> list:
     """(flag, ROADMAP.md item) of every option set that the port refuses."""
-    table = [
-        ("a comma-separated -model (an ensemble)", "," in opt.model, "queue 1, item 5.4"),
-        (f"-infer_dtype {opt.infer_dtype}", opt.infer_dtype != "float32", "queue 1, item 5.4"),
-        ("-tensor_parallel", opt.tensor_parallel > 1, "queue 1, item 5.8"),
-    ]
+    table = [("-tensor_parallel", opt.tensor_parallel > 1, "queue 1, item 5.8")]
     return [(flag, item) for flag, on, item in table if on]
 
 
@@ -112,14 +111,17 @@ def main(argv=None) -> None:
         raise SystemExit("not ported yet: " + "; ".join(
             f"{flag} (ROADMAP.md {item})" for flag, item in bad))
 
-    from variational_mmt_torch.cli.loading import load_model_spec
+    from variational_mmt_torch.cli.loading import load_device, load_model_spec
     from variational_mmt_torch.cli.train import cli_device
     from variational_mmt_torch.data.bpe import BPE
     from variational_mmt_torch.serve import (MPServingServer, ServeConfig, ServingServer,
                                              TranslationService)
 
     device = cli_device(opt.device)
-    lm = load_model_spec(opt.model, use_ema=opt.use_ema, device=device)
+    lm = load_model_spec(opt.model, use_ema=opt.use_ema,
+                         device=load_device(device, opt.infer_dtype))
+    if lm.ensemble:
+        print(f"ensemble of {len(lm.models)} checkpoints ({opt.ensemble_mode})")
     beam_size, n_best = opt.beam_size, opt.n_best
     if opt.sampling_temp > 0.0:
         beam_size = n_best = 1  # sampling decodes one draw a stream
@@ -138,14 +140,19 @@ def main(argv=None) -> None:
         pipeline_depth=opt.pipeline_depth)
     bpe = BPE.load(opt.bpe_codes) if opt.bpe_codes else None
     print("warming the decode shapes..." if scfg.warmup else "warmup skipped", flush=True)
-    service = TranslationService(lm.model, lm.src_vocab, lm.tgt_vocab, dcfg,
-                                 buckets=lm.cfg.data.buckets or DEFAULT_BUCKETS, scfg=scfg,
+    service = TranslationService(lm.translator_args(), lm.src_vocab, lm.tgt_vocab, dcfg,
+                                 buckets=lm.cfgs[0].data.buckets or DEFAULT_BUCKETS, scfg=scfg,
                                  bpe=bpe, device=device)
-    info = {"model_type": lm.cfg.model.model_type, "step": lm.step,
+    # 'step' stays an int and 'model_type' a string; an ensemble's members
+    # ride the plural fields
+    types = [c.model.model_type for c in lm.cfgs]
+    info = {"model_type": ",".join(types), "step": lm.steps[0],
             "beam_size": dcfg.beam_size,  # the effective width (1 when sampling)
-            "ensemble": 0}
+            "ensemble": len(lm.models) if lm.ensemble else 0}
     if dcfg.sampling_temp > 0.0:
         info["sampling_temp"] = dcfg.sampling_temp  # advertises sample_ids
+    if lm.ensemble:
+        info.update(steps=list(lm.steps), model_types=types)
     if opt.procs > 0:
         server = MPServingServer(service, opt.host, opt.port, procs=opt.procs, info=info)
         server.start()

@@ -5,8 +5,8 @@ Mirrors ``variational_mmt_tpu/cli/train.py``: the same flags (plus
 which every flag passed on the command line overrides the file; the
 adadelta and adagrad learning-rate defaults (1.0 and 0.1) when no lr is
 given for them. It loads a preprocessed corpus (``<data>.train.npz``,
-``.valid.npz``, ``.vocab.src.json``, ``.vocab.tgt.json``, as the JAX
-package's preprocess CLI or the port's writers make them) and image
+``.valid.npz``, ``.vocab.src.json``, ``.vocab.tgt.json``, as
+``cli/preprocess.py`` of either package writes them) and image
 features, builds the model with random weights from ``-seed``, and trains
 with validation, plateau decay and checkpoints in the JAX package's layout;
 ``-train_from`` resumes from a checkpoint of either package (a run root

@@ -1,7 +1,8 @@
 """``translate`` CLI of the port: ``python -m variational_mmt_torch.cli.translate``.
 
-Mirrors ``variational_mmt_tpu/cli/translate.py`` on a single checkpoint of
-either package (a run root resolves to its latest step): tokenize (or
+Mirrors ``variational_mmt_tpu/cli/translate.py`` on checkpoints of either
+package (a run root resolves to its latest step; several comma-separated in
+``-model`` decode as an ensemble, combined by ``-ensemble_mode``): tokenize (or
 ``-pretokenized``), BPE with ``-bpe_codes``, beam search with latent-mean
 substitution, n-best text to ``-output``; with ``-tgt`` the BLEU line, and
 with ``-verbose`` each sentence's force-decoded score (PRED SCORE, and the
@@ -22,9 +23,14 @@ of each 1-best hypothesis, an .npz); with ``-tgt``, ``-report_meteor``
 for latent models, ``-iw_eval K`` (the K-sample IW-ELBO, drawing from
 ``-seed``) and ``-latent_diag`` (active units and the KL spectrum).
 
-Refused, each naming its ROADMAP.md item, as the port's translator does not
-do them yet: ``-tensor_parallel`` (queue 1, item 5.8); ``-infer_dtype
-bfloat16`` or ``int8`` and a comma-separated ``-model`` (5.4).
+``-infer_dtype bfloat16`` decodes with the weights cast to bfloat16,
+``int8`` with int8 codes and per-column scales rebuilt as bfloat16 within
+each batch; the checkpoints are then read into host memory, and the
+passes defined per model (``-verbose``, ``-dump_attn``, ``-iw_eval``,
+``-latent_diag``) move the model's f32 weights to the device only when
+they run. An ensemble refuses those four options (as JAX's does).
+``-tensor_parallel`` is refused, naming its ROADMAP.md item (queue 1,
+item 5.8).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from variational_mmt_torch.cli.loading import consumes_decode_feats, load_model_spec
+from variational_mmt_torch.cli.loading import consumes_decode_feats, load_device, load_model_spec
 from variational_mmt_torch.cli.train import cli_device
 from variational_mmt_torch.config import DecodeConfig
 from variational_mmt_torch.data.bpe import BPE
@@ -146,12 +152,16 @@ def add_args(p: argparse.ArgumentParser) -> None:
 
 def refused(opt) -> list:
     """(flag, ROADMAP.md item) of every option set that the port refuses."""
-    table = [
-        ("-tensor_parallel", opt.tensor_parallel > 1, "queue 1, item 5.8"),
-        (f"-infer_dtype {opt.infer_dtype}", opt.infer_dtype != "float32", "queue 1, item 5.4"),
-        ("a comma-separated -model (an ensemble)", "," in opt.model, "queue 1, item 5.4"),
-    ]
+    table = [("-tensor_parallel", opt.tensor_parallel > 1, "queue 1, item 5.8")]
     return [(flag, item) for flag, on, item in table if on]
+
+
+def ensemble_refused(opt) -> list:
+    """The options set that an ensemble refuses: scoring, the IW bound and
+    the latent diagnostics are defined per model."""
+    return [flag for flag, on in (
+        ("-iw_eval", opt.iw_eval > 0), ("-latent_diag", opt.latent_diag),
+        ("-verbose", opt.verbose), ("-dump_attn", bool(opt.dump_attn))) if on]
 
 
 def load_phrase_table(path: str) -> Tuple[Dict[str, str], int]:
@@ -181,13 +191,26 @@ def main(argv=None) -> Dict[str, object]:
     p = argparse.ArgumentParser("vmmt-torch translate")
     add_args(p)
     opt = p.parse_args(argv)
+    if "," in opt.model and ensemble_refused(opt):
+        # decidable from the flags: fail before loading any checkpoint
+        raise SystemExit(f"{', '.join(ensemble_refused(opt))}: not supported with an ensemble "
+                         "(force-decode scoring and the IW bound are defined per model); "
+                         "pass a single -model")
     bad = refused(opt)
     if bad:
         raise SystemExit("not ported yet: " + "; ".join(
             f"{flag} (ROADMAP.md {item})" for flag, item in bad))
     device = cli_device(opt.device)
-    lm = load_model_spec(opt.model, use_ema=opt.use_ema, device=device)
-    model, cfg, sv, tv = lm.model, lm.cfg, lm.src_vocab, lm.tgt_vocab
+    lm = load_model_spec(opt.model, use_ema=opt.use_ema,
+                         device=load_device(device, opt.infer_dtype))
+    cfg, sv, tv = lm.cfgs[0], lm.src_vocab, lm.tgt_vocab
+
+    def model():
+        """The single model with its f32 weights on the device, for the
+        passes defined per model (scoring, -dump_attn, the IW bound, the
+        latent diagnostics), as JAX's; read into host memory at bfloat16 or
+        int8, it moves only when such a pass runs."""
+        return lm.models[0].to(device)
 
     lower = not opt.no_lower
     with open(opt.src, encoding="utf-8") as f:
@@ -203,11 +226,12 @@ def main(argv=None) -> Dict[str, object]:
     if feats is not None and len(feats) != len(src_tok):
         raise SystemExit(f"feature rows ({len(feats)}) must align to the {len(src_tok)} "
                          "source lines")
-    if feats is None and consumes_decode_feats(cfg.model):
+    needs_feats = [c.model for c in lm.cfgs if consumes_decode_feats(c.model)]
+    if feats is None and needs_feats:
         raise SystemExit(
             "this checkpoint's conditional prior was trained on image features "
-            f"(img_feat_dim={cfg.model.img_feat_dim}): pass -img_feats aligned to the source "
-            "file (vmmt_f decodes without features; vmmt_c cannot)")
+            f"(img_feat_dim={needs_feats[0].img_feat_dim}): pass -img_feats aligned to the "
+            "source file (vmmt_f decodes without features; vmmt_c cannot)")
 
     if opt.mbr_samples > 0 and opt.sampling_temp <= 0.0:
         raise SystemExit(
@@ -216,14 +240,18 @@ def main(argv=None) -> Dict[str, object]:
     dcfg = DecodeConfig(beam_size=opt.beam_size, n_best=opt.n_best, max_length=opt.max_length,
                         min_length=opt.min_length, alpha=opt.alpha, batch_size=opt.batch_size,
                         replace_unk=opt.replace_unk, coverage_beta=opt.coverage_beta,
-                        dump_beam=bool(opt.dump_beam),
+                        dump_beam=bool(opt.dump_beam), ensemble_mode=opt.ensemble_mode,
+                        infer_dtype=opt.infer_dtype,
                         pallas_step=opt.pallas_step if device.type == "cuda" else 0,
                         sampling_temp=opt.sampling_temp, sampling_topk=opt.sampling_topk,
                         sampling_topp=opt.sampling_topp, latent_from=opt.latent_from,
                         decode_seed=opt.seed, block_ngram_repeat=opt.block_ngram_repeat,
                         ignore_when_blocking=opt.ignore_when_blocking)
     buckets = cfg.data.buckets or DEFAULT_BUCKETS
-    translator = Translator(model, sv, tv, dcfg, buckets=buckets, device=device)
+    if lm.ensemble:
+        print(f"ensemble of {len(lm.models)} checkpoints ({opt.ensemble_mode})")
+    translator = Translator(lm.translator_args(), sv, tv, dcfg, buckets=buckets,
+                            device=device)
     if opt.phrase_table:
         if not opt.replace_unk:
             raise SystemExit("-phrase_table is only consulted by -replace_unk; "
@@ -267,7 +295,7 @@ def main(argv=None) -> Dict[str, object]:
         if opt.latent_from == "sample":
             print("note: force-decode scores/attention use z = prior mean, "
                   "not the sampled z the decode drew (-latent_from sample)")
-        pred_lp, pred_nt, attns = score_corpus(model, src_ids, [n[0][1] for n in nbest], feats,
+        pred_lp, pred_nt, attns = score_corpus(model(), src_ids, [n[0][1] for n in nbest], feats,
                                                buckets=buckets, batch_size=opt.batch_size,
                                                return_attn=True)
         if opt.dump_attn:
@@ -301,7 +329,7 @@ def main(argv=None) -> Dict[str, object]:
         if opt.verbose:
             from variational_mmt_torch.decode.score import report_score, score_corpus
 
-            gold_lp, gold_nt = score_corpus(model, src_ids, gold_ids, feats, buckets=buckets,
+            gold_lp, gold_nt = score_corpus(model(), src_ids, gold_ids, feats, buckets=buckets,
                                             batch_size=opt.batch_size)
             print(report_score("PRED", pred_lp, pred_nt))
             print(report_score("GOLD", gold_lp, gold_nt))
@@ -317,11 +345,11 @@ def main(argv=None) -> Dict[str, object]:
             report["meteor"] = met["meteor"]
             print(f"METEOR({opt.meteor_preset}) = {met['meteor']:.2f}")
         for flag, on in (("-iw_eval", opt.iw_eval > 0), ("-latent_diag", opt.latent_diag)):
-            if on and not model.is_latent:
+            if on and not lm.models[0].is_latent:
                 print(f"note: {flag} skipped — defined for latent models "
                       f"only (checkpoint is {cfg.model.model_type})")
-        if (opt.iw_eval > 0 or opt.latent_diag) and model.is_latent:
-            report.update(latent_evals(opt, model, src_ids, gold_ids, feats, buckets, device))
+        if (opt.iw_eval > 0 or opt.latent_diag) and lm.models[0].is_latent:
+            report.update(latent_evals(opt, model(), src_ids, gold_ids, feats, buckets, device))
     return report
 
 

@@ -1,4 +1,4 @@
-"""Moses-style tokenization. A copy of ``tokenize`` of
+"""Moses-style tokenization. A copy of ``tokenize`` and ``detokenize`` of
 ``variational_mmt_tpu/data/tokenizer.py`` (same rules, same output)."""
 
 from __future__ import annotations
@@ -26,3 +26,12 @@ def tokenize(line: str, lower: bool = True) -> List[str]:
         s = pat.sub(repl, s)
     s = _WS.sub(" ", s).strip()
     return s.split(" ") if s else []
+
+
+def detokenize(tokens: List[str]) -> str:
+    """Roughly the inverse of :func:`tokenize`, for human-readable output
+    (BLEU is computed on tokenized text)."""
+    out = " ".join(tokens)
+    out = re.sub(r"\s+([,.;:!?)\]}])", r"\1", out)
+    out = re.sub(r"([(\[{])\s+", r"\1", out)
+    return re.sub(r"\s+'", r"'", out)

@@ -1,13 +1,15 @@
 """Vocabulary with the reference's special-token contract.
 
 Mirrors ``variational_mmt_tpu/data/vocab.py``: ids 0..3 are
-<blank>/<unk>/<s>/</s>, so padding is id 0.
+<blank>/<unk>/<s>/</s>, so padding is id 0; ``build`` orders the types by
+frequency, then lexicographically (:46-68).
 """
 
 from __future__ import annotations
 
+import collections
 import json
-from typing import Dict, List, Sequence
+from typing import Dict, Iterable, List, Sequence
 
 from variational_mmt_torch.data.bpe import remove_bpe
 
@@ -25,6 +27,40 @@ class Vocab:
 
     def __len__(self) -> int:
         return len(self.itos)
+
+    def __contains__(self, tok: str) -> bool:
+        return tok in self.stoi
+
+    def pad_to_multiple(self, m: int) -> None:
+        """Append inert filler types ``<vpadI>`` until len(vocab) % m == 0
+        (a vocab sharded over m devices; the fillers never occur in data)."""
+        i = 0
+        while len(self.itos) % m != 0:
+            while f"<vpad{i}>" in self.stoi:
+                i += 1
+            tok = f"<vpad{i}>"
+            self.stoi[tok] = len(self.itos)
+            self.itos.append(tok)
+            i += 1
+
+    @classmethod
+    def build(cls, lines: Iterable[Sequence[str]], max_size: int = 0,
+              min_freq: int = 1) -> "Vocab":
+        """The specials, then the types of ``lines`` seen at least
+        ``min_freq`` times, most frequent first (ties lexicographic), at
+        most ``max_size`` of them (0: all)."""
+        counter = collections.Counter()
+        for toks in lines:
+            counter.update(toks)
+        itos = list(SPECIALS)
+        for tok, freq in sorted(counter.items(), key=lambda kv: (-kv[1], kv[0])):
+            if freq < min_freq:
+                continue
+            if max_size and len(itos) >= max_size + len(SPECIALS):
+                break
+            if tok not in SPECIALS:
+                itos.append(tok)
+        return cls(itos)
 
     def encode(self, tokens: Sequence[str], bos: bool = False, eos: bool = False) -> List[int]:
         ids = [self.stoi.get(t, UNK) for t in tokens]
@@ -58,3 +94,6 @@ class Vocab:
     def load(cls, path: str) -> "Vocab":
         with open(path, encoding="utf-8") as f:
             return cls(json.load(f))
+
+    def to_list(self) -> List[str]:
+        return list(self.itos)

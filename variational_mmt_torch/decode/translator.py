@@ -1,8 +1,11 @@
 """Batch translation. Mirrors ``variational_mmt_tpu/decode/translator.py``:
-``make_translate_fn`` (:121-279, a single model) and ``Translator``
-(:282-684: the option checks, ``dispatch_ids``/``finalize_ids`` and
-``PendingTranslation``, ``translate_ids``, ``nbest_to_text`` with
-``replace_unk`` and a phrase table, ``translate_tokens``).
+``_combine_logps`` (:31-46), the inference dtypes
+``quantize_params_int8``, ``dequantize_params`` and
+``cast_params_for_inference`` (:52-119), ``make_translate_fn`` (:121-279)
+and ``Translator`` (:282-684: the option checks, ``dispatch_ids``/
+``finalize_ids`` and ``PendingTranslation``, ``translate_ids``,
+``nbest_to_text`` with ``replace_unk`` and a phrase table,
+``translate_tokens``).
 
 Encode, take z (the prior mean of p(z|x,v) for vmmt_c, zero for vmmt_f, a
 draw ``mu + sigma * eps`` with ``latent_from=sample``; nmt has no z),
@@ -16,6 +19,17 @@ otherwise). The random draws come from per-sentence counter-based streams
 (``decode/streams.py``) keyed by the decode seed and each sentence's corpus
 index or ``stream_ids`` entry.
 
+A checkpoint ensemble is a list of models (families and depths may differ;
+the vocabs must match): each member keeps its own memory, z, attention
+keys, kernel weights and carry, and the search runs on the members'
+combined next-token distribution (``DecodeConfig.ensemble_mode``).
+``DecodeConfig.infer_dtype`` sets the weights the translator holds:
+float32 (the models' own tensors where they already lie on the device),
+bfloat16 (a cast copy), or int8 codes with an f32 scale a last-axis column
+for every weight of two or more dimensions (1-D leaves stay f32), rebuilt
+as bfloat16 inside each call and dropped after it. Those weights reach the models' code through
+``torch.func.functional_call`` over parameterless copies of the members.
+
 JAX dispatches asynchronously; the port's search syncs with the host every
 step, so ``dispatch_ids`` hands each batch to one device-owning thread (a
 single-thread executor that sets the CUDA device and runs under
@@ -26,12 +40,14 @@ n-best lists in corpus order.
 
 from __future__ import annotations
 
+import math
 from collections import deque
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Callable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from variational_mmt_torch.config import DecodeConfig
 from variational_mmt_torch.data.bpe import remove_bpe
@@ -45,60 +61,143 @@ from variational_mmt_torch.models.model import VMMTModel
 from variational_mmt_torch.ops.beam import (beam_search, greedy_search, sampling_search,
                                             tree_map)
 
-
 def check_supported(d: DecodeConfig) -> None:
     """Raise NotImplementedError for the decode options the port does not
-    do: ``infer_dtype`` other than float32 (ROADMAP.md queue 1, item 5.4).
-    Ensembles (5.4) and a device mesh (5.8) are refused by ``Translator``."""
-    if d.infer_dtype not in ("", "float32"):
-        raise NotImplementedError(f"decode option not ported yet: infer_dtype={d.infer_dtype} "
-                                  "(ROADMAP.md queue 1, item 5.4)")
+    do (a device mesh, ROADMAP.md queue 1, item 5.8, is refused by
+    ``Translator``)."""
     if d.pallas_step not in (0, 1, 2):
         raise NotImplementedError(f"decode option not ported yet: pallas_step={d.pallas_step}")
 
 
-def make_translate_fn(model: VMMTModel, dcfg: DecodeConfig,
+def _combine_logps(logps: List[torch.Tensor], mode: str) -> torch.Tensor:
+    """The members' next-token log-distributions combined: ``prob`` is the
+    mean in probability space (logsumexp - log M), ``logprob`` the mean of
+    the log-probabilities (a geometric mean, unnormalized). The identity
+    for one member."""
+    if len(logps) == 1:
+        return logps[0]
+    stacked = torch.stack(logps, dim=0)
+    if mode == "prob":
+        return torch.logsumexp(stacked, dim=0) - math.log(len(logps))
+    if mode != "logprob":
+        raise ValueError(f"unknown ensemble_mode: {mode!r} (expected prob | logprob)")
+    return stacked.mean(dim=0)
+
+
+_QKEYS = frozenset(("int8", "scale"))
+
+
+def quantize_params_int8(params: Mapping[str, torch.Tensor]) -> Dict[str, object]:
+    """Weight-only int8 of a state dict: every floating tensor of two or
+    more dimensions becomes ``{"int8": q, "scale": s}`` with a symmetric
+    scale a last-axis column (max |x| over the other axes / 127, at least
+    the smallest normal f32), ``q = clip(round(x / s), -127, 127)``
+    rounding half to even; other tensors are kept as they are. The port
+    keeps JAX's layouts, so the column is JAX's output channel and the
+    codes equal JAX's bit for bit."""
+    def leaf(x: torch.Tensor):
+        if x.dim() < 2 or not x.is_floating_point():
+            return x
+        xf = x.float()
+        amax = xf.abs().amax(dim=tuple(range(x.dim() - 1)))
+        # a tensor divisor: CUDA turns division by a Python number into a
+        # product with its reciprocal, which rounds differently
+        scale = torch.clamp(amax / torch.full_like(amax, 127.0),
+                            min=torch.finfo(torch.float32).tiny)
+        q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+        return {"int8": q, "scale": scale}
+
+    return {name: leaf(x) for name, x in params.items()}
+
+
+def dequantize_params(params: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`quantize_params_int8`: each pair becomes
+    ``(q * s).to(bfloat16)`` (an f32 product, then one rounding); other
+    entries pass through."""
+    return {name: ((v["int8"].float() * v["scale"]).to(torch.bfloat16)
+                   if isinstance(v, Mapping) and set(v) == _QKEYS else v)
+            for name, v in params.items()}
+
+
+def cast_params_for_inference(params: Mapping[str, torch.Tensor],
+                              dtype_name: str) -> Dict[str, object]:
+    """A state dict for decoding at ``dtype_name``: float32 (as given),
+    bfloat16 (every floating tensor cast; modules that compute in f32
+    widen the rounded values on use) or int8 (:func:`quantize_params_int8`)."""
+    if dtype_name in ("", "float32"):
+        return dict(params)
+    if dtype_name == "int8":
+        return quantize_params_int8(params)
+    if dtype_name != "bfloat16":
+        raise ValueError(f"infer_dtype must be float32 | bfloat16 | int8, got {dtype_name!r}")
+    return {k: v.to(torch.bfloat16) if v.is_floating_point() else v for k, v in params.items()}
+
+
+def make_translate_fn(model, dcfg: DecodeConfig,
                       exclusion_ids: Tuple[int, ...] = ()) -> Callable:
     """fn(src (B,S) long, img (B,D) | None, streams=None) -> (tokens
-    (B,K,L), scores (B,K)[, attn argmax (B,K,L)][, trace]). ``streams``
+    (B,K,L), scores (B,K)[, attn argmax (B,K,L)][, trace]). ``model`` is a
+    VMMTModel or a list of them (an ensemble: the search expands on the
+    members' combined distribution, ``dcfg.ensemble_mode``; with
+    ``track_attn`` the attention is the member mean in f32). ``streams``
     (a ``DecodeStreams`` or an object with its ``latent_eps`` and
-    ``token_gumbel``) supplies the draws of ``latent_from=sample`` and
-    sampling."""
+    ``token_gumbel``) supplies the draws of ``latent_from=sample`` (member
+    j's from ``latent_eps(j, latent_dim)``) and of sampling."""
     check_supported(dcfg)
+    models = list(model) if isinstance(model, (list, tuple)) else [model]
     K = dcfg.beam_size
-    c = model.cfg
     mode = int(dcfg.pallas_step)
-    fused_step = mode > 0 and fused_step_eligible(c)
+    # fused-step eligibility is each member's own
+    fused = [mode > 0 and fused_step_eligible(m.cfg) for m in models]
     track_attn = dcfg.replace_unk or dcfg.coverage_beta != 0.0
     sampling = dcfg.sampling_temp > 0.0
+
+    def combined_step(members, src_mask):
+        """step(carries, toks) over the members (model, memory, z, keys,
+        weights): their new carries, the combined log-probabilities and,
+        with ``track_attn``, the member-mean attention."""
+        def step(carries, toks):
+            new, logps, aligns = [], [], []
+            for (m, memory, z, keys, weights), c in zip(members, carries):
+                c, logits, align = m.decode_step(c, toks, memory, src_mask, z, keys, weights)
+                new.append(c)
+                logps.append(torch.log_softmax(logits, dim=-1))
+                aligns.append(align)
+            logp = _combine_logps(logps, dcfg.ensemble_mode)
+            if track_attn:  # full probs: argmax for replace_unk, coverage
+                attn = (aligns[0].float() if len(aligns) == 1
+                        else torch.stack([a.float() for a in aligns]).mean(0))
+                return tuple(new), logp, attn
+            return tuple(new), logp
+        return step
 
     @torch.inference_mode()
     def fn(src: torch.Tensor, img: Optional[torch.Tensor], streams=None):
         B = src.shape[0]
-        memory, finals, src_mask, summary = model.encode(src)
-        z = None
-        if model.is_latent:
-            if dcfg.latent_from == "sample":
-                mu_p, sigma_p = model.prior_params(summary, img)
-                z = mu_p + sigma_p * streams.latent_eps(0, c.latent_dim)
-            else:  # vmmt_f's prior mean is zero and ignores the image
-                z = model.prior_latent(summary, img)
-        carry0 = model.init_decode_carry(model.init_decoder_state(finals, z))
-        keys = model.project_memory(memory, fused_step and mode == 1)
-        if fused_step and mode == 2:
-            keys = (keys,)
-        # the kernels' weights, cast (and on the card padded) once a request
-        weights = model.decoder.step_weights() if fused_step else None
+        members, carry0 = [], []
+        for j, (m, fused_step) in enumerate(zip(models, fused)):
+            memory, finals, src_mask, summary = m.encode(src)
+            z = None
+            if m.is_latent:
+                if dcfg.latent_from == "sample":
+                    mu_p, sigma_p = m.prior_params(summary, img)
+                    z = mu_p + sigma_p * streams.latent_eps(j, m.cfg.latent_dim)
+                else:  # vmmt_f's prior mean is zero and ignores the image
+                    z = m.prior_latent(summary, img)
+            carry0.append(m.init_decode_carry(m.init_decoder_state(finals, z)))
+            keys = m.project_memory(memory, fused_step and mode == 1)
+            if fused_step and mode == 2:
+                keys = (keys,)
+            # the kernels' weights, cast (and on the card padded) once a request
+            weights = m.decoder.step_weights() if fused_step else None
+            members.append((m, memory, z, keys, weights))
+        carry0 = tuple(carry0)
 
         # the greedy fast path honors no min_length, attention, trace or
         # blocking; sampling shares its step and handles min_length itself
         if sampling or (K == 1 and not track_attn and not dcfg.dump_beam
                         and dcfg.min_length == 0 and dcfg.block_ngram_repeat == 0):
-            def step1(carry, toks):
-                carry, logits, _ = model.decode_step(carry, toks, memory, src_mask, z, keys,
-                                                     weights)
-                return carry, torch.log_softmax(logits, dim=-1)
-
+            step1 = combined_step(members, src_mask)
             if sampling:
                 tokens, scores = sampling_search(
                     step1, carry0, B, dcfg.max_length, streams.token_gumbel,
@@ -110,26 +209,29 @@ def make_translate_fn(model: VMMTModel, dcfg: DecodeConfig,
 
         # tile the read-only context across beams once per batch
         rep = lambda x: x.repeat_interleave(K, dim=0)  # noqa: E731
-        mask_t, mem_t = rep(src_mask), rep(memory)
-        z_t = None if z is None else rep(z)
-        keys_t = tree_map(rep, keys)
-
-        def step(carry, toks):
-            carry, logits, align = model.decode_step(carry, toks, mem_t, mask_t, z_t, keys_t,
-                                                     weights)
-            logp = torch.log_softmax(logits, dim=-1)
-            if track_attn:  # full probs: argmax for replace_unk, coverage
-                return carry, logp, align.float()
-            return carry, logp
-
-        return beam_search(step, carry0, B, K, dcfg.max_length, dcfg.min_length,
-                           dcfg.alpha, dcfg.length_penalty, return_attn=dcfg.replace_unk,
-                           coverage_beta=dcfg.coverage_beta, src_mask=src_mask,
-                           return_trace=dcfg.dump_beam,
+        tiled = [(m, rep(memory), None if z is None else rep(z), tree_map(rep, keys), weights)
+                 for m, memory, z, keys, weights in members]
+        return beam_search(combined_step(tiled, rep(src_mask)), carry0, B, K,
+                           dcfg.max_length, dcfg.min_length, dcfg.alpha, dcfg.length_penalty,
+                           return_attn=dcfg.replace_unk, coverage_beta=dcfg.coverage_beta,
+                           src_mask=src_mask, return_trace=dcfg.dump_beam,
                            block_ngram_repeat=dcfg.block_ngram_repeat,
                            exclusion_tokens=tuple(exclusion_ids))
 
     return fn
+
+
+class _Members(nn.Module):
+    """The members as one module whose forward is the translate function,
+    so that ``functional_call`` lends every member a call's weights."""
+
+    def __init__(self, models: List[VMMTModel], fn: Callable):
+        super().__init__()
+        self.members = nn.ModuleList(models)
+        self.fn = fn
+
+    def forward(self, src, img, streams):
+        return self.fn(src, img, streams)
 
 
 def _to_host(out):
@@ -145,31 +247,46 @@ def _to_host(out):
 
 class Translator:
     """Text -> bucketed batches -> search on the device -> n-best text in
-    corpus order. ``device`` defaults to cuda and raises without CUDA
-    unless ``device='cpu'``; the model is moved there. ``streams`` builds
-    each batch's random draws from (seed, stream ids); a test may replace
-    it with a source of the JAX package's draws."""
+    corpus order. ``model`` is a VMMTModel or a list of them (an ensemble);
+    ``params``, optional, one state dict a member (a bare one for a single
+    model), replaces the members' own weights. ``device`` defaults to cuda
+    and raises without CUDA unless ``device='cpu'``. The translator keeps
+    the weights there (``weights``, one state dict a member: at float32 the
+    members' own tensors where they already lie there, else copies;
+    bfloat16 tensors; or int8 codes and scales) and lends them per call to
+    parameterless copies of the members; the models are left as they are
+    (a model in host memory stays there). ``streams`` builds each
+    batch's random draws from (seed, stream ids); a test may replace it
+    with a source of the JAX package's draws."""
 
     streams = DecodeStreams
     # corpus path: dispatched batches in flight at once (JAX :562-569)
     MAX_INFLIGHT_BATCHES = 4
 
-    def __init__(self, model: VMMTModel, src_vocab: Vocab, tgt_vocab: Vocab,
+    def __init__(self, model, src_vocab: Vocab, tgt_vocab: Vocab,
                  dcfg: Optional[DecodeConfig] = None,
-                 buckets: Sequence[int] = (16, 24, 32, 48, 64), mesh=None, device=None):
-        if isinstance(model, (list, tuple)):
-            raise NotImplementedError("ensembles are not ported yet (ROADMAP.md queue 1, "
-                                      "item 5.4)")
+                 buckets: Sequence[int] = (16, 24, 32, 48, 64), mesh=None, device=None,
+                 params=None):
         if mesh is not None:
             raise NotImplementedError("mesh (multi-device decode) is not ported yet "
                                       "(ROADMAP.md queue 1, item 5.8)")
+        models = list(model) if isinstance(model, (list, tuple)) else [model]
+        if isinstance(params, (list, tuple)):
+            if len(params) != len(models):
+                raise ValueError(f"{len(models)} ensemble members but {len(params)} "
+                                 "param trees")
+        elif params is not None:
+            if len(models) > 1:
+                raise ValueError(f"{len(models)} ensemble members need a matching sequence "
+                                 "of param trees, got a single tree")
+            params = [params]
         self.src_vocab = src_vocab
         self.tgt_vocab = tgt_vocab
         self.dcfg = dcfg or DecodeConfig()
         d = self.dcfg
         if d.latent_from not in ("mean", "sample"):
             raise ValueError(f"latent_from must be mean | sample, got {d.latent_from!r}")
-        if d.latent_from == "sample" and not model.is_latent:
+        if d.latent_from == "sample" and not any(m.is_latent for m in models):
             raise ValueError("-latent_from sample: this model has no latent to sample "
                              "(model_type nmt decodes deterministically)")
         if d.sampling_temp < 0.0:
@@ -202,13 +319,51 @@ class Translator:
                              "the beam tracks beam_size hypotheses")
         self.buckets = list(buckets)
         self.device = resolve_device(device)
-        self.model = model.to(self.device).eval()
+        # parameterless copies: each call lends them the translator's weights
+        with torch.device("meta"):
+            self.models = [VMMTModel(m.cfg).eval() for m in models]
+        held: Dict[int, Dict[str, object]] = {}  # a model given twice is held once
+        self.weights: List[Dict[str, object]] = []
+        for j, m in enumerate(models):
+            state = m.state_dict() if params is None else params[j]
+            names = set(self.models[j].state_dict())
+            if set(state) != names:
+                raise KeyError(f"member {j}: parameter names differ from its model's: "
+                               f"missing {sorted(names - set(state))}, unexpected "
+                               f"{sorted(set(state) - names)}")
+            key = id(m) if params is None else id(params[j])
+            if key not in held:
+                held[key] = self._own_weights(state, d.infer_dtype)
+            self.weights.append(held[key])
         # src -> tgt map consulted by replace_unk before copying the source token
         self.phrase_table: dict = {}
-        self._fn = make_translate_fn(self.model, d, self._exclusion_ids)
+        self._fn = make_translate_fn(self.models, d, self._exclusion_ids)
+        self._members = _Members(self.models, self._fn)
         # raw search trees by corpus index, filled when dcfg.dump_beam
         self.beam_traces: dict = {}
         self._executor: Optional[ThreadPoolExecutor] = None
+
+    def _own_weights(self, state: Mapping, dtype_name: str) -> Dict[str, object]:
+        """One member's weights at ``dtype_name`` on the device, cast where
+        ``state`` lies (only the cast copy reaches the device; float32
+        tensors already there are used as they are)."""
+        state = {k: torch.as_tensor(v).detach() for k, v in state.items()}
+        return {k: ({q: t.to(self.device) for q, t in v.items()} if isinstance(v, dict)
+                    else v.to(self.device))
+                for k, v in cast_params_for_inference(state, dtype_name).items()}
+
+    def weight_bytes(self) -> int:
+        """Bytes of the weights the translator holds between calls."""
+        held = {id(w): w for w in self.weights}.values()
+        return sum(t.numel() * t.element_size() for w in held for v in w.values()
+                   for t in (v.values() if isinstance(v, dict) else (v,)))
+
+    def _call(self, src: torch.Tensor, img: Optional[torch.Tensor], streams):
+        """The translate function on one batch with the translator's
+        weights (int8 rebuilt as bfloat16 for this call only)."""
+        lent = {f"members.{j}.{k}": v for j, w in enumerate(self.weights)
+                for k, v in dequantize_params(w).items()}
+        return torch.func.functional_call(self._members, lent, (src, img, streams))
 
     def _device_thread(self) -> ThreadPoolExecutor:
         """The one thread that runs every batch's search, in dispatch order."""
@@ -242,7 +397,7 @@ class Translator:
                     idx = stream_ids[idx]
                 streams = self.streams(seed, torch.from_numpy(idx.astype(np.int64))
                                        .to(self.device))
-            return _to_host(self._fn(src, img, streams))
+            return _to_host(self._call(src, img, streams))
 
     def dispatch_ids(self, src_ids: List[List[int]], img_feats: Optional[np.ndarray] = None,
                      seed: Optional[int] = None,

@@ -31,7 +31,6 @@ from variational_mmt_torch.data.bpe import BPE
 from variational_mmt_torch.data.tokenizer import tokenize
 from variational_mmt_torch.data.vocab import Vocab
 from variational_mmt_torch.decode.translator import Translator
-from variational_mmt_torch.models.model import VMMTModel
 from variational_mmt_torch.serve.errors import ClientError
 
 
@@ -81,9 +80,11 @@ class TranslationService:
 
     Thread-safe: any number of producer threads may call :meth:`submit_text`
     / :meth:`translate_text`; one worker dispatches to the translator's
-    device thread. ``device`` is the Translator's (cuda unless 'cpu')."""
+    device thread. ``model`` is a model or a list of them (an ensemble,
+    whose vocabs and vmmt_c image interfaces the caller has checked);
+    ``device`` is the Translator's (cuda unless 'cpu')."""
 
-    def __init__(self, model: VMMTModel, src_vocab: Vocab, tgt_vocab: Vocab,
+    def __init__(self, model, src_vocab: Vocab, tgt_vocab: Vocab,
                  dcfg: Optional[DecodeConfig] = None,
                  buckets: Sequence[int] = (16, 24, 32, 48, 64),
                  scfg: Optional[ServeConfig] = None, bpe: Optional[BPE] = None, mesh=None,
@@ -93,11 +94,14 @@ class TranslationService:
         # resolved once, so the worker and the stats report one mode
         self.pipeline_depth = self.scfg.resolved_pipeline_depth()
         self.bpe = bpe
-        self.model = model
-        c = model.cfg  # the image's width, when decoding reads one
-        feeds = consumes_decode_feats(c) or (
-            (model.is_latent or c.use_img_predict) and c.img_feat_dim > 0)
-        self._img_cfg = c if feeds else None
+        self.models = list(model) if isinstance(model, (list, tuple)) else [model]
+        self.model = self.models[0]
+        # the image's width, when decoding reads one: a vmmt_c member's (the
+        # one consumer at decode) before any other member that has one
+        img_members = [m for m in self.models if consumes_decode_feats(m.cfg)] or [
+            m for m in self.models
+            if (m.is_latent or m.cfg.use_img_predict) and m.cfg.img_feat_dim > 0]
+        self._img_cfg = img_members[0].cfg if img_members else None
         self._img_dim = self._img_cfg.img_feat_dim if self._img_cfg else 0
         if self.scfg.over_length not in ("reject", "truncate"):
             raise ValueError(f"over_length must be 'reject' or 'truncate', got "
