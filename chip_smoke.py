@@ -244,15 +244,40 @@ in PERF.md).
     preprocess CLI from phase 10's 2048 training pairs written as text
     (BPE, ``-shard_size 512``: 4 shards), timed, and 5 steps of the train
     CLI on its corpus (counted as ``preprocess``).
-15. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+15. Options phase: the model options of ROADMAP.md item 5.5 at the
+    flagship's width and depth (emb and hidden 500, 2+2 layers, latent
+    128, bf16, use_pallas, vocab 10000), each with random weights from
+    numpy seed 0 through convert.py and phase 5's batches (conv features:
+    (64, 49, 2048) |N(0,1)| a batch, numpy seed 5). The fast config
+    (``input_feed=False``, pool5): 20 Trainer steps, finite losses, rows 1
+    and 2 launched 8 times a step each, 6 at 250 units (the encoders) and
+    2 at 500 (the decoder's layers from the bridge's state), rows 5 and 6
+    not at all; phase 6's f32 check of its kernel route (bridge gradients
+    printed); ms/step in turns beside the input-feed flagship with
+    pallas_decoder 1 and 0 (two runs of 20 steps each); beam-4 decoding of
+    256 requests (numpy seed 6) at pallas_step 0, every hypothesis held to
+    60 steps (min_length 60), well formed, sent/s; with
+    the trained weights in f32, the kernel route and the all-plain route
+    agree on at least 31 of 32 top-1 hypotheses. LSTM cells, dot attention,
+    mlp attention, and conv features (49 regions) with ``img_pool=attn``
+    (and pallas_decoder, whose kernels compute that decoder): 5 Trainer
+    steps with finite losses and the same beam-4 decoding, well formed
+    (conv + attn at pallas_step 1: row 3 must run; the others' encoder scan
+    must run, LSTM's has no kernel). The four models the step kernels do
+    not compute decode 64 sentences at pallas_step 1 and 2: rows 3-6
+    launched 0 times, ``Translator.step_routes`` ``plain``, n-best equal to
+    pallas_step 0's. Counted as ``options``: the training runs, the beam-4
+    decodes and the pallas_step 1 and 2 decodes. Prints the phase's
+    seconds.
+16. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
     numbers at the gate's shape, ``serve_shapes`` rows 1, 3 and 4 at the
     service's, ``widths`` each kernel's numbers at the widths phase's
     shapes, ``launches_by_path`` the serving, training, packed-training,
-    families, CLI, online-serving, option-check, eval, widths, ensemble
-    and preprocess counts), then the last line
+    families, CLI, online-serving, option-check, eval, widths, ensemble,
+    preprocess and options counts), then the last line
     {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
@@ -319,6 +344,15 @@ WIDTH_SCANS = ((64, 24, 512, ("float32", "bfloat16")), (256, 24, 512, ("bfloat16
 WIDTH_STEP_NS, WIDTH_DEC = (128, 32), dict(B=64, T=25, S=24, H=250)  # rows 3-6 at H = 250
 WIDTH_CLI_STEPS = 10  # train CLI steps at -rnn_size 1024 (scans) and 250 (decoder kernels)
 ENS_SEEDS, ENS_SEED = (1, 2), 4  # numpy seeds: the random members; the flagship request
+OPTION_STEPS, OPTION_OTHER_STEPS = 20, 5
+# the timed runs in turns: the fast config and the input-feed flagship with
+# pallas_decoder 1 and 0
+OPTION_TIMED = ("fast", "input_feed_1", "input_feed_0", "input_feed_0", "input_feed_1", "fast")
+OPTION_SENTENCES, OPTION_CHECK, OPTION_INELIGIBLE = 256, 32, 64
+OPTION_REGIONS = 49  # conv features: ResNet's 7x7 grid of 2048-d regions
+OPTIONS = {"fast": dict(input_feed=False), "lstm": dict(rnn_type="lstm"),
+           "dot": dict(attn_type="dot"), "mlp": dict(attn_type="mlp"),
+           "conv_attn": dict(img_feat_type="conv", img_pool="attn")}
 ENS_DTYPES = ("float32", "bfloat16", "int8")  # -infer_dtype of the timed decodes
 ENS_SENT, ENS_MAXLEN = 256, 60  # sentences an input (test set; flagship request), max_length
 ENS_CHECK, ENS_SERVE = 32, 32  # f32 kernel-vs-plain sentences; requests to the serve CLI
@@ -1216,12 +1250,13 @@ def train_check_f32(cfg, state, batch=None, label: str = "train"):
         gerr = {n: float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
                 for n, a, b in zip(names, gk, gp)}
         wn = max(gerr, key=gerr.get)
+        bridge = max(v for n, v in gerr.items() if n.startswith("bridge"))
         print(f"{label} f32 check ({rnd}): loss kernel {lk:.6f} plain {lp:.6f} rel diff "
               f"{dloss:.2e} (tolerance 1e-4); worst gradient {wn} {gerr[wn]:.2e} of its max "
-              f"(tolerance 1e-3)")
+              f"(tolerance 1e-3); worst bridge gradient {bridge:.2e}")
         if not (dloss <= 1e-4 and gerr[wn] <= 1e-3):
             fail(f"f32 kernel path and plain path disagree ({rnd})")
-        worst[rnd] = {"loss_rel": dloss, "grad_rel": gerr[wn]}
+        worst[rnd] = {"loss_rel": dloss, "grad_rel": gerr[wn], "bridge_grad_rel": bridge}
     return worst
 
 
@@ -2723,6 +2758,180 @@ def lending_cost(model, sv, tv, dcfg, inputs, runs: int = 3) -> dict:
     return out
 
 
+def scan_widths(fn):
+    """(fn(), {H: calls}): the width of every ``gru_layer_scan_ad`` call
+    while ``fn`` runs (each launches row 1 once on a CUDA tensor, and row 2
+    once when its gradient is taken), read by wrapping the function that
+    the models import when they call it."""
+    from variational_mmt_torch.ops import gru_scan
+
+    seen = {}
+    orig = gru_scan.gru_layer_scan_ad
+
+    def call(x_proj, *a, **k):
+        H = x_proj.shape[-1] // 3
+        seen[H] = seen.get(H, 0) + 1
+        return orig(x_proj, *a, **k)
+
+    gru_scan.gru_layer_scan_ad = call
+    try:
+        out = fn()
+    finally:
+        gru_scan.gru_layer_scan_ad = orig
+    return out, seen
+
+
+def options_phase(card: str, cfg, state):
+    """Phase 15 (module docstring): the model options of ROADMAP.md item
+    5.5 at the flagship's width. Returns ({kernel: launches on the counted
+    runs}, record)."""
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.convert import params_from_jax
+    from variational_mmt_torch.data.vocab import SPECIALS, Vocab
+    from variational_mmt_torch.decode.translator import Translator
+    from variational_mmt_torch.models.model import build_model, init_params
+    from variational_mmt_torch.tools import flagship
+    from variational_mmt_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    V, D = cfg.model.tgt_vocab_size, cfg.model.img_feat_dim
+    vocab = Vocab(SPECIALS + [f"w{i}" for i in range(V - len(SPECIALS))])
+    rng = np.random.default_rng(5)
+    pool5 = train_batches(cfg)
+    conv = [dataclasses.replace(b, img=np.abs(rng.standard_normal(
+        (b.batch_size, OPTION_REGIONS, D))).astype(np.float32)) for b in pool5]
+    src, img = flagship.requests(cfg.model, seed=6)(OPTION_SENTENCES)
+    conv_img = np.abs(rng.standard_normal((OPTION_SENTENCES, OPTION_REGIONS, D))
+                      ).astype(np.float32)
+    total = {k: 0 for k in kernel_counters()}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] += n
+
+    def translator(model, mode, batch, min_length=0):
+        return Translator(model, vocab, vocab,
+                          DecodeConfig(beam_size=4, max_length=60, min_length=min_length,
+                                       batch_size=batch, pallas_step=mode), device="cuda")
+
+    recs = {}
+    for name, over in OPTIONS.items():
+        # pallas_decoder: the decoder sequence kernels wherever they compute the
+        # decoder (conv_attn); the other options' decoders take the plain loop
+        m = dataclasses.replace(cfg.model, pallas_decoder=True, **over)
+        ocfg = dataclasses.replace(cfg, model=m)
+        ostate = params_from_jax(init_params(m, seed=0), m)
+        model = build_model(m, device="cuda")
+        model.load_state_dict(ostate)
+        is_conv = m.img_feat_type == "conv"
+        batches, dec_img = (conv, conv_img) if is_conv else (pool5, img)
+        trainer = Trainer(ocfg, model, batches, device="cuda")
+        steps = OPTION_STEPS if name == "fast" else OPTION_OTHER_STEPS
+        launches, (hist, widths) = counted_run(
+            lambda: scan_widths(lambda: trainer.train(steps)))
+        add(launches)
+        losses = [h["loss"] for h in hist]
+        rec = {"train_launches": launches, "train_widths": widths, "losses": losses}
+        print(f"options: {name} ({over}): {steps} training steps, losses "
+              + " ".join(f"{v:.3f}" for v in losses) + f"; launches {launches}, GRU scans "
+              f"by width {widths}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"options {name}: a training loss is not finite")
+        if name == "fast":
+            # rows 1 and 2: the encoder's 4 and the target encoder's 2 layers at
+            # H/2 as in the input-feed model, plus the decoder's 2 at H
+            want = {m.hidden_dim // 2: 6 * steps, m.hidden_dim: 2 * steps}
+            if widths != want or launches["gru_layer_scan"] != 8 * steps \
+                    or launches["gru_layer_scan_bwd"] != 8 * steps \
+                    or launches["decoder_fwd"] or launches["decoder_bwd"]:
+                fail(f"options fast: scans by width {widths}, want {want}; rows 1 and 2 "
+                     f"{8 * steps} launches each, rows 5 and 6 none")
+            rec["f32_check"] = train_check_f32(ocfg, ostate, label="options fast")
+            trainers = {"fast": trainer,
+                        **{f"input_feed_{p}": trainer_for(cfg, state, pool5, pallas_decoder=p)
+                           for p in (1, 0)}}
+            runs = {k: [] for k in trainers}
+            for k in OPTION_TIMED:
+                trainers[k].train(len(pool5))  # untimed: no run starts cold after another
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trainers[k].train(OPTION_STEPS)
+                torch.cuda.synchronize()
+                runs[k].append((time.perf_counter() - t0) / OPTION_STEPS * 1e3)
+            del trainers
+            rec["step_ms"] = {k: float(np.mean(v)) for k, v in runs.items()}
+            rec["step_ms_runs"] = runs
+            print("options: ms/step " + "; ".join(
+                f"{k} {rec['step_ms'][k]:.2f} (runs {', '.join(f'{v:.2f}' for v in r)})"
+                for k, r in runs.items()) + f"; the fast config against the input-feed "
+                f"flagship with pallas_decoder 1 and 0, in turns, {OPTION_STEPS} steps of batch "
+                f"{TRAIN_BATCH} a run, {card}")
+        # beam-4 decoding of 256 sentences, every hypothesis held to 60 steps
+        # (a model a few steps from random ends them after a few tokens):
+        # conv+attn computes the step kernel's decoder (pallas_step 1), the
+        # others take the plain step
+        mode = 1 if name == "conv_attn" else 0
+        tr = translator(trainer.model, mode, OPTION_SENTENCES, min_length=60)
+        tr.translate_ids(src[:8], dec_img[:8])  # warm-up
+        t0 = time.perf_counter()
+        launches, out = counted_run(lambda: tr.translate_ids(src, dec_img))
+        rate = len(src) / (time.perf_counter() - t0)
+        add(launches)
+        well_formed(out, len(src), V, 60)
+        rec.update(decode_launches=launches, sent_per_s=rate, route=tr.step_routes[0])
+        print(f"options: {name}: beam-4 sent/s {rate:.1f} (pallas_step {mode}, route "
+              f"{tr.step_routes[0]}, {len(src)} sentences held to 60 steps, {card}); "
+              f"launches {launches}")
+        if name != "lstm" and launches["gru_layer_scan"] <= 0:
+            fail(f"options {name}: the encoder's scan kernel was not launched")
+        if name == "conv_attn" and launches["decode_step"] <= 0:
+            fail("options conv_attn: the decode-step kernel was not launched")
+        if name == "fast":
+            # f32, the trained weights: the kernel route against the all-plain route
+            trained = trainer.model.state_dict()
+            outs = []
+            for route in (dict(compute_dtype="float32"),
+                          dict(compute_dtype="float32", use_pallas=False,
+                               pallas_decoder=False, fused_ce=False)):
+                m32 = build_model(dataclasses.replace(m, **route), device="cuda")
+                m32.load_state_dict(trained)
+                outs.append(translator(m32, 0, OPTION_CHECK).translate_ids(
+                    src[:OPTION_CHECK], img[:OPTION_CHECK]))
+            same = sum(a[0][1] == b[0][1] for a, b in zip(*outs))
+            rec["f32_top1_same"] = same
+            print(f"options: fast: f32 kernel route vs all-plain route, trained weights: "
+                  f"{same}/{OPTION_CHECK} identical top-1 hypotheses")
+            if same < OPTION_CHECK - 1:
+                fail("options fast: kernel route and plain route disagree on more than 1 of "
+                     f"{OPTION_CHECK} sentences")
+        if name != "conv_attn":
+            # pallas_step 1 and 2 on a decoder the step kernels do not compute:
+            # the plain step, as JAX's translator routes it
+            n = OPTION_INELIGIBLE
+            ref = translator(trainer.model, 0, n).translate_ids(src[:n], dec_img[:n])
+            rec["ineligible"] = {}
+            for mode in (1, 2):
+                tr = translator(trainer.model, mode, n)
+                launches, out = counted_run(lambda: tr.translate_ids(src[:n], dec_img[:n]))
+                add(launches)
+                rows36 = {k: launches[k] for k in ("decode_step", "gru_chain", "decoder_fwd",
+                                                   "decoder_bwd")}
+                same = sum(a == b for a, b in zip(out, ref))
+                rec["ineligible"][mode] = {"route": tr.step_routes[0], "rows_3_6": rows36,
+                                           "same_as_step_0": same}
+                print(f"options: {name} at pallas_step {mode}: route {tr.step_routes}, rows "
+                      f"3-6 launches {rows36}, n-best equal to pallas_step 0's on "
+                      f"{same}/{n}")
+                if tr.step_routes != ["plain"] or any(rows36.values()) or same != n:
+                    fail(f"options {name}: pallas_step {mode} did not take the plain step")
+        recs[name] = rec
+        del trainer, model
+        torch.cuda.empty_cache()
+    recs["phase_s"] = time.time() - t_phase
+    print(f"options: launches over the counted runs {total}; phase {recs['phase_s']:.1f} s")
+    return total, recs
+
+
 def width_record(name: str, widths: dict) -> dict:
     """One kernel's numbers at the widths phase's shapes: rows 1 and 2 by
     shape (errors, plans, bf16 times, cuDNN, bounds), rows 3-6 at H=250."""
@@ -2802,6 +3011,7 @@ def main() -> int:
         widths["phase_s"] = time.time() - t0
         print(f"eval phase {evals['phase_s']:.1f} s, widths phase {widths['phase_s']:.1f} s")
         ens_launches, ens = ensemble_phase(card, root)
+    opt_launches, options = options_phase(card, cfg, state)
 
     entries = []
     for name, rec, src, replaces in (
@@ -2823,7 +3033,8 @@ def main() -> int:
                    "families": family_launches[name], "cli": cli_launches[name],
                    **{path: n.get(name, 0) for path, n in online_launches.items()},
                    "eval": eval_launches[name], "widths": width_launches[name],
-                   **{path: n[name] for path, n in ens_launches.items()}}
+                   **{path: n[name] for path, n in ens_launches.items()},
+                   "options": opt_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2861,7 +3072,7 @@ def main() -> int:
                       "cli": cli, "serve_online": {k: v for k, v in served.items()
                                                    if k != "step_shapes"},
                       "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,
-                      "card": card}))
+                      "options": options, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

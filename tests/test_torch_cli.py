@@ -489,11 +489,7 @@ def test_translate_sampling_flags_decode_reproducibly(corpus, trained, flags, tm
     assert outs[0] == outs[1] and outs[0] != outs[2]
 
 
-TRAIN_REFUSED = [
-    (["-num_shards", "2"], "5.8"), (["-tensor_parallel", "2"], "5.8"),
-    (["-rnn_type", "lstm"], "5.5"), (["-global_attention", "dot"], "5.5"),
-    (["-input_feed", "0"], "5.5"), (["-img_feat_type", "conv", "-img_pool", "attn"], "5.5"),
-]
+TRAIN_REFUSED = [(["-num_shards", "2"], "5.8"), (["-tensor_parallel", "2"], "5.8")]
 
 
 @pytest.mark.parametrize("flags,item", TRAIN_REFUSED, ids=lambda x: (
@@ -503,6 +499,48 @@ def test_train_refuses_what_is_not_ported_naming_its_roadmap_item(corpus, flags,
     with pytest.raises(SystemExit, match=f"not ported yet: .*ROADMAP.md .*{item}"):
         cli_train.main(["-data", f"{d}/demo", "-save_model", f"{tmp_path}/x", "-model_type",
                         "nmt", "-batch_size", "8", "-max_steps", "1", *SMALL, *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["-rnn_type", "lstm"], ["-global_attention", "dot"], ["-input_feed", "0"],
+    ["-img_feat_type", "conv", "-img_pool", "attn"],
+], ids=" ".join)
+def test_train_and_translate_the_item_5_5_options(corpus, flags, tmp_path):
+    """Once refused (ROADMAP.md item 5.5): one training step with the
+    option writes a checkpoint that the translate CLI decodes. Conv features
+    are (4, 16) regions a line, their mean the pool5 feature."""
+    d, feats = str(corpus), {}
+    if "conv" in flags:
+        rng = np.random.default_rng(3)
+        for split in ("train", "valid", "test"):
+            pool5 = np.load(f"{d}/{split}.feats.npy")
+            conv = pool5[:, None, :] + 0.1 * rng.standard_normal((len(pool5), 4, 16))
+            feats[split] = f"{tmp_path}/{split}.conv.npy"
+            np.save(feats[split], conv.astype(np.float32))
+    ckpt = f"{tmp_path}/run"
+    argv = vmmt_c(d, ckpt, "-max_steps", "1", "-checkpoint_every", "1", "-valid_every", "1",
+                  *flags)
+    if feats:
+        argv += ["-train_img_feats", feats["train"], "-valid_img_feats", feats["valid"]]
+    cli_train.main(argv)
+    state, cfg, _, _, _ = ck.load_checkpoint(ck.latest_checkpoint(ckpt), device="cpu")
+    assert state.step == 1
+    m = cfg.model
+    assert (m.rnn_type, m.attn_type, m.input_feed, m.img_feat_type, m.img_pool) != (
+        "gru", "general", True, "pool5", "mean")
+    argv = translate_args(d, ckpt, f"{tmp_path}/pred.txt", "-device", "cpu")
+    if feats:
+        argv[argv.index("-img_feats") + 1] = feats["test"]
+    out = cli_translate.main(argv)
+    assert len(out["nbest"]) == 10 and all(len(nb) == 2 for nb in out["nbest"])
+
+
+def test_train_refuses_pack_with_lstm_as_jax_does(corpus, tmp_path):
+    d = str(corpus)
+    with pytest.raises(SystemExit, match="-pack requires -rnn_type gru"):
+        cli_train.main(vmmt_c(d, f"{tmp_path}/x", "-max_steps", "1", "-pack", "1",
+                              "-rnn_type", "lstm"))
+    assert not os.path.exists(f"{tmp_path}/x")
 
 
 def test_train_refuses_fused_decoder_from_a_config_file(corpus, tmp_path):

@@ -12,7 +12,6 @@ the model families.
 - ``init_params`` draws flax's truncated lecun-normal.
 """
 
-import dataclasses
 import json
 
 import numpy as np
@@ -215,12 +214,15 @@ def test_gate_runner_refuses_kernel_routes_on_the_cpu(route, capsys):
     assert "-route" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("args", [["-img_pool", "attn", "-img_regions", "4"]],
-                         ids=["img_pool_attn"])
-def test_gate_runner_refuses_options_not_ported(args, capsys):
-    with pytest.raises(SystemExit):
-        quality_gate.parse_args(args)
-    assert args[0] in capsys.readouterr().err
+@pytest.mark.parametrize("pool", ["attn", "mean"])
+def test_gate_runner_takes_region_features_with_either_pool(pool):
+    """Once refused for attn: conv-style region features pooled by
+    attention or by their mean, as JAX's gate runner takes them."""
+    args = quality_gate.parse_args(["-device", "cpu", "-img_pool", pool, "-img_regions", "4"])
+    m = quality_gate.build_cfg("vmmt_c", 11, args).model
+    assert (m.img_feat_type, m.img_pool) == ("conv", pool)
+    model = build_model(m, device="cpu")
+    assert hasattr(model, "region_pool") == (pool == "attn")
 
 
 GATE = dict(dec_layers=2, attn_type="general", rnn_type="gru", input_feed=True)
@@ -235,15 +237,7 @@ def test_fused_step_gate_matches_jax_and_project_memory_follows_it(over):
                       latent_dim=4, img_feat_dim=6, compute_dtype="float32", **{**GATE, **over})
     eligible = not over
     assert fused_step_eligible(cfg) == eligible
-    if eligible or "dec_layers" in over:
-        model = build_model(cfg, device="cpu")
-    else:
-        # the model refuses these options when it is built; hold the guard
-        # itself on an eligible model that is handed the refused config
-        with pytest.raises(NotImplementedError):
-            build_model(cfg, device="cpu")
-        model = build_model(dataclasses.replace(cfg, **GATE), device="cpu")
-        model.cfg = cfg
+    model = build_model(cfg, device="cpu")  # every option builds
     with torch.no_grad():
         for p in model.parameters():
             p.normal_()
@@ -254,7 +248,11 @@ def test_fused_step_gate_matches_jax_and_project_memory_follows_it(over):
     else:
         with pytest.raises(ValueError, match="2-layer GRU"):
             model.project_memory(memory, with_values=True)
-        assert model.project_memory(memory).shape == memory.shape
+        # the plain step's keys: memory @ Wq^T for general, the memory for dot
+        keys = model.project_memory(memory)
+        attn = model.decoder.step.attn
+        want = memory if over.get("attn_type") == "dot" else memory @ attn.linear_in.kernel.t()
+        torch.testing.assert_close(keys, want, rtol=0, atol=0)
 
 
 def test_init_params_draw_truncated_lecun_normal():

@@ -4,7 +4,8 @@ checkpoints and the serving wire go through the port's codec); what a
 serving dispatcher process imports loads no torch; its entry points need
 CUDA unless asked for the CPU; kernel
 wrappers take their plain versions only for CPU tensors and never swallow
-an error; every option outside the slice raises NotImplementedError."""
+an error; every option outside the port raises NotImplementedError, and
+the model options of ROADMAP.md item 5.5, once refused, build and run."""
 
 import ast
 import dataclasses
@@ -123,9 +124,22 @@ def test_wrappers_on_a_non_cpu_tensor_launch_or_raise(monkeypatch):
     dict(rnn_type="lstm"), dict(attn_type="dot"), dict(attn_type="mlp"),
     dict(img_feat_type="conv", img_pool="attn"), dict(input_feed=False),
 ], ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
-def test_unsupported_model_options_raise(over):
-    with pytest.raises(NotImplementedError):
-        build_model(ModelConfig(**{**TINY, **over}), device="cpu")
+def test_item_5_5_model_options_build_and_train(over):
+    """Once refused (ROADMAP.md item 5.5): each option builds, takes random
+    weights from ``init_params`` and gives finite logits and gradients on
+    the kernel route (the kernels' plain versions on the CPU)."""
+    from variational_mmt_torch.convert import params_from_jax
+    from variational_mmt_torch.models.model import init_params
+
+    cfg = ModelConfig(**{**TINY, **over})
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(params_from_jax(init_params(cfg, seed=0), cfg))
+    img = torch.randn((2, 49, 6) if cfg.img_feat_type == "conv" else (2, 6))
+    out = model(torch.randint(4, 24, (2, 5)), torch.randint(4, 24, (2, 7)), img, sample=False)
+    assert out["logits"].shape == (2, 7, 24) and torch.isfinite(out["logits"]).all()
+    out["logits"].logsumexp(-1).sum().backward()
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+    assert float(model.bridge0.kernel.grad.abs().max()) > 0.0
 
 
 @pytest.mark.parametrize("over", [

@@ -14,11 +14,12 @@ resolves to its latest step). ``-valid_iw K`` adds the K-sample IW-ELBO
 bound to each validation of a latent model. It runs on CUDA unless given
 ``-device cpu`` and exits with an error without CUDA.
 
-Refused, each naming its ROADMAP.md item: ``-num_shards`` and
-``-tensor_parallel`` above 1 (queue 1, item 5.8),
-``fused_decoder`` (item 2), and the model options the port does not have
-(LSTM cells, dot or mlp attention, ``-input_feed 0``, attention pooling of
-conv features: 5.5).
+Every model option of the JAX CLI trains: ``-rnn_type gru|lstm``,
+``-global_attention general|dot|mlp``, ``-input_feed 0|1`` and conv
+features pooled by ``-img_pool mean|attn``. Refused, each naming its
+ROADMAP.md item: ``-num_shards`` and ``-tensor_parallel`` above 1 (queue 1,
+item 5.8) and ``fused_decoder`` (item 2); ``-pack`` with LSTM cells is
+refused as JAX refuses it (the segment-reset recurrences are GRU only).
 """
 
 from __future__ import annotations
@@ -340,11 +341,6 @@ def refused(cfg: Config, opt) -> list:
         ("-num_shards > 1", opt.num_shards > 1, "queue 1, item 5.8"),
         ("-tensor_parallel > 1", cfg.train.num_model_shards > 1, "queue 1, item 5.8"),
         ("fused_decoder", m.fused_decoder, "queue 1, item 2"),
-        ("-rnn_type lstm", m.rnn_type != "gru", "queue 1, item 5.5"),
-        (f"-global_attention {m.attn_type}", m.attn_type != "general", "queue 1, item 5.5"),
-        ("-input_feed 0", not m.input_feed, "queue 1, item 5.5"),
-        ("-img_pool attn with -img_feat_type conv",
-         m.img_feat_type == "conv" and m.img_pool == "attn", "queue 1, item 5.5"),
     ]
     return [(what, item) for what, on, item in table if on]
 
@@ -419,6 +415,9 @@ def main(argv=None, on_checkpoint: Optional[Callable[[TrainState, str], None]] =
                          "re-run preprocess with -share_vocab")
     buckets = cfg.data.buckets
     if cfg.train.pack:
+        if cfg.model.rnn_type != "gru":
+            raise SystemExit("-pack requires -rnn_type gru (segment-reset "
+                             "recurrences are GRU-only)")
         from variational_mmt_torch.data.packing import PackedBucketIterator
 
         train_iter = PackedBucketIterator(train_ds, cfg.train.batch_size, buckets,

@@ -5,10 +5,15 @@
 give it) into the port's ``state_dict``; ``params_to_jax`` is its inverse
 and ``grads_to_jax`` lays the parameters' gradients out the same way.
 The port keeps the JAX layouts (Dense kernels ``(in, out)``, ``[r|z|n]``
-gate blocks, ``hh_kernel (H, 3H)``), so the conversion only renames: the
-tree path ``decoder/step/attn/linear_in/kernel`` is the parameter
-``decoder.step.attn.linear_in.kernel``. Every leaf must map to a
-parameter of the same shape and every parameter must have a leaf.
+GRU and ``[i|f|g|o]`` LSTM gate blocks, ``hh_kernel (H, 3H)`` or ``(H,
+4H)``), so the conversion only renames: the tree path
+``decoder/step/attn/linear_in/kernel`` is the parameter
+``decoder.step.attn.linear_in.kernel``. The parameters a configuration has
+(mlp attention's four Dense layers, dot's missing ``linear_in``, no
+``ih_feed`` without input feed, ``region_pool`` under ``img_pool='attn'``,
+an LSTM bridge of ``(2H + Z, H)``) follow from the model, so every leaf
+must map to a parameter of the same shape and every parameter must have a
+leaf.
 """
 
 from __future__ import annotations

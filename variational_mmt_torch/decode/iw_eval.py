@@ -54,7 +54,7 @@ def make_iw_elbo_fn(model: VMMTModel, k_samples: int) -> Callable:
         # hoisted: the image target does not depend on the sample
         v_target = None
         if model.cfg.use_img_predict and img is not None:
-            v_target = model._img_in(img)
+            v_target = model._img_in(img, summary)
         logws = []
         for k in range(k_samples):
             e = (torch.randn(mu_q.shape, generator=generator, dtype=mu_q.dtype,

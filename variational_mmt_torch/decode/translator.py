@@ -142,7 +142,10 @@ def make_translate_fn(model, dcfg: DecodeConfig,
     ``track_attn`` the attention is the member mean in f32). ``streams``
     (a ``DecodeStreams`` or an object with its ``latent_eps`` and
     ``token_gumbel``) supplies the draws of ``latent_from=sample`` (member
-    j's from ``latent_eps(j, latent_dim)``) and of sampling."""
+    j's from ``latent_eps(j, latent_dim)``) and of sampling. ``fn.routes``
+    names each member's decode step: ``decode_step`` (pallas_step 1),
+    ``gru_chain`` (2) or ``plain`` (0, or a decoder the step kernels do not
+    compute, as in JAX)."""
     check_supported(dcfg)
     models = list(model) if isinstance(model, (list, tuple)) else [model]
     K = dcfg.beam_size
@@ -218,6 +221,7 @@ def make_translate_fn(model, dcfg: DecodeConfig,
                            block_ngram_repeat=dcfg.block_ngram_repeat,
                            exclusion_tokens=tuple(exclusion_ids))
 
+    fn.routes = [("plain", "decode_step", "gru_chain")[mode] if f else "plain" for f in fused]
     return fn
 
 
@@ -338,6 +342,8 @@ class Translator:
         # src -> tgt map consulted by replace_unk before copying the source token
         self.phrase_table: dict = {}
         self._fn = make_translate_fn(self.models, d, self._exclusion_ids)
+        # each member's decode step: decode_step | gru_chain | plain
+        self.step_routes: List[str] = self._fn.routes
         self._members = _Members(self.models, self._fn)
         # raw search trees by corpus index, filled when dcfg.dump_beam
         self.beam_traces: dict = {}

@@ -1,16 +1,21 @@
-"""Input-feeding GRU decoder with global attention. Mirrors
+"""Input-feeding decoder with global attention, GRU or LSTM cells. Mirrors
 ``variational_mmt_tpu/models/decoder.py``: ``DecoderStep`` (:43-110) and,
 from ``GRUDecoder``, ``ih_emb``, ``init_carry`` (:135), the teacher-forced
-sequence (``__call__``, :141-249, input-feed path), its sequence-packed form
-(``packed_seq``, :251-331, input-feed path), ``project_memory`` (:333) and
-``one_step`` (:357-411).
+sequence (``__call__``, :141-249), its sequence-packed form
+(``packed_seq``, :251-331), ``project_memory`` (:333) and ``one_step``
+(:357-411).
+
+With ``input_feed=False`` no attention feeds back into the recurrence, so
+each layer is a unidirectional sequence of its own (:157-181): the
+teacher-forced path scans layer by layer, through the GRU-scan kernels
+with ``use_pallas`` and GRU cells, then runs one batched attention.
 
 Dropout between the layers is one mask ``dmid`` (B,T,H) drawn up front from
 the caller's generator, as the JAX package's fused paths draw it
-(:208-215), and it serves both routes of the teacher-forced sequence.
+(:208-215), and it serves every route of the teacher-forced sequence.
 
-Carry = (per-layer hidden states, input-feed vector = the previous
-attentional hidden).
+Carry = (per-layer states, (B,H) for GRU and (B,2H) ``[h | c]`` for LSTM;
+input-feed vector = the previous attentional hidden, (B,H)).
 """
 
 from __future__ import annotations
@@ -21,7 +26,8 @@ import torch
 from torch import nn
 
 from variational_mmt_torch.models.attention import GlobalAttention
-from variational_mmt_torch.models.gru import dropout, dropout_mask, gru_gates
+from variational_mmt_torch.models.gru import (cell_layer_scan, cell_step, dropout,
+                                              dropout_mask, n_gates, scan_route)
 from variational_mmt_torch.models.layers import Dense
 from variational_mmt_torch.ops.decode_step import (decode_step, gru_chain, pad_step_weights,
                                                    pad_units, padded_width)
@@ -32,21 +38,27 @@ DecoderCarry = Tuple[Tuple[torch.Tensor, ...], torch.Tensor]
 
 class DecoderStep(nn.Module):
     """One decoder timestep over the whole batch, from the embedding part of
-    the layer-0 input projection (``emb_proj`` (B, 3H)). Holds the recurrent
-    weights as raw (H, 3H) parameters, as the JAX module does."""
+    the layer-0 input projection (``emb_proj`` (B, G*H), G = 3 for GRU, 4
+    for LSTM). Holds the recurrent weights as raw (H, G*H) parameters, as
+    the JAX module does; ``ih_feed`` exists only with ``input_feed``."""
 
     def __init__(self, hidden: int, layers: int = 2, attn_type: str = "general",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, input_feed: bool = True,
+                 cell_type: str = "gru"):
         super().__init__()
         self.hidden = hidden
         self.layers = layers
         self.dtype = dtype
+        self.input_feed = input_feed
+        self.cell_type = cell_type
+        G = n_gates(cell_type)
         for l in range(layers):
-            setattr(self, f"hh_kernel{l}", nn.Parameter(torch.empty(hidden, 3 * hidden)))
-            setattr(self, f"hh_bias{l}", nn.Parameter(torch.empty(3 * hidden)))
-        self.ih_feed = Dense(hidden, 3 * hidden, use_bias=False, dtype=dtype)
+            setattr(self, f"hh_kernel{l}", nn.Parameter(torch.empty(hidden, G * hidden)))
+            setattr(self, f"hh_bias{l}", nn.Parameter(torch.empty(G * hidden)))
+        if input_feed:
+            self.ih_feed = Dense(hidden, G * hidden, use_bias=False, dtype=dtype)
         for l in range(layers - 1):
-            self.add_module(f"ih_mid{l}", Dense(hidden, 3 * hidden, dtype=dtype))
+            self.add_module(f"ih_mid{l}", Dense(hidden, G * hidden, dtype=dtype))
         self.attn = GlobalAttention(hidden, attn_type, dtype)
 
     def hh(self, l: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -54,21 +66,25 @@ class DecoderStep(nn.Module):
         return (getattr(self, f"hh_kernel{l}").to(self.dtype),
                 getattr(self, f"hh_bias{l}").to(self.dtype))
 
+    def h(self, s: torch.Tensor) -> torch.Tensor:
+        """The hidden half of a layer state (JAX ``_h``, :87-88)."""
+        return s[..., :self.hidden] if self.cell_type == "lstm" else s
+
     def forward(self, carry: DecoderCarry, emb_proj: torch.Tensor, memory: torch.Tensor,
                 src_mask: torch.Tensor, keys: torch.Tensor = None,
                 dmid: Optional[torch.Tensor] = None):
         """``dmid`` (B,H): dropout scales applied to each layer's output
         before the next layer's input projection (None: no dropout)."""
         hs, feed = carry
-        x_proj = emb_proj + self.ih_feed(feed)
+        x_proj = emb_proj + self.ih_feed(feed) if self.input_feed else emb_proj
         new_hs: List[torch.Tensor] = []
         for l in range(self.layers):
-            wh, bh = self.hh(l)
-            s_new = gru_gates(x_proj, hs[l] @ wh + bh, hs[l])
+            s_new = cell_step(x_proj, hs[l], *self.hh(l), self.cell_type)
             new_hs.append(s_new)
             if l + 1 < self.layers:
-                x_proj = getattr(self, f"ih_mid{l}")(s_new if dmid is None else s_new * dmid)
-        attn_h, align = self.attn(new_hs[-1], memory, src_mask, keys=keys)
+                h = self.h(s_new)
+                x_proj = getattr(self, f"ih_mid{l}")(h if dmid is None else h * dmid)
+        attn_h, align = self.attn(self.h(new_hs[-1]), memory, src_mask, keys=keys)
         return (tuple(new_hs), attn_h), (attn_h, align)
 
 
@@ -82,16 +98,22 @@ def fused_step_eligible(cfg) -> bool:
 
 
 class GRUDecoder(nn.Module):
-    """``use_pallas and pallas_decoder`` runs the teacher-forced sequence
-    through the decoder sequence kernels (ops/decoder.py) when the decoder
-    is one they compute (2 layers, general attention: JAX's ``eligible``,
-    :192-198); otherwise a Python loop over ``DecoderStep`` that autograd
+    """The teacher-forced sequence takes one of three routes.
+    ``input_feed=False``: a scan per layer, then one batched attention
+    (JAX :157-181); with ``use_pallas`` and GRU cells each layer runs in the
+    GRU-scan kernels (``gru_layer_scan_ad``, forward and backward) from its
+    bridge state, where they hold the width (H <= 512). Otherwise, with
+    ``use_pallas and pallas_decoder``, the decoder sequence kernels
+    (ops/decoder.py) compute the decoders they know (2 layers, general
+    attention, GRU cells: JAX's ``eligible``, :192-198); every other
+    decoder takes a Python loop over ``DecoderStep`` that autograd
     differentiates. ``fused`` (the JAX custom-VJP scan) is not ported."""
 
     def __init__(self, emb_dim: int, hidden: int, layers: int = 2,
                  attn_type: str = "general", dtype: torch.dtype = torch.float32,
                  dropout: float = 0.0, use_pallas: bool = False,
-                 pallas_decoder: bool = False, fused: bool = False):
+                 pallas_decoder: bool = False, fused: bool = False,
+                 input_feed: bool = True, cell_type: str = "gru"):
         super().__init__()
         self.hidden = hidden
         self.layers = layers
@@ -101,20 +123,23 @@ class GRUDecoder(nn.Module):
         self.use_pallas = use_pallas
         self.pallas_decoder = pallas_decoder
         self.fused = fused
-        self.ih_emb = Dense(emb_dim, 3 * hidden, dtype=dtype)
-        self.step = DecoderStep(hidden, layers, attn_type, dtype)
+        self.input_feed = input_feed
+        self.cell_type = cell_type
+        self.ih_emb = Dense(emb_dim, n_gates(cell_type) * hidden, dtype=dtype)
+        self.step = DecoderStep(hidden, layers, attn_type, dtype, input_feed, cell_type)
 
     def init_carry(self, init_hs: List[torch.Tensor]) -> DecoderCarry:
-        return (tuple(init_hs), torch.zeros_like(init_hs[-1]))
+        # the feed is (B,H), also beside LSTM states (B,2H)
+        return (tuple(init_hs), torch.zeros_like(init_hs[-1][..., :self.hidden]))
 
     def forward(self, emb: torch.Tensor, memory: torch.Tensor, src_mask: torch.Tensor,
                 init_hs: List[torch.Tensor], generator: Optional[torch.Generator] = None,
                 extra_input_proj: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Teacher-forced sequence: emb (B,T,E) target-input embeddings,
-        memory (B,S,H), src_mask (B,S), per-layer init states (B,H).
-        Dropout draws from ``generator`` (None: deterministic). Returns
-        (attentional hiddens (B,T,H), alignments (B,T,S))."""
+        memory (B,S,H), src_mask (B,S), per-layer init states. Dropout draws
+        from ``generator`` (None: deterministic). Returns (attentional
+        hiddens (B,T,H), alignments (B,T,S))."""
         if self.fused:
             raise NotImplementedError("fused_decoder (the custom-VJP decoder scan) is not "
                                       "ported yet; use pallas_decoder or the plain loop")
@@ -123,10 +148,14 @@ class GRUDecoder(nn.Module):
         emb_proj = self.ih_emb(emb)
         if extra_input_proj is not None:
             emb_proj = emb_proj + extra_input_proj[:, None, :]
-        keys = self.step.attn.project_memory(memory)
         drop = generator is not None and self.dropout > 0.0
         dmid = dropout_mask((B, T, H), self.dropout, generator, dt, emb.device) if drop else None
-        eligible = self.layers == 2 and self.attn_type == "general"  # GRU cells: this class
+        if not self.input_feed:
+            top = self._layer_scans(emb_proj, init_hs, dmid)
+            attn_hs, aligns = self.step.attn(top, memory, src_mask)
+            return dropout(attn_hs, self.dropout, generator), aligns
+        keys = self.step.attn.project_memory(memory)
+        eligible = self.layers == 2 and self.attn_type == "general" and self.cell_type == "gru"
         if self.use_pallas and self.pallas_decoder and eligible:
             step = self.step
             p_out = step.attn.linear_out.kernel.to(dt)
@@ -152,6 +181,35 @@ class GRUDecoder(nn.Module):
             attn_hs, aligns = torch.stack(outs, dim=1), torch.stack(aligns, dim=1)
         return dropout(attn_hs, self.dropout, generator), aligns
 
+    def _layer_scans(self, x_proj: torch.Tensor, init_hs: List[torch.Tensor],
+                     dmid: Optional[torch.Tensor]) -> torch.Tensor:
+        """The ``input_feed=False`` recurrence: each layer scanned over the
+        whole sequence from its init state, its outputs (times ``dmid``)
+        projected into the next layer's input. Returns the top layer's
+        hiddens (B,T,H). As JAX (:160-171), the kernel route gets a mask of
+        ones and Wh and bh in the compute dtype (the wrapper widens bh to
+        f32, so bh is rounded first as JAX rounds it), and its f32 outputs
+        come back in the compute dtype; the bridge state's gradient flows
+        back through the kernel's dh0."""
+        B, T, _ = x_proj.shape
+        dt = self.dtype
+        kernel = self.use_pallas and self.cell_type == "gru" \
+            and scan_route(self.hidden, dt, "decoder")
+        if kernel:
+            from variational_mmt_torch.ops.gru_scan import gru_layer_scan_ad
+
+            ones = torch.ones((B, T), dtype=torch.float32, device=x_proj.device)
+        for l in range(self.layers):
+            wh, bh = self.step.hh(l)
+            if kernel:
+                outs, _ = gru_layer_scan_ad(x_proj, ones, init_hs[l], wh, bh, False)
+                outs = outs.to(dt)
+            else:
+                outs, _ = cell_layer_scan(x_proj, init_hs[l], wh, bh, cell_type=self.cell_type)
+            if l + 1 < self.layers:
+                x_proj = getattr(self.step, f"ih_mid{l}")(outs if dmid is None else outs * dmid)
+        return outs
+
     def packed_seq(self, emb: torch.Tensor, memory: torch.Tensor, src_seg: torch.Tensor,
                    tgt_seg: torch.Tensor, init_hs_seg: List[torch.Tensor],
                    generator: Optional[torch.Generator] = None,
@@ -164,10 +222,14 @@ class GRUDecoder(nn.Module):
         projection of z (B,K,3H). Each segment decodes as if alone: at its
         first position the layer states become its own bridge init and the
         input feed zero, and it attends only to its own source positions.
-        Always the plain loop, as in JAX (neither the sequence kernels nor
-        ``fused`` know resets). Dropout draws from ``generator`` as
+        GRU cells only, and always the plain scan or loop, as in JAX
+        (neither the sequence kernels nor ``fused`` know resets; with
+        ``input_feed=False`` each layer scans with the reset stream and
+        ``init_seq``, :293-309). Dropout draws from ``generator`` as
         :meth:`forward` does. Returns (attentional hiddens (B,T,H),
         alignments (B,T,S))."""
+        if self.cell_type != "gru":
+            raise ValueError("sequence packing supports rnn_type=gru only")
         B, T, _ = emb.shape
         H, dt = self.hidden, self.dtype
         emb_proj = self.ih_emb(emb)
@@ -188,6 +250,17 @@ class GRUDecoder(nn.Module):
         keys = self.step.attn.project_memory(memory)
         drop = generator is not None and self.dropout > 0.0
         dmid = dropout_mask((B, T, H), self.dropout, generator, dt, emb.device) if drop else None
+        if not self.input_feed:
+            x_proj, reset = emb_proj, starts.float()
+            for l in range(self.layers):
+                wh, bh = self.step.hh(l)
+                outs, _ = cell_layer_scan(x_proj, torch.zeros_like(init_sel[l][:, 0]), wh, bh,
+                                          reset=reset, init_seq=init_sel[l])
+                if l + 1 < self.layers:
+                    x_proj = getattr(self.step, f"ih_mid{l}")(
+                        outs if dmid is None else outs * dmid)
+            attn_hs, aligns = self.step.attn(outs, memory, amask, keys=keys)
+            return dropout(attn_hs, self.dropout, generator), aligns
         hs = tuple(torch.zeros_like(i[:, 0]) for i in init_sel)
         feed = torch.zeros((B, H), dtype=dt, device=emb.device)
         outs, aligns = [], []

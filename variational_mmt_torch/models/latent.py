@@ -1,6 +1,7 @@
 """Latent-variable networks and distribution math. Mirrors
 ``variational_mmt_tpu/models/latent.py``: ``GaussianHead``,
-``InferenceNetwork``, ``ConditionalPrior``, ``ImagePredictor`` (:25-117)
+``InferenceNetwork``, ``ConditionalPrior``, ``RegionAttentionPool``,
+``ImagePredictor`` (:25-117)
 and the f32 functions ``reparameterize``, ``gaussian_kl_per_dim``,
 ``gaussian_kl``, ``gaussian_log_prob`` and ``kl_free_bits`` (:119-153).
 
@@ -75,6 +76,28 @@ class ConditionalPrior(nn.Module):
         if self.use_img and img is not None:
             parts.append(img.to(src_summary.dtype))
         return self.head(torch.cat(parts, dim=-1))
+
+
+class RegionAttentionPool(nn.Module):
+    """Text-conditioned attention pooling over conv-feature regions
+    (``img_pool='attn'``, JAX :81-103): additive attention of a query (the
+    source summary) over the R regions replaces their mean. ``key`` (D ->
+    hidden) and ``query`` (H -> hidden) with biases, ``v`` (hidden -> 1)
+    without; the softmax and the weighted sum run in f32 over the f32
+    features."""
+
+    def __init__(self, img_dim: int, query_dim: int, hidden: int = 256,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.key = Dense(img_dim, hidden, dtype=dtype)
+        self.query = Dense(query_dim, hidden, dtype=dtype)
+        self.v = Dense(hidden, 1, use_bias=False, dtype=dtype)
+
+    def forward(self, img: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+        """img (B,R,D), query (B,H) -> pooled features (B,D) f32."""
+        scores = self.v(torch.tanh(self.key(img) + self.query(query)[:, None, :]))[..., 0]
+        probs = torch.softmax(scores.float(), dim=-1)
+        return (probs[..., None] * img.float()).sum(dim=1)
 
 
 class ImagePredictor(nn.Module):

@@ -1,21 +1,26 @@
 """The VMMT model: decode-side methods and the training forward. Mirrors
 ``variational_mmt_tpu/models/model.py``.
 
-The port covers the three model types with GRU cells, general attention
-and input feed:
+The port covers the three model types:
 
 - ``nmt``: text only; no latent modules, the bridge reads the encoder
   finals alone;
 - ``vmmt_f``: latent z with the fixed prior N(0, I) and the inference
   network q(z|x,y,v);
-- ``vmmt_c``: the conditional prior p(z|x,v) as well.
+- ``vmmt_c``: the conditional prior p(z|x,v) as well;
+
+with GRU or LSTM cells (``rnn_type``; an LSTM state is ``[h | c]``, the
+bridge reads the encoder's ``[h | c]`` finals and starts the cell half at
+zero), general, dot or mlp attention (``attn_type``), with or without
+input feed, and pool5 or conv image features, conv regions pooled by their
+mean or by attention with the source summary as the query (``img_pool``,
+``region_pool``).
 
 With ``share_embeddings`` one table, ``tgt_embed``, serves both sides.
 z conditions the decoder through the bridge and, with
 ``z_cond='init+input'``, also through ``z_input_proj``, added to every
-step's input projection. Every other option raises
-``NotImplementedError`` naming it. The parameters of a JAX tree of any of
-these configurations exist here under the same dotted paths, so a tree
+step's input projection. The parameters of a JAX tree of any of these
+configurations exist here under the same dotted paths, so a tree
 round-trips whole through ``convert.py``.
 
 Randomness (dropout, word dropout, the reparameterization noise) comes from
@@ -36,29 +41,22 @@ from variational_mmt_torch.config import ModelConfig
 from variational_mmt_torch.data.vocab import PAD, UNK
 from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.models.decoder import GRUDecoder, fused_step_eligible
-from variational_mmt_torch.models.gru import BiGRUEncoder, masked_mean, segment_mean
+from variational_mmt_torch.models.gru import BiGRUEncoder, masked_mean, n_gates, segment_mean
 from variational_mmt_torch.models.latent import (ConditionalPrior, ImagePredictor,
-                                                 InferenceNetwork, reparameterize)
+                                                 InferenceNetwork, RegionAttentionPool,
+                                                 reparameterize)
 from variational_mmt_torch.models.layers import Dense, Embed
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def check_supported(c: ModelConfig) -> None:
-    """Raise NotImplementedError for every option outside the slice."""
+    """Validate ``c`` and raise NotImplementedError for a compute dtype
+    the port does not run (float16)."""
     c.validate()
-    unsupported = [
-        ("rnn_type=lstm", c.rnn_type != "gru"),
-        (f"attn_type={c.attn_type}", c.attn_type != "general"),
-        ("img_feat_type=conv with img_pool=attn",
-         c.img_feat_type == "conv" and c.img_pool == "attn"),
-        ("input_feed=False", not c.input_feed),
-        (f"compute_dtype={c.compute_dtype}", c.compute_dtype not in DTYPES),
-    ]
-    bad = [name for name, on in unsupported if on]
-    if bad:
-        raise NotImplementedError(f"not ported yet: {bad[0]} (the port supports GRU cells, "
-                                  "general attention, input feed)")
+    if c.compute_dtype not in DTYPES:
+        raise NotImplementedError(f"not ported yet: compute_dtype={c.compute_dtype} (the "
+                                  "port computes in float32 or bfloat16)")
 
 
 class VMMTModel(nn.Module):
@@ -71,20 +69,25 @@ class VMMTModel(nn.Module):
         self.tgt_embed = Embed(c.tgt_vocab_size, E, dt)
         if not c.share_embeddings:  # shared: source ids look up tgt_embed
             self.src_embed = Embed(c.src_vocab_size, E, dt)
-        self.encoder = BiGRUEncoder(E, H, c.enc_layers, dt, c.use_pallas, c.dropout)
+        self.encoder = BiGRUEncoder(E, H, c.enc_layers, dt, c.use_pallas, c.dropout,
+                                    c.rnn_type, "encoder")
         self.decoder = GRUDecoder(E, H, c.dec_layers, c.attn_type, dt, c.dropout,
-                                  c.use_pallas, c.pallas_decoder, c.fused_decoder)
+                                  c.use_pallas, c.pallas_decoder, c.fused_decoder,
+                                  c.input_feed, c.rnn_type)
         if c.share_decoder_embeddings:
             self.gen_bias = nn.Parameter(torch.empty(c.tgt_vocab_size))
         else:
             self.generator = Dense(H, c.tgt_vocab_size, dtype=dt)
-        # the bridge reads [final; z] for latent models, the final alone for nmt
+        # the bridge reads [final; z] for latent models, the final alone for
+        # nmt; an LSTM final is [h | c], (B, 2H)
+        final_dim = 2 * H if c.rnn_type == "lstm" else H
         z_dim = c.latent_dim if self.is_latent else 0
         for l in range(c.dec_layers):
-            self.add_module(f"bridge{l}", Dense(H + z_dim, H, dtype=dt))
+            self.add_module(f"bridge{l}", Dense(final_dim + z_dim, H, dtype=dt))
         if self.is_latent:
             use_img = c.img_feat_dim > 0
-            self.tgt_encoder = BiGRUEncoder(E, H, 1, dt, c.use_pallas, c.dropout)
+            self.tgt_encoder = BiGRUEncoder(E, H, 1, dt, c.use_pallas, c.dropout, c.rnn_type,
+                                            "target encoder")
             self.infnet = InferenceNetwork(H, c.img_feat_dim, c.latent_dim, H, c.min_sigma,
                                            use_img, dt)
             if c.model_type == "vmmt_c":
@@ -92,8 +95,11 @@ class VMMTModel(nn.Module):
                                               c.min_sigma, use_img, dt)
             if c.use_img_predict:
                 self.img_pred = ImagePredictor(c.latent_dim, c.img_feat_dim, H, dt)
+            if c.img_pool == "attn":
+                self.region_pool = RegionAttentionPool(c.img_feat_dim, H, min(256, H), dt)
             if c.z_cond == "init+input":
-                self.z_input_proj = Dense(c.latent_dim, 3 * H, use_bias=False, dtype=dt)
+                self.z_input_proj = Dense(c.latent_dim, n_gates(c.rnn_type) * H,
+                                          use_bias=False, dtype=dt)
 
     @property
     def is_latent(self) -> bool:
@@ -115,10 +121,17 @@ class VMMTModel(nn.Module):
         """q(z|x,y,v) parameters (f32). tgt: gold target ids (B,T), PAD-masked."""
         tgt_mask = (tgt != PAD).float()
         tgt_enc, _ = self.tgt_encoder(self.tgt_embed(tgt), tgt_mask, generator)
-        return self.infnet(src_summary, masked_mean(tgt_enc, tgt_mask), self._img_in(img))
+        return self.infnet(src_summary, masked_mean(tgt_enc, tgt_mask),
+                           self._img_in(img, src_summary))
 
-    def _img_in(self, img: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
-        if img is not None and img.dim() == 3:  # conv features (B, R, D), mean-pooled
+    def _img_in(self, img: Optional[torch.Tensor],
+                query: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+        """Conv features (B,R,D) pooled to (B,D): by ``region_pool`` with
+        ``query`` (the source summary) under ``img_pool='attn'``, else by
+        their mean; pool5 features (B,D) as they are."""
+        if img is not None and img.dim() == 3:
+            if self.cfg.img_pool == "attn" and query is not None:
+                return self.region_pool(img, query)
             img = img.mean(dim=1)
         return img
 
@@ -126,7 +139,7 @@ class VMMTModel(nn.Module):
         """(mu_p, sigma_p) in f32: the conditional prior p(z|x,v) for
         vmmt_c, N(0, I) for vmmt_f."""
         if self.cfg.model_type == "vmmt_c":
-            return self.prior(src_summary, self._img_in(img))
+            return self.prior(src_summary, self._img_in(img, src_summary))
         shape = (src_summary.shape[0], self.cfg.latent_dim)
         return (torch.zeros(shape, dtype=torch.float32, device=src_summary.device),
                 torch.ones(shape, dtype=torch.float32, device=src_summary.device))
@@ -136,13 +149,18 @@ class VMMTModel(nn.Module):
         return self.prior_params(src_summary, img)[0]
 
     def init_decoder_state(self, finals: List[torch.Tensor], z: Optional[torch.Tensor]):
-        """Bridge: encoder finals (+ z) -> per-layer decoder init states."""
+        """Bridge: encoder finals (+ z) -> per-layer decoder init states;
+        for LSTM the bridge sets the hidden half and the cell half starts at
+        zero (JAX :163-177)."""
         init_hs = []
         for l in range(self.cfg.dec_layers):
             f = finals[min(l, len(finals) - 1)]
             if z is not None:
                 f = torch.cat([f, z.to(f.dtype)], dim=-1)
-            init_hs.append(torch.tanh(getattr(self, f"bridge{l}")(f)))
+            h = torch.tanh(getattr(self, f"bridge{l}")(f))
+            if self.cfg.rnn_type == "lstm":
+                h = torch.cat([h, torch.zeros_like(h)], dim=-1)
+            init_hs.append(h)
         return init_hs
 
     def _gen(self, h: torch.Tensor) -> torch.Tensor:
@@ -239,7 +257,9 @@ class VMMTModel(nn.Module):
         out: Dict[str, torch.Tensor] = {}
         z = None
         if self.is_latent:
-            v_in = self._img_in(img)
+            # pooled once, with the source summary as the query, and the same
+            # vector feeds q, the prior and the image target (JAX :242)
+            v_in = self._img_in(img, src_summary)
             gold = tgt_out if tgt_out is not None else torch.cat(
                 [tgt_in[:, 1:], torch.zeros_like(tgt_in[:, :1])], dim=1)
             mu_q, sigma_q = self.posterior(src_summary, gold, v_in, drop_gen)
@@ -286,7 +306,8 @@ class VMMTModel(nn.Module):
             if tgt_out is None:
                 raise ValueError("forward_packed requires tgt_out (the gold target the "
                                  "posterior conditions on)")
-            v_in = None if img is None else self._img_in(img.reshape((B * K,) + img.shape[2:]))
+            v_in = None if img is None else self._img_in(img.reshape((B * K,) + img.shape[2:]),
+                                                         src_summary)
             # q over the packed gold target: a segment-reset encoder, a summary a segment
             tgt_enc, _ = self.tgt_encoder(self.tgt_embed(tgt_out), (tgt_seg >= 0).float(),
                                           drop_gen, seg=tgt_seg)

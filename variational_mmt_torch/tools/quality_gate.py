@@ -277,9 +277,6 @@ def parse_args(argv=None):
         args.route = "kernels" if args.device == "cuda" else "plain"
     elif args.device == "cpu" and args.route != "plain":
         p.error(f"-route {args.route} needs -device cuda (the CPU runs the plain route)")
-    if args.img_pool == "attn" and args.img_regions > 0:
-        p.error("-img_pool attn with -img_regions > 0: region attention pooling is not "
-                "ported yet")
     return args
 
 
