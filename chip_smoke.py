@@ -269,7 +269,38 @@ in PERF.md).
     pallas_step 0's. Counted as ``options``: the training runs, the beam-4
     decodes and the pallas_step 1 and 2 decodes. Prints the phase's
     seconds.
-16. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+16. Host-path phase (``host_path_phase(card, cfg, state, root)``, on phase
+    10's corpus: 2048 pairs, vocab 10000, 2048-d features). The native
+    library (g++, built at first use) must load, else the run fails with
+    its reason. Over one shuffled epoch every batch of ``BucketIterator``
+    (batch 64, the config's buckets, features) and of
+    ``PackedBucketIterator`` (64 rows of 64, K=4) must be array-identical
+    natively and in Python, and the BPE segmentation of every word of the
+    corpus (1000 merges learned from it) identical both ways; host us a
+    batch and BPE words/s both ways, in turns. Then the flagship (bf16,
+    use_pallas, pallas_decoder 1, fused_ce, the feature table on the
+    device): the ``Trainer`` (native batches through the prefetcher, data/
+    prefetch.py) against ``DirectLoop``, how the parent trained
+    (``make_train_step`` over ``batch_tensors`` of Python-assembled
+    batches): the first 20 losses must be equal to the bit (same kernels,
+    batches and generator draws; counted as ``host_path``); ms/step in
+    turns, 4 runs of 48 steps each with the spread, beside the same direct
+    loop over native batches (``direct_native``) and over native batches
+    from the prefetch thread, copied on the consumer (``thread_only``);
+    the Trainer's and the direct loop's device busy share from one
+    ``torch.profiler`` run of 4 steps each (read as tools/profile_train.py
+    reads it); packed training likewise (the first 4 losses, 3 runs of 12
+    steps, 2 profiled; the Trainer and the direct loop). Last the
+    ``fused_decoder`` route (``pallas_decoder`` 0): phase 6's f32 check
+    against the plain route (loss 1e-4 relative, every gradient 1e-3 of its
+    max); 20 bf16
+    Trainer steps with finite losses, rows 5 and 6 launched 0 times
+    (counted); ms/step in turns beside ``pallas_decoder`` 1 and 0 (2 runs
+    of 12 steps each); ``cli.train -config`` with the flagship config and
+    ``fused_decoder: true`` (``pallas_decoder`` off) runs 10 steps, each
+    through the fused route, rows 5 and 6 not at all (counted). Prints the
+    phase's seconds.
+17. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
@@ -277,8 +308,8 @@ in PERF.md).
     service's, ``widths`` each kernel's numbers at the widths phase's
     shapes, ``launches_by_path`` the serving, training, packed-training,
     families, CLI, online-serving, option-check, eval, widths, ensemble,
-    preprocess and options counts), then the last line
-    {"ok": true, "device": {...}}.
+    preprocess, options and host-path counts) with the ``host_path``
+    record, then the last line {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
 port's package is not beside this script, or when any phase fails.
@@ -354,6 +385,16 @@ OPTIONS = {"fast": dict(input_feed=False), "lstm": dict(rnn_type="lstm"),
            "dot": dict(attn_type="dot"), "mlp": dict(attn_type="mlp"),
            "conv_attn": dict(img_feat_type="conv", img_pool="attn")}
 ENS_DTYPES = ("float32", "bfloat16", "int8")  # -infer_dtype of the timed decodes
+HOST_BATCH, HOST_ROW, HOST_K = 64, 64, 4  # phase 16: batch 64; packed 64 rows of 64, K = 4
+HOST_CHECK_STEPS, HOST_TIMED, HOST_PACKED_CHECK, HOST_PACKED_TIMED = 20, 48, 4, 12
+# phase 16's step fed four ways, in turns; packed: the Trainer and the parent's loop
+HOST_FEEDS = ("prefetched", "direct", "direct_native", "thread_only")
+HOST_ORDER = (HOST_FEEDS + HOST_FEEDS[::-1]) * 2
+HOST_PACKED_ORDER = ("prefetched", "direct", "direct", "prefetched", "prefetched", "direct")
+HOST_PROFILE_STEPS, HOST_PACKED_PROFILE_STEPS, HOST_BPE_MERGES = 4, 2, 1000
+FUSED_STEPS, FUSED_TIMED, FUSED_CLI_STEPS = 20, 12, 10
+FUSED_ORDER = ("fused", "pallas_decoder=1", "pallas_decoder=0", "pallas_decoder=0",
+               "pallas_decoder=1", "fused")
 ENS_SENT, ENS_MAXLEN = 256, 60  # sentences an input (test set; flagship request), max_length
 ENS_CHECK, ENS_SERVE = 32, 32  # f32 kernel-vs-plain sentences; requests to the serve CLI
 ENS_SHARD, ENS_PP_STEPS = 512, 5  # preprocess -shard_size; train CLI steps on its corpus
@@ -1220,16 +1261,19 @@ def packed_check_f32(cfg, state):
             "grad_worst": worst_name}
 
 
-def train_check_f32(cfg, state, batch=None, label: str = "train"):
+def train_check_f32(cfg, state, batch=None, label: str = "train", kernel=None):
     """Kernel path against the all-plain path in f32: loss and gradients
     before and after 3 optimizer steps, on ``batch`` (default: the
-    training cell's first batch)."""
+    training cell's first batch). ``kernel``: the model options of the
+    path held to the plain one (default: use_pallas, pallas_decoder and
+    fused_ce)."""
     from variational_mmt_torch.train.trainer import batch_tensors, loss_and_grads, make_train_step
 
     batch = batch_tensors(train_batches(cfg)[0] if batch is None else batch,
                           torch.device("cuda"))
     paths = {}
-    for name, over in (("kernel", dict(use_pallas=True, pallas_decoder=True, fused_ce=True)),
+    kernel = dict(use_pallas=True, pallas_decoder=True, fused_ce=True) if kernel is None else kernel
+    for name, over in (("kernel", kernel),
                        ("plain", dict(use_pallas=False, pallas_decoder=False, fused_ce=False))):
         paths[name] = trainer_for(cfg, state, [], compute_dtype="float32", **over)
     worst = {}
@@ -2932,6 +2976,266 @@ def options_phase(card: str, cfg, state):
     return total, recs
 
 
+def same_batches(a: list, b: list) -> list:
+    """The fields in which two lists of batches differ (array for array)."""
+    bad = [] if len(a) == len(b) else [f"{len(a)} batches != {len(b)}"]
+    for i, (x, y) in enumerate(zip(a, b)):
+        for f in dataclasses.fields(x):
+            u, v = getattr(x, f.name), getattr(y, f.name)
+            if (u is None) != (v is None) or (u is not None and not (
+                    u.dtype == v.dtype and u.shape == v.shape and np.array_equal(u, v))):
+                bad.append(f"batch {i} {f.name}")
+    return bad
+
+
+class DirectLoop:
+    """How the parent trained: ``make_train_step`` over ``batch_tensors``
+    of host batches (``batches``, an iterator), copied from pageable memory
+    on the thread that launches the step; metrics read once a run."""
+
+    def __init__(self, cfg, state, batches, table):
+        from variational_mmt_torch.models.model import build_model
+        from variational_mmt_torch.train.trainer import create_train_state, make_train_step
+
+        model = build_model(cfg.model, device="cuda")
+        model.load_state_dict(state)
+        self.state = create_train_state(cfg, model)
+        self.step = make_train_step(cfg)
+        self.batches = batches
+        self.table = table
+
+    def train(self, n: int) -> list:
+        from variational_mmt_torch.train.trainer import batch_tensors
+
+        dev, losses = torch.device("cuda"), []
+        for _ in range(n):
+            batch = batch_tensors(next(self.batches), dev, self.table)
+            self.state, m = self.step(self.state, batch, self.state.generator)
+            losses.append(m["loss"].detach().float())
+        return torch.stack(losses).cpu().tolist()
+
+
+def timed_turns(runs: dict, order, steps: int) -> dict:
+    """ms/step of each ``runs[key](n)`` in the given order, each run after
+    an untimed 2 steps; {key: {"step_ms", "spread", "runs_ms"}}."""
+    got = {k: [] for k in runs}
+    for k in order:
+        runs[k](2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[k](steps)
+        torch.cuda.synchronize()
+        got[k].append((time.perf_counter() - t0) / steps * 1e3)
+    return {k: {"step_ms": float(np.mean(v)), "runs_ms": v,
+                "spread": (max(v) - min(v)) / float(np.mean(v))} for k, v in got.items()}
+
+
+def busy_share(run, steps: int) -> dict:
+    """Device busy time over host wall time of ``run(steps)`` under
+    torch.profiler, read as tools/profile_train.py reads it."""
+    from variational_mmt_torch.tools.profile_train import profiled
+
+    run(1)
+    wall_us, by_kernel = profiled(lambda: run(steps))
+    busy = sum(t for t, _ in by_kernel.values())
+    return {"wall_ms": wall_us / 1e3 / steps, "busy_ms": busy / 1e3 / steps,
+            "busy_share": busy / wall_us}
+
+
+def host_path_phase(card: str, cfg, state, root: str):
+    """Phase 16 (module docstring): the trainer's host path on phase 10's
+    corpus in ``root`` -- the native batcher, packer and BPE against their
+    Python paths, the prefetched Trainer against the parent's direct loop,
+    and the fused_decoder route. Returns ({kernel: launches on the counted
+    runs}, record)."""
+    from variational_mmt_torch import native
+    from variational_mmt_torch.cli import train as cli_train
+    from variational_mmt_torch.data.bpe import BPE, learn_bpe
+    from variational_mmt_torch.data.dataset import BinarizedDataset, BucketIterator
+    from variational_mmt_torch.data.packing import PackedBucketIterator
+    from variational_mmt_torch.data.prefetch import prefetch
+    from variational_mmt_torch.data.synthetic import make_corpus
+    from variational_mmt_torch.models import decoder as mdec
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.train.trainer import Trainer, host_batches
+
+    t_phase = time.time()
+    total = dict.fromkeys(kernel_counters(), 0)
+    rec = {}
+
+    def counted(fn):
+        got, out = counted_run(fn)
+        for k in total:
+            total[k] += got[k]
+        return got, out
+
+    t0 = time.time()
+    if not native.available():
+        fail(f"the native library is unavailable: {native.unavailable_reason()}")
+    print(f"host_path: native library built and loaded in {time.time() - t0:.2f} s")
+    prefix = os.path.join(root, "corpus")
+    ds = BinarizedDataset.load(prefix + ".train.npz")
+    feats = np.load(os.path.join(root, "train.feats.npy"))
+    buckets, seed = cfg.data.buckets, cfg.train.seed
+
+    def iterator(kind: str, use_native: bool, with_feats: bool = True):
+        f = feats if with_feats else None
+        if kind == "bucket":
+            return BucketIterator(ds, HOST_BATCH, buckets, img_feats=f, shuffle=True, seed=seed,
+                                  use_native=use_native)
+        return PackedBucketIterator(ds, HOST_BATCH, [HOST_ROW], img_feats=f, seed=seed,
+                                    max_segments=HOST_K, use_native=use_native)
+
+    rec["batch_us"] = {}
+    for kind in ("bucket", "packed"):
+        its = {nat: iterator(kind, nat) for nat in (True, False)}
+        for it in its.values():
+            list(it.epoch(0))  # untimed: the flat layout, caches
+        bad = same_batches(list(its[True].epoch(1)), list(its[False].epoch(1)))
+        if bad:
+            fail(f"{kind}: native and Python batches differ: {bad[:5]}")
+        us = {True: [], False: []}
+        for nat in (True, False, False, True):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in its[nat].epoch(2))
+            us[nat].append((time.perf_counter() - t0) / n * 1e6)
+        r = {"native_us": float(np.mean(us[True])), "python_us": float(np.mean(us[False])),
+             "batches": n}
+        rec["batch_us"][kind] = r
+        print(f"host_path: {kind} iterator, one shuffled epoch of {n} batches identical both "
+              f"ways; host {r['native_us']:.1f} us a batch native, {r['python_us']:.1f} Python "
+              f"(2048-d features gathered on the host; runs in turns)")
+
+    src, tgt, _, _, _ = make_corpus(CLI_TRAIN + CLI_VALID + CLI_TEST, vocab_size=CLI_VOCAB,
+                                    img_dim=CLI_IMG, seed=5)
+    lines = list(src) + list(tgt)
+    t0 = time.time()
+    merges = learn_bpe(lines, HOST_BPE_MERGES)
+    learn_s = time.time() - t0
+    words = sorted({w for line in lines for w in line})
+    pieces, rate = {}, {True: [], False: []}
+    for nat in (True, False, False, True):
+        bpe = BPE(merges, use_native=nat)
+        if nat and bpe._native is None:
+            fail("BPE did not take the native segmenter")
+        t0 = time.perf_counter()
+        pieces[nat] = [bpe.segment_word(w) for w in words]
+        rate[nat].append(len(words) / (time.perf_counter() - t0))
+    diff = [w for w, a, b in zip(words, pieces[True], pieces[False]) if a != b]
+    if diff:
+        fail(f"BPE: native and Python segmentations differ on {len(diff)} words: {diff[:5]}")
+    rec["bpe"] = {"words": len(words), "merges": len(merges), "learn_s": learn_s,
+                  "native_words_per_s": float(np.mean(rate[True])),
+                  "python_words_per_s": float(np.mean(rate[False]))}
+    print(f"host_path: BPE ({len(merges)} merges learned in {learn_s:.1f} s) segments the "
+          f"corpus's {len(words)} words identically both ways; "
+          f"{rec['bpe']['native_words_per_s']:.0f} words/s native, "
+          f"{rec['bpe']['python_words_per_s']:.0f} Python (uncached)")
+
+    # the prefetched Trainer (native batches) against the parent's direct loop
+    table = torch.as_tensor(feats).to("cuda")
+    loops = {}
+    for kind, over, check_steps, order, steps in (
+            ("train", {}, HOST_CHECK_STEPS, HOST_ORDER, HOST_TIMED),
+            ("train_packed", {"pack": True, "pack_segments": HOST_K}, HOST_PACKED_CHECK,
+             HOST_PACKED_ORDER, HOST_PACKED_TIMED)):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, pallas_decoder=True),
+                                train=dataclasses.replace(cfg.train, **over))
+        it_kind = "packed" if over else "bucket"
+        model = build_model(c.model, device="cuda")
+        model.load_state_dict(state)
+        trainer = Trainer(c, model, iterator(it_kind, True, with_feats=False), device="cuda",
+                          train_feats=feats)
+        direct = DirectLoop(c, state, host_batches(iterator(it_kind, False, with_feats=False)),
+                            table)
+        runs = {"prefetched": lambda n: [h["loss"] for h in trainer.train(n)],
+                "direct": direct.train}
+        if not over:  # where the prefetcher's time goes: native batches, then the thread
+            native_src = lambda: host_batches(iterator(it_kind, True, with_feats=False))  # noqa: E731
+            runs["direct_native"] = DirectLoop(c, state, native_src(), table).train
+            runs["thread_only"] = DirectLoop(c, state, prefetch(native_src()), table).train
+        got, lp = counted(lambda: runs["prefetched"](check_steps))
+        ld = direct.train(check_steps)
+        rel = max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(lp, ld))
+        print(f"host_path: {kind}: the first {check_steps} losses, prefetched Trainer vs the "
+              f"direct loop: {'equal to the bit' if lp == ld else f'max rel diff {rel:.2e}'}; "
+              f"launches {got}")
+        if lp != ld or not all(math.isfinite(v) for v in lp):
+            fail(f"{kind}: the prefetched Trainer's losses differ from the direct loop's")
+        times = timed_turns(runs, order, steps)
+        for k in runs:
+            t = times[k]
+            if k in ("prefetched", "direct"):
+                t.update(busy_share(runs[k], HOST_PACKED_PROFILE_STEPS if over
+                                    else HOST_PROFILE_STEPS))
+            busy = (f"; profiled {t['wall_ms']:.2f} ms/step wall, {t['busy_ms']:.2f} device "
+                    f"busy, busy share {t['busy_share']:.3f}" if "busy_share" in t else "")
+            print(f"host_path: {kind} {k}: {t['step_ms']:.2f} ms/step, spread "
+                  f"{t['spread']:.1%} (runs {', '.join(f'{v:.2f}' for v in t['runs_ms'])}; "
+                  f"{steps} steps a run){busy} ({card})")
+        loops[kind] = times
+        trainer.close()
+        del trainer, direct, model, runs
+        torch.cuda.empty_cache()
+    rec["loops"] = loops
+
+    # the fused_decoder route
+    fused = dict(use_pallas=True, pallas_decoder=False, fused_decoder=True, fused_ce=True)
+    rec["fused_f32_check"] = train_check_f32(cfg, state, label="fused_decoder", kernel=fused)
+    batches = train_batches(cfg)
+    trainers = {"fused": trainer_for(cfg, state, batches, pallas_decoder=False,
+                                     fused_decoder=True),
+                "pallas_decoder=1": trainer_for(cfg, state, batches, pallas_decoder=True),
+                "pallas_decoder=0": trainer_for(cfg, state, batches, pallas_decoder=False)}
+    got, hist = counted(lambda: trainers["fused"].train(FUSED_STEPS))
+    losses = [h["loss"] for h in hist]
+    print(f"host_path: fused_decoder bf16, {FUSED_STEPS} steps: launches {got}; losses "
+          + " ".join(f"{v:.3f}" for v in losses))
+    if not all(math.isfinite(v) for v in losses):
+        fail("fused_decoder: a bf16 training loss is not finite")
+    if got["decoder_fwd"] or got["decoder_bwd"] or not got["gru_layer_scan_bwd"]:
+        fail("fused_decoder: rows 5 and 6 ran, or the scans did not")
+    fused_ms = timed_turns({k: (lambda n, t=t: t.train(n)) for k, t in trainers.items()},
+                           FUSED_ORDER, FUSED_TIMED)
+    for k, t in fused_ms.items():
+        print(f"host_path: {k}: {t['step_ms']:.2f} ms/step (runs "
+              f"{', '.join(f'{v:.2f}' for v in t['runs_ms'])}; batch {TRAIN_BATCH}, "
+              f"{FUSED_TIMED} steps a run, in turns; {card})")
+    for t in trainers.values():
+        t.close()
+    del trainers
+    torch.cuda.empty_cache()
+    rec["fused_bf16"] = {"launches": got, "losses": losses, "routes": fused_ms}
+
+    with open(os.path.join(root, "config.json")) as f:
+        conf = json.load(f)
+    conf["model"].update(fused_decoder=True, pallas_decoder=False)
+    conf_path = os.path.join(root, "config_fused.json")
+    with open(conf_path, "w") as f:
+        json.dump(conf, f)
+    calls = []
+    route = mdec.fused_input_feed_decoder
+    mdec.fused_input_feed_decoder = lambda *a: calls.append(1) or route(*a)
+    try:
+        got, tr = counted(lambda: cli_train.main(
+            ["-data", prefix, "-config", conf_path, "-train_img_feats",
+             os.path.join(root, "train.feats.npy"), "-batch_size", str(TRAIN_BATCH),
+             "-max_steps", str(FUSED_CLI_STEPS), "-report_every", str(FUSED_CLI_STEPS),
+             "-save_model", os.path.join(root, "fused_run")]))
+    finally:
+        mdec.fused_input_feed_decoder = route
+    losses = [h["loss"] for h in tr.last_run["metrics"]]
+    print(f"host_path: cli.train -config {{model: fused_decoder true}}: {len(losses)} steps, "
+          f"the fused route taken {len(calls)} times, launches {got}")
+    if (len(losses) != FUSED_CLI_STEPS or not all(math.isfinite(v) for v in losses)
+            or len(calls) != FUSED_CLI_STEPS or got["decoder_fwd"] or got["decoder_bwd"]):
+        fail("cli.train with fused_decoder: wrong steps, a loss not finite, or the wrong route")
+    rec["fused_cli"] = {"steps": len(losses), "launches": got}
+    rec["phase_s"] = time.time() - t_phase
+    print(f"host_path: launches over the counted runs {total}; phase {rec['phase_s']:.1f} s")
+    return total, rec
+
+
 def width_record(name: str, widths: dict) -> dict:
     """One kernel's numbers at the widths phase's shapes: rows 1 and 2 by
     shape (errors, plans, bf16 times, cuDNN, bounds), rows 3-6 at H=250."""
@@ -3011,7 +3315,8 @@ def main() -> int:
         widths["phase_s"] = time.time() - t0
         print(f"eval phase {evals['phase_s']:.1f} s, widths phase {widths['phase_s']:.1f} s")
         ens_launches, ens = ensemble_phase(card, root)
-    opt_launches, options = options_phase(card, cfg, state)
+        opt_launches, options = options_phase(card, cfg, state)
+        host_launches, host = host_path_phase(card, cfg, state, root)
 
     entries = []
     for name, rec, src, replaces in (
@@ -3034,7 +3339,7 @@ def main() -> int:
                    **{path: n.get(name, 0) for path, n in online_launches.items()},
                    "eval": eval_launches[name], "widths": width_launches[name],
                    **{path: n[name] for path, n in ens_launches.items()},
-                   "options": opt_launches[name]}
+                   "options": opt_launches[name], "host_path": host_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3072,7 +3377,7 @@ def main() -> int:
                       "cli": cli, "serve_online": {k: v for k, v in served.items()
                                                    if k != "step_shapes"},
                       "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,
-                      "options": options, "card": card}))
+                      "options": options, "host_path": host, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -543,13 +543,27 @@ def test_train_refuses_pack_with_lstm_as_jax_does(corpus, tmp_path):
     assert not os.path.exists(f"{tmp_path}/x")
 
 
-def test_train_refuses_fused_decoder_from_a_config_file(corpus, tmp_path):
+def test_train_refuses_fused_decoder_from_a_config_file(corpus, tmp_path, monkeypatch):
+    """Once a refusal (``fused_decoder`` was not ported), kept under its
+    name: ``cli.train`` now trains from a ``-config`` file that sets it,
+    through the fused route (2 decoder layers), and the checkpoint keeps
+    the option."""
+    from variational_mmt_torch.models import decoder as mdec
+
     d = str(corpus)
     with open(f"{tmp_path}/fd.json", "w") as f:
         json.dump({"model": {"fused_decoder": True}}, f)
-    with pytest.raises(SystemExit, match="fused_decoder .*ROADMAP.md queue 1, item 2"):
-        cli_train.main(["-data", f"{d}/demo", "-save_model", f"{tmp_path}/x", "-config",
-                        f"{tmp_path}/fd.json", "-model_type", "nmt", "-max_steps", "1", *SMALL])
+    calls = []
+    fused = mdec.fused_input_feed_decoder
+    monkeypatch.setattr(mdec, "fused_input_feed_decoder",
+                        lambda *a: calls.append(1) or fused(*a))
+    save = f"{tmp_path}/x"
+    cli_train.main(["-data", f"{d}/demo", "-save_model", save, "-config",
+                    f"{tmp_path}/fd.json", "-model_type", "nmt", "-max_steps", "2",
+                    "-checkpoint_every", "2", *SMALL, "-dec_layers", "2"])
+    state, cfg, _, _, _ = ck.load_checkpoint(ck.latest_checkpoint(save), device="cpu")
+    assert cfg.model.fused_decoder and state.step == 2
+    assert len(calls) == 2  # one forward a step
 
 
 def test_clis_need_cuda_unless_cpu_is_asked(corpus, tmp_path, monkeypatch):

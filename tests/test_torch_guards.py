@@ -10,6 +10,7 @@ the model options of ROADMAP.md item 5.5, once refused, build and run."""
 import ast
 import dataclasses
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -46,15 +47,54 @@ def test_port_imports_nothing_of_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+# a ``file:line`` citation of the JAX package opens nothing (chip_smoke.py's
+# "replaces" fields); any other string naming a path in it is refused
+CITATION = re.compile(r"variational_mmt_tpu/[\w/]+\.py:\d+")
+
+
+def path_strings(path):
+    """Every string constant of ``path`` that is not a docstring."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str) and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_names_no_path_into_the_jax_package(path):
+    """No file of the port reads from the JAX package's directory: no
+    string (an f-string's parts too) names ``variational_mmt_tpu`` as a
+    path, so nothing compiles or loads the JAX package's C++ sources or
+    library without importing it."""
+    bad = [v for v in path_strings(path) if "variational_mmt_tpu" in v
+           and CITATION.fullmatch(v.strip()) is None]
+    assert not bad, f"{path.name} names {bad}"
+
+
+def test_path_guard_catches_a_path_into_the_jax_package(tmp_path):
+    src = tmp_path / "loader.py"
+    src.write_text('"""Loads variational_mmt_tpu/native/batcher.cpp."""\n'
+                   'import os\n'
+                   'SRC = os.path.join(ROOT, "variational_mmt_tpu", "native")\n'
+                   'CITE = "variational_mmt_tpu/ops/pallas/gru.py:165"\n')
+    named = [v for v in path_strings(src) if "variational_mmt_tpu" in v]
+    assert sorted(named) == ["variational_mmt_tpu", "variational_mmt_tpu/ops/pallas/gru.py:165"]
+    assert [v for v in named if CITATION.fullmatch(v) is None] == ["variational_mmt_tpu"]
+
+
 def test_port_package_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "translator.py", "gru_scan.py", "decode_step.py", "decoder.py",
             "trainer.py", "checkpoint.py", "msgpack_io.py", "loading.py", "logging.py",
             "tensorboard.py", "streams.py", "beam.py", "service.py", "frontend.py", "rpc.py",
             "http_server.py", "errors.py", "serve.py", "msgpack_codec.py", "iw_eval.py",
-            "diagnostics.py", "mbr.py", "meteor.py", "porter.py", "bleu.py"} <= names
+            "diagnostics.py", "mbr.py", "meteor.py", "porter.py", "bleu.py", "prefetch.py",
+            "fused_decoder.py"} <= names
     scanned = {p.parent.name for p in PORT_FILES}
-    assert {"cli", "utils", "train", "data", "decode", "serve", "evals"} <= scanned
+    assert {"cli", "utils", "train", "data", "decode", "serve", "evals", "native"} <= scanned
 
 
 @pytest.fixture
@@ -191,10 +231,12 @@ def test_ported_decode_options_build(over):
 
 
 # what a dispatcher process imports: the frontend, the RPC and its codec,
-# the tokenizer, BPE and the vocab (tests/test_torch_serve.py runs it)
+# the tokenizer, BPE with its native segmenter, and the vocab
+# (tests/test_torch_serve.py runs it)
 TORCH_FREE = ["serve/__init__.py", "serve/errors.py", "serve/frontend.py", "serve/rpc.py",
               "utils/__init__.py", "utils/msgpack_codec.py", "data/__init__.py",
-              "data/tokenizer.py", "data/bpe.py", "data/vocab.py", "__init__.py"]
+              "data/tokenizer.py", "data/bpe.py", "data/vocab.py", "native/__init__.py",
+              "__init__.py"]
 
 
 @pytest.mark.parametrize("rel", TORCH_FREE)

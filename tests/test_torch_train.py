@@ -265,14 +265,20 @@ def test_unsupported_train_options_raise(over):
 
 
 def test_fused_decoder_raises():
-    cfg = ModelConfig(**TINY, fused_decoder=True)
-    model = build_model(cfg, device="cpu")
-    model.load_state_dict(params_from_jax(perturbed_jax_params(JaxModelConfig(**TINY)), cfg))
-    src, tgt, img = corpus()
-    batch = next(BucketIterator(BinarizedDataset(src, tgt), 4, [10], img_feats=img).epoch())
-    b = batch_tensors(batch, torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        model(b["src"], b["tgt_in"], b["img"], sample=False, tgt_out=b["tgt_out"])
+    """Once a refusal (``fused_decoder`` was not ported), kept under its
+    name: the fused route now matches JAX's ``fused_decoder=True`` in the
+    loss and every gradient, and a Trainer takes finite steps on it with
+    dropout (tests/test_torch_fused_decoder.py holds the function itself
+    to JAX's custom VJP)."""
+    check_loss_and_every_gradient(dict(fused_decoder=True))
+    src, tgt, img = corpus(n=8, seed=4)
+    cfg = Config(model=ModelConfig(**TINY, fused_decoder=True), train=TrainConfig(**TRAIN))
+    model = build_model(cfg.model, device="cpu")
+    model.load_state_dict(params_from_jax(perturbed_jax_params(JaxModelConfig(**TINY)),
+                                          cfg.model))
+    it = BucketIterator(BinarizedDataset(src, tgt), 4, [10], img_feats=img, shuffle=True)
+    hist = Trainer(cfg, model, it, device="cpu").train(2)
+    assert len(hist) == 2 and all(np.isfinite(h["loss"]) for h in hist)
 
 
 def test_config_reads_the_train_section():

@@ -10,9 +10,11 @@ latent from per-sentence streams), online serving (serve/: the dynamic
 batcher, HTTP and RPC), training (also sequence-packed) with validation and
 checkpoints in the JAX package's layout, the train, translate and serve
 command lines (cli/), checkpoint ensembles, bf16/int8 inference, the
-quality gate (tools/quality_gate.py) and ``tools/embeddings_to_npy.py``.
-Multi-device runs and the custom-VJP ``fused_decoder`` are not ported.
-Importing it imports nothing. The six kernels (GRU scan and its
-backward, decode step, GRU chain, decoder sequence forward and backward)
-are CUDA C++ under csrc/, built at first use (kernels.py).
+quality gate (tools/quality_gate.py) and ``tools/embeddings_to_npy.py``,
+the custom-backward ``fused_decoder``, and the host input pipeline: the C++
+batcher, packer and BPE segmenter (native/, built by g++ at first use) and
+the prefetcher on a CUDA copy stream (data/prefetch.py). Multi-device runs
+are not ported. Importing it imports nothing. The six kernels (GRU scan and
+its backward, decode step, GRU chain, decoder sequence forward and
+backward) are CUDA C++ under csrc/, built at first use (kernels.py).
 """

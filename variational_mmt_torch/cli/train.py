@@ -16,10 +16,12 @@ bound to each validation of a latent model. It runs on CUDA unless given
 
 Every model option of the JAX CLI trains: ``-rnn_type gru|lstm``,
 ``-global_attention general|dot|mlp``, ``-input_feed 0|1`` and conv
-features pooled by ``-img_pool mean|attn``. Refused, each naming its
-ROADMAP.md item: ``-num_shards`` and ``-tensor_parallel`` above 1 (queue 1,
-item 5.8) and ``fused_decoder`` (item 2); ``-pack`` with LSTM cells is
-refused as JAX refuses it (the segment-reset recurrences are GRU only).
+features pooled by ``-img_pool mean|attn``, and ``fused_decoder`` from a
+``-config`` file. Batches are assembled by the native batcher or packer
+and prefetched (``Trainer``). Refused, each naming its ROADMAP.md item:
+``-num_shards`` and ``-tensor_parallel`` above 1 (queue 1, item 5.8);
+``-pack`` with LSTM cells is refused as JAX refuses it (the segment-reset
+recurrences are GRU only).
 """
 
 from __future__ import annotations
@@ -336,11 +338,9 @@ def cli_device(name: str) -> torch.device:
 
 def refused(cfg: Config, opt) -> list:
     """(what, ROADMAP.md item) of every option set that the port refuses."""
-    m = cfg.model
     table = [
         ("-num_shards > 1", opt.num_shards > 1, "queue 1, item 5.8"),
         ("-tensor_parallel > 1", cfg.train.num_model_shards > 1, "queue 1, item 5.8"),
-        ("fused_decoder", m.fused_decoder, "queue 1, item 2"),
     ]
     return [(what, item) for what, on, item in table if on]
 
@@ -483,6 +483,7 @@ def main(argv=None, on_checkpoint: Optional[Callable[[TrainState, str], None]] =
                 print("loaded pretrained word vectors "
                       f"(enc={bool(opt.pre_word_vecs_enc)}, dec={bool(opt.pre_word_vecs_dec)})")
             trainer.train_from()
+    trainer.close()
     if logger is not None:
         logger.close()
     ckpt_fn(trainer.final_state, trainer.final_state.step, {})

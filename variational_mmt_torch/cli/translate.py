@@ -49,11 +49,11 @@ from variational_mmt_torch.config import DecodeConfig
 from variational_mmt_torch.data.bpe import BPE
 from variational_mmt_torch.data.dataset import BucketIterator, binarize, buckets_with_catchall
 from variational_mmt_torch.data.features import load_features
+from variational_mmt_torch.data.prefetch import device_batches
 from variational_mmt_torch.data.tokenizer import tokenize
 from variational_mmt_torch.decode.translator import Translator
 from variational_mmt_torch.evals.bleu import corpus_bleu
 from variational_mmt_torch.evals.meteor import meteor_score
-from variational_mmt_torch.train.trainer import batch_tensors
 
 DEFAULT_BUCKETS = [16, 24, 32, 48, 64]
 
@@ -367,8 +367,8 @@ def latent_evals(opt, model, src_ids, gold_ids, feats, buckets, device) -> Dict[
                         img_feats=feats)
 
     def batches():
-        for b in it.epoch(0):
-            yield batch_tensors(b, device)
+        # prefetched, as JAX's IW and diagnostic passes read them (:373-392)
+        return device_batches(it.epoch(0), device)
 
     out: Dict[str, object] = {}
     if opt.iw_eval > 0:

@@ -1,14 +1,17 @@
 """Byte-pair encoding: learning merges, applying them, and undoing them.
 Mirrors ``learn_bpe`` (:20-76), ``BPE`` (``save``, ``load``, ``segment``)
-and ``remove_bpe`` of ``variational_mmt_tpu/data/bpe.py`` on its
-pure-Python path (the C++ segmenter ``native/bpe.cpp`` is not carried
-over; its output is the same). ``cli/preprocess.py`` learns the codes.
+and ``remove_bpe`` of ``variational_mmt_tpu/data/bpe.py``. ``BPE``
+segments through the C++ segmenter (``native/bpe.cpp``, :83-106) when the
+native library is available, else through the Python loop; both give the
+same pieces. ``cli/preprocess.py`` learns the codes.
 """
 
 from __future__ import annotations
 
 import collections
 from typing import Dict, Iterable, List, Sequence, Tuple
+
+from variational_mmt_torch import native
 
 EOW = "</w>"
 SEP = "@@"
@@ -76,12 +79,17 @@ def _merge_word(word: Tuple[str, ...], pair: Tuple[str, str], new_sym: str) -> T
 
 class BPE:
     """Greedy lowest-rank merges inside each word, with ``@@`` marking
-    every piece but a word's last."""
+    every piece but a word's last. ``use_native``: segment in C++ when
+    ``native.available()``. Segmented words are cached."""
 
-    def __init__(self, merges: Sequence[Tuple[str, str]]):
+    def __init__(self, merges: Sequence[Tuple[str, str]], use_native: bool = True):
         self.merges = list(merges)
         self.ranks = {pair: i for i, pair in enumerate(self.merges)}
         self._cache: Dict[str, List[str]] = {}
+        # the pairs in rank order: a repeated pair ranks as its last copy
+        # here, and would rank as its first in the C++ table
+        self._native = (native.NativeBPE(sorted(self.ranks, key=self.ranks.get))
+                        if use_native and native.available() else None)
 
     def segment_word(self, word: str) -> List[str]:
         if not word:
@@ -89,6 +97,10 @@ class BPE:
         hit = self._cache.get(word)
         if hit is not None:
             return hit
+        if self._native is not None:
+            out = self._native.segment_word(word)
+            self._cache[word] = out
+            return out
         symbols = list(word[:-1]) + [word[-1] + EOW]
         while len(symbols) > 1:
             rank, idx = min((self.ranks.get(pair, _NO_MERGE), i)

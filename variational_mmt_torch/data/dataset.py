@@ -6,7 +6,9 @@ pure-Python batch path: ``Batch`` (with the target side),
 ``<base>.NN.npz`` form that preprocess ``-shard_size`` writes; the same
 arrays as JAX's, so either package reads the other's), ``binarize``,
 ``buckets_with_catchall`` and ``BucketIterator`` with seeded per-epoch
-shuffling. The JAX package's C++ batcher is not carried over.
+shuffling. Batches are assembled by the C++ batcher (``native/``,
+``_make_batch_native``, JAX :301-315) when it is available, else in
+Python; both give the same arrays.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from variational_mmt_torch import native
 from variational_mmt_torch.data.vocab import BOS, EOS, PAD
 
 
@@ -52,16 +55,32 @@ class BinarizedDataset:
             raise ValueError(f"{len(src)} sources but {len(tgt)} targets")
         self.src = src
         self.tgt = tgt
+        self._src_flat: Optional[tuple] = None
+        self._tgt_flat: Optional[tuple] = None
 
     def __len__(self) -> int:
         return len(self.src)
 
+    def src_flat(self) -> tuple:
+        """(data int32, offsets int64) of the sources, made once: the
+        native batcher's and packer's layout (JAX :64-81)."""
+        if self._src_flat is None:
+            self._src_flat = _flat(self.src)
+        return self._src_flat
+
+    def tgt_flat(self) -> Optional[tuple]:
+        if self.tgt is None:
+            return None
+        if self._tgt_flat is None:
+            self._tgt_flat = _flat(self.tgt)
+        return self._tgt_flat
+
     def save(self, path: str) -> None:
         """One ``.npz``: src_data/src_off (and tgt_data/tgt_off), the
         sequences flat in int32 with int64 offsets (JAX dataset.py:83-89)."""
-        arrs = dict(zip(("src_data", "src_off"), _flat(self.src)))
+        arrs = dict(zip(("src_data", "src_off"), self.src_flat()))
         if self.tgt is not None:
-            arrs["tgt_data"], arrs["tgt_off"] = _flat(self.tgt)
+            arrs["tgt_data"], arrs["tgt_off"] = self.tgt_flat()
         np.savez_compressed(path, **arrs)
 
     @classmethod
@@ -145,17 +164,22 @@ class BucketIterator:
     contiguous runs of ``batch_size`` examples. With ``shuffle`` each epoch
     permutes the examples of every bucket and the order of the batches
     from ``numpy.random.default_rng(seed + epoch)``, as the JAX iterator
-    does; without it the order is the corpus order."""
+    does; without it the order is the corpus order. ``use_native`` (None:
+    whenever ``native.available()``) assembles each batch in C++, the
+    feature table then made contiguous f32 once."""
 
     def __init__(self, ds: BinarizedDataset, batch_size: int, buckets: Sequence[int],
                  img_feats: Optional[np.ndarray] = None, shuffle: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, use_native: Optional[bool] = None):
         self.ds = ds
         self.batch_size = batch_size
         self.buckets = sorted(buckets)
-        self.img_feats = img_feats
         self.shuffle = shuffle
         self.seed = seed
+        self.use_native = native.available() if use_native is None else bool(use_native)
+        if self.use_native and img_feats is not None:
+            img_feats = np.ascontiguousarray(img_feats, np.float32)
+        self.img_feats = img_feats
 
     def _bucketize(self) -> List[List[int]]:
         per_bucket: List[List[int]] = [[] for _ in self.buckets]
@@ -186,6 +210,8 @@ class BucketIterator:
             yield self._make_batch(self.buckets[b], chunk)
 
     def _make_batch(self, bucket_len: int, idxs: Sequence[int]) -> Batch:
+        if self.use_native:
+            return self._make_batch_native(bucket_len, idxs)
         B, L = self.batch_size, bucket_len
         src = np.full((B, L), PAD, np.int32)
         has_tgt = self.ds.tgt is not None
@@ -208,5 +234,19 @@ class BucketIterator:
         if self.img_feats is not None:
             img = np.asarray(self.img_feats[indices], np.float32)
             img *= mask.reshape((B,) + (1,) * (img.ndim - 1))
+        return Batch(src=src, indices=indices, example_mask=mask, img=img, tgt_in=tgt_in,
+                     tgt_out=tgt_out)
+
+    def _make_batch_native(self, bucket_len: int, idxs: Sequence[int]) -> Batch:
+        B, L = self.batch_size, bucket_len
+        sd, so = self.ds.src_flat()
+        td, to = self.ds.tgt_flat() or (None, None)
+        src, tgt_in, tgt_out, indices, mask = native.assemble_batch(
+            sd, so, td, to, idxs, B, L, BOS, EOS, PAD)
+        if td is None:  # the Python path's contract: no target side, no arrays
+            tgt_in = tgt_out = None
+        img = None
+        if self.img_feats is not None:
+            img = native.gather_rows(self.img_feats, indices, mask)
         return Batch(src=src, indices=indices, example_mask=mask, img=img, tgt_in=tgt_in,
                      tgt_out=tgt_out)

@@ -6,8 +6,11 @@ seeded per-epoch shuffling, ``epoch`` / ``__iter__`` / ``__len__``, and
 ``epoch_batches``, an epoch's exact batch count). Every
 packed segment is encoded, latent-modelled, decoded and normalized as if it
 were alone in a row (``VMMTModel.forward_packed``, ``compute_loss(tgt_seg=)``),
-so packing changes what a step carries, not the math. The JAX package's C++
-packer (``native/packer.cpp``) is not carried over.
+so packing changes what a step carries, not the math. An epoch is planned
+by one call of the C++ packer (``native/packer.cpp``, ``_epoch_native``,
+JAX :153-180) and each batch assembled by another when it is available
+and holds ``max_segments`` (at most 16), else in Python; both give the
+same arrays.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from variational_mmt_torch import native
 from variational_mmt_torch.data.dataset import BinarizedDataset
 from variational_mmt_torch.data.vocab import BOS, EOS, PAD
 
@@ -72,11 +76,14 @@ class PackedBucketIterator:
     a row), else opens a row; a batch is emitted when ``batch_size`` rows
     are open and a new one is needed. Every example lands in exactly one
     segment. Empty source or target lines are refused: a segment of zero
-    source tokens would have no last position."""
+    source tokens would have no last position. ``use_native`` (None:
+    whenever ``native.available()`` and ``max_segments`` <= 16) plans and
+    assembles in C++."""
 
     def __init__(self, ds: BinarizedDataset, batch_size: int, buckets: Sequence[int],
                  img_feats: Optional[np.ndarray] = None, shuffle: bool = True, seed: int = 0,
-                 infinite: bool = False, max_segments: int = 4):
+                 infinite: bool = False, max_segments: int = 4,
+                 use_native: Optional[bool] = None):
         if ds.tgt is None:
             raise ValueError("sequence packing requires a target side")
         empty = [i for i in range(len(ds)) if len(ds.src[i]) == 0 or len(ds.tgt[i]) == 0]
@@ -91,6 +98,9 @@ class PackedBucketIterator:
         self.seed = seed
         self.infinite = infinite
         self.K = max(1, max_segments)
+        if use_native is None:
+            use_native = self.K <= native.MAX_SEGMENTS and native.available()
+        self.use_native = bool(use_native)
 
     def __len__(self) -> int:
         """An estimate of the batches of an epoch (the count depends on the
@@ -101,10 +111,19 @@ class PackedBucketIterator:
                    for s, t in zip(self.ds.src, self.ds.tgt))
         return max(1, -(-need // (L * self.batch_size)))
 
+    def _order(self, epoch: int) -> np.ndarray:
+        rng = np.random.default_rng(self.seed + epoch)
+        return rng.permutation(len(self.ds)) if self.shuffle else np.arange(len(self.ds))
+
+    def _plan(self, epoch: int):
+        """The native plan of ``epoch``: (row_off, row_examples)."""
+        so, to = self.ds.src_flat()[1], self.ds.tgt_flat()[1]
+        return native.pack_plan(so, to, self._order(epoch), self.batch_size, self.row_len,
+                                self.K)
+
     def _row_groups(self, epoch: int) -> Iterator[List[_Row]]:
         """The rows of each batch of ``epoch``, in order."""
-        rng = np.random.default_rng(self.seed + epoch)
-        order = rng.permutation(len(self.ds)) if self.shuffle else np.arange(len(self.ds))
+        order = self._order(epoch)
         L, K = self.row_len, self.K
         rows: List[_Row] = []
         for i in order:
@@ -126,12 +145,33 @@ class PackedBucketIterator:
             yield rows
 
     def epoch(self, epoch: int = 0) -> Iterator[PackedBatch]:
+        if self.use_native:
+            yield from self._epoch_native(epoch)
+            return
         for rows in self._row_groups(epoch):
             yield self._assemble(rows)
 
+    def _epoch_native(self, epoch: int) -> Iterator[PackedBatch]:
+        """One ``pack_plan`` call for the epoch, one ``assemble_packed`` a
+        batch."""
+        B, L, K = self.batch_size, self.row_len, self.K
+        (sd, so), (td, to) = self.ds.src_flat(), self.ds.tgt_flat()
+        row_off, row_ex = self._plan(epoch)
+        n_rows = len(row_off) - 1
+        for b0 in range(0, n_rows, B):
+            (src, tgt_in, tgt_out, src_seg, tgt_seg, seg_first, seg_last, indices,
+             seg_mask) = native.assemble_packed(sd, so, td, to, row_off, row_ex, b0,
+                                                min(B, n_rows - b0), B, L, K, BOS, EOS, PAD)
+            yield PackedBatch(src=src, tgt_in=tgt_in, tgt_out=tgt_out, src_seg=src_seg,
+                              tgt_seg=tgt_seg, seg_first=seg_first, seg_last=seg_last,
+                              indices=indices, seg_mask=seg_mask,
+                              img=self._img_rows(indices, seg_mask))
+
     def epoch_batches(self, epoch: int = 0) -> int:
         """The exact number of batches of ``epoch`` (packing without
-        assembling)."""
+        assembling; natively, the rows of one ``pack_plan`` call)."""
+        if self.use_native:
+            return -(-(len(self._plan(epoch)[0]) - 1) // self.batch_size)
         return sum(1 for _ in self._row_groups(epoch))
 
     def __iter__(self) -> Iterator[PackedBatch]:

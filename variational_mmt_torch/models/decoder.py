@@ -12,7 +12,9 @@ with ``use_pallas`` and GRU cells, then runs one batched attention.
 
 Dropout between the layers is one mask ``dmid`` (B,T,H) drawn up front from
 the caller's generator, as the JAX package's fused paths draw it
-(:208-215), and it serves every route of the teacher-forced sequence.
+(:208-215), and it serves every route of the teacher-forced sequence: the
+decoder sequence kernels, the custom-backward ``fused_decoder``
+(models/fused_decoder.py) and the plain loop (:190-235).
 
 Carry = (per-layer states, (B,H) for GRU and (B,2H) ``[h | c]`` for LSTM;
 input-feed vector = the previous attentional hidden, (B,H)).
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 from variational_mmt_torch.models.attention import GlobalAttention
+from variational_mmt_torch.models.fused_decoder import fused_input_feed_decoder
 from variational_mmt_torch.models.gru import (cell_layer_scan, cell_step, dropout,
                                               dropout_mask, n_gates, scan_route)
 from variational_mmt_torch.models.layers import Dense
@@ -102,12 +105,13 @@ class GRUDecoder(nn.Module):
     ``input_feed=False``: a scan per layer, then one batched attention
     (JAX :157-181); with ``use_pallas`` and GRU cells each layer runs in the
     GRU-scan kernels (``gru_layer_scan_ad``, forward and backward) from its
-    bridge state, where they hold the width (H <= 512). Otherwise, with
-    ``use_pallas and pallas_decoder``, the decoder sequence kernels
-    (ops/decoder.py) compute the decoders they know (2 layers, general
-    attention, GRU cells: JAX's ``eligible``, :192-198); every other
+    bridge state, where they hold the width (H <= 512). Otherwise, for the
+    decoders that the fused routes know (2 layers, general attention, GRU
+    cells: JAX's ``eligible``, :192-198), ``use_pallas and pallas_decoder``
+    takes the decoder sequence kernels (ops/decoder.py) and else ``fused``
+    the custom-backward loop (``fused_input_feed_decoder``); every other
     decoder takes a Python loop over ``DecoderStep`` that autograd
-    differentiates. ``fused`` (the JAX custom-VJP scan) is not ported."""
+    differentiates."""
 
     def __init__(self, emb_dim: int, hidden: int, layers: int = 2,
                  attn_type: str = "general", dtype: torch.dtype = torch.float32,
@@ -140,9 +144,6 @@ class GRUDecoder(nn.Module):
         memory (B,S,H), src_mask (B,S), per-layer init states. Dropout draws
         from ``generator`` (None: deterministic). Returns (attentional
         hiddens (B,T,H), alignments (B,T,S))."""
-        if self.fused:
-            raise NotImplementedError("fused_decoder (the custom-VJP decoder scan) is not "
-                                      "ported yet; use pallas_decoder or the plain loop")
         B, T, _ = emb.shape
         H, dt = self.hidden, self.dtype
         emb_proj = self.ih_emb(emb)
@@ -156,7 +157,8 @@ class GRUDecoder(nn.Module):
             return dropout(attn_hs, self.dropout, generator), aligns
         keys = self.step.attn.project_memory(memory)
         eligible = self.layers == 2 and self.attn_type == "general" and self.cell_type == "gru"
-        if self.use_pallas and self.pallas_decoder and eligible:
+        kernels = self.use_pallas and self.pallas_decoder and eligible
+        if kernels or (self.fused and eligible):
             step = self.step
             p_out = step.attn.linear_out.kernel.to(dt)
             mem_v = memory @ p_out[:H]
@@ -165,7 +167,8 @@ class GRUDecoder(nn.Module):
             wh1, bh1 = step.hh(1)
             if dmid is None:
                 dmid = torch.ones((B, T, H), dtype=dt, device=emb.device)
-            attn_hs, aligns = fused_decoder_pallas(
+            run = fused_decoder_pallas if kernels else fused_input_feed_decoder
+            attn_hs, aligns = run(
                 emb_proj, dmid, init_hs[0], init_hs[1], step.ih_feed.kernel.to(dt), wh0, bh0,
                 step.ih_mid0.kernel.to(dt), step.ih_mid0.bias.to(dt), wh1, bh1, keys, mem_v,
                 p_out[H:], mask_bias)

@@ -23,6 +23,7 @@ import os
 import subprocess
 import time
 from collections import defaultdict
+from typing import Callable, Dict, List, Tuple
 
 import torch
 from torch.autograd import DeviceType
@@ -57,6 +58,25 @@ def layer_of(name: str) -> str:
     return "elementwise, gather, copy"
 
 
+def profiled(run: Callable[[], object]) -> Tuple[float, Dict[str, List[float]]]:
+    """(host wall µs, {kernel: [device µs, launches]}) of ``run()`` under
+    ``torch.profiler``, synchronized before and after; the device's busy
+    time is the sum of the kernels' times."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_kernel: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            rec = by_kernel[e.name]
+            rec[0] += e.time_range.elapsed_us()
+            rec[1] += 1
+    return wall_us, by_kernel
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join("build", "profile"))
@@ -81,18 +101,7 @@ def main() -> None:
         model.load_state_dict(state)
         trainer = Trainer(c, model, batches, device="cuda")
         trainer.train(3)  # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.train(args.steps)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        by_kernel = defaultdict(lambda: [0.0, 0])
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                rec = by_kernel[e.name]
-                rec[0] += e.time_range.elapsed_us()
-                rec[1] += 1
+        wall_us, by_kernel = profiled(lambda: trainer.train(args.steps))
         busy = sum(t for t, _ in by_kernel.values())
         by_layer = defaultdict(float)
         for name, (t, _) in by_kernel.items():
@@ -112,6 +121,7 @@ def main() -> None:
         print("  top kernels:")
         for line in lines[:10]:
             print("   ", line[:150])
+        trainer.close()
         del trainer, model
         torch.cuda.empty_cache()
 

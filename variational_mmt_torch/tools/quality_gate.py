@@ -171,6 +171,7 @@ def run_one(model_type: str, seed: int, data, args, device: torch.device, card: 
         done += n
         print(f"  {model_type} seed {seed} step {done}: loss {hist[-1]['loss']:.3f}, "
               f"{(time.time() - t0) / done * 1e3:.1f} ms/step", flush=True)
+    trainer.close()
     sync()
     train_s = time.time() - t0
 

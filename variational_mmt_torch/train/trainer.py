@@ -25,11 +25,19 @@ posterior mean); image features held on the device and gathered by
 ``batch.indices``. Metrics stay on the device until a report, a validation,
 a checkpoint or the end of a run reads them, in one transfer.
 
-JAX's ``jit``/``lax.scan`` dispatch, the mesh and the prefetcher have no
-counterpart: the step runs eagerly on one device, the kernels of
-``use_pallas`` / ``pallas_decoder`` doing the recurrences. Randomness comes
-from one ``torch.Generator`` on the device (``TrainState.generator``),
-seeded from ``train.seed``; ``param_init`` draws from a second one.
+Training and validation batches come through the prefetcher
+(``data/prefetch.py``), as JAX's ``_device_batches`` (:479-541) feeds them
+with stack 1: a background thread assembles each batch (natively by
+default, data/dataset.py and data/packing.py) and copies it to the card on
+a copy stream while the step before it runs. The training stream and its
+worker persist across ``train`` calls, so ``train(a); train(b)`` sees the
+batches of ``train(a + b)``; ``train_from`` starts the data again at epoch
+0 and ``close`` ends the worker. JAX's ``jit``/``lax.scan`` dispatch and
+the mesh have no counterpart: the step runs eagerly on one device, the
+kernels of ``use_pallas`` / ``pallas_decoder`` doing the recurrences.
+Randomness comes from one ``torch.Generator`` on the device
+(``TrainState.generator``), seeded from ``train.seed``; ``param_init``
+draws from a second one.
 """
 
 from __future__ import annotations
@@ -37,7 +45,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +53,7 @@ import torch
 from variational_mmt_torch.config import Config
 from variational_mmt_torch.data.dataset import Batch
 from variational_mmt_torch.data.packing import PackedBatch
+from variational_mmt_torch.data.prefetch import device_batches, gather_features, host_tensors
 from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.models.model import VMMTModel
 from variational_mmt_torch.train.loss import compute_loss
@@ -92,37 +101,30 @@ def create_train_state(cfg: Config, model: VMMTModel) -> TrainState:
         generator=torch.Generator(device=device).manual_seed(cfg.train.seed))
 
 
-PACKED_IDS = ("src", "tgt_in", "tgt_out", "src_seg", "tgt_seg", "seg_first", "seg_last")
-
-
 def batch_tensors(batch: Union[Batch, PackedBatch], device: torch.device,
                   table: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """A host batch as tensors on ``device`` (ids and positions int64, masks
-    and image features f32). A PackedBatch gives src, tgt_in, tgt_out,
-    src_seg, tgt_seg, seg_first, seg_last, seg_mask and img (B,K,D). With
-    ``table`` (image features on the device), img is its rows at
-    ``batch.indices``, zero on padding rows or segments."""
-    if batch.tgt_in is None or batch.tgt_out is None:
-        raise ValueError("a training batch needs tgt_in and tgt_out")
-    if isinstance(batch, PackedBatch):
-        out = {k: torch.from_numpy(np.asarray(getattr(batch, k))).long() for k in PACKED_IDS}
-        mask_key = "seg_mask"
-    else:
-        out = {"src": torch.from_numpy(np.asarray(batch.src)).long(),
-               "tgt_in": torch.from_numpy(np.asarray(batch.tgt_in)).long(),
-               "tgt_out": torch.from_numpy(np.asarray(batch.tgt_out)).long()}
-        mask_key = "example_mask"
-    out[mask_key] = torch.from_numpy(np.asarray(getattr(batch, mask_key), np.float32))
-    if table is not None:
-        out["indices"] = torch.from_numpy(np.asarray(batch.indices)).long()
-    elif batch.img is not None:
-        out["img"] = torch.from_numpy(np.asarray(batch.img, np.float32))
-    out = {k: v.to(device, non_blocking=True) for k, v in out.items()}
-    if table is not None:
-        mask = out[mask_key]
-        out["img"] = table[out.pop("indices")] * mask.reshape(
-            mask.shape + (1,) * (table.dim() - 1))
-    return out
+    and image features f32; ``data/prefetch.py`` ``host_tensors``), copied
+    on this thread. With ``table`` (image features on the device), img is
+    its rows at ``batch.indices``, zero on padding rows or segments. The
+    ``Trainer`` gets the same tensors through the prefetcher."""
+    out = host_tensors(batch, with_indices=table is not None)
+    return gather_features({k: v.to(device, non_blocking=True) for k, v in out.items()}, table)
+
+
+def host_batches(train_iter: Iterable, epoch: int = 0) -> Iterator[Union[Batch, PackedBatch]]:
+    """The training stream from ``epoch`` on: a BucketIterator or
+    PackedBucketIterator epoch after epoch, anything else re-iterated when
+    exhausted. Holds no reference to a Trainer, so a dropped Trainer's
+    prefetch worker ends."""
+    epochs = getattr(train_iter, "epoch", None)
+    while True:
+        n = 0
+        for n, batch in enumerate(epochs(epoch) if epochs else train_iter, 1):
+            yield batch
+        if n == 0:
+            raise ValueError("the training data gave no batch")
+        epoch += 1
 
 
 def loss_and_grads(cfg: Config, model: VMMTModel, batch: Dict[str, torch.Tensor], step: int,
@@ -320,19 +322,22 @@ class Trainer:
         # the last run's steps, metrics and seconds: in all, and in validation
         # and checkpoints
         self.last_run: Dict[str, object] = {}
-        self._epoch = 0
-        self._it = None
+        self._batches: Optional[Iterator[Dict[str, torch.Tensor]]] = None
 
-    def _next_batch(self) -> Union[Batch, PackedBatch]:
-        while True:
-            if self._it is None:
-                epoch = getattr(self.train_iter, "epoch", None)
-                self._it = iter(epoch(self._epoch) if epoch else self.train_iter)
-                self._epoch += 1
-            batch = next(self._it, None)
-            if batch is not None:
-                return batch
-            self._it = None
+    def _next_batch(self) -> Dict[str, torch.Tensor]:
+        """The next training batch on the device, from the prefetcher
+        (started at epoch 0 on first use)."""
+        if self._batches is None:
+            self._batches = device_batches(host_batches(self.train_iter), self.device,
+                                           self._train_table)
+        return next(self._batches)
+
+    def close(self) -> None:
+        """End the training stream's prefetch worker (the next step starts
+        the data again at epoch 0)."""
+        if self._batches is not None:
+            self._batches.close()
+            self._batches = None
 
     def train(self, max_steps: Optional[int] = None) -> List[Dict[str, float]]:
         """Take ``max_steps`` more steps (default ``train.max_steps``) from
@@ -361,7 +366,7 @@ class Trainer:
             state.generator = torch.Generator(device=self.device).manual_seed(
                 self.cfg.train.seed)
         self.state = state
-        self._epoch, self._it = 0, None
+        self.close()
         return self._run(max_steps or self.cfg.train.max_steps)[0]
 
     def _run(self, max_steps: int) -> Tuple[Statistics, List[Dict[str, float]]]:
@@ -393,7 +398,7 @@ class Trainer:
         t0 = time.perf_counter()
         side = {"validation": 0.0, "checkpoint": 0.0}
         while step < max_steps:
-            batch = batch_tensors(self._next_batch(), self.device, self._train_table)
+            batch = self._next_batch()
             self.state, metrics = self.train_step(self.state, batch, self.state.generator)
             prev, step = step, self.state.step
             pending.append(metrics)
@@ -451,8 +456,7 @@ class Trainer:
         if self._iw_fn is not None:
             gen = torch.Generator(device=self.device).manual_seed(self.cfg.train.seed)
         rows = []
-        for batch in self.valid_iter.epoch(0):
-            bt = batch_tensors(batch, self.device, self._valid_table)
+        for bt in device_batches(self.valid_iter.epoch(0), self.device, self._valid_table):
             m = eval_metrics(self.cfg, state.model, bt, state.step)
             if self._iw_fn is not None:
                 m["iw_elbo_sum"] = self._iw_fn(bt, gen)["iw_elbo_sum"]
