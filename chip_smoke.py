@@ -300,7 +300,29 @@ in PERF.md).
     ``fused_decoder: true`` (``pallas_decoder`` off) runs 10 steps, each
     through the fused route, rows 5 and 6 not at all (counted). Prints the
     phase's seconds.
-17. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+17. Parallel phase (``parallel_phase(card, cfg, state)``, ROADMAP item
+    5.8), the flagship at full width on the kernel route (use_pallas,
+    pallas_decoder, fused_ce), batch 64. (a) An NCCL process group of one
+    rank: the ``Trainer`` with ``make_mesh(1, 1)`` (the data-parallel code
+    path: the global sentence count and the bucketed gradient all-reduce
+    on) in turns with the plain ``Trainer`` on the same batches and seed,
+    4 runs of 5 bf16 steps each (the first untimed): the 20 losses must be
+    equal to the bit, rows 1, 2, 5 and 6 launched (counted as
+    ``parallel``); ms/step of both with the spread; the bytes all-reduced
+    a step, from the parameter count. (b) Two ranks on the one card
+    (``chip_smoke.py --parallel-rank R DIR``, a timeout of their own),
+    gloo with CUDA tensors (NCCL refuses two ranks on one device): DP 2 x
+    TP 1, then DP 1 x TP 2, 10 f32 steps each, dropout off, z the
+    posterior mean, against one process on the same batches: the loss
+    within 1e-4 relative at every step, rows 1, 2, 5 and 6 launched on
+    each rank; ms/step as read (two ranks share one card and gloo stages
+    every collective through the host: not a scaling number); the TP-2
+    beam-4 f32 decode (pallas_step 1) of 32 requests (numpy seed 7): top-1
+    equal to one process's on at least 31; the TP-2 checkpoint after the
+    10 steps, gathered and written by rank 0, loaded by one process,
+    decodes the ranks' top-1 on at least 31. The ranks' launches are
+    counted as ``parallel`` too. Prints the phase's seconds.
+18. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
@@ -308,8 +330,9 @@ in PERF.md).
     service's, ``widths`` each kernel's numbers at the widths phase's
     shapes, ``launches_by_path`` the serving, training, packed-training,
     families, CLI, online-serving, option-check, eval, widths, ensemble,
-    preprocess, options and host-path counts) with the ``host_path``
-    record, then the last line {"ok": true, "device": {...}}.
+    preprocess, options, host-path and parallel counts) with the
+    ``host_path`` and ``parallel`` records, then the last line {"ok": true,
+    "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
 port's package is not beside this script, or when any phase fails.
@@ -398,6 +421,11 @@ FUSED_ORDER = ("fused", "pallas_decoder=1", "pallas_decoder=0", "pallas_decoder=
 ENS_SENT, ENS_MAXLEN = 256, 60  # sentences an input (test set; flagship request), max_length
 ENS_CHECK, ENS_SERVE = 32, 32  # f32 kernel-vs-plain sentences; requests to the serve CLI
 ENS_SHARD, ENS_PP_STEPS = 512, 5  # preprocess -shard_size; train CLI steps on its corpus
+PAR_TURNS, PAR_TURN_STEPS = 4, 5  # phase 17 (a): bf16 steps in turns, the first turn untimed
+PAR_F32_STEPS, PAR_TOL = 10, 1e-4  # phase 17 (b): f32 steps a mesh; loss, relative
+PAR_DECODE, PAR_DECODE_SEED = 32, 7  # phase 17 (b): TP-2 beam-4 sentences, request seed
+PAR_CHILD_TIMEOUT_S = 240  # phase 17 (b): the two ranks, start-up included
+PAR_ROWS = ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd")
 
 
 def fail(msg: str) -> None:
@@ -3236,6 +3264,252 @@ def host_path_phase(card: str, cfg, state, root: str):
     return total, rec
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def parallel_cfg(cfg, dtype: str):
+    """The flagship on the kernel route (use_pallas, pallas_decoder,
+    fused_ce) at ``dtype``; float32 also drops dropout and word dropout."""
+    over = dict(compute_dtype=dtype, use_pallas=True, pallas_decoder=True, fused_ce=True)
+    if dtype == "float32":
+        over.update(dropout=0.0, word_dropout=0.0)
+    return dataclasses.replace(cfg, model=dataclasses.replace(cfg.model, **over))
+
+
+def f32_trainer(cfg, state, batches, device: str, mesh=None):
+    """A Trainer of the f32 flagship whose step is deterministic with z the
+    posterior mean (``make_train_step(deterministic=True, sample=False)``)."""
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.train.trainer import Trainer, make_train_step
+
+    model = build_model(cfg.model, device=device)
+    model.load_state_dict(state)
+    tr = Trainer(cfg, model, batches, device=device, mesh=mesh)
+    tr.train_step = make_train_step(cfg, deterministic=True, sample=False, mesh=mesh)
+    return tr
+
+
+def top1(nbest) -> list:
+    return [n[0][1] for n in nbest]
+
+
+def parallel_child(rank: int, workdir: str) -> int:
+    """One of phase 17 (b)'s two ranks (run as ``chip_smoke.py
+    --parallel-rank R DIR``): both on cuda:0, gloo with CUDA tensors. DP 2 x
+    TP 1 and DP 1 x TP 2, PAR_F32_STEPS f32 steps each; the TP-2 beam-4
+    decode of PAR_DECODE requests; the TP-2 checkpoint (rank 0 writes) and
+    the decode with its trained weights. Writes its numbers to
+    DIR/rank<R>.json."""
+    sys.path.insert(0, HERE)
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.data.vocab import SPECIALS, Vocab
+    from variational_mmt_torch.decode.translator import Translator
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.parallel import mesh as pm
+    from variational_mmt_torch.tools import flagship
+    from variational_mmt_torch.train import checkpoint as ck
+
+    # the kernels' libraries, built by the parent, load at first use
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, state = flagship.load()
+    cfg = parallel_cfg(cfg, "float32")
+    batches = flagship.train_batches(cfg.model, TRAIN_BATCHES, TRAIN_BATCH)
+    meshes = {name: pm.make_mesh(d, m, device="cuda:0", backend="gloo",
+                                 init_method=f"file://{workdir}/store", rank=rank, world_size=2)
+              for name, d, m in (("dp2", 2, 1), ("tp2", 1, 2))}
+    out = {}
+    for name, mesh in meshes.items():
+        tr = f32_trainer(cfg, state, batches, device="cuda:0", mesh=mesh)
+        t0 = time.perf_counter()
+        launches, hist = counted_run(lambda: tr.train(PAR_F32_STEPS))
+        out[name] = {"losses": [h["loss"] for h in hist], "launches": launches,
+                     "ms_step": (time.perf_counter() - t0) * 1e3 / PAR_F32_STEPS}
+    tp_trainer = tr
+    V = cfg.model.tgt_vocab_size
+    vocab = Vocab(SPECIALS + [f"w{i}" for i in range(V - len(SPECIALS))])
+    src, img = flagship.requests(cfg.model, PAR_DECODE_SEED)(PAR_DECODE)
+    dcfg = DecodeConfig(beam_size=4, max_length=60, batch_size=PAR_DECODE, pallas_step=1)
+    model = build_model(cfg.model, device="cuda:0")
+    model.load_state_dict(state)
+    tr = Translator(model, vocab, vocab, dcfg, mesh=meshes["tp2"])
+    launches, nbest = counted_run(lambda: tr.translate_ids(src, img))
+    tr.close()
+    out["decode"] = {"top1": top1(nbest), "launches": launches}
+    path = ck.save_checkpoint(os.path.join(workdir, "ckpt"), tp_trainer.state, cfg, vocab,
+                              vocab, mesh=meshes["tp2"])
+    tr = Translator(tp_trainer.model, vocab, vocab, dcfg, mesh=meshes["tp2"])
+    out["trained_decode"] = {"top1": top1(tr.translate_ids(src, img)), "checkpoint": path}
+    tr.close()
+    tp_trainer.close()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    meshes["dp2"].close()
+    return 0
+
+
+def parallel_phase(card: str, cfg, state):
+    """Phase 17 (module docstring): (a) the Trainer through the DP code
+    path on an NCCL group of one rank, in turns with the plain Trainer;
+    (b) two ranks on the one card over gloo. Returns ({kernel: launches of
+    (a)'s mesh trainer and (b)'s ranks}, record)."""
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.data.vocab import SPECIALS, Vocab
+    from variational_mmt_torch.decode.translator import Translator
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.parallel import mesh as pm
+    from variational_mmt_torch.tools import flagship
+    from variational_mmt_torch.train import checkpoint as ck
+    from variational_mmt_torch.train.trainer import Trainer
+
+    t_phase = time.time()
+    rec = {"card": card}
+    # (a) NCCL, one rank, bf16
+    batches = train_batches(cfg)
+    cfg16 = parallel_cfg(cfg, "bfloat16")
+    mesh = pm.make_mesh(1, 1, device="cuda:0", backend="nccl",
+                        init_method=f"tcp://localhost:{free_port()}", rank=0, world_size=1)
+    trainers = {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        model = build_model(cfg16.model, device="cuda")
+        model.load_state_dict(state)
+        trainers[name] = Trainer(cfg16, model, batches, device="cuda", mesh=m)
+    losses = {"plain": [], "mesh": []}
+    ms = {"plain": [], "mesh": []}
+    launches = dict.fromkeys(kernel_counters(), 0)
+    for turn in range(PAR_TURNS):
+        for name in (("mesh", "plain") if turn % 2 == 0 else ("plain", "mesh")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "mesh":
+                counts, hist = counted_run(lambda: trainers[name].train(PAR_TURN_STEPS))
+                launches = {k: launches[k] + n for k, n in counts.items()}
+            else:
+                hist = trainers[name].train(PAR_TURN_STEPS)
+            torch.cuda.synchronize()
+            if turn > 0:  # the first turn warms both up
+                ms[name].append((time.perf_counter() - t0) * 1e3 / PAR_TURN_STEPS)
+            losses[name].extend(h["loss"] for h in hist)
+    n_params = sum(p.numel() for p in trainers["mesh"].model.parameters())
+    for tr in trainers.values():
+        tr.close()
+    mesh.close()
+    same = losses["mesh"] == losses["plain"]
+    print(f"parallel (a): NCCL group of 1 rank, DP code path vs plain Trainer, "
+          f"{len(losses['mesh'])} bf16 steps in turns: losses equal to the bit: {same}")
+    if not same:
+        diff = [(i, a, b) for i, (a, b) in enumerate(zip(losses["mesh"], losses["plain"]))
+                if a != b]
+        fail(f"the DP code path's losses differ from the plain Trainer's: {diff[:4]}")
+    for name in ("mesh", "plain"):
+        mean = float(np.mean(ms[name]))
+        print(f"parallel (a): {name}: {mean:.2f} ms/step, spread "
+              f"{(max(ms[name]) - min(ms[name])) / mean:.1%} (runs "
+              f"{', '.join(f'{v:.2f}' for v in ms[name])} ms; batch {TRAIN_BATCH}, "
+              f"{PAR_TURN_STEPS} steps a run, {card})")
+    grad_bytes = 4 * n_params
+    print(f"parallel (a): all-reduced a step: {n_params} f32 gradients = "
+          f"{grad_bytes / 2**20:.1f} MiB in 64 MiB buckets, plus 4 B (sentence count); the "
+          "metrics once a read")
+    for name in PAR_ROWS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the DP code path")
+    rec["a"] = {"losses_equal": same, "steps": len(losses["mesh"]),
+                "ms_step": {k: float(np.mean(v)) for k, v in ms.items()},
+                "runs_ms": ms, "allreduce_bytes_per_step": grad_bytes, "launches": launches}
+
+    # (b) two ranks on the one card, gloo with CUDA tensors
+    cfg32 = parallel_cfg(cfg, "float32")
+    V = cfg32.model.tgt_vocab_size
+    vocab = Vocab(SPECIALS + [f"w{i}" for i in range(V - len(SPECIALS))])
+    src, img = flagship.requests(cfg32.model, PAR_DECODE_SEED)(PAR_DECODE)
+    dcfg = DecodeConfig(beam_size=4, max_length=60, batch_size=PAR_DECODE, pallas_step=1)
+    with tempfile.TemporaryDirectory(prefix="vmmt_par_") as workdir:
+        logs = [open(os.path.join(workdir, f"log{r}.txt"), "w") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                                   str(r), workdir], stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        try:
+            # the single process's references while the ranks start
+            ref = f32_trainer(cfg32, state, batches, device="cuda")
+            ref_losses = [h["loss"] for h in ref.train(PAR_F32_STEPS)]
+            ref.close()
+            model = build_model(cfg32.model, device="cuda")
+            model.load_state_dict(state)
+            tr = Translator(model, vocab, vocab, dcfg, device="cuda")
+            ref_top1 = top1(tr.translate_ids(src, img))
+            tr.close()
+            deadline = time.monotonic() + PAR_CHILD_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(workdir, f"log{r}.txt")) as f:
+                    print(f.read()[-6000:], file=sys.stderr)
+                fail(f"phase 17 (b): rank {r} failed or timed out (exit {p.returncode})")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        state_l, _, model_l, _, _ = ck.load_checkpoint(ranks[0]["trained_decode"]["checkpoint"],
+                                                       device="cuda")
+        tr = Translator(model_l, vocab, vocab, dcfg, device="cuda")
+        ckpt_top1 = top1(tr.translate_ids(src, img))
+        tr.close()
+    rec["b"] = {}
+    for name in ("dp2", "tp2"):
+        worst = 0.0
+        for r, got in enumerate(ranks):
+            run = got[name]
+            rel = [abs(a - b) / abs(b) for a, b in zip(run["losses"], ref_losses)]
+            worst = max(worst, max(rel))
+            if len(rel) != PAR_F32_STEPS or max(rel) > PAR_TOL:
+                fail(f"phase 17 (b): {name} rank {r} losses {run['losses']} against one "
+                     f"process {ref_losses} (tolerance {PAR_TOL} relative)")
+            for k in PAR_ROWS:
+                if run["launches"][k] <= 0:
+                    fail(f"phase 17 (b): {name} rank {r} did not launch {k}")
+        ms_ranks = [got[name]["ms_step"] for got in ranks]
+        print(f"parallel (b): {name}: {PAR_F32_STEPS} f32 steps, worst loss difference from "
+              f"one process {worst:.2e} relative (tolerance {PAR_TOL}); "
+              f"{', '.join(f'{v:.1f}' for v in ms_ranks)} ms/step on ranks 0, 1 (two ranks "
+              f"share one card and gloo stages every collective through the host: not a "
+              f"scaling number; {card})")
+        rec["b"][name] = {"worst_loss_rel": worst, "ms_step_ranks": ms_ranks,
+                          "launches_ranks": [got[name]["launches"] for got in ranks]}
+    dec_same = [sum(a == b for a, b in zip(got["decode"]["top1"], ref_top1)) for got in ranks]
+    ck_same = sum(a == b for a, b in zip(ranks[0]["trained_decode"]["top1"], ckpt_top1))
+    print(f"parallel (b): TP-2 beam-4 f32 decode of {PAR_DECODE} requests (pallas_step 1): "
+          f"top-1 equal to one process's on {dec_same} of {PAR_DECODE} (ranks 0, 1); the TP-2 "
+          f"checkpoint (step {state_l.step}, written by rank 0) loaded by one process decodes "
+          f"the TP-2 ranks' top-1 on {ck_same} of {PAR_DECODE}")
+    if min(dec_same) < PAR_DECODE - 1:
+        fail("phase 17 (b): the TP-2 decode disagrees with one process on more than 1 sentence")
+    if ck_same < PAR_DECODE - 1 or state_l.step != PAR_F32_STEPS:
+        fail("phase 17 (b): the TP-2 checkpoint does not decode as the TP-2 ranks do")
+    rec["b"].update(decode_top1_same=dec_same, checkpoint_top1_same=ck_same)
+    for got in ranks:
+        for part in ("dp2", "tp2", "decode"):
+            launches = {k: launches[k] + n for k, n in got[part]["launches"].items()}
+    rec["phase_s"] = time.time() - t_phase
+    print(f"parallel phase {rec['phase_s']:.1f} s")
+    return launches, rec
+
+
 def width_record(name: str, widths: dict) -> dict:
     """One kernel's numbers at the widths phase's shapes: rows 1 and 2 by
     shape (errors, plans, bf16 times, cuDNN, bounds), rows 3-6 at H=250."""
@@ -3261,6 +3535,8 @@ def width_record(name: str, widths: dict) -> dict:
 
 
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
+        return parallel_child(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     if not os.path.isdir(os.path.join(HERE, "variational_mmt_torch")):
@@ -3317,6 +3593,7 @@ def main() -> int:
         ens_launches, ens = ensemble_phase(card, root)
         opt_launches, options = options_phase(card, cfg, state)
         host_launches, host = host_path_phase(card, cfg, state, root)
+    par_launches, par = parallel_phase(card, cfg, state)
 
     entries = []
     for name, rec, src, replaces in (
@@ -3339,7 +3616,8 @@ def main() -> int:
                    **{path: n.get(name, 0) for path, n in online_launches.items()},
                    "eval": eval_launches[name], "widths": width_launches[name],
                    **{path: n[name] for path, n in ens_launches.items()},
-                   "options": opt_launches[name], "host_path": host_launches[name]}
+                   "options": opt_launches[name], "host_path": host_launches[name],
+                   "parallel": par_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3377,7 +3655,8 @@ def main() -> int:
                       "cli": cli, "serve_online": {k: v for k, v in served.items()
                                                    if k != "step_shapes"},
                       "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,
-                      "options": options, "host_path": host, "card": card}))
+                      "options": options, "host_path": host, "parallel": par,
+                      "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

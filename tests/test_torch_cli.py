@@ -392,8 +392,10 @@ TRANSLATE_REFUSED = [
 @pytest.mark.parametrize("flags,item", TRANSLATE_REFUSED, ids=lambda x: (
     " ".join(x) if isinstance(x, list) else x))
 def test_translate_refuses_what_is_not_ported_naming_its_roadmap_item(flags, item, tmp_path):
+    # item 5.8 ported decoding across ranks: outside torchrun the flag is
+    # refused, naming the command and the item
     argv = ["-model", "nowhere", "-src", "nowhere.txt", "-device", "cpu", *flags]
-    with pytest.raises(SystemExit, match=f"not ported yet: .*ROADMAP.md .*{item}"):
+    with pytest.raises(SystemExit, match=f"torchrun --nproc_per_node 2.*ROADMAP.md .*{item}"):
         cli_translate.main(argv)
 
 
@@ -495,8 +497,10 @@ TRAIN_REFUSED = [(["-num_shards", "2"], "5.8"), (["-tensor_parallel", "2"], "5.8
 @pytest.mark.parametrize("flags,item", TRAIN_REFUSED, ids=lambda x: (
     " ".join(x) if isinstance(x, list) else x))
 def test_train_refuses_what_is_not_ported_naming_its_roadmap_item(corpus, flags, item, tmp_path):
+    # item 5.8 ported training across ranks: outside torchrun the flags are
+    # refused, naming the command and the item
     d = str(corpus)
-    with pytest.raises(SystemExit, match=f"not ported yet: .*ROADMAP.md .*{item}"):
+    with pytest.raises(SystemExit, match=f"torchrun --nproc_per_node 2.*ROADMAP.md .*{item}"):
         cli_train.main(["-data", f"{d}/demo", "-save_model", f"{tmp_path}/x", "-model_type",
                         "nmt", "-batch_size", "8", "-max_steps", "1", *SMALL, *flags])
 

@@ -13,7 +13,7 @@ converted parameters, f32, the CPU.
 - the ensemble is the combination, not a member;
 - refusals: the member count against the parameter trees, the image
   interface, an empty ``-model`` segment, the flags an ensemble refuses,
-  and a mesh still naming 5.8;
+  tensor parallelism (JAX's refusal) and a mesh that is not one;
 - the service over an ensemble answers as the offline ensemble does, and
   sizes request features to the vmmt_c member; the CLIs through
   checkpoints on disk."""
@@ -41,6 +41,7 @@ from variational_mmt_torch.convert import params_from_jax
 from variational_mmt_torch.data.vocab import SPECIALS, Vocab
 from variational_mmt_torch.decode.translator import Translator, _combine_logps
 from variational_mmt_torch.models.model import build_model
+from variational_mmt_torch.parallel.mesh import Mesh
 from variational_mmt_torch.serve import ServeConfig, TranslationService
 from variational_mmt_torch.train import checkpoint as ck
 from variational_mmt_torch.train.trainer import create_train_state
@@ -236,7 +237,12 @@ def test_latent_sample_needs_some_latent_member_and_mesh_names_5_8():
         Translator([nmt, nmt], vocab, vocab, DecodeConfig(latent_from="sample"), device="cpu")
     Translator([nmt, member("f")[2]], vocab, vocab, DecodeConfig(latent_from="sample"),
                device="cpu")
-    with pytest.raises(NotImplementedError, match="5.8"):
+    # item 5.8 ported the mesh: an ensemble refuses tensor parallelism (JAX's
+    # refusal), and a mesh must be one
+    tp2 = Mesh(n_data=1, n_model=2, rank=0, device=torch.device("cpu"))
+    with pytest.raises(ValueError, match="does not compose with tensor parallelism"):
+        Translator([nmt, nmt], vocab, vocab, DecodeConfig(), mesh=tp2, device="cpu")
+    with pytest.raises(TypeError, match="Mesh"):
         Translator([nmt, nmt], vocab, vocab, DecodeConfig(), mesh=object(), device="cpu")
 
 
@@ -281,8 +287,9 @@ def test_model_spec_refusals(tmp_path):
 @pytest.mark.parametrize("flag", [["-verbose"], ["-iw_eval", "4"], ["-latent_diag"],
                                   ["-dump_attn", "x.npz"], ["-tensor_parallel", "2"]])
 def test_translate_refuses_what_an_ensemble_cannot(flag):
-    # -tensor_parallel is refused for any model, naming its item
-    match = "item 5.8" if flag[0] == "-tensor_parallel" else "not supported with an ensemble"
+    # -tensor_parallel is refused for an ensemble, as JAX refuses it
+    match = ("does not compose with tensor parallelism" if flag[0] == "-tensor_parallel"
+             else "not supported with an ensemble")
     with pytest.raises(SystemExit, match=match):
         cli_translate.main(["-model", "a,b", "-src", "x", "-device", "cpu", *flag])
 

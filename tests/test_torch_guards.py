@@ -258,7 +258,8 @@ def test_ensembles_mesh_and_packing_raise():
     model = build_model(ModelConfig(**TINY), device="cpu")
     vocab = Vocab(SPECIALS + ["a", "b"])
     assert len(Translator([model, model], vocab, vocab, device="cpu").models) == 2
-    with pytest.raises(NotImplementedError, match="item 5.8"):
+    # item 5.8 ported the mesh: only a parallel.mesh.Mesh is one
+    with pytest.raises(TypeError, match="Mesh"):
         Translator(model, vocab, vocab, mesh=object(), device="cpu")
 
 

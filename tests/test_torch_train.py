@@ -258,9 +258,11 @@ def test_trainer_needs_cuda_unless_the_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("over", [dict(num_model_shards=2)],
                          ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()))
 def test_unsupported_train_options_raise(over):
-    """Model sharding is the one training option still refused; the others
-    are held step by step against JAX in tests/test_torch_train_options.py."""
-    with pytest.raises(NotImplementedError):
+    """Model sharding, once refused, now needs a mesh of that many model
+    ranks (tests/test_torch_parallel.py): without one the Trainer raises.
+    The other options are held step by step against JAX in
+    tests/test_torch_train_options.py."""
+    with pytest.raises(ValueError, match="need a mesh"):
         tiny_trainer(**over)
 
 

@@ -14,7 +14,9 @@ It prints ``serving on http://HOST:PORT`` once it accepts requests (with
 ``int8`` serves with bfloat16 weights, or with int8 codes and per-column
 scales (the checkpoints are then read into host memory, and the card holds
 only the cast weights between requests). ``-tensor_parallel`` above 1 is
-refused, naming its ROADMAP.md item (queue 1, item 5.8).
+refused, naming its ROADMAP.md item (queue 1, item 5.10: serving across
+ranks needs a front end on rank 0 whose batches the other ranks follow;
+item 5.8 ported training and offline decoding across ranks).
 
 Dispatcher processes (``-procs``) are spawned and import this module
 again, so it imports nothing heavy at its top level.
@@ -98,7 +100,9 @@ def add_args(p: argparse.ArgumentParser) -> None:
 
 def refused(opt) -> list:
     """(flag, ROADMAP.md item) of every option set that the port refuses."""
-    table = [("-tensor_parallel", opt.tensor_parallel > 1, "queue 1, item 5.8")]
+    table = [("-tensor_parallel", opt.tensor_parallel > 1,
+              "queue 1, item 5.10; item 5.8 ported training and offline decoding across "
+              "ranks, not serving")]
     return [(flag, item) for flag, on, item in table if on]
 
 

@@ -18,15 +18,28 @@ Every model option of the JAX CLI trains: ``-rnn_type gru|lstm``,
 ``-global_attention general|dot|mlp``, ``-input_feed 0|1`` and conv
 features pooled by ``-img_pool mean|attn``, and ``fused_decoder`` from a
 ``-config`` file. Batches are assembled by the native batcher or packer
-and prefetched (``Trainer``). Refused, each naming its ROADMAP.md item:
-``-num_shards`` and ``-tensor_parallel`` above 1 (queue 1, item 5.8);
-``-pack`` with LSTM cells is refused as JAX refuses it (the segment-reset
-recurrences are GRU only).
+and prefetched (``Trainer``). ``-pack`` with LSTM cells is refused as JAX
+refuses it (the segment-reset recurrences are GRU only).
+
+Across GPUs, one process a GPU (ROADMAP.md item 5.8):
+
+    torchrun --nproc_per_node N -m variational_mmt_torch.cli.train ... \
+        [-num_shards D] [-tensor_parallel M]
+
+trains on a mesh of D data x M model ranks (parallel/mesh.py; D 0, the
+default, is ``WORLD_SIZE // M``, and D x M must be ``WORLD_SIZE``): each
+data rank takes its rows of every batch, the vocab is split over the M
+model ranks (parallel/tp.py), NCCL reduces on CUDA and gloo on the CPU
+(``-device cpu``). Rank 0 prints, logs and writes the checkpoints, which
+hold the full tensors. ``-num_shards`` or ``-tensor_parallel`` above 1
+without torchrun is an error naming the command.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
 import sys
@@ -42,6 +55,7 @@ from variational_mmt_torch.data.features import load_features
 from variational_mmt_torch.data.vocab import Vocab
 from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.models.model import build_model, init_params
+from variational_mmt_torch.parallel import mesh as pm
 from variational_mmt_torch.train import checkpoint
 from variational_mmt_torch.train.trainer import Trainer, TrainState
 
@@ -147,9 +161,11 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-pack_segments", type=int, default=4,
                    help="max sentences packed into one row (static shape)")
     p.add_argument("-num_shards", type=int, default=0,
-                   help="refused above 1 (ROADMAP.md queue 1, item 5.8)")
+                   help="data-parallel ranks under torchrun (0: WORLD_SIZE // "
+                        "-tensor_parallel)")
     p.add_argument("-tensor_parallel", type=int, default=1,
-                   help="refused above 1 (ROADMAP.md queue 1, item 5.8)")
+                   help=">1: vocab-parallel embeddings, generator and CE over this "
+                        "many ranks (torchrun; the vocab sizes must divide by it)")
     p.add_argument("-metrics_log", default="", help="JSONL scalar log path (ELBO decomposition)")
     p.add_argument("-tensorboard_dir", default="",
                    help="TensorBoard scalar event dir (native writer, no TF dependency)")
@@ -336,13 +352,30 @@ def cli_device(name: str) -> torch.device:
         raise SystemExit(f"{e} (pass -device cpu to run on the CPU)") from None
 
 
-def refused(cfg: Config, opt) -> list:
-    """(what, ROADMAP.md item) of every option set that the port refuses."""
-    table = [
-        ("-num_shards > 1", opt.num_shards > 1, "queue 1, item 5.8"),
-        ("-tensor_parallel > 1", cfg.train.num_model_shards > 1, "queue 1, item 5.8"),
-    ]
-    return [(what, item) for what, on, item in table if on]
+def cli_mesh(num_shards: int, tensor_parallel: int, device: torch.device):
+    """The mesh of a run under torchrun (``WORLD_SIZE`` > 1) or with shard
+    flags above 1, else None; the backend follows ``-device``. Errors exit
+    naming what to run."""
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world <= 1 and num_shards <= 1 and tensor_parallel <= 1:
+        return None
+    try:
+        return pm.make_mesh(num_shards, tensor_parallel,
+                            device=None if device.type == "cuda" else device,
+                            backend=pm.backend_for(device))
+    except ValueError as e:
+        raise SystemExit(f"{e} (ROADMAP.md item 5.8)") from None
+
+
+def quiet_unless_main(mesh) -> contextlib.ExitStack:
+    """A context in which ranks other than 0 print nothing, and which ends
+    the mesh's process group on exit."""
+    stack = contextlib.ExitStack()
+    if mesh is not None:
+        stack.callback(mesh.close)
+        if not mesh.is_main:
+            stack.enter_context(contextlib.redirect_stdout(io.StringIO()))
+    return stack
 
 
 def family_lr(optimizer: str) -> float:
@@ -406,10 +439,17 @@ def main(argv=None, on_checkpoint: Optional[Callable[[TrainState, str], None]] =
     cfg = build_config(opt, len(sv), len(tv))
     if opt.config:
         cfg = merge_config(opt, passed, cfg, sv, tv)
-    bad = refused(cfg, opt)
-    if bad:
-        raise SystemExit("not ported yet: " + "; ".join(
-            f"{what} (ROADMAP.md {item})" for what, item in bad))
+    mesh = cli_mesh(cfg.train.num_data_shards, cfg.train.num_model_shards, device)
+    with quiet_unless_main(mesh):
+        return train(opt, cfg, sv, tv, train_ds, valid_ds, train_feats, valid_feats,
+                     mesh.device if mesh is not None else device, mesh, on_checkpoint)
+
+
+def train(opt, cfg: Config, sv: Vocab, tv: Vocab, train_ds: BinarizedDataset,
+          valid_ds: Optional[BinarizedDataset], train_feats, valid_feats, device: torch.device,
+          mesh: Optional[pm.Mesh], on_checkpoint) -> Trainer:
+    """The run of :func:`main` once its inputs are read (on every rank of
+    ``mesh``)."""
     if cfg.model.share_embeddings and sv.itos != tv.itos:
         raise SystemExit("share_embeddings requires identical source/target vocabs: "
                          "re-run preprocess with -share_vocab")
@@ -437,14 +477,19 @@ def main(argv=None, on_checkpoint: Optional[Callable[[TrainState, str], None]] =
     model = build_model(cfg.model, device=device)
     model.load_state_dict(params_from_jax(init_params(cfg.model, seed=cfg.train.seed),
                                           cfg.model))
-    print(f"device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                 if device.type == "cuda" else ""))
+    name = f"{device}" + (f" ({torch.cuda.get_device_name(device)})"
+                          if device.type == "cuda" else "")
+    if mesh is None:
+        print(f"device: {name}")
+    else:  # every rank's, as JAX prints its mesh's devices (:438)
+        print(f"devices: {pm.gather_objects(name)} ({mesh.n_data} data x {mesh.n_model} "
+              f"model, {mesh.backend})")
     print(f"model: {cfg.model.model_type}; steps: {cfg.train.max_steps}")
     os.makedirs(opt.save_model, exist_ok=True)
 
     def ckpt_fn(state, step, _):
         path = checkpoint.save_checkpoint(opt.save_model, state, cfg, sv, tv,
-                                          keep=cfg.train.keep_checkpoints)
+                                          keep=cfg.train.keep_checkpoints, mesh=mesh)
         print(f"saved checkpoint {path}")
         if on_checkpoint is not None:
             on_checkpoint(state, path)
@@ -453,20 +498,22 @@ def main(argv=None, on_checkpoint: Optional[Callable[[TrainState, str], None]] =
     from variational_mmt_torch.utils.profiling import trace
 
     logger = (MetricsLogger(opt.metrics_log, opt.tensorboard_dir)
-              if (opt.metrics_log or opt.tensorboard_dir) else None)
+              if (opt.metrics_log or opt.tensorboard_dir) and (mesh is None or mesh.is_main)
+              else None)
     bleu_fn = None
     if opt.valid_bleu and valid_ds is not None:
         bleu_fn = greedy_bleu_fn(model, sv, tv, valid_ds, valid_feats, buckets,
-                                 cfg.train.batch_size, device)
+                                 cfg.train.batch_size, device, mesh)
     trainer = Trainer(cfg, model, train_iter, valid_iter, device=device, checkpoint_fn=ckpt_fn,
                       metrics_logger=logger, bleu_fn=bleu_fn, train_feats=train_feats,
-                      valid_feats=valid_feats, valid_iw=opt.valid_iw)
+                      valid_feats=valid_feats, valid_iw=opt.valid_iw, mesh=mesh)
     with trace(opt.profile_dir, cuda=device.type == "cuda"):
         if opt.train_from:
             path = opt.train_from
             if not os.path.exists(os.path.join(path, "state.msgpack")):
                 path = checkpoint.latest_checkpoint(path) or path
-            state = checkpoint.load_state(path, trainer.model, checkpoint.read_config(path))
+            state = checkpoint.load_state(path, trainer.model, checkpoint.read_config(path),
+                                          mesh=mesh)
             if checkpoint.is_released(path):
                 print("WARNING: resuming from a RELEASED checkpoint (its optimizer state was "
                       "stripped): the optimizer restarts from zero")
@@ -492,21 +539,27 @@ def main(argv=None, on_checkpoint: Optional[Callable[[TrainState, str], None]] =
 
 
 def greedy_bleu_fn(model, sv: Vocab, tv: Vocab, valid_ds: BinarizedDataset, valid_feats,
-                   buckets, batch_size: int, device: torch.device):
+                   buckets, batch_size: int, device: torch.device, mesh=None):
     """``-valid_bleu``: greedy decoding of the validation sources with the
-    live weights, BLEU against their targets."""
+    live weights, BLEU against their targets. Under a mesh every rank
+    decodes its rows with the state's model (its shard: the translator
+    gathers the full weights once a validation)."""
     from variational_mmt_torch.config import DecodeConfig
     from variational_mmt_torch.decode.translator import Translator
     from variational_mmt_torch.evals.bleu import corpus_bleu
 
-    translator = Translator(model, sv, tv, DecodeConfig(beam_size=1, max_length=max(buckets),
-                                                        batch_size=batch_size),
-                            buckets=buckets, device=device)
+    dcfg = DecodeConfig(beam_size=1, max_length=max(buckets), batch_size=batch_size)
+    translator = (Translator(model, sv, tv, dcfg, buckets=buckets, device=device)
+                  if mesh is None else None)
     src = [list(map(int, s)) for s in valid_ds.src]
     refs = [[tv.decode(t)] for t in valid_ds.tgt]
 
     def bleu_fn(state) -> float:
-        out = translator.translate_ids(src, valid_feats)
+        tr = translator or Translator(state.model, sv, tv, dcfg, buckets=buckets,
+                                      device=device, mesh=mesh)
+        out = tr.translate_ids(src, valid_feats)
+        if tr is not translator:
+            tr.close()
         return corpus_bleu([tv.decode(nbest[0][1]) for nbest in out], refs)["bleu"]
 
     return bleu_fn

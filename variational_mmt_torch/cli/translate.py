@@ -29,8 +29,18 @@ each batch; the checkpoints are then read into host memory, and the
 passes defined per model (``-verbose``, ``-dump_attn``, ``-iw_eval``,
 ``-latent_diag``) move the model's f32 weights to the device only when
 they run. An ensemble refuses those four options (as JAX's does).
-``-tensor_parallel`` is refused, naming its ROADMAP.md item (queue 1,
-item 5.8).
+
+Across GPUs (ROADMAP.md item 5.8), one process a GPU:
+
+    torchrun --nproc_per_node N -m variational_mmt_torch.cli.translate ... \
+        [-tensor_parallel M]
+
+decodes on N / M data x M model ranks (parallel/mesh.py): each data rank
+its rows of every batch (``-batch_size`` must divide by N / M, where JAX
+would drop to one device), the vocab split over the M model ranks, and
+rank 0 writes the n-best lists in corpus order and prints. The passes
+defined per model run on every rank with the full model (the IW bound on
+the mesh). An ensemble refuses ``-tensor_parallel``, as JAX's does.
 """
 
 from __future__ import annotations
@@ -44,7 +54,7 @@ import numpy as np
 import torch
 
 from variational_mmt_torch.cli.loading import consumes_decode_feats, load_device, load_model_spec
-from variational_mmt_torch.cli.train import cli_device
+from variational_mmt_torch.cli.train import cli_device, cli_mesh, quiet_unless_main
 from variational_mmt_torch.config import DecodeConfig
 from variational_mmt_torch.data.bpe import BPE
 from variational_mmt_torch.data.dataset import BucketIterator, binarize, buckets_with_catchall
@@ -150,12 +160,6 @@ def add_args(p: argparse.ArgumentParser) -> None:
                         "(different seeds give alternative translations)")
 
 
-def refused(opt) -> list:
-    """(flag, ROADMAP.md item) of every option set that the port refuses."""
-    table = [("-tensor_parallel", opt.tensor_parallel > 1, "queue 1, item 5.8")]
-    return [(flag, item) for flag, on, item in table if on]
-
-
 def ensemble_refused(opt) -> list:
     """The options set that an ensemble refuses: scoring, the IW bound and
     the latent diagnostics are defined per model."""
@@ -196,11 +200,23 @@ def main(argv=None) -> Dict[str, object]:
         raise SystemExit(f"{', '.join(ensemble_refused(opt))}: not supported with an ensemble "
                          "(force-decode scoring and the IW bound are defined per model); "
                          "pass a single -model")
-    bad = refused(opt)
-    if bad:
-        raise SystemExit("not ported yet: " + "; ".join(
-            f"{flag} (ROADMAP.md {item})" for flag, item in bad))
+    if "," in opt.model and opt.tensor_parallel > 1:
+        raise SystemExit("ensemble decode does not compose with tensor parallelism; use a "
+                         "data-only mesh (drop -tensor_parallel)")
     device = cli_device(opt.device)
+    mesh = cli_mesh(0, opt.tensor_parallel, device)
+    if mesh is not None and opt.batch_size % mesh.n_data:
+        mesh.close()
+        raise SystemExit(f"-batch_size {opt.batch_size} does not divide by the "
+                         f"{mesh.n_data} data-parallel ranks: every rank decodes an equal "
+                         f"share of each batch; pick a multiple of {mesh.n_data}")
+    with quiet_unless_main(mesh):
+        return translate(opt, mesh.device if mesh is not None else device, mesh)
+
+
+def translate(opt, device: torch.device, mesh) -> Dict[str, object]:
+    """The run of :func:`main` once its mesh is made (on every rank)."""
+    main_rank = mesh is None or mesh.is_main
     lm = load_model_spec(opt.model, use_ema=opt.use_ema,
                          device=load_device(device, opt.infer_dtype))
     cfg, sv, tv = lm.cfgs[0], lm.src_vocab, lm.tgt_vocab
@@ -250,8 +266,10 @@ def main(argv=None) -> Dict[str, object]:
     buckets = cfg.data.buckets or DEFAULT_BUCKETS
     if lm.ensemble:
         print(f"ensemble of {len(lm.models)} checkpoints ({opt.ensemble_mode})")
+    if mesh is not None:  # JAX's line (:198, :203)
+        print(f"decode over ({mesh.n_data} data x {mesh.n_model} model) mesh, {mesh.backend}")
     translator = Translator(lm.translator_args(), sv, tv, dcfg, buckets=buckets,
-                            device=device)
+                            device=device, mesh=mesh)
     if opt.phrase_table:
         if not opt.replace_unk:
             raise SystemExit("-phrase_table is only consulted by -replace_unk; "
@@ -273,12 +291,13 @@ def main(argv=None) -> Dict[str, object]:
     mode = (f"mbr {opt.mbr_samples} samples" if opt.mbr_samples > 0 else
             "sampling" if opt.sampling_temp > 0 else f"beam {opt.beam_size}")
     print(f"translated {len(results)} sentences in {dt:.1f}s ({rate:.1f} sent/s, {mode})")
-    with open(opt.output, "w", encoding="utf-8") as f:
-        for sent in results:
-            for entry in sent[:opt.n_best]:
-                f.write(entry[1] + "\n")
+    if main_rank:
+        with open(opt.output, "w", encoding="utf-8") as f:
+            for sent in results:
+                for entry in sent[:opt.n_best]:
+                    f.write(entry[1] + "\n")
     print(f"wrote {opt.output}")
-    if opt.dump_beam:
+    if opt.dump_beam and main_rank:
         with open(opt.dump_beam, "w", encoding="utf-8") as f:
             json.dump({str(i): translator.beam_traces[i]
                        for i in sorted(translator.beam_traces)}, f)
@@ -298,7 +317,7 @@ def main(argv=None) -> Dict[str, object]:
         pred_lp, pred_nt, attns = score_corpus(model(), src_ids, [n[0][1] for n in nbest], feats,
                                                buckets=buckets, batch_size=opt.batch_size,
                                                return_attn=True)
-        if opt.dump_attn:
+        if opt.dump_attn and main_rank:
             np.savez(opt.dump_attn, **{f"attn_{i}": a for i, a in enumerate(attns)})
             print(f"wrote attention matrices for {len(attns)} sentences -> {opt.dump_attn}")
     if opt.verbose:
@@ -349,14 +368,17 @@ def main(argv=None) -> Dict[str, object]:
                 print(f"note: {flag} skipped — defined for latent models "
                       f"only (checkpoint is {cfg.model.model_type})")
         if (opt.iw_eval > 0 or opt.latent_diag) and lm.models[0].is_latent:
-            report.update(latent_evals(opt, model(), src_ids, gold_ids, feats, buckets, device))
+            report.update(latent_evals(opt, model(), src_ids, gold_ids, feats, buckets, device,
+                                       mesh))
     return report
 
 
-def latent_evals(opt, model, src_ids, gold_ids, feats, buckets, device) -> Dict[str, object]:
+def latent_evals(opt, model, src_ids, gold_ids, feats, buckets, device,
+                 mesh=None) -> Dict[str, object]:
     """``-iw_eval`` and ``-latent_diag`` over the (source, gold target)
     pairs; prints JAX's lines and returns {"iw": ..., "iw_s": seconds of the
-    IW pass, "latent_diag": ...} for what ran."""
+    IW pass, "latent_diag": ...} for what ran. The IW pass runs on
+    ``mesh`` when given."""
     from variational_mmt_torch.decode.diagnostics import latent_stats_corpus
     from variational_mmt_torch.decode.iw_eval import iw_elbo_corpus
 
@@ -375,7 +397,7 @@ def latent_evals(opt, model, src_ids, gold_ids, feats, buckets, device) -> Dict[
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         sync()
         t0 = time.time()
-        iw = iw_elbo_corpus(model, batches(), opt.iw_eval, seed=opt.seed)
+        iw = iw_elbo_corpus(model, batches(), opt.iw_eval, seed=opt.seed, mesh=mesh)
         sync()
         out.update(iw=iw, iw_s=time.time() - t0)
         print(f"IW-ELBO (K={opt.iw_eval}): joint {iw['iw_elbo_per_sent']:.2f} / "

@@ -7,10 +7,9 @@ Mirrors ``variational_mmt_tpu/config.py``: ``ModelConfig`` (:30-109),
 JSON config or a checkpoint's ``config.json`` reads and writes the same in
 both packages.
 
-Every ``TrainConfig`` field is read by the port's trainer and CLI except
-the mesh's: :meth:`TrainConfig.check_supported` refuses
-``num_model_shards > 1`` and ``num_data_shards > 1`` with
-``NotImplementedError`` (ROADMAP.md queue 1, item 5.8).
+Every ``TrainConfig`` field is read by the port's trainer and CLI. The
+mesh's, ``num_data_shards`` (0: every rank) and ``num_model_shards``,
+shape the ``torchrun`` ranks' mesh (parallel/mesh.py, cli/train.py).
 ``steps_per_call`` is a TPU dispatch knob (optimizer steps per jit call)
 and is accepted and ignored: each ``Trainer`` step is one optimizer step.
 """
@@ -120,20 +119,14 @@ class TrainConfig:
     checkpoint_every: int = 1000
     keep_checkpoints: int = 3
     data_axis: str = "data"
-    num_data_shards: int = 0  # refused above 1 (one card)
-    num_model_shards: int = 1  # refused above 1
+    num_data_shards: int = 0  # data-parallel ranks (0: WORLD_SIZE // num_model_shards)
+    num_model_shards: int = 1  # vocab-parallel ranks (parallel/tp.py)
 
     def check_supported(self) -> None:
-        """Raise NotImplementedError for every set option the port's
-        trainer does not implement yet."""
-        unsupported = [
-            ("num_model_shards > 1", self.num_model_shards > 1),
-            ("num_data_shards > 1", self.num_data_shards > 1),
-        ]
-        bad = [name for name, on in unsupported if on]
-        if bad:
-            raise NotImplementedError(f"not ported yet: {', '.join(bad)} "
-                                      "(ROADMAP.md queue 1, item 5.8)")
+        """Raise ValueError for shard counts no mesh can have."""
+        if self.num_data_shards < 0 or self.num_model_shards < 1:
+            raise ValueError(f"num_data_shards ({self.num_data_shards}) must be >= 0 and "
+                             f"num_model_shards ({self.num_model_shards}) >= 1")
 
 
 @dataclass

@@ -69,7 +69,10 @@ def align_to_vocab(vecs: Dict[str, np.ndarray], itos: Sequence[str],
 def apply_pretrained(model: VMMTModel, enc: Optional[np.ndarray] = None,
                      dec: Optional[np.ndarray] = None) -> VMMTModel:
     """Copy ``enc`` into the source table and ``dec`` into the target
-    table of ``model``, in place; returns the model."""
+    table of ``model``, in place (a vocab-parallel model takes its rows of
+    them); returns the model."""
+    from variational_mmt_torch.parallel import tp
+
     tables = dict(model.named_parameters())
     for name, table in (("src_embed", enc), ("tgt_embed", dec)):
         if table is None:
@@ -79,10 +82,13 @@ def apply_pretrained(model: VMMTModel, enc: Optional[np.ndarray] = None,
             raise ValueError(f"model has no '{name}' table (share_embeddings ties both "
                              "sides to 'tgt_embed': load it with -pre_word_vecs_dec)")
         cur = tables[key]
-        if tuple(table.shape) != tuple(cur.shape):
+        full = (tuple(cur.shape) if model.vocab_mesh is None else
+                (cur.shape[0] * model.vocab_mesh.n_model, cur.shape[1]))
+        if tuple(table.shape) != full:
             raise ValueError(f"{name}: pretrained table {tuple(table.shape)} != model "
-                             f"{tuple(cur.shape)} (rebuild the .npy against this run's "
+                             f"{full} (rebuild the .npy against this run's "
                              "vocab and emb_dim)")
         with torch.no_grad():
-            cur.copy_(torch.from_numpy(np.asarray(table, np.float32)))
+            cur.copy_(tp.shard_tensor(key, torch.from_numpy(np.asarray(table, np.float32)),
+                                      model.vocab_mesh))
     return model

@@ -149,10 +149,18 @@ def land(staged: Staged, table: Optional[torch.Tensor] = None) -> Dict[str, torc
 
 
 def device_batches(it: Iterator, device: torch.device, table: Optional[torch.Tensor] = None,
-                   size: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                   size: int = 2, mesh=None) -> Iterator[Dict[str, torch.Tensor]]:
     """The batches of ``it`` as tensors on ``device``, prefetched ``size``
     ahead (``trainer.batch_tensors`` of each, gathered from ``table`` when
-    given). Closing this generator releases the worker."""
+    given). With ``mesh`` (parallel/mesh.py) each host batch is cut to this
+    data rank's rows before its copy (``shard_batch``, as JAX's
+    ``_device_batches`` shards it, trainer.py:479-541), so a rank copies,
+    and gathers features for, its own rows only. Closing this generator
+    releases the worker."""
+    if mesh is not None:
+        from variational_mmt_torch.parallel.mesh import shard_batch
+
+        it = (shard_batch(b, mesh) for b in it)
     stream = torch.cuda.Stream(device) if device.type == "cuda" else None
     with_indices = table is not None
     staged = prefetch(it, size, transform=lambda b: stage(b, device, stream, with_indices))

@@ -36,6 +36,17 @@ single-thread executor that sets the CUDA device and runs under
 ``inference_mode``) and returns at once; ``finalize_ids`` waits on its
 futures. Host code maps text to ids, buckets the corpus and regroups the
 n-best lists in corpus order.
+
+``mesh`` (parallel/mesh.py; JAX :381-419, :492-515): every rank of it
+builds the Translator from the same full weights and calls the same
+methods with the same corpus. Each data rank decodes its rows of every
+batch, as JAX shards the batch, and the n-best lists are gathered to
+every rank, in corpus order. With several model ranks the weights are
+this rank's vocab-parallel shard (int8 codes and scales sharded by the
+tensors' rules, after quantizing the full tensors, as JAX does), each
+step's logits are gathered to the full V before ``log_softmax``, and the
+search then runs as on one device. An ensemble does not compose with
+tensor parallelism (JAX's refusal).
 """
 
 from __future__ import annotations
@@ -58,13 +69,13 @@ from variational_mmt_torch.decode.streams import DecodeStreams
 from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.models.decoder import fused_step_eligible
 from variational_mmt_torch.models.model import VMMTModel
+from variational_mmt_torch.parallel import mesh as pm, tp
 from variational_mmt_torch.ops.beam import (beam_search, greedy_search, sampling_search,
                                             tree_map)
 
 def check_supported(d: DecodeConfig) -> None:
     """Raise NotImplementedError for the decode options the port does not
-    do (a device mesh, ROADMAP.md queue 1, item 5.8, is refused by
-    ``Translator``)."""
+    do."""
     if d.pallas_step not in (0, 1, 2):
         raise NotImplementedError(f"decode option not ported yet: pallas_step={d.pallas_step}")
 
@@ -261,7 +272,8 @@ class Translator:
     parameterless copies of the members; the models are left as they are
     (a model in host memory stays there). ``streams`` builds each
     batch's random draws from (seed, stream ids); a test may replace it
-    with a source of the JAX package's draws."""
+    with a source of the JAX package's draws. ``mesh``: decode across ranks
+    (module docstring); the device is then ``mesh.device``."""
 
     streams = DecodeStreams
     # corpus path: dispatched batches in flight at once (JAX :562-569)
@@ -271,10 +283,23 @@ class Translator:
                  dcfg: Optional[DecodeConfig] = None,
                  buckets: Sequence[int] = (16, 24, 32, 48, 64), mesh=None, device=None,
                  params=None):
-        if mesh is not None:
-            raise NotImplementedError("mesh (multi-device decode) is not ported yet "
-                                      "(ROADMAP.md queue 1, item 5.8)")
         models = list(model) if isinstance(model, (list, tuple)) else [model]
+        if mesh is not None:
+            if not isinstance(mesh, pm.Mesh):
+                raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh), got "
+                                f"{type(mesh).__name__}")
+            if mesh.n_model > 1 and len(models) > 1:
+                raise ValueError("ensemble decode does not compose with tensor "
+                                 "parallelism; use a data-only mesh")
+            b = (dcfg or DecodeConfig()).batch_size
+            if b % mesh.n_data:
+                raise ValueError(f"decode batch_size {b} must divide by the data-parallel "
+                                 f"degree {mesh.n_data}")
+            for m in models:
+                tp.validate_tp_divisibility(m.cfg, mesh.n_model)
+            device = mesh.device if device is None else device
+        self.mesh = mesh
+        vm = tp.vocab_mesh(mesh)
         if isinstance(params, (list, tuple)):
             if len(params) != len(models):
                 raise ValueError(f"{len(models)} ensemble members but {len(params)} "
@@ -325,11 +350,13 @@ class Translator:
         self.device = resolve_device(device)
         # parameterless copies: each call lends them the translator's weights
         with torch.device("meta"):
-            self.models = [VMMTModel(m.cfg).eval() for m in models]
+            self.models = [VMMTModel(m.cfg, vm).eval() for m in models]
         held: Dict[int, Dict[str, object]] = {}  # a model given twice is held once
         self.weights: List[Dict[str, object]] = []
         for j, m in enumerate(models):
             state = m.state_dict() if params is None else params[j]
+            if params is None and m.vocab_mesh is not None:
+                state = tp.gather_params(state, m.vocab_mesh)  # a shard: the full weights
             names = set(self.models[j].state_dict())
             if set(state) != names:
                 raise KeyError(f"member {j}: parameter names differ from its model's: "
@@ -352,11 +379,14 @@ class Translator:
     def _own_weights(self, state: Mapping, dtype_name: str) -> Dict[str, object]:
         """One member's weights at ``dtype_name`` on the device, cast where
         ``state`` lies (only the cast copy reaches the device; float32
-        tensors already there are used as they are)."""
+        tensors already there are used as they are); under a mesh of
+        several model ranks, this rank's shard of the cast weights."""
         state = {k: torch.as_tensor(v).detach() for k, v in state.items()}
+        cast = tp.shard_params(cast_params_for_inference(state, dtype_name),
+                               tp.vocab_mesh(self.mesh))
         return {k: ({q: t.to(self.device) for q, t in v.items()} if isinstance(v, dict)
                     else v.to(self.device))
-                for k, v in cast_params_for_inference(state, dtype_name).items()}
+                for k, v in cast.items()}
 
     def weight_bytes(self) -> int:
         """Bytes of the weights the translator holds between calls."""
@@ -438,6 +468,8 @@ class Translator:
                             img_feats=img_feats)
         device = self._device_thread()
         for batch in it.epoch(0):
+            if self.mesh is not None:  # this data rank's rows
+                batch = pm.shard_batch(batch, self.mesh)
             yield batch, device.submit(self._run_batch, batch, seed, streams)
 
     def finalize_ids(self, pending: "PendingTranslation") -> List[List[tuple]]:
@@ -447,7 +479,19 @@ class Translator:
         results: dict = {}
         for batch, out in pending.batches:
             self._finalize_batch(batch, out, results)
+        results = self._gathered(results)
         return [results[i] for i in range(pending.n)]
+
+    def _gathered(self, results: dict) -> dict:
+        """Under a mesh of several data ranks, every rank's n-best lists
+        (and search trees) merged, on every rank."""
+        if self.mesh is None or self.mesh.n_data == 1:
+            return results
+        merged: dict = {}
+        for part, traces in pm.gather_objects((results, self.beam_traces)):
+            merged.update(part)
+            self.beam_traces.update(traces)
+        return merged
 
     def _finalize_batch(self, batch, out: Future, results: dict) -> None:
         """Host postprocessing of one dispatched batch into ``results``."""
@@ -491,6 +535,7 @@ class Translator:
                 self._finalize_batch(*window.popleft(), results)
         while window:
             self._finalize_batch(*window.popleft(), results)
+        results = self._gathered(results)
         return [results[i] for i in range(len(src_ids))]
 
     def nbest_to_text(self, nbest: List[tuple], src_tokens: Optional[List[str]] = None,

@@ -8,6 +8,11 @@ renames, and their dtype rule: with ``dtype`` set, the input, the f32
 kernel and the bias are all cast to ``dtype`` before the product.
 Parameters are created uninitialized; they come from
 ``convert.params_from_jax`` or ``models.model.init_params``.
+
+Given a mesh of more than one model rank, ``Embed`` holds its rank's
+V/n rows and looks up vocab-parallel (parallel/tp.py): ids outside the
+shard read row 0, their rows are zeroed, and the sum over the model group
+is each id's row.
 """
 
 from __future__ import annotations
@@ -35,11 +40,21 @@ class Dense(nn.Module):
 
 
 class Embed(nn.Module):
-    def __init__(self, num_embeddings: int, features: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, num_embeddings: int, features: int, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         super().__init__()
         self.dtype = dtype
-        self.embedding = nn.Parameter(torch.empty(num_embeddings, features))
+        self.mesh = mesh  # vocab-parallel over its model group (tp.vocab_mesh)
+        rows = num_embeddings // mesh.n_model if mesh is not None else num_embeddings
+        self.embedding = nn.Parameter(torch.empty(rows, features))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         # gather, then cast: the same values as casting the table first
-        return nn.functional.embedding(ids, self.embedding).to(self.dtype)
+        if self.mesh is None:
+            return nn.functional.embedding(ids, self.embedding).to(self.dtype)
+        from variational_mmt_torch.parallel import tp
+
+        loc, own = tp.local_ids(ids, self.embedding.shape[0], self.mesh)
+        rows = nn.functional.embedding(loc, self.embedding)
+        rows = torch.where(own[..., None], rows, torch.zeros_like(rows))
+        return tp.reduce_from_model(rows, self.mesh).to(self.dtype)

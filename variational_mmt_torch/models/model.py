@@ -27,6 +27,13 @@ Randomness (dropout, word dropout, the reparameterization noise) comes from
 an explicit ``torch.Generator`` passed to ``forward``; JAX's named rng
 streams cannot be reproduced, so parity tests run deterministic, with
 ``sample=False``.
+
+``VMMTModel(cfg, mesh=...)`` with more than one model rank is this rank's
+vocab-parallel shard (parallel/tp.py): the embedding tables hold V/n rows,
+the generator V/n columns (``tgt_embed``'s rows when tied), and
+``vocab_mesh`` is the mesh; the training forward's logits (or, with
+``fused_ce``, the loss) are the shard's, and ``decode_step`` gathers each
+step's logits to the full V. The rest of the model is replicated.
 """
 
 from __future__ import annotations
@@ -60,24 +67,26 @@ def check_supported(c: ModelConfig) -> None:
 
 
 class VMMTModel(nn.Module):
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, mesh=None):
         super().__init__()
         check_supported(cfg)
         c = self.cfg = cfg
         dt = self.dt = DTYPES[c.compute_dtype]
         H, E = c.hidden_dim, c.emb_dim
-        self.tgt_embed = Embed(c.tgt_vocab_size, E, dt)
+        vm = self.vocab_mesh = mesh if mesh is not None and mesh.n_model > 1 else None
+        Vl = c.tgt_vocab_size // vm.n_model if vm is not None else c.tgt_vocab_size
+        self.tgt_embed = Embed(c.tgt_vocab_size, E, dt, vm)
         if not c.share_embeddings:  # shared: source ids look up tgt_embed
-            self.src_embed = Embed(c.src_vocab_size, E, dt)
+            self.src_embed = Embed(c.src_vocab_size, E, dt, vm)
         self.encoder = BiGRUEncoder(E, H, c.enc_layers, dt, c.use_pallas, c.dropout,
                                     c.rnn_type, "encoder")
         self.decoder = GRUDecoder(E, H, c.dec_layers, c.attn_type, dt, c.dropout,
                                   c.use_pallas, c.pallas_decoder, c.fused_decoder,
                                   c.input_feed, c.rnn_type)
         if c.share_decoder_embeddings:
-            self.gen_bias = nn.Parameter(torch.empty(c.tgt_vocab_size))
+            self.gen_bias = nn.Parameter(torch.empty(Vl))
         else:
-            self.generator = Dense(H, c.tgt_vocab_size, dtype=dt)
+            self.generator = Dense(H, Vl, dtype=dt)
         # the bridge reads [final; z] for latent models, the final alone for
         # nmt; an LSTM final is [h | c], (B, 2H)
         final_dim = 2 * H if c.rnn_type == "lstm" else H
@@ -165,7 +174,12 @@ class VMMTModel(nn.Module):
 
     def _gen(self, h: torch.Tensor) -> torch.Tensor:
         """Generator logits in f32 (tied or free kernel): the GEMM in the
-        compute dtype, then a cast."""
+        compute dtype, then a cast. Vocab-parallel: this rank's V/n
+        columns, the input's gradient summed over the model group."""
+        if self.vocab_mesh is not None:
+            from variational_mmt_torch.parallel import tp
+
+            h = tp.copy_to_model(h, self.vocab_mesh)
         if self.cfg.share_decoder_embeddings:
             w = self.tgt_embed.embedding.to(self.dt)
             return (h @ w.t()).float() + self.gen_bias
@@ -186,7 +200,12 @@ class VMMTModel(nn.Module):
         carry, (attn_h, align) = self.decoder.one_step(
             carry, self.tgt_embed(tok), memory, src_mask,
             extra_input_proj=self.z_extra_proj(z), keys=keys, weights=weights)
-        return carry, self._gen(attn_h), align
+        logits = self._gen(attn_h)
+        if self.vocab_mesh is not None:  # the full V: the search runs as on one device
+            from variational_mmt_torch.parallel import tp
+
+            logits = tp.gather_vocab(logits, self.vocab_mesh)
+        return carry, logits, align
 
     def project_memory(self, memory: torch.Tensor, with_values: bool = False):
         """The decoder's attention keys; ``with_values`` also ``mem_v``, for
@@ -333,12 +352,27 @@ class VMMTModel(nn.Module):
         return out
 
 
-def build_model(cfg: ModelConfig, device=None) -> VMMTModel:
+def build_model(cfg: ModelConfig, device=None, mesh=None) -> VMMTModel:
     """The model on ``device`` (default cuda; raises without CUDA unless
     ``device='cpu'``), parameters uninitialized: load them with
-    ``load_state_dict(convert.params_from_jax(tree, cfg))``."""
+    ``load_state_dict(convert.params_from_jax(tree, cfg))`` (through
+    ``parallel.tp.shard_params`` for a ``mesh`` of several model ranks)."""
     dev = resolve_device(device)
-    return VMMTModel(cfg).to(dev)
+    return VMMTModel(cfg, mesh).to(dev)
+
+
+def shard_model(model: VMMTModel, mesh) -> VMMTModel:
+    """``model`` itself when ``mesh`` shards nothing (one model rank) or it
+    is sharded already, else a new model on ``mesh.device`` holding this
+    rank's shard of ``model``'s parameters (parallel/tp.py)."""
+    from variational_mmt_torch.parallel import tp
+
+    if tp.vocab_mesh(mesh) is None or model.vocab_mesh is not None:
+        return model
+    tp.validate_tp_divisibility(model.cfg, mesh.n_model)
+    out = VMMTModel(model.cfg, mesh).to(mesh.device)
+    out.load_state_dict(tp.shard_params(model.state_dict(), mesh))
+    return out
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:

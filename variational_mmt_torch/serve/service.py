@@ -82,13 +82,19 @@ class TranslationService:
     / :meth:`translate_text`; one worker dispatches to the translator's
     device thread. ``model`` is a model or a list of them (an ensemble,
     whose vocabs and vmmt_c image interfaces the caller has checked);
-    ``device`` is the Translator's (cuda unless 'cpu')."""
+    ``device`` is the Translator's (cuda unless 'cpu'). ``mesh`` is refused:
+    serving across ranks needs every rank to follow rank 0's batches
+    (ROADMAP.md queue 1, item 5.10)."""
 
     def __init__(self, model, src_vocab: Vocab, tgt_vocab: Vocab,
                  dcfg: Optional[DecodeConfig] = None,
                  buckets: Sequence[int] = (16, 24, 32, 48, 64),
                  scfg: Optional[ServeConfig] = None, bpe: Optional[BPE] = None, mesh=None,
                  device=None):
+        if mesh is not None:
+            raise NotImplementedError("serving across ranks is not ported yet: the other "
+                                      "ranks would wait in rank 0's collectives "
+                                      "(ROADMAP.md queue 1, item 5.10)")
         self.dcfg = dcfg or DecodeConfig()
         self.scfg = scfg or ServeConfig()
         # resolved once, so the worker and the stats report one mode

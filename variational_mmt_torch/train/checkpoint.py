@@ -25,6 +25,16 @@ bytes ``flax.serialization.msgpack_serialize`` writes (train/msgpack_io.py):
 
 A released checkpoint (``release_checkpoint``) has no optimizer state and
 loads with a fresh one.
+
+Under a mesh (parallel/mesh.py) the file is the same, with full tensors,
+so JAX and a single-process run read it: every rank joins the gather of
+the vocab-sharded leaves (parameters, optimizer moments, EMA) over its
+model group, rank 0 writes, and a barrier follows. ``torch_generators``
+adds every data rank's generator state (one row a data rank;
+``torch_generator`` is data rank 0's). Loading reads the file on every
+rank and keeps its shard; a run that resumes with as many data ranks as
+the checkpoint's takes its own generator state, any other reseeds each
+data rank (``trainer.train_seed``) and says so.
 """
 
 from __future__ import annotations
@@ -42,12 +52,14 @@ from variational_mmt_torch.convert import flatten, params_from_jax, unflatten
 from variational_mmt_torch.data.vocab import Vocab
 from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.models.model import VMMTModel, build_model
+from variational_mmt_torch.parallel import mesh as pm, tp
 from variational_mmt_torch.train import msgpack_io
 from variational_mmt_torch.train.optim import STATE_FIELDS, Optimizer
-from variational_mmt_torch.train.trainer import TrainState, f32
+from variational_mmt_torch.train.trainer import TrainState, f32, train_seed
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 GENERATOR_KEY = "torch_generator"
+GENERATORS_KEY = "torch_generators"
 
 
 def base_key(seed: int) -> np.ndarray:
@@ -63,30 +75,51 @@ def _opt_core_index(cfg: Config) -> str:
     return "1" if cfg.train.max_grad_norm > 0 else "0"
 
 
-def state_tree(state: TrainState, cfg: Config) -> dict:
-    """The tree that ``state.msgpack`` holds (module docstring)."""
+def state_tree(state: TrainState, cfg: Config, mesh: Optional[pm.Mesh] = None) -> dict:
+    """The tree that ``state.msgpack`` holds (module docstring); with
+    ``mesh``, a collective that every rank must join."""
     names = [n for n, _ in state.model.named_parameters()]
+    vm = state.model.vocab_mesh
+
+    def full(tensors):
+        return tp.gather_list(names, tensors, vm)
+
     core = {}
     for field in STATE_FIELDS[cfg.train.optimizer]:
         v = state.opt_state[field]
         core[field] = (np.asarray(int(v), np.int32) if field == "count"
-                       else _tree(names, v))
+                       else _tree(names, full(v)))
     parts = ([{}] if cfg.train.max_grad_norm > 0 else []) + (
         [core] if cfg.train.optimizer != "sgd" else [])
-    raw = {"params": _tree(names, [p for _, p in state.model.named_parameters()]),
+    raw = {"params": _tree(names, full([p for _, p in state.model.named_parameters()])),
            "opt_state": {str(i): p for i, p in enumerate(parts)},
            "step": np.asarray(state.step, np.int32), "lr": np.asarray(state.lr, np.float32),
            "rng": base_key(cfg.train.seed)}
     if state.ema is not None:
-        raw["ema_params"] = _tree(names, state.ema)
+        raw["ema_params"] = _tree(names, full(state.ema))
     if state.generator is not None:
         raw[GENERATOR_KEY] = state.generator.get_state().numpy()
+    if mesh is not None:
+        # every data rank's state, model rank 0's of each (one model group
+        # draws the same)
+        ranks = pm.gather_objects((mesh.data_rank, mesh.model_rank, raw.get(GENERATOR_KEY)))
+        states = [g for _, m, g in sorted(ranks, key=lambda r: r[:2]) if m == 0]
+        if all(g is not None for g in states):
+            raw[GENERATORS_KEY] = np.stack(states)
+            raw[GENERATOR_KEY] = states[0]
     return raw
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState, cfg: Config, src_vocab: Vocab,
-                    tgt_vocab: Vocab, keep: int = 3) -> str:
+                    tgt_vocab: Vocab, keep: int = 3, mesh: Optional[pm.Mesh] = None) -> str:
+    """Write ``state`` as ``<ckpt_dir>/step_<step>`` and return the path.
+    With ``mesh`` every rank must call it: the sharded leaves are gathered,
+    rank 0 writes, and every rank waits for the write."""
+    raw = state_tree(state, cfg, mesh)
     path = os.path.join(ckpt_dir, f"step_{state.step:08d}")
+    if mesh is not None and not mesh.is_main:
+        pm.barrier(mesh)
+        return path
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     with open(os.path.join(tmp, "config.json"), "w") as f:
@@ -94,11 +127,13 @@ def save_checkpoint(ckpt_dir: str, state: TrainState, cfg: Config, src_vocab: Vo
     src_vocab.save(os.path.join(tmp, "vocab.src.json"))
     tgt_vocab.save(os.path.join(tmp, "vocab.tgt.json"))
     with open(os.path.join(tmp, "state.msgpack"), "wb") as f:
-        f.write(msgpack_io.packb(state_tree(state, cfg)))
+        f.write(msgpack_io.packb(raw))
     if os.path.exists(path):
         shutil.rmtree(path)
     os.rename(tmp, path)
     _prune(ckpt_dir, keep)
+    if mesh is not None:
+        pm.barrier(mesh)
     return path
 
 
@@ -137,21 +172,28 @@ def _f32(leaf) -> np.ndarray:
     return np.asarray(leaf, np.float32)
 
 
-def _tensors(tree: dict, names: List[str], device: torch.device) -> List[torch.Tensor]:
+def _tensors(tree: dict, names: List[str], device: torch.device,
+             mesh: Optional[pm.Mesh] = None) -> List[torch.Tensor]:
     flat = flatten(tree)
     missing = sorted(set(names) - set(flat))
     if missing:
         raise KeyError(f"checkpoint tree lacks {missing}")
-    return [torch.from_numpy(_f32(flat[n]).copy()).to(device) for n in names]
+    return [tp.shard_tensor(n, torch.from_numpy(_f32(flat[n]).copy()), mesh).to(device)
+            for n in names]
 
 
-def load_state(path: str, model: VMMTModel, cfg: Config) -> TrainState:
+def load_state(path: str, model: VMMTModel, cfg: Config,
+               mesh: Optional[pm.Mesh] = None) -> TrainState:
     """The TrainState of checkpoint ``path`` for ``model`` (whose parameters
     it overwrites): ``cfg``, the checkpoint's config, decides the optimizer
-    state's layout and whether an EMA is kept."""
+    state's layout and whether an EMA is kept. With ``mesh`` every rank
+    reads the file; ``model`` is this rank's shard (``Trainer.model``) and
+    the state holds this rank's shard of every tensor."""
     raw = read_state(path)
     device = next(model.parameters()).device
-    model.load_state_dict(params_from_jax(_map_leaves(raw["params"], _f32), model.cfg))
+    vm = model.vocab_mesh
+    model.load_state_dict(tp.shard_params(
+        params_from_jax(_map_leaves(raw["params"], _f32), model.cfg), vm))
     named = list(model.named_parameters())
     names = [n for n, _ in named]
     params = [p for _, p in named]
@@ -160,17 +202,28 @@ def load_state(path: str, model: VMMTModel, cfg: Config) -> TrainState:
         core = raw["opt_state"].get(_opt_core_index(cfg), {})
         for field in STATE_FIELDS[cfg.train.optimizer]:
             opt_state[field] = (torch.tensor(int(core[field]), dtype=torch.int32, device=device)
-                                if field == "count" else _tensors(core[field], names, device))
+                                if field == "count" else _tensors(core[field], names, device, vm))
     ema = None
     if cfg.train.ema_decay > 0:
-        ema = (_tensors(raw["ema_params"], names, device) if "ema_params" in raw
+        ema = (_tensors(raw["ema_params"], names, device, vm) if "ema_params" in raw
                else [p.detach().clone() for p in params])
     generator = torch.Generator(device=device)
-    saved = raw.get(GENERATOR_KEY)
-    if saved is not None and saved.size == generator.get_state().numel():
-        generator.set_state(torch.from_numpy(np.array(saved, np.uint8)))
-    else:  # a JAX checkpoint, or one saved on another kind of device
-        generator.manual_seed(cfg.train.seed)
+    states = raw.get(GENERATORS_KEY)
+    if states is None and raw.get(GENERATOR_KEY) is not None:
+        states = [raw[GENERATOR_KEY]]  # a single process's
+    n_data = 1 if mesh is None else mesh.n_data
+    mine = None
+    if states is not None and len(states) != n_data:
+        # resumed at another data-parallel degree: every data rank reseeds
+        if mesh is None or mesh.is_main:
+            print(f"resuming a checkpoint of {len(states)} data rank(s) on {n_data}: the "
+                  "training generators are reseeded from train.seed")
+    elif states is not None:
+        mine = states[0 if mesh is None else mesh.data_rank]
+    if mine is not None and mine.size == generator.get_state().numel():
+        generator.set_state(torch.from_numpy(np.array(mine, np.uint8)))
+    else:  # reseeded, a JAX checkpoint, or one saved on another kind of device
+        generator.manual_seed(train_seed(cfg.train.seed, mesh))
     return TrainState(model=model, opt_state=opt_state, step=int(raw["step"]),
                       lr=f32(float(raw["lr"])), ema=ema, generator=generator)
 
