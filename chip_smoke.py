@@ -77,7 +77,9 @@ in PERF.md).
    must rise. Step time and target tokens/s for pallas_decoder True and
    False, four runs of 48 steps each (12 passes over the batches), in
    turns (1 0 0 1 1 0 0 1), each after one untimed pass of its route, with
-   each route's spread (max - min) / mean over its runs, and the peak
+   each route's spread (max - min) / mean over its runs, each route's MFU
+   (``utils/flops.train_step_flops`` of the batches' padded lengths over the
+   step time and NVIDIA's dense bf16 peak of 989 TFLOP/s), and the peak
    device memory.
 6. f32 training check: one batch, deterministic, no sampling; the kernel
    path (use_pallas, pallas_decoder, fused_ce) against the all-plain path
@@ -322,7 +324,37 @@ in PERF.md).
     10 steps, gathered and written by rank 0, loaded by one process,
     decodes the ranks' top-1 on at least 31. The ranks' launches are
     counted as ``parallel`` too. Prints the phase's seconds.
-18. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+18. Feature-extraction phase (``extract_phase(card, root)``, ROADMAP item
+    5.9), inside phase 10's directory: the ResNet-50 trunk
+    (``models/resnet.py``: base 64, stages 3-4-6-3, 224x224) with random
+    torchvision-layout weights (``tools/flagship.resnet_weights``, numpy
+    seed 2), images N(0, 1) already normalized (numpy seed 3). (a) 4
+    images, f32 on the card against the port's trunk on the CPU: pool5
+    and conv within 1e-4 of each output's largest entry. (b)
+    ``extract_features`` over 37 images at batch 32 (a last, partial
+    batch of 5) against each image run alone, pool5 and conv, within the
+    same 1e-4. (c) The trunk at batch 32 on images already on the card:
+    images/s and ms a batch (CUDA events, 10 calls a turn) in float32 and
+    in TF32 (cuDNN's TF32 convolutions around the trunk's own
+    ``trunk_nchw``; a finding, the entry points stay float32), in turns
+    (f32, TF32, TF32, f32), with TF32's distance from f32 and the bound
+    max(bytes / 3.35 TB/s, conv FLOPs / 67 TFLOP/s f32 or 494.7 TFLOP/s
+    TF32): bytes the images, weights and both outputs once, FLOPs 2 x the
+    multiply-adds of every convolution from the state dict's shapes. (d)
+    Where PIL is installed: 64 PNG files (numpy seed 4, 200-400 pixels a
+    side) through ``python -m variational_mmt_torch.cli.extract_features``
+    in a fresh process with PyTorch's default flags (``-weights`` an
+    ``.npz``, ``.npy`` out), equal within 1e-5 of the largest entry to the
+    same extraction in this process (TF32 off globally), so the CLI does
+    not drift to TF32; images/s of both, decoding included. Without PIL it
+    prints ``"cli": "not run: PIL is not installed"`` and goes on. (e)
+    ``save_features`` to ``.h5``: written and read back equal where h5py
+    is installed, else the error naming ``.npy``; prints which. (f) The
+    pool5 features of 32 images with the first 32 test sentences through
+    the ``Translator`` at pallas_step 1 (beam 4, max_length 60) on phase
+    10's checkpoint: well formed; rows 1 and 3 launched (counted as
+    ``extract``). Prints the phase's seconds.
+19. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
@@ -330,9 +362,9 @@ in PERF.md).
     service's, ``widths`` each kernel's numbers at the widths phase's
     shapes, ``launches_by_path`` the serving, training, packed-training,
     families, CLI, online-serving, option-check, eval, widths, ensemble,
-    preprocess, options, host-path and parallel counts) with the
-    ``host_path`` and ``parallel`` records, then the last line {"ok": true,
-    "device": {...}}.
+    preprocess, options, host-path, parallel and extract counts) with the
+    ``host_path``, ``parallel`` and ``extract`` records, then the last line
+    {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
 port's package is not beside this script, or when any phase fails.
@@ -426,6 +458,11 @@ PAR_F32_STEPS, PAR_TOL = 10, 1e-4  # phase 17 (b): f32 steps a mesh; loss, relat
 PAR_DECODE, PAR_DECODE_SEED = 32, 7  # phase 17 (b): TP-2 beam-4 sentences, request seed
 PAR_CHILD_TIMEOUT_S = 240  # phase 17 (b): the two ranks, start-up included
 PAR_ROWS = ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd")
+EXTRACT_CHECK, EXTRACT_BATCH, EXTRACT_PARTIAL = 4, 32, 37  # phase 18 (a), (b)
+EXTRACT_TOL, EXTRACT_CLI_TOL = 1e-4, 1e-5  # relative to each output's largest entry
+EXTRACT_TURNS, EXTRACT_ITERS = ("f32", "tf32", "tf32", "f32"), 10  # phase 18 (c)
+EXTRACT_CLI_IMAGES, EXTRACT_SENT = 64, 32  # phase 18 (d), (f)
+H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak (NVIDIA data sheet, SXM)
 
 
 def fail(msg: str) -> None:
@@ -1118,6 +1155,7 @@ def trainer_for(cfg, state, batches, **model_over):
 def train_phase(card: str, cfg, state):
     """Trainer steps at full width; returns (launches, step numbers)."""
     from variational_mmt_torch.ops import decoder as dec, gru_scan
+    from variational_mmt_torch.utils import flops
 
     batches = train_batches(cfg)
     print(f"train: {len(batches)} batches of {TRAIN_BATCH} pairs, "
@@ -1147,6 +1185,10 @@ def train_phase(card: str, cfg, state):
     print(f"train: peak device memory {peak / 2**20:.1f} MiB "
           f"(torch.cuda.max_memory_allocated, pallas_decoder=True, {card})")
 
+    # a timed run is whole passes over the batches: its mean step does the
+    # batches' mean FLOPs
+    step_flops = float(np.mean([flops.train_step_flops(cfg.model, b.batch_size, b.src.shape[1],
+                                                       b.tgt_in.shape[1]) for b in batches]))
     runs = {True: [], False: []}
     for p in TIMED_ORDER:
         trainers[p].train(TRAIN_BATCHES)  # untimed: no run starts cold after the other route
@@ -1161,9 +1203,11 @@ def train_phase(card: str, cfg, state):
         ms = float(np.mean(ms_runs))
         tok = float(np.mean([r[1] for r in runs[p]]))
         spread = (max(ms_runs) - min(ms_runs)) / ms
+        mfu = step_flops / (ms / 1e3) / flops.H100_SXM_BF16_DENSE_PEAK
         steps[f"pallas_decoder={int(p)}"] = {"step_ms": ms, "tgt_tok_per_s": tok,
-                                             "spread": spread, "runs_ms": ms_runs}
+                                             "spread": spread, "runs_ms": ms_runs, "mfu": mfu}
         print(f"train: pallas_decoder={int(p)}: {ms:.2f} ms/step, {tok:.1f} target tok/s, "
+              f"MFU {mfu:.4f} ({step_flops / 1e9:.1f} GFLOP a step over 989 TFLOP/s), "
               f"spread {spread:.1%} (runs {', '.join(f'{a:.2f}' for a in ms_runs)} ms; "
               f"batch {TRAIN_BATCH}, {TIMED_STEPS} steps per run, {card})")
     steps["peak_mem_mib"] = peak / 2**20
@@ -3510,6 +3554,228 @@ def parallel_phase(card: str, cfg, state):
     return launches, rec
 
 
+def resnet_conv_flops(sd: dict, stages, n_images: int, size: int = 224) -> float:
+    """2 x the multiply-adds of every convolution of the trunk over
+    ``n_images`` of size x size, from the state dict's kernel shapes."""
+    out = lambda r, k, stride, pad: (r + 2 * pad - k) // stride + 1  # noqa: E731
+
+    def conv(key, r_out):
+        o, i, kh, kw = sd[key].shape
+        return 2.0 * o * i * kh * kw * r_out * r_out
+
+    r = out(size, 7, 2, 3)
+    total = conv("conv1.weight", r)
+    r = out(r, 3, 2, 1)  # maxpool
+    for si, n_blocks in enumerate(stages, start=1):
+        for bi in range(n_blocks):
+            p, stride = f"layer{si}.{bi}", 2 if (si > 1 and bi == 0) else 1
+            r_mid = out(r, 3, stride, 1)
+            total += conv(f"{p}.conv1.weight", r) + conv(f"{p}.conv2.weight", r_mid) \
+                + conv(f"{p}.conv3.weight", r_mid)
+            if f"{p}.downsample.0.weight" in sd:
+                total += conv(f"{p}.downsample.0.weight", r_mid)
+            r = r_mid
+    return total * n_images
+
+
+def extract_phase(card: str, root: str):
+    """Image features on the card (module docstring, phase 18), in phase
+    10's directory ``root``. Returns ({kernel: launches of step (f)},
+    record)."""
+    import importlib.util
+
+    from variational_mmt_torch.cli.extract_features import LazyImages
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.data.features import load_features, save_features
+    from variational_mmt_torch.decode.translator import Translator
+    from variational_mmt_torch.models import resnet
+    from variational_mmt_torch.tools import flagship
+    from variational_mmt_torch.train import checkpoint as ck
+
+    t_phase = time.time()
+    rec = {}
+    sd = flagship.resnet_weights()
+    stages = resnet.stage_sizes(sd)
+    n_params = sum(v.size for v in sd.values())
+    trunk = resnet.ResNetTrunk(sd, device="cuda")
+    rng = np.random.default_rng(3)
+    images = rng.standard_normal((EXTRACT_PARTIAL, 224, 224, 3), np.float32)
+    print(f"extract: ResNet-50 stages {stages}, {n_params} weights (numpy seed 2), "
+          f"{EXTRACT_PARTIAL} 224x224 images (numpy seed 3)")
+
+    def rel(got, want) -> float:
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    # (a) the card's float32 against the port's trunk on the CPU
+    with torch.inference_mode():
+        card_out = [t.cpu().numpy() for t in trunk(torch.from_numpy(images[:EXTRACT_CHECK]))]
+        cpu_out = [t.numpy() for t in resnet.ResNetTrunk(sd, device="cpu")(
+            torch.from_numpy(images[:EXTRACT_CHECK]))]
+    rec["card_vs_cpu"] = {k: rel(a, b) for k, a, b in zip(("pool5", "conv"), card_out, cpu_out)}
+    print(f"extract (a): f32 card vs CPU on {EXTRACT_CHECK} images, max |diff| / max |CPU|: "
+          f"pool5 {rec['card_vs_cpu']['pool5']:.3e}, conv {rec['card_vs_cpu']['conv']:.3e} "
+          f"(tolerance {EXTRACT_TOL}); shapes {card_out[0].shape}, {card_out[1].shape}")
+    if card_out[0].shape != (EXTRACT_CHECK, 2048) or card_out[1].shape != (EXTRACT_CHECK, 49, 2048):
+        fail("phase 18 (a): wrong feature shapes")
+    if not all(np.isfinite(a).all() for a in card_out) or \
+            max(rec["card_vs_cpu"].values()) > EXTRACT_TOL:
+        fail("phase 18 (a): the card's features disagree with the CPU's")
+
+    # (b) rows of a batch of 32 and of a last partial batch against each
+    # image run alone
+    rec["alignment"] = {}
+    feats = {}
+    for feat_type in ("pool5", "conv"):
+        feats[feat_type] = resnet.extract_features(sd, images, feat_type, EXTRACT_BATCH,
+                                                   device="cuda")
+        alone = resnet.extract_features(sd, images, feat_type, 1, device="cuda")
+        rec["alignment"][feat_type] = rel(feats[feat_type], alone)
+    print(f"extract (b): {EXTRACT_PARTIAL} images at batch {EXTRACT_BATCH} (a last batch of "
+          f"{EXTRACT_PARTIAL - EXTRACT_BATCH}) against each alone: pool5 "
+          f"{rec['alignment']['pool5']:.3e}, conv {rec['alignment']['conv']:.3e} "
+          f"(tolerance {EXTRACT_TOL})")
+    if max(rec["alignment"].values()) > EXTRACT_TOL:
+        fail("phase 18 (b): a row depends on the other images of its batch")
+
+    # (c) the trunk's speed at batch 32, float32 and TF32 in turns
+    x = torch.from_numpy(images[:EXTRACT_BATCH]).cuda()
+    x_nchw = x.permute(0, 3, 1, 2)
+
+    def f32():
+        return trunk(x)
+
+    def tf32():
+        prev = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            y = trunk.trunk_nchw(x_nchw)
+            return y.mean(dim=(2, 3)), y.permute(0, 2, 3, 1).reshape(y.shape[0], -1, y.shape[1])
+        finally:
+            torch.backends.cudnn.allow_tf32 = prev
+
+    runs = {"f32": [], "tf32": []}
+    with torch.inference_mode():
+        for mode in EXTRACT_TURNS:
+            runs[mode].append(cuda_ms(f32 if mode == "f32" else tf32, iters=EXTRACT_ITERS))
+        tf32_err = {k: rel(a.cpu().numpy(), b.cpu().numpy())
+                    for k, a, b in zip(("pool5", "conv"), tf32(), f32())}
+    conv_flops = resnet_conv_flops(sd, stages, EXTRACT_BATCH)
+    n_bytes = 4.0 * (x.numel() + n_params + EXTRACT_BATCH * 2048 * 50)
+    rec["trunk"] = {"batch": EXTRACT_BATCH, "gflop_per_image": conv_flops / EXTRACT_BATCH / 1e9,
+                    "bytes": n_bytes, "tf32_vs_f32": tf32_err}
+    for mode, peak in (("f32", H100_F32_FLOPS), ("tf32", H100_TF32_FLOPS)):
+        ms = float(np.mean(runs[mode]))
+        b_ms = max(n_bytes / H100_BYTES_PER_S, conv_flops / peak) * 1e3
+        rec["trunk"][mode] = {"ms": ms, "runs_ms": runs[mode],
+                              "images_per_s": EXTRACT_BATCH / ms * 1e3, "bound_ms": b_ms,
+                              "bound_by": "bytes" if n_bytes / H100_BYTES_PER_S
+                              > conv_flops / peak else "operations",
+                              "bound_images_per_s": EXTRACT_BATCH / b_ms * 1e3}
+        r = rec["trunk"][mode]
+        print(f"extract (c): trunk {mode} at batch {EXTRACT_BATCH}: {ms:.3f} ms a batch (runs "
+              f"{', '.join(f'{v:.3f}' for v in runs[mode])}), {r['images_per_s']:.1f} images/s; "
+              f"bound {b_ms:.3f} ms ({r['bound_by']}; {r['bound_images_per_s']:.1f} images/s; "
+              f"{conv_flops / EXTRACT_BATCH / 1e9:.3f} GFLOP an image, {n_bytes / 1e6:.1f} MB) "
+              f"({card})")
+    print(f"extract (c): TF32 against f32, max |diff| / max |f32|: pool5 "
+          f"{tf32_err['pool5']:.3e}, conv {tf32_err['conv']:.3e} (a finding: the entry points "
+          "compute in f32)")
+
+    # (d) the CLI in a fresh process with PyTorch's default flags
+    if importlib.util.find_spec("PIL") is None:
+        rec["cli"] = "not run: PIL is not installed"
+        print("extract (d): " + json.dumps({"cli": rec["cli"]}))
+    else:
+        from PIL import Image as PILImage
+
+        img_dir = os.path.join(root, "images")
+        os.makedirs(img_dir, exist_ok=True)
+        img_rng = np.random.default_rng(4)
+        names = []
+        for i in range(EXTRACT_CLI_IMAGES):
+            hw = tuple(int(v) for v in img_rng.integers(200, 401, 2))
+            PILImage.fromarray(img_rng.integers(0, 256, hw + (3,), dtype=np.uint8)).save(
+                os.path.join(img_dir, f"img{i:03d}.png"))
+            names.append(f"img{i:03d}.png")
+        with open(os.path.join(root, "images.txt"), "w") as f:
+            f.writelines(n + "\n" for n in names)
+        weights = os.path.join(root, "resnet50_random.npz")
+        np.savez(weights, **sd)
+        out_path = os.path.join(root, "cli_feats.npy")
+        t0 = time.time()
+        r = subprocess.run([sys.executable, "-m", "variational_mmt_torch.cli.extract_features",
+                            "-images_dir", img_dir, "-image_list",
+                            os.path.join(root, "images.txt"), "-output", out_path,
+                            "-weights", weights, "-batch_size", str(EXTRACT_BATCH)],
+                           cwd=HERE, capture_output=True, text=True, timeout=300)
+        wall = time.time() - t0
+        if r.returncode != 0:
+            print(r.stdout[-4000:] + r.stderr[-4000:], file=sys.stderr)
+            fail("phase 18 (d): the extract_features CLI failed")
+        cli_feats = load_features(out_path)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        here = resnet.extract_features(sd, LazyImages(img_dir, names), "pool5", EXTRACT_BATCH,
+                                       device="cuda")
+        here_s = time.perf_counter() - t0
+        err = rel(cli_feats, here)
+        line = r.stdout.strip().splitlines()[-1]
+        cli_rate = float(line.split(" s, ")[1].split(" images/s")[0])
+        rec["cli"] = {"images": EXTRACT_CLI_IMAGES, "vs_in_process": err,
+                      "cli_images_per_s": cli_rate, "process_wall_s": wall,
+                      "in_process_images_per_s": EXTRACT_CLI_IMAGES / here_s}
+        print(f"extract (d): CLI ({line}); process wall {wall:.1f} s; in this process "
+              f"{rec['cli']['in_process_images_per_s']:.1f} images/s (decoding included, "
+              f"warm); CLI vs in-process max |diff| / max |in-process| {err:.3e} (tolerance "
+              f"{EXTRACT_CLI_TOL}) ({card})")
+        if cli_feats.shape != (EXTRACT_CLI_IMAGES, 2048) or err > EXTRACT_CLI_TOL:
+            fail("phase 18 (d): the CLI's features differ from the in-process extraction")
+
+    # (e) save_features to .h5 with or without h5py
+    h5 = os.path.join(root, "feats.h5")
+    if importlib.util.find_spec("h5py") is None:
+        try:
+            save_features(h5, feats["pool5"])
+        except ImportError as e:
+            if ".npy" not in str(e):
+                fail(f"phase 18 (e): the error without h5py does not name .npy: {e}")
+            rec["h5"] = f"h5py is not installed: save_features raised {e}"
+        else:
+            fail("phase 18 (e): save_features wrote .h5 without h5py")
+    else:
+        save_features(h5, feats["pool5"])
+        if not np.array_equal(load_features(h5), feats["pool5"]):
+            fail("phase 18 (e): the .h5 file does not read back equal")
+        rec["h5"] = "h5py is installed: .h5 written and read back equal"
+    print(f"extract (e): {rec['h5']}")
+
+    # (f) images to translations on phase 10's checkpoint
+    _, cfg, model, sv, tv = ck.load_checkpoint(ck.latest_checkpoint(os.path.join(root, "run")),
+                                               device="cuda")
+    with open(os.path.join(root, "test.src"), encoding="utf-8") as f:
+        src_ids = [sv.encode(line.lower().split())
+                   for line in itertools.islice(f, EXTRACT_SENT)]
+    tr = Translator(model, sv, tv, DecodeConfig(beam_size=4, max_length=60,
+                                                batch_size=EXTRACT_SENT, pallas_step=1),
+                    device="cuda")
+    launches, out = counted_run(lambda: tr.translate_ids(src_ids, feats["pool5"][:EXTRACT_SENT]))
+    tr.close()
+    well_formed(out, EXTRACT_SENT, cfg.model.tgt_vocab_size, 60)
+    rec["translate"] = {"sentences": EXTRACT_SENT, "launches": launches,
+                        "mean_top1_len": float(np.mean([len(n[0][1]) for n in out]))}
+    print(f"extract (f): {EXTRACT_SENT} sentences with extracted pool5 features through the "
+          f"Translator (pallas_step 1, beam 4) on phase 10's checkpoint: well formed, mean "
+          f"top-1 length {rec['translate']['mean_top1_len']:.2f}; launches {launches}")
+    for k in ("gru_layer_scan", "decode_step"):
+        if launches[k] <= 0:
+            fail(f"phase 18 (f): kernel {k} was not launched on the extraction path")
+    del trunk, x, x_nchw, model
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.time() - t_phase
+    print(f"extract phase {rec['phase_s']:.1f} s")
+    return launches, rec
+
+
 def width_record(name: str, widths: dict) -> dict:
     """One kernel's numbers at the widths phase's shapes: rows 1 and 2 by
     shape (errors, plans, bf16 times, cuDNN, bounds), rows 3-6 at H=250."""
@@ -3593,6 +3859,7 @@ def main() -> int:
         ens_launches, ens = ensemble_phase(card, root)
         opt_launches, options = options_phase(card, cfg, state)
         host_launches, host = host_path_phase(card, cfg, state, root)
+        extract_launches, extract = extract_phase(card, root)
     par_launches, par = parallel_phase(card, cfg, state)
 
     entries = []
@@ -3617,7 +3884,7 @@ def main() -> int:
                    "eval": eval_launches[name], "widths": width_launches[name],
                    **{path: n[name] for path, n in ens_launches.items()},
                    "options": opt_launches[name], "host_path": host_launches[name],
-                   "parallel": par_launches[name]}
+                   "parallel": par_launches[name], "extract": extract_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3656,7 +3923,7 @@ def main() -> int:
                                                    if k != "step_shapes"},
                       "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,
                       "options": options, "host_path": host, "parallel": par,
-                      "card": card}))
+                      "extract": extract, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -26,6 +26,7 @@ from variational_mmt_tpu.data.bpe import BPE as JaxBPE
 from variational_mmt_tpu.data.dataset import BinarizedDataset as JaxBinarizedDataset
 from variational_mmt_tpu.data.tokenizer import tokenize as jax_tokenize
 from variational_mmt_tpu.train import checkpoint as jax_ck
+from variational_mmt_torch.cli import extract_features as cli_extract
 from variational_mmt_torch.cli import preprocess as cli_preprocess
 from variational_mmt_torch.cli import train as cli_train
 from variational_mmt_torch.cli import translate as cli_translate
@@ -580,4 +581,8 @@ def test_clis_need_cuda_unless_cpu_is_asked(corpus, tmp_path, monkeypatch):
             cli_train.main(argv + extra)
         with pytest.raises(SystemExit, match="CUDA.*-device cpu"):
             cli_translate.main(["-model", f"{tmp_path}/x", "-src", f"{d}/test.src", *extra])
+        with pytest.raises(SystemExit, match="CUDA.*-device cpu"):
+            cli_extract.main(["-images_dir", d, "-image_list", f"{d}/test.src", "-output",
+                              f"{tmp_path}/f.npy", "-weights", f"{tmp_path}/w.npz", *extra])
     assert not os.path.exists(f"{tmp_path}/x")
+    assert not os.path.exists(f"{tmp_path}/f.npy")

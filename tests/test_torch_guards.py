@@ -16,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
+from test_resnet import make_state_dict
 from variational_mmt_torch import kernels
 from variational_mmt_torch.config import DecodeConfig, ModelConfig
 from variational_mmt_torch.data.vocab import SPECIALS, Vocab
 from variational_mmt_torch.decode.translator import Translator, make_translate_fn
 from variational_mmt_torch.models.model import build_model
+from variational_mmt_torch.models.resnet import ResNetTrunk, extract_features
 from variational_mmt_torch.ops import decode_step as ds
 from variational_mmt_torch.ops import decoder, gru_scan
 
@@ -92,7 +94,9 @@ def test_port_package_found():
             "tensorboard.py", "streams.py", "beam.py", "service.py", "frontend.py", "rpc.py",
             "http_server.py", "errors.py", "serve.py", "msgpack_codec.py", "iw_eval.py",
             "diagnostics.py", "mbr.py", "meteor.py", "porter.py", "bleu.py", "prefetch.py",
-            "fused_decoder.py"} <= names
+            "fused_decoder.py", "resnet.py", "extract_features.py", "flops.py",
+            "average_checkpoints.py", "release_checkpoint.py", "export_gate_corpus.py",
+            "import_torch_checkpoint.py"} <= names
     scanned = {p.parent.name for p in PORT_FILES}
     assert {"cli", "utils", "train", "data", "decode", "serve", "evals", "native"} <= scanned
 
@@ -113,6 +117,16 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(no_cuda):
     with pytest.raises(RuntimeError, match="CUDA"):
         Translator(model, vocab, vocab, device="cuda")
     assert Translator(model, vocab, vocab, device="cpu").device.type == "cpu"
+    sd = make_state_dict(base=8, stages=(1, 1, 1, 1))
+    img = np.zeros((32, 32, 3), np.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResNetTrunk(sd)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ResNetTrunk(sd, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        extract_features(sd, [img])
+    assert ResNetTrunk(sd, device="cpu").device.type == "cpu"
+    assert extract_features(sd, [img], device="cpu").shape == (1, 256)
 
 
 def test_wrappers_have_no_try_that_could_fall_back():

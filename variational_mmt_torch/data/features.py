@@ -1,9 +1,10 @@
-"""Image-feature loading, row i aligned to corpus line i. Mirrors
-``load_features`` of ``variational_mmt_tpu/data/features.py`` (:19-82).
+"""Image-feature files, row i aligned to corpus line i. Mirrors
+``load_features`` and ``save_features`` of
+``variational_mmt_tpu/data/features.py`` (:19-95).
 
 ``.npy`` and ``.npz`` need numpy only. HDF5 goes through ``h5py``,
 imported inside the call; a machine without it gets an error that says so
-(the card's machine has none: convert the file to ``.npy`` there).
+(the card's machine has none: use ``.npy`` there).
 """
 
 from __future__ import annotations
@@ -14,18 +15,22 @@ from typing import Optional
 import numpy as np
 
 
+def _h5py(path: str, what: str):
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(f"{path}: {what} HDF5 features needs h5py, which is not "
+                          "installed; use .npy (numpy.save) instead") from e
+    return h5py
+
+
 def load_features(path: str, split: Optional[str] = None, mmap: bool = False) -> np.ndarray:
     """An (N, D) or (N, R, D) feature array. HDF5 and ``.npz``: the dataset
     named ``split``, else the only one (HDF5 also takes feats / features /
     data). Conv maps (N, 7, 7, C) or (N, C, 7, 7) become (N, 49, C)."""
     ext = os.path.splitext(path)[1].lower()
     if ext in (".h5", ".hdf5"):
-        try:
-            import h5py
-        except ImportError as e:
-            raise ImportError(f"{path}: reading HDF5 features needs h5py, which is not "
-                              "installed; convert the file to .npy (numpy.save)") from e
-        with h5py.File(path, "r") as f:
+        with _h5py(path, "reading").File(path, "r") as f:
             keys = list(f.keys())
             if split is not None:
                 if split not in f:
@@ -58,3 +63,16 @@ def load_features(path: str, split: Optional[str] = None, mmap: bool = False) ->
             n, c, h, w = arr.shape
             arr = arr.transpose(0, 2, 3, 1).reshape(n, h * w, c)
     return arr
+
+
+def save_features(path: str, feats: np.ndarray) -> None:
+    """Write (N, D) or (N, R, D) features as float32: ``.npy``, or ``.h5`` /
+    ``.hdf5`` (one dataset, ``feats``) through h5py."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in (".h5", ".hdf5"):
+        with _h5py(path, "writing").File(path, "w") as f:
+            f.create_dataset("feats", data=np.asarray(feats, np.float32))
+    elif ext == ".npy":
+        np.save(path, np.asarray(feats, np.float32))
+    else:
+        raise ValueError(f"unsupported feature file: {path}")

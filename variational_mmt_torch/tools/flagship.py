@@ -15,6 +15,9 @@ cells, both from numpy seed 1:
   defaults: the largest of ``-buckets 16,24,32,48,64``, ``-pack_segments
   4``).
 
+The feature-extraction cell: ResNet-50 (base 64, stages 3-4-6-3) with
+random weights in torchvision's layout from numpy seed 2 (``resnet_weights``).
+
 One module for both, so that a profile describes the cell that the smoke
 run times.
 """
@@ -88,3 +91,42 @@ def packed_batches(m: ModelConfig, n_batches: int = 4, batch_size: int = 64,
     it = PackedBucketIterator(ds, batch_size, [row_len], img_feats=img, shuffle=False,
                               max_segments=max_segments)
     return list(itertools.islice(it.epoch(), n_batches))
+
+
+def resnet_weights(base: int = 64, stages: Tuple[int, ...] = (3, 4, 6, 3),
+                   seed: int = 2) -> dict:
+    """Random ResNet weights in torchvision's state-dict layout (OIHW
+    kernels of std 0.5/sqrt(fan_in); BatchNorm gains and running variances
+    uniform in [0.5, 1.5], biases and running means 0.1 std normals), from
+    numpy ``seed``; base 64 and stages 3-4-6-3 are ResNet-50."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, out_c, in_c, k):
+        sd[name + ".weight"] = (rng.standard_normal((out_c, in_c, k, k), np.float32)
+                                * np.float32(0.5 / np.sqrt(in_c * k * k)))
+
+    def bn(name, c):
+        sd[name + ".weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+        sd[name + ".bias"] = rng.standard_normal(c, np.float32) * np.float32(0.1)
+        sd[name + ".running_mean"] = rng.standard_normal(c, np.float32) * np.float32(0.1)
+        sd[name + ".running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+
+    conv("conv1", base, 3, 7)
+    bn("bn1", base)
+    inplanes = base
+    for si, n_blocks in enumerate(stages, start=1):
+        planes = base * 2 ** (si - 1)
+        for bi in range(n_blocks):
+            p = f"layer{si}.{bi}"
+            conv(p + ".conv1", planes, inplanes, 1)
+            bn(p + ".bn1", planes)
+            conv(p + ".conv2", planes, planes, 3)
+            bn(p + ".bn2", planes)
+            conv(p + ".conv3", planes * 4, planes, 1)
+            bn(p + ".bn3", planes * 4)
+            if bi == 0:
+                conv(p + ".downsample.0", planes * 4, inplanes, 1)
+                bn(p + ".downsample.1", planes * 4)
+            inplanes = planes * 4
+    return sd
