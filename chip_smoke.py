@@ -196,20 +196,35 @@ in PERF.md).
     that shape a sentence). Then MBR in f32 (8 samples at temperature 1.0,
     32 sentences) at pallas_step 0, 1 and 2: at least 31 of 32 picks of
     steps 1 and 2 equal step 0's.
-13. Widths phase: rows 1 and 2 at H = 512 (16-CTA clusters; B = 64, T = 24
-    in f32 and bf16, B = 256 in bf16) and H = 300 (B = 64, both dtypes),
-    each against its plain version (forward 1e-4 / 2e-2 absolute, backward
-    the same relative), the plans printed, bf16 times beside cuDNN's
-    nn.GRU and the bound; rows 3-6 at H = 250 (padded to 252 by the
+13. Widths phase: rows 1 and 2 on the wide plan (the persistent
+    cooperative kernels above 512 units) at H = 520, 1000 and 1024, each at
+    B = 64, T = 25 and B = 256, T = 24, in f32 and bf16, with and without a
+    reset stream, both directions, against their plain versions (forward
+    1e-4 / 2e-2 absolute, backward the same relative to each tensor's
+    largest entry), the plans printed and required wide; bf16 times by CUDA
+    events in turns with the plain version (kernel, plain, plain, kernel,
+    10 calls a turn) and on the device's clock, beside cuDNN's nn.GRU
+    forward and backward at the same shape and the bound. Rows 1 and 2 at
+    H = 512 (16-CTA clusters; B = 64, T = 24 in f32 and bf16, B = 256 in
+    bf16) and H = 300 (B = 64, both dtypes) the same way, bf16 times beside
+    cuDNN's nn.GRU and the bound; rows 3-6 at H = 250 (padded to 252 by the
     wrappers): phase 3's step checks at N = 128 and 32 (S = 24) and its
     decoder checks at B = 64, T = 25, S = 24. Then the entry points at
-    these widths from phase 10's corpus: 10 steps of ``cli.train
-    -rnn_size 1024`` with the flagship config's ``pallas_decoder`` off
+    these widths from phase 10's corpus, 10 steps of ``cli.train`` each:
+    ``-rnn_size 1024`` with the flagship config's ``pallas_decoder`` off
     (encoder halves of 512 units on 16-CTA clusters of rows 1 and 2; the
-    decoder kernels are off, as JAX ships them) and 10 steps of ``-rnn_size
-    250`` with it on (rows 1, 2, 5 and 6 at 252), then ``cli.translate`` of
-    that model at pallas_step 1 and 2 (rows 3 and 4 at 252); all counted
-    as ``widths``.
+    decoder kernels are off, as JAX ships them), ``-rnn_size 250`` with it
+    on (rows 1, 2, 5 and 6 at 252), ``-rnn_size 2048`` with it off
+    (encoder halves of 1024 units on the wide plan) and the fast config
+    ``-input_feed 0 -use_pallas 1 -rnn_size 1000`` (the decoder's two
+    layers at 1000 units on the wide plan): finite losses, rows 1 and 2
+    launched, a scan of 1024 (resp. 1000) units seen, and no "takes the
+    plain scan" log line; then ``cli.translate`` of the 250 model at
+    pallas_step 1 and 2 (rows 3 and 4 at 252); all counted as ``widths``.
+    Last, phase 6's f32 check of the fast config at hidden 1000 (random
+    weights, numpy seed 0): its kernel route against the plain route, loss
+    within 1e-4 relative and every gradient within 1e-3 of its largest
+    entry, before and after 3 optimizer steps.
 14. Ensemble phase, from phase 10's checkpoint and corpus: two more
     full-width vmmt_c members with random weights (numpy seeds 1 and 2,
     through convert.py) saved by the port's checkpoint writer with phase
@@ -354,7 +369,20 @@ in PERF.md).
     the ``Translator`` at pallas_step 1 (beam 4, max_length 60) on phase
     10's checkpoint: well formed; rows 1 and 3 launched (counted as
     ``extract``). Prints the phase's seconds.
-19. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+19. Serving across ranks (``serve_ranks_phase(card, root)``, ROADMAP item
+    5.10), on phase 10's checkpoint (in f32) and its test sentences: two
+    ranks on the one card (``chip_smoke.py --serve-rank R DIR``, a timeout
+    of their own), gloo with CUDA tensors (NCCL refuses two ranks on one
+    device), ``TranslationService(mesh=)`` on TP-2 (1 x 2) and then DP-2
+    (2 x 1), beam 4, max_length 60, ``-batch_size`` 32, pallas_step 1,
+    warm-up on: rank 0 serves 128 single-sentence requests from 32
+    closed-loop client threads, rank 1 follows. The top-1 of the first 32
+    must equal one process's service (f32, the same decode options) on at
+    least 31; sent/s, p50 and p99 as read (not a scaling number); rank 0's
+    stop must end both ranks with exit code 0; rows 1 and 3 must run on
+    each rank, whose launches are counted (set to 0 before each service is
+    built, read after it stops) as ``serve_ranks``.
+20. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
@@ -362,9 +390,10 @@ in PERF.md).
     service's, ``widths`` each kernel's numbers at the widths phase's
     shapes, ``launches_by_path`` the serving, training, packed-training,
     families, CLI, online-serving, option-check, eval, widths, ensemble,
-    preprocess, options, host-path, parallel and extract counts) with the
-    ``host_path``, ``parallel`` and ``extract`` records, then the last line
-    {"ok": true, "device": {...}}.
+    preprocess, options, host-path, parallel, extract and serve_ranks
+    counts) with the ``host_path``, ``parallel``, ``extract`` and
+    ``serve_ranks`` records, then the last line {"ok": true, "device":
+    {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
 port's package is not beside this script, or when any phase fails.
@@ -428,7 +457,12 @@ EVAL_MBR_SAMPLES, EVAL_MBR_CHECK = 8, 32  # MBR's samples and sentences, pallas_
 WIDTH_SCANS = ((64, 24, 512, ("float32", "bfloat16")), (256, 24, 512, ("bfloat16",)),
                (64, 24, 300, ("float32", "bfloat16")))  # B, T, H and the checked dtypes
 WIDTH_STEP_NS, WIDTH_DEC = (128, 32), dict(B=64, T=25, S=24, H=250)  # rows 3-6 at H = 250
-WIDTH_CLI_STEPS = 10  # train CLI steps at -rnn_size 1024 (scans) and 250 (decoder kernels)
+WIDTH_CLI_STEPS = 10  # train CLI steps at each -rnn_size of phase 13
+# rows 1 and 2 on the wide plan: (B, T, H), f32 and bf16, with and without a reset stream
+WIDE_SCANS = ((64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (64, 25, 1024),
+              (256, 24, 1024))
+WIDE_ITERS = 10  # CUDA-event calls a turn of the wide scans' bf16 times
+FAST_WIDE = dict(hidden_dim=1000, input_feed=False)  # the fast config at -rnn_size 1000
 ENS_SEEDS, ENS_SEED = (1, 2), 4  # numpy seeds: the random members; the flagship request
 OPTION_STEPS, OPTION_OTHER_STEPS = 20, 5
 # the timed runs in turns: the fast config and the input-feed flagship with
@@ -458,6 +492,10 @@ PAR_F32_STEPS, PAR_TOL = 10, 1e-4  # phase 17 (b): f32 steps a mesh; loss, relat
 PAR_DECODE, PAR_DECODE_SEED = 32, 7  # phase 17 (b): TP-2 beam-4 sentences, request seed
 PAR_CHILD_TIMEOUT_S = 240  # phase 17 (b): the two ranks, start-up included
 PAR_ROWS = ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd")
+SRV_RANK_CLIENTS, SRV_RANK_SENT, SRV_RANK_CHECK = 32, 128, 32  # phase 19: clients, sentences
+SRV_RANK_BATCH, SRV_RANK_MAXLEN = 32, 60  # -batch_size, max_length (beam 4, pallas_step 1)
+SRV_RANK_TIMEOUT_S = 300  # phase 19: the two ranks, start-up included
+SRV_RANK_ROWS = ("gru_layer_scan", "decode_step")
 EXTRACT_CHECK, EXTRACT_BATCH, EXTRACT_PARTIAL = 4, 32, 37  # phase 18 (a), (b)
 EXTRACT_TOL, EXTRACT_CLI_TOL = 1e-4, 1e-5  # relative to each output's largest entry
 EXTRACT_TURNS, EXTRACT_ITERS = ("f32", "tf32", "tf32", "f32"), 10  # phase 18 (c)
@@ -2379,6 +2417,60 @@ def eval_phase(card: str, root: str):
     return launches, rec
 
 
+def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str) -> dict:
+    """Rows 1 and 2 on the wide plan at (B, T, H): f32 and bf16, with and
+    without a reset stream, both directions, against their plain versions
+    (forward max abs, backward max rel); bf16 times (CUDA events, in turns
+    with the plain version, and the device's clock), cuDNN's nn.GRU forward
+    and backward, the bounds."""
+    at = f"B={B} T={T} H={H}"
+    r = {}
+    for dt_name in ("float32", "bfloat16"):
+        ins, gout, reset = reset_inputs(g, rng, getattr(torch, dt_name), B, T, H, 8)
+        for label, rs in (("", None), ("reset_", reset)):
+            fwd, bwd, _ = reset_errs(gru_scan, ins, gout, rs)
+            what = f"{at}{' with a reset stream' if rs is not None else ''}"
+            check_close(f"gru_scan {what}", dt_name, fwd)
+            check_close(f"gru_scan_bwd {what}", dt_name, bwd, "max_rel_err")
+            r[f"{label}err_{dt_name}"], r[f"bwd_{label}err_{dt_name}"] = fwd, bwd
+        r[f"plan_{dt_name}"] = gru_scan.gru_layer_scan.plan
+        r[f"bwd_plan_{dt_name}"] = gru_scan.gru_layer_scan_bwd.plan
+        for plan in (r[f"plan_{dt_name}"], r[f"bwd_plan_{dt_name}"]):
+            if plan["layout"] != "wide":
+                fail(f"gru_scan {at} {dt_name}: the {plan['layout']} plan, not the wide one")
+        print_plan(f"gru_scan {at} {dt_name}", r[f"plan_{dt_name}"])
+        print_plan(f"gru_scan_bwd {at} {dt_name}", r[f"bwd_plan_{dt_name}"])
+    x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.bfloat16, B, T, H, 8)
+    outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
+    fwd_k = lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True)  # noqa: E731
+    bargs = (x, mask, h0, wh, bh, outs, gout, True)
+    bwd_k = lambda: gru_scan.gru_layer_scan_bwd(*bargs)  # noqa: E731
+    for key, kernel, plain, bound_of in (
+            ("fwd", fwd_k, lambda: gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True),
+             scan_fwd_bound),
+            ("bwd", bwd_k, lambda: gru_scan.gru_layer_scan_bwd_ref(*bargs), scan_bwd_bound)):
+        t = in_turns(f"gru_scan{'_bwd' if key == 'bwd' else ''} {at} bfloat16",
+                     {"kernel": kernel, "plain": plain}, iters=WIDE_ITERS)
+        rec = {"ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "runs_ms": t["runs_ms"],
+               "device_ms": device_ms(kernel, iters=WIDE_ITERS)}
+        rec["bound_ms"], rec["bound_by"] = bound_of(B, T, H)
+        r[key] = rec
+    gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
+    xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        r["fwd"]["library_ms"] = device_ms(lambda: gru(xin))
+        r["fwd"]["library_eager_ms"] = cuda_ms(lambda: gru(xin))
+    r["bwd"]["library_ms"], r["bwd"]["library_eager_ms"] = cudnn_bwd_ms(g, B, T, H)
+    for key, name in (("fwd", "gru_scan"), ("bwd", "gru_scan_bwd")):
+        t = r[key]
+        print(f"  {name} {at} bfloat16: kernel {t['ms']:.4f} ms (device clock "
+              f"{fmt_ms(t['device_ms'])}), plain {t['plain_ms']:.3f} ms, nn.GRU "
+              f"{'backward' if key == 'bwd' else 'forward'} {fmt_ms(t['library_ms'])} on the "
+              f"device's clock (eager {t['library_eager_ms']:.4f} ms), bound "
+              f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {card})")
+    return r
+
+
 def widths_phase(card: str, root: str):
     """The kernels' widths (module docstring, phase 13). Returns ({kernel:
     launches on the two CLI trains and the translates}, record)."""
@@ -2388,6 +2480,9 @@ def widths_phase(card: str, root: str):
 
     rec = {"scan": {}}
     g = torch.Generator(device="cuda").manual_seed(8)
+    rng = np.random.default_rng(8)
+    for B, T, H in WIDE_SCANS:  # the wide plan
+        rec["scan"][f"B={B} T={T} H={H}"] = wide_scan_checks(gru_scan, g, rng, B, T, H, card)
     for B, T, H, dtypes in WIDTH_SCANS:
         at = f"B={B} T={T} H={H}"
         r = {}
@@ -2463,33 +2558,55 @@ def widths_phase(card: str, root: str):
             str(WIDTH_CLI_STEPS)]
     total = dict.fromkeys(kernel_counters(), 0)
     rec["cli"] = {}
-    for size, config_path, rows in ((1024, nodec, ("gru_layer_scan", "gru_layer_scan_bwd")),
-                                    (250, os.path.join(root, "config.json"),
-                                     ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd",
-                                      "decoder_bwd"))):
-        run = os.path.join(root, f"run{size}")
+    scans = ("gru_layer_scan", "gru_layer_scan_bwd")
+    # (label, flags, config, rows that must run, width of a wide-plan scan)
+    for label, flags, config_path, rows, wide in (
+            ("1024", ["-rnn_size", "1024"], nodec, scans, None),
+            ("250", ["-rnn_size", "250"], os.path.join(root, "config.json"),
+             scans + ("decoder_fwd", "decoder_bwd"), None),
+            ("2048", ["-rnn_size", "2048"], nodec, scans, 1024),
+            ("fast1000", ["-rnn_size", "1000", "-input_feed", "0", "-use_pallas", "1"], nodec,
+             scans, 1000)):
+        run = os.path.join(root, f"run{label}")
         t0 = time.perf_counter()
-        launches, trainer = counted_run(lambda: cli_train.main(
-            base + ["-config", config_path, "-rnn_size", str(size), "-save_model", run]))
+        with plain_scan_log() as logged:
+            launches, (trainer, by_width) = counted_run(lambda: scan_widths(lambda: cli_train.main(
+                base + ["-config", config_path, *flags, "-save_model", run])))
         secs = time.perf_counter() - t0
         losses = [h["loss"] for h in trainer.last_run["metrics"]]
         scan_plan = gru_scan.gru_layer_scan.plan
-        print(f"widths: train CLI -rnn_size {size} (pallas_decoder "
+        print(f"widths: train CLI {' '.join(flags)} (pallas_decoder "
               f"{trainer.cfg.model.pallas_decoder}): {len(losses)} steps in {secs:.1f} s, losses "
-              f"{' '.join(f'{v:.3f}' for v in losses)}; launches {launches}; the scan's "
-              f"cluster {scan_plan['cluster']} CTAs of {scan_plan['units']} units")
+              f"{' '.join(f'{v:.3f}' for v in losses)}; launches {launches}; GRU scans by width "
+              f"{by_width}; the last scan's plan {scan_plan}")
         if len(losses) != WIDTH_CLI_STEPS or not all(math.isfinite(v) for v in losses):
-            fail(f"train CLI at -rnn_size {size}: a step count or a loss that is not right")
+            fail(f"train CLI {' '.join(flags)}: a step count or a loss that is not right")
         for k in rows:
             if launches[k] <= 0:
-                fail(f"kernel {k} was not launched by the train CLI at -rnn_size {size}")
-        if size == 1024 and scan_plan["cluster"] != 16:
+                fail(f"kernel {k} was not launched by the train CLI {' '.join(flags)}")
+        if logged:
+            fail(f"train CLI {' '.join(flags)}: a layer took the plain scan: {logged}")
+        if label == "1024" and scan_plan["cluster"] != 16:
             fail("the encoder halves of 512 units did not run on 16-CTA clusters")
-        if size == 250 and dec.decoder_bwd.plan["padded"] != 252:
+        if label == "250" and dec.decoder_bwd.plan["padded"] != 252:
             fail("the decoder kernels did not run at the padded width 252")
-        rec["cli"][size] = {"losses": losses, "seconds": secs, "launches": launches}
+        if wide is not None and not by_width.get(wide):
+            fail(f"train CLI {' '.join(flags)}: no scan of {wide} units (the wide plan) ran")
+        rec["cli"][label] = {"losses": losses, "seconds": secs, "launches": launches,
+                             "scan_widths": by_width}
         for k in total:
             total[k] += launches[k]
+    # the fast config at H = 1000 in f32: its kernel route (rows 1 and 2 on
+    # the wide plan for the decoder's layers) against the plain route
+    from variational_mmt_torch.convert import params_from_jax
+    from variational_mmt_torch.models.model import init_params
+    from variational_mmt_torch.tools import flagship
+
+    fcfg, _ = flagship.load()
+    fm = dataclasses.replace(fcfg.model, pallas_decoder=True, **FAST_WIDE)
+    fcfg = dataclasses.replace(fcfg, model=fm)
+    rec["fast1000_f32_check"] = train_check_f32(fcfg, params_from_jax(init_params(fm, seed=0), fm),
+                                                label="widths fast config H=1000")
     ckpt = ck.latest_checkpoint(os.path.join(root, "run250"))
     for mode, row in ((1, "decode_step"), (2, "gru_chain")):
         launches, out = counted_run(lambda: cli_translate.main(
@@ -2872,6 +2989,35 @@ def lending_cost(model, sv, tv, dcfg, inputs, runs: int = 3) -> dict:
           f"(functional_call) vs {', '.join(f'{v:.3f}' for v in out['own'])} ms through the "
           "translate function on the model itself (in turns)")
     return out
+
+
+class plain_scan_log:
+    """A context that gathers the port's "takes the plain scan" log lines
+    (every layer's, not once a width: the record of logged layers is
+    cleared on entry)."""
+
+    def __enter__(self):
+        import logging
+
+        from variational_mmt_torch.models import gru as gru_mod
+
+        self.lines = []
+        self.logger = logging.getLogger(gru_mod.__name__)
+        gru_mod._wide_logged.clear()
+        lines = self.lines
+
+        class Grab(logging.Handler):
+            def emit(self, record):
+                if "plain scan" in record.getMessage():
+                    lines.append(record.getMessage())
+
+        self.handler = Grab(logging.WARNING)
+        self.logger.addHandler(self.handler)
+        return self.lines
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        return False
 
 
 def scan_widths(fn):
@@ -3554,6 +3700,168 @@ def parallel_phase(card: str, cfg, state):
     return launches, rec
 
 
+def serve_rank_model(ckpt: str, device: str):
+    """Phase 10's checkpoint as an f32 model on ``device``, with its vocabs."""
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.train import checkpoint as ck
+
+    _, cfg, model, sv, tv = ck.load_checkpoint(ckpt, device=device)
+    m32 = build_model(dataclasses.replace(cfg.model, compute_dtype="float32"), device=device)
+    m32.load_state_dict(model.state_dict())
+    return m32, sv, tv
+
+
+def serve_rank_requests(root: str, sv):
+    """Phase 10's first SRV_RANK_SENT test sentences as ids, with their
+    features."""
+    with open(os.path.join(root, "test.src"), encoding="utf-8") as f:
+        ids = [sv.encode(line.split()) for line in f][:SRV_RANK_SENT]
+    return ids, np.load(os.path.join(root, "test.feats.npy"))[:SRV_RANK_SENT]
+
+
+def serve_rank_dcfg():
+    from variational_mmt_torch.config import DecodeConfig
+
+    return DecodeConfig(beam_size=4, max_length=SRV_RANK_MAXLEN, batch_size=SRV_RANK_BATCH,
+                        pallas_step=1)
+
+
+def serve_rank_child(rank: int, workdir: str) -> int:
+    """One of phase 19's two ranks (``chip_smoke.py --serve-rank R DIR``),
+    both on cuda:0 over gloo with CUDA tensors: the service on TP-2, then
+    on DP-2. Rank 0 serves SRV_RANK_SENT single-sentence requests from
+    SRV_RANK_CLIENTS closed-loop client threads; rank 1 follows. Each
+    rank's launch counts are set to 0 before its service is built and read
+    after it stops. Writes DIR/rank<R>.json."""
+    import threading
+
+    sys.path.insert(0, HERE)
+    from variational_mmt_torch.parallel import mesh as pm
+    from variational_mmt_torch.serve import ServeConfig, TranslationService
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(workdir, "inputs.json")) as f:
+        inp = json.load(f)
+    model, sv, tv = serve_rank_model(inp["ckpt"], "cuda:0")
+    ids, feats = serve_rank_requests(inp["root"], sv)
+    meshes = {name: pm.make_mesh(d, m, device="cuda:0", backend="gloo",
+                                 init_method=f"file://{workdir}/store", rank=rank, world_size=2)
+              for name, d, m in (("tp2", 1, 2), ("dp2", 2, 1))}
+    out = {}
+    for name, mesh in meshes.items():
+        def served():
+            svc = TranslationService(model, sv, tv, serve_rank_dcfg(), buckets=SERVE_BUCKETS,
+                                     scfg=ServeConfig(max_wait_ms=5.0, pipeline_depth=2),
+                                     mesh=mesh, device="cuda:0")
+            if rank != 0:
+                svc.follow()
+                return {}
+            answers, lat = [None] * len(ids), []
+            order, lock = iter(range(len(ids))), threading.Lock()
+
+            def client():
+                while True:
+                    with lock:
+                        i = next(order, None)
+                    if i is None:
+                        return
+                    t = time.perf_counter()
+                    answers[i] = svc.submit_ids_batch([ids[i]], feats[i:i + 1])[0].result(300)
+                    lat.append(time.perf_counter() - t)
+
+            threads = [threading.Thread(target=client) for _ in range(SRV_RANK_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            secs = time.perf_counter() - t0
+            stats = dict(svc.stats)
+            svc.stop()
+            return {"top1": top1(answers[:SRV_RANK_CHECK]), "sent_per_s": len(ids) / secs,
+                    "p50_ms": float(np.percentile(lat, 50)) * 1e3,
+                    "p99_ms": float(np.percentile(lat, 99)) * 1e3, "stats": stats}
+
+        launches, rec = counted_run(served)
+        out[name] = dict(rec, launches=launches)
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    meshes["tp2"].close()
+    return 0
+
+
+def serve_ranks_phase(card: str, root: str):
+    """Phase 19 (module docstring): the service across two ranks on the
+    one card. Returns ({kernel: both ranks' launches}, record)."""
+    from variational_mmt_torch.serve import ServeConfig, TranslationService
+    from variational_mmt_torch.train import checkpoint as ck
+
+    t_phase = time.time()
+    ckpt = ck.latest_checkpoint(os.path.join(root, "run"))
+    with tempfile.TemporaryDirectory(prefix="vmmt_srv_") as workdir:
+        with open(os.path.join(workdir, "inputs.json"), "w") as f:
+            json.dump({"ckpt": ckpt, "root": root}, f)
+        logs = [open(os.path.join(workdir, f"log{r}.txt"), "w") for r in range(2)]
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--serve-rank",
+                                   str(r), workdir], stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(2)]
+        try:
+            # one process's service, the reference, while the ranks start
+            model, sv, tv = serve_rank_model(ckpt, "cuda")
+            ids, feats = serve_rank_requests(root, sv)
+            svc = TranslationService(model, sv, tv, serve_rank_dcfg(), buckets=SERVE_BUCKETS,
+                                     scfg=ServeConfig(warmup=False), device="cuda")
+            ref = top1([f.result(300) for f in svc.submit_ids_batch(ids[:SRV_RANK_CHECK],
+                                                                    feats[:SRV_RANK_CHECK])])
+            svc.stop()
+            deadline = time.monotonic() + SRV_RANK_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            for f in logs:
+                f.close()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(os.path.join(workdir, f"log{r}.txt")) as f:
+                    print(f.read()[-6000:], file=sys.stderr)
+                fail(f"phase 19: rank {r} failed or timed out (exit {p.returncode}): the "
+                     "stop did not reach it, or it failed")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(workdir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    rec = {"card": card}
+    launches = dict.fromkeys(kernel_counters(), 0)
+    for name in ("tp2", "dp2"):
+        got = ranks[0][name]
+        same = sum(a == b for a, b in zip(got["top1"], ref))
+        print(f"serve ranks: {name}: {SRV_RANK_SENT} requests from {SRV_RANK_CLIENTS} closed-loop "
+              f"clients, {got['sent_per_s']:.1f} sent/s, p50 {got['p50_ms']:.0f} ms, p99 "
+              f"{got['p99_ms']:.0f} ms as read (two ranks share one card and gloo stages every "
+              f"collective through the host: not a scaling number; {card}); top-1 equal to one "
+              f"process's service (f32) on {same} of {SRV_RANK_CHECK}; launches rank 0 "
+              f"{got['launches']}, rank 1 {ranks[1][name]['launches']}")
+        if same < SRV_RANK_CHECK - 1:
+            fail(f"phase 19: {name} serving disagrees with one process on more than 1 sentence")
+        for r, ranked in enumerate(ranks):
+            for k in SRV_RANK_ROWS:
+                if ranked[name]["launches"][k] <= 0:
+                    fail(f"phase 19: {name} rank {r} did not launch {k}")
+            launches = {k: launches[k] + n for k, n in ranked[name]["launches"].items()}
+        rec[name] = {k: got[k] for k in ("sent_per_s", "p50_ms", "p99_ms", "stats")}
+        rec[name].update(top1_same=same, launches_ranks=[rk[name]["launches"] for rk in ranks])
+    rec["phase_s"] = time.time() - t_phase
+    print(f"serve ranks phase {rec['phase_s']:.1f} s")
+    return launches, rec
+
+
 def resnet_conv_flops(sd: dict, stages, n_images: int, size: int = 224) -> float:
     """2 x the multiply-adds of every convolution of the trunk over
     ``n_images`` of size x size, from the state dict's kernel shapes."""
@@ -3803,6 +4111,8 @@ def width_record(name: str, widths: dict) -> dict:
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
         return parallel_child(int(sys.argv[2]), sys.argv[3])
+    if len(sys.argv) == 4 and sys.argv[1] == "--serve-rank":
+        return serve_rank_child(int(sys.argv[2]), sys.argv[3])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     if not os.path.isdir(os.path.join(HERE, "variational_mmt_torch")):
@@ -3860,6 +4170,7 @@ def main() -> int:
         opt_launches, options = options_phase(card, cfg, state)
         host_launches, host = host_path_phase(card, cfg, state, root)
         extract_launches, extract = extract_phase(card, root)
+        srv_rank_launches, srv_ranks = serve_ranks_phase(card, root)
     par_launches, par = parallel_phase(card, cfg, state)
 
     entries = []
@@ -3884,7 +4195,8 @@ def main() -> int:
                    "eval": eval_launches[name], "widths": width_launches[name],
                    **{path: n[name] for path, n in ens_launches.items()},
                    "options": opt_launches[name], "host_path": host_launches[name],
-                   "parallel": par_launches[name], "extract": extract_launches[name]}
+                   "parallel": par_launches[name], "extract": extract_launches[name],
+                   "serve_ranks": srv_rank_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3923,7 +4235,8 @@ def main() -> int:
                                                    if k != "step_shapes"},
                       "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,
                       "options": options, "host_path": host, "parallel": par,
-                      "extract": extract, "card": card}))
+                      "extract": extract, "serve_ranks": srv_ranks,
+                      "widths_f32_check": widths["fast1000_f32_check"], "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -386,17 +386,17 @@ def test_load_features_reads_npy_npz_and_conv_maps(tmp_path):
 
 
 TRANSLATE_REFUSED = [
-    (["-tensor_parallel", "2"], "5.8"),
+    (["-tensor_parallel", "2"], "Across GPUs"),
 ]
 
 
 @pytest.mark.parametrize("flags,item", TRANSLATE_REFUSED, ids=lambda x: (
     " ".join(x) if isinstance(x, list) else x))
 def test_translate_refuses_what_is_not_ported_naming_its_roadmap_item(flags, item, tmp_path):
-    # item 5.8 ported decoding across ranks: outside torchrun the flag is
-    # refused, naming the command and the item
+    # decoding across ranks runs under torchrun: outside it the flag is
+    # refused, naming the command and the README's section
     argv = ["-model", "nowhere", "-src", "nowhere.txt", "-device", "cpu", *flags]
-    with pytest.raises(SystemExit, match=f"torchrun --nproc_per_node 2.*ROADMAP.md .*{item}"):
+    with pytest.raises(SystemExit, match=f"torchrun --nproc_per_node 2.*README.md, .*{item}"):
         cli_translate.main(argv)
 
 
@@ -492,16 +492,17 @@ def test_translate_sampling_flags_decode_reproducibly(corpus, trained, flags, tm
     assert outs[0] == outs[1] and outs[0] != outs[2]
 
 
-TRAIN_REFUSED = [(["-num_shards", "2"], "5.8"), (["-tensor_parallel", "2"], "5.8")]
+TRAIN_REFUSED = [(["-num_shards", "2"], "Across GPUs"),
+                 (["-tensor_parallel", "2"], "Across GPUs")]
 
 
 @pytest.mark.parametrize("flags,item", TRAIN_REFUSED, ids=lambda x: (
     " ".join(x) if isinstance(x, list) else x))
 def test_train_refuses_what_is_not_ported_naming_its_roadmap_item(corpus, flags, item, tmp_path):
-    # item 5.8 ported training across ranks: outside torchrun the flags are
-    # refused, naming the command and the item
+    # training across ranks runs under torchrun: outside it the flags are
+    # refused, naming the command and the README's section
     d = str(corpus)
-    with pytest.raises(SystemExit, match=f"torchrun --nproc_per_node 2.*ROADMAP.md .*{item}"):
+    with pytest.raises(SystemExit, match=f"torchrun --nproc_per_node 2.*README.md, .*{item}"):
         cli_train.main(["-data", f"{d}/demo", "-save_model", f"{tmp_path}/x", "-model_type",
                         "nmt", "-batch_size", "8", "-max_steps", "1", *SMALL, *flags])
 

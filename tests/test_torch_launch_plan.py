@@ -3,7 +3,8 @@
 ``decoder_fwd_plan`` and ``decoder_bwd_plan``), pure Python, on the CPU. The widths the repo's
 configs use (H=250 a direction for the scan, H=500 for the decoder and the
 decode step) are accepted in both dtypes, and so are the scans' widths up
-to 512 (clusters of up to 16 CTAs) and any decoder width (padded to a
+to 1024 (clusters of up to 16 CTAs to 512, the wide plan above:
+tests/test_torch_wide_scan.py) and any decoder width (padded to a
 multiple of 4); shapes the designs cannot hold raise NotImplementedError,
 and so do the wrappers on a non-CPU tensor before anything is launched
 (meta tensors stand in for CUDA ones). ``UniGRU`` sends a layer wider
@@ -76,7 +77,7 @@ def test_scan_fwd_plan_mirrors_the_kernels_layout():
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-@pytest.mark.parametrize("H", [0, 513, 1024])
+@pytest.mark.parametrize("H", [0, 1025, 2048])
 def test_scan_fwd_plan_refuses_what_a_cluster_cannot_hold(dt, H):
     with pytest.raises(NotImplementedError):
         gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)
@@ -132,7 +133,7 @@ def test_scan_plan_at_the_training_shape():
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-@pytest.mark.parametrize("H", [0, 513, 1024])
+@pytest.mark.parametrize("H", [0, 1025, 2048])
 def test_scan_plan_refuses_what_a_cluster_cannot_hold(dt, H):
     with pytest.raises(NotImplementedError):
         gru_scan.scan_bwd_plan(64, 24, H, dt)
@@ -268,9 +269,9 @@ def step_args(N, S, H, dt=torch.float32):
 
 def test_wrappers_refuse_a_shape_before_launching(no_launch):
     with pytest.raises(NotImplementedError):
-        gru_scan.gru_layer_scan(*scan_args(4, 5, 600)[:5])
+        gru_scan.gru_layer_scan(*scan_args(4, 5, 1100)[:5])
     with pytest.raises(NotImplementedError):
-        gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 600))
+        gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 1100))
     for dt in DTYPES:
         chain = step_args(4, 3, 0, dt)
         with pytest.raises(NotImplementedError):
@@ -494,7 +495,7 @@ def test_decoder_probe_must_hold_every_stamp(no_launch):
             decoder.decoder_bwd(*decoder_args(4, 5, 3, 8), probe=bad)
 
 
-# --- widths: the scans up to 512 units, the decoder kernels at any width ---
+# --- widths: the scans up to 1024 units, the decoder kernels at any width ---
 
 SCAN_WIDTHS = [257, 300, 384, 448, 512]
 
@@ -535,13 +536,18 @@ def test_scan_plans_mirror_the_kernels_layout_at_512():
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-@pytest.mark.parametrize("H,holds", [(1, True), (512, True), (513, False), (1024, False),
-                                     (0, False)])
-def test_scan_kernel_holds_ends_at_512(dt, H, holds):
+@pytest.mark.parametrize("H,holds", [(1, True), (512, True), (513, True), (1024, True),
+                                     (1025, False), (2048, False), (0, False)])
+def test_scan_kernel_holds_ends_at_1024(dt, H, holds):
+    """Clusters to 512 units, the wide plan from 513 to 1024."""
     assert gru_scan.scan_kernel_holds(H, dt) is holds
+    if holds:
+        layout = "cluster" if H <= 512 else "wide"
+        assert gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)["layout"] == layout
+        assert gru_scan.scan_bwd_plan(64, 24, H, dt)["layout"] == layout
 
 
-@pytest.mark.parametrize("H,kernel", [(512, True), (513, False)])
+@pytest.mark.parametrize("H,kernel", [(512, True), (513, True), (1024, True), (1025, False)])
 def test_unigru_routes_a_wide_layer_to_the_plain_scan(monkeypatch, caplog, H, kernel):
     """``use_pallas`` sends a layer to the scan kernels only where they hold
     its width; a wider one takes ``cell_layer_scan`` and is logged once."""

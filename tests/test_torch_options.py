@@ -251,8 +251,8 @@ def test_a_wide_decoder_layer_is_logged_naming_the_decoder(monkeypatch, caplog):
     monkeypatch.setattr(gru_mod, "_wide_logged", set())
     with caplog.at_level(logging.WARNING, logger=gru_mod.__name__):
         for role in ("decoder", "encoder", "decoder"):
-            assert gru_mod.scan_route(513, torch.float32, role) is False
+            assert gru_mod.scan_route(1025, torch.float32, role) is False
     msgs = [r.getMessage() for r in caplog.records]
     assert len(msgs) == 2
-    assert msgs[0].startswith("decoder GRU layer of 513 units")
-    assert msgs[1].startswith("encoder GRU layer of 513 units")
+    assert msgs[0].startswith("decoder GRU layer of 1025 units")
+    assert msgs[1].startswith("encoder GRU layer of 1025 units")

@@ -408,15 +408,22 @@ def test_make_mesh_refuses_what_would_hang_or_not_run():
 
 
 def test_serving_across_ranks_is_refused():
-    """The service answers on one rank; across ranks the others would wait
-    in its collectives: refused, naming ROADMAP.md item 5.10."""
+    """Serving across ranks (tests/test_torch_serve_ranks.py) refuses what
+    cannot be served there: an ensemble with tensor parallelism (JAX's
+    refusal), and a mesh without a process group, whose store carries rank
+    0's calls to the others."""
     from variational_mmt_torch.data.vocab import SPECIALS, Vocab
-    from variational_mmt_torch.serve import TranslationService
+    from variational_mmt_torch.serve import ServeConfig, TranslationService
 
     model = build_model(ModelConfig(**tp_cfg().model.__dict__), device="cpu")
     vocab = Vocab(SPECIALS + [f"w{i}" for i in range(V - 4)])
-    with pytest.raises(NotImplementedError, match="item 5.10"):
-        TranslationService(model, vocab, vocab, mesh=no_group_mesh(1, 2), device="cpu")
+    scfg = ServeConfig(warmup=False)
+    with pytest.raises(ValueError, match="ensemble decode does not compose"):
+        TranslationService([model, model], vocab, vocab, mesh=no_group_mesh(1, 2),
+                           device="cpu", scfg=scfg)
+    with pytest.raises(RuntimeError, match="process group"):
+        TranslationService(model, vocab, vocab, mesh=no_group_mesh(1, 2), device="cpu",
+                           scfg=scfg)
 
 
 def test_shard_batch_slices_every_leaf():

@@ -1,5 +1,6 @@
 """Rank processes for the port's parallel tests
-(tests/test_torch_parallel.py, tests/test_torch_parallel_decode.py).
+(tests/test_torch_parallel.py, tests/test_torch_parallel_decode.py,
+tests/test_torch_serve_ranks.py).
 
     python tests/torch_parallel_worker.py GROUP RANK WORLD DIR
 
@@ -9,7 +10,8 @@ once never race for a port), reading the test's inputs from
 DIR/inputs.pkl and writing {case: result} to DIR/out_RANK.pkl. It
 imports torch and the port, never JAX: the test compares the results with
 the JAX package in its own process. :func:`spawn` starts the ranks of a
-group and waits for them with a timeout.
+group and waits for them with a timeout. A test's inputs may set
+``timeout``: the seconds that bound the groups' collectives.
 """
 
 from __future__ import annotations
@@ -25,9 +27,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 
 
-def spawn(group: str, world: int, workdir: str, inputs: dict, timeout: float = 150.0) -> list:
+def spawn(group: str, world: int, workdir: str, inputs: dict, timeout: float = 150.0,
+          check: bool = True) -> list:
     """Run GROUP on ``world`` ranks; returns each rank's {case: result}.
-    Kills every rank and raises when one fails or the time runs out."""
+    Kills every rank and raises when one fails or the time runs out; with
+    ``check`` False returns each rank's exit code instead (-9: killed at
+    the timeout)."""
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
         pickle.dump(inputs, f)
@@ -50,6 +55,8 @@ def spawn(group: str, world: int, workdir: str, inputs: dict, timeout: float = 1
                 p.kill()
                 p.wait()
             log.close()
+    if not check:
+        return [p.returncode for p, _ in procs]
     bad = [r for r, (p, _) in enumerate(procs) if p.returncode != 0]
     if bad:
         logs = "\n".join(f"--- rank {r} (exit {procs[r][0].returncode}):\n"
@@ -312,16 +319,128 @@ def case_dp2(inp, meshes):
     return {"losses": losses}
 
 
+def _vocab(cfg):
+    from variational_mmt_torch.data.vocab import SPECIALS, Vocab
+
+    return Vocab(SPECIALS + [f"w{i}" for i in range(cfg.model.tgt_vocab_size - len(SPECIALS))])
+
+
+def _service(d: dict, mesh, depth: int = 2, dcfg: dict = None):
+    """A TranslationService on ``mesh`` (warm-up on: every rank replays it)."""
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.serve import ServeConfig, TranslationService
+
+    cfg = _cfg(d["cfg"])
+    return TranslationService(_model(cfg, d["tree"]), _vocab(cfg), _vocab(cfg),
+                              DecodeConfig(**(dcfg or d["dcfg"])), buckets=[8],
+                              scfg=ServeConfig(max_wait_ms=20.0, pipeline_depth=depth),
+                              mesh=mesh, device="cpu")
+
+
+def _served(svc, d: dict, sample_ids=None) -> list:
+    """Rank 0: each sentence of ``d`` a request, from 4 threads; the raw
+    n-best lists in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(i):
+        sid = None if sample_ids is None else [sample_ids[i]]
+        return svc.submit_ids_batch([d["src"][i]], d["img"][i:i + 1],
+                                    sample_ids=sid)[0].result(timeout=60)
+
+    with ThreadPoolExecutor(4) as ex:
+        return list(ex.map(one, range(len(d["src"]))))
+
+
+def case_serve(inp, meshes):
+    """TP-2 and DP-2 at pipeline depth 1 and 2: rank 0 serves 16 requests
+    from 4 threads, rank 1 follows; then the offline Translator on the same
+    mesh. On TP-2 at depth 2 a shed request, on DP-2 at depth 1 an idle
+    wait of 3 group timeouts before one more request; last, a sampling
+    service keyed by sample_ids on TP-2."""
+    import time
+
+    d = inp["serve"]
+    out = {}
+    for name in ("1x2", "2x1"):
+        mesh = meshes[name]
+        for depth in (1, 2):
+            svc = _service(d, mesh, depth)
+            if not mesh.is_main:
+                svc.follow()
+                continue
+            rec = {"served": _served(svc, d)}
+            if (name, depth) == ("1x2", 2):
+                dead = svc.submit_ids_batch([d["src"][0]], d["img"][:1], timeout_s=-1.0)[0]
+                live = svc.submit_ids_batch([d["src"][1]], d["img"][1:2])[0]
+                rec["after_shed"] = live.result(timeout=60)
+                try:
+                    dead.result(timeout=60)
+                    rec["shed"] = None
+                except TimeoutError as e:
+                    rec["shed"] = str(e)
+            if (name, depth) == ("2x1", 1):
+                time.sleep(3 * inp["timeout"])
+                rec["after_idle"] = svc.submit_ids_batch([d["src"][2]],
+                                                         d["img"][2:3])[0].result(timeout=60)
+            svc.stop()
+            rec["stats"] = dict(svc.stats)
+            out[(name, depth)] = rec
+        tr = _translator(d, mesh)
+        out[(name, "offline")] = tr.translate_ids(d["src"], d["img"])
+        tr.close()
+    svc = _service(d, meshes["1x2"], 2, d["sample_dcfg"])
+    if meshes["1x2"].is_main:
+        out["sampled"] = _served(svc, d, d["sample_ids"])
+        svc.stop()
+    else:
+        svc.follow()
+    return out
+
+
+def case_serve_fail(inp, meshes):
+    """Rank 1 raises in its first dispatch after the warm-up: rank 0's
+    request fails, and rank 0 exits 3 (rank 1 exits with the error)."""
+    d = inp["serve"]
+    mesh = meshes["1x2"]
+    svc = _service(d, mesh, 2)
+    if not mesh.is_main:
+        warm = svc.translator.dispatch_ids
+        calls = []
+
+        def broken(*a, **k):
+            calls.append(1)
+            if len(calls) > len(svc.translator.buckets):  # past the warm-up's
+                raise RuntimeError("injected failure on rank 1")
+            return warm(*a, **k)
+
+        svc.translator.dispatch_ids = broken
+        svc.follow()
+        return {}
+    fut = svc.submit_ids_batch([d["src"][0]], d["img"][:1])[0]
+    try:
+        fut.result(timeout=60)
+    except Exception as e:  # noqa: BLE001 — the failure this case expects
+        print(f"rank 0's request failed: {e!r}", flush=True)
+    svc.stop()
+    print(f"rank 0's service failure: {svc.failure!r}", flush=True)
+    os._exit(3 if svc.failure is not None else 0)
+
+
 GROUPS = {
     # world 4: the training cases on a 2x2 mesh and on DP-4
     "train": (("2x2", (2, 2)), ("4x1", (4, 1))),
     # world 2: decoding, IW, checkpoints (TP-2 and DP-2)
     "decode": (("1x2", (1, 2)), ("2x1", (2, 1))),
+    # world 2: serving across ranks (TP-2 and DP-2), and a failing rank
+    "serve": (("1x2", (1, 2)), ("2x1", (2, 1))),
+    "serve_fail": (("1x2", (1, 2)),),
 }
 CASES = {
     "train": (case_tp_train, case_tp_grads, case_tied, case_packed, case_dp4, case_eval,
               case_trainer, case_param_init),
     "decode": (case_decode, case_iw, case_checkpoint, case_dp2),
+    "serve": (case_serve,),
+    "serve_fail": (case_serve_fail,),
 }
 
 
@@ -339,7 +458,7 @@ def main(argv) -> int:
     for name, (n_data, n_model) in GROUPS[group]:
         meshes[name] = make_mesh(n_data, n_model, device="cpu", backend="gloo",
                                  init_method=f"file://{workdir}/store", rank=rank,
-                                 world_size=world)
+                                 world_size=world, timeout=inp.get("timeout"))
     out = {}
     for case in CASES[group]:
         t0 = time.time()

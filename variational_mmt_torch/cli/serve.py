@@ -13,10 +13,21 @@ It prints ``serving on http://HOST:PORT`` once it accepts requests (with
 ``-port 0`` the system picks the port). ``-infer_dtype bfloat16`` or
 ``int8`` serves with bfloat16 weights, or with int8 codes and per-column
 scales (the checkpoints are then read into host memory, and the card holds
-only the cast weights between requests). ``-tensor_parallel`` above 1 is
-refused, naming its ROADMAP.md item (queue 1, item 5.10: serving across
-ranks needs a front end on rank 0 whose batches the other ranks follow;
-item 5.8 ported training and offline decoding across ranks).
+only the cast weights between requests).
+
+Across ranks, under ``torchrun`` (README.md, "Across GPUs"):
+
+    torchrun --nproc_per_node 4 -m variational_mmt_torch.cli.serve -model ckpts/ \
+        -tensor_parallel 2 -port 8080
+
+serves on the mesh of WORLD_SIZE / N data x N model ranks
+(``-tensor_parallel N``, as JAX computes its data degree): rank 0 answers
+HTTP (``/health`` and the stats are its own) and every other rank follows
+its device calls (``TranslationService.follow``); ``-batch_size`` must
+divide by the data degree, an ensemble is refused, and so is WORLD_SIZE
+above 1 with ``-tensor_parallel 1`` (the port cannot leave a rank idle).
+SIGTERM (or Ctrl-C) to rank 0 stops every rank; a rank that fails ends the
+service, and the CLI exits non-zero.
 
 Dispatcher processes (``-procs``) are spawned and import this module
 again, so it imports nothing heavy at its top level.
@@ -25,6 +36,8 @@ again, so it imports nothing heavy at its top level.
 from __future__ import annotations
 
 import argparse
+import os
+import signal
 
 from variational_mmt_torch.config import DecodeConfig
 
@@ -73,7 +86,8 @@ def add_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("-no_lower", action="store_true")
     p.add_argument("-no_warmup", action="store_true")
     p.add_argument("-tensor_parallel", type=int, default=1,
-                   help=">1: vocab-parallel decode over several devices (not ported)")
+                   help=">1: serve decode on a 2-D (data, model) mesh with vocab-parallel "
+                        "embeddings+generator (under torchrun)")
     p.add_argument("-pipeline_depth", type=int, default=0, choices=[0, 1, 2],
                    help="worker pipeline depth: 0 = auto (serial on single-core "
                         "hosts, pipelined otherwise); 2 gathers and dispatches "
@@ -98,30 +112,48 @@ def add_args(p: argparse.ArgumentParser) -> None:
                    help="cuda (the default; an error without CUDA) or cpu")
 
 
-def refused(opt) -> list:
-    """(flag, ROADMAP.md item) of every option set that the port refuses."""
-    table = [("-tensor_parallel", opt.tensor_parallel > 1,
-              "queue 1, item 5.10; item 5.8 ported training and offline decoding across "
-              "ranks, not serving")]
-    return [(flag, item) for flag, on, item in table if on]
+ACROSS_GPUS = '(README.md, "Across GPUs")'
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser("vmmt-torch serve")
     add_args(p)
     opt = p.parse_args(argv)
-    bad = refused(opt)
-    if bad:
-        raise SystemExit("not ported yet: " + "; ".join(
-            f"{flag} (ROADMAP.md {item})" for flag, item in bad))
+    if opt.tensor_parallel > 1 and "," in opt.model:
+        raise SystemExit("-tensor_parallel: not supported with an ensemble — serve a "
+                         "single -model")
+    world = int(os.environ.get("WORLD_SIZE") or 1)
+    if world > 1 and opt.tensor_parallel <= 1:
+        raise SystemExit(f"WORLD_SIZE is {world}: serving across ranks takes -tensor_parallel "
+                         f"N > 1 with WORLD_SIZE = data ranks x N; -tensor_parallel 1 would "
+                         f"leave ranks idle {ACROSS_GPUS}")
 
-    from variational_mmt_torch.cli.loading import load_device, load_model_spec
-    from variational_mmt_torch.cli.train import cli_device
-    from variational_mmt_torch.data.bpe import BPE
-    from variational_mmt_torch.serve import (MPServingServer, ServeConfig, ServingServer,
-                                             TranslationService)
+    from variational_mmt_torch.cli.train import cli_device, cli_mesh, quiet_unless_main
 
     device = cli_device(opt.device)
+    mesh = cli_mesh(0, opt.tensor_parallel, device)
+    if mesh is not None and opt.batch_size % mesh.n_data:
+        mesh.close()
+        raise SystemExit(f"-batch_size {opt.batch_size} is not divisible by the "
+                         f"{mesh.n_data} data-parallel ranks: every rank decodes an equal "
+                         f"share of each batch; pick a multiple of {mesh.n_data}")
+    with quiet_unless_main(mesh):
+        serve(opt, mesh.device if mesh is not None else device, mesh)
+
+
+def _interrupt(signum, frame):
+    raise KeyboardInterrupt
+
+
+def serve(opt, device, mesh) -> None:
+    """The run of :func:`main` once its mesh is made (on every rank)."""
+    import _thread
+
+    from variational_mmt_torch.cli.loading import load_device, load_model_spec
+    from variational_mmt_torch.data.bpe import BPE
+    from variational_mmt_torch.serve import ServeConfig, TranslationService
+    from variational_mmt_torch.serve.ranks import RankFailed
+
     lm = load_model_spec(opt.model, use_ema=opt.use_ema,
                          device=load_device(device, opt.infer_dtype))
     if lm.ensemble:
@@ -143,10 +175,33 @@ def main(argv=None) -> None:
         max_src_tokens=opt.max_src_tokens, over_length=opt.over_length,
         pipeline_depth=opt.pipeline_depth)
     bpe = BPE.load(opt.bpe_codes) if opt.bpe_codes else None
+    if mesh is not None:  # JAX's line (:160)
+        print(f"serving over ({mesh.n_data} data x {mesh.n_model} model) mesh, "
+              f"{mesh.backend}; rank 0 is pid {os.getpid()}", flush=True)
     print("warming the decode shapes..." if scfg.warmup else "warmup skipped", flush=True)
     service = TranslationService(lm.translator_args(), lm.src_vocab, lm.tgt_vocab, dcfg,
                                  buckets=lm.cfgs[0].data.buckets or DEFAULT_BUCKETS, scfg=scfg,
-                                 bpe=bpe, device=device)
+                                 bpe=bpe, mesh=mesh, device=device)
+    if service.is_follower:
+        try:
+            service.follow()
+        except RankFailed as e:
+            raise SystemExit(f"serving ended: {e}") from None
+        return
+    # a failed rank interrupts serve_forever (or the dispatchers' wait)
+    service.on_failure = _thread.interrupt_main
+    old_term = signal.signal(signal.SIGTERM, _interrupt)
+    try:
+        _run_server(opt, service, lm, dcfg)
+    finally:
+        signal.signal(signal.SIGTERM, old_term)
+    if service.failure is not None:
+        raise SystemExit(f"serving ended: {service.failure!r}")
+
+
+def _run_server(opt, service, lm, dcfg) -> None:
+    from variational_mmt_torch.serve import MPServingServer, ServingServer
+
     # 'step' stays an int and 'model_type' a string; an ensemble's members
     # ride the plural fields
     types = [c.model.model_type for c in lm.cfgs]

@@ -364,7 +364,7 @@ def cli_mesh(num_shards: int, tensor_parallel: int, device: torch.device):
                             device=None if device.type == "cuda" else device,
                             backend=pm.backend_for(device))
     except ValueError as e:
-        raise SystemExit(f"{e} (ROADMAP.md item 5.8)") from None
+        raise SystemExit(f'{e} (README.md, "Across GPUs")') from None
 
 
 def quiet_unless_main(mesh) -> contextlib.ExitStack:

@@ -48,6 +48,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "vmmt_gru_scan_bwd": [_I] + [_P] * 16 + [_I] * 8 + [_P],
         # dtype, H, cluster, units, rows, out: max active clusters, smem bytes
         "vmmt_gru_scan_bwd_occupancy": [_I] * 5 + [_P] * 2,
+        # the wide plan (H > 512): dtype, x_proj, mask, reset, h0, wh, bh,
+        # outs, final, exchange scratch, B, T, H, reverse, units, rows,
+        # row_tiles, stream
+        "vmmt_gru_wide": [_I] + [_P] * 9 + [_I] * 7 + [_P],
+        # dtype, the backward's 16 pointers, exchange scratch, B, T, H,
+        # reverse, units, rows, row_tiles, dWh splits, stream
+        "vmmt_gru_wide_bwd": [_I] + [_P] * 17 + [_I] * 8 + [_P],
+        # dtype, pass (0 forward, 1 backward), H, units, rows, out: max
+        # co-resident CTAs, smem bytes
+        "vmmt_gru_wide_occupancy": [_I] * 5 + [_P] * 2,
     },
     "decoder": {
         # dtype, emb_proj, dmid, h00, h01, wfeed, wh0, bh0, wmid, bmid, wh1,
@@ -83,6 +93,19 @@ SMEM_PER_BLOCK = 232_448  # dynamic shared memory one block may use on an H100 (
 
 def align16(n: int) -> int:
     return (n + 15) & ~15
+
+
+def pad32(k: int) -> int:
+    return (k + 31) & ~31
+
+
+def frag_ld(k: int, bf16: bool) -> int:
+    """Row stride of a weight slice that ``block_product`` reads from
+    shared memory (``frag_ld`` of csrc/block_product.cuh): K padded to 32
+    and, in bf16, to an odd multiple of 64 bytes for conflict-free 16-byte
+    reads."""
+    k = pad32(k)
+    return k + (96 - k % 64) % 64 if bf16 else k
 
 
 def _nvcc() -> str:

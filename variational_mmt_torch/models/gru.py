@@ -147,7 +147,7 @@ class UniGRU(nn.Module):
     (B,H) for GRU, (B,2H) ``[h | c]`` for LSTM (``cell_type``), whose
     weights are (H,4H). With ``use_pallas`` a GRU layer runs in the GRU-scan
     kernels (ops/gru_scan.py), as the JAX package runs its Pallas kernel,
-    where they hold the width (``scan_kernel_holds``: H <= 512); a wider
+    where they hold the width (``scan_kernel_holds``: H <= 1024); a wider
     layer takes the plain scan, logged once, naming ``role`` (the encoder,
     the target encoder). An LSTM layer always takes the plain scan: the JAX
     package has no LSTM kernel and routes it the same way (JAX :185,

@@ -226,7 +226,7 @@ def decoder_fwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     # the rounded h0' (two steps), h1', dmid * h0' and attn that the CTAs
     # exchange, rows padded to 32; the attention context and a grid
     # barrier's counter
-    tscratch = torch.empty((5, B, _pad32(H)), dtype=dt, device=dev)
+    tscratch = torch.empty((5, B, kernels.pad32(H)), dtype=dt, device=dev)
     fscratch = torch.empty((B * H + 1,), dtype=f32, device=dev)
     err = lib.vmmt_decoder_fwd(code, *(a.data_ptr() for a in ins + [mb]),
                                *(o.data_ptr() for o in outs), tscratch.data_ptr(),
@@ -240,10 +240,6 @@ def decoder_fwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
 DEC_UNITS = {torch.bfloat16: 8, torch.float32: 4}  # hidden units per CTA, both passes
 DEC_WARPS = 8  # warps of a CTA (kDecWarps of csrc/decoder.cu)
 DEC_PHASES = 4  # grid-barrier phases of a step (kDecPhases)
-
-
-def _pad32(k: int) -> int:
-    return (k + 31) & ~31
 
 
 def probe_len(T: int) -> int:
@@ -269,14 +265,6 @@ def _tiling(what: str, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     row_tiles = -(-B // rows)
     grid = max(unit_tiles * row_tiles, min(B, sms))
     return dict(units=units, rows=rows, unit_tiles=unit_tiles, row_tiles=row_tiles, grid=grid)
-
-
-def _frag_ld(k: int, bf16: bool) -> int:
-    """Row stride of a weight slice in shared memory (frag_ld of
-    csrc/decoder.cu): K padded to 32 and, in bf16, to an odd multiple of 64
-    bytes for conflict-free 16-byte reads."""
-    k = _pad32(k)
-    return k + (96 - k % 64) % 64 if bf16 else k
 
 
 def _checked_smem(what: str, smem: int, B: int, S: int, H: int) -> int:
@@ -305,7 +293,7 @@ def decoder_fwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> di
     tsize = torch.finfo(dtype).bits // 8
     rows, units = plan["rows"], plan["units"]
     tile = 8 if bf16 else 4
-    ldw = _frag_ld(H, bf16)
+    ldw = kernels.frag_ld(H, bf16)
     prod_rows = max(DEC_WARPS * 16, rows) if bf16 else rows
     a16 = kernels.align16
     smem = (4 * a16(3 * tile * ldw * tsize) + a16(tile * ldw * tsize) + prod_rows * 4 * 8 * 4
@@ -329,8 +317,8 @@ def decoder_bwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> di
     rows, units = plan["rows"], plan["units"]
     wrows = 8 if bf16 else units
     prod_rows = max(DEC_WARPS * 16, rows) if bf16 else rows
-    smem = (kernels.align16(wrows * _frag_ld(H, bf16) * tsize)
-            + 4 * kernels.align16(wrows * _frag_ld(3 * H, bf16) * tsize)
+    smem = (kernels.align16(wrows * kernels.frag_ld(H, bf16) * tsize)
+            + 4 * kernels.align16(wrows * kernels.frag_ld(3 * H, bf16) * tsize)
             + prod_rows * 8 * 4 + 2 * kernels.align16(rows * units * 4)
             + kernels.align16((H + 2 * S) * 4))
     return dict(plan, padded=H, smem=_checked_smem("decoder_bwd", smem, B, S, H))
@@ -406,7 +394,8 @@ def decoder_bwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     gates = torch.empty((4, B, T, 3 * H), dtype=f32, device=dev)  # hoisted gate products
     fscratch = torch.empty((2, B, H), dtype=f32, device=dev)  # dfeed, attention part of dh1'
     # pre and the four local gradients of a step, rounded, rows padded to 32
-    tscratch = torch.empty((B * (_pad32(H) + 4 * _pad32(3 * H)),), dtype=dt, device=dev)
+    tscratch = torch.empty((B * (kernels.pad32(H) + 4 * kernels.pad32(3 * H)),), dtype=dt,
+                           device=dev)
     err = lib.vmmt_decoder_bwd(code, *(a.data_ptr() for a in ins + extra),
                                *(o.data_ptr() for o in outs), gates.data_ptr(),
                                fscratch.data_ptr(), tscratch.data_ptr(), probe_ptr, B, T, S, H,

@@ -58,9 +58,31 @@ same launch, deterministically. :func:`scan_bwd_plan` sizes the
 clusters and shared memory and refuses what the design cannot hold; the
 wrapper checks with the card that a cluster fits.
 
-Widths. Both kernels take H <= 512 in bf16 and f32
-(:func:`scan_kernel_holds`); ``UniGRU`` asks it before the call and sends a
-wider layer to the plain scan.
+Source note, the wide plan (H from 513 to 1024, ``vmmt_gru_wide`` and
+``vmmt_gru_wide_bwd`` in the same source). Above 512 units the three gate
+blocks of Wh no longer fit one cluster of 16 CTAs: at H = 1024 Wh is 6.3 MB
+in bf16 (12.6 MB in f32). The wide plan spreads its 3H columns over the
+whole card, as the decoder kernels (rows 5 and 6) spread theirs: a
+persistent cooperative kernel whose CTAs each own 8 units in bf16 (one
+mma n-tile; 128 CTAs at H = 1024, 49 KB of Wh each) or 4 in f32 (256 CTAs,
+two an SM), of a tile of batch rows, and keep those units' columns of Wh in
+shared memory for the call. h_{t-1} crosses CTAs through global memory
+(L2): each step writes its units of round(h') into one of two exchange
+buffers, waits at one grid barrier, and the next step's product streams
+the (rows, H) state from L2 straight into the mma fragments (the CTA never
+holds it whole: 256 KB at B = 64, H = 1024 in f32). The backward's
+serial part runs the same way on round(dh_proj), (rows, 3H) a step; its
+hoisted gate recompute and its dWh product are the cluster plan's
+(``tile_gemm.cuh`` takes any shape). Batches above 256 rows a CTA run in
+chunks, one launch each. :func:`scan_fwd_plan` and :func:`scan_bwd_plan`
+plan it (``layout`` ``"wide"``); the wrapper checks with the card that
+the grid is co-resident and raises ``NotImplementedError`` naming the plan
+when it is not.
+
+Widths. Both kernels take H <= 1024 in bf16 and f32
+(:func:`scan_kernel_holds`): clusters up to 512 units, the wide plan
+above. ``UniGRU`` asks it before the call and sends a wider layer to the
+plain scan.
 """
 
 from __future__ import annotations
@@ -138,15 +160,25 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     lib = kernels.library("gru_scan")
     plan = scan_fwd_plan(B, T, H, dt, kernels.sm_count(x.device.index))
     code = kernels.DTYPE_CODE[dt]
-    co_resident, smem = kernels.occupancy(x.device.index, "gru_scan", "vmmt_gru_scan_occupancy",
-                                          code, H, plan["cluster"], plan["rows"])
-    _check_cluster("gru_layer_scan", plan, co_resident, smem)
-    gru_layer_scan.plan = dict(plan, max_active_clusters=co_resident,
-                               one_wave=co_resident >= plan["clusters"])
-    err = lib.vmmt_gru_scan(code, x.data_ptr(), m.data_ptr(), _ptr(r), h.data_ptr(),
-                            w.data_ptr(), b.data_ptr(), outs.data_ptr(), final.data_ptr(), B, T,
-                            H, int(reverse), plan["cluster"], plan["units"], plan["rows"],
-                            kernels.stream_of(x))
+    if plan["layout"] == "wide":
+        gru_layer_scan.plan = _co_resident_wide("gru_layer_scan", 0, plan, code, H,
+                                                x.device.index)
+        xch = _exchange(plan, H, dt, x.device)
+        err = lib.vmmt_gru_wide(code, x.data_ptr(), m.data_ptr(), _ptr(r), h.data_ptr(),
+                                w.data_ptr(), b.data_ptr(), outs.data_ptr(), final.data_ptr(),
+                                xch.data_ptr(), B, T, H, int(reverse), plan["units"],
+                                plan["rows"], plan["row_tiles"], kernels.stream_of(x))
+    else:
+        co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
+                                              "vmmt_gru_scan_occupancy", code, H,
+                                              plan["cluster"], plan["rows"])
+        _check_cluster("gru_layer_scan", plan, co_resident, smem)
+        gru_layer_scan.plan = dict(plan, max_active_clusters=co_resident,
+                                   one_wave=co_resident >= plan["clusters"])
+        err = lib.vmmt_gru_scan(code, x.data_ptr(), m.data_ptr(), _ptr(r), h.data_ptr(),
+                                w.data_ptr(), b.data_ptr(), outs.data_ptr(), final.data_ptr(),
+                                B, T, H, int(reverse), plan["cluster"], plan["units"],
+                                plan["rows"], kernels.stream_of(x))
     kernels.check(lib, err, "gru_layer_scan")
     gru_layer_scan.launches += 1
     gru_layer_scan.reset_launches += r is not None
@@ -171,6 +203,31 @@ def _check_cluster(what: str, plan: dict, co_resident: int, smem: int) -> None:
     if co_resident < 1:
         raise NotImplementedError(f"{what} kernel: a cluster of {plan['cluster']} CTAs with "
                                   f"{smem} bytes of shared memory each does not fit the card")
+
+
+def _co_resident_wide(what: str, pass_: int, plan: dict, code: int, H: int,
+                      device: int) -> dict:
+    """A wide ``plan`` checked against the kernel's own shared-memory count
+    and the card's count of co-resident CTAs, with that count."""
+    co_resident, smem = kernels.occupancy(device, "gru_scan", "vmmt_gru_wide_occupancy", code,
+                                          pass_, H, plan["units"], plan["rows"])
+    if smem != plan["smem"]:
+        raise RuntimeError(f"{what} kernel: plan of {plan['smem']} bytes of shared memory, "
+                           f"the kernel takes {smem}")
+    if plan["grid"] > co_resident:
+        raise NotImplementedError(
+            f"{what} kernel: the wide plan's {plan['grid']} CTAs ({plan['unit_tiles']} tiles "
+            f"of {plan['units']} units x {plan['row_tiles']} of {plan['rows']} rows) with "
+            f"{smem} bytes of shared memory each exceed the {co_resident} the card holds "
+            "at once")
+    return dict(plan, max_co_resident=co_resident)
+
+
+def _exchange(plan: dict, width: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The wide kernels' two exchange buffers for one chunk of rows, rows
+    of ``width`` padded to 32, in the compute dtype."""
+    return torch.empty((2 * plan["rows"] * plan["row_tiles"] * kernels.pad32(width),),
+                       dtype=dtype, device=device)
 
 
 def _prev_states(h0: torch.Tensor, outs: torch.Tensor, reverse: bool) -> torch.Tensor:
@@ -230,7 +287,14 @@ SCAN_FWD_SLOTS = 8  # batch-row slots of the forward's state buffers (kFwdSlots)
 SCAN_FWD_FEW_SLOTS = 4  # f32 where 8 slots do not fit (kFwdFewSlots)
 SCAN_FWD_PARTS = 4  # K split of the forward's step product (kFwdParts)
 SCAN_FWD_SMALL_ROWS = 4  # rows per cluster while the grid stays within one CTA an SM
-SCAN_MAX_HIDDEN = SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS  # 512: the widest a cluster holds
+# 512: the widest a cluster holds
+SCAN_CLUSTER_MAX_HIDDEN = SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS
+SCAN_MAX_HIDDEN = 1024  # the widest the wide plan takes (both dtypes)
+SCAN_WIDE_UNITS = {torch.bfloat16: 8, torch.float32: 4}  # units of a wide CTA (tile_rows)
+SCAN_WIDE_MAX_ROWS = 256  # batch rows of a wide CTA; more rows run in chunks
+SCAN_WIDE_WARPS = 8  # warps of a wide CTA (kDecWarps of csrc/block_product.cuh)
+H100_SMS = 132  # SMs of an H100 SXM: what scan_kernel_holds, a pure function, plans for
+SMEM_PER_SM = 233_472  # shared memory of an H100 SM, 1 KB of it reserved per CTA
 
 
 def _mma_ld(k: int) -> int:
@@ -245,7 +309,7 @@ def _mma_ld(k: int) -> int:
 def _cluster_units(what: str, H: int) -> Tuple[int, int]:
     """(CTAs of a cluster, hidden units of a CTA) for H units, or
     NotImplementedError when one cluster cannot hold them."""
-    if not 1 <= H <= SCAN_MAX_HIDDEN:
+    if not 1 <= H <= SCAN_CLUSTER_MAX_HIDDEN:
         raise NotImplementedError(
             f"{what} kernel: hidden {H} needs more than {SCAN_BWD_MAX_CLUSTER} "
             f"CTAs of {SCAN_BWD_UNITS} units in a cluster")
@@ -294,15 +358,62 @@ def _bwd_rows(H: int, dtype: torch.dtype, units: int) -> int:
     return SCAN_BWD_ROWS
 
 
+def _wide_smem(pass_: int, H: int, dtype: torch.dtype, rows: int) -> int:
+    """Shared memory of a wide CTA of ``rows`` batch rows (``WideFwdLayout``
+    and ``WideBwdLayout`` of csrc/gru_scan.cu). Forward: its units' three
+    gate columns of Wh as (3 tile rows, K) slices at the padded stride, the
+    product buffer (3 n-tiles of 8 floats a row, room for 8 warps' K-split
+    partial sums of 16 rows in bf16) and the f32 carry. Backward: its units'
+    rows of Wh (K = 3H), one n-tile of product and the f32 dh and dh_part."""
+    bf16 = dtype == torch.bfloat16
+    tsize = torch.finfo(dtype).bits // 8
+    units = SCAN_WIDE_UNITS[dtype]
+    prod_rows = max(SCAN_WIDE_WARPS * 16, rows) if bf16 else rows
+    carry = kernels.align16(rows * units * 4)
+    if pass_ == 0:
+        return (kernels.align16(3 * units * kernels.frag_ld(H, bf16) * tsize)
+                + prod_rows * 3 * 8 * 4 + carry)
+    return kernels.align16(units * kernels.frag_ld(3 * H, bf16) * tsize) + prod_rows * 8 * 4 \
+        + 2 * carry
+
+
+def _wide_plan(what: str, pass_: int, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The wide plan of pass 0 (forward) or 1 (backward): ``unit_tiles``
+    CTAs of ``units`` units (8 in bf16, 4 in f32) times ``row_tiles`` of
+    ``rows`` batch rows (a multiple of 16, at most 256; row tiles halve
+    what each CTA reads of the state, as long as the grid stays within a
+    CTA an SM), ``grid`` CTAs a launch, ``chunks`` launches a call."""
+    units = SCAN_WIDE_UNITS[dtype]
+    unit_tiles = -(-H // units)
+    B = max(B, 1)
+    row_tiles = max(1, min(-(-B // 16), sms // unit_tiles))
+    rows = min(kernels.align16(-(-B // row_tiles)), SCAN_WIDE_MAX_ROWS)
+    row_tiles = min(row_tiles, -(-B // rows))
+    smem = _wide_smem(pass_, H, dtype, rows)
+    if smem > kernels.SMEM_PER_BLOCK:
+        raise NotImplementedError(f"{what} kernel: the wide plan's {smem} bytes of shared "
+                                  f"memory per CTA exceed {kernels.SMEM_PER_BLOCK}")
+    grid = unit_tiles * row_tiles
+    return dict(layout="wide", units=units, rows=rows, unit_tiles=unit_tiles,
+                row_tiles=row_tiles, grid=grid, ctas=grid,
+                chunks=-(-B // (rows * row_tiles)), smem=smem)
+
+
 def scan_kernel_holds(H: int, dtype: torch.dtype) -> bool:
     """Whether both scan kernels (forward and backward) compute a layer of
-    H units in ``dtype`` at every batch size: H <= 512 (16 CTAs of 32
-    units, the largest cluster), and both CTAs' shared memory within the
-    card's. ``UniGRU`` asks this before it sends a layer to the kernels;
-    above 512 units the Wh slice of 3 x 32 columns no longer fits one
-    cluster, and the layer takes the plain scan."""
+    H units in ``dtype`` at every batch size: H <= 1024. Up to 512 units on
+    clusters (16 CTAs of 32 units, the largest cluster) with both CTAs'
+    shared memory within the card's; above, on the wide plan, whose CTAs
+    at the most rows fit the card's shared memory, two an SM where the
+    grid exceeds an H100's 132 SMs. ``UniGRU`` asks this before it sends
+    a layer to the kernels; a wider layer takes the plain scan."""
     if dtype not in kernels.DTYPE_CODE or not 1 <= H <= SCAN_MAX_HIDDEN:
         return False
+    if H > SCAN_CLUSTER_MAX_HIDDEN:
+        per_sm = 1 if -(-H // SCAN_WIDE_UNITS[dtype]) <= H100_SMS else 2
+        return all(per_sm * (_wide_smem(p, H, dtype, SCAN_WIDE_MAX_ROWS) + 1024) <= SMEM_PER_SM
+                   and _wide_smem(p, H, dtype, SCAN_WIDE_MAX_ROWS) <= kernels.SMEM_PER_BLOCK
+                   for p in (0, 1))
     cluster, units = _cluster_units("gru_layer_scan", H)
     return (_fwd_smem(H, dtype, SCAN_FWD_FEW_SLOTS) <= kernels.SMEM_PER_BLOCK
             and _bwd_smem(H, dtype, units, _bwd_rows(H, dtype, units))
@@ -311,15 +422,18 @@ def scan_kernel_holds(H: int, dtype: torch.dtype) -> bool:
 
 def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     """Launch plan of the forward for B rows, T steps and H units on a card
-    of ``sms`` SMs: clusters of ``cluster`` CTAs (up to 16), each owning
-    ``units`` hidden units of ``rows`` batch rows, with ``smem`` bytes of
-    dynamic shared memory per CTA (:func:`_fwd_smem`, mirrors ``FwdLayout``
-    of csrc/gru_scan.cu).
+    of ``sms`` SMs. Up to 512 units (``layout`` ``"cluster"``): clusters of
+    ``cluster`` CTAs (up to 16), each owning ``units`` hidden units of
+    ``rows`` batch rows, with ``smem`` bytes of dynamic shared memory per
+    CTA (:func:`_fwd_smem`, mirrors ``FwdLayout`` of csrc/gru_scan.cu).
     ``rows`` is 4 while the grid fits one CTA an SM of the card, else 8
     (the mma's columns); in f32 also 4 where 8 row slots do not fit (H >
-    448). Raises NotImplementedError for what the design cannot hold."""
+    448). From 513 to 1024 units the wide plan (:func:`_wide_plan`).
+    Raises NotImplementedError for what the design cannot hold."""
     if dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"gru_layer_scan kernel: dtype {dtype}")
+    if SCAN_CLUSTER_MAX_HIDDEN < H <= SCAN_MAX_HIDDEN:
+        return _wide_plan("gru_layer_scan", 0, B, H, dtype, sms)
     cluster, units = _cluster_units("gru_layer_scan", H)
     rows = SCAN_FWD_SMALL_ROWS
     if -(-B // rows) * cluster > sms and _fwd_smem(H, dtype, SCAN_FWD_SLOTS) \
@@ -330,20 +444,27 @@ def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
         raise NotImplementedError(f"gru_layer_scan kernel: {smem} bytes of shared memory "
                                   f"per CTA exceed {kernels.SMEM_PER_BLOCK}")
     clusters = -(-B // rows)
-    return dict(cluster=cluster, rows=rows, units=units, clusters=clusters,
+    return dict(layout="cluster", cluster=cluster, rows=rows, units=units, clusters=clusters,
                 ctas=clusters * cluster, threads=3 * SCAN_BWD_UNITS * SCAN_FWD_PARTS, smem=smem)
 
 
-def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
-    """Launch plan of the backward for B rows, T steps and H units: clusters
-    of ``cluster`` CTAs (up to 16), each owning ``units`` hidden units of
-    ``rows`` batch rows (4, or 2 in f32 above 448 units), with ``smem`` bytes
-    of dynamic shared memory per CTA (:func:`_bwd_smem`, mirrors
-    ``ScanLayout`` of csrc/gru_scan.cu); and the dWh product's 64 x 64
-    tiles, each split over ``dwh_splits`` blocks along K = B*T. Raises
+def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SMS) -> dict:
+    """Launch plan of the backward for B rows, T steps and H units on a
+    card of ``sms`` SMs. Up to 512 units (``layout`` ``"cluster"``):
+    clusters of ``cluster`` CTAs (up to 16), each owning ``units`` hidden
+    units of ``rows`` batch rows (4, or 2 in f32 above 448 units), with
+    ``smem`` bytes of dynamic shared memory per CTA (:func:`_bwd_smem`,
+    mirrors ``ScanLayout`` of csrc/gru_scan.cu); from 513 to 1024 units the
+    wide plan (:func:`_wide_plan`). Both with the dWh product's 64 x 64
+    tiles, each split over ``dwh_splits`` blocks along K = B*T (1 on the
+    wide plan, whose 243 or more tiles fill the card). Raises
     NotImplementedError for what the design cannot hold."""
     if dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"gru_layer_scan_bwd kernel: dtype {dtype}")
+    dwh_tiles = -(-H // 64) * -(-3 * H // 64)
+    if SCAN_CLUSTER_MAX_HIDDEN < H <= SCAN_MAX_HIDDEN:
+        return dict(_wide_plan("gru_layer_scan_bwd", 1, B, H, dtype, sms), dwh_tiles=dwh_tiles,
+                    dwh_splits=1)
     cluster, units = _cluster_units("gru_layer_scan_bwd", H)
     rows = _bwd_rows(H, dtype, units)
     smem = _bwd_smem(H, dtype, units, rows)
@@ -351,9 +472,8 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype) -> dict:
         raise NotImplementedError(f"gru_layer_scan_bwd kernel: {smem} bytes of shared memory "
                                   f"per CTA exceed {kernels.SMEM_PER_BLOCK}")
     clusters = -(-B // rows)
-    dwh_tiles = -(-H // 64) * -(-3 * H // 64)
     dwh_splits = max(1, min(8, -(-B * T // 32) // 4))
-    return dict(cluster=cluster, rows=rows, units=units, clusters=clusters,
+    return dict(layout="cluster", cluster=cluster, rows=rows, units=units, clusters=clusters,
                 ctas=clusters * cluster, smem=smem, dwh_tiles=dwh_tiles, dwh_splits=dwh_splits)
 
 
@@ -379,7 +499,8 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
             or tuple(g.shape) != (B, T, H) \
             or (reset is not None and tuple(reset.shape) != (B, T)):
         raise ValueError("gru_layer_scan_bwd kernel: shapes do not match x_proj (B,T,3H)")
-    plan = scan_bwd_plan(B, T, H, dt)
+    lib = kernels.library("gru_scan")
+    plan = scan_bwd_plan(B, T, H, dt, kernels.sm_count(x_proj.device.index))
     f32 = torch.float32
     x = x_proj.contiguous()
     args = [x, mask.to(f32).contiguous(), h0.to(f32).contiguous(), Wh.contiguous(),
@@ -399,19 +520,26 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     partial = torch.empty((tiles * splits * 64 * 64 if splits > 1 else 1,), dtype=f32,
                           device=x.device)
     counters = torch.zeros((tiles,), dtype=torch.int32, device=x.device)
-    lib = kernels.library("gru_scan")
     code = kernels.DTYPE_CODE[dt]
-    co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
-                                          "vmmt_gru_scan_bwd_occupancy", code, H,
-                                          plan["cluster"], plan["units"], plan["rows"])
-    _check_cluster("gru_layer_scan_bwd", plan, co_resident, smem)
-    gru_layer_scan_bwd.plan = dict(plan, max_active_clusters=co_resident,
-                                   one_wave=co_resident >= plan["clusters"])
-    err = lib.vmmt_gru_scan_bwd(code, *map(_ptr, args), dx.data_ptr(),
-                                dh0.data_ptr(), dWh.data_ptr(), dbh.data_ptr(), hp.data_ptr(),
-                                dhn.data_ptr(), partial.data_ptr(), counters.data_ptr(), B, T, H,
-                                int(reverse), plan["cluster"], plan["units"], plan["rows"],
-                                splits, kernels.stream_of(x))
+    outputs = (dx.data_ptr(), dh0.data_ptr(), dWh.data_ptr(), dbh.data_ptr(), hp.data_ptr(),
+               dhn.data_ptr(), partial.data_ptr(), counters.data_ptr())
+    if plan["layout"] == "wide":
+        gru_layer_scan_bwd.plan = _co_resident_wide("gru_layer_scan_bwd", 1, plan, code, H,
+                                                    x.device.index)
+        xch = _exchange(plan, H3, dt, x.device)
+        err = lib.vmmt_gru_wide_bwd(code, *map(_ptr, args), *outputs, xch.data_ptr(), B, T, H,
+                                    int(reverse), plan["units"], plan["rows"],
+                                    plan["row_tiles"], splits, kernels.stream_of(x))
+    else:
+        co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
+                                              "vmmt_gru_scan_bwd_occupancy", code, H,
+                                              plan["cluster"], plan["units"], plan["rows"])
+        _check_cluster("gru_layer_scan_bwd", plan, co_resident, smem)
+        gru_layer_scan_bwd.plan = dict(plan, max_active_clusters=co_resident,
+                                       one_wave=co_resident >= plan["clusters"])
+        err = lib.vmmt_gru_scan_bwd(code, *map(_ptr, args), *outputs, B, T, H, int(reverse),
+                                    plan["cluster"], plan["units"], plan["rows"], splits,
+                                    kernels.stream_of(x))
     kernels.check(lib, err, "gru_layer_scan_bwd")
     gru_layer_scan_bwd.launches += 1
     gru_layer_scan_bwd.reset_launches += r is not None

@@ -27,6 +27,7 @@ the wire.
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 from typing import Any, List, Optional, Union
 
@@ -84,7 +85,8 @@ def _env_int(name: str) -> Optional[int]:
 
 def make_mesh(num_shards: int = 0, tensor_parallel: int = 1, device=None,
               backend: Optional[str] = None, init_method: Optional[str] = None,
-              rank: Optional[int] = None, world_size: Optional[int] = None) -> Mesh:
+              rank: Optional[int] = None, world_size: Optional[int] = None,
+              timeout: Optional[float] = None) -> Mesh:
     """The mesh of ``num_shards`` data shards (0: ``WORLD_SIZE //
     tensor_parallel``, as JAX's 0 means every device) by
     ``tensor_parallel`` model shards over the process group, which this
@@ -93,6 +95,8 @@ def make_mesh(num_shards: int = 0, tensor_parallel: int = 1, device=None,
     ``env://``. ``device`` defaults to ``cuda:LOCAL_RANK``; ``backend``
     (``nccl`` | ``gloo``) defaults to :func:`backend_for` the device, and
     ``nccl`` on a build without it is an error, never a switch to gloo.
+    ``timeout`` (seconds) bounds every collective of the process group and
+    of the mesh's groups (None: PyTorch's default for the backend).
     Every rank must call this, with the same arguments, in the same order
     as its other ``make_mesh`` calls."""
     if tensor_parallel < 1 or num_shards < 0:
@@ -144,18 +148,19 @@ def make_mesh(num_shards: int = 0, tensor_parallel: int = 1, device=None,
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.set_device(dev)
+    limit = None if timeout is None else datetime.timedelta(seconds=timeout)
     if not dist.is_initialized():
         dist.init_process_group(backend, init_method=init_method or "env://", rank=rank,
-                                world_size=world)
+                                world_size=world, timeout=limit)
         started = True
     # every rank creates every group, in the same order
     data_group = model_group = None
     for m in range(n_model):
-        g = dist.new_group([d * n_model + m for d in range(n_data)])
+        g = dist.new_group([d * n_model + m for d in range(n_data)], timeout=limit)
         if m == rank % n_model:
             data_group = g
     for d in range(n_data):
-        g = dist.new_group([d * n_model + m for m in range(n_model)])
+        g = dist.new_group([d * n_model + m for m in range(n_model)], timeout=limit)
         if d == rank // n_model:
             model_group = g
     return Mesh(n_data=n_data, n_model=n_model, rank=rank, device=dev, backend=backend,

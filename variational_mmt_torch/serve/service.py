@@ -11,6 +11,20 @@ dispatches the group through ``Translator.dispatch_ids``, which hands it
 to the translator's device thread; with ``pipeline_depth`` 2 it gathers
 the next group while that one runs. Tokenization and vocab encoding run on
 the caller's thread at submit time.
+
+Across ranks (``mesh``, one process a rank under ``torchrun``, as the
+offline mesh path of ``Translator`` runs): rank 0 owns the queue, the
+batcher, the HTTP front end and the stats; every other rank calls
+:meth:`TranslationService.follow`, which replays rank 0's device calls in
+rank 0's order from the control channel of ``serve/ranks.py``. Rank 0
+sends each ``dispatch_ids`` with its payload (ids, features, stream ids,
+seed) and each ``finalize_ids`` after it has decided them (shedding and
+validation stay on rank 0, and the followers never re-derive the
+depth-2 worker's timing), under one lock, so that the collectives inside
+(the TP gather of each step's logits on the device thread, the n-best
+gather of the data ranks on the worker) run in the same order on every
+rank. A device error on any rank ends the whole service: rank 0 fails the
+pending requests and calls ``on_failure``; a follower raises.
 """
 
 from __future__ import annotations
@@ -19,11 +33,13 @@ import os
 import queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from variational_mmt_torch.cli.loading import consumes_decode_feats
 from variational_mmt_torch.config import DecodeConfig
@@ -32,6 +48,7 @@ from variational_mmt_torch.data.tokenizer import tokenize
 from variational_mmt_torch.data.vocab import Vocab
 from variational_mmt_torch.decode.translator import Translator
 from variational_mmt_torch.serve.errors import ClientError
+from variational_mmt_torch.serve.ranks import RankChannel, RankFailed
 
 
 @dataclass
@@ -59,6 +76,14 @@ class ServeConfig:
         return 1 if (os.cpu_count() or 1) <= 1 else 2
 
 
+def _own_device(device: torch.device) -> None:
+    """Make ``device`` this thread's current CUDA device when it names one
+    (a mesh's device does: the data ranks' n-best gather runs on the
+    calling thread)."""
+    if device.type == "cuda" and device.index is not None:
+        torch.cuda.set_device(device)
+
+
 @dataclass
 class _Request:
     ids: List[int]  # vocab-encoded source (encoded on the caller's thread)
@@ -82,19 +107,17 @@ class TranslationService:
     / :meth:`translate_text`; one worker dispatches to the translator's
     device thread. ``model`` is a model or a list of them (an ensemble,
     whose vocabs and vmmt_c image interfaces the caller has checked);
-    ``device`` is the Translator's (cuda unless 'cpu'). ``mesh`` is refused:
-    serving across ranks needs every rank to follow rank 0's batches
-    (ROADMAP.md queue 1, item 5.10)."""
+    ``device`` is the Translator's (cuda unless 'cpu'). ``mesh``: serve
+    across the mesh's ranks (module docstring); every rank builds the
+    service with the same arguments, rank 0 serves, the others call
+    :meth:`follow`. ``failure`` holds what ended the service, and
+    ``on_failure`` (if set) is called once on rank 0 when that happens."""
 
     def __init__(self, model, src_vocab: Vocab, tgt_vocab: Vocab,
                  dcfg: Optional[DecodeConfig] = None,
                  buckets: Sequence[int] = (16, 24, 32, 48, 64),
                  scfg: Optional[ServeConfig] = None, bpe: Optional[BPE] = None, mesh=None,
                  device=None):
-        if mesh is not None:
-            raise NotImplementedError("serving across ranks is not ported yet: the other "
-                                      "ranks would wait in rank 0's collectives "
-                                      "(ROADMAP.md queue 1, item 5.10)")
         self.dcfg = dcfg or DecodeConfig()
         self.scfg = scfg or ServeConfig()
         # resolved once, so the worker and the stats report one mode
@@ -120,6 +143,13 @@ class TranslationService:
         self.translator = Translator(model, src_vocab, tgt_vocab, self.dcfg, buckets=buckets,
                                      mesh=mesh, device=device)
         self._samples = self.dcfg.sampling_temp > 0.0 or self.dcfg.latent_from == "sample"
+        self.failure: Optional[BaseException] = None
+        self.on_failure = None
+        self._op_lock = threading.Lock()  # rank 0's device calls, in the order sent
+        self._ranks = None
+        self.is_follower = mesh is not None and not mesh.is_main
+        if mesh is not None and mesh.n_data * mesh.n_model > 1:
+            self._ranks = RankChannel(mesh.rank, mesh.n_data * mesh.n_model)
         self._q: "queue.Queue[Optional[_Request]]" = queue.Queue(
             maxsize=self.scfg.queue_capacity)
         self.stats: Dict[str, float] = {
@@ -131,6 +161,8 @@ class TranslationService:
         }
         self._stats_lock = threading.Lock()
         self._stopped = threading.Event()
+        if self.is_follower:
+            return  # follow() replays rank 0's calls, its warm-up included
         self._worker = threading.Thread(target=self._run, daemon=True, name="vmmt-serve")
         self._worker.start()
         if self.scfg.warmup:
@@ -272,9 +304,11 @@ class TranslationService:
         unk = self.translator.src_vocab.encode(["warmup"])[0]
         for b in self.translator.buckets:
             feats = np.zeros((1,) + self._feat_shape(), np.float32) if self._img_dim else None
-            self.translator.translate_ids([[unk] * max(1, b)], feats)
+            self._finalize(self._dispatch([[unk] * max(1, b)], feats, None))
 
     def stop(self, timeout: float = 10.0) -> None:
+        if self.is_follower:
+            raise RuntimeError("a follower stops when rank 0 stops: call follow()")
         self._stopped.set()
         self._q.put(None)
         self._worker.join(timeout=timeout)
@@ -287,10 +321,78 @@ class TranslationService:
                 break
             if req is not None and not req.future.done():
                 try:
-                    req.future.set_exception(RuntimeError("service stopped"))
+                    req.future.set_exception(self.failure or RuntimeError("service stopped"))
                 except Exception:  # noqa: BLE001 — cancelled race
                     pass
+        if self._ranks is not None and self.failure is None:
+            with self._op_lock:
+                self._ranks.publish(("stop",))
         self.translator.close()
+
+    # -- across ranks ----------------------------------------------------
+
+    def _dispatch(self, ids: List[List[int]], imgs: Optional[np.ndarray], sids):
+        """``Translator.dispatch_ids``, sent to the followers after it (a
+        dispatch that raises here is sent to no one)."""
+        with self._op_lock:
+            pending = self.translator.dispatch_ids(ids, imgs, stream_ids=sids)
+            if self._ranks is not None:
+                self._ranks.publish(("dispatch", ids, imgs, sids, self.dcfg.decode_seed))
+            return pending
+
+    def _finalize(self, pending):
+        """``Translator.finalize_ids``, sent to the followers first; across
+        ranks an error here ends the service."""
+        with self._op_lock:
+            if self._ranks is None:
+                return self.translator.finalize_ids(pending)
+            self._ranks.publish(("finalize",))
+            try:
+                return self.translator.finalize_ids(pending)
+            except Exception as e:
+                self._fatal(e)
+                raise
+
+    def _fatal(self, e: BaseException) -> None:
+        """End a service across ranks: tell the others, refuse new
+        requests, and call ``on_failure`` once."""
+        if self.failure is not None:
+            return
+        self.failure = e
+        self._stopped.set()
+        if not isinstance(e, RankFailed):
+            try:
+                self._ranks.fail(repr(e))
+            except Exception:  # noqa: BLE001 — the store may be gone with its rank
+                pass
+        if self.on_failure is not None:
+            self.on_failure()
+
+    def follow(self) -> None:
+        """Serve on a rank other than 0: replay rank 0's device calls until
+        it stops. Raises (after telling the other ranks) when a call fails
+        here or another rank reports a failure."""
+        if not self.is_follower:
+            raise RuntimeError("follow() runs on the mesh's ranks other than 0")
+        _own_device(self.translator.device)
+        pending: deque = deque()
+        try:
+            while True:
+                op = self._ranks.take()
+                if op[0] == "dispatch":
+                    _, ids, imgs, sids, seed = op
+                    pending.append(self.translator.dispatch_ids(ids, imgs, seed, sids))
+                elif op[0] == "finalize":
+                    self.translator.finalize_ids(pending.popleft())
+                else:  # stop
+                    return
+        except BaseException as e:
+            self.failure = e
+            if not isinstance(e, RankFailed):
+                self._ranks.fail(repr(e))
+            raise
+        finally:
+            self.translator.close()
 
     # -- worker ----------------------------------------------------------
 
@@ -308,7 +410,7 @@ class TranslationService:
         the stop sentinel surfaces."""
         group = list(group or ())
         if not group:
-            first = self._q.get()
+            first = self._next_request()
             if first is None:
                 self._stop_seen = True
                 return []
@@ -325,6 +427,24 @@ class TranslationService:
                 break
             group.append(nxt)
         return group
+
+    def _next_request(self) -> Optional[_Request]:
+        """The next queued request, waiting as long as it takes. Across
+        ranks the wait wakes every ``RankChannel.poll_s`` to beat and to
+        look for a failed rank, which ends the service (None, as the
+        stop)."""
+        if self._ranks is None:
+            return self._q.get()
+        while True:
+            try:
+                return self._q.get(timeout=self._ranks.poll_s)
+            except queue.Empty:
+                pass
+            self._ranks.beat()
+            why = self._ranks.failed()
+            if why is not None:
+                self._fatal(RankFailed(why))
+                return None
 
     def _collect_fill(self, in_flight_ready) -> List[_Request]:
         """The next batch while the previous one runs: drain until the batch
@@ -380,7 +500,7 @@ class TranslationService:
         drained] windows, so it approximates the device's busy time whether
         or not the pipeline overlapped the group with host work."""
         try:
-            out = self.translator.finalize_ids(pending)
+            out = self._finalize(pending)
             drained = time.monotonic()
             for r, nbest in zip(group, out):
                 if r.future.done():
@@ -419,9 +539,10 @@ class TranslationService:
         finalizes each group before gathering the next."""
         self._stop_seen = False
         self._busy_mark = time.monotonic()
+        _own_device(self.translator.device)
         prev: Optional[Tuple[List[_Request], object, float]] = None
         while True:
-            if self._stop_seen:
+            if self._stop_seen or self.failure is not None:
                 group = []
             elif prev is None:
                 group = self._collect()
@@ -441,8 +562,7 @@ class TranslationService:
                     # the stream key is the request's sample_id, not its
                     # position in this group
                     sids = [r.sample_id for r in group] if self._samples else None
-                    nxt = (group, self.translator.dispatch_ids([r.ids for r in group], imgs,
-                                                               stream_ids=sids), t0)
+                    nxt = (group, self._dispatch([r.ids for r in group], imgs, sids), t0)
                 except Exception as e:  # a bad dispatch fails this group only
                     self._fail_group(group, e)
                     self._account_batch(group, time.monotonic() - t0)
@@ -452,5 +572,18 @@ class TranslationService:
             if prev is not None:
                 self._finish(*prev)
             prev = nxt
-            if prev is None and self._stop_seen:
+            if prev is None and (self._stop_seen or self.failure is not None):
+                self._fail_queued()
                 return
+
+    def _fail_queued(self) -> None:
+        """After a failure, the requests still queued fail with it."""
+        if self.failure is None:
+            return
+        while True:
+            try:
+                req = self._q.get_nowait()
+            except queue.Empty:
+                return
+            if req is not None:
+                self._fail_group([req], self.failure)
