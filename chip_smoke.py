@@ -197,11 +197,14 @@ in PERF.md).
     32 sentences) at pallas_step 0, 1 and 2: at least 31 of 32 picks of
     steps 1 and 2 equal step 0's.
 13. Widths phase: rows 1 and 2 on the wide plan (the persistent
-    cooperative kernels above 512 units) at H = 520, 1000 and 1024, each at
-    B = 64, T = 25 and B = 256, T = 24, in f32 and bf16, with and without a
-    reset stream, both directions, against their plain versions (forward
+    cooperative kernels from 513 to 1024 units) at H = 520, 1000 and 1024,
+    each at B = 64, T = 25 and B = 256, T = 24, and on the streamed plan
+    (above 1024 units) at H = 1040, 1536, 2048 and 2500 at B = 64, T = 25
+    and at 2048 also at B = 256, T = 24, in f32 and bf16, with and without
+    a reset stream, both directions, against their plain versions (forward
     1e-4 / 2e-2 absolute, backward the same relative to each tensor's
-    largest entry), the plans printed and required wide; bf16 times by CUDA
+    largest entry), the plans printed and required wide or streamed by the
+    width; bf16 times by CUDA
     events in turns with the plain version (kernel, plain, plain, kernel,
     10 calls a turn) and on the device's clock, beside cuDNN's nn.GRU
     forward and backward at the same shape and the bound. Rows 1 and 2 at
@@ -216,12 +219,14 @@ in PERF.md).
     decoder kernels are off, as JAX ships them), ``-rnn_size 250`` with it
     on (rows 1, 2, 5 and 6 at 252), ``-rnn_size 2048`` with it off
     (encoder halves of 1024 units on the wide plan) and the fast config
-    ``-input_feed 0 -use_pallas 1 -rnn_size 1000`` (the decoder's two
-    layers at 1000 units on the wide plan): finite losses, rows 1 and 2
-    launched, a scan of 1024 (resp. 1000) units seen, and no "takes the
-    plain scan" log line; then ``cli.translate`` of the 250 model at
-    pallas_step 1 and 2 (rows 3 and 4 at 252); all counted as ``widths``.
-    Last, phase 6's f32 check of the fast config at hidden 1000 (random
+    ``-input_feed 0 -use_pallas 1`` at ``-rnn_size 1000`` and ``2048`` (the
+    decoder's two layers at 1000 units on the wide plan, at 2048 on the
+    streamed plan): finite losses, rows 1 and 2 launched, a scan of 1024
+    (resp. 1000, 2048) units seen, the fast 2048 run's last forward plan
+    streamed, and no plain GRU scan (``cell_layer_scan.gru_scans``
+    unchanged); then ``cli.translate`` of the 250 model at pallas_step 1
+    and 2 (rows 3 and 4 at 252); all counted as ``widths``. Last, phase
+    6's f32 check of the fast config at hidden 1000 and 2048 (random
     weights, numpy seed 0): its kernel route against the plain route, loss
     within 1e-4 relative and every gradient within 1e-3 of its largest
     entry, before and after 3 optimizer steps.
@@ -382,7 +387,18 @@ in PERF.md).
     stop must end both ranks with exit code 0; rows 1 and 3 must run on
     each rank, whose launches are counted (set to 0 before each service is
     built, read after it stops) as ``serve_ranks``.
-20. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+20. Study tools (``tools_phase(card, root)``, ROADMAP queue 1 item 2): the
+    port's ``regularization_gate -models nmt,vmmt_f -seeds 11 -steps 40``,
+    ``iw_study -models vmmt_c -seeds 11 -steps 40 -k_list 1,5`` and
+    ``sweep -sweep "model.latent_dim=32,64" -sweep_steps 20 -sweep_bleu 1``
+    on phase 10's corpus (vmmt_c), each on cuda on its default route
+    (kernels), its records written into the temporary directory: one record
+    a run with finite numbers and ``route`` kernels, rows 1, 2, 3, 5 and 6
+    launched in each run (the record's own counts: each run sets the
+    counts to 0 before it trains and reads them after it decodes), the IW
+    bound tightening in K (``iw_monotone``); the runs' counts summed as
+    ``tools``, and the phase's seconds printed.
+21. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts; the scan forward's top-level times are at the serving
     shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
@@ -390,10 +406,10 @@ in PERF.md).
     service's, ``widths`` each kernel's numbers at the widths phase's
     shapes, ``launches_by_path`` the serving, training, packed-training,
     families, CLI, online-serving, option-check, eval, widths, ensemble,
-    preprocess, options, host-path, parallel, extract and serve_ranks
-    counts) with the ``host_path``, ``parallel``, ``extract`` and
-    ``serve_ranks`` records, then the last line {"ok": true, "device":
-    {...}}.
+    preprocess, options, host-path, parallel, extract, serve_ranks and
+    tools counts) with the ``host_path``, ``parallel``, ``extract``,
+    ``serve_ranks`` and ``tools`` records, then the last line {"ok": true,
+    "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
 port's package is not beside this script, or when any phase fails.
@@ -458,11 +474,13 @@ WIDTH_SCANS = ((64, 24, 512, ("float32", "bfloat16")), (256, 24, 512, ("bfloat16
                (64, 24, 300, ("float32", "bfloat16")))  # B, T, H and the checked dtypes
 WIDTH_STEP_NS, WIDTH_DEC = (128, 32), dict(B=64, T=25, S=24, H=250)  # rows 3-6 at H = 250
 WIDTH_CLI_STEPS = 10  # train CLI steps at each -rnn_size of phase 13
-# rows 1 and 2 on the wide plan: (B, T, H), f32 and bf16, with and without a reset stream
+# rows 1 and 2 on the wide plan (to 1024 units) and the streamed plan (above): (B, T, H),
+# f32 and bf16, with and without a reset stream
 WIDE_SCANS = ((64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (64, 25, 1024),
-              (256, 24, 1024))
+              (256, 24, 1024), (64, 25, 1040), (64, 25, 1536), (64, 25, 2048), (256, 24, 2048),
+              (64, 25, 2500))
 WIDE_ITERS = 10  # CUDA-event calls a turn of the wide scans' bf16 times
-FAST_WIDE = dict(hidden_dim=1000, input_feed=False)  # the fast config at -rnn_size 1000
+FAST_WIDTHS = (1000, 2048)  # the fast config's f32 checks: wide and streamed decoder layers
 ENS_SEEDS, ENS_SEED = (1, 2), 4  # numpy seeds: the random members; the flagship request
 OPTION_STEPS, OPTION_OTHER_STEPS = 20, 5
 # the timed runs in turns: the fast config and the input-feed flagship with
@@ -496,6 +514,9 @@ SRV_RANK_CLIENTS, SRV_RANK_SENT, SRV_RANK_CHECK = 32, 128, 32  # phase 19: clien
 SRV_RANK_BATCH, SRV_RANK_MAXLEN = 32, 60  # -batch_size, max_length (beam 4, pallas_step 1)
 SRV_RANK_TIMEOUT_S = 300  # phase 19: the two ranks, start-up included
 SRV_RANK_ROWS = ("gru_layer_scan", "decode_step")
+TOOL_STEPS, TOOL_SWEEP_STEPS = 40, 20  # phase 20: the gate and IW study's steps; the sweep's
+TOOL_ROWS = ("gru_layer_scan", "gru_layer_scan_bwd", "decode_step", "decoder_fwd",
+             "decoder_bwd")  # the kernel route's rows every tool run must launch
 EXTRACT_CHECK, EXTRACT_BATCH, EXTRACT_PARTIAL = 4, 32, 37  # phase 18 (a), (b)
 EXTRACT_TOL, EXTRACT_CLI_TOL = 1e-4, 1e-5  # relative to each output's largest entry
 EXTRACT_TURNS, EXTRACT_ITERS = ("f32", "tf32", "tf32", "f32"), 10  # phase 18 (c)
@@ -2418,12 +2439,14 @@ def eval_phase(card: str, root: str):
 
 
 def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str) -> dict:
-    """Rows 1 and 2 on the wide plan at (B, T, H): f32 and bf16, with and
-    without a reset stream, both directions, against their plain versions
-    (forward max abs, backward max rel); bf16 times (CUDA events, in turns
-    with the plain version, and the device's clock), cuDNN's nn.GRU forward
-    and backward, the bounds."""
+    """Rows 1 and 2 on the wide plan (H <= 1024) or the streamed plan (H
+    above) at (B, T, H): f32 and bf16, with and without a reset stream,
+    both directions, against their plain versions (forward max abs,
+    backward max rel); bf16 times (CUDA events, in turns with the plain
+    version, and the device's clock), cuDNN's nn.GRU forward and backward,
+    the bounds."""
     at = f"B={B} T={T} H={H}"
+    layout = "wide" if H <= gru_scan.SCAN_WIDE_MAX_HIDDEN else "streamed"
     r = {}
     for dt_name in ("float32", "bfloat16"):
         ins, gout, reset = reset_inputs(g, rng, getattr(torch, dt_name), B, T, H, 8)
@@ -2436,8 +2459,8 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str) -> dic
         r[f"plan_{dt_name}"] = gru_scan.gru_layer_scan.plan
         r[f"bwd_plan_{dt_name}"] = gru_scan.gru_layer_scan_bwd.plan
         for plan in (r[f"plan_{dt_name}"], r[f"bwd_plan_{dt_name}"]):
-            if plan["layout"] != "wide":
-                fail(f"gru_scan {at} {dt_name}: the {plan['layout']} plan, not the wide one")
+            if plan["layout"] != layout:
+                fail(f"gru_scan {at} {dt_name}: the {plan['layout']} plan, not the {layout} one")
         print_plan(f"gru_scan {at} {dt_name}", r[f"plan_{dt_name}"])
         print_plan(f"gru_scan_bwd {at} {dt_name}", r[f"bwd_plan_{dt_name}"])
     x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.bfloat16, B, T, H, 8)
@@ -2475,13 +2498,14 @@ def widths_phase(card: str, root: str):
     """The kernels' widths (module docstring, phase 13). Returns ({kernel:
     launches on the two CLI trains and the translates}, record)."""
     from variational_mmt_torch.cli import train as cli_train, translate as cli_translate
+    from variational_mmt_torch.models import gru as gru_mod
     from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
     from variational_mmt_torch.train import checkpoint as ck
 
     rec = {"scan": {}}
     g = torch.Generator(device="cuda").manual_seed(8)
     rng = np.random.default_rng(8)
-    for B, T, H in WIDE_SCANS:  # the wide plan
+    for B, T, H in WIDE_SCANS:  # the wide and the streamed plan
         rec["scan"][f"B={B} T={T} H={H}"] = wide_scan_checks(gru_scan, g, rng, B, T, H, card)
     for B, T, H, dtypes in WIDTH_SCANS:
         at = f"B={B} T={T} H={H}"
@@ -2559,54 +2583,62 @@ def widths_phase(card: str, root: str):
     total = dict.fromkeys(kernel_counters(), 0)
     rec["cli"] = {}
     scans = ("gru_layer_scan", "gru_layer_scan_bwd")
-    # (label, flags, config, rows that must run, width of a wide-plan scan)
+    fast = ["-input_feed", "0", "-use_pallas", "1"]
+    # (label, flags, config, rows that must run, width of a wide or streamed scan)
     for label, flags, config_path, rows, wide in (
             ("1024", ["-rnn_size", "1024"], nodec, scans, None),
             ("250", ["-rnn_size", "250"], os.path.join(root, "config.json"),
              scans + ("decoder_fwd", "decoder_bwd"), None),
             ("2048", ["-rnn_size", "2048"], nodec, scans, 1024),
-            ("fast1000", ["-rnn_size", "1000", "-input_feed", "0", "-use_pallas", "1"], nodec,
-             scans, 1000)):
+            ("fast1000", ["-rnn_size", "1000", *fast], nodec, scans, 1000),
+            ("fast2048", ["-rnn_size", "2048", *fast], nodec, scans, 2048)):
         run = os.path.join(root, f"run{label}")
         t0 = time.perf_counter()
-        with plain_scan_log() as logged:
-            launches, (trainer, by_width) = counted_run(lambda: scan_widths(lambda: cli_train.main(
-                base + ["-config", config_path, *flags, "-save_model", run])))
+        plain_before = gru_mod.cell_layer_scan.gru_scans
+        launches, (trainer, by_width) = counted_run(lambda: scan_widths(lambda: cli_train.main(
+            base + ["-config", config_path, *flags, "-save_model", run])))
+        plain = gru_mod.cell_layer_scan.gru_scans - plain_before
         secs = time.perf_counter() - t0
         losses = [h["loss"] for h in trainer.last_run["metrics"]]
         scan_plan = gru_scan.gru_layer_scan.plan
         print(f"widths: train CLI {' '.join(flags)} (pallas_decoder "
               f"{trainer.cfg.model.pallas_decoder}): {len(losses)} steps in {secs:.1f} s, losses "
               f"{' '.join(f'{v:.3f}' for v in losses)}; launches {launches}; GRU scans by width "
-              f"{by_width}; the last scan's plan {scan_plan}")
+              f"{by_width}; plain GRU scans {plain}; the last scan's plan {scan_plan}")
         if len(losses) != WIDTH_CLI_STEPS or not all(math.isfinite(v) for v in losses):
             fail(f"train CLI {' '.join(flags)}: a step count or a loss that is not right")
         for k in rows:
             if launches[k] <= 0:
                 fail(f"kernel {k} was not launched by the train CLI {' '.join(flags)}")
-        if logged:
-            fail(f"train CLI {' '.join(flags)}: a layer took the plain scan: {logged}")
+        if plain:
+            fail(f"train CLI {' '.join(flags)}: {plain} GRU layer scans took the plain scan")
         if label == "1024" and scan_plan["cluster"] != 16:
             fail("the encoder halves of 512 units did not run on 16-CTA clusters")
         if label == "250" and dec.decoder_bwd.plan["padded"] != 252:
             fail("the decoder kernels did not run at the padded width 252")
         if wide is not None and not by_width.get(wide):
-            fail(f"train CLI {' '.join(flags)}: no scan of {wide} units (the wide plan) ran")
+            fail(f"train CLI {' '.join(flags)}: no scan of {wide} units ran")
+        if label == "fast2048" and scan_plan["layout"] != "streamed":
+            fail("the fast config's decoder layers of 2048 units did not run on the streamed "
+                 "plan")
         rec["cli"][label] = {"losses": losses, "seconds": secs, "launches": launches,
-                             "scan_widths": by_width}
+                             "scan_widths": by_width, "plain_gru_scans": plain}
         for k in total:
             total[k] += launches[k]
-    # the fast config at H = 1000 in f32: its kernel route (rows 1 and 2 on
-    # the wide plan for the decoder's layers) against the plain route
+    # the fast config at H = 1000 and 2048 in f32: its kernel route (rows 1
+    # and 2 on the wide and the streamed plan for the decoder's layers)
+    # against the plain route
     from variational_mmt_torch.convert import params_from_jax
     from variational_mmt_torch.models.model import init_params
     from variational_mmt_torch.tools import flagship
 
     fcfg, _ = flagship.load()
-    fm = dataclasses.replace(fcfg.model, pallas_decoder=True, **FAST_WIDE)
-    fcfg = dataclasses.replace(fcfg, model=fm)
-    rec["fast1000_f32_check"] = train_check_f32(fcfg, params_from_jax(init_params(fm, seed=0), fm),
-                                                label="widths fast config H=1000")
+    for H in FAST_WIDTHS:
+        fm = dataclasses.replace(fcfg.model, pallas_decoder=True, hidden_dim=H,
+                                 input_feed=False)
+        rec[f"fast{H}_f32_check"] = train_check_f32(
+            dataclasses.replace(fcfg, model=fm), params_from_jax(init_params(fm, seed=0), fm),
+            label=f"widths fast config H={H}")
     ckpt = ck.latest_checkpoint(os.path.join(root, "run250"))
     for mode, row in ((1, "decode_step"), (2, "gru_chain")):
         launches, out = counted_run(lambda: cli_translate.main(
@@ -2989,35 +3021,6 @@ def lending_cost(model, sv, tv, dcfg, inputs, runs: int = 3) -> dict:
           f"(functional_call) vs {', '.join(f'{v:.3f}' for v in out['own'])} ms through the "
           "translate function on the model itself (in turns)")
     return out
-
-
-class plain_scan_log:
-    """A context that gathers the port's "takes the plain scan" log lines
-    (every layer's, not once a width: the record of logged layers is
-    cleared on entry)."""
-
-    def __enter__(self):
-        import logging
-
-        from variational_mmt_torch.models import gru as gru_mod
-
-        self.lines = []
-        self.logger = logging.getLogger(gru_mod.__name__)
-        gru_mod._wide_logged.clear()
-        lines = self.lines
-
-        class Grab(logging.Handler):
-            def emit(self, record):
-                if "plain scan" in record.getMessage():
-                    lines.append(record.getMessage())
-
-        self.handler = Grab(logging.WARNING)
-        self.logger.addHandler(self.handler)
-        return self.lines
-
-    def __exit__(self, *exc):
-        self.logger.removeHandler(self.handler)
-        return False
 
 
 def scan_widths(fn):
@@ -4084,6 +4087,66 @@ def extract_phase(card: str, root: str):
     return launches, rec
 
 
+def finite_numbers(rec: dict) -> bool:
+    return all(math.isfinite(v) for v in rec.values()
+               if isinstance(v, (int, float)) and not isinstance(v, bool))
+
+
+def tools_phase(card: str, root: str):
+    """Phase 20 (module docstring): the three study tools on cuda. Returns
+    ({kernel: launches of the three tools' runs}, record)."""
+    from variational_mmt_torch.tools import iw_study, regularization_gate, sweep
+
+    t0 = time.time()
+    corpus = ["-data", os.path.join(root, "corpus"), "-train_img_feats",
+              os.path.join(root, "train.feats.npy"), "-valid_img_feats",
+              os.path.join(root, "valid.feats.npy"), "-save_model",
+              os.path.join(root, "sweep_unused"), "-model_type", "vmmt_c",
+              "-batch_size", str(TRAIN_BATCH)]
+    total = dict.fromkeys(kernel_counters(), 0)
+    rec = {}
+    for name, main, argv, n_runs in (
+            ("regularization_gate", regularization_gate.main,
+             ["-models", "nmt,vmmt_f", "-seeds", "11", "-steps", str(TOOL_STEPS)], 2),
+            ("iw_study", iw_study.main,
+             ["-models", "vmmt_c", "-seeds", "11", "-steps", str(TOOL_STEPS), "-k_list", "1,5"],
+             1),
+            ("sweep", sweep.main,
+             corpus + ["-sweep", "model.latent_dim=32,64", "-sweep_steps",
+                       str(TOOL_SWEEP_STEPS), "-sweep_bleu", "1"], 2)):
+        out = os.path.join(root, f"{name}.jsonl")
+        t1 = time.time()
+        results = main(argv + ["-out", out])
+        torch.cuda.synchronize()
+        secs = time.time() - t1
+        with open(out) as f:
+            written = [json.loads(line) for line in f]
+        # each run sets the counts to 0 before it trains and reads them after
+        # it decodes (tools/runs.py), into its record
+        launches = {k: sum(r["launches"][k] for r in written) for k in total}
+        print(f"tools: {name} {' '.join(argv[-8:])}: {len(written)} records in {secs:.1f} s, "
+              f"launches {launches}")
+        for r in written:
+            print(f"  {json.dumps(r)}")
+        if written != results or len(written) != n_runs:
+            fail(f"{name}: {len(written)} records written, {n_runs} expected")
+        for r in written:
+            if r["route"] != "kernels" or r["device"] != "cuda" or not finite_numbers(r):
+                fail(f"{name}: a record not on the kernel route or with a number that is "
+                     f"not finite: {r}")
+            missing = [k for k in TOOL_ROWS if r["launches"][k] <= 0]
+            if missing:
+                fail(f"{name}: a run launched no {missing}")
+        if name == "iw_study" and not all(r["iw_monotone"] for r in written):
+            fail("iw_study: the IW bound did not tighten in K")
+        rec[name] = {"seconds": secs, "records": written, "launches": launches}
+        for k in total:
+            total[k] += launches[k]
+    rec["phase_s"] = time.time() - t0
+    print(f"tools phase {rec['phase_s']:.1f} s ({card})")
+    return total, rec
+
+
 def width_record(name: str, widths: dict) -> dict:
     """One kernel's numbers at the widths phase's shapes: rows 1 and 2 by
     shape (errors, plans, bf16 times, cuDNN, bounds), rows 3-6 at H=250."""
@@ -4171,6 +4234,7 @@ def main() -> int:
         host_launches, host = host_path_phase(card, cfg, state, root)
         extract_launches, extract = extract_phase(card, root)
         srv_rank_launches, srv_ranks = serve_ranks_phase(card, root)
+        tool_launches, tools = tools_phase(card, root)
     par_launches, par = parallel_phase(card, cfg, state)
 
     entries = []
@@ -4196,7 +4260,7 @@ def main() -> int:
                    **{path: n[name] for path, n in ens_launches.items()},
                    "options": opt_launches[name], "host_path": host_launches[name],
                    "parallel": par_launches[name], "extract": extract_launches[name],
-                   "serve_ranks": srv_rank_launches[name]}
+                   "serve_ranks": srv_rank_launches[name], "tools": tool_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4235,8 +4299,9 @@ def main() -> int:
                                                    if k != "step_shapes"},
                       "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,
                       "options": options, "host_path": host, "parallel": par,
-                      "extract": extract, "serve_ranks": srv_ranks,
-                      "widths_f32_check": widths["fast1000_f32_check"], "card": card}))
+                      "extract": extract, "serve_ranks": srv_ranks, "tools": tools,
+                      "widths_f32_check": {f"fast{H}": widths[f"fast{H}_f32_check"]
+                                           for H in FAST_WIDTHS}, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -2,13 +2,14 @@
 (``scan_fwd_plan``, ``scan_bwd_plan``, ``step_cell_plan``,
 ``decoder_fwd_plan`` and ``decoder_bwd_plan``), pure Python, on the CPU. The widths the repo's
 configs use (H=250 a direction for the scan, H=500 for the decoder and the
-decode step) are accepted in both dtypes, and so are the scans' widths up
-to 1024 (clusters of up to 16 CTAs to 512, the wide plan above:
-tests/test_torch_wide_scan.py) and any decoder width (padded to a
+decode step) are accepted in both dtypes, and so is every scan width
+(clusters of up to 16 CTAs to 512, the wide plan to 1024:
+tests/test_torch_wide_scan.py; the streamed plan above:
+tests/test_torch_wider_scan.py) and any decoder width (padded to a
 multiple of 4); shapes the designs cannot hold raise NotImplementedError,
 and so do the wrappers on a non-CPU tensor before anything is launched
-(meta tensors stand in for CUDA ones). ``UniGRU`` sends a layer wider
-than the scans hold to the plain scan."""
+(meta tensors stand in for CUDA ones). ``UniGRU`` sends every
+``use_pallas`` GRU layer to the scan kernels."""
 
 import logging
 
@@ -76,11 +77,33 @@ def test_scan_fwd_plan_mirrors_the_kernels_layout():
         96 * 250 * 4 + 2 * 8 * 250 * 4 + parts
 
 
+def assert_streamed(plan, H, dt, B):
+    """A streamed plan: the units and rows covering H and B in one launch,
+    the grid within what 132 SMs hold at once (one bf16 CTA an SM, two in
+    f32) and shared memory within the card's, whatever H."""
+    per_sm = gru_scan.SCAN_WIDE_PER_SM[dt]
+    assert plan["layout"] == "streamed" and plan["chunks"] == 1
+    assert plan["unit_tiles"] * plan["units"] >= H > (plan["unit_tiles"] - 1) * plan["units"]
+    assert plan["rows"] % 16 == 0 and plan["rows"] <= gru_scan.SCAN_WIDE_MAX_ROWS
+    assert plan["rows"] * plan["row_tiles"] >= B
+    assert plan["grid"] == min(plan["tiles"], per_sm * H100_SMS)
+    assert plan["grid"] * plan["tiles_per_cta"] >= plan["tiles"] == \
+        plan["unit_tiles"] * plan["row_tiles"]
+    assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
+    assert per_sm * (plan["smem"] + 1024) <= SMEM_PER_SM
+
+
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("H", [0, 1025, 2048])
 def test_scan_fwd_plan_refuses_what_a_cluster_cannot_hold(dt, H):
-    with pytest.raises(NotImplementedError):
-        gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)
+    """H = 0 is refused; 1025 and 2048, wider than a cluster and the wide
+    plan hold, take the streamed plan at every batch."""
+    if H == 0:
+        with pytest.raises(NotImplementedError):
+            gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)
+        return
+    for B in (1, 61, 64, 256, 300):
+        assert_streamed(gru_scan.scan_fwd_plan(B, 24, H, dt, H100_SMS), H, dt, B)
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -135,8 +158,15 @@ def test_scan_plan_at_the_training_shape():
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("H", [0, 1025, 2048])
 def test_scan_plan_refuses_what_a_cluster_cannot_hold(dt, H):
-    with pytest.raises(NotImplementedError):
-        gru_scan.scan_bwd_plan(64, 24, H, dt)
+    """As the forward's: H = 0 refused, 1025 and 2048 on the streamed plan."""
+    if H == 0:
+        with pytest.raises(NotImplementedError):
+            gru_scan.scan_bwd_plan(64, 24, H, dt)
+        return
+    for B in (1, 61, 64, 256, 300):
+        plan = gru_scan.scan_bwd_plan(B, 24, H, dt)
+        assert_streamed(plan, H, dt, B)
+        assert plan["dwh_splits"] == 1
 
 
 @pytest.mark.parametrize("sms", [H100_SMS, 114])
@@ -268,10 +298,12 @@ def step_args(N, S, H, dt=torch.float32):
 
 
 def test_wrappers_refuse_a_shape_before_launching(no_launch):
+    # the scans hold every H >= 1 (H = 1100 is on the streamed plan): H = 0
+    # is what they refuse
     with pytest.raises(NotImplementedError):
-        gru_scan.gru_layer_scan(*scan_args(4, 5, 1100)[:5])
+        gru_scan.gru_layer_scan(*scan_args(4, 5, 0)[:5])
     with pytest.raises(NotImplementedError):
-        gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 1100))
+        gru_scan.gru_layer_scan_bwd(*scan_args(4, 5, 0))
     for dt in DTYPES:
         chain = step_args(4, 3, 0, dt)
         with pytest.raises(NotImplementedError):
@@ -537,20 +569,21 @@ def test_scan_plans_mirror_the_kernels_layout_at_512():
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("H,holds", [(1, True), (512, True), (513, True), (1024, True),
-                                     (1025, False), (2048, False), (0, False)])
+                                     (1025, True), (2048, True), (0, False)])
 def test_scan_kernel_holds_ends_at_1024(dt, H, holds):
-    """Clusters to 512 units, the wide plan from 513 to 1024."""
+    """Clusters to 512 units, the wide plan from 513 to 1024, the streamed
+    plan above; only H = 0 is not held."""
     assert gru_scan.scan_kernel_holds(H, dt) is holds
     if holds:
-        layout = "cluster" if H <= 512 else "wide"
+        layout = "cluster" if H <= 512 else "wide" if H <= 1024 else "streamed"
         assert gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)["layout"] == layout
         assert gru_scan.scan_bwd_plan(64, 24, H, dt)["layout"] == layout
 
 
-@pytest.mark.parametrize("H,kernel", [(512, True), (513, True), (1024, True), (1025, False)])
+@pytest.mark.parametrize("H,kernel", [(512, True), (513, True), (1024, True), (1025, True)])
 def test_unigru_routes_a_wide_layer_to_the_plain_scan(monkeypatch, caplog, H, kernel):
-    """``use_pallas`` sends a layer to the scan kernels only where they hold
-    its width; a wider one takes ``cell_layer_scan`` and is logged once."""
+    """``use_pallas`` sends a GRU layer of any width to the scan kernels:
+    none takes ``cell_layer_scan``, and nothing is logged."""
     import variational_mmt_torch.ops.gru_scan as ops_scan
 
     calls = []
@@ -558,7 +591,6 @@ def test_unigru_routes_a_wide_layer_to_the_plain_scan(monkeypatch, caplog, H, ke
                         lambda *a, **k: calls.append("kernel") or (a[0][..., :H], a[2]))
     monkeypatch.setattr(gru_mod, "cell_layer_scan",
                         lambda x, h0, *a, **k: calls.append("plain") or (x[..., :H], h0))
-    monkeypatch.setattr(gru_mod, "_wide_logged", set())
     layer = gru_mod.UniGRU(3, H, use_pallas=True)
     torch.nn.init.zeros_(layer.hh_kernel)
     torch.nn.init.zeros_(layer.hh_bias)
@@ -567,8 +599,7 @@ def test_unigru_routes_a_wide_layer_to_the_plain_scan(monkeypatch, caplog, H, ke
         layer(x, mask)
         layer(x, mask)
     assert calls == (["kernel", "kernel"] if kernel else ["plain", "plain"])
-    logged = [r for r in caplog.records if "plain scan" in r.getMessage()]
-    assert len(logged) == (0 if kernel else 1)
+    assert caplog.records == []
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)

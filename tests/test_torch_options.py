@@ -17,7 +17,9 @@ shapes, f32, inputs from numpy seeds:
   reaches the bridge) at 1e-5;
 - ``tools/embeddings_to_npy.py`` of the port writes the same ``.npy`` as
   the root tool, byte for byte;
-- a decoder layer too wide for the scan kernels is logged naming its role.
+- a decoder and an encoder layer of 1025 units (wider than a cluster and
+  the wide plan hold) take the scan kernels, as every ``use_pallas`` GRU
+  layer does: no plain scan and no log line.
 """
 
 import logging
@@ -248,11 +250,28 @@ def test_embeddings_to_npy_writes_the_root_tools_file(tmp_path):
 
 
 def test_a_wide_decoder_layer_is_logged_naming_the_decoder(monkeypatch, caplog):
-    monkeypatch.setattr(gru_mod, "_wide_logged", set())
+    """The ``input_feed=False`` decoder's layers and the encoder's, 1025
+    units each, go through ``gru_layer_scan_ad`` (its plain versions on the
+    CPU), never ``cell_layer_scan``."""
+    import variational_mmt_torch.ops.gru_scan as ops_scan
+
+    H = 1025
+    widths = []
+    real = ops_scan.gru_layer_scan_ad
+    monkeypatch.setattr(ops_scan, "gru_layer_scan_ad",
+                        lambda *a, **k: widths.append(a[3].shape[0]) or real(*a, **k))
+    before = cell_layer_scan.gru_scans
+    dec = GRUDecoder(4, H, 2, use_pallas=True, input_feed=False)
+    enc = gru_mod.BiGRUEncoder(4, 2 * H, 1, use_pallas=True)
+    for p in list(dec.parameters()) + list(enc.parameters()):
+        torch.nn.init.normal_(p, std=0.02)
+    B, T, S = 2, 3, 4
+    emb, mask = torch.randn(B, T, 4), torch.ones(B, T)
     with caplog.at_level(logging.WARNING, logger=gru_mod.__name__):
-        for role in ("decoder", "encoder", "decoder"):
-            assert gru_mod.scan_route(1025, torch.float32, role) is False
-    msgs = [r.getMessage() for r in caplog.records]
-    assert len(msgs) == 2
-    assert msgs[0].startswith("decoder GRU layer of 1025 units")
-    assert msgs[1].startswith("encoder GRU layer of 1025 units")
+        enc_out, _ = enc(torch.randn(B, S, 4), torch.ones(B, S))
+        hs, _ = dec(emb, torch.randn(B, S, H), torch.ones(B, S), [torch.zeros(B, H)] * 2)
+    assert enc_out.shape == (B, S, 2 * H) and torch.isfinite(enc_out).all()
+    assert hs.shape == (B, T, H) and torch.isfinite(hs).all()
+    assert widths == [H] * 4  # two encoder directions, two decoder layers
+    assert cell_layer_scan.gru_scans == before
+    assert caplog.records == []

@@ -16,9 +16,10 @@ the CPU.
 - The fast config (``input_feed=False``, ``use_pallas``) at hidden 1040:
   the port's loss and every gradient on its kernel route (the wrappers'
   plain versions on the CPU; encoder halves of 520 units on the wide
-  plan's route, decoder layers of 1040 above the limit on the plain scan)
-  against JAX's Pallas route in interpret mode, from JAX's parameters
-  through the converter: loss within 1e-5 relative, gradients 1e-4.
+  plan's route, decoder layers of 1040 on the streamed plan's, no plain
+  GRU scan) against JAX's Pallas route in interpret mode, from JAX's
+  parameters through the converter: loss within 1e-5 relative, gradients
+  1e-4.
 """
 
 import jax
@@ -76,6 +77,12 @@ def test_plain_scans_match_jax_kernels_above_512(H, reverse, with_reset):
     """Forward against ``gru_layer_scan(interpret=True)``; the backward's
     raw outputs against ``_gru_scan_bwd_impl`` (time-major in JAX) and
     ``gru_layer_scan_ad``'s gradients against ``jax.vjp``."""
+    check_plain_scans_against_jax(H, reverse, with_reset, FWD_TOL, BWD_TOL)
+
+
+def check_plain_scans_against_jax(H, reverse, with_reset, fwd_tol, bwd_tol):
+    """The plain scans at H units (B = 3, T = 5) against the Pallas scan in
+    interpret mode, forward, backward and VJP, at the given tolerances."""
     args, reset, g_outs, g_fin = scan_inputs(H)
     r_np = reset if with_reset else None
     r = None if r_np is None else torch.from_numpy(r_np)
@@ -85,7 +92,7 @@ def test_plain_scans_match_jax_kernels_above_512(H, reverse, with_reset):
                               reset=jr)
     got = gru_scan.gru_layer_scan_ref(*t, reverse, r)
     for g, w in zip(got, want):
-        np.testing.assert_allclose(g.numpy(), np.asarray(w), **FWD_TOL)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **fwd_tol)
 
     xp, m, h0, wh, bh = args
     outs = got[0].numpy()
@@ -95,10 +102,10 @@ def test_plain_scans_match_jax_kernels_above_512(H, reverse, with_reset):
                                 reverse, True, None if jr is None else swap(jr)[:, None, :])
     got_b = gru_scan.gru_layer_scan_bwd_ref(*t, got[0], torch.from_numpy(g_outs), reverse, r)
     np.testing.assert_allclose(got_b[0].numpy(), np.asarray(want_b[0]).swapaxes(0, 1),
-                               **BWD_TOL)
-    np.testing.assert_allclose(got_b[1].numpy(), np.asarray(want_b[1]), **BWD_TOL)
-    np.testing.assert_allclose(got_b[2].numpy(), np.asarray(want_b[2]), **BWD_TOL)
-    np.testing.assert_allclose(got_b[3].numpy(), np.asarray(want_b[3]).reshape(-1), **BWD_TOL)
+                               **bwd_tol)
+    np.testing.assert_allclose(got_b[1].numpy(), np.asarray(want_b[1]), **bwd_tol)
+    np.testing.assert_allclose(got_b[2].numpy(), np.asarray(want_b[2]), **bwd_tol)
+    np.testing.assert_allclose(got_b[3].numpy(), np.asarray(want_b[3]).reshape(-1), **bwd_tol)
 
     jargs = [jnp.asarray(a) for a in args]
     _, vjp = jax.vjp(lambda x, h, w, b: jax_gru_layer_scan_ad(x, jargs[1], h, w, b, reverse,
@@ -110,7 +117,7 @@ def test_plain_scans_match_jax_kernels_above_512(H, reverse, with_reset):
     outs_t, fin_t = gru_scan.gru_layer_scan_ad(*t, reverse=reverse, reset=r)
     torch.autograd.backward((outs_t, fin_t), (torch.from_numpy(g_outs), torch.from_numpy(g_fin)))
     for i, w in zip((0, 2, 3, 4), want_g):
-        np.testing.assert_allclose(t[i].grad.numpy(), np.asarray(w), **BWD_TOL)
+        np.testing.assert_allclose(t[i].grad.numpy(), np.asarray(w), **bwd_tol)
 
 
 @pytest.mark.parametrize("B", [1, 61, 64, 256])
@@ -157,9 +164,11 @@ def test_wide_plans_mirror_the_kernels_layout_at_1024():
 
 
 def test_scan_kernel_holds_every_width_to_1024():
+    """Every width to 1024 and on past it: 1025 takes the streamed plan."""
     for dt in DTYPES:
         assert all(gru_scan.scan_kernel_holds(H, dt) for H in range(1, 1025))
-        assert not gru_scan.scan_kernel_holds(1025, dt)
+        assert gru_scan.scan_kernel_holds(1025, dt)
+        assert gru_scan.scan_fwd_plan(64, 24, 1025, dt, H100_SMS)["layout"] == "streamed"
 
 
 def meta(*shape, dtype=torch.float32):
@@ -173,11 +182,13 @@ def wide_lib(monkeypatch):
 
     class Lib:
         def vmmt_gru_wide(self, *args):
-            calls.append(("fwd",) + args[-8:-1])  # B, T, H, reverse, units, rows, row_tiles
+            # weights laid out (None: the wide plan), B, T, H, reverse,
+            # units, rows, row_tiles, grid
+            calls.append(("fwd", args[-10] is None) + args[-9:-1])
             return 0
 
         def vmmt_gru_wide_bwd(self, *args):
-            calls.append(("bwd",) + args[-9:-1])  # ..., row_tiles, splits
+            calls.append(("bwd", args[-11] is None) + args[-10:-1])  # ..., grid, splits
             return 0
 
     monkeypatch.setattr(kernels, "library", lambda name: Lib())
@@ -199,8 +210,10 @@ def test_wrappers_launch_the_wide_plan(wide_lib, dt):
            meta(3 * H))
     gru_scan.gru_layer_scan(*ins, reverse=True)
     gru_scan.gru_layer_scan_bwd(*ins, meta(B, T, H), meta(B, T, H))
-    assert calls == [("fwd", B, T, H, 1, fwd["units"], fwd["rows"], fwd["row_tiles"]),
-                     ("bwd", B, T, H, 0, bwd["units"], bwd["rows"], bwd["row_tiles"], 1)]
+    assert calls == [("fwd", True, B, T, H, 1, fwd["units"], fwd["rows"], fwd["row_tiles"],
+                      fwd["grid"]),
+                     ("bwd", True, B, T, H, 0, bwd["units"], bwd["rows"], bwd["row_tiles"],
+                      bwd["grid"], 1)]
     assert gru_scan.gru_layer_scan.plan == dict(fwd, max_co_resident=264)
     assert gru_scan.gru_layer_scan_bwd.plan == dict(bwd, max_co_resident=264)
 
@@ -269,9 +282,10 @@ def test_fast_config_at_hidden_1040_matches_jax_pallas_route():
     cfg = Config(model=ModelConfig(**FAST), train=TrainConfig(**TRAIN))
     model = build_model(cfg.model, device="cpu")
     model.load_state_dict(params_from_jax(tree, cfg.model))
-    assert gru_mod.scan_route(FAST["hidden_dim"] // 2, torch.float32, "encoder")
+    plain = gru_mod.cell_layer_scan.gru_scans
     loss, _, _ = loss_and_grads(cfg, model, batch_tensors(batch, torch.device("cpu")), STEP,
                                 None, deterministic=True, sample=False)
+    assert gru_mod.cell_layer_scan.gru_scans == plain  # every GRU layer took the kernels' route
     np.testing.assert_allclose(float(loss.detach()), float(want_loss), rtol=1e-5)
     got = flatten(grads_to_jax(model))
     want = flatten(jax.device_get(want_grads))

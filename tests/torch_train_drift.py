@@ -8,7 +8,11 @@ the same parameters on the same batches of the gate's ambiguous corpus,
 f32 on the CPU, dropout and word dropout off. JAX's step draws its
 reparameterization noise from its own stream; a debug callback hands each
 step's eps to the host, and the port's step takes that eps. After each
-step the script records both losses and both KL sums.
+step the script records both losses and both KL sums. With ``regions`` R
+> 0 the corpus carries conv-style (R, 16) region features (the sense in
+one region) and both models pool them with region attention
+(``img_feat_type=conv``, ``img_pool=attn``), the gate's ``-img_regions R
+-img_pool attn``.
 
 Used by ``tests/test_torch_train_drift.py`` (100 steps) and, once, as a
 script:
@@ -16,7 +20,8 @@ script:
     JAX_PLATFORMS=cpu python tests/torch_train_drift.py -steps 500
 
 which prints one JSON line a step and a summary line (the largest
-relative gap of the loss and of the KL over the run, and where).
+relative gap of the loss and of the KL over the run, and where); add
+``-regions 4`` for the region-attention model.
 """
 
 from __future__ import annotations
@@ -65,13 +70,15 @@ def gate_train(steps: int, seed: int) -> dict:
                 kl_anneal_steps=max(1, steps // 2))
 
 
-def gate_batches(steps: int, seed: int):
+def gate_batches(steps: int, seed: int, regions: int = 0):
     """``steps`` batches of the gate's ambiguous corpus (vocab 200, image
-    features 16 wide, sentences of 6-12 tokens where the gate's run to 24),
-    shuffled epoch after epoch as the gate's iterator; one bucket of 16, so
-    that JAX compiles its step once."""
+    features 16 wide, ``regions`` of them a sentence where > 0, sentences
+    of 6-12 tokens where the gate's run to 24), shuffled epoch after epoch
+    as the gate's iterator; one bucket of 16, so that JAX compiles its step
+    once."""
     src, tgt, feats, sv, tv, _, _ = make_ambiguous_corpus(400, vocab_size=VOCAB, max_len=12,
-                                                          img_dim=IMG_DIM, seed=seed)
+                                                          img_dim=IMG_DIM, seed=seed,
+                                                          regions=regions)
     ids = lambda lines, v: [np.asarray(v.encode(s), np.int32) for s in lines]  # noqa: E731
     it = BucketIterator(BinarizedDataset(ids(src, sv), ids(tgt, tv)), BATCH, [16],
                         img_feats=feats, shuffle=True, seed=seed)
@@ -113,15 +120,18 @@ class NoiseTap:
         torch_model_mod.reparameterize = self.torch_orig
 
 
-def run(steps: int, seed: int = 0, model_over=None):
+def run(steps: int, seed: int = 0, model_over=None, regions: int = 0):
     """Train both packages ``steps`` steps; yields per step {step, loss and
-    KL sum of each package}."""
-    model_over = model_over or {}
+    KL sum of each package}. ``regions`` > 0: region features pooled by
+    attention."""
+    model_over = dict(model_over or {})
+    if regions:
+        model_over.update(img_feat_type="conv", img_pool="attn")
     jcfg = JaxConfig(model=JaxModelConfig(**gate_model(**model_over)),
                      train=JaxTrainConfig(**gate_train(steps, seed)))
     cfg = Config(model=ModelConfig(**gate_model(**model_over)),
                  train=TrainConfig(**gate_train(steps, seed)))
-    batches = gate_batches(steps, seed)
+    batches = gate_batches(steps, seed, regions)
     with NoiseTap() as tap:
         jmodel = jax_build_model(jcfg.model)
         jstate = jax_create_state(jcfg, jmodel)
@@ -149,16 +159,18 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser("port-vs-JAX training drift on the gate's corpus")
     p.add_argument("-steps", type=int, default=500)
     p.add_argument("-seed", type=int, default=0)
+    p.add_argument("-regions", type=int, default=0,
+                   help="R > 0: (R, 16) region features pooled by attention")
     args = p.parse_args(argv)
     jax.config.update("jax_platforms", "cpu")
     worst = {"loss": (0.0, 0), "kl": (0.0, 0)}
-    for row in run(args.steps, args.seed):
+    for row in run(args.steps, args.seed, regions=args.regions):
         print(json.dumps(row), flush=True)
         for k in worst:
             gap = rel(row[f"{k}_port"], row[f"{k}_jax"])
             if gap > worst[k][0]:
                 worst[k] = (gap, row["step"])
-    summary = {"steps": args.steps, "seed": args.seed,
+    summary = {"steps": args.steps, "seed": args.seed, "regions": args.regions,
                "max_rel_gap_loss": worst["loss"][0], "at_step_loss": worst["loss"][1],
                "max_rel_gap_kl": worst["kl"][0], "at_step_kl": worst["kl"][1]}
     print(json.dumps(summary))

@@ -103,6 +103,23 @@
 // (a) and (c) are the cluster plan's tiled products, which take any shape.
 // What bounds these kernels is the same chain of T steps, each now a grid
 // barrier after a product whose operand comes from L2.
+//
+// Streamed plan (H above 1024: layout "streamed"; the same two kernels with
+// kStream). The wide plan ties both the grid (one CTA a unit tile) and a
+// CTA's shared memory (its slice of Wh grows with H) to H; at H = 2048 a
+// slice is 98 KB and f32 would need 512 CTAs. The streamed plan breaks
+// both links: the grid is capped at what the card holds at once, each CTA
+// takes unit tiles b, b + grid, ... in turn within every step (all of them
+// written before the step's one grid barrier, so the two exchange buffers
+// still suffice), and the weights stay in global memory: the wrapper lays
+// Wh out once a call in the shared-memory slices' own order, tile after
+// tile (wt), and block_product reads its fragments from there (L2-resident
+// where Wh fits the 50 MB, else from HBM every step). The carries move out
+// of shared memory too: the forward reads h_{t-1} back from its own outs
+// (every step writes out[t] = carry), the backward keeps dh and dh_part in
+// dh0; a cell is read and written by the same thread of the same CTA every
+// step. Rows are not chunked: up to 256 a row tile, all row tiles in one
+// launch. Shared memory holds the product buffer only, whatever H.
 
 #include <cooperative_groups.h>
 
@@ -719,39 +736,42 @@ int launch_bwd(const void* x_proj, const void* mask, const void* reset, const vo
 
 
 // ---------------------------------------------------------------------------
-// Wide scans (H > 512): persistent cooperative kernels over the whole card;
-// see the note at the top.
+// Wide scans (H > 512): persistent cooperative kernels over the whole card,
+// the wide plan (kStream false) and the streamed plan (kStream true); see
+// the notes at the top.
 
 // Shared memory of a wide forward CTA of `rows` batch rows: its units'
 // three gate columns of Wh transposed into (3 tile_rows, ldw) rows, the
 // product buffer (3 n-tiles of 8 floats a row; in bf16 room for the
-// warps' K-split partial sums) and the f32 carry (rows, units).
+// warps' K-split partial sums) and the f32 carry (rows, units). Streamed:
+// the product buffer alone.
 template <typename T>
 struct WideFwdLayout {
   int ldw;
   size_t w, prod, total;
-  __host__ __device__ WideFwdLayout(int H, int units, int rows) {
+  __host__ __device__ WideFwdLayout(int H, int units, int rows, bool stream) {
     ldw = frag_ld<T>(H);
-    w = align16((size_t)3 * tile_rows<T>() * ldw * sizeof(T));
+    w = stream ? 0 : align16((size_t)3 * tile_rows<T>() * ldw * sizeof(T));
     const int prod_rows = is_bf16<T>() ? max(kDecWarps * 16, rows) : rows;
     prod = (size_t)prod_rows * 3 * kDecUnitsMma * sizeof(float);
-    total = w + prod + align16((size_t)rows * units * sizeof(float));
+    total = w + prod + (stream ? 0 : align16((size_t)rows * units * sizeof(float)));
   }
 };
 
 // Shared memory of a wide backward CTA: its units' rows of Wh (tile_rows,
 // ldw) over the 3H columns, the product buffer (one n-tile) and the f32
-// dh carry and dh_part (rows, units each).
+// dh carry and dh_part (rows, units each). Streamed: the product buffer
+// alone.
 template <typename T>
 struct WideBwdLayout {
   int ldw;
   size_t w, prod, total;
-  __host__ __device__ WideBwdLayout(int H, int units, int rows) {
+  __host__ __device__ WideBwdLayout(int H, int units, int rows, bool stream) {
     ldw = frag_ld<T>(3 * H);
-    w = align16((size_t)tile_rows<T>() * ldw * sizeof(T));
+    w = stream ? 0 : align16((size_t)tile_rows<T>() * ldw * sizeof(T));
     const int prod_rows = is_bf16<T>() ? max(kDecWarps * 16, rows) : rows;
     prod = (size_t)prod_rows * kDecUnitsMma * sizeof(float);
-    total = w + prod + 2 * align16((size_t)rows * units * sizeof(float));
+    total = w + prod + (stream ? 0 : 2 * align16((size_t)rows * units * sizeof(float)));
   }
 };
 
@@ -762,11 +782,15 @@ struct Wide {
   const T* x_proj;
   const float *mask, *reset, *h0;  // reset null: no reset stream
   const T* wh;
+  // streamed: Wh laid out as the wide plan's shared-memory slices, unit
+  // tile after unit tile (forward (3 tile_rows, ldw) a tile, backward
+  // (tile_rows, ldw)), zero past H and past each row's width
+  const T* wt;
   const float* bh;   // forward
   float* outs;       // forward: written; backward: read
   float* final_h;    // forward
   const float *g, *hp;           // backward: cotangent of outs, hoisted gate products
-  float *dx, *dhn, *dh0;         // backward
+  float *dx, *dhn, *dh0;         // backward (streamed: dh0 carries dh and dh_part)
   // written and read inside the kernel across CTAs, read with __ldcg: two
   // (B, ldx) buffers in T, zero past the row's width (forward: round(h),
   // ldx = pad32(H); backward: round(dh_proj), ldx = pad32(3H))
@@ -775,47 +799,63 @@ struct Wide {
 };
 
 // The wide kernels' CTAs need 2 an SM in f32 (4 units a CTA: 256 CTAs at
-// H = 1024), 1 in bf16 (8 units: 128 CTAs).
+// H = 1024), 1 in bf16 (8 units: 128 CTAs); the streamed plan's grid is
+// that many an SM.
 template <typename T>
 struct WideBlocks {
   static constexpr int kPerSm = is_bf16<T>() ? 1 : 2;
 };
 
-// CTA b owns hidden units [(b % unit_tiles) * units, +units) of batch rows
-// [(b / unit_tiles) * rows, +rows). Per step: its units' round(h) @ Wh from
-// the exchange buffer of the step, the gates in f32, its units of h' into
-// the other buffer (times the next step's 1 - reset), one grid barrier.
-template <typename T>
+// One unit tile of one row tile: units [u0, u0 + nu) of rows [r0, r0 + nr).
+struct WideTile {
+  int ut, u0, nu, r0, nr;
+  __device__ WideTile(int tile, int unit_tiles, int units, int rows, int H, int B) {
+    ut = tile % unit_tiles;
+    u0 = ut * units;
+    nu = max(0, min(units, H - u0));
+    r0 = (tile / unit_tiles) * rows;
+    nr = max(0, min(rows, B - r0));
+  }
+};
+
+// Tile b of the launch's unit_tiles x row_tiles tiles: units [(b %
+// unit_tiles) * units, +units) of batch rows [(b / unit_tiles) * rows,
+// +rows). The wide plan gives each CTA one tile (b = blockIdx.x), the
+// streamed plan tiles blockIdx.x, + gridDim.x, ... Per step: each tile's
+// round(h) @ Wh from the exchange buffer of the step, the gates in f32, its
+// units of h' into the other buffer (times the next step's 1 - reset); one
+// grid barrier.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kDecThreads, WideBlocks<T>::kPerSm)
 gru_wide_fwd_kernel(Wide<T> p) {
   cg::grid_group grid = cg::this_grid();
   const int B = p.B, T_len = p.T_len, H = p.H, H3 = 3 * H, units = p.units, ldx = p.ldx;
   const int tid = threadIdx.x;
-  const int row_tiles = (B + p.rows - 1) / p.rows;
-  const bool owner = (int)blockIdx.x < p.unit_tiles * row_tiles;
-  const int u0 = (blockIdx.x % p.unit_tiles) * units;
-  const int nu = owner ? max(0, min(units, H - u0)) : 0;
-  const int r0 = owner ? (blockIdx.x / p.unit_tiles) * p.rows : 0;
-  const int nr = owner ? min(p.rows, B - r0) : 0;
-  const int items = nr * nu;
+  const int tiles = p.unit_tiles * ((B + p.rows - 1) / p.rows);
   constexpr int tr = tile_rows<T>(), PS = 3 * kDecUnitsMma;
-  const WideFwdLayout<T> L(H, units, p.rows);
+  const WideFwdLayout<T> L(H, units, p.rows, kStream);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // wide plan only
   float* prod = reinterpret_cast<float*>(smem_raw + L.w);
-  float* carry = reinterpret_cast<float*>(smem_raw + L.w + L.prod);
+  float* carry = reinterpret_cast<float*>(smem_raw + L.w + L.prod);  // wide plan only
+  const size_t slice = (size_t)3 * tr * L.ldw;  // one unit tile's weights
   const bool reset = p.reset != nullptr;
   auto keep_at = [&](int row, int t) { return reset ? 1.f - p.reset[(size_t)row * T_len + t] : 1.f; };
 
-  // row g * tr + u of w_s is column g * H + u0 + u of Wh, zero past nu
-  // units and past H
-  for (int i = tid; i < L.ldw * 3 * tr; i += kDecThreads) {
-    const int u = i % tr, g = (i / tr) % 3, k = i / (3 * tr);
-    w_s[(g * tr + u) * L.ldw + k] =
-        u < nu && k < H ? p.wh[(size_t)k * H3 + g * H + u0 + u] : from_f<T>(0.f);
+  if constexpr (!kStream) {
+    if ((int)blockIdx.x < tiles) {
+      // row g * tr + u of w_s is column g * H + u0 + u of Wh, zero past nu
+      // units and past H
+      const WideTile c(blockIdx.x, p.unit_tiles, units, p.rows, H, B);
+      for (int i = tid; i < L.ldw * 3 * tr; i += kDecThreads) {
+        const int u = i % tr, g = (i / tr) % 3, k = i / (3 * tr);
+        w_s[(g * tr + u) * L.ldw + k] =
+            u < c.nu && k < H ? p.wh[(size_t)k * H3 + g * H + c.u0 + u] : from_f<T>(0.f);
+      }
+      for (int i = tid; i < c.nr * c.nu; i += kDecThreads)
+        carry[(i / c.nu) * units + i % c.nu] = p.h0[(size_t)(c.r0 + i / c.nu) * H + c.u0 + i % c.nu];
+    }
   }
-  for (int i = tid; i < items; i += kDecThreads)
-    carry[(i / nu) * units + i % nu] = p.h0[(size_t)(r0 + i / nu) * H + u0 + i % nu];
   // buffer 0: round(h0 * keep of the first step); buffer 1 zero (its
   // columns past H stay so)
   const int t_first = p.reverse ? T_len - 1 : 0;
@@ -830,13 +870,17 @@ gru_wide_fwd_kernel(Wide<T> p) {
 
   for (int step = 0; step < T_len; ++step) {
     const int t = p.reverse ? T_len - 1 - step : step;
-    const int t_next = p.reverse ? t - 1 : t + 1;
+    const int t_next = p.reverse ? t - 1 : t + 1, t_prev = p.reverse ? t + 1 : t - 1;
     const T* cur = p.xch + (step & 1) * xn;
     T* nxt = p.xch + ((step + 1) & 1) * xn;
-    if (items > 0) {
-      block_product<T, 3>(cur, ldx, H, w_s, L.ldw, nu, r0, nr, prod);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      const int items = c.nr * c.nu;
+      if (items == 0) continue;
+      block_product<T, 3>(cur, ldx, H, kStream ? p.wt + c.ut * slice : w_s, L.ldw, c.nu, c.r0,
+                          c.nr, prod);
       for (int i = tid; i < items; i += kDecThreads) {
-        const int mm = i / nu, u = i % nu, row = r0 + mm, j = u0 + u, c = mm * units + u;
+        const int mm = i / c.nu, u = i % c.nu, row = c.r0 + mm, j = c.u0 + u;
         const size_t n = (size_t)row * T_len + t;
         float x[3], hp[3];
 #pragma unroll
@@ -844,120 +888,161 @@ gru_wide_fwd_kernel(Wide<T> p) {
           x[g] = to_f(p.x_proj[n * H3 + g * H + j]);
           hp[g] = prod[mm * PS + g * 8 + u] + p.bh[g * H + j];
         }
-        float h = carry[c] * keep_at(row, t);  // as the product read it: zero at a start
+        // the carry as the product read it: zero at a segment start. The
+        // streamed plan reads it back from the previous step's out, which
+        // this thread wrote.
+        float h;
+        if constexpr (kStream)
+          h = step == 0 ? p.h0[(size_t)row * H + j] : p.outs[((size_t)row * T_len + t_prev) * H + j];
+        else
+          h = carry[mm * units + u];
+        h *= keep_at(row, t);
         h = p.mask[n] > 0.f ? gru_cell(x, hp, h) : h;
-        carry[c] = h;
+        if constexpr (!kStream) carry[mm * units + u] = h;
         p.outs[n * H + j] = h;
-        if (step + 1 < T_len) nxt[(size_t)row * ldx + j] = from_f<T>(h * keep_at(row, t_next));
+        if (step + 1 < T_len)
+          nxt[(size_t)row * ldx + j] = from_f<T>(h * keep_at(row, t_next));
+        else
+          p.final_h[(size_t)row * H + j] = h;
       }
     }
     if (step + 1 < T_len) grid.sync();  // every unit of h' is in nxt
   }
-  for (int i = tid; i < items; i += kDecThreads)
-    p.final_h[(size_t)(r0 + i / nu) * H + u0 + i % nu] = carry[(i / nu) * units + i % nu];
 }
 
 // The reverse scan, tiled as the forward. Per step: the gate backward of
-// the CTA's cells from the hoisted hp, their round(dh_proj) into the
-// step's exchange buffer, one grid barrier, then dh = dh_part + dh_proj @
-// Wh[units, :]^T from the exchange (times the step's 1 - reset).
-template <typename T>
+// each tile's cells from the hoisted hp, their round(dh_proj) into the
+// step's exchange buffer, one grid barrier, then each tile's dh = dh_part
+// + dh_proj @ Wh[units, :]^T from the exchange (times the step's 1 -
+// reset). The wide plan keeps dh and dh_part in shared memory, the
+// streamed plan in dh0.
+template <typename T, bool kStream>
 __global__ void __launch_bounds__(kDecThreads, WideBlocks<T>::kPerSm)
 gru_wide_bwd_kernel(Wide<T> p) {
   cg::grid_group grid = cg::this_grid();
   const int B = p.B, T_len = p.T_len, H = p.H, H3 = 3 * H, units = p.units, ldx = p.ldx;
   const int tid = threadIdx.x;
-  const int row_tiles = (B + p.rows - 1) / p.rows;
-  const bool owner = (int)blockIdx.x < p.unit_tiles * row_tiles;
-  const int u0 = (blockIdx.x % p.unit_tiles) * units;
-  const int nu = owner ? max(0, min(units, H - u0)) : 0;
-  const int r0 = owner ? (blockIdx.x / p.unit_tiles) * p.rows : 0;
-  const int nr = owner ? min(p.rows, B - r0) : 0;
-  const int items = nr * nu;
+  const int tiles = p.unit_tiles * ((B + p.rows - 1) / p.rows);
   constexpr int tr = tile_rows<T>();
-  const WideBwdLayout<T> L(H, units, p.rows);
+  const WideBwdLayout<T> L(H, units, p.rows, kStream);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);
+  T* w_s = reinterpret_cast<T*>(smem_raw);  // wide plan only
   float* prod = reinterpret_cast<float*>(smem_raw + L.w);
-  float* dh_s = reinterpret_cast<float*>(smem_raw + L.w + L.prod);
+  float* dh_s = reinterpret_cast<float*>(smem_raw + L.w + L.prod);  // wide plan only
   float* part_s = dh_s + align16((size_t)p.rows * units * sizeof(float)) / sizeof(float);
+  const size_t slice = (size_t)tr * L.ldw;
   const bool reset = p.reset != nullptr;
+  // the f32 carry of cell (mm, u) of tile c, and dh_part beside it: shared
+  // memory (wide), or dh0 for both in turn (streamed)
+  auto dh_at = [&](const WideTile& c, int mm, int u) -> float& {
+    if constexpr (kStream) return p.dh0[(size_t)(c.r0 + mm) * H + c.u0 + u];
+    else return dh_s[mm * units + u];
+  };
+  auto part_at = [&](const WideTile& c, int mm, int u) -> float& {
+    if constexpr (kStream) return p.dh0[(size_t)(c.r0 + mm) * H + c.u0 + u];
+    else return part_s[mm * units + u];
+  };
 
-  // row u of w_s is row u0 + u of Wh (its 3H columns), zero past nu and 3H
-  for (int i = tid; i < tr * L.ldw; i += kDecThreads) {
-    const int u = i / L.ldw, c = i % L.ldw;
-    w_s[i] = u < nu && c < H3 ? p.wh[(size_t)(u0 + u) * H3 + c] : from_f<T>(0.f);
+  if constexpr (!kStream) {
+    if ((int)blockIdx.x < tiles) {
+      // row u of w_s is row u0 + u of Wh (its 3H columns), zero past nu and 3H
+      const WideTile c(blockIdx.x, p.unit_tiles, units, p.rows, H, B);
+      for (int i = tid; i < tr * L.ldw; i += kDecThreads) {
+        const int u = i / L.ldw, k = i % L.ldw;
+        w_s[i] = u < c.nu && k < H3 ? p.wh[(size_t)(c.u0 + u) * H3 + k] : from_f<T>(0.f);
+      }
+    }
+    for (int i = tid; i < p.rows * units; i += kDecThreads) dh_s[i] = 0.f;
   }
-  for (int i = tid; i < items; i += kDecThreads) dh_s[(i / nu) * units + i % nu] = 0.f;
   const size_t xn = (size_t)B * ldx;
   const size_t gtid = (size_t)blockIdx.x * kDecThreads + tid;
   for (size_t i = gtid; i < 2 * xn; i += (size_t)gridDim.x * kDecThreads) p.xch[i] = from_f<T>(0.f);
+  if constexpr (kStream)
+    for (size_t i = gtid; i < (size_t)B * H; i += (size_t)gridDim.x * kDecThreads) p.dh0[i] = 0.f;
   grid.sync();
 
   for (int step = 0; step < T_len; ++step) {
     const int t = p.reverse ? step : T_len - 1 - step;
     T* dp = p.xch + (step & 1) * xn;
-    for (int i = tid; i < items; i += kDecThreads) {
-      const int mm = i / nu, u = i % nu, row = r0 + mm, j = u0 + u, c = mm * units + u;
-      const size_t n = (size_t)row * T_len + t;
-      const float keep = reset ? 1.f - p.reset[n] : 1.f;
-      const float h_prev = prev_state<float>(p.h0, p.outs, row, t, T_len, H, j, p.reverse) * keep;
-      const float* hp = p.hp + n * H3;
-      const float hn = hp[2 * H + j];
-      const float rg = sigmoid_f(to_f(p.x_proj[n * H3 + j]) + hp[j]);
-      const float zg = sigmoid_f(to_f(p.x_proj[n * H3 + H + j]) + hp[H + j]);
-      const float ng = tanhf(to_f(p.x_proj[n * H3 + 2 * H + j]) + rg * hn);
-      const float m = p.mask[n];
-      const float dh_total = p.g[n * H + j] + dh_s[c];
-      const float dhat = m * dh_total;
-      const float dn_pre = dhat * (1.f - zg) * (1.f - ng * ng);
-      const float dz_pre = dhat * (h_prev - ng) * zg * (1.f - zg);
-      const float dr_pre = dn_pre * hn * rg * (1.f - rg);
-      const float dhn_ = dn_pre * rg;
-      part_s[c] = (1.f - m) * dh_total + dhat * zg;
-      float* dxr = p.dx + n * H3;
-      dxr[j] = dr_pre;
-      dxr[H + j] = dz_pre;
-      dxr[2 * H + j] = dn_pre;
-      p.dhn[n * H + j] = dhn_;
-      T* out = dp + (size_t)row * ldx;
-      out[j] = from_f<T>(dr_pre);
-      out[H + j] = from_f<T>(dz_pre);
-      out[2 * H + j] = from_f<T>(dhn_);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      for (int i = tid; i < c.nr * c.nu; i += kDecThreads) {
+        const int mm = i / c.nu, u = i % c.nu, row = c.r0 + mm, j = c.u0 + u;
+        const size_t n = (size_t)row * T_len + t;
+        const float keep = reset ? 1.f - p.reset[n] : 1.f;
+        const float h_prev = prev_state<float>(p.h0, p.outs, row, t, T_len, H, j, p.reverse) * keep;
+        const float* hp = p.hp + n * H3;
+        const float hn = hp[2 * H + j];
+        const float rg = sigmoid_f(to_f(p.x_proj[n * H3 + j]) + hp[j]);
+        const float zg = sigmoid_f(to_f(p.x_proj[n * H3 + H + j]) + hp[H + j]);
+        const float ng = tanhf(to_f(p.x_proj[n * H3 + 2 * H + j]) + rg * hn);
+        const float m = p.mask[n];
+        const float dh_total = p.g[n * H + j] + dh_at(c, mm, u);
+        const float dhat = m * dh_total;
+        const float dn_pre = dhat * (1.f - zg) * (1.f - ng * ng);
+        const float dz_pre = dhat * (h_prev - ng) * zg * (1.f - zg);
+        const float dr_pre = dn_pre * hn * rg * (1.f - rg);
+        const float dhn_ = dn_pre * rg;
+        part_at(c, mm, u) = (1.f - m) * dh_total + dhat * zg;
+        float* dxr = p.dx + n * H3;
+        dxr[j] = dr_pre;
+        dxr[H + j] = dz_pre;
+        dxr[2 * H + j] = dn_pre;
+        p.dhn[n * H + j] = dhn_;
+        T* out = dp + (size_t)row * ldx;
+        out[j] = from_f<T>(dr_pre);
+        out[H + j] = from_f<T>(dz_pre);
+        out[2 * H + j] = from_f<T>(dhn_);
+      }
     }
     grid.sync();  // every cell's dh_proj is in dp
-    if (items > 0) {
-      block_product<T, 1>(dp, ldx, H3, w_s, L.ldw, nu, r0, nr, prod);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      const int items = c.nr * c.nu;
+      if (items == 0) continue;
+      block_product<T, 1>(dp, ldx, H3, kStream ? p.wt + c.ut * slice : w_s, L.ldw, c.nu, c.r0,
+                          c.nr, prod);
       for (int i = tid; i < items; i += kDecThreads) {
-        const int mm = i / nu, u = i % nu, c = mm * units + u;
-        const float keep = reset ? 1.f - p.reset[(size_t)(r0 + mm) * T_len + t] : 1.f;
-        dh_s[c] = (part_s[c] + prod[mm * kDecUnitsMma + u]) * keep;
+        const int mm = i / c.nu, u = i % c.nu;
+        const float keep = reset ? 1.f - p.reset[(size_t)(c.r0 + mm) * T_len + t] : 1.f;
+        dh_at(c, mm, u) = (part_at(c, mm, u) + prod[mm * kDecUnitsMma + u]) * keep;
       }
     }
   }
-  __syncthreads();
-  for (int i = tid; i < items; i += kDecThreads)
-    p.dh0[(size_t)(r0 + i / nu) * H + u0 + i % nu] = dh_s[(i / nu) * units + i % nu];
+  if constexpr (!kStream) {
+    __syncthreads();
+    if ((int)blockIdx.x < tiles) {
+      const WideTile c(blockIdx.x, p.unit_tiles, units, p.rows, H, B);
+      for (int i = tid; i < c.nr * c.nu; i += kDecThreads)
+        p.dh0[(size_t)(c.r0 + i / c.nu) * H + c.u0 + i % c.nu] = dh_s[(i / c.nu) * units + i % c.nu];
+    }
+  }
 }
 
 template <typename T>
-size_t wide_smem(int pass, int H, int units, int rows) {
-  return pass == 0 ? WideFwdLayout<T>(H, units, rows).total : WideBwdLayout<T>(H, units, rows).total;
+size_t wide_smem(int pass, int H, int units, int rows, bool stream) {
+  return pass == 0 ? WideFwdLayout<T>(H, units, rows, stream).total
+                   : WideBwdLayout<T>(H, units, rows, stream).total;
 }
 
 template <typename T>
-void* wide_kernel(int pass) {
-  return pass == 0 ? reinterpret_cast<void*>(gru_wide_fwd_kernel<T>)
-                   : reinterpret_cast<void*>(gru_wide_bwd_kernel<T>);
+void* wide_kernel(int pass, bool stream) {
+  if (stream)
+    return pass == 0 ? reinterpret_cast<void*>(gru_wide_fwd_kernel<T, true>)
+                     : reinterpret_cast<void*>(gru_wide_bwd_kernel<T, true>);
+  return pass == 0 ? reinterpret_cast<void*>(gru_wide_fwd_kernel<T, false>)
+                   : reinterpret_cast<void*>(gru_wide_bwd_kernel<T, false>);
 }
 
 // One cooperative launch of pass 0 (forward) or 1 (backward) a chunk of
-// `rows * row_tiles` batch rows, the chunks in order on the stream; q holds
-// the whole call's pointers, offset here to each chunk's first row.
+// `rows * row_tiles` batch rows, the chunks in order on the stream, each
+// launch of at most `ctas` CTAs; q holds the whole call's pointers, offset
+// here to each chunk's first row (a streamed call is one chunk).
 template <typename T>
-int launch_wide(int pass, Wide<T> q, int row_tiles, cudaStream_t stream) {
-  const size_t smem = wide_smem<T>(pass, q.H, q.units, q.rows);
-  void* kernel = wide_kernel<T>(pass);
+int launch_wide(int pass, Wide<T> q, int row_tiles, int ctas, cudaStream_t stream) {
+  const bool streamed = q.wt != nullptr;
+  const size_t smem = wide_smem<T>(pass, q.H, q.units, q.rows, streamed);
+  void* kernel = wide_kernel<T>(pass, streamed);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -980,7 +1065,10 @@ int launch_wide(int pass, Wide<T> q, int row_tiles, cudaStream_t stream) {
       p.dhn = q.dhn + bt * H;
       p.dh0 = q.dh0 + (size_t)b0 * H;
     }
-    const int grid = q.unit_tiles * ((p.B + q.rows - 1) / q.rows);
+    const int tiles = q.unit_tiles * ((p.B + q.rows - 1) / q.rows);
+    // the wide plan's CTAs hold one tile each
+    if (!streamed && tiles > ctas) return (int)cudaErrorInvalidValue;
+    const int grid = min(tiles, ctas);
     void* args[] = {&p};
     // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that is not co-resident
     err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kDecThreads), args, smem, stream);
@@ -991,14 +1079,15 @@ int launch_wide(int pass, Wide<T> q, int row_tiles, cudaStream_t stream) {
 
 template <typename T>
 Wide<T> wide_args(const void* x_proj, const void* mask, const void* reset, const void* h0,
-                  const void* wh, void* xch, int B, int T_len, int H, int units, int rows,
-                  int pass, int reverse) {
+                  const void* wh, const void* wt, void* xch, int B, int T_len, int H, int units,
+                  int rows, int pass, int reverse) {
   Wide<T> p = {};
   p.x_proj = static_cast<const T*>(x_proj);
   p.mask = static_cast<const float*>(mask);
   p.reset = static_cast<const float*>(reset);
   p.h0 = static_cast<const float*>(h0);
   p.wh = static_cast<const T*>(wh);
+  p.wt = static_cast<const T*>(wt);
   p.xch = static_cast<T*>(xch);
   p.B = B;
   p.T_len = T_len;
@@ -1011,11 +1100,12 @@ Wide<T> wide_args(const void* x_proj, const void* mask, const void* reset, const
   return p;
 }
 
-// The wide plan's tiling is the caller's: units the dtype's tile_rows,
-// rows a multiple of 16, each launch's grid within the co-resident CTAs.
-bool valid_wide(int dtype, int H, int units, int rows, int row_tiles) {
+// The wide and streamed plans' tiling is the caller's: units the dtype's
+// tile_rows, rows a multiple of 16, each launch's grid within the
+// co-resident CTAs.
+bool valid_wide(int dtype, int H, int units, int rows, int row_tiles, int ctas) {
   const int tr = dtype == 1 ? kDecUnitsMma : kDecUnitsFma;
-  return H >= 1 && units == tr && rows >= 16 && rows % 16 == 0 && row_tiles >= 1;
+  return H >= 1 && units == tr && rows >= 16 && rows % 16 == 0 && row_tiles >= 1 && ctas >= 1;
 }
 
 }  // namespace
@@ -1107,44 +1197,50 @@ extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int un
   return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
 }
 
-// Wide forward (H > 512: the plan of ops/gru_scan.py): inputs and outputs
-// as vmmt_gru_scan's; CTAs of `units` units (8 in bf16, 4 in f32) and
-// `rows` batch rows, row_tiles of them a launch, one cooperative launch a
-// chunk of rows * row_tiles rows. xch: scratch of 2 * rows * row_tiles *
-// pad32(H) elements of the compute dtype.
+// Wide and streamed forward (H > 512: the plans of ops/gru_scan.py): inputs
+// and outputs as vmmt_gru_scan's; CTAs of `units` units (8 in bf16, 4 in
+// f32) and `rows` batch rows, row_tiles of them a launch, one cooperative
+// launch of at most `ctas` CTAs a chunk of rows * row_tiles rows. xch:
+// scratch of 2 * rows * row_tiles * pad32(H) elements of the compute dtype.
+// wt: null on the wide plan (each CTA copies its slice of wh into shared
+// memory; ctas covers the tiles); on the streamed plan wh laid out as
+// (unit_tiles, 3, units, frag_ld(H)), zero past H.
 extern "C" int vmmt_gru_wide(int dtype, const void* x_proj, const void* mask, const void* reset,
                              const void* h0, const void* wh, const void* bh, void* outs,
-                             void* final_h, void* xch, int B, int T_len, int H, int reverse,
-                             int units, int rows, int row_tiles, void* stream) {
+                             void* final_h, void* xch, const void* wt, int B, int T_len, int H,
+                             int reverse, int units, int rows, int row_tiles, int ctas,
+                             void* stream) {
   if (B == 0 || T_len == 0) return 0;
-  if (!valid_wide(dtype, H, units, rows, row_tiles)) return (int)cudaErrorInvalidValue;
+  if (!valid_wide(dtype, H, units, rows, row_tiles, ctas)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto zero) {
     using T = decltype(zero);
-    Wide<T> p = wide_args<T>(x_proj, mask, reset, h0, wh, xch, B, T_len, H, units, rows, 0,
+    Wide<T> p = wide_args<T>(x_proj, mask, reset, h0, wh, wt, xch, B, T_len, H, units, rows, 0,
                              reverse);
     p.bh = static_cast<const float*>(bh);
     p.outs = static_cast<float*>(outs);
     p.final_h = static_cast<float*>(final_h);
-    return launch_wide<T>(0, p, row_tiles, s);
+    return launch_wide<T>(0, p, row_tiles, ctas, s);
   };
   const int err = dtype == 1 ? run(__nv_bfloat16{}) : run(float{});
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
-// Wide backward: the hoisted gate products and dWh as vmmt_gru_scan_bwd's
-// (tile_gemm.cuh takes any shape), the reverse scan on the wide kernel.
-// Arguments as vmmt_gru_scan_bwd's with the wide tiling in place of the
-// cluster's and xch: 2 * rows * row_tiles * pad32(3H) elements of the
-// compute dtype.
+// Wide and streamed backward: the hoisted gate products and dWh as
+// vmmt_gru_scan_bwd's (tile_gemm.cuh takes any shape), the reverse scan on
+// the wide kernel. Arguments as vmmt_gru_scan_bwd's with the wide tiling in
+// place of the cluster's, xch: 2 * rows * row_tiles * pad32(3H) elements
+// of the compute dtype, and wt: null on the wide plan, else wh laid out as
+// (unit_tiles * units, frag_ld(3H)), zero past H rows and 3H columns.
 extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask,
                                  const void* reset, const void* h0, const void* wh, const void* bh,
                                  const void* outs, const void* g, void* dx, void* dh0, void* dwh,
                                  void* dbh, void* hp, void* dhn, void* partial, void* counters,
-                                 void* xch, int B, int T_len, int H, int reverse, int units,
-                                 int rows, int row_tiles, int splits, void* stream) {
+                                 void* xch, const void* wt, int B, int T_len, int H, int reverse,
+                                 int units, int rows, int row_tiles, int ctas, int splits,
+                                 void* stream) {
   if (B == 0 || T_len == 0) return 0;
-  if (!valid_wide(dtype, H, units, rows, row_tiles) || splits < 1)
+  if (!valid_wide(dtype, H, units, rows, row_tiles, ctas) || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto zero) {
@@ -1157,7 +1253,7 @@ extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask
                                      static_cast<const T*>(wh), static_cast<const float*>(bh),
                                      static_cast<float*>(hp), T_len, H, reverse}}};
     tile_gemm<T>(hoist, s);
-    Wide<T> p = wide_args<T>(x_proj, mask, reset, h0, wh, xch, B, T_len, H, units, rows, 1,
+    Wide<T> p = wide_args<T>(x_proj, mask, reset, h0, wh, wt, xch, B, T_len, H, units, rows, 1,
                              reverse);
     p.outs = const_cast<float*>(outsf);
     p.g = static_cast<const float*>(g);
@@ -1165,7 +1261,7 @@ extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask
     p.dx = static_cast<float*>(dx);
     p.dhn = static_cast<float*>(dhn);
     p.dh0 = static_cast<float*>(dh0);
-    const int err = launch_wide<T>(1, p, row_tiles, s);
+    const int err = launch_wide<T>(1, p, row_tiles, ctas, s);
     if (err != 0) return err;
     OpArray<ScanDWh<T>, 1> dw{{{H, H3, B * T_len, h0f, outsf, resetf,
                                 static_cast<const float*>(dx), static_cast<const float*>(dhn),
@@ -1178,16 +1274,16 @@ extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
-// How many CTAs of the wide kernel of `pass` (0 forward, 1 backward) the
-// card holds at once, and the dynamic shared memory of one CTA, for CTAs of
-// `units` units and `rows` batch rows.
+// How many CTAs of the wide (streamed 0) or streamed (1) kernel of `pass`
+// (0 forward, 1 backward) the card holds at once, and the dynamic shared
+// memory of one CTA, for CTAs of `units` units and `rows` batch rows.
 extern "C" int vmmt_gru_wide_occupancy(int dtype, int pass, int H, int units, int rows,
-                                       int* max_blocks, int* smem_bytes) {
+                                       int streamed, int* max_blocks, int* smem_bytes) {
   if (pass != 0 && pass != 1) return (int)cudaErrorInvalidValue;
   auto query = [&](auto zero) {
     using T = decltype(zero);
-    return co_resident(wide_kernel<T>(pass), wide_smem<T>(pass, H, units, rows), max_blocks,
-                       smem_bytes);
+    return co_resident(wide_kernel<T>(pass, streamed != 0),
+                       wide_smem<T>(pass, H, units, rows, streamed != 0), max_blocks, smem_bytes);
   };
   return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
 }

@@ -30,7 +30,7 @@ from torch import nn
 from variational_mmt_torch.models.attention import GlobalAttention
 from variational_mmt_torch.models.fused_decoder import fused_input_feed_decoder
 from variational_mmt_torch.models.gru import (cell_layer_scan, cell_step, dropout,
-                                              dropout_mask, n_gates, scan_route)
+                                              dropout_mask, n_gates)
 from variational_mmt_torch.models.layers import Dense
 from variational_mmt_torch.ops.decode_step import (decode_step, gru_chain, pad_step_weights,
                                                    pad_units, padded_width)
@@ -196,8 +196,7 @@ class GRUDecoder(nn.Module):
         back through the kernel's dh0."""
         B, T, _ = x_proj.shape
         dt = self.dtype
-        kernel = self.use_pallas and self.cell_type == "gru" \
-            and scan_route(self.hidden, dt, "decoder")
+        kernel = self.use_pallas and self.cell_type == "gru"
         if kernel:
             from variational_mmt_torch.ops.gru_scan import gru_layer_scan_ad
 

@@ -16,16 +16,12 @@ segment's first token in both directions, to zero or to a given state
 
 from __future__ import annotations
 
-import logging
 from typing import List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from variational_mmt_torch.models.layers import Dense
-
-log = logging.getLogger(__name__)
-_wide_logged = set()  # (role, hidden, dtype) of the layers already logged as too wide
 
 
 def lstm_gates(x_proj: torch.Tensor, h_proj: torch.Tensor,
@@ -119,9 +115,11 @@ def cell_layer_scan(x_proj: torch.Tensor, carry0: torch.Tensor, wh: torch.Tensor
     (B,T): where > 0 the carry is replaced before the cell consumes
     position t, by ``init_seq[:, t]`` when ``init_seq`` (B,T,H) is given
     (``[init_seq[:, t] | 0]`` for LSTM), else by zeros. Returns (outs
-    (B,T,H), final carry)."""
+    (B,T,H), final carry). Counts its GRU calls in ``gru_scans``: a
+    ``use_pallas`` model makes none, its GRU layers taking the kernels."""
     T = x_proj.shape[1]
     lstm = cell_type == "lstm"
+    cell_layer_scan.gru_scans += not lstm
     H = carry0.shape[-1] // 2 if lstm else carry0.shape[-1]
     s = carry0
     outs: List[Optional[torch.Tensor]] = [None] * T
@@ -142,27 +140,28 @@ def cell_layer_scan(x_proj: torch.Tensor, carry0: torch.Tensor, wh: torch.Tensor
     return torch.stack(outs, dim=1), s
 
 
+cell_layer_scan.gru_scans = 0
+
+
 class UniGRU(nn.Module):
     """One direction, one layer. Returns (outputs (B,T,H), final state):
     (B,H) for GRU, (B,2H) ``[h | c]`` for LSTM (``cell_type``), whose
     weights are (H,4H). With ``use_pallas`` a GRU layer runs in the GRU-scan
-    kernels (ops/gru_scan.py), as the JAX package runs its Pallas kernel,
-    where they hold the width (``scan_kernel_holds``: H <= 1024); a wider
-    layer takes the plain scan, logged once, naming ``role`` (the encoder,
-    the target encoder). An LSTM layer always takes the plain scan: the JAX
+    kernels (ops/gru_scan.py) at any width, as the JAX package runs its
+    Pallas kernel (JAX :206-214). An LSTM layer always takes the plain
+    scan: the JAX
     package has no LSTM kernel and routes it the same way (JAX :185,
     :206-222), so this is its route, not a fallback."""
 
     def __init__(self, in_dim: int, hidden: int, reverse: bool = False,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-                 cell_type: str = "gru", role: str = "encoder"):
+                 cell_type: str = "gru"):
         super().__init__()
         self.hidden = hidden
         self.reverse = reverse
         self.dtype = dtype
         self.use_pallas = use_pallas
         self.cell_type = cell_type
-        self.role = role
         G = n_gates(cell_type)
         self.ih = Dense(in_dim, G * hidden, dtype=dtype)
         self.hh_kernel = nn.Parameter(torch.empty(hidden, G * hidden))
@@ -173,8 +172,7 @@ class UniGRU(nn.Module):
         """``reset`` (B,T) f32: 1 at a packed segment's start (None: none)."""
         x_proj = self.ih(x)
         h0 = torch.zeros((x.shape[0], self.hidden), dtype=self.dtype, device=x.device)
-        if self.cell_type == "gru" and self.use_pallas \
-                and scan_route(self.hidden, self.dtype, self.role):
+        if self.cell_type == "gru" and self.use_pallas:
             from variational_mmt_torch.ops.gru_scan import gru_layer_scan_ad
 
             # as the JAX Pallas path: Wh in the compute dtype, bh in f32,
@@ -188,31 +186,15 @@ class UniGRU(nn.Module):
                                reverse=self.reverse, reset=reset, cell_type=self.cell_type)
 
 
-def scan_route(hidden: int, dtype: torch.dtype, role: str) -> bool:
-    """Whether a ``use_pallas`` GRU layer of ``hidden`` units takes the scan
-    kernels; logs the first layer of each role and width that does not."""
-    from variational_mmt_torch.ops.gru_scan import SCAN_MAX_HIDDEN, scan_kernel_holds
-
-    if scan_kernel_holds(hidden, dtype):
-        return True
-    if (role, hidden, dtype) not in _wide_logged:
-        _wide_logged.add((role, hidden, dtype))
-        log.warning("%s GRU layer of %d units (%s): wider than the scan kernels hold (%d); "
-                    "it takes the plain scan", role, hidden, dtype, SCAN_MAX_HIDDEN)
-    return False
-
-
 class BiGRUEncoder(nn.Module):
     """Bidirectional multi-layer GRU (or LSTM, ``cell_type``) encoder.
     ``hidden`` is the total size: each direction gets hidden // 2. Dropout
     (rate ``dropout``) applies to the input of every layer after the first,
-    drawn from the generator passed to ``forward`` (none: deterministic).
-    ``role`` names the encoder in the log line of a layer too wide for the
-    scan kernels."""
+    drawn from the generator passed to ``forward`` (none: deterministic)."""
 
     def __init__(self, in_dim: int, hidden: int, layers: int = 2,
                  dtype: torch.dtype = torch.float32, use_pallas: bool = False,
-                 dropout: float = 0.0, cell_type: str = "gru", role: str = "encoder"):
+                 dropout: float = 0.0, cell_type: str = "gru"):
         super().__init__()
         if hidden % 2:
             raise ValueError(f"BiGRUEncoder hidden must be even, got {hidden}")
@@ -223,8 +205,7 @@ class BiGRUEncoder(nn.Module):
         for layer in range(layers):
             d = in_dim if layer == 0 else hidden
             for name, reverse in ((f"fwd{layer}", False), (f"bwd{layer}", True)):
-                self.add_module(name, UniGRU(d, half, reverse, dtype, use_pallas, cell_type,
-                                             role))
+                self.add_module(name, UniGRU(d, half, reverse, dtype, use_pallas, cell_type))
 
     def forward(self, emb: torch.Tensor, mask: torch.Tensor,
                 generator: Optional[torch.Generator] = None,

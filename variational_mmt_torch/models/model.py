@@ -79,7 +79,7 @@ class VMMTModel(nn.Module):
         if not c.share_embeddings:  # shared: source ids look up tgt_embed
             self.src_embed = Embed(c.src_vocab_size, E, dt, vm)
         self.encoder = BiGRUEncoder(E, H, c.enc_layers, dt, c.use_pallas, c.dropout,
-                                    c.rnn_type, "encoder")
+                                    c.rnn_type)
         self.decoder = GRUDecoder(E, H, c.dec_layers, c.attn_type, dt, c.dropout,
                                   c.use_pallas, c.pallas_decoder, c.fused_decoder,
                                   c.input_feed, c.rnn_type)
@@ -95,8 +95,7 @@ class VMMTModel(nn.Module):
             self.add_module(f"bridge{l}", Dense(final_dim + z_dim, H, dtype=dt))
         if self.is_latent:
             use_img = c.img_feat_dim > 0
-            self.tgt_encoder = BiGRUEncoder(E, H, 1, dt, c.use_pallas, c.dropout, c.rnn_type,
-                                            "target encoder")
+            self.tgt_encoder = BiGRUEncoder(E, H, 1, dt, c.use_pallas, c.dropout, c.rnn_type)
             self.infnet = InferenceNetwork(H, c.img_feat_dim, c.latent_dim, H, c.min_sigma,
                                            use_img, dt)
             if c.model_type == "vmmt_c":

@@ -79,10 +79,22 @@ plan it (``layout`` ``"wide"``); the wrapper checks with the card that
 the grid is co-resident and raises ``NotImplementedError`` naming the plan
 when it is not.
 
-Widths. Both kernels take H <= 1024 in bf16 and f32
-(:func:`scan_kernel_holds`): clusters up to 512 units, the wide plan
-above. ``UniGRU`` asks it before the call and sends a wider layer to the
-plain scan.
+Source note, the streamed plan (H above 1024, the same two kernels with
+``kStream``). The wide plan ties the grid (a CTA a unit tile) and each
+CTA's shared memory (its slice of Wh, 98 KB at H = 2048) to H. The
+streamed plan breaks both links: the grid is capped at what the card holds
+at once (one bf16 CTA an SM, two in f32), each CTA takes unit tiles in
+turn within every step, and the weights stay in global memory, laid out
+once a call by the wrapper (:func:`_stream_weights`) in the slices' own
+order so that ``block_product`` reads its fragments from L2 (from HBM
+every step where Wh exceeds the 50 MB L2: f32 at 2048 units and wider).
+The carries move to global memory (the forward reads h back from its own
+``outs``, the backward keeps dh in ``dh0``), so a CTA's shared memory is
+its product buffer alone, whatever H. All row tiles run in one launch.
+
+Widths. Both kernels take every H >= 1 in bf16 and f32
+(:func:`scan_kernel_holds`): clusters up to 512 units, the wide plan to
+1024, the streamed plan above, as the Pallas scan takes any H.
 """
 
 from __future__ import annotations
@@ -160,14 +172,16 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     lib = kernels.library("gru_scan")
     plan = scan_fwd_plan(B, T, H, dt, kernels.sm_count(x.device.index))
     code = kernels.DTYPE_CODE[dt]
-    if plan["layout"] == "wide":
+    if plan["layout"] in ("wide", "streamed"):
         gru_layer_scan.plan = _co_resident_wide("gru_layer_scan", 0, plan, code, H,
                                                 x.device.index)
         xch = _exchange(plan, H, dt, x.device)
+        wt = _stream_weights(w, 0, plan) if plan["layout"] == "streamed" else None
         err = lib.vmmt_gru_wide(code, x.data_ptr(), m.data_ptr(), _ptr(r), h.data_ptr(),
                                 w.data_ptr(), b.data_ptr(), outs.data_ptr(), final.data_ptr(),
-                                xch.data_ptr(), B, T, H, int(reverse), plan["units"],
-                                plan["rows"], plan["row_tiles"], kernels.stream_of(x))
+                                xch.data_ptr(), _ptr(wt), B, T, H, int(reverse), plan["units"],
+                                plan["rows"], plan["row_tiles"], plan["grid"],
+                                kernels.stream_of(x))
     else:
         co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
                                               "vmmt_gru_scan_occupancy", code, H,
@@ -207,16 +221,19 @@ def _check_cluster(what: str, plan: dict, co_resident: int, smem: int) -> None:
 
 def _co_resident_wide(what: str, pass_: int, plan: dict, code: int, H: int,
                       device: int) -> dict:
-    """A wide ``plan`` checked against the kernel's own shared-memory count
-    and the card's count of co-resident CTAs, with that count."""
+    """A wide or streamed ``plan`` checked against the kernel's own
+    shared-memory count and the card's count of co-resident CTAs, with that
+    count."""
+    streamed = plan["layout"] == "streamed"
     co_resident, smem = kernels.occupancy(device, "gru_scan", "vmmt_gru_wide_occupancy", code,
-                                          pass_, H, plan["units"], plan["rows"])
+                                          pass_, H, plan["units"], plan["rows"], int(streamed))
     if smem != plan["smem"]:
         raise RuntimeError(f"{what} kernel: plan of {plan['smem']} bytes of shared memory, "
                            f"the kernel takes {smem}")
     if plan["grid"] > co_resident:
         raise NotImplementedError(
-            f"{what} kernel: the wide plan's {plan['grid']} CTAs ({plan['unit_tiles']} tiles "
+            f"{what} kernel: the {plan['layout']} plan's {plan['grid']} CTAs "
+            f"({plan['unit_tiles']} tiles "
             f"of {plan['units']} units x {plan['row_tiles']} of {plan['rows']} rows) with "
             f"{smem} bytes of shared memory each exceed the {co_resident} the card holds "
             "at once")
@@ -289,8 +306,9 @@ SCAN_FWD_PARTS = 4  # K split of the forward's step product (kFwdParts)
 SCAN_FWD_SMALL_ROWS = 4  # rows per cluster while the grid stays within one CTA an SM
 # 512: the widest a cluster holds
 SCAN_CLUSTER_MAX_HIDDEN = SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS
-SCAN_MAX_HIDDEN = 1024  # the widest the wide plan takes (both dtypes)
+SCAN_WIDE_MAX_HIDDEN = 1024  # the widest the wide plan takes; the streamed plan above
 SCAN_WIDE_UNITS = {torch.bfloat16: 8, torch.float32: 4}  # units of a wide CTA (tile_rows)
+SCAN_WIDE_PER_SM = {torch.bfloat16: 1, torch.float32: 2}  # CTAs an SM (WideBlocks::kPerSm)
 SCAN_WIDE_MAX_ROWS = 256  # batch rows of a wide CTA; more rows run in chunks
 SCAN_WIDE_WARPS = 8  # warps of a wide CTA (kDecWarps of csrc/block_product.cuh)
 H100_SMS = 132  # SMs of an H100 SXM: what scan_kernel_holds, a pure function, plans for
@@ -358,23 +376,25 @@ def _bwd_rows(H: int, dtype: torch.dtype, units: int) -> int:
     return SCAN_BWD_ROWS
 
 
-def _wide_smem(pass_: int, H: int, dtype: torch.dtype, rows: int) -> int:
+def _wide_smem(pass_: int, H: int, dtype: torch.dtype, rows: int,
+               streamed: bool = False) -> int:
     """Shared memory of a wide CTA of ``rows`` batch rows (``WideFwdLayout``
     and ``WideBwdLayout`` of csrc/gru_scan.cu). Forward: its units' three
     gate columns of Wh as (3 tile rows, K) slices at the padded stride, the
     product buffer (3 n-tiles of 8 floats a row, room for 8 warps' K-split
     partial sums of 16 rows in bf16) and the f32 carry. Backward: its units'
-    rows of Wh (K = 3H), one n-tile of product and the f32 dh and dh_part."""
+    rows of Wh (K = 3H), one n-tile of product and the f32 dh and dh_part.
+    ``streamed``: the product buffer alone."""
     bf16 = dtype == torch.bfloat16
     tsize = torch.finfo(dtype).bits // 8
     units = SCAN_WIDE_UNITS[dtype]
     prod_rows = max(SCAN_WIDE_WARPS * 16, rows) if bf16 else rows
-    carry = kernels.align16(rows * units * 4)
+    carry = 0 if streamed else kernels.align16(rows * units * 4)
     if pass_ == 0:
-        return (kernels.align16(3 * units * kernels.frag_ld(H, bf16) * tsize)
-                + prod_rows * 3 * 8 * 4 + carry)
-    return kernels.align16(units * kernels.frag_ld(3 * H, bf16) * tsize) + prod_rows * 8 * 4 \
-        + 2 * carry
+        w = 0 if streamed else kernels.align16(3 * units * kernels.frag_ld(H, bf16) * tsize)
+        return w + prod_rows * 3 * 8 * 4 + carry
+    w = 0 if streamed else kernels.align16(units * kernels.frag_ld(3 * H, bf16) * tsize)
+    return w + prod_rows * 8 * 4 + 2 * carry
 
 
 def _wide_plan(what: str, pass_: int, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
@@ -399,16 +419,57 @@ def _wide_plan(what: str, pass_: int, B: int, H: int, dtype: torch.dtype, sms: i
                 chunks=-(-B // (rows * row_tiles)), smem=smem)
 
 
+def _stream_plan(pass_: int, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The streamed plan of pass 0 (forward) or 1 (backward): ``unit_tiles``
+    of ``units`` units (8 in bf16, 4 in f32) times ``row_tiles`` of ``rows``
+    batch rows (a multiple of 16, at most 256), all in one launch
+    (``chunks`` 1) of ``grid`` CTAs, as many as the card holds at once
+    (``SCAN_WIDE_PER_SM`` an SM) or as there are tiles; each CTA takes
+    ``tiles_per_cta`` tiles at most a step. Shared memory: the product
+    buffer, whatever H."""
+    units = SCAN_WIDE_UNITS[dtype]
+    unit_tiles = -(-H // units)
+    B = max(B, 1)
+    row_tiles = -(-B // SCAN_WIDE_MAX_ROWS)
+    rows = kernels.align16(-(-B // row_tiles))
+    tiles = unit_tiles * row_tiles
+    grid = min(tiles, SCAN_WIDE_PER_SM[dtype] * sms)
+    return dict(layout="streamed", units=units, rows=rows, unit_tiles=unit_tiles,
+                row_tiles=row_tiles, tiles=tiles, grid=grid, ctas=grid,
+                tiles_per_cta=-(-tiles // grid), chunks=1,
+                smem=_wide_smem(pass_, H, dtype, rows, streamed=True))
+
+
+def _stream_weights(Wh: torch.Tensor, pass_: int, plan: dict) -> torch.Tensor:
+    """Wh (H, 3H) laid out for the streamed kernels (``Wide::wt`` of
+    csrc/gru_scan.cu), zero past H and past each row's width. Forward: per
+    unit tile its three gates' columns as rows, (unit_tiles, 3, units,
+    frag_ld(H)); backward: Wh's rows, (unit_tiles * units, frag_ld(3H))."""
+    H = Wh.shape[0]
+    units, ut = plan["units"], plan["unit_tiles"]
+    bf16 = Wh.dtype == torch.bfloat16
+    if pass_ == 1:
+        wt = Wh.new_zeros((ut * units, kernels.frag_ld(3 * H, bf16)))
+        wt[:H, :3 * H] = Wh
+        return wt
+    cols = Wh.new_zeros((3, ut * units, kernels.frag_ld(H, bf16)))
+    cols[:, :H, :H] = Wh.view(H, 3, H).permute(1, 2, 0)  # [gate, unit, k] = Wh[k, gate*H+unit]
+    return cols.view(3, ut, units, -1).transpose(0, 1).contiguous()
+
+
 def scan_kernel_holds(H: int, dtype: torch.dtype) -> bool:
     """Whether both scan kernels (forward and backward) compute a layer of
-    H units in ``dtype`` at every batch size: H <= 1024. Up to 512 units on
-    clusters (16 CTAs of 32 units, the largest cluster) with both CTAs'
-    shared memory within the card's; above, on the wide plan, whose CTAs
-    at the most rows fit the card's shared memory, two an SM where the
-    grid exceeds an H100's 132 SMs. ``UniGRU`` asks this before it sends
-    a layer to the kernels; a wider layer takes the plain scan."""
-    if dtype not in kernels.DTYPE_CODE or not 1 <= H <= SCAN_MAX_HIDDEN:
+    H units in ``dtype`` at every batch size: every H >= 1. Up to 512 units
+    on clusters (16 CTAs of 32 units, the largest cluster) with both CTAs'
+    shared memory within the card's; to 1024 on the wide plan, whose CTAs
+    at the most rows fit the card's shared memory, two an SM where the grid
+    exceeds an H100's 132 SMs; above, on the streamed plan, whose grid and
+    shared memory do not grow with H. ``UniGRU`` sends every ``use_pallas``
+    GRU layer to the kernels, as JAX sends it to the Pallas scan."""
+    if dtype not in kernels.DTYPE_CODE or H < 1:
         return False
+    if H > SCAN_WIDE_MAX_HIDDEN:  # the streamed plan: nothing in it grows with H
+        return True
     if H > SCAN_CLUSTER_MAX_HIDDEN:
         per_sm = 1 if -(-H // SCAN_WIDE_UNITS[dtype]) <= H100_SMS else 2
         return all(per_sm * (_wide_smem(p, H, dtype, SCAN_WIDE_MAX_ROWS) + 1024) <= SMEM_PER_SM
@@ -428,11 +489,14 @@ def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     CTA (:func:`_fwd_smem`, mirrors ``FwdLayout`` of csrc/gru_scan.cu).
     ``rows`` is 4 while the grid fits one CTA an SM of the card, else 8
     (the mma's columns); in f32 also 4 where 8 row slots do not fit (H >
-    448). From 513 to 1024 units the wide plan (:func:`_wide_plan`).
-    Raises NotImplementedError for what the design cannot hold."""
+    448). From 513 to 1024 units the wide plan (:func:`_wide_plan`), above
+    the streamed plan (:func:`_stream_plan`). Raises NotImplementedError
+    for what the design cannot hold."""
     if dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"gru_layer_scan kernel: dtype {dtype}")
-    if SCAN_CLUSTER_MAX_HIDDEN < H <= SCAN_MAX_HIDDEN:
+    if H > SCAN_WIDE_MAX_HIDDEN:
+        return _stream_plan(0, B, H, dtype, sms)
+    if H > SCAN_CLUSTER_MAX_HIDDEN:
         return _wide_plan("gru_layer_scan", 0, B, H, dtype, sms)
     cluster, units = _cluster_units("gru_layer_scan", H)
     rows = SCAN_FWD_SMALL_ROWS
@@ -455,14 +519,17 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SM
     units of ``rows`` batch rows (4, or 2 in f32 above 448 units), with
     ``smem`` bytes of dynamic shared memory per CTA (:func:`_bwd_smem`,
     mirrors ``ScanLayout`` of csrc/gru_scan.cu); from 513 to 1024 units the
-    wide plan (:func:`_wide_plan`). Both with the dWh product's 64 x 64
-    tiles, each split over ``dwh_splits`` blocks along K = B*T (1 on the
-    wide plan, whose 243 or more tiles fill the card). Raises
+    wide plan (:func:`_wide_plan`), above the streamed plan
+    (:func:`_stream_plan`). All with the dWh product's 64 x 64 tiles, each
+    split over ``dwh_splits`` blocks along K = B*T (1 on the wide and
+    streamed plans, whose 243 or more tiles fill the card). Raises
     NotImplementedError for what the design cannot hold."""
     if dtype not in kernels.DTYPE_CODE:
         raise TypeError(f"gru_layer_scan_bwd kernel: dtype {dtype}")
     dwh_tiles = -(-H // 64) * -(-3 * H // 64)
-    if SCAN_CLUSTER_MAX_HIDDEN < H <= SCAN_MAX_HIDDEN:
+    if H > SCAN_WIDE_MAX_HIDDEN:
+        return dict(_stream_plan(1, B, H, dtype, sms), dwh_tiles=dwh_tiles, dwh_splits=1)
+    if H > SCAN_CLUSTER_MAX_HIDDEN:
         return dict(_wide_plan("gru_layer_scan_bwd", 1, B, H, dtype, sms), dwh_tiles=dwh_tiles,
                     dwh_splits=1)
     cluster, units = _cluster_units("gru_layer_scan_bwd", H)
@@ -523,13 +590,15 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     code = kernels.DTYPE_CODE[dt]
     outputs = (dx.data_ptr(), dh0.data_ptr(), dWh.data_ptr(), dbh.data_ptr(), hp.data_ptr(),
                dhn.data_ptr(), partial.data_ptr(), counters.data_ptr())
-    if plan["layout"] == "wide":
+    if plan["layout"] in ("wide", "streamed"):
         gru_layer_scan_bwd.plan = _co_resident_wide("gru_layer_scan_bwd", 1, plan, code, H,
                                                     x.device.index)
         xch = _exchange(plan, H3, dt, x.device)
-        err = lib.vmmt_gru_wide_bwd(code, *map(_ptr, args), *outputs, xch.data_ptr(), B, T, H,
-                                    int(reverse), plan["units"], plan["rows"],
-                                    plan["row_tiles"], splits, kernels.stream_of(x))
+        wt = _stream_weights(args[4], 1, plan) if plan["layout"] == "streamed" else None
+        err = lib.vmmt_gru_wide_bwd(code, *map(_ptr, args), *outputs, xch.data_ptr(), _ptr(wt),
+                                    B, T, H, int(reverse), plan["units"], plan["rows"],
+                                    plan["row_tiles"], plan["grid"], splits,
+                                    kernels.stream_of(x))
     else:
         co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
                                               "vmmt_gru_scan_bwd_occupancy", code, H,

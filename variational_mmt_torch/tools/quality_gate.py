@@ -20,13 +20,9 @@ With ``-ema_decay d`` the run also keeps an EMA of the weights
 (``-ema_ramp``) and decodes the test split with them too, reporting
 ``test_bleu_ema`` beside ``test_bleu`` (JAX's :193-204).
 
-The device is cuda unless ``-device cpu``. The route follows from it:
-on cuda ``kernels``, the port's production route (bf16, ``use_pallas``,
-``pallas_decoder``, ``fused_ce`` and decode ``pallas_step`` 1); on the
-CPU ``plain``, f32 without kernels. On cuda ``-route`` picks another one
-for a witness run that separates a kernel's share in a result: ``plain``,
-or ``scans``, the route the JAX gate runs on the TPU (bf16, the scan
-kernels and ``fused_ce``; the decoder's sequence and decode step plain).
+The device is cuda unless ``-device cpu``; ``-route`` is as
+``tools/runs.py`` says (on cuda ``kernels`` by default, ``scans`` the
+route the JAX gate runs on the TPU, ``plain`` f32 without kernels).
 
     python -m variational_mmt_torch.tools.quality_gate -models vmmt_c -seeds 11,12,13
     python -m variational_mmt_torch.tools.quality_gate -models vmmt_c -seeds 11 \\
@@ -39,7 +35,6 @@ import argparse
 import contextlib
 import copy
 import json
-import subprocess
 import time
 from typing import Iterator, List
 
@@ -57,19 +52,15 @@ from variational_mmt_torch.device import resolve_device
 from variational_mmt_torch.evals.bleu import corpus_bleu
 from variational_mmt_torch.models import attention, model as model_mod
 from variational_mmt_torch.models.model import build_model, init_params
-from variational_mmt_torch.ops import decode_step, decoder, gru_scan
+from variational_mmt_torch.tools.runs import (COUNTERS, add_device_args, card_name, launches,
+                                              resolve_route, route_model, route_pallas_step,
+                                              zero_launches)
 from variational_mmt_torch.train.trainer import Trainer
 
 BUCKETS = [16, 24, 32]
-# every kernel wrapper's launch counter, read per run
-COUNTERS = {"gru_layer_scan": gru_scan.gru_layer_scan,
-            "gru_layer_scan_bwd": gru_scan.gru_layer_scan_bwd,
-            "decode_step": decode_step.decode_step, "gru_chain": decode_step.gru_chain,
-            "decoder_fwd": decoder.decoder_fwd, "decoder_bwd": decoder.decoder_bwd}
 
 
 def build_cfg(model_type: str, seed: int, args) -> Config:
-    bf16 = args.route != "plain"
     return Config(
         model=ModelConfig(
             model_type=model_type, src_vocab_size=args.vocab_size,
@@ -79,9 +70,7 @@ def build_cfg(model_type: str, seed: int, args) -> Config:
             img_feat_dim=args.img_dim if model_type != "nmt" else 0,
             img_feat_type="conv" if args.img_regions > 0 else "pool5", img_pool=args.img_pool,
             use_img_predict=model_type != "nmt" and not args.no_img_predict,
-            img_loss="logprob", z_cond="init+input",
-            compute_dtype="bfloat16" if bf16 else "float32",
-            use_pallas=bf16, pallas_decoder=args.route == "kernels", fused_ce=bf16),
+            img_loss="logprob", z_cond="init+input", **route_model(args.route)),
         train=TrainConfig(
             seed=seed, max_steps=args.steps, learning_rate=4e-4,
             kl_anneal="none" if args.defect == "kl_off" else "linear",
@@ -157,8 +146,7 @@ def run_one(model_type: str, seed: int, data, args, device: torch.device, card: 
                             seed=seed)
     model = build_model(cfg.model, device=device)
     model.load_state_dict(params_from_jax(init_params(cfg.model, seed=seed), cfg.model))
-    for fn in COUNTERS.values():
-        fn.launches = 0
+    zero_launches()
     trainer = Trainer(cfg, model, it, device=device)
     every = max(50, args.steps // 5)
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
@@ -177,7 +165,7 @@ def run_one(model_type: str, seed: int, data, args, device: torch.device, card: 
 
     dcfg = DecodeConfig(beam_size=4, max_length=40, batch_size=args.batch_size,
                         alpha=0.0 if args.defect == "alpha0" else 0.6,
-                        pallas_step=1 if args.route == "kernels" else 0)
+                        pallas_step=route_pallas_step(args.route))
     defect = DEFECTS.get(args.defect, contextlib.nullcontext)
     with defect():  # decode-time defects act after clean training
         translator = Translator(trainer.model, sv, tv, dcfg, buckets=BUCKETS, device=device)
@@ -204,7 +192,7 @@ def run_one(model_type: str, seed: int, data, args, device: torch.device, card: 
            "img_regions": args.img_regions, "test_bleu": round(bleu, 2),
            "valid_bleu": round(vbleu, 2), "steps": args.steps, "train_s": round(train_s, 1),
            "decode_s": round(decode_s, 1), "route": args.route, "device": str(device),
-           "card": card, "launches": {k: fn.launches for k, fn in COUNTERS.items()}}
+           "card": card, "launches": launches()}
     if cfg.train.pack:
         res["pack"] = 1
     if bleu_ema is not None:
@@ -220,15 +208,6 @@ def ema_model(trainer: Trainer) -> torch.nn.Module:
         for p, e in zip(model.parameters(), trainer.state.ema):
             p.copy_(e)
     return model
-
-
-def card_name(device: torch.device) -> str:
-    """The card's name and power limit as nvidia-smi gives them, or 'cpu'."""
-    if device.type != "cuda":
-        return "cpu"
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
 
 
 def parse_args(argv=None):
@@ -267,17 +246,10 @@ def parse_args(argv=None):
                    help="1: drop the p(v|z) image-prediction objective")
     p.add_argument("-pack", type=int, default=0, help="1: train with sequence packing")
     p.add_argument("-pack_segments", type=int, default=4)
-    p.add_argument("-device", default="cuda", choices=["cuda", "cpu"])
-    p.add_argument("-route", default=None, choices=["kernels", "scans", "plain"],
-                   help="cuda only (default kernels: bf16 and every CUDA kernel); scans: "
-                        "bf16, the scan kernels only; plain: f32, no kernels. The CPU "
-                        "runs plain")
+    add_device_args(p)
     p.add_argument("-out", default="port_gate_results.jsonl")
     args = p.parse_args(argv)
-    if args.route is None:
-        args.route = "kernels" if args.device == "cuda" else "plain"
-    elif args.device == "cpu" and args.route != "plain":
-        p.error(f"-route {args.route} needs -device cuda (the CPU runs the plain route)")
+    resolve_route(p, args)
     return args
 
 
