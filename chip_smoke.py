@@ -398,18 +398,47 @@ in PERF.md).
     counts to 0 before it trains and reads them after it decodes), the IW
     bound tightening in K (``iw_monotone``); the runs' counts summed as
     ``tools``, and the phase's seconds printed.
-21. Prints one JSON line of per-kernel numbers (all six TPU kernels'
-    counterparts; the scan forward's top-level times are at the serving
-    shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
+21. float16 (``float16_phase(card, cfg, state, root, rate, bf16_ms)``,
+    after phase 20 in the same directory; ROADMAP queue 1 item 9): (a)
+    each of rows 1-6 in float16 against its float16 plain version under
+    bf16's rules and bounds: rows 1 and 2 at the serving and training
+    shapes and at B=64, T=24, H = 512, 1024 and 2048 (the cluster, wide
+    and streamed plans, which it checks) with and without a reset stream;
+    rows 3 and 4 at N=1024, S=24, H=500; rows 5 and 6 at B=64, T=25, S=24,
+    H=500 over the whole sequence at memory std 0.1, and at std 0.5 over
+    the first 4 steps of each pass with the distance from the f32 math at
+    most 1.5 times the plain version's; then each row's float16 time beside
+    its bf16 time in turns (bf16 f16 f16 bf16), the float16 plain
+    version's, cuDNN nn.GRU's in float16 (rows 1, 2 and 4) and the bound
+    (bf16's: the same bytes and tensor-core peak). (b) The flagship with
+    compute_dtype float16 and phase 4's weights decodes 256 requests, beam
+    4, at pallas_step 1 and 2 (counted): sent/s, and top-1 agreement with
+    the float16 plain route (pallas_step 0), which must be no lower than
+    the bf16 kernel route's, and with the bf16 kernel route. (c) 30
+    Trainer steps in float16 on the kernel route from phase 5's weights and
+    batches (counted, finite losses required), 2 timed runs of 12 steps
+    beside phase 5's bf16 reading, the first 4 losses beside the float16
+    plain route's, and the share of exactly zero gradient entries in
+    float16 and f32 on one batch (no loss scale, as in JAX). (d) ``cli.train
+    -config`` with a float16 copy of phase 10's config.json for 10 steps
+    on phase 10's corpus (the checkpoint must say float16), then
+    ``cli.translate -pallas_step 2`` of its checkpoint (counted). Every
+    kernel must launch on (b)-(d); their counts are the float16 entries'
+    ``launches``.
+22. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+    counterparts in bf16, then their float16 instantiations as
+    ``<name>[float16]`` from phase 21; the scan forward's top-level times
+    are at the serving shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
     the reset stream's checks and times, ``gate_shape`` each kernel's
     numbers at the gate's shape, ``serve_shapes`` rows 1, 3 and 4 at the
     service's, ``widths`` each kernel's numbers at the widths phase's
     shapes, ``launches_by_path`` the serving, training, packed-training,
     families, CLI, online-serving, option-check, eval, widths, ensemble,
     preprocess, options, host-path, parallel, extract, serve_ranks and
-    tools counts) with the ``host_path``, ``parallel``, ``extract``,
-    ``serve_ranks`` and ``tools`` records, then the last line {"ok": true,
-    "device": {...}}.
+    tools counts; the float16 entries' the float16 serving, training and
+    CLI counts) with the ``host_path``, ``parallel``, ``extract``,
+    ``serve_ranks``, ``tools`` and ``float16`` records, then the last line
+    {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
 port's package is not beside this script, or when any phase fails.
@@ -434,10 +463,10 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-H100_BF16_FLOPS = 989e12  # dense tensor-core peak (NVIDIA data sheet, SXM)
+H100_BF16_FLOPS = 989e12  # dense tensor-core peak, bf16 and fp16 (NVIDIA data sheet, SXM)
 H100_F32_FLOPS = 67e12  # non-tensor-core float32 peak
 H100_BYTES_PER_S = 3.35e12
-TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+TOL = {"float32": 1e-4, "bfloat16": 2e-2, "float16": 2e-2}  # float16 held to bf16's bound
 SCAN_SHAPE = dict(B=256, T=24, H=250)
 STEP_SHAPE = dict(N=1024, S=24, H=500)
 TRAIN_SCAN_SHAPE = dict(B=64, T=24, H=250)
@@ -522,6 +551,27 @@ EXTRACT_TOL, EXTRACT_CLI_TOL = 1e-4, 1e-5  # relative to each output's largest e
 EXTRACT_TURNS, EXTRACT_ITERS = ("f32", "tf32", "tf32", "f32"), 10  # phase 18 (c)
 EXTRACT_CLI_IMAGES, EXTRACT_SENT = 64, 32  # phase 18 (d), (f)
 H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak (NVIDIA data sheet, SXM)
+F16 = "float16"
+F16_SCAN_WIDTHS = (512, 1024, 2048)  # phase 21 (a): the cluster, wide and streamed plans
+F16_ITERS = 10  # CUDA-event calls a turn of phase 21's bf16 and float16 kernel times
+F16_SERVE_SENT = 256  # phase 21 (b): one request of 256 sentences
+F16_TIMED_RUNS, F16_TIMED_STEPS = 2, 12  # phase 21 (c): whole passes over the 4 batches
+F16_CLI_STEPS = 10  # phase 21 (d)
+# the six kernels: (wrapper, CUDA source, the Pallas call it replaces)
+KERNEL_ROWS = (
+    ("gru_layer_scan", "variational_mmt_torch/csrc/gru_scan.cu",
+     "variational_mmt_tpu/ops/pallas/gru.py:165"),
+    ("gru_layer_scan_bwd", "variational_mmt_torch/csrc/gru_scan.cu",
+     "variational_mmt_tpu/ops/pallas/gru.py:297"),
+    ("decode_step", "variational_mmt_torch/csrc/decode_step.cu",
+     "variational_mmt_tpu/ops/pallas/decode_step.py:176"),
+    ("gru_chain", "variational_mmt_torch/csrc/decode_step.cu",
+     "variational_mmt_tpu/ops/pallas/decode_step.py:118"),
+    ("decoder_fwd", "variational_mmt_torch/csrc/decoder.cu",
+     "variational_mmt_tpu/ops/pallas/decoder.py:153"),
+    ("decoder_bwd", "variational_mmt_torch/csrc/decoder.cu",
+     "variational_mmt_tpu/ops/pallas/decoder.py:304"),
+)
 
 
 def fail(msg: str) -> None:
@@ -795,16 +845,17 @@ def scan_bwd_errs(gru_scan, args):
     return max(errs), max(abs_errs), outs
 
 
-def cudnn_bwd_ms(g, B: int, T: int, H: int) -> Tuple[Optional[float], float]:
-    """cuDNN's nn.GRU backward in bf16 (which also computes the
+def cudnn_bwd_ms(g, B: int, T: int, H: int,
+                 dtype: torch.dtype = torch.bfloat16) -> Tuple[Optional[float], float]:
+    """cuDNN's nn.GRU backward in ``dtype`` (which also computes the
     input-projection gradients that the port leaves to cuBLAS): (ms on the
     device's clock, eager ms by CUDA events)."""
-    gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
+    gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=dtype)
     gru.flatten_parameters()
-    xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
+    xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(dtype)
     xin.requires_grad_(True)
     y, _ = gru(xin)
-    gy = torch.randn(y.shape, generator=g, device="cuda").to(torch.bfloat16)
+    gy = torch.randn(y.shape, generator=g, device="cuda").to(dtype)
     call = lambda: torch.autograd.grad(y, [xin, *gru.parameters()], gy,  # noqa: E731
                                        retain_graph=True)
     return device_ms(call), cuda_ms(call)
@@ -854,6 +905,48 @@ def decoder_inputs(g, dt, B, T, S, H, mem_std):
             w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H),
             w(H, 3 * H), 0.1 * r(3 * H), (mem_std * r(B, S, H)).to(dt),
             (mem_std * r(B, S, H)).to(dt), w(H, H), mask_bias)
+
+
+def peaked_checks(dec, draw, at: str, T: int, dt_name: str, fwd: dict, bwd: dict) -> None:
+    """Peaked attention (memory std 0.5) in ``dt_name``: the kernels against
+    their plain versions over the first PEAKED_STEPS steps each pass
+    processes, and each version's distance from the f32 math of its inputs
+    (the kernel's at most PEAKED_DRIFT_RATIO times the plain version's);
+    the readings go to ``fwd["peaked"]`` and ``bwd["peaked"]``. ``draw(dt,
+    mem_std)`` gives (inputs, forward streams, cotangents)."""
+    def both(fns, args, streams, d):
+        out = fns[0](*args), fns[1](*args[:14], *streams, *d)
+        torch.cuda.synchronize()
+        return out
+
+    kernel = (dec.decoder_fwd, dec.decoder_bwd)
+    plain = (dec.decoder_fwd_ref, dec.decoder_bwd_ref)
+    a16, s16, d = draw(getattr(torch, dt_name), DEC_MEM_STD_PEAKED)
+    k, p = both(kernel, a16, s16, d), both(plain, a16, s16, d)
+    x = both(plain, tuple(a.float() for a in a16), tuple(t.float() for t in s16), d)
+    first = (range(PEAKED_STEPS), range(T - PEAKED_STEPS, T))  # forward, backward
+    for i, (name, rec) in enumerate((("decoder_fwd", fwd), ("decoder_bwd", bwd))):
+        dk, dp = rel_err(k[i], x[i]), rel_err(p[i], x[i])
+        ks, ps = [a for a in k[i] if a.dim() == 3], [a for a in p[i] if a.dim() == 3]
+        per_step = [rel_err([a[:, t] for a in ks], [a[:, t] for a in ps]) for t in range(T)]
+        early = max(per_step[t] for t in first[i])
+        rec["peaked"] = {"kernel_vs_f32": dk, "plain_vs_f32": dp, "first_steps": early,
+                         "per_step": per_step}
+        ok_early = math.isfinite(early) and early <= TOL[dt_name]
+        ok_drift = math.isfinite(dk) and dk <= PEAKED_DRIFT_RATIO * dp
+        print(f"  {name} {at} {dt_name}, memory std {DEC_MEM_STD_PEAKED}: max_rel_err over the "
+              f"first {PEAKED_STEPS} steps {early:.3e} (tolerance {TOL[dt_name]:.0e}) "
+              f"{'ok' if ok_early else 'MISMATCH'}; by step t "
+              + " ".join(f"{e:.1e}" for e in per_step))
+        print(f"  {name} {at} {dt_name}, memory std {DEC_MEM_STD_PEAKED}: distance from the f32 "
+              f"math {dk:.3e} (kernel) vs {dp:.3e} (plain), ratio {dk / dp:.2f} (limit "
+              f"{PEAKED_DRIFT_RATIO}) {'ok' if ok_drift else 'MISMATCH'}")
+        if not ok_early:
+            fail(f"{name} kernel disagrees with its plain version over the first steps at "
+                 f"memory std {DEC_MEM_STD_PEAKED} in {dt_name}")
+        if not ok_drift:
+            fail(f"{name} kernel is further from the f32 math than {PEAKED_DRIFT_RATIO} times "
+                 f"the plain version in {dt_name}")
 
 
 def decoder_phase(dec, shape):
@@ -907,34 +1000,7 @@ def decoder_phase(dec, shape):
     print_plan(f"decoder_fwd {at}", fwd["plan"])
     print_plan(f"decoder_bwd {at}", bwd["plan"])
 
-    # peaked attention: kernel against plain over the first steps each pass
-    # processes, and each bf16 version against the f32 math of its inputs
-    a16, s16, d = draw(torch.bfloat16, DEC_MEM_STD_PEAKED)
-    k, p = both(kernel, a16, s16, d), both(plain, a16, s16, d)
-    x = both(plain, tuple(a.float() for a in a16), tuple(t.float() for t in s16), d)
-    first = (range(PEAKED_STEPS), range(T - PEAKED_STEPS, T))  # forward, backward
-    for i, (name, rec) in enumerate((("decoder_fwd", fwd), ("decoder_bwd", bwd))):
-        dk, dp = rel_err(k[i], x[i]), rel_err(p[i], x[i])
-        ks, ps = [a for a in k[i] if a.dim() == 3], [a for a in p[i] if a.dim() == 3]
-        per_step = [rel_err([a[:, t] for a in ks], [a[:, t] for a in ps]) for t in range(T)]
-        early = max(per_step[t] for t in first[i])
-        rec["peaked"] = {"kernel_vs_f32": dk, "plain_vs_f32": dp, "first_steps": early,
-                         "per_step": per_step}
-        ok_early = math.isfinite(early) and early <= TOL["bfloat16"]
-        ok_drift = math.isfinite(dk) and dk <= PEAKED_DRIFT_RATIO * dp
-        print(f"  {name} {at} bfloat16, memory std {DEC_MEM_STD_PEAKED}: max_rel_err over the first "
-              f"{PEAKED_STEPS} steps {early:.3e} (tolerance {TOL['bfloat16']:.0e}) "
-              f"{'ok' if ok_early else 'MISMATCH'}; by step t "
-              + " ".join(f"{e:.1e}" for e in per_step))
-        print(f"  {name} {at} bfloat16, memory std {DEC_MEM_STD_PEAKED}: distance from the f32 math "
-              f"{dk:.3e} (kernel) vs {dp:.3e} (plain), ratio {dk / dp:.2f} (limit "
-              f"{PEAKED_DRIFT_RATIO}) {'ok' if ok_drift else 'MISMATCH'}")
-        if not ok_early:
-            fail(f"{name} kernel disagrees with its plain version over the first steps at "
-                 f"memory std {DEC_MEM_STD_PEAKED}")
-        if not ok_drift:
-            fail(f"{name} kernel is further from the f32 math than {PEAKED_DRIFT_RATIO} times "
-                 f"the plain version")
+    peaked_checks(dec, draw, at, T, "bfloat16", fwd, bwd)
     fwd["ms"] = cuda_ms(lambda: dec.decoder_fwd(*args))
     fwd["plain_ms"] = cuda_ms(lambda: dec.decoder_fwd_ref(*args), iters=5)
     bwd["ms"] = cuda_ms(lambda: dec.decoder_bwd(*bargs))
@@ -1080,16 +1146,16 @@ def fmt_ms(ms: Optional[float]) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def gru_chain_library_ms(N: int, H: int) -> Tuple[Optional[float], float]:
-    """bf16 ms of cuDNN's 2-layer ``nn.GRU`` over one step of N rows on
-    [emb; feed] (emb width H, as at both shapes): the GRU chain's function,
-    plus layer 0's input projection, which the chain takes precomputed.
-    Returns (device time, eager time by CUDA events)."""
-    gru = torch.nn.GRU(2 * H, H, num_layers=2, batch_first=True, device="cuda",
-                       dtype=torch.bfloat16)
+def gru_chain_library_ms(N: int, H: int,
+                         dtype: torch.dtype = torch.bfloat16) -> Tuple[Optional[float], float]:
+    """ms in ``dtype`` of cuDNN's 2-layer ``nn.GRU`` over one step of N rows
+    on [emb; feed] (emb width H, as at both shapes): the GRU chain's
+    function, plus layer 0's input projection, which the chain takes
+    precomputed. Returns (device time, eager time by CUDA events)."""
+    gru = torch.nn.GRU(2 * H, H, num_layers=2, batch_first=True, device="cuda", dtype=dtype)
     g = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.randn(N, 1, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
-    h = torch.tanh(torch.randn(2, N, H, generator=g, device="cuda")).to(torch.bfloat16)
+    x = torch.randn(N, 1, 2 * H, generator=g, device="cuda").to(dtype)
+    h = torch.tanh(torch.randn(2, N, H, generator=g, device="cuda")).to(dtype)
     with torch.no_grad():
         return device_ms(lambda: gru(x, h)), cuda_ms(lambda: gru(x, h))
 
@@ -4147,6 +4213,415 @@ def tools_phase(card: str, root: str):
     return total, rec
 
 
+def f16_turns(name: str, make) -> dict:
+    """A row's bf16 and f16 kernel times in turns (bf16 f16 f16 bf16), each
+    a mean over F16_ITERS CUDA-event calls; ``make(dtype)`` gives the
+    call on the same inputs cast to that dtype."""
+    return in_turns(f"{name} kernel", {"bfloat16": make(torch.bfloat16),
+                                       "float16": make(torch.float16)}, iters=F16_ITERS)
+
+
+def cast16(args, keep_f32, dt) -> tuple:
+    """``args`` with every tensor but those at the indices ``keep_f32``
+    cast to ``dt``."""
+    return tuple(a if i in keep_f32 else a.to(dt) for i, a in enumerate(args))
+
+
+def f16_print(name: str, at: str, rec: dict) -> None:
+    lib = rec.get("library_ms")
+    print(f"  {name} {at} float16: kernel {rec['float16_ms']:.4f} ms (bf16 in the same turns "
+          f"{rec['bfloat16_ms']:.4f} ms), plain {rec['plain_ms']:.3f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+          + ("" if "library_eager_ms" not in rec else
+             f", cuDNN nn.GRU float16 {fmt_ms(lib)} on the device's clock (eager "
+             f"{rec['library_eager_ms']:.4f} ms)"))
+
+
+def f16_scan_kernels(gru_scan) -> Tuple[dict, dict]:
+    """Phase 21 (a), rows 1 and 2: each float16 kernel against its float16
+    plain version, the forward at the serving and training shapes, the
+    backward at the training shape, and both at B=64, T=24, H = 512, 1024
+    and 2048 (the cluster, wide and streamed plans), with and without a
+    reset stream; then their times beside bf16's in turns, the plain
+    versions', cuDNN nn.GRU's in float16 and the bounds (the bf16 ones:
+    the same bytes, the same tensor-core peak)."""
+    f16 = torch.float16
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rng = np.random.default_rng(21)
+    fwd, bwd = {"errs": {}}, {"errs": {}}
+    for shape in (SCAN_SHAPE, TRAIN_SCAN_SHAPE):
+        B, T, H = shape["B"], shape["T"], shape["H"]
+        x, mask, _, wh, bh = scan_inputs(g, f16, B, T, H, 8)
+        h0 = 0.1 * torch.randn(B, H, generator=g, device="cuda")
+        err = max(max_err(gru_scan.gru_layer_scan(x, mask, h0, wh, bh, rev),
+                          gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, rev))
+                  for rev in (False, True))
+        check_close(f"gru_scan B={B} T={T} H={H}", F16, err)
+        fwd["errs"][f"B={B} T={T} H={H}"] = err
+    B, T, H = (TRAIN_SCAN_SHAPE[k] for k in ("B", "T", "H"))
+    err, bwd["abs_err"], _ = scan_bwd_errs(gru_scan, scan_bwd_inputs(g, f16, B, T, H, 8))
+    check_close(f"gru_scan_bwd B={B} T={T} H={H}", F16, err, "max_rel_err")
+    bwd["errs"][f"B={B} T={T} H={H}"] = err
+    for H in F16_SCAN_WIDTHS:
+        at = f"B={B} T={T} H={H}"
+        ins, gout, reset = reset_inputs(g, rng, f16, B, T, H, 8)
+        f_err = max(max_err(gru_scan.gru_layer_scan(*ins, rev),
+                            gru_scan.gru_layer_scan_ref(*ins, rev)) for rev in (False, True))
+        b_err, b_abs, _ = scan_bwd_errs(gru_scan, (*ins, gout))
+        layouts = (gru_scan.gru_layer_scan.plan["layout"],
+                   gru_scan.gru_layer_scan_bwd.plan["layout"])
+        fr_err, br_err, br_abs = reset_errs(gru_scan, ins, gout, reset)
+        want = "cluster" if H <= 512 else "wide" if H <= 1024 else "streamed"
+        print(f"  gru_scan {at} float16: plans {layouts[0]} / {layouts[1]} (expected {want})")
+        if layouts != (want, want):
+            fail(f"the float16 scans at H={H} ran the {layouts} plans, not {want}")
+        check_close(f"gru_scan {at}", F16, f_err)
+        check_close(f"gru_scan {at} with resets", F16, fr_err)
+        check_close(f"gru_scan_bwd {at}", F16, b_err, "max_rel_err")
+        check_close(f"gru_scan_bwd {at} with resets", F16, br_err, "max_rel_err")
+        fwd["errs"][at], fwd["errs"][at + " reset"] = f_err, fr_err
+        bwd["errs"][at], bwd["errs"][at + " reset"] = b_err, br_err
+        bwd["abs_err"] = max(bwd["abs_err"], b_abs, br_abs)
+    fwd["abs_err"] = max(fwd["errs"].values())
+
+    # times: the forward at the serving shape, the backward at the training shape
+    B, T, H = (SCAN_SHAPE[k] for k in ("B", "T", "H"))
+    x, mask, _, wh, bh = scan_inputs(g, torch.float32, B, T, H, 8)
+    args = (x, mask, 0.1 * torch.randn(B, H, generator=g, device="cuda"), wh, bh)
+    fwd["at"] = f"B={B} T={T} H={H}"
+    fwd.update(f16_turns(f"gru_scan {fwd['at']}", lambda dt: (
+        lambda a=cast16(args, (1, 2, 4), dt): gru_scan.gru_layer_scan(*a, True))))
+    a16 = cast16(args, (1, 2, 4), f16)
+    fwd["plain_ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_ref(*a16, True), iters=5)
+    gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=f16)
+    xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(f16)
+    with torch.no_grad():
+        fwd["library_ms"] = device_ms(lambda: gru(xin))
+        fwd["library_eager_ms"] = cuda_ms(lambda: gru(xin))
+    fwd["bound_ms"], fwd["bound_by"] = scan_fwd_bound(B, T, H)
+    B, T, H = (TRAIN_SCAN_SHAPE[k] for k in ("B", "T", "H"))
+    x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.float32, B, T, H, 8)
+    outs = gru_scan.gru_layer_scan_ref(x.to(f16), mask, h0, wh.to(f16), bh, True)[0]
+    args = (x, mask, h0, wh, bh, outs, gout)
+    bwd["at"] = f"B={B} T={T} H={H}"
+    bwd.update(f16_turns(f"gru_scan_bwd {bwd['at']}", lambda dt: (
+        lambda a=cast16(args, (1, 2, 4, 5, 6), dt): gru_scan.gru_layer_scan_bwd(*a, True))))
+    b16 = cast16(args, (1, 2, 4, 5, 6), f16)
+    bwd["plain_ms"] = cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*b16, True), iters=5)
+    bwd["library_ms"], bwd["library_eager_ms"] = cudnn_bwd_ms(g, B, T, H, f16)
+    bwd["bound_ms"], bwd["bound_by"] = scan_bwd_bound(B, T, H)
+    for name, rec in (("gru_scan", fwd), ("gru_scan_bwd", bwd)):
+        f16_print(name, rec["at"], rec)
+    return fwd, bwd
+
+
+def f16_step_kernels(ds) -> Tuple[dict, dict]:
+    """Phase 21 (a), rows 3 and 4 at the serving shape (N=1024, S=24,
+    H=500): each float16 kernel against its float16 plain version, then
+    the times beside bf16's in turns, the plain versions', cuDNN's 2-layer
+    nn.GRU one step in float16 (row 4) and the bounds."""
+    f16 = torch.float16
+    N, S, H = (STEP_SHAPE[k] for k in ("N", "S", "H"))
+    at = f"N={N} S={S} H={H}"
+    g = torch.Generator(device="cuda").manual_seed(22)
+    chain, attn = step_inputs(g, f16, N, S, H)
+    step, gchain = {"at": at}, {"at": at}
+    step["abs_err"] = max_err(ds.decode_step(*chain, *attn), ds.decode_step_ref(*chain, *attn))
+    gchain["abs_err"] = max_err(ds.gru_chain(*chain), ds.gru_chain_ref(*chain))
+    check_close(f"decode_step {at}", F16, step["abs_err"])
+    check_close(f"gru_chain {at}", F16, gchain["abs_err"])
+    chain, attn = step_inputs(g, torch.float32, N, S, H)
+    args = chain + attn
+    keep = (6, 8, 10, 14)  # the biases and mask_bias stay f32
+    step.update(f16_turns(f"decode_step {at}", lambda dt: (
+        lambda a=cast16(args, keep, dt): ds.decode_step(*a))))
+    gchain.update(f16_turns(f"gru_chain {at}", lambda dt: (
+        lambda a=cast16(chain, keep, dt): ds.gru_chain(*a))))
+    a16, c16 = cast16(args, keep, f16), cast16(chain, keep, f16)
+    step["plain_ms"] = cuda_ms(lambda: ds.decode_step_ref(*a16))
+    gchain["plain_ms"] = cuda_ms(lambda: ds.gru_chain_ref(*c16))
+    step["library_ms"] = None  # no one PyTorch call: cells and attention
+    gchain["library_ms"], gchain["library_eager_ms"] = gru_chain_library_ms(N, H, f16)
+    (step["bound_ms"], step["bound_by"]), (gchain["bound_ms"], gchain["bound_by"]) = \
+        step_bounds(N, S, H)
+    f16_print("decode_step", at, step)
+    f16_print("gru_chain", at, gchain)
+    return step, gchain
+
+
+def f16_decoder_kernels(dec) -> Tuple[dict, dict]:
+    """Phase 21 (a), rows 5 and 6 at the training shape (B=64, T=25, S=24,
+    H=500): each float16 kernel against its float16 plain version under
+    bf16's rules (the whole sequence at memory std 0.1; at std 0.5 the
+    first 4 steps each pass processes, and the distance from the f32 math
+    at most 1.5 times the plain version's), then the times beside bf16's in
+    turns, the plain versions' and the bounds."""
+    f16 = torch.float16
+    B, T, S, H = (DEC_SHAPE[k] for k in ("B", "T", "S", "H"))
+    at = f"B={B} T={T} S={S} H={H}"
+    g = torch.Generator(device="cuda").manual_seed(23)
+
+    def draw(dt, mem_std):
+        args = decoder_inputs(g, dt, B, T, S, H, mem_std)
+        d = (torch.randn(B, T, H, generator=g, device="cuda"),
+             torch.randn(B, T, S, generator=g, device="cuda"))
+        return args, dec.decoder_fwd_ref(*args), d
+
+    fwd, bwd = {"at": at}, {"at": at}
+    args, streams, d = draw(f16, DEC_MEM_STD)
+    for name, rec, got, want in (
+            ("decoder_fwd", fwd, dec.decoder_fwd(*args), streams),
+            ("decoder_bwd", bwd, dec.decoder_bwd(*args[:14], *streams, *d),
+             dec.decoder_bwd_ref(*args[:14], *streams, *d))):
+        torch.cuda.synchronize()
+        rec["err"], rec["abs_err"] = rel_err(got, want), max_err(got, want)
+        check_close(f"{name} {at}", F16, rec["err"], "max_rel_err")
+    peaked_checks(dec, draw, at, T, F16, fwd, bwd)
+    args, streams, d = draw(torch.float32, DEC_MEM_STD)
+    keep = (2, 3, 6, 8, 10, 14)  # h00, h01, the biases and mask_bias stay f32
+    fwd.update(f16_turns(f"decoder_fwd {at}", lambda dt: (
+        lambda a=cast16(args, keep, dt): dec.decoder_fwd(*a))))
+    bwd.update(f16_turns(f"decoder_bwd {at}", lambda dt: (
+        lambda a=cast16(args, keep, dt)[:14] + tuple(s.to(dt) for s in streams) + d:
+        dec.decoder_bwd(*a))))
+    a16 = cast16(args, keep, f16)
+    b16 = a16[:14] + tuple(s.to(f16) for s in streams) + d
+    fwd["plain_ms"] = cuda_ms(lambda: dec.decoder_fwd_ref(*a16), iters=5)
+    bwd["plain_ms"] = cuda_ms(lambda: dec.decoder_bwd_ref(*b16), iters=5)
+    fwd["library_ms"] = bwd["library_ms"] = None
+    (fwd["bound_ms"], fwd["bound_by"]), (bwd["bound_ms"], bwd["bound_by"]) = \
+        decoder_bounds(B, T, S, H)
+    f16_print("decoder_fwd", at, fwd)
+    f16_print("decoder_bwd", at, bwd)
+    return fwd, bwd
+
+
+def top1_agree(a, b) -> int:
+    return sum(x[0][1] == y[0][1] for x, y in zip(a, b))
+
+
+def f16_serve(card: str, cfg, state, bf16_rate: dict):
+    """Phase 21 (b): the flagship with compute_dtype float16 and phase 4's
+    weights decodes one request of F16_SERVE_SENT sentences, beam 4, at
+    pallas_step 1 and 2 (counted), then on the float16 plain route
+    (pallas_step 0) and on the bf16 kernel route (pallas_step 1). The
+    float16 kernel routes must agree with the float16 plain route on at
+    least as many top-1 hypotheses as the bf16 kernel route does."""
+    from variational_mmt_torch.config import DecodeConfig
+    from variational_mmt_torch.data.vocab import SPECIALS, Vocab
+    from variational_mmt_torch.decode.translator import Translator
+    from variational_mmt_torch.models.model import build_model
+    from variational_mmt_torch.tools import flagship
+
+    m = cfg.model
+    vocab = Vocab(SPECIALS + [f"w{i}" for i in range(m.tgt_vocab_size - len(SPECIALS))])
+    request = flagship.requests(m)
+    src, img = request(F16_SERVE_SENT)
+    warm = request(8)
+    translators = {}
+    for dt in ("float16", "bfloat16"):
+        model = build_model(dataclasses.replace(m, compute_dtype=dt), device="cuda")
+        model.load_state_dict(state)
+        for mode in ((0, 1, 2) if dt == "float16" else (1,)):
+            tr = Translator(model, vocab, vocab,
+                            DecodeConfig(beam_size=4, max_length=60,
+                                         batch_size=F16_SERVE_SENT, pallas_step=mode),
+                            device="cuda")
+            tr.translate_ids(*warm)
+            translators[dt, mode] = tr
+    outs, rate = {}, {}
+
+    def decode(key):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[key] = translators[key].translate_ids(src, img)
+        torch.cuda.synchronize()
+        rate[key] = len(src) / (time.perf_counter() - t0)
+        well_formed(outs[key], len(src), m.tgt_vocab_size, 60)
+
+    launches, _ = counted_run(lambda: [decode(("float16", mode)) for mode in (1, 2)])
+    print(f"float16 serve: launches at pallas_step 1 and 2 {launches}")
+    for name in ("gru_layer_scan", "decode_step", "gru_chain"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the float16 serving path")
+    decode(("float16", 0))
+    decode(("bfloat16", 1))
+    plain = outs["float16", 0]
+    rec = {"sent_per_s": {f"pallas_step={k[1]}": v for k, v in rate.items() if k[0] == F16},
+           "sent_per_s_bf16_pallas_step=1": rate["bfloat16", 1],
+           "top1_vs_f16_plain": {f"pallas_step={mode}": top1_agree(outs[F16, mode], plain)
+                                 for mode in (1, 2)},
+           "top1_vs_bf16_kernels": {f"pallas_step={mode}":
+                                    top1_agree(outs[F16, mode], outs["bfloat16", 1])
+                                    for mode in (1, 2)},
+           "top1_bf16_kernels_vs_f16_plain": top1_agree(outs["bfloat16", 1], plain)}
+    for key, r in sorted(rate.items()):
+        print(f"float16 serve: {key[0]} pallas_step={key[1]}: {r:.1f} sent/s (one request of "
+              f"{len(src)}, beam 4, max_length 60, {card}; phase 4's bf16 mean at this "
+              f"pallas_step {bf16_rate.get(key[1], float('nan')):.1f})")
+    print(f"float16 serve: top-1 agreement of {len(src)}: float16 kernels with the float16 "
+          f"plain route {rec['top1_vs_f16_plain']}, with the bf16 kernel route "
+          f"{rec['top1_vs_bf16_kernels']}; bf16 kernels with the float16 plain route "
+          f"{rec['top1_bf16_kernels_vs_f16_plain']}")
+    if min(rec["top1_vs_f16_plain"].values()) < rec["top1_bf16_kernels_vs_f16_plain"]:
+        fail("the float16 kernel routes agree with the float16 plain route less often than "
+             "the bf16 kernel route does")
+    return launches, rec
+
+
+def zero_share(cfg, state, batch, dtype: str) -> float:
+    """The share of gradient entries that are exactly zero, kernel route,
+    deterministic, no sampling, at step 0 on ``batch``."""
+    from variational_mmt_torch.train.trainer import batch_tensors, loss_and_grads
+
+    tr = trainer_for(cfg, state, [], compute_dtype=dtype, use_pallas=True, pallas_decoder=True,
+                     fused_ce=True)
+    _, _, grads = loss_and_grads(tr.cfg, tr.model, batch_tensors(batch, torch.device("cuda")),
+                                 0, None, deterministic=True, sample=False)
+    zeros = sum(int((g == 0).sum()) for g in grads)
+    return zeros / sum(g.numel() for g in grads)
+
+
+def f16_train(card: str, cfg, state, bf16_ms: float):
+    """Phase 21 (c): TRAIN_STEPS Trainer steps on the kernel route in
+    float16 from phase 5's weights and batches (counted; finite losses
+    required), F16_TIMED_RUNS timed runs of F16_TIMED_STEPS, the first 4
+    losses beside the float16 plain route's, and the share of exactly zero
+    gradient entries in float16 and in f32 on the first batch."""
+    batches = train_batches(cfg)
+    tr = trainer_for(cfg, state, batches, compute_dtype=F16, pallas_decoder=True)
+    launches, hist = counted_run(lambda: tr.train(TRAIN_STEPS))
+    print(f"float16 train: launches ({TRAIN_STEPS} steps) {launches}")
+    for name in ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd"):
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the float16 training path")
+    losses = [h["loss"] for h in hist]
+    print("float16 train: losses " + " ".join(f"{v:.3f}" for v in losses))
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(v) for v in losses):
+        fail("a float16 training loss is not finite")
+    runs = []
+    for _ in range(F16_TIMED_RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train(F16_TIMED_STEPS)
+        runs.append((time.perf_counter() - t0) / F16_TIMED_STEPS * 1e3)
+    plain = trainer_for(cfg, state, batches, compute_dtype=F16, use_pallas=False,
+                        pallas_decoder=False, fused_ce=False)
+    plain_losses = [h["loss"] for h in plain.train(4)]
+    rec = {"losses": losses, "step_ms": float(np.mean(runs)), "runs_ms": runs,
+           "bf16_step_ms": bf16_ms, "first4": losses[:4], "first4_plain": plain_losses,
+           "first4_rel": [abs(a - b) / abs(b) for a, b in zip(losses, plain_losses)]}
+    del tr, plain
+    rec["zero_grad_share"] = {dt: zero_share(cfg, state, batches[0], dt)
+                              for dt in ("float16", "float32")}
+    print(f"float16 train: {rec['step_ms']:.2f} ms/step (runs "
+          f"{', '.join(f'{r:.2f}' for r in runs)}; batch {TRAIN_BATCH}, {F16_TIMED_STEPS} "
+          f"steps a run, {card}); phase 5's bf16 kernel route {bf16_ms:.2f} ms/step")
+    print("float16 train: first 4 losses, kernel route "
+          + " ".join(f"{v:.4f}" for v in losses[:4]) + ", plain route "
+          + " ".join(f"{v:.4f}" for v in plain_losses) + ", relative differences "
+          + " ".join(f"{v:.1e}" for v in rec["first4_rel"]))
+    print(f"float16 train: share of gradient entries exactly zero on batch 0 (kernel route, "
+          f"no dropout, no sampling): float16 {rec['zero_grad_share']['float16']:.6f}, f32 "
+          f"{rec['zero_grad_share']['float32']:.6f}")
+    return launches, rec
+
+
+def f16_cli(card: str, root: str):
+    """Phase 21 (d): ``cli.train -config`` with a float16 copy of phase 10's
+    config.json for F16_CLI_STEPS steps on phase 10's corpus, then
+    ``cli.translate`` of its checkpoint at pallas_step 2 (row 4), both
+    counted."""
+    from variational_mmt_torch.cli import train as cli_train, translate as cli_translate
+    from variational_mmt_torch.train import checkpoint as ck
+
+    with open(os.path.join(root, "config.json")) as f:
+        conf = json.load(f)
+    conf["model"]["compute_dtype"] = F16
+    path = os.path.join(root, "config_float16.json")
+    with open(path, "w") as f:
+        json.dump(conf, f)
+    run = os.path.join(root, "run_float16")
+    argv = ["-data", os.path.join(root, "corpus"), "-config", path,
+            "-train_img_feats", os.path.join(root, "train.feats.npy"),
+            "-valid_img_feats", os.path.join(root, "valid.feats.npy"),
+            "-batch_size", str(TRAIN_BATCH), "-max_steps", str(F16_CLI_STEPS),
+            "-valid_every", str(F16_CLI_STEPS), "-checkpoint_every", str(F16_CLI_STEPS),
+            "-save_model", run]
+    train_launches, trainer = counted_run(lambda: cli_train.main(argv))
+    losses = [h["loss"] for h in trainer.last_run["metrics"]]
+    saved = ck.read_config(ck.latest_checkpoint(run)).model.compute_dtype
+    print(f"float16 cli: train -config {os.path.basename(path)}: {len(losses)} steps, "
+          f"compute_dtype {trainer.cfg.model.compute_dtype} (checkpoint: {saved}), losses "
+          + " ".join(f"{v:.3f}" for v in losses) + f"; launches {train_launches}")
+    if trainer.cfg.model.compute_dtype != F16 or saved != F16:
+        fail("the train CLI did not take compute_dtype float16 from its -config file")
+    if len(losses) != F16_CLI_STEPS or not all(math.isfinite(v) for v in losses):
+        fail("float16 train CLI: wrong step count, or a loss that is not finite")
+    for name in ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd"):
+        if train_launches[name] <= 0:
+            fail(f"kernel {name} was not launched by the float16 train CLI")
+    tr_argv = ["-model", run, "-src", os.path.join(root, "test.src"),
+               "-tgt", os.path.join(root, "test.tgt"),
+               "-img_feats", os.path.join(root, "test.feats.npy"), "-pretokenized",
+               "-beam_size", "4", "-batch_size", str(CLI_TEST), "-max_length", "60",
+               "-report_bleu", "-pallas_step", "2",
+               "-output", os.path.join(root, "pred_float16.txt")]
+    tr_launches, out = counted_run(lambda: cli_translate.main(tr_argv))
+    print(f"float16 cli: translate pallas_step=2: {out['sent_per_s']:.1f} sent/s ({CLI_TEST} "
+          f"sentences, beam 4, {card}), BLEU {out['bleu']:.2f}; launches {tr_launches}")
+    if tr_launches["gru_layer_scan"] <= 0 or tr_launches["gru_chain"] <= 0:
+        fail("the float16 translate CLI did not launch the scan and gru_chain")
+    well_formed(out["nbest"], CLI_TEST, CLI_VOCAB, 60)
+    launches = {k: train_launches[k] + tr_launches[k] for k in train_launches}
+    return launches, {"train_losses": losses, "train_ms_per_step":
+                      trainer.last_run["seconds"] / trainer.last_run["steps"] * 1e3,
+                      "translate_sent_per_s": out["sent_per_s"], "bleu": out["bleu"]}
+
+
+def f16_entries(launches: dict, rows: dict) -> list:
+    """The ``kernels`` line's entries of phase 21's float16 instantiations,
+    ``<name>[float16]``, from its launches by path and its rows' numbers."""
+    entries = []
+    for name, src, replaces in KERNEL_ROWS:
+        r = rows[name]
+        by_path = {path: n[name] for path, n in launches.items()}
+        entries.append({
+            "name": f"{name}[float16]", "route": "cuda", "source": src, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": r["abs_err"], "dtype": F16, "ms": r["float16_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "at": r["at"], "bfloat16_ms_in_turns":
+            r["bfloat16_ms"], "runs_ms": r["runs_ms"],
+            **{k: r[k] for k in ("err", "errs", "peaked", "library_eager_ms") if k in r}})
+    return entries
+
+
+def float16_phase(card: str, cfg, state, root: str, bf16_rate: dict, bf16_step_ms: float):
+    """Phase 21 (module docstring): float16 on the card. Returns ({path:
+    {kernel: launches}}, {kernel: numbers}, record)."""
+    from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
+
+    t0 = time.time()
+    rows = {}
+    rows["gru_layer_scan"], rows["gru_layer_scan_bwd"] = f16_scan_kernels(gru_scan)
+    rows["decode_step"], rows["gru_chain"] = f16_step_kernels(ds)
+    rows["decoder_fwd"], rows["decoder_bwd"] = f16_decoder_kernels(dec)
+    launches, rec = {}, {"kernels_s": time.time() - t0}
+    launches["float16_serve"], rec["serve"] = f16_serve(card, cfg, state, bf16_rate)
+    launches["float16_train"], rec["train"] = f16_train(card, cfg, state, bf16_step_ms)
+    launches["float16_cli"], rec["cli"] = f16_cli(card, root)
+    total = {k: sum(n[k] for n in launches.values()) for k in kernel_counters()}
+    print(f"float16: launches of each kernel on phase 21's paths {total}")
+    for name, n in total.items():
+        if n <= 0:
+            fail(f"kernel {name} was not launched in float16")
+    rec["phase_s"] = time.time() - t0
+    print(f"float16 phase {rec['phase_s']:.1f} s (kernel checks and times "
+          f"{rec['kernels_s']:.1f} s)")
+    return launches, rows, rec
+
+
 def width_record(name: str, widths: dict) -> dict:
     """One kernel's numbers at the widths phase's shapes: rows 1 and 2 by
     shape (errors, plans, bf16 times, cuDNN, bounds), rows 3-6 at H=250."""
@@ -4235,23 +4710,15 @@ def main() -> int:
         extract_launches, extract = extract_phase(card, root)
         srv_rank_launches, srv_ranks = serve_ranks_phase(card, root)
         tool_launches, tools = tools_phase(card, root)
+        f16_launches, f16_rows, f16 = float16_phase(card, cfg, state, root, rate,
+                                                    steps["pallas_decoder=1"]["step_ms"])
     par_launches, par = parallel_phase(card, cfg, state)
 
     entries = []
-    for name, rec, src, replaces in (
-        ("gru_layer_scan", scan, "variational_mmt_torch/csrc/gru_scan.cu",
-         "variational_mmt_tpu/ops/pallas/gru.py:165"),
-        ("gru_layer_scan_bwd", scan_bwd, "variational_mmt_torch/csrc/gru_scan.cu",
-         "variational_mmt_tpu/ops/pallas/gru.py:297"),
-        ("decode_step", step, "variational_mmt_torch/csrc/decode_step.cu",
-         "variational_mmt_tpu/ops/pallas/decode_step.py:176"),
-        ("gru_chain", chain, "variational_mmt_torch/csrc/decode_step.cu",
-         "variational_mmt_tpu/ops/pallas/decode_step.py:118"),
-        ("decoder_fwd", dec_fwd, "variational_mmt_torch/csrc/decoder.cu",
-         "variational_mmt_tpu/ops/pallas/decoder.py:153"),
-        ("decoder_bwd", dec_bwd, "variational_mmt_torch/csrc/decoder.cu",
-         "variational_mmt_tpu/ops/pallas/decoder.py:304"),
-    ):
+    recs = {"gru_layer_scan": scan, "gru_layer_scan_bwd": scan_bwd, "decode_step": step,
+            "gru_chain": chain, "decoder_fwd": dec_fwd, "decoder_bwd": dec_bwd}
+    for name, src, replaces in KERNEL_ROWS:
+        rec = recs[name]
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
                    "train_packed": packed_launches.get(name, 0),
                    "families": family_launches[name], "cli": cli_launches[name],
@@ -4293,6 +4760,7 @@ def main() -> int:
         else:
             entry.update(max_abs_err_f32=rec["err_float32"])
         entries.append(entry)
+    entries += f16_entries(f16_launches, f16_rows)
     print(json.dumps({"kernels": entries, "sent_per_s": rate, "train": steps,
                       "train_f32_check": check, "train_packed": packed, "families": families,
                       "cli": cli, "serve_online": {k: v for k, v in served.items()
@@ -4300,6 +4768,7 @@ def main() -> int:
                       "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,
                       "options": options, "host_path": host, "parallel": par,
                       "extract": extract, "serve_ranks": srv_ranks, "tools": tools,
+                      "float16": f16,
                       "widths_f32_check": {f"fast{H}": widths[f"fast{H}_f32_check"]
                                            for H in FAST_WIDTHS}, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

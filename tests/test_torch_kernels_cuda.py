@@ -6,9 +6,11 @@ card. On a machine with a card and no JAX:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
 Tolerances: forward outputs in [-1, 1], float32 1e-4 absolute (summation
-order only), bfloat16 2e-2 absolute (rounding to bf16). Gradients are not
-bounded, so the backward kernels are held to max|kernel - plain| /
-max|plain| per tensor: 1e-4 in float32, 2e-2 in bfloat16."""
+order only), bfloat16 2e-2 absolute (rounding to bf16), float16 held to
+bfloat16's 2e-2. Gradients are not bounded, so the backward kernels are
+held to max|kernel - plain| / max|plain| per tensor: 1e-4 in float32, 2e-2
+in bfloat16 and float16. An unknown dtype code returns an error from every
+C entry point."""
 
 import math
 
@@ -20,8 +22,8 @@ from variational_mmt_torch.ops import decode_step as ds
 from variational_mmt_torch.ops import decoder, gru_scan
 
 pytestmark = pytest.mark.cuda
-TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-DTYPES = [torch.float32, torch.bfloat16]
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -417,3 +419,19 @@ def test_decoder_kernels_at_a_width_not_a_multiple_of_4(cuda, dt, B, T, S, H):
     close_rel(decoder.decoder_bwd(*args[:14], *streams, d_attn, d_probs),
               decoder.decoder_bwd_ref(*args[:14], *streams, d_attn, d_probs), dt)
     assert decoder.decoder_bwd.plan["padded"] == ds.padded_width(H)
+
+
+def test_every_entry_point_refuses_an_unknown_dtype_code(cuda):
+    """Code 3 names no compute dtype: every C entry point and occupancy
+    query returns cudaErrorInvalidValue before touching its (null)
+    pointers, where it once ran the float32 instantiation, and the
+    wrappers' check raises with the library's error string."""
+    for name, entries in kernels.SIGNATURES.items():
+        lib = kernels.library(name)
+        for fn, argtypes in entries.items():
+            args = [3] + [1 if t is kernels._I else None for t in argtypes[1:]]
+            err = getattr(lib, fn)(*args)
+            assert err == 1, (fn, err)  # cudaErrorInvalidValue
+            with pytest.raises(RuntimeError, match="invalid argument"):
+                kernels.check(lib, err, fn)
+    assert torch.cuda.synchronize() is None

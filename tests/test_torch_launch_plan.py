@@ -2,7 +2,7 @@
 (``scan_fwd_plan``, ``scan_bwd_plan``, ``step_cell_plan``,
 ``decoder_fwd_plan`` and ``decoder_bwd_plan``), pure Python, on the CPU. The widths the repo's
 configs use (H=250 a direction for the scan, H=500 for the decoder and the
-decode step) are accepted in both dtypes, and so is every scan width
+decode step) are accepted in the three dtypes, and so is every scan width
 (clusters of up to 16 CTAs to 512, the wide plan to 1024:
 tests/test_torch_wide_scan.py; the streamed plan above:
 tests/test_torch_wider_scan.py) and any decoder width (padded to a
@@ -21,7 +21,7 @@ from variational_mmt_torch.models import gru as gru_mod
 from variational_mmt_torch.ops import decode_step as ds
 from variational_mmt_torch.ops import decoder, gru_scan
 
-DTYPES = [torch.float32, torch.bfloat16]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 H100_SMS = 132  # SMs of an H100 SXM; an H100 PCIe has 114
 SMEM_PER_SM = 233_472  # shared memory of an H100 SM (228 KB), 1 KB of it reserved per CTA
 
@@ -252,7 +252,7 @@ def test_decoder_fwd_plan_mirrors_the_kernels_layout():
                                    (64, 24, 1002)])
 def test_decoder_fwd_plan_refuses_what_shared_memory_cannot_hold(dt, B, S, H):
     """Also H=1002, padded to 1004: its weight slices exceed a CTA's
-    shared memory in both dtypes."""
+    shared memory in every dtype."""
     with pytest.raises(NotImplementedError):
         decoder.decoder_fwd_plan(B, S, H, dt, H100_SMS)
 
@@ -348,7 +348,8 @@ def test_wrappers_check_the_plan_against_the_kernels_count(no_launch):
         decoder.decoder_bwd(*decoder_args(4, 5, 3, 8))
 
 
-@pytest.mark.parametrize("dt,per_sm", [(torch.bfloat16, 1), (torch.float32, 2)], ids=str)
+@pytest.mark.parametrize("dt,per_sm", [(torch.bfloat16, 1), (torch.float16, 1),
+                                         (torch.float32, 2)], ids=str)
 def test_decoder_grid_follows_the_cards_sm_count(monkeypatch, dt, per_sm):
     """On a card of 114 SMs (an H100 PCIe) that holds ``per_sm`` CTAs an SM
     the flagship's backward launches with a co-resident grid: the plan
@@ -493,6 +494,8 @@ def test_decoder_fwd_checks_the_plan_against_the_kernels_count(no_launch):
 
 @pytest.mark.parametrize("dt,sms,grid", [(torch.bfloat16, H100_SMS, 126),
                                          (torch.bfloat16, 114, 64),
+                                         (torch.float16, H100_SMS, 126),
+                                         (torch.float16, 114, 64),
                                          (torch.float32, H100_SMS, 125)], ids=str)
 def test_decoder_fwd_launches_once_with_the_plan(monkeypatch, dt, sms, grid):
     """One launch a call, with the plan's units, rows and grid (the card's
@@ -660,3 +663,32 @@ def test_decoder_wrappers_launch_at_the_padded_width(monkeypatch, H):
     assert [tuple(t.shape) for t in fwd] == [(4, 5, H)] * 3 + [(4, 5, 3)]
     assert [tuple(t.shape) for t in bwd] == [(4, 5, 3 * H)] * 4 + [(4, 5, H), (4, 5, 3),
                                                                    (4, H), (4, H)]
+
+
+@pytest.mark.parametrize("B", [1, 61, 64, 256, 1000])
+@pytest.mark.parametrize("H", [6, 250, 500, 512, 513, 1000, 1024, 1025, 2048])
+def test_float16_plans_equal_bf16s(H, B):
+    """float16 runs bf16's tensor-core tiling in every kernel (``is_mma`` of
+    csrc/tile_gemm.cuh): every launch plan, cluster, wide and streamed for
+    the scans, the decode step's cells and both decoder kernels, is the
+    bf16 plan, and differs from f32's where f32 tiles for FMAs."""
+    f16, bf16 = torch.float16, torch.bfloat16
+    for sms in (H100_SMS, 114):
+        assert gru_scan.scan_fwd_plan(B, 24, H, f16, sms) == \
+            gru_scan.scan_fwd_plan(B, 24, H, bf16, sms)
+        assert gru_scan.scan_bwd_plan(B, 24, H, f16, sms) == \
+            gru_scan.scan_bwd_plan(B, 24, H, bf16, sms)
+    assert gru_scan.scan_kernel_holds(H, f16) == gru_scan.scan_kernel_holds(H, bf16)
+    assert ds.step_cell_plan(4 * B, H, f16) == ds.step_cell_plan(4 * B, H, bf16)
+    for plan in (decoder.decoder_fwd_plan, decoder.decoder_bwd_plan):
+        for sms in (H100_SMS, 114):
+            try:
+                want = plan(B, 24, H, bf16, sms)
+            except NotImplementedError:
+                with pytest.raises(NotImplementedError):
+                    plan(B, 24, H, f16, sms)
+                continue
+            assert plan(B, 24, H, f16, sms) == want
+    assert kernels.mma_dtype(f16) and kernels.mma_dtype(bf16)
+    assert not kernels.mma_dtype(torch.float32)
+    assert ds.step_cell_plan(4 * B, H, f16) != ds.step_cell_plan(4 * B, H, torch.float32)

@@ -7,7 +7,7 @@ streamed plan, on the CPU.
   1040 and 1100, B = 3, T = 5, both directions, with and without a reset
   stream, f32: outputs, finals, dx, dh0, dWh, dbh and the VJP within 1e-5.
 - The streamed launch plans (``layout`` ``"streamed"``) at H = 1040, 1536,
-  2048, 2500 and 4096 in both dtypes, batches 1, 61, 64, 256 and 1000: one
+  2048, 2500 and 4096 in the three dtypes, batches 1, 61, 64, 256 and 1000: one
   launch, the grid within what 132 SMs hold at once and at most the tiles,
   every tile owned, shared memory the product buffer alone (counted by
   hand) whatever H.
@@ -28,7 +28,7 @@ from test_torch_wide_scan import check_plain_scans_against_jax, meta
 from variational_mmt_torch import kernels
 from variational_mmt_torch.ops import gru_scan
 
-DTYPES = [torch.float32, torch.bfloat16]
+DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 STREAMED = [1040, 1536, 2048, 2500, 4096]
 H100_SMS = 132
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -48,7 +48,7 @@ def test_streamed_plans_hold_every_width_above_1024(H, dt, B):
     fwd = gru_scan.scan_fwd_plan(B, 24, H, dt, H100_SMS)
     bwd = gru_scan.scan_bwd_plan(B, 24, H, dt, H100_SMS)
     assert gru_scan.scan_kernel_holds(H, dt)
-    bf16 = dt == torch.bfloat16
+    bf16 = dt != torch.float32  # bf16 and f16: the tensor cores' tiling
     rows = kernels.align16(-(-B // -(-B // 256)))
     for pass_, plan in ((0, fwd), (1, bwd)):
         assert plan["layout"] == "streamed" and plan["chunks"] == 1
@@ -75,7 +75,8 @@ def test_scan_kernel_holds_every_width(dt):
     assert all(gru_scan.scan_kernel_holds(H, dt) for H in range(1, 4097, 7))
     assert gru_scan.scan_kernel_holds(10_000, dt)
     assert not gru_scan.scan_kernel_holds(0, dt)
-    assert not gru_scan.scan_kernel_holds(1040, torch.float16)
+    assert gru_scan.scan_kernel_holds(1040, torch.float16)
+    assert not gru_scan.scan_kernel_holds(1040, torch.float64)
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -89,7 +90,7 @@ def test_laid_out_weights_give_each_tiles_products(dt, H):
     Wh = torch.from_numpy(rng.standard_normal((H, 3 * H)).astype(np.float32)).to(dt)
     plan = gru_scan.scan_fwd_plan(16, 4, H, dt, H100_SMS)
     units, ut = plan["units"], plan["unit_tiles"]
-    bf16 = dt == torch.bfloat16
+    bf16 = dt != torch.float32  # bf16 and f16: rows at the mma stride
     wt = gru_scan._stream_weights(Wh, 0, plan)
     ld = kernels.frag_ld(H, bf16)
     assert wt.shape == (ut, 3, units, ld) and wt.is_contiguous()

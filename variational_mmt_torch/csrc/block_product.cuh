@@ -3,8 +3,8 @@
 // times the few weight columns it keeps in shared memory; the GRU cell on
 // its results; the co-residency query of a cooperative launch.
 //
-// A persistent kernel's CTAs own a few hidden units each (8 in bf16: one
-// mma.sync n-tile; 4 in f32, FMAs on the CUDA cores, never TF32) and keep
+// A persistent kernel's CTAs own a few hidden units each (8 in bf16 and
+// f16: one mma.sync n-tile; 4 in f32, FMAs on the CUDA cores, never TF32) and keep
 // those units' weight slices in shared memory for the whole call. The
 // other CTAs' results reach them as T-rounded copies in global memory,
 // rows padded to 32 (zero past K), read with ld.global.cg past the L1,
@@ -18,11 +18,11 @@ namespace {
 
 constexpr int kDecThreads = 256;
 constexpr int kDecWarps = kDecThreads / 32;
-constexpr int kDecUnitsMma = 8;  // units of a CTA in bf16: one mma n-tile
+constexpr int kDecUnitsMma = 8;  // units of a CTA in bf16 or f16: one mma n-tile
 constexpr int kDecUnitsFma = 4;  // most units of a CTA in f32
 
 // Row stride of the activations and weight slices that block_product
-// reads: K padded to 32 and, for bf16 weight rows in shared memory, to an
+// reads: K padded to 32 and, for 16-bit weight rows in shared memory, to an
 // odd multiple of 64 bytes, so that the two rows a quarter-warp reads with
 // 16-byte loads fall in different halves of the banks.
 __host__ __device__ int pad32(int k) { return (k + 31) & ~31; }
@@ -30,20 +30,20 @@ __host__ __device__ int pad32(int k) { return (k + 31) & ~31; }
 template <typename T>
 __host__ __device__ int frag_ld(int K) {
   const int k = pad32(K);
-  return is_bf16<T>() ? k + (96 - k % 64) % 64 : k;
+  return is_mma<T>() ? k + (96 - k % 64) % 64 : k;
 }
 
-// Rows of one n-tile of a weight slice: the mma's 8 columns in bf16, the
+// Rows of one n-tile of a weight slice: the mma's 8 columns in 16 bits, the
 // FMA path's units in f32.
 template <typename T>
 __host__ __device__ constexpr int tile_rows() {
-  return is_bf16<T>() ? kDecUnitsMma : kDecUnitsFma;
+  return is_mma<T>() ? kDecUnitsMma : kDecUnitsFma;
 }
 
 // prod[m * 8 NT + n * 8 + u] = sum_k act[r0 + m, k] w_s[n * tile_rows + u,
 // k] for m < nr, u < nu and the NT n-tiles n of a weight slice: act in T
 // rows lda apart (columns K..lda zero, lda a multiple of 32), w_s in shared
-// memory, rows ldw apart. bf16: mma.sync over 16-row tiles, the K range
+// memory, rows ldw apart. bf16 and f16: mma.sync over 16-row tiles, the K range
 // split across warps when there are fewer tiles than warps, partial sums
 // added in a fixed order; each operand fragment serves the NT n-tiles.
 // Each lane loads 16 bytes of a row per 32 columns, whole sectors: within a
@@ -59,7 +59,7 @@ __device__ void block_product(const T* act, int lda, int K, const T* w_s, int ld
   constexpr int PS = kDecUnitsMma * NT;  // row stride of prod
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   __syncthreads();  // prod is free
-  if constexpr (is_bf16<T>()) {
+  if constexpr (is_mma<T>()) {
     const int gq = lane >> 2, tq = lane & 3;
     const int mt = (nr + 15) / 16, kp = mt < kDecWarps ? kDecWarps / mt : 1;
     const int blocks = lda / 32;
@@ -90,8 +90,8 @@ __device__ void block_product(const T* act, int lda, int K, const T* w_s, int ld
 #pragma unroll
             for (int n = 0; n < NT; ++n) {
               const uint4 w = wb[n * wtile + (q + i) * 4];
-              mma_bf16(c[n], lo, w.x, w.y);
-              mma_bf16(c[n], hi, w.z, w.w);
+              mma16<T>(c[n], lo, w.x, w.y);
+              mma16<T>(c[n], hi, w.z, w.w);
             }
           }
         }

@@ -1,5 +1,6 @@
 // Device helpers shared by the port's CUDA sources: the conversions
-// between the compute dtype T (float or bfloat16) and f32, rounding to T,
+// between the compute dtype T (float, bfloat16 or float16) and f32,
+// rounding to T (to nearest even, as Tensor.to and astype do),
 // the sigmoid, the warp reductions, the attention's thread count, the
 // dynamic shared-memory opt-in and vmmt_error_string. Each kernel lives in
 // its own source (gru_scan.cu, decode_step.cu, decoder.cu).
@@ -14,6 +15,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -23,6 +25,7 @@ namespace {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
@@ -31,6 +34,10 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // round an f32 value to the precision of T (the product operand dtype)
@@ -58,6 +65,27 @@ template <typename Kernel>
 void allow_smem(Kernel* kernel, int bytes) {
   if (bytes > 48 * 1024) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+}
+
+// The compute dtype codes of the entry points: 0 float32, 1 bfloat16,
+// 2 float16 (kernels.DTYPE_CODE).
+constexpr bool known_dtype(int code) { return code >= 0 && code <= 2; }
+
+// Calls f with a value of the compute dtype that `code` names and returns
+// its result as an int; any other code returns cudaErrorInvalidValue and
+// runs nothing.
+template <typename F>
+int by_dtype(int code, F&& f) {
+  switch (code) {
+    case 0:
+      return (int)f(float{});
+    case 1:
+      return (int)f(__nv_bfloat16{});
+    case 2:
+      return (int)f(__half{});
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -4,8 +4,8 @@
 // Replaces two Pallas kernels of variational_mmt_tpu/ops/pallas/decode_step.py:
 //   _step_kernel  (decode_step_pallas, pallas_call at :176)
 //   _chain_kernel (gru_chain_pallas,   pallas_call at :118)
-// and computes, with every tensor in one compute dtype T (float or
-// bfloat16), biases and mask_bias in f32, state and gate math in f32:
+// and computes, with every tensor in one compute dtype T (float, bfloat16
+// or float16), biases and mask_bias in f32, state and gate math in f32:
 //   x0 = emb_proj + feed @ Wfeed;         h0' = GRU(x0, h0 @ Wh0 + bh0, h0)
 //   x1 = h0' @ Wmid + bmid;               h1' = GRU(x1, h1 @ Wh1 + bh1, h1)
 //   probs = softmax(h1' . keys + mask_bias)        (decode step only)
@@ -52,8 +52,13 @@
 // shapes the design cannot hold (H not a multiple of 4: the cp.async copies
 // are 4 values wide) are refused by the wrapper's launch plan
 // (step_cell_plan in ops/decode_step.py).
+//
+// float16 takes bf16's path throughout (is_mma in tile_gemm.cuh: the same
+// mma.sync fragments and ldmatrix with f16 operands, the same strides and
+// shared memory); what this file says of bf16 holds for both. mask_bias
+// stays f32 in every dtype: its -1e9 is -inf in float16.
 
-#include "tile_gemm.cuh"  // mma_bf16, is_bf16
+#include "tile_gemm.cuh"  // mma16, is_mma
 
 namespace {
 
@@ -71,8 +76,8 @@ constexpr int kCellVec = 4;                  // values per cp.async (8 B bf16, 1
 template <typename T>
 struct CellSmem {
   static constexpr int kStages = 2;
-  static constexpr int LDA = is_bf16<T>() ? kCellBK + 8 : kCellBK + 4;
-  static constexpr int LDW = is_bf16<T>() ? kCellCols + 8 : kCellCols + 4;
+  static constexpr int LDA = is_mma<T>() ? kCellBK + 8 : kCellBK + 4;
+  static constexpr int LDW = is_mma<T>() ? kCellCols + 8 : kCellCols + 4;
   // one stage: a and h (kCellRows, LDA), wa and wh (kCellBK, LDW)
   static constexpr int kStage = 2 * kCellRows * LDA + 2 * kCellBK * LDW;
   static constexpr size_t kPipe = kStages * (size_t)kStage * sizeof(T);
@@ -232,7 +237,7 @@ cell_mma_kernel(const T* __restrict__ xbase, const float* __restrict__ xbias,
   };
 
   const int lane = tid & 31, warp = tid >> 5;
-  if constexpr (is_bf16<T>()) {
+  if constexpr (is_mma<T>()) {
     // warp (wm, wn): rows wm*16.., units wn*16.. of every gate; fragment
     // sets [gate][n-tile of 8 units]
     const int wm = warp >> 1, wn = warp & 1;
@@ -255,11 +260,11 @@ cell_mma_kernel(const T* __restrict__ xbase, const float* __restrict__ xbias,
           const int bo = (kk + (lane & 15)) * SM::LDW + g * kCellUnits + wn * 16 + (lane >> 4) * 8;
           ldmatrix_x4_trans(ba, was + bo);
           if constexpr (kGru) ldmatrix_x4_trans(bw, whs + bo);
-          mma_bf16(ax[g][0], fa, ba[0], ba[1]);
-          mma_bf16(ax[g][1], fa, ba[2], ba[3]);
+          mma16<T>(ax[g][0], fa, ba[0], ba[1]);
+          mma16<T>(ax[g][1], fa, ba[2], ba[3]);
           if constexpr (kGru) {
-            mma_bf16(ah[g][0], fh, bw[0], bw[1]);
-            mma_bf16(ah[g][1], fh, bw[2], bw[3]);
+            mma16<T>(ah[g][0], fh, bw[0], bw[1]);
+            mma16<T>(ah[g][1], fh, bw[2], bw[3]);
           }
         }
       }
@@ -338,10 +343,12 @@ __device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
   v[2] = q.z;
   v[3] = q.w;
 }
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float (&v)[4]) {
+  static_assert(is_mma<T>(), "load4 of a 16-bit type");
   const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  const float2 lo = unpack2<T>(q.x);
+  const float2 hi = unpack2<T>(q.y);
   v[0] = lo.x;
   v[1] = lo.y;
   v[2] = hi.x;
@@ -486,23 +493,23 @@ void launch_attn(const void* h1n, const void* keys, const void* mem_v, const voi
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 for every tensor but the biases (f32).
-// Requires H % 4 == 0 and every tensor 16-byte aligned.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 for every tensor but the
+// biases and mask_bias (f32); any other code is cudaErrorInvalidValue, in
+// every entry. Requires H % 4 == 0 and every tensor 16-byte aligned.
 extern "C" int vmmt_gru_chain(int dtype, const void* emb_proj, const void* h0,
                               const void* h1, const void* feed, const void* wfeed,
                               const void* wh0, const void* bh0, const void* wmid,
                               const void* bmid, const void* wh1, const void* bh1,
                               void* h0n, void* h1n, int N, int H, void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   if (H < 1 || H % kCellVec != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    launch_chain<__nv_bfloat16>(emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1,
-                                bh1, h0n, h1n, N, H, s);
-  } else {
-    launch_chain<float>(emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1, bh1, h0n,
-                        h1n, N, H, s);
-  }
+  by_dtype(dtype, [&](auto zero) {
+    launch_chain<decltype(zero)>(emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1, bh1,
+                                 h0n, h1n, N, H, s);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }
 
@@ -514,18 +521,17 @@ extern "C" int vmmt_decode_step(int dtype, const void* emb_proj, const void* h0,
                                 const void* keys, const void* mem_v, const void* wcq,
                                 const void* mask_bias, void* h0n, void* h1n, void* attn,
                                 void* probs, void* qw, int N, int S, int H, void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (N == 0) return 0;
   if (H < 1 || H % kCellVec != 0 || S < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    launch_chain<__nv_bfloat16>(emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1,
-                                bh1, h0n, h1n, N, H, s);
-    launch_attn<__nv_bfloat16>(h1n, keys, mem_v, wcq, mask_bias, attn, probs, qw, N, S, H, s);
-  } else {
-    launch_chain<float>(emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1, bh1, h0n,
-                        h1n, N, H, s);
-    launch_attn<float>(h1n, keys, mem_v, wcq, mask_bias, attn, probs, qw, N, S, H, s);
-  }
+  by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    launch_chain<T>(emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1, bh1, h0n, h1n, N,
+                    H, s);
+    launch_attn<T>(h1n, keys, mem_v, wcq, mask_bias, attn, probs, qw, N, S, H, s);
+    return 0;
+  });
   return (int)cudaGetLastError();
 }
 
@@ -541,5 +547,5 @@ extern "C" int vmmt_step_cell_occupancy(int dtype, int* ctas_per_sm, int* smem_b
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, cell_mma_kernel<T, true>,
                                                          kCellThreads, smem);
   };
-  return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
+  return by_dtype(dtype, query);
 }

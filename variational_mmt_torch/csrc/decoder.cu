@@ -5,7 +5,7 @@
 //   _dec_fwd_kernel (decoder_fwd_pallas, pallas_call at :153)
 //   _dec_bwd_kernel (decoder_bwd_pallas, pallas_call at :304)
 // Every tensor but the biases, mask_bias and the f32 streams is in one
-// compute dtype T (float or bfloat16). Per step t the forward computes
+// compute dtype T (float, bfloat16 or float16). Per step t the forward computes
 //   x0 = emb_proj[t] + feed @ Wfeed;      h0' = GRU(x0, h0 @ Wh0 + bh0, h0)
 //   x1 = (dmid[t] * h0') @ Wmid + bmid;   h1' = GRU(x1, h1 @ Wh1 + bh1, h1)
 //   probs = softmax(h1' . keys + mask_bias)
@@ -81,6 +81,11 @@
 // Both kernels take an optional probe buffer: thread 0 of CTA 0 writes
 // %globaltimer there at its start, after the prologue and as it arrives at
 // and leaves each grid barrier (tools/phase_times.py reads it).
+//
+// float16 takes bf16's path in both kernels (is_mma in tile_gemm.cuh: the
+// same mma.sync fragments with f16 operands, the same strides, tiling and
+// shared memory); what this file says of bf16 holds for both. mask_bias
+// stays f32 in every dtype: its -1e9 is -inf in float16.
 
 #include <cooperative_groups.h>
 
@@ -205,7 +210,7 @@ struct DecFwdLayout {
     ldw = frag_ld<T>(H);
     w3 = align16((size_t)3 * tile_rows<T>() * ldw * sizeof(T));
     w1 = align16((size_t)tile_rows<T>() * ldw * sizeof(T));
-    const int prod_rows = is_bf16<T>() ? max(kDecWarps * 16, rows) : rows;
+    const int prod_rows = is_mma<T>() ? max(kDecWarps * 16, rows) : rows;
     prod = (size_t)prod_rows * 4 * kDecUnitsMma * sizeof(float);
     carry = align16((size_t)rows * units * sizeof(float));
     gates = align16((size_t)rows * units * 3 * sizeof(float));
@@ -231,19 +236,21 @@ struct DecFwd {
   int B, T_len, S, H, units, unit_tiles, rows, ldx;
 };
 
-// Four values of T as one load: 8 bytes in bf16, 16 in f32
+// Four values of T as one load: 8 bytes in 16 bits, 16 in f32
 template <typename T>
-using Quad = typename std::conditional<is_bf16<T>(), uint2, float4>::type;
+using Quad = typename std::conditional<is_mma<T>(), uint2, float4>::type;
 
+template <typename T>
 __device__ __forceinline__ void unpack(const uint2& q, float (&v)[4]) {
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  const float2 lo = unpack2<T>(q.x);
+  const float2 hi = unpack2<T>(q.y);
   v[0] = lo.x;
   v[1] = lo.y;
   v[2] = hi.x;
   v[3] = hi.y;
 }
 
+template <typename T>
 __device__ __forceinline__ void unpack(const float4& q, float (&v)[4]) {
   v[0] = q.x;
   v[1] = q.y;
@@ -292,7 +299,7 @@ __device__ void attention_row(const DecFwd<T>& p, int n, int t, float* q_s, floa
           const int c = c0 + 32 * i;
           if (c < nq) {
             float v[4];
-            unpack(raw[a][i], v);
+            unpack<T>(raw[a][i], v);
 #pragma unroll
             for (int e = 0; e < 4; ++e) acc[a] += round_as<T>(q_s[4 * c + e] * v[e]);
           }
@@ -341,7 +348,7 @@ __device__ void attention_row(const DecFwd<T>& p, int n, int t, float* q_s, floa
       for (int b = 0; b < kCtxPos; ++b) {
         if (sb + b < s1) {
           float v[4];
-          unpack(raw[b], v);
+          unpack<T>(raw[b], v);
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[e] += round_as<T>(p_s[sb + b] * v[e]);
         }
@@ -605,10 +612,10 @@ struct DecLayout {
   int wrows, ld1, ld3, prod_rows;
   size_t w1, w3, prod, carry, attn, total;
   __host__ __device__ DecLayout(int rows, int S, int H, int units) {
-    wrows = is_bf16<T>() ? kDecUnitsMma : units;
+    wrows = is_mma<T>() ? kDecUnitsMma : units;
     ld1 = frag_ld<T>(H);
     ld3 = frag_ld<T>(3 * H);
-    prod_rows = is_bf16<T>() ? max(kDecWarps * 16, rows) : rows;  // >= kp * 16 * tiles
+    prod_rows = is_mma<T>() ? max(kDecWarps * 16, rows) : rows;  // >= kp * 16 * tiles
     w1 = align16((size_t)wrows * ld1 * sizeof(T));
     w3 = align16((size_t)wrows * ld3 * sizeof(T));
     prod = (size_t)prod_rows * kDecUnitsMma * sizeof(float);
@@ -941,19 +948,20 @@ int decoder_bwd(const T* emb_proj, const T* dmid, const float* h00, const float*
 
 }  // namespace
 
-// Checks the CTA tiling that a launch plan gives (units at most 8 in bf16,
-// 4 in f32; rows a multiple of 16; a CTA for every tile).
+// Checks the CTA tiling that a launch plan gives (units at most 8 in bf16
+// and f16, 4 in f32; rows a multiple of 16; a CTA for every tile).
 static bool valid_tiling(int dtype, int B, int H, int units, int rows, int grid) {
-  const int max_units = dtype == 1 ? kDecUnitsMma : kDecUnitsFma;
-  return units >= 1 && units <= max_units && rows >= 16 && rows % 16 == 0 &&
+  const int max_units = dtype == 0 ? kDecUnitsFma : kDecUnitsMma;
+  return known_dtype(dtype) && units >= 1 && units <= max_units && rows >= 16 && rows % 16 == 0 &&
          grid >= ((H + units - 1) / units) * ((B + rows - 1) / rows);
 }
 
 // Forward over the sequence in one persistent cooperative launch on `grid`
 // CTAs (co-resident, else an error), of which the first ceil(H / units) *
-// ceil(B / rows) each own `units` hidden units (at most 8 in bf16, 4 in
-// f32) of `rows` batch rows (a multiple of 16). dtype: 0 = float32, 1 =
-// bfloat16 for every tensor but h00, h01, the biases and mask_bias (f32).
+// ceil(B / rows) each own `units` hidden units (at most 8 in bf16 and f16,
+// 4 in f32) of `rows` batch rows (a multiple of 16). dtype: 0 = float32, 1 =
+// bfloat16, 2 = float16 for every tensor but h00, h01, the biases and
+// mask_bias (f32); any other code is cudaErrorInvalidValue, in every entry.
 // H a multiple of 4. emb_proj (B,T,3H), dmid (B,T,H), keys and mem_v
 // (B,S,H) 16-byte aligned, mask_bias (B,S);
 // writes attn_hs, h0s, h1s (B,T,H) and probs (B,T,S). Scratch: tscratch
@@ -968,6 +976,7 @@ extern "C" int vmmt_decoder_fwd(int dtype, const void* emb_proj, const void* dmi
                                 void* probs, void* tscratch, void* fscratch, void* probe, int B,
                                 int T_len, int S, int H, int units, int rows, int grid,
                                 void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
   if (!valid_tiling(dtype, B, H, units, rows, grid) || H % 4 != 0 ||
       reinterpret_cast<uintptr_t>(keys) % 16 != 0 || reinterpret_cast<uintptr_t>(mem_v) % 16 != 0)
@@ -987,7 +996,7 @@ extern "C" int vmmt_decoder_fwd(int dtype, const void* emb_proj, const void* dmi
         static_cast<T*>(tscratch), static_cast<float*>(fscratch),
         static_cast<unsigned long long*>(probe), B, T_len, S, H, units, rows, grid, s);
   };
-  const int err = dtype == 1 ? run(__nv_bfloat16{}) : run(float{});
+  const int err = by_dtype(dtype, run);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -996,13 +1005,11 @@ extern "C" int vmmt_decoder_fwd(int dtype, const void* emb_proj, const void* dmi
 // `rows` batch rows.
 extern "C" int vmmt_decoder_fwd_occupancy(int dtype, int rows, int S, int H, int units,
                                           int* max_blocks, int* smem_bytes) {
-  using B16 = __nv_bfloat16;
-  return (int)(dtype == 1 ? co_resident(decoder_fwd_kernel<B16>,
-                                        DecFwdLayout<B16>(rows, S, H, units).total, max_blocks,
-                                        smem_bytes)
-                          : co_resident(decoder_fwd_kernel<float>,
-                                        DecFwdLayout<float>(rows, S, H, units).total, max_blocks,
-                                        smem_bytes));
+  return by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    return co_resident(decoder_fwd_kernel<T>, DecFwdLayout<T>(rows, S, H, units).total,
+                       max_blocks, smem_bytes);
+  });
 }
 
 // Backward over the sequence in two launches: the hoisted gate products and
@@ -1023,6 +1030,7 @@ extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmi
                                 void* dscores, void* dh00, void* dh01, void* gates,
                                 void* fscratch, void* tscratch, void* probe, int B, int T_len,
                                 int S, int H, int units, int rows, int grid, void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
   if (!valid_tiling(dtype, B, H, units, rows, grid)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1046,7 +1054,7 @@ extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmi
         static_cast<T*>(tscratch), static_cast<unsigned long long*>(probe), B, T_len, S, H,
         units, rows, grid, s);
   };
-  const int err = dtype == 1 ? run(__nv_bfloat16{}) : run(float{});
+  const int err = by_dtype(dtype, run);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -1055,11 +1063,9 @@ extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmi
 // `rows` batch rows.
 extern "C" int vmmt_decoder_bwd_occupancy(int dtype, int rows, int S, int H, int units,
                                           int* max_blocks, int* smem_bytes) {
-  using B16 = __nv_bfloat16;
-  return (int)(dtype == 1 ? co_resident(decoder_bwd_kernel<B16>,
-                                        DecLayout<B16>(rows, S, H, units).total, max_blocks,
-                                        smem_bytes)
-                          : co_resident(decoder_bwd_kernel<float>,
-                                        DecLayout<float>(rows, S, H, units).total, max_blocks,
-                                        smem_bytes));
+  return by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    return co_resident(decoder_bwd_kernel<T>, DecLayout<T>(rows, S, H, units).total, max_blocks,
+                       smem_bytes);
+  });
 }

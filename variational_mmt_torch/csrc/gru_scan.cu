@@ -3,7 +3,7 @@
 // The forward replaces the Pallas kernel _gru_fwd_kernel of
 // variational_mmt_tpu/ops/pallas/gru.py (gru_layer_scan, pallas_call at
 // :165). Same contract: x_proj (B,T,3H) precomputed input projections in
-// the compute dtype T (float or bfloat16), mask (B,T) f32, h0 (B,H) f32,
+// the compute dtype T (float, bfloat16 or float16), mask (B,T) f32, h0 (B,H) f32,
 // Wh (H,3H) in T, bh (3H) f32. Gates [r|z|n] with the n-gate hidden bias
 // inside r*(h@Whn+bhn); state and gate math in f32; the product h@Wh takes
 // h rounded to T and accumulates in f32. A masked step passes the carry
@@ -120,6 +120,11 @@
 // dh0; a cell is read and written by the same thread of the same CTA every
 // step. Rows are not chunked: up to 256 a row tile, all row tiles in one
 // launch. Shared memory holds the product buffer only, whatever H.
+//
+// float16 takes bf16's path on every plan (is_mma in tile_gemm.cuh): the
+// same mma.sync m16n8k16 fragments with f16 operands, the same 2-byte
+// strides, tilings and shared memory. What this file says of bf16 holds
+// for both.
 
 #include <cooperative_groups.h>
 
@@ -162,7 +167,7 @@ struct FwdLayout {
   int ld, slots;
   size_t w, hb, buf, total;
   __host__ __device__ FwdLayout(int H, int slots_) : slots(slots_) {
-    ld = is_bf16<T>() ? slice_ld<T>(H) : H;
+    ld = is_mma<T>() ? slice_ld<T>(H) : H;
     buf = (size_t)slots * ld;  // elements of one state buffer
     w = align16((size_t)kFwdCols * ld * sizeof(T));
     hb = align16(2 * buf * sizeof(T));
@@ -170,7 +175,7 @@ struct FwdLayout {
   }
   // offset of (slot r, unit k) in a state buffer
   __host__ __device__ int at(int r, int k) const {
-    return is_bf16<T>() ? r * ld + k : k * slots + r;
+    return is_mma<T>() ? r * ld + k : k * slots + r;
   }
 };
 
@@ -180,7 +185,7 @@ struct FwdLayout {
 // 512 within it).
 template <typename T>
 int fwd_slots(int H, int rows) {
-  return !is_bf16<T>() && rows <= kFwdFewSlots && FwdLayout<T>(H, kFwdSlots).total > kSmemPerBlock
+  return !is_mma<T>() && rows <= kFwdFewSlots && FwdLayout<T>(H, kFwdSlots).total > kSmemPerBlock
              ? kFwdFewSlots
              : kFwdSlots;
 }
@@ -217,7 +222,7 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
   for (int i = tid; i < ld * kFwdCols; i += kFwdThreads) {
     const int k = i / kFwdCols, c = i % kFwdCols, g = c / kScanUnits, u = c % kScanUnits;
     const T v = u < nu && k < H ? wh[(size_t)k * H3 + g * H + j0 + u] : from_f<T>(0.f);
-    w_s[is_bf16<T>() ? c * ld + k : k * kFwdCols + c] = v;
+    w_s[is_mma<T>() ? c * ld + k : k * kFwdCols + c] = v;
   }
   // 1 - reset at (row, t)
   auto keep_at = [&](int row, int t) { return 1.f - reset[(size_t)row * T_len + t]; };
@@ -226,8 +231,8 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
   const int t_first = reverse ? T_len - 1 : 0;
   for (int i = tid; i < 2 * (int)L.buf; i += kFwdThreads) {
     const int b = i / (int)L.buf, e = i % (int)L.buf;
-    const int r = is_bf16<T>() ? e / ld : e % kSlots;
-    const int k = is_bf16<T>() ? e % ld : e / kSlots;
+    const int r = is_mma<T>() ? e / ld : e % kSlots;
+    const int k = is_mma<T>() ? e % ld : e / kSlots;
     const int row = row0 + r;
     const bool in = b == 0 && r < rows && row < B && k < H;
     float v = in ? h0[(size_t)row * H + k] : 0.f;
@@ -262,7 +267,7 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
     const T* hb = h_s + (step & 1) * L.buf;
 
     // red[part][c][slot] = sum over the part's k of hb[slot, k] Wh[k, c]
-    if constexpr (is_bf16<T>()) {
+    if constexpr (is_mma<T>()) {
       const int gq = lane >> 2, tq = lane & 3;
       const int ks = pad16(H) / 16;
       const T* db = hb + (size_t)gq * ld + 2 * tq;
@@ -275,7 +280,7 @@ gru_scan_fwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
           const int k = s * 16;
           const uint32_t a[4] = {pair_at(wa + k), pair_at(wa + 8 * ld + k), pair_at(wa + k + 8),
                                  pair_at(wa + 8 * ld + k + 8)};
-          mma_bf16(c4, a, pair_at(db + k), pair_at(db + k + 8));
+          mma16<T>(c4, a, pair_at(db + k), pair_at(db + k + 8));
         }
         float* red = red_s + ((size_t)part * kFwdCols + tile * 16 + gq) * kSlots + 2 * tq;
         red[0] = c4[0];
@@ -346,7 +351,7 @@ void allow_cluster(Kernel kernel, int cluster, size_t smem) {
 // rows (the instantiations have one function type).
 template <typename T>
 auto fwd_kernel(bool reset, int H, int rows) {
-  if constexpr (!is_bf16<T>()) {
+  if constexpr (!is_mma<T>()) {
     if (fwd_slots<T>(H, rows) == kFwdFewSlots)
       return reset ? gru_scan_fwd_kernel<T, true, kFwdFewSlots>
                    : gru_scan_fwd_kernel<T, false, kFwdFewSlots>;
@@ -399,12 +404,12 @@ struct ScanLayout {
   int wrows, ld;
   size_t w, dp, total;
   __host__ __device__ ScanLayout(int H, int units, int rows) {
-    wrows = is_bf16<T>() ? kScanUnits : units;
-    ld = is_bf16<T>() ? slice_ld<T>(3 * H) : 3 * H;
+    wrows = is_mma<T>() ? kScanUnits : units;
+    ld = is_mma<T>() ? slice_ld<T>(3 * H) : 3 * H;
     w = align16((size_t)wrows * ld * sizeof(T));
     dp = align16((size_t)2 * rows * ld * sizeof(T));
     total = w + dp + (size_t)2 * rows * units * sizeof(float) +
-            (is_bf16<T>() ? (size_t)kScanParts * kScanUnits * rows * sizeof(float) : 0);
+            (is_mma<T>() ? (size_t)kScanParts * kScanUnits * rows * sizeof(float) : 0);
   }
 };
 
@@ -605,7 +610,7 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
     cluster.sync();  // every slice of dh_proj has arrived
 
     // dh[r, u] = dh_part[r, u] + sum_c dp[r, c] Wh[j0 + u, c]
-    if constexpr (is_bf16<T>()) {
+    if constexpr (is_mma<T>()) {
       // mma: units are the 16 rows of a tile (two tiles), batch rows the 8
       // columns (kRows real); each pair of warps splits K in four
       const int gq = lane >> 2, tq = lane & 3, tile = warp & 1, part = warp >> 1;
@@ -620,7 +625,7 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
                                pair_at(wa + 8 * ld + k + 8)};
         const uint32_t b0 = gq < kRows ? pair_at(db + k) : 0u;
         const uint32_t b1 = gq < kRows ? pair_at(db + k + 8) : 0u;
-        mma_bf16(c4, a, b0, b1);
+        mma16<T>(c4, a, b0, b1);
       }
       if (tq < kRows / 2) {
         float* red = red_s + (size_t)part * kScanUnits * kRows;
@@ -675,7 +680,7 @@ gru_scan_bwd_kernel(const T* __restrict__ x_proj, const float* __restrict__ mask
 // `rows` rows: 4, or 2 in f32 (the instantiations have one function type).
 template <typename T>
 auto bwd_kernel(bool reset, int rows) {
-  if constexpr (!is_bf16<T>()) {
+  if constexpr (!is_mma<T>()) {
     if (rows == 2)
       return reset ? gru_scan_bwd_kernel<T, true, 2> : gru_scan_bwd_kernel<T, false, 2>;
   }
@@ -752,7 +757,7 @@ struct WideFwdLayout {
   __host__ __device__ WideFwdLayout(int H, int units, int rows, bool stream) {
     ldw = frag_ld<T>(H);
     w = stream ? 0 : align16((size_t)3 * tile_rows<T>() * ldw * sizeof(T));
-    const int prod_rows = is_bf16<T>() ? max(kDecWarps * 16, rows) : rows;
+    const int prod_rows = is_mma<T>() ? max(kDecWarps * 16, rows) : rows;
     prod = (size_t)prod_rows * 3 * kDecUnitsMma * sizeof(float);
     total = w + prod + (stream ? 0 : align16((size_t)rows * units * sizeof(float)));
   }
@@ -769,7 +774,7 @@ struct WideBwdLayout {
   __host__ __device__ WideBwdLayout(int H, int units, int rows, bool stream) {
     ldw = frag_ld<T>(3 * H);
     w = stream ? 0 : align16((size_t)tile_rows<T>() * ldw * sizeof(T));
-    const int prod_rows = is_bf16<T>() ? max(kDecWarps * 16, rows) : rows;
+    const int prod_rows = is_mma<T>() ? max(kDecWarps * 16, rows) : rows;
     prod = (size_t)prod_rows * kDecUnitsMma * sizeof(float);
     total = w + prod + (stream ? 0 : 2 * align16((size_t)rows * units * sizeof(float)));
   }
@@ -803,7 +808,7 @@ struct Wide {
 // that many an SM.
 template <typename T>
 struct WideBlocks {
-  static constexpr int kPerSm = is_bf16<T>() ? 1 : 2;
+  static constexpr int kPerSm = is_mma<T>() ? 1 : 2;
 };
 
 // One unit tile of one row tile: units [u0, u0 + nu) of rows [r0, r0 + nr).
@@ -1104,13 +1109,15 @@ Wide<T> wide_args(const void* x_proj, const void* mask, const void* reset, const
 // tile_rows, rows a multiple of 16, each launch's grid within the
 // co-resident CTAs.
 bool valid_wide(int dtype, int H, int units, int rows, int row_tiles, int ctas) {
-  const int tr = dtype == 1 ? kDecUnitsMma : kDecUnitsFma;
-  return H >= 1 && units == tr && rows >= 16 && rows % 16 == 0 && row_tiles >= 1 && ctas >= 1;
+  const int tr = dtype == 0 ? kDecUnitsFma : kDecUnitsMma;
+  return known_dtype(dtype) && H >= 1 && units == tr && rows >= 16 && rows % 16 == 0 &&
+         row_tiles >= 1 && ctas >= 1;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x_proj and Wh). Forward scan on
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x_proj and Wh); any
+// other code is cudaErrorInvalidValue, in every entry. Forward scan on
 // thread-block clusters of `cluster` CTAs, each owning `units` hidden units
 // (cluster * units >= H, units <= 32, cluster <= 16) of `rows` (<= 8)
 // batch rows. reset (B,T) f32 or null.
@@ -1118,16 +1125,16 @@ extern "C" int vmmt_gru_scan(int dtype, const void* x_proj, const void* mask,
                              const void* reset, const void* h0, const void* wh, const void* bh,
                              void* outs, void* final_h, int B, int T_len, int H,
                              int reverse, int cluster, int units, int rows, void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
   if (units < 1 || units > kScanUnits || cluster < 1 || cluster > kMaxCluster ||
       cluster * units < H || rows < 1 || rows > kFwdSlots)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err =
-      dtype == 1 ? launch_fwd<__nv_bfloat16>(x_proj, mask, reset, h0, wh, bh, outs, final_h, B,
-                                             T_len, H, reverse, cluster, units, rows, s)
-                 : launch_fwd<float>(x_proj, mask, reset, h0, wh, bh, outs, final_h, B, T_len, H,
-                                     reverse, cluster, units, rows, s);
+  const int err = by_dtype(dtype, [&](auto zero) {
+    return launch_fwd<decltype(zero)>(x_proj, mask, reset, h0, wh, bh, outs, final_h, B, T_len,
+                                      H, reverse, cluster, units, rows, s);
+  });
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -1136,7 +1143,8 @@ extern "C" int vmmt_gru_scan(int dtype, const void* x_proj, const void* mask,
 // that size), and the dynamic shared memory of one CTA.
 extern "C" int vmmt_gru_scan_occupancy(int dtype, int H, int cluster, int rows,
                                        int* max_clusters, int* smem_bytes) {
-  if (cluster < 1 || cluster > kMaxCluster || rows < 1 || rows > kFwdSlots)
+  if (!known_dtype(dtype) || cluster < 1 || cluster > kMaxCluster || rows < 1 ||
+      rows > kFwdSlots)
     return (int)cudaErrorInvalidValue;
   auto query = [&](auto zero) {
     using T = decltype(zero);
@@ -1146,7 +1154,7 @@ extern "C" int vmmt_gru_scan_occupancy(int dtype, int H, int cluster, int rows,
     *smem_bytes = (int)cfg.dynamicSmemBytes;
     return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
   };
-  return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
+  return by_dtype(dtype, query);
 }
 
 // Backward of vmmt_gru_scan on thread-block clusters of `cluster` CTAs,
@@ -1162,19 +1170,17 @@ extern "C" int vmmt_gru_scan_bwd(int dtype, const void* x_proj, const void* mask
                                  void* dbh, void* hp, void* dhn, void* partial, void* counters,
                                  int B, int T_len, int H, int reverse, int cluster, int units,
                                  int rows, int splits, void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
   if (units < 1 || units > kScanUnits || cluster < 1 || cluster > kMaxCluster ||
       cluster * units < H || splits < 1 || !(rows == kScanRows || (rows == 2 && dtype == 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err =
-      dtype == 1
-          ? launch_bwd<__nv_bfloat16>(x_proj, mask, reset, h0, wh, bh, outs, g, dx, dh0, dwh, dbh,
-                                      hp, dhn, partial, counters, B, T_len, H, reverse, cluster,
-                                      units, rows, splits, s)
-          : launch_bwd<float>(x_proj, mask, reset, h0, wh, bh, outs, g, dx, dh0, dwh, dbh, hp,
-                              dhn, partial, counters, B, T_len, H, reverse, cluster, units,
-                              rows, splits, s);
+  const int err = by_dtype(dtype, [&](auto zero) {
+    return launch_bwd<decltype(zero)>(x_proj, mask, reset, h0, wh, bh, outs, g, dx, dh0, dwh,
+                                      dbh, hp, dhn, partial, counters, B, T_len, H, reverse,
+                                      cluster, units, rows, splits, s);
+  });
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -1183,7 +1189,8 @@ extern "C" int vmmt_gru_scan_bwd(int dtype, const void* x_proj, const void* mask
 // that size), and the dynamic shared memory of one CTA.
 extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int units, int rows,
                                            int* max_clusters, int* smem_bytes) {
-  if (cluster < 1 || cluster > kMaxCluster || !(rows == kScanRows || (rows == 2 && dtype == 0)))
+  if (!known_dtype(dtype) || cluster < 1 || cluster > kMaxCluster ||
+      !(rows == kScanRows || (rows == 2 && dtype == 0)))
     return (int)cudaErrorInvalidValue;
   auto query = [&](auto zero) {
     using T = decltype(zero);
@@ -1194,11 +1201,11 @@ extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int un
     *smem_bytes = (int)cfg.dynamicSmemBytes;
     return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
   };
-  return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
+  return by_dtype(dtype, query);
 }
 
 // Wide and streamed forward (H > 512: the plans of ops/gru_scan.py): inputs
-// and outputs as vmmt_gru_scan's; CTAs of `units` units (8 in bf16, 4 in
+// and outputs as vmmt_gru_scan's; CTAs of `units` units (8 in bf16 and f16, 4 in
 // f32) and `rows` batch rows, row_tiles of them a launch, one cooperative
 // launch of at most `ctas` CTAs a chunk of rows * row_tiles rows. xch:
 // scratch of 2 * rows * row_tiles * pad32(H) elements of the compute dtype.
@@ -1210,6 +1217,7 @@ extern "C" int vmmt_gru_wide(int dtype, const void* x_proj, const void* mask, co
                              void* final_h, void* xch, const void* wt, int B, int T_len, int H,
                              int reverse, int units, int rows, int row_tiles, int ctas,
                              void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
   if (!valid_wide(dtype, H, units, rows, row_tiles, ctas)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1222,7 +1230,7 @@ extern "C" int vmmt_gru_wide(int dtype, const void* x_proj, const void* mask, co
     p.final_h = static_cast<float*>(final_h);
     return launch_wide<T>(0, p, row_tiles, ctas, s);
   };
-  const int err = dtype == 1 ? run(__nv_bfloat16{}) : run(float{});
+  const int err = by_dtype(dtype, run);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -1239,6 +1247,7 @@ extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask
                                  void* xch, const void* wt, int B, int T_len, int H, int reverse,
                                  int units, int rows, int row_tiles, int ctas, int splits,
                                  void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
   if (!valid_wide(dtype, H, units, rows, row_tiles, ctas) || splits < 1)
     return (int)cudaErrorInvalidValue;
@@ -1270,7 +1279,7 @@ extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask
     tile_gemm<T>(dw, s, splits, static_cast<float*>(partial), static_cast<int*>(counters));
     return 0;
   };
-  const int err = dtype == 1 ? run(__nv_bfloat16{}) : run(float{});
+  const int err = by_dtype(dtype, run);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
@@ -1279,11 +1288,11 @@ extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask
 // memory of one CTA, for CTAs of `units` units and `rows` batch rows.
 extern "C" int vmmt_gru_wide_occupancy(int dtype, int pass, int H, int units, int rows,
                                        int streamed, int* max_blocks, int* smem_bytes) {
-  if (pass != 0 && pass != 1) return (int)cudaErrorInvalidValue;
+  if (!known_dtype(dtype) || (pass != 0 && pass != 1)) return (int)cudaErrorInvalidValue;
   auto query = [&](auto zero) {
     using T = decltype(zero);
     return co_resident(wide_kernel<T>(pass, streamed != 0),
                        wide_smem<T>(pass, H, units, rows, streamed != 0), max_blocks, smem_bytes);
   };
-  return (int)(dtype == 1 ? query(__nv_bfloat16{}) : query(float{}));
+  return by_dtype(dtype, query);
 }

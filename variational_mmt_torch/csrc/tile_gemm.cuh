@@ -21,10 +21,10 @@
 //
 // A block of 128 threads computes a 64 x 64 tile in chunks of 32 along K,
 // loading the next chunk into registers (16 contiguous values of each
-// operand a thread) while it computes the current one. bfloat16 runs on the
-// tensor cores (mma.sync m16n8k16, bf16 inputs, f32 accumulators; 4 warps
-// of 32 x 32); float32 runs FMAs on the CUDA cores (8 x 4 outputs a
-// thread), never TF32. A product with few tiles and a long K (dWh) splits K
+// operand a thread) while it computes the current one. bfloat16 and
+// float16 run on the tensor cores (mma.sync m16n8k16, 16-bit inputs, f32
+// accumulators; 4 warps of 32 x 32); float32 runs FMAs on the CUDA cores
+// (8 x 4 outputs a thread), never TF32. A product with few tiles and a long K (dWh) splits K
 // over `splits` blocks a tile: each writes its partial tile, and the last
 // to finish (an atomic count a tile) adds the partials in split order, so
 // the result does not depend on which block finishes last.
@@ -45,52 +45,86 @@ constexpr int kGemmBN = 64;  // columns of a tile
 constexpr int kGemmBK = 32;  // reduction chunk
 constexpr int kGemmThreads = 128;
 
-// Shared-memory operand type and row stride: bf16 rows of 40 halves (20
+// Whether T is a 16-bit tensor-core type (bfloat16 or float16): its
+// products run mma.sync m16n8k16 on 2-byte operands with one fragment
+// layout; float32 runs FMAs. kernels.mma_dtype mirrors it for the launch
+// plans.
+template <typename T>
+__host__ __device__ constexpr bool is_mma() {
+  return std::is_same<T, __nv_bfloat16>::value || std::is_same<T, __half>::value;
+}
+
+// Shared-memory operand type and row stride: 16-bit rows of 40 halves (20
 // words) keep the mma fragment reads free of bank conflicts; f32 rows of 33.
 template <typename T>
 struct GemmSmem {
-  using S = float;
-  static constexpr int LD = kGemmBK + 1;
-};
-template <>
-struct GemmSmem<__nv_bfloat16> {
-  using S = __nv_bfloat16;
-  static constexpr int LD = kGemmBK + 8;
+  using S = T;
+  static constexpr int LD = is_mma<T>() ? kGemmBK + 8 : kGemmBK + 1;
 };
 
 // c += a b for one m16n8k16 tile: a row-major 16x16, b column-major 16x8,
-// both bf16; c 16x8 f32.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// both of T (bfloat16 or float16); c 16x8 f32.
+template <typename T>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1) {
+  static_assert(is_mma<T>(), "mma16 takes bfloat16 or float16");
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
-// two consecutive bf16 values as one 32-bit register (the lower address in
-// the low half, as mma.sync reads a pair)
-__device__ __forceinline__ uint32_t pair_at(const __nv_bfloat16* p) {
+// two consecutive 16-bit values as one 32-bit register (the lower address
+// in the low half, as mma.sync reads a pair)
+template <typename S>
+__device__ __forceinline__ uint32_t pair_at(const S* p) {
+  static_assert(sizeof(S) == 2, "pair_at reads 16-bit values");
   return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two f32 values rounded to a 16-bit T (to nearest even) as one 32-bit
+// register, the first in the low half.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    const __half2 p = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  } else {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&p);
+  }
+}
+
+// A 32-bit register of two 16-bit T values as two f32 values.
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t w) {
+  if constexpr (std::is_same<T, __half>::value) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&w));
+  } else {
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+  }
 }
 
 __host__ __device__ inline size_t align16(size_t n) { return (n + 15) & ~(size_t)15; }
 
-template <typename T>
-__host__ __device__ constexpr bool is_bf16() {
-  return std::is_same<T, __nv_bfloat16>::value;
-}
-
 __host__ __device__ int pad16(int k) { return (k + 15) & ~15; }
 
-// Row stride of an mma operand held whole in shared memory: bf16 rows of K
+// Row stride of an mma operand held whole in shared memory: 16-bit rows of K
 // (padded to 16) whose length in 32-bit words is 4 more than a multiple of
 // 32, so that the eight rows a fragment reads fall in distinct banks.
 template <typename T>
 __host__ __device__ int slice_ld(int K) {
   const int k = pad16(K);
-  return is_bf16<T>() ? k + (72 - k % 64) % 64 : k;
+  return is_mma<T>() ? k + (72 - k % 64) % 64 : k;
 }
 
 template <typename Op, int NOps>
@@ -101,14 +135,11 @@ struct OpArray {
 // Stores 16 values as T at dst[0..15] (contiguous) or dst[0], dst[ld], ...
 template <typename S>
 __device__ __forceinline__ void stash16(S* dst, int ld, bool contiguous, const float (&v)[16]) {
-  if constexpr (is_bf16<S>()) {
+  if constexpr (is_mma<S>()) {
     if (contiguous) {
       uint32_t w[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const __nv_bfloat162 p = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
-        w[i] = *reinterpret_cast<const uint32_t*>(&p);
-      }
+      for (int i = 0; i < 8; ++i) w[i] = pack2<S>(v[2 * i], v[2 * i + 1]);
       reinterpret_cast<uint4*>(dst)[0] = make_uint4(w[0], w[1], w[2], w[3]);
       reinterpret_cast<uint4*>(dst)[1] = make_uint4(w[4], w[5], w[6], w[7]);
       return;
@@ -119,7 +150,7 @@ __device__ __forceinline__ void stash16(S* dst, int ld, bool contiguous, const f
 }
 
 // Loads n (at most 16) contiguous values from p, zero after them; a full
-// segment at an aligned address in 16-byte (f32) or 4-byte (bf16) words.
+// segment at an aligned address in 16-byte (f32) or 4-byte (16-bit) words.
 __device__ __forceinline__ void seg_load(const float* __restrict__ p, int n, float (&v)[16]) {
   if (n == 16 && (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
 #pragma unroll
@@ -136,12 +167,13 @@ __device__ __forceinline__ void seg_load(const float* __restrict__ p, int n, flo
   for (int i = 0; i < 16; ++i) v[i] = i < n ? p[i] : 0.f;
 }
 
-__device__ __forceinline__ void seg_load(const __nv_bfloat16* __restrict__ p, int n,
-                                         float (&v)[16]) {
+template <typename S>
+__device__ __forceinline__ void seg_load(const S* __restrict__ p, int n, float (&v)[16]) {
+  static_assert(is_mma<S>(), "seg_load of a 16-bit type");
   if (n == 16 && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float2 q = __bfloat1622float2(reinterpret_cast<const __nv_bfloat162*>(p)[i]);
+      const float2 q = unpack2<S>(reinterpret_cast<const uint32_t*>(p)[i]);
       v[2 * i] = q.x;
       v[2 * i + 1] = q.y;
     }
@@ -191,7 +223,7 @@ tile_gemm_kernel(OpArray<Op, NOps> ops, int splits, float* partial, int* counter
   const int gq = lane >> 2, tq = lane & 3;  // mma fragment row group, pair index
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   auto at = [&](int e, int& m, int& n) {
-    if constexpr (is_bf16<T>()) {
+    if constexpr (is_mma<T>()) {
       // e = (mi * 4 + ni) * 4 + c, c the mma accumulator index
       m = m0 + wm + (e >> 4) * 16 + gq + ((e >> 1) & 1) * 8;
       n = n0 + wn + ((e >> 2) & 3) * 8 + 2 * tq + (e & 1);
@@ -206,7 +238,7 @@ tile_gemm_kernel(OpArray<Op, NOps> ops, int splits, float* partial, int* counter
     stash();
     __syncthreads();
     if (c + 1 < c1) fetch(c + 1);
-    if constexpr (is_bf16<T>()) {
+    if constexpr (is_mma<T>()) {
 #pragma unroll
       for (int kk = 0; kk < kGemmBK; kk += 16) {
         uint32_t a[2][4];
@@ -227,7 +259,7 @@ tile_gemm_kernel(OpArray<Op, NOps> ops, int splits, float* partial, int* counter
           for (int mi = 0; mi < 2; ++mi) {
             float* c4 = &acc[(mi * 4 + ni) * 4];
             float cc[4] = {c4[0], c4[1], c4[2], c4[3]};
-            mma_bf16(cc, a[mi], b0, b1);
+            mma16<T>(cc, a[mi], b0, b1);
             c4[0] = cc[0];
             c4[1] = cc[1];
             c4[2] = cc[2];

@@ -89,7 +89,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
 }
 
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the compute dtypes the entry points take (``known_dtype`` and ``by_dtype``
+# of csrc/common.cuh); every entry returns an error for any other code
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SMEM_PER_BLOCK = 232_448  # dynamic shared memory one block may use on an H100 (227 KB)
 
 
@@ -101,13 +103,21 @@ def pad32(k: int) -> int:
     return (k + 31) & ~31
 
 
-def frag_ld(k: int, bf16: bool) -> int:
+def mma_dtype(dtype: torch.dtype) -> bool:
+    """Whether the kernels run ``dtype``'s products on the tensor cores
+    (mma.sync on 2-byte operands: bfloat16 and float16) rather than FMAs
+    (float32): ``is_mma`` of csrc/tile_gemm.cuh, which every launch plan's
+    tiling and shared-memory count must follow."""
+    return dtype in (torch.bfloat16, torch.float16)
+
+
+def frag_ld(k: int, mma: bool) -> int:
     """Row stride of a weight slice that ``block_product`` reads from
     shared memory (``frag_ld`` of csrc/block_product.cuh): K padded to 32
-    and, in bf16, to an odd multiple of 64 bytes for conflict-free 16-byte
-    reads."""
+    and, for mma operands (:func:`mma_dtype`), to an odd multiple of 64
+    bytes for conflict-free 16-byte reads."""
     k = pad32(k)
-    return k + (96 - k % 64) % 64 if bf16 else k
+    return k + (96 - k % 64) % 64 if mma else k
 
 
 def _nvcc() -> str:
@@ -169,6 +179,15 @@ def library(name: str) -> ctypes.CDLL:
     lib.vmmt_error_string.argtypes = [ctypes.c_int]
     lib.vmmt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def dtype_code(what: str, dtype: torch.dtype) -> int:
+    """The entry points' code of a compute dtype, or TypeError before any
+    launch for a dtype they do not take."""
+    if dtype not in DTYPE_CODE:
+        raise TypeError(f"{what} kernel: dtype {dtype}; the kernels take float32, bfloat16 "
+                        "or float16")
+    return DTYPE_CODE[dtype]
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

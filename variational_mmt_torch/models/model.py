@@ -54,16 +54,13 @@ from variational_mmt_torch.models.latent import (ConditionalPrior, ImagePredicto
                                                  reparameterize)
 from variational_mmt_torch.models.layers import Dense, Embed
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def check_supported(c: ModelConfig) -> None:
-    """Validate ``c`` and raise NotImplementedError for a compute dtype
-    the port does not run (float16)."""
+    """Validate ``c``: every compute dtype of the JAX package (``DTYPES``)
+    runs on the port."""
     c.validate()
-    if c.compute_dtype not in DTYPES:
-        raise NotImplementedError(f"not ported yet: compute_dtype={c.compute_dtype} (the "
-                                  "port computes in float32 or bfloat16)")
 
 
 class VMMTModel(nn.Module):

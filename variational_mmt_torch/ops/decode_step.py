@@ -154,18 +154,17 @@ def step_cell_plan(N: int, H: int, dtype: torch.dtype) -> dict:
     64 rows x 32 units, with ``smem`` bytes of dynamic shared memory per CTA
     (mirrors ``CellSmem`` of csrc/decode_step.cu: two stages of K chunks of
     the two row operands (64, 32) and the two weights' (32, 96) column
-    blocks, rows padded to 40 and 104 halves in bf16, 36 and 100 floats in
-    f32; then the epilogue's tile of xbase (64, 96) and h (64, 32) and two
+    blocks, rows padded to 40 and 104 halves in bf16 and f16, 36 and 100
+    floats in f32; then the epilogue's tile of xbase (64, 96) and h (64, 32) and two
     bias rows of 96 floats). Raises NotImplementedError for H < 1."""
-    if dtype not in kernels.DTYPE_CODE:
-        raise TypeError(f"decode_step kernel: dtype {dtype}")
+    kernels.dtype_code("decode_step", dtype)
     if H < 1:
         raise NotImplementedError(f"decode_step kernel: hidden {H}")
     H = padded_width(H)
-    bf16 = dtype == torch.bfloat16
+    mma = kernels.mma_dtype(dtype)
     rows = CELL_ROWS
-    lda, ldw = (CELL_BK + 8, 3 * CELL_UNITS + 8) if bf16 else (CELL_BK + 4, 3 * CELL_UNITS + 4)
-    stages, tsize, cols = 2, (2 if bf16 else 4), 3 * CELL_UNITS
+    lda, ldw = (CELL_BK + 8, 3 * CELL_UNITS + 8) if mma else (CELL_BK + 4, 3 * CELL_UNITS + 4)
+    stages, tsize, cols = 2, dtype.itemsize, 3 * CELL_UNITS
     smem = (stages * (2 * rows * lda + 2 * CELL_BK * ldw) * tsize
             + rows * (cols + CELL_UNITS) * tsize + 2 * cols * 4)
     grid = (-(-H // CELL_UNITS), -(-N // rows))
@@ -201,8 +200,7 @@ def _chain_args(what, *chain):
     N, H3 = emb_proj.shape
     H = H3 // 3
     dt = Wfeed.dtype
-    if dt not in kernels.DTYPE_CODE:
-        raise TypeError(f"{what} kernel: weights must be float32 or bfloat16, got {dt}")
+    kernels.dtype_code(what, dt)
     for i in (0, 1, 2, 3, 5, 7, 9):
         if chain[i].dtype != dt:
             raise TypeError(f"{what} kernel: {_CHAIN_NAMES[i]} is {chain[i].dtype}; every "

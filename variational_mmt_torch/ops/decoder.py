@@ -19,7 +19,7 @@ Each pass is one persistent cooperative kernel that walks time in four
 phases a step separated by grid barriers. Each CTA owns a few hidden units
 of a tile of batch rows and keeps the units' slices of the five weights in
 shared memory for the whole call, in place of re-reading the weights from
-L2 at every step; the products (mma.sync in bf16) read the other CTAs'
+L2 at every step; the products (mma.sync in bf16 and f16) read the other CTAs'
 rounded results from L2, which bounds the phases.
 :func:`decoder_fwd_plan` and :func:`decoder_bwd_plan` size the grid to the
 card's SMs and the shared memory and refuse what the design cannot hold;
@@ -34,7 +34,7 @@ then ``hp0`` of the next step.
 
 Backward, two launches (a chain of small kernels would take 8 a step and 5
 weight transposes, 205 at T=25). The cells' four gate products read only
-saved forward streams, so one tiled product (tensor cores in bf16)
+saved forward streams, so one tiled product (tensor cores in bf16 and f16)
 computes them for every (row, t) first. Then the persistent kernel walks
 time in reverse (attention backward; GRU1's cell backward; GRU0's; the
 products into dh0 and dfeed); two of its CTAs fit an SM at the flagship's
@@ -172,8 +172,7 @@ def _kernel_args(what, args):
     H = H3 // 3
     S = named["keys"].shape[1]
     dt = named["Wfeed"].dtype
-    if dt not in kernels.DTYPE_CODE:
-        raise TypeError(f"{what} kernel: weights must be float32 or bfloat16, got {dt}")
+    kernels.dtype_code(what, dt)
     shapes = dict(emb_proj=(B, T, H3), dmid=(B, T, H), h00=(B, H), h01=(B, H), Wfeed=(H, H3),
                   Wh0=(H, H3), bh0=(H3,), Wmid=(H, H3), bmid=(H3,), Wh1=(H, H3), bh1=(H3,),
                   keys=(B, S, H), mem_v=(B, S, H), Wc_q=(H, H))
@@ -237,7 +236,8 @@ def decoder_fwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     return tuple(unpad_units(o, H0, H) for o in outs[:3]) + (outs[3],)
 
 
-DEC_UNITS = {torch.bfloat16: 8, torch.float32: 4}  # hidden units per CTA, both passes
+# hidden units per CTA, both passes (tile_rows of csrc/block_product.cuh)
+DEC_UNITS = {torch.bfloat16: 8, torch.float16: 8, torch.float32: 4}
 DEC_WARPS = 8  # warps of a CTA (kDecWarps of csrc/decoder.cu)
 DEC_PHASES = 4  # grid-barrier phases of a step (kDecPhases)
 
@@ -254,8 +254,7 @@ def _tiling(what: str, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     halve what each CTA reads of the other CTAs' results, as long as the
     tiles stay within a CTA an SM); the grid also has a CTA for each batch
     row up to one an SM, for the attention phase."""
-    if dtype not in DEC_UNITS:
-        raise TypeError(f"{what} kernel: dtype {dtype}")
+    kernels.dtype_code(what, dtype)
     if B < 1 or H < 1:
         raise NotImplementedError(f"{what} kernel: B={B}, H={H}")
     units = DEC_UNITS[dtype]
@@ -278,23 +277,23 @@ def decoder_fwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> di
     """Launch plan of the forward's persistent kernel on a card of ``sms``
     SMs: the tiling of :func:`_tiling` and ``smem`` bytes of dynamic shared
     memory per CTA: the units' gate columns of Wfeed, Wh0, Wmid and Wh1
-    (three n-tiles of 8 columns in bf16, 4 in f32) and columns of Wc_q (one
+    (three n-tiles of 8 columns in bf16 and f16, 4 in f32) and columns of Wc_q (one
     n-tile), each a (columns, K) slice at the padded stride; the product
     buffer (4 n-tiles of 8 floats a row, with room for 8 warps' K-split
-    partial sums of 16 rows in bf16); the f32 carries h0, h1, qw (rows,
+    partial sums of 16 rows in 16 bits); the f32 carries h0, h1, qw (rows,
     units); the hidden products hp0, hp1 (rows, units, 3); the attention
     row (3H + S floats). Mirrors ``DecFwdLayout`` of csrc/decoder.cu. At the
-    flagship's width a bf16 CTA takes about 141 KB, one an SM. Planned at
+    flagship's width a bf16 or f16 CTA takes about 141 KB, one an SM. Planned at
     the padded width ``padded`` (the wrapper pads H to a multiple of 4).
     Raises NotImplementedError for what the design cannot hold."""
     H = padded_width(H)
     plan = _tiling("decoder_fwd", B, H, dtype, sms)
-    bf16 = dtype == torch.bfloat16
-    tsize = torch.finfo(dtype).bits // 8
+    mma = kernels.mma_dtype(dtype)
+    tsize = dtype.itemsize
     rows, units = plan["rows"], plan["units"]
-    tile = 8 if bf16 else 4
-    ldw = kernels.frag_ld(H, bf16)
-    prod_rows = max(DEC_WARPS * 16, rows) if bf16 else rows
+    tile = 8 if mma else 4
+    ldw = kernels.frag_ld(H, mma)
+    prod_rows = max(DEC_WARPS * 16, rows) if mma else rows
     a16 = kernels.align16
     smem = (4 * a16(3 * tile * ldw * tsize) + a16(tile * ldw * tsize) + prod_rows * 4 * 8 * 4
             + 3 * a16(rows * units * 4) + 2 * a16(rows * units * 3 * 4) + a16((3 * H + S) * 4))
@@ -305,20 +304,20 @@ def decoder_bwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> di
     """Launch plan of the backward's persistent kernel on a card of ``sms``
     SMs: the tiling of :func:`_tiling` and ``smem`` bytes of dynamic shared
     memory per CTA: the units' rows of Wc_q, Wh1, Wmid, Wh0 and Wfeed (rows
-    padded to 32, bf16 ones to an odd multiple of 64 bytes for
+    padded to 32, 16-bit ones to an odd multiple of 64 bytes for
     conflict-free 16-byte reads), the product buffer, two (rows, units)
     carries and the attention row. Mirrors ``DecLayout`` of
     csrc/decoder.cu. Planned at the padded width ``padded``, as the
     forward. Raises NotImplementedError for what the design cannot hold."""
     H = padded_width(H)
     plan = _tiling("decoder_bwd", B, H, dtype, sms)
-    bf16 = dtype == torch.bfloat16
-    tsize = torch.finfo(dtype).bits // 8
+    mma = kernels.mma_dtype(dtype)
+    tsize = dtype.itemsize
     rows, units = plan["rows"], plan["units"]
-    wrows = 8 if bf16 else units
-    prod_rows = max(DEC_WARPS * 16, rows) if bf16 else rows
-    smem = (kernels.align16(wrows * kernels.frag_ld(H, bf16) * tsize)
-            + 4 * kernels.align16(wrows * kernels.frag_ld(3 * H, bf16) * tsize)
+    wrows = 8 if mma else units
+    prod_rows = max(DEC_WARPS * 16, rows) if mma else rows
+    smem = (kernels.align16(wrows * kernels.frag_ld(H, mma) * tsize)
+            + 4 * kernels.align16(wrows * kernels.frag_ld(3 * H, mma) * tsize)
             + prod_rows * 8 * 4 + 2 * kernels.align16(rows * units * 4)
             + kernels.align16((H + 2 * S) * 4))
     return dict(plan, padded=H, smem=_checked_smem("decoder_bwd", smem, B, S, H))

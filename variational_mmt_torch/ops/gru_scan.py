@@ -92,9 +92,13 @@ The carries move to global memory (the forward reads h back from its own
 ``outs``, the backward keeps dh in ``dh0``), so a CTA's shared memory is
 its product buffer alone, whatever H. All row tiles run in one launch.
 
-Widths. Both kernels take every H >= 1 in bf16 and f32
+Widths. Both kernels take every H >= 1 in f32, bf16 and f16
 (:func:`scan_kernel_holds`): clusters up to 512 units, the wide plan to
 1024, the streamed plan above, as the Pallas scan takes any H.
+
+float16 takes bf16's path on every plan (``kernels.mma_dtype``: the same
+mma.sync tiling, strides and shared memory with f16 operands); what is
+said of bf16 here holds for both.
 """
 
 from __future__ import annotations
@@ -141,7 +145,7 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
                    Wh: torch.Tensor, bh: torch.Tensor, reverse: bool = False,
                    reset: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One GRU layer over the sequence. x_proj (B,T,3H) and Wh (H,3H) in
-    one dtype (float32 or bfloat16); mask (B,T), reset (B,T) or None, h0
+    one dtype (float32, bfloat16 or float16); mask (B,T), reset (B,T) or None, h0
     (B,H) and bh (3H,) are taken as f32. Returns (outs (B,T,H) f32, final
     (B,H) f32).
 
@@ -153,9 +157,10 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     B, T, H3 = x_proj.shape
     H = H3 // 3
     dt = Wh.dtype
-    if dt not in kernels.DTYPE_CODE or x_proj.dtype != dt:
-        raise TypeError(f"gru_layer_scan kernel: x_proj {x_proj.dtype} and Wh {dt} "
-                        "must both be float32 or both bfloat16")
+    kernels.dtype_code("gru_layer_scan", dt)
+    if x_proj.dtype != dt:
+        raise TypeError(f"gru_layer_scan kernel: x_proj {x_proj.dtype} and Wh {dt} must "
+                        "have one dtype")
     if tuple(Wh.shape) != (H, H3) or tuple(mask.shape) != (B, T) or tuple(h0.shape) != (B, H) \
             or tuple(bh.shape) != (H3,) or (reset is not None and tuple(reset.shape) != (B, T)):
         raise ValueError("gru_layer_scan kernel: shapes do not match x_proj (B,T,3H)")
@@ -307,8 +312,9 @@ SCAN_FWD_SMALL_ROWS = 4  # rows per cluster while the grid stays within one CTA 
 # 512: the widest a cluster holds
 SCAN_CLUSTER_MAX_HIDDEN = SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS
 SCAN_WIDE_MAX_HIDDEN = 1024  # the widest the wide plan takes; the streamed plan above
-SCAN_WIDE_UNITS = {torch.bfloat16: 8, torch.float32: 4}  # units of a wide CTA (tile_rows)
-SCAN_WIDE_PER_SM = {torch.bfloat16: 1, torch.float32: 2}  # CTAs an SM (WideBlocks::kPerSm)
+# units of a wide CTA (tile_rows) and CTAs an SM (WideBlocks::kPerSm)
+SCAN_WIDE_UNITS = {torch.bfloat16: 8, torch.float16: 8, torch.float32: 4}
+SCAN_WIDE_PER_SM = {torch.bfloat16: 1, torch.float16: 1, torch.float32: 2}
 SCAN_WIDE_MAX_ROWS = 256  # batch rows of a wide CTA; more rows run in chunks
 SCAN_WIDE_WARPS = 8  # warps of a wide CTA (kDecWarps of csrc/block_product.cuh)
 H100_SMS = 132  # SMs of an H100 SXM: what scan_kernel_holds, a pure function, plans for
@@ -316,7 +322,7 @@ SMEM_PER_SM = 233_472  # shared memory of an H100 SM, 1 KB of it reserved per CT
 
 
 def _mma_ld(k: int) -> int:
-    """Row stride, in bf16 elements, of an mma operand of k columns held in
+    """Row stride, in 16-bit elements, of an mma operand of k columns held in
     shared memory (``slice_ld`` of csrc/tile_gemm.cuh): k padded to 16, then
     to 4 words more than a multiple of 32 so that fragment reads miss no
     bank."""
@@ -338,34 +344,34 @@ def _cluster_units(what: str, H: int) -> Tuple[int, int]:
 def _fwd_smem(H: int, dtype: torch.dtype, rows: int) -> int:
     """Shared memory of a forward CTA (``FwdLayout`` and ``fwd_slots``):
     the CTA's 96 gate-unit columns of Wh and two state buffers of 8 row
-    slots in the compute dtype, bf16 rows at the mma stride; the K-split
+    slots in the compute dtype, 16-bit rows at the mma stride; the K-split
     partial products in f32. In f32 4 slots where clusters of at most 4 rows
     would not fit with 8 (H > 448)."""
-    bf16 = dtype == torch.bfloat16
-    tsize = torch.finfo(dtype).bits // 8
-    ld = _mma_ld(H) if bf16 else H
+    mma = kernels.mma_dtype(dtype)
+    tsize = dtype.itemsize
+    ld = _mma_ld(H) if mma else H
     cols = 3 * SCAN_BWD_UNITS
 
     def smem(slots: int) -> int:
         return (kernels.align16(cols * ld * tsize) + kernels.align16(2 * slots * ld * tsize)
                 + SCAN_FWD_PARTS * cols * slots * 4)
 
-    if not bf16 and rows <= SCAN_FWD_FEW_SLOTS and smem(SCAN_FWD_SLOTS) > kernels.SMEM_PER_BLOCK:
+    if not mma and rows <= SCAN_FWD_FEW_SLOTS and smem(SCAN_FWD_SLOTS) > kernels.SMEM_PER_BLOCK:
         return smem(SCAN_FWD_FEW_SLOTS)
     return smem(SCAN_FWD_SLOTS)
 
 
 def _bwd_smem(H: int, dtype: torch.dtype, units: int, rows: int) -> int:
     """Shared memory of a backward scan CTA (``ScanLayout``): its rows of Wh
-    and two ``dh_proj`` buffers of ``rows`` rows in the compute dtype, bf16
-    rows at the mma stride; dh, dh_part and, in bf16, the warps' partial
+    and two ``dh_proj`` buffers of ``rows`` rows in the compute dtype, 16-bit
+    rows at the mma stride; dh, dh_part and, in 16 bits, the warps' partial
     products in f32."""
-    bf16 = dtype == torch.bfloat16
-    tsize = torch.finfo(dtype).bits // 8
-    wrows, ld = (SCAN_BWD_UNITS, _mma_ld(3 * H)) if bf16 else (units, 3 * H)
+    mma = kernels.mma_dtype(dtype)
+    tsize = dtype.itemsize
+    wrows, ld = (SCAN_BWD_UNITS, _mma_ld(3 * H)) if mma else (units, 3 * H)
     return (kernels.align16(wrows * ld * tsize) + kernels.align16(2 * rows * ld * tsize)
             + 2 * rows * units * 4
-            + (SCAN_BWD_WARPS // 2 * SCAN_BWD_UNITS * rows * 4 if bf16 else 0))
+            + (SCAN_BWD_WARPS // 2 * SCAN_BWD_UNITS * rows * 4 if mma else 0))
 
 
 def _bwd_rows(H: int, dtype: torch.dtype, units: int) -> int:
@@ -382,24 +388,24 @@ def _wide_smem(pass_: int, H: int, dtype: torch.dtype, rows: int,
     and ``WideBwdLayout`` of csrc/gru_scan.cu). Forward: its units' three
     gate columns of Wh as (3 tile rows, K) slices at the padded stride, the
     product buffer (3 n-tiles of 8 floats a row, room for 8 warps' K-split
-    partial sums of 16 rows in bf16) and the f32 carry. Backward: its units'
+    partial sums of 16 rows in 16 bits) and the f32 carry. Backward: its units'
     rows of Wh (K = 3H), one n-tile of product and the f32 dh and dh_part.
     ``streamed``: the product buffer alone."""
-    bf16 = dtype == torch.bfloat16
-    tsize = torch.finfo(dtype).bits // 8
+    mma = kernels.mma_dtype(dtype)
+    tsize = dtype.itemsize
     units = SCAN_WIDE_UNITS[dtype]
-    prod_rows = max(SCAN_WIDE_WARPS * 16, rows) if bf16 else rows
+    prod_rows = max(SCAN_WIDE_WARPS * 16, rows) if mma else rows
     carry = 0 if streamed else kernels.align16(rows * units * 4)
     if pass_ == 0:
-        w = 0 if streamed else kernels.align16(3 * units * kernels.frag_ld(H, bf16) * tsize)
+        w = 0 if streamed else kernels.align16(3 * units * kernels.frag_ld(H, mma) * tsize)
         return w + prod_rows * 3 * 8 * 4 + carry
-    w = 0 if streamed else kernels.align16(units * kernels.frag_ld(3 * H, bf16) * tsize)
+    w = 0 if streamed else kernels.align16(units * kernels.frag_ld(3 * H, mma) * tsize)
     return w + prod_rows * 8 * 4 + 2 * carry
 
 
 def _wide_plan(what: str, pass_: int, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     """The wide plan of pass 0 (forward) or 1 (backward): ``unit_tiles``
-    CTAs of ``units`` units (8 in bf16, 4 in f32) times ``row_tiles`` of
+    CTAs of ``units`` units (8 in bf16 and f16, 4 in f32) times ``row_tiles`` of
     ``rows`` batch rows (a multiple of 16, at most 256; row tiles halve
     what each CTA reads of the state, as long as the grid stays within a
     CTA an SM), ``grid`` CTAs a launch, ``chunks`` launches a call."""
@@ -421,7 +427,7 @@ def _wide_plan(what: str, pass_: int, B: int, H: int, dtype: torch.dtype, sms: i
 
 def _stream_plan(pass_: int, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     """The streamed plan of pass 0 (forward) or 1 (backward): ``unit_tiles``
-    of ``units`` units (8 in bf16, 4 in f32) times ``row_tiles`` of ``rows``
+    of ``units`` units (8 in bf16 and f16, 4 in f32) times ``row_tiles`` of ``rows``
     batch rows (a multiple of 16, at most 256), all in one launch
     (``chunks`` 1) of ``grid`` CTAs, as many as the card holds at once
     (``SCAN_WIDE_PER_SM`` an SM) or as there are tiles; each CTA takes
@@ -447,12 +453,12 @@ def _stream_weights(Wh: torch.Tensor, pass_: int, plan: dict) -> torch.Tensor:
     frag_ld(H)); backward: Wh's rows, (unit_tiles * units, frag_ld(3H))."""
     H = Wh.shape[0]
     units, ut = plan["units"], plan["unit_tiles"]
-    bf16 = Wh.dtype == torch.bfloat16
+    mma = kernels.mma_dtype(Wh.dtype)
     if pass_ == 1:
-        wt = Wh.new_zeros((ut * units, kernels.frag_ld(3 * H, bf16)))
+        wt = Wh.new_zeros((ut * units, kernels.frag_ld(3 * H, mma)))
         wt[:H, :3 * H] = Wh
         return wt
-    cols = Wh.new_zeros((3, ut * units, kernels.frag_ld(H, bf16)))
+    cols = Wh.new_zeros((3, ut * units, kernels.frag_ld(H, mma)))
     cols[:, :H, :H] = Wh.view(H, 3, H).permute(1, 2, 0)  # [gate, unit, k] = Wh[k, gate*H+unit]
     return cols.view(3, ut, units, -1).transpose(0, 1).contiguous()
 
@@ -492,8 +498,7 @@ def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     448). From 513 to 1024 units the wide plan (:func:`_wide_plan`), above
     the streamed plan (:func:`_stream_plan`). Raises NotImplementedError
     for what the design cannot hold."""
-    if dtype not in kernels.DTYPE_CODE:
-        raise TypeError(f"gru_layer_scan kernel: dtype {dtype}")
+    kernels.dtype_code("gru_layer_scan", dtype)
     if H > SCAN_WIDE_MAX_HIDDEN:
         return _stream_plan(0, B, H, dtype, sms)
     if H > SCAN_CLUSTER_MAX_HIDDEN:
@@ -524,8 +529,7 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SM
     split over ``dwh_splits`` blocks along K = B*T (1 on the wide and
     streamed plans, whose 243 or more tiles fill the card). Raises
     NotImplementedError for what the design cannot hold."""
-    if dtype not in kernels.DTYPE_CODE:
-        raise TypeError(f"gru_layer_scan_bwd kernel: dtype {dtype}")
+    kernels.dtype_code("gru_layer_scan_bwd", dtype)
     dwh_tiles = -(-H // 64) * -(-3 * H // 64)
     if H > SCAN_WIDE_MAX_HIDDEN:
         return dict(_stream_plan(1, B, H, dtype, sms), dwh_tiles=dwh_tiles, dwh_splits=1)
@@ -558,9 +562,10 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     B, T, H3 = x_proj.shape
     H = H3 // 3
     dt = Wh.dtype
-    if dt not in kernels.DTYPE_CODE or x_proj.dtype != dt:
-        raise TypeError(f"gru_layer_scan_bwd kernel: x_proj {x_proj.dtype} and Wh {dt} "
-                        "must both be float32 or both bfloat16")
+    kernels.dtype_code("gru_layer_scan_bwd", dt)
+    if x_proj.dtype != dt:
+        raise TypeError(f"gru_layer_scan_bwd kernel: x_proj {x_proj.dtype} and Wh {dt} must "
+                        "have one dtype")
     if tuple(Wh.shape) != (H, H3) or tuple(mask.shape) != (B, T) or tuple(h0.shape) != (B, H) \
             or tuple(bh.shape) != (H3,) or tuple(outs.shape) != (B, T, H) \
             or tuple(g.shape) != (B, T, H) \

@@ -2,14 +2,15 @@
 PERF.md's table) at the main paths' shapes, for comparing two trees of the
 port on one card.
 
-    PYTHONPATH=<tree> python <this file>
+    PYTHONPATH=<tree> python <this file> [-dtype bfloat16|float16|float32]
 
 imports ``variational_mmt_torch`` from ``<tree>`` (so one copy of this
 script times an older tree too: it calls only the wrappers' public
 signatures) and prints one JSON line: for the GRU-scan forward at B=256
 (serving) and B=64 (training), T=24, H=250, its backward at B=64 (both
 without a reset stream), and the decode step and GRU chain at N=1024,
-S=24, H=500, all bf16, the time of one call by CUDA
+S=24, H=500, all in ``-dtype`` (bfloat16 by default; a tree older than
+the float16 kernels refuses float16), the time of one call by CUDA
 events over 50 calls after 5 (``ms``: what ``chip_smoke.py`` reports, the
 host's launch work included when it is the slower side) and the device
 time of one call under ``torch.profiler`` (``device_ms``: the kernels'
@@ -19,6 +20,7 @@ and power limit.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
@@ -56,14 +58,17 @@ def device_ms(fn, iters: int = 10) -> float:
     return us / iters / 1e3
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser("kernel_times")
+    p.add_argument("-dtype", default="bfloat16", choices=["bfloat16", "float16", "float32"])
+    opt = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     g = torch.Generator(device="cuda").manual_seed(5)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
-    bf = torch.bfloat16
+    bf = getattr(torch, opt.dtype)
     calls = {}
     H = 250
     for B in (256, 64):
@@ -87,7 +92,7 @@ def main() -> None:
     calls["decode_step"] = lambda: ds.decode_step(*chain, *attn)
     calls["gru_chain"] = lambda: ds.gru_chain(*chain)
     out = {name: {"ms": event_ms(fn), "device_ms": device_ms(fn)} for name, fn in calls.items()}
-    print(json.dumps({"kernel_times": out, "card": card}))
+    print(json.dumps({"kernel_times": out, "dtype": opt.dtype, "card": card}))
 
 
 if __name__ == "__main__":
