@@ -425,7 +425,22 @@ in PERF.md).
     ``cli.translate -pallas_step 2`` of its checkpoint (counted). Every
     kernel must launch on (b)-(d); their counts are the float16 entries'
     ``launches``.
-22. Prints one JSON line of per-kernel numbers (all six TPU kernels'
+22. Decoder gradient trace (``decoder_trace_phase(card)``, the region
+    gate's seed 12 on rows 5 and 6): replays the first 300 steps of the
+    quality gate's vmmt_c run with ``-img_regions 4 -img_pool attn`` at the
+    gate's widths on the kernel route (counted) and at steps 0, 100, 200
+    and 300 takes every gradient four ways from the same parameters,
+    batch and random draws (``variational_mmt_torch/tools/grad_trace.py``):
+    (i) rows 5 and 6, (ii) their plain versions on the card, (iii) the
+    plain input-feed loop, all bf16, (iv) the plain route in f32. It prints
+    the distances of (i)-(iii) from (iv) for the decoder's weights with the
+    attention memory, and for every parameter, and fails where (i) leaves
+    (ii) by more than the bf16 bound, 2e-2 relative, for that group, the
+    memory or any decoder tensor, or where (i)'s distance from (iv) exceeds
+    1.5 times (ii)'s for the group (phase 6's peaked-attention limit);
+    rows 1, 2, 5 and 6 must launch. The counts are ``decoder_trace`` in
+    ``launches_by_path``.
+23. Prints one JSON line of per-kernel numbers (all six TPU kernels'
     counterparts in bf16, then their float16 instantiations as
     ``<name>[float16]`` from phase 21; the scan forward's top-level times
     are at the serving shape, ``by_shape`` holds both; the two scans' ``reset`` records hold
@@ -434,10 +449,11 @@ in PERF.md).
     service's, ``widths`` each kernel's numbers at the widths phase's
     shapes, ``launches_by_path`` the serving, training, packed-training,
     families, CLI, online-serving, option-check, eval, widths, ensemble,
-    preprocess, options, host-path, parallel, extract, serve_ranks and
-    tools counts; the float16 entries' the float16 serving, training and
-    CLI counts) with the ``host_path``, ``parallel``, ``extract``,
-    ``serve_ranks``, ``tools`` and ``float16`` records, then the last line
+    preprocess, options, host-path, parallel, extract, serve_ranks, tools
+    and decoder_trace counts; the float16 entries' the float16 serving,
+    training and CLI counts) with the ``host_path``, ``parallel``,
+    ``extract``, ``serve_ranks``, ``tools``, ``float16`` and
+    ``decoder_trace`` records, then the last line
     {"ok": true, "device": {...}}.
 
 Exits non-zero, with no result line, when CUDA is unavailable, when the
@@ -543,6 +559,8 @@ SRV_RANK_CLIENTS, SRV_RANK_SENT, SRV_RANK_CHECK = 32, 128, 32  # phase 19: clien
 SRV_RANK_BATCH, SRV_RANK_MAXLEN = 32, 60  # -batch_size, max_length (beam 4, pallas_step 1)
 SRV_RANK_TIMEOUT_S = 300  # phase 19: the two ranks, start-up included
 SRV_RANK_ROWS = ("gru_layer_scan", "decode_step")
+TRACE_STEPS = (0, 100, 200, 300)  # phase 22: the traced steps of the replayed gate run
+TRACE_ROWS = ("gru_layer_scan", "gru_layer_scan_bwd", "decoder_fwd", "decoder_bwd")
 TOOL_STEPS, TOOL_SWEEP_STEPS = 40, 20  # phase 20: the gate and IW study's steps; the sweep's
 TOOL_ROWS = ("gru_layer_scan", "gru_layer_scan_bwd", "decode_step", "decoder_fwd",
              "decoder_bwd")  # the kernel route's rows every tool run must launch
@@ -4213,6 +4231,68 @@ def tools_phase(card: str, root: str):
     return total, rec
 
 
+def decoder_trace_phase(card: str):
+    """Phase 22 (module docstring): the region gate's seed 12 replayed 300
+    steps on the kernel route, its gradients traced four ways. Returns
+    ({kernel: launches of the replay}, record)."""
+    from variational_mmt_torch.tools import grad_trace as gt, quality_gate as qg
+
+    t0 = time.time()
+    args = qg.parse_args(["-models", "vmmt_c", "-seeds", "12", "-img_regions", "4",
+                         "-img_pool", "attn"])
+
+    def replay():
+        run = gt.gate_run(args, "kernels", 12)
+        twin = gt.f32_twin(run.cfg, run.model)
+        traced = []
+        for s in range(TRACE_STEPS[-1] + 1):
+            batch = run.next_batch()
+            if s in TRACE_STEPS:
+                g = gt.four_gradients(run.cfg, run.model, batch, run.state.step,
+                                      run.state.generator, twin)
+                traced.append((s, g, gt.compare(g)))
+            if s < TRACE_STEPS[-1]:
+                run.step(batch)
+        run.close()
+        return traced
+
+    launches, traced = counted_run(replay)
+    rec = {"steps": [], "launches": launches}
+    far = {}
+    for s, g, dist in traced:
+        dec, every = dist["decoder"], dist["all"]
+        tensors = {n: d for n, d in dist.items() if n not in ("decoder", "all")}
+        worst = max(tensors, key=lambda n: tensors[n]["kernel_vs_plain"])
+        print(f"decoder_trace: step {s}: losses " + ", ".join(
+            f"{r} {v['loss']:.4f}" for r, v in g.items()) + "; from the f32 loop, decoder "
+              "and memory: " + ", ".join(f"{r} {dec[r]['rel']:.3e} (cos {dec[r]['cos']:.6f})"
+                                         for r in gt.ROUTES[:3])
+              + "; every parameter: " + ", ".join(f"{r} {every[r]['rel']:.3e}"
+                                                  for r in gt.ROUTES[:3])
+              + f"; kernel from its plain version {dec['kernel_vs_plain']:.3e}, the farthest "
+              f"tensor {worst} {tensors[worst]['kernel_vs_plain']:.3e} (bound "
+              f"{gt.KERNEL_BOUND:.0e})")
+        leaves = gt.kernel_leaves_plain(dist)
+        ratio = dec["kernel"]["rel"] / max(dec["kernel_plain"]["rel"], 1e-30)
+        if not ratio <= PEAKED_DRIFT_RATIO:
+            leaves["decoder, distance from the f32 loop over the plain version's"] = ratio
+        if leaves:
+            far[s] = leaves
+        rec["steps"].append({"step": s, "loss": {r: v["loss"] for r, v in g.items()},
+                             "decoder": dec, "all": every,
+                             "worst_tensor": [worst, tensors[worst]["kernel_vs_plain"]]})
+    rec["phase_s"] = time.time() - t0
+    print(f"decoder_trace phase {rec['phase_s']:.1f} s, launches {launches} ({card})")
+    if far:
+        fail(f"decoder_trace: rows 5 and 6 leave their plain versions by more than "
+             f"{gt.KERNEL_BOUND} relative, or the f32 loop by more than {PEAKED_DRIFT_RATIO} "
+             f"times their plain versions' distance: {far}")
+    missing = [k for k in TRACE_ROWS if launches[k] <= 0]
+    if missing:
+        fail(f"decoder_trace: the replay launched no {missing}")
+    return launches, rec
+
+
 def f16_turns(name: str, make) -> dict:
     """A row's bf16 and f16 kernel times in turns (bf16 f16 f16 bf16), each
     a mean over F16_ITERS CUDA-event calls; ``make(dtype)`` gives the
@@ -4713,6 +4793,7 @@ def main() -> int:
         f16_launches, f16_rows, f16 = float16_phase(card, cfg, state, root, rate,
                                                     steps["pallas_decoder=1"]["step_ms"])
     par_launches, par = parallel_phase(card, cfg, state)
+    trace_launches, trace = decoder_trace_phase(card)
 
     entries = []
     recs = {"gru_layer_scan": scan, "gru_layer_scan_bwd": scan_bwd, "decode_step": step,
@@ -4727,7 +4808,8 @@ def main() -> int:
                    **{path: n[name] for path, n in ens_launches.items()},
                    "options": opt_launches[name], "host_path": host_launches[name],
                    "parallel": par_launches[name], "extract": extract_launches[name],
-                   "serve_ranks": srv_rank_launches[name], "tools": tool_launches[name]}
+                   "serve_ranks": srv_rank_launches[name], "tools": tool_launches[name],
+                   "decoder_trace": trace_launches[name]}
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4768,7 +4850,7 @@ def main() -> int:
                       "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,
                       "options": options, "host_path": host, "parallel": par,
                       "extract": extract, "serve_ranks": srv_ranks, "tools": tools,
-                      "float16": f16,
+                      "float16": f16, "decoder_trace": trace,
                       "widths_f32_check": {f"fast{H}": widths[f"fast{H}_f32_check"]
                                            for H in FAST_WIDTHS}, "card": card}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

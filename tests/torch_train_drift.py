@@ -58,11 +58,11 @@ VOCAB, IMG_DIM, BATCH = 200, 16, 16
 
 def gate_model(**over) -> dict:
     """The gate's model section (tools/quality_gate.py ``build_cfg``) at a
-    tiny width, f32, no dropout."""
-    return dict(model_type="vmmt_c", src_vocab_size=VOCAB, tgt_vocab_size=VOCAB, emb_dim=16,
-                hidden_dim=16, enc_layers=2, dec_layers=2, dropout=0.0, word_dropout=0.0,
-                latent_dim=8, img_feat_dim=IMG_DIM, use_img_predict=True, img_loss="logprob",
-                z_cond="init+input", compute_dtype="float32", **over)
+    tiny width, f32, no dropout; ``over`` replaces any of it."""
+    return {**dict(model_type="vmmt_c", src_vocab_size=VOCAB, tgt_vocab_size=VOCAB, emb_dim=16,
+                   hidden_dim=16, enc_layers=2, dec_layers=2, dropout=0.0, word_dropout=0.0,
+                   latent_dim=8, img_feat_dim=IMG_DIM, use_img_predict=True,
+                   img_loss="logprob", z_cond="init+input", compute_dtype="float32"), **over}
 
 
 def gate_train(steps: int, seed: int) -> dict:
