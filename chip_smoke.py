@@ -59,6 +59,18 @@ in PERF.md).
    reset-free checks' tolerances, and bit-identical in two launches; bf16
    times of each beside its reset-free launch on the same inputs, in turns,
    with the plain version's and the bound.
+   Kernel phases, the decoder sequence kernels past their resident plan:
+   both passes at B=64, T=25, S=24 and H = 1002 (padded to 1004), 1024 and
+   2048 (the streamed plan: every forward, and the backward at 2048; the
+   plan must be streamed at 2048) and at B=1024, T=25, S=50, H=500 (the
+   forward in row chunks, which it must take), in f32 and bf16 over the
+   whole sequence at memory std 0.1 against their plain versions at the
+   tolerances above (max rel err), each printing its plans; bf16
+   bit-identical in two launches; bf16 times, kernel and plain version in
+   turns (kernel, plain, plain, kernel, 10 calls a turn), beside the bound;
+   on the streamed plan also the time of the wrapper's weight layout and
+   its share of a call, and the laid-out weights' bytes that a step reads,
+   against the 50 MB L2.
 4. Serving phase: vmmt_c at full width (the port's configs/vmmt_c_multi30k.json,
    vocab 10000/10000, bf16, use_pallas) with random weights from numpy seed 0
    through convert.py; Translator(device="cuda") answers three request
@@ -80,7 +92,10 @@ in PERF.md).
    each route's spread (max - min) / mean over its runs, each route's MFU
    (``utils/flops.train_step_flops`` of the batches' padded lengths over the
    step time and NVIDIA's dense bf16 peak of 989 TFLOP/s), and the peak
-   device memory.
+   device memory. Then the same Trainer (pallas_decoder on) over one batch
+   of 1024 pairs drawn the same way, 4 steps, counted as ``big_batch``:
+   finite losses, rows 5 and 6 launched, the forward in row chunks (at
+   least two launches a step).
 6. f32 training check: one batch, deterministic, no sampling; the kernel
    path (use_pallas, pallas_decoder, fused_ce) against the all-plain path
    (use_pallas=False, pallas_decoder=False, fused_ce=False): losses within
@@ -214,11 +229,13 @@ in PERF.md).
     wrappers): phase 3's step checks at N = 128 and 32 (S = 24) and its
     decoder checks at B = 64, T = 25, S = 24. Then the entry points at
     these widths from phase 10's corpus, 10 steps of ``cli.train`` each:
-    ``-rnn_size 1024`` with the flagship config's ``pallas_decoder`` off
-    (encoder halves of 512 units on 16-CTA clusters of rows 1 and 2; the
-    decoder kernels are off, as JAX ships them), ``-rnn_size 250`` with it
-    on (rows 1, 2, 5 and 6 at 252), ``-rnn_size 2048`` with it off
-    (encoder halves of 1024 units on the wide plan) and the fast config
+    ``-rnn_size 1024`` with the flagship config's ``pallas_decoder`` on
+    (encoder halves of 512 units on 16-CTA clusters of rows 1 and 2; rows 5
+    and 6 at 1024 units, the forward on the streamed plan), ``-rnn_size
+    250`` (rows 1, 2, 5 and 6 at 252), ``-rnn_size 2048`` (encoder halves
+    of 1024 units on the wide plan; rows 5 and 6 on the streamed plan,
+    which the last plans must be), each requiring rows 1, 2, 5 and 6
+    launched, and the fast config
     ``-input_feed 0 -use_pallas 1`` at ``-rnn_size 1000`` and ``2048`` (the
     decoder's two layers at 1000 units on the wide plan, at 2048 on the
     streamed plan): finite losses, rows 1 and 2 launched, a scan of 1024
@@ -447,7 +464,9 @@ in PERF.md).
     the reset stream's checks and times, ``gate_shape`` each kernel's
     numbers at the gate's shape, ``serve_shapes`` rows 1, 3 and 4 at the
     service's, ``widths`` each kernel's numbers at the widths phase's
-    shapes, ``launches_by_path`` the serving, training, packed-training,
+    shapes (rows 5 and 6 also at phase 3's shapes past the resident plan),
+    ``launches_by_path`` the serving, training, batch-1024 training,
+    packed-training,
     families, CLI, online-serving, option-check, eval, widths, ensemble,
     preprocess, options, host-path, parallel, extract, serve_ranks, tools
     and decoder_trace counts; the float16 entries' the float16 serving,
@@ -488,6 +507,13 @@ STEP_SHAPE = dict(N=1024, S=24, H=500)
 TRAIN_SCAN_SHAPE = dict(B=64, T=24, H=250)
 DEC_SHAPE = dict(B=64, T=25, S=24, H=500)
 DEC_MEM_STD, DEC_MEM_STD_PEAKED = 0.1, 0.5  # std of keys and mem_v (module docstring)
+# rows 5 and 6 past the resident plan: the streamed plan at H = 1002 (padded to 1004),
+# 1024 and 2048, and row chunks at B = 1024, S = 50 (module docstring, phase 3)
+DEC_WIDE_SHAPES = (dict(B=64, T=25, S=24, H=1002), dict(B=64, T=25, S=24, H=1024),
+                   dict(B=64, T=25, S=24, H=2048), dict(B=1024, T=25, S=50, H=500))
+DEC_WIDE_ITERS = 10  # CUDA-event calls a turn of their bf16 times
+H100_L2_BYTES = 50e6  # the H100's L2 cache
+BIG_BATCH, BIG_BATCH_STEPS = 1024, 4  # phase 5's Trainer at -batch_size 1024 (row chunks)
 PEAKED_STEPS, PEAKED_DRIFT_RATIO = 4, 1.5  # checks at memory std 0.5 (module docstring)
 TRAIN_BATCH, TRAIN_BATCHES, TRAIN_STEPS, TIMED_STEPS = 64, 4, 30, 48  # timed: whole passes
 TIMED_ORDER = (True, False, False, True, True, False, False, True)  # pallas_decoder, in turns
@@ -1032,6 +1058,72 @@ def decoder_phase(dec, shape):
     return fwd, bwd
 
 
+def decoder_wide_checks(dec, shape: dict, card: str) -> dict:
+    """Rows 5 and 6 at ``shape`` past the resident plan (module docstring,
+    phase 3): both passes in f32 and bf16 over the whole sequence at memory
+    std 0.1 against their plain versions (the phase's tolerances), the plans
+    printed and required (streamed at H = 2048, the forward in row chunks
+    at B = 1024), bf16 determinism, bf16 times in turns with the plain
+    version, the bound, and on the streamed plan the wrapper's weight
+    layout (its time, its share of a call) and the weights' bytes a step."""
+    B, T, S, H = (shape[k] for k in ("B", "T", "S", "H"))
+    at = f"B={B} T={T} S={S} H={H}"
+    g = torch.Generator(device="cuda").manual_seed(21)
+    rec = {"fwd": {}, "bwd": {}}
+    for dt_name in ("float32", "bfloat16"):
+        args = decoder_inputs(g, getattr(torch, dt_name), B, T, S, H, DEC_MEM_STD)
+        d = (torch.randn(B, T, H, generator=g, device="cuda"),
+             torch.randn(B, T, S, generator=g, device="cuda"))
+        streams = dec.decoder_fwd_ref(*args)
+        bargs = (*args[:14], *streams, *d)
+        got = dec.decoder_fwd(*args), dec.decoder_bwd(*bargs)
+        torch.cuda.synchronize()
+        want = streams, dec.decoder_bwd_ref(*bargs)
+        plans = dec.decoder_fwd.plan, dec.decoder_bwd.plan
+        for i, (name, r) in enumerate((("decoder_fwd", rec["fwd"]), ("decoder_bwd", rec["bwd"]))):
+            r[f"err_{dt_name}"], r[f"abs_err_{dt_name}"] = rel_err(got[i], want[i]), \
+                max_err(got[i], want[i])
+            r[f"plan_{dt_name}"] = plans[i]
+            check_close(f"{name} {at}", dt_name, r[f"err_{dt_name}"], "max_rel_err")
+            print_plan(f"{name} {at} {dt_name}", plans[i])
+            if H == 2048 and plans[i]["layout"] != "streamed":
+                fail(f"{name} {at} {dt_name}: the {plans[i]['layout']} plan, not the streamed one")
+        if B == BIG_BATCH and plans[0]["chunks"] < 2:
+            fail(f"decoder_fwd {at} {dt_name}: one launch where the batch needs row chunks")
+    deterministic(f"decoder_fwd {at}", lambda: dec.decoder_fwd(*args))
+    deterministic(f"decoder_bwd {at}", lambda: dec.decoder_bwd(*bargs))
+    bounds = decoder_bounds(B, T, S, H)
+    for i, (name, r) in enumerate((("decoder_fwd", rec["fwd"]), ("decoder_bwd", rec["bwd"]))):
+        kernel = (lambda: dec.decoder_fwd(*args)) if i == 0 else lambda: dec.decoder_bwd(*bargs)
+        plain = (lambda: dec.decoder_fwd_ref(*args)) if i == 0 else \
+            lambda: dec.decoder_bwd_ref(*bargs)
+        t = in_turns(f"{name} {at} bfloat16", {"kernel": kernel, "plain": plain},
+                     iters=DEC_WIDE_ITERS)
+        r.update(ms=t["kernel_ms"], plain_ms=t["plain_ms"], runs_ms=t["runs_ms"],
+                 library_ms=None, plan=r["plan_bfloat16"])
+        r["bound_ms"], r["bound_by"] = bounds[i]
+        plan = r["plan"]
+        line = (f"  {name} {at} bfloat16: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.3f} "
+                f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {plan['layout']} plan, "
+                f"{plan['chunks']} launch(es)")
+        if plan["layout"] == "streamed":
+            Hp = plan["padded"]
+            w = dec._pad_args(args[:14])[0]
+            w = [t.contiguous() for t in (w[4], w[5], w[7], w[9], w[13])]
+            r["layout_ms"] = cuda_ms(lambda: dec._stream_weights(name, *w, plan),
+                                     iters=DEC_WIDE_ITERS)
+            r["layout_share"] = r["layout_ms"] / r["ms"]
+            wt_bytes = dec._stream_weights(name, *w, plan).numel() * 2
+            r["weight_bytes_per_step"] = wt_bytes * plan["row_tiles"]
+            r["weights_exceed_l2"] = r["weight_bytes_per_step"] > H100_L2_BYTES
+            line += (f"; weight layout {r['layout_ms']:.4f} ms ({r['layout_share']:.1%} of a "
+                     f"call); laid-out weights {r['weight_bytes_per_step'] / 1e6:.1f} MB read a "
+                     f"step (13 x {Hp}^2 bf16 = {13 * Hp * Hp * 2 / 1e6:.1f} MB), "
+                     f"{'above' if r['weights_exceed_l2'] else 'within'} the 50 MB L2")
+        print(line + f" ({card})")
+    return rec
+
+
 def scan_inputs(g, dt, B, T, H, min_len):
     """Inputs of the scan forward, lengths uniform in min_len..T; with
     min_len 0 row 2 is all padding."""
@@ -1355,6 +1447,34 @@ def train_phase(card: str, cfg, state):
               f"batch {TRAIN_BATCH}, {TIMED_STEPS} steps per run, {card})")
     steps["peak_mem_mib"] = peak / 2**20
     return launches, steps
+
+
+def big_batch_phase(card: str, cfg, state):
+    """Phase 5's Trainer (pallas_decoder on) at batch 1024 (module docstring):
+    rows 5 and 6 must run, the forward in row chunks. Returns ({kernel:
+    launches}, record)."""
+    from variational_mmt_torch.ops import decoder as dec
+    from variational_mmt_torch.tools import flagship
+
+    batches = flagship.train_batches(cfg.model, 1, BIG_BATCH)
+    trainer = trainer_for(cfg, state, batches, pallas_decoder=True)
+    t0 = time.perf_counter()
+    launches, hist = counted_run(lambda: trainer.train(BIG_BATCH_STEPS))
+    secs = time.perf_counter() - t0
+    trainer.close()
+    losses = [h["loss"] for h in hist]
+    plans = dec.decoder_fwd.plan, dec.decoder_bwd.plan
+    print(f"big batch: {BIG_BATCH_STEPS} Trainer steps at batch {BIG_BATCH} (pallas_decoder=1) in "
+          f"{secs:.1f} s, losses {' '.join(f'{v:.3f}' for v in losses)}; launches {launches}; "
+          f"decoder_fwd {plans[0]['chunks']} chunk(s) of {plans[0]['rows']} rows a tile, "
+          f"decoder_bwd {plans[1]['chunks']} ({card})")
+    if len(losses) != BIG_BATCH_STEPS or not all(math.isfinite(v) for v in losses):
+        fail("the Trainer at batch 1024: a step count or a loss that is not right")
+    if plans[0]["chunks"] < 2 or launches["decoder_fwd"] < 2 * BIG_BATCH_STEPS \
+            or launches["decoder_bwd"] < BIG_BATCH_STEPS:
+        fail("the Trainer at batch 1024 did not run rows 5 and 6, the forward in row chunks")
+    return launches, {"losses": losses, "seconds": secs, "launches": launches,
+                      "plans": {"decoder_fwd": plans[0], "decoder_bwd": plans[1]}}
 
 
 def packed_train_phase(card: str, cfg, state, unpacked: dict):
@@ -2669,11 +2789,11 @@ def widths_phase(card: str, root: str):
     scans = ("gru_layer_scan", "gru_layer_scan_bwd")
     fast = ["-input_feed", "0", "-use_pallas", "1"]
     # (label, flags, config, rows that must run, width of a wide or streamed scan)
+    decs = scans + ("decoder_fwd", "decoder_bwd")
     for label, flags, config_path, rows, wide in (
-            ("1024", ["-rnn_size", "1024"], nodec, scans, None),
-            ("250", ["-rnn_size", "250"], os.path.join(root, "config.json"),
-             scans + ("decoder_fwd", "decoder_bwd"), None),
-            ("2048", ["-rnn_size", "2048"], nodec, scans, 1024),
+            ("1024", ["-rnn_size", "1024"], os.path.join(root, "config.json"), decs, None),
+            ("250", ["-rnn_size", "250"], os.path.join(root, "config.json"), decs, None),
+            ("2048", ["-rnn_size", "2048"], os.path.join(root, "config.json"), decs, 1024),
             ("fast1000", ["-rnn_size", "1000", *fast], nodec, scans, 1000),
             ("fast2048", ["-rnn_size", "2048", *fast], nodec, scans, 2048)):
         run = os.path.join(root, f"run{label}")
@@ -2705,8 +2825,17 @@ def widths_phase(card: str, root: str):
         if label == "fast2048" and scan_plan["layout"] != "streamed":
             fail("the fast config's decoder layers of 2048 units did not run on the streamed "
                  "plan")
+        dec_plans = {"decoder_fwd": dec.decoder_fwd.plan, "decoder_bwd": dec.decoder_bwd.plan}
+        if label in ("1024", "2048"):
+            print(f"widths: train CLI {' '.join(flags)}: the last decoder plans "
+                  + "; ".join(f"{k} {p['layout']} (padded {p['padded']}, grid {p['grid']})"
+                              for k, p in dec_plans.items()))
+        if label == "2048" and any(p["layout"] != "streamed" for p in dec_plans.values()):
+            fail("the decoder of 2048 units did not run rows 5 and 6 on the streamed plan")
         rec["cli"][label] = {"losses": losses, "seconds": secs, "launches": launches,
                              "scan_widths": by_width, "plain_gru_scans": plain}
+        if label in ("1024", "2048"):
+            rec["cli"][label]["decoder_plans"] = dec_plans
         for k in total:
             total[k] += launches[k]
     # the fast config at H = 1000 and 2048 in f32: its kernel route (rows 1
@@ -4722,8 +4851,12 @@ def width_record(name: str, widths: dict) -> dict:
                                                                 if k in r[i]}
                 for n, r in widths["step"].items()}
     r = widths["decoder"][0 if name == "decoder_fwd" else 1]
-    return {" ".join(f"{k}={v}" for k, v in WIDTH_DEC.items()): {k: r[k] for k in keys
-                                                                 if k in r}}
+    out = {" ".join(f"{k}={v}" for k, v in WIDTH_DEC.items()): {k: r[k] for k in keys
+                                                                if k in r}}
+    for at, w in widths["decoder_wide"].items():  # the streamed plan and row chunks
+        out[at] = {k: v for k, v in w["fwd" if name == "decoder_fwd" else "bwd"].items()
+                   if k != "runs_ms"}
+    return out
 
 
 def main() -> int:
@@ -4761,9 +4894,15 @@ def main() -> int:
     # the reset stream of both scans (sequence packing)
     scan["reset"], scan_bwd["reset"] = scan_reset_checks(gru_scan)
     dec_fwd, dec_bwd = decoder_phase(dec, DEC_SHAPE)
+    t0 = time.time()
+    dec_wide = {" ".join(f"{k}={v}" for k, v in shape.items()): decoder_wide_checks(dec, shape,
+                                                                                   card)
+                for shape in DEC_WIDE_SHAPES}
+    print(f"decoder past the resident plan: {time.time() - t0:.1f} s")
     cfg, state = load_flagship()
     serve_launches, rate = slice_phase(card, cfg.model, state)
     train_launches, steps = train_phase(card, cfg, state)
+    big_launches, big = big_batch_phase(card, cfg, state)
     check = train_check_f32(cfg, state)
     packed_launches, packed_resets, packed = packed_train_phase(card, cfg, state, steps)
     packed["f32_check"] = packed_check_f32(cfg, state)
@@ -4783,6 +4922,7 @@ def main() -> int:
         t0 = time.time()
         width_launches, widths = widths_phase(card, root)
         widths["phase_s"] = time.time() - t0
+        widths["decoder_wide"] = dec_wide
         print(f"eval phase {evals['phase_s']:.1f} s, widths phase {widths['phase_s']:.1f} s")
         ens_launches, ens = ensemble_phase(card, root)
         opt_launches, options = options_phase(card, cfg, state)
@@ -4801,7 +4941,7 @@ def main() -> int:
     for name, src, replaces in KERNEL_ROWS:
         rec = recs[name]
         by_path = {"serve": serve_launches.get(name, 0), "train": train_launches.get(name, 0),
-                   "train_packed": packed_launches.get(name, 0),
+                   "big_batch": big_launches[name], "train_packed": packed_launches.get(name, 0),
                    "families": family_launches[name], "cli": cli_launches[name],
                    **{path: n.get(name, 0) for path, n in online_launches.items()},
                    "eval": eval_launches[name], "widths": width_launches[name],
@@ -4844,7 +4984,8 @@ def main() -> int:
         entries.append(entry)
     entries += f16_entries(f16_launches, f16_rows)
     print(json.dumps({"kernels": entries, "sent_per_s": rate, "train": steps,
-                      "train_f32_check": check, "train_packed": packed, "families": families,
+                      "train_f32_check": check, "big_batch": big, "train_packed": packed,
+                      "families": families,
                       "cli": cli, "serve_online": {k: v for k, v in served.items()
                                                    if k != "step_shapes"},
                       "eval": evals, "widths_cli": widths["cli"], "ensemble": ens,

@@ -421,6 +421,54 @@ def test_decoder_kernels_at_a_width_not_a_multiple_of_4(cuda, dt, B, T, S, H):
     assert decoder.decoder_bwd.plan["padded"] == ds.padded_width(H)
 
 
+def decoder_both(cuda, dt, args):
+    """Both decoder kernels against their plain versions on ``args``."""
+    streams = decoder.decoder_fwd_ref(*args)
+    close(decoder.decoder_fwd(*args), streams, dt)
+    d_attn = torch.randn(streams[0].shape, generator=cuda, device="cuda")
+    d_probs = torch.randn(streams[3].shape, generator=cuda, device="cuda")
+    close_rel(decoder.decoder_bwd(*args[:14], *streams, d_attn, d_probs),
+              decoder.decoder_bwd_ref(*args[:14], *streams, d_attn, d_probs), dt)
+
+
+# the streamed plan: the forward streams from H = 1002 (padded to 1004) in
+# every dtype, the backward at 2048 (and in f32 from 1002); memory std 0.1,
+# as chip_smoke.py holds the whole sequence
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B", [9, 64])
+@pytest.mark.parametrize("H", [1002, 1024, 2048])
+def test_decoder_kernels_on_the_streamed_plan(cuda, dt, B, H):
+    decoder_both(cuda, dt, decoder_args(cuda, dt, B=B, T=6, S=40, H=H, mem_std=0.1))
+    assert decoder.decoder_fwd.plan["layout"] == "streamed"
+    assert decoder.decoder_fwd.plan["padded"] == ds.padded_width(H)
+    if H == 2048 or dt == torch.float32:
+        assert decoder.decoder_bwd.plan["layout"] == "streamed"
+
+
+# fault 3.5: a batch of 1024 at the flagship's width runs the forward in row
+# chunks (two in bf16 and f16, three in f32 at S = 40)
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_decoder_kernels_in_row_chunks(cuda, dt):
+    before = decoder.decoder_fwd.launches
+    decoder_both(cuda, dt, decoder_args(cuda, dt, B=1024, T=6, S=40, H=500, mem_std=0.1))
+    plan = decoder.decoder_fwd.plan
+    assert plan["layout"] == "resident" and plan["chunks"] >= 2
+    assert decoder.decoder_fwd.launches == before + plan["chunks"]
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_streamed_decoder_kernels_are_deterministic(cuda, dt):
+    args = decoder_args(cuda, dt, B=64, T=6, S=40, H=2048, mem_std=0.1)
+    streams = decoder.decoder_fwd_ref(*args)
+    d = (torch.randn(streams[0].shape, generator=cuda, device="cuda"),
+         torch.randn(streams[3].shape, generator=cuda, device="cuda"))
+    first = decoder.decoder_fwd(*args) + decoder.decoder_bwd(*args[:14], *streams, *d)
+    second = decoder.decoder_fwd(*args) + decoder.decoder_bwd(*args[:14], *streams, *d)
+    torch.cuda.synchronize()
+    assert decoder.decoder_bwd.plan["layout"] == "streamed"
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_every_entry_point_refuses_an_unknown_dtype_code(cuda):
     """Code 3 names no compute dtype: every C entry point and occupancy
     query returns cudaErrorInvalidValue before touching its (null)

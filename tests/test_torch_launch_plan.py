@@ -311,8 +311,10 @@ def test_wrappers_refuse_a_shape_before_launching(no_launch):
         with pytest.raises(NotImplementedError):
             ds.decode_step(*chain, meta(4, 3, 0, dtype=dt), meta(4, 3, 0, dtype=dt),
                            meta(0, 0, dtype=dt), meta(4, 3))
+    # the decoder kernels hold every H >= 1 too (H = 2000 is on the streamed
+    # plan): H = 0 is what they refuse
     with pytest.raises(NotImplementedError):
-        decoder.decoder_bwd(*decoder_args(4, 5, 3, 2000))
+        decoder.decoder_bwd(*decoder_args(4, 5, 3, 0))
 
 
 def test_wrappers_refuse_what_the_card_cannot_hold_at_once(no_launch):
@@ -467,9 +469,10 @@ def fwd_args(B, T, S, H, dt=torch.float32):
 
 
 def test_decoder_fwd_refuses_a_shape_before_launching(no_launch):
+    # every H >= 1 has a plan (H = 2000 the streamed one): H = 0 has none
     for dt in DTYPES:
         with pytest.raises(NotImplementedError):
-            decoder.decoder_fwd(*fwd_args(4, 5, 3, 2000, dt))
+            decoder.decoder_fwd(*fwd_args(4, 5, 3, 0, dt))
 
 
 def test_decoder_fwd_refuses_what_the_card_cannot_hold_at_once(no_launch):

@@ -141,6 +141,19 @@ __device__ void block_product(const T* act, int lda, int K, const T* w_s, int ld
   }
 }
 
+// One unit tile of one row tile of a persistent kernel's grid (tile b of
+// unit_tiles x row_tiles): units [u0, u0 + nu) of rows [r0, r0 + nr).
+struct WideTile {
+  int ut, u0, nu, r0, nr;
+  __device__ WideTile(int tile, int unit_tiles, int units, int rows, int H, int B) {
+    ut = tile % unit_tiles;
+    u0 = ut * units;
+    nu = max(0, min(units, H - u0));
+    r0 = (tile / unit_tiles) * rows;
+    nr = max(0, min(rows, B - r0));
+  }
+};
+
 // The GRU cell from the gate inputs x [r|z|n] and the hidden products hp
 // (bias included): h' = (1 - z) n + z h.
 __device__ __forceinline__ float gru_cell(const float (&x)[3], const float* hp, float h) {

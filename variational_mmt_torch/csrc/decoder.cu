@@ -78,6 +78,24 @@
 //       @ Wh0^T and dfeed = round(dx0) @ Wfeed^T. Two CTAs fit an SM at
 //       H=500 (113 KB of shared memory each in bf16).
 //
+// The streamed plan (kStream, both kernels). The resident plan above keeps
+// each CTA's weight slices (13 H / units rows of H values) in shared memory
+// and needs a co-resident CTA for every tile, so it stops where a slice
+// and 16 rows outgrow 227 KB (bf16: the forward from H = 932, the backward
+// from 1060) or where the tiles outnumber what the card holds at once (f32:
+// the forward from H = 532, the backward from 536). The
+// streamed kernels cap the grid at kDecStreamPerSm CTAs an SM (or the
+// tiles, or B) and let each CTA take its tiles in turn within every phase;
+// the weights stay in global memory, laid out once a call by the wrapper
+// (ops/decoder.py _stream_weights) in the slices' own order, so that
+// block_product reads its fragments through L2 (from HBM every step where
+// the five weights exceed the 50 MB L2: bf16 above about 1387 units). The
+// f32 carries move to global memory, each cell's read and written only by
+// the thread that owns it; a tile's rows are capped (ops/decoder.py
+// DEC_STREAM_MAX_ROWS), so a CTA's shared memory is the product buffer
+// and the attention row, whatever H and B. The phases, barriers,
+// exchanges, products and their rounding are the resident kernels'.
+//
 // Both kernels take an optional probe buffer: thread 0 of CTA 0 writes
 // %globaltimer there at its start, after the prologue and as it arrives at
 // and leaves each grid barrier (tools/phase_times.py reads it).
@@ -96,6 +114,9 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kDecPhases = 4;    // grid-barrier phases of a step, both passes
+// most CTAs an SM of the streamed kernels (their grid is as many an SM;
+// launch bounds keep their registers within that)
+constexpr int kDecStreamPerSm = 2;
 
 // %globaltimer (ns) into probe[slot] from thread 0 of CTA 0, when probing
 __device__ __forceinline__ void stamp(unsigned long long* probe, int slot) {
@@ -202,18 +223,19 @@ struct DecHoist {
 // buffer (4 n-tiles; in bf16 room for the K-split partial sums); the f32
 // carries h0, h1 and qw (rows, units); the hidden products hp0, hp1 (rows,
 // units, 3 gates); the attention row (query, two context halves, scores).
+// Streamed (kStream): the product buffer and the attention row alone.
 template <typename T>
 struct DecFwdLayout {
   int ldw;
   size_t w3, w1, prod, carry, gates, attn, total;
-  __host__ __device__ DecFwdLayout(int rows, int S, int H, int units) {
+  __host__ __device__ DecFwdLayout(int rows, int S, int H, int units, bool stream) {
     ldw = frag_ld<T>(H);
-    w3 = align16((size_t)3 * tile_rows<T>() * ldw * sizeof(T));
-    w1 = align16((size_t)tile_rows<T>() * ldw * sizeof(T));
+    w3 = stream ? 0 : align16((size_t)3 * tile_rows<T>() * ldw * sizeof(T));
+    w1 = stream ? 0 : align16((size_t)tile_rows<T>() * ldw * sizeof(T));
     const int prod_rows = is_mma<T>() ? max(kDecWarps * 16, rows) : rows;
     prod = (size_t)prod_rows * 4 * kDecUnitsMma * sizeof(float);
-    carry = align16((size_t)rows * units * sizeof(float));
-    gates = align16((size_t)rows * units * 3 * sizeof(float));
+    carry = stream ? 0 : align16((size_t)rows * units * sizeof(float));
+    gates = stream ? 0 : align16((size_t)rows * units * 3 * sizeof(float));
     attn = align16((size_t)(3 * H + S) * sizeof(float));
     total = 4 * w3 + w1 + prod + 3 * carry + 2 * gates + attn;
   }
@@ -233,6 +255,14 @@ struct DecFwd {
   float* ctx;  // (B,H) the attention context
   unsigned int* count;  // the split barrier's counter
   unsigned long long* probe;  // null, or 2 + 2 * kDecPhases * T_len stamps
+  // streamed only: the five weights laid out as the resident CTAs' slices,
+  // unit tile after unit tile (13 n-tiles of (tile_rows, ldw) a tile:
+  // Wfeed's, Wh0's, Wmid's and Wh1's three, then Wc_q's), zero past H and
+  // past each tile's units; and the f32 carries h0, h1, qw (B,H) and hp0,
+  // hp1 (B,H,3), each cell's read and written only by the thread that owns
+  // it (the same thread of the same CTA every step)
+  const T* wt;
+  float* carry;
   int B, T_len, S, H, units, unit_tiles, rows, ldx;
 };
 
@@ -362,69 +392,93 @@ __device__ void attention_row(const DecFwd<T>& p, int n, int t, float* q_s, floa
   __syncthreads();  // q_s, part_s and p_s are free for the next row
 }
 
-// CTA b < unit_tiles * (B / rows rounded up) owns hidden units [(b %
-// unit_tiles) * units, +units) of batch rows [(b / unit_tiles) * rows,
-// +rows); the four phases of a step are those of the note at the top.
-template <typename T>
-__global__ void __launch_bounds__(kDecThreads) decoder_fwd_kernel(DecFwd<T> p) {
+// Tile b of the launch's unit_tiles * (B / rows rounded up) tiles owns
+// hidden units [(b % unit_tiles) * units, +units) of batch rows [(b /
+// unit_tiles) * rows, +rows); the four phases of a step are those of the
+// note at the top. Resident: CTA b holds tile b, its weight slices and
+// carries in shared memory. Streamed (kStream): CTA b takes tiles b, b +
+// gridDim.x, ... in turn within each phase, reads each tile's weight slices
+// from wt (through L2) and keeps its carries in global memory.
+template <typename T, bool kStream>
+__global__ void __launch_bounds__(kDecThreads, kStream ? kDecStreamPerSm : 1)
+decoder_fwd_kernel(DecFwd<T> p) {
   stamp(p.probe, 0);
   cg::grid_group grid = cg::this_grid();
   const int B = p.B, T_len = p.T_len, S = p.S, H = p.H, H3 = 3 * H, units = p.units;
   const int ldx = p.ldx, tid = threadIdx.x;
-  const int row_tiles = (B + p.rows - 1) / p.rows;
-  const bool owner = (int)blockIdx.x < p.unit_tiles * row_tiles;
-  const int u0 = (blockIdx.x % p.unit_tiles) * units;
-  const int nu = owner ? max(0, min(units, H - u0)) : 0;
-  const int r0 = owner ? (blockIdx.x / p.unit_tiles) * p.rows : 0;
-  const int nr = owner ? min(p.rows, B - r0) : 0;
-  const int items = nr * nu;  // (row, unit) cells of this CTA
+  const int tiles = p.unit_tiles * ((B + p.rows - 1) / p.rows);
   constexpr int tr = tile_rows<T>(), PS3 = 3 * kDecUnitsMma, PS4 = 4 * kDecUnitsMma;
-  const DecFwdLayout<T> L(p.rows, S, H, units);
+  const DecFwdLayout<T> L(p.rows, S, H, units, kStream);
   const int ldw = L.ldw;
+  const size_t wn = (size_t)3 * tr * ldw;  // one weight's three n-tiles
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sp = smem_raw;
-  T* w_s[5];  // Wfeed, Wh0, Wmid, Wh1 (3 n-tiles each), Wc_q (1)
-  for (int i = 0; i < 4; ++i, sp += L.w3) w_s[i] = reinterpret_cast<T*>(sp);
-  w_s[4] = reinterpret_cast<T*>(sp);
-  sp += L.w1;
+  // resident: Wfeed, Wh0, Wmid, Wh1 (3 n-tiles each) and Wc_q (1), wn apart
+  T* w_s = reinterpret_cast<T*>(sp);
+  sp += 4 * L.w3 + L.w1;
   float* prod = reinterpret_cast<float*>(sp);
   sp += L.prod;
-  float* h0c = reinterpret_cast<float*>(sp);  // (rows, units) f32 states
-  sp += L.carry;
-  float* h1c = reinterpret_cast<float*>(sp);
-  sp += L.carry;
-  float* qw_s = reinterpret_cast<float*>(sp);  // (rows, units) h1' @ Wc_q
-  sp += L.carry;
-  float* hp0_s = reinterpret_cast<float*>(sp);  // (rows, units, 3) hidden products + bias
-  sp += L.gates;
-  float* hp1_s = reinterpret_cast<float*>(sp);
-  sp += L.gates;
+  // the f32 carries h0, h1, qw (at a cell's index) and the hidden products
+  // plus bias hp0, hp1 (3 a cell): (rows, units) in shared memory, or (B,
+  // H) in global memory (cell_of)
+  float *h0c, *h1c, *qw_s, *hp0_s, *hp1_s;
+  if constexpr (kStream) {
+    const size_t bh = (size_t)B * H;
+    h0c = p.carry;
+    h1c = p.carry + bh;
+    qw_s = p.carry + 2 * bh;
+    hp0_s = p.carry + 3 * bh;
+    hp1_s = p.carry + 6 * bh;
+  } else {
+    h0c = reinterpret_cast<float*>(sp);
+    h1c = reinterpret_cast<float*>(sp + L.carry);
+    qw_s = reinterpret_cast<float*>(sp + 2 * L.carry);
+    hp0_s = reinterpret_cast<float*>(sp + 3 * L.carry);
+    hp1_s = reinterpret_cast<float*>(sp + 3 * L.carry + L.gates);
+    sp += 3 * L.carry + 2 * L.gates;
+  }
   float* q_s = reinterpret_cast<float*>(sp);  // (H) attention query
   float* part_s = q_s + H;                     // (2H) context halves
   float* p_s = part_s + 2 * H;                 // (S) scores, then probs
+  auto cell_of = [&](const WideTile& c, int mm, int u) -> size_t {
+    return kStream ? (size_t)(c.r0 + mm) * H + c.u0 + u : (size_t)mm * units + u;
+  };
+  // tile c's weight slices: shared memory, or the tile's slices in wt
+  auto w_of = [&](const WideTile& c) -> const T* {
+    return kStream ? p.wt + (size_t)c.ut * (4 * wn + (size_t)tr * ldw) : w_s;
+  };
 
-  // weight columns into shared memory, transposed: row g * tr + u of a
-  // slice is column g * H + u0 + u of W (H,3H), zero past nu rows and H
-  // columns; a thread reads a unit, so neighbouring threads read
-  // neighbouring columns
-  const T* w3[4] = {p.wfeed, p.wh0, p.wmid, p.wh1};
-#pragma unroll  // static indices into w3 and w_s: no local-memory arrays
-  for (int w = 0; w < 4; ++w) {
-    for (int i = tid; i < ldw * 3 * tr; i += kDecThreads) {
-      const int u = i % tr, g = (i / tr) % 3, k = i / (3 * tr);
-      w_s[w][(g * tr + u) * ldw + k] =
-          u < nu && k < H ? w3[w][(size_t)k * H3 + g * H + u0 + u] : from_f<T>(0.f);
+  if constexpr (!kStream) {
+    if ((int)blockIdx.x < tiles) {
+      // weight columns into shared memory, transposed: row g * tr + u of a
+      // slice is column g * H + u0 + u of W (H,3H), zero past nu rows and H
+      // columns; a thread reads a unit, so neighbouring threads read
+      // neighbouring columns
+      const WideTile c(blockIdx.x, p.unit_tiles, units, p.rows, H, B);
+      const T* w3[4] = {p.wfeed, p.wh0, p.wmid, p.wh1};
+#pragma unroll  // static indices into w3: no local-memory arrays
+      for (int w = 0; w < 4; ++w) {
+        for (int i = tid; i < ldw * 3 * tr; i += kDecThreads) {
+          const int u = i % tr, g = (i / tr) % 3, k = i / (3 * tr);
+          w_s[w * wn + (g * tr + u) * ldw + k] =
+              u < c.nu && k < H ? w3[w][(size_t)k * H3 + g * H + c.u0 + u] : from_f<T>(0.f);
+        }
+      }
+      for (int i = tid; i < ldw * tr; i += kDecThreads) {
+        const int u = i % tr, k = i / tr;
+        w_s[4 * wn + u * ldw + k] =
+            u < c.nu && k < H ? p.wcq[(size_t)k * H + c.u0 + u] : from_f<T>(0.f);
+      }
     }
   }
-  for (int i = tid; i < ldw * tr; i += kDecThreads) {
-    const int u = i % tr, k = i / tr;
-    w_s[4][u * ldw + k] = u < nu && k < H ? p.wcq[(size_t)k * H + u0 + u] : from_f<T>(0.f);
-  }
-  for (int i = tid; i < items; i += kDecThreads) {
-    const int c = (i / nu) * units + i % nu;
-    const size_t off = (size_t)(r0 + i / nu) * H + u0 + i % nu;
-    h0c[c] = p.h00[off];
-    h1c[c] = p.h01[off];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+    for (int i = tid; i < c.nr * c.nu; i += kDecThreads) {
+      const int mm = i / c.nu, u = i % c.nu;
+      const size_t off = (size_t)(c.r0 + mm) * H + c.u0 + u;
+      h0c[cell_of(c, mm, u)] = p.h00[off];
+      h1c[cell_of(c, mm, u)] = p.h01[off];
+    }
   }
   // exchanges: the rounded initial states (h0 in the buffer that step 0
   // does not write); zero padding columns; the barrier's counter
@@ -443,21 +497,25 @@ __global__ void __launch_bounds__(kDecThreads) decoder_fwd_kernel(DecFwd<T> p) {
   grid.sync();
   stamp(p.probe, 1);
 
-  // hp = product + bias for the owned cells, from n-tiles 0..2 of prod
-  // (rows PS apart)
-  auto keep_gates = [&](float* hp_s, const float* bias, int ps) {
-    for (int i = tid; i < items; i += kDecThreads) {
-      const int mm = i / nu, u = i % nu;
+  // hp = product + bias for tile c's cells, from n-tiles 0..2 of prod
+  // (rows ps apart)
+  auto keep_gates = [&](const WideTile& c, float* hp_s, const float* bias, int ps) {
+    for (int i = tid; i < c.nr * c.nu; i += kDecThreads) {
+      const int mm = i / c.nu, u = i % c.nu;
+      const size_t cc = cell_of(c, mm, u);
 #pragma unroll
       for (int g = 0; g < 3; ++g)
-        hp_s[(mm * units + u) * 3 + g] = prod[mm * ps + g * 8 + u] + bias[g * H + u0 + u];
+        hp_s[cc * 3 + g] = prod[mm * ps + g * 8 + u] + bias[g * H + c.u0 + u];
     }
   };
-  if (items > 0) {  // step 0's hidden products, from the initial states
-    block_product<T, 3>(h0x_init, ldx, H, w_s[1], ldw, nu, r0, nr, prod);
-    keep_gates(hp0_s, p.bh0, PS3);
-    block_product<T, 3>(p.h1x, ldx, H, w_s[3], ldw, nu, r0, nr, prod);
-    keep_gates(hp1_s, p.bh1, PS3);
+  // step 0's hidden products, from the initial states
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+    if (c.nr * c.nu == 0) continue;
+    block_product<T, 3>(h0x_init, ldx, H, w_of(c) + wn, ldw, c.nu, c.r0, c.nr, prod);
+    keep_gates(c, hp0_s, p.bh0, PS3);
+    block_product<T, 3>(p.h1x, ldx, H, w_of(c) + 3 * wn, ldw, c.nu, c.r0, c.nr, prod);
+    keep_gates(c, hp1_s, p.bh1, PS3);
   }
 
   struct In0 {
@@ -466,26 +524,30 @@ __global__ void __launch_bounds__(kDecThreads) decoder_fwd_kernel(DecFwd<T> p) {
   for (int t = 0; t < T_len; ++t) {
     T* h0x = p.h0x + (t % 2) * xn;
     // phase 1: x0 = emb_proj[t] + round(feed) @ Wfeed, GRU0
-    if (items > 0) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      const int nu = c.nu, items = c.nr * nu;
+      if (items == 0) continue;
       auto load0 = [&](int i, In0& in) {
-        const size_t mt = (size_t)(r0 + i / nu) * T_len + t;
-        const int j = u0 + i % nu;
+        const size_t mt = (size_t)(c.r0 + i / nu) * T_len + t;
+        const int j = c.u0 + i % nu;
 #pragma unroll
         for (int g = 0; g < 3; ++g) in.x[g] = to_f(p.emb_proj[mt * H3 + g * H + j]);
         in.dm = to_f(p.dmid[mt * H + j]);
       };
       In0 first;
       if (tid < items) load0(tid, first);
-      if (t > 0) block_product<T, 3>(p.ax, ldx, H, w_s[0], ldw, nu, r0, nr, prod);
+      if (t > 0) block_product<T, 3>(p.ax, ldx, H, w_of(c), ldw, nu, c.r0, c.nr, prod);
       for (int i = tid; i < items; i += kDecThreads) {
         In0 in = first;
         if (i != tid) load0(i, in);
-        const int mm = i / nu, u = i % nu, m = r0 + mm, j = u0 + u, c = mm * units + u;
+        const int mm = i / nu, u = i % nu, m = c.r0 + mm, j = c.u0 + u;
+        const size_t cc = cell_of(c, mm, u);
         float x[3];
 #pragma unroll
         for (int g = 0; g < 3; ++g) x[g] = t > 0 ? in.x[g] + prod[mm * PS3 + g * 8 + u] : in.x[g];
-        const float h = gru_cell(x, hp0_s + c * 3, h0c[c]);
-        h0c[c] = h;
+        const float h = gru_cell(x, hp0_s + cc * 3, h0c[cc]);
+        h0c[cc] = h;
         p.h0s[((size_t)m * T_len + t) * H + j] = from_f<T>(h);
         h0x[(size_t)m * ldx + j] = from_f<T>(h);
         p.midx[(size_t)m * ldx + j] = from_f<T>(in.dm * h);
@@ -495,15 +557,19 @@ __global__ void __launch_bounds__(kDecThreads) decoder_fwd_kernel(DecFwd<T> p) {
     grid_wait(p.count, p.probe, t, 0);
 
     // phase 2: x1 = round(dmid * h0') @ Wmid + bmid, GRU1
-    if (items > 0) {
-      block_product<T, 3>(p.midx, ldx, H, w_s[2], ldw, nu, r0, nr, prod);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      const int nu = c.nu, items = c.nr * nu;
+      if (items == 0) continue;
+      block_product<T, 3>(p.midx, ldx, H, w_of(c) + 2 * wn, ldw, nu, c.r0, c.nr, prod);
       for (int i = tid; i < items; i += kDecThreads) {
-        const int mm = i / nu, u = i % nu, m = r0 + mm, j = u0 + u, c = mm * units + u;
+        const int mm = i / nu, u = i % nu, m = c.r0 + mm, j = c.u0 + u;
+        const size_t cc = cell_of(c, mm, u);
         float x[3];
 #pragma unroll
         for (int g = 0; g < 3; ++g) x[g] = prod[mm * PS3 + g * 8 + u] + p.bmid[g * H + j];
-        const float h = gru_cell(x, hp1_s + c * 3, h1c[c]);
-        h1c[c] = h;
+        const float h = gru_cell(x, hp1_s + cc * 3, h1c[cc]);
+        h1c[cc] = h;
         p.h1s[((size_t)m * T_len + t) * H + j] = from_f<T>(h);
         p.h1x[(size_t)m * ldx + j] = from_f<T>(h);
       }
@@ -513,15 +579,17 @@ __global__ void __launch_bounds__(kDecThreads) decoder_fwd_kernel(DecFwd<T> p) {
 
     // phase 3: the attention of this CTA's rows; then, as the barrier
     // completes, round(h1') @ [Wh1 | Wc_q] (hp1 of step t + 1 and qw, both
-    // the CTA's own; h1x is next written two barriers on)
+    // the tile's own; h1x is next written two barriers on)
     for (int n = blockIdx.x; n < B; n += gridDim.x) attention_row(p, n, t, q_s, part_s, p_s);
     grid_arrive(p.count, p.probe, t, 2);
-    if (items > 0) {
-      block_product<T, 4>(p.h1x, ldx, H, w_s[3], ldw, nu, r0, nr, prod);
-      keep_gates(hp1_s, p.bh1, PS4);
-      for (int i = tid; i < items; i += kDecThreads) {
-        const int mm = i / nu, u = i % nu;
-        qw_s[mm * units + u] = prod[mm * PS4 + 3 * 8 + u];
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      if (c.nr * c.nu == 0) continue;
+      block_product<T, 4>(p.h1x, ldx, H, w_of(c) + 3 * wn, ldw, c.nu, c.r0, c.nr, prod);
+      keep_gates(c, hp1_s, p.bh1, PS4);
+      for (int i = tid; i < c.nr * c.nu; i += kDecThreads) {
+        const int mm = i / c.nu, u = i % c.nu;
+        qw_s[cell_of(c, mm, u)] = prod[mm * PS4 + 3 * 8 + u];
       }
     }
     grid_wait(p.count, p.probe, t, 2);
@@ -529,17 +597,22 @@ __global__ void __launch_bounds__(kDecThreads) decoder_fwd_kernel(DecFwd<T> p) {
     // phase 4: attn = tanh(ctx + qw), the next feed; then, as the barrier
     // completes, hp0 of step t + 1 (from this step's h0x buffer, which step
     // t + 1 does not write)
-    for (int i = tid; i < items; i += kDecThreads) {
-      const int mm = i / nu, u = i % nu, m = r0 + mm, j = u0 + u;
-      const float v = tanhf(__ldcg(p.ctx + (size_t)m * H + j) + qw_s[mm * units + u]);
-      p.attn_hs[((size_t)m * T_len + t) * H + j] = from_f<T>(v);
-      p.ax[(size_t)m * ldx + j] = from_f<T>(v);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      for (int i = tid; i < c.nr * c.nu; i += kDecThreads) {
+        const int mm = i / c.nu, u = i % c.nu, m = c.r0 + mm, j = c.u0 + u;
+        const float v = tanhf(__ldcg(p.ctx + (size_t)m * H + j) + qw_s[cell_of(c, mm, u)]);
+        p.attn_hs[((size_t)m * T_len + t) * H + j] = from_f<T>(v);
+        p.ax[(size_t)m * ldx + j] = from_f<T>(v);
+      }
     }
     if (t + 1 < T_len) {
       grid_arrive(p.count, p.probe, t, 3);
-      if (items > 0) {
-        block_product<T, 3>(h0x, ldx, H, w_s[1], ldw, nu, r0, nr, prod);
-        keep_gates(hp0_s, p.bh0, PS3);
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+        if (c.nr * c.nu == 0) continue;
+        block_product<T, 3>(h0x, ldx, H, w_of(c) + wn, ldw, c.nu, c.r0, c.nr, prod);
+        keep_gates(c, hp0_s, p.bh0, PS3);
       }
       grid_wait(p.count, p.probe, t, 3);
     } else {
@@ -553,11 +626,14 @@ int decoder_fwd(const T* emb_proj, const T* dmid, const float* h00, const float*
                 const T* wfeed, const T* wh0, const float* bh0, const T* wmid, const float* bmid,
                 const T* wh1, const float* bh1, const T* keys, const T* mem_v, const T* wcq,
                 const float* mask_bias, T* attn_hs, T* h0s, T* h1s, T* probs, T* tscratch,
-                float* fscratch, unsigned long long* probe, int B, int T_len, int S, int H,
-                int units, int rows, int grid, cudaStream_t stream) {
-  const size_t smem = DecFwdLayout<T>(rows, S, H, units).total;
-  const cudaError_t err = cudaFuncSetAttribute(
-      decoder_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                float* fscratch, const T* wt, unsigned long long* probe, int B, int T_len,
+                int S, int H, int units, int rows, int grid, cudaStream_t stream) {
+  const bool streamed = wt != nullptr;
+  const size_t smem = DecFwdLayout<T>(rows, S, H, units, streamed).total;
+  void* kernel = streamed ? reinterpret_cast<void*>(decoder_fwd_kernel<T, true>)
+                          : reinterpret_cast<void*>(decoder_fwd_kernel<T, false>);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   DecFwd<T> p;
   p.emb_proj = emb_proj;
@@ -586,7 +662,9 @@ int decoder_fwd(const T* emb_proj, const T* dmid, const float* h00, const float*
   p.midx = tscratch + 3 * xn;
   p.ax = tscratch + 4 * xn;
   p.ctx = fscratch;
-  p.count = reinterpret_cast<unsigned int*>(fscratch + (size_t)B * H);
+  p.wt = wt;
+  p.carry = streamed ? fscratch + (size_t)B * H : nullptr;
+  p.count = reinterpret_cast<unsigned int*>(fscratch + (size_t)B * H * (streamed ? 10 : 1));
   p.probe = probe;
   p.B = B;
   p.T_len = T_len;
@@ -597,8 +675,8 @@ int decoder_fwd(const T* emb_proj, const T* dmid, const float* h00, const float*
   p.rows = rows;
   void* args[] = {&p};
   // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that is not co-resident
-  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<void*>(decoder_fwd_kernel<T>),
-                                          dim3(grid), dim3(kDecThreads), args, smem, stream);
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kDecThreads), args, smem,
+                                          stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -606,20 +684,23 @@ int decoder_fwd(const T* emb_proj, const T* dmid, const float* h00, const float*
 // kernel over time.
 
 // Shared-memory plan of the backward kernel for CTAs of `units` hidden
-// units and `rows` batch rows (a multiple of 16).
+// units and `rows` batch rows (a multiple of 16): the units' rows of Wc_q
+// (K = H) and of Wh1, Wmid, Wh0, Wfeed (K = 3H), the product buffer, the
+// f32 carries dh1' z1 and dh0' z0 (rows, units) and the attention row.
+// Streamed (kStream): the product buffer and the attention row alone.
 template <typename T>
 struct DecLayout {
   int wrows, ld1, ld3, prod_rows;
   size_t w1, w3, prod, carry, attn, total;
-  __host__ __device__ DecLayout(int rows, int S, int H, int units) {
+  __host__ __device__ DecLayout(int rows, int S, int H, int units, bool stream) {
     wrows = is_mma<T>() ? kDecUnitsMma : units;
     ld1 = frag_ld<T>(H);
     ld3 = frag_ld<T>(3 * H);
     prod_rows = is_mma<T>() ? max(kDecWarps * 16, rows) : rows;  // >= kp * 16 * tiles
-    w1 = align16((size_t)wrows * ld1 * sizeof(T));
-    w3 = align16((size_t)wrows * ld3 * sizeof(T));
+    w1 = stream ? 0 : align16((size_t)wrows * ld1 * sizeof(T));
+    w3 = stream ? 0 : align16((size_t)wrows * ld3 * sizeof(T));
     prod = (size_t)prod_rows * kDecUnitsMma * sizeof(float);
-    carry = align16((size_t)rows * units * sizeof(float));
+    carry = stream ? 0 : align16((size_t)rows * units * sizeof(float));
     attn = align16((size_t)(H + 2 * S) * sizeof(float));
     total = w1 + 4 * w3 + prod + 2 * carry + attn;
   }
@@ -638,6 +719,13 @@ struct DecBwd {
   T* pre_c;      // (B,ld_pre) pre rounded to T
   T* act_c;      // 4 x (B,ld_act): dhp1, dx1, dhp0, dx0 rounded to T
   unsigned long long* probe;  // null, or 2 + 2 * kDecPhases * T_len stamps
+  // streamed only: the five weights laid out as the resident CTAs' slices,
+  // unit tile after unit tile (a tile's rows of Wc_q (wrows, ld1), then of
+  // Wh1, Wmid, Wh0 and Wfeed (wrows, ld3) each), zero past H and past each
+  // row's width; and the f32 carries dh1' z1 and dh0' z0 (B,H), each cell's
+  // read and written only by the thread that owns it
+  const T* wt;
+  float* carry;
   int B, T_len, S, H, units, unit_tiles, rows, ld_pre, ld_act;
 };
 
@@ -685,52 +773,71 @@ __device__ __forceinline__ float cell_bwd(const CellIn& in, float dh, size_t n3,
   return dh * z;
 }
 
-// The reverse scan. CTA b < unit_tiles * (B / rows rounded up) owns hidden
-// units [(b % unit_tiles) * units, +units) of batch rows [(b / unit_tiles)
-// * rows, +rows), with the units' rows of the five weights in shared
-// memory; in the attention phase every CTA takes batch rows b, b +
-// gridDim.x, ... Four phases a step, separated by grid barriers (see the
-// note at the top).
-template <typename T>
-__global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
+// The reverse scan. Tile b of unit_tiles * (B / rows rounded up) owns
+// hidden units [(b % unit_tiles) * units, +units) of batch rows [(b /
+// unit_tiles) * rows, +rows); resident, CTA b holds tile b with the units'
+// rows of the five weights in shared memory; streamed (kStream), CTA b
+// takes tiles b, b + gridDim.x, ... in turn, reading each tile's rows from
+// wt (through L2), with its carries in global memory. In the attention
+// phase every CTA takes batch rows b, b + gridDim.x, ... Four phases a
+// step, separated by grid barriers (see the note at the top).
+template <typename T, bool kStream>
+__global__ void __launch_bounds__(kDecThreads, kStream ? kDecStreamPerSm : 1)
+decoder_bwd_kernel(DecBwd<T> p) {
   stamp(p.probe, 0);
   cg::grid_group grid = cg::this_grid();
   const int B = p.B, T_len = p.T_len, S = p.S, H = p.H, H3 = 3 * H, units = p.units;
   const int tid = threadIdx.x;
-  const int row_tiles = (B + p.rows - 1) / p.rows;
-  const bool owner = (int)blockIdx.x < p.unit_tiles * row_tiles;
-  const int u0 = (blockIdx.x % p.unit_tiles) * units;
-  const int nu = owner ? max(0, min(units, H - u0)) : 0;
-  const int r0 = owner ? (blockIdx.x / p.unit_tiles) * p.rows : 0;
-  const int nr = owner ? min(p.rows, B - r0) : 0;
-  const int items = nr * nu;  // (row, unit) cells of this CTA
-  const DecLayout<T> L(p.rows, S, H, units);
+  const int tiles = p.unit_tiles * ((B + p.rows - 1) / p.rows);
+  const DecLayout<T> L(p.rows, S, H, units, kStream);
+  const size_t w1n = (size_t)L.wrows * L.ld1, w3n = (size_t)L.wrows * L.ld3;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sp = smem_raw;
-  T* wcq_s = reinterpret_cast<T*>(sp);  // Wc_q[u0 + u, :]
-  sp += L.w1;
-  T* w3_s[4];  // Wh1, Wmid, Wh0, Wfeed rows u0 + u, in the order of act_c
-  for (int i = 0; i < 4; ++i, sp += L.w3) w3_s[i] = reinterpret_cast<T*>(sp);
+  // resident: Wc_q[u0 + u, :], then Wh1, Wmid, Wh0, Wfeed rows u0 + u (in
+  // the order of act_c), w1n and then w3n apart
+  T* w_s = reinterpret_cast<T*>(sp);
+  sp += L.w1 + 4 * L.w3;
   float* prod = reinterpret_cast<float*>(sp);
   sp += L.prod;
-  float* dh1p = reinterpret_cast<float*>(sp);  // (rows, units) dh1' * z1
-  sp += L.carry;
-  float* dh0p = reinterpret_cast<float*>(sp);  // (rows, units) dh0' * z0
-  sp += L.carry;
+  // the f32 carries dh1' z1 and dh0' z0: (rows, units) in shared memory, or
+  // (B, H) in global memory (cell_of)
+  float *dh1p, *dh0p;
+  if constexpr (kStream) {
+    dh1p = p.carry;
+    dh0p = p.carry + (size_t)B * H;
+  } else {
+    dh1p = reinterpret_cast<float*>(sp);
+    dh0p = reinterpret_cast<float*>(sp + L.carry);
+    sp += 2 * L.carry;
+  }
   float* pr_s = reinterpret_cast<float*>(sp);  // (H) pre rounded to T
   float* dpr_s = pr_s + H;                     // (S) dprobs
   float* ds_s = dpr_s + S;                     // (S) dscores rounded to T
+  auto cell_of = [&](const WideTile& c, int mm, int u) -> size_t {
+    return kStream ? (size_t)(c.r0 + mm) * H + c.u0 + u : (size_t)mm * units + u;
+  };
+  // tile c's Wc_q rows; its rows of weight w (0 Wh1, 1 Wmid, 2 Wh0, 3 Wfeed)
+  // are w1n + w * w3n further
+  auto w_of = [&](const WideTile& c) -> const T* {
+    return kStream ? p.wt + (size_t)c.ut * (w1n + 4 * w3n) : w_s;
+  };
 
-  // weight rows into shared memory, zero past nu rows and K columns
-  const T* w3[4] = {p.wh1, p.wmid, p.wh0, p.wfeed};
-  for (int i = tid; i < L.wrows * L.ld1; i += kDecThreads) {
-    const int u = i / L.ld1, k = i % L.ld1;
-    wcq_s[i] = u < nu && k < H ? p.wcq[(size_t)(u0 + u) * H + k] : from_f<T>(0.f);
-  }
-  for (int w = 0; w < 4; ++w) {
-    for (int i = tid; i < L.wrows * L.ld3; i += kDecThreads) {
-      const int u = i / L.ld3, k = i % L.ld3;
-      w3_s[w][i] = u < nu && k < H3 ? w3[w][(size_t)(u0 + u) * H3 + k] : from_f<T>(0.f);
+  if constexpr (!kStream) {
+    if ((int)blockIdx.x < tiles) {
+      // weight rows into shared memory, zero past nu rows and K columns
+      const WideTile c(blockIdx.x, p.unit_tiles, units, p.rows, H, B);
+      const T* w3[4] = {p.wh1, p.wmid, p.wh0, p.wfeed};
+      for (int i = tid; i < L.wrows * L.ld1; i += kDecThreads) {
+        const int u = i / L.ld1, k = i % L.ld1;
+        w_s[i] = u < c.nu && k < H ? p.wcq[(size_t)(c.u0 + u) * H + k] : from_f<T>(0.f);
+      }
+      for (int w = 0; w < 4; ++w) {
+        for (int i = tid; i < L.wrows * L.ld3; i += kDecThreads) {
+          const int u = i / L.ld3, k = i % L.ld3;
+          w_s[w1n + w * w3n + i] =
+              u < c.nu && k < H3 ? w3[w][(size_t)(c.u0 + u) * H3 + k] : from_f<T>(0.f);
+        }
+      }
     }
   }
   // carries and the padding columns of the rounded copies start at zero
@@ -797,24 +904,27 @@ __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
     phase_end(grid, p.probe, step, 0, true);
 
     // phase 2: dh1' = dk + round(pre) @ Wc_q^T, then GRU1's cell backward
-    if (items > 0) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      const int nu = c.nu, r0 = c.r0, items = c.nr * nu;
+      if (items == 0) continue;
       CellIn first;
       auto load1 = [&](int i, CellIn& in) {
-        const int m = r0 + i / nu, j = u0 + i % nu;
+        const int m = r0 + i / nu, j = c.u0 + i % nu;
         load_gates(p.x1, p.hp1, ((size_t)m * T_len + t) * H3, j, H, in);
         in.h_prev = t == 0 ? p.h01[(size_t)m * H + j]
                            : to_f(p.h1s[((size_t)m * T_len + t - 1) * H + j]);
         in.a = __ldcg(p.dk + (size_t)m * H + j);
       };
       if (tid < items) load1(tid, first);
-      block_product<T>(p.pre_c, p.ld_pre, H, wcq_s, L.ld1, nu, r0, nr, prod);
+      block_product<T>(p.pre_c, p.ld_pre, H, w_of(c), L.ld1, nu, r0, c.nr, prod);
       for (int i = tid; i < items; i += kDecThreads) {
         CellIn in = first;
         if (i != tid) load1(i, in);
         const int mm = i / nu, u = i % nu, m = r0 + mm;
         const float dh = prod[mm * kDecUnitsMma + u] + in.a;
-        dh1p[mm * units + u] =
-            cell_bwd<T>(in, dh, ((size_t)m * T_len + t) * H3, u0 + u, H, p.dx1, p.dhp1,
+        dh1p[cell_of(c, mm, u)] =
+            cell_bwd<T>(in, dh, ((size_t)m * T_len + t) * H3, c.u0 + u, H, p.dx1, p.dhp1,
                         dx1_c + (size_t)m * p.ld_act, dhp1_c + (size_t)m * p.ld_act);
       }
     }
@@ -822,10 +932,13 @@ __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
 
     // phase 3: dh1 = dh1'z1 + round(dhp1) @ Wh1^T; dh0' = dmid * (round(dx1)
     // @ Wmid^T) + dh0, then GRU0's cell backward
-    if (items > 0) {
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      const int nu = c.nu, r0 = c.r0, items = c.nr * nu;
+      if (items == 0) continue;
       CellIn first;
       auto load0 = [&](int i, CellIn& in) {
-        const int m = r0 + i / nu, j = u0 + i % nu;
+        const int m = r0 + i / nu, j = c.u0 + i % nu;
         const size_t mt = (size_t)m * T_len + t;
         load_gates(p.x0, p.hp0, mt * H3, j, H, in);
         in.h_prev = t == 0 ? p.h00[(size_t)m * H + j]
@@ -834,37 +947,42 @@ __global__ void __launch_bounds__(kDecThreads) decoder_bwd_kernel(DecBwd<T> p) {
         in.b = __ldcg(p.dh00 + (size_t)m * H + j);
       };
       if (tid < items) load0(tid, first);
-      block_product<T>(dhp1_c, p.ld_act, H3, w3_s[0], L.ld3, nu, r0, nr, prod);
+      block_product<T>(dhp1_c, p.ld_act, H3, w_of(c) + w1n, L.ld3, nu, r0, c.nr, prod);
       for (int i = tid; i < items; i += kDecThreads) {
         const int mm = i / nu, u = i % nu;
-        p.dh01[(size_t)(r0 + mm) * H + u0 + u] =
-            dh1p[mm * units + u] + prod[mm * kDecUnitsMma + u];
+        p.dh01[(size_t)(r0 + mm) * H + c.u0 + u] =
+            dh1p[cell_of(c, mm, u)] + prod[mm * kDecUnitsMma + u];
       }
-      block_product<T>(dx1_c, p.ld_act, H3, w3_s[1], L.ld3, nu, r0, nr, prod);
+      block_product<T>(dx1_c, p.ld_act, H3, w_of(c) + w1n + w3n, L.ld3, nu, r0, c.nr, prod);
       for (int i = tid; i < items; i += kDecThreads) {
         CellIn in = first;
         if (i != tid) load0(i, in);
         const int mm = i / nu, u = i % nu, m = r0 + mm;
         const float dh = in.a * prod[mm * kDecUnitsMma + u] + in.b;
-        dh0p[mm * units + u] =
-            cell_bwd<T>(in, dh, ((size_t)m * T_len + t) * H3, u0 + u, H, p.dx0, p.dhp0,
+        dh0p[cell_of(c, mm, u)] =
+            cell_bwd<T>(in, dh, ((size_t)m * T_len + t) * H3, c.u0 + u, H, p.dx0, p.dhp0,
                         dx0_c + (size_t)m * p.ld_act, dhp0_c + (size_t)m * p.ld_act);
       }
     }
     phase_end(grid, p.probe, step, 2, true);
 
     // phase 4: dh0 = dh0'z0 + round(dhp0) @ Wh0^T; dfeed = round(dx0) @ Wfeed^T
-    if (items > 0) {
-      block_product<T>(dhp0_c, p.ld_act, H3, w3_s[2], L.ld3, nu, r0, nr, prod);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
+      const int nu = c.nu, r0 = c.r0, items = c.nr * nu;
+      if (items == 0) continue;
+      block_product<T>(dhp0_c, p.ld_act, H3, w_of(c) + w1n + 2 * w3n, L.ld3, nu, r0, c.nr,
+                       prod);
       for (int i = tid; i < items; i += kDecThreads) {
         const int mm = i / nu, u = i % nu;
-        p.dh00[(size_t)(r0 + mm) * H + u0 + u] =
-            dh0p[mm * units + u] + prod[mm * kDecUnitsMma + u];
+        p.dh00[(size_t)(r0 + mm) * H + c.u0 + u] =
+            dh0p[cell_of(c, mm, u)] + prod[mm * kDecUnitsMma + u];
       }
-      block_product<T>(dx0_c, p.ld_act, H3, w3_s[3], L.ld3, nu, r0, nr, prod);
+      block_product<T>(dx0_c, p.ld_act, H3, w_of(c) + w1n + 3 * w3n, L.ld3, nu, r0, c.nr,
+                       prod);
       for (int i = tid; i < items; i += kDecThreads) {
         const int mm = i / nu, u = i % nu;
-        p.dfeed[(size_t)(r0 + mm) * H + u0 + u] = prod[mm * kDecUnitsMma + u];
+        p.dfeed[(size_t)(r0 + mm) * H + c.u0 + u] = prod[mm * kDecUnitsMma + u];
       }
     }
     phase_end(grid, p.probe, step, 3, t > 0);
@@ -877,8 +995,8 @@ int decoder_bwd(const T* emb_proj, const T* dmid, const float* h00, const float*
                 const T* wh1, const float* bh1, const T* keys, const T* mem_v, const T* wcq,
                 const T* attn_hs, const T* h0s, const T* h1s, const T* probs,
                 const float* d_attn, const float* d_probs, float* const* o, float* gates,
-                float* fscratch, T* tscratch, unsigned long long* probe, int B, int T_len, int S,
-                int H, int units, int rows, int grid, cudaStream_t stream) {
+                float* fscratch, T* tscratch, const T* wt, unsigned long long* probe, int B,
+                int T_len, int S, int H, int units, int rows, int grid, cudaStream_t stream) {
   const int H3 = 3 * H, M = B * T_len;
   const size_t G = (size_t)M * H3;
   float* x0 = gates;
@@ -893,9 +1011,12 @@ int decoder_bwd(const T* emb_proj, const T* dmid, const float* h00, const float*
   }};
   tile_gemm<T>(hoist, stream);
 
-  const size_t smem = DecLayout<T>(rows, S, H, units).total;
-  const cudaError_t err = cudaFuncSetAttribute(
-      decoder_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const bool streamed = wt != nullptr;
+  const size_t smem = DecLayout<T>(rows, S, H, units, streamed).total;
+  void* kernel = streamed ? reinterpret_cast<void*>(decoder_bwd_kernel<T, true>)
+                          : reinterpret_cast<void*>(decoder_bwd_kernel<T, false>);
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   DecBwd<T> p;
   p.dmid = dmid;
@@ -928,6 +1049,8 @@ int decoder_bwd(const T* emb_proj, const T* dmid, const float* h00, const float*
   p.dh01 = o[7];
   p.dfeed = fscratch;
   p.dk = fscratch + (size_t)B * H;
+  p.wt = wt;
+  p.carry = streamed ? fscratch + 2 * (size_t)B * H : nullptr;
   p.ld_pre = pad32(H);
   p.ld_act = pad32(H3);
   p.pre_c = tscratch;
@@ -942,43 +1065,49 @@ int decoder_bwd(const T* emb_proj, const T* dmid, const float* h00, const float*
   p.rows = rows;
   void* args[] = {&p};
   // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that is not co-resident
-  return (int)cudaLaunchCooperativeKernel(reinterpret_cast<void*>(decoder_bwd_kernel<T>),
-                                          dim3(grid), dim3(kDecThreads), args, smem, stream);
+  return (int)cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kDecThreads), args, smem,
+                                          stream);
 }
 
 }  // namespace
 
 // Checks the CTA tiling that a launch plan gives (units at most 8 in bf16
-// and f16, 4 in f32; rows a multiple of 16; a CTA for every tile).
-static bool valid_tiling(int dtype, int B, int H, int units, int rows, int grid) {
+// and f16, 4 in f32; rows a multiple of 16; resident, a CTA for every
+// tile; streamed, at least one CTA).
+static bool valid_tiling(int dtype, int B, int H, int units, int rows, int grid, bool streamed) {
   const int max_units = dtype == 0 ? kDecUnitsFma : kDecUnitsMma;
+  const int tiles = ((H + units - 1) / units) * ((B + rows - 1) / rows);
   return known_dtype(dtype) && units >= 1 && units <= max_units && rows >= 16 && rows % 16 == 0 &&
-         grid >= ((H + units - 1) / units) * ((B + rows - 1) / rows);
+         grid >= (streamed ? 1 : tiles);
 }
 
 // Forward over the sequence in one persistent cooperative launch on `grid`
-// CTAs (co-resident, else an error), of which the first ceil(H / units) *
-// ceil(B / rows) each own `units` hidden units (at most 8 in bf16 and f16,
-// 4 in f32) of `rows` batch rows (a multiple of 16). dtype: 0 = float32, 1 =
+// CTAs (co-resident, else an error). Its tiles, ceil(H / units) *
+// ceil(B / rows), each own `units` hidden units (at most 8 in bf16 and f16,
+// 4 in f32) of `rows` batch rows (a multiple of 16). wt null: the resident
+// plan, a CTA a tile (grid at least the tiles); else the streamed plan, wt
+// the five weights laid out as DecFwd::wt says (ops/decoder.py
+// _stream_weights), each CTA taking tiles in turn. dtype: 0 = float32, 1 =
 // bfloat16, 2 = float16 for every tensor but h00, h01, the biases and
 // mask_bias (f32); any other code is cudaErrorInvalidValue, in every entry.
 // H a multiple of 4. emb_proj (B,T,3H), dmid (B,T,H), keys and mem_v
 // (B,S,H) 16-byte aligned, mask_bias (B,S);
 // writes attn_hs, h0s, h1s (B,T,H) and probs (B,T,S). Scratch: tscratch
 // 5*B*pad32(H) elements of the compute dtype (pad32 rounds up to a multiple
-// of 32), fscratch B*H + 1 floats. probe: null, or 2 + 8*T 64-bit stamps.
+// of 32), fscratch B*H + 1 floats (streamed: 10*B*H + 1). probe: null, or
+// 2 + 8*T 64-bit stamps.
 extern "C" int vmmt_decoder_fwd(int dtype, const void* emb_proj, const void* dmid,
                                 const void* h00, const void* h01, const void* wfeed,
                                 const void* wh0, const void* bh0, const void* wmid,
                                 const void* bmid, const void* wh1, const void* bh1,
                                 const void* keys, const void* mem_v, const void* wcq,
                                 const void* mask_bias, void* attn_hs, void* h0s, void* h1s,
-                                void* probs, void* tscratch, void* fscratch, void* probe, int B,
-                                int T_len, int S, int H, int units, int rows, int grid,
-                                void* stream) {
+                                void* probs, void* tscratch, void* fscratch, const void* wt,
+                                void* probe, int B, int T_len, int S, int H, int units, int rows,
+                                int grid, void* stream) {
   if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
-  if (!valid_tiling(dtype, B, H, units, rows, grid) || H % 4 != 0 ||
+  if (!valid_tiling(dtype, B, H, units, rows, grid, wt != nullptr) || H % 4 != 0 ||
       reinterpret_cast<uintptr_t>(keys) % 16 != 0 || reinterpret_cast<uintptr_t>(mem_v) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -993,7 +1122,7 @@ extern "C" int vmmt_decoder_fwd(int dtype, const void* emb_proj, const void* dmi
         f[3], static_cast<const T*>(wh1), f[4], static_cast<const T*>(keys),
         static_cast<const T*>(mem_v), static_cast<const T*>(wcq), f[5], static_cast<T*>(attn_hs),
         static_cast<T*>(h0s), static_cast<T*>(h1s), static_cast<T*>(probs),
-        static_cast<T*>(tscratch), static_cast<float*>(fscratch),
+        static_cast<T*>(tscratch), static_cast<float*>(fscratch), static_cast<const T*>(wt),
         static_cast<unsigned long long*>(probe), B, T_len, S, H, units, rows, grid, s);
   };
   const int err = by_dtype(dtype, run);
@@ -1002,23 +1131,34 @@ extern "C" int vmmt_decoder_fwd(int dtype, const void* emb_proj, const void* dmi
 
 // How many CTAs of the forward's persistent kernel the card holds at once,
 // and the dynamic shared memory of one CTA, for CTAs of `units` units and
-// `rows` batch rows.
+// `rows` batch rows: the resident kernel (vmmt_decoder_fwd_occupancy) and
+// the streamed one (vmmt_decoder_fwd_stream_occupancy).
 extern "C" int vmmt_decoder_fwd_occupancy(int dtype, int rows, int S, int H, int units,
                                           int* max_blocks, int* smem_bytes) {
   return by_dtype(dtype, [&](auto zero) {
     using T = decltype(zero);
-    return co_resident(decoder_fwd_kernel<T>, DecFwdLayout<T>(rows, S, H, units).total,
+    return co_resident(decoder_fwd_kernel<T, false>,
+                       DecFwdLayout<T>(rows, S, H, units, false).total, max_blocks, smem_bytes);
+  });
+}
+
+extern "C" int vmmt_decoder_fwd_stream_occupancy(int dtype, int rows, int S, int H, int units,
+                                                 int* max_blocks, int* smem_bytes) {
+  return by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    return co_resident(decoder_fwd_kernel<T, true>, DecFwdLayout<T>(rows, S, H, units, true).total,
                        max_blocks, smem_bytes);
   });
 }
 
 // Backward over the sequence in two launches: the hoisted gate products and
-// the persistent cooperative kernel, tiled as the forward's. Inputs as the
-// forward's plus its four streams and d_attn (B,T,H), d_probs (B,T,S) in
-// f32; writes dx0, dhp0, dx1, dhp1 (B,T,3H), pre (B,T,H), dscores (B,T,S),
-// dh00, dh01 (B,H), all f32. Scratch: gates 4*B*T*3H floats, fscratch
-// 2*B*H floats, tscratch B*pad32(H) + 4*B*pad32(3H) elements of the compute
-// dtype. probe: null, or 2 + 8*T 64-bit stamps.
+// the persistent cooperative kernel, tiled as the forward's (wt: as the
+// forward's, laid out as DecBwd::wt says). Inputs as the forward's plus its
+// four streams and d_attn (B,T,H), d_probs (B,T,S) in f32; writes dx0,
+// dhp0, dx1, dhp1 (B,T,3H), pre (B,T,H), dscores (B,T,S), dh00, dh01
+// (B,H), all f32. Scratch: gates 4*B*T*3H floats, fscratch 2*B*H floats
+// (streamed: 4*B*H), tscratch B*pad32(H) + 4*B*pad32(3H) elements of the
+// compute dtype. probe: null, or 2 + 8*T 64-bit stamps.
 extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmid,
                                 const void* h00, const void* h01, const void* wfeed,
                                 const void* wh0, const void* bh0, const void* wmid,
@@ -1028,11 +1168,13 @@ extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmi
                                 const void* probs, const void* d_attn, const void* d_probs,
                                 void* dx0, void* dhp0, void* dx1, void* dhp1, void* pre,
                                 void* dscores, void* dh00, void* dh01, void* gates,
-                                void* fscratch, void* tscratch, void* probe, int B, int T_len,
-                                int S, int H, int units, int rows, int grid, void* stream) {
+                                void* fscratch, void* tscratch, const void* wt, void* probe,
+                                int B, int T_len, int S, int H, int units, int rows, int grid,
+                                void* stream) {
   if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
-  if (!valid_tiling(dtype, B, H, units, rows, grid)) return (int)cudaErrorInvalidValue;
+  if (!valid_tiling(dtype, B, H, units, rows, grid, wt != nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* f[] = {static_cast<const float*>(h00), static_cast<const float*>(h01),
                       static_cast<const float*>(bh0), static_cast<const float*>(bmid),
@@ -1051,8 +1193,8 @@ extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmi
         static_cast<const T*>(mem_v), static_cast<const T*>(wcq), static_cast<const T*>(attn_hs),
         static_cast<const T*>(h0s), static_cast<const T*>(h1s), static_cast<const T*>(probs), f[5],
         f[6], o, static_cast<float*>(gates), static_cast<float*>(fscratch),
-        static_cast<T*>(tscratch), static_cast<unsigned long long*>(probe), B, T_len, S, H,
-        units, rows, grid, s);
+        static_cast<T*>(tscratch), static_cast<const T*>(wt),
+        static_cast<unsigned long long*>(probe), B, T_len, S, H, units, rows, grid, s);
   };
   const int err = by_dtype(dtype, run);
   return err != 0 ? err : (int)cudaGetLastError();
@@ -1060,12 +1202,21 @@ extern "C" int vmmt_decoder_bwd(int dtype, const void* emb_proj, const void* dmi
 
 // How many CTAs of the backward's persistent kernel the card holds at once,
 // and the dynamic shared memory of one CTA, for CTAs of `units` units and
-// `rows` batch rows.
+// `rows` batch rows: resident and streamed.
 extern "C" int vmmt_decoder_bwd_occupancy(int dtype, int rows, int S, int H, int units,
                                           int* max_blocks, int* smem_bytes) {
   return by_dtype(dtype, [&](auto zero) {
     using T = decltype(zero);
-    return co_resident(decoder_bwd_kernel<T>, DecLayout<T>(rows, S, H, units).total, max_blocks,
-                       smem_bytes);
+    return co_resident(decoder_bwd_kernel<T, false>, DecLayout<T>(rows, S, H, units, false).total,
+                       max_blocks, smem_bytes);
+  });
+}
+
+extern "C" int vmmt_decoder_bwd_stream_occupancy(int dtype, int rows, int S, int H, int units,
+                                                 int* max_blocks, int* smem_bytes) {
+  return by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    return co_resident(decoder_bwd_kernel<T, true>, DecLayout<T>(rows, S, H, units, true).total,
+                       max_blocks, smem_bytes);
   });
 }

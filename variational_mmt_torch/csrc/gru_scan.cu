@@ -811,18 +811,6 @@ struct WideBlocks {
   static constexpr int kPerSm = is_mma<T>() ? 1 : 2;
 };
 
-// One unit tile of one row tile: units [u0, u0 + nu) of rows [r0, r0 + nr).
-struct WideTile {
-  int ut, u0, nu, r0, nr;
-  __device__ WideTile(int tile, int unit_tiles, int units, int rows, int H, int B) {
-    ut = tile % unit_tiles;
-    u0 = ut * units;
-    nu = max(0, min(units, H - u0));
-    r0 = (tile / unit_tiles) * rows;
-    nr = max(0, min(rows, B - r0));
-  }
-};
-
 // Tile b of the launch's unit_tiles x row_tiles tiles: units [(b %
 // unit_tiles) * units, +units) of batch rows [(b / unit_tiles) * rows,
 // +rows). The wide plan gives each CTA one tile (b = blockIdx.x), the

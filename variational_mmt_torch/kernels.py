@@ -64,18 +64,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "decoder": {
         # dtype, emb_proj, dmid, h00, h01, wfeed, wh0, bh0, wmid, bmid, wh1,
         # bh1, keys, mem_v, wc_q, mask_bias, attn_hs, h0s, h1s, probs,
-        # compute-dtype and f32 scratch, probe, B, T, S, H, units, rows,
-        # grid, stream
-        "vmmt_decoder_fwd": [_I] + [_P] * 22 + [_I] * 7 + [_P],
+        # compute-dtype and f32 scratch, laid-out weights (null: the
+        # resident plan), probe, B, T, S, H, units, rows, grid, stream
+        "vmmt_decoder_fwd": [_I] + [_P] * 23 + [_I] * 7 + [_P],
         # dtype, rows, S, H, units, out: max co-resident CTAs, smem bytes
+        # (the resident kernel, then the streamed one)
         "vmmt_decoder_fwd_occupancy": [_I] * 5 + [_P] * 2,
+        "vmmt_decoder_fwd_stream_occupancy": [_I] * 5 + [_P] * 2,
         # dtype, the 14 forward inputs but mask_bias, attn_hs, h0s, h1s,
         # probs, d_attn, d_probs, dx0, dhp0, dx1, dhp1, pre, dscores, dh00,
-        # dh01, gates, f32 and compute-dtype scratch, probe, B, T, S, H,
-        # units, rows, grid, stream
-        "vmmt_decoder_bwd": [_I] + [_P] * 32 + [_I] * 7 + [_P],
+        # dh01, gates, f32 and compute-dtype scratch, laid-out weights
+        # (null: resident), probe, B, T, S, H, units, rows, grid, stream
+        "vmmt_decoder_bwd": [_I] + [_P] * 33 + [_I] * 7 + [_P],
         # dtype, rows, S, H, units, out: max co-resident CTAs, smem bytes
         "vmmt_decoder_bwd_occupancy": [_I] * 5 + [_P] * 2,
+        "vmmt_decoder_bwd_stream_occupancy": [_I] * 5 + [_P] * 2,
     },
     "decode_step": {
         # dtype, emb_proj, h0, h1, feed, wfeed, wh0, bh0, wmid, bmid, wh1,
@@ -93,6 +96,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
 # of csrc/common.cuh); every entry returns an error for any other code
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 SMEM_PER_BLOCK = 232_448  # dynamic shared memory one block may use on an H100 (227 KB)
+SMEM_PER_SM = 233_472  # shared memory of an H100 SM (228 KB), 1 KB of it reserved per CTA
 
 
 def align16(n: int) -> int:

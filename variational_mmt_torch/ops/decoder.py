@@ -22,8 +22,9 @@ shared memory for the whole call, in place of re-reading the weights from
 L2 at every step; the products (mma.sync in bf16 and f16) read the other CTAs'
 rounded results from L2, which bounds the phases.
 :func:`decoder_fwd_plan` and :func:`decoder_bwd_plan` size the grid to the
-card's SMs and the shared memory and refuse what the design cannot hold;
-the wrappers check with the card that the grid is co-resident.
+card's SMs and the shared memory and refuse what one launch cannot hold
+(row chunks and the streamed plan below take the rest); the wrappers check
+with the card that each grid is co-resident.
 
 Forward, one launch: GRU0 after ``round(feed) @ Wfeed``; GRU1 after
 ``round(dmid * h0') @ Wmid``; the attention (a CTA a batch row); ``tanh``
@@ -48,8 +49,39 @@ grid barrier (``tools/phase_times.py``).
 The state (h0, h1, feed and, backward, dh0, dh1, dfeed) stays f32 across
 time; only the saved streams are rounded to the compute dtype. The weight
 gradients are products over the (T*B)-long streams outside the kernels, as
-``_pal_bwd`` computes them outside Pallas (decoder.py:398-416). The TPU row
-chunking (``_fwd_rows``, ``_bwd_rows``, a VMEM budget) is not carried over.
+``_pal_bwd`` computes them outside Pallas (decoder.py:398-416).
+
+Batches. A resident CTA's shared memory grows with its batch rows, so a
+batch the plan cannot hold in one launch runs in row chunks, one launch
+each, as JAX's wrappers split a batch above ``_fwd_rows`` / ``_bwd_rows``
+(decoder.py:111-117, :259-266): :func:`decoder_row_chunks` cuts the
+largest multiple of 16 rows whose plan holds (shared memory within a CTA's,
+the grid within the card's co-resident CTAs by
+:func:`co_resident_estimate`). Each row's outputs, local cotangents, dh00
+and dh01 depend on that row alone, so the chunks write their rows of the
+outputs; the weight gradients sum over the whole batch afterwards. The
+chunks reuse the scratch in stream order (each launch zeroes its barrier
+counter and carries in its prologue).
+
+The streamed plan (the kernels' ``kStream`` variants). The resident plan
+keeps each CTA's slices of the five weights in shared memory and a
+co-resident CTA for every tile: bf16's forward holds no chunk of 16 rows
+from H = 932 (its slices outgrow a CTA), the backward from 1060, and f32's
+grid outgrows a 132-SM card from H = 532 (the backward from 536). JAX
+keeps the weights whole in VMEM and takes any width. Where no chunk of 16
+rows holds the resident plan,
+:func:`decoder_stream_plan` runs the same phases on a grid capped at two
+CTAs an SM: each CTA takes its (unit tile, row tile) pairs in turn within
+every phase, reads each tile's weight slices from global memory, laid out
+once a call by :func:`_stream_weights` in the slices' own order (through
+L2; from HBM every step where the five weights, 13 H^2 values, exceed the
+50 MB L2: bf16 above about 1387 units, f32 above about 980), and keeps the
+f32 carries in global memory, each read and written only by the thread
+that owns its cell. A tile's rows are capped at ``DEC_STREAM_MAX_ROWS``,
+so a streamed CTA's shared memory is its product buffer and attention row
+whatever B, and all row tiles run in one launch. :func:`decoder_launches`
+makes the choice for both wrappers; a shape that no plan holds raises
+NotImplementedError, and nothing falls back to the plain versions.
 
 Widths. The attention reads keys and mem_v 4 values at a time, so the
 kernels compute a width that is a multiple of 4; both wrappers take any H
@@ -61,7 +93,8 @@ and so does its cotangent).
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -198,10 +231,11 @@ def decoder_fwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     their biases, keys and mem_v (B,S,H), Wc_q (H,H), mask_bias (B,S) (0
     real, -1e9 pad). Returns (attn_hs, h0s, h1s (B,T,H), probs (B,T,S)) in
     the compute dtype. CPU tensors take the plain version; CUDA tensors
-    launch the kernel at the padded width (the plan of the last launch,
-    with the card's SMs and its count of co-resident CTAs, is kept in
-    ``decoder_fwd.plan``). ``probe``: an optional int64 tensor for the
-    phase stamps."""
+    launch the kernel at the padded width, once, or once a row chunk
+    (:func:`decoder_launches`; the call's plan, with the card's SMs and its
+    count of co-resident CTAs, is kept in ``decoder_fwd.plan``, and
+    ``launches`` counts every launch). ``probe``: an optional int64 tensor
+    for the phase stamps (of the last launch, where there are chunks)."""
     args = (emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1, keys, mem_v, Wc_q)
     if emb_proj.device.type == "cpu":
         return decoder_fwd_ref(*args, mask_bias)
@@ -210,36 +244,64 @@ def decoder_fwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     if tuple(mask_bias.shape) != (B, S):
         raise ValueError(f"decoder_fwd kernel: mask_bias {tuple(mask_bias.shape)} != {(B, S)}")
     mb = mask_bias.to(f32).contiguous()
-    ins[11], ins[12] = kernels.aligned(ins[11]), kernels.aligned(ins[12])  # keys, mem_v
     dev = ins[0].device
     kernels.require_cuda("decoder_fwd", dev, mask_bias=mb)
     probe_ptr = _probe_ptr("decoder_fwd", probe, T, dev)
     lib = kernels.library("decoder")
     code = kernels.DTYPE_CODE[dt]
-    plan = _co_resident_plan("decoder_fwd", "vmmt_decoder_fwd_occupancy",
-                             decoder_fwd_plan(B, S, H, dt, kernels.sm_count(dev.index)),
-                             code, S, H, dev.index)
-    decoder_fwd.plan = plan
+    launches = _checked_launches("decoder_fwd", B, S, H, dt, dev)
+    decoder_fwd.plan = plan = _call_plan(launches)
+    streamed = plan["layout"] == "streamed"
     outs = [torch.empty((B, T, H), dtype=dt, device=dev) for _ in range(3)]
     outs.append(torch.empty((B, T, S), dtype=dt, device=dev))
-    # the rounded h0' (two steps), h1', dmid * h0' and attn that the CTAs
-    # exchange, rows padded to 32; the attention context and a grid
-    # barrier's counter
-    tscratch = torch.empty((5, B, kernels.pad32(H)), dtype=dt, device=dev)
-    fscratch = torch.empty((B * H + 1,), dtype=f32, device=dev)
-    err = lib.vmmt_decoder_fwd(code, *(a.data_ptr() for a in ins + [mb]),
-                               *(o.data_ptr() for o in outs), tscratch.data_ptr(),
-                               fscratch.data_ptr(), probe_ptr, B, T, S, H, plan["units"],
-                               plan["rows"], plan["grid"], kernels.stream_of(ins[0]))
-    kernels.check(lib, err, "decoder_fwd")
-    decoder_fwd.launches += 1
+    rows = max(b1 - b0 for b0, b1, _ in launches)
+    # a launch's rounded h0' (two steps), h1', dmid * h0' and attn that the
+    # CTAs exchange, rows padded to 32; the attention context, the streamed
+    # plan's carries and a grid barrier's counter; the chunks reuse them in
+    # stream order
+    tscratch = torch.empty((5, rows, kernels.pad32(H)), dtype=dt, device=dev)
+    fscratch = torch.empty((rows * H * (10 if streamed else 1) + 1,), dtype=f32, device=dev)
+    wt = _stream_weights("decoder_fwd", *(ins[i] for i in (4, 5, 7, 9, 13)), plan) \
+        if streamed else None
+
+    def launch(p, part, out):
+        part[11], part[12] = kernels.aligned(part[11]), kernels.aligned(part[12])
+        err = lib.vmmt_decoder_fwd(code, *(a.data_ptr() for a in part),
+                                   *(o.data_ptr() for o in out), tscratch.data_ptr(),
+                                   fscratch.data_ptr(), None if wt is None else wt.data_ptr(),
+                                   probe_ptr, part[0].shape[0], T, S, H, p["units"], p["rows"],
+                                   p["grid"], kernels.stream_of(ins[0]))
+        kernels.check(lib, err, "decoder_fwd")
+        decoder_fwd.launches += 1
+
+    in_row_chunks(launch, launches, ins + [mb], FWD_BATCHED, outs)
     return tuple(unpad_units(o, H0, H) for o in outs[:3]) + (outs[3],)
+
+
+# the arguments with a batch dimension: the forward's emb_proj, dmid, h00,
+# h01, keys, mem_v and mask_bias; the backward's also its streams and
+# cotangents
+FWD_BATCHED = (0, 1, 2, 3, 11, 12, 14)
+BWD_BATCHED = (0, 1, 2, 3, 11, 12, 14, 15, 16, 17, 18, 19)
+
+
+def in_row_chunks(launch, launches, args, batched, outs) -> None:
+    """The chunk loop of both wrappers: for each (first row, end row, plan)
+    of ``launches``, ``launch(plan, args of the chunk, outs of the chunk)``
+    with those rows of the arguments whose index is in ``batched`` (the
+    others whole) and of every output, which the launch writes: the
+    chunks' outputs join along B, as JAX's wrappers concatenate theirs."""
+    for b0, b1, plan in launches:
+        launch(plan, [a[b0:b1] if i in batched else a for i, a in enumerate(args)],
+               [o[b0:b1] for o in outs])
 
 
 # hidden units per CTA, both passes (tile_rows of csrc/block_product.cuh)
 DEC_UNITS = {torch.bfloat16: 8, torch.float16: 8, torch.float32: 4}
 DEC_WARPS = 8  # warps of a CTA (kDecWarps of csrc/decoder.cu)
 DEC_PHASES = 4  # grid-barrier phases of a step (kDecPhases)
+DEC_STREAM_MAX_ROWS = 128  # batch rows of a streamed tile; more rows make more row tiles
+DEC_STREAM_PER_SM = 2  # most CTAs an SM of the streamed kernels (kDecStreamPerSm)
 
 
 def probe_len(T: int) -> int:
@@ -263,7 +325,8 @@ def _tiling(what: str, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     rows = kernels.align16(-(-B // row_tiles))
     row_tiles = -(-B // rows)
     grid = max(unit_tiles * row_tiles, min(B, sms))
-    return dict(units=units, rows=rows, unit_tiles=unit_tiles, row_tiles=row_tiles, grid=grid)
+    return dict(layout="resident", units=units, rows=rows, unit_tiles=unit_tiles,
+                row_tiles=row_tiles, grid=grid)
 
 
 def _checked_smem(what: str, smem: int, B: int, S: int, H: int) -> int:
@@ -273,70 +336,245 @@ def _checked_smem(what: str, smem: int, B: int, S: int, H: int) -> int:
     return smem
 
 
-def decoder_fwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> dict:
-    """Launch plan of the forward's persistent kernel on a card of ``sms``
-    SMs: the tiling of :func:`_tiling` and ``smem`` bytes of dynamic shared
-    memory per CTA: the units' gate columns of Wfeed, Wh0, Wmid and Wh1
-    (three n-tiles of 8 columns in bf16 and f16, 4 in f32) and columns of Wc_q (one
-    n-tile), each a (columns, K) slice at the padded stride; the product
-    buffer (4 n-tiles of 8 floats a row, with room for 8 warps' K-split
-    partial sums of 16 rows in 16 bits); the f32 carries h0, h1, qw (rows,
-    units); the hidden products hp0, hp1 (rows, units, 3); the attention
-    row (3H + S floats). Mirrors ``DecFwdLayout`` of csrc/decoder.cu. At the
-    flagship's width a bf16 or f16 CTA takes about 141 KB, one an SM. Planned at
-    the padded width ``padded`` (the wrapper pads H to a multiple of 4).
-    Raises NotImplementedError for what the design cannot hold."""
-    H = padded_width(H)
-    plan = _tiling("decoder_fwd", B, H, dtype, sms)
+def _fwd_smem(rows: int, S: int, H: int, dtype: torch.dtype, streamed: bool = False) -> int:
+    """Shared memory of a forward CTA of ``rows`` batch rows at the padded
+    width H (``DecFwdLayout`` of csrc/decoder.cu): the product buffer (4
+    n-tiles of 8 floats a row, with room for 8 warps' K-split partial sums
+    of 16 rows in 16 bits) and the attention row (3H + S floats); resident,
+    also the units' gate columns of Wfeed, Wh0, Wmid and Wh1 (three n-tiles
+    of 8 columns in bf16 and f16, 4 in f32) and columns of Wc_q (one
+    n-tile), each a (columns, K) slice at the padded stride, the f32
+    carries h0, h1, qw (rows, units) and the hidden products hp0, hp1
+    (rows, units, 3)."""
     mma = kernels.mma_dtype(dtype)
-    tsize = dtype.itemsize
-    rows, units = plan["rows"], plan["units"]
-    tile = 8 if mma else 4
-    ldw = kernels.frag_ld(H, mma)
-    prod_rows = max(DEC_WARPS * 16, rows) if mma else rows
     a16 = kernels.align16
-    smem = (4 * a16(3 * tile * ldw * tsize) + a16(tile * ldw * tsize) + prod_rows * 4 * 8 * 4
-            + 3 * a16(rows * units * 4) + 2 * a16(rows * units * 3 * 4) + a16((3 * H + S) * 4))
-    return dict(plan, padded=H, smem=_checked_smem("decoder_fwd", smem, B, S, H))
+    prod_rows = max(DEC_WARPS * 16, rows) if mma else rows
+    smem = prod_rows * 4 * 8 * 4 + a16((3 * H + S) * 4)
+    if streamed:
+        return smem
+    tsize, units, tile = dtype.itemsize, DEC_UNITS[dtype], 8 if mma else 4
+    ldw = kernels.frag_ld(H, mma)
+    return (smem + 4 * a16(3 * tile * ldw * tsize) + a16(tile * ldw * tsize)
+            + 3 * a16(rows * units * 4) + 2 * a16(rows * units * 3 * 4))
+
+
+def _bwd_smem(rows: int, S: int, H: int, dtype: torch.dtype, streamed: bool = False) -> int:
+    """Shared memory of a backward CTA (``DecLayout`` of csrc/decoder.cu):
+    the product buffer and the attention row (H + 2S floats); resident, also
+    the units' rows of Wc_q, Wh1, Wmid, Wh0 and Wfeed (rows padded to 32,
+    16-bit ones to an odd multiple of 64 bytes for conflict-free 16-byte
+    reads) and two (rows, units) f32 carries."""
+    mma = kernels.mma_dtype(dtype)
+    prod_rows = max(DEC_WARPS * 16, rows) if mma else rows
+    smem = prod_rows * 8 * 4 + kernels.align16((H + 2 * S) * 4)
+    if streamed:
+        return smem
+    tsize, units = dtype.itemsize, DEC_UNITS[dtype]
+    wrows = 8 if mma else units
+    return (smem + kernels.align16(wrows * kernels.frag_ld(H, mma) * tsize)
+            + 4 * kernels.align16(wrows * kernels.frag_ld(3 * H, mma) * tsize)
+            + 2 * kernels.align16(rows * units * 4))
+
+
+def _resident(what: str, B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The resident plan of one launch of B rows at the padded width, its
+    shared memory not yet checked."""
+    H = padded_width(H)
+    plan = _tiling(what, B, H, dtype, sms)
+    return dict(plan, padded=H, smem=_SMEM[what](plan["rows"], S, H, dtype), chunks=1)
+
+
+def decoder_fwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """Resident launch plan of the forward's persistent kernel for one
+    launch of B rows on a card of ``sms`` SMs: the tiling of :func:`_tiling`
+    and ``smem`` bytes of dynamic shared memory per CTA (:func:`_fwd_smem`,
+    mirrors ``DecFwdLayout`` of csrc/decoder.cu). At the flagship's width a
+    bf16 or f16 CTA takes about 141 KB, one an SM. Planned at the padded
+    width ``padded`` (the wrapper pads H to a multiple of 4). Raises
+    NotImplementedError for what the design cannot hold."""
+    plan = _resident("decoder_fwd", B, S, H, dtype, sms)
+    _checked_smem("decoder_fwd", plan["smem"], B, S, H)
+    return plan
 
 
 def decoder_bwd_plan(B: int, S: int, H: int, dtype: torch.dtype, sms: int) -> dict:
-    """Launch plan of the backward's persistent kernel on a card of ``sms``
-    SMs: the tiling of :func:`_tiling` and ``smem`` bytes of dynamic shared
-    memory per CTA: the units' rows of Wc_q, Wh1, Wmid, Wh0 and Wfeed (rows
-    padded to 32, 16-bit ones to an odd multiple of 64 bytes for
-    conflict-free 16-byte reads), the product buffer, two (rows, units)
-    carries and the attention row. Mirrors ``DecLayout`` of
-    csrc/decoder.cu. Planned at the padded width ``padded``, as the
-    forward. Raises NotImplementedError for what the design cannot hold."""
+    """Resident launch plan of the backward's persistent kernel for one
+    launch of B rows on a card of ``sms`` SMs: the tiling of :func:`_tiling`
+    and ``smem`` bytes of dynamic shared memory per CTA (:func:`_bwd_smem`,
+    mirrors ``DecLayout`` of csrc/decoder.cu). Planned at the padded width
+    ``padded``, as the forward. Raises NotImplementedError for what the
+    design cannot hold."""
+    plan = _resident("decoder_bwd", B, S, H, dtype, sms)
+    _checked_smem("decoder_bwd", plan["smem"], B, S, H)
+    return plan
+
+
+_SMEM = {"decoder_fwd": _fwd_smem, "decoder_bwd": _bwd_smem}
+
+
+def co_resident_estimate(smem: int, sms: int) -> int:
+    """CTAs of ``smem`` bytes of dynamic shared memory that a card of
+    ``sms`` SMs holds at once by its shared memory (1 KB reserved a CTA);
+    the wrappers check each grid with the card itself."""
+    return sms * (kernels.SMEM_PER_SM // (smem + 1024))
+
+
+def _resident_plan(what: str, B: int, S: int, H: int, dtype: torch.dtype,
+                   sms: int) -> Optional[dict]:
+    """The resident plan of one launch of B rows where it holds (shared
+    memory within a CTA's, grid within :func:`co_resident_estimate`), else
+    None."""
+    if B < 1 or H < 1:
+        return None
+    plan = _resident(what, B, S, H, dtype, sms)
+    holds = plan["smem"] <= kernels.SMEM_PER_BLOCK \
+        and plan["grid"] <= co_resident_estimate(plan["smem"], sms)
+    return plan if holds else None
+
+
+def _resident_rows(what: str, B: int, S: int, H: int, dtype: torch.dtype,
+                   sms: int) -> Optional[int]:
+    """Rows of one resident launch: B where the plan holds the batch, else
+    the largest multiple of 16 below B that it holds (a plan of fewer rows
+    takes no more shared memory and no larger grid), else None."""
+    if _resident_plan(what, B, S, H, dtype, sms) is not None:
+        return B
+    lo, hi = 0, (B - 1) // 16  # 16 lo rows hold (none at 0); 16 (hi + 1) do not, or reach B
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if _resident_plan(what, 16 * mid, S, H, dtype, sms) is not None:
+            lo = mid
+        else:
+            hi = mid - 1
+    return 16 * lo or None
+
+
+def decoder_row_chunks(what: str, B: int, S: int, H: int, dtype: torch.dtype,
+                       sms: int) -> List[slice]:
+    """The batch slices of ``what`` (``"decoder_fwd"`` or ``"decoder_bwd"``)
+    whose resident plans each hold one launch, in order: the whole batch
+    where it holds, else chunks of the largest multiple of 16 rows that
+    holds and the rest, as ``decoder_fwd_pallas`` and ``decoder_bwd_pallas``
+    slice a batch above ``_fwd_rows`` / ``_bwd_rows`` (``_slices``,
+    ops/pallas/decoder.py:187). Raises NotImplementedError where no chunk of
+    16 rows holds."""
+    rows = _resident_rows(what, B, S, H, dtype, sms)
+    if rows is None:
+        raise NotImplementedError(f"{what} kernel: the resident plan holds no chunk of 16 rows "
+                                  f"(B={B}, S={S}, H={H})")
+    return [slice(b, min(b + rows, B)) for b in range(0, B, rows)]
+
+
+def decoder_stream_plan(what: str, B: int, S: int, H: int, dtype: torch.dtype,
+                        sms: int) -> dict:
+    """Streamed launch plan of ``what`` for B rows on a card of ``sms``
+    SMs: ``unit_tiles`` of ``units`` units (8 in bf16 and f16, 4 in f32)
+    times ``row_tiles`` of ``rows`` batch rows (a multiple of 16, at most
+    ``DEC_STREAM_MAX_ROWS``), all in one launch (``chunks`` 1) of ``grid``
+    CTAs: as many as there are tiles or batch rows, at most
+    ``DEC_STREAM_PER_SM`` an SM; each CTA takes ``tiles_per_cta`` tiles at
+    most a phase. Shared memory: the product buffer and the attention row
+    (:func:`_fwd_smem`, :func:`_bwd_smem`), whatever B; the weights stay in
+    global memory (:func:`_stream_weights`). Raises NotImplementedError for
+    what it cannot hold."""
+    kernels.dtype_code(what, dtype)
     H = padded_width(H)
-    plan = _tiling("decoder_bwd", B, H, dtype, sms)
-    mma = kernels.mma_dtype(dtype)
-    tsize = dtype.itemsize
-    rows, units = plan["rows"], plan["units"]
-    wrows = 8 if mma else units
-    prod_rows = max(DEC_WARPS * 16, rows) if mma else rows
-    smem = (kernels.align16(wrows * kernels.frag_ld(H, mma) * tsize)
-            + 4 * kernels.align16(wrows * kernels.frag_ld(3 * H, mma) * tsize)
-            + prod_rows * 8 * 4 + 2 * kernels.align16(rows * units * 4)
-            + kernels.align16((H + 2 * S) * 4))
-    return dict(plan, padded=H, smem=_checked_smem("decoder_bwd", smem, B, S, H))
+    if B < 1 or H < 1:
+        raise NotImplementedError(f"{what} kernel: B={B}, H={H}")
+    units = DEC_UNITS[dtype]
+    unit_tiles = -(-H // units)
+    row_tiles = -(-B // DEC_STREAM_MAX_ROWS)
+    rows = kernels.align16(-(-B // row_tiles))
+    smem = _checked_smem(what, _SMEM[what](rows, S, H, dtype, streamed=True), B, S, H)
+    tiles = unit_tiles * row_tiles
+    per_sm = min(DEC_STREAM_PER_SM, kernels.SMEM_PER_SM // (smem + 1024))
+    grid = min(max(tiles, B), per_sm * sms)
+    return dict(layout="streamed", units=units, rows=rows, unit_tiles=unit_tiles,
+                row_tiles=row_tiles, grid=grid, padded=H, smem=smem, chunks=1, tiles=tiles,
+                tiles_per_cta=-(-tiles // grid))
 
 
-def _co_resident_plan(what: str, fn: str, plan: dict, code: int, S: int, H: int,
-                      device: int) -> dict:
-    """``plan`` checked against the kernel's own shared-memory count and the
-    card's count of co-resident CTAs, with the card's SMs and that count."""
+@functools.lru_cache(maxsize=None)
+def decoder_launches(what: str, B: int, S: int, H: int, dtype: torch.dtype,
+                     sms: int) -> Tuple[Tuple[int, int, dict], ...]:
+    """The launches of one call of ``what`` on B rows, each (first row, end
+    row, launch plan), the one choice both wrappers make: the resident plan
+    where it holds, in row chunks (:func:`decoder_row_chunks`) where it
+    holds only fewer rows than B; else the streamed plan
+    (:func:`decoder_stream_plan`) in one launch; else NotImplementedError.
+    The wrappers check each plan with the card; nothing falls back to the
+    plain versions."""
+    rows = _resident_rows(what, B, S, H, dtype, sms)
+    if rows is None:
+        return ((0, B, decoder_stream_plan(what, B, S, H, dtype, sms)),)
+    return tuple((s.start, s.stop, _resident(what, s.stop - s.start, S, H, dtype, sms))
+                 for s in decoder_row_chunks(what, B, S, H, dtype, sms))
+
+
+def _co_resident_plan(what: str, plan: dict, code: int, S: int, H: int, device: int) -> dict:
+    """``plan`` checked against the card's count of co-resident CTAs of its
+    kernel (resident or streamed) and the kernel's own shared-memory count,
+    with the card's SMs and that count."""
+    fn = f"vmmt_{what}_{'stream_' if plan['layout'] == 'streamed' else ''}occupancy"
     co_resident, smem = kernels.occupancy(device, "decoder", fn, code, plan["rows"], S, H,
                                           plan["units"])
+    if plan["grid"] > co_resident:
+        raise NotImplementedError(f"{what} kernel: {plan['grid']} CTAs of the {plan['layout']} "
+                                  f"plan with {smem} bytes of shared memory each exceed the "
+                                  f"{co_resident} the card holds at once")
     if smem != plan["smem"]:
         raise RuntimeError(f"{what} kernel: plan of {plan['smem']} bytes of shared memory, "
                            f"the kernel takes {smem}")
-    if plan["grid"] > co_resident:
-        raise NotImplementedError(f"{what} kernel: {plan['grid']} CTAs with {smem} bytes "
-                                  f"of shared memory each exceed the {co_resident} the card "
-                                  "holds at once")
     return dict(plan, sms=kernels.sm_count(device), max_co_resident=co_resident)
+
+
+def _checked_launches(what: str, B: int, S: int, H: int, dtype: torch.dtype,
+                      device: torch.device) -> list:
+    """:func:`decoder_launches` on ``device``'s card, each plan checked
+    with it (:func:`_co_resident_plan`)."""
+    code = kernels.DTYPE_CODE[dtype]
+    launches = decoder_launches(what, B, S, H, dtype, kernels.sm_count(device.index))
+    return [(b0, b1, _co_resident_plan(what, plan, code, S, H, device.index))
+            for b0, b1, plan in launches]
+
+
+def _call_plan(launches: list) -> dict:
+    """What a wrapper keeps of a call's launches: the plan of its one
+    launch, or the first launch's plan with the chunk count and every
+    launch's plan."""
+    plans = [plan for _, _, plan in launches]
+    return plans[0] if len(plans) == 1 else dict(plans[0], chunks=len(plans), launch_plans=plans)
+
+
+def _stream_weights(what: str, Wfeed, Wh0, Wmid, Wh1, Wc_q, plan: dict) -> torch.Tensor:
+    """The five weights laid out once a call for the streamed kernels (``wt``
+    of ``DecFwd`` and ``DecBwd``): for each unit tile, the slices a resident
+    CTA keeps in shared memory, in their order and at their strides, zero
+    past H and past the tile's units. Forward: (unit_tiles, 13, units,
+    frag_ld(H)), whose [tile, 3 w + g, u, k] is W_w[k, g H + tile units + u]
+    for W_w = Wfeed, Wh0, Wmid, Wh1 (w = 0..3, gate g) and [tile, 12, u, k]
+    Wc_q[k, tile units + u]. Backward: (unit_tiles, units (frag_ld(H) + 4
+    frag_ld(3H))): a tile's rows u of Wc_q (frag_ld(H) wide), then of Wh1,
+    Wmid, Wh0 and Wfeed (frag_ld(3H) wide), row tile units + u of each."""
+    H = Wfeed.shape[0]
+    units, ut = plan["units"], plan["unit_tiles"]
+    mma = kernels.mma_dtype(Wfeed.dtype)
+    if what == "decoder_bwd":
+        def rows(W, K):
+            out = W.new_zeros((ut * units, kernels.frag_ld(K, mma)))
+            out[:H, :K] = W
+            return out.view(ut, -1)
+
+        return torch.cat([rows(Wc_q, H)] + [rows(W, 3 * H) for W in (Wh1, Wmid, Wh0, Wfeed)],
+                         dim=1)
+
+    def cols(W, gates):
+        out = W.new_zeros((gates, ut * units, kernels.frag_ld(H, mma)))
+        out[:, :H, :H] = W.view(H, gates, H).permute(1, 2, 0)  # [g, u, k] = W[k, g H + u]
+        return out.view(gates, ut, units, -1).transpose(0, 1)
+
+    return torch.cat([cols(W, 3) for W in (Wfeed, Wh0, Wmid, Wh1)] + [cols(Wc_q, 1)],
+                     dim=1).contiguous()
 
 
 def _probe_ptr(what: str, probe, T: int, device) -> int:
@@ -356,10 +594,10 @@ def decoder_bwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     mask_bias), its four streams and the cotangents d_attn (B,T,H) and
     d_probs (B,T,S). Returns (dx0, dhp0, dx1, dhp1, pre, dscores, dh00,
     dh01) in f32. CPU tensors take the plain version; CUDA tensors launch
-    the kernels at the padded width (the plan of the last launch, with the
-    card's SMs and its count of co-resident CTAs, is kept in
-    ``decoder_bwd.plan``). ``probe``: an optional int64 tensor for the
-    phase stamps."""
+    the kernels at the padded width, once or once a row chunk, as the
+    forward (the call's plan is kept in ``decoder_bwd.plan``); each row's
+    outputs depend on that row alone, so the chunks' join by row.
+    ``probe``: an optional int64 tensor for the phase stamps."""
     args = (emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1, keys, mem_v, Wc_q)
     if emb_proj.device.type == "cpu":
         return decoder_bwd_ref(*args, attn_hs, h0s, h1s, probs, d_attn, d_probs)
@@ -381,27 +619,35 @@ def decoder_bwd(emb_proj, dmid, h00, h01, Wfeed, Wh0, bh0, Wmid, bmid, Wh1, bh1,
     lib = kernels.library("decoder")
     dev = ins[0].device
     code = kernels.DTYPE_CODE[dt]
-    plan = _co_resident_plan("decoder_bwd", "vmmt_decoder_bwd_occupancy",
-                             decoder_bwd_plan(B, S, H, dt, kernels.sm_count(dev.index)),
-                             code, S, H, dev.index)
-    decoder_bwd.plan = plan
+    launches = _checked_launches("decoder_bwd", B, S, H, dt, dev)
+    decoder_bwd.plan = plan = _call_plan(launches)
+    streamed = plan["layout"] == "streamed"
     outs = [torch.empty((B, T, 3 * H), dtype=f32, device=dev) for _ in range(4)]
     outs += [torch.empty((B, T, H), dtype=f32, device=dev),
              torch.empty((B, T, S), dtype=f32, device=dev),
              torch.empty((B, H), dtype=f32, device=dev),
              torch.empty((B, H), dtype=f32, device=dev)]
-    gates = torch.empty((4, B, T, 3 * H), dtype=f32, device=dev)  # hoisted gate products
-    fscratch = torch.empty((2, B, H), dtype=f32, device=dev)  # dfeed, attention part of dh1'
+    rows = max(b1 - b0 for b0, b1, _ in launches)  # the chunks reuse the scratch in turn
+    gates = torch.empty((4, rows, T, 3 * H), dtype=f32, device=dev)  # hoisted gate products
+    # dfeed, the attention part of dh1' and, streamed, the carries dh1' z1, dh0' z0
+    fscratch = torch.empty((4 if streamed else 2, rows, H), dtype=f32, device=dev)
     # pre and the four local gradients of a step, rounded, rows padded to 32
-    tscratch = torch.empty((B * (kernels.pad32(H) + 4 * kernels.pad32(3 * H)),), dtype=dt,
+    tscratch = torch.empty((rows * (kernels.pad32(H) + 4 * kernels.pad32(3 * H)),), dtype=dt,
                            device=dev)
-    err = lib.vmmt_decoder_bwd(code, *(a.data_ptr() for a in ins + extra),
-                               *(o.data_ptr() for o in outs), gates.data_ptr(),
-                               fscratch.data_ptr(), tscratch.data_ptr(), probe_ptr, B, T, S, H,
-                               plan["units"], plan["rows"], plan["grid"],
-                               kernels.stream_of(ins[0]))
-    kernels.check(lib, err, "decoder_bwd")
-    decoder_bwd.launches += 1
+    wt = _stream_weights("decoder_bwd", *(ins[i] for i in (4, 5, 7, 9, 13)), plan) \
+        if streamed else None
+
+    def launch(p, part, out):
+        err = lib.vmmt_decoder_bwd(code, *(a.data_ptr() for a in part),
+                                   *(o.data_ptr() for o in out), gates.data_ptr(),
+                                   fscratch.data_ptr(), tscratch.data_ptr(),
+                                   None if wt is None else wt.data_ptr(), probe_ptr,
+                                   part[0].shape[0], T, S, H, p["units"], p["rows"], p["grid"],
+                                   kernels.stream_of(ins[0]))
+        kernels.check(lib, err, "decoder_bwd")
+        decoder_bwd.launches += 1
+
+    in_row_chunks(launch, launches, ins + extra, BWD_BATCHED, outs)
     return (tuple(unpad_units(o, H0, H, -1, 3) for o in outs[:4])
             + (unpad_units(outs[4], H0, H), outs[5])
             + tuple(unpad_units(o, H0, H) for o in outs[6:]))

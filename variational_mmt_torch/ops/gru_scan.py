@@ -318,7 +318,6 @@ SCAN_WIDE_PER_SM = {torch.bfloat16: 1, torch.float16: 1, torch.float32: 2}
 SCAN_WIDE_MAX_ROWS = 256  # batch rows of a wide CTA; more rows run in chunks
 SCAN_WIDE_WARPS = 8  # warps of a wide CTA (kDecWarps of csrc/block_product.cuh)
 H100_SMS = 132  # SMs of an H100 SXM: what scan_kernel_holds, a pure function, plans for
-SMEM_PER_SM = 233_472  # shared memory of an H100 SM, 1 KB of it reserved per CTA
 
 
 def _mma_ld(k: int) -> int:
@@ -478,7 +477,8 @@ def scan_kernel_holds(H: int, dtype: torch.dtype) -> bool:
         return True
     if H > SCAN_CLUSTER_MAX_HIDDEN:
         per_sm = 1 if -(-H // SCAN_WIDE_UNITS[dtype]) <= H100_SMS else 2
-        return all(per_sm * (_wide_smem(p, H, dtype, SCAN_WIDE_MAX_ROWS) + 1024) <= SMEM_PER_SM
+        return all(per_sm * (_wide_smem(p, H, dtype, SCAN_WIDE_MAX_ROWS) + 1024)
+                   <= kernels.SMEM_PER_SM
                    and _wide_smem(p, H, dtype, SCAN_WIDE_MAX_ROWS) <= kernels.SMEM_PER_BLOCK
                    for p in (0, 1))
     cluster, units = _cluster_units("gru_layer_scan", H)

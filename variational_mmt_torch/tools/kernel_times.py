@@ -1,6 +1,5 @@
-"""Times of the GRU-scan kernels and the serving kernels (rows 1-4 of
-PERF.md's table) at the main paths' shapes, for comparing two trees of the
-port on one card.
+"""Times of the six kernels (rows 1-6 of PERF.md's table) at the main
+paths' shapes, for comparing two trees of the port on one card.
 
     PYTHONPATH=<tree> python <this file> [-dtype bfloat16|float16|float32]
 
@@ -8,8 +7,10 @@ imports ``variational_mmt_torch`` from ``<tree>`` (so one copy of this
 script times an older tree too: it calls only the wrappers' public
 signatures) and prints one JSON line: for the GRU-scan forward at B=256
 (serving) and B=64 (training), T=24, H=250, its backward at B=64 (both
-without a reset stream), and the decode step and GRU chain at N=1024,
-S=24, H=500, all in ``-dtype`` (bfloat16 by default; a tree older than
+without a reset stream), the decode step and GRU chain at N=1024,
+S=24, H=500, and the decoder sequence forward and backward at the training
+shape (B=64, T=25, S=24, H=500, attention memory std 0.1), all in
+``-dtype`` (bfloat16 by default; a tree older than
 the float16 kernels refuses float16), the time of one call by CUDA
 events over 50 calls after 5 (``ms``: what ``chip_smoke.py`` reports, the
 host's launch work included when it is the slower side) and the device
@@ -30,6 +31,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from variational_mmt_torch.ops import decode_step as ds
+from variational_mmt_torch.ops import decoder as dec
 from variational_mmt_torch.ops import gru_scan
 
 
@@ -91,6 +93,18 @@ def main(argv=None) -> None:
     attn = ((0.5 * r(N, S, H)).to(bf), (0.5 * r(N, S, H)).to(bf), w(H, H), mask_bias)
     calls["decode_step"] = lambda: ds.decode_step(*chain, *attn)
     calls["gru_chain"] = lambda: ds.gru_chain(*chain)
+    B, T = 64, 25
+    dmid = ((torch.rand(B, T, H, generator=g, device="cuda") > 0.3).float() / 0.7).to(bf)
+    lengths = torch.randint(8, S + 1, (B,), generator=g, device="cuda")
+    mask_bias = (torch.arange(S, device="cuda")[None] >= lengths[:, None]).float() * -1e9
+    seq = (r(B, T, 3 * H).to(bf), dmid, torch.tanh(r(B, H)), torch.tanh(r(B, H)),
+           w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H),
+           w(H, 3 * H), 0.1 * r(3 * H), (0.1 * r(B, S, H)).to(bf), (0.1 * r(B, S, H)).to(bf),
+           w(H, H))
+    streams = dec.decoder_fwd_ref(*seq, mask_bias)
+    grads = (r(B, T, H), r(B, T, S))
+    calls["decoder_fwd"] = lambda: dec.decoder_fwd(*seq, mask_bias)
+    calls["decoder_bwd"] = lambda: dec.decoder_bwd(*seq, *streams, *grads)
     out = {name: {"ms": event_ms(fn), "device_ms": device_ms(fn)} for name, fn in calls.items()}
     print(json.dumps({"kernel_times": out, "dtype": opt.dtype, "card": card}))
 
