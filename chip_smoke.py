@@ -211,15 +211,17 @@ in PERF.md).
     that shape a sentence). Then MBR in f32 (8 samples at temperature 1.0,
     32 sentences) at pallas_step 0, 1 and 2: at least 31 of 32 picks of
     steps 1 and 2 equal step 0's.
-13. Widths phase: rows 1 and 2 on the wide plan (the persistent
-    cooperative kernels from 513 to 1024 units) at H = 520, 1000 and 1024,
-    each at B = 64, T = 25 and B = 256, T = 24, and on the streamed plan
-    (above 1024 units) at H = 1040, 1536, 2048 and 2500 at B = 64, T = 25
-    and at 2048 also at B = 256, T = 24, in f32 and bf16, with and without
-    a reset stream, both directions, against their plain versions (forward
-    1e-4 / 2e-2 absolute, backward the same relative to each tensor's
-    largest entry), the plans printed and required wide or streamed by the
-    width; bf16 times by CUDA
+13. Widths phase: rows 1 and 2 above 512 units, the forward on the wide
+    plan (the persistent cooperative kernel from 513 to 1024 units) and
+    the backward on the tiled plan at H = 520, 1000 and 1024, each at B =
+    64, T = 25 and B = 256, T = 24, and the forward on the streamed plan
+    (above 1024 units) and the backward on the tiled plan at H = 1040,
+    1536, 2048 and 2500 at B = 64, T = 25 and at 2048 also at B = 256, T =
+    24, in f32 and bf16, with and without a reset stream, both directions,
+    against their plain versions (forward 1e-4 / 2e-2 absolute, backward
+    the same relative to each tensor's largest entry), the plans printed
+    and required wide or streamed by the width (forward) and tiled
+    (backward); bf16 times by CUDA
     events in turns with the plain version (kernel, plain, plain, kernel,
     10 calls a turn) and on the device's clock, beside cuDNN's nn.GRU
     forward and backward at the same shape and the bound. Rows 1 and 2 at
@@ -419,8 +421,9 @@ in PERF.md).
     after phase 20 in the same directory; ROADMAP queue 1 item 9): (a)
     each of rows 1-6 in float16 against its float16 plain version under
     bf16's rules and bounds: rows 1 and 2 at the serving and training
-    shapes and at B=64, T=24, H = 512, 1024 and 2048 (the cluster, wide
-    and streamed plans, which it checks) with and without a reset stream;
+    shapes and at B=64, T=24, H = 512, 1024 and 2048 (the cluster plans,
+    then the wide and streamed forward and the tiled backward, which it
+    checks) with and without a reset stream;
     rows 3 and 4 at N=1024, S=24, H=500; rows 5 and 6 at B=64, T=25, S=24,
     H=500 over the whole sequence at memory std 0.1, and at std 0.5 over
     the first 4 steps of each pass with the distance from the f32 math at
@@ -545,7 +548,8 @@ WIDTH_SCANS = ((64, 24, 512, ("float32", "bfloat16")), (256, 24, 512, ("bfloat16
                (64, 24, 300, ("float32", "bfloat16")))  # B, T, H and the checked dtypes
 WIDTH_STEP_NS, WIDTH_DEC = (128, 32), dict(B=64, T=25, S=24, H=250)  # rows 3-6 at H = 250
 WIDTH_CLI_STEPS = 10  # train CLI steps at each -rnn_size of phase 13
-# rows 1 and 2 on the wide plan (to 1024 units) and the streamed plan (above): (B, T, H),
+# rows 1 and 2 above 512 units (the forward's wide and streamed plans, the backward's tiled
+# plan): (B, T, H),
 # f32 and bf16, with and without a reset stream
 WIDE_SCANS = ((64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (64, 25, 1024),
               (256, 24, 1024), (64, 25, 1040), (64, 25, 1536), (64, 25, 2048), (256, 24, 2048),
@@ -596,7 +600,7 @@ EXTRACT_TURNS, EXTRACT_ITERS = ("f32", "tf32", "tf32", "f32"), 10  # phase 18 (c
 EXTRACT_CLI_IMAGES, EXTRACT_SENT = 64, 32  # phase 18 (d), (f)
 H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak (NVIDIA data sheet, SXM)
 F16 = "float16"
-F16_SCAN_WIDTHS = (512, 1024, 2048)  # phase 21 (a): the cluster, wide and streamed plans
+F16_SCAN_WIDTHS = (512, 1024, 2048)  # phase 21 (a): cluster, wide / streamed fwd, tiled bwd
 F16_ITERS = 10  # CUDA-event calls a turn of phase 21's bf16 and float16 kernel times
 F16_SERVE_SENT = 256  # phase 21 (b): one request of 256 sentences
 F16_TIMED_RUNS, F16_TIMED_STEPS = 2, 12  # phase 21 (c): whole passes over the 4 batches
@@ -2643,14 +2647,15 @@ def eval_phase(card: str, root: str):
 
 
 def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str) -> dict:
-    """Rows 1 and 2 on the wide plan (H <= 1024) or the streamed plan (H
-    above) at (B, T, H): f32 and bf16, with and without a reset stream,
+    """Rows 1 and 2 above 512 units at (B, T, H), the forward on the wide
+    plan (H <= 1024) or the streamed plan (H above), the backward on the
+    tiled plan: f32 and bf16, with and without a reset stream,
     both directions, against their plain versions (forward max abs,
     backward max rel); bf16 times (CUDA events, in turns with the plain
     version, and the device's clock), cuDNN's nn.GRU forward and backward,
     the bounds."""
     at = f"B={B} T={T} H={H}"
-    layout = "wide" if H <= gru_scan.SCAN_WIDE_MAX_HIDDEN else "streamed"
+    layout = "wide" if H <= gru_scan.SCAN_WIDE_MAX_HIDDEN else "streamed"  # the forward's
     r = {}
     for dt_name in ("float32", "bfloat16"):
         ins, gout, reset = reset_inputs(g, rng, getattr(torch, dt_name), B, T, H, 8)
@@ -2662,9 +2667,9 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str) -> dic
             r[f"{label}err_{dt_name}"], r[f"bwd_{label}err_{dt_name}"] = fwd, bwd
         r[f"plan_{dt_name}"] = gru_scan.gru_layer_scan.plan
         r[f"bwd_plan_{dt_name}"] = gru_scan.gru_layer_scan_bwd.plan
-        for plan in (r[f"plan_{dt_name}"], r[f"bwd_plan_{dt_name}"]):
-            if plan["layout"] != layout:
-                fail(f"gru_scan {at} {dt_name}: the {plan['layout']} plan, not the {layout} one")
+        for plan, want in ((r[f"plan_{dt_name}"], layout), (r[f"bwd_plan_{dt_name}"], "tiled")):
+            if plan["layout"] != want:
+                fail(f"gru_scan {at} {dt_name}: the {plan['layout']} plan, not the {want} one")
         print_plan(f"gru_scan {at} {dt_name}", r[f"plan_{dt_name}"])
         print_plan(f"gru_scan_bwd {at} {dt_name}", r[f"bwd_plan_{dt_name}"])
     x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.bfloat16, B, T, H, 8)
@@ -2709,7 +2714,7 @@ def widths_phase(card: str, root: str):
     rec = {"scan": {}}
     g = torch.Generator(device="cuda").manual_seed(8)
     rng = np.random.default_rng(8)
-    for B, T, H in WIDE_SCANS:  # the wide and the streamed plan
+    for B, T, H in WIDE_SCANS:  # the wide and the streamed forward, the tiled backward
         rec["scan"][f"B={B} T={T} H={H}"] = wide_scan_checks(gru_scan, g, rng, B, T, H, card)
     for B, T, H, dtypes in WIDTH_SCANS:
         at = f"B={B} T={T} H={H}"
@@ -4480,9 +4485,11 @@ def f16_scan_kernels(gru_scan) -> Tuple[dict, dict]:
         layouts = (gru_scan.gru_layer_scan.plan["layout"],
                    gru_scan.gru_layer_scan_bwd.plan["layout"])
         fr_err, br_err, br_abs = reset_errs(gru_scan, ins, gout, reset)
-        want = "cluster" if H <= 512 else "wide" if H <= 1024 else "streamed"
-        print(f"  gru_scan {at} float16: plans {layouts[0]} / {layouts[1]} (expected {want})")
-        if layouts != (want, want):
+        want = ("cluster" if H <= 512 else "wide" if H <= 1024 else "streamed",
+                "cluster" if H <= 512 else "tiled")
+        print(f"  gru_scan {at} float16: plans {layouts[0]} / {layouts[1]} (expected "
+              f"{want[0]} / {want[1]})")
+        if layouts != want:
             fail(f"the float16 scans at H={H} ran the {layouts} plans, not {want}")
         check_close(f"gru_scan {at}", F16, f_err)
         check_close(f"gru_scan {at} with resets", F16, fr_err)

@@ -3,9 +3,10 @@
 ``decoder_fwd_plan`` and ``decoder_bwd_plan``), pure Python, on the CPU. The widths the repo's
 configs use (H=250 a direction for the scan, H=500 for the decoder and the
 decode step) are accepted in the three dtypes, and so is every scan width
-(clusters of up to 16 CTAs to 512, the wide plan to 1024:
-tests/test_torch_wide_scan.py; the streamed plan above:
-tests/test_torch_wider_scan.py) and any decoder width (padded to a
+(clusters of up to 16 CTAs to 512; above, the forward's wide plan to 1024:
+tests/test_torch_wide_scan.py, its streamed plan beyond and the
+backward's tiled plan: tests/test_torch_wider_scan.py) and any decoder
+width (padded to a
 multiple of 4); shapes the designs cannot hold raise NotImplementedError,
 and so do the wrappers on a non-CPU tensor before anything is launched
 (meta tensors stand in for CUDA ones). ``UniGRU`` sends every
@@ -158,15 +159,19 @@ def test_scan_plan_at_the_training_shape():
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("H", [0, 1025, 2048])
 def test_scan_plan_refuses_what_a_cluster_cannot_hold(dt, H):
-    """As the forward's: H = 0 refused, 1025 and 2048 on the streamed plan."""
+    """H = 0 refused, 1025 and 2048 on the tiled plan: tiles covering H and
+    B, the grid within what 132 SMs hold at once."""
     if H == 0:
         with pytest.raises(NotImplementedError):
             gru_scan.scan_bwd_plan(64, 24, H, dt)
         return
     for B in (1, 61, 64, 256, 300):
         plan = gru_scan.scan_bwd_plan(B, 24, H, dt)
-        assert_streamed(plan, H, dt, B)
-        assert plan["dwh_splits"] == 1
+        assert plan["layout"] == "tiled" and plan["dwh_splits"] == 1
+        assert plan["unit_tiles"] * plan["units"] >= H
+        assert plan["chunks"] * plan["rows"] * plan["row_tiles"] >= B
+        assert plan["grid"] <= gru_scan.tiled_co_resident(plan["cluster"], H100_SMS)
+        assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
 
 
 @pytest.mark.parametrize("sms", [H100_SMS, 114])
@@ -577,13 +582,15 @@ def test_scan_plans_mirror_the_kernels_layout_at_512():
 @pytest.mark.parametrize("H,holds", [(1, True), (512, True), (513, True), (1024, True),
                                      (1025, True), (2048, True), (0, False)])
 def test_scan_kernel_holds_ends_at_1024(dt, H, holds):
-    """Clusters to 512 units, the wide plan from 513 to 1024, the streamed
-    plan above; only H = 0 is not held."""
+    """Clusters to 512 units; above, the forward's wide plan to 1024 and its
+    streamed plan beyond, the backward's tiled plan; only H = 0 is not
+    held."""
     assert gru_scan.scan_kernel_holds(H, dt) is holds
     if holds:
         layout = "cluster" if H <= 512 else "wide" if H <= 1024 else "streamed"
         assert gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)["layout"] == layout
-        assert gru_scan.scan_bwd_plan(64, 24, H, dt)["layout"] == layout
+        assert gru_scan.scan_bwd_plan(64, 24, H, dt)["layout"] == \
+            ("cluster" if H <= 512 else "tiled")
 
 
 @pytest.mark.parametrize("H,kernel", [(512, True), (513, True), (1024, True), (1025, True)])
@@ -672,8 +679,8 @@ def test_decoder_wrappers_launch_at_the_padded_width(monkeypatch, H):
 @pytest.mark.parametrize("H", [6, 250, 500, 512, 513, 1000, 1024, 1025, 2048])
 def test_float16_plans_equal_bf16s(H, B):
     """float16 runs bf16's tensor-core tiling in every kernel (``is_mma`` of
-    csrc/tile_gemm.cuh): every launch plan, cluster, wide and streamed for
-    the scans, the decode step's cells and both decoder kernels, is the
+    csrc/tile_gemm.cuh): every launch plan, cluster, wide, streamed and
+    tiled for the scans, the decode step's cells and both decoder kernels, is the
     bf16 plan, and differs from f32's where f32 tiles for FMAs."""
     f16, bf16 = torch.float16, torch.bfloat16
     for sms in (H100_SMS, 114):

@@ -6,12 +6,13 @@ the CPU.
   ``gru_layer_scan`` and ``gru_layer_scan_ad`` in interpret mode at H = 520
   and 640, B = 3, T = 5, both directions, with and without a reset stream,
   f32: outputs and finals within 1e-5, dx, dh0, dWh and dbh within 1e-4.
-- The wide launch plans (``layout`` ``"wide"``) at every width from 513 to
-  1024 that the repo's configs reach or bound, the three dtypes, batches 1, 61,
-  64 and 256: shared memory within a CTA's, the cooperative grid within
-  what 132 SMs hold at once, the units covering H and the row tiles and
-  chunks covering B; the layout at 1024 counted by hand; the wrappers
-  launching the wide entry points with the plan and raising, before any
+- The forward's wide launch plans (``layout`` ``"wide"``) and the
+  backward's tiled ones (``"tiled"``) at every width from 513 to 1024 that
+  the repo's configs reach or bound, the three dtypes, batches 1, 61, 64
+  and 256: shared memory within a CTA's, the cooperative grid within what
+  132 SMs hold at once, the units covering H and the row tiles and chunks
+  covering B; the layouts at 1024 counted by hand; the wrappers launching
+  the wide and tiled entry points with the plans and raising, before any
   launch, where the card cannot hold the grid at once.
 - The fast config (``input_feed=False``, ``use_pallas``) at hidden 1040:
   the port's loss and every gradient on its kernel route (the wrappers'
@@ -127,38 +128,47 @@ def test_wide_plans_hold_every_width_to_1024(H, dt, B):
     fwd = gru_scan.scan_fwd_plan(B, 24, H, dt, H100_SMS)
     bwd = gru_scan.scan_bwd_plan(B, 24, H, dt, H100_SMS)
     assert gru_scan.scan_kernel_holds(H, dt)
+    assert fwd["layout"] == "wide"
+    assert fwd["units"] == (4 if dt == torch.float32 else 8)
+    assert bwd["layout"] == "tiled" and bwd["units"] in (32, 64, 128)
     for plan in (fwd, bwd):
-        assert plan["layout"] == "wide"
-        assert plan["units"] == (4 if dt == torch.float32 else 8)
         assert plan["unit_tiles"] * plan["units"] >= H > (plan["unit_tiles"] - 1) * plan["units"]
         assert plan["rows"] % 16 == 0 and plan["rows"] <= gru_scan.SCAN_WIDE_MAX_ROWS
         chunk = plan["rows"] * plan["row_tiles"]
         assert plan["chunks"] * chunk >= B > (plan["chunks"] - 1) * chunk
-        assert plan["grid"] == plan["unit_tiles"] * plan["row_tiles"] == plan["ctas"]
         assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
-        # a cooperative launch: the grid within what 132 SMs hold at once
-        # (one CTA an SM, or two where two fit an SM's shared memory)
-        per_sm = min(2, SMEM_PER_SM // (plan["smem"] + 1024))
-        assert plan["grid"] <= H100_SMS * per_sm
+    assert fwd["grid"] == fwd["unit_tiles"] * fwd["row_tiles"] == fwd["ctas"]
+    # a cooperative launch: the grid within what 132 SMs hold at once (one
+    # CTA an SM, or two where two fit an SM's shared memory; the tiled
+    # plan's clusters of 4 on 120 of them)
+    per_sm = min(2, SMEM_PER_SM // (fwd["smem"] + 1024))
+    assert fwd["grid"] <= H100_SMS * per_sm
+    assert bwd["grid"] == bwd["unit_tiles"] * bwd["row_tiles"] * bwd["cluster"] == bwd["ctas"]
+    assert bwd["grid"] <= (120 if bwd["cluster"] == 4 else H100_SMS)
     assert bwd["dwh_splits"] == 1 and bwd["dwh_tiles"] == -(-H // 64) * -(-3 * H // 64)
 
 
 def test_wide_plans_mirror_the_kernels_layout_at_1024():
-    """H=1024, B=64: bf16 128 CTAs of 8 units, f32 256 of 4, one row tile
-    of 64 rows. Forward: 24 (bf16) or 12 (f32) rows of Wh at the stride
+    """H=1024, B=64: the forward's bf16 128 CTAs of 8 units, f32 256 of 4,
+    one row tile of 64 rows, 24 (bf16) or 12 (f32) rows of Wh at the stride
     1056 / 1024, the product buffer (128 or 64 rows of 24 floats) and the
-    carry; backward: 8 or 4 rows of Wh at 3104 / 3072, 8 floats a row of
-    product and two carries."""
+    carry. The backward's tiled plan: 64 x 64 cells a CTA in bf16, K split
+    over clusters of 4 (64 CTAs); its shared memory the CTA's 64 rows of Wh
+    over its 12 K chunks (1552 bytes apart), a ring of 4 stages of 64 rows
+    of 144 bytes, the two K groups' partial products (64 rows of 68 floats)
+    and the dh carry and dh_part of a quarter of the tile."""
     bf16, f32 = torch.bfloat16, torch.float32
     fb = gru_scan.scan_fwd_plan(64, 24, 1024, bf16, H100_SMS)
     ff = gru_scan.scan_fwd_plan(64, 24, 1024, f32, H100_SMS)
     assert (fb["grid"], fb["rows"], ff["grid"], ff["rows"]) == (128, 64, 256, 64)
     assert fb["smem"] == 24 * 1056 * 2 + 128 * 24 * 4 + 64 * 8 * 4 == 65024
     assert ff["smem"] == 12 * 1024 * 4 + 64 * 24 * 4 + 64 * 4 * 4 == 56320
-    assert gru_scan.scan_bwd_plan(64, 24, 1024, bf16)["smem"] == \
-        8 * 3104 * 2 + 128 * 8 * 4 + 2 * 64 * 8 * 4 == 57856
-    assert gru_scan.scan_bwd_plan(64, 24, 1024, f32)["smem"] == \
-        4 * 3072 * 4 + 64 * 8 * 4 + 2 * 64 * 4 * 4 == 53248
+    bb = gru_scan.scan_bwd_plan(64, 24, 1024, bf16)
+    assert (bb["rows"], bb["units"], bb["cluster"], bb["grid"]) == (64, 64, 4, 64)
+    assert (bb["resident"], bb["stages"], bb["wh_from"]) == (True, 4, "smem")
+    assert bb["smem"] == 64 * (12 * 128 + 16) + 4 * 64 * 144 + 2 * 64 * 68 * 4 \
+        + 2 * 16 * 64 * 4 == 179200
+    assert (bb["kc"], bb["k_chunks"], bb["ldx"], bb["in_place"]) == (64, 48, 3072, True)
     # batches above 256 rows a CTA run in chunks
     assert gru_scan.scan_fwd_plan(300, 24, 1024, bf16, H100_SMS)["chunks"] == 2
 
@@ -187,8 +197,11 @@ def wide_lib(monkeypatch):
             calls.append(("fwd", args[-10] is None) + args[-9:-1])
             return 0
 
-        def vmmt_gru_wide_bwd(self, *args):
-            calls.append(("bwd", args[-11] is None) + args[-10:-1])  # ..., grid, splits
+        def vmmt_gru_tiled_bwd(self, *args):
+            # padded weights (None: Wh in place), B, T, H, reverse, rows,
+            # units, cluster, row_tiles, resident, splits (then probe,
+            # stream)
+            calls.append(("bwd", args[-13] is None) + args[-12:-2])
             return 0
 
     monkeypatch.setattr(kernels, "library", lambda name: Lib())
@@ -203,17 +216,17 @@ def test_wrappers_launch_the_wide_plan(wide_lib, dt):
     B, T, H = 64, 25, 1000
     fwd = gru_scan.scan_fwd_plan(B, T, H, dt, H100_SMS)
     bwd = gru_scan.scan_bwd_plan(B, T, H, dt, H100_SMS)
-    smem = {0: fwd["smem"], 1: bwd["smem"]}
-    monkeypatch.setattr(kernels, "occupancy", lambda dev, lib, fn, code, pass_, *a:
-                        (264, smem[pass_]))
+    smem = {"vmmt_gru_wide_occupancy": fwd["smem"], "vmmt_gru_tiled_bwd_occupancy": bwd["smem"]}
+    monkeypatch.setattr(kernels, "occupancy", lambda dev, lib, fn, *a: (264, smem[fn]))
     ins = (meta(B, T, 3 * H, dtype=dt), meta(B, T), meta(B, H), meta(H, 3 * H, dtype=dt),
            meta(3 * H))
     gru_scan.gru_layer_scan(*ins, reverse=True)
     gru_scan.gru_layer_scan_bwd(*ins, meta(B, T, H), meta(B, T, H))
+    assert bwd["layout"] == "tiled" and bwd["in_place"]  # 3H elements: whole 16-byte pieces
     assert calls == [("fwd", True, B, T, H, 1, fwd["units"], fwd["rows"], fwd["row_tiles"],
                       fwd["grid"]),
-                     ("bwd", True, B, T, H, 0, bwd["units"], bwd["rows"], bwd["row_tiles"],
-                      bwd["grid"], 1)]
+                     ("bwd", True, B, T, H, 0, bwd["rows"], bwd["units"], bwd["cluster"],
+                      bwd["row_tiles"], int(bwd["resident"]), 1)]
     assert gru_scan.gru_layer_scan.plan == dict(fwd, max_co_resident=264)
     assert gru_scan.gru_layer_scan_bwd.plan == dict(bwd, max_co_resident=264)
 

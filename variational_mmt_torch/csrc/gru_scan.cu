@@ -83,43 +83,77 @@
 // cross a segment start: the scan multiplies each step's dh_prev by that
 // step's 1 - reset where the next step (or dh0) reads it.
 //
-// Wide plan (H from 513 to 1024: the launch plan's layout "wide"). Past 512
-// units the three gate blocks of Wh no longer fit one cluster of 16 CTAs
-// (6.3 MB in bf16 at H = 1024), so both scans spread the 3H columns over
-// the whole card instead: one persistent cooperative kernel a chunk of at
-// most 256 x row_tiles batch rows, CTA b owning the 8 units of one mma
-// n-tile in bf16 (4 in f32, FMAs, never TF32) of a tile of rows and
-// keeping their columns of Wh in shared memory for the call (49 KB at H =
-// 1024). h_{t-1} crosses CTAs through global memory: each step writes its
-// units of round(h' * keep of the next step) into one of two exchange
-// buffers (B, pad32(H)) and meets one grid barrier; the next step's
-// product streams the rows from L2 into the mma fragments
+// Wide plan of the forward (H from 513 to 1024: the launch plan's layout
+// "wide"). Past 512 units the three gate blocks of Wh no longer fit one
+// cluster of 16 CTAs (6.3 MB in bf16 at H = 1024), so the forward spreads
+// the 3H columns over the whole card instead: one persistent cooperative
+// kernel a chunk of at most 256 x row_tiles batch rows, CTA b owning the 8
+// units of one mma n-tile in bf16 (4 in f32, FMAs, never TF32) of a tile of
+// rows and keeping their columns of Wh in shared memory for the call (49 KB
+// at H = 1024). h_{t-1} crosses CTAs through global memory: each step
+// writes its units of round(h' * keep of the next step) into one of two
+// exchange buffers (B, pad32(H)) and meets one grid barrier; the next
+// step's product streams the rows from L2 into the mma fragments
 // (block_product.cuh), so no CTA holds the whole state. Two buffers make
 // one barrier a step enough: a CTA writing buffer s % 2 at step s + 2 has
 // passed the barrier of step s + 1, which every reader of step s reached.
-// The backward's serial part (b) runs the same way on round(dh_proj) (K =
-// 3H): the gate backward of the CTA's cells into the step's exchange
-// buffer, a grid barrier, then dh = dh_part + dh_proj @ Wh[units, :]^T;
-// (a) and (c) are the cluster plan's tiled products, which take any shape.
-// What bounds these kernels is the same chain of T steps, each now a grid
-// barrier after a product whose operand comes from L2.
+// What bounds it is the chain of T steps, each a grid barrier after a
+// product whose operand comes from L2.
 //
-// Streamed plan (H above 1024: layout "streamed"; the same two kernels with
-// kStream). The wide plan ties both the grid (one CTA a unit tile) and a
-// CTA's shared memory (its slice of Wh grows with H) to H; at H = 2048 a
-// slice is 98 KB and f32 would need 512 CTAs. The streamed plan breaks
-// both links: the grid is capped at what the card holds at once, each CTA
-// takes unit tiles b, b + grid, ... in turn within every step (all of them
-// written before the step's one grid barrier, so the two exchange buffers
-// still suffice), and the weights stay in global memory: the wrapper lays
-// Wh out once a call in the shared-memory slices' own order, tile after
-// tile (wt), and block_product reads its fragments from there (L2-resident
-// where Wh fits the 50 MB, else from HBM every step). The carries move out
-// of shared memory too: the forward reads h_{t-1} back from its own outs
-// (every step writes out[t] = carry), the backward keeps dh and dh_part in
-// dh0; a cell is read and written by the same thread of the same CTA every
-// step. Rows are not chunked: up to 256 a row tile, all row tiles in one
+// Streamed plan of the forward (H above 1024: layout "streamed"; the same
+// kernel with kStream). The wide plan ties both the grid (one CTA a unit
+// tile) and a CTA's shared memory (its slice of Wh grows with H) to H; at
+// H = 2048 a slice is 98 KB and f32 would need 512 CTAs. The streamed plan
+// breaks both links: the grid is capped at what the card holds at once,
+// each CTA takes unit tiles b, b + grid, ... in turn within every step (all
+// of them written before the step's one grid barrier, so the two exchange
+// buffers still suffice), and the weights stay in global memory: the
+// wrapper lays Wh out once a call in the shared-memory slices' own order,
+// tile after tile (wt), and block_product reads its fragments from there
+// (L2-resident where Wh fits the 50 MB, else from HBM every step). The
+// forward reads h_{t-1} back from its own outs (every step writes out[t] =
+// carry). Rows are not chunked: up to 256 a row tile, all row tiles in one
 // launch. Shared memory holds the product buffer only, whatever H.
+//
+// Tiled plan of the backward (H above 512: layout "tiled"). The backward's
+// serial part (b) above 512 units, the reverse scan of _gru_bwd_kernel:
+// per step the gate backward of every (row, unit) cell, then dh = dh_part
+// + round(dh_proj) @ Wh^T, a (B, 3H) x (3H, H) product whose operand is the
+// step's own output, so it cannot be hoisted. Its FLOPs are few (0.4-6.4
+// GFLOP a step at B = 64-256, H = 1000-2048); what bounds it on this card
+// is how many bytes each SM pulls from L2 a step, and the T grid barriers.
+// A plan that gives each CTA one 8-unit n-tile (the forward's) reads every
+// step's round(dh_proj) from L2 H/8 times, 830 MB a step at B = 256, H =
+// 2048. Here the product is output-stationary: one persistent cooperative
+// kernel a chunk of rows, CTA tiles of rows x units cells (each 32, 64 or
+// 128; the plan picks the tiling by the busiest CTA's bytes), each step's
+// K = 3H moving through a ring of kTiledStages stages in shared memory
+// filled by cp.async.cg (through L2, past the L1, which is not
+// coherent across SMs) while the warps multiply the stage before: ldmatrix
+// feeds mma.sync m16n8k16 in bf16 and f16 (f32 accumulators), float4 reads
+// feed FMAs in f32 (never TF32), each warp a 32 x 32 of the tile, so a
+// fragment of dh_proj serves 4 n-tiles and one of Wh 2 m-tiles, and a step's
+// dh_proj leaves L2 H/units times. Where B leaves too few tiles to fill
+// the card, a thread-block cluster of 2 or 4 CTAs splits K a tile: the
+// launch is cooperative and clustered at once (cudaLaunchKernelEx with
+// both attributes, checked on an H100: 30 clusters of 4 or 66 of 2 at
+// once), each CTA reduces its K chunks, and each adds the cluster's
+// partial products of the rows it owns (a quarter or half of the tile)
+// through distributed shared memory in rank order, so the result does not
+// depend on timing. The dh carry and dh_part of the cells a CTA owns stay
+// in its shared memory for the call. Wh's rows are K-contiguous for this
+// product: they are read in place where 3H elements are whole 16-byte
+// pieces, else from a copy the wrapper pads once a call; where a CTA's rows
+// of Wh over its K chunks fit its shared memory beside 4 stages they stay
+// there for the call (loaded once), else the ring brings them each step
+// with the activations (from L2 where Wh fits the 50 MB, else from HBM),
+// the first stages' copies issued before the gate backward, since they do
+// not wait for the step. While the product
+// runs, each CTA prefetches the next step's gate inputs of its rows into
+// L2. The gate backward, round(dh_proj) in the two exchange buffers, one
+// grid barrier a step, the reset stream and both directions are the
+// cluster plan's; (a) and (c) are its tiled products, which take any shape.
+// Batches above a launch's rows run in chunks, one launch each.
 //
 // float16 takes bf16's path on every plan (is_mma in tile_gemm.cuh): the
 // same mma.sync m16n8k16 fragments with f16 operands, the same 2-byte
@@ -741,9 +775,9 @@ int launch_bwd(const void* x_proj, const void* mask, const void* reset, const vo
 
 
 // ---------------------------------------------------------------------------
-// Wide scans (H > 512): persistent cooperative kernels over the whole card,
-// the wide plan (kStream false) and the streamed plan (kStream true); see
-// the notes at the top.
+// Wide forward scans (H > 512): persistent cooperative kernels over the whole
+// card, the wide plan (kStream false) and the streamed plan (kStream true);
+// see the notes at the top.
 
 // Shared memory of a wide forward CTA of `rows` batch rows: its units'
 // three gate columns of Wh transposed into (3 tile_rows, ldw) rows, the
@@ -763,47 +797,25 @@ struct WideFwdLayout {
   }
 };
 
-// Shared memory of a wide backward CTA: its units' rows of Wh (tile_rows,
-// ldw) over the 3H columns, the product buffer (one n-tile) and the f32
-// dh carry and dh_part (rows, units each). Streamed: the product buffer
-// alone.
-template <typename T>
-struct WideBwdLayout {
-  int ldw;
-  size_t w, prod, total;
-  __host__ __device__ WideBwdLayout(int H, int units, int rows, bool stream) {
-    ldw = frag_ld<T>(3 * H);
-    w = stream ? 0 : align16((size_t)tile_rows<T>() * ldw * sizeof(T));
-    const int prod_rows = is_mma<T>() ? max(kDecWarps * 16, rows) : rows;
-    prod = (size_t)prod_rows * kDecUnitsMma * sizeof(float);
-    total = w + prod + (stream ? 0 : 2 * align16((size_t)rows * units * sizeof(float)));
-  }
-};
-
-// Arguments of both wide kernels for one launch over B rows (a chunk of
-// the call's rows: the pointers start at its first row).
+// Arguments of the wide forward for one launch over B rows (a chunk of the
+// call's rows: the pointers start at its first row).
 template <typename T>
 struct Wide {
   const T* x_proj;
   const float *mask, *reset, *h0;  // reset null: no reset stream
   const T* wh;
   // streamed: Wh laid out as the wide plan's shared-memory slices, unit
-  // tile after unit tile (forward (3 tile_rows, ldw) a tile, backward
-  // (tile_rows, ldw)), zero past H and past each row's width
+  // tile after unit tile ((3 tile_rows, ldw) a tile), zero past H
   const T* wt;
-  const float* bh;   // forward
-  float* outs;       // forward: written; backward: read
-  float* final_h;    // forward
-  const float *g, *hp;           // backward: cotangent of outs, hoisted gate products
-  float *dx, *dhn, *dh0;         // backward (streamed: dh0 carries dh and dh_part)
+  const float* bh;
+  float *outs, *final_h;
   // written and read inside the kernel across CTAs, read with __ldcg: two
-  // (B, ldx) buffers in T, zero past the row's width (forward: round(h),
-  // ldx = pad32(H); backward: round(dh_proj), ldx = pad32(3H))
+  // (B, ldx) buffers of round(h) in T, ldx = pad32(H), zero past H
   T* xch;
   int B, T_len, H, units, unit_tiles, rows, ldx, reverse;
 };
 
-// The wide kernels' CTAs need 2 an SM in f32 (4 units a CTA: 256 CTAs at
+// The wide forward's CTAs need 2 an SM in f32 (4 units a CTA: 256 CTAs at
 // H = 1024), 1 in bf16 (8 units: 128 CTAs); the streamed plan's grid is
 // that many an SM.
 template <typename T>
@@ -903,139 +915,21 @@ gru_wide_fwd_kernel(Wide<T> p) {
   }
 }
 
-// The reverse scan, tiled as the forward. Per step: the gate backward of
-// each tile's cells from the hoisted hp, their round(dh_proj) into the
-// step's exchange buffer, one grid barrier, then each tile's dh = dh_part
-// + dh_proj @ Wh[units, :]^T from the exchange (times the step's 1 -
-// reset). The wide plan keeps dh and dh_part in shared memory, the
-// streamed plan in dh0.
-template <typename T, bool kStream>
-__global__ void __launch_bounds__(kDecThreads, WideBlocks<T>::kPerSm)
-gru_wide_bwd_kernel(Wide<T> p) {
-  cg::grid_group grid = cg::this_grid();
-  const int B = p.B, T_len = p.T_len, H = p.H, H3 = 3 * H, units = p.units, ldx = p.ldx;
-  const int tid = threadIdx.x;
-  const int tiles = p.unit_tiles * ((B + p.rows - 1) / p.rows);
-  constexpr int tr = tile_rows<T>();
-  const WideBwdLayout<T> L(H, units, p.rows, kStream);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // wide plan only
-  float* prod = reinterpret_cast<float*>(smem_raw + L.w);
-  float* dh_s = reinterpret_cast<float*>(smem_raw + L.w + L.prod);  // wide plan only
-  float* part_s = dh_s + align16((size_t)p.rows * units * sizeof(float)) / sizeof(float);
-  const size_t slice = (size_t)tr * L.ldw;
-  const bool reset = p.reset != nullptr;
-  // the f32 carry of cell (mm, u) of tile c, and dh_part beside it: shared
-  // memory (wide), or dh0 for both in turn (streamed)
-  auto dh_at = [&](const WideTile& c, int mm, int u) -> float& {
-    if constexpr (kStream) return p.dh0[(size_t)(c.r0 + mm) * H + c.u0 + u];
-    else return dh_s[mm * units + u];
-  };
-  auto part_at = [&](const WideTile& c, int mm, int u) -> float& {
-    if constexpr (kStream) return p.dh0[(size_t)(c.r0 + mm) * H + c.u0 + u];
-    else return part_s[mm * units + u];
-  };
-
-  if constexpr (!kStream) {
-    if ((int)blockIdx.x < tiles) {
-      // row u of w_s is row u0 + u of Wh (its 3H columns), zero past nu and 3H
-      const WideTile c(blockIdx.x, p.unit_tiles, units, p.rows, H, B);
-      for (int i = tid; i < tr * L.ldw; i += kDecThreads) {
-        const int u = i / L.ldw, k = i % L.ldw;
-        w_s[i] = u < c.nu && k < H3 ? p.wh[(size_t)(c.u0 + u) * H3 + k] : from_f<T>(0.f);
-      }
-    }
-    for (int i = tid; i < p.rows * units; i += kDecThreads) dh_s[i] = 0.f;
-  }
-  const size_t xn = (size_t)B * ldx;
-  const size_t gtid = (size_t)blockIdx.x * kDecThreads + tid;
-  for (size_t i = gtid; i < 2 * xn; i += (size_t)gridDim.x * kDecThreads) p.xch[i] = from_f<T>(0.f);
-  if constexpr (kStream)
-    for (size_t i = gtid; i < (size_t)B * H; i += (size_t)gridDim.x * kDecThreads) p.dh0[i] = 0.f;
-  grid.sync();
-
-  for (int step = 0; step < T_len; ++step) {
-    const int t = p.reverse ? step : T_len - 1 - step;
-    T* dp = p.xch + (step & 1) * xn;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
-      for (int i = tid; i < c.nr * c.nu; i += kDecThreads) {
-        const int mm = i / c.nu, u = i % c.nu, row = c.r0 + mm, j = c.u0 + u;
-        const size_t n = (size_t)row * T_len + t;
-        const float keep = reset ? 1.f - p.reset[n] : 1.f;
-        const float h_prev = prev_state<float>(p.h0, p.outs, row, t, T_len, H, j, p.reverse) * keep;
-        const float* hp = p.hp + n * H3;
-        const float hn = hp[2 * H + j];
-        const float rg = sigmoid_f(to_f(p.x_proj[n * H3 + j]) + hp[j]);
-        const float zg = sigmoid_f(to_f(p.x_proj[n * H3 + H + j]) + hp[H + j]);
-        const float ng = tanhf(to_f(p.x_proj[n * H3 + 2 * H + j]) + rg * hn);
-        const float m = p.mask[n];
-        const float dh_total = p.g[n * H + j] + dh_at(c, mm, u);
-        const float dhat = m * dh_total;
-        const float dn_pre = dhat * (1.f - zg) * (1.f - ng * ng);
-        const float dz_pre = dhat * (h_prev - ng) * zg * (1.f - zg);
-        const float dr_pre = dn_pre * hn * rg * (1.f - rg);
-        const float dhn_ = dn_pre * rg;
-        part_at(c, mm, u) = (1.f - m) * dh_total + dhat * zg;
-        float* dxr = p.dx + n * H3;
-        dxr[j] = dr_pre;
-        dxr[H + j] = dz_pre;
-        dxr[2 * H + j] = dn_pre;
-        p.dhn[n * H + j] = dhn_;
-        T* out = dp + (size_t)row * ldx;
-        out[j] = from_f<T>(dr_pre);
-        out[H + j] = from_f<T>(dz_pre);
-        out[2 * H + j] = from_f<T>(dhn_);
-      }
-    }
-    grid.sync();  // every cell's dh_proj is in dp
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
-      const int items = c.nr * c.nu;
-      if (items == 0) continue;
-      block_product<T, 1>(dp, ldx, H3, kStream ? p.wt + c.ut * slice : w_s, L.ldw, c.nu, c.r0,
-                          c.nr, prod);
-      for (int i = tid; i < items; i += kDecThreads) {
-        const int mm = i / c.nu, u = i % c.nu;
-        const float keep = reset ? 1.f - p.reset[(size_t)(c.r0 + mm) * T_len + t] : 1.f;
-        dh_at(c, mm, u) = (part_at(c, mm, u) + prod[mm * kDecUnitsMma + u]) * keep;
-      }
-    }
-  }
-  if constexpr (!kStream) {
-    __syncthreads();
-    if ((int)blockIdx.x < tiles) {
-      const WideTile c(blockIdx.x, p.unit_tiles, units, p.rows, H, B);
-      for (int i = tid; i < c.nr * c.nu; i += kDecThreads)
-        p.dh0[(size_t)(c.r0 + i / c.nu) * H + c.u0 + i % c.nu] = dh_s[(i / c.nu) * units + i % c.nu];
-    }
-  }
+template <typename T>
+void* wide_kernel(bool stream) {
+  return stream ? reinterpret_cast<void*>(gru_wide_fwd_kernel<T, true>)
+                : reinterpret_cast<void*>(gru_wide_fwd_kernel<T, false>);
 }
 
+// One cooperative launch a chunk of `rows * row_tiles` batch rows, the
+// chunks in order on the stream, each launch of at most `ctas` CTAs; q
+// holds the whole call's pointers, offset here to each chunk's first row
+// (a streamed call is one chunk).
 template <typename T>
-size_t wide_smem(int pass, int H, int units, int rows, bool stream) {
-  return pass == 0 ? WideFwdLayout<T>(H, units, rows, stream).total
-                   : WideBwdLayout<T>(H, units, rows, stream).total;
-}
-
-template <typename T>
-void* wide_kernel(int pass, bool stream) {
-  if (stream)
-    return pass == 0 ? reinterpret_cast<void*>(gru_wide_fwd_kernel<T, true>)
-                     : reinterpret_cast<void*>(gru_wide_bwd_kernel<T, true>);
-  return pass == 0 ? reinterpret_cast<void*>(gru_wide_fwd_kernel<T, false>)
-                   : reinterpret_cast<void*>(gru_wide_bwd_kernel<T, false>);
-}
-
-// One cooperative launch of pass 0 (forward) or 1 (backward) a chunk of
-// `rows * row_tiles` batch rows, the chunks in order on the stream, each
-// launch of at most `ctas` CTAs; q holds the whole call's pointers, offset
-// here to each chunk's first row (a streamed call is one chunk).
-template <typename T>
-int launch_wide(int pass, Wide<T> q, int row_tiles, int ctas, cudaStream_t stream) {
+int launch_wide(Wide<T> q, int row_tiles, int ctas, cudaStream_t stream) {
   const bool streamed = q.wt != nullptr;
-  const size_t smem = wide_smem<T>(pass, q.H, q.units, q.rows, streamed);
-  void* kernel = wide_kernel<T>(pass, streamed);
+  const size_t smem = WideFwdLayout<T>(q.H, q.units, q.rows, streamed).total;
+  void* kernel = wide_kernel<T>(streamed);
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1049,15 +943,7 @@ int launch_wide(int pass, Wide<T> q, int row_tiles, int ctas, cudaStream_t strea
     p.reset = q.reset != nullptr ? q.reset + bt : nullptr;
     p.h0 = q.h0 + (size_t)b0 * H;
     p.outs = q.outs + bt * H;
-    if (pass == 0) {
-      p.final_h = q.final_h + (size_t)b0 * H;
-    } else {
-      p.g = q.g + bt * H;
-      p.hp = q.hp + bt * 3 * H;
-      p.dx = q.dx + bt * 3 * H;
-      p.dhn = q.dhn + bt * H;
-      p.dh0 = q.dh0 + (size_t)b0 * H;
-    }
+    p.final_h = q.final_h + (size_t)b0 * H;
     const int tiles = q.unit_tiles * ((p.B + q.rows - 1) / q.rows);
     // the wide plan's CTAs hold one tile each
     if (!streamed && tiles > ctas) return (int)cudaErrorInvalidValue;
@@ -1070,29 +956,6 @@ int launch_wide(int pass, Wide<T> q, int row_tiles, int ctas, cudaStream_t strea
   return 0;
 }
 
-template <typename T>
-Wide<T> wide_args(const void* x_proj, const void* mask, const void* reset, const void* h0,
-                  const void* wh, const void* wt, void* xch, int B, int T_len, int H, int units,
-                  int rows, int pass, int reverse) {
-  Wide<T> p = {};
-  p.x_proj = static_cast<const T*>(x_proj);
-  p.mask = static_cast<const float*>(mask);
-  p.reset = static_cast<const float*>(reset);
-  p.h0 = static_cast<const float*>(h0);
-  p.wh = static_cast<const T*>(wh);
-  p.wt = static_cast<const T*>(wt);
-  p.xch = static_cast<T*>(xch);
-  p.B = B;
-  p.T_len = T_len;
-  p.H = H;
-  p.units = units;
-  p.unit_tiles = (H + units - 1) / units;
-  p.rows = rows;
-  p.ldx = pad32(pass == 0 ? H : 3 * H);
-  p.reverse = reverse;
-  return p;
-}
-
 // The wide and streamed plans' tiling is the caller's: units the dtype's
 // tile_rows, rows a multiple of 16, each launch's grid within the
 // co-resident CTAs.
@@ -1100,6 +963,528 @@ bool valid_wide(int dtype, int H, int units, int rows, int row_tiles, int ctas) 
   const int tr = dtype == 0 ? kDecUnitsFma : kDecUnitsMma;
   return known_dtype(dtype) && H >= 1 && units == tr && rows >= 16 && rows % 16 == 0 &&
          row_tiles >= 1 && ctas >= 1;
+}
+
+// ---------------------------------------------------------------------------
+// The backward's reverse scan above 512 units: the tiled plan; see the note
+// at the top.
+
+constexpr int kTiledThreads = 256;
+constexpr int kTiledWarps = kTiledThreads / 32;
+constexpr int kTiledWarpTile = 32;             // a warp's rows and units of the step's product
+constexpr int kTiledStages = 4;                // stages of the K ring
+constexpr int kTiledChunk = 128;               // bytes of one row's K chunk in a stage
+constexpr int kTiledPitch = kTiledChunk + 16;  // bytes from one row of a stage to the next
+constexpr int kTiledGate = 4;                  // cells whose gate inputs a thread loads at once
+
+// Elements of one row's K chunk, and the row stride of the exchange buffers
+// and of laid-out weights: 3H padded to a whole chunk.
+template <typename T>
+__host__ __device__ constexpr int tiled_kc() {
+  return kTiledChunk / (int)sizeof(T);
+}
+template <typename T>
+__host__ __device__ int tiled_ld(int H) {
+  return (3 * H + tiled_kc<T>() - 1) / tiled_kc<T>() * tiled_kc<T>();
+}
+
+// The tiles a CTA may own: rows and units 32, 64 or 128, whole 32 x 32
+// warp tiles, the eight warps splitting K in wk = 8 * 1024 / (rows *
+// units) <= 4 groups (a chunk holds 4 k16 steps of the mma, 8 float4 steps
+// of the FMAs); clusters of 1, 2 or 4 CTAs.
+bool valid_tile(int rows, int units, int cluster) {
+  auto side = [](int v) { return v == 32 || v == 64 || v == 128; };
+  const int cells = rows * units;
+  return side(rows) && side(units) && cells >= 2048 && cells <= 8192 &&
+         (cluster == 1 || cluster == 2 || cluster == 4);
+}
+
+// Dynamic shared memory of a tiled CTA, the same bytes in every dtype:
+// with `resident`, the CTA's rows of Wh over its K chunks (units rows of
+// kc_own chunks, kc_own * kTiledChunk + 16 bytes apart) for the call; the
+// ring (kTiledStages stages of `rows` rows of round(dh_proj), then, without
+// `resident`, `units` rows of Wh, one K chunk each, kTiledPitch apart); the
+// warps' partial products (wk, rows, units + 4) in f32; and the dh carry and
+// dh_part of the own = rows / cluster x units cells the CTA owns.
+struct TiledLayout {
+  int wk, red_ld, own, w_pitch;
+  size_t stage, ring, red, cells, total;
+  __host__ __device__ TiledLayout(int rows, int units, int cluster, bool resident, int kc_own) {
+    wk = kTiledWarps * kTiledWarpTile * kTiledWarpTile / (rows * units);
+    red_ld = units + 4;
+    own = rows / cluster * units;
+    w_pitch = kc_own * kTiledChunk + 16;
+    stage = (size_t)(rows + (resident ? 0 : units)) * kTiledPitch;
+    ring = resident ? (size_t)units * w_pitch : 0;
+    red = ring + kTiledStages * stage;
+    cells = red + (size_t)wk * rows * red_ld * sizeof(float);
+    total = cells + 2 * (size_t)own * sizeof(float);
+  }
+};
+
+// The most K chunks one CTA of a cluster of `cluster` reduces a step.
+template <typename T>
+__host__ __device__ int tiled_kc_own(int H, int cluster) {
+  const int nk = (3 * H + tiled_kc<T>() - 1) / tiled_kc<T>();
+  return (nk + cluster - 1) / cluster;
+}
+
+// Arguments of the tiled kernel for one launch over B rows (a chunk of the
+// call's rows: the pointers start at its first row).
+template <typename T>
+struct Tiled {
+  const T* x_proj;
+  const float *mask, *reset, *h0, *outs, *g, *hp;  // reset null: no reset stream
+  // Wh's rows over K = 3H, ldw apart: Wh itself (ldw = 3H), or laid out at
+  // ldw = tiled_ld(H), zero past 3H; 16-byte aligned
+  const T* w;
+  float *dx, *dhn, *dh0;
+  // two (B, ldx) buffers of round(dh_proj), ldx = tiled_ld(H), zero past
+  // 3H; written and read inside the kernel across CTAs, read through L2
+  // (cp.async.cg)
+  T* xch;
+  long long* probe;  // null, or 1 + 4 * T_len globaltimer stamps of CTA 0
+  int B, T_len, H, reverse, rows, units, ldw, ldx;
+  int resident;  // Wh's rows held in shared memory for the call
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global memory (through L2, not L1) into shared memory;
+// src_bytes 0 writes zeros and reads nothing
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 matrices of 16-bit values from shared memory, row addresses
+// given by lanes 8i .. 8i + 7 for matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Per step: the gate backward of the CTA's own cells into the step's
+// exchange buffer, one grid barrier, then the tile's dh_proj @ Wh[units,
+// :]^T over the CTA's K chunks through the ring, the partial products
+// added across the warps and the cluster in a fixed order, and dh =
+// (dh_part + product) * keep of the step for the own cells.
+template <typename T>
+__global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T> p) {
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int B = p.B, T_len = p.T_len, H = p.H, H3 = 3 * H, rows = p.rows, units = p.units;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int S = kTiledStages;
+  const TiledLayout L(rows, units, C, p.resident != 0, tiled_kc_own<T>(H, C));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + L.ring;  // after the resident weights, if any
+  float* red = reinterpret_cast<float*>(smem_raw + L.red);
+  float* dh_s = reinterpret_cast<float*>(smem_raw + L.cells);
+  float* part_s = dh_s + L.own;
+  const int unit_tiles = (H + units - 1) / units, tile = blockIdx.x / C;
+  const int r0 = (tile / unit_tiles) * rows, u0 = (tile % unit_tiles) * units;
+  const int nu = min(units, H - u0);
+  const int ulog = __ffs(units) - 1;  // units is 32, 64 or 128: own cell i is (i >> ulog, i & (units - 1))
+  // the CTA owns the cells of tile rows [or0, or0 + rows / C)
+  const int or0 = rank * (rows / C);
+  // its K chunks: [c0, c1) of nk
+  constexpr int kc = tiled_kc<T>();
+  const int nk = (H3 + kc - 1) / kc;
+  const int c0 = rank * nk / C, c1 = (rank + 1) * nk / C;
+  // this warp's 32 x 32 of the tile and its K-split group
+  const int wn_n = units / kTiledWarpTile, wmn = (rows / kTiledWarpTile) * wn_n;
+  const int wk = warp / wmn, wm = (warp % wmn) / wn_n, wn = warp % wn_n;
+  const bool reset = p.reset != nullptr;
+  const size_t xn = (size_t)B * p.ldx;
+  // the partial products of the cluster's CTAs, in rank order
+  const float* peer_red[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    peer_red[q] = q >= C || q == rank ? red : cluster.map_shared_rank(red, q);
+  auto keep_at = [&](int row, int t) {
+    return reset ? 1.f - p.reset[(size_t)row * T_len + t] : 1.f;
+  };
+
+  const size_t gtid = (size_t)blockIdx.x * kTiledThreads + tid;
+  for (size_t i = gtid; i < 2 * xn; i += (size_t)gridDim.x * kTiledThreads)
+    p.xch[i] = from_f<T>(0.f);
+  for (int i = tid; i < L.own; i += kTiledThreads) dh_s[i] = 0.f;
+  if (p.resident) {
+    // Wh's rows u0.. over this CTA's K chunks, once for the call
+    constexpr int per = 16 / (int)sizeof(T);
+    const int pieces = (c1 - c0) * 8;
+    for (int i = tid; i < units * pieces; i += kTiledThreads) {
+      const int u = i / pieces, e = i % pieces, k = (c0 + e / 8) * kc + (e % 8) * per;
+      const bool in = u0 + u < H && k < p.ldw;
+      cp_async16(smem_raw + u * L.w_pitch + e * 16, in ? p.w + (size_t)(u0 + u) * p.ldw + k : p.w,
+                 in ? 16 : 0);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  grid.sync();
+
+  // the gate backward of own cells i = tid, tid + 256, ... (units fastest),
+  // kTiledGate cells' inputs loaded at once: gate_load the inputs of the
+  // batch of cells from `base` at `step`, gate_cell the rest of a batch
+  struct GateIn {
+    float hp[3], x[3], g, m, h_prev, keep;
+  };
+  auto gate_load = [&](int step, int base, GateIn (&in)[kTiledGate]) {
+    const int t = p.reverse ? step : T_len - 1 - step;
+#pragma unroll
+    for (int q = 0; q < kTiledGate; ++q) {
+      const int i = base + q * kTiledThreads;
+      const int row = r0 + or0 + (i >> ulog), j = u0 + (i & (units - 1));
+      if (i >= L.own || row >= B || j >= H) continue;
+      const size_t n = (size_t)row * T_len + t;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        in[q].hp[k] = p.hp[n * H3 + k * H + j];
+        in[q].x[k] = to_f(p.x_proj[n * H3 + k * H + j]);
+      }
+      in[q].g = p.g[n * H + j];
+      in[q].m = p.mask[n];
+      in[q].keep = keep_at(row, t);
+      in[q].h_prev = prev_state<float>(p.h0, p.outs, row, t, T_len, H, j, p.reverse);
+    }
+  };
+  auto gate_cells = [&](int step, int base, const GateIn (&in)[kTiledGate], T* dp) {
+    const int t = p.reverse ? step : T_len - 1 - step;
+#pragma unroll
+    for (int q = 0; q < kTiledGate; ++q) {
+      const int i = base + q * kTiledThreads;
+      const int row = r0 + or0 + (i >> ulog), j = u0 + (i & (units - 1));
+      if (i >= L.own || row >= B || j >= H) continue;
+      const size_t n = (size_t)row * T_len + t;
+      const float hn = in[q].hp[2];
+      const float rg = sigmoid_f(in[q].x[0] + in[q].hp[0]);
+      const float zg = sigmoid_f(in[q].x[1] + in[q].hp[1]);
+      const float ng = tanhf(in[q].x[2] + rg * hn);
+      const float dh_total = in[q].g + dh_s[i];
+      const float dhat = in[q].m * dh_total;
+      const float dn_pre = dhat * (1.f - zg) * (1.f - ng * ng);
+      const float dz_pre = dhat * (in[q].h_prev * in[q].keep - ng) * zg * (1.f - zg);
+      const float dr_pre = dn_pre * hn * rg * (1.f - rg);
+      const float dhn_ = dn_pre * rg;
+      part_s[i] = (1.f - in[q].m) * dh_total + dhat * zg;
+      float* dxr = p.dx + n * H3;
+      dxr[j] = dr_pre;
+      dxr[H + j] = dz_pre;
+      dxr[2 * H + j] = dn_pre;
+      p.dhn[n * H + j] = dhn_;
+      T* out = dp + (size_t)row * p.ldx;
+      out[j] = from_f<T>(dr_pre);
+      out[H + j] = from_f<T>(dz_pre);
+      out[2 * H + j] = from_f<T>(dhn_);
+    }
+  };
+  // the first batch's inputs are loaded ahead: for step 0 here, for each
+  // later step while the CTA adds the step before's partial products
+  GateIn first[kTiledGate];
+  gate_load(0, tid, first);
+
+  // the next step's gate inputs of the own rows into L2 while the product
+  // runs: hp and x_proj (3 gates), g and the previous state, 128-byte lines
+  auto prefetch = [&](int step) {
+    const int t = p.reverse ? step : T_len - 1 - step;
+    const bool first = p.reverse ? t == T_len - 1 : t == 0;
+    const int tp = p.reverse ? t + 1 : t - 1;
+    const int lf = (nu * 4 + 127) / 128 + 1, lt = (nu * (int)sizeof(T) + 127) / 128 + 1;
+    const int per_row = 5 * lf + 3 * lt;
+    for (int i = tid; i < rows / C * per_row; i += kTiledThreads) {
+      const int row = r0 + or0 + i / per_row;
+      int e = i % per_row;
+      if (row >= B) continue;
+      const size_t n = (size_t)row * T_len + t;
+      const char* seg;
+      int len;
+      if (e < 3 * lf) {
+        seg = reinterpret_cast<const char*>(p.hp + n * H3 + (e / lf) * H + u0);
+        len = nu * 4;
+        e %= lf;
+      } else if ((e -= 3 * lf) < 3 * lt) {
+        seg = reinterpret_cast<const char*>(p.x_proj + n * H3 + (e / lt) * H + u0);
+        len = nu * (int)sizeof(T);
+        e %= lt;
+      } else if ((e -= 3 * lt) < lf) {
+        seg = reinterpret_cast<const char*>(p.g + n * H + u0);
+        len = nu * 4;
+      } else {
+        if (first) continue;
+        e -= lf;
+        seg = reinterpret_cast<const char*>(p.outs + ((size_t)row * T_len + tp) * H + u0);
+        len = nu * 4;
+      }
+      const uintptr_t line = (reinterpret_cast<uintptr_t>(seg) & ~(uintptr_t)127) + 128 * e;
+      if (line < reinterpret_cast<uintptr_t>(seg) + len)
+        prefetch_l2(reinterpret_cast<const void*>(line));
+    }
+  };
+
+  // this thread's 16-byte pieces of a K chunk, fixed for the call: piece
+  // tid + 256 j of the tile's rows of dp (rows * 8 pieces) and of Wh's rows
+  // (units * 8): element offsets from the chunk's first column, whether the
+  // row exists, and byte offsets in a stage
+  constexpr int kPieces = 128 * 8 / kTiledThreads;
+  constexpr int per = 16 / (int)sizeof(T);  // elements of a piece
+  size_t a_off[kPieces], w_off[kPieces];
+  int a_dst[kPieces], w_dst[kPieces], w_k[kPieces];
+  bool a_ok[kPieces], w_ok[kPieces];
+#pragma unroll
+  for (int j = 0; j < kPieces; ++j) {
+    const int i = tid + j * kTiledThreads, rr = i >> 3, e = i & 7;
+    a_ok[j] = rr < rows && r0 + rr < B;
+    a_off[j] = (size_t)(r0 + rr) * p.ldx + e * per;
+    a_dst[j] = rr * kTiledPitch + e * 16;
+    w_ok[j] = rr < units && u0 + rr < H;
+    w_off[j] = (size_t)(u0 + rr) * p.ldw + e * per;
+    w_dst[j] = (rows + rr) * kTiledPitch + e * 16;
+    w_k[j] = e * per;
+  }
+  // K chunk c of the tile's rows of dp, or of Wh's rows, into ring stage
+  // `slot`; rows past B or H and columns past Wh's width are zero-filled
+  auto load_chunk = [&](const T* dp, int c, int slot, bool weights) {
+    unsigned char* st = ring + slot * L.stage;
+    const int k0 = c * kc;
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j) {
+      if (j * kTiledThreads >= (weights ? units : rows) * 8) break;
+      if (weights) {
+        const bool in = w_ok[j] && k0 + w_k[j] < p.ldw;
+        cp_async16(st + w_dst[j], in ? p.w + w_off[j] + k0 : p.w, in ? 16 : 0);
+      } else {
+        cp_async16(st + a_dst[j], a_ok[j] ? dp + a_off[j] + k0 : p.w, a_ok[j] ? 16 : 0);
+      }
+    }
+  };
+
+  // acc += this warp's 32 x 32 of the stage's product over its K group's
+  // steps: bf16 and f16 mma.sync m16n8k16 (acc[(mi * 4 + ni) * 4 + e]: m-tile
+  // mi, n-tile ni, accumulator e), f32 FMAs (acc[i * 8 + j]: row lane / 4 +
+  // 8i, unit lane % 4 + 4j)
+  auto product = [&](int c, int slot, float (&acc)[32]) {
+    const unsigned char* a_s = ring + slot * L.stage + (size_t)wm * 32 * kTiledPitch;
+    // Wh's rows: resident (w_pitch apart, chunk c at its offset) or the stage's
+    const int w_pitch = p.resident ? L.w_pitch : kTiledPitch;
+    const unsigned char* w_s =
+        p.resident ? smem_raw + (size_t)wn * 32 * w_pitch + (c - c0) * kTiledChunk
+                   : ring + slot * L.stage + (size_t)(rows + wn * 32) * kTiledPitch;
+    if constexpr (is_mma<T>()) {
+      for (int kk = wk; kk < kc / 16; kk += L.wk) {
+        uint32_t a[2][4], b[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldmatrix_x4(a[mi], a_s + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kTiledPitch +
+                                 kk * 32 + (lane >> 4) * 16);
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj)
+          ldmatrix_x4(b[nj], w_s + (nj * 16 + (lane & 7) + (lane >> 4) * 8) * w_pitch +
+                                 kk * 32 + ((lane >> 3) & 1) * 16);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            float* c4 = acc + (mi * 4 + ni) * 4;
+            float cc[4] = {c4[0], c4[1], c4[2], c4[3]};
+            mma16<T>(cc, a[mi], b[ni >> 1][(ni & 1) * 2], b[ni >> 1][(ni & 1) * 2 + 1]);
+            c4[0] = cc[0];
+            c4[1] = cc[1];
+            c4[2] = cc[2];
+            c4[3] = cc[3];
+          }
+      }
+    } else {
+      for (int kq = wk; kq < kc / 4; kq += L.wk) {
+        float4 av[4], wv[8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          av[i] = *reinterpret_cast<const float4*>(a_s + ((lane >> 2) + 8 * i) * kTiledPitch +
+                                                   kq * 16);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          wv[j] = *reinterpret_cast<const float4*>(w_s + ((lane & 3) + 4 * j) * w_pitch +
+                                                   kq * 16);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            float v = acc[i * 8 + j];
+            v = fmaf(av[i].x, wv[j].x, v);
+            v = fmaf(av[i].y, wv[j].y, v);
+            v = fmaf(av[i].z, wv[j].z, v);
+            v = fmaf(av[i].w, wv[j].w, v);
+            acc[i * 8 + j] = v;
+          }
+      }
+    }
+  };
+
+  // globaltimer stamps of CTA 0 (p.probe, null: none): after the first grid
+  // barrier, then a step's gate backward, grid barrier, product and sums
+  auto stamp = [&](int i) {
+    if (p.probe != nullptr && blockIdx.x == 0 && tid == 0) {
+      unsigned long long ns;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+      p.probe[i] = (long long)ns;
+    }
+  };
+  stamp(0);
+  for (int step = 0; step < T_len; ++step) {
+    const int t = p.reverse ? step : T_len - 1 - step;
+    T* dp = p.xch + (step & 1) * xn;
+    // the first stages' weights do not wait for the step: their copies run
+    // under the gate backward and the barrier
+    for (int s = 0; s < S - 1 && !p.resident; ++s)
+      if (c0 + s < c1) load_chunk(dp, c0 + s, s, true);
+    gate_cells(step, tid, first, dp);
+    for (int base = tid + kTiledGate * kTiledThreads; base < L.own;
+         base += kTiledGate * kTiledThreads) {
+      GateIn in[kTiledGate];
+      gate_load(step, base, in);
+      gate_cells(step, base, in, dp);
+    }
+    stamp(1 + 4 * step);
+    grid.sync();  // every cell's round(dh_proj) is in dp
+    stamp(2 + 4 * step);
+    if (step + 1 < T_len) prefetch(step + 1);
+
+    for (int s = 0; s < S - 1; ++s) {
+      if (c0 + s < c1) load_chunk(dp, c0 + s, s, false);
+      cp_async_commit();
+    }
+    float acc[32] = {};
+    for (int c = c0; c < c1; ++c) {
+      cp_async_wait<S - 2>();
+      __syncthreads();  // chunk c is in its stage; every warp is done with chunk c - 1's
+      const int next = c + S - 1;
+      if (next < c1) {
+        if (!p.resident) load_chunk(dp, next, (next - c0) % S, true);
+        load_chunk(dp, next, (next - c0) % S, false);
+      }
+      cp_async_commit();
+      product(c, (c - c0) % S, acc);
+    }
+    cp_async_wait<0>();
+    stamp(3 + 4 * step);
+
+    // the warp's partial products into red[wk], then the own cells' sums
+    // over the cluster's CTAs and the K groups, in that fixed order
+    float* rb = red + (size_t)wk * rows * L.red_ld;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      int r, u;
+      if constexpr (is_mma<T>()) {
+        r = wm * 32 + (e >> 4) * 16 + (lane >> 2) + ((e >> 1) & 1) * 8;
+        u = wn * 32 + ((e >> 2) & 3) * 8 + 2 * (lane & 3) + (e & 1);
+      } else {
+        r = wm * 32 + (lane >> 2) + 8 * (e >> 3);
+        u = wn * 32 + (lane & 3) + 4 * (e & 7);
+      }
+      rb[r * L.red_ld + u] = acc[e];
+    }
+    cluster.sync();  // every partial product of the cluster is in its CTA's red
+    if (step + 1 < T_len) gate_load(step + 1, tid, first);
+    // the own cells' sums over the cluster's CTAs and the K groups, in that
+    // order, each cell's partials loaded before its adds
+    for (int i = tid; i < L.own; i += kTiledThreads) {
+      const int tr = or0 + (i >> ulog), row = r0 + tr;
+      const size_t at = (size_t)tr * L.red_ld + (i & (units - 1));
+      float v[4][4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          if (q < C && w < L.wk) v[q][w] = peer_red[q][at + (size_t)w * rows * L.red_ld];
+      float s = part_s[i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          if (q < C && w < L.wk) s += v[q][w];
+      dh_s[i] = row < B ? s * keep_at(row, t) : 0.f;
+    }
+    stamp(4 + 4 * step);
+  }
+  for (int i = tid; i < L.own; i += kTiledThreads) {
+    const int row = r0 + or0 + i / units, j = u0 + i % units;
+    if (row < B && j < H) p.dh0[(size_t)row * H + j] = dh_s[i];
+  }
+  cluster.sync();  // no CTA leaves while a peer reads its partial products
+}
+
+cudaLaunchConfig_t tiled_config(int grid, int cluster, size_t smem, cudaLaunchAttribute* attr,
+                                cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kTiledThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  // cooperative: the launch is refused (cudaErrorCooperativeLaunchTooLarge)
+  // unless every CTA of the grid is resident at once
+  attr[1].id = cudaLaunchAttributeCooperative;
+  attr[1].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return cfg;
+}
+
+// One cooperative, clustered launch a chunk of `rows * row_tiles` batch
+// rows, the chunks in order on the stream; q holds the whole call's
+// pointers, offset here to each chunk's first row.
+template <typename T>
+int launch_tiled(Tiled<T> q, int cluster, int row_tiles, cudaStream_t stream) {
+  const size_t smem =
+      TiledLayout(q.rows, q.units, cluster, q.resident != 0, tiled_kc_own<T>(q.H, cluster)).total;
+  const auto kernel = gru_tiled_bwd_kernel<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int B = q.B, T_len = q.T_len, H = q.H, chunk = q.rows * row_tiles;
+  const int unit_tiles = (H + q.units - 1) / q.units;
+  for (int b0 = 0; b0 < B; b0 += chunk) {
+    Tiled<T> p = q;
+    const size_t bt = (size_t)b0 * T_len;
+    p.B = min(chunk, B - b0);
+    p.x_proj = q.x_proj + bt * 3 * H;
+    p.mask = q.mask + bt;
+    p.reset = q.reset != nullptr ? q.reset + bt : nullptr;
+    p.h0 = q.h0 + (size_t)b0 * H;
+    p.outs = q.outs + bt * H;
+    p.g = q.g + bt * H;
+    p.hp = q.hp + bt * 3 * H;
+    p.dx = q.dx + bt * 3 * H;
+    p.dhn = q.dhn + bt * H;
+    p.dh0 = q.dh0 + (size_t)b0 * H;
+    p.probe = b0 == 0 ? q.probe : nullptr;
+    cudaLaunchAttribute attr[2];
+    const cudaLaunchConfig_t cfg = tiled_config(
+        (p.B + q.rows - 1) / q.rows * unit_tiles * cluster, cluster, smem, attr, stream);
+    err = cudaLaunchKernelEx(&cfg, kernel, p);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
@@ -1211,38 +1596,79 @@ extern "C" int vmmt_gru_wide(int dtype, const void* x_proj, const void* mask, co
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto zero) {
     using T = decltype(zero);
-    Wide<T> p = wide_args<T>(x_proj, mask, reset, h0, wh, wt, xch, B, T_len, H, units, rows, 0,
-                             reverse);
+    Wide<T> p = {};
+    p.x_proj = static_cast<const T*>(x_proj);
+    p.mask = static_cast<const float*>(mask);
+    p.reset = static_cast<const float*>(reset);
+    p.h0 = static_cast<const float*>(h0);
+    p.wh = static_cast<const T*>(wh);
+    p.wt = static_cast<const T*>(wt);
     p.bh = static_cast<const float*>(bh);
     p.outs = static_cast<float*>(outs);
     p.final_h = static_cast<float*>(final_h);
-    return launch_wide<T>(0, p, row_tiles, ctas, s);
+    p.xch = static_cast<T*>(xch);
+    p.B = B;
+    p.T_len = T_len;
+    p.H = H;
+    p.units = units;
+    p.unit_tiles = (H + units - 1) / units;
+    p.rows = rows;
+    p.ldx = pad32(H);
+    p.reverse = reverse;
+    return launch_wide<T>(p, row_tiles, ctas, s);
   };
   const int err = by_dtype(dtype, run);
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
-// Wide and streamed backward: the hoisted gate products and dWh as
-// vmmt_gru_scan_bwd's (tile_gemm.cuh takes any shape), the reverse scan on
-// the wide kernel. Arguments as vmmt_gru_scan_bwd's with the wide tiling in
-// place of the cluster's, xch: 2 * rows * row_tiles * pad32(3H) elements
-// of the compute dtype, and wt: null on the wide plan, else wh laid out as
-// (unit_tiles * units, frag_ld(3H)), zero past H rows and 3H columns.
-extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask,
-                                 const void* reset, const void* h0, const void* wh, const void* bh,
-                                 const void* outs, const void* g, void* dx, void* dh0, void* dwh,
-                                 void* dbh, void* hp, void* dhn, void* partial, void* counters,
-                                 void* xch, const void* wt, int B, int T_len, int H, int reverse,
-                                 int units, int rows, int row_tiles, int ctas, int splits,
-                                 void* stream) {
+// How many CTAs of the wide (streamed 0) or streamed (1) forward the card
+// holds at once, and the dynamic shared memory of one CTA, for CTAs of
+// `units` units and `rows` batch rows.
+extern "C" int vmmt_gru_wide_occupancy(int dtype, int H, int units, int rows, int streamed,
+                                       int* max_blocks, int* smem_bytes) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
+  auto query = [&](auto zero) {
+    using T = decltype(zero);
+    return co_resident(wide_kernel<T>(streamed != 0),
+                       WideFwdLayout<T>(H, units, rows, streamed != 0).total, max_blocks,
+                       smem_bytes);
+  };
+  return by_dtype(dtype, query);
+}
+
+// Backward above 512 units, the tiled plan: the hoisted gate products and
+// dWh as vmmt_gru_scan_bwd's (tile_gemm.cuh takes any shape), the reverse
+// scan on gru_tiled_bwd_kernel. Arguments as vmmt_gru_scan_bwd's, then xch:
+// 2 * rows * row_tiles * tiled_ld(H) elements of the compute dtype; wt:
+// null where the kernel reads wh in place (3H elements a whole number of
+// 16-byte pieces), else wh padded to rows of tiled_ld(H), zero past 3H;
+// CTAs of `rows` x `units` cells (valid_tile), `cluster` of them splitting K
+// a tile, row_tiles row tiles a launch, one launch a chunk of rows *
+// row_tiles rows, with `resident` each CTA's rows of Wh in its shared
+// memory for the call (TiledLayout); dWh's K split over `splits` blocks; probe: null, or 1 + 4
+// * T int64 globaltimer stamps of the first launch's CTA 0 (after the first
+// grid barrier, then each step's gate backward, barrier, product and sums).
+// wh (or wt) and xch 16-byte aligned.
+extern "C" int vmmt_gru_tiled_bwd(int dtype, const void* x_proj, const void* mask,
+                                  const void* reset, const void* h0, const void* wh,
+                                  const void* bh, const void* outs, const void* g, void* dx,
+                                  void* dh0, void* dwh, void* dbh, void* hp, void* dhn,
+                                  void* partial, void* counters, void* xch, const void* wt,
+                                  int B, int T_len, int H, int reverse, int rows, int units,
+                                  int cluster, int row_tiles, int resident, int splits,
+                                  void* probe, void* stream) {
   if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
-  if (!valid_wide(dtype, H, units, rows, row_tiles, ctas) || splits < 1)
+  if (H < 1 || !valid_tile(rows, units, cluster) || row_tiles < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto zero) {
     using T = decltype(zero);
     const int H3 = 3 * H;
+    const void* w = wt != nullptr ? wt : wh;
+    if ((wt == nullptr && H3 * sizeof(T) % 16 != 0) || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(xch) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
     const float* h0f = static_cast<const float*>(h0);
     const float* outsf = static_cast<const float*>(outs);
     const float* resetf = static_cast<const float*>(reset);
@@ -1250,15 +1676,30 @@ extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask
                                      static_cast<const T*>(wh), static_cast<const float*>(bh),
                                      static_cast<float*>(hp), T_len, H, reverse}}};
     tile_gemm<T>(hoist, s);
-    Wide<T> p = wide_args<T>(x_proj, mask, reset, h0, wh, wt, xch, B, T_len, H, units, rows, 1,
-                             reverse);
-    p.outs = const_cast<float*>(outsf);
+    Tiled<T> p = {};
+    p.x_proj = static_cast<const T*>(x_proj);
+    p.mask = static_cast<const float*>(mask);
+    p.reset = resetf;
+    p.h0 = h0f;
+    p.outs = outsf;
     p.g = static_cast<const float*>(g);
     p.hp = static_cast<const float*>(hp);
+    p.w = static_cast<const T*>(w);
     p.dx = static_cast<float*>(dx);
     p.dhn = static_cast<float*>(dhn);
     p.dh0 = static_cast<float*>(dh0);
-    const int err = launch_wide<T>(1, p, row_tiles, ctas, s);
+    p.xch = static_cast<T*>(xch);
+    p.probe = static_cast<long long*>(probe);
+    p.B = B;
+    p.T_len = T_len;
+    p.H = H;
+    p.reverse = reverse;
+    p.rows = rows;
+    p.units = units;
+    p.ldw = wt != nullptr ? tiled_ld<T>(H) : H3;
+    p.ldx = tiled_ld<T>(H);
+    p.resident = resident;
+    const int err = launch_tiled<T>(p, cluster, row_tiles, s);
     if (err != 0) return err;
     OpArray<ScanDWh<T>, 1> dw{{{H, H3, B * T_len, h0f, outsf, resetf,
                                 static_cast<const float*>(dx), static_cast<const float*>(dhn),
@@ -1271,16 +1712,30 @@ extern "C" int vmmt_gru_wide_bwd(int dtype, const void* x_proj, const void* mask
   return err != 0 ? err : (int)cudaGetLastError();
 }
 
-// How many CTAs of the wide (streamed 0) or streamed (1) kernel of `pass`
-// (0 forward, 1 backward) the card holds at once, and the dynamic shared
-// memory of one CTA, for CTAs of `units` units and `rows` batch rows.
-extern "C" int vmmt_gru_wide_occupancy(int dtype, int pass, int H, int units, int rows,
-                                       int streamed, int* max_blocks, int* smem_bytes) {
-  if (!known_dtype(dtype) || (pass != 0 && pass != 1)) return (int)cudaErrorInvalidValue;
+// How many CTAs of the tiled backward the card holds at once in clusters of
+// `cluster` (cudaOccupancyMaxActiveClusters times cluster; 0 when it cannot
+// hold one), and the dynamic shared memory of one CTA of the tiling
+// (TiledLayout) at H units.
+extern "C" int vmmt_gru_tiled_bwd_occupancy(int dtype, int H, int rows, int units, int cluster,
+                                            int resident, int* max_ctas, int* smem_bytes) {
+  if (!known_dtype(dtype) || H < 1 || !valid_tile(rows, units, cluster))
+    return (int)cudaErrorInvalidValue;
   auto query = [&](auto zero) {
     using T = decltype(zero);
-    return co_resident(wide_kernel<T>(pass, streamed != 0),
-                       wide_smem<T>(pass, H, units, rows, streamed != 0), max_blocks, smem_bytes);
+    const size_t smem =
+        TiledLayout(rows, units, cluster, resident != 0, tiled_kc_own<T>(H, cluster)).total;
+    *smem_bytes = (int)smem;
+    const auto kernel = gru_tiled_bwd_kernel<T>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[2];
+    cudaLaunchConfig_t cfg = tiled_config(cluster, cluster, smem, attr, 0);
+    cfg.numAttrs = 1;  // the cluster dimension alone
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    *max_ctas = clusters * cluster;
+    return err;
   };
   return by_dtype(dtype, query);
 }

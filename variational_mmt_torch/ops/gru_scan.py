@@ -58,29 +58,25 @@ same launch, deterministically. :func:`scan_bwd_plan` sizes the
 clusters and shared memory and refuses what the design cannot hold; the
 wrapper checks with the card that a cluster fits.
 
-Source note, the wide plan (H from 513 to 1024, ``vmmt_gru_wide`` and
-``vmmt_gru_wide_bwd`` in the same source). Above 512 units the three gate
-blocks of Wh no longer fit one cluster of 16 CTAs: at H = 1024 Wh is 6.3 MB
-in bf16 (12.6 MB in f32). The wide plan spreads its 3H columns over the
-whole card, as the decoder kernels (rows 5 and 6) spread theirs: a
-persistent cooperative kernel whose CTAs each own 8 units in bf16 (one
-mma n-tile; 128 CTAs at H = 1024, 49 KB of Wh each) or 4 in f32 (256 CTAs,
-two an SM), of a tile of batch rows, and keep those units' columns of Wh in
-shared memory for the call. h_{t-1} crosses CTAs through global memory
-(L2): each step writes its units of round(h') into one of two exchange
-buffers, waits at one grid barrier, and the next step's product streams
-the (rows, H) state from L2 straight into the mma fragments (the CTA never
-holds it whole: 256 KB at B = 64, H = 1024 in f32). The backward's
-serial part runs the same way on round(dh_proj), (rows, 3H) a step; its
-hoisted gate recompute and its dWh product are the cluster plan's
-(``tile_gemm.cuh`` takes any shape). Batches above 256 rows a CTA run in
-chunks, one launch each. :func:`scan_fwd_plan` and :func:`scan_bwd_plan`
-plan it (``layout`` ``"wide"``); the wrapper checks with the card that
-the grid is co-resident and raises ``NotImplementedError`` naming the plan
-when it is not.
+Source note, the forward's wide plan (H from 513 to 1024, ``vmmt_gru_wide``
+in the same source). Above 512 units the three gate blocks of Wh no longer
+fit one cluster of 16 CTAs: at H = 1024 Wh is 6.3 MB in bf16 (12.6 MB in
+f32). The wide plan spreads its 3H columns over the whole card, as the
+decoder kernels (rows 5 and 6) spread theirs: a persistent cooperative
+kernel whose CTAs each own 8 units in bf16 (one mma n-tile; 128 CTAs at H =
+1024, 49 KB of Wh each) or 4 in f32 (256 CTAs, two an SM), of a tile of
+batch rows, and keep those units' columns of Wh in shared memory for the
+call. h_{t-1} crosses CTAs through global memory (L2): each step writes its
+units of round(h') into one of two exchange buffers, waits at one grid
+barrier, and the next step's product streams the (rows, H) state from L2
+straight into the mma fragments (the CTA never holds it whole: 256 KB at
+B = 64, H = 1024 in f32). Batches above 256 rows a CTA run in chunks, one
+launch each. :func:`scan_fwd_plan` plans it (``layout`` ``"wide"``); the
+wrapper checks with the card that the grid is co-resident and raises
+``NotImplementedError`` naming the plan when it is not.
 
-Source note, the streamed plan (H above 1024, the same two kernels with
-``kStream``). The wide plan ties the grid (a CTA a unit tile) and each
+Source note, the forward's streamed plan (H above 1024, the same kernel
+with ``kStream``). The wide plan ties the grid (a CTA a unit tile) and each
 CTA's shared memory (its slice of Wh, 98 KB at H = 2048) to H. The
 streamed plan breaks both links: the grid is capped at what the card holds
 at once (one bf16 CTA an SM, two in f32), each CTA takes unit tiles in
@@ -88,13 +84,38 @@ turn within every step, and the weights stay in global memory, laid out
 once a call by the wrapper (:func:`_stream_weights`) in the slices' own
 order so that ``block_product`` reads its fragments from L2 (from HBM
 every step where Wh exceeds the 50 MB L2: f32 at 2048 units and wider).
-The carries move to global memory (the forward reads h back from its own
-``outs``, the backward keeps dh in ``dh0``), so a CTA's shared memory is
-its product buffer alone, whatever H. All row tiles run in one launch.
+The forward reads h back from its own ``outs``, so a CTA's shared memory
+is its product buffer alone, whatever H. All row tiles run in one launch.
+
+Source note, the backward's tiled plan (H above 512, ``vmmt_gru_tiled_bwd``
+in the same source). The serial part of the backward is T steps of the
+gate backward and dh = dh_part + round(dh_proj) @ Wh^T, a (B, 3H) x (3H,
+H) product whose operand is the step's own output. Its FLOPs are few; what
+bounds it on the H100 is the bytes each SM pulls from L2 a step and the
+grid barrier of each step. Giving each CTA 8 units (the forward's tiling)
+would read each step's dh_proj from L2 H/8 times. The tiled plan makes the
+product output-stationary: each CTA owns a tile of ``rows`` x ``units``
+cells (32, 64 or 128 each) for the call, K = 3H moves through a
+4-stage ``cp.async`` ring in shared memory (Wh's rows stay there for the
+call where a CTA's share fits), ``ldmatrix`` feeds ``mma.sync`` in
+bf16 and f16 (FMAs in f32), and a step's dh_proj leaves L2 H / units
+times. Where B leaves few tiles, a thread-block cluster of 2 or 4 CTAs
+splits K a tile and adds its partial products through distributed shared
+memory in rank order (deterministic); the launch is cooperative and
+clustered at once. Each CTA keeps the dh carry and dh_part of its own
+cells in shared memory, and prefetches the next step's gate inputs into
+L2 while the product runs. Wh is read in place where 3H elements are whole
+16-byte pieces, else from a padded copy made once a call
+(:func:`_tiled_weights`). :func:`_tiled_plan` picks the tiling whose grid
+the card holds at once (:func:`tiled_co_resident`) by the busiest CTA's
+bytes (:func:`_tiled_cost`); batches above a launch's rows run in chunks.
+The wrapper checks the plan with the card and raises
+``NotImplementedError`` where the grid is not co-resident.
 
 Widths. Both kernels take every H >= 1 in f32, bf16 and f16
-(:func:`scan_kernel_holds`): clusters up to 512 units, the wide plan to
-1024, the streamed plan above, as the Pallas scan takes any H.
+(:func:`scan_kernel_holds`): clusters up to 512 units; above, the forward's
+wide plan to 1024 and its streamed plan beyond, the backward's tiled plan,
+as the Pallas scan takes any H.
 
 float16 takes bf16's path on every plan (``kernels.mma_dtype``: the same
 mma.sync tiling, strides and shared memory with f16 operands); what is
@@ -178,10 +199,9 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     plan = scan_fwd_plan(B, T, H, dt, kernels.sm_count(x.device.index))
     code = kernels.DTYPE_CODE[dt]
     if plan["layout"] in ("wide", "streamed"):
-        gru_layer_scan.plan = _co_resident_wide("gru_layer_scan", 0, plan, code, H,
-                                                x.device.index)
-        xch = _exchange(plan, H, dt, x.device)
-        wt = _stream_weights(w, 0, plan) if plan["layout"] == "streamed" else None
+        gru_layer_scan.plan = _co_resident_wide(plan, code, H, x.device.index)
+        xch = _exchange(plan, kernels.pad32(H), dt, x.device)
+        wt = _stream_weights(w, plan) if plan["layout"] == "streamed" else None
         err = lib.vmmt_gru_wide(code, x.data_ptr(), m.data_ptr(), _ptr(r), h.data_ptr(),
                                 w.data_ptr(), b.data_ptr(), outs.data_ptr(), final.data_ptr(),
                                 xch.data_ptr(), _ptr(wt), B, T, H, int(reverse), plan["units"],
@@ -224,20 +244,19 @@ def _check_cluster(what: str, plan: dict, co_resident: int, smem: int) -> None:
                                   f"{smem} bytes of shared memory each does not fit the card")
 
 
-def _co_resident_wide(what: str, pass_: int, plan: dict, code: int, H: int,
-                      device: int) -> dict:
-    """A wide or streamed ``plan`` checked against the kernel's own
+def _co_resident_wide(plan: dict, code: int, H: int, device: int) -> dict:
+    """A wide or streamed forward ``plan`` checked against the kernel's own
     shared-memory count and the card's count of co-resident CTAs, with that
     count."""
     streamed = plan["layout"] == "streamed"
-    co_resident, smem = kernels.occupancy(device, "gru_scan", "vmmt_gru_wide_occupancy", code,
-                                          pass_, H, plan["units"], plan["rows"], int(streamed))
+    co_resident, smem = kernels.occupancy(device, "gru_scan", "vmmt_gru_wide_occupancy", code, H,
+                                          plan["units"], plan["rows"], int(streamed))
     if smem != plan["smem"]:
-        raise RuntimeError(f"{what} kernel: plan of {plan['smem']} bytes of shared memory, "
-                           f"the kernel takes {smem}")
+        raise RuntimeError(f"gru_layer_scan kernel: plan of {plan['smem']} bytes of shared "
+                           f"memory, the kernel takes {smem}")
     if plan["grid"] > co_resident:
         raise NotImplementedError(
-            f"{what} kernel: the {plan['layout']} plan's {plan['grid']} CTAs "
+            f"gru_layer_scan kernel: the {plan['layout']} plan's {plan['grid']} CTAs "
             f"({plan['unit_tiles']} tiles "
             f"of {plan['units']} units x {plan['row_tiles']} of {plan['rows']} rows) with "
             f"{smem} bytes of shared memory each exceed the {co_resident} the card holds "
@@ -245,11 +264,29 @@ def _co_resident_wide(what: str, pass_: int, plan: dict, code: int, H: int,
     return dict(plan, max_co_resident=co_resident)
 
 
-def _exchange(plan: dict, width: int, dtype: torch.dtype, device) -> torch.Tensor:
-    """The wide kernels' two exchange buffers for one chunk of rows, rows
-    of ``width`` padded to 32, in the compute dtype."""
-    return torch.empty((2 * plan["rows"] * plan["row_tiles"] * kernels.pad32(width),),
-                       dtype=dtype, device=device)
+def _co_resident_tiled(plan: dict, code: int, H: int, device: int) -> dict:
+    """The backward's tiled ``plan`` checked against the kernel's own
+    shared-memory count and the CTAs the card holds at once in clusters of
+    the plan's size, with that count."""
+    co_resident, smem = kernels.occupancy(device, "gru_scan", "vmmt_gru_tiled_bwd_occupancy",
+                                          code, H, plan["rows"], plan["units"], plan["cluster"],
+                                          int(plan["resident"]))
+    if smem != plan["smem"]:
+        raise RuntimeError(f"gru_layer_scan_bwd kernel: plan of {plan['smem']} bytes of shared "
+                           f"memory, the kernel takes {smem}")
+    if plan["grid"] > co_resident:
+        raise NotImplementedError(
+            f"gru_layer_scan_bwd kernel: the tiled plan's {plan['grid']} CTAs ({plan['tiles']} "
+            f"tiles of {plan['rows']} rows x {plan['units']} units, clusters of "
+            f"{plan['cluster']}) with {smem} bytes of shared memory each exceed the "
+            f"{co_resident} the card holds at once")
+    return dict(plan, max_co_resident=co_resident)
+
+
+def _exchange(plan: dict, ld: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The wide forward's or tiled backward's two exchange buffers for one
+    chunk of rows, rows ``ld`` apart, in the compute dtype."""
+    return torch.empty((2 * plan["rows"] * plan["row_tiles"] * ld,), dtype=dtype, device=device)
 
 
 def _prev_states(h0: torch.Tensor, outs: torch.Tensor, reverse: bool) -> torch.Tensor:
@@ -381,57 +418,52 @@ def _bwd_rows(H: int, dtype: torch.dtype, units: int) -> int:
     return SCAN_BWD_ROWS
 
 
-def _wide_smem(pass_: int, H: int, dtype: torch.dtype, rows: int,
-               streamed: bool = False) -> int:
-    """Shared memory of a wide CTA of ``rows`` batch rows (``WideFwdLayout``
-    and ``WideBwdLayout`` of csrc/gru_scan.cu). Forward: its units' three
-    gate columns of Wh as (3 tile rows, K) slices at the padded stride, the
-    product buffer (3 n-tiles of 8 floats a row, room for 8 warps' K-split
-    partial sums of 16 rows in 16 bits) and the f32 carry. Backward: its units'
-    rows of Wh (K = 3H), one n-tile of product and the f32 dh and dh_part.
-    ``streamed``: the product buffer alone."""
+def _wide_smem(H: int, dtype: torch.dtype, rows: int, streamed: bool = False) -> int:
+    """Shared memory of a wide forward CTA of ``rows`` batch rows
+    (``WideFwdLayout`` of csrc/gru_scan.cu): its units' three gate columns
+    of Wh as (3 tile rows, K) slices at the padded stride, the product
+    buffer (3 n-tiles of 8 floats a row, room for 8 warps' K-split partial
+    sums of 16 rows in 16 bits) and the f32 carry. ``streamed``: the product
+    buffer alone."""
     mma = kernels.mma_dtype(dtype)
     tsize = dtype.itemsize
     units = SCAN_WIDE_UNITS[dtype]
     prod_rows = max(SCAN_WIDE_WARPS * 16, rows) if mma else rows
-    carry = 0 if streamed else kernels.align16(rows * units * 4)
-    if pass_ == 0:
-        w = 0 if streamed else kernels.align16(3 * units * kernels.frag_ld(H, mma) * tsize)
-        return w + prod_rows * 3 * 8 * 4 + carry
-    w = 0 if streamed else kernels.align16(units * kernels.frag_ld(3 * H, mma) * tsize)
-    return w + prod_rows * 8 * 4 + 2 * carry
+    if streamed:
+        return prod_rows * 3 * 8 * 4
+    w = kernels.align16(3 * units * kernels.frag_ld(H, mma) * tsize)
+    return w + prod_rows * 3 * 8 * 4 + kernels.align16(rows * units * 4)
 
 
-def _wide_plan(what: str, pass_: int, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
-    """The wide plan of pass 0 (forward) or 1 (backward): ``unit_tiles``
-    CTAs of ``units`` units (8 in bf16 and f16, 4 in f32) times ``row_tiles`` of
-    ``rows`` batch rows (a multiple of 16, at most 256; row tiles halve
-    what each CTA reads of the state, as long as the grid stays within a
-    CTA an SM), ``grid`` CTAs a launch, ``chunks`` launches a call."""
+def _wide_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The forward's wide plan: ``unit_tiles`` CTAs of ``units`` units (8
+    in bf16 and f16, 4 in f32) times ``row_tiles`` of ``rows`` batch rows (a
+    multiple of 16, at most 256; row tiles halve what each CTA reads of the
+    state, as long as the grid stays within a CTA an SM), ``grid`` CTAs a
+    launch, ``chunks`` launches a call."""
     units = SCAN_WIDE_UNITS[dtype]
     unit_tiles = -(-H // units)
     B = max(B, 1)
     row_tiles = max(1, min(-(-B // 16), sms // unit_tiles))
     rows = min(kernels.align16(-(-B // row_tiles)), SCAN_WIDE_MAX_ROWS)
     row_tiles = min(row_tiles, -(-B // rows))
-    smem = _wide_smem(pass_, H, dtype, rows)
+    smem = _wide_smem(H, dtype, rows)
     if smem > kernels.SMEM_PER_BLOCK:
-        raise NotImplementedError(f"{what} kernel: the wide plan's {smem} bytes of shared "
-                                  f"memory per CTA exceed {kernels.SMEM_PER_BLOCK}")
+        raise NotImplementedError(f"gru_layer_scan kernel: the wide plan's {smem} bytes of "
+                                  f"shared memory per CTA exceed {kernels.SMEM_PER_BLOCK}")
     grid = unit_tiles * row_tiles
     return dict(layout="wide", units=units, rows=rows, unit_tiles=unit_tiles,
                 row_tiles=row_tiles, grid=grid, ctas=grid,
                 chunks=-(-B // (rows * row_tiles)), smem=smem)
 
 
-def _stream_plan(pass_: int, B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
-    """The streamed plan of pass 0 (forward) or 1 (backward): ``unit_tiles``
-    of ``units`` units (8 in bf16 and f16, 4 in f32) times ``row_tiles`` of ``rows``
-    batch rows (a multiple of 16, at most 256), all in one launch
-    (``chunks`` 1) of ``grid`` CTAs, as many as the card holds at once
-    (``SCAN_WIDE_PER_SM`` an SM) or as there are tiles; each CTA takes
-    ``tiles_per_cta`` tiles at most a step. Shared memory: the product
-    buffer, whatever H."""
+def _stream_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The forward's streamed plan: ``unit_tiles`` of ``units`` units (8 in
+    bf16 and f16, 4 in f32) times ``row_tiles`` of ``rows`` batch rows (a
+    multiple of 16, at most 256), all in one launch (``chunks`` 1) of
+    ``grid`` CTAs, as many as the card holds at once (``SCAN_WIDE_PER_SM``
+    an SM) or as there are tiles; each CTA takes ``tiles_per_cta`` tiles at
+    most a step. Shared memory: the product buffer, whatever H."""
     units = SCAN_WIDE_UNITS[dtype]
     unit_tiles = -(-H // units)
     B = max(B, 1)
@@ -442,45 +474,208 @@ def _stream_plan(pass_: int, B: int, H: int, dtype: torch.dtype, sms: int) -> di
     return dict(layout="streamed", units=units, rows=rows, unit_tiles=unit_tiles,
                 row_tiles=row_tiles, tiles=tiles, grid=grid, ctas=grid,
                 tiles_per_cta=-(-tiles // grid), chunks=1,
-                smem=_wide_smem(pass_, H, dtype, rows, streamed=True))
+                smem=_wide_smem(H, dtype, rows, streamed=True))
 
 
-def _stream_weights(Wh: torch.Tensor, pass_: int, plan: dict) -> torch.Tensor:
-    """Wh (H, 3H) laid out for the streamed kernels (``Wide::wt`` of
-    csrc/gru_scan.cu), zero past H and past each row's width. Forward: per
-    unit tile its three gates' columns as rows, (unit_tiles, 3, units,
-    frag_ld(H)); backward: Wh's rows, (unit_tiles * units, frag_ld(3H))."""
+def _stream_weights(Wh: torch.Tensor, plan: dict) -> torch.Tensor:
+    """Wh (H, 3H) laid out for the streamed forward (``Wide::wt`` of
+    csrc/gru_scan.cu): per unit tile its three gates' columns as rows,
+    (unit_tiles, 3, units, frag_ld(H)), zero past H."""
     H = Wh.shape[0]
     units, ut = plan["units"], plan["unit_tiles"]
-    mma = kernels.mma_dtype(Wh.dtype)
-    if pass_ == 1:
-        wt = Wh.new_zeros((ut * units, kernels.frag_ld(3 * H, mma)))
-        wt[:H, :3 * H] = Wh
-        return wt
-    cols = Wh.new_zeros((3, ut * units, kernels.frag_ld(H, mma)))
+    cols = Wh.new_zeros((3, ut * units, kernels.frag_ld(H, kernels.mma_dtype(Wh.dtype))))
     cols[:, :H, :H] = Wh.view(H, 3, H).permute(1, 2, 0)  # [gate, unit, k] = Wh[k, gate*H+unit]
     return cols.view(3, ut, units, -1).transpose(0, 1).contiguous()
+
+
+# The backward's tiled plan (H above 512; ``gru_tiled_bwd_kernel`` of
+# csrc/gru_scan.cu). A CTA's tile of the step's product: ``rows`` batch rows
+# x ``units`` hidden units, each a multiple of a warp's 32 x 32; the eight
+# warps of a CTA split K by TILED_WARPS * 32 * 32 / (rows * units).
+TILED_THREADS = 256
+TILED_WARP_TILE = 32
+TILED_TILES = ((32, 64), (64, 32), (64, 64), (32, 128), (128, 32), (64, 128), (128, 64))
+TILED_CLUSTERS = (1, 2, 4)  # CTAs splitting K a tile (a thread-block cluster)
+TILED_STAGES = 4  # stages of the K ring (kTiledStages)
+TILED_CHUNK = 128  # bytes of one row's K chunk in a stage (kTiledChunk)
+TILED_PITCH = TILED_CHUNK + 16  # bytes from one row of a stage to the next
+# what the plan assumes of the card when it ranks the tilings (not limits;
+# fitted to an H100's per-phase readings of every tiling at B = 64 and 256,
+# H = 520-2048, PERF.md): a K chunk of the ring takes at least
+# TILED_CHUNK_S, else its bytes at TILED_L2_SM, the most one SM pulls from
+# L2, and all SMs together at most TILED_L2; tensor-core mma.sync and f32
+# FMA rates of one SM, FLOP/s; a step's grid barrier; the gate backward,
+# its first batch of cells and each cell more a thread; the sums of the
+# partial products, a step and each cell a thread
+TILED_CHUNK_S, TILED_L2_SM, TILED_L2 = 0.45e-6, 25e9, 3.5e12
+TILED_MMA_SM, TILED_FMA_SM = 4.0e12, 0.35e12
+TILED_BARRIER = 1.2e-6
+TILED_GATE_FIRST, TILED_GATE_CELL = 1.0e-6, 0.68e-6
+TILED_SUMS_STEP, TILED_SUMS_CELL = 3.0e-6, 0.5e-6
+H100_L2_BYTES = 50 * 2**20
+
+
+def tiled_kc(dtype: torch.dtype) -> int:
+    """Elements of one row's K chunk (``tiled_kc`` of csrc/gru_scan.cu)."""
+    return TILED_CHUNK // dtype.itemsize
+
+
+def tiled_ld(H: int, dtype: torch.dtype) -> int:
+    """Row stride of the tiled plan's exchange buffers and laid-out weights
+    (``tiled_ld``): 3H padded to a whole K chunk."""
+    kc = tiled_kc(dtype)
+    return -(-3 * H // kc) * kc
+
+
+def tiled_k_chunks(H: int, dtype: torch.dtype, cluster: int, rank: int) -> range:
+    """The K chunks that CTA ``rank`` of a cluster of ``cluster`` CTAs
+    reduces a step: chunk c covers columns [c * kc, (c + 1) * kc) of 3H."""
+    nk = -(-3 * H // tiled_kc(dtype))
+    return range(rank * nk // cluster, (rank + 1) * nk // cluster)
+
+
+def tiled_kc_own(H: int, dtype: torch.dtype, cluster: int) -> int:
+    """The most K chunks one CTA of a cluster reduces a step."""
+    return -(-(-(-3 * H // tiled_kc(dtype))) // cluster)
+
+
+def tiled_smem(rows: int, units: int, cluster: int, resident: bool, kc_own: int) -> int:
+    """Shared memory of a tiled CTA (``TiledLayout``): with ``resident``
+    its rows of Wh over its ``kc_own`` K chunks (``units`` rows of kc_own *
+    TILED_CHUNK + 16 bytes); the ring of TILED_STAGES stages of ``rows`` (and
+    without ``resident`` ``units`` more) K-chunk rows at TILED_PITCH; the
+    warps' partial products (K-split groups x rows x (units + 4) f32); the
+    dh carry and dh_part of the cells the CTA owns (rows / cluster x units
+    f32 each). The same bytes in every dtype."""
+    wk = TILED_THREADS // 32 * TILED_WARP_TILE ** 2 // (rows * units)
+    w = units * (kc_own * TILED_CHUNK + 16) if resident else 0
+    return (w + TILED_STAGES * (rows + (0 if resident else units)) * TILED_PITCH
+            + wk * rows * (units + 4) * 4 + 2 * (rows // cluster) * units * 4)
+
+
+def tiled_co_resident(cluster: int, sms: int) -> int:
+    """The CTAs of clusters of ``cluster`` CTAs, one CTA an SM, that the
+    plan counts on a card of ``sms`` SMs holding at once: every SM alone,
+    SM pairs in twos, and in fours all but 3 quads (an H100 SXM held 30
+    clusters of 4 at once, 120 of its 132 SMs: its GPCs leave SMs that no
+    quad takes). The wrapper asks the card."""
+    if cluster == 1:
+        return sms
+    if cluster == 2:
+        return sms // 2 * 2
+    return max(0, sms // 4 - 3) * 4
+
+
+def _tiled_cost(B: int, H: int, dtype: torch.dtype, plan: dict) -> float:
+    """What the plan ranks tilings by: seconds a call takes per step of the
+    time axis, from the busiest CTA's K chunks through its ring, its
+    products, the gate backward and the sums of its cells and the grid
+    barrier (TILED_* constants)."""
+    rows, units, cluster = plan["rows"], plan["units"], plan["cluster"]
+    mma = kernels.mma_dtype(dtype)
+    nk = tiled_kc_own(H, dtype, cluster)
+    busy_rows, busy_units = min(rows, B), min(units, H)
+    ring_rows = busy_rows + (0 if plan["resident"] else busy_units)
+    cta = ring_rows * nk * TILED_CHUNK
+    flops = 2.0 * rows * units * nk * tiled_kc(dtype)
+    product = max(nk * max(TILED_CHUNK_S, ring_rows * TILED_CHUNK / TILED_L2_SM),
+                  plan["grid"] * cta / TILED_L2, flops / (TILED_MMA_SM if mma else TILED_FMA_SM))
+    cells = -(-busy_rows * busy_units // (cluster * TILED_THREADS))
+    gate = TILED_GATE_FIRST + TILED_GATE_CELL * max(0, cells - 4)
+    sums = TILED_SUMS_STEP + TILED_SUMS_CELL * cells
+    return plan["chunks"] * (TILED_BARRIER + gate + product + sums)
+
+
+def _tiled_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The backward's tiled plan for B rows and H units (above 512) on a
+    card of ``sms`` SMs: of the tilings whose grid the card holds at once
+    (TILED_TILES x TILED_CLUSTERS), the one :func:`_tiled_cost` ranks first
+    (then the smaller grid). Each CTA owns ``rows`` x ``units`` cells of a
+    chunk of ``rows * row_tiles`` batch rows for the whole call (``chunks``
+    launches a call); ``cluster`` CTAs split K = 3H a tile. Wh's rows are
+    read in place where 3H elements are a whole number of 16-byte pieces
+    (``in_place``), else laid out once a call (:func:`_tiled_weights`); a
+    CTA's rows of them stay in its shared memory where they fit
+    (``resident``), and ``wh_from`` says where they come from: shared
+    memory, L2, or device memory every step."""
+    B = max(B, 1)
+    best = None
+    for rows, units in TILED_TILES:
+        for cluster in TILED_CLUSTERS:
+            plan = tiled_plan_for(B, H, dtype, sms, rows, units, cluster)
+            if plan is None:
+                continue
+            key = (_tiled_cost(B, H, dtype, plan), plan["grid"])
+            if best is None or key < best[0]:
+                best = (key, plan)
+    if best is None:
+        raise NotImplementedError(f"gru_layer_scan_bwd kernel: no tiling of {H} units fits "
+                                  f"the card's {sms} SMs at once")
+    return best[1]
+
+
+def tiled_plan_for(B: int, H: int, dtype: torch.dtype, sms: int, rows: int, units: int,
+                   cluster: int) -> Optional[dict]:
+    """The tiled plan of one tiling: as many row tiles a launch as the card
+    holds at once with the unit tiles and clusters (at most the batch's),
+    ``chunks`` launches for B rows; None where the grid of one row tile or
+    the shared memory does not fit the card."""
+    if H < 1:
+        return None
+    B = max(B, 1)
+    unit_tiles = -(-H // units)
+    most = tiled_co_resident(cluster, sms) // (unit_tiles * cluster)
+    kc_own = tiled_kc_own(H, dtype, cluster)
+    # Wh's rows stay in shared memory where they fit
+    resident = tiled_smem(rows, units, cluster, True, kc_own) <= kernels.SMEM_PER_BLOCK
+    smem = tiled_smem(rows, units, cluster, resident, kc_own)
+    if most < 1 or smem > kernels.SMEM_PER_BLOCK:
+        return None
+    row_tiles = min(-(-B // rows), most)
+    grid = row_tiles * unit_tiles * cluster
+    kc = tiled_kc(dtype)
+    in_place = 3 * H * dtype.itemsize % 16 == 0
+    wh_bytes = H * (3 * H if in_place else tiled_ld(H, dtype)) * dtype.itemsize
+    return dict(layout="tiled", rows=rows, units=units, cluster=cluster, unit_tiles=unit_tiles,
+                row_tiles=row_tiles, tiles=unit_tiles * row_tiles, grid=grid, ctas=grid,
+                chunks=-(-B // (rows * row_tiles)), stages=TILED_STAGES, resident=resident,
+                kc=kc, k_chunks=-(-3 * H // kc), ldx=tiled_ld(H, dtype), in_place=in_place,
+                wh_from="smem" if resident else "l2" if wh_bytes <= H100_L2_BYTES else "hbm",
+                smem=smem)
+
+
+def _tiled_weights(Wh: torch.Tensor, plan: dict) -> Optional[torch.Tensor]:
+    """Wh's rows for the tiled backward: None where the kernel reads Wh in
+    place, else Wh (H, 3H) padded to rows of ``plan["ldx"]`` (zero past
+    3H), so that each row's K chunks are whole 16-byte pieces."""
+    if plan["in_place"]:
+        return None
+    H = Wh.shape[0]
+    wt = Wh.new_zeros((H, plan["ldx"]))
+    wt[:, :3 * H] = Wh
+    return wt
 
 
 def scan_kernel_holds(H: int, dtype: torch.dtype) -> bool:
     """Whether both scan kernels (forward and backward) compute a layer of
     H units in ``dtype`` at every batch size: every H >= 1. Up to 512 units
     on clusters (16 CTAs of 32 units, the largest cluster) with both CTAs'
-    shared memory within the card's; to 1024 on the wide plan, whose CTAs
-    at the most rows fit the card's shared memory, two an SM where the grid
-    exceeds an H100's 132 SMs; above, on the streamed plan, whose grid and
-    shared memory do not grow with H. ``UniGRU`` sends every ``use_pallas``
-    GRU layer to the kernels, as JAX sends it to the Pallas scan."""
+    shared memory within the card's; above, the forward on the wide plan to
+    1024 units (its CTAs at the most rows fit the card's shared memory, two
+    an SM where the grid exceeds an H100's 132 SMs) and on the streamed plan
+    above (nothing in it grows with H), the backward on the tiled plan (its
+    tiles' shared memory does not depend on H; :func:`_tiled_plan` finds a
+    tiling for every H it is asked, 4096 in the tests). ``UniGRU`` sends
+    every ``use_pallas`` GRU layer to the kernels, as JAX sends it to the
+    Pallas scan."""
     if dtype not in kernels.DTYPE_CODE or H < 1:
         return False
-    if H > SCAN_WIDE_MAX_HIDDEN:  # the streamed plan: nothing in it grows with H
+    if H > SCAN_WIDE_MAX_HIDDEN:  # the streamed forward: nothing in it grows with H
         return True
     if H > SCAN_CLUSTER_MAX_HIDDEN:
         per_sm = 1 if -(-H // SCAN_WIDE_UNITS[dtype]) <= H100_SMS else 2
-        return all(per_sm * (_wide_smem(p, H, dtype, SCAN_WIDE_MAX_ROWS) + 1024)
-                   <= kernels.SMEM_PER_SM
-                   and _wide_smem(p, H, dtype, SCAN_WIDE_MAX_ROWS) <= kernels.SMEM_PER_BLOCK
-                   for p in (0, 1))
+        smem = _wide_smem(H, dtype, SCAN_WIDE_MAX_ROWS)
+        return per_sm * (smem + 1024) <= kernels.SMEM_PER_SM and smem <= kernels.SMEM_PER_BLOCK
     cluster, units = _cluster_units("gru_layer_scan", H)
     return (_fwd_smem(H, dtype, SCAN_FWD_FEW_SLOTS) <= kernels.SMEM_PER_BLOCK
             and _bwd_smem(H, dtype, units, _bwd_rows(H, dtype, units))
@@ -500,9 +695,9 @@ def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     for what the design cannot hold."""
     kernels.dtype_code("gru_layer_scan", dtype)
     if H > SCAN_WIDE_MAX_HIDDEN:
-        return _stream_plan(0, B, H, dtype, sms)
+        return _stream_plan(B, H, dtype, sms)
     if H > SCAN_CLUSTER_MAX_HIDDEN:
-        return _wide_plan("gru_layer_scan", 0, B, H, dtype, sms)
+        return _wide_plan(B, H, dtype, sms)
     cluster, units = _cluster_units("gru_layer_scan", H)
     rows = SCAN_FWD_SMALL_ROWS
     if -(-B // rows) * cluster > sms and _fwd_smem(H, dtype, SCAN_FWD_SLOTS) \
@@ -523,19 +718,15 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SM
     clusters of ``cluster`` CTAs (up to 16), each owning ``units`` hidden
     units of ``rows`` batch rows (4, or 2 in f32 above 448 units), with
     ``smem`` bytes of dynamic shared memory per CTA (:func:`_bwd_smem`,
-    mirrors ``ScanLayout`` of csrc/gru_scan.cu); from 513 to 1024 units the
-    wide plan (:func:`_wide_plan`), above the streamed plan
-    (:func:`_stream_plan`). All with the dWh product's 64 x 64 tiles, each
-    split over ``dwh_splits`` blocks along K = B*T (1 on the wide and
-    streamed plans, whose 243 or more tiles fill the card). Raises
-    NotImplementedError for what the design cannot hold."""
+    mirrors ``ScanLayout`` of csrc/gru_scan.cu); above, every width on the
+    tiled plan (:func:`_tiled_plan`, ``layout`` ``"tiled"``). All with the
+    dWh product's 64 x 64 tiles, each split over ``dwh_splits`` blocks along
+    K = B*T (1 on the tiled plan, whose 243 or more tiles fill the card).
+    Raises NotImplementedError for what the design cannot hold."""
     kernels.dtype_code("gru_layer_scan_bwd", dtype)
     dwh_tiles = -(-H // 64) * -(-3 * H // 64)
-    if H > SCAN_WIDE_MAX_HIDDEN:
-        return dict(_stream_plan(1, B, H, dtype, sms), dwh_tiles=dwh_tiles, dwh_splits=1)
     if H > SCAN_CLUSTER_MAX_HIDDEN:
-        return dict(_wide_plan("gru_layer_scan_bwd", 1, B, H, dtype, sms), dwh_tiles=dwh_tiles,
-                    dwh_splits=1)
+        return dict(_tiled_plan(B, H, dtype, sms), dwh_tiles=dwh_tiles, dwh_splits=1)
     cluster, units = _cluster_units("gru_layer_scan_bwd", H)
     rows = _bwd_rows(H, dtype, units)
     smem = _bwd_smem(H, dtype, units, rows)
@@ -551,12 +742,17 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SM
 def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
                        Wh: torch.Tensor, bh: torch.Tensor, outs: torch.Tensor,
                        g: torch.Tensor, reverse: bool = False,
-                       reset: Optional[torch.Tensor] = None):
+                       reset: Optional[torch.Tensor] = None,
+                       probe: Optional[torch.Tensor] = None):
     """Backward of :func:`gru_layer_scan` (same inputs, plus its f32
     ``outs`` and their cotangent ``g``). Returns (dx_proj, dh0, dWh, dbh) in
     f32. CPU tensors take the plain version; CUDA tensors launch the
     kernels (the plan of the last launch, with the card's count of
-    co-resident clusters, is kept in ``gru_layer_scan_bwd.plan``)."""
+    co-resident clusters, is kept in ``gru_layer_scan_bwd.plan``).
+    ``probe``: on the tiled plan (H above 512), an int64 tensor of ``1 + 4 *
+    T`` entries on the device for the first launch's ``%globaltimer`` stamps
+    (ns) of CTA 0: after its first grid barrier, then each step's gate
+    backward, grid barrier, product and sums."""
     if x_proj.device.type == "cpu":
         return gru_layer_scan_bwd_ref(x_proj, mask, h0, Wh, bh, outs, g, reverse, reset)
     B, T, H3 = x_proj.shape
@@ -595,15 +791,20 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     code = kernels.DTYPE_CODE[dt]
     outputs = (dx.data_ptr(), dh0.data_ptr(), dWh.data_ptr(), dbh.data_ptr(), hp.data_ptr(),
                dhn.data_ptr(), partial.data_ptr(), counters.data_ptr())
-    if plan["layout"] in ("wide", "streamed"):
-        gru_layer_scan_bwd.plan = _co_resident_wide("gru_layer_scan_bwd", 1, plan, code, H,
-                                                    x.device.index)
-        xch = _exchange(plan, H3, dt, x.device)
-        wt = _stream_weights(args[4], 1, plan) if plan["layout"] == "streamed" else None
-        err = lib.vmmt_gru_wide_bwd(code, *map(_ptr, args), *outputs, xch.data_ptr(), _ptr(wt),
-                                    B, T, H, int(reverse), plan["units"], plan["rows"],
-                                    plan["row_tiles"], plan["grid"], splits,
-                                    kernels.stream_of(x))
+    if probe is not None and (plan["layout"] != "tiled" or probe.dtype != torch.int64
+                              or probe.numel() < 1 + 4 * T or probe.device != x.device):
+        raise ValueError("gru_layer_scan_bwd: probe takes 1 + 4 * T int64 stamps on the "
+                         "device, on the tiled plan")
+    if plan["layout"] == "tiled":
+        gru_layer_scan_bwd.plan = _co_resident_tiled(plan, code, H, x.device.index)
+        args[4] = kernels.aligned(args[4])  # the ring reads Wh's rows in 16-byte pieces
+        xch = _exchange(plan, plan["ldx"], dt, x.device)
+        wt = _tiled_weights(args[4], plan)
+        err = lib.vmmt_gru_tiled_bwd(code, *map(_ptr, args), *outputs, xch.data_ptr(), _ptr(wt),
+                                     B, T, H, int(reverse), plan["rows"], plan["units"],
+                                     plan["cluster"], plan["row_tiles"], int(plan["resident"]),
+                                     splits, _ptr(probe),
+                                     kernels.stream_of(x))
     else:
         co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
                                               "vmmt_gru_scan_bwd_occupancy", code, H,

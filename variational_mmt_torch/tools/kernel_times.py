@@ -17,6 +17,23 @@ host's launch work included when it is the slower side) and the device
 time of one call under ``torch.profiler`` (``device_ms``: the kernels'
 own time, summed over the CUDA kernels of 10 calls), with the card's name
 and power limit.
+
+    PYTHONPATH=<tree> python <this file> -wide [BxTxH,...]
+
+times row 2 (the GRU-scan backward, reset-free, bf16) at its wide and
+streamed shapes instead (by default B=256 T=24 H=1024, B=256 T=24 H=2048,
+B=64 T=25 H=2048 and B=64 T=25 H=1000): for each shape the call's time by
+CUDA events (``ms``), the device time of each CUDA kernel of one call under
+``torch.profiler``, grouped by kernel name (``kernels``: the hoisted gate
+product, the reverse scan, the dWh product and the fill of dWh's tile
+counters), their sum (``device_ms``), the wrapper's plan and, on the tiled
+plan, the reverse scan's µs a step by phase (its probe).
+
+    PYTHONPATH=<tree> python <this file> -tilings BxTxH[,...]
+
+times every tiling of the tiled plan at those shapes (this tree's plan
+only): the reverse scan's device ms and µs a step by phase beside the
+plan's cost model.
 """
 
 from __future__ import annotations
@@ -60,9 +77,128 @@ def device_ms(fn, iters: int = 10) -> float:
     return us / iters / 1e3
 
 
+WIDE_SHAPES = "256x24x1024,256x24x2048,64x25x2048,64x25x1000"
+
+
+def kernel_name(name: str) -> str:
+    """A CUDA kernel's name without its namespaces and arguments: the
+    function and its template arguments."""
+    name = name.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i, ch in enumerate(name):
+        depth += ch == "<"
+        depth -= ch == ">"
+        if ch == "(" and depth == 0:
+            return name[:i].strip()
+    return name.strip()
+
+
+def kernels_ms(fn, iters: int = 10) -> dict:
+    """Device ms of one call of ``fn`` by CUDA kernel name (memsets and
+    fills included), over ``iters`` calls under the profiler."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            key = kernel_name(e.name)
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+    return out
+
+
+def scan_bwd_args(shape: str, r, g):
+    """Row 2's inputs at a ``BxTxH`` shape in bf16, with ragged lengths."""
+    B, T, H = map(int, shape.split("x"))
+    lengths = torch.randint(T // 3, T + 1, (B,), generator=g, device="cuda")
+    mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
+    args = (r(B, T, 3 * H).to(torch.bfloat16), mask, 0.1 * r(B, H),
+            (r(H, 3 * H) / math.sqrt(H)).to(torch.bfloat16), 0.1 * r(3 * H))
+    outs, _ = gru_scan.gru_layer_scan_ref(*args, True)
+    return (B, T, H), (*args, outs, r(B, T, H), True)
+
+
+def phases_us(args, T: int) -> dict:
+    """µs a step of the tiled reverse scan by phase, from its probe's
+    ``%globaltimer`` stamps (CTA 0 of one call): the gate backward, the grid
+    barrier, the product and the sums of the partial products."""
+    probe = torch.zeros(1 + 4 * T, dtype=torch.int64, device="cuda")
+    gru_scan.gru_layer_scan_bwd(*args, probe=probe)
+    stamps = probe.tolist()
+    steps = [[(stamps[1 + 4 * s + k] - stamps[4 * s + k]) / 1e3 for k in range(4)]
+             for s in range(T)]
+    return {name: sum(st[k] for st in steps) / T
+            for k, name in enumerate(("gate", "barrier", "product", "sums"))}
+
+
+def wide_times(shapes: str, r, g) -> dict:
+    """Row 2 at each ``BxTxH`` shape in bf16: the call by CUDA events, the
+    device ms of each of its CUDA kernels and, on the tiled plan, the scan's
+    µs a step by phase."""
+    out = {}
+    for shape in shapes.split(","):
+        (B, T, H), args = scan_bwd_args(shape, r, g)
+        call = lambda a=args: gru_scan.gru_layer_scan_bwd(*a)  # noqa: E731
+        by_kernel = kernels_ms(call)
+        rec = {"ms": event_ms(call, iters=10, warmup=2), "device_ms": sum(by_kernel.values()),
+               "kernels": by_kernel, "plan": gru_scan.gru_layer_scan_bwd.plan}
+        if rec["plan"].get("layout") == "tiled":
+            rec["us_a_step"] = phases_us(args, T)
+        out[f"B={B} T={T} H={H}"] = rec
+    return out
+
+
+def tilings(shapes: str, r, g) -> dict:
+    """Every tiling of the tiled plan (``gru_scan.TILED_TILES`` x
+    ``TILED_CLUSTERS``, Wh's rows resident where they fit and not) at each
+    ``BxTxH`` shape in bf16: the reverse scan's device ms and its µs a step
+    by phase, beside what ``_tiled_cost`` predicts, the plan's own choice
+    marked. What the plan's TILED_* constants were fitted to."""
+    out = {}
+    planner = gru_scan.scan_bwd_plan
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    try:
+        for shape in shapes.split(","):
+            (B, T, H), args = scan_bwd_args(shape, r, g)
+            chosen = planner(B, T, H, torch.bfloat16, sms)
+            rows = []
+            for tile_rows, units in gru_scan.TILED_TILES:
+                for cluster in gru_scan.TILED_CLUSTERS:
+                    plan = gru_scan.tiled_plan_for(B, H, torch.bfloat16, sms, tile_rows, units,
+                                                   cluster)
+                    if plan is None:
+                        continue
+                    kc_own = gru_scan.tiled_kc_own(H, torch.bfloat16, cluster)
+                    for resident in sorted({plan["resident"], False}, reverse=True):
+                        p = dict(plan, resident=resident, dwh_tiles=chosen["dwh_tiles"],
+                                 dwh_splits=chosen["dwh_splits"],
+                                 smem=gru_scan.tiled_smem(tile_rows, units, cluster, resident,
+                                                          kc_own))
+                        gru_scan.scan_bwd_plan = lambda *a, _p=p, **k: dict(_p)
+                        scan = sum(v for n, v in kernels_ms(lambda: gru_scan.gru_layer_scan_bwd(
+                            *args)).items() if "tiled" in n)
+                        rows.append({"tile": [tile_rows, units, cluster], "resident": resident,
+                                     "grid": p["grid"], "chunks": p["chunks"], "scan_ms": scan,
+                                     "model_ms": gru_scan._tiled_cost(B, H, torch.bfloat16, p)
+                                     * T * 1e3, "us_a_step": phases_us(args, T),
+                                     "chosen": all(p[k] == chosen[k] for k in (
+                                         "rows", "units", "cluster", "resident"))})
+            out[f"B={B} T={T} H={H}"] = rows
+    finally:
+        gru_scan.scan_bwd_plan = planner
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser("kernel_times")
     p.add_argument("-dtype", default="bfloat16", choices=["bfloat16", "float16", "float32"])
+    p.add_argument("-wide", nargs="?", const=WIDE_SHAPES, default=None,
+                   help="time row 2 at these BxTxH shapes (bf16) instead")
+    p.add_argument("-tilings", default=None,
+                   help="time every tiling of row 2's tiled plan at these BxTxH shapes")
     opt = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
@@ -70,6 +206,12 @@ def main(argv=None) -> None:
                           capture_output=True, text=True, check=True).stdout.strip()
     g = torch.Generator(device="cuda").manual_seed(5)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
+    if opt.wide is not None:
+        print(json.dumps({"wide_times": wide_times(opt.wide, r, g), "card": card}, default=str))
+        return
+    if opt.tilings is not None:
+        print(json.dumps({"tilings": tilings(opt.tilings, r, g), "card": card}))
+        return
     bf = getattr(torch, opt.dtype)
     calls = {}
     H = 250
