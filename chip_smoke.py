@@ -211,20 +211,24 @@ in PERF.md).
     that shape a sentence). Then MBR in f32 (8 samples at temperature 1.0,
     32 sentences) at pallas_step 0, 1 and 2: at least 31 of 32 picks of
     steps 1 and 2 equal step 0's.
-13. Widths phase: rows 1 and 2 above 512 units, the forward on the wide
-    plan (the persistent cooperative kernel from 513 to 1024 units) and
-    the backward on the tiled plan at H = 520, 1000 and 1024, each at B =
-    64, T = 25 and B = 256, T = 24, and the forward on the streamed plan
-    (above 1024 units) and the backward on the tiled plan at H = 1040,
-    1536, 2048 and 2500 at B = 64, T = 25 and at 2048 also at B = 256, T =
-    24, in f32 and bf16, with and without a reset stream, both directions,
-    against their plain versions (forward 1e-4 / 2e-2 absolute, backward
-    the same relative to each tensor's largest entry), the plans printed
-    and required wide or streamed by the width (forward) and tiled
-    (backward); bf16 times by CUDA
+13. Widths phase: rows 1 and 2 above 512 units, both on their tiled plans
+    (persistent cooperative kernels, output-stationary tiles) at H = 520,
+    1000 and 1024, each at B = 64, T = 25 and B = 256, T = 24, and at H =
+    1040, 1536, 2048 and 2500 at B = 64, T = 25 and at 2048 also at B =
+    256, T = 24, in f32 and bf16, with and without a reset stream, both
+    directions, against their plain versions (forward 1e-4 / 2e-2
+    absolute, backward the same relative to each tensor's largest entry),
+    the plans printed and required tiled; the bf16 forward bit-identical in
+    two launches; bf16 times by CUDA
     events in turns with the plain version (kernel, plain, plain, kernel,
     10 calls a turn) and on the device's clock, beside cuDNN's nn.GRU
-    forward and backward at the same shape and the bound. Rows 1 and 2 at
+    forward and backward at the same shape (on the device's clock too) and
+    the bound, and the tiled forward's µs a step by phase (its probe:
+    product, sums, gates, grid barrier). The device clocks of rows 1 and 2
+    at these shapes are read in a fresh process (``python3 chip_smoke.py
+    --wide-device OUT``, started by the phase), since in this long process
+    ``torch.profiler`` records almost none of the scans' cooperative
+    launches; cuDNN's in both processes. Rows 1 and 2 at
     H = 512 (16-CTA clusters; B = 64, T = 24 in f32 and bf16, B = 256 in
     bf16) and H = 300 (B = 64, both dtypes) the same way, bf16 times beside
     cuDNN's nn.GRU and the bound; rows 3-6 at H = 250 (padded to 252 by the
@@ -235,14 +239,14 @@ in PERF.md).
     (encoder halves of 512 units on 16-CTA clusters of rows 1 and 2; rows 5
     and 6 at 1024 units, the forward on the streamed plan), ``-rnn_size
     250`` (rows 1, 2, 5 and 6 at 252), ``-rnn_size 2048`` (encoder halves
-    of 1024 units on the wide plan; rows 5 and 6 on the streamed plan,
+    of 1024 units on the tiled plans; rows 5 and 6 on the streamed plan,
     which the last plans must be), each requiring rows 1, 2, 5 and 6
     launched, and the fast config
     ``-input_feed 0 -use_pallas 1`` at ``-rnn_size 1000`` and ``2048`` (the
-    decoder's two layers at 1000 units on the wide plan, at 2048 on the
-    streamed plan): finite losses, rows 1 and 2 launched, a scan of 1024
+    decoder's two layers at 1000 and 2048 units on the tiled plans): finite
+    losses, rows 1 and 2 launched, a scan of 1024
     (resp. 1000, 2048) units seen, the fast 2048 run's last forward plan
-    streamed, and no plain GRU scan (``cell_layer_scan.gru_scans``
+    tiled, and no plain GRU scan (``cell_layer_scan.gru_scans``
     unchanged); then ``cli.translate`` of the 250 model at pallas_step 1
     and 2 (rows 3 and 4 at 252); all counted as ``widths``. Last, phase
     6's f32 check of the fast config at hidden 1000 and 2048 (random
@@ -422,8 +426,9 @@ in PERF.md).
     each of rows 1-6 in float16 against its float16 plain version under
     bf16's rules and bounds: rows 1 and 2 at the serving and training
     shapes and at B=64, T=24, H = 512, 1024 and 2048 (the cluster plans,
-    then the wide and streamed forward and the tiled backward, which it
-    checks) with and without a reset stream;
+    then both tiled plans, which it checks, with the forward bit-identical
+    in two launches and its µs a step by phase) with and without a reset
+    stream;
     rows 3 and 4 at N=1024, S=24, H=500; rows 5 and 6 at B=64, T=25, S=24,
     H=500 over the whole sequence at memory std 0.1, and at std 0.5 over
     the first 4 steps of each pass with the distance from the f32 math at
@@ -548,14 +553,14 @@ WIDTH_SCANS = ((64, 24, 512, ("float32", "bfloat16")), (256, 24, 512, ("bfloat16
                (64, 24, 300, ("float32", "bfloat16")))  # B, T, H and the checked dtypes
 WIDTH_STEP_NS, WIDTH_DEC = (128, 32), dict(B=64, T=25, S=24, H=250)  # rows 3-6 at H = 250
 WIDTH_CLI_STEPS = 10  # train CLI steps at each -rnn_size of phase 13
-# rows 1 and 2 above 512 units (the forward's wide and streamed plans, the backward's tiled
-# plan): (B, T, H),
+# rows 1 and 2 above 512 units (both passes' tiled plans): (B, T, H),
 # f32 and bf16, with and without a reset stream
 WIDE_SCANS = ((64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (64, 25, 1024),
               (256, 24, 1024), (64, 25, 1040), (64, 25, 1536), (64, 25, 2048), (256, 24, 2048),
               (64, 25, 2500))
 WIDE_ITERS = 10  # CUDA-event calls a turn of the wide scans' bf16 times
-FAST_WIDTHS = (1000, 2048)  # the fast config's f32 checks: wide and streamed decoder layers
+WIDE_DEVICE_TIMEOUT_S = 180  # phase 13's fresh process timing rows 1 and 2 on the device
+FAST_WIDTHS = (1000, 2048)  # the fast config's f32 checks: tiled decoder layers
 ENS_SEEDS, ENS_SEED = (1, 2), 4  # numpy seeds: the random members; the flagship request
 OPTION_STEPS, OPTION_OTHER_STEPS = 20, 5
 # the timed runs in turns: the fast config and the input-feed flagship with
@@ -600,7 +605,7 @@ EXTRACT_TURNS, EXTRACT_ITERS = ("f32", "tf32", "tf32", "f32"), 10  # phase 18 (c
 EXTRACT_CLI_IMAGES, EXTRACT_SENT = 64, 32  # phase 18 (d), (f)
 H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak (NVIDIA data sheet, SXM)
 F16 = "float16"
-F16_SCAN_WIDTHS = (512, 1024, 2048)  # phase 21 (a): cluster, wide / streamed fwd, tiled bwd
+F16_SCAN_WIDTHS = (512, 1024, 2048)  # phase 21 (a): the cluster plans, then the tiled ones
 F16_ITERS = 10  # CUDA-event calls a turn of phase 21's bf16 and float16 kernel times
 F16_SERVE_SENT = 256  # phase 21 (b): one request of 256 sentences
 F16_TIMED_RUNS, F16_TIMED_STEPS = 2, 12  # phase 21 (c): whole passes over the 4 batches
@@ -732,13 +737,13 @@ def rel_err(got, want) -> float:
                for g, w in zip(got, want))
 
 
-def deterministic(name: str, fn) -> None:
+def deterministic(name: str, fn, dtype: str = "bfloat16") -> None:
     """Two launches on the same inputs must agree bit for bit: a missing
     cluster or grid barrier can hide inside a tolerance, not here."""
     first, second = fn(), fn()
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(first, second))
-    print(f"  {name} bfloat16: two launches bit-identical: {'ok' if same else 'MISMATCH'}")
+    print(f"  {name} {dtype}: two launches bit-identical: {'ok' if same else 'MISMATCH'}")
     if not same:
         fail(f"{name} kernel gives different outputs for the same inputs")
 
@@ -2646,16 +2651,34 @@ def eval_phase(card: str, root: str):
     return launches, rec
 
 
-def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str) -> dict:
-    """Rows 1 and 2 above 512 units at (B, T, H), the forward on the wide
-    plan (H <= 1024) or the streamed plan (H above), the backward on the
-    tiled plan: f32 and bf16, with and without a reset stream,
+def fwd_phases(gru_scan, name: str, args, T: int) -> dict:
+    """The tiled forward's µs a step by phase, from its probe's
+    ``%globaltimer`` stamps (CTA 0 of one call on ``args``): the product,
+    the sums of the partial products, the gates and the grid barrier;
+    printed."""
+    probe = torch.zeros(1 + 4 * T, dtype=torch.int64, device="cuda")
+    gru_scan.gru_layer_scan(*args, probe=probe)
+    torch.cuda.synchronize()
+    st = probe.tolist()
+    us = {k: sum(st[1 + 4 * s + i] - st[4 * s + i] for s in range(T)) / T / 1e3
+          for i, k in enumerate(("product", "sums", "gates", "barrier"))}
+    print(f"  {name}: the tiled forward's us a step by phase "
+          + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+    return us
+
+
+def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str,
+                     fresh: dict) -> dict:
+    """Rows 1 and 2 above 512 units at (B, T, H), both on their tiled
+    plans: f32 and bf16, with and without a reset stream,
     both directions, against their plain versions (forward max abs,
-    backward max rel); bf16 times (CUDA events, in turns with the plain
-    version, and the device's clock), cuDNN's nn.GRU forward and backward,
-    the bounds."""
+    backward max rel), the bf16 forward bit-identical in two launches; bf16
+    times (CUDA events, in turns with the plain version, and the device's
+    clock in the fresh process of ``fresh``), cuDNN's
+    nn.GRU forward and backward, the bounds, the forward's µs a step by
+    phase."""
     at = f"B={B} T={T} H={H}"
-    layout = "wide" if H <= gru_scan.SCAN_WIDE_MAX_HIDDEN else "streamed"  # the forward's
+    layout = "tiled"
     r = {}
     for dt_name in ("float32", "bfloat16"):
         ins, gout, reset = reset_inputs(g, rng, getattr(torch, dt_name), B, T, H, 8)
@@ -2672,6 +2695,8 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str) -> dic
                 fail(f"gru_scan {at} {dt_name}: the {plan['layout']} plan, not the {want} one")
         print_plan(f"gru_scan {at} {dt_name}", r[f"plan_{dt_name}"])
         print_plan(f"gru_scan_bwd {at} {dt_name}", r[f"bwd_plan_{dt_name}"])
+        if dt_name == "bfloat16":
+            deterministic(f"gru_scan {at}", lambda: gru_scan.gru_layer_scan(*ins, True, reset))
     x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.bfloat16, B, T, H, 8)
     outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
     fwd_k = lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True)  # noqa: E731
@@ -2684,7 +2709,7 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str) -> dic
         t = in_turns(f"gru_scan{'_bwd' if key == 'bwd' else ''} {at} bfloat16",
                      {"kernel": kernel, "plain": plain}, iters=WIDE_ITERS)
         rec = {"ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "runs_ms": t["runs_ms"],
-               "device_ms": device_ms(kernel, iters=WIDE_ITERS)}
+               "device_ms": fresh[key], "calls_recorded": fresh[f"{key}_calls_recorded"]}
         rec["bound_ms"], rec["bound_by"] = bound_of(B, T, H)
         r[key] = rec
     gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
@@ -2693,14 +2718,96 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str) -> dic
         r["fwd"]["library_ms"] = device_ms(lambda: gru(xin))
         r["fwd"]["library_eager_ms"] = cuda_ms(lambda: gru(xin))
     r["bwd"]["library_ms"], r["bwd"]["library_eager_ms"] = cudnn_bwd_ms(g, B, T, H)
+    r["fwd"]["us_a_step"] = fwd_phases(gru_scan, f"gru_scan {at} bfloat16",
+                                       (x, mask, h0, wh, bh, True), T)
     for key, name in (("fwd", "gru_scan"), ("bwd", "gru_scan_bwd")):
         t = r[key]
+        t["library_ms_fresh"] = fresh[f"cudnn_{key}"]
         print(f"  {name} {at} bfloat16: kernel {t['ms']:.4f} ms (device clock "
-              f"{fmt_ms(t['device_ms'])}), plain {t['plain_ms']:.3f} ms, nn.GRU "
-              f"{'backward' if key == 'bwd' else 'forward'} {fmt_ms(t['library_ms'])} on the "
-              f"device's clock (eager {t['library_eager_ms']:.4f} ms), bound "
+              f"{fmt_ms(t['device_ms'])} in a fresh process, the scan kernel's records of "
+              f"{t['calls_recorded']} of {WIDE_ITERS} calls), plain {t['plain_ms']:.3f} ms, nn.GRU "
+              f"{'backward' if key == 'bwd' else 'forward'} {fmt_ms(t['library_ms_fresh'])} on "
+              f"the device's clock in a fresh process ({fmt_ms(t['library_ms'])} in this one; "
+              f"eager {t['library_eager_ms']:.4f} ms), bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {card})")
     return r
+
+
+def launch_ms(fn, iters: int, scan: str) -> Tuple[Optional[float], int]:
+    """(ms of one call on the device's clock, calls recorded) for ``fn``
+    whose every CUDA kernel launches once a call: each kernel's mean time
+    over its own records, summed. The profiler has been seen to drop every
+    record of some calls (PERF.md §6); the calls recorded are the records
+    of the scan kernel ``scan`` (its name), and the time is None (not
+    measured) unless the profiler kept that kernel's record of each of the
+    ``iters`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us, n = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n[e.name] = n.get(e.name, 0) + 1
+    calls = sum(c for k, c in n.items() if scan in k)
+    return (sum(us[k] / n[k] for k in us) / 1e3 if calls == iters else None), calls
+
+
+def wide_device_child(out_path: str) -> int:
+    """``--wide-device OUT``: rows 1 and 2 (bf16, reset-free) and cuDNN's
+    nn.GRU forward and backward at WIDE_SCANS on the device's clock
+    (``launch_ms`` for the rows, with the calls the profiler kept of
+    WIDE_ITERS; ``device_ms`` for cuDNN), measured in this fresh process,
+    as JSON into OUT."""
+    sys.path.insert(0, HERE)
+    from variational_mmt_torch.ops import gru_scan
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    out = {}
+    for B, T, H in WIDE_SCANS:
+        x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.bfloat16, B, T, H, 8)
+        outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
+        gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
+        xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
+
+        def cudnn():
+            with torch.no_grad():
+                return gru(xin)
+
+        rec = {"cudnn_fwd": device_ms(cudnn, iters=WIDE_ITERS),
+               "cudnn_bwd": cudnn_bwd_ms(g, B, T, H)[0]}
+        rec["fwd"], rec["fwd_calls_recorded"] = launch_ms(
+            lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True), WIDE_ITERS,
+            "gru_tiled_fwd_kernel")
+        rec["bwd"], rec["bwd_calls_recorded"] = launch_ms(
+            lambda: gru_scan.gru_layer_scan_bwd(x, mask, h0, wh, bh, outs, gout, True),
+            WIDE_ITERS, "gru_tiled_bwd_kernel")
+        out[f"B={B} T={T} H={H}"] = rec
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def fresh_wide_device(root: str) -> dict:
+    """Phase 13's device clocks of rows 1 and 2 and cuDNN at WIDE_SCANS from
+    a fresh process (``--wide-device``): in this long process
+    ``torch.profiler`` records almost none of the scans' cooperative
+    launches (PERF.md §6)."""
+    path = os.path.join(root, "wide_device.json")
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, os.path.abspath(__file__), "--wide-device", path],
+                          timeout=WIDE_DEVICE_TIMEOUT_S)
+    if done.returncode != 0:
+        fail(f"the fresh process timing rows 1 and 2 exited with {done.returncode}")
+    with open(path) as f:
+        out = json.load(f)
+    print(f"widths: rows 1 and 2 and cuDNN on the device's clock in a fresh process, "
+          f"{time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def widths_phase(card: str, root: str):
@@ -2714,8 +2821,10 @@ def widths_phase(card: str, root: str):
     rec = {"scan": {}}
     g = torch.Generator(device="cuda").manual_seed(8)
     rng = np.random.default_rng(8)
-    for B, T, H in WIDE_SCANS:  # the wide and the streamed forward, the tiled backward
-        rec["scan"][f"B={B} T={T} H={H}"] = wide_scan_checks(gru_scan, g, rng, B, T, H, card)
+    fresh = fresh_wide_device(root)
+    for B, T, H in WIDE_SCANS:  # both tiled plans
+        at = f"B={B} T={T} H={H}"
+        rec["scan"][at] = wide_scan_checks(gru_scan, g, rng, B, T, H, card, fresh[at])
     for B, T, H, dtypes in WIDTH_SCANS:
         at = f"B={B} T={T} H={H}"
         r = {}
@@ -2793,7 +2902,7 @@ def widths_phase(card: str, root: str):
     rec["cli"] = {}
     scans = ("gru_layer_scan", "gru_layer_scan_bwd")
     fast = ["-input_feed", "0", "-use_pallas", "1"]
-    # (label, flags, config, rows that must run, width of a wide or streamed scan)
+    # (label, flags, config, rows that must run, width of a scan above 512 units)
     decs = scans + ("decoder_fwd", "decoder_bwd")
     for label, flags, config_path, rows, wide in (
             ("1024", ["-rnn_size", "1024"], os.path.join(root, "config.json"), decs, None),
@@ -2827,9 +2936,8 @@ def widths_phase(card: str, root: str):
             fail("the decoder kernels did not run at the padded width 252")
         if wide is not None and not by_width.get(wide):
             fail(f"train CLI {' '.join(flags)}: no scan of {wide} units ran")
-        if label == "fast2048" and scan_plan["layout"] != "streamed":
-            fail("the fast config's decoder layers of 2048 units did not run on the streamed "
-                 "plan")
+        if label == "fast2048" and scan_plan["layout"] != "tiled":
+            fail("the fast config's decoder layers of 2048 units did not run on the tiled plan")
         dec_plans = {"decoder_fwd": dec.decoder_fwd.plan, "decoder_bwd": dec.decoder_bwd.plan}
         if label in ("1024", "2048"):
             print(f"widths: train CLI {' '.join(flags)}: the last decoder plans "
@@ -2844,8 +2952,8 @@ def widths_phase(card: str, root: str):
         for k in total:
             total[k] += launches[k]
     # the fast config at H = 1000 and 2048 in f32: its kernel route (rows 1
-    # and 2 on the wide and the streamed plan for the decoder's layers)
-    # against the plain route
+    # and 2 on the tiled plans for the decoder's layers) against the plain
+    # route
     from variational_mmt_torch.convert import params_from_jax
     from variational_mmt_torch.models.model import init_params
     from variational_mmt_torch.tools import flagship
@@ -4455,8 +4563,9 @@ def f16_scan_kernels(gru_scan) -> Tuple[dict, dict]:
     """Phase 21 (a), rows 1 and 2: each float16 kernel against its float16
     plain version, the forward at the serving and training shapes, the
     backward at the training shape, and both at B=64, T=24, H = 512, 1024
-    and 2048 (the cluster, wide and streamed plans), with and without a
-    reset stream; then their times beside bf16's in turns, the plain
+    and 2048 (the cluster plans, then the tiled ones, the tiled forward
+    bit-identical in two launches and its µs a step by phase), with and
+    without a reset stream; then their times beside bf16's in turns, the plain
     versions', cuDNN nn.GRU's in float16 and the bounds (the bf16 ones:
     the same bytes, the same tensor-core peak)."""
     f16 = torch.float16
@@ -4485,8 +4594,7 @@ def f16_scan_kernels(gru_scan) -> Tuple[dict, dict]:
         layouts = (gru_scan.gru_layer_scan.plan["layout"],
                    gru_scan.gru_layer_scan_bwd.plan["layout"])
         fr_err, br_err, br_abs = reset_errs(gru_scan, ins, gout, reset)
-        want = ("cluster" if H <= 512 else "wide" if H <= 1024 else "streamed",
-                "cluster" if H <= 512 else "tiled")
+        want = ("cluster" if H <= 512 else "tiled",) * 2
         print(f"  gru_scan {at} float16: plans {layouts[0]} / {layouts[1]} (expected "
               f"{want[0]} / {want[1]})")
         if layouts != want:
@@ -4495,6 +4603,11 @@ def f16_scan_kernels(gru_scan) -> Tuple[dict, dict]:
         check_close(f"gru_scan {at} with resets", F16, fr_err)
         check_close(f"gru_scan_bwd {at}", F16, b_err, "max_rel_err")
         check_close(f"gru_scan_bwd {at} with resets", F16, br_err, "max_rel_err")
+        if H > 512:
+            deterministic(f"gru_scan {at} with resets",
+                          lambda: gru_scan.gru_layer_scan(*ins, True, reset), F16)
+            fwd.setdefault("us_a_step", {})[at] = fwd_phases(
+                gru_scan, f"gru_scan {at} float16", (*ins, True), T)
         fwd["errs"][at], fwd["errs"][at + " reset"] = f_err, fr_err
         bwd["errs"][at], bwd["errs"][at + " reset"] = b_err, br_err
         bwd["abs_err"] = max(bwd["abs_err"], b_abs, br_abs)
@@ -4871,6 +4984,8 @@ def main() -> int:
         return parallel_child(int(sys.argv[2]), sys.argv[3])
     if len(sys.argv) == 4 and sys.argv[1] == "--serve-rank":
         return serve_rank_child(int(sys.argv[2]), sys.argv[3])
+    if len(sys.argv) == 3 and sys.argv[1] == "--wide-device":
+        return wide_device_child(sys.argv[2])
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     if not os.path.isdir(os.path.join(HERE, "variational_mmt_torch")):

@@ -379,11 +379,10 @@ def test_kernel_counts_launches(cuda):
 
 
 # widths: rows 1 and 2 up to H=512 (clusters of up to 16 CTAs; f32 at 512
-# with 4 row slots forward and 2 rows backward) and above (the forward's
-# wide and streamed plans, the backward's tiled plan: phase 13's eleven
-# shapes of chip_smoke.py, both directions, with and without a reset
-# stream), rows 3-6 at widths that are not a multiple of 4 (zero-padded by
-# the wrappers)
+# with 4 row slots forward and 2 rows backward) and above (both passes'
+# tiled plans: phase 13's eleven shapes of chip_smoke.py, both directions,
+# with and without a reset stream), rows 3-6 at widths that are not a
+# multiple of 4 (zero-padded by the wrappers)
 WIDE_SCANS = [(64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (64, 25, 1024),
               (256, 24, 1024), (64, 25, 1040), (64, 25, 1536), (64, 25, 2048), (256, 24, 2048),
               (64, 25, 2500)]
@@ -403,6 +402,10 @@ def test_gru_scan_kernels_at_wide_widths(cuda, dt, B, T, H):
     resets = (None,) if H <= 512 else (None, reset_stream(cuda, args[1]))
     for reverse in (False, True) if H > 512 else (False,):
         for reset in resets:
+            if H > 512:
+                close(gru_scan.gru_layer_scan(*args, reverse, reset),
+                      gru_scan.gru_layer_scan_ref(*args, reverse, reset), dt)
+                assert gru_scan.gru_layer_scan.plan["layout"] == "tiled"
             outs, _ = gru_scan.gru_layer_scan_ref(*args, reverse, reset)
             close_rel(gru_scan.gru_layer_scan_bwd(*args, outs, g, reverse, reset),
                       gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, reverse, reset), dt)
@@ -423,6 +426,21 @@ def test_tiled_scan_bwd_is_deterministic(cuda, dt):
     second = gru_scan.gru_layer_scan_bwd(*args, outs, g, True)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_tiled_scan_fwd_is_deterministic(cuda, dt):
+    """The tiled forward where a cluster of CTAs splits K (B = 64, H =
+    1024): the partial products are added in rank order, so repeats are
+    bit-identical, with and without a reset stream."""
+    args = scan_args(cuda, dt, 64, 6, 1024)
+    for reset in (None, reset_stream(cuda, args[1])):
+        first = gru_scan.gru_layer_scan(*args, True, reset)
+        assert gru_scan.gru_layer_scan.plan["layout"] == "tiled"
+        assert gru_scan.gru_layer_scan.plan["cluster"] > 1
+        second = gru_scan.gru_layer_scan(*args, True, reset)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)

@@ -3,9 +3,9 @@
 ``decoder_fwd_plan`` and ``decoder_bwd_plan``), pure Python, on the CPU. The widths the repo's
 configs use (H=250 a direction for the scan, H=500 for the decoder and the
 decode step) are accepted in the three dtypes, and so is every scan width
-(clusters of up to 16 CTAs to 512; above, the forward's wide plan to 1024:
-tests/test_torch_wide_scan.py, its streamed plan beyond and the
-backward's tiled plan: tests/test_torch_wider_scan.py) and any decoder
+(clusters of up to 16 CTAs to 512; above, both passes' tiled plans:
+tests/test_torch_wide_scan.py and tests/test_torch_wider_scan.py) and any
+decoder
 width (padded to a
 multiple of 4); shapes the designs cannot hold raise NotImplementedError,
 and so do the wrappers on a non-CPU tensor before anything is launched
@@ -79,26 +79,24 @@ def test_scan_fwd_plan_mirrors_the_kernels_layout():
 
 
 def assert_streamed(plan, H, dt, B):
-    """A streamed plan: the units and rows covering H and B in one launch,
-    the grid within what 132 SMs hold at once (one bf16 CTA an SM, two in
-    f32) and shared memory within the card's, whatever H."""
-    per_sm = gru_scan.SCAN_WIDE_PER_SM[dt]
-    assert plan["layout"] == "streamed" and plan["chunks"] == 1
+    """A tiled forward plan: the units covering H, the rows of its launches
+    covering B, the grid within what 132 SMs hold at once in its clusters
+    (one CTA an SM) and shared memory within the card's."""
+    assert plan["layout"] == "tiled" and (plan["rows"], plan["units"]) in gru_scan.TILED_FWD_TILES
     assert plan["unit_tiles"] * plan["units"] >= H > (plan["unit_tiles"] - 1) * plan["units"]
-    assert plan["rows"] % 16 == 0 and plan["rows"] <= gru_scan.SCAN_WIDE_MAX_ROWS
-    assert plan["rows"] * plan["row_tiles"] >= B
-    assert plan["grid"] == min(plan["tiles"], per_sm * H100_SMS)
-    assert plan["grid"] * plan["tiles_per_cta"] >= plan["tiles"] == \
-        plan["unit_tiles"] * plan["row_tiles"]
+    assert plan["chunks"] * plan["rows"] * plan["row_tiles"] >= B
+    assert plan["grid"] == plan["tiles"] * plan["cluster"] \
+        <= gru_scan.tiled_co_resident(plan["cluster"], H100_SMS)
+    assert plan["tiles"] == plan["unit_tiles"] * plan["row_tiles"]
     assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
-    assert per_sm * (plan["smem"] + 1024) <= SMEM_PER_SM
+    assert plan["smem"] + 1024 <= SMEM_PER_SM
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("H", [0, 1025, 2048])
 def test_scan_fwd_plan_refuses_what_a_cluster_cannot_hold(dt, H):
-    """H = 0 is refused; 1025 and 2048, wider than a cluster and the wide
-    plan hold, take the streamed plan at every batch."""
+    """H = 0 is refused; 1025 and 2048, wider than a cluster holds, take
+    the tiled plan at every batch."""
     if H == 0:
         with pytest.raises(NotImplementedError):
             gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)
@@ -303,7 +301,7 @@ def step_args(N, S, H, dt=torch.float32):
 
 
 def test_wrappers_refuse_a_shape_before_launching(no_launch):
-    # the scans hold every H >= 1 (H = 1100 is on the streamed plan): H = 0
+    # the scans hold every H >= 1 (H = 1100 is on the tiled plans): H = 0
     # is what they refuse
     with pytest.raises(NotImplementedError):
         gru_scan.gru_layer_scan(*scan_args(4, 5, 0)[:5])
@@ -582,15 +580,28 @@ def test_scan_plans_mirror_the_kernels_layout_at_512():
 @pytest.mark.parametrize("H,holds", [(1, True), (512, True), (513, True), (1024, True),
                                      (1025, True), (2048, True), (0, False)])
 def test_scan_kernel_holds_ends_at_1024(dt, H, holds):
-    """Clusters to 512 units; above, the forward's wide plan to 1024 and its
-    streamed plan beyond, the backward's tiled plan; only H = 0 is not
-    held."""
+    """Clusters to 512 units; above, both passes' tiled plans; only H = 0
+    is not held."""
     assert gru_scan.scan_kernel_holds(H, dt) is holds
     if holds:
-        layout = "cluster" if H <= 512 else "wide" if H <= 1024 else "streamed"
+        layout = "cluster" if H <= 512 else "tiled"
         assert gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)["layout"] == layout
         assert gru_scan.scan_bwd_plan(64, 24, H, dt)["layout"] == \
             ("cluster" if H <= 512 else "tiled")
+
+
+@pytest.mark.parametrize("plan_of", [gru_scan.scan_fwd_plan, gru_scan.scan_bwd_plan])
+@pytest.mark.parametrize("H", [250, 1024])
+def test_scan_plans_are_cached_copies(plan_of, H):
+    """The plans are cached by their arguments, and each call returns a copy
+    that a caller may change without changing the next call's plan."""
+    first = plan_of(64, 24, H, torch.bfloat16, H100_SMS)
+    want = dict(first)
+    first["layout"] = "changed"
+    again = plan_of(64, 24, H, torch.bfloat16, H100_SMS)
+    assert again == want and again is not first
+    if plan_of is gru_scan.scan_bwd_plan and H <= 512:  # dWh's split follows B * T
+        assert plan_of(64, 1, H, torch.bfloat16, H100_SMS)["dwh_splits"] < want["dwh_splits"]
 
 
 @pytest.mark.parametrize("H,kernel", [(512, True), (513, True), (1024, True), (1025, True)])
@@ -679,8 +690,8 @@ def test_decoder_wrappers_launch_at_the_padded_width(monkeypatch, H):
 @pytest.mark.parametrize("H", [6, 250, 500, 512, 513, 1000, 1024, 1025, 2048])
 def test_float16_plans_equal_bf16s(H, B):
     """float16 runs bf16's tensor-core tiling in every kernel (``is_mma`` of
-    csrc/tile_gemm.cuh): every launch plan, cluster, wide, streamed and
-    tiled for the scans, the decode step's cells and both decoder kernels, is the
+    csrc/tile_gemm.cuh): every launch plan, cluster and tiled for the
+    scans, the decode step's cells and both decoder kernels, is the
     bf16 plan, and differs from f32's where f32 tiles for FMAs."""
     f16, bf16 = torch.float16, torch.bfloat16
     for sms in (H100_SMS, 114):

@@ -17,8 +17,8 @@ shapes, f32, inputs from numpy seeds:
   reaches the bridge) at 1e-5;
 - ``tools/embeddings_to_npy.py`` of the port writes the same ``.npy`` as
   the root tool, byte for byte;
-- a decoder and an encoder layer of 1025 units (wider than a cluster and
-  the wide plan hold) take the scan kernels, as every ``use_pallas`` GRU
+- a decoder and an encoder layer of 1025 units (wider than a cluster
+  holds) take the scan kernels, as every ``use_pallas`` GRU
   layer does: no plain scan and no log line.
 """
 

@@ -6,21 +6,19 @@ the CPU.
   ``gru_layer_scan`` and ``gru_layer_scan_ad`` in interpret mode at H = 520
   and 640, B = 3, T = 5, both directions, with and without a reset stream,
   f32: outputs and finals within 1e-5, dx, dh0, dWh and dbh within 1e-4.
-- The forward's wide launch plans (``layout`` ``"wide"``) and the
-  backward's tiled ones (``"tiled"``) at every width from 513 to 1024 that
-  the repo's configs reach or bound, the three dtypes, batches 1, 61, 64
-  and 256: shared memory within a CTA's, the cooperative grid within what
-  132 SMs hold at once, the units covering H and the row tiles and chunks
-  covering B; the layouts at 1024 counted by hand; the wrappers launching
-  the wide and tiled entry points with the plans and raising, before any
-  launch, where the card cannot hold the grid at once.
+- Both passes' tiled launch plans (``layout`` ``"tiled"``) at every width
+  from 513 to 1024 that the repo's configs reach or bound, the three
+  dtypes, batches 1, 61, 64 and 256: shared memory within a CTA's, the
+  cooperative grid within what 132 SMs hold at once, the units covering H
+  and the row tiles and chunks covering B; the layouts at 1024 counted by
+  hand; the wrappers launching both tiled entry points with the plans and
+  raising, before any launch, where the card cannot hold the grid at once.
 - The fast config (``input_feed=False``, ``use_pallas``) at hidden 1040:
   the port's loss and every gradient on its kernel route (the wrappers'
-  plain versions on the CPU; encoder halves of 520 units on the wide
-  plan's route, decoder layers of 1040 on the streamed plan's, no plain
-  GRU scan) against JAX's Pallas route in interpret mode, from JAX's
-  parameters through the converter: loss within 1e-5 relative, gradients
-  1e-4.
+  plain versions on the CPU; encoder halves of 520 units and decoder
+  layers of 1040 on the tiled plans' route, no plain GRU scan) against
+  JAX's Pallas route in interpret mode, from JAX's parameters through the
+  converter: loss within 1e-5 relative, gradients 1e-4.
 """
 
 import jax
@@ -128,57 +126,68 @@ def test_wide_plans_hold_every_width_to_1024(H, dt, B):
     fwd = gru_scan.scan_fwd_plan(B, 24, H, dt, H100_SMS)
     bwd = gru_scan.scan_bwd_plan(B, 24, H, dt, H100_SMS)
     assert gru_scan.scan_kernel_holds(H, dt)
-    assert fwd["layout"] == "wide"
-    assert fwd["units"] == (4 if dt == torch.float32 else 8)
+    assert fwd["layout"] == "tiled" and (fwd["rows"], fwd["units"]) in gru_scan.TILED_FWD_TILES
     assert bwd["layout"] == "tiled" and bwd["units"] in (32, 64, 128)
     for plan in (fwd, bwd):
         assert plan["unit_tiles"] * plan["units"] >= H > (plan["unit_tiles"] - 1) * plan["units"]
-        assert plan["rows"] % 16 == 0 and plan["rows"] <= gru_scan.SCAN_WIDE_MAX_ROWS
+        assert plan["rows"] in (32, 64, 128) and plan["cluster"] in gru_scan.TILED_CLUSTERS
         chunk = plan["rows"] * plan["row_tiles"]
         assert plan["chunks"] * chunk >= B > (plan["chunks"] - 1) * chunk
         assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
-    assert fwd["grid"] == fwd["unit_tiles"] * fwd["row_tiles"] == fwd["ctas"]
-    # a cooperative launch: the grid within what 132 SMs hold at once (one
-    # CTA an SM, or two where two fit an SM's shared memory; the tiled
-    # plan's clusters of 4 on 120 of them)
-    per_sm = min(2, SMEM_PER_SM // (fwd["smem"] + 1024))
-    assert fwd["grid"] <= H100_SMS * per_sm
-    assert bwd["grid"] == bwd["unit_tiles"] * bwd["row_tiles"] * bwd["cluster"] == bwd["ctas"]
-    assert bwd["grid"] <= (120 if bwd["cluster"] == 4 else H100_SMS)
+        # a cooperative launch: the grid within what 132 SMs hold at once
+        # (one CTA an SM; clusters of 4 on 120 of them)
+        assert plan["grid"] == plan["unit_tiles"] * plan["row_tiles"] * plan["cluster"] \
+            == plan["ctas"]
+        assert plan["grid"] <= (120 if plan["cluster"] == 4 else H100_SMS)
+    assert fwd["stages"] in (2, 4) and fwd["k_chunks"] == -(-H // fwd["kc"])
     assert bwd["dwh_splits"] == 1 and bwd["dwh_tiles"] == -(-H // 64) * -(-3 * H // 64)
 
 
 def test_wide_plans_mirror_the_kernels_layout_at_1024():
-    """H=1024, B=64: the forward's bf16 128 CTAs of 8 units, f32 256 of 4,
-    one row tile of 64 rows, 24 (bf16) or 12 (f32) rows of Wh at the stride
-    1056 / 1024, the product buffer (128 or 64 rows of 24 floats) and the
-    carry. The backward's tiled plan: 64 x 64 cells a CTA in bf16, K split
-    over clusters of 4 (64 CTAs); its shared memory the CTA's 64 rows of Wh
-    over its 12 K chunks (1552 bytes apart), a ring of 4 stages of 64 rows
-    of 144 bytes, the two K groups' partial products (64 rows of 68 floats)
-    and the dh carry and dh_part of a quarter of the tile."""
+    """H=1024, B=64. The forward's tiled plan: in bf16 32 x 32 cells a CTA,
+    K split over clusters of 2 (128 CTAs), its shared memory the tile's 96
+    columns of Wh over its 8 K chunks of 64 (512 k-rows of 208 bytes), the
+    partial products of four K groups (32 rows of 100 floats each), which
+    take the bytes of the 4-stage ring (32 rows of 144 bytes a stage), the
+    biases and the carry of half the tile; in f32 64 x 16 cells, clusters
+    of 2 (128 CTAs), the tile's 48 columns of Wh over its 16 K chunks of 32
+    (512 k-rows of 208 bytes) and four K groups' partial products (64 rows
+    of 52 floats each) in the ring's bytes (64 rows of 144 a stage). The
+    backward's tiled plan: 64 x 64 cells a CTA in bf16, K split over
+    clusters of 4 (64 CTAs); its shared memory the CTA's 64 rows of Wh over
+    its 12 K chunks (1552 bytes apart), a ring of 4 stages of 64 rows of 144
+    bytes, the two K groups' partial products (64 rows of 68 floats) and the
+    dh carry and dh_part of a quarter of the tile."""
     bf16, f32 = torch.bfloat16, torch.float32
     fb = gru_scan.scan_fwd_plan(64, 24, 1024, bf16, H100_SMS)
     ff = gru_scan.scan_fwd_plan(64, 24, 1024, f32, H100_SMS)
-    assert (fb["grid"], fb["rows"], ff["grid"], ff["rows"]) == (128, 64, 256, 64)
-    assert fb["smem"] == 24 * 1056 * 2 + 128 * 24 * 4 + 64 * 8 * 4 == 65024
-    assert ff["smem"] == 12 * 1024 * 4 + 64 * 24 * 4 + 64 * 4 * 4 == 56320
+    assert (fb["rows"], fb["units"], fb["cluster"], fb["grid"]) == (32, 32, 2, 128)
+    assert (fb["resident"], fb["stages"], fb["wh_from"], fb["in_place"]) == (True, 4, "smem", True)
+    assert fb["smem"] == 8 * 64 * 208 + max(4 * 32 * 144, 4 * 32 * 100 * 4) + (96 + 16 * 32) * 4 \
+        == 160128
+    assert (fb["kc"], fb["k_chunks"], fb["ldx"]) == (64, 16, 1024)
+    assert (ff["rows"], ff["units"], ff["cluster"], ff["grid"]) == (64, 16, 2, 128)
+    assert (ff["resident"], ff["stages"], ff["wh_from"]) == (True, 4, "smem")
+    assert ff["smem"] == 16 * 32 * 208 + max(4 * 64 * 144, 4 * 64 * 52 * 4) + (48 + 32 * 16) * 4 \
+        == 161984
+    assert (ff["kc"], ff["k_chunks"], ff["ldx"]) == (32, 32, 1024)
     bb = gru_scan.scan_bwd_plan(64, 24, 1024, bf16)
     assert (bb["rows"], bb["units"], bb["cluster"], bb["grid"]) == (64, 64, 4, 64)
     assert (bb["resident"], bb["stages"], bb["wh_from"]) == (True, 4, "smem")
     assert bb["smem"] == 64 * (12 * 128 + 16) + 4 * 64 * 144 + 2 * 64 * 68 * 4 \
         + 2 * 16 * 64 * 4 == 179200
     assert (bb["kc"], bb["k_chunks"], bb["ldx"], bb["in_place"]) == (64, 48, 3072, True)
-    # batches above 256 rows a CTA run in chunks
-    assert gru_scan.scan_fwd_plan(300, 24, 1024, bf16, H100_SMS)["chunks"] == 2
+    # batches above what a launch holds run in chunks
+    big = gru_scan.scan_fwd_plan(3000, 24, 1024, bf16, H100_SMS)
+    assert big["chunks"] == -(-3000 // (big["rows"] * big["row_tiles"])) >= 2
 
 
 def test_scan_kernel_holds_every_width_to_1024():
-    """Every width to 1024 and on past it: 1025 takes the streamed plan."""
+    """Every width to 1024 and on past it: 1025 takes the tiled plan too."""
     for dt in DTYPES:
         assert all(gru_scan.scan_kernel_holds(H, dt) for H in range(1, 1025))
         assert gru_scan.scan_kernel_holds(1025, dt)
-        assert gru_scan.scan_fwd_plan(64, 24, 1025, dt, H100_SMS)["layout"] == "streamed"
+        assert gru_scan.scan_fwd_plan(64, 24, 1025, dt, H100_SMS)["layout"] == "tiled"
 
 
 def meta(*shape, dtype=torch.float32):
@@ -187,14 +196,15 @@ def meta(*shape, dtype=torch.float32):
 
 @pytest.fixture
 def wide_lib(monkeypatch):
-    """A library that records the wide entry points' ints."""
+    """A library that records the tiled entry points' ints."""
     calls = []
 
     class Lib:
-        def vmmt_gru_wide(self, *args):
-            # weights laid out (None: the wide plan), B, T, H, reverse,
-            # units, rows, row_tiles, grid
-            calls.append(("fwd", args[-10] is None) + args[-9:-1])
+        def vmmt_gru_tiled_fwd(self, *args):
+            # padded weights (None: Wh in place), B, T, H, reverse, rows,
+            # units, cluster, row_tiles, resident, stages (then probe,
+            # stream)
+            calls.append(("fwd", args[-13] is None) + args[-12:-2])
             return 0
 
         def vmmt_gru_tiled_bwd(self, *args):
@@ -207,6 +217,7 @@ def wide_lib(monkeypatch):
     monkeypatch.setattr(kernels, "library", lambda name: Lib())
     monkeypatch.setattr(kernels, "sm_count", lambda device: H100_SMS)
     monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "aligned", lambda t: t.contiguous())
     return monkeypatch, calls
 
 
@@ -216,15 +227,25 @@ def test_wrappers_launch_the_wide_plan(wide_lib, dt):
     B, T, H = 64, 25, 1000
     fwd = gru_scan.scan_fwd_plan(B, T, H, dt, H100_SMS)
     bwd = gru_scan.scan_bwd_plan(B, T, H, dt, H100_SMS)
-    smem = {"vmmt_gru_wide_occupancy": fwd["smem"], "vmmt_gru_tiled_bwd_occupancy": bwd["smem"]}
-    monkeypatch.setattr(kernels, "occupancy", lambda dev, lib, fn, *a: (264, smem[fn]))
+    seen = []
+
+    def occupancy(dev, lib, fn, code, *a):
+        seen.append((fn, *a))
+        return 264, fwd["smem"] if fn == "vmmt_gru_tiled_fwd_occupancy" else bwd["smem"]
+
+    monkeypatch.setattr(kernels, "occupancy", occupancy)
     ins = (meta(B, T, 3 * H, dtype=dt), meta(B, T), meta(B, H), meta(H, 3 * H, dtype=dt),
            meta(3 * H))
     gru_scan.gru_layer_scan(*ins, reverse=True)
     gru_scan.gru_layer_scan_bwd(*ins, meta(B, T, H), meta(B, T, H))
-    assert bwd["layout"] == "tiled" and bwd["in_place"]  # 3H elements: whole 16-byte pieces
-    assert calls == [("fwd", True, B, T, H, 1, fwd["units"], fwd["rows"], fwd["row_tiles"],
-                      fwd["grid"]),
+    assert fwd["layout"] == bwd["layout"] == "tiled"
+    assert fwd["in_place"] and bwd["in_place"]  # H and 3H elements: whole 16-byte pieces
+    assert seen == [("vmmt_gru_tiled_fwd_occupancy", H, fwd["rows"], fwd["units"],
+                     fwd["cluster"], int(fwd["resident"]), fwd["stages"]),
+                    ("vmmt_gru_tiled_bwd_occupancy", H, bwd["rows"], bwd["units"],
+                     bwd["cluster"], int(bwd["resident"]))]
+    assert calls == [("fwd", True, B, T, H, 1, fwd["rows"], fwd["units"], fwd["cluster"],
+                      fwd["row_tiles"], int(fwd["resident"]), fwd["stages"]),
                      ("bwd", True, B, T, H, 0, bwd["rows"], bwd["units"], bwd["cluster"],
                       bwd["row_tiles"], int(bwd["resident"]), 1)]
     assert gru_scan.gru_layer_scan.plan == dict(fwd, max_co_resident=264)
@@ -232,14 +253,14 @@ def test_wrappers_launch_the_wide_plan(wide_lib, dt):
 
 
 def test_wrappers_refuse_a_wide_grid_the_card_cannot_hold(wide_lib):
-    """Raises naming the wide plan before anything is launched; never the
+    """Raises naming the tiled plan before anything is launched; never the
     plain scan in the kernel's place."""
     monkeypatch, calls = wide_lib
     B, T, H = 64, 25, 1024
     plan = gru_scan.scan_fwd_plan(B, T, H, torch.float32, H100_SMS)
     monkeypatch.setattr(kernels, "occupancy", lambda *a: (plan["grid"] - 1, plan["smem"]))
     ins = (meta(B, T, 3 * H), meta(B, T), meta(B, H), meta(H, 3 * H), meta(3 * H))
-    with pytest.raises(NotImplementedError, match="wide plan.*at once"):
+    with pytest.raises(NotImplementedError, match="gru_layer_scan kernel: the tiled plan.*at once"):
         gru_scan.gru_layer_scan(*ins)
     monkeypatch.setattr(kernels, "occupancy", lambda *a: (1000, 1))
     with pytest.raises(RuntimeError, match="shared"):

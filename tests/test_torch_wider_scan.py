@@ -1,30 +1,31 @@
-"""PyTorch port: the GRU-scan kernels (rows 1 and 2) above 1024 units (the
-forward's streamed plan) and the backward's tiled plan above 512, on the
-CPU.
+"""PyTorch port: the GRU-scan kernels (rows 1 and 2) above 1024 units and
+both passes' tiled plans above 512, on the CPU.
 
 - The plain versions ``gru_layer_scan_ref`` and ``gru_layer_scan_bwd_ref``
-  (what the streamed kernels are held to on the card) against JAX's
+  (what the tiled kernels are held to on the card) against JAX's
   ``gru_layer_scan`` and ``gru_layer_scan_ad`` in interpret mode at H =
   1040 and 1100, B = 3, T = 5, both directions, with and without a reset
   stream, f32: outputs, finals, dx, dh0, dWh, dbh and the VJP within 1e-5.
-- The forward's streamed launch plans (``layout`` ``"streamed"``) at H =
-  1040, 1536, 2048, 2500 and 4096 in the three dtypes, batches 1, 61, 64,
-  256 and 1000: one launch, the grid within what 132 SMs hold at once and
-  at most the tiles, every tile owned, shared memory the product buffer
-  alone (counted by hand) whatever H; the backward's tiled plans there.
-- The weights as the wrappers lay them out for the kernels: the forward's
-  (``_stream_weights``), read the way ``block_product`` reads a unit
-  tile's slice, give round(h) @ Wh of that tile's units, zero past H; the
-  backward's (``_tiled_weights``), read the way the tiled kernel's ring
-  reads a K chunk, give dh_proj @ Wh^T, zero past 3H.
-- The wrappers launch the streamed and tiled entry points with the plans,
-  the laid-out weights and the grid, and raise naming the plan, before any
-  launch, where the card cannot hold the grid at once.
-- The tiled plan at H = 513 to 4096 and B = 1 to 4096 in the three dtypes
-  on cards of 132 and 114 SMs: every (row, unit) cell owned by exactly one
-  CTA of one launch, each tile's K chunks covering 3H once, the ring and
-  carries within a CTA's shared memory, the grid within the co-residency
-  estimate, float16's plan bf16's; H = 0 refused.
+- Both tiled plans (``layout`` ``"tiled"``) at H = 1040, 1536, 2048, 2500
+  and 4096 in the three dtypes, batches 1, 61, 64, 256 and 1000: the
+  units and row tiles covering H and B, the grid within what 132 SMs hold
+  at once, shared memory within a CTA's.
+- Wh as the tiled kernels read it: the forward's (in place where each
+  gate's columns start on a 16-byte piece, else the copy
+  ``_tiled_fwd_weights`` pads), read the way its ring reads a unit tile's
+  K chunks, gives round(h) @ Wh of that tile's three gate columns, zero
+  past H; the backward's (``_tiled_weights``), read the way its ring reads
+  a K chunk, gives dh_proj @ Wh^T, zero past 3H.
+- The wrappers launch both tiled entry points with the plans, Wh in place
+  or padded, and the grid, and raise naming the plan, before any launch,
+  where the card cannot hold the grid at once.
+- Both tiled plans at H = 513 to 4096 and B = 1 to 4096 in the three
+  dtypes on cards of 132 and 114 SMs: every (row, unit) cell owned by
+  exactly one CTA of one launch, each tile's K chunks covering K (H
+  forward, 3H backward) once, the forward's tile N holding its units'
+  three gate columns, the ring and carries within a CTA's shared memory
+  (counted by hand), the grid within the co-residency estimate, float16's
+  plan bf16's; H = 0 refused, and the forward past 16896 units.
 """
 
 import numpy as np
@@ -55,25 +56,20 @@ def test_streamed_plans_hold_every_width_above_1024(H, dt, B):
     fwd = gru_scan.scan_fwd_plan(B, 24, H, dt, H100_SMS)
     bwd = gru_scan.scan_bwd_plan(B, 24, H, dt, H100_SMS)
     assert gru_scan.scan_kernel_holds(H, dt)
-    bf16 = dt != torch.float32  # bf16 and f16: the tensor cores' tiling
-    rows = kernels.align16(-(-B // -(-B // 256)))
+    # the forward's tiled plan: a CTA's rows x units cells for the call,
+    # clusters splitting K, the grid co-resident, the row tiles and chunks
+    # covering B
     plan = fwd
-    assert plan["layout"] == "streamed" and plan["chunks"] == 1
-    assert plan["units"] == (8 if bf16 else 4)
+    assert plan["layout"] == "tiled" and (plan["rows"], plan["units"]) in gru_scan.TILED_FWD_TILES
     assert plan["unit_tiles"] * plan["units"] >= H > (plan["unit_tiles"] - 1) * plan["units"]
-    assert plan["rows"] == rows <= gru_scan.SCAN_WIDE_MAX_ROWS
-    assert plan["row_tiles"] * plan["rows"] >= B > (plan["row_tiles"] - 1) * plan["rows"]
     assert plan["tiles"] == plan["unit_tiles"] * plan["row_tiles"]
-    # a cooperative grid: co-resident on 132 SMs (one bf16 CTA an SM, two
-    # in f32), each CTA taking tiles_per_cta tiles at most a step
-    assert plan["grid"] == plan["ctas"] == min(plan["tiles"], (1 if bf16 else 2) * H100_SMS)
-    assert (plan["tiles_per_cta"] - 1) * plan["grid"] < plan["tiles"] \
-        <= plan["tiles_per_cta"] * plan["grid"]
-    # shared memory: the product buffer (3 n-tiles of 8 floats a row; in
-    # bf16 at least 128 rows for the warps' K-split partial sums), nothing
-    # that grows with H
-    prod_rows = max(128, rows) if bf16 else rows
-    assert plan["smem"] == prod_rows * 3 * 8 * 4
+    assert plan["grid"] == plan["ctas"] == plan["tiles"] * plan["cluster"] \
+        <= gru_scan.tiled_co_resident(plan["cluster"], H100_SMS)
+    chunk = plan["rows"] * plan["row_tiles"]
+    assert plan["chunks"] * chunk >= B > (plan["chunks"] - 1) * chunk
+    assert plan["smem"] == gru_scan.tiled_fwd_smem(
+        plan["rows"], plan["units"], plan["cluster"], plan["resident"], plan["stages"],
+        gru_scan.tiled_fwd_kc_own(H, dt, plan["cluster"]), dt) <= kernels.SMEM_PER_BLOCK
     # the backward's tiled plan: a cluster's CTAs own every cell of its
     # tile, the grid within what the card holds at once, shared memory
     # that does not grow with H
@@ -96,35 +92,57 @@ def test_scan_kernel_holds_every_width(dt):
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-@pytest.mark.parametrize("H", [1033, 2500])
+@pytest.mark.parametrize("H", [1024, 1033, 2500])
 def test_laid_out_weights_give_each_tiles_products(dt, H):
-    """Emulates ``block_product`` on the forward's laid-out weights: unit
-    tile t's n-tile g, row u is column g*H + t*units + u of Wh over K, zero
-    past H. Emulates the tiled kernel's ring on the backward's: row u's K
-    chunk c (kc elements at tiled_ld(H) a row) is Wh[u, c*kc:(c+1)*kc],
-    zero past 3H, so the padded K adds nothing to dh_proj @ Wh^T."""
+    """Emulates the tiled forward's ring on Wh as it reads it (in place
+    where H elements are whole 16-byte pieces, else ``_tiled_fwd_weights``'
+    copy): piece e of k-row k of unit tile t is ``per`` elements from k *
+    ldw + g * ldg + t * units + u (gate g = e // ppg, u = (e % ppg) * per),
+    zero where k >= H or t * units + u >= H, so the tile's operand over its
+    K chunks gives round(h) @ Wh at its units' three gate columns, zero past
+    H. Emulates the tiled backward's ring on its weights: row u's K chunk c
+    (kc elements at tiled_ld(H) a row) is Wh[u, c*kc:(c+1)*kc], zero past
+    3H, so the padded K adds nothing to dh_proj @ Wh^T."""
     rng = np.random.default_rng(H)
     Wh = torch.from_numpy(rng.standard_normal((H, 3 * H)).astype(np.float32)).to(dt)
     plan = gru_scan.scan_fwd_plan(16, 4, H, dt, H100_SMS)
-    units, ut = plan["units"], plan["unit_tiles"]
-    bf16 = dt != torch.float32  # bf16 and f16: rows at the mma stride
-    wt = gru_scan._stream_weights(Wh, plan)
-    ld = kernels.frag_ld(H, bf16)
-    assert wt.shape == (ut, 3, units, ld) and wt.is_contiguous()
-    act = torch.zeros(5, kernels.pad32(H))  # the exchange buffer: zero past H
+    per = 16 // dt.itemsize
+    wt = gru_scan._tiled_fwd_weights(Wh, plan)
+    assert plan["in_place"] == (H % per == 0) == (wt is None)
+    ldg = H if wt is None else plan["ldg"]
+    assert ldg % per == 0 and 0 <= ldg - H < per
+    w = Wh if wt is None else wt
+    assert w.shape == (H, 3 * ldg) and w.is_contiguous()
+    if wt is not None:
+        assert not wt.view(H, 3, ldg)[:, :, H:].any()
+        assert torch.equal(wt.view(H, 3, ldg)[:, :, :H], Wh.view(H, 3, H))
+    units, kc, nk = plan["units"], plan["kc"], plan["k_chunks"]
+    ppg = units * dt.itemsize // 16
+    assert kc * dt.itemsize == gru_scan.TILED_CHUNK and (nk - 1) * kc < H <= nk * kc
+    act = torch.zeros(5, plan["ldx"])  # the exchange buffer: zero past H
     act[:, :H] = torch.from_numpy(rng.standard_normal((5, H)).astype(np.float32))
     want = act[:, :H] @ Wh.float()
+    ut = plan["unit_tiles"]
     for t in (0, ut // 2, ut - 1):
-        prod = act @ wt[t, :, :, :act.shape[1]].float().reshape(3 * units, -1).t()
+        u0 = t * units
+        op = torch.zeros(nk * kc, 3 * units)  # the tile's operand, k-rows as the ring holds them
+        for e in range(3 * ppg):
+            g, u = divmod(e, ppg)
+            u *= per
+            if u0 + u < H:
+                op[:H, g * units + u:g * units + u + per] = \
+                    w[:, g * ldg + u0 + u:g * ldg + u0 + u + per].float()
+        prod = torch.zeros(5, 3 * units)
+        for c in range(nk):  # the ring's chunks
+            prod += act[:, c * kc:(c + 1) * kc] @ op[c * kc:(c + 1) * kc]
         for g in range(3):
             for u in range(units):
-                j = t * units + u
+                j = u0 + u
                 if j < H:
                     torch.testing.assert_close(prod[:, g * units + u], want[:, g * H + j],
                                                rtol=1e-5, atol=1e-4)
                 else:
-                    assert not wt[t, g, u].any()
-    assert not wt[..., H:].any()
+                    assert not op[:, g * units + u].any()
 
     bwd = gru_scan.scan_bwd_plan(16, 4, H, dt, H100_SMS)
     wb = gru_scan._tiled_weights(Wh, bwd)
@@ -147,13 +165,14 @@ def test_laid_out_weights_give_each_tiles_products(dt, H):
 
 @pytest.fixture
 def streamed_lib(monkeypatch):
-    """A library that records the streamed launches' arguments."""
+    """A library that records the tiled launches' arguments."""
     calls = []
 
     class Lib:
-        def vmmt_gru_wide(self, *args):
-            # laid-out weights, B, T, H, reverse, units, rows, row_tiles, grid
-            calls.append(("fwd", args[-10]) + args[-9:-1])
+        def vmmt_gru_tiled_fwd(self, *args):
+            # padded weights, B, T, H, reverse, rows, units, cluster,
+            # row_tiles, resident, stages (then probe, stream)
+            calls.append(("fwd", args[-13]) + args[-12:-2])
             return 0
 
         def vmmt_gru_tiled_bwd(self, *args):
@@ -165,49 +184,60 @@ def streamed_lib(monkeypatch):
     monkeypatch.setattr(kernels, "library", lambda name: Lib())
     monkeypatch.setattr(kernels, "sm_count", lambda device: H100_SMS)
     monkeypatch.setattr(kernels, "stream_of", lambda t: 0)
+    monkeypatch.setattr(kernels, "aligned", lambda t: t.contiguous())
     return monkeypatch, calls
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 def test_wrappers_launch_the_streamed_plan(streamed_lib, dt):
+    """H = 2500: each pass reads Wh padded where its row pieces are not
+    whole 16-byte pieces (the forward's 2500 elements of a gate and the
+    backward's 7500 of a row in 16-bit dtypes), in place in f32."""
     monkeypatch, calls = streamed_lib
-    B, T, H = 64, 25, 2048
+    B, T, H = 64, 25, 2500
     fwd = gru_scan.scan_fwd_plan(B, T, H, dt, H100_SMS)
     bwd = gru_scan.scan_bwd_plan(B, T, H, dt, H100_SMS)
     seen = []
 
     def occupancy(dev, lib, fn, code, *a):
         seen.append((fn, *a))
-        return 264, fwd["smem"] if fn == "vmmt_gru_wide_occupancy" else bwd["smem"]
+        return 264, fwd["smem"] if fn == "vmmt_gru_tiled_fwd_occupancy" else bwd["smem"]
 
     monkeypatch.setattr(kernels, "occupancy", occupancy)
     ins = (meta(B, T, 3 * H, dtype=dt), meta(B, T), meta(B, H), meta(H, 3 * H, dtype=dt),
            meta(3 * H))
-    gru_scan.gru_layer_scan(*ins, reverse=True)
+    probe = meta(1 + 4 * T, dtype=torch.int64)
+    gru_scan.gru_layer_scan(*ins, reverse=True, probe=probe)
     gru_scan.gru_layer_scan_bwd(*ins, meta(B, T, H), meta(B, T, H))
-    assert seen == [("vmmt_gru_wide_occupancy", H, fwd["units"], fwd["rows"], 1),
+    assert seen == [("vmmt_gru_tiled_fwd_occupancy", H, fwd["rows"], fwd["units"],
+                     fwd["cluster"], int(fwd["resident"]), fwd["stages"]),
                     ("vmmt_gru_tiled_bwd_occupancy", H, bwd["rows"], bwd["units"], bwd["cluster"],
                      int(bwd["resident"]))]
-    # the forward's weights laid out; the backward reads Wh in place (3H
-    # elements are whole 16-byte pieces at H = 2048)
-    assert [c[1] is not None for c in calls] == [True, False]
+    assert fwd["in_place"] == bwd["in_place"] == (dt == torch.float32)
+    assert [c[1] is not None for c in calls] == [dt != torch.float32] * 2
+    if dt != torch.float32:
+        wt = gru_scan._tiled_fwd_weights(meta(H, 3 * H, dtype=dt), fwd)
+        assert tuple(wt.shape) == (H, 3 * fwd["ldg"]) and fwd["ldg"] == 2504
     assert [c[0:1] + c[2:] for c in calls] == [
-        ("fwd", B, T, H, 1, fwd["units"], fwd["rows"], fwd["row_tiles"], fwd["grid"]),
+        ("fwd", B, T, H, 1, fwd["rows"], fwd["units"], fwd["cluster"], fwd["row_tiles"],
+         int(fwd["resident"]), fwd["stages"]),
         ("bwd", B, T, H, 0, bwd["rows"], bwd["units"], bwd["cluster"], bwd["row_tiles"],
          int(bwd["resident"]), 1)]
     assert gru_scan.gru_layer_scan.plan == dict(fwd, max_co_resident=264)
     assert gru_scan.gru_layer_scan_bwd.plan == dict(bwd, max_co_resident=264)
+    with pytest.raises(ValueError, match="probe"):
+        gru_scan.gru_layer_scan(*ins, probe=meta(4 * T, dtype=torch.int64))
 
 
 def test_wrappers_refuse_a_streamed_grid_the_card_cannot_hold(streamed_lib):
-    """Raises naming the streamed plan before anything is launched; never
-    the plain scan in the kernel's place."""
+    """Raises naming the tiled plan before anything is launched; never the
+    plain scan in the kernel's place."""
     monkeypatch, calls = streamed_lib
     B, T, H = 64, 25, 2048
     plan = gru_scan.scan_fwd_plan(B, T, H, torch.float32, H100_SMS)
     monkeypatch.setattr(kernels, "occupancy", lambda *a: (plan["grid"] - 1, plan["smem"]))
     ins = (meta(B, T, 3 * H), meta(B, T), meta(B, H), meta(H, 3 * H), meta(3 * H))
-    with pytest.raises(NotImplementedError, match="streamed plan.*at once"):
+    with pytest.raises(NotImplementedError, match="tiled plan.*at once"):
         gru_scan.gru_layer_scan(*ins)
     monkeypatch.setattr(kernels, "occupancy", lambda *a: (1000, plan["smem"] + 16))
     with pytest.raises(RuntimeError, match="shared"):
@@ -287,3 +317,94 @@ def test_tiled_plan_refuses_no_width(dt):
     for H in range(513, 4097, 97):
         for sms in (H100_SMS, 114):
             assert gru_scan.scan_bwd_plan(64, 24, H, dt, sms)["layout"] == "tiled"
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B", TILED_BATCHES)
+@pytest.mark.parametrize("H", TILED_WIDTHS)
+def test_tiled_fwd_plan_covers_every_cell_once(H, B, dt, sms):
+    """Follows the forward kernel's own index arithmetic
+    (gru_tiled_fwd_kernel, launch_tiled_fwd): launch chunks of rows *
+    row_tiles rows, CTA b of a launch in tile b // cluster (unit tile
+    fastest), owning rows / cluster of its rows and units below H; every
+    (row, unit) cell is owned exactly once. Each rank's K chunks are
+    disjoint and cover H once within the exchange row; each tile's N (its
+    warps' 48-column tiles) holds its units' three gate columns of Wh once,
+    as the ring's pieces read them; the ring, the partial products, the
+    biases and the carry fit a CTA's shared memory (counted by hand: Wh's
+    columns held there where they fit beside 4 stages, else 4 stages, else
+    2); the grid is within the co-residency estimate; float16's plan is
+    bf16's."""
+    plan = gru_scan.scan_fwd_plan(B, 24, H, dt, sms)
+    rows, units, C = plan["rows"], plan["units"], plan["cluster"]
+    assert plan["layout"] == "tiled" and (rows, units) in gru_scan.TILED_FWD_TILES
+    assert C in gru_scan.TILED_CLUSTERS
+    chunk = rows * plan["row_tiles"]
+    assert (plan["unit_tiles"] - 1) * units < H <= plan["unit_tiles"] * units
+    owned = np.zeros((B, H), np.int8)
+    launches = 0
+    for b0 in range(0, B, chunk):
+        nb = min(chunk, B - b0)
+        grid = -(-nb // rows) * plan["unit_tiles"] * C
+        assert grid <= plan["grid"] <= gru_scan.tiled_co_resident(C, sms)
+        for blk in range(grid):
+            tile, rank = divmod(blk, C)
+            r0 = b0 + (tile // plan["unit_tiles"]) * rows + rank * (rows // C)
+            u0 = (tile % plan["unit_tiles"]) * units
+            owned[r0:min(r0 + rows // C, b0 + nb), u0:min(u0 + units, H)] += 1
+        launches += 1
+    assert launches == plan["chunks"]
+    assert (owned == 1).all()
+
+    kc, nk = plan["kc"], plan["k_chunks"]
+    assert kc * dt.itemsize == gru_scan.TILED_CHUNK and (nk - 1) * kc < H <= nk * kc
+    assert plan["ldx"] == nk * kc
+    parts = [gru_scan.tiled_fwd_k_chunks(H, dt, C, r) for r in range(C)]
+    assert [c for part in parts for c in part] == list(range(nk))
+    assert all(len(part) > 0 for part in parts)
+
+    # the tile's N: the warps' 48-column tiles, the ring's pieces of a
+    # k-row (per elements of gate e // ppg at unit (e % ppg) * per)
+    wn = 3 * units // gru_scan.TILED_FWD_WARP_N
+    assert wn * gru_scan.TILED_FWD_WARP_N == 3 * units
+    per, ppg = 16 // dt.itemsize, units * dt.itemsize // 16
+    for u0 in {0, (plan["unit_tiles"] - 1) * units}:
+        cols = [g * H + u0 + (e % ppg) * per + i for e in range(3 * ppg)
+                for g in [e // ppg] for i in range(per) if u0 + (e % ppg) * per + i < H]
+        assert sorted(cols) == [g * H + j for g in range(3) for j in range(u0, min(u0 + units, H))]
+
+    wk = 8 // ((rows // 32) * (units // 16))
+    assert wk in (1, 2, 4) and (rows // 32) * (units // 16) * wk == 8
+    w_pitch = 3 * units * dt.itemsize + 16
+    red = wk * rows * (3 * units + 4) * 4
+    fixed = (3 * units + rows // C * units) * 4
+    w = -(-nk // C) * kc * w_pitch
+    res = w + max(4 * rows * 144, red) + fixed <= kernels.SMEM_PER_BLOCK
+    assert plan["resident"] == res
+    ring4 = 4 * (rows * 144 + kc * w_pitch) + red + fixed
+    assert plan["stages"] == (4 if res or ring4 <= kernels.SMEM_PER_BLOCK else 2)
+    smem = w + max(4 * rows * 144, red) + fixed if res else \
+        plan["stages"] * (rows * 144 + kc * w_pitch) + red + fixed
+    assert plan["smem"] == smem <= kernels.SMEM_PER_BLOCK
+    assert plan["wh_from"] in (("smem",) if res else ("l2", "hbm"))
+    assert plan["in_place"] == (H % per == 0)
+    if dt == torch.float16:
+        assert plan == gru_scan.scan_fwd_plan(B, 24, H, torch.bfloat16, sms)
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_tiled_fwd_plan_refuses_no_width(dt):
+    """H = 0 is refused before anything is launched; every H from 513 on
+    has a tiled forward plan on 132 and 114 SMs, to 16896 units on 132 (a
+    unit tile of 128 an SM, its ring of 2 stages); 16897 has none."""
+    with pytest.raises(NotImplementedError):
+        gru_scan.scan_fwd_plan(64, 24, 0, dt, H100_SMS)
+    for H in range(513, 4097, 97):
+        for sms in (H100_SMS, 114):
+            assert gru_scan.scan_fwd_plan(64, 24, H, dt, sms)["layout"] == "tiled"
+    widest = gru_scan.scan_fwd_plan(64, 24, 16896, dt, H100_SMS)
+    assert (widest["units"], widest["grid"], widest["stages"]) == (128, 132, 2)
+    with pytest.raises(NotImplementedError, match="no tiling"):
+        gru_scan.scan_fwd_plan(64, 24, 16897, dt, H100_SMS)
+    assert gru_scan.scan_kernel_holds(16896, dt) and not gru_scan.scan_kernel_holds(16897, dt)

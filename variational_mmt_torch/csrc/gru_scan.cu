@@ -83,37 +83,43 @@
 // cross a segment start: the scan multiplies each step's dh_prev by that
 // step's 1 - reset where the next step (or dh0) reads it.
 //
-// Wide plan of the forward (H from 513 to 1024: the launch plan's layout
-// "wide"). Past 512 units the three gate blocks of Wh no longer fit one
-// cluster of 16 CTAs (6.3 MB in bf16 at H = 1024), so the forward spreads
-// the 3H columns over the whole card instead: one persistent cooperative
-// kernel a chunk of at most 256 x row_tiles batch rows, CTA b owning the 8
-// units of one mma n-tile in bf16 (4 in f32, FMAs, never TF32) of a tile of
-// rows and keeping their columns of Wh in shared memory for the call (49 KB
-// at H = 1024). h_{t-1} crosses CTAs through global memory: each step
-// writes its units of round(h' * keep of the next step) into one of two
-// exchange buffers (B, pad32(H)) and meets one grid barrier; the next
-// step's product streams the rows from L2 into the mma fragments
-// (block_product.cuh), so no CTA holds the whole state. Two buffers make
-// one barrier a step enough: a CTA writing buffer s % 2 at step s + 2 has
-// passed the barrier of step s + 1, which every reader of step s reached.
-// What bounds it is the chain of T steps, each a grid barrier after a
-// product whose operand comes from L2.
-//
-// Streamed plan of the forward (H above 1024: layout "streamed"; the same
-// kernel with kStream). The wide plan ties both the grid (one CTA a unit
-// tile) and a CTA's shared memory (its slice of Wh grows with H) to H; at
-// H = 2048 a slice is 98 KB and f32 would need 512 CTAs. The streamed plan
-// breaks both links: the grid is capped at what the card holds at once,
-// each CTA takes unit tiles b, b + grid, ... in turn within every step (all
-// of them written before the step's one grid barrier, so the two exchange
-// buffers still suffice), and the weights stay in global memory: the
-// wrapper lays Wh out once a call in the shared-memory slices' own order,
-// tile after tile (wt), and block_product reads its fragments from there
-// (L2-resident where Wh fits the 50 MB, else from HBM every step). The
-// forward reads h_{t-1} back from its own outs (every step writes out[t] =
-// carry). Rows are not chunked: up to 256 a row tile, all row tiles in one
-// launch. Shared memory holds the product buffer only, whatever H.
+// Tiled plan of the forward (H above 512: the launch plan's layout
+// "tiled"). Past 512 units the three gate blocks of Wh no longer fit one
+// cluster of 16 CTAs (6.3 MB in bf16 at H = 1024), so the state crosses CTAs
+// through global memory (L2) and each step ends at a grid barrier. Per
+// step the serial part is h_proj = round(h) @ Wh + bh, a (B, H) x (H, 3H)
+// product whose operand is the step before's own output, then the gates.
+// Its FLOPs are few (0.4-6.4 GFLOP a step at B = 64-256, H = 1000-2048);
+// what bounds it on this card is the bytes each SM pulls from L2 a step and
+// the T grid barriers. A plan that gives each CTA one 8-unit n-tile reads
+// the whole (rows, H) state from L2 H/8 times a step (512 KB a CTA at B =
+// 256, H = 1024). Here the product is output-stationary, as the
+// backward's tiled plan below: one persistent cooperative kernel a chunk of
+// rows, CTA tiles of rows x units cells (32, 64 or 128 each; N = 3 units,
+// the r, z and n columns of the tile's own units, so the gates need nothing
+// from another CTA), each step's K = H moving through a ring of stages in
+// shared memory filled by cp.async.cg (through L2, past the L1, which is
+// not coherent across SMs) with round(h) rows from the exchange buffer and,
+// where they do not stay resident, Wh's k-rows of the tile's columns, while
+// the warps multiply the stage before: ldmatrix feeds mma.sync m16n8k16 in
+// bf16 and f16 (Wh's (K, N) rows through ldmatrix.trans), float4 reads
+// feed FMAs in f32 (never TF32), each warp a 32 x 48 of the tile, so a
+// step's state leaves L2 H / units times. Where B leaves few tiles, a
+// thread-block cluster of 2 or 4 CTAs splits K a tile and adds the partial
+// products of the rows each CTA owns through distributed shared memory in
+// rank order (deterministic). Each CTA keeps the f32 carry of its own cells
+// and its units' biases in shared memory for the call; it writes outs,
+// round(h' * keep of the next step) into the other exchange buffer and, at
+// the last step, final. The tile's columns of Wh stay in shared memory for
+// the call where the CTA's share of K fits (the partial products then
+// share the ring's bytes), else the ring brings them each step (the first
+// stages' copies issued as soon as the product before is done: they do not
+// wait for the state), with 2 stages in place of 4 where 4 do not fit. Wh
+// is read in place where each gate's columns start on a 16-byte piece (H
+// a multiple of 8 in 16 bits, 4 in f32), else from a copy the wrapper pads
+// once a call. The gate inputs of a thread's first cells load under the
+// product. Batches above a launch's rows run in chunks, one launch each; the launch is cooperative and clustered at once
+// (cudaLaunchKernelEx with both attributes).
 //
 // Tiled plan of the backward (H above 512: layout "tiled"). The backward's
 // serial part (b) above 512 units, the reverse scan of _gru_bwd_kernel:
@@ -773,201 +779,10 @@ int launch_bwd(const void* x_proj, const void* mask, const void* reset, const vo
   return 0;
 }
 
-
 // ---------------------------------------------------------------------------
-// Wide forward scans (H > 512): persistent cooperative kernels over the whole
-// card, the wide plan (kStream false) and the streamed plan (kStream true);
-// see the notes at the top.
-
-// Shared memory of a wide forward CTA of `rows` batch rows: its units'
-// three gate columns of Wh transposed into (3 tile_rows, ldw) rows, the
-// product buffer (3 n-tiles of 8 floats a row; in bf16 room for the
-// warps' K-split partial sums) and the f32 carry (rows, units). Streamed:
-// the product buffer alone.
-template <typename T>
-struct WideFwdLayout {
-  int ldw;
-  size_t w, prod, total;
-  __host__ __device__ WideFwdLayout(int H, int units, int rows, bool stream) {
-    ldw = frag_ld<T>(H);
-    w = stream ? 0 : align16((size_t)3 * tile_rows<T>() * ldw * sizeof(T));
-    const int prod_rows = is_mma<T>() ? max(kDecWarps * 16, rows) : rows;
-    prod = (size_t)prod_rows * 3 * kDecUnitsMma * sizeof(float);
-    total = w + prod + (stream ? 0 : align16((size_t)rows * units * sizeof(float)));
-  }
-};
-
-// Arguments of the wide forward for one launch over B rows (a chunk of the
-// call's rows: the pointers start at its first row).
-template <typename T>
-struct Wide {
-  const T* x_proj;
-  const float *mask, *reset, *h0;  // reset null: no reset stream
-  const T* wh;
-  // streamed: Wh laid out as the wide plan's shared-memory slices, unit
-  // tile after unit tile ((3 tile_rows, ldw) a tile), zero past H
-  const T* wt;
-  const float* bh;
-  float *outs, *final_h;
-  // written and read inside the kernel across CTAs, read with __ldcg: two
-  // (B, ldx) buffers of round(h) in T, ldx = pad32(H), zero past H
-  T* xch;
-  int B, T_len, H, units, unit_tiles, rows, ldx, reverse;
-};
-
-// The wide forward's CTAs need 2 an SM in f32 (4 units a CTA: 256 CTAs at
-// H = 1024), 1 in bf16 (8 units: 128 CTAs); the streamed plan's grid is
-// that many an SM.
-template <typename T>
-struct WideBlocks {
-  static constexpr int kPerSm = is_mma<T>() ? 1 : 2;
-};
-
-// Tile b of the launch's unit_tiles x row_tiles tiles: units [(b %
-// unit_tiles) * units, +units) of batch rows [(b / unit_tiles) * rows,
-// +rows). The wide plan gives each CTA one tile (b = blockIdx.x), the
-// streamed plan tiles blockIdx.x, + gridDim.x, ... Per step: each tile's
-// round(h) @ Wh from the exchange buffer of the step, the gates in f32, its
-// units of h' into the other buffer (times the next step's 1 - reset); one
-// grid barrier.
-template <typename T, bool kStream>
-__global__ void __launch_bounds__(kDecThreads, WideBlocks<T>::kPerSm)
-gru_wide_fwd_kernel(Wide<T> p) {
-  cg::grid_group grid = cg::this_grid();
-  const int B = p.B, T_len = p.T_len, H = p.H, H3 = 3 * H, units = p.units, ldx = p.ldx;
-  const int tid = threadIdx.x;
-  const int tiles = p.unit_tiles * ((B + p.rows - 1) / p.rows);
-  constexpr int tr = tile_rows<T>(), PS = 3 * kDecUnitsMma;
-  const WideFwdLayout<T> L(H, units, p.rows, kStream);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* w_s = reinterpret_cast<T*>(smem_raw);  // wide plan only
-  float* prod = reinterpret_cast<float*>(smem_raw + L.w);
-  float* carry = reinterpret_cast<float*>(smem_raw + L.w + L.prod);  // wide plan only
-  const size_t slice = (size_t)3 * tr * L.ldw;  // one unit tile's weights
-  const bool reset = p.reset != nullptr;
-  auto keep_at = [&](int row, int t) { return reset ? 1.f - p.reset[(size_t)row * T_len + t] : 1.f; };
-
-  if constexpr (!kStream) {
-    if ((int)blockIdx.x < tiles) {
-      // row g * tr + u of w_s is column g * H + u0 + u of Wh, zero past nu
-      // units and past H
-      const WideTile c(blockIdx.x, p.unit_tiles, units, p.rows, H, B);
-      for (int i = tid; i < L.ldw * 3 * tr; i += kDecThreads) {
-        const int u = i % tr, g = (i / tr) % 3, k = i / (3 * tr);
-        w_s[(g * tr + u) * L.ldw + k] =
-            u < c.nu && k < H ? p.wh[(size_t)k * H3 + g * H + c.u0 + u] : from_f<T>(0.f);
-      }
-      for (int i = tid; i < c.nr * c.nu; i += kDecThreads)
-        carry[(i / c.nu) * units + i % c.nu] = p.h0[(size_t)(c.r0 + i / c.nu) * H + c.u0 + i % c.nu];
-    }
-  }
-  // buffer 0: round(h0 * keep of the first step); buffer 1 zero (its
-  // columns past H stay so)
-  const int t_first = p.reverse ? T_len - 1 : 0;
-  const size_t xn = (size_t)B * ldx;
-  const size_t gtid = (size_t)blockIdx.x * kDecThreads + tid;
-  for (size_t i = gtid; i < 2 * xn; i += (size_t)gridDim.x * kDecThreads) {
-    const int k = (int)(i % ldx), row = (int)((i / ldx) % B);
-    const float v = i < xn && k < H ? p.h0[(size_t)row * H + k] * keep_at(row, t_first) : 0.f;
-    p.xch[i] = from_f<T>(v);
-  }
-  grid.sync();
-
-  for (int step = 0; step < T_len; ++step) {
-    const int t = p.reverse ? T_len - 1 - step : step;
-    const int t_next = p.reverse ? t - 1 : t + 1, t_prev = p.reverse ? t + 1 : t - 1;
-    const T* cur = p.xch + (step & 1) * xn;
-    T* nxt = p.xch + ((step + 1) & 1) * xn;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const WideTile c(tile, p.unit_tiles, units, p.rows, H, B);
-      const int items = c.nr * c.nu;
-      if (items == 0) continue;
-      block_product<T, 3>(cur, ldx, H, kStream ? p.wt + c.ut * slice : w_s, L.ldw, c.nu, c.r0,
-                          c.nr, prod);
-      for (int i = tid; i < items; i += kDecThreads) {
-        const int mm = i / c.nu, u = i % c.nu, row = c.r0 + mm, j = c.u0 + u;
-        const size_t n = (size_t)row * T_len + t;
-        float x[3], hp[3];
-#pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          x[g] = to_f(p.x_proj[n * H3 + g * H + j]);
-          hp[g] = prod[mm * PS + g * 8 + u] + p.bh[g * H + j];
-        }
-        // the carry as the product read it: zero at a segment start. The
-        // streamed plan reads it back from the previous step's out, which
-        // this thread wrote.
-        float h;
-        if constexpr (kStream)
-          h = step == 0 ? p.h0[(size_t)row * H + j] : p.outs[((size_t)row * T_len + t_prev) * H + j];
-        else
-          h = carry[mm * units + u];
-        h *= keep_at(row, t);
-        h = p.mask[n] > 0.f ? gru_cell(x, hp, h) : h;
-        if constexpr (!kStream) carry[mm * units + u] = h;
-        p.outs[n * H + j] = h;
-        if (step + 1 < T_len)
-          nxt[(size_t)row * ldx + j] = from_f<T>(h * keep_at(row, t_next));
-        else
-          p.final_h[(size_t)row * H + j] = h;
-      }
-    }
-    if (step + 1 < T_len) grid.sync();  // every unit of h' is in nxt
-  }
-}
-
-template <typename T>
-void* wide_kernel(bool stream) {
-  return stream ? reinterpret_cast<void*>(gru_wide_fwd_kernel<T, true>)
-                : reinterpret_cast<void*>(gru_wide_fwd_kernel<T, false>);
-}
-
-// One cooperative launch a chunk of `rows * row_tiles` batch rows, the
-// chunks in order on the stream, each launch of at most `ctas` CTAs; q
-// holds the whole call's pointers, offset here to each chunk's first row
-// (a streamed call is one chunk).
-template <typename T>
-int launch_wide(Wide<T> q, int row_tiles, int ctas, cudaStream_t stream) {
-  const bool streamed = q.wt != nullptr;
-  const size_t smem = WideFwdLayout<T>(q.H, q.units, q.rows, streamed).total;
-  void* kernel = wide_kernel<T>(streamed);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int B = q.B, T_len = q.T_len, H = q.H, chunk = q.rows * row_tiles;
-  for (int b0 = 0; b0 < B; b0 += chunk) {
-    Wide<T> p = q;
-    const size_t bt = (size_t)b0 * T_len;
-    p.B = min(chunk, B - b0);
-    p.x_proj = q.x_proj + bt * 3 * H;
-    p.mask = q.mask + bt;
-    p.reset = q.reset != nullptr ? q.reset + bt : nullptr;
-    p.h0 = q.h0 + (size_t)b0 * H;
-    p.outs = q.outs + bt * H;
-    p.final_h = q.final_h + (size_t)b0 * H;
-    const int tiles = q.unit_tiles * ((p.B + q.rows - 1) / q.rows);
-    // the wide plan's CTAs hold one tile each
-    if (!streamed && tiles > ctas) return (int)cudaErrorInvalidValue;
-    const int grid = min(tiles, ctas);
-    void* args[] = {&p};
-    // refuses (cudaErrorCooperativeLaunchTooLarge) a grid that is not co-resident
-    err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kDecThreads), args, smem, stream);
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
-}
-
-// The wide and streamed plans' tiling is the caller's: units the dtype's
-// tile_rows, rows a multiple of 16, each launch's grid within the
-// co-resident CTAs.
-bool valid_wide(int dtype, int H, int units, int rows, int row_tiles, int ctas) {
-  const int tr = dtype == 0 ? kDecUnitsFma : kDecUnitsMma;
-  return known_dtype(dtype) && H >= 1 && units == tr && rows >= 16 && rows % 16 == 0 &&
-         row_tiles >= 1 && ctas >= 1;
-}
-
-// ---------------------------------------------------------------------------
-// The backward's reverse scan above 512 units: the tiled plan; see the note
-// at the top.
+// The tiled plans above 512 units: the backward's reverse scan, then the
+// forward; see the notes at the top. The ring, its copies and ldmatrix are
+// shared by both.
 
 constexpr int kTiledThreads = 256;
 constexpr int kTiledWarps = kTiledThreads / 32;
@@ -1450,34 +1265,31 @@ cudaLaunchConfig_t tiled_config(int grid, int cluster, size_t smem, cudaLaunchAt
   return cfg;
 }
 
-// One cooperative, clustered launch a chunk of `rows * row_tiles` batch
-// rows, the chunks in order on the stream; q holds the whole call's
-// pointers, offset here to each chunk's first row.
-template <typename T>
-int launch_tiled(Tiled<T> q, int cluster, int row_tiles, cudaStream_t stream) {
-  const size_t smem =
-      TiledLayout(q.rows, q.units, cluster, q.resident != 0, tiled_kc_own<T>(q.H, cluster)).total;
-  const auto kernel = gru_tiled_bwd_kernel<T>;
+// One cooperative, clustered launch of `kernel` (either pass's tiled
+// kernel, with `smem` bytes of dynamic shared memory) a chunk of `rows *
+// row_tiles` batch rows, the chunks in order on the stream. q holds the
+// whole call's pointers; each chunk's are offset to its first row b0 here
+// (x_proj, mask, reset, h0, outs; the probe to the first chunk only) and by
+// `offset(p, q, b0, bt)` (bt = b0 * T) for the pass's own.
+template <typename P, typename Kernel, typename Offset>
+int launch_chunks(Kernel kernel, P q, size_t smem, int cluster, int row_tiles,
+                  cudaStream_t stream, Offset offset) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int B = q.B, T_len = q.T_len, H = q.H, chunk = q.rows * row_tiles;
+  const int B = q.B, H = q.H, chunk = q.rows * row_tiles;
   const int unit_tiles = (H + q.units - 1) / q.units;
   for (int b0 = 0; b0 < B; b0 += chunk) {
-    Tiled<T> p = q;
-    const size_t bt = (size_t)b0 * T_len;
+    P p = q;
+    const size_t bt = (size_t)b0 * q.T_len;
     p.B = min(chunk, B - b0);
     p.x_proj = q.x_proj + bt * 3 * H;
     p.mask = q.mask + bt;
     p.reset = q.reset != nullptr ? q.reset + bt : nullptr;
     p.h0 = q.h0 + (size_t)b0 * H;
     p.outs = q.outs + bt * H;
-    p.g = q.g + bt * H;
-    p.hp = q.hp + bt * 3 * H;
-    p.dx = q.dx + bt * 3 * H;
-    p.dhn = q.dhn + bt * H;
-    p.dh0 = q.dh0 + (size_t)b0 * H;
     p.probe = b0 == 0 ? q.probe : nullptr;
+    offset(p, q, b0, bt);
     cudaLaunchAttribute attr[2];
     const cudaLaunchConfig_t cfg = tiled_config(
         (p.B + q.rows - 1) / q.rows * unit_tiles * cluster, cluster, smem, attr, stream);
@@ -1485,6 +1297,459 @@ int launch_tiled(Tiled<T> q, int cluster, int row_tiles, cudaStream_t stream) {
     if (err != cudaSuccess) return (int)err;
   }
   return 0;
+}
+
+template <typename T>
+int launch_tiled(Tiled<T> q, int cluster, int row_tiles, cudaStream_t stream) {
+  const size_t smem =
+      TiledLayout(q.rows, q.units, cluster, q.resident != 0, tiled_kc_own<T>(q.H, cluster)).total;
+  const size_t H = q.H;
+  return launch_chunks(gru_tiled_bwd_kernel<T>, q, smem, cluster, row_tiles, stream,
+                       [H](Tiled<T>& p, const Tiled<T>& q, int b0, size_t bt) {
+                         p.g = q.g + bt * H;
+                         p.hp = q.hp + bt * 3 * H;
+                         p.dx = q.dx + bt * 3 * H;
+                         p.dhn = q.dhn + bt * H;
+                         p.dh0 = q.dh0 + b0 * H;
+                       });
+}
+
+// ---------------------------------------------------------------------------
+// The forward's tiled plan.
+
+constexpr int kTiledFwdWarpN = 48;  // a forward warp's columns of the tile: 6 mma n-tiles
+
+// The tiles a forward CTA may own: rows 32, 64 or 128 and units 16, 32, 64
+// or 128 in 2, 4 or 8 warp tiles of 32 rows x 48 of the tile's 3 units
+// columns, the eight warps splitting K in wk = 8 / warp tiles <= 4 groups
+// (a chunk holds 4 k16 steps of the mma, 8 float4 steps of the FMAs);
+// clusters of 1, 2 or 4 CTAs; rings of 4 stages, or 2.
+bool valid_fwd_tile(int rows, int units, int cluster, int stages) {
+  auto side = [](int v) { return v == 32 || v == 64 || v == 128; };
+  const int warp_tiles = (rows / kTiledWarpTile) * (3 * units / kTiledFwdWarpN);
+  return side(rows) && (units == 16 || side(units)) &&
+         (warp_tiles == 2 || warp_tiles == 4 || warp_tiles == 8) &&
+         (cluster == 1 || cluster == 2 || cluster == 4) && (stages == 2 || stages == 4);
+}
+
+// Dynamic shared memory of a forward tiled CTA of `rows` x `units` cells in
+// T: with `resident`, the tile's columns of Wh over the CTA's kc_own K
+// chunks (kc_own * kc k-rows of 3 units elements, w_pitch bytes apart) for
+// the call; the ring (`stages` stages of `rows` K-chunk rows of round(h),
+// kTiledPitch apart, then, without `resident`, kc k-rows of Wh's columns,
+// w_pitch apart); the warps' partial products (wk, rows, 3 units + 4) in
+// f32, which with `resident` take the ring's bytes; the units' biases (3
+// units) and the f32 carry of the own = rows / cluster x units cells.
+template <typename T>
+struct TiledFwdLayout {
+  int wk, red_ld, own, w_pitch;
+  size_t stage, ring, red, bias, total;
+  __host__ __device__ TiledFwdLayout(int rows, int units, int cluster, bool resident, int stages,
+                                     int kc_own) {
+    wk = kTiledWarps / ((rows / kTiledWarpTile) * (3 * units / kTiledFwdWarpN));
+    red_ld = 3 * units + 4;
+    own = rows / cluster * units;
+    w_pitch = 3 * units * (int)sizeof(T) + 16;
+    stage = (size_t)rows * kTiledPitch + (resident ? 0 : (size_t)tiled_kc<T>() * w_pitch);
+    ring = resident ? (size_t)kc_own * tiled_kc<T>() * w_pitch : 0;
+    const size_t ring_bytes = stages * stage;
+    const size_t red_bytes = (size_t)wk * rows * red_ld * sizeof(float);
+    red = resident ? ring : ring + ring_bytes;
+    bias = resident ? ring + (ring_bytes > red_bytes ? ring_bytes : red_bytes) : red + red_bytes;
+    total = bias + (size_t)(3 * units + own) * sizeof(float);
+  }
+};
+
+template <typename T>
+size_t tiled_fwd_smem(int H, int rows, int units, int cluster, bool resident, int stages) {
+  const int nk = (H + tiled_kc<T>() - 1) / tiled_kc<T>();
+  return TiledFwdLayout<T>(rows, units, cluster, resident, stages, (nk + cluster - 1) / cluster)
+      .total;
+}
+
+// Arguments of the forward tiled kernel for one launch over B rows (a chunk
+// of the call's rows: the pointers start at its first row).
+template <typename T>
+struct TiledFwd {
+  const T* x_proj;
+  const float *mask, *reset, *h0, *bh;  // reset null: no reset stream
+  // Wh's k-rows, ldw = 3 ldg apart, gate g's columns from g * ldg: Wh
+  // itself (ldg = H) or padded (ldg = H rounded up to a 16-byte piece, zero
+  // past H); 16-byte aligned
+  const T* w;
+  float *outs, *final_h;
+  // two (B, ldx) buffers of round(h), ldx = H padded to a K chunk, zero
+  // past H; written and read inside the kernel across CTAs, read through
+  // L2 (cp.async.cg)
+  T* xch;
+  long long* probe;  // null, or 1 + 4 * T_len globaltimer stamps of CTA 0
+  int B, T_len, H, reverse, rows, units, ldw, ldg, ldx;
+  int resident;  // Wh's columns held in shared memory for the call
+};
+
+// ldmatrix_x4 transposed: lane l receives elements (2 (l % 4), l / 4) and
+// (2 (l % 4) + 1, l / 4) of each 8 x 8 matrix whose rows it was given, the
+// mma's B fragment from a (K, N) row-major operand
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// The %globaltimer (ns) of CTA 0's thread 0 into probe[i] (null: none).
+__device__ __forceinline__ void globaltimer_stamp(long long* probe, int i) {
+  if (probe != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    probe[i] = (long long)ns;
+  }
+}
+
+// Per step: the tile's round(h) @ Wh[:, its r|z|n columns] over the CTA's K
+// chunks through the ring, the partial products added across the cluster
+// and the K groups in a fixed order, the gates of the own cells from those
+// sums, the biases and the carry, their h' into outs and (times the next
+// step's keep) the other exchange buffer, then one grid barrier.
+template <typename T, int S>
+__global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFwd<T> p) {
+  cg::grid_group grid = cg::this_grid();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int B = p.B, T_len = p.T_len, H = p.H, H3 = 3 * H, rows = p.rows, units = p.units;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const bool resident = p.resident != 0;
+  constexpr int kc = tiled_kc<T>();
+  constexpr int per = 16 / (int)sizeof(T);  // elements of a 16-byte piece
+  // the CTA's K chunks: [c0, c1) of nk
+  const int nk = (H + kc - 1) / kc;
+  const int c0 = rank * nk / C, c1 = (rank + 1) * nk / C;
+  const TiledFwdLayout<T> L(rows, units, C, resident, S, (nk + C - 1) / C);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + L.ring;  // after the resident weights, if any
+  float* red = reinterpret_cast<float*>(smem_raw + L.red);
+  float* bias_s = reinterpret_cast<float*>(smem_raw + L.bias);
+  float* carry = bias_s + 3 * units;
+  const int unit_tiles = (H + units - 1) / units, tile = blockIdx.x / C;
+  const int r0 = (tile / unit_tiles) * rows, u0 = (tile % unit_tiles) * units;
+  const int nu = min(units, H - u0);
+  const int ulog = __ffs(units) - 1;  // units is a power of two: own cell i is (i >> ulog, i & (units - 1))
+  // the CTA owns the cells of tile rows [or0, or0 + rows / C)
+  const int or0 = rank * (rows / C);
+  // this warp's 32 x 48 of the tile and its K-split group
+  const int wn_n = 3 * units / kTiledFwdWarpN, wmn = (rows / kTiledWarpTile) * wn_n;
+  const int wk = warp / wmn, wm = (warp % wmn) / wn_n, wn = warp % wn_n;
+  const bool reset = p.reset != nullptr;
+  const size_t xn = (size_t)B * p.ldx;
+  // the partial products of the cluster's CTAs, in rank order
+  const float* peer_red[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    peer_red[q] = q >= C || q == rank ? red : cluster.map_shared_rank(red, q);
+  auto keep_at = [&](int row, int t) {
+    return reset ? 1.f - p.reset[(size_t)row * T_len + t] : 1.f;
+  };
+  auto time_of = [&](int step) { return p.reverse ? T_len - 1 - step : step; };
+
+  // one 16-byte piece of Wh's k-row k: piece e of the tile's 3 units
+  // columns (gate e / ppg), zero past H rows and units
+  const int ppg = units * (int)sizeof(T) / 16, ppr = 3 * ppg;
+  auto w_piece = [&](unsigned char* dst, int k, int e) {
+    const int g = e / ppg, u = (e - g * ppg) * per;
+    const bool in = k < H && u0 + u < H;
+    cp_async16(dst, in ? p.w + (size_t)k * p.ldw + (size_t)g * p.ldg + u0 + u : p.w, in ? 16 : 0);
+  };
+  // K chunk c of Wh's k-rows into ring stage `slot`: piece i is gate i /
+  // (kc ppg), k-row (i / ppg) % kc, piece i % ppg of the gate's units (ppg
+  // and kc powers of two)
+  const int pg_log = __ffs(ppg) - 1;
+  constexpr int kc_log = kc == 64 ? 6 : 5;
+  static_assert(kc == 1 << kc_log, "a K chunk of 64 or 32 elements");
+  auto load_w = [&](int c, int slot) {
+    unsigned char* st = ring + slot * L.stage + (size_t)rows * kTiledPitch;
+    for (int i = tid; i < 3 * kc * ppg; i += kTiledThreads) {
+      const int g = i >> (kc_log + pg_log), kr = (i >> pg_log) & (kc - 1);
+      const int e = g * ppg + (i & (ppg - 1)), u = (i & (ppg - 1)) * per, k = c * kc + kr;
+      const bool in = k < H && u0 + u < H;
+      cp_async16(st + kr * L.w_pitch + e * 16,
+                 in ? p.w + (size_t)k * p.ldw + (size_t)g * p.ldg + u0 + u : p.w, in ? 16 : 0);
+    }
+  };
+
+  // buffer 0: round(h0 * keep of the first step), zero past H; buffer 1
+  // zero (its columns past H stay so)
+  const int t_first = time_of(0);
+  const size_t gtid = (size_t)blockIdx.x * kTiledThreads + tid;
+  for (size_t i = gtid; i < 2 * xn; i += (size_t)gridDim.x * kTiledThreads) {
+    const int k = (int)(i % p.ldx), row = (int)((i / p.ldx) % B);
+    const float v = i < xn && k < H ? p.h0[(size_t)row * H + k] * keep_at(row, t_first) : 0.f;
+    p.xch[i] = from_f<T>(v);
+  }
+  for (int i = tid; i < 3 * units; i += kTiledThreads) {
+    const int g = i / units, u = i - g * units;
+    bias_s[i] = u0 + u < H ? p.bh[g * H + u0 + u] : 0.f;
+  }
+  for (int i = tid; i < L.own; i += kTiledThreads) {
+    const int row = r0 + or0 + (i >> ulog), j = u0 + (i & (units - 1));
+    carry[i] = row < B && j < H ? p.h0[(size_t)row * H + j] : 0.f;
+  }
+  if (resident) {
+    // the tile's columns of Wh over this CTA's K chunks, once for the call
+    for (int i = tid; i < (c1 - c0) * kc * ppr; i += kTiledThreads) {
+      const int kr = i / ppr, e = i - kr * ppr;
+      w_piece(smem_raw + (size_t)kr * L.w_pitch + e * 16, c0 * kc + kr, e);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    // step 0's first stages of weights, committed with its first state chunk
+    for (int s = 0; s < S - 1; ++s)
+      if (c0 + s < c1) load_w(c0 + s, s);
+  }
+  grid.sync();
+
+  // the gate inputs of own cells i = base, base + 256, ... (kTiledGate at
+  // once), as loaded (nothing waits for them until the gates): x_proj, the
+  // mask, and the resets of the step and the next (whose keep scales the h'
+  // the next step's product reads)
+  struct GateIn {
+    T x[3];
+    float m, r, r_next;
+  };
+  auto gate_load = [&](int step, int base, GateIn (&in)[kTiledGate]) {
+    const int t = time_of(step), t_next = time_of(step + 1);
+#pragma unroll
+    for (int q = 0; q < kTiledGate; ++q) {
+      const int i = base + q * kTiledThreads;
+      const int row = r0 + or0 + (i >> ulog), j = u0 + (i & (units - 1));
+      if (i >= L.own || row >= B || j >= H) continue;
+      const size_t n = (size_t)row * T_len + t;
+#pragma unroll
+      for (int g = 0; g < 3; ++g) in[q].x[g] = p.x_proj[n * H3 + g * H + j];
+      in[q].m = p.mask[n];
+      in[q].r = reset ? p.reset[n] : 0.f;
+      in[q].r_next = reset && step + 1 < T_len ? p.reset[(size_t)row * T_len + t_next] : 0.f;
+    }
+  };
+  // the gates of a batch of own cells from their sums (group 0 of red at
+  // the own rows), the biases and the carry
+  auto gate_cells = [&](int step, int base, const GateIn (&in)[kTiledGate], T* nxt) {
+    const int t = time_of(step);
+#pragma unroll
+    for (int q = 0; q < kTiledGate; ++q) {
+      const int i = base + q * kTiledThreads;
+      const int tr = or0 + (i >> ulog), u = i & (units - 1), row = r0 + tr, j = u0 + u;
+      if (i >= L.own || row >= B || j >= H) continue;
+      const float* s = red + (size_t)tr * L.red_ld + u;
+      const float x[3] = {to_f(in[q].x[0]), to_f(in[q].x[1]), to_f(in[q].x[2])};
+      const float hp[3] = {s[0] + bias_s[u], s[units] + bias_s[units + u],
+                           s[2 * units] + bias_s[2 * units + u]};
+      float h = carry[i] * (1.f - in[q].r);  // the carry the product read: zero at a segment start
+      h = in[q].m > 0.f ? gru_cell(x, hp, h) : h;
+      carry[i] = h;
+      p.outs[((size_t)row * T_len + t) * H + j] = h;
+      if (step + 1 < T_len)
+        nxt[(size_t)row * p.ldx + j] = from_f<T>(h * (1.f - in[q].r_next));
+      else
+        p.final_h[(size_t)row * H + j] = h;
+    }
+  };
+
+  // this thread's 16-byte pieces of a K chunk of the tile's state rows,
+  // fixed for the call: piece tid + 256 j of rows * 8
+  constexpr int kPieces = 128 * 8 / kTiledThreads;
+  size_t a_off[kPieces];
+  int a_dst[kPieces];
+  bool a_ok[kPieces];
+#pragma unroll
+  for (int j = 0; j < kPieces; ++j) {
+    const int i = tid + j * kTiledThreads, rr = i >> 3, e = i & 7;
+    a_ok[j] = rr < rows && r0 + rr < B;
+    a_off[j] = (size_t)(r0 + rr) * p.ldx + e * per;
+    a_dst[j] = rr * kTiledPitch + e * 16;
+  }
+  // K chunk c of the tile's rows of the state h into ring stage `slot`;
+  // rows past B are zero-filled
+  auto load_h = [&](const T* h, int c, int slot) {
+    unsigned char* st = ring + slot * L.stage;
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j) {
+      if (j * kTiledThreads >= rows * 8) break;
+      cp_async16(st + a_dst[j], a_ok[j] ? h + a_off[j] + c * kc : p.w, a_ok[j] ? 16 : 0);
+    }
+  };
+
+  // acc += this warp's 32 x 48 of the stage's product over its K group's
+  // steps: bf16 and f16 mma.sync m16n8k16 (acc[(mi * 6 + ni) * 4 + e]:
+  // m-tile mi, n-tile ni, accumulator e; Wh's k-rows through
+  // ldmatrix.trans), f32 FMAs (acc[i * 12 + j]: row lane / 4 + 8i, column
+  // 12 (lane % 4) + j)
+  auto product = [&](int c, int slot, float (&acc)[48]) {
+    const unsigned char* a_s = ring + slot * L.stage + (size_t)wm * 32 * kTiledPitch;
+    const unsigned char* w_s =
+        (resident ? smem_raw + (size_t)(c - c0) * kc * L.w_pitch
+                  : ring + slot * L.stage + (size_t)rows * kTiledPitch) +
+        wn * kTiledFwdWarpN * (int)sizeof(T);
+    if constexpr (is_mma<T>()) {
+      for (int kk = wk; kk < kc / 16; kk += L.wk) {
+        uint32_t a[2][4], b[3][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          ldmatrix_x4(a[mi], a_s + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kTiledPitch +
+                                 kk * 32 + (lane >> 4) * 16);
+#pragma unroll
+        for (int nj = 0; nj < 3; ++nj)
+          ldmatrix_x4_trans(b[nj], w_s + (size_t)(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                             L.w_pitch +
+                                       (nj * 16 + (lane >> 4) * 8) * 2);
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 6; ++ni) {
+            float* c4 = acc + (mi * 6 + ni) * 4;
+            float cc[4] = {c4[0], c4[1], c4[2], c4[3]};
+            mma16<T>(cc, a[mi], b[ni >> 1][(ni & 1) * 2], b[ni >> 1][(ni & 1) * 2 + 1]);
+            c4[0] = cc[0];
+            c4[1] = cc[1];
+            c4[2] = cc[2];
+            c4[3] = cc[3];
+          }
+      }
+    } else {
+      for (int kq = wk; kq < kc / 4; kq += L.wk) {
+        float4 av[4], wv[4][3];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          av[i] = *reinterpret_cast<const float4*>(a_s + ((lane >> 2) + 8 * i) * kTiledPitch +
+                                                   kq * 16);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            wv[kk][j] = *reinterpret_cast<const float4*>(
+                w_s + (size_t)(kq * 4 + kk) * L.w_pitch + ((lane & 3) * 12 + 4 * j) * 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float a4[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              float* c4 = acc + i * 12 + j * 4;
+              c4[0] = fmaf(a4[kk], wv[kk][j].x, c4[0]);
+              c4[1] = fmaf(a4[kk], wv[kk][j].y, c4[1]);
+              c4[2] = fmaf(a4[kk], wv[kk][j].z, c4[2]);
+              c4[3] = fmaf(a4[kk], wv[kk][j].w, c4[3]);
+            }
+        }
+      }
+    }
+  };
+
+  globaltimer_stamp(p.probe, 0);
+  for (int step = 0; step < T_len; ++step) {
+    const T* cur = p.xch + (step & 1) * xn;
+    T* nxt = p.xch + ((step + 1) & 1) * xn;
+    for (int s = 0; s < S - 1; ++s) {
+      if (c0 + s < c1) load_h(cur, c0 + s, s);
+      cp_async_commit();
+    }
+    // the first batch's gate inputs load under the product
+    GateIn first[kTiledGate];
+    gate_load(step, tid, first);
+    float acc[48] = {};
+    for (int c = c0; c < c1; ++c) {
+      cp_async_wait<S - 2>();
+      __syncthreads();  // chunk c is in its stage; every warp is done with chunk c - 1's
+      const int next = c + S - 1;
+      if (next < c1) {
+        if (!resident) load_w(next, (next - c0) % S);
+        load_h(cur, next, (next - c0) % S);
+      }
+      cp_async_commit();
+      product(c, (c - c0) % S, acc);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // every warp is done with the ring, which red may share
+    // the next step's first stages of weights do not wait for its state:
+    // their copies run under the sums, the gates and the barrier
+    if (!resident && step + 1 < T_len)
+      for (int s = 0; s < S - 1; ++s)
+        if (c0 + s < c1) load_w(c0 + s, s);
+    globaltimer_stamp(p.probe, 1 + 4 * step);
+
+    // the warp's partial products into red[wk], then the own cells' sums
+    // over the cluster's CTAs and the K groups, in that fixed order, into
+    // group 0 of this CTA's red (a peer reads only the rows it owns)
+    float* rb = red + (size_t)wk * rows * L.red_ld;
+#pragma unroll
+    for (int e = 0; e < 48; ++e) {
+      int r, n;
+      if constexpr (is_mma<T>()) {
+        r = wm * 32 + ((e >> 2) / 6) * 16 + (lane >> 2) + ((e >> 1) & 1) * 8;
+        n = wn * kTiledFwdWarpN + ((e >> 2) % 6) * 8 + 2 * (lane & 3) + (e & 1);
+      } else {
+        r = wm * 32 + (lane >> 2) + 8 * (e / 12);
+        n = wn * kTiledFwdWarpN + (lane & 3) * 12 + e % 12;
+      }
+      rb[r * L.red_ld + n] = acc[e];
+    }
+    cluster.sync();  // every partial product of the cluster is in its CTA's red
+    if (C > 1 || L.wk > 1) {
+      // four units of an own row a thread, 16 bytes a partial (from the
+      // peers' shared memory), a gate's adds before its store
+      for (int i = tid; i < L.own / 4; i += kTiledThreads) {
+        const size_t at = (size_t)(or0 + (i >> (ulog - 2))) * L.red_ld + (i & (units / 4 - 1)) * 4;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          const size_t ag = at + (size_t)g * units;
+          float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+#pragma unroll
+            for (int w = 0; w < 4; ++w)
+              if (q < C && w < L.wk) {
+                const float4 v = *reinterpret_cast<const float4*>(
+                    peer_red[q] + ag + (size_t)w * rows * L.red_ld);
+                s.x += v.x;
+                s.y += v.y;
+                s.z += v.z;
+                s.w += v.w;
+              }
+          *reinterpret_cast<float4*>(red + ag) = s;
+        }
+      }
+      __syncthreads();  // another thread's gates read each sum
+    }
+    globaltimer_stamp(p.probe, 2 + 4 * step);
+
+    gate_cells(step, tid, first, nxt);
+    for (int base = tid + kTiledGate * kTiledThreads; base < L.own;
+         base += kTiledGate * kTiledThreads) {
+      GateIn in[kTiledGate];
+      gate_load(step, base, in);
+      gate_cells(step, base, in, nxt);
+    }
+    globaltimer_stamp(p.probe, 3 + 4 * step);
+    if (step + 1 < T_len) grid.sync();  // every cell's round(h') is in nxt
+    globaltimer_stamp(p.probe, 4 + 4 * step);
+  }
+  cluster.sync();  // no CTA leaves while a peer reads its partial products
+}
+
+// The forward tiled kernel with a ring of `stages` stages (4, or 2).
+template <typename T>
+auto tiled_fwd_kernel(int stages) {
+  return stages == 2 ? gru_tiled_fwd_kernel<T, 2> : gru_tiled_fwd_kernel<T, 4>;
+}
+
+template <typename T>
+int launch_tiled_fwd(TiledFwd<T> q, int cluster, int row_tiles, int stages, cudaStream_t stream) {
+  const size_t smem = tiled_fwd_smem<T>(q.H, q.rows, q.units, cluster, q.resident != 0, stages);
+  const size_t H = q.H;
+  return launch_chunks(tiled_fwd_kernel<T>(stages), q, smem, cluster, row_tiles, stream,
+                       [H](TiledFwd<T>& p, const TiledFwd<T>& q, int b0, size_t) {
+                         p.final_h = q.final_h + b0 * H;
+                       });
 }
 
 }  // namespace
@@ -1573,65 +1838,6 @@ extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int un
         scan_bwd_config<T>(kernel, rows, H, cluster, units, rows, attr, 0);
     *smem_bytes = (int)cfg.dynamicSmemBytes;
     return cudaOccupancyMaxActiveClusters(max_clusters, kernel, &cfg);
-  };
-  return by_dtype(dtype, query);
-}
-
-// Wide and streamed forward (H > 512: the plans of ops/gru_scan.py): inputs
-// and outputs as vmmt_gru_scan's; CTAs of `units` units (8 in bf16 and f16, 4 in
-// f32) and `rows` batch rows, row_tiles of them a launch, one cooperative
-// launch of at most `ctas` CTAs a chunk of rows * row_tiles rows. xch:
-// scratch of 2 * rows * row_tiles * pad32(H) elements of the compute dtype.
-// wt: null on the wide plan (each CTA copies its slice of wh into shared
-// memory; ctas covers the tiles); on the streamed plan wh laid out as
-// (unit_tiles, 3, units, frag_ld(H)), zero past H.
-extern "C" int vmmt_gru_wide(int dtype, const void* x_proj, const void* mask, const void* reset,
-                             const void* h0, const void* wh, const void* bh, void* outs,
-                             void* final_h, void* xch, const void* wt, int B, int T_len, int H,
-                             int reverse, int units, int rows, int row_tiles, int ctas,
-                             void* stream) {
-  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
-  if (B == 0 || T_len == 0) return 0;
-  if (!valid_wide(dtype, H, units, rows, row_tiles, ctas)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto zero) {
-    using T = decltype(zero);
-    Wide<T> p = {};
-    p.x_proj = static_cast<const T*>(x_proj);
-    p.mask = static_cast<const float*>(mask);
-    p.reset = static_cast<const float*>(reset);
-    p.h0 = static_cast<const float*>(h0);
-    p.wh = static_cast<const T*>(wh);
-    p.wt = static_cast<const T*>(wt);
-    p.bh = static_cast<const float*>(bh);
-    p.outs = static_cast<float*>(outs);
-    p.final_h = static_cast<float*>(final_h);
-    p.xch = static_cast<T*>(xch);
-    p.B = B;
-    p.T_len = T_len;
-    p.H = H;
-    p.units = units;
-    p.unit_tiles = (H + units - 1) / units;
-    p.rows = rows;
-    p.ldx = pad32(H);
-    p.reverse = reverse;
-    return launch_wide<T>(p, row_tiles, ctas, s);
-  };
-  const int err = by_dtype(dtype, run);
-  return err != 0 ? err : (int)cudaGetLastError();
-}
-
-// How many CTAs of the wide (streamed 0) or streamed (1) forward the card
-// holds at once, and the dynamic shared memory of one CTA, for CTAs of
-// `units` units and `rows` batch rows.
-extern "C" int vmmt_gru_wide_occupancy(int dtype, int H, int units, int rows, int streamed,
-                                       int* max_blocks, int* smem_bytes) {
-  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
-  auto query = [&](auto zero) {
-    using T = decltype(zero);
-    return co_resident(wide_kernel<T>(streamed != 0),
-                       WideFwdLayout<T>(H, units, rows, streamed != 0).total, max_blocks,
-                       smem_bytes);
   };
   return by_dtype(dtype, query);
 }
@@ -1726,6 +1932,92 @@ extern "C" int vmmt_gru_tiled_bwd_occupancy(int dtype, int H, int rows, int unit
         TiledLayout(rows, units, cluster, resident != 0, tiled_kc_own<T>(H, cluster)).total;
     *smem_bytes = (int)smem;
     const auto kernel = gru_tiled_bwd_kernel<T>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    cudaLaunchAttribute attr[2];
+    cudaLaunchConfig_t cfg = tiled_config(cluster, cluster, smem, attr, 0);
+    cfg.numAttrs = 1;  // the cluster dimension alone
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    *max_ctas = clusters * cluster;
+    return err;
+  };
+  return by_dtype(dtype, query);
+}
+
+// Forward above 512 units, the tiled plan: inputs and outputs as
+// vmmt_gru_scan's, then xch: 2 * rows * row_tiles * ldx elements of the
+// compute dtype (ldx = H padded to a K chunk); wt: null where the kernel
+// reads wh in place (H a whole number of 16-byte pieces, so that each
+// gate's columns start on one), else wh padded to (H, 3, ldg), ldg = H
+// rounded up to a piece, zero past H; CTAs of `rows` x `units` cells,
+// `cluster` of them splitting K a tile, row_tiles row tiles a launch, a ring
+// of `stages` stages (valid_fwd_tile), one launch a chunk of rows *
+// row_tiles rows, with `resident` each CTA's columns of Wh in its shared
+// memory for the call (TiledFwdLayout); probe: null, or 1 + 4 * T int64
+// globaltimer stamps of the first launch's CTA 0 (after the first grid
+// barrier, then each step's product, sums, gates and grid barrier). wh (or
+// wt) and xch 16-byte aligned.
+extern "C" int vmmt_gru_tiled_fwd(int dtype, const void* x_proj, const void* mask,
+                                  const void* reset, const void* h0, const void* wh,
+                                  const void* bh, void* outs, void* final_h, void* xch,
+                                  const void* wt, int B, int T_len, int H, int reverse, int rows,
+                                  int units, int cluster, int row_tiles, int resident, int stages,
+                                  void* probe, void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || T_len == 0) return 0;
+  if (H < 1 || !valid_fwd_tile(rows, units, cluster, stages) || row_tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto run = [&](auto zero) {
+    using T = decltype(zero);
+    constexpr int per = 16 / (int)sizeof(T);
+    const void* w = wt != nullptr ? wt : wh;
+    if ((wt == nullptr && H % per != 0) || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
+        reinterpret_cast<uintptr_t>(xch) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    TiledFwd<T> p = {};
+    p.x_proj = static_cast<const T*>(x_proj);
+    p.mask = static_cast<const float*>(mask);
+    p.reset = static_cast<const float*>(reset);
+    p.h0 = static_cast<const float*>(h0);
+    p.bh = static_cast<const float*>(bh);
+    p.w = static_cast<const T*>(w);
+    p.outs = static_cast<float*>(outs);
+    p.final_h = static_cast<float*>(final_h);
+    p.xch = static_cast<T*>(xch);
+    p.probe = static_cast<long long*>(probe);
+    p.B = B;
+    p.T_len = T_len;
+    p.H = H;
+    p.reverse = reverse;
+    p.rows = rows;
+    p.units = units;
+    p.ldg = wt != nullptr ? (H + per - 1) / per * per : H;
+    p.ldw = 3 * p.ldg;
+    p.ldx = (H + tiled_kc<T>() - 1) / tiled_kc<T>() * tiled_kc<T>();
+    p.resident = resident;
+    return launch_tiled_fwd<T>(p, cluster, row_tiles, stages, s);
+  };
+  const int err = by_dtype(dtype, run);
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// How many CTAs of the forward tiled kernel the card holds at once in
+// clusters of `cluster` (cudaOccupancyMaxActiveClusters times cluster; 0
+// when it cannot hold one), and the dynamic shared memory of one CTA of the
+// tiling (TiledFwdLayout) at H units.
+extern "C" int vmmt_gru_tiled_fwd_occupancy(int dtype, int H, int rows, int units, int cluster,
+                                            int resident, int stages, int* max_ctas,
+                                            int* smem_bytes) {
+  if (!known_dtype(dtype) || H < 1 || !valid_fwd_tile(rows, units, cluster, stages))
+    return (int)cudaErrorInvalidValue;
+  auto query = [&](auto zero) {
+    using T = decltype(zero);
+    const size_t smem = tiled_fwd_smem<T>(H, rows, units, cluster, resident != 0, stages);
+    *smem_bytes = (int)smem;
+    const auto kernel = tiled_fwd_kernel<T>(stages);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

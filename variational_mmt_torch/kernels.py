@@ -48,13 +48,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "vmmt_gru_scan_bwd": [_I] + [_P] * 16 + [_I] * 8 + [_P],
         # dtype, H, cluster, units, rows, out: max active clusters, smem bytes
         "vmmt_gru_scan_bwd_occupancy": [_I] * 5 + [_P] * 2,
-        # the forward's wide and streamed plans (H > 512): dtype, x_proj,
-        # mask, reset, h0, wh, bh, outs, final, exchange scratch, laid-out
-        # weights (null: the wide plan), B, T, H, reverse, units, rows,
-        # row_tiles, most CTAs a launch, stream
-        "vmmt_gru_wide": [_I] + [_P] * 10 + [_I] * 8 + [_P],
-        # dtype, H, units, rows, streamed, out: max co-resident CTAs, smem bytes
-        "vmmt_gru_wide_occupancy": [_I] * 5 + [_P] * 2,
+        # the forward's tiled plan (H > 512): dtype, x_proj, mask, reset, h0,
+        # wh, bh, outs, final, exchange scratch, padded weights (null: Wh in
+        # place), B, T, H, reverse, rows, units, cluster, row_tiles, resident
+        # weights (0 or 1), ring stages, probe (null: none), stream
+        "vmmt_gru_tiled_fwd": [_I] + [_P] * 10 + [_I] * 10 + [_P] * 2,
+        # dtype, H, rows, units, cluster, resident, stages, out: max
+        # co-resident CTAs in such clusters, smem bytes
+        "vmmt_gru_tiled_fwd_occupancy": [_I] * 7 + [_P] * 2,
         # the backward's tiled plan (H > 512): dtype, the backward's 16
         # pointers, exchange scratch, padded weights (null: Wh in place), B,
         # T, H, reverse, rows, units, cluster, row_tiles, resident weights

@@ -58,34 +58,37 @@ same launch, deterministically. :func:`scan_bwd_plan` sizes the
 clusters and shared memory and refuses what the design cannot hold; the
 wrapper checks with the card that a cluster fits.
 
-Source note, the forward's wide plan (H from 513 to 1024, ``vmmt_gru_wide``
+Source note, the forward's tiled plan (H above 512, ``vmmt_gru_tiled_fwd``
 in the same source). Above 512 units the three gate blocks of Wh no longer
 fit one cluster of 16 CTAs: at H = 1024 Wh is 6.3 MB in bf16 (12.6 MB in
-f32). The wide plan spreads its 3H columns over the whole card, as the
-decoder kernels (rows 5 and 6) spread theirs: a persistent cooperative
-kernel whose CTAs each own 8 units in bf16 (one mma n-tile; 128 CTAs at H =
-1024, 49 KB of Wh each) or 4 in f32 (256 CTAs, two an SM), of a tile of
-batch rows, and keep those units' columns of Wh in shared memory for the
-call. h_{t-1} crosses CTAs through global memory (L2): each step writes its
-units of round(h') into one of two exchange buffers, waits at one grid
-barrier, and the next step's product streams the (rows, H) state from L2
-straight into the mma fragments (the CTA never holds it whole: 256 KB at
-B = 64, H = 1024 in f32). Batches above 256 rows a CTA run in chunks, one
-launch each. :func:`scan_fwd_plan` plans it (``layout`` ``"wide"``); the
-wrapper checks with the card that the grid is co-resident and raises
-``NotImplementedError`` naming the plan when it is not.
-
-Source note, the forward's streamed plan (H above 1024, the same kernel
-with ``kStream``). The wide plan ties the grid (a CTA a unit tile) and each
-CTA's shared memory (its slice of Wh, 98 KB at H = 2048) to H. The
-streamed plan breaks both links: the grid is capped at what the card holds
-at once (one bf16 CTA an SM, two in f32), each CTA takes unit tiles in
-turn within every step, and the weights stay in global memory, laid out
-once a call by the wrapper (:func:`_stream_weights`) in the slices' own
-order so that ``block_product`` reads its fragments from L2 (from HBM
-every step where Wh exceeds the 50 MB L2: f32 at 2048 units and wider).
-The forward reads h back from its own ``outs``, so a CTA's shared memory
-is its product buffer alone, whatever H. All row tiles run in one launch.
+f32), so the state crosses CTAs through global memory (L2) with one grid
+barrier a step. The serial part is T steps of h_proj = round(h) @ Wh + bh,
+a (B, H) x (H, 3H) product whose operand is the step before's output, and
+the gates; its FLOPs are few, and what bounds it on the H100 is the bytes
+each SM pulls from L2 a step and the grid barriers. Giving each CTA 8 units
+would read each step's state from L2 H/8 times (512 KB a CTA at B = 256, H
+= 1024). The tiled plan makes the product output-stationary, as the
+backward's below: each CTA owns a tile of ``rows`` x ``units`` cells (32
+to 128 rows, 16 to 128 units) for the call, whose N is the 3 * units r, z
+and n columns
+of its own units, so the gates need nothing from another CTA; K = H moves
+through a ``cp.async`` ring in shared memory (the tile's columns of Wh stay
+there for the call where a CTA's share fits, with the warps' partial
+products then in the ring's bytes; 4 stages, 2 where 4 do not fit),
+``ldmatrix`` feeds ``mma.sync`` in bf16 and f16 (``ldmatrix.trans`` for
+Wh's (K, N) rows; FMAs in f32), and a step's state leaves L2 H / units
+times. Where B leaves few tiles, a thread-block cluster of 2 or 4 CTAs
+splits K a tile and adds its partial products through distributed shared
+memory in rank order (deterministic); the launch is cooperative and
+clustered at once. Each CTA keeps the f32 carry of its own cells and its
+units' biases in shared memory, and its threads' first gate inputs load
+under the product. Wh is read in place where each gate's
+columns start on a 16-byte piece (H * itemsize a multiple of 16), else from
+a padded copy made once a call (:func:`_tiled_fwd_weights`).
+:func:`_tiled_fwd_plan` picks the tiling whose grid the card holds at once
+by its own cost model (:func:`_tiled_fwd_cost`); batches above a launch's
+rows run in chunks. The wrapper checks the plan with the card and raises
+``NotImplementedError`` where the grid is not co-resident.
 
 Source note, the backward's tiled plan (H above 512, ``vmmt_gru_tiled_bwd``
 in the same source). The serial part of the backward is T steps of the
@@ -112,10 +115,10 @@ bytes (:func:`_tiled_cost`); batches above a launch's rows run in chunks.
 The wrapper checks the plan with the card and raises
 ``NotImplementedError`` where the grid is not co-resident.
 
-Widths. Both kernels take every H >= 1 in f32, bf16 and f16
-(:func:`scan_kernel_holds`): clusters up to 512 units; above, the forward's
-wide plan to 1024 and its streamed plan beyond, the backward's tiled plan,
-as the Pallas scan takes any H.
+Widths. Both kernels take every H >= 1 in f32, bf16 and f16 that a card's
+132 SMs tile (:func:`scan_kernel_holds`; from 16897 units they do not):
+clusters up to 512 units, above both tiled plans, as the Pallas scan takes
+any H.
 
 float16 takes bf16's path on every plan (``kernels.mma_dtype``: the same
 mma.sync tiling, strides and shared memory with f16 operands); what is
@@ -124,6 +127,7 @@ said of bf16 here holds for both.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -164,15 +168,20 @@ def gru_layer_scan_ref(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
 
 def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
                    Wh: torch.Tensor, bh: torch.Tensor, reverse: bool = False,
-                   reset: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+                   reset: Optional[torch.Tensor] = None,
+                   probe: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One GRU layer over the sequence. x_proj (B,T,3H) and Wh (H,3H) in
     one dtype (float32, bfloat16 or float16); mask (B,T), reset (B,T) or None, h0
     (B,H) and bh (3H,) are taken as f32. Returns (outs (B,T,H) f32, final
     (B,H) f32).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel (the
-    plan of the last launch, with the card's count of co-resident clusters,
-    is kept in ``gru_layer_scan.plan``)."""
+    plan of the last launch, with the card's count of co-resident clusters
+    or CTAs, is kept in ``gru_layer_scan.plan``). ``probe``: on the tiled
+    plan (H above 512), an int64 tensor of ``1 + 4 * T`` entries on the
+    device for the first launch's ``%globaltimer`` stamps (ns) of CTA 0:
+    after its first grid barrier, then each step's product, sums, gates and
+    grid barrier."""
     if x_proj.device.type == "cpu":
         return gru_layer_scan_ref(x_proj, mask, h0, Wh, bh, reverse, reset)
     B, T, H3 = x_proj.shape
@@ -198,15 +207,20 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     lib = kernels.library("gru_scan")
     plan = scan_fwd_plan(B, T, H, dt, kernels.sm_count(x.device.index))
     code = kernels.DTYPE_CODE[dt]
-    if plan["layout"] in ("wide", "streamed"):
-        gru_layer_scan.plan = _co_resident_wide(plan, code, H, x.device.index)
-        xch = _exchange(plan, kernels.pad32(H), dt, x.device)
-        wt = _stream_weights(w, plan) if plan["layout"] == "streamed" else None
-        err = lib.vmmt_gru_wide(code, x.data_ptr(), m.data_ptr(), _ptr(r), h.data_ptr(),
-                                w.data_ptr(), b.data_ptr(), outs.data_ptr(), final.data_ptr(),
-                                xch.data_ptr(), _ptr(wt), B, T, H, int(reverse), plan["units"],
-                                plan["rows"], plan["row_tiles"], plan["grid"],
-                                kernels.stream_of(x))
+    _check_probe("gru_layer_scan", plan, probe, T, x.device)
+    if plan["layout"] == "tiled":
+        gru_layer_scan.plan = _co_resident_tiled(
+            "gru_layer_scan", "vmmt_gru_tiled_fwd_occupancy", plan, code, H, x.device.index,
+            plan["stages"])
+        w = kernels.aligned(w)  # the ring reads Wh's rows in 16-byte pieces
+        xch = _exchange(plan, plan["ldx"], dt, x.device)
+        wt = _tiled_fwd_weights(w, plan)
+        err = lib.vmmt_gru_tiled_fwd(code, x.data_ptr(), m.data_ptr(), _ptr(r), h.data_ptr(),
+                                     w.data_ptr(), b.data_ptr(), outs.data_ptr(),
+                                     final.data_ptr(), xch.data_ptr(), _ptr(wt), B, T, H,
+                                     int(reverse), plan["rows"], plan["units"], plan["cluster"],
+                                     plan["row_tiles"], int(plan["resident"]), plan["stages"],
+                                     _ptr(probe), kernels.stream_of(x))
     else:
         co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
                                               "vmmt_gru_scan_occupancy", code, H,
@@ -244,48 +258,38 @@ def _check_cluster(what: str, plan: dict, co_resident: int, smem: int) -> None:
                                   f"{smem} bytes of shared memory each does not fit the card")
 
 
-def _co_resident_wide(plan: dict, code: int, H: int, device: int) -> dict:
-    """A wide or streamed forward ``plan`` checked against the kernel's own
-    shared-memory count and the card's count of co-resident CTAs, with that
-    count."""
-    streamed = plan["layout"] == "streamed"
-    co_resident, smem = kernels.occupancy(device, "gru_scan", "vmmt_gru_wide_occupancy", code, H,
-                                          plan["units"], plan["rows"], int(streamed))
+def _co_resident_tiled(what: str, fn: str, plan: dict, code: int, H: int, device: int,
+                       *extra: int) -> dict:
+    """A tiled ``plan`` checked against the kernel's own shared-memory count
+    (the occupancy query ``fn`` with the tiling and ``extra``) and the CTAs
+    the card holds at once in clusters of the plan's size, with that count."""
+    co_resident, smem = kernels.occupancy(device, "gru_scan", fn, code, H, plan["rows"],
+                                          plan["units"], plan["cluster"], int(plan["resident"]),
+                                          *extra)
     if smem != plan["smem"]:
-        raise RuntimeError(f"gru_layer_scan kernel: plan of {plan['smem']} bytes of shared "
+        raise RuntimeError(f"{what} kernel: plan of {plan['smem']} bytes of shared "
                            f"memory, the kernel takes {smem}")
     if plan["grid"] > co_resident:
         raise NotImplementedError(
-            f"gru_layer_scan kernel: the {plan['layout']} plan's {plan['grid']} CTAs "
-            f"({plan['unit_tiles']} tiles "
-            f"of {plan['units']} units x {plan['row_tiles']} of {plan['rows']} rows) with "
-            f"{smem} bytes of shared memory each exceed the {co_resident} the card holds "
-            "at once")
-    return dict(plan, max_co_resident=co_resident)
-
-
-def _co_resident_tiled(plan: dict, code: int, H: int, device: int) -> dict:
-    """The backward's tiled ``plan`` checked against the kernel's own
-    shared-memory count and the CTAs the card holds at once in clusters of
-    the plan's size, with that count."""
-    co_resident, smem = kernels.occupancy(device, "gru_scan", "vmmt_gru_tiled_bwd_occupancy",
-                                          code, H, plan["rows"], plan["units"], plan["cluster"],
-                                          int(plan["resident"]))
-    if smem != plan["smem"]:
-        raise RuntimeError(f"gru_layer_scan_bwd kernel: plan of {plan['smem']} bytes of shared "
-                           f"memory, the kernel takes {smem}")
-    if plan["grid"] > co_resident:
-        raise NotImplementedError(
-            f"gru_layer_scan_bwd kernel: the tiled plan's {plan['grid']} CTAs ({plan['tiles']} "
+            f"{what} kernel: the tiled plan's {plan['grid']} CTAs ({plan['tiles']} "
             f"tiles of {plan['rows']} rows x {plan['units']} units, clusters of "
             f"{plan['cluster']}) with {smem} bytes of shared memory each exceed the "
             f"{co_resident} the card holds at once")
     return dict(plan, max_co_resident=co_resident)
 
 
+def _check_probe(what: str, plan: dict, probe: Optional[torch.Tensor], T: int, device) -> None:
+    """Raise unless ``probe`` is None or, on the tiled plan, ``1 + 4 * T``
+    int64 stamps on the device."""
+    if probe is not None and (plan["layout"] != "tiled" or probe.dtype != torch.int64
+                              or probe.numel() < 1 + 4 * T or probe.device != device):
+        raise ValueError(f"{what}: probe takes 1 + 4 * T int64 stamps on the device, on the "
+                         "tiled plan")
+
+
 def _exchange(plan: dict, ld: int, dtype: torch.dtype, device) -> torch.Tensor:
-    """The wide forward's or tiled backward's two exchange buffers for one
-    chunk of rows, rows ``ld`` apart, in the compute dtype."""
+    """A tiled plan's two exchange buffers for one chunk of rows, rows
+    ``ld`` apart, in the compute dtype."""
     return torch.empty((2 * plan["rows"] * plan["row_tiles"] * ld,), dtype=dtype, device=device)
 
 
@@ -348,12 +352,6 @@ SCAN_FWD_PARTS = 4  # K split of the forward's step product (kFwdParts)
 SCAN_FWD_SMALL_ROWS = 4  # rows per cluster while the grid stays within one CTA an SM
 # 512: the widest a cluster holds
 SCAN_CLUSTER_MAX_HIDDEN = SCAN_BWD_MAX_CLUSTER * SCAN_BWD_UNITS
-SCAN_WIDE_MAX_HIDDEN = 1024  # the widest the wide plan takes; the streamed plan above
-# units of a wide CTA (tile_rows) and CTAs an SM (WideBlocks::kPerSm)
-SCAN_WIDE_UNITS = {torch.bfloat16: 8, torch.float16: 8, torch.float32: 4}
-SCAN_WIDE_PER_SM = {torch.bfloat16: 1, torch.float16: 1, torch.float32: 2}
-SCAN_WIDE_MAX_ROWS = 256  # batch rows of a wide CTA; more rows run in chunks
-SCAN_WIDE_WARPS = 8  # warps of a wide CTA (kDecWarps of csrc/block_product.cuh)
 H100_SMS = 132  # SMs of an H100 SXM: what scan_kernel_holds, a pure function, plans for
 
 
@@ -416,76 +414,6 @@ def _bwd_rows(H: int, dtype: torch.dtype, units: int) -> int:
             > kernels.SMEM_PER_BLOCK:
         return SCAN_BWD_F32_WIDE_ROWS
     return SCAN_BWD_ROWS
-
-
-def _wide_smem(H: int, dtype: torch.dtype, rows: int, streamed: bool = False) -> int:
-    """Shared memory of a wide forward CTA of ``rows`` batch rows
-    (``WideFwdLayout`` of csrc/gru_scan.cu): its units' three gate columns
-    of Wh as (3 tile rows, K) slices at the padded stride, the product
-    buffer (3 n-tiles of 8 floats a row, room for 8 warps' K-split partial
-    sums of 16 rows in 16 bits) and the f32 carry. ``streamed``: the product
-    buffer alone."""
-    mma = kernels.mma_dtype(dtype)
-    tsize = dtype.itemsize
-    units = SCAN_WIDE_UNITS[dtype]
-    prod_rows = max(SCAN_WIDE_WARPS * 16, rows) if mma else rows
-    if streamed:
-        return prod_rows * 3 * 8 * 4
-    w = kernels.align16(3 * units * kernels.frag_ld(H, mma) * tsize)
-    return w + prod_rows * 3 * 8 * 4 + kernels.align16(rows * units * 4)
-
-
-def _wide_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
-    """The forward's wide plan: ``unit_tiles`` CTAs of ``units`` units (8
-    in bf16 and f16, 4 in f32) times ``row_tiles`` of ``rows`` batch rows (a
-    multiple of 16, at most 256; row tiles halve what each CTA reads of the
-    state, as long as the grid stays within a CTA an SM), ``grid`` CTAs a
-    launch, ``chunks`` launches a call."""
-    units = SCAN_WIDE_UNITS[dtype]
-    unit_tiles = -(-H // units)
-    B = max(B, 1)
-    row_tiles = max(1, min(-(-B // 16), sms // unit_tiles))
-    rows = min(kernels.align16(-(-B // row_tiles)), SCAN_WIDE_MAX_ROWS)
-    row_tiles = min(row_tiles, -(-B // rows))
-    smem = _wide_smem(H, dtype, rows)
-    if smem > kernels.SMEM_PER_BLOCK:
-        raise NotImplementedError(f"gru_layer_scan kernel: the wide plan's {smem} bytes of "
-                                  f"shared memory per CTA exceed {kernels.SMEM_PER_BLOCK}")
-    grid = unit_tiles * row_tiles
-    return dict(layout="wide", units=units, rows=rows, unit_tiles=unit_tiles,
-                row_tiles=row_tiles, grid=grid, ctas=grid,
-                chunks=-(-B // (rows * row_tiles)), smem=smem)
-
-
-def _stream_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
-    """The forward's streamed plan: ``unit_tiles`` of ``units`` units (8 in
-    bf16 and f16, 4 in f32) times ``row_tiles`` of ``rows`` batch rows (a
-    multiple of 16, at most 256), all in one launch (``chunks`` 1) of
-    ``grid`` CTAs, as many as the card holds at once (``SCAN_WIDE_PER_SM``
-    an SM) or as there are tiles; each CTA takes ``tiles_per_cta`` tiles at
-    most a step. Shared memory: the product buffer, whatever H."""
-    units = SCAN_WIDE_UNITS[dtype]
-    unit_tiles = -(-H // units)
-    B = max(B, 1)
-    row_tiles = -(-B // SCAN_WIDE_MAX_ROWS)
-    rows = kernels.align16(-(-B // row_tiles))
-    tiles = unit_tiles * row_tiles
-    grid = min(tiles, SCAN_WIDE_PER_SM[dtype] * sms)
-    return dict(layout="streamed", units=units, rows=rows, unit_tiles=unit_tiles,
-                row_tiles=row_tiles, tiles=tiles, grid=grid, ctas=grid,
-                tiles_per_cta=-(-tiles // grid), chunks=1,
-                smem=_wide_smem(H, dtype, rows, streamed=True))
-
-
-def _stream_weights(Wh: torch.Tensor, plan: dict) -> torch.Tensor:
-    """Wh (H, 3H) laid out for the streamed forward (``Wide::wt`` of
-    csrc/gru_scan.cu): per unit tile its three gates' columns as rows,
-    (unit_tiles, 3, units, frag_ld(H)), zero past H."""
-    H = Wh.shape[0]
-    units, ut = plan["units"], plan["unit_tiles"]
-    cols = Wh.new_zeros((3, ut * units, kernels.frag_ld(H, kernels.mma_dtype(Wh.dtype))))
-    cols[:, :H, :H] = Wh.view(H, 3, H).permute(1, 2, 0)  # [gate, unit, k] = Wh[k, gate*H+unit]
-    return cols.view(3, ut, units, -1).transpose(0, 1).contiguous()
 
 
 # The backward's tiled plan (H above 512; ``gru_tiled_bwd_kernel`` of
@@ -656,26 +584,180 @@ def _tiled_weights(Wh: torch.Tensor, plan: dict) -> Optional[torch.Tensor]:
     return wt
 
 
+# The forward's tiled plan (H above 512; ``gru_tiled_fwd_kernel`` of
+# csrc/gru_scan.cu). A CTA's tile of the step's product: ``rows`` batch rows
+# x ``units`` hidden units, whose N is its units' 3 * units r, z and n
+# columns, in warp tiles of 32 rows x 48 columns; the eight warps split K
+# by 8 / warp tiles.
+TILED_FWD_WARP_N = 48
+TILED_FWD_TILES = ((64, 16), (128, 16), (32, 32), (32, 64), (64, 32), (64, 64), (32, 128),
+                   (128, 32))
+# (Wh's columns resident, the ring's stages), the first that fits a CTA's
+# shared memory
+TILED_FWD_RINGS = ((True, TILED_STAGES), (False, TILED_STAGES), (False, 2))
+# what the forward's plan assumes of the card when it ranks the tilings (not
+# limits; fitted to an H100's times of 346 tilings and rings at B = 64 and
+# 256, H = 520-2500 in bf16, PERF.md; f32 keeps the backward's FMA rate): a
+# step's grid barrier, first gate batch and sums set-up; its product, whose
+# loads and mma.sync work were measured to add up rather than overlap:
+# TILED_FWD_PRODUCT_S, then each K chunk at least TILED_FWD_CHUNK_S (with 4
+# stages; 3/(stages - 1) of it with fewer) or its bytes at TILED_FWD_L2_SM,
+# plus its FLOPs at TILED_FWD_MMA_SM; the gates and the sums of the partial
+# products, each cell a thread
+TILED_FWD_STEP_S, TILED_FWD_PRODUCT_S, TILED_FWD_CHUNK_S = 3.7e-6, 1.2e-6, 0.18e-6
+TILED_FWD_L2_SM, TILED_FWD_MMA_SM = 41e9, 2.4e12
+TILED_FWD_GATE_CELL, TILED_FWD_SUMS_CELL = 0.18e-6, 0.17e-6
+
+
+def tiled_fwd_k_chunks(H: int, dtype: torch.dtype, cluster: int, rank: int) -> range:
+    """The K chunks that CTA ``rank`` of a cluster of ``cluster`` CTAs
+    reduces a step in the forward: chunk c covers k in [c * kc, (c + 1) *
+    kc) of H."""
+    nk = -(-H // tiled_kc(dtype))
+    return range(rank * nk // cluster, (rank + 1) * nk // cluster)
+
+
+def tiled_fwd_kc_own(H: int, dtype: torch.dtype, cluster: int) -> int:
+    """The most K chunks one CTA of a cluster reduces a step in the forward."""
+    return -(-(-(-H // tiled_kc(dtype))) // cluster)
+
+
+def tiled_fwd_smem(rows: int, units: int, cluster: int, resident: bool, stages: int,
+                   kc_own: int, dtype: torch.dtype) -> int:
+    """Shared memory of a forward tiled CTA (``TiledFwdLayout``): with
+    ``resident`` the tile's columns of Wh over its ``kc_own`` K chunks
+    (kc_own * kc k-rows of 3 * units elements, 16 bytes more apart); the ring
+    of ``stages`` stages of ``rows`` K-chunk rows at TILED_PITCH (and without
+    ``resident`` kc k-rows of Wh's columns); the warps' partial products
+    (K-split groups x rows x (3 * units + 4) f32), which with ``resident``
+    take the ring's bytes; the units' biases and the carry of the cells the
+    CTA owns (rows / cluster x units), f32."""
+    kc = tiled_kc(dtype)
+    wk = TILED_THREADS // 32 // ((rows // TILED_WARP_TILE) * (3 * units // TILED_FWD_WARP_N))
+    w_pitch = 3 * units * dtype.itemsize + 16
+    ring = stages * (rows * TILED_PITCH + (0 if resident else kc * w_pitch))
+    red = wk * rows * (3 * units + 4) * 4
+    w = kc_own * kc * w_pitch if resident else 0
+    return (w + (max(ring, red) if resident else ring + red)
+            + (3 * units + (rows // cluster) * units) * 4)
+
+
+def _tiled_fwd_cost(B: int, H: int, dtype: torch.dtype, plan: dict) -> float:
+    """What the forward's plan ranks tilings by: seconds a call takes per
+    step of the time axis, from the busiest CTA's K chunks through its ring
+    (state rows, and Wh's k-rows where they are not resident), its products,
+    the gates and sums of its cells and a step's fixed part (TILED_FWD_*
+    constants)."""
+    rows, units, cluster = plan["rows"], plan["units"], plan["cluster"]
+    mma = kernels.mma_dtype(dtype)
+    kc = tiled_kc(dtype)
+    nk = tiled_fwd_kc_own(H, dtype, cluster)
+    busy_rows, busy_units = min(rows, B), min(units, H)
+    chunk = busy_rows * TILED_CHUNK + (0 if plan["resident"]
+                                       else kc * 3 * busy_units * dtype.itemsize)
+    flops = 2.0 * rows * 3 * units * nk * kc
+    latency = TILED_FWD_CHUNK_S * (TILED_STAGES - 1) / (plan["stages"] - 1)
+    product = (TILED_FWD_PRODUCT_S + nk * max(latency, chunk / TILED_FWD_L2_SM)
+               + flops / (TILED_FWD_MMA_SM if mma else TILED_FMA_SM))
+    cells = -(-busy_rows * busy_units // (cluster * TILED_THREADS))
+    split = cluster > 1 or rows * 3 * units < TILED_THREADS // 32 * TILED_WARP_TILE \
+        * TILED_FWD_WARP_N  # partial products to add
+    cell = TILED_FWD_GATE_CELL + split * TILED_FWD_SUMS_CELL
+    return plan["chunks"] * (TILED_FWD_STEP_S + product + cell * cells)
+
+
+def _tiled_fwd_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The forward's tiled plan for B rows and H units (above 512) on a card
+    of ``sms`` SMs: of the tilings whose grid the card holds at once
+    (TILED_FWD_TILES x TILED_CLUSTERS), the one :func:`_tiled_fwd_cost`
+    ranks first (then the smaller grid)."""
+    B = max(B, 1)
+    best = None
+    for rows, units in TILED_FWD_TILES:
+        for cluster in TILED_CLUSTERS:
+            plan = tiled_fwd_plan_for(B, H, dtype, sms, rows, units, cluster)
+            if plan is None:
+                continue
+            key = (_tiled_fwd_cost(B, H, dtype, plan), plan["grid"])
+            if best is None or key < best[0]:
+                best = (key, plan)
+    if best is None:
+        raise NotImplementedError(f"gru_layer_scan kernel: no tiling of {H} units fits the "
+                                  f"card's {sms} SMs at once")
+    return best[1]
+
+
+def tiled_fwd_plan_for(B: int, H: int, dtype: torch.dtype, sms: int, rows: int, units: int,
+                       cluster: int, rings=TILED_FWD_RINGS) -> Optional[dict]:
+    """The forward's tiled plan of one tiling: as many row tiles a launch as
+    the card holds at once with the unit tiles and clusters (at most the
+    batch's), ``chunks`` launches for B rows; of ``rings``, the first
+    (``resident``, ``stages``) whose shared memory fits (the tile's columns
+    of Wh resident there beside a ring of 4 stages; else a ring of 4 stages
+    that brings them, else of 2); None where the grid of one row tile or
+    the shared memory does not fit the card. Each CTA owns ``rows`` x ``units`` cells of a chunk of ``rows *
+    row_tiles`` batch rows for the whole call; ``cluster`` CTAs split K = H
+    a tile. Wh is read in place where each gate's columns start on a 16-byte
+    piece (``in_place``), else from a copy whose gates are ``ldg`` columns
+    apart (:func:`_tiled_fwd_weights`); ``wh_from`` says where a step's
+    weights come from: shared memory, L2, or device memory every step."""
+    if H < 1:
+        return None
+    B = max(B, 1)
+    unit_tiles = -(-H // units)
+    most = tiled_co_resident(cluster, sms) // (unit_tiles * cluster)
+    kc_own = tiled_fwd_kc_own(H, dtype, cluster)
+    for resident, stages in rings:
+        smem = tiled_fwd_smem(rows, units, cluster, resident, stages, kc_own, dtype)
+        if smem <= kernels.SMEM_PER_BLOCK:
+            break
+    else:
+        return None
+    if most < 1:
+        return None
+    row_tiles = min(-(-B // rows), most)
+    grid = row_tiles * unit_tiles * cluster
+    kc, per = tiled_kc(dtype), 16 // dtype.itemsize
+    in_place = H % per == 0
+    ldg = -(-H // per) * per
+    return dict(layout="tiled", rows=rows, units=units, cluster=cluster, unit_tiles=unit_tiles,
+                row_tiles=row_tiles, tiles=unit_tiles * row_tiles, grid=grid, ctas=grid,
+                chunks=-(-B // (rows * row_tiles)), stages=stages, resident=resident, kc=kc,
+                k_chunks=-(-H // kc), ldx=-(-H // kc) * kc, ldg=ldg, in_place=in_place,
+                wh_from="smem" if resident else "l2" if H * 3 * ldg * dtype.itemsize
+                <= H100_L2_BYTES else "hbm", smem=smem)
+
+
+def _tiled_fwd_weights(Wh: torch.Tensor, plan: dict) -> Optional[torch.Tensor]:
+    """Wh for the tiled forward: None where the kernel reads Wh in place,
+    else Wh (H, 3H) with each gate's H columns padded to ``plan["ldg"]``
+    (zero past H), (H, 3 * ldg), so that every gate starts on a 16-byte
+    piece."""
+    if plan["in_place"]:
+        return None
+    H = Wh.shape[0]
+    wt = Wh.new_zeros((H, 3, plan["ldg"]))
+    wt[:, :, :H] = Wh.view(H, 3, H)
+    return wt.view(H, 3 * plan["ldg"])
+
+
 def scan_kernel_holds(H: int, dtype: torch.dtype) -> bool:
     """Whether both scan kernels (forward and backward) compute a layer of
-    H units in ``dtype`` at every batch size: every H >= 1. Up to 512 units
-    on clusters (16 CTAs of 32 units, the largest cluster) with both CTAs'
-    shared memory within the card's; above, the forward on the wide plan to
-    1024 units (its CTAs at the most rows fit the card's shared memory, two
-    an SM where the grid exceeds an H100's 132 SMs) and on the streamed plan
-    above (nothing in it grows with H), the backward on the tiled plan (its
-    tiles' shared memory does not depend on H; :func:`_tiled_plan` finds a
-    tiling for every H it is asked, 4096 in the tests). ``UniGRU`` sends
-    every ``use_pallas`` GRU layer to the kernels, as JAX sends it to the
-    Pallas scan."""
+    H units in ``dtype`` at every batch size on an H100's 132 SMs. Up to 512
+    units on clusters (16 CTAs of 32 units, the largest cluster) with both
+    CTAs' shared memory within the card's; above, both tiled plans, where a
+    tiling's grid fits the card (a tile's shared memory stops growing with
+    H once Wh streams through its ring; :func:`_tiled_fwd_plan` and
+    :func:`_tiled_plan` find one for every H to 16896 units). ``UniGRU``
+    sends every ``use_pallas`` GRU layer to the kernels, as JAX sends it to
+    the Pallas scan."""
     if dtype not in kernels.DTYPE_CODE or H < 1:
         return False
-    if H > SCAN_WIDE_MAX_HIDDEN:  # the streamed forward: nothing in it grows with H
-        return True
     if H > SCAN_CLUSTER_MAX_HIDDEN:
-        per_sm = 1 if -(-H // SCAN_WIDE_UNITS[dtype]) <= H100_SMS else 2
-        smem = _wide_smem(H, dtype, SCAN_WIDE_MAX_ROWS)
-        return per_sm * (smem + 1024) <= kernels.SMEM_PER_SM and smem <= kernels.SMEM_PER_BLOCK
+        return all(any(plan_for(1, H, dtype, H100_SMS, rows, units, cluster) is not None
+                       for rows, units in tiles for cluster in TILED_CLUSTERS)
+                   for plan_for, tiles in ((tiled_fwd_plan_for, TILED_FWD_TILES),
+                                           (tiled_plan_for, TILED_TILES)))
     cluster, units = _cluster_units("gru_layer_scan", H)
     return (_fwd_smem(H, dtype, SCAN_FWD_FEW_SLOTS) <= kernels.SMEM_PER_BLOCK
             and _bwd_smem(H, dtype, units, _bwd_rows(H, dtype, units))
@@ -690,14 +772,18 @@ def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     CTA (:func:`_fwd_smem`, mirrors ``FwdLayout`` of csrc/gru_scan.cu).
     ``rows`` is 4 while the grid fits one CTA an SM of the card, else 8
     (the mma's columns); in f32 also 4 where 8 row slots do not fit (H >
-    448). From 513 to 1024 units the wide plan (:func:`_wide_plan`), above
-    the streamed plan (:func:`_stream_plan`). Raises NotImplementedError
-    for what the design cannot hold."""
+    448). Above, every width on the tiled plan (:func:`_tiled_fwd_plan`,
+    ``layout`` ``"tiled"``). Raises NotImplementedError for what the design
+    cannot hold. Each call returns a copy of a plan cached by B, H, dtype
+    and SMs (ranking the tilings takes a call's launch time over again)."""
+    return dict(_scan_fwd_plan(B, H, dtype, sms))
+
+
+@functools.cache
+def _scan_fwd_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     kernels.dtype_code("gru_layer_scan", dtype)
-    if H > SCAN_WIDE_MAX_HIDDEN:
-        return _stream_plan(B, H, dtype, sms)
     if H > SCAN_CLUSTER_MAX_HIDDEN:
-        return _wide_plan(B, H, dtype, sms)
+        return _tiled_fwd_plan(B, H, dtype, sms)
     cluster, units = _cluster_units("gru_layer_scan", H)
     rows = SCAN_FWD_SMALL_ROWS
     if -(-B // rows) * cluster > sms and _fwd_smem(H, dtype, SCAN_FWD_SLOTS) \
@@ -722,7 +808,13 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SM
     tiled plan (:func:`_tiled_plan`, ``layout`` ``"tiled"``). All with the
     dWh product's 64 x 64 tiles, each split over ``dwh_splits`` blocks along
     K = B*T (1 on the tiled plan, whose 243 or more tiles fill the card).
-    Raises NotImplementedError for what the design cannot hold."""
+    Raises NotImplementedError for what the design cannot hold. Cached as
+    :func:`scan_fwd_plan` is."""
+    return dict(_scan_bwd_plan(B, T, H, dtype, sms))
+
+
+@functools.cache
+def _scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     kernels.dtype_code("gru_layer_scan_bwd", dtype)
     dwh_tiles = -(-H // 64) * -(-3 * H // 64)
     if H > SCAN_CLUSTER_MAX_HIDDEN:
@@ -791,12 +883,10 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     code = kernels.DTYPE_CODE[dt]
     outputs = (dx.data_ptr(), dh0.data_ptr(), dWh.data_ptr(), dbh.data_ptr(), hp.data_ptr(),
                dhn.data_ptr(), partial.data_ptr(), counters.data_ptr())
-    if probe is not None and (plan["layout"] != "tiled" or probe.dtype != torch.int64
-                              or probe.numel() < 1 + 4 * T or probe.device != x.device):
-        raise ValueError("gru_layer_scan_bwd: probe takes 1 + 4 * T int64 stamps on the "
-                         "device, on the tiled plan")
+    _check_probe("gru_layer_scan_bwd", plan, probe, T, x.device)
     if plan["layout"] == "tiled":
-        gru_layer_scan_bwd.plan = _co_resident_tiled(plan, code, H, x.device.index)
+        gru_layer_scan_bwd.plan = _co_resident_tiled(
+            "gru_layer_scan_bwd", "vmmt_gru_tiled_bwd_occupancy", plan, code, H, x.device.index)
         args[4] = kernels.aligned(args[4])  # the ring reads Wh's rows in 16-byte pieces
         xch = _exchange(plan, plan["ldx"], dt, x.device)
         wt = _tiled_weights(args[4], plan)

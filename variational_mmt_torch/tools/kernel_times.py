@@ -20,19 +20,24 @@ and power limit.
 
     PYTHONPATH=<tree> python <this file> -wide [BxTxH,...]
 
-times row 2 (the GRU-scan backward, reset-free, bf16) at its wide and
-streamed shapes instead (by default B=256 T=24 H=1024, B=256 T=24 H=2048,
-B=64 T=25 H=2048 and B=64 T=25 H=1000): for each shape the call's time by
-CUDA events (``ms``), the device time of each CUDA kernel of one call under
-``torch.profiler``, grouped by kernel name (``kernels``: the hoisted gate
-product, the reverse scan, the dWh product and the fill of dWh's tile
-counters), their sum (``device_ms``), the wrapper's plan and, on the tiled
-plan, the reverse scan's µs a step by phase (its probe).
+times rows 1 and 2 (the GRU-scan forward and backward, reset-free, bf16)
+above 512 units instead (by default the eleven shapes of ``chip_smoke.py``
+phase 13, B=64 T=25 and B=256 T=24 at H = 520 to 2500): for each shape and
+row the call's time by CUDA events (``ms``), the device time of each CUDA
+kernel of one call under ``torch.profiler``, grouped by kernel name
+(``kernels``; row 2: the hoisted gate product, the reverse scan, the dWh
+product and the fill of dWh's tile counters) with the count of its records
+over 10 calls (``records``), their sum (``device_ms``), the wrapper's plan
+and, on a tiled plan, the scan's µs a step by phase (its
+probe); beside row 1, cuDNN's ``nn.GRU`` forward by kernel on the same
+clock (it also computes the input projection). Then the CUDA kernels that
+the profiler records for one call of rows 5 and 6 at the training shape
+(``decoder``), whose kernels launch through ``cudaLaunchCooperativeKernel``.
 
     PYTHONPATH=<tree> python <this file> -tilings BxTxH[,...]
 
-times every tiling of the tiled plan at those shapes (this tree's plan
-only): the reverse scan's device ms and µs a step by phase beside the
+times every tiling of both passes' tiled plans at those shapes (this tree's
+plans only): each scan's device ms and µs a step by phase beside the
 plan's cost model.
 """
 
@@ -77,7 +82,8 @@ def device_ms(fn, iters: int = 10) -> float:
     return us / iters / 1e3
 
 
-WIDE_SHAPES = "256x24x1024,256x24x2048,64x25x2048,64x25x1000"
+WIDE_SHAPES = ("64x25x520,256x24x520,64x25x1000,256x24x1000,64x25x1024,256x24x1024,"
+               "64x25x1040,64x25x1536,64x25x2048,256x24x2048,64x25x2500")
 
 
 def kernel_name(name: str) -> str:
@@ -93,9 +99,12 @@ def kernel_name(name: str) -> str:
     return name.strip()
 
 
-def kernels_ms(fn, iters: int = 10) -> dict:
+def kernels_ms(fn, iters: int = 10, records: dict = None) -> dict:
     """Device ms of one call of ``fn`` by CUDA kernel name (memsets and
-    fills included), over ``iters`` calls under the profiler."""
+    fills included), over ``iters`` calls under the profiler; with
+    ``records``, the count of each kernel's records goes there (the
+    profiler has been seen to drop every record of some calls, which shows
+    as fewer records than launches)."""
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -107,6 +116,8 @@ def kernels_ms(fn, iters: int = 10) -> dict:
         if e.device_type == DeviceType.CUDA:
             key = kernel_name(e.name)
             out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / iters / 1e3
+            if records is not None:
+                records[key] = records.get(key, 0) + 1
     return out
 
 
@@ -127,51 +138,82 @@ def phases_us(args, T: int) -> dict:
     barrier, the product and the sums of the partial products."""
     probe = torch.zeros(1 + 4 * T, dtype=torch.int64, device="cuda")
     gru_scan.gru_layer_scan_bwd(*args, probe=probe)
+    return step_phases(probe, T, ("gate", "barrier", "product", "sums"))
+
+
+def fwd_phases_us(args, T: int) -> dict:
+    """µs a step of the tiled forward by phase, from its probe (CTA 0 of one
+    call): the product, the sums of the partial products, the gates and
+    the grid barrier."""
+    probe = torch.zeros(1 + 4 * T, dtype=torch.int64, device="cuda")
+    gru_scan.gru_layer_scan(*args, probe=probe)
+    return step_phases(probe, T, ("product", "sums", "gates", "barrier"))
+
+
+def step_phases(probe, T: int, names) -> dict:
+    """Mean µs a step of each of a probe's four phases."""
+    torch.cuda.synchronize()
     stamps = probe.tolist()
     steps = [[(stamps[1 + 4 * s + k] - stamps[4 * s + k]) / 1e3 for k in range(4)]
              for s in range(T)]
-    return {name: sum(st[k] for st in steps) / T
-            for k, name in enumerate(("gate", "barrier", "product", "sums"))}
+    return {name: sum(st[k] for st in steps) / T for k, name in enumerate(names)}
+
+
+def timed(fn, plan_of, phases, args, T: int) -> dict:
+    """One row's call: CUDA-event ms, device ms by kernel, the plan and, on a
+    tiled plan, µs a step by phase."""
+    records = {}
+    by_kernel = kernels_ms(fn, records=records)
+    rec = {"ms": event_ms(fn, iters=10, warmup=2), "device_ms": sum(by_kernel.values()),
+           "kernels": by_kernel, "records": records, "plan": plan_of()}
+    if rec["plan"].get("layout") == "tiled":
+        rec["us_a_step"] = phases(args, T)
+    return rec
 
 
 def wide_times(shapes: str, r, g) -> dict:
-    """Row 2 at each ``BxTxH`` shape in bf16: the call by CUDA events, the
-    device ms of each of its CUDA kernels and, on the tiled plan, the scan's
-    µs a step by phase."""
+    """Rows 1 and 2 at each ``BxTxH`` shape in bf16: each call by CUDA
+    events, the device ms of each of its CUDA kernels and, on a tiled plan,
+    the scan's µs a step by phase; cuDNN's nn.GRU forward by kernel."""
     out = {}
     for shape in shapes.split(","):
         (B, T, H), args = scan_bwd_args(shape, r, g)
-        call = lambda a=args: gru_scan.gru_layer_scan_bwd(*a)  # noqa: E731
-        by_kernel = kernels_ms(call)
-        rec = {"ms": event_ms(call, iters=10, warmup=2), "device_ms": sum(by_kernel.values()),
-               "kernels": by_kernel, "plan": gru_scan.gru_layer_scan_bwd.plan}
-        if rec["plan"].get("layout") == "tiled":
-            rec["us_a_step"] = phases_us(args, T)
+        fargs = args[:5] + (True,)
+        rec = {"fwd": timed(lambda a=fargs: gru_scan.gru_layer_scan(*a),
+                            lambda: gru_scan.gru_layer_scan.plan, fwd_phases_us, fargs, T),
+               "bwd": timed(lambda a=args: gru_scan.gru_layer_scan_bwd(*a),
+                            lambda: gru_scan.gru_layer_scan_bwd.plan, phases_us, args, T)}
+        gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
+        xin = r(B, T, 2 * H).to(torch.bfloat16)
+        with torch.no_grad():
+            cudnn = kernels_ms(lambda: gru(xin))
+        rec["fwd"]["cudnn_kernels"], rec["fwd"]["cudnn_device_ms"] = cudnn, sum(cudnn.values())
         out[f"B={B} T={T} H={H}"] = rec
     return out
 
 
 def tilings(shapes: str, r, g) -> dict:
-    """Every tiling of the tiled plan (``gru_scan.TILED_TILES`` x
-    ``TILED_CLUSTERS``, Wh's rows resident where they fit and not) at each
-    ``BxTxH`` shape in bf16: the reverse scan's device ms and its µs a step
-    by phase, beside what ``_tiled_cost`` predicts, the plan's own choice
-    marked. What the plan's TILED_* constants were fitted to."""
+    """Every tiling of both tiled plans (``gru_scan.TILED_TILES`` or
+    ``TILED_FWD_TILES`` x ``TILED_CLUSTERS``, Wh resident where it fits and
+    not) at each ``BxTxH`` shape in bf16: each scan's device ms and its µs a
+    step by phase, beside what the plan's cost model predicts, the plan's
+    own choice marked. What the plans' constants were fitted to."""
     out = {}
-    planner = gru_scan.scan_bwd_plan
+    bf16 = torch.bfloat16
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planners = (gru_scan.scan_fwd_plan, gru_scan.scan_bwd_plan)
     try:
         for shape in shapes.split(","):
             (B, T, H), args = scan_bwd_args(shape, r, g)
-            chosen = planner(B, T, H, torch.bfloat16, sms)
+            fargs = args[:5] + (True,)
+            chosen = planners[1](B, T, H, bf16, sms)
             rows = []
             for tile_rows, units in gru_scan.TILED_TILES:
                 for cluster in gru_scan.TILED_CLUSTERS:
-                    plan = gru_scan.tiled_plan_for(B, H, torch.bfloat16, sms, tile_rows, units,
-                                                   cluster)
+                    plan = gru_scan.tiled_plan_for(B, H, bf16, sms, tile_rows, units, cluster)
                     if plan is None:
                         continue
-                    kc_own = gru_scan.tiled_kc_own(H, torch.bfloat16, cluster)
+                    kc_own = gru_scan.tiled_kc_own(H, bf16, cluster)
                     for resident in sorted({plan["resident"], False}, reverse=True):
                         p = dict(plan, resident=resident, dwh_tiles=chosen["dwh_tiles"],
                                  dwh_splits=chosen["dwh_splits"],
@@ -182,23 +224,63 @@ def tilings(shapes: str, r, g) -> dict:
                             *args)).items() if "tiled" in n)
                         rows.append({"tile": [tile_rows, units, cluster], "resident": resident,
                                      "grid": p["grid"], "chunks": p["chunks"], "scan_ms": scan,
-                                     "model_ms": gru_scan._tiled_cost(B, H, torch.bfloat16, p)
+                                     "model_ms": gru_scan._tiled_cost(B, H, bf16, p)
                                      * T * 1e3, "us_a_step": phases_us(args, T),
                                      "chosen": all(p[k] == chosen[k] for k in (
                                          "rows", "units", "cluster", "resident"))})
-            out[f"B={B} T={T} H={H}"] = rows
+            gru_scan.scan_bwd_plan = planners[1]
+            chosen = planners[0](B, T, H, bf16, sms)
+            fwd = []
+            for tile_rows, units in gru_scan.TILED_FWD_TILES:
+                for cluster in gru_scan.TILED_CLUSTERS:
+                    for ring in gru_scan.TILED_FWD_RINGS:  # every ring that fits
+                        p = gru_scan.tiled_fwd_plan_for(B, H, bf16, sms, tile_rows, units,
+                                                        cluster, (ring,))
+                        if p is None:
+                            continue
+                        resident, stages = ring
+                        gru_scan.scan_fwd_plan = lambda *a, _p=p, **k: dict(_p)
+                        scan = sum(v for n, v in kernels_ms(lambda: gru_scan.gru_layer_scan(
+                            *fargs)).items() if "tiled" in n)
+                        fwd.append({"tile": [tile_rows, units, cluster], "resident": resident,
+                                    "stages": stages, "grid": p["grid"], "chunks": p["chunks"],
+                                    "scan_ms": scan, "model_ms": gru_scan._tiled_fwd_cost(
+                                        B, H, bf16, p) * T * 1e3,
+                                    "us_a_step": fwd_phases_us(fargs, T),
+                                    "chosen": all(p[k] == chosen[k] for k in (
+                                        "rows", "units", "cluster", "resident", "stages"))})
+            gru_scan.scan_fwd_plan = planners[0]
+            out[f"B={B} T={T} H={H}"] = {"bwd": rows, "fwd": fwd}
     finally:
-        gru_scan.scan_bwd_plan = planner
+        gru_scan.scan_fwd_plan, gru_scan.scan_bwd_plan = planners
     return out
+
+
+def decoder_calls(r, g, bf) -> dict:
+    """Rows 5 and 6 at the training shape (B=64, T=25, S=24, H=500, memory
+    std 0.1), ``bf``: {name: a call}."""
+    B, T, S, H = 64, 25, 24, 500
+    w = lambda *s: (r(*s) / math.sqrt(H)).to(bf)  # noqa: E731
+    dmid = ((torch.rand(B, T, H, generator=g, device="cuda") > 0.3).float() / 0.7).to(bf)
+    lengths = torch.randint(8, S + 1, (B,), generator=g, device="cuda")
+    mask_bias = (torch.arange(S, device="cuda")[None] >= lengths[:, None]).float() * -1e9
+    seq = (r(B, T, 3 * H).to(bf), dmid, torch.tanh(r(B, H)), torch.tanh(r(B, H)),
+           w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H),
+           w(H, 3 * H), 0.1 * r(3 * H), (0.1 * r(B, S, H)).to(bf), (0.1 * r(B, S, H)).to(bf),
+           w(H, H))
+    streams = dec.decoder_fwd_ref(*seq, mask_bias)
+    grads = (r(B, T, H), r(B, T, S))
+    return {"decoder_fwd": lambda: dec.decoder_fwd(*seq, mask_bias),
+            "decoder_bwd": lambda: dec.decoder_bwd(*seq, *streams, *grads)}
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser("kernel_times")
     p.add_argument("-dtype", default="bfloat16", choices=["bfloat16", "float16", "float32"])
     p.add_argument("-wide", nargs="?", const=WIDE_SHAPES, default=None,
-                   help="time row 2 at these BxTxH shapes (bf16) instead")
+                   help="time rows 1 and 2 at these BxTxH shapes (bf16) instead")
     p.add_argument("-tilings", default=None,
-                   help="time every tiling of row 2's tiled plan at these BxTxH shapes")
+                   help="time every tiling of both tiled plans at these BxTxH shapes")
     opt = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
@@ -207,7 +289,10 @@ def main(argv=None) -> None:
     g = torch.Generator(device="cuda").manual_seed(5)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
     if opt.wide is not None:
-        print(json.dumps({"wide_times": wide_times(opt.wide, r, g), "card": card}, default=str))
+        decoder = {name: {"ms": event_ms(fn, iters=10, warmup=2), "kernels": kernels_ms(fn)}
+                   for name, fn in decoder_calls(r, g, torch.bfloat16).items()}
+        print(json.dumps({"wide_times": wide_times(opt.wide, r, g), "decoder": decoder,
+                          "card": card}, default=str))
         return
     if opt.tilings is not None:
         print(json.dumps({"tilings": tilings(opt.tilings, r, g), "card": card}))
@@ -235,18 +320,7 @@ def main(argv=None) -> None:
     attn = ((0.5 * r(N, S, H)).to(bf), (0.5 * r(N, S, H)).to(bf), w(H, H), mask_bias)
     calls["decode_step"] = lambda: ds.decode_step(*chain, *attn)
     calls["gru_chain"] = lambda: ds.gru_chain(*chain)
-    B, T = 64, 25
-    dmid = ((torch.rand(B, T, H, generator=g, device="cuda") > 0.3).float() / 0.7).to(bf)
-    lengths = torch.randint(8, S + 1, (B,), generator=g, device="cuda")
-    mask_bias = (torch.arange(S, device="cuda")[None] >= lengths[:, None]).float() * -1e9
-    seq = (r(B, T, 3 * H).to(bf), dmid, torch.tanh(r(B, H)), torch.tanh(r(B, H)),
-           w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H),
-           w(H, 3 * H), 0.1 * r(3 * H), (0.1 * r(B, S, H)).to(bf), (0.1 * r(B, S, H)).to(bf),
-           w(H, H))
-    streams = dec.decoder_fwd_ref(*seq, mask_bias)
-    grads = (r(B, T, H), r(B, T, S))
-    calls["decoder_fwd"] = lambda: dec.decoder_fwd(*seq, mask_bias)
-    calls["decoder_bwd"] = lambda: dec.decoder_bwd(*seq, *streams, *grads)
+    calls.update(decoder_calls(r, g, bf))
     out = {name: {"ms": event_ms(fn), "device_ms": device_ms(fn)} for name, fn in calls.items()}
     print(json.dumps({"kernel_times": out, "dtype": opt.dtype, "card": card}))
 

@@ -1,6 +1,7 @@
 """Where the time of a training step goes on the card.
 
     python -m variational_mmt_torch.tools.profile_train [--out DIR] [--steps N]
+                                                       [--fast H]
 
 Builds the training cells of ``chip_smoke.py`` (``tools/flagship.py``:
 vmmt_c at full width with random weights from numpy seed 0, bf16,
@@ -8,8 +9,11 @@ use_pallas, fused_ce; 4 fixed batches of 64 sentence pairs from numpy
 seed 1, and 4 packed batches of 64 rows of 64 tokens), then for
 ``pallas_decoder`` 1 and 0 and for the packed cell (``train.pack``) warms
 up with 3 Trainer steps and takes N more (default 3) under
-``torch.profiler``.
-Prints, per setting, the host wall time per step, the device's busy time
+``torch.profiler``. With ``--fast H``, one cell instead: the fast config
+(``input_feed`` off, ``use_pallas``, ``pallas_decoder`` off) at hidden
+width H, random weights from numpy seed 0, on the same batches.
+Prints, per setting, the host wall time per step (also of N steps before,
+without the profiler), the device's busy time
 and idle share, and the device time by layer (GRU-scan kernels, decoder
 sequence kernels, cuBLAS GEMMs, softmax, reductions, the rest) and by
 kernel; the per-kernel tables also go to DIR (default build/profile).
@@ -29,13 +33,16 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from variational_mmt_torch.models.model import build_model
+from variational_mmt_torch.convert import params_from_jax
+from variational_mmt_torch.models.model import build_model, init_params
 from variational_mmt_torch.tools import flagship
 from variational_mmt_torch.train.trainer import Trainer
 
 OWN = "(anonymous namespace)::"  # the port's kernels live in anonymous namespaces
 LAYERS = (  # (layer, names of the port's kernels or substrings of library ones)
     ("GRU-scan kernels (rows 1, 2)", ("gru_scan_fwd_kernel", "gru_scan_bwd_kernel",
+                                      "gru_tiled_fwd_kernel", "gru_tiled_bwd_kernel",
+                                      "gru_wide_fwd_kernel",  # an older tree's wide forward
                                       "ScanHoist", "ScanDWh")),
     ("decoder sequence kernels (rows 5, 6)", ("decoder_fwd_kernel", "DecHoist",
                                               "decoder_bwd_kernel")),
@@ -81,6 +88,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--fast", type=int, default=None, metavar="H",
+                    help="time the fast config at hidden width H instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA card")
@@ -95,12 +104,23 @@ def main() -> None:
               dataclasses.replace(cfg, model=dataclasses.replace(m, pallas_decoder=p)),
               flagship.train_batches(m)) for p in (True, False)]
     cells.append(("packed", packed, flagship.packed_batches(m)))
+    if args.fast is not None:
+        fast = dataclasses.replace(m, hidden_dim=args.fast, input_feed=False, use_pallas=True,
+                                   pallas_decoder=False)
+        state = params_from_jax(init_params(fast, seed=0), fast)
+        cells = [(f"fast hidden_dim={args.fast}", dataclasses.replace(cfg, model=fast),
+                  flagship.train_batches(fast))]
 
     for cell, c, batches in cells:
         model = build_model(c.model, device="cuda")
         model.load_state_dict(state)
         trainer = Trainer(c, model, batches, device="cuda")
         trainer.train(3)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train(args.steps)
+        torch.cuda.synchronize()
+        untraced_us = (time.perf_counter() - t0) * 1e6
         wall_us, by_kernel = profiled(lambda: trainer.train(args.steps))
         busy = sum(t for t, _ in by_kernel.values())
         by_layer = defaultdict(float)
@@ -108,7 +128,8 @@ def main() -> None:
             by_layer[layer_of(name)] += t
         n = args.steps
         print(f"\n{cell}: {n} steps of batch 64, wall "
-              f"{wall_us / 1e3 / n:.2f} ms/step, device busy {busy / 1e3 / n:.2f} ms/step, "
+              f"{wall_us / 1e3 / n:.2f} ms/step ({untraced_us / 1e3 / n:.2f} without the "
+              f"profiler), device busy {busy / 1e3 / n:.2f} ms/step, "
               f"idle share {1 - busy / wall_us:.3f} ({card})")
         for layer, t in sorted(by_layer.items(), key=lambda kv: -kv[1]):
             print(f"  {layer:38s} {t / 1e3 / n:9.3f} ms/step  {t / busy:6.1%} of device time")
