@@ -51,6 +51,19 @@ in PERF.md).
    kernel, plain version and, for the scan backward, cuDNN's nn.GRU
    backward (which also computes the input-projection gradients that the
    port leaves to cuBLAS).
+   Row 2's hoisted products on the wgmma engine (bf16 and float16; f32
+   keeps tile_gemm.cuh): ``scan_bwd_products`` (the operand pass of
+   csrc/gru_scan.cu and the two products of csrc/wgmma_gemm.cuh) against
+   ``scan_bwd_products_ref`` at the training shape, in bf16 and float16,
+   both directions, with and without a reset stream, within 1e-4 of each
+   output's largest entry (the same rounded operands summed in another
+   order), bit-identical in two launches; bf16 times on the device's clock
+   of the operand pass and of the products (with their TFLOP/s), their
+   plain versions by CUDA events, cuBLAS's two bf16 products on the
+   device's clock (a yardstick; no single PyTorch call computes them) and
+   the bounds. The ``kernels`` line lists both as kernels of row 2
+   (``scan_bwd_operands``, ``wgmma_gemm``), with their launches on every
+   path (two of each a bf16 backward call; required on phases 5 and 7).
    Kernel phases, the reset stream (sequence packing): both GRU-scan
    kernels with a reset stream at the packed path's shape (B=64, T=64,
    H=250; resets at every row's t=0, at 2-3 more segment starts a row and on
@@ -224,14 +237,23 @@ in PERF.md).
     10 calls a turn) and on the device's clock, beside cuDNN's nn.GRU
     forward and backward at the same shape (on the device's clock too) and
     the bound, and the tiled forward's µs a step by phase (its probe:
-    product, sums, gates, grid barrier). The device clocks of rows 1 and 2
+    product, sums, gates, grid barrier); row 2's products checked as in
+    phase 3 at each shape, row 2's engine required (tile_gemm.cuh in f32,
+    wgmma in bf16) and its device time split into the reverse scan, the
+    operand pass and the products (in the fresh process below). The device clocks of rows 1 and 2
     at these shapes are read in a fresh process (``python3 chip_smoke.py
     --wide-device OUT``, started by the phase), since in this long process
     ``torch.profiler`` records almost none of the scans' cooperative
-    launches; cuDNN's in both processes. Rows 1 and 2 at
+    launches (nor, late in this process, every record of the products';
+    the process reads row 2 at H = 512 too, and a time of the split is
+    "not measured" unless the profiler kept the record of every launch of
+    its kernels there); cuDNN's in both processes.
+    Rows 1 and 2 at
     H = 512 (16-CTA clusters; B = 64, T = 24 in f32 and bf16, B = 256 in
     bf16) and H = 300 (B = 64, both dtypes) the same way, bf16 times beside
-    cuDNN's nn.GRU and the bound; rows 3-6 at H = 250 (padded to 252 by the
+    cuDNN's nn.GRU and the bound and, at H = 512, row 2's products checked
+    as in phase 3 and its device time split by part (in the fresh
+    process); rows 3-6 at H = 250 (padded to 252 by the
     wrappers): phase 3's step checks at N = 128 and 32 (S = 24) and its
     decoder checks at B = 64, T = 25, S = 24. Then the entry points at
     these widths from phase 10's corpus, 10 steps of ``cli.train`` each:
@@ -241,7 +263,8 @@ in PERF.md).
     250`` (rows 1, 2, 5 and 6 at 252), ``-rnn_size 2048`` (encoder halves
     of 1024 units on the tiled plans; rows 5 and 6 on the streamed plan,
     which the last plans must be), each requiring rows 1, 2, 5 and 6
-    launched, and the fast config
+    launched (and row 2's operand pass and products twice for each of its
+    calls), and the fast config
     ``-input_feed 0 -use_pallas 1`` at ``-rnn_size 1000`` and ``2048`` (the
     decoder's two layers at 1000 and 2048 units on the tiled plans): finite
     losses, rows 1 and 2 launched, a scan of 1024
@@ -558,6 +581,8 @@ WIDTH_CLI_STEPS = 10  # train CLI steps at each -rnn_size of phase 13
 WIDE_SCANS = ((64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (64, 25, 1024),
               (256, 24, 1024), (64, 25, 1040), (64, 25, 1536), (64, 25, 2048), (256, 24, 2048),
               (64, 25, 2500))
+# row 2 at H = 512 (16-CTA clusters) split by kernel in phase 13's fresh child
+SPLIT_SCANS = tuple((B, T, H) for B, T, H, _ in WIDTH_SCANS if H == 512)
 WIDE_ITERS = 10  # CUDA-event calls a turn of the wide scans' bf16 times
 WIDE_DEVICE_TIMEOUT_S = 180  # phase 13's fresh process timing rows 1 and 2 on the device
 FAST_WIDTHS = (1000, 2048)  # the fast config's f32 checks: tiled decoder layers
@@ -610,6 +635,19 @@ F16_ITERS = 10  # CUDA-event calls a turn of phase 21's bf16 and float16 kernel 
 F16_SERVE_SENT = 256  # phase 21 (b): one request of 256 sentences
 F16_TIMED_RUNS, F16_TIMED_STEPS = 2, 12  # phase 21 (c): whole passes over the 4 batches
 F16_CLI_STEPS = 10  # phase 21 (d)
+# row 2's hoisted products on the wgmma engine against their plain version:
+# the same rounded operands summed in f32 in another order, max |kernel -
+# plain| / max |plain| per output
+PRODUCT_TOL = 1e-4
+PRODUCT_ITERS = 10  # calls under the profiler for the products' device times
+# the kernels inside row 2's call on the wgmma engine: (counter, CUDA
+# source, the Pallas call whose products they form)
+PRODUCT_ROWS = (
+    ("scan_bwd_operands", "variational_mmt_torch/csrc/gru_scan.cu",
+     "variational_mmt_tpu/ops/pallas/gru.py:297"),
+    ("wgmma_gemm", "variational_mmt_torch/csrc/wgmma_gemm.cuh",
+     "variational_mmt_tpu/ops/pallas/gru.py:297"),
+)
 # the six kernels: (wrapper, CUDA source, the Pallas call it replaces)
 KERNEL_ROWS = (
     ("gru_layer_scan", "variational_mmt_torch/csrc/gru_scan.cu",
@@ -945,6 +983,139 @@ def scan_bwd_phase(gru_scan, shape):
           f"{rec['plain_ms']:.3f} ms, nn.GRU backward {fmt_ms(rec['library_ms'])} on the "
           f"device's clock (eager, host-bound: {rec['library_eager_ms']:.4f} ms), bound "
           f"{rec['bound_ms']:.4f} ms")
+    return rec
+
+
+def products_checks(gru_scan, g, rng, B: int, T: int, H: int) -> Tuple[dict, tuple]:
+    """Row 2's hoisted products on the wgmma engine (``scan_bwd_products``:
+    the operand pass and ``wgmma_gemm.cuh``'s two products) against their
+    plain version at (B, T, H), bf16 and float16, both directions, with and
+    without a reset stream, max rel err within PRODUCT_TOL; bit-identical
+    repeats. Returns (record, the bf16 call's arguments)."""
+    at = f"B={B} T={T} H={H}"
+    rec = {}
+    for dt_name in ("bfloat16", "float16"):
+        ins, _, reset = reset_inputs(g, rng, getattr(torch, dt_name), B, T, H, 8)
+        x, mask, h0, wh, bh = ins
+        rel, op_abs, gemm_abs = [], [], []
+        for reverse, rs in ((False, None), (True, reset)):
+            outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, reverse, rs)
+            args = (h0, outs, wh, bh, torch.randn(B, T, 3 * H, generator=g, device="cuda"),
+                    torch.randn(B, T, H, generator=g, device="cuda"), reverse, rs)
+            got = gru_scan.scan_bwd_products(*args)
+            want = gru_scan.scan_bwd_products_ref(*args)
+            torch.cuda.synchronize()
+            rel.append(rel_err(got, want))
+            gemm_abs.append(max_err(got[:2], want[:2]))
+            op_abs.append(max_err(got[2:], want[2:]))
+        rec[f"err_{dt_name}"] = max(rel)
+        rec[f"gemm_abs_err_{dt_name}"] = max(gemm_abs)
+        rec[f"operand_abs_err_{dt_name}"] = max(op_abs)
+        ok = math.isfinite(max(rel)) and max(rel) <= PRODUCT_TOL
+        print(f"  scan_bwd_products {at} {dt_name}: max_rel_err {max(rel):.3e} (tolerance "
+              f"{PRODUCT_TOL:.0e}; hp and dWh abs {max(gemm_abs):.3e}, dbh abs "
+              f"{max(op_abs):.3e}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"row 2's wgmma products disagree with their plain version at {at} in {dt_name}")
+        if dt_name == "bfloat16":
+            bf16_args = args
+    deterministic(f"scan_bwd_products {at}", lambda: gru_scan.scan_bwd_products(*args),
+                  "float16")
+    rec["plan"] = gru_scan.scan_bwd_products.plan
+    if rec["plan"]["engine"] != "wgmma":
+        fail(f"scan_bwd_products {at}: engine {rec['plan']['engine']}")
+    return rec, bf16_args
+
+
+def products_bounds(B: int, T: int, H: int, wh_copy: bool):
+    """Bounds of the operand pass (bytes: outs, h0 and reset in, Hs out;
+    dx's first 2H columns and dhn in, dP and dbh out; with ``wh_copy`` Wh's
+    copy, which the cluster plan and ``scan_bwd_products`` make where 3H
+    values are not whole 16-byte pieces) and of the two products (Hs, Wh
+    and dP in once, hp and dWh out; 12 B T H^2 FLOPs) in bf16."""
+    b, M, N = 2, B * T, 3 * H
+    ld_h, ld_3h = -(-H // 8) * 8, -(-N // 8) * 8
+    copy = H * N * b + H * ld_3h * b if wh_copy else 0
+    operand_bytes = (M * H * 4 + B * H * 4 + M * 4 + M * ld_h * b + copy
+                     + M * N * 4 + M * ld_3h * b + N * 4)
+    gemm_bytes = M * H * b + H * N * b + M * N * b + N * 4 + M * N * 4 + H * N * 4
+    return (bound(operand_bytes, 0.0, "bfloat16"),
+            bound(gemm_bytes, 12.0 * M * H * H, "bfloat16"))
+
+
+def products_times(gru_scan, args, B: int, T: int, H: int, card: str) -> dict:
+    """bf16 times of row 2's products on ``args`` (phase 3: in this process
+    the profiler keeps them; later it drops records, and phase 13 reads
+    them in its fresh child, ``products_device``): the operand pass's two
+    kernels and the two wgmma products on the device's clock, their plain
+    versions (the operand pass's roundings; the two f32 products) by CUDA
+    events, cuBLAS's two bf16 products on the device's clock (a yardstick:
+    bf16 outputs, no rounding pass), the bounds and the products'
+    TFLOP/s."""
+    from variational_mmt_torch.tools.kernel_times import kernel_name, row2_split
+
+    for _ in range(3):  # the profiler has been seen to drop records (PERF.md §6)
+        _, calls, ms, records = launch_ms(lambda: gru_scan.scan_bwd_products(*args),
+                                          PRODUCT_ITERS, "wgmma_gemm_kernel")
+        by_kernel = {kernel_name(k): v for k, v in ms.items()}
+        split = row2_split(by_kernel, B, T, H)
+        if products_kept(records, PRODUCT_ITERS):
+            break
+    else:
+        fail(f"torch.profiler kept {calls} of the {2 * PRODUCT_ITERS} records of row 2's "
+             f"products at B={B} T={T} H={H} in three tries: {sorted(by_kernel)}")
+    op_ms, gemm_ms = split["operand_pass_ms"], split["gemm_ms"]
+    h0, outs, wh, bh, dx, dhn, reverse, reset = args
+    hs, dp, _ = gru_scan.scan_bwd_operands_ref(h0, outs, wh.dtype, dx, dhn, reverse, reset)
+    plain_op = cuda_ms(lambda: gru_scan.scan_bwd_operands_ref(h0, outs, wh.dtype, dx, dhn,
+                                                              reverse, reset), iters=5)
+    plain_gemm = cuda_ms(lambda: (hs.float() @ wh.float() + bh, hs.float().t() @ dp.float()),
+                         iters=5)
+    bh16 = bh.to(wh.dtype)
+    cublas = device_ms(lambda: (torch.addmm(bh16, hs, wh), hs.t() @ dp), iters=PRODUCT_ITERS)
+    (op_bound, op_by), (gemm_bound, gemm_by) = products_bounds(
+        B, T, H, gru_scan.scan_bwd_products.plan["wh_copy"])
+    rec = {"operands": {"ms": op_ms, "plain_ms": plain_op, "bound_ms": op_bound,
+                        "bound_by": op_by, "library_ms": None},
+           "gemm": {"ms": gemm_ms, "plain_ms": plain_gemm, "bound_ms": gemm_bound,
+                    "bound_by": gemm_by, "library_ms": None, "cublas_ms": cublas,
+                    "tflops": split["gemm_tflops"]},
+           "kernels": by_kernel}
+    print(f"  row 2's products B={B} T={T} H={H} bfloat16 on the device's clock: operand pass "
+          f"{op_ms:.4f} ms (plain {plain_op:.4f}, bound {op_bound:.4f}, {op_by}), wgmma products "
+          f"{gemm_ms:.4f} ms, {rec['gemm']['tflops'] or 0:.0f} TFLOP/s (plain {plain_gemm:.4f}, "
+          f"cuBLAS's two bf16 products {fmt_ms(cublas)}, bound {gemm_bound:.4f}, {gemm_by}; "
+          f"{card})")
+    return rec
+
+
+def products_device(rec: dict, split: dict, plan: dict, B: int, T: int, H: int,
+                    card: str) -> dict:
+    """``rec`` (``products_checks``) with the operand pass and products of
+    row 2's call (its bf16 ``plan``) on the device's clock in phase 13's
+    fresh child (``split``, its ``row2_split``), the products' TFLOP/s and
+    the bounds; printed."""
+    (op_bound, op_by), (gemm_bound, gemm_by) = products_bounds(B, T, H, plan["wh_copy"])
+    rec.update(operand_pass_ms=split["operand_pass_ms"], gemm_ms=split["gemm_ms"],
+               tflops=split["gemm_tflops"], operand_bound_ms=op_bound, gemm_bound_ms=gemm_bound,
+               gemm_bound_by=gemm_by)
+    tflops = split["gemm_tflops"]
+    print(f"  row 2's products B={B} T={T} H={H} bfloat16 on the device's clock in a fresh "
+          f"process: operand pass {fmt_ms(split['operand_pass_ms'])} (bound {op_bound:.4f}, "
+          f"{op_by}), wgmma products {fmt_ms(split['gemm_ms'])}, "
+          f"{'not measured' if tflops is None else f'{tflops:.0f}'} TFLOP/s (bound "
+          f"{gemm_bound:.4f}, {gemm_by}); the reverse scan {fmt_ms(split['scan_ms'])} ({card})")
+    return rec
+
+
+def products_phase(gru_scan, shape, card: str) -> dict:
+    """Row 2's products at ``shape`` (B, T, H): checks, then bf16 times."""
+    B, T, H = shape["B"], shape["T"], shape["H"]
+    g = torch.Generator(device="cuda").manual_seed(6)
+    rng = np.random.default_rng(6)
+    rec, args = products_checks(gru_scan, g, rng, B, T, H)
+    print_plan(f"scan_bwd_products B={B} T={T} H={H}", rec["plan"])
+    rec.update(products_times(gru_scan, args, B, T, H, card))
     return rec
 
 
@@ -1404,8 +1575,10 @@ def train_phase(card: str, cfg, state):
     batches = train_batches(cfg)
     print(f"train: {len(batches)} batches of {TRAIN_BATCH} pairs, "
           f"{sum(b.n_tokens for b in batches)} target tokens, lengths 8-24, seed 1")
+    # row 2's products run on the wgmma engine in bf16: its operand pass and
+    # product must run too
     counters = (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd, dec.decoder_fwd,
-                dec.decoder_bwd)
+                dec.decoder_bwd, gru_scan.scan_bwd_operands, gru_scan.wgmma_gemm)
     trainers = {p: trainer_for(cfg, state, batches, pallas_decoder=p) for p in (True, False)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1502,7 +1675,8 @@ def packed_train_phase(card: str, cfg, state, unpacked: dict):
                                                            pack_segments=PACK_K))
     trainer = trainer_for(c, state, batches)
     scans = (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd)
-    counters = scans + (dec.decoder_fwd, dec.decoder_bwd)
+    products = (gru_scan.scan_bwd_operands, gru_scan.wgmma_gemm)
+    counters = scans + (dec.decoder_fwd, dec.decoder_bwd) + products
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters:
@@ -1519,6 +1693,10 @@ def packed_train_phase(card: str, cfg, state, unpacked: dict):
         if n != 6 * PACKED_STEPS or launches[name] != n:
             fail(f"{name}: {n} launches with a reset stream of {launches[name]}, expected "
                  f"6 a step, all with reset")
+    for fn in products:  # two of each a backward call on the wgmma engine
+        if launches[fn.__name__] != 2 * launches["gru_layer_scan_bwd"]:
+            fail(f"{fn.__name__}: {launches[fn.__name__]} launches on the packed path, expected "
+                 f"two for each of row 2's {launches['gru_layer_scan_bwd']}")
     losses = [h["loss"] for h in hist]
     print("train_packed: losses " + " ".join(f"{v:.3f}" for v in losses))
     if not all(math.isfinite(v) for v in losses):
@@ -1681,7 +1859,8 @@ def families_phase(card: str):
     dec_img = feats[n_pairs:]
     counters = {fn.__name__: fn for fn in (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd,
                                            ds.decode_step, ds.gru_chain, dec.decoder_fwd,
-                                           dec.decoder_bwd)}
+                                           dec.decoder_bwd, gru_scan.scan_bwd_operands,
+                                           gru_scan.wgmma_gemm)}
 
     def run(fn):
         """Launches of each kernel while ``fn`` runs, and its result."""
@@ -2488,12 +2667,14 @@ def serve_phase(card: str, root: str):
 
 
 def kernel_counters():
-    """{name: wrapper} of the six kernels' launch counters."""
+    """{name: wrapper} of the six kernels' launch counters, and of the two
+    kernels of row 2's products on the wgmma engine."""
     from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
 
     return {fn.__name__: fn for fn in (gru_scan.gru_layer_scan, gru_scan.gru_layer_scan_bwd,
                                        ds.decode_step, ds.gru_chain, dec.decoder_fwd,
-                                       dec.decoder_bwd)}
+                                       dec.decoder_bwd, gru_scan.scan_bwd_operands,
+                                       gru_scan.wgmma_gemm)}
 
 
 def counted_run(fn):
@@ -2667,6 +2848,14 @@ def fwd_phases(gru_scan, name: str, args, T: int) -> dict:
     return us
 
 
+def require_engine(name: str, dt_name: str, plan: dict) -> None:
+    """Row 2's products on the engine the plan picks: tile_gemm.cuh in f32,
+    the wgmma engine in bf16 and float16."""
+    want = "tile" if dt_name == "float32" else "wgmma"
+    if plan["engine"] != want:
+        fail(f"{name} {dt_name}: row 2's products on the {plan['engine']} engine, not {want}")
+
+
 def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str,
                      fresh: dict) -> dict:
     """Rows 1 and 2 above 512 units at (B, T, H), both on their tiled
@@ -2693,6 +2882,7 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str,
         for plan, want in ((r[f"plan_{dt_name}"], layout), (r[f"bwd_plan_{dt_name}"], "tiled")):
             if plan["layout"] != want:
                 fail(f"gru_scan {at} {dt_name}: the {plan['layout']} plan, not the {want} one")
+        require_engine(f"gru_scan_bwd {at}", dt_name, r[f"bwd_plan_{dt_name}"])
         print_plan(f"gru_scan {at} {dt_name}", r[f"plan_{dt_name}"])
         print_plan(f"gru_scan_bwd {at} {dt_name}", r[f"bwd_plan_{dt_name}"])
         if dt_name == "bfloat16":
@@ -2720,6 +2910,9 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str,
     r["bwd"]["library_ms"], r["bwd"]["library_eager_ms"] = cudnn_bwd_ms(g, B, T, H)
     r["fwd"]["us_a_step"] = fwd_phases(gru_scan, f"gru_scan {at} bfloat16",
                                        (x, mask, h0, wh, bh, True), T)
+    r["bwd"]["split"] = fresh["bwd_split"]
+    r["products"] = products_device(products_checks(gru_scan, g, rng, B, T, H)[0],
+                                    fresh["bwd_split"], r["bwd_plan_bfloat16"], B, T, H, card)
     for key, name in (("fwd", "gru_scan"), ("bwd", "gru_scan_bwd")):
         t = r[key]
         t["library_ms_fresh"] = fresh[f"cudnn_{key}"]
@@ -2733,8 +2926,9 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str,
     return r
 
 
-def launch_ms(fn, iters: int, scan: str) -> Tuple[Optional[float], int]:
-    """(ms of one call on the device's clock, calls recorded) for ``fn``
+def launch_ms(fn, iters: int, scan: str) -> Tuple[Optional[float], int, dict, dict]:
+    """(ms of one call on the device's clock, calls recorded, ms by
+    kernel, records by kernel) for ``fn``
     whose every CUDA kernel launches once a call: each kernel's mean time
     over its own records, summed. The profiler has been seen to drop every
     record of some calls (PERF.md §6); the calls recorded are the records
@@ -2754,38 +2948,71 @@ def launch_ms(fn, iters: int, scan: str) -> Tuple[Optional[float], int]:
             us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
             n[e.name] = n.get(e.name, 0) + 1
     calls = sum(c for k, c in n.items() if scan in k)
-    return (sum(us[k] / n[k] for k in us) / 1e3 if calls == iters else None), calls
+    ms = {k: us[k] / n[k] / 1e3 for k in us}
+    return (sum(ms.values()) if calls == iters else None), calls, ms, n
+
+
+# row 2's product kernels and their launches a call on the wgmma engine:
+# the operand pass's two kernels once each, the product twice
+PRODUCT_LAUNCHES = {"scan_hs_kernel": 1, "scan_dp_kernel": 1, "wgmma_gemm_kernel": 2}
+PRODUCT_SPLIT = ("products_ms", "operand_pass_ms", "gemm_ms", "products_tflops", "gemm_tflops")
+
+
+def products_kept(records: dict, iters: int) -> bool:
+    """Whether the profiler kept every record of row 2's product kernels
+    (``launch_ms``'s records by kernel) over ``iters`` calls."""
+    from variational_mmt_torch.tools.kernel_times import kernel_name
+
+    got = {}
+    for name, n in records.items():
+        key = kernel_name(name).split("<", 1)[0]
+        got[key] = got.get(key, 0) + n
+    return all(got.get(k, 0) == per * iters for k, per in PRODUCT_LAUNCHES.items())
 
 
 def wide_device_child(out_path: str) -> int:
     """``--wide-device OUT``: rows 1 and 2 (bf16, reset-free) and cuDNN's
     nn.GRU forward and backward at WIDE_SCANS on the device's clock
     (``launch_ms`` for the rows, with the calls the profiler kept of
-    WIDE_ITERS; ``device_ms`` for cuDNN), measured in this fresh process,
-    as JSON into OUT."""
+    WIDE_ITERS; ``device_ms`` for cuDNN), and row 2 alone at SPLIT_SCANS,
+    measured in this fresh process, as JSON into OUT. Row 2's split has
+    the scan's time only where the profiler kept the scan's record of
+    every call, and the products' only where it kept every record of their
+    kernels (``products_kept``); else None, not measured."""
     sys.path.insert(0, HERE)
     from variational_mmt_torch.ops import gru_scan
+    from variational_mmt_torch.tools.kernel_times import kernel_name, row2_split
 
     g = torch.Generator(device="cuda").manual_seed(13)
     out = {}
-    for B, T, H in WIDE_SCANS:
+    for B, T, H in WIDE_SCANS + SPLIT_SCANS:
+        tiled = H > 512  # SPLIT_SCANS: the cluster plans, whose split alone is read
         x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.bfloat16, B, T, H, 8)
         outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
-        gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
-        xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
+        rec = {}
+        if tiled:
+            gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
+            xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
 
-        def cudnn():
-            with torch.no_grad():
-                return gru(xin)
+            def cudnn():
+                with torch.no_grad():
+                    return gru(xin)
 
-        rec = {"cudnn_fwd": device_ms(cudnn, iters=WIDE_ITERS),
-               "cudnn_bwd": cudnn_bwd_ms(g, B, T, H)[0]}
-        rec["fwd"], rec["fwd_calls_recorded"] = launch_ms(
-            lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True), WIDE_ITERS,
-            "gru_tiled_fwd_kernel")
-        rec["bwd"], rec["bwd_calls_recorded"] = launch_ms(
+            rec = {"cudnn_fwd": device_ms(cudnn, iters=WIDE_ITERS),
+                   "cudnn_bwd": cudnn_bwd_ms(g, B, T, H)[0]}
+            rec["fwd"], rec["fwd_calls_recorded"], _, _ = launch_ms(
+                lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True), WIDE_ITERS,
+                "gru_tiled_fwd_kernel")
+        rec["bwd"], rec["bwd_calls_recorded"], by_kernel, records = launch_ms(
             lambda: gru_scan.gru_layer_scan_bwd(x, mask, h0, wh, bh, outs, gout, True),
-            WIDE_ITERS, "gru_tiled_bwd_kernel")
+            WIDE_ITERS, "gru_tiled_bwd_kernel" if tiled else "gru_scan_bwd_kernel")
+        split = row2_split({kernel_name(k): v for k, v in by_kernel.items()}, B, T, H)
+        rec["products_kept"] = products_kept(records, WIDE_ITERS)
+        if rec["bwd"] is None:
+            split.update(scan_ms=None, rest_ms=None)
+        if not rec["products_kept"]:
+            split.update({k: None for k in PRODUCT_SPLIT}, rest_ms=None)
+        rec["bwd_split"] = split
         out[f"B={B} T={T} H={H}"] = rec
     with open(out_path, "w") as f:
         json.dump(out, f)
@@ -2818,13 +3045,14 @@ def widths_phase(card: str, root: str):
     from variational_mmt_torch.ops import decode_step as ds, decoder as dec, gru_scan
     from variational_mmt_torch.train import checkpoint as ck
 
-    rec = {"scan": {}}
+    rec = {"scan": {}, "products": {}}
     g = torch.Generator(device="cuda").manual_seed(8)
     rng = np.random.default_rng(8)
     fresh = fresh_wide_device(root)
     for B, T, H in WIDE_SCANS:  # both tiled plans
         at = f"B={B} T={T} H={H}"
         rec["scan"][at] = wide_scan_checks(gru_scan, g, rng, B, T, H, card, fresh[at])
+        rec["products"][at] = rec["scan"][at].pop("products")
     for B, T, H, dtypes in WIDTH_SCANS:
         at = f"B={B} T={T} H={H}"
         r = {}
@@ -2842,6 +3070,7 @@ def widths_phase(card: str, root: str):
             r[f"err_{dt_name}"], r[f"bwd_err_{dt_name}"] = fwd_err, bwd_err
             r[f"plan_{dt_name}"] = gru_scan.gru_layer_scan.plan
             r[f"bwd_plan_{dt_name}"] = gru_scan.gru_layer_scan_bwd.plan
+            require_engine(f"gru_scan_bwd {at}", dt_name, r[f"bwd_plan_{dt_name}"])
             print_plan(f"gru_scan {at} {dt_name}", r[f"plan_{dt_name}"])
             print_plan(f"gru_scan_bwd {at} {dt_name}", r[f"bwd_plan_{dt_name}"])
         if "bfloat16" in dtypes:  # times in bf16, beside cuDNN and the bound
@@ -2851,6 +3080,11 @@ def widths_phase(card: str, root: str):
             bargs = (x, mask, h0, wh, bh, outs, gout, True)
             b = {"ms": cuda_ms(lambda: gru_scan.gru_layer_scan_bwd(*bargs)),
                  "plain_ms": cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*bargs), iters=5)}
+            if at in fresh:  # H = 512: the products' share of row 2 on 16-CTA clusters
+                b["split"] = fresh[at]["bwd_split"]
+                rec["products"][at] = products_device(
+                    products_checks(gru_scan, g, rng, B, T, H)[0], b["split"],
+                    r["bwd_plan_bfloat16"], B, T, H, card)
             b["library_ms"], b["library_eager_ms"] = cudnn_bwd_ms(g, B, T, H)
             b["bound_ms"], b["bound_by"] = scan_bwd_bound(B, T, H)
             r["bwd"] = b
@@ -2928,6 +3162,11 @@ def widths_phase(card: str, root: str):
         for k in rows:
             if launches[k] <= 0:
                 fail(f"kernel {k} was not launched by the train CLI {' '.join(flags)}")
+        if gru_scan.gru_layer_scan_bwd.plan["engine"] == "wgmma":  # row 2's products too
+            for k in ("scan_bwd_operands", "wgmma_gemm"):
+                if launches[k] != 2 * launches["gru_layer_scan_bwd"]:
+                    fail(f"kernel {k}: {launches[k]} launches by the train CLI "
+                         f"{' '.join(flags)}, two expected for each of row 2's")
         if plain:
             fail(f"train CLI {' '.join(flags)}: {plain} GRU layer scans took the plain scan")
         if label == "1024" and scan_plan["cluster"] != 16:
@@ -5013,6 +5252,7 @@ def main() -> int:
     scan = scan_phase(gru_scan, SCAN_SHAPE, {"serve": SCAN_SHAPE, "train": TRAIN_SCAN_SHAPE})
     step, chain = step_phase(ds, STEP_SHAPE)
     scan_bwd = scan_bwd_phase(gru_scan, TRAIN_SCAN_SHAPE)
+    products = products_phase(gru_scan, TRAIN_SCAN_SHAPE, card)
     # the reset stream of both scans (sequence packing)
     scan["reset"], scan_bwd["reset"] = scan_reset_checks(gru_scan)
     dec_fwd, dec_bwd = decoder_phase(dec, DEC_SHAPE)
@@ -5103,6 +5343,28 @@ def main() -> int:
             entry.update(max_rel_err=rec["err_bfloat16"], max_rel_err_f32=rec["err_float32"])
         else:
             entry.update(max_abs_err_f32=rec["err_float32"])
+        entries.append(entry)
+    # row 2's two kernels on the wgmma engine, launched inside its calls
+    paths = {"serve": serve_launches, "train": train_launches, "big_batch": big_launches,
+             "train_packed": packed_launches, "families": family_launches, "cli": cli_launches,
+             **online_launches, "eval": eval_launches, "widths": width_launches, **ens_launches,
+             "options": opt_launches, "host_path": host_launches, "parallel": par_launches,
+             "extract": extract_launches, "serve_ranks": srv_rank_launches,
+             "tools": tool_launches, "decoder_trace": trace_launches}
+    for (name, src, replaces), part in zip(PRODUCT_ROWS, ("operands", "gemm")):
+        by_path = {path: n.get(name, 0) for path, n in paths.items()}
+        t = products[part]
+        entry = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                 "part_of": "gru_layer_scan_bwd", "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": products[f"{'gemm' if part == 'gemm' else 'operand'}_abs_err_"
+                                         "bfloat16"],
+                 "max_rel_err": products["err_bfloat16"],
+                 "max_rel_err_f16": products["err_float16"], "dtype": "bfloat16",
+                 **{k: t[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                 "plan": products["plan"], "widths": widths["products"]}
+        if part == "gemm":
+            entry.update(cublas_ms=t["cublas_ms"], tflops=t["tflops"])
         entries.append(entry)
     entries += f16_entries(f16_launches, f16_rows)
     print(json.dumps({"kernels": entries, "sent_per_s": rate, "train": steps,

@@ -156,6 +156,8 @@ def test_gru_scan_kernels_with_reset_are_deterministic(cuda, dt):
     second = gru_scan.gru_layer_scan(*args, True, reset)
     g = torch.randn(61, 7, 250, generator=cuda, device="cuda")
     first_b = gru_scan.gru_layer_scan_bwd(*args, first[0], g, True, reset)
+    assert gru_scan.gru_layer_scan_bwd.plan["engine"] == \
+        ("tile" if dt == torch.float32 else "wgmma")
     second_b = gru_scan.gru_layer_scan_bwd(*args, first[0], g, True, reset)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first + first_b, second + second_b))
@@ -423,6 +425,8 @@ def test_tiled_scan_bwd_is_deterministic(cuda, dt):
     g = torch.randn(64, 6, 1024, generator=cuda, device="cuda")
     first = gru_scan.gru_layer_scan_bwd(*args, outs, g, True)
     assert gru_scan.gru_layer_scan_bwd.plan["cluster"] > 1
+    assert gru_scan.gru_layer_scan_bwd.plan["engine"] == \
+        ("tile" if dt == torch.float32 else "wgmma")
     second = gru_scan.gru_layer_scan_bwd(*args, outs, g, True)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
@@ -516,6 +520,80 @@ def test_streamed_decoder_kernels_are_deterministic(cuda, dt):
     torch.cuda.synchronize()
     assert decoder.decoder_bwd.plan["layout"] == "streamed"
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+# Row 2's hoisted products on the wgmma engine (csrc/wgmma_gemm.cuh)
+# against their plain version: the same rounded operands summed in f32 in
+# another order, held to 1e-4 of each output's largest entry (readings at
+# most 1e-5). Ragged M = B*T, N = 3H and K (no multiple of a tile's 128 or
+# 256, nor of the 64-deep slice), H = 250 and 500 with Wh's copy (3H not a
+# whole number of 16-byte pieces), dWh split where its tiles are few.
+PRODUCT_TOL = 1e-4
+PRODUCT_SHAPES = [(9, 7, 40), (61, 7, 250), (37, 5, 500), (64, 24, 512), (13, 11, 1024),
+                  (5, 25, 2048), (256, 24, 1024)]
+
+
+@pytest.mark.parametrize("dt", [torch.float16, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("B,T,H", PRODUCT_SHAPES,
+                         ids=[f"B{B}T{T}H{H}" for B, T, H in PRODUCT_SHAPES])
+def test_wgmma_products_kernel(cuda, dt, B, T, H):
+    args = scan_args(cuda, dt, B, T, H)
+    x, mask, h0, wh, bh = args
+    reset = reset_stream(cuda, mask)
+    r = lambda *s: torch.randn(*s, generator=cuda, device="cuda")  # noqa: E731
+    for reverse, rs in ((False, None), (True, reset)):
+        outs, _ = gru_scan.gru_layer_scan_ref(*args, reverse, rs)
+        dx, dhn = r(B, T, 3 * H), r(B, T, H)
+        got = gru_scan.scan_bwd_products(h0, outs, wh, bh, dx, dhn, reverse, rs)
+        want = gru_scan.scan_bwd_products_ref(h0, outs, wh, bh, dx, dhn, reverse, rs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.dtype == torch.float32
+            scale = max(float(w.abs().max()), 1e-30)
+            assert float((g - w).abs().max()) / scale <= PRODUCT_TOL
+    plan = gru_scan.scan_bwd_products.plan
+    assert plan["engine"] == "wgmma" and plan["wh_copy"] == (3 * H % 8 != 0)
+
+
+# the whole backward, the wgmma engine required: the flagship's B = 64,
+# T = 24, H = 250 (dWh split 6 ways) and phase 13's eleven shapes
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("B,T,H", [(64, 24, 250)] + WIDE_SCANS,
+                         ids=["flagship"] + [f"B{B}H{H}" for B, _, H in WIDE_SCANS])
+def test_gru_scan_bwd_on_the_wgmma_engine(cuda, dt, B, T, H):
+    args = scan_args(cuda, dt, B, T, H)
+    g = torch.randn(B, T, H, generator=cuda, device="cuda")
+    for reverse, reset in ((False, None), (True, reset_stream(cuda, args[1]))):
+        outs, _ = gru_scan.gru_layer_scan_ref(*args, reverse, reset)
+        close_rel(gru_scan.gru_layer_scan_bwd(*args, outs, g, reverse, reset),
+                  gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, reverse, reset), dt)
+        plan = gru_scan.gru_layer_scan_bwd.plan
+        assert plan["engine"] == "wgmma" and plan["gemm_per_sm"] >= 1
+        assert plan["layout"] == ("cluster" if H <= 512 else "tiled")
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("B,T,H", [(64, 24, 250), (256, 24, 512)], ids=["flagship", "H512"])
+def test_wgmma_products_split_is_deterministic(cuda, dt, B, T, H):
+    """dWh's K split over CTAs a tile (6 at the flagship, 5 at H = 512): the
+    last CTA adds the partials in split order, so repeats are
+    bit-identical, the products alone and the whole backward; each wgmma
+    call counts two launches of the operand pass and two of the product."""
+    args = scan_args(cuda, dt, B, T, H)
+    reset = reset_stream(cuda, args[1])
+    outs, _ = gru_scan.gru_layer_scan_ref(*args, True, reset)
+    g = torch.randn(B, T, H, generator=cuda, device="cuda")
+    counts = (gru_scan.scan_bwd_operands.launches, gru_scan.wgmma_gemm.launches)
+    first = gru_scan.gru_layer_scan_bwd(*args, outs, g, True, reset)
+    assert gru_scan.gru_layer_scan_bwd.plan["dwh_splits"] > 1
+    second = gru_scan.gru_layer_scan_bwd(*args, outs, g, True, reset)
+    dx, dhn = first[0], torch.randn(B, T, H, generator=cuda, device="cuda")
+    once = gru_scan.scan_bwd_products(args[2], outs, args[3], args[4], dx, dhn, True, reset)
+    again = gru_scan.scan_bwd_products(args[2], outs, args[3], args[4], dx, dhn, True, reset)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first + once, second + again))
+    assert (gru_scan.scan_bwd_operands.launches, gru_scan.wgmma_gemm.launches) == \
+        (counts[0] + 8, counts[1] + 8)
 
 
 def test_every_entry_point_refuses_an_unknown_dtype_code(cuda):

@@ -444,6 +444,10 @@ def test_scan_wrappers_pass_the_reset_stream(no_launch):
             return 0
 
         def vmmt_gru_scan_bwd(self, *args):
+            # f32: the products on tile_gemm.cuh (tile N and stages 0, then
+            # the stream), no Hs, dP or Wh's copy
+            assert len(args) == len(kernels.SIGNATURES["gru_scan"]["vmmt_gru_scan_bwd"])
+            assert args[-3:-1] == (0, 0) and args[17:20] == (None, None, None)
             calls.append(args[3])
             return 0
 

@@ -140,7 +140,11 @@ def test_wide_plans_hold_every_width_to_1024(H, dt, B):
             == plan["ctas"]
         assert plan["grid"] <= (120 if plan["cluster"] == 4 else H100_SMS)
     assert fwd["stages"] in (2, 4) and fwd["k_chunks"] == -(-H // fwd["kc"])
-    assert bwd["dwh_splits"] == 1 and bwd["dwh_tiles"] == -(-H // 64) * -(-3 * H // 64)
+    if bwd["engine"] == "tile":  # f32: tile_gemm.cuh's 64 x 64 tiles of dWh, no K split
+        assert dt == torch.float32
+        assert bwd["dwh_splits"] == 1 and bwd["dwh_tiles"] == -(-H // 64) * -(-3 * H // 64)
+    else:  # the wgmma engine's 128 x bn tiles (tests/test_torch_scan_products.py)
+        assert bwd["dwh_tiles"] == -(-H // 128) * -(-3 * H // bwd["gemm_bn"])
 
 
 def test_wide_plans_mirror_the_kernels_layout_at_1024():
@@ -209,9 +213,9 @@ def wide_lib(monkeypatch):
 
         def vmmt_gru_tiled_bwd(self, *args):
             # padded weights (None: Wh in place), B, T, H, reverse, rows,
-            # units, cluster, row_tiles, resident, splits (then probe,
-            # stream)
-            calls.append(("bwd", args[-13] is None) + args[-12:-2])
+            # units, cluster, row_tiles, resident, splits, the wgmma
+            # products' tile N and stages (then probe, stream)
+            calls.append(("bwd", args[-15] is None) + args[-14:-2])
             return 0
 
     monkeypatch.setattr(kernels, "library", lambda name: Lib())
@@ -231,6 +235,8 @@ def test_wrappers_launch_the_wide_plan(wide_lib, dt):
 
     def occupancy(dev, lib, fn, code, *a):
         seen.append((fn, *a))
+        if fn == "vmmt_gru_products_occupancy":  # the wgmma products: tile N, stages
+            return 1, gru_scan.gemm_smem(*a)
         return 264, fwd["smem"] if fn == "vmmt_gru_tiled_fwd_occupancy" else bwd["smem"]
 
     monkeypatch.setattr(kernels, "occupancy", occupancy)
@@ -240,16 +246,22 @@ def test_wrappers_launch_the_wide_plan(wide_lib, dt):
     gru_scan.gru_layer_scan_bwd(*ins, meta(B, T, H), meta(B, T, H))
     assert fwd["layout"] == bwd["layout"] == "tiled"
     assert fwd["in_place"] and bwd["in_place"]  # H and 3H elements: whole 16-byte pieces
+    wgmma = bwd["engine"] == "wgmma"
+    assert wgmma == (dt != torch.float32)
+    products = (bwd["gemm_bn"], bwd["gemm_stages"]) if wgmma else (0, 0)
     assert seen == [("vmmt_gru_tiled_fwd_occupancy", H, fwd["rows"], fwd["units"],
                      fwd["cluster"], int(fwd["resident"]), fwd["stages"]),
                     ("vmmt_gru_tiled_bwd_occupancy", H, bwd["rows"], bwd["units"],
-                     bwd["cluster"], int(bwd["resident"]))]
+                     bwd["cluster"], int(bwd["resident"]))] \
+        + [("vmmt_gru_products_occupancy", *products)] * wgmma
     assert calls == [("fwd", True, B, T, H, 1, fwd["rows"], fwd["units"], fwd["cluster"],
                       fwd["row_tiles"], int(fwd["resident"]), fwd["stages"]),
                      ("bwd", True, B, T, H, 0, bwd["rows"], bwd["units"], bwd["cluster"],
-                      bwd["row_tiles"], int(bwd["resident"]), 1)]
+                      bwd["row_tiles"], int(bwd["resident"]), bwd["dwh_splits"],
+                      *products)]
     assert gru_scan.gru_layer_scan.plan == dict(fwd, max_co_resident=264)
-    assert gru_scan.gru_layer_scan_bwd.plan == dict(bwd, max_co_resident=264)
+    assert gru_scan.gru_layer_scan_bwd.plan == dict(bwd, max_co_resident=264,
+                                                    **({"gemm_per_sm": 1} if wgmma else {}))
 
 
 def test_wrappers_refuse_a_wide_grid_the_card_cannot_hold(wide_lib):

@@ -79,7 +79,11 @@ def test_streamed_plans_hold_every_width_above_1024(H, dt, B):
     assert bwd["smem"] == gru_scan.tiled_smem(bwd["rows"], bwd["units"], bwd["cluster"],
                                               bwd["resident"],
                                               gru_scan.tiled_kc_own(H, dt, bwd["cluster"]))
-    assert bwd["dwh_splits"] == 1 and bwd["dwh_tiles"] == -(-H // 64) * -(-3 * H // 64)
+    if bwd["engine"] == "tile":  # f32: tile_gemm.cuh's 64 x 64 tiles of dWh, no K split
+        assert dt == torch.float32
+        assert bwd["dwh_splits"] == 1 and bwd["dwh_tiles"] == -(-H // 64) * -(-3 * H // 64)
+    else:  # the wgmma engine's 128 x bn tiles (tests/test_torch_scan_products.py)
+        assert bwd["dwh_tiles"] == -(-H // 128) * -(-3 * H // bwd["gemm_bn"])
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -176,9 +180,10 @@ def streamed_lib(monkeypatch):
             return 0
 
         def vmmt_gru_tiled_bwd(self, *args):
-            # padded weights, B, T, H, reverse, rows, units, cluster,
-            # row_tiles, resident, splits (then probe, stream)
-            calls.append(("bwd", args[-13]) + args[-12:-2])
+            # padded weights, B, T, H, reverse, rows,
+            # units, cluster, row_tiles, resident, splits, the wgmma
+            # products' tile N and stages (then probe, stream)
+            calls.append(("bwd", args[-15]) + args[-14:-2])
             return 0
 
     monkeypatch.setattr(kernels, "library", lambda name: Lib())
@@ -201,6 +206,8 @@ def test_wrappers_launch_the_streamed_plan(streamed_lib, dt):
 
     def occupancy(dev, lib, fn, code, *a):
         seen.append((fn, *a))
+        if fn == "vmmt_gru_products_occupancy":  # the wgmma products: tile N, stages
+            return 1, gru_scan.gemm_smem(*a)
         return 264, fwd["smem"] if fn == "vmmt_gru_tiled_fwd_occupancy" else bwd["smem"]
 
     monkeypatch.setattr(kernels, "occupancy", occupancy)
@@ -209,10 +216,13 @@ def test_wrappers_launch_the_streamed_plan(streamed_lib, dt):
     probe = meta(1 + 4 * T, dtype=torch.int64)
     gru_scan.gru_layer_scan(*ins, reverse=True, probe=probe)
     gru_scan.gru_layer_scan_bwd(*ins, meta(B, T, H), meta(B, T, H))
+    wgmma = bwd["engine"] == "wgmma"
+    assert wgmma == (dt != torch.float32)
+    products = (bwd["gemm_bn"], bwd["gemm_stages"]) if wgmma else (0, 0)
     assert seen == [("vmmt_gru_tiled_fwd_occupancy", H, fwd["rows"], fwd["units"],
                      fwd["cluster"], int(fwd["resident"]), fwd["stages"]),
                     ("vmmt_gru_tiled_bwd_occupancy", H, bwd["rows"], bwd["units"], bwd["cluster"],
-                     int(bwd["resident"]))]
+                     int(bwd["resident"]))] + [("vmmt_gru_products_occupancy", *products)] * wgmma
     assert fwd["in_place"] == bwd["in_place"] == (dt == torch.float32)
     assert [c[1] is not None for c in calls] == [dt != torch.float32] * 2
     if dt != torch.float32:
@@ -222,9 +232,10 @@ def test_wrappers_launch_the_streamed_plan(streamed_lib, dt):
         ("fwd", B, T, H, 1, fwd["rows"], fwd["units"], fwd["cluster"], fwd["row_tiles"],
          int(fwd["resident"]), fwd["stages"]),
         ("bwd", B, T, H, 0, bwd["rows"], bwd["units"], bwd["cluster"], bwd["row_tiles"],
-         int(bwd["resident"]), 1)]
+         int(bwd["resident"]), bwd["dwh_splits"], *products)]
     assert gru_scan.gru_layer_scan.plan == dict(fwd, max_co_resident=264)
-    assert gru_scan.gru_layer_scan_bwd.plan == dict(bwd, max_co_resident=264)
+    assert gru_scan.gru_layer_scan_bwd.plan == dict(bwd, max_co_resident=264,
+                                                    **({"gemm_per_sm": 1} if wgmma else {}))
     with pytest.raises(ValueError, match="probe"):
         gru_scan.gru_layer_scan(*ins, probe=meta(4 * T, dtype=torch.int64))
 

@@ -56,7 +56,10 @@
 //   (a) the gate recompute does not depend on the backward recurrence
 //       (h_prev is the saved forward output), so one tiled product computes
 //       hp = round(h_prev) @ Wh + bh for all B*T (row, t) at once before the
-//       scan (tile_gemm.cuh; tensor cores in bf16);
+//       scan: in bf16 and f16 on wgmma_gemm.cuh (TMA and wgmma) from
+//       operands an operand pass rounds once (the launch plan's engine
+//       "wgmma"; see "(a) and (c) on the wgmma engine" below), in f32 on
+//       tile_gemm.cuh (FMAs; engine "tile"): the dtype alone picks;
 //   (b) the reverse scan runs on thread-block clusters: one cluster of C
 //       CTAs per kScanRows batch rows (C = 8 at H=250: 128 CTAs at B=64;
 //       2 rows in f32 where 4 rows of dh_proj buffers do not fit, H > 448),
@@ -71,10 +74,11 @@
 //       splitting K for each tile), in f32 by FMAs. The next step's inputs
 //       are loaded while the current one computes;
 //   (c) dWh = sum over (row, t) of round(h_prev)^T round(dh_proj) is one
-//       tiled product over K = B*T (tensor cores in bf16), K split over 8
-//       blocks a tile (48 tiles would leave most SMs idle) whose partials
-//       the last block adds in a fixed order; extra blocks of the same
-//       launch sum dbh, the unrounded column sums of dh_proj. Deterministic.
+//       tiled product over K = B*T on the same engine as (a), K split over
+//       several CTAs a tile where the tiles are too few to fill the card,
+//       whose partials the last CTA adds in a fixed order; dbh, the
+//       unrounded column sums of dh_proj, comes from the operand pass
+//       (wgmma) or extra blocks of the same launch (tile). Deterministic.
 // The scan writes dx_proj and only the third gate block of dh_proj (its
 // first two equal dx_proj's), which (c) reads.
 // With a reset stream (the Pallas has_reset branch, gru.py:205-210 and
@@ -169,6 +173,7 @@
 #include <cooperative_groups.h>
 
 #include "block_product.cuh"
+#include "wgmma_gemm.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -543,6 +548,175 @@ struct ScanDWh {
   }
 };
 
+// ---------------------------------------------------------------------------
+// (a) and (c) on the wgmma engine (the launch plan's engine "wgmma",
+// bfloat16 and float16; wgmma_gemm.cuh). An operand pass writes the
+// rounded operands once, in the compute dtype, rows padded to a multiple of
+// 8 values so that TMA can address them: before (a), Hs (B*T, pad8(H)) =
+// round(h_prev * keep), which (a) and (c) share, and Wh's copy with rows of
+// pad8(3H) where its own rows are not whole 16-byte pieces; after the scan,
+// dP (B*T, pad8(3H)) = round(dh_proj) and dbh, the unrounded column sums of
+// dh_proj, in a fixed order. Then (a) hp = Hs @ Wh + bh and (c) dWh = Hs^T
+// dP, each one launch of wgmma_gemm. The pass moves about 300 MB at B = 256,
+// T = 24, H = 2048 (0.09 ms at 3.35 TB/s); the f32 operands that
+// tile_gemm.cuh gathers cross device memory at twice the bytes, twice.
+
+constexpr int kOperandRows = 128;  // rows of dh_proj whose column sums one block of the dP pass adds
+constexpr int kOperandThreads = 256;
+
+__host__ __device__ inline int pad8(int n) { return (n + 7) & ~7; }
+
+// Hs (B*T, pad8(H)) = round(h_prev * keep), zero past H, a block a row;
+// blocks after the B*T rows copy Wh (H, 3H) to wp, rows pad8(3H) apart,
+// zero past 3H (no blocks where wp is null).
+template <typename T>
+__global__ void __launch_bounds__(kOperandThreads)
+scan_hs_kernel(const float* __restrict__ h0, const float* __restrict__ outs,
+               const float* __restrict__ reset, const T* __restrict__ wh, T* __restrict__ hs,
+               T* __restrict__ wp, int B, int T_len, int H, int reverse) {
+  const int m = blockIdx.x;
+  if (m < B * T_len) {
+    const int ldh = pad8(H), row = m / T_len, t = m % T_len;
+    const float keep = reset != nullptr ? 1.f - reset[m] : 1.f;
+    for (int k = 2 * threadIdx.x; k < ldh; k += 2 * kOperandThreads) {
+      const float v0 = k < H ? prev_state(h0, outs, row, t, T_len, H, k, reverse) * keep : 0.f;
+      const float v1 =
+          k + 1 < H ? prev_state(h0, outs, row, t, T_len, H, k + 1, reverse) * keep : 0.f;
+      *reinterpret_cast<uint32_t*>(hs + (size_t)m * ldh + k) = pack2<T>(v0, v1);
+    }
+    return;
+  }
+  const int k = m - B * T_len, N = 3 * H, ld = pad8(N);
+  for (int n = threadIdx.x; n < ld; n += kOperandThreads)
+    wp[(size_t)k * ld + n] = n < N ? wh[(size_t)k * N + n] : from_f<T>(0.f);
+}
+
+// dP (B*T, pad8(3H)) = round([dx[:, :2H] | dhn]), zero past 3H; block
+// (x, y) covers columns 32x .. 32x + 31 of rows 128y .. 128y + 127 (a warp
+// a row at a time, a lane a column) and writes its column sums to partial
+// (y, n); the last block of a column strip to finish (an atomic count a
+// strip) adds the strip's partial sums in row order into dbh.
+template <typename T>
+__global__ void __launch_bounds__(kOperandThreads)
+scan_dp_kernel(const float* __restrict__ dx, const float* __restrict__ dhn, T* __restrict__ dp,
+               float* __restrict__ dbh, float* __restrict__ partial, int* __restrict__ counters,
+               int M, int H) {
+  constexpr int kWarps = kOperandThreads / 32;
+  __shared__ float part[kWarps][32];
+  __shared__ int last;
+  const int N = 3 * H, ld = pad8(N), lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n = blockIdx.x * 32 + lane;
+  const int r1 = min(M, ((int)blockIdx.y + 1) * kOperandRows);
+  auto at = [&](int m) {
+    if (n >= N) return 0.f;
+    return n < 2 * H ? dx[(size_t)m * N + n] : dhn[(size_t)m * H + n - 2 * H];
+  };
+  float sum = 0.f;
+  for (int m = (int)blockIdx.y * kOperandRows + warp; m < r1; m += 4 * kWarps) {
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = m + q * kWarps < r1 ? at(m + q * kWarps) : 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (m + q * kWarps < r1 && n < ld) dp[(size_t)(m + q * kWarps) * ld + n] = from_f<T>(v[q]);
+      sum += v[q];
+    }
+  }
+  part[warp][lane] = sum;
+  __syncthreads();
+  if (warp == 0 && n < N) {
+    float v = 0.f;
+    for (int w = 0; w < kWarps; ++w) v += part[w][lane];
+    partial[(size_t)blockIdx.y * N + n] = v;
+  }
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&counters[blockIdx.x], 1) == (int)gridDim.y - 1;
+  __syncthreads();
+  if (!last || warp != 0 || n >= N) return;
+  __threadfence();
+  float v = 0.f;
+  for (int c = 0; c < (int)gridDim.y; ++c) v += __ldcg(&partial[(size_t)c * N + n]);
+  dbh[n] = v;
+}
+
+// What the wgmma engine's products read and write. hs (B*T, pad8(H)) and
+// dp (B*T, pad8(3H)) in the compute dtype; wp: null, or (H, pad8(3H)) for
+// the operand pass to fill with Wh; (a)'s B operand wb (Wh, wp or the
+// tiled plan's padded copy), rows ldb apart; partial and counters: dWh's
+// split (splits * 128 * bn floats and an int a tile) and, in the same
+// bytes before it, the dP pass's column sums (an int a strip after dWh's).
+struct Products {
+  const float* h0;
+  const float* outs;
+  const float* reset;
+  const void* wh;
+  const float* bh;
+  const float* dx;
+  const float* dhn;
+  float* hp;
+  float* dwh;
+  float* dbh;
+  void* hs;
+  void* dp;
+  void* wp;
+  const void* wb;
+  int ldb;
+  float* partial;
+  int* counters;
+  int B, T_len, H, reverse, splits, bn, stages;
+};
+
+// Whether the products take p: 16-bit, tiles of 128 or 256 columns, a ring
+// that fits a CTA's shared memory, the scratch given, at least one K slice
+// a split.
+bool products_valid(const Products& p) {
+  const int kb = (p.B * p.T_len + kWgBK - 1) / kWgBK;
+  return (p.bn == 128 || p.bn == 256) && p.stages >= 2 &&
+         wg_smem(p.bn, p.stages) <= (int)kSmemPerBlock && p.splits >= 1 && p.splits <= kb &&
+         p.hs != nullptr && p.dp != nullptr && p.partial != nullptr && p.counters != nullptr;
+}
+
+// The operand pass before the scan, then (a).
+template <typename T>
+int launch_hoist(const Products& p, cudaStream_t stream) {
+  if constexpr (!is_mma<T>()) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int M = p.B * p.T_len, H = p.H;
+    scan_hs_kernel<T><<<M + (p.wp != nullptr ? H : 0), kOperandThreads, 0, stream>>>(
+        p.h0, p.outs, p.reset, static_cast<const T*>(p.wh), static_cast<T*>(p.hs),
+        static_cast<T*>(p.wp), p.B, p.T_len, H, p.reverse);
+    CUtensorMap ta, tb;
+    int err = tensor_map<T>(&ta, p.hs, M, H, pad8(H), kWgBM);
+    if (err == 0) err = tensor_map<T>(&tb, p.wb, H, 3 * H, p.ldb, 64);
+    if (err != 0) return err;
+    const WgGemm g = {M, 3 * H, H, p.hp, 3 * H, p.bh, 1, nullptr, nullptr, p.stages};
+    return wgmma_gemm<T>(ta, tb, false, p.bn, g, stream);
+  }
+}
+
+// The operand pass after the scan (dP and dbh), then (c).
+template <typename T>
+int launch_dwh(const Products& p, cudaStream_t stream) {
+  if constexpr (!is_mma<T>()) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int M = p.B * p.T_len, H = p.H, N = 3 * H;
+    const int tiles = ((H + kWgBM - 1) / kWgBM) * ((N + p.bn - 1) / p.bn);
+    const dim3 grid((pad8(N) + 31) / 32, (M + kOperandRows - 1) / kOperandRows);
+    scan_dp_kernel<T><<<grid, kOperandThreads, 0, stream>>>(p.dx, p.dhn, static_cast<T*>(p.dp),
+                                                            p.dbh, p.partial, p.counters + tiles,
+                                                            M, H);
+    CUtensorMap ta, tb;
+    int err = tensor_map<T>(&ta, p.hs, M, H, pad8(H), 64);
+    if (err == 0) err = tensor_map<T>(&tb, p.dp, M, N, pad8(N), 64);
+    if (err != 0) return err;
+    const WgGemm g = {H, N, M, p.dwh, N, nullptr, p.splits, p.partial, p.counters, p.stages};
+    return wgmma_gemm<T>(ta, tb, true, p.bn, g, stream);
+  }
+}
+
 // The inputs of one (row, unit) at one step, loaded a step ahead; keep =
 // 1 - reset, h_prev already multiplied by it.
 struct ScanIn {
@@ -747,36 +921,93 @@ cudaLaunchConfig_t scan_bwd_config(Kernel kernel, int B, int H, int cluster, int
   return cfg;
 }
 
+// (a) before the scan and (c) after it: on the wgmma engine in bf16 and
+// f16, on tile_gemm.cuh in f32.
 template <typename T>
-int launch_bwd(const void* x_proj, const void* mask, const void* reset, const void* h0,
-               const void* wh, const void* bh, const void* outs, const void* g, void* dx,
-               void* dh0, void* dwh, void* dbh, void* hp, void* dhn, void* partial,
-               void* counters, int B, int T_len, int H, int reverse, int cluster, int units,
-               int rows, int splits, cudaStream_t stream) {
-  const int H3 = 3 * H;
-  const float* h0f = static_cast<const float*>(h0);
-  const float* outsf = static_cast<const float*>(outs);
-  const float* resetf = static_cast<const float*>(reset);
-  OpArray<ScanHoist<T>, 1> hoist{{{B * T_len, H3, H, h0f, outsf, resetf,
-                                   static_cast<const T*>(wh), static_cast<const float*>(bh),
-                                   static_cast<float*>(hp), T_len, H, reverse}}};
-  tile_gemm<T>(hoist, stream);
-  const auto kernel = bwd_kernel<T>(reset != nullptr, rows);
+int hoist_products(const Products& p, cudaStream_t stream) {
+  if constexpr (is_mma<T>()) {
+    return launch_hoist<T>(p, stream);
+  } else {
+    OpArray<ScanHoist<T>, 1> hoist{{{p.B * p.T_len, 3 * p.H, p.H, p.h0, p.outs, p.reset,
+                                     static_cast<const T*>(p.wh), p.bh, p.hp, p.T_len, p.H,
+                                     p.reverse}}};
+    tile_gemm<T>(hoist, stream);
+    return 0;
+  }
+}
+
+template <typename T>
+int dwh_products(const Products& p, cudaStream_t stream) {
+  if constexpr (is_mma<T>()) {
+    return launch_dwh<T>(p, stream);
+  } else {
+    OpArray<ScanDWh<T>, 1> dw{{{p.H, 3 * p.H, p.B * p.T_len, p.h0, p.outs, p.reset, p.dx,
+                                p.dhn, p.dwh, p.dbh, p.T_len, p.H, p.reverse}}};
+    tile_gemm<T>(dw, stream, p.splits, p.partial, p.counters);
+    return 0;
+  }
+}
+
+template <typename T>
+int launch_bwd(const void* x_proj, const void* mask, const void* g, void* dx, void* dh0,
+               void* dhn, const Products& q, int cluster, int units, int rows,
+               cudaStream_t stream) {
+  const int err = hoist_products<T>(q, stream);
+  if (err != 0) return err;
+  const auto kernel = bwd_kernel<T>(q.reset != nullptr, rows);
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg =
-      scan_bwd_config<T>(kernel, B, H, cluster, units, rows, attr, stream);
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const T*>(x_proj),
-      static_cast<const float*>(mask), resetf, h0f, outsf, static_cast<const float*>(g),
-      static_cast<const float*>(hp), static_cast<const T*>(wh), static_cast<float*>(dx),
-      static_cast<float*>(dhn), static_cast<float*>(dh0), B, T_len, H, units, reverse);
-  if (err != cudaSuccess) return (int)err;
-  OpArray<ScanDWh<T>, 1> dw{{{H, H3, B * T_len, h0f, outsf, resetf,
-                              static_cast<const float*>(dx), static_cast<const float*>(dhn),
-                              static_cast<float*>(dwh), static_cast<float*>(dbh), T_len, H,
-                              reverse}}};
-  tile_gemm<T>(dw, stream, splits, static_cast<float*>(partial), static_cast<int*>(counters));
-  return 0;
+      scan_bwd_config<T>(kernel, q.B, q.H, cluster, units, rows, attr, stream);
+  const cudaError_t launched = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(x_proj), static_cast<const float*>(mask), q.reset,
+      q.h0, q.outs, static_cast<const float*>(g), static_cast<const float*>(q.hp),
+      static_cast<const T*>(q.wh), static_cast<float*>(dx), static_cast<float*>(dhn),
+      static_cast<float*>(dh0), q.B, q.T_len, q.H, units, q.reverse);
+  if (launched != cudaSuccess) return (int)launched;
+  return dwh_products<T>(q, stream);
+}
+
+// The products' arguments of an entry point: Hs, dP, Wh's copy wp (null:
+// none) and (a)'s B operand wb, rows ldb apart.
+Products products_of(const void* h0, const void* outs, const void* reset, const void* wh,
+                     const void* bh, const void* dx, const void* dhn, void* hp, void* dwh,
+                     void* dbh, void* hs, void* dp, void* wp, const void* wb, int ldb,
+                     void* partial, void* counters, int B, int T_len, int H, int reverse,
+                     int splits, int bn, int stages) {
+  Products p = {};
+  p.h0 = static_cast<const float*>(h0);
+  p.outs = static_cast<const float*>(outs);
+  p.reset = static_cast<const float*>(reset);
+  p.wh = wh;
+  p.bh = static_cast<const float*>(bh);
+  p.dx = static_cast<const float*>(dx);
+  p.dhn = static_cast<const float*>(dhn);
+  p.hp = static_cast<float*>(hp);
+  p.dwh = static_cast<float*>(dwh);
+  p.dbh = static_cast<float*>(dbh);
+  p.hs = hs;
+  p.dp = dp;
+  p.wp = wp;
+  p.wb = wb;
+  p.ldb = ldb;
+  p.partial = static_cast<float*>(partial);
+  p.counters = static_cast<int*>(counters);
+  p.B = B;
+  p.T_len = T_len;
+  p.H = H;
+  p.reverse = reverse;
+  p.splits = splits;
+  p.bn = bn;
+  p.stages = stages;
+  return p;
+}
+
+// Whether an entry point takes products p: in f32 (tile_gemm.cuh) any; in
+// bf16 and f16 (wgmma) those products_valid takes, where (a) reads wb in
+// place when wp is null, which needs whole 16-byte rows.
+bool products_take(int dtype, const Products& p) {
+  return dtype == 0 || (products_valid(p) && p.ldb % 8 == 0 &&
+                        reinterpret_cast<uintptr_t>(p.wb) % 16 == 0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1799,27 +2030,82 @@ extern "C" int vmmt_gru_scan_occupancy(int dtype, int H, int cluster, int rows,
 // each owning `units` hidden units (cluster * units >= H, units <= 32,
 // cluster <= 16) of `rows` batch rows: 4, or 2 in f32. x_proj and wh in the compute dtype; mask,
 // reset (null: none), h0, bh, outs, g and every output f32: dx (B,T,3H), dh0 (B,H), dwh (H,3H), dbh
-// (3H). Scratch, f32: hp (B,T,3H), dhn (B,T,H); dWh splits its K = B*T
-// over `splits` blocks a 64 x 64 tile, with partial (splits * 4096 floats a
-// tile) and counters (an int a tile, zero before the call).
+// (3H). Scratch, f32: hp (B,T,3H), dhn (B,T,H). The hoisted products in
+// f32 on tile_gemm.cuh (dWh splits its K = B*T over `splits` blocks a 64
+// x 64 tile, with partial (splits * 4096 floats a tile) and counters (an
+// int a tile, zero before the call); hs, dp and wp unused, bn and stages
+// ignored), in bf16 and f16 on wgmma_gemm.cuh (Products, tiles of 128 x
+// bn, a ring of `stages` stages, dWh's K split over `splits` CTAs a tile;
+// hs (B*T, pad8(H)) and dp (B*T, pad8(3H)) in the compute dtype; wp null
+// where 3H values are whole 16-byte pieces, else (H, pad8(3H)); partial
+// the larger of splits * 128 * bn floats a tile and the dP pass's
+// pad8(3H) / 32 * 32 x ceil(B*T / 128) sums, counters an int a tile and a
+// 32-column strip, zero before the call).
 extern "C" int vmmt_gru_scan_bwd(int dtype, const void* x_proj, const void* mask,
                                  const void* reset, const void* h0, const void* wh, const void* bh,
                                  const void* outs, const void* g, void* dx, void* dh0, void* dwh,
                                  void* dbh, void* hp, void* dhn, void* partial, void* counters,
-                                 int B, int T_len, int H, int reverse, int cluster, int units,
-                                 int rows, int splits, void* stream) {
+                                 void* hs, void* dp, void* wp, int B, int T_len, int H,
+                                 int reverse, int cluster, int units, int rows, int splits,
+                                 int bn, int stages, void* stream) {
   if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
+  const Products q = products_of(h0, outs, reset, wh, bh, dx, dhn, hp, dwh, dbh, hs, dp, wp,
+                                 wp != nullptr ? wp : wh, wp != nullptr ? pad8(3 * H) : 3 * H,
+                                 partial, counters, B, T_len, H, reverse, splits, bn, stages);
   if (units < 1 || units > kScanUnits || cluster < 1 || cluster > kMaxCluster ||
-      cluster * units < H || splits < 1 || !(rows == kScanRows || (rows == 2 && dtype == 0)))
+      cluster * units < H || splits < 1 || !(rows == kScanRows || (rows == 2 && dtype == 0)) ||
+      !products_take(dtype, q))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = by_dtype(dtype, [&](auto zero) {
-    return launch_bwd<decltype(zero)>(x_proj, mask, reset, h0, wh, bh, outs, g, dx, dh0, dwh,
-                                      dbh, hp, dhn, partial, counters, B, T_len, H, reverse,
-                                      cluster, units, rows, splits, s);
+    return launch_bwd<decltype(zero)>(x_proj, mask, g, dx, dh0, dhn, q, cluster, units, rows,
+                                      s);
   });
   return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// Row 2's hoisted products alone on the wgmma engine (bf16 and f16), from
+// a backward's dx (B,T,3H) and dhn (B,T,H): the operand pass and (a) hp,
+// then the operand pass and (c) dwh and dbh, as vmmt_gru_scan_bwd runs
+// them around its scan; arguments as its own. For the card's checks and
+// timings of the products beside their plain version.
+extern "C" int vmmt_gru_bwd_products(int dtype, const void* h0, const void* outs,
+                                     const void* reset, const void* wh, const void* bh,
+                                     const void* dx, const void* dhn, void* hp, void* dwh,
+                                     void* dbh, void* hs, void* dp, void* wp, void* partial,
+                                     void* counters, int B, int T_len, int H, int reverse,
+                                     int splits, int bn, int stages, void* stream) {
+  if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
+  if (B == 0 || T_len == 0) return 0;
+  const Products q = products_of(h0, outs, reset, wh, bh, dx, dhn, hp, dwh, dbh, hs, dp, wp,
+                                 wp != nullptr ? wp : wh, wp != nullptr ? pad8(3 * H) : 3 * H,
+                                 partial, counters, B, T_len, H, reverse, splits, bn, stages);
+  if (H < 1 || dtype == 0 || !products_take(dtype, q)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int err = by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    const int e = launch_hoist<T>(q, s);
+    return e != 0 ? e : launch_dwh<T>(q, s);
+  });
+  return err != 0 ? err : (int)cudaGetLastError();
+}
+
+// CTAs of the wgmma products with tiles of 128 x bn and `stages` stages
+// that an SM holds at once (0 where none fits), and the dynamic shared
+// memory of one (wg_smem).
+extern "C" int vmmt_gru_products_occupancy(int dtype, int bn, int stages, int* per_sm,
+                                           int* smem_bytes) {
+  if (!known_dtype(dtype) || dtype == 0 || (bn != 128 && bn != 256) || stages < 2)
+    return (int)cudaErrorInvalidValue;
+  return by_dtype(dtype, [&](auto zero) {
+    using T = decltype(zero);
+    if constexpr (is_mma<T>()) {
+      return wgmma_gemm_occupancy<T>(bn, stages, per_sm, smem_bytes);
+    } else {
+      return (int)cudaErrorInvalidValue;
+    }
+  });
 }
 
 // How many clusters of the backward scan's launch plan the card holds at
@@ -1843,15 +2129,18 @@ extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int un
 }
 
 // Backward above 512 units, the tiled plan: the hoisted gate products and
-// dWh as vmmt_gru_scan_bwd's (tile_gemm.cuh takes any shape), the reverse
-// scan on gru_tiled_bwd_kernel. Arguments as vmmt_gru_scan_bwd's, then xch:
+// dWh as vmmt_gru_scan_bwd's (in bf16 and f16 (a)'s B operand is wt where
+// given, else wh), the reverse
+// scan on gru_tiled_bwd_kernel. Arguments as vmmt_gru_scan_bwd's (without
+// wp), then xch:
 // 2 * rows * row_tiles * tiled_ld(H) elements of the compute dtype; wt:
 // null where the kernel reads wh in place (3H elements a whole number of
 // 16-byte pieces), else wh padded to rows of tiled_ld(H), zero past 3H;
 // CTAs of `rows` x `units` cells (valid_tile), `cluster` of them splitting K
 // a tile, row_tiles row tiles a launch, one launch a chunk of rows *
 // row_tiles rows, with `resident` each CTA's rows of Wh in its shared
-// memory for the call (TiledLayout); dWh's K split over `splits` blocks; probe: null, or 1 + 4
+// memory for the call (TiledLayout); dWh's K split over `splits` blocks;
+// the products' bn and stages; probe: null, or 1 + 4
 // * T int64 globaltimer stamps of the first launch's CTA 0 (after the first
 // grid barrier, then each step's gate backward, barrier, product and sums).
 // wh (or wt) and xch 16-byte aligned.
@@ -1859,10 +2148,10 @@ extern "C" int vmmt_gru_tiled_bwd(int dtype, const void* x_proj, const void* mas
                                   const void* reset, const void* h0, const void* wh,
                                   const void* bh, const void* outs, const void* g, void* dx,
                                   void* dh0, void* dwh, void* dbh, void* hp, void* dhn,
-                                  void* partial, void* counters, void* xch, const void* wt,
-                                  int B, int T_len, int H, int reverse, int rows, int units,
-                                  int cluster, int row_tiles, int resident, int splits,
-                                  void* probe, void* stream) {
+                                  void* partial, void* counters, void* hs, void* dp, void* xch,
+                                  const void* wt, int B, int T_len, int H, int reverse, int rows,
+                                  int units, int cluster, int row_tiles, int resident, int splits,
+                                  int bn, int stages, void* probe, void* stream) {
   if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
   if (H < 1 || !valid_tile(rows, units, cluster) || row_tiles < 1 || splits < 1)
@@ -1875,19 +2164,18 @@ extern "C" int vmmt_gru_tiled_bwd(int dtype, const void* x_proj, const void* mas
     if ((wt == nullptr && H3 * sizeof(T) % 16 != 0) || reinterpret_cast<uintptr_t>(w) % 16 != 0 ||
         reinterpret_cast<uintptr_t>(xch) % 16 != 0)
       return (int)cudaErrorInvalidValue;
-    const float* h0f = static_cast<const float*>(h0);
-    const float* outsf = static_cast<const float*>(outs);
-    const float* resetf = static_cast<const float*>(reset);
-    OpArray<ScanHoist<T>, 1> hoist{{{B * T_len, H3, H, h0f, outsf, resetf,
-                                     static_cast<const T*>(wh), static_cast<const float*>(bh),
-                                     static_cast<float*>(hp), T_len, H, reverse}}};
-    tile_gemm<T>(hoist, s);
+    const Products q = products_of(h0, outs, reset, wh, bh, dx, dhn, hp, dwh, dbh, hs, dp,
+                                   nullptr, w, wt != nullptr ? tiled_ld<T>(H) : H3, partial,
+                                   counters, B, T_len, H, reverse, splits, bn, stages);
+    if (!products_take(dtype, q)) return (int)cudaErrorInvalidValue;
+    int err = hoist_products<T>(q, s);
+    if (err != 0) return err;
     Tiled<T> p = {};
     p.x_proj = static_cast<const T*>(x_proj);
     p.mask = static_cast<const float*>(mask);
-    p.reset = resetf;
-    p.h0 = h0f;
-    p.outs = outsf;
+    p.reset = q.reset;
+    p.h0 = q.h0;
+    p.outs = q.outs;
     p.g = static_cast<const float*>(g);
     p.hp = static_cast<const float*>(hp);
     p.w = static_cast<const T*>(w);
@@ -1905,14 +2193,8 @@ extern "C" int vmmt_gru_tiled_bwd(int dtype, const void* x_proj, const void* mas
     p.ldw = wt != nullptr ? tiled_ld<T>(H) : H3;
     p.ldx = tiled_ld<T>(H);
     p.resident = resident;
-    const int err = launch_tiled<T>(p, cluster, row_tiles, s);
-    if (err != 0) return err;
-    OpArray<ScanDWh<T>, 1> dw{{{H, H3, B * T_len, h0f, outsf, resetf,
-                                static_cast<const float*>(dx), static_cast<const float*>(dhn),
-                                static_cast<float*>(dwh), static_cast<float*>(dbh), T_len, H,
-                                reverse}}};
-    tile_gemm<T>(dw, s, splits, static_cast<float*>(partial), static_cast<int*>(counters));
-    return 0;
+    err = launch_tiled<T>(p, cluster, row_tiles, s);
+    return err != 0 ? err : dwh_products<T>(q, s);
   };
   const int err = by_dtype(dtype, run);
   return err != 0 ? err : (int)cudaGetLastError();

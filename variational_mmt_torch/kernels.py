@@ -43,9 +43,19 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # cannot hold a cluster of that size), smem bytes
         "vmmt_gru_scan_occupancy": [_I] * 4 + [_P] * 2,
         # dtype, x_proj, mask, reset (null: none), h0, wh, bh, outs, g, dx,
-        # dh0, dwh, dbh, hp and dhn scratch, dWh partials and counters, B, T,
-        # H, reverse, cluster, units, rows, dWh splits, stream
-        "vmmt_gru_scan_bwd": [_I] + [_P] * 16 + [_I] * 8 + [_P],
+        # dh0, dwh, dbh, hp and dhn scratch, the products' partials and
+        # counters, Hs, dP and Wh's copy (null: none; all three null in
+        # f32, whose products run on tile_gemm.cuh), B, T, H, reverse,
+        # cluster, units, rows, dWh splits, the wgmma products' tile N and
+        # stages, stream
+        "vmmt_gru_scan_bwd": [_I] + [_P] * 19 + [_I] * 10 + [_P],
+        # row 2's products alone on the wgmma engine: dtype, h0, outs, reset,
+        # wh, bh, dx, dhn, hp, dwh, dbh, Hs, dP, Wh's copy, partials,
+        # counters, B, T, H, reverse, dWh splits, tile N, stages, stream
+        "vmmt_gru_bwd_products": [_I] + [_P] * 15 + [_I] * 7 + [_P],
+        # dtype, tile N, stages, out: CTAs of the wgmma product an SM holds,
+        # smem bytes
+        "vmmt_gru_products_occupancy": [_I] * 3 + [_P] * 2,
         # dtype, H, cluster, units, rows, out: max active clusters, smem bytes
         "vmmt_gru_scan_bwd_occupancy": [_I] * 5 + [_P] * 2,
         # the forward's tiled plan (H > 512): dtype, x_proj, mask, reset, h0,
@@ -57,10 +67,11 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # co-resident CTAs in such clusters, smem bytes
         "vmmt_gru_tiled_fwd_occupancy": [_I] * 7 + [_P] * 2,
         # the backward's tiled plan (H > 512): dtype, the backward's 16
-        # pointers, exchange scratch, padded weights (null: Wh in place), B,
-        # T, H, reverse, rows, units, cluster, row_tiles, resident weights
-        # (0 or 1), dWh splits, probe (null: none), stream
-        "vmmt_gru_tiled_bwd": [_I] + [_P] * 18 + [_I] * 10 + [_P] * 2,
+        # pointers, Hs and dP (null in f32), exchange scratch, padded
+        # weights (null: Wh in place), B, T, H, reverse, rows, units,
+        # cluster, row_tiles, resident weights (0 or 1), dWh splits, the
+        # wgmma products' tile N and stages, probe (null: none), stream
+        "vmmt_gru_tiled_bwd": [_I] + [_P] * 20 + [_I] * 12 + [_P] * 2,
         # dtype, H, rows, units, cluster, resident, out: max co-resident CTAs
         # in such clusters, smem bytes
         "vmmt_gru_tiled_bwd_occupancy": [_I] * 6 + [_P] * 2,

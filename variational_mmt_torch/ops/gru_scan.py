@@ -115,6 +115,23 @@ bytes (:func:`_tiled_cost`); batches above a launch's rows run in chunks.
 The wrapper checks the plan with the card and raises
 ``NotImplementedError`` where the grid is not co-resident.
 
+Source note, the backward's hoisted products (row 2's (a) gate recompute
+``hp = round(h_prev) @ Wh + bh`` and (c) ``dWh = round(h_prev)^T
+round(dh_proj)``, gru.py:218 and :249, gathered over all (row, t) under
+both plans). At B = 256, T = 24, H = 1024-2048 they are 77-309 GFLOP, so
+the card's 989 TFLOP/s bound them, where tile_gemm.cuh (written for H =
+250: one shared-memory stage filled through registers from f32 operands,
+``mma.sync``) ran at about 5% of it. In bf16 and f16 (:func:`products_plan`,
+engine ``"wgmma"``) an operand pass writes the rounded operands once in
+the compute dtype, rows padded to 8 values (Hs before the scan, dP and dbh
+after it), and ``csrc/wgmma_gemm.cuh`` forms each product: TMA boxes into a
+ring of 128-byte-swizzled stages guarded by mbarriers, one producer thread,
+two consumer warpgroups on ``wgmma.mma_async`` m64n128/256k16, MN-major
+operands read through the transpose bits, dWh's K split in a fixed order
+where its tiles leave most SMs idle. f32 keeps tile_gemm.cuh's FMAs (JAX's
+f32 products are not TF32). :func:`scan_bwd_products` runs the products
+alone, :func:`scan_bwd_products_ref` is their plain version.
+
 Widths. Both kernels take every H >= 1 in f32, bf16 and f16 that a card's
 132 SMs tile (:func:`scan_kernel_holds`; from 16897 units they do not):
 clusters up to 512 units, above both tiled plans, as the Pallas scan takes
@@ -339,6 +356,36 @@ def gru_layer_scan_bwd_ref(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.T
         dWh += h_prev.to(cdt).float().t() @ dhp_c
         dbh += dhp.sum(0)
     return dx, dh, dWh, dbh
+
+
+def scan_bwd_operands_ref(h0: torch.Tensor, outs: torch.Tensor, dtype: torch.dtype,
+                          dx: torch.Tensor, dhn: torch.Tensor, reverse: bool = False,
+                          reset: Optional[torch.Tensor] = None):
+    """Plain version of the wgmma engine's operand pass: Hs (B*T, H) =
+    round(h_prev * keep) and dP (B*T, 3H) = round([dx[..., :2H] | dhn]) in
+    ``dtype``, and dbh (3H,) f32, the unrounded column sums of dh_proj."""
+    B, T, H = outs.shape
+    prev = _prev_states(h0, outs, reverse)
+    keep = _keep(reset)
+    hs = (prev if keep is None else prev * keep).to(dtype).reshape(B * T, H)
+    dhp = torch.cat([dx.float()[..., :2 * H], dhn.float()], -1).reshape(B * T, 3 * H)
+    return hs, dhp.to(dtype), dhp.sum(0)
+
+
+def scan_bwd_products_ref(h0: torch.Tensor, outs: torch.Tensor, Wh: torch.Tensor,
+                          bh: torch.Tensor, dx: torch.Tensor, dhn: torch.Tensor,
+                          reverse: bool = False, reset: Optional[torch.Tensor] = None):
+    """Plain version of row 2's two hoisted products (the wgmma engine's
+    operand pass, gate recompute and weight gradient): Hs and dP in Wh's
+    dtype (:func:`scan_bwd_operands_ref`), then hp (B,T,3H) = Hs @ Wh + bh
+    and dWh (H,3H) = Hs^T dP as f32 products over all (row, t), and dbh
+    (3H,) the unrounded column sums of dh_proj. What ``_gru_bwd_kernel``
+    forms step by step (gru.py:218 and :249) and
+    :func:`gru_layer_scan_bwd_ref` too. Returns (hp, dWh, dbh), f32."""
+    B, T, H = outs.shape
+    hs, dp, dbh = scan_bwd_operands_ref(h0, outs, Wh.dtype, dx, dhn, reverse, reset)
+    hp = hs.float() @ Wh.float() + bh.float()
+    return hp.reshape(B, T, 3 * H), hs.float().t() @ dp.float(), dbh
 
 
 SCAN_BWD_ROWS = 4  # batch rows per cluster (kScanRows of csrc/gru_scan.cu)
@@ -798,6 +845,92 @@ def _scan_fwd_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
                 ctas=clusters * cluster, threads=3 * SCAN_BWD_UNITS * SCAN_FWD_PARTS, smem=smem)
 
 
+# Row 2's hoisted products (a) and (c). The "wgmma" engine (bf16 and f16;
+# csrc/wgmma_gemm.cuh): tiles of GEMM_BM x bn (GEMM_BNS) through a ring of
+# GEMM_STAGES stages of GEMM_BK-deep K slices, which TMA fills in boxes of at
+# most TMA_BOX rows of 64 values (128 bytes); Hs and dP written by an operand
+# pass with rows padded to 8 values; dP's column sums (dbh) in blocks of
+# OPERAND_ROWS rows. The "tile" engine (f32, whose products JAX does not
+# take in TF32): tile_gemm.cuh's 64 x 64 tiles of FMAs.
+GEMM_BM, GEMM_BK = 128, 64  # kWgBM, kWgBK
+GEMM_BNS = (128, 256)
+GEMM_STAGES = 4
+GEMM_THREADS = 384  # kWgThreads: a producer warpgroup, two consumer warpgroups
+GEMM_MAX_SPLITS = 8  # most CTAs that split dWh's K a tile
+GEMM_SPLIT_MIN_K = 4  # fewest K slices a split takes
+TMA_BOX = 256  # most rows (and values) of a TMA box a side
+OPERAND_ROWS = 128  # kOperandRows
+TILE_GEMM = 64  # tile_gemm.cuh's tile side
+
+
+def pad8(n: int) -> int:
+    """n padded to a multiple of 8 values (``pad8`` of csrc/gru_scan.cu): a
+    16-bit row of whole 16-byte pieces, as TMA addresses it."""
+    return -(-n // 8) * 8
+
+
+def gemm_smem(bn: int, stages: int) -> int:
+    """Dynamic shared memory of a wgmma product CTA (``wg_smem``): 1 KB to
+    align the ring to the 1024-byte swizzle pattern, ``stages`` stages of A's
+    128 x 64 and B's 64 x bn 16-bit values, two mbarriers a stage."""
+    return 1024 + stages * (GEMM_BM + bn) * GEMM_BK * 2 + 2 * stages * 8
+
+
+def gemm_k_splits(k_slices: int, splits: int) -> list:
+    """The K slices that each of ``splits`` CTAs of a dWh tile reduces, in
+    the order the last CTA adds their partials (``wgmma_gemm_kernel``)."""
+    return [range(s * k_slices // splits, (s + 1) * k_slices // splits) for s in range(splits)]
+
+
+def products_engine(dtype: torch.dtype) -> str:
+    """The engine of row 2's products, which the dtype alone picks:
+    ``"tile"`` in f32, ``"wgmma"`` in bf16 and f16."""
+    return "wgmma" if kernels.mma_dtype(dtype) else "tile"
+
+
+def products_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int, tiled: bool) -> dict:
+    """The products' part of the backward's plan on the ``engine`` of
+    :func:`products_engine`. ``"tile"``:
+    dWh's 64 x 64 tiles (``dwh_tiles``), each split over ``dwh_splits``
+    blocks along K = B*T (1 on the tiled plan, whose 243 or more tiles fill
+    the card). ``"wgmma"``: tiles of 128 x ``gemm_bn`` (256 where (a)'s tiles
+    at 256 fill the card), ``gemm_stages`` stages, ``gemm_smem`` bytes a
+    CTA; Hs and dP rows ``ld_h`` and ``ld_3h`` apart, Wh copied to rows of
+    ``ld_3h`` where (on the cluster plan) its own are not whole 16-byte
+    pieces (``wh_copy``); the TMA ``boxes`` (rows, values), dWh's K slices
+    split over ``dwh_splits`` CTAs a tile where its tiles would leave more
+    than half the SMs idle (:func:`gemm_k_splits`); scratch of
+    ``partial_floats`` floats and ``counters`` ints."""
+    M, N = B * T, 3 * H
+    if products_engine(dtype) == "tile":
+        tiles = -(-H // TILE_GEMM) * -(-N // TILE_GEMM)
+        splits = 1 if tiled else max(1, min(8, -(-M // 32) // 4))
+        return dict(engine="tile", dwh_tiles=tiles, dwh_splits=splits,
+                    partial_floats=tiles * splits * TILE_GEMM ** 2 if splits > 1 else 1,
+                    counters=tiles)
+    tiles_of = lambda m, bn: -(-m // GEMM_BM) * -(-N // bn)  # noqa: E731
+    bn = GEMM_BNS[1] if tiles_of(M, GEMM_BNS[1]) >= sms else GEMM_BNS[0]
+    k_slices = -(-M // GEMM_BK)
+    tiles = tiles_of(H, bn)
+    # dWh's split where its tiles leave most SMs idle: the fewest CTAs a
+    # tile whose waves over the card take the least time, each CTA's share
+    # of K being 1 / splits of it
+    most = 1 if 2 * tiles >= sms else max(1, min(GEMM_MAX_SPLITS, k_slices // GEMM_SPLIT_MIN_K))
+    splits = min(range(1, most + 1), key=lambda n: (-(-tiles * n // sms) / n, n))
+    chunks = -(-M // OPERAND_ROWS)
+    strips = -(-pad8(N) // 32)
+    return dict(engine="wgmma", gemm_bm=GEMM_BM, gemm_bn=bn, gemm_bk=GEMM_BK,
+                gemm_stages=GEMM_STAGES, gemm_smem=gemm_smem(bn, GEMM_STAGES),
+                ld_h=pad8(H), ld_3h=pad8(N), wh_copy=not tiled and N * dtype.itemsize % 16 != 0,
+                boxes={"hs": (GEMM_BM, GEMM_BK), "hs_t": (GEMM_BK, 64), "wh": (GEMM_BK, 64),
+                       "dp": (GEMM_BK, 64)},
+                hoist_tiles=tiles_of(M, bn), dwh_tiles=tiles, dwh_splits=splits,
+                k_slices=k_slices, operand_chunks=chunks,
+                partial_floats=max(tiles * splits * GEMM_BM * bn if splits > 1 else 1,
+                                   chunks * N),
+                counters=tiles + strips)
+
+
 def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SMS) -> dict:
     """Launch plan of the backward for B rows, T steps and H units on a
     card of ``sms`` SMs. Up to 512 units (``layout`` ``"cluster"``):
@@ -806,19 +939,17 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SM
     ``smem`` bytes of dynamic shared memory per CTA (:func:`_bwd_smem`,
     mirrors ``ScanLayout`` of csrc/gru_scan.cu); above, every width on the
     tiled plan (:func:`_tiled_plan`, ``layout`` ``"tiled"``). All with the
-    dWh product's 64 x 64 tiles, each split over ``dwh_splits`` blocks along
-    K = B*T (1 on the tiled plan, whose 243 or more tiles fill the card).
-    Raises NotImplementedError for what the design cannot hold. Cached as
-    :func:`scan_fwd_plan` is."""
+    hoisted products' plan (:func:`products_plan`). Raises NotImplementedError for what the design
+    cannot hold. Cached as :func:`scan_fwd_plan` is."""
     return dict(_scan_bwd_plan(B, T, H, dtype, sms))
 
 
 @functools.cache
 def _scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     kernels.dtype_code("gru_layer_scan_bwd", dtype)
-    dwh_tiles = -(-H // 64) * -(-3 * H // 64)
     if H > SCAN_CLUSTER_MAX_HIDDEN:
-        return dict(_tiled_plan(B, H, dtype, sms), dwh_tiles=dwh_tiles, dwh_splits=1)
+        return dict(_tiled_plan(B, H, dtype, sms),
+                    **products_plan(B, T, H, dtype, sms, True))
     cluster, units = _cluster_units("gru_layer_scan_bwd", H)
     rows = _bwd_rows(H, dtype, units)
     smem = _bwd_smem(H, dtype, units, rows)
@@ -826,9 +957,68 @@ def _scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict
         raise NotImplementedError(f"gru_layer_scan_bwd kernel: {smem} bytes of shared memory "
                                   f"per CTA exceed {kernels.SMEM_PER_BLOCK}")
     clusters = -(-B // rows)
-    dwh_splits = max(1, min(8, -(-B * T // 32) // 4))
     return dict(layout="cluster", cluster=cluster, rows=rows, units=units, clusters=clusters,
-                ctas=clusters * cluster, smem=smem, dwh_tiles=dwh_tiles, dwh_splits=dwh_splits)
+                ctas=clusters * cluster, smem=smem,
+                **products_plan(B, T, H, dtype, sms, False))
+
+
+class LaunchCount:
+    """The launch count of a kernel that wrappers run inside their calls
+    (row 2's operand pass and wgmma product): ``launches``, as each
+    wrapper's own, under the kernel's ``__name__``."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0
+
+
+scan_bwd_operands = LaunchCount("scan_bwd_operands")  # the operand pass: two launches a call
+wgmma_gemm = LaunchCount("wgmma_gemm")  # (a) and (c): two launches a call
+
+
+SCRATCH_ALIGN = 256  # bytes between the parts of the products' scratch (TMA takes 16)
+
+
+def _products_scratch(plan: dict, B: int, T: int, H: int, dt: torch.dtype, device):
+    """((Hs, dP, Wh's copy, partials) addresses, zeroed counters, the tensor
+    that holds the four) of the products' ``plan``: Hs, dP and the copy
+    None on the tile engine, the copy None where the plan needs none. One
+    allocation of SCRATCH_ALIGN-aligned parts holds the four: each
+    allocation costs host time, which a small call pays in full."""
+    size = dt.itemsize
+    parts = [B * T * plan.get("ld_h", 0) * size, B * T * plan.get("ld_3h", 0) * size,
+             H * plan["ld_3h"] * size if plan.get("wh_copy") else 0, plan["partial_floats"] * 4]
+    spans = [-(-n // SCRATCH_ALIGN) * SCRATCH_ALIGN for n in parts]
+    buf = torch.empty((sum(spans),), dtype=torch.uint8, device=device)
+    counters = torch.zeros((plan["counters"],), dtype=torch.int32, device=device)
+    base, ptrs = buf.data_ptr(), []
+    for n, span in zip(parts, spans):
+        ptrs.append(base if n else None)
+        base += span
+    return tuple(ptrs), counters, buf
+
+
+def _products_checked(what: str, plan: dict, code: int, device: int) -> dict:
+    """``plan`` with, on the wgmma engine, the CTAs of its product an SM
+    holds (``gemm_per_sm``), checked against the kernel's own shared-memory
+    count; raises where none fits."""
+    if plan["engine"] == "tile":
+        return plan
+    per_sm, smem = kernels.occupancy(device, "gru_scan", "vmmt_gru_products_occupancy", code,
+                                     plan["gemm_bn"], plan["gemm_stages"])
+    if smem != plan["gemm_smem"]:
+        raise RuntimeError(f"{what} kernel: products plan of {plan['gemm_smem']} bytes of "
+                           f"shared memory, the kernel takes {smem}")
+    if per_sm < 1:
+        raise NotImplementedError(f"{what} kernel: a wgmma product CTA with {smem} bytes of "
+                                  "shared memory does not fit an SM")
+    return dict(plan, gemm_per_sm=per_sm)
+
+
+def _count_products(plan: dict) -> None:
+    if plan["engine"] == "wgmma":
+        scan_bwd_operands.launches += 2
+        wgmma_gemm.launches += 2
 
 
 def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
@@ -840,11 +1030,14 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     ``outs`` and their cotangent ``g``). Returns (dx_proj, dh0, dWh, dbh) in
     f32. CPU tensors take the plain version; CUDA tensors launch the
     kernels (the plan of the last launch, with the card's count of
-    co-resident clusters, is kept in ``gru_layer_scan_bwd.plan``).
-    ``probe``: on the tiled plan (H above 512), an int64 tensor of ``1 + 4 *
+    co-resident clusters, is kept in ``gru_layer_scan_bwd.plan``; its
+    ``engine`` says which engine ran the hoisted products: ``"wgmma"`` in
+    bf16 and f16, ``"tile"`` in f32). ``probe``: on
+    the tiled plan (H above 512), an int64 tensor of ``1 + 4 *
     T`` entries on the device for the first launch's ``%globaltimer`` stamps
     (ns) of CTA 0: after its first grid barrier, then each step's gate
-    backward, grid barrier, product and sums."""
+    backward, grid barrier, product and sums. A launch that is refused
+    raises, and no other engine runs in its place."""
     if x_proj.device.type == "cpu":
         return gru_layer_scan_bwd_ref(x_proj, mask, h0, Wh, bh, outs, g, reverse, reset)
     B, T, H3 = x_proj.shape
@@ -876,39 +1069,91 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     dbh = torch.empty((H3,), dtype=f32, device=x.device)
     hp = torch.empty((B, T, H3), dtype=f32, device=x.device)  # hoisted gate product
     dhn = torch.empty((B, T, H), dtype=f32, device=x.device)  # third block of dh_proj
-    splits, tiles = plan["dwh_splits"], plan["dwh_tiles"]
-    partial = torch.empty((tiles * splits * 64 * 64 if splits > 1 else 1,), dtype=f32,
-                          device=x.device)
-    counters = torch.zeros((tiles,), dtype=torch.int32, device=x.device)
+    # scratch holds hs, dp, wp and partial until the launches are queued
+    (hs, dp, wp, partial), counters, scratch = _products_scratch(plan, B, T, H, dt, x.device)
     code = kernels.DTYPE_CODE[dt]
     outputs = (dx.data_ptr(), dh0.data_ptr(), dWh.data_ptr(), dbh.data_ptr(), hp.data_ptr(),
-               dhn.data_ptr(), partial.data_ptr(), counters.data_ptr())
+               dhn.data_ptr(), partial, counters.data_ptr())
+    products = (plan.get("gemm_bn", 0), plan.get("gemm_stages", 0))
     _check_probe("gru_layer_scan_bwd", plan, probe, T, x.device)
+    if plan["engine"] == "wgmma" or plan["layout"] == "tiled":
+        # TMA and the tiled ring read Wh's rows in 16-byte pieces
+        args[4] = kernels.aligned(args[4])
     if plan["layout"] == "tiled":
-        gru_layer_scan_bwd.plan = _co_resident_tiled(
+        plan = _co_resident_tiled(
             "gru_layer_scan_bwd", "vmmt_gru_tiled_bwd_occupancy", plan, code, H, x.device.index)
-        args[4] = kernels.aligned(args[4])  # the ring reads Wh's rows in 16-byte pieces
+        gru_layer_scan_bwd.plan = _products_checked("gru_layer_scan_bwd", plan, code,
+                                                    x.device.index)
         xch = _exchange(plan, plan["ldx"], dt, x.device)
         wt = _tiled_weights(args[4], plan)
-        err = lib.vmmt_gru_tiled_bwd(code, *map(_ptr, args), *outputs, xch.data_ptr(), _ptr(wt),
-                                     B, T, H, int(reverse), plan["rows"], plan["units"],
-                                     plan["cluster"], plan["row_tiles"], int(plan["resident"]),
-                                     splits, _ptr(probe),
-                                     kernels.stream_of(x))
+        err = lib.vmmt_gru_tiled_bwd(code, *map(_ptr, args), *outputs, hs, dp,
+                                     xch.data_ptr(), _ptr(wt), B, T, H, int(reverse),
+                                     plan["rows"], plan["units"], plan["cluster"],
+                                     plan["row_tiles"], int(plan["resident"]), plan["dwh_splits"],
+                                     *products, _ptr(probe), kernels.stream_of(x))
     else:
         co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",
                                               "vmmt_gru_scan_bwd_occupancy", code, H,
                                               plan["cluster"], plan["units"], plan["rows"])
         _check_cluster("gru_layer_scan_bwd", plan, co_resident, smem)
-        gru_layer_scan_bwd.plan = dict(plan, max_active_clusters=co_resident,
-                                       one_wave=co_resident >= plan["clusters"])
-        err = lib.vmmt_gru_scan_bwd(code, *map(_ptr, args), *outputs, B, T, H, int(reverse),
-                                    plan["cluster"], plan["units"], plan["rows"], splits,
-                                    kernels.stream_of(x))
+        gru_layer_scan_bwd.plan = _products_checked(
+            "gru_layer_scan_bwd", dict(plan, max_active_clusters=co_resident,
+                                       one_wave=co_resident >= plan["clusters"]),
+            code, x.device.index)
+        err = lib.vmmt_gru_scan_bwd(code, *map(_ptr, args), *outputs, hs, dp, wp, B, T, H,
+                                    int(reverse), plan["cluster"], plan["units"], plan["rows"],
+                                    plan["dwh_splits"], *products, kernels.stream_of(x))
     kernels.check(lib, err, "gru_layer_scan_bwd")
     gru_layer_scan_bwd.launches += 1
     gru_layer_scan_bwd.reset_launches += r is not None
+    _count_products(plan)
     return dx, dh0, dWh, dbh
+
+
+def scan_bwd_products(h0: torch.Tensor, outs: torch.Tensor, Wh: torch.Tensor,
+                      bh: torch.Tensor, dx: torch.Tensor, dhn: torch.Tensor,
+                      reverse: bool = False, reset: Optional[torch.Tensor] = None):
+    """Row 2's hoisted products alone on the wgmma engine, as
+    :func:`gru_layer_scan_bwd` runs them around its scan: (hp, dWh, dbh)
+    from the saved ``outs`` and a backward's ``dx`` (B,T,3H) and ``dhn``
+    (B,T,H), f32; Wh bfloat16 or float16. CPU tensors take
+    :func:`scan_bwd_products_ref`; CUDA tensors launch the operand pass and
+    the product twice (``scan_bwd_products.plan``: the products' plan)."""
+    if outs.device.type == "cpu":
+        return scan_bwd_products_ref(h0, outs, Wh, bh, dx, dhn, reverse, reset)
+    B, T, H = outs.shape
+    dt = Wh.dtype
+    code = kernels.dtype_code("scan_bwd_products", dt)
+    if products_engine(dt) != "wgmma":
+        raise ValueError(f"scan_bwd_products kernel: the wgmma engine takes bfloat16 and "
+                         f"float16, not {dt}")
+    if tuple(Wh.shape) != (H, 3 * H) or tuple(h0.shape) != (B, H) or tuple(bh.shape) != (3 * H,) \
+            or tuple(dx.shape) != (B, T, 3 * H) or tuple(dhn.shape) != (B, T, H) \
+            or (reset is not None and tuple(reset.shape) != (B, T)):
+        raise ValueError("scan_bwd_products kernel: shapes do not match outs (B,T,H)")
+    plan = products_plan(B, T, H, dt, kernels.sm_count(outs.device.index), False)
+    f32 = torch.float32
+    ins = [h0.to(f32).contiguous(), outs.to(f32).contiguous(), _reset_arg(reset),
+           kernels.aligned(Wh), bh.to(f32).contiguous(), dx.to(f32).contiguous(),
+           dhn.to(f32).contiguous()]
+    kernels.require_cuda("scan_bwd_products", outs.device,
+                         **{k: t for k, t in zip(("h0", "outs", "reset", "Wh", "bh", "dx", "dhn"),
+                                                 ins) if t is not None})
+    hp = torch.empty((B, T, 3 * H), dtype=f32, device=outs.device)
+    dWh = torch.empty((H, 3 * H), dtype=f32, device=outs.device)
+    dbh = torch.empty((3 * H,), dtype=f32, device=outs.device)
+    # scratch holds hs, dp, wp and partial until the launches are queued
+    (hs, dp, wp, partial), counters, scratch = _products_scratch(plan, B, T, H, dt, outs.device)
+    scan_bwd_products.plan = _products_checked("scan_bwd_products", plan, code,
+                                               outs.device.index)
+    lib = kernels.library("gru_scan")
+    err = lib.vmmt_gru_bwd_products(code, *map(_ptr, ins), hp.data_ptr(), dWh.data_ptr(),
+                                    dbh.data_ptr(), hs, dp, wp, partial, counters.data_ptr(),
+                                    B, T, H, int(reverse), plan["dwh_splits"], plan["gemm_bn"],
+                                    plan["gemm_stages"], kernels.stream_of(outs))
+    kernels.check(lib, err, "scan_bwd_products")
+    _count_products(plan)
+    return hp, dWh, dbh
 
 
 gru_layer_scan.launches = 0
@@ -917,6 +1162,7 @@ gru_layer_scan.plan = None
 gru_layer_scan_bwd.launches = 0
 gru_layer_scan_bwd.reset_launches = 0
 gru_layer_scan_bwd.plan = None
+scan_bwd_products.plan = None
 
 
 class _GruLayerScanAD(torch.autograd.Function):

@@ -21,18 +21,36 @@ and power limit.
     PYTHONPATH=<tree> python <this file> -wide [BxTxH,...]
 
 times rows 1 and 2 (the GRU-scan forward and backward, reset-free, bf16)
-above 512 units instead (by default the eleven shapes of ``chip_smoke.py``
+at those shapes instead (by default the eleven shapes of ``chip_smoke.py``
 phase 13, B=64 T=25 and B=256 T=24 at H = 520 to 2500): for each shape and
 row the call's time by CUDA events (``ms``), the device time of each CUDA
 kernel of one call under ``torch.profiler``, grouped by kernel name
 (``kernels``; row 2: the hoisted gate product, the reverse scan, the dWh
-product and the fill of dWh's tile counters) with the count of its records
-over 10 calls (``records``), their sum (``device_ms``), the wrapper's plan
-and, on a tiled plan, the scan's µs a step by phase (its
-probe); beside row 1, cuDNN's ``nn.GRU`` forward by kernel on the same
-clock (it also computes the input projection). Then the CUDA kernels that
-the profiler records for one call of rows 5 and 6 at the training shape
-(``decoder``), whose kernels launch through ``cudaLaunchCooperativeKernel``.
+product, the operand pass on the wgmma engine, the fill of the counters)
+with the count of its records over 10 calls (``records``), their sum
+(``device_ms``), the wrapper's plan and, on a tiled plan, the scan's µs a
+step by phase (its probe); row 2's device time split into the reverse
+scan, the hoisted products (``products_ms``: the operand pass, the wgmma or
+tile_gemm products) and the rest, with the products' TFLOP/s (12 B T H^2
+FLOPs); beside row 1, cuDNN's ``nn.GRU`` forward by kernel
+on the same clock (it also computes the input projection). Then the CUDA
+kernels that the profiler records for one call of rows 5 and 6 at the
+training shape and at H = 2048 (``decoder``, by H), whose kernels launch
+through ``cudaLaunchCooperativeKernel``; row 6's split names its hoisted
+gate products (``DecHoist`` on tile_gemm.cuh) apart.
+
+    PYTHONPATH=<tree> python <this file> -host [BxTxH,...]
+
+says where the host's time of row 2's call goes at those shapes (bf16,
+reset-free; by default the quality gate's B=64 T=32 H=128 and the
+flagship's B=64 T=24 H=250), each over 100 calls after 10, synchronized
+only before and after: the call by CUDA events and on the device clock,
+then host µs a call of the wrapper (``call_us``), of its C entry point
+alone on the arguments the wrapper passed it (``entry_us``: launches,
+tensor-map encodings, attribute calls), of the wgmma products' C entry
+alone (``products_us``), of the products' scratch allocations
+(``scratch_us``), and of one ``cuTensorMapEncodeTiled`` through ctypes
+(``encode_us``, ctypes' own cost included); a part this tree lacks is null.
 
     PYTHONPATH=<tree> python <this file> -tilings BxTxH[,...]
 
@@ -44,9 +62,11 @@ plan's cost model.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import math
 import subprocess
+import time
 
 import torch
 from torch.autograd import DeviceType
@@ -171,10 +191,33 @@ def timed(fn, plan_of, phases, args, T: int) -> dict:
     return rec
 
 
+# row 2's CUDA kernels by part: the reverse scan, the hoisted products
+# (the wgmma engine's operand pass and product, or tile_gemm's gate
+# recompute and dWh)
+SCAN_KERNELS = ("gru_scan_bwd_kernel", "gru_tiled_bwd_kernel", "gru_wide_bwd_kernel",
+                "gru_stream_bwd_kernel")
+PRODUCT_KERNELS = ("scan_hs_kernel", "scan_dp_kernel", "wgmma_gemm_kernel", "tile_gemm_kernel")
+
+
+def row2_split(by_kernel: dict, B: int, T: int, H: int) -> dict:
+    """Row 2's device ms by part (scan, products, operand pass, the rest)
+    and the products' TFLOP/s: (a) and (c) are 6 B T H^2 FLOPs each."""
+    part = lambda keys: sum(v for k, v in by_kernel.items()  # noqa: E731
+                            if k.split("<", 1)[0] in keys)
+    out = {"scan_ms": part(SCAN_KERNELS), "products_ms": part(PRODUCT_KERNELS),
+           "operand_pass_ms": part(PRODUCT_KERNELS[:2]), "gemm_ms": part(PRODUCT_KERNELS[2:])}
+    out["rest_ms"] = sum(by_kernel.values()) - out["scan_ms"] - out["products_ms"]
+    flops = 12.0 * B * T * H * H
+    out["products_tflops"] = flops / out["products_ms"] / 1e9 if out["products_ms"] else None
+    out["gemm_tflops"] = flops / out["gemm_ms"] / 1e9 if out["gemm_ms"] else None
+    return out
+
+
 def wide_times(shapes: str, r, g) -> dict:
     """Rows 1 and 2 at each ``BxTxH`` shape in bf16: each call by CUDA
     events, the device ms of each of its CUDA kernels and, on a tiled plan,
-    the scan's µs a step by phase; cuDNN's nn.GRU forward by kernel."""
+    the scan's µs a step by phase; row 2's split; cuDNN's nn.GRU forward by
+    kernel."""
     out = {}
     for shape in shapes.split(","):
         (B, T, H), args = scan_bwd_args(shape, r, g)
@@ -183,6 +226,7 @@ def wide_times(shapes: str, r, g) -> dict:
                             lambda: gru_scan.gru_layer_scan.plan, fwd_phases_us, fargs, T),
                "bwd": timed(lambda a=args: gru_scan.gru_layer_scan_bwd(*a),
                             lambda: gru_scan.gru_layer_scan_bwd.plan, phases_us, args, T)}
+        rec["bwd"]["split"] = row2_split(rec["bwd"]["kernels"], B, T, H)
         gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
         xin = r(B, T, 2 * H).to(torch.bfloat16)
         with torch.no_grad():
@@ -256,10 +300,101 @@ def tilings(shapes: str, r, g) -> dict:
     return out
 
 
-def decoder_calls(r, g, bf) -> dict:
+HOST_SHAPES = "64x32x128,64x24x250"  # the quality gate's encoder direction, the flagship's
+
+
+def host_us(fn, iters: int = 100, warmup: int = 10) -> float:
+    """Host µs a call of ``fn``, synchronized only before and after."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) * 1e6 / iters
+    torch.cuda.synchronize()
+    return us
+
+
+def entry_of(lib, name: str, call):
+    """A function that calls C entry point ``name`` of ``lib`` with the
+    arguments ``call()`` passed it (None where ``call`` did not reach it).
+    The wrapper's scratch is freed by then, but nothing else allocates from
+    PyTorch's cache while the entry runs, so the pointers stay mapped; the
+    counters are not zeroed again, which may change values, not bounds."""
+    real = getattr(lib, name)
+    seen = []
+    setattr(lib, name, lambda *a: seen.append(a) or real(*a))
+    try:
+        call()
+    finally:
+        setattr(lib, name, real)
+    return (lambda: real(*seen[-1])) if seen else None
+
+
+def encode_us(iters: int = 1000):
+    """Host µs of one cuTensorMapEncodeTiled of a bf16 (4096, 1024) matrix
+    in 64 x 128 boxes, 128-byte swizzle, through ctypes (None where the
+    libcuda does not offer it or refuses the map)."""
+    try:
+        fn = ctypes.CDLL("libcuda.so.1").cuTensorMapEncodeTiled
+    except (OSError, AttributeError):
+        return None
+    raw = ctypes.create_string_buffer(256)
+    tmap = ctypes.c_void_p((ctypes.addressof(raw) + 63) // 64 * 64)  # 64-byte aligned
+    base = torch.empty((4096, 1024), dtype=torch.bfloat16, device="cuda")
+    u64, u32 = ctypes.c_uint64 * 2, ctypes.c_uint32 * 2
+    dims, strides = u64(1024, 4096), u64(2048, 0)
+    box, step = u32(64, 128), u32(1, 1)
+    bf16, swizzle_128b, l2_256b = 9, 3, 3  # CUtensorMapDataType, ..Swizzle, ..L2promotion
+    args = (tmap, bf16, 2, ctypes.c_void_p(base.data_ptr()), dims, strides, box, step, 0,
+            swizzle_128b, l2_256b, 0)
+    if fn(*args) != 0:
+        return None
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    return (time.perf_counter() - t0) * 1e6 / iters
+
+
+def host_times(shapes: str, r, g) -> dict:
+    """Row 2's call at each ``BxTxH`` shape in bf16 and where its host time
+    goes (the module docstring's ``-host``)."""
+    from variational_mmt_torch import kernels
+
+    lib = kernels.library("gru_scan")
+    out = {"encode_us": encode_us()}
+    for shape in shapes.split(","):
+        (B, T, H), args = scan_bwd_args(shape, r, g)
+        call = lambda a=args: gru_scan.gru_layer_scan_bwd(*a)  # noqa: E731
+        call()
+        plan = gru_scan.gru_layer_scan_bwd.plan
+        entry = "vmmt_gru_tiled_bwd" if plan["layout"] == "tiled" else "vmmt_gru_scan_bwd"
+        rec = {"ms": event_ms(call, iters=100, warmup=10), "device_ms": device_ms(call),
+               "plan_engine": plan.get("engine"), "call_us": host_us(call),
+               "entry_us": host_us(entry_of(lib, entry, call)),
+               "products_us": None, "scratch_us": None}
+        products = getattr(gru_scan, "scan_bwd_products", None)
+        if products is not None and hasattr(lib, "vmmt_gru_bwd_products"):
+            h0, outs, wh, bh = args[2], args[5], args[3], args[4]
+            dx, dhn = r(B, T, 3 * H), r(B, T, H)
+            fn = entry_of(lib, "vmmt_gru_bwd_products",
+                          lambda: products(h0, outs, wh, bh, dx, dhn, True))
+            rec["products_us"] = host_us(fn)
+            pplan = gru_scan.scan_bwd_products.plan
+            rec["scratch_us"] = host_us(lambda: gru_scan._products_scratch(
+                pplan, B, T, H, torch.bfloat16, outs.device))
+        out[f"B={B} T={T} H={H}"] = rec
+    return out
+
+
+DECODER_WIDTHS = (500, 2048)  # rows 5 and 6 under -wide: the training width, the streamed plan
+
+
+def decoder_calls(r, g, bf, H: int = 500) -> dict:
     """Rows 5 and 6 at the training shape (B=64, T=25, S=24, H=500, memory
-    std 0.1), ``bf``: {name: a call}."""
-    B, T, S, H = 64, 25, 24, 500
+    std 0.1) or at width H, ``bf``: {name: a call}."""
+    B, T, S = 64, 25, 24
     w = lambda *s: (r(*s) / math.sqrt(H)).to(bf)  # noqa: E731
     dmid = ((torch.rand(B, T, H, generator=g, device="cuda") > 0.3).float() / 0.7).to(bf)
     lengths = torch.randint(8, S + 1, (B,), generator=g, device="cuda")
@@ -279,6 +414,8 @@ def main(argv=None) -> None:
     p.add_argument("-dtype", default="bfloat16", choices=["bfloat16", "float16", "float32"])
     p.add_argument("-wide", nargs="?", const=WIDE_SHAPES, default=None,
                    help="time rows 1 and 2 at these BxTxH shapes (bf16) instead")
+    p.add_argument("-host", nargs="?", const=HOST_SHAPES, default=None,
+                   help="say where row 2's host time goes at these BxTxH shapes (bf16)")
     p.add_argument("-tilings", default=None,
                    help="time every tiling of both tiled plans at these BxTxH shapes")
     opt = p.parse_args(argv)
@@ -289,10 +426,21 @@ def main(argv=None) -> None:
     g = torch.Generator(device="cuda").manual_seed(5)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")  # noqa: E731
     if opt.wide is not None:
-        decoder = {name: {"ms": event_ms(fn, iters=10, warmup=2), "kernels": kernels_ms(fn)}
-                   for name, fn in decoder_calls(r, g, torch.bfloat16).items()}
-        print(json.dumps({"wide_times": wide_times(opt.wide, r, g), "decoder": decoder,
-                          "card": card}, default=str))
+        decoder = {}
+        for H in DECODER_WIDTHS:
+            calls = decoder_calls(r, g, torch.bfloat16, H)
+            decoder[f"H={H}"] = {name: {"ms": event_ms(fn, iters=10, warmup=2),
+                                        "kernels": kernels_ms(fn)} for name, fn in calls.items()}
+            bwd = decoder[f"H={H}"]["decoder_bwd"]["kernels"]
+            hoist = sum(v for k, v in bwd.items() if "DecHoist" in k)
+            bwd_ms = sum(bwd.values())
+            decoder[f"H={H}"]["decoder_bwd"]["hoist_ms"] = hoist
+            decoder[f"H={H}"]["decoder_bwd"]["hoist_share"] = hoist / bwd_ms if bwd_ms else None
+        print(json.dumps({"wide_times": wide_times(opt.wide, r, g),
+                          "decoder": decoder, "card": card}, default=str))
+        return
+    if opt.host is not None:
+        print(json.dumps({"host_times": host_times(opt.host, r, g), "card": card}))
         return
     if opt.tilings is not None:
         print(json.dumps({"tilings": tilings(opt.tilings, r, g), "card": card}))

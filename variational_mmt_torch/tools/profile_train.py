@@ -1,7 +1,7 @@
 """Where the time of a training step goes on the card.
 
     python -m variational_mmt_torch.tools.profile_train [--out DIR] [--steps N]
-                                                       [--fast H]
+                                                       [--fast H | --gate]
 
 Builds the training cells of ``chip_smoke.py`` (``tools/flagship.py``:
 vmmt_c at full width with random weights from numpy seed 0, bf16,
@@ -11,7 +11,11 @@ seed 1, and 4 packed batches of 64 rows of 64 tokens), then for
 up with 3 Trainer steps and takes N more (default 3) under
 ``torch.profiler``. With ``--fast H``, one cell instead: the fast config
 (``input_feed`` off, ``use_pallas``, ``pallas_decoder`` off) at hidden
-width H, random weights from numpy seed 0, on the same batches.
+width H, random weights from numpy seed 0, on the same batches. With
+``--gate``, one cell instead: the quality gate's vmmt_c
+(``tools/quality_gate.py``'s defaults: hidden 256, so B = 64 and H = 128 a
+direction in the encoder, buckets of 16, 24 and 32 tokens, seed 11) on its
+ambiguous corpus, batches as the gate draws them.
 Prints, per setting, the host wall time per step (also of N steps before,
 without the profiler), the device's busy time
 and idle share, and the device time by layer (GRU-scan kernels, decoder
@@ -43,7 +47,10 @@ LAYERS = (  # (layer, names of the port's kernels or substrings of library ones)
     ("GRU-scan kernels (rows 1, 2)", ("gru_scan_fwd_kernel", "gru_scan_bwd_kernel",
                                       "gru_tiled_fwd_kernel", "gru_tiled_bwd_kernel",
                                       "gru_wide_fwd_kernel",  # an older tree's wide forward
-                                      "ScanHoist", "ScanDWh")),
+                                      "ScanHoist", "ScanDWh",
+                                      # row 2's products on the wgmma engine
+                                      "scan_hs_kernel", "scan_dp_kernel",
+                                      "wgmma_gemm_kernel")),
     ("decoder sequence kernels (rows 5, 6)", ("decoder_fwd_kernel", "DecHoist",
                                               "decoder_bwd_kernel")),
     ("cuBLAS GEMM", ("gemm", "sm90", "cutlass", "xmma", "gemv")),
@@ -84,12 +91,34 @@ def profiled(run: Callable[[], object]) -> Tuple[float, Dict[str, List[float]]]:
     return wall_us, by_kernel
 
 
+def gate_cell():
+    """(config, weights, batches) of the quality gate's vmmt_c run at seed
+    11, as ``tools/quality_gate.py``'s ``run_one`` builds them."""
+    import numpy as np
+
+    from variational_mmt_torch.data.dataset import BinarizedDataset, BucketIterator
+    from variational_mmt_torch.data.synthetic import make_ambiguous_corpus
+    from variational_mmt_torch.tools import quality_gate as qg
+
+    opt = qg.parse_args(["-models", "vmmt_c", "-seeds", "11"])
+    src, tgt, feats, sv, tv, _, _ = make_ambiguous_corpus(
+        opt.n_train, vocab_size=opt.vocab_size, img_dim=opt.img_dim, seed=opt.data_seed,
+        regions=opt.img_regions)
+    ids = lambda lines, v: [np.asarray(v.encode(x), np.int32) for x in lines]  # noqa: E731
+    batches = BucketIterator(BinarizedDataset(ids(src, sv), ids(tgt, tv)), opt.batch_size,
+                             qg.BUCKETS, img_feats=feats, shuffle=True, seed=11)
+    cfg = qg.build_cfg("vmmt_c", 11, opt)
+    return cfg, params_from_jax(init_params(cfg.model, seed=11), cfg.model), batches
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", default=os.path.join("build", "profile"))
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--fast", type=int, default=None, metavar="H",
                     help="time the fast config at hidden width H instead")
+    ap.add_argument("--gate", action="store_true",
+                    help="time the quality gate's vmmt_c training cell instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: needs a CUDA card")
@@ -110,6 +139,9 @@ def main() -> None:
         state = params_from_jax(init_params(fast, seed=0), fast)
         cells = [(f"fast hidden_dim={args.fast}", dataclasses.replace(cfg, model=fast),
                   flagship.train_batches(fast))]
+    if args.gate:
+        cfg, state, batches = gate_cell()
+        cells = [("quality gate vmmt_c", cfg, batches)]
 
     for cell, c, batches in cells:
         model = build_model(c.model, device="cuda")

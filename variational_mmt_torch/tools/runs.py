@@ -27,7 +27,10 @@ ROUTES = ("kernels", "scans", "plain")
 COUNTERS = {"gru_layer_scan": gru_scan.gru_layer_scan,
             "gru_layer_scan_bwd": gru_scan.gru_layer_scan_bwd,
             "decode_step": decode_step.decode_step, "gru_chain": decode_step.gru_chain,
-            "decoder_fwd": decoder.decoder_fwd, "decoder_bwd": decoder.decoder_bwd}
+            "decoder_fwd": decoder.decoder_fwd, "decoder_bwd": decoder.decoder_bwd,
+            # row 2's operand pass and products on the wgmma engine, two of
+            # each a bf16 backward call
+            "scan_bwd_operands": gru_scan.scan_bwd_operands, "wgmma_gemm": gru_scan.wgmma_gemm}
 
 
 def add_route_arg(p: argparse.ArgumentParser) -> None:
