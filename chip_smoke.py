@@ -100,7 +100,7 @@ in PERF.md).
    mean loss of the last 4 steps below that of the first 4, and the launch
    counts of the GRU scan, its backward and the decoder sequence kernels
    must rise. Step time and target tokens/s for pallas_decoder True and
-   False, four runs of 48 steps each (12 passes over the batches), in
+   False, four runs of 24 steps each (6 passes over the batches), in
    turns (1 0 0 1 1 0 0 1), each after one untimed pass of its route, with
    each route's spread (max - min) / mean over its runs, each route's MFU
    (``utils/flops.train_step_flops`` of the batches' padded lengths over the
@@ -247,18 +247,26 @@ in PERF.md).
     launches (nor, late in this process, every record of the products';
     the process reads row 2 at H = 512 too, and a time of the split is
     "not measured" unless the profiler kept the record of every launch of
-    its kernels there); cuDNN's in both processes.
-    Rows 1 and 2 at
-    H = 512 (16-CTA clusters; B = 64, T = 24 in f32 and bf16, B = 256 in
+    its kernels there); cuDNN's in both processes. The forward's tiled
+    plan below 513 units (``LOW_TILED_SCANS``: B = 64 and 256, T = 24, H =
+    448 and 512; the plan forced, whatever the rule picks there) in f32 and
+    bf16, with and without a reset stream, both directions, against the
+    plain version, bf16 bit-identical in two launches, its bf16 time in
+    turns with the plain version and its µs a step by phase, and in the
+    fresh process both forward plans and cuDNN's nn.GRU forward on the
+    device's clock, printed beside the plan. Rows 1 and 2 at
+    H = 512 (the forward on the plan its rule picks, row 2 on 16-CTA
+    clusters; B = 64, T = 24 in f32 and bf16, B = 256 in
     bf16) and H = 300 (B = 64, both dtypes) the same way, bf16 times beside
     cuDNN's nn.GRU and the bound and, at H = 512, row 2's products checked
     as in phase 3 and its device time split by part (in the fresh
     process); rows 3-6 at H = 250 (padded to 252 by the
     wrappers): phase 3's step checks at N = 128 and 32 (S = 24) and its
     decoder checks at B = 64, T = 25, S = 24. Then the entry points at
-    these widths from phase 10's corpus, 10 steps of ``cli.train`` each:
+    these widths from phase 10's corpus, 5 steps of ``cli.train`` each:
     ``-rnn_size 1024`` with the flagship config's ``pallas_decoder`` on
-    (encoder halves of 512 units on 16-CTA clusters of rows 1 and 2; rows 5
+    (encoder halves of 512 units: row 1 on the plan its rule picks at
+    batch 64, row 2 on 16-CTA clusters; rows 5
     and 6 at 1024 units, the forward on the streamed plan), ``-rnn_size
     250`` (rows 1, 2, 5 and 6 at 252), ``-rnn_size 2048`` (encoder halves
     of 1024 units on the tiled plans; rows 5 and 6 on the streamed plan,
@@ -352,7 +360,7 @@ in PERF.md).
     (``make_train_step`` over ``batch_tensors`` of Python-assembled
     batches): the first 20 losses must be equal to the bit (same kernels,
     batches and generator draws; counted as ``host_path``); ms/step in
-    turns, 4 runs of 48 steps each with the spread, beside the same direct
+    turns, 4 runs of 24 steps each with the spread, beside the same direct
     loop over native batches (``direct_native``) and over native batches
     from the prefetch thread, copied on the consumer (``thread_only``);
     the Trainer's and the direct loop's device busy share from one
@@ -448,10 +456,11 @@ in PERF.md).
     after phase 20 in the same directory; ROADMAP queue 1 item 9): (a)
     each of rows 1-6 in float16 against its float16 plain version under
     bf16's rules and bounds: rows 1 and 2 at the serving and training
-    shapes and at B=64, T=24, H = 512, 1024 and 2048 (the cluster plans,
-    then both tiled plans, which it checks, with the forward bit-identical
-    in two launches and its µs a step by phase) with and without a reset
-    stream;
+    shapes and at B=64, T=24, H = 512, 1024 and 2048 (on the plans their
+    rules pick, which it checks: at 512 row 2 on clusters, row 1 tiled on
+    an H100, its clusters running in waves there; every tiled forward
+    bit-identical in two launches with its µs a step by phase) with and
+    without a reset stream;
     rows 3 and 4 at N=1024, S=24, H=500; rows 5 and 6 at B=64, T=25, S=24,
     H=500 over the whole sequence at memory std 0.1, and at std 0.5 over
     the first 4 steps of each pass with the distance from the f32 math at
@@ -546,7 +555,7 @@ DEC_WIDE_ITERS = 10  # CUDA-event calls a turn of their bf16 times
 H100_L2_BYTES = 50e6  # the H100's L2 cache
 BIG_BATCH, BIG_BATCH_STEPS = 1024, 4  # phase 5's Trainer at -batch_size 1024 (row chunks)
 PEAKED_STEPS, PEAKED_DRIFT_RATIO = 4, 1.5  # checks at memory std 0.5 (module docstring)
-TRAIN_BATCH, TRAIN_BATCHES, TRAIN_STEPS, TIMED_STEPS = 64, 4, 30, 48  # timed: whole passes
+TRAIN_BATCH, TRAIN_BATCHES, TRAIN_STEPS, TIMED_STEPS = 64, 4, 30, 24  # timed: whole passes
 TIMED_ORDER = (True, False, False, True, True, False, False, True)  # pallas_decoder, in turns
 PACK_SCAN_SHAPE = dict(B=64, T=64, H=250)  # the packed training path's encoder scans
 PACK_ROW, PACK_K = 64, 4  # packed row length, most segments a row
@@ -575,7 +584,7 @@ EVAL_MBR_SAMPLES, EVAL_MBR_CHECK = 8, 32  # MBR's samples and sentences, pallas_
 WIDTH_SCANS = ((64, 24, 512, ("float32", "bfloat16")), (256, 24, 512, ("bfloat16",)),
                (64, 24, 300, ("float32", "bfloat16")))  # B, T, H and the checked dtypes
 WIDTH_STEP_NS, WIDTH_DEC = (128, 32), dict(B=64, T=25, S=24, H=250)  # rows 3-6 at H = 250
-WIDTH_CLI_STEPS = 10  # train CLI steps at each -rnn_size of phase 13
+WIDTH_CLI_STEPS = 5  # train CLI steps at each -rnn_size of phase 13
 # rows 1 and 2 above 512 units (both passes' tiled plans): (B, T, H),
 # f32 and bf16, with and without a reset stream
 WIDE_SCANS = ((64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (64, 25, 1024),
@@ -583,6 +592,10 @@ WIDE_SCANS = ((64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (6
               (64, 25, 2500))
 # row 2 at H = 512 (16-CTA clusters) split by kernel in phase 13's fresh child
 SPLIT_SCANS = tuple((B, T, H) for B, T, H, _ in WIDTH_SCANS if H == 512)
+# the tiled forward below 513 units (its plan wherever the cluster plan
+# runs in waves), f32 and bf16, with and without a reset stream; timed
+# beside the cluster plan and cuDNN in phase 13's fresh child
+LOW_TILED_SCANS = ((64, 24, 448), (64, 24, 512), (256, 24, 448), (256, 24, 512))
 WIDE_ITERS = 10  # CUDA-event calls a turn of the wide scans' bf16 times
 WIDE_DEVICE_TIMEOUT_S = 180  # phase 13's fresh process timing rows 1 and 2 on the device
 FAST_WIDTHS = (1000, 2048)  # the fast config's f32 checks: tiled decoder layers
@@ -598,7 +611,7 @@ OPTIONS = {"fast": dict(input_feed=False), "lstm": dict(rnn_type="lstm"),
            "conv_attn": dict(img_feat_type="conv", img_pool="attn")}
 ENS_DTYPES = ("float32", "bfloat16", "int8")  # -infer_dtype of the timed decodes
 HOST_BATCH, HOST_ROW, HOST_K = 64, 64, 4  # phase 16: batch 64; packed 64 rows of 64, K = 4
-HOST_CHECK_STEPS, HOST_TIMED, HOST_PACKED_CHECK, HOST_PACKED_TIMED = 20, 48, 4, 12
+HOST_CHECK_STEPS, HOST_TIMED, HOST_PACKED_CHECK, HOST_PACKED_TIMED = 20, 24, 4, 12
 # phase 16's step fed four ways, in turns; packed: the Trainer and the parent's loop
 HOST_FEEDS = ("prefetched", "direct", "direct_native", "thread_only")
 HOST_ORDER = (HOST_FEEDS + HOST_FEEDS[::-1]) * 2
@@ -630,7 +643,7 @@ EXTRACT_TURNS, EXTRACT_ITERS = ("f32", "tf32", "tf32", "f32"), 10  # phase 18 (c
 EXTRACT_CLI_IMAGES, EXTRACT_SENT = 64, 32  # phase 18 (d), (f)
 H100_TF32_FLOPS = 494.7e12  # dense TF32 tensor-core peak (NVIDIA data sheet, SXM)
 F16 = "float16"
-F16_SCAN_WIDTHS = (512, 1024, 2048)  # phase 21 (a): the cluster plans, then the tiled ones
+F16_SCAN_WIDTHS = (512, 1024, 2048)  # phase 21 (a): the plans the rules pick, then tiled
 F16_ITERS = 10  # CUDA-event calls a turn of phase 21's bf16 and float16 kernel times
 F16_SERVE_SENT = 256  # phase 21 (b): one request of 256 sentences
 F16_TIMED_RUNS, F16_TIMED_STEPS = 2, 12  # phase 21 (c): whole passes over the 4 batches
@@ -663,6 +676,11 @@ KERNEL_ROWS = (
     ("decoder_bwd", "variational_mmt_torch/csrc/decoder.cu",
      "variational_mmt_tpu/ops/pallas/decoder.py:304"),
 )
+
+
+def card_sms() -> int:
+    """The SMs of card 0, which the wrappers plan for."""
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def fail(msg: str) -> None:
@@ -2867,9 +2885,9 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str,
     nn.GRU forward and backward, the bounds, the forward's µs a step by
     phase."""
     at = f"B={B} T={T} H={H}"
-    layout = "tiled"
     r = {}
     for dt_name in ("float32", "bfloat16"):
+        layout = gru_scan.scan_fwd_plan(B, T, H, getattr(torch, dt_name), card_sms())["layout"]
         ins, gout, reset = reset_inputs(g, rng, getattr(torch, dt_name), B, T, H, 8)
         for label, rs in (("", None), ("reset_", reset)):
             fwd, bwd, _ = reset_errs(gru_scan, ins, gout, rs)
@@ -2923,6 +2941,66 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str,
               f"the device's clock in a fresh process ({fmt_ms(t['library_ms'])} in this one; "
               f"eager {t['library_eager_ms']:.4f} ms), bound "
               f"{t['bound_ms']:.4f} ms ({t['bound_by']}; {card})")
+    return r
+
+
+class fwd_plan:
+    """``gru_scan.gru_layer_scan`` launches ``plan`` in place of the plan
+    its planner picks, inside a ``with`` block."""
+
+    def __init__(self, gru_scan, plan: dict):
+        self.gru_scan, self.plan, self.planner = gru_scan, plan, gru_scan.scan_fwd_plan
+
+    def __enter__(self):
+        self.gru_scan.scan_fwd_plan = lambda *a, **k: dict(self.plan)
+
+    def __exit__(self, *exc):
+        self.gru_scan.scan_fwd_plan = self.planner
+
+
+def low_tiled_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str, fresh: dict) -> dict:
+    """The tiled forward below 513 units at (B, T, H): f32 and bf16, with
+    and without a reset stream, both directions, against the plain version
+    (max abs err), bf16 bit-identical in two launches, on the tiled plan
+    whatever the plan's rule picks there; bf16 times by CUDA events in
+    turns with the plain version, and from the fresh process of ``fresh``
+    the device clocks of both plans and cuDNN's nn.GRU forward."""
+    at = f"B={B} T={T} H={H}"
+    r = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        ins, _, reset = reset_inputs(g, rng, dt, B, T, H, 8)
+        plan = gru_scan.tiled_fwd_plan(B, H, dt, card_sms())
+        with fwd_plan(gru_scan, plan):
+            err = max(max_err(gru_scan.gru_layer_scan(*ins, rev, rs),
+                              gru_scan.gru_layer_scan_ref(*ins, rev, rs))
+                      for rev in (False, True) for rs in (None, reset))
+            check_close(f"gru_scan {at} (tiled plan), with and without a reset stream",
+                        dt_name, err)
+            if dt_name == "bfloat16":
+                deterministic(f"gru_scan {at} (tiled plan) with resets",
+                              lambda: gru_scan.gru_layer_scan(*ins, True, reset))
+            r[f"err_{dt_name}"], r[f"plan_{dt_name}"] = err, gru_scan.gru_layer_scan.plan
+        r[f"rule_{dt_name}"] = gru_scan.scan_fwd_plan(B, T, H, dt, card_sms())["layout"]
+        print_plan(f"gru_scan {at} {dt_name} (tiled; the rule's plan: "
+                   f"{r[f'rule_{dt_name}']})", r[f"plan_{dt_name}"])
+    x, mask, h0, wh, bh = reset_inputs(g, rng, torch.bfloat16, B, T, H, 8)[0]
+    with fwd_plan(gru_scan, r["plan_bfloat16"]):
+        t = in_turns(f"gru_scan {at} bfloat16 (tiled plan)",
+                     {"kernel": lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True),
+                      "plain": lambda: gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)},
+                     iters=WIDE_ITERS)
+        us = fwd_phases(gru_scan, f"gru_scan {at} bfloat16", (x, mask, h0, wh, bh, True), T)
+    rec = {"ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "runs_ms": t["runs_ms"],
+           "us_a_step": us, "device_ms": fresh["tiled_fwd"],
+           "cluster_device_ms": fresh["cluster_fwd"], "library_ms_fresh": fresh["cudnn_fwd"]}
+    rec["bound_ms"], rec["bound_by"] = scan_fwd_bound(B, T, H)
+    print(f"  gru_scan {at} bfloat16 (tiled plan): kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms; on the device's clock in a fresh process tiled "
+          f"{fmt_ms(rec['device_ms'])}, cluster {fmt_ms(rec['cluster_device_ms'])}, nn.GRU "
+          f"forward {fmt_ms(rec['library_ms_fresh'])}; bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}; {card})")
+    r["fwd"] = rec
     return r
 
 
@@ -2984,13 +3062,35 @@ def wide_device_child(out_path: str) -> int:
     from variational_mmt_torch.tools.kernel_times import kernel_name, row2_split
 
     g = torch.Generator(device="cuda").manual_seed(13)
+    bf16 = torch.bfloat16
     out = {}
-    for B, T, H in WIDE_SCANS + SPLIT_SCANS:
-        tiled = H > 512  # SPLIT_SCANS: the cluster plans, whose split alone is read
-        x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.bfloat16, B, T, H, 8)
-        outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
+    for B, T, H in LOW_TILED_SCANS:  # the forward's two plans and cuDNN's
+        x, mask, h0, wh, bh, _ = scan_bwd_inputs(g, bf16, B, T, H, 8)
         rec = {}
-        if tiled:
+        for layout, plan in (("cluster", gru_scan._cluster_fwd_plan(B, H, bf16, card_sms())),
+                             ("tiled", gru_scan.tiled_fwd_plan(B, H, bf16, card_sms()))):
+            with fwd_plan(gru_scan, plan):
+                rec[f"{layout}_fwd"], rec[f"{layout}_calls_recorded"], _, _ = launch_ms(
+                    lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True), WIDE_ITERS,
+                    f"gru_{'tiled' if layout == 'tiled' else 'scan'}_fwd_kernel")
+        gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=bf16)
+        xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(bf16)
+        with torch.no_grad():
+            rec["cudnn_fwd"] = device_ms(lambda: gru(xin), iters=WIDE_ITERS)
+        rec["rule"] = gru_scan.scan_fwd_plan(B, T, H, bf16, card_sms())["layout"]
+        print(f"widths (fresh process): gru_scan B={B} T={T} H={H} bfloat16 on the device's "
+              f"clock: cluster plan {fmt_ms(rec['cluster_fwd'])}, tiled plan "
+              f"{fmt_ms(rec['tiled_fwd'])} ({gru_scan.gru_layer_scan.plan}), nn.GRU forward "
+              f"{fmt_ms(rec['cudnn_fwd'])}; the rule's plan {rec['rule']}", flush=True)
+        out[f"B={B} T={T} H={H}"] = rec
+    for B, T, H in WIDE_SCANS + SPLIT_SCANS:
+        wide = (B, T, H) in WIDE_SCANS  # SPLIT_SCANS: row 2's split alone is read
+        fwd_layout = gru_scan.scan_fwd_plan(B, T, H, bf16, card_sms())["layout"]
+        bwd_tiled = gru_scan.scan_bwd_plan(B, T, H, bf16, card_sms())["layout"] == "tiled"
+        x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, bf16, B, T, H, 8)
+        outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
+        rec = out.setdefault(f"B={B} T={T} H={H}", {})  # LOW_TILED_SCANS share H = 512's keys
+        if wide:
             gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=torch.bfloat16)
             xin = torch.randn(B, T, 2 * H, generator=g, device="cuda").to(torch.bfloat16)
 
@@ -2998,14 +3098,14 @@ def wide_device_child(out_path: str) -> int:
                 with torch.no_grad():
                     return gru(xin)
 
-            rec = {"cudnn_fwd": device_ms(cudnn, iters=WIDE_ITERS),
-                   "cudnn_bwd": cudnn_bwd_ms(g, B, T, H)[0]}
+            rec.update(cudnn_fwd=device_ms(cudnn, iters=WIDE_ITERS),
+                       cudnn_bwd=cudnn_bwd_ms(g, B, T, H)[0])
             rec["fwd"], rec["fwd_calls_recorded"], _, _ = launch_ms(
                 lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True), WIDE_ITERS,
-                "gru_tiled_fwd_kernel")
+                "gru_tiled_fwd_kernel" if fwd_layout == "tiled" else "gru_scan_fwd_kernel")
         rec["bwd"], rec["bwd_calls_recorded"], by_kernel, records = launch_ms(
             lambda: gru_scan.gru_layer_scan_bwd(x, mask, h0, wh, bh, outs, gout, True),
-            WIDE_ITERS, "gru_tiled_bwd_kernel" if tiled else "gru_scan_bwd_kernel")
+            WIDE_ITERS, "gru_tiled_bwd_kernel" if bwd_tiled else "gru_scan_bwd_kernel")
         split = row2_split({kernel_name(k): v for k, v in by_kernel.items()}, B, T, H)
         rec["products_kept"] = products_kept(records, WIDE_ITERS)
         if rec["bwd"] is None:
@@ -3053,6 +3153,9 @@ def widths_phase(card: str, root: str):
         at = f"B={B} T={T} H={H}"
         rec["scan"][at] = wide_scan_checks(gru_scan, g, rng, B, T, H, card, fresh[at])
         rec["products"][at] = rec["scan"][at].pop("products")
+    rec["low_tiled"] = {f"B={B} T={T} H={H}": low_tiled_checks(
+        gru_scan, g, rng, B, T, H, card, fresh[f"B={B} T={T} H={H}"])
+        for B, T, H in LOW_TILED_SCANS}
     for B, T, H, dtypes in WIDTH_SCANS:
         at = f"B={B} T={T} H={H}"
         r = {}
@@ -3169,8 +3272,13 @@ def widths_phase(card: str, root: str):
                          f"{' '.join(flags)}, two expected for each of row 2's")
         if plain:
             fail(f"train CLI {' '.join(flags)}: {plain} GRU layer scans took the plain scan")
-        if label == "1024" and scan_plan["cluster"] != 16:
-            fail("the encoder halves of 512 units did not run on 16-CTA clusters")
+        if label == "1024":  # encoder halves of 512 units: the forward's plan by its rule
+            want = gru_scan.scan_fwd_plan(TRAIN_BATCH, 24, 512, torch.bfloat16, card_sms())["layout"]
+            if scan_plan["layout"] != want or (want == "cluster" and scan_plan["cluster"] != 16):
+                fail(f"the encoder halves of 512 units ran the forward's {scan_plan['layout']} "
+                     f"plan, not its rule's {want} one")
+            if gru_scan.gru_layer_scan_bwd.plan["cluster"] != 16:
+                fail("the encoder halves of 512 units did not run row 2 on 16-CTA clusters")
         if label == "250" and dec.decoder_bwd.plan["padded"] != 252:
             fail("the decoder kernels did not run at the padded width 252")
         if wide is not None and not by_width.get(wide):
@@ -4833,7 +4941,8 @@ def f16_scan_kernels(gru_scan) -> Tuple[dict, dict]:
         layouts = (gru_scan.gru_layer_scan.plan["layout"],
                    gru_scan.gru_layer_scan_bwd.plan["layout"])
         fr_err, br_err, br_abs = reset_errs(gru_scan, ins, gout, reset)
-        want = ("cluster" if H <= 512 else "tiled",) * 2
+        want = (gru_scan.scan_fwd_plan(B, T, H, f16, card_sms())["layout"],
+                gru_scan.scan_bwd_plan(B, T, H, f16, card_sms())["layout"])
         print(f"  gru_scan {at} float16: plans {layouts[0]} / {layouts[1]} (expected "
               f"{want[0]} / {want[1]})")
         if layouts != want:
@@ -4842,7 +4951,7 @@ def f16_scan_kernels(gru_scan) -> Tuple[dict, dict]:
         check_close(f"gru_scan {at} with resets", F16, fr_err)
         check_close(f"gru_scan_bwd {at}", F16, b_err, "max_rel_err")
         check_close(f"gru_scan_bwd {at} with resets", F16, br_err, "max_rel_err")
-        if H > 512:
+        if layouts[0] == "tiled":
             deterministic(f"gru_scan {at} with resets",
                           lambda: gru_scan.gru_layer_scan(*ins, True, reset), F16)
             fwd.setdefault("us_a_step", {})[at] = fwd_phases(

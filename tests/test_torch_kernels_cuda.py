@@ -64,9 +64,13 @@ def test_gru_scan_kernel(cuda, dt, reverse, B, T, H):
     args = scan_args(cuda, dt, B, T, H)
     close(gru_scan.gru_layer_scan(*args, reverse), gru_scan.gru_layer_scan_ref(*args, reverse), dt)
     plan = gru_scan.gru_layer_scan.plan
-    assert plan == dict(gru_scan.scan_fwd_plan(B, T, H, dt, kernels.sm_count(0)),
-                        max_active_clusters=plan["max_active_clusters"],
-                        one_wave=plan["max_active_clusters"] >= plan["clusters"])
+    want = gru_scan.scan_fwd_plan(B, T, H, dt, kernels.sm_count(0))
+    if want["layout"] == "tiled":  # the cluster plan would run in waves (f32 at B = 61, 140)
+        assert plan == dict(want, max_co_resident=plan["max_co_resident"])
+        return
+    # the rule takes the cluster plan where the card holds its clusters at once
+    assert plan == dict(want, max_active_clusters=plan["max_active_clusters"], one_wave=True)
+    assert plan["max_active_clusters"] >= plan["clusters"]
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -398,8 +402,11 @@ WIDE_SCANS = [(64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (6
 def test_gru_scan_kernels_at_wide_widths(cuda, dt, B, T, H):
     args = scan_args(cuda, dt, B, T, H)
     close(gru_scan.gru_layer_scan(*args, True), gru_scan.gru_layer_scan_ref(*args, True), dt)
-    if H <= 512:
-        assert gru_scan.gru_layer_scan.plan["cluster"] == -(-H // 32)
+    if H <= 512:  # the forward's plan by its rule: clusters where they run in one wave
+        want = gru_scan.scan_fwd_plan(B, T, H, dt, kernels.sm_count(0))
+        assert gru_scan.gru_layer_scan.plan["layout"] == want["layout"]
+        if want["layout"] == "cluster":
+            assert gru_scan.gru_layer_scan.plan["cluster"] == -(-H // 32)
     g = torch.randn(B, T, H, generator=cuda, device="cuda")
     resets = (None,) if H <= 512 else (None, reset_stream(cuda, args[1]))
     for reverse in (False, True) if H > 512 else (False,):
@@ -433,18 +440,45 @@ def test_tiled_scan_bwd_is_deterministic(cuda, dt):
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-def test_tiled_scan_fwd_is_deterministic(cuda, dt):
-    """The tiled forward where a cluster of CTAs splits K (B = 64, H =
-    1024): the partial products are added in rank order, so repeats are
+@pytest.mark.parametrize("B,H", [(64, 448), (64, 512), (256, 448), (256, 500), (256, 512)])
+def test_tiled_scan_fwd_below_513_units(cuda, dt, B, H, monkeypatch):
+    """The forward's tiled plan below 513 units (forced, whatever the rule
+    picks there; H = 500 reads Wh's padded copy in 16 bits) against the
+    plain version, both directions, with and without a reset stream; two
+    launches bit-identical."""
+    args = scan_args(cuda, dt, B, 5, H)
+    plan = gru_scan.tiled_fwd_plan(B, H, dt, kernels.sm_count(0))
+    monkeypatch.setattr(gru_scan, "scan_fwd_plan", lambda *a, **k: dict(plan))
+    reset = reset_stream(cuda, args[1])
+    for reverse in (False, True):
+        for rs in (None, reset):
+            close(gru_scan.gru_layer_scan(*args, reverse, rs),
+                  gru_scan.gru_layer_scan_ref(*args, reverse, rs), dt)
+            assert gru_scan.gru_layer_scan.plan["layout"] == "tiled"
+    first = gru_scan.gru_layer_scan(*args, True, reset)
+    second = gru_scan.gru_layer_scan(*args, True, reset)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+def test_tiled_scan_fwd_is_deterministic(cuda, dt, monkeypatch):
+    """The tiled forward at B = 64, H = 1024 on its plan, and where a
+    cluster of CTAs splits K (32 x 32 tiles, clusters of 2, the plan
+    forced): the partial products are added in rank order, so repeats are
     bit-identical, with and without a reset stream."""
     args = scan_args(cuda, dt, 64, 6, 1024)
-    for reset in (None, reset_stream(cuda, args[1])):
-        first = gru_scan.gru_layer_scan(*args, True, reset)
-        assert gru_scan.gru_layer_scan.plan["layout"] == "tiled"
-        assert gru_scan.gru_layer_scan.plan["cluster"] > 1
-        second = gru_scan.gru_layer_scan(*args, True, reset)
-        torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    split = gru_scan.tiled_fwd_plan_for(64, 1024, dt, kernels.sm_count(0), 32, 32, 2)
+    for forced in (None, split):
+        if forced is not None:
+            monkeypatch.setattr(gru_scan, "scan_fwd_plan", lambda *a, **k: dict(forced))
+        for reset in (None, reset_stream(cuda, args[1])):
+            first = gru_scan.gru_layer_scan(*args, True, reset)
+            assert gru_scan.gru_layer_scan.plan["layout"] == "tiled"
+            assert forced is None or gru_scan.gru_layer_scan.plan["cluster"] == 2
+            second = gru_scan.gru_layer_scan(*args, True, reset)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)

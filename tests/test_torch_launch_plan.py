@@ -45,8 +45,16 @@ def test_scan_plan_accepts_the_encoder_width(dt, B, T):
 @pytest.mark.parametrize("T", [24, 1])
 @pytest.mark.parametrize("B", [256, 64, 61, 1])
 def test_scan_fwd_plan_accepts_the_encoder_width(dt, B, T):
+    """H = 250: clusters of 8 CTAs, in one wave on an H100 in bf16 and f16
+    (3 CTAs an SM, 45 clusters at once); in f32 (one CTA an SM, 15 at once)
+    the 16 clusters of B = 61 and 64 and the 32 of B = 256 would run in
+    waves, so those take the tiled plan (PERF.md, the crossover sweep)."""
     H = 250
     plan = gru_scan.scan_fwd_plan(B, T, H, dt, H100_SMS)
+    if dt == torch.float32 and B > 1:
+        assert plan["layout"] == "tiled" and plan["chunks"] == 1
+        plan = gru_scan._cluster_fwd_plan(B, H, dt, H100_SMS)
+        assert gru_scan.fwd_cluster_waves(plan, H100_SMS) == -(-plan["clusters"] // 15) > 1
     assert (plan["cluster"], plan["units"]) == (8, 32)
     assert plan["rows"] in (4, 8)
     assert plan["clusters"] * plan["rows"] >= B > (plan["clusters"] - 1) * plan["rows"]
@@ -58,12 +66,16 @@ def test_scan_fwd_plan_accepts_the_encoder_width(dt, B, T):
 def test_scan_fwd_plan_at_the_main_path_shapes():
     """Training's B=64: 16 clusters of 4 rows, 128 CTAs, one an SM; serving's
     B=256: 32 clusters of 8 rows (the mma's columns), 256 CTAs, which fit
-    one wave only where two bf16 CTAs share an SM."""
-    for dt in DTYPES:
-        train = gru_scan.scan_fwd_plan(64, 24, 250, dt, H100_SMS)
-        serve = gru_scan.scan_fwd_plan(256, 24, 250, dt, H100_SMS)
+    one wave only where two bf16 CTAs share an SM. The forward takes these
+    cluster plans in bf16 and f16; in f32 (one CTA an SM) the tiled one."""
+    for dt in DTYPES:  # the cluster plans (f32 takes the tiled one at both)
+        train = gru_scan._cluster_fwd_plan(64, 250, dt, H100_SMS)
+        serve = gru_scan._cluster_fwd_plan(256, 250, dt, H100_SMS)
         assert (train["rows"], train["clusters"], train["ctas"]) == (4, 16, 128)
         assert (serve["rows"], serve["clusters"], serve["ctas"]) == (8, 32, 256)
+        for B, plan in ((64, train), (256, serve)):
+            assert gru_scan.scan_fwd_plan(B, 24, 250, dt, H100_SMS) == plan \
+                or dt == torch.float32
     bf16 = gru_scan.scan_fwd_plan(256, 24, 250, torch.bfloat16, H100_SMS)
     assert 2 * (bf16["smem"] + 1024) <= SMEM_PER_SM
 
@@ -74,7 +86,7 @@ def test_scan_fwd_plan_mirrors_the_kernels_layout():
     parts = 4 * 96 * 8 * 4
     assert gru_scan.scan_fwd_plan(64, 24, 250, torch.bfloat16, H100_SMS)["smem"] == \
         96 * 264 * 2 + 2 * 8 * 264 * 2 + parts
-    assert gru_scan.scan_fwd_plan(64, 24, 250, torch.float32, H100_SMS)["smem"] == \
+    assert gru_scan._cluster_fwd_plan(64, 250, torch.float32, H100_SMS)["smem"] == \
         96 * 250 * 4 + 2 * 8 * 250 * 4 + parts
 
 
@@ -545,34 +557,65 @@ def test_decoder_probe_must_hold_every_stamp(no_launch):
 SCAN_WIDTHS = [257, 300, 384, 448, 512]
 
 
+# the forward's rule on an H100 (PERF.md, the crossover sweep): its cluster
+# plan where the card holds the clusters at once, else the tiled plan
+FWD_RULE = {  # (B, H) -> bf16 and f16's layout, f32's
+    (1, 257): ("cluster", "cluster"), (61, 257): ("cluster", "cluster"),
+    (64, 257): ("cluster", "cluster"), (256, 257): ("tiled", "tiled"),
+    (1, 300): ("cluster", "cluster"), (61, 300): ("cluster", "tiled"),
+    (64, 300): ("cluster", "tiled"), (256, 300): ("tiled", "tiled"),
+    (1, 384): ("cluster", "cluster"), (61, 384): ("cluster", "tiled"),
+    (64, 384): ("cluster", "tiled"), (256, 384): ("tiled", "tiled"),
+    (1, 448): ("cluster", "cluster"), (61, 448): ("cluster", "tiled"),
+    (64, 448): ("cluster", "tiled"), (256, 448): ("tiled", "tiled"),
+    (1, 512): ("cluster", "cluster"), (61, 512): ("tiled", "tiled"),
+    (64, 512): ("tiled", "tiled"), (256, 512): ("tiled", "tiled")}
+
+
 @pytest.mark.parametrize("B", [1, 61, 64, 256])
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("H", SCAN_WIDTHS)
 def test_scan_plans_hold_the_wide_widths(H, dt, B):
-    """Both scans plan every width up to 512 in bf16 and f32: clusters of
-    ceil(H / 32) CTAs (up to 16, non-portable), shared memory within a CTA's
-    (f32 at 512 with 4 row slots forward and 2 rows backward)."""
+    """Both scans plan every width up to 512 in bf16, f16 and f32. The
+    backward on clusters of ceil(H / 32) CTAs (up to 16, non-portable),
+    shared memory within a CTA's (f32 at 512 with 2 rows). The forward on
+    clusters where they run in one wave on an H100 (16 CTAs: 7 at once, so
+    B = 61 and 64 at 449-512 units take the tiled plan; 9-14 CTAs hold 2 an
+    SM, 14-23 clusters at once, so B = 256's 32 clusters take it from 257
+    units); in f32, whose CTAs take one an SM from 225 units, clusters at B
+    = 1 and, 9 clusters of 9 CTAs fitting at once, at 257 units."""
     fwd = gru_scan.scan_fwd_plan(B, 24, H, dt, H100_SMS)
     bwd = gru_scan.scan_bwd_plan(B, 24, H, dt)
-    for plan in (fwd, bwd):
+    want = FWD_RULE[(B, H)][dt == torch.float32]
+    assert fwd["layout"] == want and bwd["layout"] == "cluster"
+    plans = (fwd, bwd) if want == "cluster" else (bwd,)
+    for plan in plans:
         assert plan["cluster"] == -(-H // 32) <= gru_scan.SCAN_BWD_MAX_CLUSTER == 16
         assert plan["cluster"] * plan["units"] >= H > (plan["cluster"] - 1) * plan["units"]
         assert plan["clusters"] * plan["rows"] >= B > (plan["clusters"] - 1) * plan["rows"]
         assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
+    if want == "cluster":
+        assert gru_scan.fwd_cluster_waves(fwd, H100_SMS) == 1
+    else:  # the cluster plan it passed over runs in waves; the tiled grid in one
+        assert gru_scan.fwd_cluster_waves(gru_scan._cluster_fwd_plan(B, H, dt, H100_SMS),
+                                          H100_SMS) > 1
+        assert fwd["grid"] <= gru_scan.tiled_co_resident(fwd["cluster"], H100_SMS)
+        assert fwd["chunks"] == 1
     assert gru_scan.scan_kernel_holds(H, dt)
     if dt == torch.float32 and H > 448:
-        assert fwd["rows"] == 4 and bwd["rows"] == 2
+        assert gru_scan._cluster_fwd_plan(B, H, dt, H100_SMS)["rows"] == 4 and bwd["rows"] == 2
 
 
 def test_scan_plans_mirror_the_kernels_layout_at_512():
-    """H=512: bf16 forward 96 columns of Wh and two 8-slot buffers at the
-    mma stride 520 plus the partial products; f32 forward with 4 slots;
+    """H=512: the forward's cluster plan (which B = 64 passes over for the
+    tiled one on an H100) in bf16 96 columns of Wh and two 8-slot buffers
+    at the mma stride 520 plus the partial products; in f32 with 4 slots;
     bf16 backward 32 rows of Wh at stride 1544 and 4 rows of dh_proj, f32
     backward 32 rows of 1536 floats and 2 rows."""
     bf16, f32 = torch.bfloat16, torch.float32
-    assert gru_scan.scan_fwd_plan(64, 24, 512, bf16, H100_SMS)["smem"] == \
+    assert gru_scan._cluster_fwd_plan(64, 512, bf16, H100_SMS)["smem"] == \
         96 * 520 * 2 + 2 * 8 * 520 * 2 + 4 * 96 * 8 * 4 == 128768
-    assert gru_scan.scan_fwd_plan(64, 24, 512, f32, H100_SMS)["smem"] == \
+    assert gru_scan._cluster_fwd_plan(64, 512, f32, H100_SMS)["smem"] == \
         96 * 512 * 4 + 2 * 4 * 512 * 4 + 4 * 96 * 4 * 4 == 219136
     assert gru_scan.scan_bwd_plan(64, 24, 512, bf16)["smem"] == \
         32 * 1544 * 2 + 2 * 4 * 1544 * 2 + 2 * 4 * 32 * 4 + 4 * 32 * 4 * 4 == 126592
@@ -581,15 +624,20 @@ def test_scan_plans_mirror_the_kernels_layout_at_512():
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-@pytest.mark.parametrize("H,holds", [(1, True), (512, True), (513, True), (1024, True),
-                                     (1025, True), (2048, True), (0, False)])
+@pytest.mark.parametrize("H,holds", [(1, True), (448, True), (449, True), (512, True),
+                                     (513, True), (1024, True), (1025, True), (2048, True),
+                                     (0, False)])
 def test_scan_kernel_holds_ends_at_1024(dt, H, holds):
-    """Clusters to 512 units; above, both passes' tiled plans; only H = 0
-    is not held."""
+    """The backward on clusters to 512 units, the tiled plan above; the
+    forward at B = 64 on clusters to 448 units in bf16 and f16, where 8
+    clusters of 14 CTAs fit an H100 at once, and tiled from 449, where
+    clusters of 15 and 16 run in two waves; in f32, whose clusters of 8 and
+    more take an SM each, on clusters to 32 units (2 of 4 rows' CTAs an SM)
+    here at H = 1 only; both tiled above 512. Only H = 0 is not held."""
     assert gru_scan.scan_kernel_holds(H, dt) is holds
     if holds:
-        layout = "cluster" if H <= 512 else "tiled"
-        assert gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)["layout"] == layout
+        fwd = "cluster" if H <= 448 and dt != torch.float32 or H == 1 else "tiled"
+        assert gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)["layout"] == fwd
         assert gru_scan.scan_bwd_plan(64, 24, H, dt)["layout"] == \
             ("cluster" if H <= 512 else "tiled")
 

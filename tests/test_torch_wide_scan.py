@@ -4,8 +4,9 @@ the CPU.
 - The plain versions ``gru_layer_scan_ref`` and ``gru_layer_scan_bwd_ref``
   (what the wide kernels are held to on the card) against JAX's
   ``gru_layer_scan`` and ``gru_layer_scan_ad`` in interpret mode at H = 520
-  and 640, B = 3, T = 5, both directions, with and without a reset stream,
-  f32: outputs and finals within 1e-5, dx, dh0, dWh and dbh within 1e-4.
+  and 640 (and 500, where the forward's tiled plan also runs), B = 3, T =
+  5, both directions, with and without a reset stream, f32: outputs and
+  finals within 1e-5, dx, dh0, dWh and dbh within 1e-4.
 - Both passes' tiled launch plans (``layout`` ``"tiled"``) at every width
   from 513 to 1024 that the repo's configs reach or bound, the three
   dtypes, batches 1, 61, 64 and 256: shared memory within a CTA's, the
@@ -79,6 +80,14 @@ def test_plain_scans_match_jax_kernels_above_512(H, reverse, with_reset):
     check_plain_scans_against_jax(H, reverse, with_reset, FWD_TOL, BWD_TOL)
 
 
+@pytest.mark.parametrize("with_reset", [False, True], ids=["no_reset", "reset"])
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_plain_scans_match_jax_kernels_at_500(reverse, with_reset):
+    """H = 500, where the forward may take its tiled plan below 513 units
+    (gates not on 16-byte pieces in 16 bits): the same checks."""
+    check_plain_scans_against_jax(500, reverse, with_reset, FWD_TOL, BWD_TOL)
+
+
 def check_plain_scans_against_jax(H, reverse, with_reset, fwd_tol, bwd_tol):
     """The plain scans at H units (B = 3, T = 5) against the Pallas scan in
     interpret mode, forward, backward and VJP, at the given tolerances."""
@@ -139,7 +148,8 @@ def test_wide_plans_hold_every_width_to_1024(H, dt, B):
         assert plan["grid"] == plan["unit_tiles"] * plan["row_tiles"] * plan["cluster"] \
             == plan["ctas"]
         assert plan["grid"] <= (120 if plan["cluster"] == 4 else H100_SMS)
-    assert fwd["stages"] in (2, 4) and fwd["k_chunks"] == -(-H // fwd["kc"])
+    assert (fwd["resident"], fwd["stages"]) in gru_scan.TILED_FWD_RINGS
+    assert fwd["k_chunks"] == -(-H // fwd["kc"])
     if bwd["engine"] == "tile":  # f32: tile_gemm.cuh's 64 x 64 tiles of dWh, no K split
         assert dt == torch.float32
         assert bwd["dwh_splits"] == 1 and bwd["dwh_tiles"] == -(-H // 64) * -(-3 * H // 64)
@@ -152,8 +162,9 @@ def test_wide_plans_mirror_the_kernels_layout_at_1024():
     K split over clusters of 2 (128 CTAs), its shared memory the tile's 96
     columns of Wh over its 8 K chunks of 64 (512 k-rows of 208 bytes), the
     partial products of four K groups (32 rows of 100 floats each), which
-    take the bytes of the 4-stage ring (32 rows of 144 bytes a stage), the
-    biases and the carry of half the tile; in f32 64 x 16 cells, clusters
+    take the bytes of the whole-K stage (32 rows of its 8 chunks, 1040
+    bytes apart), the biases and the carry of half the tile, and the bulk
+    copies' mbarrier (16 bytes); in f32 64 x 16 cells, clusters
     of 2 (128 CTAs), the tile's 48 columns of Wh over its 16 K chunks of 32
     (512 k-rows of 208 bytes) and four K groups' partial products (64 rows
     of 52 floats each) in the ring's bytes (64 rows of 144 a stage). The
@@ -166,9 +177,9 @@ def test_wide_plans_mirror_the_kernels_layout_at_1024():
     fb = gru_scan.scan_fwd_plan(64, 24, 1024, bf16, H100_SMS)
     ff = gru_scan.scan_fwd_plan(64, 24, 1024, f32, H100_SMS)
     assert (fb["rows"], fb["units"], fb["cluster"], fb["grid"]) == (32, 32, 2, 128)
-    assert (fb["resident"], fb["stages"], fb["wh_from"], fb["in_place"]) == (True, 4, "smem", True)
-    assert fb["smem"] == 8 * 64 * 208 + max(4 * 32 * 144, 4 * 32 * 100 * 4) + (96 + 16 * 32) * 4 \
-        == 160128
+    assert (fb["resident"], fb["stages"], fb["wh_from"], fb["in_place"]) == (True, 1, "smem", True)
+    assert fb["smem"] == 8 * 64 * 208 + max(32 * (8 * 128 + 16), 4 * 32 * 100 * 4) \
+        + (96 + 16 * 32) * 4 + 16 == 160144
     assert (fb["kc"], fb["k_chunks"], fb["ldx"]) == (64, 16, 1024)
     assert (ff["rows"], ff["units"], ff["cluster"], ff["grid"]) == (64, 16, 2, 128)
     assert (ff["resident"], ff["stages"], ff["wh_from"]) == (True, 4, "smem")

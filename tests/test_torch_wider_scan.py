@@ -96,20 +96,40 @@ def test_scan_kernel_holds_every_width(dt):
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
-@pytest.mark.parametrize("H", [1024, 1033, 2500])
+@pytest.mark.parametrize("H", [257, 448, 500, 512, 1024, 1033, 2500])
 def test_laid_out_weights_give_each_tiles_products(dt, H):
     """Emulates the tiled forward's ring on Wh as it reads it (in place
     where H elements are whole 16-byte pieces, else ``_tiled_fwd_weights``'
-    copy): piece e of k-row k of unit tile t is ``per`` elements from k *
-    ldw + g * ldg + t * units + u (gate g = e // ppg, u = (e % ppg) * per),
-    zero where k >= H or t * units + u >= H, so the tile's operand over its
-    K chunks gives round(h) @ Wh at its units' three gate columns, zero past
-    H. Emulates the tiled backward's ring on its weights: row u's K chunk c
-    (kc elements at tiled_ld(H) a row) is Wh[u, c*kc:(c+1)*kc], zero past
-    3H, so the padded K adds nothing to dh_proj @ Wh^T."""
+    copy), for every width of unit tile the plan takes (8 to 128): piece e
+    of k-row k of unit tile t is ``per`` elements from k * ldw + g * ldg + t
+    * units + u (gate g = e // ppg, u = (e % ppg) * per), zero where k >= H
+    or t * units + u >= H, so the tile's operand over its K chunks gives
+    round(h) @ Wh at its units' three gate columns, zero past H. Where the
+    backward takes its tiled plan (above 512 units), emulates its ring on
+    its weights: row u's K chunk c (kc elements at tiled_ld(H) a row) is
+    Wh[u, c*kc:(c+1)*kc], zero past 3H, so the padded K adds nothing to
+    dh_proj @ Wh^T."""
     rng = np.random.default_rng(H)
     Wh = torch.from_numpy(rng.standard_normal((H, 3 * H)).astype(np.float32)).to(dt)
-    plan = gru_scan.scan_fwd_plan(16, 4, H, dt, H100_SMS)
+    plans = {p["units"]: p for rows, units in gru_scan.TILED_FWD_TILES
+             for p in [gru_scan.tiled_fwd_plan_for(16, H, dt, H100_SMS, rows, units, 1)]
+             if p is not None}
+    # the plan's own unit tile among them; 8 units to 512 at least (their
+    # whole K beside Wh's columns in a CTA's shared memory), none past 132 *
+    # 8 (a CTA an SM)
+    assert fwd_tiled_plan(16, H, dt, H100_SMS)["units"] in plans
+    assert (H > 512 or 8 in plans) and (H <= 8 * H100_SMS or 8 not in plans)
+    for plan in plans.values():
+        check_fwd_weights(Wh, plan, rng)
+    bwd = gru_scan.scan_bwd_plan(16, 4, H, dt, H100_SMS)
+    if bwd["layout"] == "tiled":
+        check_bwd_weights(Wh, bwd, rng)
+
+
+def check_fwd_weights(Wh: torch.Tensor, plan: dict, rng) -> None:
+    """The tiled forward's ring on Wh, as ``test_laid_out_weights_give_each_tiles_products``
+    says, for one plan."""
+    H, dt = Wh.shape[0], Wh.dtype
     per = 16 // dt.itemsize
     wt = gru_scan._tiled_fwd_weights(Wh, plan)
     assert plan["in_place"] == (H % per == 0) == (wt is None)
@@ -148,7 +168,10 @@ def test_laid_out_weights_give_each_tiles_products(dt, H):
                 else:
                     assert not op[:, g * units + u].any()
 
-    bwd = gru_scan.scan_bwd_plan(16, 4, H, dt, H100_SMS)
+
+def check_bwd_weights(Wh: torch.Tensor, bwd: dict, rng) -> None:
+    """The tiled backward's ring on its weights, for one plan."""
+    H, dt = Wh.shape[0], Wh.dtype
     wb = gru_scan._tiled_weights(Wh, bwd)
     assert bwd["in_place"] == (3 * H * dt.itemsize % 16 == 0)
     w = Wh if wb is None else wb
@@ -259,6 +282,17 @@ def test_wrappers_refuse_a_streamed_grid_the_card_cannot_hold(streamed_lib):
 # the backward's tiled plan at every width above 512 and every batch
 TILED_WIDTHS = [513, 520, 1000, 1002, 1024, 1040, 2048, 2500, 4096]
 TILED_BATCHES = [1, 17, 64, 256, 1024, 4096]
+# the forward's tiled plan also below 513 units, where it competes with the
+# cluster plan (500: gates not on 16-byte pieces in 16 bits)
+TILED_FWD_WIDTHS = [257, 300, 384, 448, 500, 512] + TILED_WIDTHS
+
+
+def fwd_tiled_plan(B: int, H: int, dt, sms: int) -> dict:
+    """The forward's tiled plan: the wrapper's plan above 512 units, the
+    tiled planner's below (where the wrapper's may be the cluster plan)."""
+    if H > gru_scan.SCAN_CLUSTER_MAX_HIDDEN:
+        return gru_scan.scan_fwd_plan(B, 24, H, dt, sms)
+    return gru_scan.tiled_fwd_plan(B, H, dt, sms)
 
 
 @pytest.mark.parametrize("sms", [H100_SMS, 114])
@@ -333,7 +367,7 @@ def test_tiled_plan_refuses_no_width(dt):
 @pytest.mark.parametrize("sms", [H100_SMS, 114])
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("B", TILED_BATCHES)
-@pytest.mark.parametrize("H", TILED_WIDTHS)
+@pytest.mark.parametrize("H", TILED_FWD_WIDTHS)
 def test_tiled_fwd_plan_covers_every_cell_once(H, B, dt, sms):
     """Follows the forward kernel's own index arithmetic
     (gru_tiled_fwd_kernel, launch_tiled_fwd): launch chunks of rows *
@@ -341,13 +375,13 @@ def test_tiled_fwd_plan_covers_every_cell_once(H, B, dt, sms):
     fastest), owning rows / cluster of its rows and units below H; every
     (row, unit) cell is owned exactly once. Each rank's K chunks are
     disjoint and cover H once within the exchange row; each tile's N (its
-    warps' 48-column tiles) holds its units' three gate columns of Wh once,
-    as the ring's pieces read them; the ring, the partial products, the
-    biases and the carry fit a CTA's shared memory (counted by hand: Wh's
-    columns held there where they fit beside 4 stages, else 4 stages, else
-    2); the grid is within the co-residency estimate; float16's plan is
-    bf16's."""
-    plan = gru_scan.scan_fwd_plan(B, 24, H, dt, sms)
+    warps' 48-column tiles, 24 at 8 units) holds its units' three gate
+    columns of Wh once, as the ring's pieces read them; the ring, the
+    partial products, the biases and the carry fit a CTA's shared memory
+    (counted by hand, with Wh's columns held there or brought by the ring),
+    the ring the cheapest by the plan's cost model of those that fit; the
+    grid is within the co-residency estimate; float16's plan is bf16's."""
+    plan = fwd_tiled_plan(B, H, dt, sms)
     rows, units, C = plan["rows"], plan["units"], plan["cluster"]
     assert plan["layout"] == "tiled" and (rows, units) in gru_scan.TILED_FWD_TILES
     assert C in gru_scan.TILED_CLUSTERS
@@ -375,33 +409,49 @@ def test_tiled_fwd_plan_covers_every_cell_once(H, B, dt, sms):
     assert [c for part in parts for c in part] == list(range(nk))
     assert all(len(part) > 0 for part in parts)
 
-    # the tile's N: the warps' 48-column tiles, the ring's pieces of a
-    # k-row (per elements of gate e // ppg at unit (e % ppg) * per)
-    wn = 3 * units // gru_scan.TILED_FWD_WARP_N
-    assert wn * gru_scan.TILED_FWD_WARP_N == 3 * units
+    # the tile's N: the warps' 48-column tiles (32 rows each; 16 x 24 at 8
+    # units), the ring's pieces of a k-row (per elements of gate e // ppg
+    # at unit (e % ppg) * per)
+    warp_m, warp_n = (16, 24) if units == 8 else (32, 48)
+    assert gru_scan.tiled_fwd_warp_tile(units) == (warp_m, warp_n)
+    wn = 3 * units // warp_n
+    assert wn * warp_n == 3 * units and rows % warp_m == 0
     per, ppg = 16 // dt.itemsize, units * dt.itemsize // 16
     for u0 in {0, (plan["unit_tiles"] - 1) * units}:
         cols = [g * H + u0 + (e % ppg) * per + i for e in range(3 * ppg)
                 for g in [e // ppg] for i in range(per) if u0 + (e % ppg) * per + i < H]
         assert sorted(cols) == [g * H + j for g in range(3) for j in range(u0, min(u0 + units, H))]
 
-    wk = 8 // ((rows // 32) * (units // 16))
-    assert wk in (1, 2, 4) and (rows // 32) * (units // 16) * wk == 8
+    wk = 8 // ((rows // warp_m) * wn)
+    assert wk in (1, 2, 4) and (rows // warp_m) * wn * wk == 8
     w_pitch = 3 * units * dt.itemsize + 16
     red = wk * rows * (3 * units + 4) * 4
     fixed = (3 * units + rows // C * units) * 4
     w = -(-nk // C) * kc * w_pitch
-    res = w + max(4 * rows * 144, red) + fixed <= kernels.SMEM_PER_BLOCK
-    assert plan["resident"] == res
-    ring4 = 4 * (rows * 144 + kc * w_pitch) + red + fixed
-    assert plan["stages"] == (4 if res or ring4 <= kernels.SMEM_PER_BLOCK else 2)
-    smem = w + max(4 * rows * 144, red) + fixed if res else \
-        plan["stages"] * (rows * 144 + kc * w_pitch) + red + fixed
-    assert plan["smem"] == smem <= kernels.SMEM_PER_BLOCK
+
+    def ring_smem(res: bool, stages: int) -> int:
+        if stages == 1:  # the whole K of the tile's rows, 16 bytes apart, and an mbarrier
+            return -(-(w + max(rows * (-(-nk // C) * 128 + 16), red) + fixed) // 16) * 16 + 16
+        return w + max(stages * rows * 144, red) + fixed if res else \
+            stages * (rows * 144 + kc * w_pitch) + red + fixed
+
+    # of the rings that fit (Wh's columns resident or brought by a ring of 4
+    # or 2 stages; resident, the whole K in one stage), the plan takes the
+    # one its cost model ranks first
+    fits = [ring for ring in gru_scan.TILED_FWD_RINGS  # 8 units: the whole-K stage only
+            if ring_smem(*ring) <= kernels.SMEM_PER_BLOCK and (units > 8 or ring[1] == 1)]
+    res, stages = plan["resident"], plan["stages"]
+    assert (res, stages) in fits and stages in (1, 2, 4) and (res or stages > 1)
+    cost = gru_scan._tiled_fwd_cost(B, H, dt, plan)
+    for ring in fits:
+        other = gru_scan.tiled_fwd_plan_for(B, H, dt, sms, rows, units, C, (ring,))
+        assert other["smem"] == ring_smem(*ring) and cost <= gru_scan._tiled_fwd_cost(B, H, dt,
+                                                                                     other)
+    assert plan["smem"] == ring_smem(res, stages) <= kernels.SMEM_PER_BLOCK
     assert plan["wh_from"] in (("smem",) if res else ("l2", "hbm"))
     assert plan["in_place"] == (H % per == 0)
     if dt == torch.float16:
-        assert plan == gru_scan.scan_fwd_plan(B, 24, H, torch.bfloat16, sms)
+        assert plan == fwd_tiled_plan(B, H, torch.bfloat16, sms)
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)

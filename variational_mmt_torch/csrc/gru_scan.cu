@@ -87,42 +87,47 @@
 // cross a segment start: the scan multiplies each step's dh_prev by that
 // step's 1 - reset where the next step (or dh0) reads it.
 //
-// Tiled plan of the forward (H above 512: the launch plan's layout
-// "tiled"). Past 512 units the three gate blocks of Wh no longer fit one
-// cluster of 16 CTAs (6.3 MB in bf16 at H = 1024), so the state crosses CTAs
-// through global memory (L2) and each step ends at a grid barrier. Per
-// step the serial part is h_proj = round(h) @ Wh + bh, a (B, H) x (H, 3H)
-// product whose operand is the step before's own output, then the gates.
-// Its FLOPs are few (0.4-6.4 GFLOP a step at B = 64-256, H = 1000-2048);
-// what bounds it on this card is the bytes each SM pulls from L2 a step and
-// the T grid barriers. A plan that gives each CTA one 8-unit n-tile reads
-// the whole (rows, H) state from L2 H/8 times a step (512 KB a CTA at B =
-// 256, H = 1024). Here the product is output-stationary, as the
-// backward's tiled plan below: one persistent cooperative kernel a chunk of
-// rows, CTA tiles of rows x units cells (32, 64 or 128 each; N = 3 units,
+// Tiled plan of the forward (the launch plan's layout "tiled": above 512
+// units, and below wherever the cluster plan's clusters would not all fit
+// the card at once, as 16-CTA clusters do from 449 units at B >= 64). Past
+// 512 units the three gate blocks of Wh no longer fit one cluster of 16
+// CTAs (6.3 MB in bf16 at H = 1024), so the state crosses CTAs through
+// global memory (L2) and each step ends at a grid barrier. Per step the
+// serial part is h_proj = round(h) @ Wh + bh, a (B, H) x (H, 3H) product
+// whose operand is the step before's own output, then the gates. Its FLOPs
+// are few (0.4-6.4 GFLOP a step at B = 64-256, H = 1000-2048); what bounds
+// it on this card is the bytes each SM pulls from L2 a step and the T grid
+// barriers. Here the product is output-stationary, as the backward's tiled
+// plan below: one persistent cooperative kernel a chunk of rows, CTA tiles
+// of rows x units cells (rows 32, 64 or 128, units 8 to 128; N = 3 units,
 // the r, z and n columns of the tile's own units, so the gates need nothing
-// from another CTA), each step's K = H moving through a ring of stages in
-// shared memory filled by cp.async.cg (through L2, past the L1, which is
-// not coherent across SMs) with round(h) rows from the exchange buffer and,
+// from another CTA). Each step's K = H moves through a ring of stages in
+// shared memory filled by cp.async.cg (through L2, past the L1, which is not
+// coherent across SMs) with round(h) rows from the exchange buffer and,
 // where they do not stay resident, Wh's k-rows of the tile's columns, while
-// the warps multiply the stage before: ldmatrix feeds mma.sync m16n8k16 in
-// bf16 and f16 (Wh's (K, N) rows through ldmatrix.trans), float4 reads
-// feed FMAs in f32 (never TF32), each warp a 32 x 48 of the tile, so a
-// step's state leaves L2 H / units times. Where B leaves few tiles, a
-// thread-block cluster of 2 or 4 CTAs splits K a tile and adds the partial
-// products of the rows each CTA owns through distributed shared memory in
-// rank order (deterministic). Each CTA keeps the f32 carry of its own cells
-// and its units' biases in shared memory for the call; it writes outs,
-// round(h' * keep of the next step) into the other exchange buffer and, at
-// the last step, final. The tile's columns of Wh stay in shared memory for
-// the call where the CTA's share of K fits (the partial products then
-// share the ring's bytes), else the ring brings them each step (the first
-// stages' copies issued as soon as the product before is done: they do not
-// wait for the state), with 2 stages in place of 4 where 4 do not fit. Wh
-// is read in place where each gate's columns start on a 16-byte piece (H
-// a multiple of 8 in 16 bits, 4 in f32), else from a copy the wrapper pads
-// once a call. The gate inputs of a thread's first cells load under the
-// product. Batches above a launch's rows run in chunks, one launch each; the launch is cooperative and clustered at once
+// the warps multiply the stage before; or, where the tile's columns of Wh
+// stay resident and the CTA's whole K of its state rows fits beside them
+// (kFwdWholeK), in one stage that the TMA unit fills with a bulk copy a
+// row, completing on one mbarrier, with no barrier between K chunks. ldmatrix
+// feeds mma.sync m16n8k16 in bf16 and f16 (Wh's (K, N) rows through
+// ldmatrix.trans), float4 reads feed FMAs in f32 (never TF32), each warp a
+// 32 x 48 of the tile (16 x 24 at 8 units, whose tile N is 24), so a step's
+// state leaves L2 H / units times. Tiles of 8 units give each of 64 or more
+// CTAs all of K at B = 64; where B leaves few tiles, a thread-block cluster
+// of 2 or 4 CTAs splits K a tile and adds the partial products of the rows
+// each CTA owns through distributed shared memory in rank order
+// (deterministic). Each CTA keeps the f32 carry of its own cells and its
+// units' biases in shared memory for the call; it writes outs, round(h' *
+// keep of the next step) into the other exchange buffer and, at the last
+// step, final. Where the tile's columns of Wh stay in shared memory for the
+// call the partial products share the ring's bytes; else the ring brings
+// them each step (the first stages' copies issued as soon as the product
+// before is done: they do not wait for the state), with 2 stages in place of
+// 4 where 4 do not fit. Wh is read in place where each gate's columns start
+// on a 16-byte piece (H a multiple of 8 in 16 bits, 4 in f32), else from a
+// copy the wrapper pads once a call. The gate inputs of a thread's first
+// cells load under the product. Batches above a launch's rows run in
+// chunks, one launch each; the launch is cooperative and clustered at once
 // (cudaLaunchKernelEx with both attributes).
 //
 // Tiled plan of the backward (H above 512: layout "tiled"). The backward's
@@ -171,6 +176,8 @@
 // for both.
 
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "block_product.cuh"
 #include "wgmma_gemm.cuh"
@@ -1112,6 +1119,21 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// `bytes` (a multiple of 16) from global src to shared dst, both 16-byte
+// aligned, by the TMA unit, completing that many bytes on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// orders the global memory this thread observes through the generic proxy
+// (the peers' stores, after a grid barrier) before its async proxy's (the
+// TMA unit's) reads that follow
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
 
 // four 8 x 8 matrices of 16-bit values from shared memory, row addresses
 // given by lanes 8i .. 8i + 7 for matrix i
@@ -1549,45 +1571,63 @@ int launch_tiled(Tiled<T> q, int cluster, int row_tiles, cudaStream_t stream) {
 // The forward's tiled plan.
 
 constexpr int kTiledFwdWarpN = 48;  // a forward warp's columns of the tile: 6 mma n-tiles
+// a forward "ring" of one stage: the CTA's whole K of the tile's state rows
+// in shared memory, brought by the TMA unit's bulk copies, a row each
+constexpr int kFwdWholeK = 1;
 
-// The tiles a forward CTA may own: rows 32, 64 or 128 and units 16, 32, 64
-// or 128 in 2, 4 or 8 warp tiles of 32 rows x 48 of the tile's 3 units
-// columns, the eight warps splitting K in wk = 8 / warp tiles <= 4 groups
-// (a chunk holds 4 k16 steps of the mma, 8 float4 steps of the FMAs);
-// clusters of 1, 2 or 4 CTAs; rings of 4 stages, or 2.
+// A forward warp's tile of the step's product: 32 rows x 48 columns (2 mma
+// m-tiles x 6 n-tiles), or at 8 units, whose tile N is 24 columns, 16 rows
+// x 24 (1 x 3), so that a tile of 32 rows still leaves each warp a K group
+// of its own.
+__host__ __device__ constexpr int fwd_warp_m(int units) { return units == 8 ? 16 : 32; }
+__host__ __device__ constexpr int fwd_warp_n(int units) { return units == 8 ? 24 : 48; }
+
+// The tiles a forward CTA may own: rows 32, 64 or 128 and units 8, 16, 32,
+// 64 or 128 in 2, 4 or 8 warp tiles, the eight warps splitting K in wk = 8
+// / warp tiles <= 4 groups (a chunk holds 4 k16 steps of the mma, 8 float4
+// steps of the FMAs); clusters of 1, 2 or 4 CTAs; rings of 4 or 2 stages,
+// or kFwdWholeK, which tiles of 8 units take.
 bool valid_fwd_tile(int rows, int units, int cluster, int stages) {
   auto side = [](int v) { return v == 32 || v == 64 || v == 128; };
-  const int warp_tiles = (rows / kTiledWarpTile) * (3 * units / kTiledFwdWarpN);
-  return side(rows) && (units == 16 || side(units)) &&
+  const int warp_tiles = (rows / fwd_warp_m(units)) * (3 * units / fwd_warp_n(units));
+  return side(rows) && (units == 8 || units == 16 || side(units)) &&
          (warp_tiles == 2 || warp_tiles == 4 || warp_tiles == 8) &&
-         (cluster == 1 || cluster == 2 || cluster == 4) && (stages == 2 || stages == 4);
+         (cluster == 1 || cluster == 2 || cluster == 4) &&
+         (stages == kFwdWholeK || (units != 8 && (stages == 2 || stages == 4)));
 }
 
 // Dynamic shared memory of a forward tiled CTA of `rows` x `units` cells in
 // T: with `resident`, the tile's columns of Wh over the CTA's kc_own K
 // chunks (kc_own * kc k-rows of 3 units elements, w_pitch bytes apart) for
 // the call; the ring (`stages` stages of `rows` K-chunk rows of round(h),
-// kTiledPitch apart, then, without `resident`, kc k-rows of Wh's columns,
-// w_pitch apart); the warps' partial products (wk, rows, 3 units + 4) in
-// f32, which with `resident` take the ring's bytes; the units' biases (3
-// units) and the f32 carry of the own = rows / cluster x units cells.
+// a_pitch = kTiledPitch apart, then, without `resident`, kc k-rows of Wh's
+// columns, w_pitch apart; with kFwdWholeK and `resident`, one stage of the
+// rows over all kc_own chunks, a_pitch = kc_own * kTiledChunk + 16 apart);
+// the warps' partial products (wk, rows, 3 units + 4) in f32, which with
+// `resident` take the ring's bytes; the units' biases (3 units) and the
+// f32 carry of the own = rows / cluster x units cells; with kFwdWholeK the
+// bulk copies' mbarrier.
 template <typename T>
 struct TiledFwdLayout {
-  int wk, red_ld, own, w_pitch;
-  size_t stage, ring, red, bias, total;
+  int wk, red_ld, own, w_pitch, a_pitch;
+  size_t stage, ring, red, bias, bar, total;
   __host__ __device__ TiledFwdLayout(int rows, int units, int cluster, bool resident, int stages,
                                      int kc_own) {
-    wk = kTiledWarps / ((rows / kTiledWarpTile) * (3 * units / kTiledFwdWarpN));
+    const bool whole = stages == kFwdWholeK;
+    wk = kTiledWarps / ((rows / fwd_warp_m(units)) * (3 * units / fwd_warp_n(units)));
     red_ld = 3 * units + 4;
     own = rows / cluster * units;
     w_pitch = 3 * units * (int)sizeof(T) + 16;
-    stage = (size_t)rows * kTiledPitch + (resident ? 0 : (size_t)tiled_kc<T>() * w_pitch);
+    a_pitch = whole ? kc_own * kTiledChunk + 16 : kTiledPitch;
+    stage = (size_t)rows * a_pitch + (resident ? 0 : (size_t)tiled_kc<T>() * w_pitch);
     ring = resident ? (size_t)kc_own * tiled_kc<T>() * w_pitch : 0;
     const size_t ring_bytes = stages * stage;
     const size_t red_bytes = (size_t)wk * rows * red_ld * sizeof(float);
     red = resident ? ring : ring + ring_bytes;
     bias = resident ? ring + (ring_bytes > red_bytes ? ring_bytes : red_bytes) : red + red_bytes;
     total = bias + (size_t)(3 * units + own) * sizeof(float);
+    bar = (total + 15) / 16 * 16;
+    if (whole) total = bar + 16;
   }
 };
 
@@ -1626,6 +1666,12 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p)));
 }
+// the same for two 8 x 8 matrices, row addresses from lanes 0 .. 15
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
 
 // The %globaltimer (ns) of CTA 0's thread 0 into probe[i] (null: none).
 __device__ __forceinline__ void globaltimer_stamp(long long* probe, int i) {
@@ -1641,7 +1687,7 @@ __device__ __forceinline__ void globaltimer_stamp(long long* probe, int i) {
 // and the K groups in a fixed order, the gates of the own cells from those
 // sums, the biases and the carry, their h' into outs and (times the next
 // step's keep) the other exchange buffer, then one grid barrier.
-template <typename T, int S>
+template <typename T, int S, bool kNarrow>
 __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFwd<T> p) {
   cg::grid_group grid = cg::this_grid();
   cg::cluster_group cluster = cg::this_cluster();
@@ -1649,6 +1695,7 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
   const int B = p.B, T_len = p.T_len, H = p.H, H3 = 3 * H, rows = p.rows, units = p.units;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const bool resident = p.resident != 0;
+  constexpr bool whole = S == kFwdWholeK;
   constexpr int kc = tiled_kc<T>();
   constexpr int per = 16 / (int)sizeof(T);  // elements of a 16-byte piece
   // the CTA's K chunks: [c0, c1) of nk
@@ -1660,14 +1707,18 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
   float* red = reinterpret_cast<float*>(smem_raw + L.red);
   float* bias_s = reinterpret_cast<float*>(smem_raw + L.bias);
   float* carry = bias_s + 3 * units;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + L.bar);  // kFwdWholeK's bulk copies
   const int unit_tiles = (H + units - 1) / units, tile = blockIdx.x / C;
   const int r0 = (tile / unit_tiles) * rows, u0 = (tile % unit_tiles) * units;
   const int nu = min(units, H - u0);
   const int ulog = __ffs(units) - 1;  // units is a power of two: own cell i is (i >> ulog, i & (units - 1))
   // the CTA owns the cells of tile rows [or0, or0 + rows / C)
   const int or0 = rank * (rows / C);
-  // this warp's 32 x 48 of the tile and its K-split group
-  const int wn_n = 3 * units / kTiledFwdWarpN, wmn = (rows / kTiledWarpTile) * wn_n;
+  // this warp's wt_m x wt_n of the tile (mi_n x ni_n mma tiles) and its
+  // K-split group (kNarrow: units is 8)
+  constexpr int wt_m = fwd_warp_m(kNarrow ? 8 : 16), wt_n = fwd_warp_n(kNarrow ? 8 : 16);
+  constexpr int mi_n = wt_m / 16, ni_n = wt_n / 8;
+  const int wn_n = 3 * units / wt_n, wmn = (rows / wt_m) * wn_n;
   const int wk = warp / wmn, wm = (warp % wmn) / wn_n, wn = warp % wn_n;
   const bool reset = p.reset != nullptr;
   const size_t xn = (size_t)B * p.ldx;
@@ -1731,6 +1782,10 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
     }
     cp_async_commit();
     cp_async_wait<0>();
+    if (whole && tid == 0) {  // kFwdWholeK takes Wh resident
+      mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
   } else {
     // step 0's first stages of weights, committed with its first state chunk
     for (int s = 0; s < S - 1; ++s)
@@ -1762,8 +1817,11 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
     }
   };
   // the gates of a batch of own cells from their sums (group 0 of red at
-  // the own rows), the biases and the carry
-  auto gate_cells = [&](int step, int base, const GateIn (&in)[kTiledGate], T* nxt) {
+  // the own rows; with `fold`, a CTA without a cluster whose warps split K,
+  // the K groups' partial products, added here in group order), the biases
+  // and the carry
+  auto gate_cells = [&](auto fold, int step, int base, const GateIn (&in)[kTiledGate],
+                        T* nxt) {
     const int t = time_of(step);
 #pragma unroll
     for (int q = 0; q < kTiledGate; ++q) {
@@ -1771,9 +1829,14 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
       const int tr = or0 + (i >> ulog), u = i & (units - 1), row = r0 + tr, j = u0 + u;
       if (i >= L.own || row >= B || j >= H) continue;
       const float* s = red + (size_t)tr * L.red_ld + u;
+      float sum[3] = {s[0], s[units], s[2 * units]};
+      if constexpr (decltype(fold)::value)
+        for (int w = 1; w < L.wk; ++w)
+#pragma unroll
+          for (int g = 0; g < 3; ++g) sum[g] += s[(size_t)w * rows * L.red_ld + g * units];
+      const float hp[3] = {sum[0] + bias_s[u], sum[1] + bias_s[units + u],
+                           sum[2] + bias_s[2 * units + u]};
       const float x[3] = {to_f(in[q].x[0]), to_f(in[q].x[1]), to_f(in[q].x[2])};
-      const float hp[3] = {s[0] + bias_s[u], s[units] + bias_s[units + u],
-                           s[2 * units] + bias_s[2 * units + u]};
       float h = carry[i] * (1.f - in[q].r);  // the carry the product read: zero at a segment start
       h = in[q].m > 0.f ? gru_cell(x, hp, h) : h;
       carry[i] = h;
@@ -1809,33 +1872,41 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
     }
   };
 
-  // acc += this warp's 32 x 48 of the stage's product over its K group's
-  // steps: bf16 and f16 mma.sync m16n8k16 (acc[(mi * 6 + ni) * 4 + e]:
-  // m-tile mi, n-tile ni, accumulator e; Wh's k-rows through
-  // ldmatrix.trans), f32 FMAs (acc[i * 12 + j]: row lane / 4 + 8i, column
-  // 12 (lane % 4) + j)
-  auto product = [&](int c, int slot, float (&acc)[48]) {
-    const unsigned char* a_s = ring + slot * L.stage + (size_t)wm * 32 * kTiledPitch;
+  // acc += this warp's wt_m x wt_n of the stage's product over its K
+  // group's steps: bf16 and f16 mma.sync m16n8k16 (acc[(mi * 6 + ni) * 4 +
+  // e]: m-tile mi < mi_n, n-tile ni < ni_n, accumulator e; Wh's k-rows
+  // through ldmatrix.trans), f32 FMAs (acc[i * 12 + j]: row lane / 4 + 8i,
+  // column wt_n / 4 (lane % 4) + j, i < wt_m / 8, j < wt_n / 4)
+  // (K chunk c of the state rows at a, a_pitch apart)
+  auto product = [&](int c, const unsigned char* a, int slot, float (&acc)[48]) {
+    const int a_pitch = whole ? L.a_pitch : kTiledPitch;  // a constant in a ring's kernels
+    const unsigned char* a_s = a + (size_t)wm * wt_m * a_pitch;
     const unsigned char* w_s =
         (resident ? smem_raw + (size_t)(c - c0) * kc * L.w_pitch
                   : ring + slot * L.stage + (size_t)rows * kTiledPitch) +
-        wn * kTiledFwdWarpN * (int)sizeof(T);
+        wn * wt_n * (int)sizeof(T);
     if constexpr (is_mma<T>()) {
       for (int kk = wk; kk < kc / 16; kk += L.wk) {
         uint32_t a[2][4], b[3][4];
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(a[mi], a_s + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kTiledPitch +
-                                 kk * 32 + (lane >> 4) * 16);
+          if (mi < mi_n)
+            ldmatrix_x4(a[mi], a_s + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * a_pitch +
+                                   kk * 32 + (lane >> 4) * 16);
 #pragma unroll
-        for (int nj = 0; nj < 3; ++nj)
-          ldmatrix_x4_trans(b[nj], w_s + (size_t)(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
-                                             L.w_pitch +
-                                       (nj * 16 + (lane >> 4) * 8) * 2);
+        for (int nj = 0; nj < 3; ++nj) {
+          const unsigned char* at = w_s + (size_t)(kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                                              L.w_pitch + (nj * 16 + (lane >> 4) * 8) * 2;
+          if (2 * nj + 1 < ni_n)
+            ldmatrix_x4_trans(b[nj], at);
+          else if (2 * nj < ni_n)  // the last of an odd count of n-tiles
+            ldmatrix_x2_trans(b[nj], at);
+        }
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
           for (int ni = 0; ni < 6; ++ni) {
+            if (mi >= mi_n || ni >= ni_n) continue;
             float* c4 = acc + (mi * 6 + ni) * 4;
             float cc[4] = {c4[0], c4[1], c4[2], c4[3]};
             mma16<T>(cc, a[mi], b[ni >> 1][(ni & 1) * 2], b[ni >> 1][(ni & 1) * 2 + 1]);
@@ -1845,12 +1916,39 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
             c4[3] = cc[3];
           }
       }
+    } else if constexpr (kNarrow) {  // 16 x 24: rows lane / 4 + 8i, columns 6 (lane % 4) + j
+      for (int kq = wk; kq < kc / 4; kq += L.wk) {
+        float4 av[2];
+        float2 wv[4][3];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          av[i] = *reinterpret_cast<const float4*>(a_s + ((lane >> 2) + 8 * i) * a_pitch +
+                                                   kq * 16);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < 3; ++j)
+            wv[kk][j] = *reinterpret_cast<const float2*>(
+                w_s + (size_t)(kq * 4 + kk) * L.w_pitch + ((lane & 3) * 6 + 2 * j) * 4);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float a4[4] = {av[i].x, av[i].y, av[i].z, av[i].w};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+            for (int j = 0; j < 3; ++j) {
+              float* c2 = acc + i * 12 + j * 2;
+              c2[0] = fmaf(a4[kk], wv[kk][j].x, c2[0]);
+              c2[1] = fmaf(a4[kk], wv[kk][j].y, c2[1]);
+            }
+        }
+      }
     } else {
       for (int kq = wk; kq < kc / 4; kq += L.wk) {
         float4 av[4], wv[4][3];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          av[i] = *reinterpret_cast<const float4*>(a_s + ((lane >> 2) + 8 * i) * kTiledPitch +
+          av[i] = *reinterpret_cast<const float4*>(a_s + ((lane >> 2) + 8 * i) * a_pitch +
                                                    kq * 16);
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -1880,26 +1978,44 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
   for (int step = 0; step < T_len; ++step) {
     const T* cur = p.xch + (step & 1) * xn;
     T* nxt = p.xch + ((step + 1) & 1) * xn;
-    for (int s = 0; s < S - 1; ++s) {
-      if (c0 + s < c1) load_h(cur, c0 + s, s);
-      cp_async_commit();
+    if constexpr (whole) {
+      // thread r: tile row r's K chunks [c0, c1) in one bulk copy (rows past
+      // B are not copied: their products are never read); thread 0's
+      // arrival holds the phase open until it has added the bytes to expect
+      const int bytes = (c1 - c0) * kTiledChunk, n = min(rows, B - r0);
+      if (tid < n) {
+        fence_proxy_async_global();  // the peers' round(h), before the grid barrier, first
+        bulk_load(ring + (size_t)tid * L.a_pitch, cur + (size_t)(r0 + tid) * p.ldx + c0 * kc,
+                  bytes, bar);
+      }
+      if (tid == 0) mbar_expect_tx(bar, n * bytes);
+    } else {
+      for (int s = 0; s < S - 1; ++s) {
+        if (c0 + s < c1) load_h(cur, c0 + s, s);
+        cp_async_commit();
+      }
     }
     // the first batch's gate inputs load under the product
     GateIn first[kTiledGate];
     gate_load(step, tid, first);
     float acc[48] = {};
-    for (int c = c0; c < c1; ++c) {
-      cp_async_wait<S - 2>();
-      __syncthreads();  // chunk c is in its stage; every warp is done with chunk c - 1's
-      const int next = c + S - 1;
-      if (next < c1) {
-        if (!resident) load_w(next, (next - c0) % S);
-        load_h(cur, next, (next - c0) % S);
+    if constexpr (whole) {
+      mbar_wait(bar, step & 1);
+      for (int c = c0; c < c1; ++c) product(c, ring + (size_t)(c - c0) * kTiledChunk, 0, acc);
+    } else {
+      for (int c = c0; c < c1; ++c) {
+        cp_async_wait<S - 2>();
+        __syncthreads();  // chunk c is in its stage; every warp is done with chunk c - 1's
+        const int next = c + S - 1;
+        if (next < c1) {
+          if (!resident) load_w(next, (next - c0) % S);
+          load_h(cur, next, (next - c0) % S);
+        }
+        cp_async_commit();
+        product(c, ring + (size_t)((c - c0) % S) * L.stage, (c - c0) % S, acc);
       }
-      cp_async_commit();
-      product(c, (c - c0) % S, acc);
+      cp_async_wait<0>();
     }
-    cp_async_wait<0>();
     __syncthreads();  // every warp is done with the ring, which red may share
     // the next step's first stages of weights do not wait for its state:
     // their copies run under the sums, the gates and the barrier
@@ -1908,24 +2024,36 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
         if (c0 + s < c1) load_w(c0 + s, s);
     globaltimer_stamp(p.probe, 1 + 4 * step);
 
-    // the warp's partial products into red[wk], then the own cells' sums
-    // over the cluster's CTAs and the K groups, in that fixed order, into
-    // group 0 of this CTA's red (a peer reads only the rows it owns)
+    // the warp's partial products into red[wk]; in a cluster, then the own
+    // cells' sums over the cluster's CTAs and the K groups, in that fixed
+    // order, into group 0 of this CTA's red (a peer reads only the rows it
+    // owns); without one the gates add the K groups
     float* rb = red + (size_t)wk * rows * L.red_ld;
 #pragma unroll
     for (int e = 0; e < 48; ++e) {
       int r, n;
       if constexpr (is_mma<T>()) {
-        r = wm * 32 + ((e >> 2) / 6) * 16 + (lane >> 2) + ((e >> 1) & 1) * 8;
-        n = wn * kTiledFwdWarpN + ((e >> 2) % 6) * 8 + 2 * (lane & 3) + (e & 1);
+        const int mi = (e >> 2) / 6, ni = (e >> 2) % 6;
+        if (mi >= mi_n || ni >= ni_n) continue;
+        r = wm * wt_m + mi * 16 + (lane >> 2) + ((e >> 1) & 1) * 8;
+        n = wn * wt_n + ni * 8 + 2 * (lane & 3) + (e & 1);
       } else {
-        r = wm * 32 + (lane >> 2) + 8 * (e / 12);
-        n = wn * kTiledFwdWarpN + (lane & 3) * 12 + e % 12;
+        const int i = e / 12, j = e % 12;
+        if (8 * i >= wt_m || 4 * j >= wt_n) continue;
+        r = wm * wt_m + (lane >> 2) + 8 * i;
+        n = wn * wt_n + (lane & 3) * (wt_n / 4) + j;
       }
       rb[r * L.red_ld + n] = acc[e];
     }
-    cluster.sync();  // every partial product of the cluster is in its CTA's red
-    if (C > 1 || L.wk > 1) {
+    // every partial product of the cluster is in its CTA's red (a
+    // cluster of one CTA takes a CTA barrier where the step is short, on
+    // the whole-K stage; a ring's kernels ran faster with the cluster
+    // barrier alone)
+    if (!whole || C > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+    if (C > 1) {
       // four units of an own row a thread, 16 bytes a partial (from the
       // peers' shared memory), a gate's adds before its store
       for (int i = tid; i < L.own / 4; i += kTiledThreads) {
@@ -1953,31 +2081,41 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_fwd_kernel(TiledFw
     }
     globaltimer_stamp(p.probe, 2 + 4 * step);
 
-    gate_cells(step, tid, first, nxt);
-    for (int base = tid + kTiledGate * kTiledThreads; base < L.own;
-         base += kTiledGate * kTiledThreads) {
-      GateIn in[kTiledGate];
-      gate_load(step, base, in);
-      gate_cells(step, base, in, nxt);
-    }
+    auto gates = [&](auto fold) {
+      gate_cells(fold, step, tid, first, nxt);
+      for (int base = tid + kTiledGate * kTiledThreads; base < L.own;
+           base += kTiledGate * kTiledThreads) {
+        GateIn in[kTiledGate];
+        gate_load(step, base, in);
+        gate_cells(fold, step, base, in, nxt);
+      }
+    };
+    if (C == 1 && L.wk > 1)
+      gates(std::true_type{});
+    else
+      gates(std::false_type{});
     globaltimer_stamp(p.probe, 3 + 4 * step);
     if (step + 1 < T_len) grid.sync();  // every cell's round(h') is in nxt
     globaltimer_stamp(p.probe, 4 + 4 * step);
   }
-  cluster.sync();  // no CTA leaves while a peer reads its partial products
+  if (!whole || C > 1) cluster.sync();  // no CTA leaves while a peer reads its partial products
 }
 
-// The forward tiled kernel with a ring of `stages` stages (4, or 2).
+// The forward tiled kernel with a ring of `stages` stages (4 or 2), or
+// kFwdWholeK (the one that tiles of 8 units take).
 template <typename T>
-auto tiled_fwd_kernel(int stages) {
-  return stages == 2 ? gru_tiled_fwd_kernel<T, 2> : gru_tiled_fwd_kernel<T, 4>;
+auto tiled_fwd_kernel(int stages, int units) {
+  return stages == kFwdWholeK ? (units == 8 ? gru_tiled_fwd_kernel<T, kFwdWholeK, true>
+                                            : gru_tiled_fwd_kernel<T, kFwdWholeK, false>)
+         : stages == 2        ? gru_tiled_fwd_kernel<T, 2, false>
+                              : gru_tiled_fwd_kernel<T, 4, false>;
 }
 
 template <typename T>
 int launch_tiled_fwd(TiledFwd<T> q, int cluster, int row_tiles, int stages, cudaStream_t stream) {
   const size_t smem = tiled_fwd_smem<T>(q.H, q.rows, q.units, cluster, q.resident != 0, stages);
   const size_t H = q.H;
-  return launch_chunks(tiled_fwd_kernel<T>(stages), q, smem, cluster, row_tiles, stream,
+  return launch_chunks(tiled_fwd_kernel<T>(stages, q.units), q, smem, cluster, row_tiles, stream,
                        [H](TiledFwd<T>& p, const TiledFwd<T>& q, int b0, size_t) {
                          p.final_h = q.final_h + b0 * H;
                        });
@@ -2228,16 +2366,19 @@ extern "C" int vmmt_gru_tiled_bwd_occupancy(int dtype, int H, int rows, int unit
   return by_dtype(dtype, query);
 }
 
-// Forward above 512 units, the tiled plan: inputs and outputs as
-// vmmt_gru_scan's, then xch: 2 * rows * row_tiles * ldx elements of the
-// compute dtype (ldx = H padded to a K chunk); wt: null where the kernel
-// reads wh in place (H a whole number of 16-byte pieces, so that each
-// gate's columns start on one), else wh padded to (H, 3, ldg), ldg = H
+// Forward on the tiled plan (any H >= 1; the launch plan takes it above
+// 512 units and wherever the cluster plan would run in waves): inputs and
+// outputs as vmmt_gru_scan's, then xch: 2 * rows * row_tiles * ldx elements
+// of the compute dtype (ldx = H padded to a K chunk); wt: null where the
+// kernel reads wh in place (H a whole number of 16-byte pieces, so that
+// each gate's columns start on one), else wh padded to (H, 3, ldg), ldg = H
 // rounded up to a piece, zero past H; CTAs of `rows` x `units` cells,
 // `cluster` of them splitting K a tile, row_tiles row tiles a launch, a ring
-// of `stages` stages (valid_fwd_tile), one launch a chunk of rows *
-// row_tiles rows, with `resident` each CTA's columns of Wh in its shared
-// memory for the call (TiledFwdLayout); probe: null, or 1 + 4 * T int64
+// of `stages` stages (4 or 2), or stages = 1 (kFwdWholeK, with `resident`
+// only): each step's K of the tile's rows in one stage by bulk copies
+// (valid_fwd_tile), one launch a chunk of rows * row_tiles rows, with
+// `resident` each CTA's columns of Wh in its shared memory for the call
+// (TiledFwdLayout); probe: null, or 1 + 4 * T int64
 // globaltimer stamps of the first launch's CTA 0 (after the first grid
 // barrier, then each step's product, sums, gates and grid barrier). wh (or
 // wt) and xch 16-byte aligned.
@@ -2249,7 +2390,8 @@ extern "C" int vmmt_gru_tiled_fwd(int dtype, const void* x_proj, const void* mas
                                   void* probe, void* stream) {
   if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
-  if (H < 1 || !valid_fwd_tile(rows, units, cluster, stages) || row_tiles < 1)
+  if (H < 1 || !valid_fwd_tile(rows, units, cluster, stages) || row_tiles < 1 ||
+      (stages == kFwdWholeK && resident == 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto zero) {
@@ -2293,13 +2435,14 @@ extern "C" int vmmt_gru_tiled_fwd(int dtype, const void* x_proj, const void* mas
 extern "C" int vmmt_gru_tiled_fwd_occupancy(int dtype, int H, int rows, int units, int cluster,
                                             int resident, int stages, int* max_ctas,
                                             int* smem_bytes) {
-  if (!known_dtype(dtype) || H < 1 || !valid_fwd_tile(rows, units, cluster, stages))
+  if (!known_dtype(dtype) || H < 1 || !valid_fwd_tile(rows, units, cluster, stages) ||
+      (stages == kFwdWholeK && resident == 0))
     return (int)cudaErrorInvalidValue;
   auto query = [&](auto zero) {
     using T = decltype(zero);
     const size_t smem = tiled_fwd_smem<T>(H, rows, units, cluster, resident != 0, stages);
     *smem_bytes = (int)smem;
-    const auto kernel = tiled_fwd_kernel<T>(stages);
+    const auto kernel = tiled_fwd_kernel<T>(stages, units);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

@@ -58,37 +58,41 @@ same launch, deterministically. :func:`scan_bwd_plan` sizes the
 clusters and shared memory and refuses what the design cannot hold; the
 wrapper checks with the card that a cluster fits.
 
-Source note, the forward's tiled plan (H above 512, ``vmmt_gru_tiled_fwd``
-in the same source). Above 512 units the three gate blocks of Wh no longer
-fit one cluster of 16 CTAs: at H = 1024 Wh is 6.3 MB in bf16 (12.6 MB in
-f32), so the state crosses CTAs through global memory (L2) with one grid
-barrier a step. The serial part is T steps of h_proj = round(h) @ Wh + bh,
-a (B, H) x (H, 3H) product whose operand is the step before's output, and
-the gates; its FLOPs are few, and what bounds it on the H100 is the bytes
-each SM pulls from L2 a step and the grid barriers. Giving each CTA 8 units
-would read each step's state from L2 H/8 times (512 KB a CTA at B = 256, H
-= 1024). The tiled plan makes the product output-stationary, as the
-backward's below: each CTA owns a tile of ``rows`` x ``units`` cells (32
-to 128 rows, 16 to 128 units) for the call, whose N is the 3 * units r, z
-and n columns
-of its own units, so the gates need nothing from another CTA; K = H moves
-through a ``cp.async`` ring in shared memory (the tile's columns of Wh stay
-there for the call where a CTA's share fits, with the warps' partial
-products then in the ring's bytes; 4 stages, 2 where 4 do not fit),
+Source note, the forward's tiled plan (``vmmt_gru_tiled_fwd`` in the same
+source; above 512 units, and below wherever the cluster plan's clusters
+would run in waves: 16-CTA clusters, 7 of which an H100 holds at once, from
+449 units at B >= 64). Above 512 units the three gate blocks of Wh no
+longer fit one cluster of 16 CTAs: at H = 1024 Wh is 6.3 MB in bf16 (12.6
+MB in f32), so the state crosses CTAs through global memory (L2) with one
+grid barrier a step. The serial part is T steps of h_proj = round(h) @ Wh +
+bh, a (B, H) x (H, 3H) product whose operand is the step before's output,
+and the gates; its FLOPs are few, and what bounds it on the H100 is the
+bytes each SM pulls from L2 a step and the grid barriers. The tiled plan
+makes the product output-stationary, as the backward's below: each CTA owns
+a tile of ``rows`` x ``units`` cells (32 to 128 rows, 8 to 128 units) for
+the call, whose N is the 3 * units r, z and n columns of its own units, so
+the gates need nothing from another CTA. K = H moves through a ``cp.async``
+ring in shared memory (4 stages, 2 where 4 do not fit), or, where the
+tile's columns of Wh stay in shared memory for the call and the CTA's whole
+K of its state rows fits beside them, arrives in one stage by the TMA
+unit's bulk copies (a row each, one mbarrier, no barrier between K chunks);
+the warps' partial products take the ring's bytes where Wh is resident.
 ``ldmatrix`` feeds ``mma.sync`` in bf16 and f16 (``ldmatrix.trans`` for
 Wh's (K, N) rows; FMAs in f32), and a step's state leaves L2 H / units
-times. Where B leaves few tiles, a thread-block cluster of 2 or 4 CTAs
-splits K a tile and adds its partial products through distributed shared
-memory in rank order (deterministic); the launch is cooperative and
-clustered at once. Each CTA keeps the f32 carry of its own cells and its
-units' biases in shared memory, and its threads' first gate inputs load
-under the product. Wh is read in place where each gate's
-columns start on a 16-byte piece (H * itemsize a multiple of 16), else from
-a padded copy made once a call (:func:`_tiled_fwd_weights`).
-:func:`_tiled_fwd_plan` picks the tiling whose grid the card holds at once
-by its own cost model (:func:`_tiled_fwd_cost`); batches above a launch's
-rows run in chunks. The wrapper checks the plan with the card and raises
-``NotImplementedError`` where the grid is not co-resident.
+times. Tiles of 8 units (N = 24, warp tiles of 16 x 24) give 64 or more
+CTAs each all of K at B = 64, with no K split and so no sums across CTAs;
+where B leaves few tiles, a thread-block cluster of 2 or 4 CTAs splits K a
+tile and adds its partial products through distributed shared memory in
+rank order (deterministic); the launch is cooperative and clustered at
+once. Each CTA keeps the f32 carry of its own cells and its units' biases
+in shared memory, and its threads' first gate inputs load under the
+product. Wh is read in place where each gate's columns start on a 16-byte
+piece (H * itemsize a multiple of 16), else from a padded copy made once a
+call (:func:`_tiled_fwd_weights`). :func:`tiled_fwd_plan` picks the tiling
+and ring whose grid the card holds at once by its own cost model
+(:func:`_tiled_fwd_cost`); batches above a launch's rows run in chunks.
+The wrapper checks the plan with the card and raises ``NotImplementedError``
+where the grid is not co-resident.
 
 Source note, the backward's tiled plan (H above 512, ``vmmt_gru_tiled_bwd``
 in the same source). The serial part of the backward is T steps of the
@@ -134,8 +138,9 @@ alone, :func:`scan_bwd_products_ref` is their plain version.
 
 Widths. Both kernels take every H >= 1 in f32, bf16 and f16 that a card's
 132 SMs tile (:func:`scan_kernel_holds`; from 16897 units they do not):
-clusters up to 512 units, above both tiled plans, as the Pallas scan takes
-any H.
+the backward on clusters up to 512 units and on its tiled plan above; the
+forward on clusters up to 512 units where they run in one wave, else on its
+tiled plan (:func:`scan_fwd_plan`), as the Pallas scan takes any H.
 
 float16 takes bf16's path on every plan (``kernels.mma_dtype``: the same
 mma.sync tiling, strides and shared memory with f16 operands); what is
@@ -145,6 +150,7 @@ said of bf16 here holds for both.
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -195,7 +201,7 @@ def gru_layer_scan(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch the kernel (the
     plan of the last launch, with the card's count of co-resident clusters
     or CTAs, is kept in ``gru_layer_scan.plan``). ``probe``: on the tiled
-    plan (H above 512), an int64 tensor of ``1 + 4 * T`` entries on the
+    plan, an int64 tensor of ``1 + 4 * T`` entries on the
     device for the first launch's ``%globaltimer`` stamps (ns) of CTA 0:
     after its first grid barrier, then each step's product, sums, gates and
     grid barrier."""
@@ -631,29 +637,41 @@ def _tiled_weights(Wh: torch.Tensor, plan: dict) -> Optional[torch.Tensor]:
     return wt
 
 
-# The forward's tiled plan (H above 512; ``gru_tiled_fwd_kernel`` of
-# csrc/gru_scan.cu). A CTA's tile of the step's product: ``rows`` batch rows
-# x ``units`` hidden units, whose N is its units' 3 * units r, z and n
-# columns, in warp tiles of 32 rows x 48 columns; the eight warps split K
-# by 8 / warp tiles.
+# The forward's tiled plan (``gru_tiled_fwd_kernel`` of csrc/gru_scan.cu).
+# A CTA's tile of the step's product: ``rows`` batch rows x ``units`` hidden
+# units, whose N is its units' 3 * units r, z and n columns, in warp tiles of
+# 32 rows x 48 columns (16 x 24 at 8 units); the eight warps split K by 8 /
+# warp tiles.
 TILED_FWD_WARP_N = 48
-TILED_FWD_TILES = ((64, 16), (128, 16), (32, 32), (32, 64), (64, 32), (64, 64), (32, 128),
-                   (128, 32))
-# (Wh's columns resident, the ring's stages), the first that fits a CTA's
-# shared memory
-TILED_FWD_RINGS = ((True, TILED_STAGES), (False, TILED_STAGES), (False, 2))
-# what the forward's plan assumes of the card when it ranks the tilings (not
-# limits; fitted to an H100's times of 346 tilings and rings at B = 64 and
-# 256, H = 520-2500 in bf16, PERF.md; f32 keeps the backward's FMA rate): a
-# step's grid barrier, first gate batch and sums set-up; its product, whose
-# loads and mma.sync work were measured to add up rather than overlap:
-# TILED_FWD_PRODUCT_S, then each K chunk at least TILED_FWD_CHUNK_S (with 4
-# stages; 3/(stages - 1) of it with fewer) or its bytes at TILED_FWD_L2_SM,
-# plus its FLOPs at TILED_FWD_MMA_SM; the gates and the sums of the partial
-# products, each cell a thread
-TILED_FWD_STEP_S, TILED_FWD_PRODUCT_S, TILED_FWD_CHUNK_S = 3.7e-6, 1.2e-6, 0.18e-6
-TILED_FWD_L2_SM, TILED_FWD_MMA_SM = 41e9, 2.4e12
-TILED_FWD_GATE_CELL, TILED_FWD_SUMS_CELL = 0.18e-6, 0.17e-6
+TILED_FWD_TILES = ((32, 8), (64, 8), (128, 8), (64, 16), (128, 16), (32, 32), (32, 64),
+                   (64, 32), (64, 64), (32, 128), (128, 32))
+# (Wh's columns resident, the ring's stages): what a plan may take. One
+# stage (TILED_FWD_WHOLE_K, ``kFwdWholeK``, with Wh resident only, the one
+# tiles of 8 units take): the CTA's whole K of the tile's state rows each
+# step, one bulk copy a row
+TILED_FWD_WHOLE_K = 1
+TILED_FWD_RINGS = ((True, TILED_FWD_WHOLE_K), (True, TILED_STAGES), (False, TILED_STAGES),
+                   (False, 2))
+# what the forward's plan assumes of the card when it ranks the tilings and
+# rings (not limits; fitted to an H100's µs a step by phase, the kernel's
+# probe, of every tiling and ring at B = 32-256, H = 512-1024 in bf16,
+# PERF.md; f32 keeps the backward's FMA rate): the product through a ring,
+# TILED_FWD_PRODUCT_S, then each K chunk TILED_FWD_CHUNK_S (with 4 stages;
+# 3/(stages - 1) of it with fewer) and its bytes at TILED_FWD_L2_SM, plus
+# its FLOPs at TILED_FWD_MMA_SM (the loads and mma.sync work add up rather
+# than overlap); the product on the whole-K stage, TILED_FWD_BULK_S, then
+# each K chunk TILED_FWD_BULK_CHUNK_S and its bytes at TILED_FWD_BULK_SM,
+# and its FLOPs at TILED_FWD_MMA_SM; in a cluster the sums of the partial
+# products, TILED_FWD_SUMS_S, TILED_FWD_SUMS_CELL each cell a thread and
+# TILED_FWD_SPLIT_S for each halving of K across it; the gates,
+# TILED_FWD_GATE_CELL each cell a thread and, without a cluster,
+# TILED_FWD_GATE_GROUP each K group more they add; the grid barrier and the
+# step's fixed part, TILED_FWD_STEP_S
+TILED_FWD_PRODUCT_S, TILED_FWD_CHUNK_S, TILED_FWD_L2_SM = 1.89e-6, 0.044e-6, 39.5e9
+TILED_FWD_BULK_S, TILED_FWD_BULK_CHUNK_S, TILED_FWD_BULK_SM = 1.30e-6, 0.085e-6, 43.5e9
+TILED_FWD_MMA_SM = 4.65e12
+TILED_FWD_SUMS_S, TILED_FWD_SUMS_CELL, TILED_FWD_SPLIT_S = 2.28e-6, 0.131e-6, 0.234e-6
+TILED_FWD_GATE_CELL, TILED_FWD_GATE_GROUP, TILED_FWD_STEP_S = 0.47e-6, 0.029e-6, 1.29e-6
 
 
 def tiled_fwd_k_chunks(H: int, dtype: torch.dtype, cluster: int, rank: int) -> range:
@@ -669,6 +687,20 @@ def tiled_fwd_kc_own(H: int, dtype: torch.dtype, cluster: int) -> int:
     return -(-(-(-H // tiled_kc(dtype))) // cluster)
 
 
+def tiled_fwd_warp_tile(units: int) -> Tuple[int, int]:
+    """A forward warp's rows and columns of its tile (``fwd_warp_m`` and
+    ``fwd_warp_n``): 32 x 48, or 16 x 24 at 8 units (a tile N of 24), so
+    that a tile of 32 rows still leaves each warp a K group of its own."""
+    return (16, 24) if units == 8 else (TILED_WARP_TILE, TILED_FWD_WARP_N)
+
+
+def tiled_fwd_k_groups(rows: int, units: int) -> int:
+    """The K groups the eight warps of a forward CTA split K into: 8 over
+    the tile's warp tiles."""
+    wm, wn = tiled_fwd_warp_tile(units)
+    return TILED_THREADS // 32 // ((rows // wm) * (3 * units // wn))
+
+
 def tiled_fwd_smem(rows: int, units: int, cluster: int, resident: bool, stages: int,
                    kc_own: int, dtype: torch.dtype) -> int:
     """Shared memory of a forward tiled CTA (``TiledFwdLayout``): with
@@ -680,54 +712,73 @@ def tiled_fwd_smem(rows: int, units: int, cluster: int, resident: bool, stages: 
     take the ring's bytes; the units' biases and the carry of the cells the
     CTA owns (rows / cluster x units), f32."""
     kc = tiled_kc(dtype)
-    wk = TILED_THREADS // 32 // ((rows // TILED_WARP_TILE) * (3 * units // TILED_FWD_WARP_N))
+    wk = tiled_fwd_k_groups(rows, units)
     w_pitch = 3 * units * dtype.itemsize + 16
-    ring = stages * (rows * TILED_PITCH + (0 if resident else kc * w_pitch))
+    if stages == TILED_FWD_WHOLE_K:  # one stage of the whole K, and an mbarrier
+        ring = rows * (kc_own * TILED_CHUNK + 16)
+    else:
+        ring = stages * (rows * TILED_PITCH + (0 if resident else kc * w_pitch))
     red = wk * rows * (3 * units + 4) * 4
     w = kc_own * kc * w_pitch if resident else 0
-    return (w + (max(ring, red) if resident else ring + red)
-            + (3 * units + (rows // cluster) * units) * 4)
+    total = (w + (max(ring, red) if resident else ring + red)
+             + (3 * units + (rows // cluster) * units) * 4)
+    return kernels.align16(total) + 16 if stages == TILED_FWD_WHOLE_K else total
 
 
 def _tiled_fwd_cost(B: int, H: int, dtype: torch.dtype, plan: dict) -> float:
     """What the forward's plan ranks tilings by: seconds a call takes per
-    step of the time axis, from the busiest CTA's K chunks through its ring
-    (state rows, and Wh's k-rows where they are not resident), its products,
-    the gates and sums of its cells and a step's fixed part (TILED_FWD_*
+    step of the time axis, its launches' steps by phase
+    (:func:`tiled_fwd_phases`) summed."""
+    return plan["chunks"] * sum(tiled_fwd_phases(B, H, dtype, plan))
+
+
+def tiled_fwd_phases(B: int, H: int, dtype: torch.dtype, plan: dict) -> Tuple[float, ...]:
+    """Seconds a step of one launch of the forward's tiled plan by phase, as
+    its probe splits it: the product (the busiest CTA's K chunks through its
+    ring, state rows and Wh's k-rows where they are not resident, or its
+    whole K's bulk copies; and its FLOPs), the sums of the partial products,
+    the gates, and the grid barrier with the step's fixed part (TILED_FWD_*
     constants)."""
     rows, units, cluster = plan["rows"], plan["units"], plan["cluster"]
-    mma = kernels.mma_dtype(dtype)
     kc = tiled_kc(dtype)
     nk = tiled_fwd_kc_own(H, dtype, cluster)
     busy_rows, busy_units = min(rows, B), min(units, H)
     chunk = busy_rows * TILED_CHUNK + (0 if plan["resident"]
                                        else kc * 3 * busy_units * dtype.itemsize)
-    flops = 2.0 * rows * 3 * units * nk * kc
-    latency = TILED_FWD_CHUNK_S * (TILED_STAGES - 1) / (plan["stages"] - 1)
-    product = (TILED_FWD_PRODUCT_S + nk * max(latency, chunk / TILED_FWD_L2_SM)
-               + flops / (TILED_FWD_MMA_SM if mma else TILED_FMA_SM))
+    flops = 2.0 * rows * 3 * units * nk * kc / (TILED_FWD_MMA_SM if kernels.mma_dtype(dtype)
+                                                else TILED_FMA_SM)
+    if plan["stages"] == TILED_FWD_WHOLE_K:
+        product = (TILED_FWD_BULK_S + nk * (TILED_FWD_BULK_CHUNK_S + chunk / TILED_FWD_BULK_SM)
+                   + flops)
+    else:
+        latency = TILED_FWD_CHUNK_S * (TILED_STAGES - 1) / (plan["stages"] - 1)
+        product = TILED_FWD_PRODUCT_S + nk * (latency + chunk / TILED_FWD_L2_SM) + flops
     cells = -(-busy_rows * busy_units // (cluster * TILED_THREADS))
-    split = cluster > 1 or rows * 3 * units < TILED_THREADS // 32 * TILED_WARP_TILE \
-        * TILED_FWD_WARP_N  # partial products to add
-    cell = TILED_FWD_GATE_CELL + split * TILED_FWD_SUMS_CELL
-    return plan["chunks"] * (TILED_FWD_STEP_S + product + cell * cells)
+    # a cluster adds its partial products in a pass of their own; without
+    # one the gates add the K groups'
+    groups = 1 if cluster > 1 else tiled_fwd_k_groups(rows, units)
+    sums = (cluster > 1) * (TILED_FWD_SUMS_S + TILED_FWD_SUMS_CELL * cells
+                            + TILED_FWD_SPLIT_S * math.log2(cluster))
+    gates = cells * (TILED_FWD_GATE_CELL + TILED_FWD_GATE_GROUP * (groups - 1))
+    return product, sums, gates, TILED_FWD_STEP_S
 
 
-def _tiled_fwd_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
-    """The forward's tiled plan for B rows and H units (above 512) on a card
-    of ``sms`` SMs: of the tilings whose grid the card holds at once
-    (TILED_FWD_TILES x TILED_CLUSTERS), the one :func:`_tiled_fwd_cost`
-    ranks first (then the smaller grid)."""
+def tiled_fwd_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The forward's tiled plan for B rows and H units on a card of ``sms``
+    SMs: of the tilings and rings whose grid the card holds at once
+    (TILED_FWD_TILES x TILED_CLUSTERS x TILED_FWD_RINGS), the one
+    :func:`_tiled_fwd_cost` ranks first (then the smaller grid)."""
     B = max(B, 1)
     best = None
     for rows, units in TILED_FWD_TILES:
         for cluster in TILED_CLUSTERS:
-            plan = tiled_fwd_plan_for(B, H, dtype, sms, rows, units, cluster)
-            if plan is None:
-                continue
-            key = (_tiled_fwd_cost(B, H, dtype, plan), plan["grid"])
-            if best is None or key < best[0]:
-                best = (key, plan)
+            for ring in TILED_FWD_RINGS:
+                plan = tiled_fwd_plan_for(B, H, dtype, sms, rows, units, cluster, (ring,))
+                if plan is None:
+                    continue
+                key = (_tiled_fwd_cost(B, H, dtype, plan), plan["grid"])
+                if best is None or key < best[0]:
+                    best = (key, plan)
     if best is None:
         raise NotImplementedError(f"gru_layer_scan kernel: no tiling of {H} units fits the "
                                   f"card's {sms} SMs at once")
@@ -739,12 +790,13 @@ def tiled_fwd_plan_for(B: int, H: int, dtype: torch.dtype, sms: int, rows: int, 
     """The forward's tiled plan of one tiling: as many row tiles a launch as
     the card holds at once with the unit tiles and clusters (at most the
     batch's), ``chunks`` launches for B rows; of ``rings``, the first
-    (``resident``, ``stages``) whose shared memory fits (the tile's columns
-    of Wh resident there beside a ring of 4 stages; else a ring of 4 stages
-    that brings them, else of 2); None where the grid of one row tile or
-    the shared memory does not fit the card. Each CTA owns ``rows`` x ``units`` cells of a chunk of ``rows *
-    row_tiles`` batch rows for the whole call; ``cluster`` CTAs split K = H
-    a tile. Wh is read in place where each gate's columns start on a 16-byte
+    (``resident``, ``stages``) whose shared memory fits (by default the
+    tile's columns of Wh resident there beside the whole K of its state
+    rows, else beside a ring of 4 stages; else a ring of 4 stages that
+    brings them, else of 2); None where the grid of one row tile or the
+    shared memory does not fit the card. Each CTA owns ``rows`` x ``units``
+    cells of a chunk of ``rows * row_tiles`` batch rows for the whole call;
+    ``cluster`` CTAs split K = H a tile. Wh is read in place where each gate's columns start on a 16-byte
     piece (``in_place``), else from a copy whose gates are ``ldg`` columns
     apart (:func:`_tiled_fwd_weights`); ``wh_from`` says where a step's
     weights come from: shared memory, L2, or device memory every step."""
@@ -755,6 +807,8 @@ def tiled_fwd_plan_for(B: int, H: int, dtype: torch.dtype, sms: int, rows: int, 
     most = tiled_co_resident(cluster, sms) // (unit_tiles * cluster)
     kc_own = tiled_fwd_kc_own(H, dtype, cluster)
     for resident, stages in rings:
+        if units == 8 and stages != TILED_FWD_WHOLE_K:
+            continue  # 8-unit tiles take the whole-K stage only (valid_fwd_tile)
         smem = tiled_fwd_smem(rows, units, cluster, resident, stages, kc_own, dtype)
         if smem <= kernels.SMEM_PER_BLOCK:
             break
@@ -794,7 +848,7 @@ def scan_kernel_holds(H: int, dtype: torch.dtype) -> bool:
     units on clusters (16 CTAs of 32 units, the largest cluster) with both
     CTAs' shared memory within the card's; above, both tiled plans, where a
     tiling's grid fits the card (a tile's shared memory stops growing with
-    H once Wh streams through its ring; :func:`_tiled_fwd_plan` and
+    H once Wh streams through its ring; :func:`tiled_fwd_plan` and
     :func:`_tiled_plan` find one for every H to 16896 units). ``UniGRU``
     sends every ``use_pallas`` GRU layer to the kernels, as JAX sends it to
     the Pallas scan."""
@@ -811,18 +865,55 @@ def scan_kernel_holds(H: int, dtype: torch.dtype) -> bool:
             <= kernels.SMEM_PER_BLOCK)
 
 
+# The forward's choice between its plans up to 512 units. Clusters of the
+# cluster plan that an H100 SXM (132 SMs) holds at once, by (CTAs a
+# cluster, CTAs an SM by shared memory; at most FWD_CLUSTER_CTAS_PER_SM):
+# the card's own count (cudaOccupancyMaxActiveClusters of the cluster
+# kernel at H = 32 to 512 in bf16 and f32, ``kernel_times.py -crossover``,
+# PERF.md). Clusters above 8 CTAs are placed within a GPC, so 7 of 15 or 16
+# CTAs fit at once (112 SMs).
+H100_FWD_CLUSTERS = {
+    (1, 3): 396, (2, 3): 198, (3, 3): 124, (4, 3): 92, (5, 3): 69, (6, 3): 62, (7, 3): 47,
+    (8, 3): 45, (5, 2): 47, (6, 2): 39, (7, 2): 32, (9, 2): 23, (10, 2): 21, (11, 2): 16,
+    (12, 2): 16, (13, 2): 14, (14, 2): 14, (8, 1): 15, (9, 1): 9, (10, 1): 7, (11, 1): 7,
+    (12, 1): 7, (13, 1): 7, (14, 1): 7, (15, 1): 7, (16, 1): 7}
+FWD_CLUSTER_CTAS_PER_SM = 3  # what the cluster kernel's registers allow an SM
+H100_SMEM_PER_SM = 233_472  # an SM's shared memory, 1 KB of it reserved per CTA
+
+
+def fwd_cluster_waves(plan: dict, sms: int) -> int:
+    """The waves of the forward's cluster ``plan`` on a card of ``sms`` SMs:
+    its clusters over those the plan counts on the card holding at once (an
+    H100's count, H100_FWD_CLUSTERS, by CTAs a cluster and the CTAs an SM's
+    shared memory takes; 7/8 of its SMs where it has none; in proportion to
+    the SMs). The wrapper asks the card for the count."""
+    cluster = plan["cluster"]
+    per_sm = max(1, min(FWD_CLUSTER_CTAS_PER_SM, H100_SMEM_PER_SM // (plan["smem"] + 1024)))
+    held = H100_FWD_CLUSTERS.get((cluster, per_sm), per_sm * H100_SMS * 7 // (8 * cluster))
+    return -(-plan["clusters"] // max(1, held * sms // H100_SMS))
+
+
 def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     """Launch plan of the forward for B rows, T steps and H units on a card
-    of ``sms`` SMs. Up to 512 units (``layout`` ``"cluster"``): clusters of
-    ``cluster`` CTAs (up to 16), each owning ``units`` hidden units of
-    ``rows`` batch rows, with ``smem`` bytes of dynamic shared memory per
-    CTA (:func:`_fwd_smem`, mirrors ``FwdLayout`` of csrc/gru_scan.cu).
-    ``rows`` is 4 while the grid fits one CTA an SM of the card, else 8
-    (the mma's columns); in f32 also 4 where 8 row slots do not fit (H >
-    448). Above, every width on the tiled plan (:func:`_tiled_fwd_plan`,
-    ``layout`` ``"tiled"``). Raises NotImplementedError for what the design
-    cannot hold. Each call returns a copy of a plan cached by B, H, dtype
-    and SMs (ranking the tilings takes a call's launch time over again)."""
+    of ``sms`` SMs. Up to 512 units, where its clusters run in one wave
+    (``layout`` ``"cluster"``): clusters of ``cluster`` CTAs (up to 16),
+    each owning ``units`` hidden units of ``rows`` batch rows, with
+    ``smem`` bytes of dynamic shared memory per CTA (:func:`_fwd_smem`,
+    mirrors ``FwdLayout`` of csrc/gru_scan.cu). ``rows`` is 4 while the grid
+    fits one CTA an SM of the card, else 8 (the mma's columns); in f32 also
+    4 where 8 row slots do not fit (H > 448). Above 512 units, and wherever
+    the cluster plan's clusters would not all fit the card at once
+    (:func:`fwd_cluster_waves`), the tiled plan (:func:`tiled_fwd_plan`,
+    ``layout`` ``"tiled"``): on an H100 each further wave of the cluster
+    plan took about as long as the first, while the tiled plan's grid runs
+    in one (the crossover sweep of both plans, ``kernel_times.py
+    -crossover``, bf16 and f32, B = 32 to 1024, H = 128 to 512: the rule
+    picked the faster plan in 154 of 156 cells, missing by 6% and 12% at
+    f32's B = 64, H = 288 and B = 512, H = 128, where one wave of clusters
+    lost too; PERF.md). Raises
+    NotImplementedError for what the design cannot hold. Each call returns
+    a copy of a plan cached by B, H, dtype and SMs (ranking the tilings
+    takes a call's launch time over again)."""
     return dict(_scan_fwd_plan(B, H, dtype, sms))
 
 
@@ -830,7 +921,15 @@ def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
 def _scan_fwd_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     kernels.dtype_code("gru_layer_scan", dtype)
     if H > SCAN_CLUSTER_MAX_HIDDEN:
-        return _tiled_fwd_plan(B, H, dtype, sms)
+        return tiled_fwd_plan(B, H, dtype, sms)
+    plan = _cluster_fwd_plan(B, H, dtype, sms)
+    if fwd_cluster_waves(plan, sms) > 1:
+        return tiled_fwd_plan(B, H, dtype, sms)
+    return plan
+
+
+def _cluster_fwd_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The forward's cluster plan (:func:`scan_fwd_plan`, H up to 512)."""
     cluster, units = _cluster_units("gru_layer_scan", H)
     rows = SCAN_FWD_SMALL_ROWS
     if -(-B // rows) * cluster > sms and _fwd_smem(H, dtype, SCAN_FWD_SLOTS) \

@@ -41,7 +41,7 @@ gate products (``DecHoist`` on tile_gemm.cuh) apart.
 
     PYTHONPATH=<tree> python <this file> -host [BxTxH,...]
 
-says where the host's time of row 2's call goes at those shapes (bf16,
+says where the host's time of rows 2 and 1 goes at those shapes (bf16,
 reset-free; by default the quality gate's B=64 T=32 H=128 and the
 flagship's B=64 T=24 H=250), each over 100 calls after 10, synchronized
 only before and after: the call by CUDA events and on the device clock,
@@ -50,13 +50,31 @@ alone on the arguments the wrapper passed it (``entry_us``: launches,
 tensor-map encodings, attribute calls), of the wgmma products' C entry
 alone (``products_us``), of the products' scratch allocations
 (``scratch_us``), and of one ``cuTensorMapEncodeTiled`` through ctypes
-(``encode_us``, ctypes' own cost included); a part this tree lacks is null.
+(``encode_us``, ctypes' own cost included); a part this tree lacks is null;
+and under ``fwd`` row 1's plan, its call by events and on the device clock,
+and the host µs a call of its wrapper and of its C entry point.
 
-    PYTHONPATH=<tree> python <this file> -tilings BxTxH[,...]
+    PYTHONPATH=<tree> python <this file> -tilings BxTxH[,...] [-fwd]
 
 times every tiling of both passes' tiled plans at those shapes (this tree's
-plans only): each scan's device ms and µs a step by phase beside the
-plan's cost model.
+plans only; ``-fwd``: the forward's alone): each scan's device ms and µs a
+step by phase beside the plan's cost model.
+
+    PYTHONPATH=<tree> python <this file> -crossover [float32,bfloat16]
+
+times the forward's two plans in turns (cluster, tiled, tiled, cluster) at
+B = 32 to 1024, T = 24, H = 128 to 512 (``CROSSOVER_BATCHES`` x
+``CROSSOVER_WIDTHS``), reset-free, in each dtype (this tree only): each
+plan's device ms by the profiler (with its records of 10 calls) and by
+CUDA events around 20 calls queued behind a sleep on the device
+(``queued_ms``: the host's launch work hidden), the cluster plan's
+clusters the card holds at once, the tiled plan's tiling and its cost
+model, its largest error from the plain version and whether two of its
+launches are bit-identical, and cuDNN's nn.GRU forward (bf16) on the same
+clock; first, under ``clusters_at_once``, the card's count of clusters
+held at once for each cluster size (H = 32 to 512) and whether
+``gru_scan.fwd_cluster_waves`` counts the same. What the plan's choice
+between them was derived from.
 """
 
 from __future__ import annotations
@@ -82,6 +100,22 @@ def event_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int = 20) -> float:
+    """ms of one call on the device's clock: CUDA events around ``iters``
+    calls enqueued while the device sleeps, so that they run back to back
+    whatever the host's time a call (after one untimed call)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # about 25 ms at the H100's clock
     start.record()
     for _ in range(iters):
         fn()
@@ -236,7 +270,7 @@ def wide_times(shapes: str, r, g) -> dict:
     return out
 
 
-def tilings(shapes: str, r, g) -> dict:
+def tilings(shapes: str, r, g, fwd_only: bool = False) -> dict:
     """Every tiling of both tiled plans (``gru_scan.TILED_TILES`` or
     ``TILED_FWD_TILES`` x ``TILED_CLUSTERS``, Wh resident where it fits and
     not) at each ``BxTxH`` shape in bf16: each scan's device ms and its µs a
@@ -252,7 +286,7 @@ def tilings(shapes: str, r, g) -> dict:
             fargs = args[:5] + (True,)
             chosen = planners[1](B, T, H, bf16, sms)
             rows = []
-            for tile_rows, units in gru_scan.TILED_TILES:
+            for tile_rows, units in () if fwd_only else gru_scan.TILED_TILES:
                 for cluster in gru_scan.TILED_CLUSTERS:
                     plan = gru_scan.tiled_plan_for(B, H, bf16, sms, tile_rows, units, cluster)
                     if plan is None:
@@ -297,6 +331,81 @@ def tilings(shapes: str, r, g) -> dict:
             out[f"B={B} T={T} H={H}"] = {"bwd": rows, "fwd": fwd}
     finally:
         gru_scan.scan_fwd_plan, gru_scan.scan_bwd_plan = planners
+    return out
+
+
+# the forward's two plans against each other: B, T = 24 and H (steps of 32
+# from 256, of 16 from 448; and the flagship's 250 and the gate's 128)
+CROSSOVER_BATCHES = (32, 64, 128, 256, 512, 1024)
+CROSSOVER_WIDTHS = (128, 250, 256, 288, 320, 352, 384, 416, 448, 464, 480, 496, 512)
+
+
+def crossover(dtypes: str, r, g) -> dict:
+    """The forward's cluster and tiled plans in turns at each B and H of
+    CROSSOVER_BATCHES x CROSSOVER_WIDTHS in each of ``dtypes`` (the module
+    docstring's ``-crossover``)."""
+    from variational_mmt_torch import kernels
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    planner = gru_scan.scan_fwd_plan
+    out = {"clusters_at_once": {}}  # the card's count for each cluster size (H = 32 to 512)
+    for dt_name in dtypes.split(","):
+        dt = getattr(torch, dt_name)
+        for H in range(32, 513, 32):
+            plan = gru_scan._cluster_fwd_plan(1, H, dt, sms)
+            held, smem = kernels.occupancy(0, "gru_scan", "vmmt_gru_scan_occupancy",
+                                           kernels.DTYPE_CODE[dt], H, plan["cluster"],
+                                           plan["rows"])
+            # what the plan counts on: a wave of `held` clusters, so one
+            # more cluster than that takes two
+            counted = dict(plan, clusters=held + 1)
+            out["clusters_at_once"][f"{dt_name} H={H}"] = {
+                "cluster": plan["cluster"], "smem": smem, "at_once": held,
+                "plan_agrees": gru_scan.fwd_cluster_waves(dict(plan, clusters=held), sms) == 1
+                and gru_scan.fwd_cluster_waves(counted, sms) == 2}
+    try:
+        for dt_name in dtypes.split(","):
+            dt = getattr(torch, dt_name)
+            for B in CROSSOVER_BATCHES:
+                for H in CROSSOVER_WIDTHS:
+                    T = 24
+                    lengths = torch.randint(T // 3, T + 1, (B,), generator=g, device="cuda")
+                    mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
+                    args = (r(B, T, 3 * H).to(dt), mask, 0.1 * r(B, H),
+                            (r(H, 3 * H) / math.sqrt(H)).to(dt), 0.1 * r(3 * H), True)
+                    plans = {"cluster": gru_scan._cluster_fwd_plan(B, H, dt, sms),
+                             "tiled": gru_scan.tiled_fwd_plan(B, H, dt, sms)}
+                    rec = {k: {"device_ms": [], "records": [], "queued_ms": []} for k in plans}
+                    for name in ("cluster", "tiled", "tiled", "cluster"):
+                        gru_scan.scan_fwd_plan = lambda *a, _p=plans[name], **k: dict(_p)
+                        records = {}
+                        by_kernel = kernels_ms(lambda: gru_scan.gru_layer_scan(*args),
+                                               records=records)
+                        rec[name]["device_ms"].append(sum(by_kernel.values()))
+                        rec[name]["records"].append(sum(records.values()))
+                        rec[name]["queued_ms"].append(
+                            queued_ms(lambda: gru_scan.gru_layer_scan(*args)))
+                        if name == "cluster":
+                            rec[name]["plan"] = gru_scan.gru_layer_scan.plan
+                    tiled = plans["tiled"]
+                    gru_scan.scan_fwd_plan = lambda *a, **k: dict(tiled)
+                    first = gru_scan.gru_layer_scan(*args)
+                    second = gru_scan.gru_layer_scan(*args)
+                    want = gru_scan.gru_layer_scan_ref(*args)
+                    rec["tiled"].update(
+                        tiling=[tiled[k] for k in ("rows", "units", "cluster", "resident",
+                                                   "stages", "grid")],
+                        model_ms=gru_scan._tiled_fwd_cost(B, H, dt, tiled) * T * 1e3,
+                        max_abs_err=max((a - b).abs().max().item() for a, b in zip(first, want)),
+                        bit_identical=all(torch.equal(a, b) for a, b in zip(first, second)))
+                    if dt == torch.bfloat16:
+                        gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=dt)
+                        xin = r(B, T, 2 * H).to(dt)
+                        with torch.no_grad():
+                            rec["cudnn_device_ms"] = sum(kernels_ms(lambda: gru(xin)).values())
+                    out[f"{dt_name} B={B} T={T} H={H}"] = rec
+    finally:
+        gru_scan.scan_fwd_plan = planner
     return out
 
 
@@ -384,6 +493,13 @@ def host_times(shapes: str, r, g) -> dict:
             pplan = gru_scan.scan_bwd_products.plan
             rec["scratch_us"] = host_us(lambda: gru_scan._products_scratch(
                 pplan, B, T, H, torch.bfloat16, outs.device))
+        fwd = lambda a=args[:5] + (True,): gru_scan.gru_layer_scan(*a)  # noqa: E731
+        fwd()
+        fplan = gru_scan.gru_layer_scan.plan
+        rec["fwd"] = {"layout": fplan["layout"], "ms": event_ms(fwd, iters=100, warmup=10),
+                      "device_ms": device_ms(fwd), "call_us": host_us(fwd),
+                      "entry_us": host_us(entry_of(lib, "vmmt_gru_tiled_fwd" if fplan["layout"]
+                                                   == "tiled" else "vmmt_gru_scan", fwd))}
         out[f"B={B} T={T} H={H}"] = rec
     return out
 
@@ -418,6 +534,9 @@ def main(argv=None) -> None:
                    help="say where row 2's host time goes at these BxTxH shapes (bf16)")
     p.add_argument("-tilings", default=None,
                    help="time every tiling of both tiled plans at these BxTxH shapes")
+    p.add_argument("-fwd", action="store_true", help="-tilings: the forward's alone")
+    p.add_argument("-crossover", nargs="?", const="bfloat16,float32", default=None,
+                   help="time the forward's cluster and tiled plans in turns in these dtypes")
     opt = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
@@ -443,7 +562,11 @@ def main(argv=None) -> None:
         print(json.dumps({"host_times": host_times(opt.host, r, g), "card": card}))
         return
     if opt.tilings is not None:
-        print(json.dumps({"tilings": tilings(opt.tilings, r, g), "card": card}))
+        print(json.dumps({"tilings": tilings(opt.tilings, r, g, opt.fwd), "card": card}))
+        return
+    if opt.crossover is not None:
+        print(json.dumps({"crossover": crossover(opt.crossover, r, g), "card": card},
+                         default=str))
         return
     bf = getattr(torch, opt.dtype)
     calls = {}
