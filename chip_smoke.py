@@ -254,9 +254,12 @@ in PERF.md).
     plain version, bf16 bit-identical in two launches, its bf16 time in
     turns with the plain version and its µs a step by phase, and in the
     fresh process both forward plans and cuDNN's nn.GRU forward on the
-    device's clock, printed beside the plan. Rows 1 and 2 at
-    H = 512 (the forward on the plan its rule picks, row 2 on 16-CTA
-    clusters; B = 64, T = 24 in f32 and bf16, B = 256 in
+    device's clock, printed beside the plan; the backward's tiled plan at
+    the same shapes the same way (max rel err, bf16 bit-identical, its µs
+    a step by phase, both backward plans and cuDNN's nn.GRU backward in
+    the fresh process). Rows 1 and 2 at
+    H = 512 (each on the plan its rule picks; B = 64, T = 24 in f32 and
+    bf16, B = 256 in
     bf16) and H = 300 (B = 64, both dtypes) the same way, bf16 times beside
     cuDNN's nn.GRU and the bound and, at H = 512, row 2's products checked
     as in phase 3 and its device time split by part (in the fresh
@@ -265,8 +268,8 @@ in PERF.md).
     decoder checks at B = 64, T = 25, S = 24. Then the entry points at
     these widths from phase 10's corpus, 5 steps of ``cli.train`` each:
     ``-rnn_size 1024`` with the flagship config's ``pallas_decoder`` on
-    (encoder halves of 512 units: row 1 on the plan its rule picks at
-    batch 64, row 2 on 16-CTA clusters; rows 5
+    (encoder halves of 512 units: rows 1 and 2 each on the plan its rule
+    picks at batch 64; rows 5
     and 6 at 1024 units, the forward on the streamed plan), ``-rnn_size
     250`` (rows 1, 2, 5 and 6 at 252), ``-rnn_size 2048`` (encoder halves
     of 1024 units on the tiled plans; rows 5 and 6 on the streamed plan,
@@ -590,7 +593,7 @@ WIDTH_CLI_STEPS = 5  # train CLI steps at each -rnn_size of phase 13
 WIDE_SCANS = ((64, 25, 520), (256, 24, 520), (64, 25, 1000), (256, 24, 1000), (64, 25, 1024),
               (256, 24, 1024), (64, 25, 1040), (64, 25, 1536), (64, 25, 2048), (256, 24, 2048),
               (64, 25, 2500))
-# row 2 at H = 512 (16-CTA clusters) split by kernel in phase 13's fresh child
+# row 2 at H = 512 (on the plan its rule picks) split by kernel in phase 13's fresh child
 SPLIT_SCANS = tuple((B, T, H) for B, T, H, _ in WIDTH_SCANS if H == 512)
 # the tiled forward below 513 units (its plan wherever the cluster plan
 # runs in waves), f32 and bf16, with and without a reset stream; timed
@@ -2866,6 +2869,21 @@ def fwd_phases(gru_scan, name: str, args, T: int) -> dict:
     return us
 
 
+def bwd_phases(gru_scan, name: str, args, T: int) -> dict:
+    """The tiled backward's µs a step by phase, from its probe (CTA 0 of one
+    call on ``args``): the gate backward, the grid barrier, the product and
+    the sums of the partial products; printed."""
+    probe = torch.zeros(1 + 4 * T, dtype=torch.int64, device="cuda")
+    gru_scan.gru_layer_scan_bwd(*args, probe=probe)
+    torch.cuda.synchronize()
+    st = probe.tolist()
+    us = {k: sum(st[1 + 4 * s + i] - st[4 * s + i] for s in range(T)) / T / 1e3
+          for i, k in enumerate(("gate", "barrier", "product", "sums"))}
+    print(f"  {name}: the tiled backward's us a step by phase "
+          + ", ".join(f"{k} {v:.2f}" for k, v in us.items()))
+    return us
+
+
 def require_engine(name: str, dt_name: str, plan: dict) -> None:
     """Row 2's products on the engine the plan picks: tile_gemm.cuh in f32,
     the wgmma engine in bf16 and float16."""
@@ -2944,18 +2962,20 @@ def wide_scan_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str,
     return r
 
 
-class fwd_plan:
-    """``gru_scan.gru_layer_scan`` launches ``plan`` in place of the plan
-    its planner picks, inside a ``with`` block."""
+class forced_plan:
+    """``gru_scan``'s planner ``planner`` (``scan_fwd_plan`` or
+    ``scan_bwd_plan``) returns ``plan`` in place of the plan it picks,
+    inside a ``with`` block."""
 
-    def __init__(self, gru_scan, plan: dict):
-        self.gru_scan, self.plan, self.planner = gru_scan, plan, gru_scan.scan_fwd_plan
+    def __init__(self, gru_scan, planner: str, plan: dict):
+        self.gru_scan, self.name, self.plan = gru_scan, planner, plan
+        self.planner = getattr(gru_scan, planner)
 
     def __enter__(self):
-        self.gru_scan.scan_fwd_plan = lambda *a, **k: dict(self.plan)
+        setattr(self.gru_scan, self.name, lambda *a, **k: dict(self.plan))
 
     def __exit__(self, *exc):
-        self.gru_scan.scan_fwd_plan = self.planner
+        setattr(self.gru_scan, self.name, self.planner)
 
 
 def low_tiled_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str, fresh: dict) -> dict:
@@ -2971,7 +2991,7 @@ def low_tiled_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str, fresh:
         dt = getattr(torch, dt_name)
         ins, _, reset = reset_inputs(g, rng, dt, B, T, H, 8)
         plan = gru_scan.tiled_fwd_plan(B, H, dt, card_sms())
-        with fwd_plan(gru_scan, plan):
+        with forced_plan(gru_scan, "scan_fwd_plan", plan):
             err = max(max_err(gru_scan.gru_layer_scan(*ins, rev, rs),
                               gru_scan.gru_layer_scan_ref(*ins, rev, rs))
                       for rev in (False, True) for rs in (None, reset))
@@ -2985,7 +3005,7 @@ def low_tiled_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str, fresh:
         print_plan(f"gru_scan {at} {dt_name} (tiled; the rule's plan: "
                    f"{r[f'rule_{dt_name}']})", r[f"plan_{dt_name}"])
     x, mask, h0, wh, bh = reset_inputs(g, rng, torch.bfloat16, B, T, H, 8)[0]
-    with fwd_plan(gru_scan, r["plan_bfloat16"]):
+    with forced_plan(gru_scan, "scan_fwd_plan", r["plan_bfloat16"]):
         t = in_turns(f"gru_scan {at} bfloat16 (tiled plan)",
                      {"kernel": lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True),
                       "plain": lambda: gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)},
@@ -3001,6 +3021,56 @@ def low_tiled_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str, fresh:
           f"forward {fmt_ms(rec['library_ms_fresh'])}; bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']}; {card})")
     r["fwd"] = rec
+    r["bwd"] = low_tiled_bwd_checks(gru_scan, g, rng, B, T, H, card, fresh)
+    return r
+
+
+def low_tiled_bwd_checks(gru_scan, g, rng, B: int, T: int, H: int, card: str,
+                         fresh: dict) -> dict:
+    """The tiled backward below 513 units at (B, T, H), on its tiled plan
+    whatever the plan's rule picks there: f32 and bf16, with and without a
+    reset stream, both directions, against the plain version (max rel err),
+    bf16 bit-identical in two launches; its bf16 time by CUDA events in
+    turns with the plain version and its µs a step by phase, and from the
+    fresh process of ``fresh`` the device clocks of both plans and cuDNN's
+    nn.GRU backward."""
+    at = f"B={B} T={T} H={H}"
+    r = {}
+    for dt_name in ("float32", "bfloat16"):
+        dt = getattr(torch, dt_name)
+        ins, gout, reset = reset_inputs(g, rng, dt, B, T, H, 8)
+        plan = gru_scan.tiled_bwd_plan(B, T, H, dt, card_sms())
+        with forced_plan(gru_scan, "scan_bwd_plan", plan):
+            err = max(reset_errs(gru_scan, ins, gout, rs)[1] for rs in (None, reset))
+            check_close(f"gru_scan_bwd {at} (tiled plan), with and without a reset stream",
+                        dt_name, err, "max_rel_err")
+            if dt_name == "bfloat16":
+                outs, _ = gru_scan.gru_layer_scan_ref(*ins, True, reset)
+                deterministic(f"gru_scan_bwd {at} (tiled plan) with resets",
+                              lambda: gru_scan.gru_layer_scan_bwd(*ins, outs, gout, True, reset))
+            r[f"err_{dt_name}"], r[f"plan_{dt_name}"] = err, gru_scan.gru_layer_scan_bwd.plan
+        r[f"rule_{dt_name}"] = gru_scan.scan_bwd_plan(B, T, H, dt, card_sms())["layout"]
+        print_plan(f"gru_scan_bwd {at} {dt_name} (tiled; the rule's plan: "
+                   f"{r[f'rule_{dt_name}']})", r[f"plan_{dt_name}"])
+    x, mask, h0, wh, bh, gout = scan_bwd_inputs(g, torch.bfloat16, B, T, H, 8)
+    outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
+    bargs = (x, mask, h0, wh, bh, outs, gout, True)
+    with forced_plan(gru_scan, "scan_bwd_plan", r["plan_bfloat16"]):
+        t = in_turns(f"gru_scan_bwd {at} bfloat16 (tiled plan)",
+                     {"kernel": lambda: gru_scan.gru_layer_scan_bwd(*bargs),
+                      "plain": lambda: gru_scan.gru_layer_scan_bwd_ref(*bargs)},
+                     iters=WIDE_ITERS)
+        us = bwd_phases(gru_scan, f"gru_scan_bwd {at} bfloat16", bargs, T)
+    rec = {"ms": t["kernel_ms"], "plain_ms": t["plain_ms"], "runs_ms": t["runs_ms"],
+           "us_a_step": us, "device_ms": fresh["tiled_bwd"],
+           "cluster_device_ms": fresh["cluster_bwd"], "library_ms_fresh": fresh["cudnn_bwd"]}
+    rec["bound_ms"], rec["bound_by"] = scan_bwd_bound(B, T, H)
+    print(f"  gru_scan_bwd {at} bfloat16 (tiled plan): kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms; on the device's clock in a fresh process tiled "
+          f"{fmt_ms(rec['device_ms'])}, cluster {fmt_ms(rec['cluster_device_ms'])}, nn.GRU "
+          f"backward {fmt_ms(rec['library_ms_fresh'])}; bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}; {card})")
+    r["time"] = rec
     return r
 
 
@@ -3069,7 +3139,7 @@ def wide_device_child(out_path: str) -> int:
         rec = {}
         for layout, plan in (("cluster", gru_scan._cluster_fwd_plan(B, H, bf16, card_sms())),
                              ("tiled", gru_scan.tiled_fwd_plan(B, H, bf16, card_sms()))):
-            with fwd_plan(gru_scan, plan):
+            with forced_plan(gru_scan, "scan_fwd_plan", plan):
                 rec[f"{layout}_fwd"], rec[f"{layout}_calls_recorded"], _, _ = launch_ms(
                     lambda: gru_scan.gru_layer_scan(x, mask, h0, wh, bh, True), WIDE_ITERS,
                     f"gru_{'tiled' if layout == 'tiled' else 'scan'}_fwd_kernel")
@@ -3082,6 +3152,24 @@ def wide_device_child(out_path: str) -> int:
               f"clock: cluster plan {fmt_ms(rec['cluster_fwd'])}, tiled plan "
               f"{fmt_ms(rec['tiled_fwd'])} ({gru_scan.gru_layer_scan.plan}), nn.GRU forward "
               f"{fmt_ms(rec['cudnn_fwd'])}; the rule's plan {rec['rule']}", flush=True)
+        outs, _ = gru_scan.gru_layer_scan_ref(x, mask, h0, wh, bh, True)
+        gout = torch.randn(B, T, H, generator=g, device="cuda")
+        sms = card_sms()
+        for layout, plan in (("cluster", dict(gru_scan._cluster_bwd_plan(B, H, bf16, sms),
+                                              **gru_scan.products_plan(B, T, H, bf16, sms,
+                                                                       False))),
+                             ("tiled", gru_scan.tiled_bwd_plan(B, T, H, bf16, sms))):
+            with forced_plan(gru_scan, "scan_bwd_plan", plan):
+                rec[f"{layout}_bwd"], rec[f"{layout}_bwd_calls_recorded"], _, _ = launch_ms(
+                    lambda: gru_scan.gru_layer_scan_bwd(x, mask, h0, wh, bh, outs, gout, True),
+                    WIDE_ITERS, f"gru_{'tiled' if layout == 'tiled' else 'scan'}_bwd_kernel")
+        rec["cudnn_bwd"] = cudnn_bwd_ms(g, B, T, H)[0]
+        rec["bwd_rule"] = gru_scan.scan_bwd_plan(B, T, H, bf16, sms)["layout"]
+        print(f"widths (fresh process): gru_scan_bwd B={B} T={T} H={H} bfloat16 on the "
+              f"device's clock: cluster plan {fmt_ms(rec['cluster_bwd'])}, tiled plan "
+              f"{fmt_ms(rec['tiled_bwd'])} ({gru_scan.gru_layer_scan_bwd.plan}), nn.GRU "
+              f"backward {fmt_ms(rec['cudnn_bwd'])}; the rule's plan {rec['bwd_rule']}",
+              flush=True)
         out[f"B={B} T={T} H={H}"] = rec
     for B, T, H in WIDE_SCANS + SPLIT_SCANS:
         wide = (B, T, H) in WIDE_SCANS  # SPLIT_SCANS: row 2's split alone is read
@@ -3183,7 +3271,7 @@ def widths_phase(card: str, root: str):
             bargs = (x, mask, h0, wh, bh, outs, gout, True)
             b = {"ms": cuda_ms(lambda: gru_scan.gru_layer_scan_bwd(*bargs)),
                  "plain_ms": cuda_ms(lambda: gru_scan.gru_layer_scan_bwd_ref(*bargs), iters=5)}
-            if at in fresh:  # H = 512: the products' share of row 2 on 16-CTA clusters
+            if at in fresh:  # H = 512: the products' share of row 2
                 b["split"] = fresh[at]["bwd_split"]
                 rec["products"][at] = products_device(
                     products_checks(gru_scan, g, rng, B, T, H)[0], b["split"],
@@ -3277,8 +3365,11 @@ def widths_phase(card: str, root: str):
             if scan_plan["layout"] != want or (want == "cluster" and scan_plan["cluster"] != 16):
                 fail(f"the encoder halves of 512 units ran the forward's {scan_plan['layout']} "
                      f"plan, not its rule's {want} one")
-            if gru_scan.gru_layer_scan_bwd.plan["cluster"] != 16:
-                fail("the encoder halves of 512 units did not run row 2 on 16-CTA clusters")
+            want = gru_scan.scan_bwd_plan(TRAIN_BATCH, 24, 512, torch.bfloat16,
+                                          card_sms())["layout"]
+            if gru_scan.gru_layer_scan_bwd.plan["layout"] != want:
+                fail(f"the encoder halves of 512 units ran row 2's "
+                     f"{gru_scan.gru_layer_scan_bwd.plan['layout']} plan, not its rule's {want}")
         if label == "250" and dec.decoder_bwd.plan["padded"] != 252:
             fail("the decoder kernels did not run at the padded width 252")
         if wide is not None and not by_width.get(wide):
@@ -5312,6 +5403,9 @@ def width_record(name: str, widths: dict) -> dict:
                        if k.startswith("bwd_") == bwd and k not in ("fwd", "bwd")}
             if ("bwd" if bwd else "fwd") in r:
                 out[at].update(r["bwd" if bwd else "fwd"])
+        for at, r in widths.get("low_tiled", {}).items():  # both tiled plans below 513 units
+            out[f"{at} (tiled plan)"] = r["bwd"] if bwd else {k: v for k, v in r.items()
+                                                              if k != "bwd"}
         return out
     if name in ("decode_step", "gru_chain"):
         i = 0 if name == "decode_step" else 1

@@ -461,6 +461,46 @@ def test_tiled_scan_fwd_below_513_units(cuda, dt, B, H, monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+BWD_BELOW_513_TOL = {torch.float32: 4.0e-6, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("B,H", [(64, 448), (64, 500), (64, 512), (256, 448), (256, 500),
+                                 (256, 512)])
+def test_tiled_scan_bwd_below_513_units(cuda, dt, B, H, monkeypatch):
+    """The backward's tiled plan below 513 units (forced, whatever the rule
+    picks there; H = 500 reads Wh's padded rows in 16 bits) against the
+    plain version, both directions, with and without a reset stream,
+    max|kernel - plain| / max|plain| within 4.0e-6 in f32 (PERF.md §6), 2e-2
+    in bf16 and f16; two launches bit-identical on a narrow tile without a
+    cluster (its gates add the K groups in group order)."""
+    args = scan_args(cuda, dt, B, 5, H)
+    sms = kernels.sm_count(0)
+    plan = gru_scan.tiled_bwd_plan(B, 5, H, dt, sms)
+    g = torch.randn(B, 5, H, generator=cuda, device="cuda")
+    reset = reset_stream(cuda, args[1])
+    monkeypatch.setattr(gru_scan, "scan_bwd_plan", lambda *a, **k: dict(plan))
+    for reverse in (False, True):
+        for rs in (None, reset):
+            outs, _ = gru_scan.gru_layer_scan_ref(*args, reverse, rs)
+            got = gru_scan.gru_layer_scan_bwd(*args, outs, g, reverse, rs)
+            want = gru_scan.gru_layer_scan_bwd_ref(*args, outs, g, reverse, rs)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                scale = max(float(b.abs().max()), 1e-30)
+                assert float((a - b).abs().max()) / scale <= BWD_BELOW_513_TOL[dt]
+            assert gru_scan.gru_layer_scan_bwd.plan["layout"] == "tiled"
+    narrow = dict(plan, **gru_scan.tiled_plan_for(B, H, dt, sms, 32, 8, 1))
+    monkeypatch.setattr(gru_scan, "scan_bwd_plan", lambda *a, **k: dict(narrow))
+    outs, _ = gru_scan.gru_layer_scan_ref(*args, True, reset)
+    first = gru_scan.gru_layer_scan_bwd(*args, outs, g, True, reset)
+    assert (gru_scan.gru_layer_scan_bwd.plan["units"], gru_scan.gru_layer_scan_bwd.plan["cluster"]) \
+        == (8, 1)
+    second = gru_scan.gru_layer_scan_bwd(*args, outs, g, True, reset)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 def test_tiled_scan_fwd_is_deterministic(cuda, dt, monkeypatch):
     """The tiled forward at B = 64, H = 1024 on its plan, and where a

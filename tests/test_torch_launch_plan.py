@@ -30,8 +30,17 @@ SMEM_PER_SM = 233_472  # shared memory of an H100 SM (228 KB), 1 KB of it reserv
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("B,T", [(64, 24), (61, 24), (64, 1), (1, 5)])
 def test_scan_plan_accepts_the_encoder_width(dt, B, T):
+    """H = 250: clusters of 8 CTAs of 32 units, where they run in one wave
+    on an H100 (:func:`gru_scan.bwd_cluster_waves`), as in bf16 and f16 at
+    the flagship's B = 64; else the tiled plan, whose grid the card holds at
+    once."""
     H = 250
     plan = gru_scan.scan_bwd_plan(B, T, H, dt)
+    if plan["layout"] == "tiled":
+        assert dt == torch.float32 and B > 1 and plan["chunks"] == 1
+        plan = dict(gru_scan._cluster_bwd_plan(B, H, dt, H100_SMS),
+                    **gru_scan.products_plan(B, T, H, dt, H100_SMS, False))
+        assert gru_scan.bwd_cluster_waves(plan, H100_SMS) > 1
     assert plan["cluster"] <= gru_scan.SCAN_BWD_MAX_CLUSTER
     assert plan["units"] <= gru_scan.SCAN_BWD_UNITS
     assert plan["cluster"] * plan["units"] >= H > (plan["cluster"] - 1) * plan["units"]
@@ -160,10 +169,14 @@ def test_step_cell_plan_refuses_what_the_copies_cannot_hold(dt, H):
 
 
 def test_scan_plan_at_the_training_shape():
-    """B=64, T=24: 16 clusters of 8 CTAs of 32 units."""
+    """B=64, T=24: 16 clusters of 8 CTAs of 32 units, in one wave on an
+    H100 in bf16 and f16, so the flagship's training shape keeps them."""
     for dt in DTYPES:
-        plan = gru_scan.scan_bwd_plan(64, 24, 250, dt)
+        plan = gru_scan._cluster_bwd_plan(64, 250, dt, H100_SMS)
         assert (plan["cluster"], plan["units"], plan["clusters"], plan["ctas"]) == (8, 32, 16, 128)
+        if dt != torch.float32:
+            assert gru_scan.bwd_cluster_waves(plan, H100_SMS) == 1
+            assert gru_scan.scan_bwd_plan(64, 24, 250, dt)["layout"] == "cluster"
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
@@ -572,22 +585,34 @@ FWD_RULE = {  # (B, H) -> bf16 and f16's layout, f32's
     (64, 512): ("tiled", "tiled"), (256, 512): ("tiled", "tiled")}
 
 
+# the backward's rule on an H100 (PERF.md, the card's clusters at once):
+# its cluster plan where the card holds the clusters at once (4-row
+# clusters: 16 at B = 61 and 64, 64 at B = 256), else the tiled plan
+BWD_RULE = {  # (B, H) -> bf16 and f16's layout, f32's
+    **{(1, H): ("cluster", "cluster") for H in SCAN_WIDTHS},
+    **{(256, H): ("tiled", "tiled") for H in SCAN_WIDTHS},
+    **{(B, H): ("cluster" if H <= 384 else "tiled", "cluster" if H == 257 else "tiled")
+       for B in (61, 64) for H in SCAN_WIDTHS}}
+
+
 @pytest.mark.parametrize("B", [1, 61, 64, 256])
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("H", SCAN_WIDTHS)
 def test_scan_plans_hold_the_wide_widths(H, dt, B):
     """Both scans plan every width up to 512 in bf16, f16 and f32. The
-    backward on clusters of ceil(H / 32) CTAs (up to 16, non-portable),
-    shared memory within a CTA's (f32 at 512 with 2 rows). The forward on
+    backward's cluster plan on clusters of ceil(H / 32) CTAs (up to 16,
+    non-portable), shared memory within a CTA's (f32 at 512 with 2 rows),
+    taken where its clusters run in one wave (BWD_RULE). The forward on
     clusters where they run in one wave on an H100 (16 CTAs: 7 at once, so
     B = 61 and 64 at 449-512 units take the tiled plan; 9-14 CTAs hold 2 an
     SM, 14-23 clusters at once, so B = 256's 32 clusters take it from 257
     units); in f32, whose CTAs take one an SM from 225 units, clusters at B
     = 1 and, 9 clusters of 9 CTAs fitting at once, at 257 units."""
     fwd = gru_scan.scan_fwd_plan(B, 24, H, dt, H100_SMS)
-    bwd = gru_scan.scan_bwd_plan(B, 24, H, dt)
+    bwd = gru_scan._cluster_bwd_plan(B, H, dt, H100_SMS)
     want = FWD_RULE[(B, H)][dt == torch.float32]
-    assert fwd["layout"] == want and bwd["layout"] == "cluster"
+    assert fwd["layout"] == want
+    assert gru_scan.scan_bwd_plan(B, 24, H, dt)["layout"] == BWD_RULE[(B, H)][dt == torch.float32]
     plans = (fwd, bwd) if want == "cluster" else (bwd,)
     for plan in plans:
         assert plan["cluster"] == -(-H // 32) <= gru_scan.SCAN_BWD_MAX_CLUSTER == 16
@@ -606,6 +631,32 @@ def test_scan_plans_hold_the_wide_widths(H, dt, B):
         assert gru_scan._cluster_fwd_plan(B, H, dt, H100_SMS)["rows"] == 4 and bwd["rows"] == 2
 
 
+@pytest.mark.parametrize("dt", DTYPES, ids=str)
+@pytest.mark.parametrize("H", [448, 480, 500, 512])
+@pytest.mark.parametrize("B", [64, 256])
+def test_scan_bwd_plan_takes_the_tiled_plan_in_waves(B, H, dt):
+    """From 449 units the backward's cluster plan runs 16-CTA clusters (15
+    at 449-480), fewer of which an H100 holds at once than B = 64 or 256
+    needs (``bwd_cluster_waves`` on the card's counts): the plan takes the
+    tiled one there, a grid the card holds at once in one launch, as a
+    cached copy; where one wave holds the clusters it keeps them."""
+    cluster = gru_scan._cluster_bwd_plan(B, H, dt, H100_SMS)
+    assert cluster["cluster"] == -(-H // 32) and cluster["clusters"] == -(-B // cluster["rows"])
+    waves = gru_scan.bwd_cluster_waves(cluster, H100_SMS)
+    plan = gru_scan.scan_bwd_plan(B, 24, H, dt, H100_SMS)
+    assert plan["layout"] == ("tiled" if waves > 1 else "cluster")
+    assert waves > 1  # on an H100 none of these holds its clusters in one wave
+    assert plan["grid"] <= gru_scan.tiled_co_resident(plan["cluster"], H100_SMS)
+    assert plan == gru_scan.tiled_bwd_plan(B, 24, H, dt, H100_SMS)
+    plan["layout"] = "changed"
+    assert gru_scan.scan_bwd_plan(B, 24, H, dt, H100_SMS)["layout"] == "tiled"
+    # B = 32 at 449-512 units: 8 clusters, held at once only where two CTAs
+    # fit an SM
+    few = gru_scan._cluster_bwd_plan(32, H, dt, H100_SMS)
+    assert gru_scan.scan_bwd_plan(32, 24, H, dt, H100_SMS)["layout"] == \
+        ("cluster" if gru_scan.bwd_cluster_waves(few, H100_SMS) == 1 else "tiled")
+
+
 def test_scan_plans_mirror_the_kernels_layout_at_512():
     """H=512: the forward's cluster plan (which B = 64 passes over for the
     tiled one on an H100) in bf16 96 columns of Wh and two 8-slot buffers
@@ -617,9 +668,9 @@ def test_scan_plans_mirror_the_kernels_layout_at_512():
         96 * 520 * 2 + 2 * 8 * 520 * 2 + 4 * 96 * 8 * 4 == 128768
     assert gru_scan._cluster_fwd_plan(64, 512, f32, H100_SMS)["smem"] == \
         96 * 512 * 4 + 2 * 4 * 512 * 4 + 4 * 96 * 4 * 4 == 219136
-    assert gru_scan.scan_bwd_plan(64, 24, 512, bf16)["smem"] == \
+    assert gru_scan._cluster_bwd_plan(64, 512, bf16, H100_SMS)["smem"] == \
         32 * 1544 * 2 + 2 * 4 * 1544 * 2 + 2 * 4 * 32 * 4 + 4 * 32 * 4 * 4 == 126592
-    assert gru_scan.scan_bwd_plan(64, 24, 512, f32)["smem"] == \
+    assert gru_scan._cluster_bwd_plan(64, 512, f32, H100_SMS)["smem"] == \
         32 * 1536 * 4 + 2 * 2 * 1536 * 4 + 2 * 2 * 32 * 4 == 221696
 
 
@@ -638,12 +689,14 @@ def test_scan_kernel_holds_ends_at_1024(dt, H, holds):
     if holds:
         fwd = "cluster" if H <= 448 and dt != torch.float32 or H == 1 else "tiled"
         assert gru_scan.scan_fwd_plan(64, 24, H, dt, H100_SMS)["layout"] == fwd
+        # the backward's 16 clusters at B = 64 fit at once to 384 units
+        # (12 CTAs, 2 an SM: 16 at once) in bf16 and f16
         assert gru_scan.scan_bwd_plan(64, 24, H, dt)["layout"] == \
-            ("cluster" if H <= 512 else "tiled")
+            ("cluster" if H == 1 else "tiled")
 
 
 @pytest.mark.parametrize("plan_of", [gru_scan.scan_fwd_plan, gru_scan.scan_bwd_plan])
-@pytest.mark.parametrize("H", [250, 1024])
+@pytest.mark.parametrize("H", [250, 512, 1024])
 def test_scan_plans_are_cached_copies(plan_of, H):
     """The plans are cached by their arguments, and each call returns a copy
     that a caller may change without changing the next call's plan."""
@@ -652,7 +705,7 @@ def test_scan_plans_are_cached_copies(plan_of, H):
     first["layout"] = "changed"
     again = plan_of(64, 24, H, torch.bfloat16, H100_SMS)
     assert again == want and again is not first
-    if plan_of is gru_scan.scan_bwd_plan and H <= 512:  # dWh's split follows B * T
+    if plan_of is gru_scan.scan_bwd_plan and want["layout"] == "cluster":  # dWh's split: B * T
         assert plan_of(64, 1, H, torch.bfloat16, H100_SMS)["dwh_splits"] < want["dwh_splits"]
 
 

@@ -247,7 +247,8 @@ def test_bwd_wrapper_passes_the_products_plan(lib, B, T, H, dt):
     else:
         assert fn == "vmmt_gru_tiled_bwd"
         hs, dp = args[17:19]
-        assert args[-6:-2] == (int(plan["resident"]), plan["dwh_splits"]) + products
+        assert args[-7:-2] == (int(plan["resident"]), plan["stages"], plan["dwh_splits"]) \
+            + products
     assert (hs is not None, dp is not None) == (wgmma, wgmma)
     assert (gru_scan.scan_bwd_operands.launches, gru_scan.wgmma_gemm.launches) == \
         (counts[0] + 2 * wgmma, counts[1] + 2 * wgmma)

@@ -136,10 +136,10 @@ def test_wide_plans_hold_every_width_to_1024(H, dt, B):
     bwd = gru_scan.scan_bwd_plan(B, 24, H, dt, H100_SMS)
     assert gru_scan.scan_kernel_holds(H, dt)
     assert fwd["layout"] == "tiled" and (fwd["rows"], fwd["units"]) in gru_scan.TILED_FWD_TILES
-    assert bwd["layout"] == "tiled" and bwd["units"] in (32, 64, 128)
+    assert bwd["layout"] == "tiled" and (bwd["rows"], bwd["units"]) in gru_scan.TILED_TILES
     for plan in (fwd, bwd):
         assert plan["unit_tiles"] * plan["units"] >= H > (plan["unit_tiles"] - 1) * plan["units"]
-        assert plan["rows"] in (32, 64, 128) and plan["cluster"] in gru_scan.TILED_CLUSTERS
+        assert plan["rows"] in (16, 32, 64, 128) and plan["cluster"] in gru_scan.TILED_CLUSTERS
         chunk = plan["rows"] * plan["row_tiles"]
         assert plan["chunks"] * chunk >= B > (plan["chunks"] - 1) * chunk
         assert 0 < plan["smem"] <= kernels.SMEM_PER_BLOCK
@@ -149,6 +149,7 @@ def test_wide_plans_hold_every_width_to_1024(H, dt, B):
             == plan["ctas"]
         assert plan["grid"] <= (120 if plan["cluster"] == 4 else H100_SMS)
     assert (fwd["resident"], fwd["stages"]) in gru_scan.TILED_FWD_RINGS
+    assert (bwd["resident"], bwd["stages"]) in gru_scan.TILED_BWD_RINGS
     assert fwd["k_chunks"] == -(-H // fwd["kc"])
     if bwd["engine"] == "tile":  # f32: tile_gemm.cuh's 64 x 64 tiles of dWh, no K split
         assert dt == torch.float32
@@ -170,9 +171,10 @@ def test_wide_plans_mirror_the_kernels_layout_at_1024():
     of 52 floats each) in the ring's bytes (64 rows of 144 a stage). The
     backward's tiled plan: 64 x 64 cells a CTA in bf16, K split over
     clusters of 4 (64 CTAs); its shared memory the CTA's 64 rows of Wh over
-    its 12 K chunks (1552 bytes apart), a ring of 4 stages of 64 rows of 144
-    bytes, the two K groups' partial products (64 rows of 68 floats) and the
-    dh carry and dh_part of a quarter of the tile."""
+    its 12 K chunks (1552 bytes apart), the whole-K stage of the tile's 64
+    rows of dh_proj over those chunks at the same pitch, whose bytes the two
+    K groups' partial products (64 rows of 68 floats) take, the dh carry and
+    dh_part of a quarter of the tile and the bulk copies' mbarrier."""
     bf16, f32 = torch.bfloat16, torch.float32
     fb = gru_scan.scan_fwd_plan(64, 24, 1024, bf16, H100_SMS)
     ff = gru_scan.scan_fwd_plan(64, 24, 1024, f32, H100_SMS)
@@ -188,9 +190,9 @@ def test_wide_plans_mirror_the_kernels_layout_at_1024():
     assert (ff["kc"], ff["k_chunks"], ff["ldx"]) == (32, 32, 1024)
     bb = gru_scan.scan_bwd_plan(64, 24, 1024, bf16)
     assert (bb["rows"], bb["units"], bb["cluster"], bb["grid"]) == (64, 64, 4, 64)
-    assert (bb["resident"], bb["stages"], bb["wh_from"]) == (True, 4, "smem")
-    assert bb["smem"] == 64 * (12 * 128 + 16) + 4 * 64 * 144 + 2 * 64 * 68 * 4 \
-        + 2 * 16 * 64 * 4 == 179200
+    assert (bb["resident"], bb["stages"], bb["wh_from"]) == (True, 1, "smem")
+    assert bb["smem"] == 64 * (12 * 128 + 16) + max(64 * (12 * 128 + 16), 2 * 64 * 68 * 4) \
+        + 2 * 16 * 64 * 4 + 16 == 206864
     assert (bb["kc"], bb["k_chunks"], bb["ldx"], bb["in_place"]) == (64, 48, 3072, True)
     # batches above what a launch holds run in chunks
     big = gru_scan.scan_fwd_plan(3000, 24, 1024, bf16, H100_SMS)
@@ -224,9 +226,9 @@ def wide_lib(monkeypatch):
 
         def vmmt_gru_tiled_bwd(self, *args):
             # padded weights (None: Wh in place), B, T, H, reverse, rows,
-            # units, cluster, row_tiles, resident, splits, the wgmma
-            # products' tile N and stages (then probe, stream)
-            calls.append(("bwd", args[-15] is None) + args[-14:-2])
+            # units, cluster, row_tiles, resident, the scan's stages, splits,
+            # the wgmma products' tile N and stages (then probe, stream)
+            calls.append(("bwd", args[-16] is None) + args[-15:-2])
             return 0
 
     monkeypatch.setattr(kernels, "library", lambda name: Lib())
@@ -263,13 +265,13 @@ def test_wrappers_launch_the_wide_plan(wide_lib, dt):
     assert seen == [("vmmt_gru_tiled_fwd_occupancy", H, fwd["rows"], fwd["units"],
                      fwd["cluster"], int(fwd["resident"]), fwd["stages"]),
                     ("vmmt_gru_tiled_bwd_occupancy", H, bwd["rows"], bwd["units"],
-                     bwd["cluster"], int(bwd["resident"]))] \
+                     bwd["cluster"], int(bwd["resident"]), bwd["stages"])] \
         + [("vmmt_gru_products_occupancy", *products)] * wgmma
     assert calls == [("fwd", True, B, T, H, 1, fwd["rows"], fwd["units"], fwd["cluster"],
                       fwd["row_tiles"], int(fwd["resident"]), fwd["stages"]),
                      ("bwd", True, B, T, H, 0, bwd["rows"], bwd["units"], bwd["cluster"],
-                      bwd["row_tiles"], int(bwd["resident"]), bwd["dwh_splits"],
-                      *products)]
+                      bwd["row_tiles"], int(bwd["resident"]), bwd["stages"],
+                      bwd["dwh_splits"], *products)]
     assert gru_scan.gru_layer_scan.plan == dict(fwd, max_co_resident=264)
     assert gru_scan.gru_layer_scan_bwd.plan == dict(bwd, max_co_resident=264,
                                                     **({"gemm_per_sm": 1} if wgmma else {}))

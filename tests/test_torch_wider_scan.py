@@ -78,7 +78,8 @@ def test_streamed_plans_hold_every_width_above_1024(H, dt, B):
     assert bwd["grid"] <= gru_scan.tiled_co_resident(bwd["cluster"], H100_SMS)
     assert bwd["smem"] == gru_scan.tiled_smem(bwd["rows"], bwd["units"], bwd["cluster"],
                                               bwd["resident"],
-                                              gru_scan.tiled_kc_own(H, dt, bwd["cluster"]))
+                                              gru_scan.tiled_kc_own(H, dt, bwd["cluster"]),
+                                              bwd["stages"])
     if bwd["engine"] == "tile":  # f32: tile_gemm.cuh's 64 x 64 tiles of dWh, no K split
         assert dt == torch.float32
         assert bwd["dwh_splits"] == 1 and bwd["dwh_tiles"] == -(-H // 64) * -(-3 * H // 64)
@@ -203,10 +204,10 @@ def streamed_lib(monkeypatch):
             return 0
 
         def vmmt_gru_tiled_bwd(self, *args):
-            # padded weights, B, T, H, reverse, rows,
-            # units, cluster, row_tiles, resident, splits, the wgmma
+            # padded weights, B, T, H, reverse, rows, units, cluster,
+            # row_tiles, resident, the scan's stages, splits, the wgmma
             # products' tile N and stages (then probe, stream)
-            calls.append(("bwd", args[-15]) + args[-14:-2])
+            calls.append(("bwd", args[-16]) + args[-15:-2])
             return 0
 
     monkeypatch.setattr(kernels, "library", lambda name: Lib())
@@ -245,7 +246,8 @@ def test_wrappers_launch_the_streamed_plan(streamed_lib, dt):
     assert seen == [("vmmt_gru_tiled_fwd_occupancy", H, fwd["rows"], fwd["units"],
                      fwd["cluster"], int(fwd["resident"]), fwd["stages"]),
                     ("vmmt_gru_tiled_bwd_occupancy", H, bwd["rows"], bwd["units"], bwd["cluster"],
-                     int(bwd["resident"]))] + [("vmmt_gru_products_occupancy", *products)] * wgmma
+                     int(bwd["resident"]), bwd["stages"])] + \
+        [("vmmt_gru_products_occupancy", *products)] * wgmma
     assert fwd["in_place"] == bwd["in_place"] == (dt == torch.float32)
     assert [c[1] is not None for c in calls] == [dt != torch.float32] * 2
     if dt != torch.float32:
@@ -255,7 +257,7 @@ def test_wrappers_launch_the_streamed_plan(streamed_lib, dt):
         ("fwd", B, T, H, 1, fwd["rows"], fwd["units"], fwd["cluster"], fwd["row_tiles"],
          int(fwd["resident"]), fwd["stages"]),
         ("bwd", B, T, H, 0, bwd["rows"], bwd["units"], bwd["cluster"], bwd["row_tiles"],
-         int(bwd["resident"]), bwd["dwh_splits"], *products)]
+         int(bwd["resident"]), bwd["stages"], bwd["dwh_splits"], *products)]
     assert gru_scan.gru_layer_scan.plan == dict(fwd, max_co_resident=264)
     assert gru_scan.gru_layer_scan_bwd.plan == dict(bwd, max_co_resident=264,
                                                     **({"gemm_per_sm": 1} if wgmma else {}))
@@ -279,9 +281,11 @@ def test_wrappers_refuse_a_streamed_grid_the_card_cannot_hold(streamed_lib):
     assert calls == []
 
 
-# the backward's tiled plan at every width above 512 and every batch
+# the backward's tiled plan at every width above 512 and every batch, and
+# below 513 units, where it competes with the cluster plan
 TILED_WIDTHS = [513, 520, 1000, 1002, 1024, 1040, 2048, 2500, 4096]
 TILED_BATCHES = [1, 17, 64, 256, 1024, 4096]
+TILED_BWD_WIDTHS = [449, 480, 500, 512] + TILED_WIDTHS
 # the forward's tiled plan also below 513 units, where it competes with the
 # cluster plan (500: gates not on 16-byte pieces in 16 bits)
 TILED_FWD_WIDTHS = [257, 300, 384, 448, 500, 512] + TILED_WIDTHS
@@ -298,7 +302,7 @@ def fwd_tiled_plan(B: int, H: int, dt, sms: int) -> dict:
 @pytest.mark.parametrize("sms", [H100_SMS, 114])
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 @pytest.mark.parametrize("B", TILED_BATCHES)
-@pytest.mark.parametrize("H", TILED_WIDTHS)
+@pytest.mark.parametrize("H", TILED_BWD_WIDTHS)
 def test_tiled_plan_covers_every_cell_once(H, B, dt, sms):
     """Follows the kernel's own index arithmetic (gru_tiled_bwd_kernel,
     launch_tiled): launch chunks of rows * row_tiles rows, CTA b of a
@@ -306,14 +310,20 @@ def test_tiled_plan_covers_every_cell_once(H, B, dt, sms):
     of its rows and units below H; every (row, unit) cell is owned exactly
     once, and the unit tiles reach no further than the last. Each rank's
     K chunks are disjoint and cover 3H once within the exchange row; the
-    ring, the partial products and the carries fit a CTA's shared memory
-    (counted by hand; Wh's rows held there where they fit beside the 4
-    stages); the grid is within the co-residency estimate;
-    float16's plan is bf16's."""
-    plan = gru_scan.scan_bwd_plan(B, 24, H, dt, sms)
+    tile is whole warp tiles (16 x 8 on the narrow tiles, 32 x 32 else)
+    whose K groups fill the eight warps, at most 4 in a cluster; the ring,
+    the partial products and the carries fit a CTA's shared memory (counted
+    by hand: Wh's rows held there beside the whole K of the tile's rows of
+    dh_proj, or beside 4 stages, or brought by the ring), the ring the
+    cheapest by the plan's cost model of those that fit; the grid is within
+    the co-residency estimate; float16's plan is bf16's. Below 513 units
+    the tiled planner's plan (the wrapper's where the cluster plan runs in
+    waves)."""
+    plan = (gru_scan.scan_bwd_plan(B, 24, H, dt, sms) if H > gru_scan.SCAN_CLUSTER_MAX_HIDDEN
+            else gru_scan.tiled_bwd_plan(B, 24, H, dt, sms))
     rows, units, C = plan["rows"], plan["units"], plan["cluster"]
     assert plan["layout"] == "tiled" and (rows, units) in gru_scan.TILED_TILES
-    assert C in gru_scan.TILED_CLUSTERS and rows % 16 == 0 and units >= 32
+    assert C in gru_scan.TILED_CLUSTERS and rows % 16 == 0 and units % 8 == 0
     chunk = rows * plan["row_tiles"]
     assert (plan["unit_tiles"] - 1) * units < H <= plan["unit_tiles"] * units
     owned = np.zeros((B, H), np.int8)
@@ -338,30 +348,56 @@ def test_tiled_plan_covers_every_cell_once(H, B, dt, sms):
     assert [c for part in parts for c in part] == list(range(nk))
     assert all(len(part) > 0 for part in parts)
 
-    wk = 8 * 32 * 32 // (rows * units)
-    assert wk in (1, 2, 4) and (rows // 32) * (units // 32) * wk == 8
-    res = plan["resident"]
-    fixed = wk * rows * (units + 4) * 4 + 2 * (rows // C) * units * 4
-    w = units * (-(-nk // C) * 128 + 16)
-    assert res == (w + 4 * rows * 144 + fixed <= kernels.SMEM_PER_BLOCK)
-    assert plan["stages"] == 4
-    smem = res * w + 4 * (rows + (0 if res else units)) * 144 + fixed
-    assert plan["smem"] == smem <= kernels.SMEM_PER_BLOCK
+    narrow = rows < 32 or units < 32
+    warp_m, warp_n = (16, 8) if narrow else (32, 32)
+    assert gru_scan.tiled_warp_tile(rows, units) == (warp_m, warp_n)
+    wk = 8 // ((rows // warp_m) * (units // warp_n))
+    assert (rows // warp_m) * (units // warp_n) * wk == 8 and wk in ((1, 2, 4, 8) if C == 1
+                                                                     else (1, 2, 4))
+    pitch = -(-nk // C) * 128 + 16
+    w = units * pitch
+    red = wk * rows * (units + 4) * 4
+    cells = 2 * (rows // C) * units * 4
+
+    def ring_smem(res: bool, stages: int) -> int:
+        if stages == 1:  # the whole K of the tile's rows at Wh's pitch, and an mbarrier
+            return -(-(w + max(rows * pitch, red) + cells) // 16) * 16 + 16
+        return res * w + stages * (rows + (0 if res else units)) * 144 + red + cells
+
+    fits = [ring for ring in gru_scan.TILED_BWD_RINGS if ring_smem(*ring) <= kernels.SMEM_PER_BLOCK]
+    res, stages = plan["resident"], plan["stages"]
+    assert (res, stages) in fits and stages in (1, 4) and (res or stages > 1)
+    cost = gru_scan._tiled_cost(B, H, dt, plan)
+    for ring in fits:
+        other = gru_scan.tiled_plan_for(B, H, dt, sms, rows, units, C, (ring,))
+        assert other["smem"] == ring_smem(*ring) and cost <= gru_scan._tiled_cost(B, H, dt, other)
+    assert plan["smem"] == ring_smem(res, stages) <= kernels.SMEM_PER_BLOCK
     assert plan["wh_from"] in (("smem",) if res else ("l2", "hbm"))
     assert plan["in_place"] == (3 * H * dt.itemsize % 16 == 0)
     if dt == torch.float16:
-        assert plan == gru_scan.scan_bwd_plan(B, 24, H, torch.bfloat16, sms)
+        assert plan == (gru_scan.scan_bwd_plan(B, 24, H, torch.bfloat16, sms)
+                        if H > gru_scan.SCAN_CLUSTER_MAX_HIDDEN
+                        else gru_scan.tiled_bwd_plan(B, 24, H, torch.bfloat16, sms))
 
 
 @pytest.mark.parametrize("dt", DTYPES, ids=str)
 def test_tiled_plan_refuses_no_width(dt):
     """H = 0 is refused before anything is launched; every H from 513 on
-    has a tiled plan on 132 and 114 SMs."""
+    has a tiled plan on 132 and 114 SMs, and so has every H from 449 to 512
+    (where the wrapper takes it wherever the cluster plan runs in waves),
+    with tiles of 8 and 16 units among those that fit there."""
     with pytest.raises(NotImplementedError):
         gru_scan.scan_bwd_plan(64, 24, 0, dt, H100_SMS)
     for H in range(513, 4097, 97):
         for sms in (H100_SMS, 114):
             assert gru_scan.scan_bwd_plan(64, 24, H, dt, sms)["layout"] == "tiled"
+    for H in range(449, 513, 7):
+        for sms in (H100_SMS, 114):
+            assert gru_scan.tiled_bwd_plan(64, 24, H, dt, sms)["layout"] == "tiled"
+            narrow = [gru_scan.tiled_plan_for(64, H, dt, sms, rows, units, 1)
+                      for rows, units in gru_scan.TILED_TILES if units < 32]
+            assert any(p is not None and p["stages"] == gru_scan.TILED_BWD_WHOLE_K
+                       for p in narrow)
 
 
 @pytest.mark.parametrize("sms", [H100_SMS, 114])

@@ -130,41 +130,47 @@
 // chunks, one launch each; the launch is cooperative and clustered at once
 // (cudaLaunchKernelEx with both attributes).
 //
-// Tiled plan of the backward (H above 512: layout "tiled"). The backward's
-// serial part (b) above 512 units, the reverse scan of _gru_bwd_kernel:
-// per step the gate backward of every (row, unit) cell, then dh = dh_part
-// + round(dh_proj) @ Wh^T, a (B, 3H) x (3H, H) product whose operand is the
-// step's own output, so it cannot be hoisted. Its FLOPs are few (0.4-6.4
-// GFLOP a step at B = 64-256, H = 1000-2048); what bounds it on this card
-// is how many bytes each SM pulls from L2 a step, and the T grid barriers.
-// A plan that gives each CTA one 8-unit n-tile (the forward's) reads every
-// step's round(dh_proj) from L2 H/8 times, 830 MB a step at B = 256, H =
-// 2048. Here the product is output-stationary: one persistent cooperative
-// kernel a chunk of rows, CTA tiles of rows x units cells (each 32, 64 or
-// 128; the plan picks the tiling by the busiest CTA's bytes), each step's
-// K = 3H moving through a ring of kTiledStages stages in shared memory
-// filled by cp.async.cg (through L2, past the L1, which is not
-// coherent across SMs) while the warps multiply the stage before: ldmatrix
-// feeds mma.sync m16n8k16 in bf16 and f16 (f32 accumulators), float4 reads
-// feed FMAs in f32 (never TF32), each warp a 32 x 32 of the tile, so a
-// fragment of dh_proj serves 4 n-tiles and one of Wh 2 m-tiles, and a step's
-// dh_proj leaves L2 H/units times. Where B leaves too few tiles to fill
-// the card, a thread-block cluster of 2 or 4 CTAs splits K a tile: the
-// launch is cooperative and clustered at once (cudaLaunchKernelEx with
-// both attributes, checked on an H100: 30 clusters of 4 or 66 of 2 at
-// once), each CTA reduces its K chunks, and each adds the cluster's
-// partial products of the rows it owns (a quarter or half of the tile)
-// through distributed shared memory in rank order, so the result does not
-// depend on timing. The dh carry and dh_part of the cells a CTA owns stay
-// in its shared memory for the call. Wh's rows are K-contiguous for this
-// product: they are read in place where 3H elements are whole 16-byte
-// pieces, else from a copy the wrapper pads once a call; where a CTA's rows
-// of Wh over its K chunks fit its shared memory beside 4 stages they stay
+// Tiled plan of the backward (layout "tiled": above 512 units, and below
+// wherever the cluster plan's clusters would not all fit the card at once).
+// The backward's serial part (b) there, the reverse scan of
+// _gru_bwd_kernel: per step the gate backward of every (row, unit) cell,
+// then dh = dh_part + round(dh_proj) @ Wh^T, a (B, 3H) x (3H, H) product
+// whose operand is the step's own output, so it cannot be hoisted. Its
+// FLOPs are few (0.4-6.4 GFLOP a step at B = 64-256, H = 1000-2048); what
+// bounds it on this card is how many bytes each SM pulls from L2 a step,
+// and the T grid barriers. Here the product is output-stationary: one
+// persistent cooperative kernel a chunk of rows, CTA tiles of rows x units
+// cells (32 to 128 a side in 32 x 32 warp tiles, so a fragment of dh_proj
+// serves 4 n-tiles and one of Wh 2 m-tiles; or the narrow tiles of 16 rows,
+// or of 8 or 16 units, in 16 x 8 warp tiles, which give 64 or more CTAs all
+// of K at B = 64 with no K split), so a step's dh_proj leaves L2 H / units
+// times. Each step's K = 3H moves through a ring of kTiledStages stages in
+// shared memory filled by cp.async.cg (through L2, past the L1, which is
+// not coherent across SMs) while the warps multiply the stage before; or,
+// where the tile's rows of Wh stay resident and the CTA's whole K of its
+// rows of dh_proj fits beside them (kBwdWholeK), in one stage that the TMA
+// unit fills with a bulk copy a row, completing on one mbarrier, with no
+// barrier between K chunks (the warps' partial products then take the
+// stage's bytes). ldmatrix feeds mma.sync m16n8k16 in bf16 and f16 (f32
+// accumulators), float4 reads feed FMAs in f32 (never TF32). Where B leaves
+// too few tiles to fill the card, a thread-block cluster of 2 or 4 CTAs
+// splits K a tile: the launch is cooperative and clustered at once
+// (cudaLaunchKernelEx with both attributes, checked on an H100: 30 clusters
+// of 4 or 66 of 2 at once), each CTA reduces its K chunks, and each adds
+// the cluster's partial products of the rows it owns (a quarter or half of
+// the tile) through distributed shared memory in rank order, so the result
+// does not depend on timing. Without a cluster there is no sums pass: the
+// next step's gate backward adds the K groups' partial products, in group
+// order, as it reads each cell's dh. The dh carry and dh_part of the cells
+// a CTA owns stay in its shared memory for the call. Wh's rows are
+// K-contiguous for this product: they are read in place where 3H elements
+// are whole 16-byte pieces, else from a copy the wrapper pads once a call;
+// where a CTA's rows of Wh over its K chunks fit its shared memory they stay
 // there for the call (loaded once), else the ring brings them each step
 // with the activations (from L2 where Wh fits the 50 MB, else from HBM),
 // the first stages' copies issued before the gate backward, since they do
-// not wait for the step. While the product
-// runs, each CTA prefetches the next step's gate inputs of its rows into
+// not wait for the step. While the product runs, each CTA loads the next
+// step's gate inputs of its cells (narrow tiles) or prefetches them into
 // L2. The gate backward, round(dh_proj) in the two exchange buffers, one
 // grid barrier a step, the reset stream and both directions are the
 // cluster plan's; (a) and (c) are its tiled products, which take any shape.
@@ -1041,37 +1047,69 @@ __host__ __device__ int tiled_ld(int H) {
   return (3 * H + tiled_kc<T>() - 1) / tiled_kc<T>() * tiled_kc<T>();
 }
 
-// The tiles a CTA may own: rows and units 32, 64 or 128, whole 32 x 32
-// warp tiles, the eight warps splitting K in wk = 8 * 1024 / (rows *
-// units) <= 4 groups (a chunk holds 4 k16 steps of the mma, 8 float4 steps
-// of the FMAs); clusters of 1, 2 or 4 CTAs.
-bool valid_tile(int rows, int units, int cluster) {
+// the backward's "ring" of one stage: the CTA's whole K of the tile's rows
+// of round(dh_proj) in shared memory, brought by the TMA unit's bulk
+// copies, a row each
+constexpr int kBwdWholeK = 1;
+
+// A backward warp's tile of the step's product: 32 rows x 32 units (2 mma
+// m-tiles x 4 n-tiles), or on the narrow tiles (16 rows, or 8 or 16 units)
+// 16 x 8 (one m16n8k16), so that a CTA of 256 to 1024 cells still gives
+// each of its eight warps a K group or a tile of its own.
+__host__ __device__ constexpr bool bwd_narrow(int rows, int units) {
+  return rows < 32 || units < 32;
+}
+__host__ __device__ constexpr int bwd_warp_m(bool narrow) { return narrow ? 16 : 32; }
+__host__ __device__ constexpr int bwd_warp_n(bool narrow) { return narrow ? 8 : 32; }
+
+// The tiles a CTA may own: rows and units 32, 64 or 128 (at most 8192
+// cells) in whole 32 x 32 warp tiles, or the narrow tiles 16 x 16, 16 x 32,
+// 32 x 8, 32 x 16, 64 x 8 and 64 x 16 in 16 x 8 warp tiles; the eight warps
+// split K in wk = 8 / warp tiles groups (a chunk holds 4 k16 steps of the
+// mma, 8 float4 steps of the FMAs), at most 4 in a cluster of 2 or 4 CTAs
+// (the sums pass), 8 (32 x 32) without one; a ring of kTiledStages stages
+// or kBwdWholeK.
+bool valid_tile(int rows, int units, int cluster, int stages) {
   auto side = [](int v) { return v == 32 || v == 64 || v == 128; };
-  const int cells = rows * units;
-  return side(rows) && side(units) && cells >= 2048 && cells <= 8192 &&
-         (cluster == 1 || cluster == 2 || cluster == 4);
+  const bool narrow = bwd_narrow(rows, units);
+  const bool tile = narrow ? (rows == 16 && (units == 16 || units == 32)) ||
+                                 ((rows == 32 || rows == 64) && (units == 8 || units == 16))
+                           : side(rows) && side(units) && rows * units <= 8192;
+  if (!tile || !(stages == kTiledStages || stages == kBwdWholeK)) return false;
+  const int wk = kTiledWarps / ((rows / bwd_warp_m(narrow)) * (units / bwd_warp_n(narrow)));
+  return cluster == 1 || (wk <= 4 && (cluster == 2 || cluster == 4));
 }
 
 // Dynamic shared memory of a tiled CTA, the same bytes in every dtype:
 // with `resident`, the CTA's rows of Wh over its K chunks (units rows of
-// kc_own chunks, kc_own * kTiledChunk + 16 bytes apart) for the call; the
-// ring (kTiledStages stages of `rows` rows of round(dh_proj), then, without
-// `resident`, `units` rows of Wh, one K chunk each, kTiledPitch apart); the
-// warps' partial products (wk, rows, units + 4) in f32; and the dh carry and
-// dh_part of the own = rows / cluster x units cells the CTA owns.
+// kc_own chunks, w_pitch = kc_own * kTiledChunk + 16 bytes apart) for the
+// call; the ring (kTiledStages stages of `rows` rows of round(dh_proj),
+// then, without `resident`, `units` rows of Wh, one K chunk each,
+// kTiledPitch apart; with kBwdWholeK and `resident`, one stage of the rows
+// over all kc_own chunks, a_pitch = w_pitch apart); the warps' partial
+// products (wk, rows, units + 4) in f32, which with kBwdWholeK take the
+// stage's bytes; the dh carry and dh_part of the own = rows / cluster x
+// units cells the CTA owns; with kBwdWholeK the bulk copies' mbarrier.
 struct TiledLayout {
-  int wk, red_ld, own, w_pitch;
-  size_t stage, ring, red, cells, total;
-  __host__ __device__ TiledLayout(int rows, int units, int cluster, bool resident, int kc_own) {
-    wk = kTiledWarps * kTiledWarpTile * kTiledWarpTile / (rows * units);
+  int wk, red_ld, own, w_pitch, a_pitch;
+  size_t stage, ring, red, cells, bar, total;
+  __host__ __device__ TiledLayout(int rows, int units, int cluster, bool resident, int stages,
+                                  int kc_own) {
+    const bool whole = stages == kBwdWholeK, narrow = bwd_narrow(rows, units);
+    wk = kTiledWarps / ((rows / bwd_warp_m(narrow)) * (units / bwd_warp_n(narrow)));
     red_ld = units + 4;
     own = rows / cluster * units;
     w_pitch = kc_own * kTiledChunk + 16;
-    stage = (size_t)(rows + (resident ? 0 : units)) * kTiledPitch;
+    a_pitch = whole ? w_pitch : kTiledPitch;
+    stage = whole ? (size_t)rows * a_pitch
+                  : (size_t)(rows + (resident ? 0 : units)) * kTiledPitch;
     ring = resident ? (size_t)units * w_pitch : 0;
-    red = ring + kTiledStages * stage;
-    cells = red + (size_t)wk * rows * red_ld * sizeof(float);
+    const size_t red_bytes = (size_t)wk * rows * red_ld * sizeof(float);
+    red = whole ? ring : ring + kTiledStages * stage;
+    cells = whole ? ring + (stage > red_bytes ? stage : red_bytes) : red + red_bytes;
     total = cells + 2 * (size_t)own * sizeof(float);
+    bar = (total + 15) / 16 * 16;
+    if (whole) total = bar + 16;
   }
 };
 
@@ -1143,43 +1181,60 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
                : "r"(smem_u32(p)));
 }
 
+// two 8 x 8 matrices of 16-bit values, row addresses from lanes 0 .. 15
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
 }
 
 // Per step: the gate backward of the CTA's own cells into the step's
 // exchange buffer, one grid barrier, then the tile's dh_proj @ Wh[units,
-// :]^T over the CTA's K chunks through the ring, the partial products
-// added across the warps and the cluster in a fixed order, and dh =
-// (dh_part + product) * keep of the step for the own cells.
-template <typename T>
+// :]^T over the CTA's K chunks, through the ring or the whole-K stage (S =
+// kBwdWholeK), and the partial products added across the warps and the
+// cluster in a fixed order: dh = (dh_part + product) * keep of the step for
+// the own cells. In a cluster a sums pass adds the peers' partials after
+// the product; without one the next step's gate backward adds the K
+// groups' (in group order) as it reads dh (kFold, which the launch takes
+// for clusters of one CTA). kNarrow: the 16 x 8 warp tiles.
+template <typename T, int S, bool kNarrow, bool kFold>
 __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T> p) {
   cg::grid_group grid = cg::this_grid();
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int B = p.B, T_len = p.T_len, H = p.H, H3 = 3 * H, rows = p.rows, units = p.units;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  constexpr int S = kTiledStages;
-  const TiledLayout L(rows, units, C, p.resident != 0, tiled_kc_own<T>(H, C));
+  constexpr bool whole = S == kBwdWholeK;
+  const bool resident = p.resident != 0;
+  const TiledLayout L(rows, units, C, resident, S, tiled_kc_own<T>(H, C));
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* ring = smem_raw + L.ring;  // after the resident weights, if any
   float* red = reinterpret_cast<float*>(smem_raw + L.red);
   float* dh_s = reinterpret_cast<float*>(smem_raw + L.cells);
   float* part_s = dh_s + L.own;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + L.bar);  // kBwdWholeK's bulk copies
   const int unit_tiles = (H + units - 1) / units, tile = blockIdx.x / C;
   const int r0 = (tile / unit_tiles) * rows, u0 = (tile % unit_tiles) * units;
   const int nu = min(units, H - u0);
-  const int ulog = __ffs(units) - 1;  // units is 32, 64 or 128: own cell i is (i >> ulog, i & (units - 1))
+  const int ulog = __ffs(units) - 1;  // units is a power of two: own cell i is (i >> ulog, i & (units - 1))
   // the CTA owns the cells of tile rows [or0, or0 + rows / C)
   const int or0 = rank * (rows / C);
   // its K chunks: [c0, c1) of nk
   constexpr int kc = tiled_kc<T>();
   const int nk = (H3 + kc - 1) / kc;
   const int c0 = rank * nk / C, c1 = (rank + 1) * nk / C;
-  // this warp's 32 x 32 of the tile and its K-split group
-  const int wn_n = units / kTiledWarpTile, wmn = (rows / kTiledWarpTile) * wn_n;
+  // this warp's wt_m x wt_n of the tile and its K-split group
+  constexpr int wt_m = bwd_warp_m(kNarrow), wt_n = bwd_warp_n(kNarrow);
+  constexpr int kAcc = wt_m * wt_n / 32;  // accumulators a thread
+  const int wn_n = units / wt_n, wmn = (rows / wt_m) * wn_n;
   const int wk = warp / wmn, wm = (warp % wmn) / wn_n, wn = warp % wn_n;
   const bool reset = p.reset != nullptr;
+  // without a cluster the gates add the K groups' partial products
+  constexpr bool fold = kFold;
   const size_t xn = (size_t)B * p.ldx;
   // the partial products of the cluster's CTAs, in rank order
   const float* peer_red[4];
@@ -1189,12 +1244,22 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
   auto keep_at = [&](int row, int t) {
     return reset ? 1.f - p.reset[(size_t)row * T_len + t] : 1.f;
   };
+  auto time_of = [&](int step) { return p.reverse ? step : T_len - 1 - step; };
+  // without a cluster, the dh carry of own cell i after the step at time t:
+  // its dh_part and the K groups' partial products of that step, added in
+  // group order, times the step's keep
+  auto folded = [&](int i, int row, int t) {
+    const size_t at = (size_t)(or0 + (i >> ulog)) * L.red_ld + (i & (units - 1));
+    float s = part_s[i];
+    for (int w = 0; w < L.wk; ++w) s += red[at + (size_t)w * rows * L.red_ld];
+    return s * keep_at(row, t);
+  };
 
   const size_t gtid = (size_t)blockIdx.x * kTiledThreads + tid;
   for (size_t i = gtid; i < 2 * xn; i += (size_t)gridDim.x * kTiledThreads)
     p.xch[i] = from_f<T>(0.f);
   for (int i = tid; i < L.own; i += kTiledThreads) dh_s[i] = 0.f;
-  if (p.resident) {
+  if (resident) {
     // Wh's rows u0.. over this CTA's K chunks, once for the call
     constexpr int per = 16 / (int)sizeof(T);
     const int pieces = (c1 - c0) * 8;
@@ -1206,6 +1271,10 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
     }
     cp_async_commit();
     cp_async_wait<0>();
+    if (whole && tid == 0) {  // kBwdWholeK takes Wh resident
+      mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
   }
   grid.sync();
 
@@ -1216,7 +1285,7 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
     float hp[3], x[3], g, m, h_prev, keep;
   };
   auto gate_load = [&](int step, int base, GateIn (&in)[kTiledGate]) {
-    const int t = p.reverse ? step : T_len - 1 - step;
+    const int t = time_of(step);
 #pragma unroll
     for (int q = 0; q < kTiledGate; ++q) {
       const int i = base + q * kTiledThreads;
@@ -1235,7 +1304,7 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
     }
   };
   auto gate_cells = [&](int step, int base, const GateIn (&in)[kTiledGate], T* dp) {
-    const int t = p.reverse ? step : T_len - 1 - step;
+    const int t = time_of(step);
 #pragma unroll
     for (int q = 0; q < kTiledGate; ++q) {
       const int i = base + q * kTiledThreads;
@@ -1246,7 +1315,8 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
       const float rg = sigmoid_f(in[q].x[0] + in[q].hp[0]);
       const float zg = sigmoid_f(in[q].x[1] + in[q].hp[1]);
       const float ng = tanhf(in[q].x[2] + rg * hn);
-      const float dh_total = in[q].g + dh_s[i];
+      const float dh = !fold ? dh_s[i] : step == 0 ? 0.f : folded(i, row, time_of(step - 1));
+      const float dh_total = in[q].g + dh;
       const float dhat = in[q].m * dh_total;
       const float dn_pre = dhat * (1.f - zg) * (1.f - ng * ng);
       const float dz_pre = dhat * (in[q].h_prev * in[q].keep - ng) * zg * (1.f - zg);
@@ -1265,14 +1335,15 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
     }
   };
   // the first batch's inputs are loaded ahead: for step 0 here, for each
-  // later step while the CTA adds the step before's partial products
+  // later step while the CTA multiplies (narrow tiles, all of whose cells
+  // are in the first batch) or adds the step before's partial products
   GateIn first[kTiledGate];
   gate_load(0, tid, first);
 
   // the next step's gate inputs of the own rows into L2 while the product
   // runs: hp and x_proj (3 gates), g and the previous state, 128-byte lines
   auto prefetch = [&](int step) {
-    const int t = p.reverse ? step : T_len - 1 - step;
+    const int t = time_of(step);
     const bool first = p.reverse ? t == T_len - 1 : t == 0;
     const int tp = p.reverse ? t + 1 : t - 1;
     const int lf = (nu * 4 + 127) / 128 + 1, lt = (nu * (int)sizeof(T) + 127) / 128 + 1;
@@ -1334,7 +1405,8 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
     const int k0 = c * kc;
 #pragma unroll
     for (int j = 0; j < kPieces; ++j) {
-      if (j * kTiledThreads >= (weights ? units : rows) * 8) break;
+      // a narrow tile's rows fill part of a row of pieces: no copy past them
+      if (tid + j * kTiledThreads >= (weights ? units : rows) * 8) break;
       if (weights) {
         const bool in = w_ok[j] && k0 + w_k[j] < p.ldw;
         cp_async16(st + w_dst[j], in ? p.w + w_off[j] + k0 : p.w, in ? 16 : 0);
@@ -1344,23 +1416,42 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
     }
   };
 
-  // acc += this warp's 32 x 32 of the stage's product over its K group's
-  // steps: bf16 and f16 mma.sync m16n8k16 (acc[(mi * 4 + ni) * 4 + e]: m-tile
-  // mi, n-tile ni, accumulator e), f32 FMAs (acc[i * 8 + j]: row lane / 4 +
-  // 8i, unit lane % 4 + 4j)
-  auto product = [&](int c, int slot, float (&acc)[32]) {
-    const unsigned char* a_s = ring + slot * L.stage + (size_t)wm * 32 * kTiledPitch;
+  // acc += this warp's wt_m x wt_n of the product of K chunk c (ring stage
+  // `slot`, or its place in the whole-K stage) over its K group's steps:
+  // bf16 and f16 mma.sync m16n8k16 (acc[(mi * 4 + ni) * 4 + e]: m-tile mi,
+  // n-tile ni, accumulator e; narrow: acc[e] of its one tile), f32 FMAs
+  // (acc[i * wt_n / 4 + j]: row lane / 4 + 8i, unit lane % 4 + 4j)
+  auto product = [&](int c, int slot, float (&acc)[kAcc]) {
+    const int a_pitch = whole ? L.a_pitch : kTiledPitch;
+    // the K groups take the CTA's k16 steps in turn across its chunks, so
+    // that 8 groups (a power of two) share a chunk's 4 steps of the mma
+    // over two chunks; with 4 or fewer each takes its own in every chunk
+    const int k0 = L.wk > kc / 16 ? (wk - (c - c0) * (kc / 16)) & (L.wk - 1) : wk;
+    const unsigned char* a_s =
+        (whole ? ring + (size_t)(c - c0) * kTiledChunk : ring + slot * L.stage) +
+        (size_t)wm * wt_m * a_pitch;
     // Wh's rows: resident (w_pitch apart, chunk c at its offset) or the stage's
-    const int w_pitch = p.resident ? L.w_pitch : kTiledPitch;
+    const int w_pitch = resident ? L.w_pitch : kTiledPitch;
     const unsigned char* w_s =
-        p.resident ? smem_raw + (size_t)wn * 32 * w_pitch + (c - c0) * kTiledChunk
-                   : ring + slot * L.stage + (size_t)(rows + wn * 32) * kTiledPitch;
-    if constexpr (is_mma<T>()) {
-      for (int kk = wk; kk < kc / 16; kk += L.wk) {
+        resident ? smem_raw + (size_t)wn * wt_n * w_pitch + (c - c0) * kTiledChunk
+                 : ring + slot * L.stage + (size_t)(rows + wn * wt_n) * kTiledPitch;
+    if constexpr (is_mma<T>() && kNarrow) {
+      for (int kk = k0; kk < kc / 16; kk += L.wk) {
+        uint32_t a[4], b[2];
+        ldmatrix_x4(a, a_s + ((lane & 7) + ((lane >> 3) & 1) * 8) * a_pitch + kk * 32 +
+                           (lane >> 4) * 16);
+        ldmatrix_x2(b, w_s + (lane & 7) * w_pitch + kk * 32 + ((lane >> 3) & 1) * 16);
+        float cc[4] = {acc[0], acc[1], acc[2], acc[3]};
+        mma16<T>(cc, a, b[0], b[1]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[e] = cc[e];
+      }
+    } else if constexpr (is_mma<T>()) {
+      for (int kk = k0; kk < kc / 16; kk += L.wk) {
         uint32_t a[2][4], b[2][4];
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi)
-          ldmatrix_x4(a[mi], a_s + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kTiledPitch +
+          ldmatrix_x4(a[mi], a_s + (mi * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * a_pitch +
                                  kk * 32 + (lane >> 4) * 16);
 #pragma unroll
         for (int nj = 0; nj < 2; ++nj)
@@ -1380,26 +1471,27 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
           }
       }
     } else {
+      constexpr int ni_m = wt_m / 8, ni_n = wt_n / 4;  // rows and units of a lane
       for (int kq = wk; kq < kc / 4; kq += L.wk) {
-        float4 av[4], wv[8];
+        float4 av[ni_m], wv[ni_n];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-          av[i] = *reinterpret_cast<const float4*>(a_s + ((lane >> 2) + 8 * i) * kTiledPitch +
+        for (int i = 0; i < ni_m; ++i)
+          av[i] = *reinterpret_cast<const float4*>(a_s + ((lane >> 2) + 8 * i) * a_pitch +
                                                    kq * 16);
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < ni_n; ++j)
           wv[j] = *reinterpret_cast<const float4*>(w_s + ((lane & 3) + 4 * j) * w_pitch +
                                                    kq * 16);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < ni_m; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            float v = acc[i * 8 + j];
+          for (int j = 0; j < ni_n; ++j) {
+            float v = acc[i * ni_n + j];
             v = fmaf(av[i].x, wv[j].x, v);
             v = fmaf(av[i].y, wv[j].y, v);
             v = fmaf(av[i].z, wv[j].z, v);
             v = fmaf(av[i].w, wv[j].w, v);
-            acc[i * 8 + j] = v;
+            acc[i * ni_n + j] = v;
           }
       }
     }
@@ -1416,11 +1508,11 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
   };
   stamp(0);
   for (int step = 0; step < T_len; ++step) {
-    const int t = p.reverse ? step : T_len - 1 - step;
+    const int t = time_of(step);
     T* dp = p.xch + (step & 1) * xn;
     // the first stages' weights do not wait for the step: their copies run
     // under the gate backward and the barrier
-    for (int s = 0; s < S - 1 && !p.resident; ++s)
+    for (int s = 0; s < kTiledStages - 1 && !whole && !resident; ++s)
       if (c0 + s < c1) load_chunk(dp, c0 + s, s, true);
     gate_cells(step, tid, first, dp);
     for (int base = tid + kTiledGate * kTiledThreads; base < L.own;
@@ -1432,70 +1524,109 @@ __global__ void __launch_bounds__(kTiledThreads, 1) gru_tiled_bwd_kernel(Tiled<T
     stamp(1 + 4 * step);
     grid.sync();  // every cell's round(dh_proj) is in dp
     stamp(2 + 4 * step);
-    if (step + 1 < T_len) prefetch(step + 1);
 
-    for (int s = 0; s < S - 1; ++s) {
-      if (c0 + s < c1) load_chunk(dp, c0 + s, s, false);
-      cp_async_commit();
-    }
-    float acc[32] = {};
-    for (int c = c0; c < c1; ++c) {
-      cp_async_wait<S - 2>();
-      __syncthreads();  // chunk c is in its stage; every warp is done with chunk c - 1's
-      const int next = c + S - 1;
-      if (next < c1) {
-        if (!p.resident) load_chunk(dp, next, (next - c0) % S, true);
-        load_chunk(dp, next, (next - c0) % S, false);
+    float acc[kAcc] = {};
+    if constexpr (whole) {
+      // thread r: tile row r's K chunks [c0, c1) in one bulk copy (rows past
+      // B are not copied: their products are never read); thread 0's
+      // arrival holds the phase open until it has added the bytes to expect
+      const int bytes = (c1 - c0) * kTiledChunk, n = min(rows, B - r0);
+      if (tid < n) {
+        fence_proxy_async_global();  // the peers' round(dh_proj), before the grid barrier, first
+        bulk_load(ring + (size_t)tid * L.a_pitch, dp + (size_t)(r0 + tid) * p.ldx + c0 * kc,
+                  bytes, bar);
       }
-      cp_async_commit();
-      product(c, (c - c0) % S, acc);
+      if (tid == 0) mbar_expect_tx(bar, n * bytes);
+      if (step + 1 < T_len) {
+        if constexpr (kNarrow)
+          gate_load(step + 1, tid, first);
+        else
+          prefetch(step + 1);
+      }
+      mbar_wait(bar, step & 1);
+      for (int c = c0; c < c1; ++c) product(c, 0, acc);
+      __syncthreads();  // every warp is done with the stage, whose bytes red takes
+    } else {
+      if (step + 1 < T_len) {
+        if constexpr (kNarrow)
+          gate_load(step + 1, tid, first);
+        else
+          prefetch(step + 1);
+      }
+      for (int s = 0; s < kTiledStages - 1; ++s) {
+        if (c0 + s < c1) load_chunk(dp, c0 + s, s, false);
+        cp_async_commit();
+      }
+      for (int c = c0; c < c1; ++c) {
+        cp_async_wait<kTiledStages - 2>();
+        __syncthreads();  // chunk c is in its stage; every warp is done with chunk c - 1's
+        const int next = c + kTiledStages - 1;
+        if (next < c1) {
+          if (!resident) load_chunk(dp, next, (next - c0) % kTiledStages, true);
+          load_chunk(dp, next, (next - c0) % kTiledStages, false);
+        }
+        cp_async_commit();
+        product(c, (c - c0) % kTiledStages, acc);
+      }
+      cp_async_wait<0>();
     }
-    cp_async_wait<0>();
     stamp(3 + 4 * step);
 
-    // the warp's partial products into red[wk], then the own cells' sums
-    // over the cluster's CTAs and the K groups, in that fixed order
+    // the warp's partial products into red[wk]
     float* rb = red + (size_t)wk * rows * L.red_ld;
 #pragma unroll
-    for (int e = 0; e < 32; ++e) {
+    for (int e = 0; e < kAcc; ++e) {
       int r, u;
-      if constexpr (is_mma<T>()) {
+      if constexpr (is_mma<T>() && kNarrow) {
+        r = wm * 16 + (lane >> 2) + ((e >> 1) & 1) * 8;
+        u = wn * 8 + 2 * (lane & 3) + (e & 1);
+      } else if constexpr (is_mma<T>()) {
         r = wm * 32 + (e >> 4) * 16 + (lane >> 2) + ((e >> 1) & 1) * 8;
         u = wn * 32 + ((e >> 2) & 3) * 8 + 2 * (lane & 3) + (e & 1);
       } else {
-        r = wm * 32 + (lane >> 2) + 8 * (e >> 3);
-        u = wn * 32 + (lane & 3) + 4 * (e & 7);
+        constexpr int ni_n = wt_n / 4;
+        r = wm * wt_m + (lane >> 2) + 8 * (e / ni_n);
+        u = wn * wt_n + (lane & 3) + 4 * (e % ni_n);
       }
       rb[r * L.red_ld + u] = acc[e];
     }
-    cluster.sync();  // every partial product of the cluster is in its CTA's red
-    if (step + 1 < T_len) gate_load(step + 1, tid, first);
-    // the own cells' sums over the cluster's CTAs and the K groups, in that
-    // order, each cell's partials loaded before its adds
-    for (int i = tid; i < L.own; i += kTiledThreads) {
-      const int tr = or0 + (i >> ulog), row = r0 + tr;
-      const size_t at = (size_t)tr * L.red_ld + (i & (units - 1));
-      float v[4][4];
+    // every partial product of the cluster is in its CTA's red (a cluster
+    // of one CTA takes a CTA barrier on the whole-K stage; the ring's
+    // kernels keep the cluster barrier)
+    if (!whole || C > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+    if (!kNarrow && step + 1 < T_len) gate_load(step + 1, tid, first);
+    if (!fold) {
+      // the own cells' sums over the cluster's CTAs and the K groups, in
+      // that order, each cell's partials loaded before its adds
+      for (int i = tid; i < L.own; i += kTiledThreads) {
+        const int tr = or0 + (i >> ulog), row = r0 + tr;
+        const size_t at = (size_t)tr * L.red_ld + (i & (units - 1));
+        float v[4][4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+        for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int w = 0; w < 4; ++w)
-          if (q < C && w < L.wk) v[q][w] = peer_red[q][at + (size_t)w * rows * L.red_ld];
-      float s = part_s[i];
+          for (int w = 0; w < 4; ++w)
+            if (q < C && w < L.wk) v[q][w] = peer_red[q][at + (size_t)w * rows * L.red_ld];
+        float s = part_s[i];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
+        for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int w = 0; w < 4; ++w)
-          if (q < C && w < L.wk) s += v[q][w];
-      dh_s[i] = row < B ? s * keep_at(row, t) : 0.f;
+          for (int w = 0; w < 4; ++w)
+            if (q < C && w < L.wk) s += v[q][w];
+        dh_s[i] = row < B ? s * keep_at(row, t) : 0.f;
+      }
     }
     stamp(4 + 4 * step);
   }
   for (int i = tid; i < L.own; i += kTiledThreads) {
-    const int row = r0 + or0 + i / units, j = u0 + i % units;
-    if (row < B && j < H) p.dh0[(size_t)row * H + j] = dh_s[i];
+    const int row = r0 + or0 + (i >> ulog), j = u0 + (i & (units - 1));
+    if (row < B && j < H)
+      p.dh0[(size_t)row * H + j] = fold ? folded(i, row, time_of(T_len - 1)) : dh_s[i];
   }
-  cluster.sync();  // no CTA leaves while a peer reads its partial products
+  if (C > 1) cluster.sync();  // no CTA leaves while a peer reads its partial products
 }
 
 cudaLaunchConfig_t tiled_config(int grid, int cluster, size_t smem, cudaLaunchAttribute* attr,
@@ -1552,13 +1683,35 @@ int launch_chunks(Kernel kernel, P q, size_t smem, int cluster, int row_tiles,
   return 0;
 }
 
+// The backward tiled kernel with a ring of kTiledStages stages or
+// kBwdWholeK, on the narrow warp tiles or the 32 x 32 ones, folding the K
+// groups' sums into the gates for clusters of one CTA.
+template <typename T, int S, bool kNarrow>
+auto tiled_bwd_kernel_of(int cluster) {
+  return cluster == 1 ? gru_tiled_bwd_kernel<T, S, kNarrow, true>
+                      : gru_tiled_bwd_kernel<T, S, kNarrow, false>;
+}
 template <typename T>
-int launch_tiled(Tiled<T> q, int cluster, int row_tiles, cudaStream_t stream) {
-  const size_t smem =
-      TiledLayout(q.rows, q.units, cluster, q.resident != 0, tiled_kc_own<T>(q.H, cluster)).total;
+auto tiled_bwd_kernel(int stages, int rows, int units, int cluster) {
+  const bool narrow = bwd_narrow(rows, units);
+  return stages == kBwdWholeK
+             ? (narrow ? tiled_bwd_kernel_of<T, kBwdWholeK, true>(cluster)
+                       : tiled_bwd_kernel_of<T, kBwdWholeK, false>(cluster))
+         : narrow ? tiled_bwd_kernel_of<T, kTiledStages, true>(cluster)
+                  : tiled_bwd_kernel_of<T, kTiledStages, false>(cluster);
+}
+
+template <typename T>
+size_t tiled_bwd_smem(int H, int rows, int units, int cluster, bool resident, int stages) {
+  return TiledLayout(rows, units, cluster, resident, stages, tiled_kc_own<T>(H, cluster)).total;
+}
+
+template <typename T>
+int launch_tiled(Tiled<T> q, int cluster, int row_tiles, int stages, cudaStream_t stream) {
+  const size_t smem = tiled_bwd_smem<T>(q.H, q.rows, q.units, cluster, q.resident != 0, stages);
   const size_t H = q.H;
-  return launch_chunks(gru_tiled_bwd_kernel<T>, q, smem, cluster, row_tiles, stream,
-                       [H](Tiled<T>& p, const Tiled<T>& q, int b0, size_t bt) {
+  return launch_chunks(tiled_bwd_kernel<T>(stages, q.rows, q.units, cluster), q, smem, cluster,
+                       row_tiles, stream, [H](Tiled<T>& p, const Tiled<T>& q, int b0, size_t bt) {
                          p.g = q.g + bt * H;
                          p.hp = q.hp + bt * 3 * H;
                          p.dx = q.dx + bt * 3 * H;
@@ -2277,7 +2430,10 @@ extern "C" int vmmt_gru_scan_bwd_occupancy(int dtype, int H, int cluster, int un
 // CTAs of `rows` x `units` cells (valid_tile), `cluster` of them splitting K
 // a tile, row_tiles row tiles a launch, one launch a chunk of rows *
 // row_tiles rows, with `resident` each CTA's rows of Wh in its shared
-// memory for the call (TiledLayout); dWh's K split over `splits` blocks;
+// memory for the call, a ring of scan_stages = kTiledStages stages, or
+// kBwdWholeK (with `resident` only: each step's K of the tile's rows of
+// round(dh_proj) in one stage by bulk copies) (TiledLayout); dWh's K split
+// over `splits` blocks;
 // the products' bn and stages; probe: null, or 1 + 4
 // * T int64 globaltimer stamps of the first launch's CTA 0 (after the first
 // grid barrier, then each step's gate backward, barrier, product and sums).
@@ -2288,11 +2444,13 @@ extern "C" int vmmt_gru_tiled_bwd(int dtype, const void* x_proj, const void* mas
                                   void* dh0, void* dwh, void* dbh, void* hp, void* dhn,
                                   void* partial, void* counters, void* hs, void* dp, void* xch,
                                   const void* wt, int B, int T_len, int H, int reverse, int rows,
-                                  int units, int cluster, int row_tiles, int resident, int splits,
-                                  int bn, int stages, void* probe, void* stream) {
+                                  int units, int cluster, int row_tiles, int resident,
+                                  int scan_stages, int splits, int bn, int stages, void* probe,
+                                  void* stream) {
   if (!known_dtype(dtype)) return (int)cudaErrorInvalidValue;
   if (B == 0 || T_len == 0) return 0;
-  if (H < 1 || !valid_tile(rows, units, cluster) || row_tiles < 1 || splits < 1)
+  if (H < 1 || !valid_tile(rows, units, cluster, scan_stages) || row_tiles < 1 || splits < 1 ||
+      (scan_stages == kBwdWholeK && resident == 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto zero) {
@@ -2331,7 +2489,7 @@ extern "C" int vmmt_gru_tiled_bwd(int dtype, const void* x_proj, const void* mas
     p.ldw = wt != nullptr ? tiled_ld<T>(H) : H3;
     p.ldx = tiled_ld<T>(H);
     p.resident = resident;
-    err = launch_tiled<T>(p, cluster, row_tiles, s);
+    err = launch_tiled<T>(p, cluster, row_tiles, scan_stages, s);
     return err != 0 ? err : dwh_products<T>(q, s);
   };
   const int err = by_dtype(dtype, run);
@@ -2340,18 +2498,19 @@ extern "C" int vmmt_gru_tiled_bwd(int dtype, const void* x_proj, const void* mas
 
 // How many CTAs of the tiled backward the card holds at once in clusters of
 // `cluster` (cudaOccupancyMaxActiveClusters times cluster; 0 when it cannot
-// hold one), and the dynamic shared memory of one CTA of the tiling
-// (TiledLayout) at H units.
+// hold one), and the dynamic shared memory of one CTA of the tiling and
+// ring (TiledLayout) at H units.
 extern "C" int vmmt_gru_tiled_bwd_occupancy(int dtype, int H, int rows, int units, int cluster,
-                                            int resident, int* max_ctas, int* smem_bytes) {
-  if (!known_dtype(dtype) || H < 1 || !valid_tile(rows, units, cluster))
+                                            int resident, int stages, int* max_ctas,
+                                            int* smem_bytes) {
+  if (!known_dtype(dtype) || H < 1 || !valid_tile(rows, units, cluster, stages) ||
+      (stages == kBwdWholeK && resident == 0))
     return (int)cudaErrorInvalidValue;
   auto query = [&](auto zero) {
     using T = decltype(zero);
-    const size_t smem =
-        TiledLayout(rows, units, cluster, resident != 0, tiled_kc_own<T>(H, cluster)).total;
+    const size_t smem = tiled_bwd_smem<T>(H, rows, units, cluster, resident != 0, stages);
     *smem_bytes = (int)smem;
-    const auto kernel = gru_tiled_bwd_kernel<T>;
+    const auto kernel = tiled_bwd_kernel<T>(stages, rows, units, cluster);
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;

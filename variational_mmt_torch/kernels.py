@@ -71,10 +71,10 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # weights (null: Wh in place), B, T, H, reverse, rows, units,
         # cluster, row_tiles, resident weights (0 or 1), dWh splits, the
         # wgmma products' tile N and stages, probe (null: none), stream
-        "vmmt_gru_tiled_bwd": [_I] + [_P] * 20 + [_I] * 12 + [_P] * 2,
+        "vmmt_gru_tiled_bwd": [_I] + [_P] * 20 + [_I] * 13 + [_P] * 2,
         # dtype, H, rows, units, cluster, resident, out: max co-resident CTAs
         # in such clusters, smem bytes
-        "vmmt_gru_tiled_bwd_occupancy": [_I] * 6 + [_P] * 2,
+        "vmmt_gru_tiled_bwd_occupancy": [_I] * 7 + [_P] * 2,
     },
     "decoder": {
         # dtype, emb_proj, dmid, h00, h01, wfeed, wh0, bh0, wmid, bmid, wh1,

@@ -94,30 +94,39 @@ and ring whose grid the card holds at once by its own cost model
 The wrapper checks the plan with the card and raises ``NotImplementedError``
 where the grid is not co-resident.
 
-Source note, the backward's tiled plan (H above 512, ``vmmt_gru_tiled_bwd``
-in the same source). The serial part of the backward is T steps of the
+Source note, the backward's tiled plan (``vmmt_gru_tiled_bwd`` in the same
+source; above 512 units, and below wherever the cluster plan's clusters
+would run in waves: 16-CTA clusters, 7 of which an H100 holds at once, from
+449 units at B >= 64). The serial part of the backward is T steps of the
 gate backward and dh = dh_part + round(dh_proj) @ Wh^T, a (B, 3H) x (3H,
 H) product whose operand is the step's own output. Its FLOPs are few; what
 bounds it on the H100 is the bytes each SM pulls from L2 a step and the
-grid barrier of each step. Giving each CTA 8 units (the forward's tiling)
-would read each step's dh_proj from L2 H/8 times. The tiled plan makes the
-product output-stationary: each CTA owns a tile of ``rows`` x ``units``
-cells (32, 64 or 128 each) for the call, K = 3H moves through a
-4-stage ``cp.async`` ring in shared memory (Wh's rows stay there for the
-call where a CTA's share fits), ``ldmatrix`` feeds ``mma.sync`` in
-bf16 and f16 (FMAs in f32), and a step's dh_proj leaves L2 H / units
-times. Where B leaves few tiles, a thread-block cluster of 2 or 4 CTAs
-splits K a tile and adds its partial products through distributed shared
-memory in rank order (deterministic); the launch is cooperative and
-clustered at once. Each CTA keeps the dh carry and dh_part of its own
-cells in shared memory, and prefetches the next step's gate inputs into
-L2 while the product runs. Wh is read in place where 3H elements are whole
-16-byte pieces, else from a padded copy made once a call
-(:func:`_tiled_weights`). :func:`_tiled_plan` picks the tiling whose grid
-the card holds at once (:func:`tiled_co_resident`) by the busiest CTA's
-bytes (:func:`_tiled_cost`); batches above a launch's rows run in chunks.
-The wrapper checks the plan with the card and raises
-``NotImplementedError`` where the grid is not co-resident.
+grid barrier of each step. The tiled plan makes the product
+output-stationary: each CTA owns a tile of ``rows`` x ``units`` cells for
+the call (32 to 128 a side in 32 x 32 warp tiles, or the narrow tiles of 16
+rows or 8 and 16 units in 16 x 8 warp tiles, so that 64 or more CTAs each
+take all of K at B = 64 with no K split), and a step's dh_proj leaves L2 H /
+units times. K = 3H moves through a 4-stage ``cp.async`` ring in shared
+memory (Wh's rows stay there for the call where a CTA's share fits), or,
+where the tile's rows of Wh stay resident and the CTA's whole K of its
+rows of dh_proj fits beside them, arrives in one stage by the TMA unit's
+bulk copies (a row each, one mbarrier, no barrier between K chunks; the
+warps' partial products then take the stage's bytes). ``ldmatrix`` feeds
+``mma.sync`` in bf16 and f16 (FMAs in f32). Where B leaves few tiles, a
+thread-block cluster of 2 or 4 CTAs splits K a tile and adds its partial
+products through distributed shared memory in rank order
+(deterministic); without a cluster there is no sums pass: the next step's
+gate backward adds the K groups' partial products in group order as it
+reads dh. The launch is cooperative and clustered at once. Each CTA keeps
+the dh carry and dh_part of its own cells in shared memory, and loads (on
+the narrow tiles) or prefetches into L2 the next step's gate inputs while
+the product runs. Wh is read in place where 3H elements are whole 16-byte
+pieces, else from a padded copy made once a call (:func:`_tiled_weights`).
+:func:`_tiled_plan` picks the tiling and ring whose grid the card holds at
+once (:func:`tiled_co_resident`) by its cost model (:func:`_tiled_cost`,
+by phase); batches above a launch's rows run in chunks. The wrapper checks
+the plan with the card and raises ``NotImplementedError`` where the grid is
+not co-resident.
 
 Source note, the backward's hoisted products (row 2's (a) gate recompute
 ``hp = round(h_prev) @ Wh + bh`` and (c) ``dWh = round(h_prev)^T
@@ -138,9 +147,9 @@ alone, :func:`scan_bwd_products_ref` is their plain version.
 
 Widths. Both kernels take every H >= 1 in f32, bf16 and f16 that a card's
 132 SMs tile (:func:`scan_kernel_holds`; from 16897 units they do not):
-the backward on clusters up to 512 units and on its tiled plan above; the
-forward on clusters up to 512 units where they run in one wave, else on its
-tiled plan (:func:`scan_fwd_plan`), as the Pallas scan takes any H.
+each on clusters up to 512 units where they run in one wave, else on its
+tiled plan (:func:`scan_fwd_plan`, :func:`scan_bwd_plan`), as the Pallas
+scan takes any H.
 
 float16 takes bf16's path on every plan (``kernels.mma_dtype``: the same
 mma.sync tiling, strides and shared memory with f16 operands); what is
@@ -469,30 +478,52 @@ def _bwd_rows(H: int, dtype: torch.dtype, units: int) -> int:
     return SCAN_BWD_ROWS
 
 
-# The backward's tiled plan (H above 512; ``gru_tiled_bwd_kernel`` of
-# csrc/gru_scan.cu). A CTA's tile of the step's product: ``rows`` batch rows
-# x ``units`` hidden units, each a multiple of a warp's 32 x 32; the eight
-# warps of a CTA split K by TILED_WARPS * 32 * 32 / (rows * units).
+# The backward's tiled plan (``gru_tiled_bwd_kernel`` of csrc/gru_scan.cu;
+# above 512 units, and below wherever the cluster plan's clusters would run
+# in waves). A CTA's tile of the step's product: ``rows`` batch rows x
+# ``units`` hidden units in warp tiles of 32 x 32, or on the narrow tiles (16
+# rows, or 8 or 16 units) of 16 x 8 (:func:`tiled_warp_tile`); the eight
+# warps split K by 8 / warp tiles. 32 x 32 (8 K groups) takes no cluster.
 TILED_THREADS = 256
 TILED_WARP_TILE = 32
-TILED_TILES = ((32, 64), (64, 32), (64, 64), (32, 128), (128, 32), (64, 128), (128, 64))
+TILED_TILES = ((32, 64), (64, 32), (64, 64), (32, 128), (128, 32), (64, 128), (128, 64),
+               (32, 32), (16, 16), (16, 32), (32, 8), (32, 16), (64, 8), (64, 16))
 TILED_CLUSTERS = (1, 2, 4)  # CTAs splitting K a tile (a thread-block cluster)
 TILED_STAGES = 4  # stages of the K ring (kTiledStages)
 TILED_CHUNK = 128  # bytes of one row's K chunk in a stage (kTiledChunk)
 TILED_PITCH = TILED_CHUNK + 16  # bytes from one row of a stage to the next
-# what the plan assumes of the card when it ranks the tilings (not limits;
-# fitted to an H100's per-phase readings of every tiling at B = 64 and 256,
-# H = 520-2048, PERF.md): a K chunk of the ring takes at least
-# TILED_CHUNK_S, else its bytes at TILED_L2_SM, the most one SM pulls from
-# L2, and all SMs together at most TILED_L2; tensor-core mma.sync and f32
-# FMA rates of one SM, FLOP/s; a step's grid barrier; the gate backward,
-# its first batch of cells and each cell more a thread; the sums of the
-# partial products, a step and each cell a thread
-TILED_CHUNK_S, TILED_L2_SM, TILED_L2 = 0.45e-6, 25e9, 3.5e12
+# (Wh's rows resident, the ring's stages): what a backward plan may take.
+# One stage (TILED_BWD_WHOLE_K, ``kBwdWholeK``, with Wh resident only): the
+# CTA's whole K of the tile's rows of round(dh_proj) each step, one bulk
+# copy a row
+TILED_BWD_WHOLE_K = 1
+TILED_BWD_RINGS = ((True, TILED_BWD_WHOLE_K), (True, TILED_STAGES), (False, TILED_STAGES))
+# what the backward's plan assumes of the card when it ranks the tilings
+# and rings (not limits; fitted to an H100's µs a step by phase, the
+# kernel's probe, at B = 64 and 256, H = 448-2048 in bf16, PERF.md). The
+# product through the ring: a K chunk takes the longer of its bytes at
+# TILED_L2_SM, the most one SM pulls from L2, and TILED_CHUNK_S with its
+# FLOPs at the mma.sync or f32 FMA rate of one SM (TILED_MMA_SM,
+# TILED_FMA_SM) and TILED_STEP_S for each k16 step a warp takes in it; all
+# SMs together pull at most TILED_L2. On the whole-K stage each K chunk
+# TILED_BWD_BULK_CHUNK_S and its bytes at TILED_BWD_BULK_SM, and the
+# FLOPs. A step's grid barrier. In a cluster, the gate backward's first
+# batch of cells and each cell more a thread (TILED_GATE_FIRST,
+# TILED_GATE_CELL) and the sums of the partial products, a step and each
+# cell a thread (TILED_SUMS_STEP, TILED_SUMS_CELL); without one the gate
+# backward, TILED_BWD_GATE_S and each cell a thread TILED_BWD_GATE_CELL, with
+# TILED_BWD_FOLD_GROUP a cell for each K group it adds, and the warps'
+# partial products into shared memory behind a CTA barrier
+# (TILED_BWD_SYNC_S; on the ring a cluster barrier, TILED_BWD_RING_SYNC_S),
+# TILED_BWD_ACC_S for each accumulator a thread past the narrow tiles' 4
+TILED_CHUNK_S, TILED_STEP_S, TILED_L2_SM, TILED_L2 = 0.45e-6, 0.035e-6, 25e9, 3.5e12
+TILED_BWD_BULK_CHUNK_S, TILED_BWD_BULK_SM = 0.107e-6, 25.5e9
 TILED_MMA_SM, TILED_FMA_SM = 4.0e12, 0.35e12
 TILED_BARRIER = 1.2e-6
-TILED_GATE_FIRST, TILED_GATE_CELL = 1.0e-6, 0.68e-6
-TILED_SUMS_STEP, TILED_SUMS_CELL = 3.0e-6, 0.5e-6
+TILED_GATE_FIRST, TILED_GATE_CELL = 1.2e-6, 0.9e-6
+TILED_SUMS_STEP, TILED_SUMS_CELL = 2.7e-6, 0.6e-6
+TILED_BWD_GATE_S, TILED_BWD_GATE_CELL, TILED_BWD_FOLD_GROUP = 0.45e-6, 0.36e-6, 0.009e-6
+TILED_BWD_SYNC_S, TILED_BWD_RING_SYNC_S, TILED_BWD_ACC_S = 0.11e-6, 0.67e-6, 0.058e-6
 H100_L2_BYTES = 50 * 2**20
 
 
@@ -520,18 +551,38 @@ def tiled_kc_own(H: int, dtype: torch.dtype, cluster: int) -> int:
     return -(-(-(-3 * H // tiled_kc(dtype))) // cluster)
 
 
-def tiled_smem(rows: int, units: int, cluster: int, resident: bool, kc_own: int) -> int:
+def tiled_warp_tile(rows: int, units: int) -> Tuple[int, int]:
+    """A backward warp's rows and units of its tile (``bwd_warp_m`` and
+    ``bwd_warp_n``): 16 x 8 on the narrow tiles (16 rows, or 8 or 16
+    units), else 32 x 32."""
+    return (16, 8) if rows < 32 or units < 32 else (TILED_WARP_TILE, TILED_WARP_TILE)
+
+
+def tiled_k_groups(rows: int, units: int) -> int:
+    """The K groups the eight warps of a backward CTA split K into: 8 over
+    the tile's warp tiles."""
+    wm, wn = tiled_warp_tile(rows, units)
+    return TILED_THREADS // 32 // ((rows // wm) * (units // wn))
+
+
+def tiled_smem(rows: int, units: int, cluster: int, resident: bool, kc_own: int,
+               stages: int = TILED_STAGES) -> int:
     """Shared memory of a tiled CTA (``TiledLayout``): with ``resident``
     its rows of Wh over its ``kc_own`` K chunks (``units`` rows of kc_own *
-    TILED_CHUNK + 16 bytes); the ring of TILED_STAGES stages of ``rows`` (and
-    without ``resident`` ``units`` more) K-chunk rows at TILED_PITCH; the
-    warps' partial products (K-split groups x rows x (units + 4) f32); the
-    dh carry and dh_part of the cells the CTA owns (rows / cluster x units
-    f32 each). The same bytes in every dtype."""
-    wk = TILED_THREADS // 32 * TILED_WARP_TILE ** 2 // (rows * units)
-    w = units * (kc_own * TILED_CHUNK + 16) if resident else 0
-    return (w + TILED_STAGES * (rows + (0 if resident else units)) * TILED_PITCH
-            + wk * rows * (units + 4) * 4 + 2 * (rows // cluster) * units * 4)
+    TILED_CHUNK + 16 bytes); the ring of ``stages`` stages of ``rows`` (and
+    without ``resident`` ``units`` more) K-chunk rows at TILED_PITCH, or
+    (TILED_BWD_WHOLE_K) one stage of ``rows`` rows over all kc_own chunks at
+    Wh's pitch; the warps' partial products (K-split groups x rows x (units
+    + 4) f32), which take the whole-K stage's bytes; the dh carry and
+    dh_part of the cells the CTA owns (rows / cluster x units f32 each);
+    with the whole-K stage its mbarrier. The same bytes in every dtype."""
+    pitch = kc_own * TILED_CHUNK + 16
+    w = units * pitch if resident else 0
+    red = tiled_k_groups(rows, units) * rows * (units + 4) * 4
+    cells = 2 * (rows // cluster) * units * 4
+    if stages == TILED_BWD_WHOLE_K:
+        return kernels.align16(w + max(rows * pitch, red) + cells) + 16
+    return w + stages * (rows + (0 if resident else units)) * TILED_PITCH + red + cells
 
 
 def tiled_co_resident(cluster: int, sms: int) -> int:
@@ -548,69 +599,107 @@ def tiled_co_resident(cluster: int, sms: int) -> int:
 
 
 def _tiled_cost(B: int, H: int, dtype: torch.dtype, plan: dict) -> float:
-    """What the plan ranks tilings by: seconds a call takes per step of the
-    time axis, from the busiest CTA's K chunks through its ring, its
-    products, the gate backward and the sums of its cells and the grid
-    barrier (TILED_* constants)."""
+    """What the backward's plan ranks tilings and rings by: seconds a call
+    takes per step of the time axis, its launches' steps by phase
+    (:func:`tiled_bwd_phases`) summed."""
+    return plan["chunks"] * sum(tiled_bwd_phases(B, H, dtype, plan))
+
+
+def tiled_bwd_phases(B: int, H: int, dtype: torch.dtype, plan: dict) -> Tuple[float, ...]:
+    """Seconds a step of one launch of the backward's tiled plan by phase, as
+    its probe splits it: the gate backward (with the K groups' sums without
+    a cluster), the grid barrier, the product (the busiest CTA's K chunks
+    through its ring, dh_proj's rows and Wh's where they are not resident,
+    or its whole K's bulk copies; and its FLOPs) and the sums of a
+    cluster's partial products (TILED_* constants)."""
     rows, units, cluster = plan["rows"], plan["units"], plan["cluster"]
     mma = kernels.mma_dtype(dtype)
     nk = tiled_kc_own(H, dtype, cluster)
     busy_rows, busy_units = min(rows, B), min(units, H)
-    ring_rows = busy_rows + (0 if plan["resident"] else busy_units)
-    cta = ring_rows * nk * TILED_CHUNK
-    flops = 2.0 * rows * units * nk * tiled_kc(dtype)
-    product = max(nk * max(TILED_CHUNK_S, ring_rows * TILED_CHUNK / TILED_L2_SM),
-                  plan["grid"] * cta / TILED_L2, flops / (TILED_MMA_SM if mma else TILED_FMA_SM))
+    flops = 2.0 * rows * units * nk * tiled_kc(dtype) / (TILED_MMA_SM if mma else TILED_FMA_SM)
+    whole = plan["stages"] == TILED_BWD_WHOLE_K
+    wm, wn = tiled_warp_tile(rows, units)
+    if whole:
+        product = nk * (TILED_BWD_BULK_CHUNK_S + busy_rows * TILED_CHUNK / TILED_BWD_BULK_SM) \
+            + flops
+    else:
+        ring_rows = busy_rows + (0 if plan["resident"] else busy_units)
+        steps = -(-tiled_kc(dtype) // (16 if mma else 4) // tiled_k_groups(rows, units))
+        chunk = max(ring_rows * TILED_CHUNK / TILED_L2_SM,
+                    TILED_CHUNK_S + flops / nk + steps * TILED_STEP_S)
+        product = max(nk * chunk, plan["grid"] * ring_rows * nk * TILED_CHUNK / TILED_L2)
     cells = -(-busy_rows * busy_units // (cluster * TILED_THREADS))
-    gate = TILED_GATE_FIRST + TILED_GATE_CELL * max(0, cells - 4)
-    sums = TILED_SUMS_STEP + TILED_SUMS_CELL * cells
-    return plan["chunks"] * (TILED_BARRIER + gate + product + sums)
+    if cluster > 1:
+        gate = TILED_GATE_FIRST + TILED_GATE_CELL * max(0, cells - 4)
+        sums = TILED_SUMS_STEP + TILED_SUMS_CELL * cells
+    else:
+        gate = TILED_BWD_GATE_S + cells * (TILED_BWD_GATE_CELL + TILED_BWD_FOLD_GROUP
+                                           * tiled_k_groups(rows, units))
+        sums = (TILED_BWD_SYNC_S if whole else TILED_BWD_RING_SYNC_S) \
+            + TILED_BWD_ACC_S * (wm * wn // 32 - 4)
+    return gate, TILED_BARRIER, product, sums
 
 
 def _tiled_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
-    """The backward's tiled plan for B rows and H units (above 512) on a
-    card of ``sms`` SMs: of the tilings whose grid the card holds at once
-    (TILED_TILES x TILED_CLUSTERS), the one :func:`_tiled_cost` ranks first
-    (then the smaller grid). Each CTA owns ``rows`` x ``units`` cells of a
-    chunk of ``rows * row_tiles`` batch rows for the whole call (``chunks``
-    launches a call); ``cluster`` CTAs split K = 3H a tile. Wh's rows are
-    read in place where 3H elements are a whole number of 16-byte pieces
-    (``in_place``), else laid out once a call (:func:`_tiled_weights`); a
-    CTA's rows of them stay in its shared memory where they fit
-    (``resident``), and ``wh_from`` says where they come from: shared
-    memory, L2, or device memory every step."""
+    """The backward's tiled plan for B rows and H units on a card of ``sms``
+    SMs: of the tilings and rings whose grid the card holds at once
+    (TILED_TILES x TILED_CLUSTERS x TILED_BWD_RINGS), the one
+    :func:`_tiled_cost` ranks first (then the smaller grid). Each CTA owns
+    ``rows`` x ``units`` cells of a chunk of ``rows * row_tiles`` batch rows
+    for the whole call (``chunks`` launches a call); ``cluster`` CTAs split
+    K = 3H a tile. Wh's rows are read in place where 3H elements are a
+    whole number of 16-byte pieces (``in_place``), else laid out once a call
+    (:func:`_tiled_weights`); a CTA's rows of them stay in its shared memory
+    where they fit (``resident``), and ``wh_from`` says where they come
+    from: shared memory, L2, or device memory every step."""
     B = max(B, 1)
     best = None
     for rows, units in TILED_TILES:
         for cluster in TILED_CLUSTERS:
-            plan = tiled_plan_for(B, H, dtype, sms, rows, units, cluster)
-            if plan is None:
-                continue
-            key = (_tiled_cost(B, H, dtype, plan), plan["grid"])
-            if best is None or key < best[0]:
-                best = (key, plan)
+            for ring in TILED_BWD_RINGS:
+                plan = tiled_plan_for(B, H, dtype, sms, rows, units, cluster, (ring,))
+                if plan is None:
+                    continue
+                key = (_tiled_cost(B, H, dtype, plan), plan["grid"])
+                if best is None or key < best[0]:
+                    best = (key, plan)
     if best is None:
         raise NotImplementedError(f"gru_layer_scan_bwd kernel: no tiling of {H} units fits "
                                   f"the card's {sms} SMs at once")
     return best[1]
 
 
+def tiled_valid(rows: int, units: int, cluster: int) -> bool:
+    """Whether the backward kernel takes a tile of ``rows`` x ``units`` in
+    clusters of ``cluster`` (``valid_tile``): 8 K groups (32 x 32) only
+    without a cluster, as a cluster's sums pass adds at most 4."""
+    return (rows, units) in TILED_TILES and cluster in TILED_CLUSTERS and \
+        (cluster == 1 or tiled_k_groups(rows, units) <= 4)
+
+
 def tiled_plan_for(B: int, H: int, dtype: torch.dtype, sms: int, rows: int, units: int,
-                   cluster: int) -> Optional[dict]:
+                   cluster: int, rings=TILED_BWD_RINGS) -> Optional[dict]:
     """The tiled plan of one tiling: as many row tiles a launch as the card
     holds at once with the unit tiles and clusters (at most the batch's),
-    ``chunks`` launches for B rows; None where the grid of one row tile or
-    the shared memory does not fit the card."""
-    if H < 1:
+    ``chunks`` launches for B rows; of ``rings``, the first (``resident``,
+    ``stages``) whose shared memory fits (by default Wh's rows resident
+    beside the whole K of the tile's rows of dh_proj, else beside a ring of
+    4 stages, else a ring of 4 stages that brings them); None where the
+    tiling is not the kernel's, or the grid of one row tile or the shared
+    memory does not fit the card."""
+    if H < 1 or not tiled_valid(rows, units, cluster):
         return None
     B = max(B, 1)
     unit_tiles = -(-H // units)
     most = tiled_co_resident(cluster, sms) // (unit_tiles * cluster)
     kc_own = tiled_kc_own(H, dtype, cluster)
-    # Wh's rows stay in shared memory where they fit
-    resident = tiled_smem(rows, units, cluster, True, kc_own) <= kernels.SMEM_PER_BLOCK
-    smem = tiled_smem(rows, units, cluster, resident, kc_own)
-    if most < 1 or smem > kernels.SMEM_PER_BLOCK:
+    for resident, stages in rings:
+        smem = tiled_smem(rows, units, cluster, resident, kc_own, stages)
+        if smem <= kernels.SMEM_PER_BLOCK:
+            break
+    else:
+        return None
+    if most < 1:
         return None
     row_tiles = min(-(-B // rows), most)
     grid = row_tiles * unit_tiles * cluster
@@ -619,7 +708,7 @@ def tiled_plan_for(B: int, H: int, dtype: torch.dtype, sms: int, rows: int, unit
     wh_bytes = H * (3 * H if in_place else tiled_ld(H, dtype)) * dtype.itemsize
     return dict(layout="tiled", rows=rows, units=units, cluster=cluster, unit_tiles=unit_tiles,
                 row_tiles=row_tiles, tiles=unit_tiles * row_tiles, grid=grid, ctas=grid,
-                chunks=-(-B // (rows * row_tiles)), stages=TILED_STAGES, resident=resident,
+                chunks=-(-B // (rows * row_tiles)), stages=stages, resident=resident,
                 kc=kc, k_chunks=-(-3 * H // kc), ldx=tiled_ld(H, dtype), in_place=in_place,
                 wh_from="smem" if resident else "l2" if wh_bytes <= H100_L2_BYTES else "hbm",
                 smem=smem)
@@ -893,6 +982,33 @@ def fwd_cluster_waves(plan: dict, sms: int) -> int:
     return -(-plan["clusters"] // max(1, held * sms // H100_SMS))
 
 
+# The backward's choice between its plans up to 512 units: clusters of the
+# backward's cluster plan that an H100 SXM (132 SMs) holds at once, by (CTAs
+# a cluster, CTAs an SM by shared memory; at most BWD_CLUSTER_CTAS_PER_SM):
+# the card's own count (cudaOccupancyMaxActiveClusters of the backward
+# cluster kernel at H = 32 to 512 in bf16 and f32, ``kernel_times.py
+# -crossover -bwd``, PERF.md). Clusters of 15 and 16 CTAs, whose CTAs take
+# an SM each from 449 units, fit 7 at once.
+H100_BWD_CLUSTERS = {
+    (1, 4): 528, (2, 4): 264, (3, 4): 163, (4, 4): 124, (5, 4): 94, (6, 4): 79, (7, 3): 47,
+    (8, 3): 45, (9, 3): 37, (4, 3): 92, (10, 2): 21, (11, 2): 16, (12, 2): 16, (13, 2): 14,
+    (14, 2): 14, (5, 2): 47, (6, 2): 39, (7, 2): 32, (8, 1): 15, (9, 1): 9, (10, 1): 7,
+    (11, 1): 7, (12, 1): 7, (13, 1): 7, (14, 1): 7, (15, 1): 7, (16, 1): 7}
+BWD_CLUSTER_CTAS_PER_SM = 4  # what the backward cluster kernel's registers allow an SM
+
+
+def bwd_cluster_waves(plan: dict, sms: int) -> int:
+    """The waves of the backward's cluster ``plan`` on a card of ``sms``
+    SMs: its clusters over those the plan counts on the card holding at once
+    (an H100's count, H100_BWD_CLUSTERS, by CTAs a cluster and the CTAs an
+    SM's shared memory takes; 7/8 of its SMs where it has none; in
+    proportion to the SMs). The wrapper asks the card for the count."""
+    cluster = plan["cluster"]
+    per_sm = max(1, min(BWD_CLUSTER_CTAS_PER_SM, H100_SMEM_PER_SM // (plan["smem"] + 1024)))
+    held = H100_BWD_CLUSTERS.get((cluster, per_sm), per_sm * H100_SMS * 7 // (8 * cluster))
+    return -(-plan["clusters"] // max(1, held * sms // H100_SMS))
+
+
 def scan_fwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     """Launch plan of the forward for B rows, T steps and H units on a card
     of ``sms`` SMs. Up to 512 units, where its clusters run in one wave
@@ -1032,13 +1148,16 @@ def products_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int, tiled: b
 
 def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SMS) -> dict:
     """Launch plan of the backward for B rows, T steps and H units on a
-    card of ``sms`` SMs. Up to 512 units (``layout`` ``"cluster"``):
-    clusters of ``cluster`` CTAs (up to 16), each owning ``units`` hidden
-    units of ``rows`` batch rows (4, or 2 in f32 above 448 units), with
-    ``smem`` bytes of dynamic shared memory per CTA (:func:`_bwd_smem`,
-    mirrors ``ScanLayout`` of csrc/gru_scan.cu); above, every width on the
-    tiled plan (:func:`_tiled_plan`, ``layout`` ``"tiled"``). All with the
-    hoisted products' plan (:func:`products_plan`). Raises NotImplementedError for what the design
+    card of ``sms`` SMs. Up to 512 units, where its clusters run in one wave
+    (``layout`` ``"cluster"``): clusters of ``cluster`` CTAs (up to 16),
+    each owning ``units`` hidden units of ``rows`` batch rows (4, or 2 in
+    f32 above 448 units), with ``smem`` bytes of dynamic shared memory per
+    CTA (:func:`_bwd_smem`, mirrors ``ScanLayout`` of csrc/gru_scan.cu).
+    Above 512 units, and wherever the cluster plan's clusters would not all
+    fit the card at once (:func:`bwd_cluster_waves`), the tiled plan
+    (:func:`_tiled_plan`, ``layout`` ``"tiled"``), as the forward's rule
+    (:func:`scan_fwd_plan`) does. All with the hoisted products' plan
+    (:func:`products_plan`). Raises NotImplementedError for what the design
     cannot hold. Cached as :func:`scan_fwd_plan` is."""
     return dict(_scan_bwd_plan(B, T, H, dtype, sms))
 
@@ -1047,8 +1166,23 @@ def scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int = H100_SM
 def _scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
     kernels.dtype_code("gru_layer_scan_bwd", dtype)
     if H > SCAN_CLUSTER_MAX_HIDDEN:
-        return dict(_tiled_plan(B, H, dtype, sms),
-                    **products_plan(B, T, H, dtype, sms, True))
+        return tiled_bwd_plan(B, T, H, dtype, sms)
+    plan = _cluster_bwd_plan(B, H, dtype, sms)
+    if bwd_cluster_waves(plan, sms) > 1:
+        return tiled_bwd_plan(B, T, H, dtype, sms)
+    return dict(plan, **products_plan(B, T, H, dtype, sms, False))
+
+
+def tiled_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The backward's tiled plan (:func:`_tiled_plan`) with its products'
+    plan: what :func:`scan_bwd_plan` takes above 512 units and wherever the
+    cluster plan runs in waves."""
+    return dict(_tiled_plan(B, H, dtype, sms), **products_plan(B, T, H, dtype, sms, True))
+
+
+def _cluster_bwd_plan(B: int, H: int, dtype: torch.dtype, sms: int) -> dict:
+    """The backward's cluster plan (:func:`scan_bwd_plan`, H up to 512),
+    without its products' plan."""
     cluster, units = _cluster_units("gru_layer_scan_bwd", H)
     rows = _bwd_rows(H, dtype, units)
     smem = _bwd_smem(H, dtype, units, rows)
@@ -1057,8 +1191,7 @@ def _scan_bwd_plan(B: int, T: int, H: int, dtype: torch.dtype, sms: int) -> dict
                                   f"per CTA exceed {kernels.SMEM_PER_BLOCK}")
     clusters = -(-B // rows)
     return dict(layout="cluster", cluster=cluster, rows=rows, units=units, clusters=clusters,
-                ctas=clusters * cluster, smem=smem,
-                **products_plan(B, T, H, dtype, sms, False))
+                ctas=clusters * cluster, smem=smem)
 
 
 class LaunchCount:
@@ -1132,7 +1265,7 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
     co-resident clusters, is kept in ``gru_layer_scan_bwd.plan``; its
     ``engine`` says which engine ran the hoisted products: ``"wgmma"`` in
     bf16 and f16, ``"tile"`` in f32). ``probe``: on
-    the tiled plan (H above 512), an int64 tensor of ``1 + 4 *
+    the tiled plan, an int64 tensor of ``1 + 4 *
     T`` entries on the device for the first launch's ``%globaltimer`` stamps
     (ns) of CTA 0: after its first grid barrier, then each step's gate
     backward, grid barrier, product and sums. A launch that is refused
@@ -1180,7 +1313,8 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
         args[4] = kernels.aligned(args[4])
     if plan["layout"] == "tiled":
         plan = _co_resident_tiled(
-            "gru_layer_scan_bwd", "vmmt_gru_tiled_bwd_occupancy", plan, code, H, x.device.index)
+            "gru_layer_scan_bwd", "vmmt_gru_tiled_bwd_occupancy", plan, code, H, x.device.index,
+            plan["stages"])
         gru_layer_scan_bwd.plan = _products_checked("gru_layer_scan_bwd", plan, code,
                                                     x.device.index)
         xch = _exchange(plan, plan["ldx"], dt, x.device)
@@ -1188,7 +1322,8 @@ def gru_layer_scan_bwd(x_proj: torch.Tensor, mask: torch.Tensor, h0: torch.Tenso
         err = lib.vmmt_gru_tiled_bwd(code, *map(_ptr, args), *outputs, hs, dp,
                                      xch.data_ptr(), _ptr(wt), B, T, H, int(reverse),
                                      plan["rows"], plan["units"], plan["cluster"],
-                                     plan["row_tiles"], int(plan["resident"]), plan["dwh_splits"],
+                                     plan["row_tiles"], int(plan["resident"]), plan["stages"],
+                                     plan["dwh_splits"],
                                      *products, _ptr(probe), kernels.stream_of(x))
     else:
         co_resident, smem = kernels.occupancy(x.device.index, "gru_scan",

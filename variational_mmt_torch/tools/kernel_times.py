@@ -21,8 +21,9 @@ and power limit.
     PYTHONPATH=<tree> python <this file> -wide [BxTxH,...]
 
 times rows 1 and 2 (the GRU-scan forward and backward, reset-free, bf16)
-at those shapes instead (by default the eleven shapes of ``chip_smoke.py``
-phase 13, B=64 T=25 and B=256 T=24 at H = 520 to 2500): for each shape and
+at those shapes instead (by default B=64 and 256, T=24, H=512 and the
+eleven shapes of ``chip_smoke.py`` phase 13, B=64 T=25 and B=256 T=24 at H
+= 520 to 2500): for each shape and
 row the call's time by CUDA events (``ms``), the device time of each CUDA
 kernel of one call under ``torch.profiler``, grouped by kernel name
 (``kernels``; row 2: the hoisted gate product, the reverse scan, the dWh
@@ -32,8 +33,9 @@ with the count of its records over 10 calls (``records``), their sum
 step by phase (its probe); row 2's device time split into the reverse
 scan, the hoisted products (``products_ms``: the operand pass, the wgmma or
 tile_gemm products) and the rest, with the products' TFLOP/s (12 B T H^2
-FLOPs); beside row 1, cuDNN's ``nn.GRU`` forward by kernel
-on the same clock (it also computes the input projection). Then the CUDA
+FLOPs); beside rows 1 and 2, cuDNN's ``nn.GRU`` forward and backward by
+kernel on the same clock (they also compute the input projection and its
+gradients). Then the CUDA
 kernels that the profiler records for one call of rows 5 and 6 at the
 training shape and at H = 2048 (``decoder``, by H), whose kernels launch
 through ``cudaLaunchCooperativeKernel``; row 6's split names its hoisted
@@ -54,15 +56,17 @@ alone (``products_us``), of the products' scratch allocations
 and under ``fwd`` row 1's plan, its call by events and on the device clock,
 and the host µs a call of its wrapper and of its C entry point.
 
-    PYTHONPATH=<tree> python <this file> -tilings BxTxH[,...] [-fwd]
+    PYTHONPATH=<tree> python <this file> -tilings BxTxH[,...] [-fwd | -bwd]
 
-times every tiling of both passes' tiled plans at those shapes (this tree's
-plans only; ``-fwd``: the forward's alone): each scan's device ms and µs a
-step by phase beside the plan's cost model.
+times every tiling and ring of both passes' tiled plans at those shapes
+(this tree's plans only; ``-fwd``: the forward's alone, ``-bwd``: the
+backward's): each scan's device ms and µs a step by phase beside the
+plan's cost model.
 
-    PYTHONPATH=<tree> python <this file> -crossover [float32,bfloat16]
+    PYTHONPATH=<tree> python <this file> -crossover [float32,bfloat16] [-bwd]
 
-times the forward's two plans in turns (cluster, tiled, tiled, cluster) at
+times the forward's (``-bwd``: the backward's) two plans in turns (cluster,
+tiled, tiled, cluster) at
 B = 32 to 1024, T = 24, H = 128 to 512 (``CROSSOVER_BATCHES`` x
 ``CROSSOVER_WIDTHS``), reset-free, in each dtype (this tree only): each
 plan's device ms by the profiler (with its records of 10 calls) and by
@@ -71,10 +75,20 @@ CUDA events around 20 calls queued behind a sleep on the device
 clusters the card holds at once, the tiled plan's tiling and its cost
 model, its largest error from the plain version and whether two of its
 launches are bit-identical, and cuDNN's nn.GRU forward (bf16) on the same
-clock; first, under ``clusters_at_once``, the card's count of clusters
-held at once for each cluster size (H = 32 to 512) and whether
-``gru_scan.fwd_cluster_waves`` counts the same. What the plan's choice
-between them was derived from.
+clock (``-bwd``: cuDNN's backward, bf16); first, under
+``clusters_at_once``, the card's count of clusters held at once for each
+cluster size (H = 32 to 512 in steps of 32, 250 and 500) and whether
+``gru_scan.fwd_cluster_waves`` (``bwd_cluster_waves``) counts the same.
+What the plans' choice between them was derived from.
+
+    PYTHONPATH=<tree> python <this file> -row4
+
+times row 4 (the GRU chain) at N = 1024, H = 250 (the kernels' width 252)
+on the device clock in turns with cuDNN's 2-layer ``nn.GRU`` over one step
+(kernel, padded, cuDNN, cuDNN, padded, kernel): ``kernel`` every input
+already at 252, ``padded`` the weights padded once and the activations
+padded and cut back by the wrapper at each call, as a request's steps
+call it; ``padding_ms`` is their difference.
 """
 
 from __future__ import annotations
@@ -136,8 +150,8 @@ def device_ms(fn, iters: int = 10) -> float:
     return us / iters / 1e3
 
 
-WIDE_SHAPES = ("64x25x520,256x24x520,64x25x1000,256x24x1000,64x25x1024,256x24x1024,"
-               "64x25x1040,64x25x1536,64x25x2048,256x24x2048,64x25x2500")
+WIDE_SHAPES = ("64x24x512,256x24x512,64x25x520,256x24x520,64x25x1000,256x24x1000,64x25x1024,"
+               "256x24x1024,64x25x1040,64x25x1536,64x25x2048,256x24x2048,64x25x2500")
 
 
 def kernel_name(name: str) -> str:
@@ -250,8 +264,8 @@ def row2_split(by_kernel: dict, B: int, T: int, H: int) -> dict:
 def wide_times(shapes: str, r, g) -> dict:
     """Rows 1 and 2 at each ``BxTxH`` shape in bf16: each call by CUDA
     events, the device ms of each of its CUDA kernels and, on a tiled plan,
-    the scan's µs a step by phase; row 2's split; cuDNN's nn.GRU forward by
-    kernel."""
+    the scan's µs a step by phase; row 2's split; cuDNN's nn.GRU forward and
+    backward by kernel."""
     out = {}
     for shape in shapes.split(","):
         (B, T, H), args = scan_bwd_args(shape, r, g)
@@ -266,14 +280,27 @@ def wide_times(shapes: str, r, g) -> dict:
         with torch.no_grad():
             cudnn = kernels_ms(lambda: gru(xin))
         rec["fwd"]["cudnn_kernels"], rec["fwd"]["cudnn_device_ms"] = cudnn, sum(cudnn.values())
+        cudnn = kernels_ms(cudnn_bwd_call(B, T, H, torch.bfloat16, r))
+        rec["bwd"]["cudnn_kernels"], rec["bwd"]["cudnn_device_ms"] = cudnn, sum(cudnn.values())
         out[f"B={B} T={T} H={H}"] = rec
     return out
 
 
-def tilings(shapes: str, r, g, fwd_only: bool = False) -> dict:
-    """Every tiling of both tiled plans (``gru_scan.TILED_TILES`` or
-    ``TILED_FWD_TILES`` x ``TILED_CLUSTERS``, Wh resident where it fits and
-    not) at each ``BxTxH`` shape in bf16: each scan's device ms and its µs a
+def cudnn_bwd_call(B: int, T: int, H: int, dt, r):
+    """A call of cuDNN's nn.GRU backward at (B, T, H) in ``dt`` (which also
+    computes the input-projection gradients that row 2 leaves to cuBLAS)."""
+    gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=dt)
+    gru.flatten_parameters()
+    xin = r(B, T, 2 * H).to(dt).requires_grad_(True)
+    y, _ = gru(xin)
+    gy = r(*y.shape).to(dt)
+    return lambda: torch.autograd.grad(y, [xin, *gru.parameters()], gy, retain_graph=True)
+
+
+def tilings(shapes: str, r, g, fwd_only: bool = False, bwd_only: bool = False) -> dict:
+    """Every tiling of both tiled plans (``gru_scan.TILED_TILES`` x
+    ``TILED_BWD_RINGS`` or ``TILED_FWD_TILES`` x ``TILED_FWD_RINGS``, x
+    ``TILED_CLUSTERS``) at each ``BxTxH`` shape in bf16: each scan's device ms and its µs a
     step by phase, beside what the plan's cost model predicts, the plan's
     own choice marked. What the plans' constants were fitted to."""
     out = {}
@@ -284,32 +311,35 @@ def tilings(shapes: str, r, g, fwd_only: bool = False) -> dict:
         for shape in shapes.split(","):
             (B, T, H), args = scan_bwd_args(shape, r, g)
             fargs = args[:5] + (True,)
-            chosen = planners[1](B, T, H, bf16, sms)
+            chosen = dict(planners[1](B, T, H, bf16, sms))
+            if chosen["layout"] != "tiled":  # the products' plan of the tiled plan
+                chosen = dict(gru_scan.tiled_bwd_plan(B, T, H, bf16, sms), layout="cluster")
             rows = []
             for tile_rows, units in () if fwd_only else gru_scan.TILED_TILES:
                 for cluster in gru_scan.TILED_CLUSTERS:
-                    plan = gru_scan.tiled_plan_for(B, H, bf16, sms, tile_rows, units, cluster)
-                    if plan is None:
-                        continue
-                    kc_own = gru_scan.tiled_kc_own(H, bf16, cluster)
-                    for resident in sorted({plan["resident"], False}, reverse=True):
-                        p = dict(plan, resident=resident, dwh_tiles=chosen["dwh_tiles"],
-                                 dwh_splits=chosen["dwh_splits"],
-                                 smem=gru_scan.tiled_smem(tile_rows, units, cluster, resident,
-                                                          kc_own))
+                    for ring in gru_scan.TILED_BWD_RINGS:  # every ring that fits
+                        plan = gru_scan.tiled_plan_for(B, H, bf16, sms, tile_rows, units,
+                                                       cluster, (ring,))
+                        if plan is None:
+                            continue
+                        p = dict(chosen, **plan)  # the products' plan kept
                         gru_scan.scan_bwd_plan = lambda *a, _p=p, **k: dict(_p)
                         scan = sum(v for n, v in kernels_ms(lambda: gru_scan.gru_layer_scan_bwd(
                             *args)).items() if "tiled" in n)
-                        rows.append({"tile": [tile_rows, units, cluster], "resident": resident,
-                                     "grid": p["grid"], "chunks": p["chunks"], "scan_ms": scan,
-                                     "model_ms": gru_scan._tiled_cost(B, H, bf16, p)
-                                     * T * 1e3, "us_a_step": phases_us(args, T),
-                                     "chosen": all(p[k] == chosen[k] for k in (
-                                         "rows", "units", "cluster", "resident"))})
+                        rows.append({"tile": [tile_rows, units, cluster], "resident": ring[0],
+                                     "stages": ring[1], "grid": p["grid"], "chunks": p["chunks"],
+                                     "scan_ms": scan, "model_ms": gru_scan._tiled_cost(
+                                         B, H, bf16, p) * T * 1e3,
+                                     "model_us": [x * 1e6 for x in gru_scan.tiled_bwd_phases(
+                                         B, H, bf16, p)],
+                                     "us_a_step": phases_us(args, T),
+                                     "chosen": chosen["layout"] == "tiled" and all(
+                                         p[k] == chosen[k] for k in (
+                                             "rows", "units", "cluster", "resident", "stages"))})
             gru_scan.scan_bwd_plan = planners[1]
             chosen = planners[0](B, T, H, bf16, sms)
             fwd = []
-            for tile_rows, units in gru_scan.TILED_FWD_TILES:
+            for tile_rows, units in () if bwd_only else gru_scan.TILED_FWD_TILES:
                 for cluster in gru_scan.TILED_CLUSTERS:
                     for ring in gru_scan.TILED_FWD_RINGS:  # every ring that fits
                         p = gru_scan.tiled_fwd_plan_for(B, H, bf16, sms, tile_rows, units,
@@ -334,35 +364,57 @@ def tilings(shapes: str, r, g, fwd_only: bool = False) -> dict:
     return out
 
 
-# the forward's two plans against each other: B, T = 24 and H (steps of 32
+# the scans' two plans against each other: B, T = 24 and H (steps of 32
 # from 256, of 16 from 448; and the flagship's 250 and the gate's 128)
 CROSSOVER_BATCHES = (32, 64, 128, 256, 512, 1024)
 CROSSOVER_WIDTHS = (128, 250, 256, 288, 320, 352, 384, 416, 448, 464, 480, 496, 512)
+# the widths whose clusters at once ``clusters_at_once`` reads
+CLUSTER_WIDTHS = tuple(range(32, 513, 32)) + (250, 500)
 
 
-def crossover(dtypes: str, r, g) -> dict:
-    """The forward's cluster and tiled plans in turns at each B and H of
-    CROSSOVER_BATCHES x CROSSOVER_WIDTHS in each of ``dtypes`` (the module
-    docstring's ``-crossover``)."""
+def clusters_at_once(dtypes: str, bwd: bool) -> dict:
+    """The card's count of the cluster plan's clusters held at once, for
+    each cluster size (H in CLUSTER_WIDTHS) and dtype, the CTAs an SM's
+    shared memory takes (``per_sm``), and whether the plan's wave count
+    (``fwd_cluster_waves`` or, with ``bwd``, ``bwd_cluster_waves``) agrees:
+    one wave for that many clusters, two for one more."""
     from variational_mmt_torch import kernels
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    planner = gru_scan.scan_fwd_plan
-    out = {"clusters_at_once": {}}  # the card's count for each cluster size (H = 32 to 512)
+    out = {}
     for dt_name in dtypes.split(","):
         dt = getattr(torch, dt_name)
-        for H in range(32, 513, 32):
-            plan = gru_scan._cluster_fwd_plan(1, H, dt, sms)
-            held, smem = kernels.occupancy(0, "gru_scan", "vmmt_gru_scan_occupancy",
-                                           kernels.DTYPE_CODE[dt], H, plan["cluster"],
-                                           plan["rows"])
+        for H in sorted(CLUSTER_WIDTHS):
+            if bwd:
+                plan = gru_scan._cluster_bwd_plan(1, H, dt, sms)
+                held, smem = kernels.occupancy(0, "gru_scan", "vmmt_gru_scan_bwd_occupancy",
+                                               kernels.DTYPE_CODE[dt], H, plan["cluster"],
+                                               plan["units"], plan["rows"])
+                waves = gru_scan.bwd_cluster_waves
+            else:
+                plan = gru_scan._cluster_fwd_plan(1, H, dt, sms)
+                held, smem = kernels.occupancy(0, "gru_scan", "vmmt_gru_scan_occupancy",
+                                               kernels.DTYPE_CODE[dt], H, plan["cluster"],
+                                               plan["rows"])
+                waves = gru_scan.fwd_cluster_waves
             # what the plan counts on: a wave of `held` clusters, so one
             # more cluster than that takes two
-            counted = dict(plan, clusters=held + 1)
-            out["clusters_at_once"][f"{dt_name} H={H}"] = {
-                "cluster": plan["cluster"], "smem": smem, "at_once": held,
-                "plan_agrees": gru_scan.fwd_cluster_waves(dict(plan, clusters=held), sms) == 1
-                and gru_scan.fwd_cluster_waves(counted, sms) == 2}
+            out[f"{dt_name} H={H}"] = {
+                "cluster": plan["cluster"], "smem": smem, "per_sm": gru_scan.H100_SMEM_PER_SM
+                // (smem + 1024), "at_once": held,
+                "plan_agrees": waves(dict(plan, clusters=held), sms) == 1
+                and waves(dict(plan, clusters=held + 1), sms) == 2}
+    return out
+
+
+def crossover(dtypes: str, r, g, bwd: bool = False) -> dict:
+    """The cluster and tiled plans of the forward (``bwd``: the backward) in
+    turns at each B and H of CROSSOVER_BATCHES x CROSSOVER_WIDTHS in each of
+    ``dtypes`` (the module docstring's ``-crossover``)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    name = "scan_bwd_plan" if bwd else "scan_fwd_plan"
+    planner = getattr(gru_scan, name)
+    out = {"clusters_at_once": clusters_at_once(dtypes, bwd)}
     try:
         for dt_name in dtypes.split(","):
             dt = getattr(torch, dt_name)
@@ -372,40 +424,89 @@ def crossover(dtypes: str, r, g) -> dict:
                     lengths = torch.randint(T // 3, T + 1, (B,), generator=g, device="cuda")
                     mask = (torch.arange(T, device="cuda")[None] < lengths[:, None]).float()
                     args = (r(B, T, 3 * H).to(dt), mask, 0.1 * r(B, H),
-                            (r(H, 3 * H) / math.sqrt(H)).to(dt), 0.1 * r(3 * H), True)
-                    plans = {"cluster": gru_scan._cluster_fwd_plan(B, H, dt, sms),
-                             "tiled": gru_scan.tiled_fwd_plan(B, H, dt, sms)}
+                            (r(H, 3 * H) / math.sqrt(H)).to(dt), 0.1 * r(3 * H))
+                    if bwd:
+                        outs, _ = gru_scan.gru_layer_scan_ref(*args, True)
+                        args = args + (outs, r(B, T, H), True)
+                        call = lambda: gru_scan.gru_layer_scan_bwd(*args)  # noqa: E731
+                        ref, wrapper = gru_scan.gru_layer_scan_bwd_ref, gru_scan.gru_layer_scan_bwd
+                        plans = {"cluster": dict(gru_scan._cluster_bwd_plan(B, H, dt, sms),
+                                                 **gru_scan.products_plan(B, T, H, dt, sms, False)),
+                                 "tiled": gru_scan.tiled_bwd_plan(B, T, H, dt, sms)}
+                        cost = gru_scan._tiled_cost
+                    else:
+                        args = args + (True,)
+                        call = lambda: gru_scan.gru_layer_scan(*args)  # noqa: E731
+                        ref, wrapper = gru_scan.gru_layer_scan_ref, gru_scan.gru_layer_scan
+                        plans = {"cluster": gru_scan._cluster_fwd_plan(B, H, dt, sms),
+                                 "tiled": gru_scan.tiled_fwd_plan(B, H, dt, sms)}
+                        cost = gru_scan._tiled_fwd_cost
                     rec = {k: {"device_ms": [], "records": [], "queued_ms": []} for k in plans}
-                    for name in ("cluster", "tiled", "tiled", "cluster"):
-                        gru_scan.scan_fwd_plan = lambda *a, _p=plans[name], **k: dict(_p)
+                    for layout in ("cluster", "tiled", "tiled", "cluster"):
+                        setattr(gru_scan, name, lambda *a, _p=plans[layout], **k: dict(_p))
                         records = {}
-                        by_kernel = kernels_ms(lambda: gru_scan.gru_layer_scan(*args),
-                                               records=records)
-                        rec[name]["device_ms"].append(sum(by_kernel.values()))
-                        rec[name]["records"].append(sum(records.values()))
-                        rec[name]["queued_ms"].append(
-                            queued_ms(lambda: gru_scan.gru_layer_scan(*args)))
-                        if name == "cluster":
-                            rec[name]["plan"] = gru_scan.gru_layer_scan.plan
+                        by_kernel = kernels_ms(call, records=records)
+                        rec[layout]["device_ms"].append(sum(by_kernel.values()))
+                        rec[layout]["records"].append(sum(records.values()))
+                        rec[layout]["queued_ms"].append(queued_ms(call))
+                        if layout == "cluster":
+                            rec[layout]["plan"] = wrapper.plan
                     tiled = plans["tiled"]
-                    gru_scan.scan_fwd_plan = lambda *a, **k: dict(tiled)
-                    first = gru_scan.gru_layer_scan(*args)
-                    second = gru_scan.gru_layer_scan(*args)
-                    want = gru_scan.gru_layer_scan_ref(*args)
+                    setattr(gru_scan, name, lambda *a, **k: dict(tiled))
+                    first, second = call(), call()
+                    want = ref(*args)
                     rec["tiled"].update(
                         tiling=[tiled[k] for k in ("rows", "units", "cluster", "resident",
                                                    "stages", "grid")],
-                        model_ms=gru_scan._tiled_fwd_cost(B, H, dt, tiled) * T * 1e3,
+                        model_ms=cost(B, H, dt, tiled) * T * 1e3,
                         max_abs_err=max((a - b).abs().max().item() for a, b in zip(first, want)),
                         bit_identical=all(torch.equal(a, b) for a, b in zip(first, second)))
+                    rec["rule"] = planner(B, T, H, dt, sms)["layout"]
                     if dt == torch.bfloat16:
-                        gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda", dtype=dt)
-                        xin = r(B, T, 2 * H).to(dt)
-                        with torch.no_grad():
-                            rec["cudnn_device_ms"] = sum(kernels_ms(lambda: gru(xin)).values())
+                        if bwd:
+                            lib = cudnn_bwd_call(B, T, H, dt, r)
+                        else:
+                            gru = torch.nn.GRU(2 * H, H, batch_first=True, device="cuda",
+                                               dtype=dt)
+                            xin = r(B, T, 2 * H).to(dt)
+                            lib = lambda: gru(xin)  # noqa: E731
+                        with torch.no_grad() if not bwd else torch.enable_grad():
+                            rec["cudnn_device_ms"] = sum(kernels_ms(lib).values())
                     out[f"{dt_name} B={B} T={T} H={H}"] = rec
     finally:
-        gru_scan.scan_fwd_plan = planner
+        setattr(gru_scan, name, planner)
+    return out
+
+
+def row4_times(r, g) -> dict:
+    """Row 4 at N = 1024, H = 250 beside cuDNN's step (the module
+    docstring's ``-row4``): device ms of each turn."""
+    from variational_mmt_torch.ops.decode_step import pad_step_weights, pad_units, padded_width
+
+    N, H = 1024, 250
+    Hp = padded_width(H)
+    bf = torch.bfloat16
+    w = lambda *s: (r(*s) / math.sqrt(H)).to(bf)  # noqa: E731
+    acts = (r(N, 3 * H).to(bf), torch.tanh(r(N, H)).to(bf), torch.tanh(r(N, H)).to(bf),
+            torch.tanh(r(N, H)).to(bf))
+    weights = pad_step_weights(w(H, 3 * H), w(H, 3 * H), 0.1 * r(3 * H), w(H, 3 * H),
+                               0.1 * r(3 * H), w(H, 3 * H), 0.1 * r(3 * H))
+    wide = (pad_units(acts[0], H, Hp, -1, 3),) + tuple(pad_units(a, H, Hp) for a in acts[1:])
+    gru = torch.nn.GRU(2 * H, H, num_layers=2, batch_first=True, device="cuda", dtype=bf)
+    x = r(N, 1, 2 * H).to(bf)
+    h = torch.tanh(r(2, N, H)).to(bf)
+
+    def cudnn():
+        with torch.no_grad():
+            return gru(x, h)
+
+    calls = {"kernel": lambda: ds.gru_chain(*wide, *weights),
+             "padded": lambda: ds.gru_chain(*acts, *weights), "cudnn": cudnn}
+    out = {k: [] for k in calls}
+    for name in ("kernel", "padded", "cudnn", "cudnn", "padded", "kernel"):
+        out[name].append(sum(kernels_ms(calls[name], iters=50).values()))
+    out["padding_ms"] = [p - k for p, k in zip(out["padded"], out["kernel"])]
+    out["plan"] = ds.gru_chain.plan
     return out
 
 
@@ -537,6 +638,10 @@ def main(argv=None) -> None:
     p.add_argument("-fwd", action="store_true", help="-tilings: the forward's alone")
     p.add_argument("-crossover", nargs="?", const="bfloat16,float32", default=None,
                    help="time the forward's cluster and tiled plans in turns in these dtypes")
+    p.add_argument("-bwd", action="store_true",
+                   help="-crossover: the backward's plans; -tilings: the backward's alone")
+    p.add_argument("-row4", action="store_true",
+                   help="time row 4 at N = 1024, H = 250 beside cuDNN's step instead")
     opt = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_times: needs a CUDA card")
@@ -562,11 +667,15 @@ def main(argv=None) -> None:
         print(json.dumps({"host_times": host_times(opt.host, r, g), "card": card}))
         return
     if opt.tilings is not None:
-        print(json.dumps({"tilings": tilings(opt.tilings, r, g, opt.fwd), "card": card}))
+        print(json.dumps({"tilings": tilings(opt.tilings, r, g, opt.fwd, opt.bwd),
+                          "card": card}))
         return
     if opt.crossover is not None:
-        print(json.dumps({"crossover": crossover(opt.crossover, r, g), "card": card},
+        print(json.dumps({"crossover": crossover(opt.crossover, r, g, opt.bwd), "card": card},
                          default=str))
+        return
+    if opt.row4:
+        print(json.dumps({"row4": row4_times(r, g), "card": card}, default=str))
         return
     bf = getattr(torch, opt.dtype)
     calls = {}
